@@ -1,0 +1,44 @@
+"""Carry the reference's weights across: numpy parameter trees to tensors.
+
+The reference's ``init_lm`` parameters (turned into numpy on the caller's
+side, e.g. ``jax.tree.map(np.asarray, params)``) keep their layout: stacked
+``blocks`` leaves are ``[L, ...]``, dense weights are ``[in, out]`` used as
+``x @ w``, and the ``embed`` / ``lm_head`` tables are padded to
+``cfg.padded_vocab()``.  Nothing is transposed, so comparisons stay like for
+like.  This module takes numpy only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def _to_torch(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
+                    device="cuda") -> dict:
+    """The port's parameters from a numpy tree of the reference's dense LM
+    parameters."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r}: only dense weights convert yet")
+    want = {"embed", "norm_f", "blocks"} | (
+        set() if cfg.tie_embeddings else {"lm_head"})
+    if set(tree_of_numpy) != want:
+        raise ValueError(f"expected top-level keys {sorted(want)}, got "
+                         f"{sorted(tree_of_numpy)}")
+    table = np.shape(tree_of_numpy["embed"]["table"])
+    if table != (cfg.padded_vocab(), cfg.d_model):
+        raise ValueError(f"embed table {table} does not match the config")
+    lead = np.shape(tree_of_numpy["blocks"]["ln1"]["scale"])[0]
+    if lead != cfg.n_layers:
+        raise ValueError(f"blocks stack {lead} layers, config has "
+                         f"{cfg.n_layers}")
+    return _to_torch(tree_of_numpy, torch.device(device))

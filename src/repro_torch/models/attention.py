@@ -1,0 +1,252 @@
+"""GQA attention with the paper's (m, n) softmax as its core (dense family).
+
+Cores take q: [B, Hkv, G, Sq, D]; k: [B, Hkv, Skv, D]; v: [B, Hkv, Skv, Dv]:
+GQA runs in grouped form, KV heads are never repeated.
+
+Caches are updated IN PLACE (the reference is functional): a serving pool
+holds every layer's KV, and a copy per step would double its memory and
+traffic.  ``attention`` returns the same cache dict it was given.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import numerics
+from repro_torch.core.policy import DEFAULT_POLICY, SoftmaxPolicy
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import layers
+
+
+def head_layout(cfg: ModelConfig, tp: int = 1):
+    """Returns (hq_padded, grouped, real_head_mask, head_to_kv), as the
+    reference; only the single-device grouped layout is served here."""
+    hq = cfg.padded_heads(tp)
+    hkv = cfg.n_kv_heads
+    if hq % hkv == 0 and hkv % tp == 0:
+        g_pad = hq // hkv
+        g_real = cfg.n_heads // hkv
+        return hq, True, (np.arange(hq) % g_pad) < g_real, None
+    g_real = max(1, cfg.n_heads // hkv)
+    head_to_kv = np.minimum(np.arange(hq) // g_real, hkv - 1)
+    return hq, False, np.arange(hq) < cfg.n_heads, head_to_kv
+
+
+def _block_mask(qpos, kpos, causal, window, kv_len):
+    mask = kpos[None, :] < kv_len
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    return mask
+
+
+def mn_chunk_attention(q, k, v, *, causal, window=None, scale,
+                       q_offset: int = 0, kv_len=None,
+                       n_q_chunks: int = 1, n_kv_chunks: int = 1):
+    """(m, n)-streamed chunked attention: causal/window-dead chunks are
+    skipped, the running output is rescaled by exact powers of two."""
+    b, hkv, g, sq, _ = q.shape
+    skv = k.shape[2]
+    dv = v.shape[3]
+    kv_len = skv if kv_len is None else kv_len
+    dev = q.device
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    qc = -(-sq // n_q_chunks)
+    kc = -(-skv // n_kv_chunks)
+    outs = []
+    for i in range(n_q_chunks):
+        q_blk = qf[:, :, :, i * qc:(i + 1) * qc]
+        bq = q_blk.shape[3]
+        if bq == 0:
+            continue
+        qpos = torch.arange(i * qc, i * qc + bq, device=dev) + q_offset
+        o_acc = torch.zeros((b, hkv, g, bq, dv), device=dev)
+        m_acc = torch.zeros((b, hkv, g, bq, 1), device=dev)
+        n_acc = torch.full((b, hkv, g, bq, 1), numerics.MINUS_INF_N,
+                           device=dev)
+        for j in range(n_kv_chunks):
+            lo, hi = j * kc, min(skv, (j + 1) * kc)
+            if lo >= hi:
+                continue
+            if causal and lo > (i * qc + bq - 1) + q_offset:
+                continue
+            if window is not None and hi - 1 <= i * qc + q_offset - window:
+                continue
+            s = torch.einsum("bhgqd,bhkd->bhgqk", q_blk, kf[:, :, lo:hi]) \
+                * scale
+            mask = _block_mask(qpos, torch.arange(lo, hi, device=dev),
+                               causal, window, kv_len)
+            s = torch.where(mask, s, -torch.inf)
+            m, n = numerics.ext_exp(s)
+            n_loc = n.amax(dim=-1, keepdim=True)
+            w = m * numerics.exp2_int(n - n_loc)
+            m_loc = w.sum(dim=-1, keepdim=True)
+            o_loc = torch.einsum("bhgqk,bhkd->bhgqd", w, vf[:, :, lo:hi])
+            n_new = torch.maximum(n_acc, n_loc)
+            a_acc = numerics.exp2_int(n_acc - n_new)
+            a_loc = numerics.exp2_int(n_loc - n_new)
+            o_acc = o_acc * a_acc + o_loc * a_loc
+            m_acc = m_acc * a_acc + m_loc * a_loc
+            n_acc = n_new
+        outs.append(o_acc / torch.clamp(m_acc, min=1e-37))
+    return torch.cat(outs, dim=3).to(q.dtype)
+
+
+def full_attention(q, k, v, *, causal, window=None, scale, q_offset=0,
+                   kv_len=None, policy: SoftmaxPolicy | None = None,
+                   qpos=None):
+    """Single-block grouped attention; the softmax goes through the policy
+    (the two-pass kernel with ``use_kernels``).  ``qpos`` overrides the
+    query positions (prefill into a cache)."""
+    policy = policy or DEFAULT_POLICY
+    sq, skv = q.shape[3], k.shape[2]
+    kv_len = skv if kv_len is None else kv_len
+    s = torch.einsum("bhgqd,bhkd->bhgqk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if qpos is None:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+    mask = _block_mask(qpos, torch.arange(skv, device=q.device), causal,
+                       window, kv_len)
+    s = torch.where(mask, s, -torch.inf)
+    p = policy.softmax(s, axis=-1)
+    return torch.einsum("bhgqk,bhkd->bhgqd", p,
+                        v.to(torch.float32)).to(q.dtype)
+
+
+MAX_Q_CHUNKS = 8
+MAX_KV_CHUNKS = 16
+# Score matrices up to this size stay single-block (policy-honouring
+# full_attention) unless blocks are overridden.
+SINGLE_BLOCK_SCORES = 2048 * 2048
+
+
+def resolve_chunks(sq: int, skv: int,
+                   policy: SoftmaxPolicy | None = None) -> tuple[int, int]:
+    """Chunk counts for :func:`mn_chunk_attention`; (1, 1) = single block."""
+    policy = policy or DEFAULT_POLICY
+    bq, bk = policy.resolve_blocks("chunk_attention", sq, skv)
+    heuristic_only = (policy.attn_block_q is None
+                      and policy.attn_block_k is None)
+    if heuristic_only and sq * skv <= SINGLE_BLOCK_SCORES:
+        return 1, 1
+    return (min(MAX_Q_CHUNKS, -(-sq // bq)),
+            min(MAX_KV_CHUNKS, -(-skv // bk)))
+
+
+def attention_core(q, k, v, *, causal, window, scale, q_offset=0,
+                   kv_len=None, qpos=None, cfg: ModelConfig):
+    """Serving always passes ``qpos`` (a cache is written), which takes
+    :func:`full_attention` and so the policy's softmax.  The training flash
+    route is not ported yet (ROADMAP queue A item 9)."""
+    policy = cfg.softmax_policy()
+    nq, nkv = resolve_chunks(q.shape[3], k.shape[2], policy)
+    if (nq == 1 and nkv == 1) or qpos is not None:
+        return full_attention(
+            q, k, v, causal=causal, window=window, scale=scale,
+            q_offset=q_offset, kv_len=kv_len, qpos=qpos, policy=policy)
+    return mn_chunk_attention(
+        q, k, v, causal=causal, window=window, scale=scale,
+        q_offset=q_offset, kv_len=kv_len, n_q_chunks=nq, n_kv_chunks=nkv)
+
+
+def init_attention(gen, cfg: ModelConfig, dtype, lead: tuple = ()) -> dict:
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim()
+    hq = cfg.padded_heads(1)
+    return {
+        "wq": layers.init_dense(gen, d, hq * hd, dtype, bias=cfg.qkv_bias,
+                                lead=lead),
+        "wk": layers.init_dense(gen, d, cfg.n_kv_heads * hd, dtype,
+                                bias=cfg.qkv_bias, lead=lead),
+        "wv": layers.init_dense(gen, d, cfg.n_kv_heads * hd, dtype,
+                                bias=cfg.qkv_bias, lead=lead),
+        "wo": layers.init_dense(gen, hq * hd, d, dtype, lead=lead),
+    }
+
+
+def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
+              causal: bool = True, cache: dict | None = None,
+              cache_pos=None, cache_positions=None, page_table=None):
+    """GQA self-attention.  x: [B, S, d].
+
+    * ``cache`` + ``cache_pos`` (int): write-then-attend over the cache
+      (prefill at 0, lockstep decode at the fill).
+    * ``cache_positions`` ([B] int, S == 1): ragged continuous-batching
+      decode.  Each slot writes at its own position and attends its own
+      prefix through ``decode_attention``; with ``page_table`` ([B, Pmax])
+      the cache leaves are page arenas ``[P, ps, Hkv, hd]`` and the op is
+      ``decode_attention_paged``.
+
+    Returns (out, cache)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    hq, grouped, _, _ = head_layout(cfg)
+    if not grouped:
+        raise NotImplementedError(
+            "attention: only the grouped GQA layout is ported "
+            "(tensor-parallel head padding is ROADMAP queue A item 22)")
+    hkv = cfg.n_kv_heads
+    gq = hq // hkv
+    window = cfg.swa_window
+    policy = cfg.softmax_policy()
+
+    q = layers.dense(p["wq"], x).reshape(b, s, hq, hd)
+    k = layers.dense(p["wk"], x).reshape(b, s, hkv, hd)
+    v = layers.dense(p["wv"], x).reshape(b, s, hkv, hd)
+    q = layers.apply_rope(q, cos, sin)
+    k = layers.apply_rope(k, cos, sin)
+
+    if cache_positions is not None:
+        assert cache is not None and s == 1
+        if "k_scale" in cache:
+            raise NotImplementedError(
+                "int8 page writes are not ported yet (ROADMAP queue A "
+                "item 18)")
+        qg = q[:, 0].reshape(b, hkv, gq, hd)
+        if page_table is not None:
+            # Paged ragged decode: scatter this token's K/V through the
+            # table (free slots' rows point at the trash page), attend
+            # through the page-gathering op.
+            ps = cache["k"].shape[1]
+            t_logical = page_table.shape[1] * ps
+            wpos = torch.clamp(cache_positions.long(), max=t_logical - 1)
+            pg = page_table.long().gather(1, (wpos // ps)[:, None])[:, 0]
+            off = wpos % ps
+            cache["k"][pg, off] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][pg, off] = v[:, 0].to(cache["v"].dtype)
+            o = kernel_ops.decode_attention_paged(
+                qg, cache["k"], cache["v"], page_table, wpos + 1,
+                scale=hd ** -0.5, window=window, policy=policy)
+        else:
+            # strip cache [B, T, Hkv, hd]: read in place through a
+            # transposed view [B, Hkv, T, hd]
+            wpos = torch.clamp(cache_positions.long(),
+                               max=cache["k"].shape[1] - 1)
+            rows = torch.arange(b, device=x.device)
+            cache["k"][rows, wpos] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][rows, wpos] = v[:, 0].to(cache["v"].dtype)
+            o = kernel_ops.decode_attention(
+                qg, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
+                wpos + 1, scale=hd ** -0.5, window=window, policy=policy)
+        return layers.dense(p["wo"], o.reshape(b, 1, hq * hd)), cache
+
+    kv_len = None
+    qpos = None
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]            # [B, Smax, Hkv, hd]
+        if cache_pos is not None:
+            ck[:, cache_pos:cache_pos + s] = k.to(ck.dtype)
+            cv[:, cache_pos:cache_pos + s] = v.to(cv.dtype)
+            kv_len = cache_pos + s
+            qpos = torch.arange(s, device=x.device) + cache_pos
+        k, v = ck, cv
+
+    qg = q.reshape(b, s, hkv, gq, hd).permute(0, 2, 3, 1, 4)
+    o = attention_core(qg, k.transpose(1, 2), v.transpose(1, 2),
+                       causal=causal, window=window, scale=hd ** -0.5,
+                       kv_len=kv_len, qpos=qpos, cfg=cfg)
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, s, hq * hd)
+    return layers.dense(p["wo"], o), cache

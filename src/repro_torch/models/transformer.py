@@ -1,0 +1,117 @@
+"""Model assembly for the dense family: decoder-only LM with an LM head.
+
+Layer parameters are stacked on a leading ``[L]`` axis, as in the
+reference; the layer loop is a Python loop that indexes them (the
+reference's ``lax.scan``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import layers
+
+Params = dict
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: only the dense "
+            "family serves in this package (ROADMAP queue A items 11-16)")
+
+
+def layer(tree, i: int):
+    """Layer ``i`` of a stacked-layer tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def init_block(gen, cfg: ModelConfig, dtype, lead: tuple = ()) -> Params:
+    dev = gen.device
+    return {
+        "ln1": layers.init_rmsnorm(cfg.d_model, dtype, dev, lead),
+        "attn": attn_mod.init_attention(gen, cfg, dtype, lead),
+        "ln2": layers.init_rmsnorm(cfg.d_model, dtype, dev, lead),
+        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                               act=cfg.act, lead=lead),
+    }
+
+
+def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
+                cache_pos=None, cache_positions=None, page_table=None):
+    """One dense block.  x: [B, S, d] or [B, d] (a decode token).  Returns
+    (x, cache)."""
+    single = x.ndim == 2
+    xin = x[:, None] if single else x
+    h = layers.rmsnorm(p["ln1"], xin, eps=cfg.norm_eps)
+    a, cache = attn_mod.attention(p["attn"], h, cos, sin, cfg=cfg,
+                                  cache=cache, cache_pos=cache_pos,
+                                  cache_positions=cache_positions,
+                                  page_table=page_table)
+    x1 = xin + a
+    h2 = layers.rmsnorm(p["ln2"], x1, eps=cfg.norm_eps)
+    out = x1 + layers.mlp(p["mlp"], h2, act=cfg.act)
+    return (out[:, 0] if single else out), cache
+
+
+def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+            dtype: torch.dtype | None = None) -> Params:
+    """Random weights from a seeded ``torch.Generator`` on ``device``.
+    ``dtype`` defaults to ``cfg.param_dtype``; on the card the compute
+    dtype (bf16) halves the weights' memory with identical results, since
+    every use casts to the activation dtype."""
+    _check_family(cfg)
+    dt = dtype or torch_dtype(cfg.param_dtype)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    vp = cfg.padded_vocab()
+    p: Params = {
+        "embed": layers.init_embedding(gen, vp, cfg.d_model, dt),
+        "norm_f": layers.init_rmsnorm(cfg.d_model, dt, gen.device),
+        "blocks": init_block(gen, cfg, dt, lead=(cfg.n_layers,)),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = layers.init_dense(gen, cfg.d_model, vp, dt)
+    return p
+
+
+def _positions_for(cfg: ModelConfig, b: int, s: int, start: int = 0,
+                   device=None):
+    """Position ids for a prompt's first ``s`` tokens (offset ``start``)."""
+    return torch.arange(s, device=device) + start
+
+
+def _cos_sin(cfg: ModelConfig, positions):
+    return layers.rope_cos_sin(positions, cfg.resolved_head_dim(),
+                               cfg.rope_theta)
+
+
+def forward(params: Params, tokens, *, cfg: ModelConfig):
+    """Token forward to final hidden states [B, S, d] (no cache)."""
+    _check_family(cfg)
+    b, s = tokens.shape
+    x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    cos, sin = _cos_sin(cfg, _positions_for(cfg, b, s, device=x.device))
+    for i in range(cfg.n_layers):
+        x, _ = block_apply(layer(params["blocks"], i), x, cos, sin, cfg=cfg)
+    return layers.rmsnorm(params["norm_f"], x, eps=cfg.norm_eps)
+
+
+def _head_w(params: Params, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].T
+    return params["lm_head"]["w"]
+
+
+def lm_logits(params: Params, h, *, cfg: ModelConfig):
+    """Full logits for sampling/eval.  h: [..., d] -> [..., V_padded]."""
+    return h @ _head_w(params, cfg).to(h.dtype)

@@ -1,0 +1,170 @@
+"""Serving: prefill and single-token decode steps (dense family).
+
+``decode_step`` is the lockstep step of one batch against a cache;
+``decode_step_ragged`` is its continuous-batching form over a slot pool
+whose slots sit at different positions (the step the scheduler drives).
+The layer loop is a Python loop over the stacked parameters.  Sampling is a
+softmax site: it resolves through the config's SoftmaxPolicy.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.policy import DEFAULT_POLICY, SoftmaxPolicy
+from repro_torch.models import layers, transformer
+from repro_torch.models.transformer import layer, torch_dtype
+from repro_torch.serving import kv_cache
+
+Params = dict
+
+
+def _device(params: Params) -> torch.device:
+    return params["embed"]["table"].device
+
+
+def sync(device) -> None:
+    """Wait for the device (host clocks around card work need it)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _cos_sin_at(cfg: ModelConfig, pos: torch.Tensor, batch: int):
+    """RoPE tables at a per-row position ([B] or scalar) -> [B, 1, hd/2]."""
+    positions = pos.reshape(-1, 1).expand(batch, 1)
+    return layers.rope_cos_sin(positions, cfg.resolved_head_dim(),
+                               cfg.rope_theta)
+
+
+def _finish(params, h, cfg):
+    h = layers.rmsnorm(params["norm_f"], h, eps=cfg.norm_eps)
+    return transformer.lm_logits(params, h, cfg=cfg)
+
+
+def decode_step(params: Params, cache: dict, tokens, pos: int, *,
+                cfg: ModelConfig):
+    """One lockstep decode step.  tokens: [B] int; pos: the cache fill.
+    Writes the cache in place.  Returns (logits [B, V_padded], cache)."""
+    b = tokens.shape[0]
+    dev = _device(params)
+    x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    cos, sin = _cos_sin_at(cfg, torch.tensor(pos, device=dev), b)
+    for i in range(cfg.n_layers):
+        x, _ = transformer.block_apply(
+            layer(params["blocks"], i), x, cos, sin, cfg=cfg,
+            cache=layer(cache, i), cache_pos=int(pos))
+    return _finish(params, x, cfg), cache
+
+
+def decode_step_ragged(params: Params, pool: dict, tokens, *,
+                       cfg: ModelConfig, active=None):
+    """One continuous-batching decode step over a slot pool
+    (``kv_cache.init_slot_pool`` or ``init_paged_pool`` state).
+
+    tokens: [S] int (free slots may carry any value); active: [S] bool
+    (default ``lengths > 0``).  Inactive slots still flow through the
+    compute -- their writes land in dead rows (the trash page of a paged
+    pool) -- but their lengths do not advance.  Each slot writes at its
+    current length and attends its own prefix.  The pool changes in place.
+    Returns (logits [S, V_padded], pool)."""
+    kv, lengths = pool["kv"], pool["lengths"]
+    page_table = pool.get("page_table")
+    s = tokens.shape[0]
+    if active is None:
+        active = lengths > 0
+    x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    cos, sin = _cos_sin_at(cfg, lengths, s)
+    for i in range(cfg.n_layers):
+        x, _ = transformer.block_apply(
+            layer(params["blocks"], i), x, cos, sin, cfg=cfg,
+            cache=layer(kv, i), cache_positions=lengths,
+            page_table=page_table)
+    logits = _finish(params, x, cfg)
+    lengths.add_(active.to(torch.int32))
+    return logits, pool
+
+
+def prefill(params: Params, tokens, *, cfg: ModelConfig,
+            max_len: int | None = None, last_pos=None):
+    """Process whole prompts; returns (logits at the last prompt token,
+    filled cache of ``max_len`` positions).
+
+    ``last_pos`` ([B] or scalar int): index of the true last prompt token
+    (bucketed prefill pads prompts; the pad tail sits causally after the
+    prompt and is hidden later by the pool's length mask).  None reads
+    ``h[:, -1]``."""
+    b, s = tokens.shape
+    dev = _device(params)
+    max_len = max(max_len or 0, s)
+    cache = kv_cache.init_cache(cfg, b, max_len, device=dev)
+    x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    cos, sin = transformer._cos_sin(
+        cfg, transformer._positions_for(cfg, b, s, device=dev))
+    for i in range(cfg.n_layers):
+        x, _ = transformer.block_apply(
+            layer(params["blocks"], i), x, cos, sin, cfg=cfg,
+            cache=layer(cache, i), cache_pos=0)
+    if last_pos is None:
+        h = x[:, -1]
+    else:
+        idx = torch.as_tensor(last_pos, device=dev).long().expand(b)
+        h = x[torch.arange(b, device=dev), idx]
+    return _finish(params, h, cfg), cache
+
+
+def sample_token(logits, generator: torch.Generator | None,
+                 temperature: float = 1.0, *, cfg: ModelConfig | None = None,
+                 vocab: int | None = None,
+                 policy: SoftmaxPolicy | None = None):
+    """Greedy (``temperature == 0``) or temperature sampling.  The sampling
+    softmax resolves through the policy (the two-pass kernel with
+    ``use_kernels``); draws come from ``generator``."""
+    if policy is None:
+        policy = cfg.softmax_policy() if cfg is not None else DEFAULT_POLICY
+    v = vocab or logits.shape[-1]
+    logits = logits[..., :v].to(torch.float32)
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    probs = policy.softmax(logits / temperature, axis=-1)
+    return torch.multinomial(probs, 1, generator=generator)[..., 0]
+
+
+def generate_timed(params, prompt, *, cfg: ModelConfig, steps: int,
+                   generator: torch.Generator | None = None,
+                   max_len: int | None = None, temperature: float = 1.0):
+    """Lockstep generation with per-phase timing: ``steps + 1`` tokens (one
+    from the prefill logits, ``steps`` decoded).  Returns (tokens [B,
+    steps + 1], stats with prefill/decode seconds and token counts)."""
+    b, s = prompt.shape
+    dev = _device(params)
+    max_len = max_len or (s + steps)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompt, cfg=cfg, max_len=max_len)
+    tok = sample_token(logits, generator, temperature, cfg=cfg,
+                       vocab=cfg.vocab)
+    sync(dev)
+    t1 = time.perf_counter()
+    toks = []
+    for i in range(steps):
+        toks.append(tok)
+        logits, cache = decode_step(params, cache, tok, s + i, cfg=cfg)
+        tok = sample_token(logits, generator, temperature, cfg=cfg,
+                           vocab=cfg.vocab)
+    toks.append(tok)
+    out = torch.stack(toks, dim=1)
+    sync(dev)
+    t2 = time.perf_counter()
+    return out, dict(prefill_tokens=b * s, prefill_s=t1 - t0,
+                     decode_tokens=b * steps, decode_s=t2 - t1)
+
+
+def generate(params, prompt, *, cfg: ModelConfig, steps: int,
+             generator: torch.Generator | None = None,
+             max_len: int | None = None, temperature: float = 1.0):
+    """Greedy/temperature lockstep generation: tokens [B, steps + 1]."""
+    return generate_timed(params, prompt, cfg=cfg, steps=steps,
+                          generator=generator, max_len=max_len,
+                          temperature=temperature)[0]
