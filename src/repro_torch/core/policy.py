@@ -2,9 +2,12 @@
 
 A policy carries which of the paper's three algorithms runs, whether the
 hand-written CUDA kernels are used (vs the plain tensor forms), and explicit
-block-shape overrides.  ``configs/base.py`` builds it once per
+attention block-shape overrides.  ``configs/base.py`` builds it once per
 ``ModelConfig`` (:meth:`ModelConfig.softmax_policy`).  Block shapes resolve
-through ``repro_torch.kernels.registry``.
+through ``repro_torch.kernels.registry``.  The CUDA softmax takes no tile
+(one thread block sweeps a whole row), so a config's
+``softmax_block_rows``/``softmax_block_cols`` are refused rather than
+silently ignored.
 
 With ``use_kernels=True`` a kernel wrapper launches its CUDA kernel for a
 tensor on the card and runs its plain version for a tensor on the CPU;
@@ -21,8 +24,7 @@ import torch
 from repro_torch.core import twopass
 from repro_torch.core.softmax_api import _ALGOS, SoftmaxAlgorithm
 
-# ops whose block axes are attention tilings rather than (rows, cols) of a
-# softmax operand; they take the attention-specific overrides below.
+# the ops that take the attention block overrides below
 ATTENTION_OPS = ("chunk_attention", "decode_attention",
                  "decode_attention_paged")
 
@@ -31,8 +33,6 @@ ATTENTION_OPS = ("chunk_attention", "decode_attention",
 class SoftmaxPolicy:
     algorithm: SoftmaxAlgorithm = SoftmaxAlgorithm.TWO_PASS
     use_kernels: bool = False
-    block_rows: Optional[int] = None     # per-axis overrides (None = model)
-    block_cols: Optional[int] = None
     autotune: bool = False               # not ported yet (ROADMAP item 20)
     autotune_cache: Optional[str] = None
     attn_block_q: Optional[int] = None
@@ -49,28 +49,29 @@ class SoftmaxPolicy:
     @classmethod
     def from_config(cls, cfg) -> "SoftmaxPolicy":
         """Build from any object with the ModelConfig softmax knobs."""
+        for knob in ("softmax_block_rows", "softmax_block_cols"):
+            if getattr(cfg, knob, None) is not None:
+                raise ValueError(
+                    f"{knob}: the CUDA softmax takes no tile (one thread "
+                    "block sweeps each row), so the port has no softmax "
+                    "block shape to set")
         return cls(
             algorithm=getattr(cfg, "softmax_algorithm", "two_pass"),
             use_kernels=getattr(cfg, "use_kernels", False),
-            block_rows=getattr(cfg, "softmax_block_rows", None),
-            block_cols=getattr(cfg, "softmax_block_cols", None),
             autotune=getattr(cfg, "softmax_autotune", False),
             autotune_cache=getattr(cfg, "softmax_autotune_cache", None),
             attn_block_q=getattr(cfg, "attn_block_q", None),
             attn_block_k=getattr(cfg, "attn_block_k", None))
 
-    def _overrides_for(self, op: str) -> tuple[Optional[int], Optional[int]]:
-        if op in ATTENTION_OPS:
-            return self.attn_block_q, self.attn_block_k
-        return self.block_rows, self.block_cols
-
     def resolve_blocks(self, op: str, rows: int, cols: int, *,
                        block_rows: Optional[int] = None,
                        block_cols: Optional[int] = None) -> tuple[int, int]:
-        """Explicit args > this policy's overrides > registry heuristic."""
+        """Explicit args > this policy's attention overrides > registry
+        heuristic."""
         from repro_torch.kernels import registry
 
-        pbr, pbc = self._overrides_for(op)
+        pbr, pbc = ((self.attn_block_q, self.attn_block_k)
+                    if op in ATTENTION_OPS else (None, None))
         return registry.block_shapes(
             op, rows, cols,
             block_rows=block_rows if block_rows is not None else pbr,

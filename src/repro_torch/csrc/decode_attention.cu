@@ -286,10 +286,10 @@ __global__ void __launch_bounds__(kThreads)
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8.
 template <typename QT, typename KT>
 void launch_contig(const Common& c, dim3 grid, cudaStream_t st,
-                   const void* k, const void* v, const int64_t* ks,
-                   const int64_t* vs) {
+                   const void* k, const void* v, int64_t ks_s, int64_t ks_h,
+                   int64_t ks_t, int64_t vs_s, int64_t vs_h, int64_t vs_t) {
   StripSrc<KT> src{static_cast<const KT*>(k), static_cast<const KT*>(v),
-                   ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], 0, 0};
+                   ks_s, ks_h, ks_t, vs_s, vs_h, vs_t, 0, 0};
   contig_kernel<QT, KT><<<grid, kThreads, 0, st>>>(c, src);
 }
 
@@ -318,37 +318,43 @@ const char* repro_cuda_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// k/v strides: [3] elements each for the (slot, head, position) axes.
+// k/v strides in elements for the (slot, head, position) axes.
 int decode_attention_contig(const void* q, const void* k, const void* v,
                             const int* lengths, void* o, int slots, int hkv,
                             int g, int d, int dv, int tile, int window,
                             float scale, int q_dtype, int kv_dtype,
-                            const int64_t* k_strides,
-                            const int64_t* v_strides, void* stream) {
+                            int64_t ks_s, int64_t ks_h, int64_t ks_t,
+                            int64_t vs_s, int64_t vs_h, int64_t vs_t,
+                            void* stream) {
   Common c{q, o, lengths, hkv, g, d, dv, tile, window, scale};
   if (!shape_ok(c)) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(slots * hkv, (g + kMaxG - 1) / kMaxG);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 1 && kv_dtype == 1)
-    launch_contig<__nv_bfloat16, __nv_bfloat16>(c, grid, st, k, v,
-                                                k_strides, v_strides);
+    launch_contig<__nv_bfloat16, __nv_bfloat16>(c, grid, st, k, v, ks_s,
+                                                ks_h, ks_t, vs_s, vs_h, vs_t);
   else if (q_dtype == 0 && kv_dtype == 0)
-    launch_contig<float, float>(c, grid, st, k, v, k_strides, v_strides);
+    launch_contig<float, float>(c, grid, st, k, v, ks_s, ks_h, ks_t, vs_s,
+                                vs_h, vs_t);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-// strides: 9 elements: k (page, pos, head), v (page, pos, head),
-// scales (page, pos, head; head = 0 for per-position scales).
+// Strides in elements: k (page, pos, head), v (page, pos, head), scales
+// (page, pos, head; head = 0 for per-position scales, all 0 without).
 int decode_attention_paged(const void* q, const void* k_pages,
                            const void* v_pages, const int* table,
                            const int* lengths, const float* k_scale,
                            const float* v_scale, void* o, int slots,
                            int hkv, int g, int d, int dv, int pmax, int ps,
                            int tile, int window, float scale, int q_dtype,
-                           int kv_dtype, const int64_t* strides,
-                           void* stream) {
+                           int kv_dtype, int64_t ks_p, int64_t ks_t,
+                           int64_t ks_h, int64_t vs_p, int64_t vs_t,
+                           int64_t vs_h, int64_t sc_p, int64_t sc_t,
+                           int64_t sc_h, void* stream) {
+  const int64_t strides[9] = {ks_p, ks_t, ks_h, vs_p, vs_t,
+                              vs_h, sc_p, sc_t, sc_h};
   Common c{q, o, lengths, hkv, g, d, dv, tile, window, scale};
   if (!shape_ok(c) || ps <= 0) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(slots * hkv, (g + kMaxG - 1) / kMaxG);

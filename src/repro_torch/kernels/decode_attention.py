@@ -18,6 +18,7 @@ launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -30,6 +31,7 @@ MAX_PAGES_PER_TILE = 8  # pages folded per tile, as in the reference
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 
 
 # ---------------------------------------------------------------------------
@@ -169,15 +171,16 @@ def decode_attention_paged_plain(q, k_pages, v_pages, page_table, lengths,
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     f = lib.decode_attention_contig
     f.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                  ctypes.c_float, _I, _I, _P, _P, _P]
+                  ctypes.c_float, _I, _I, *[_L] * 6, _P]
     f.restype = _I
     f = lib.decode_attention_paged
     f.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                  _I, _I, _I, ctypes.c_float, _I, _I, _P, _P]
+                  _I, _I, _I, ctypes.c_float, _I, _I, *[_L] * 9, _P]
     f.restype = _I
     return lib
 
@@ -225,14 +228,12 @@ def decode_attention(q, k, v, lengths, *, scale: float,
     o = torch.empty((s, hkv, g, dv), dtype=q.dtype, device=q.device)
     if s == 0:
         return o
-    ks = torch.tensor(k.stride()[:3], dtype=torch.int64)
-    vs = torch.tensor(v.stride()[:3], dtype=torch.int64)
     lib = _lib()
     rc = lib.decode_attention_contig(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
         o.data_ptr(), s, hkv, g, d, dv, tile,
         -1 if window is None else int(window), float(scale),
-        _DTYPES[q.dtype], _DTYPES[k.dtype], ks.data_ptr(), vs.data_ptr(),
+        _DTYPES[q.dtype], _DTYPES[k.dtype], *k.stride()[:3], *v.stride()[:3],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "decode_attention")
     decode_attention.launches += 1
@@ -287,7 +288,6 @@ def decode_attention_paged(q, k_pages, v_pages, page_table, lengths,
     o = torch.empty((s, hkv, g, dv), dtype=q.dtype, device=q.device)
     if s == 0:
         return o
-    st = torch.tensor(strides, dtype=torch.int64)
     lib = _lib()
     rc = lib.decode_attention_paged(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -295,7 +295,7 @@ def decode_attention_paged(q, k_pages, v_pages, page_table, lengths,
         ksp.data_ptr() if quant else None, vsp.data_ptr() if quant else None,
         o.data_ptr(), s, hkv, g, d, dv, pmax, ps, min(ppt * ps, MAX_TILE),
         -1 if window is None else int(window), float(scale),
-        _DTYPES[q.dtype], _DTYPES[k_pages.dtype], st.data_ptr(),
+        _DTYPES[q.dtype], _DTYPES[k_pages.dtype], *strides,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "decode_attention_paged")
     decode_attention_paged.launches += 1

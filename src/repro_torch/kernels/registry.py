@@ -8,11 +8,9 @@ reference package is not ported yet: ROADMAP queue A item 20.)
 The alignments are re-derived for Hopper rather than copied from the TPU's
 (8, 128) sublane/lane grid:
 
-  * ``softmax`` / ``logsumexp``: the CUDA kernel gives each row its own
-    thread block, sweeps the whole row inside it and masks the ragged
-    edge itself, so it takes no tile and nothing is padded.  The spec
-    stays so that a policy's overrides resolve; rows no longer tile
-    (``row_align`` 8 -> 1).
+  * ``softmax`` / ``logsumexp``: no spec.  The CUDA kernel gives each row
+    its own thread block, sweeps the whole row inside it and masks the
+    ragged edge itself, so it takes no tile and nothing is padded.
   * ``decode_attention`` / ``decode_attention_paged``: one block per
     (slot, KV head), so slots never tile (``row_align`` 8 -> 1).  The col
     block is the kernel's KV tile, whose scores live in shared memory
@@ -88,8 +86,6 @@ def block_shapes(op: str, rows: int, cols: int, *,
     return br, bc
 
 
-register(KernelSpec(name="softmax", row_align=1))
-register(KernelSpec(name="logsumexp", row_align=1))
 # chunked plain attention (models.attention.mn_chunk_attention): blocks are
 # chunk LENGTHS along (Sq, Skv); no kernel, so the reference's geometry.
 register(KernelSpec(name="chunk_attention", row_align=256, row_cap=2048,

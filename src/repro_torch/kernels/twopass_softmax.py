@@ -11,6 +11,7 @@ launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,6 +23,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("twopass_softmax")
     lib.twopass_softmax_2d.argtypes = [_P, _P, _I, _I, _I, _I, _P]
@@ -33,7 +35,8 @@ def _lib() -> ctypes.CDLL:
 
 def threads_for(cols: int) -> int:
     """Threads per row block: about 8 elements a thread, one warp for short
-    rows, at most 1024."""
+    rows, at most 1024; always a power of two.  The kernel's sum order does
+    not depend on it."""
     want = max(1, -(-cols // 8))
     return min(1024, max(32, 1 << (want - 1).bit_length()))
 

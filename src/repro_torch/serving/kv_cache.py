@@ -124,13 +124,17 @@ def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
 
 def _copy_pages(dst, src, page_row):
     """Scatter a batch=1 position-major cache ``[L, 1, T, ...]`` into arena
-    pages ``[L, P, ps, ...]`` at ``page_row``'s ids.  T is a whole number of
-    pages; source pages past the row are dropped, and row entries past the
-    allocated pages are the trash page (garbage over garbage)."""
+    pages ``[L, P, ps, ...]`` at ``page_row``'s ids.  A ragged last page is
+    zero-filled past T; source pages past the row are dropped, and row
+    entries past the allocated pages are the trash page (garbage over
+    garbage)."""
     ls, _, ps = dst.shape[:3]
-    n_src = src.shape[2] // ps
-    n_copy = min(n_src, page_row.shape[0])
-    srcp = src[:, 0].reshape(ls, n_src, ps, *src.shape[3:])[:, :n_copy]
+    n_copy = min(-(-src.shape[2] // ps), page_row.shape[0])
+    src = src[:, 0, :n_copy * ps]
+    tail = n_copy * ps - src.shape[1]
+    if tail:
+        src = torch.cat([src, src.new_zeros((ls, tail, *src.shape[2:]))], 1)
+    srcp = src.reshape(ls, n_copy, ps, *src.shape[2:])
     dst[:, page_row[:n_copy].long()] = srcp.to(dst.dtype)
 
 

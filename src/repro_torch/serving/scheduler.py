@@ -37,10 +37,6 @@ import torch
 from repro_torch.serving import engine, kv_cache
 
 
-def _round_up(x: int, mult: int) -> int:
-    return -(-int(x) // int(mult)) * int(mult)
-
-
 def _unported(what: str, item: int):
     return NotImplementedError(
         f"ContinuousBatchingEngine({what}) is not ported yet "
@@ -262,12 +258,6 @@ class ContinuousBatchingEngine:
         page pool cannot back the prompt right now."""
         plen = len(req.prompt)
         bucket = self._bucket_for(plen)
-        # The strip pool too prefills only the bucket (the reference
-        # prefills max_len positions there): prefill then runs the same
-        # shapes for both pools, so their attention softmax rows -- and
-        # their greedy tokens -- are bit-identical.
-        alloc_len = (_round_up(bucket, self.page_size) if self.paged
-                     else bucket)
         page_ids = None
         if self.paged:
             need = self._pages_for(plen)
@@ -286,11 +276,15 @@ class ContinuousBatchingEngine:
         t0 = time.perf_counter()
         padded = torch.zeros((1, bucket), dtype=torch.int64)
         padded[0, :plen] = torch.tensor(req.prompt)
+        # Prefill attends over the bucket's positions and no more, for
+        # either pool: keys past the bucket would all be masked.  (The
+        # reference prefills max_len positions for the strip pool and whole
+        # pages for the paged one.)
         logits, cache = engine.prefill(
             self.params, padded.to(self.device), cfg=self.cfg,
-            max_len=alloc_len, last_pos=plen - 1)
+            max_len=bucket, last_pos=plen - 1)
         tok_dev = self._sample(logits)
-        self._prefill_shapes.add((bucket, alloc_len))
+        self._prefill_shapes.add(bucket)
         if self.paged:
             self.slot_pages[slot] = page_ids
             kv_cache.adopt_slot_paged(self.pool, cache, slot, plen,

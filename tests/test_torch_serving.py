@@ -74,14 +74,17 @@ def test_greedy_tokens_match_jax_lockstep(weights, use_kernels):
     assert [_port_lockstep(tm, tp, r) for r in reqs] == ref
 
 
-def test_paged_equals_strip_and_ragged_equals_lockstep(weights):
+@pytest.mark.parametrize("buckets", ["auto", None],
+                         ids=["page-buckets", "exact-lengths"])
+def test_paged_equals_strip_and_ragged_equals_lockstep(weights, buckets):
+    # exact lengths prefill ragged last pages, zero-filled on adoption
     _, _, tm, tp = weights
     reqs = _requests(tm.cfg.vocab, n=5, plens=(2, 9, 5, 11, 7))
     runs = {}
     for paged in (True, False):
         eng = ContinuousBatchingEngine(tm, tp, slots=3, max_len=MAX_LEN,
                                        page_size=8, temperature=0.0,
-                                       paged=paged)
+                                       paged=paged, prefill_buckets=buckets)
         runs[paged] = _tokens(eng.run(_copy(reqs)))
         assert eng.throughput()["paged"] is paged
     assert runs[True] == runs[False]
@@ -154,6 +157,16 @@ def test_unported_families_and_policy_sites_raise():
     pol = tbuild(ARCH, reduced=True, device="cpu").cfg.softmax_policy()
     with pytest.raises(NotImplementedError, match="item 8"):
         pol.cross_entropy(torch.zeros(2, 4), torch.zeros(2))
+
+
+def test_softmax_block_overrides_are_refused():
+    # the CUDA softmax takes no tile: a block override would do nothing
+    cfg = tbuild(ARCH, reduced=True, device="cpu").cfg
+    for knob in ("softmax_block_rows", "softmax_block_cols"):
+        with pytest.raises(ValueError, match=knob):
+            dataclasses.replace(cfg, **{knob: 16}).softmax_policy()
+    assert cfg.softmax_policy().resolve_blocks(
+        "decode_attention_paged", 8, 1664) == (8, 128)
 
 
 def test_sampling_at_temperature_is_seeded(weights):
