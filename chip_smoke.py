@@ -9,11 +9,16 @@ Phases (any failure exits non-zero; nothing is caught):
    CUDA versions, TF32 switches, and the build of every kernel from
    ``src/repro_torch/csrc`` (nvcc, one process per source, in parallel);
 2. kernels: each CUDA kernel held against its plain PyTorch version on the
-   card at the serving path's shapes, with its time, its plain version's
-   time, one PyTorch library call's time where one computes the same
-   function, and its bound (bytes over 3.35 TB/s or operations over the
-   float32 peak, whichever is larger); the softmax kernel's bits do not
-   change when a row is padded with -inf columns;
+   card at the serving path's shapes (softmax under all three of the
+   paper's algorithms, cross-entropy at the LM head's shape, decode
+   attention), with its time, its plain version's time, one PyTorch
+   library call's time where one computes the same function, and its
+   bound (bytes over 3.35 TB/s or operations over the float32 peak,
+   whichever is larger); the softmax kernels' bits do not change when a
+   row is padded with -inf columns, and the two-pass kernels' bits equal
+   those recorded before their fold moved into ``rowfold.cuh``; the
+   paper's comparison times the three softmax algorithms side by side,
+   also at a shape whose rows in flight exceed the 50 MB L2;
 3. engine: qwen2.5-14b at full width (d_model 5120, 40/8 heads, d_ff
    13824, vocab 152064, bf16, seeded random weights) serving 12 requests
    through ``ContinuousBatchingEngine(paged=True, use_kernels=True,
@@ -22,7 +27,18 @@ Phases (any failure exits non-zero; nothing is caught):
 4. parity: the strip pool (``paged=False``) gives the same tokens; the
    plain forms (``use_kernels=False``) give prefill logits within a stated
    bf16 tolerance; a short ``temperature=0.8`` run drives the sampler's
-   softmax kernel.
+   softmax kernel;
+5. three-pass baselines: the same 12 requests under
+   ``softmax_algorithm="three_pass_recompute"`` and ``"three_pass_reload"``
+   launch their own kernel for every prefill layer and no two-pass one;
+   the strip pool gives the paged tokens under one of them; prefill logits
+   are held against the two-pass run's; a ``temperature=0.8`` run under
+   each launches its kernel for the sampler;
+6. cross-entropy: the per-token loss of a prompt under the served model
+   through ``SoftmaxPolicy.cross_entropy`` with kernels, and its gradient,
+   against the plain route;
+7. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
+   three_pass_reload --kernels``, at full width, as a subprocess.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -30,7 +46,10 @@ The last line of standard output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import gc
+import hashlib
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -46,6 +65,14 @@ HBM_BYTES_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_S = 67e12          # H100 SXM float32 outside the tensor cores
 SOFTMAX_OPS = 74           # float ops per element, both passes
 STATS_OPS = 46             # float ops per element, pass 1 (with its folds)
+RECOMPUTE_OPS = 61         # Alg 1: max 1, sum 30, scale 30 per element
+RELOAD_OPS = 32            # Alg 2: max 1, exp + store + sum 30, scale 1
+XENT_BWD_OPS = 31          # pass 2 (28) + the one-hot, subtract, scale
+# sha256 of the two-pass kernels' outputs on twopass_digest's inputs, as
+# the kernels gave them before their fold moved into rowfold.cuh (commit
+# 74bac5d); the move must change no bit.
+TWOPASS_DIGEST = ("a70341be27101df64373f32d0bd805d7"
+                  "cfedd171cb181f04eb8442d31de3af6e")
 ARCH = "qwen2.5-14b"
 MAX_LEN = 1664             # 13 pages of 128: prompts up to 1500 + 32 new
 N_SLOTS = 8
@@ -92,10 +119,135 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions.
 # ---------------------------------------------------------------------------
+# softmax rows on the serving path: prefill score buckets (40 heads x
+# bucket rows, causal), a ragged row count, the sampler over the vocab
+SOFTMAX_SHAPES = [("prefill_bucket_1024", 40 * 1024, 1024),
+                  ("prefill_bucket_1664", 40 * 1664, 1664),
+                  ("ragged", 40 * 37, 1000), ("sampler", 8, 152064)]
+LM_HEAD = (2048, 152064)        # tokens x vocab of the cross-entropy
+SOFTMAX_KERNELS = ("twopass_softmax_2d", "twopass_stats_2d",
+                   "threepass_recompute_2d", "threepass_reload_2d")
+
+
+def score_rows(torch, rng, name: str, r: int, c: int):
+    """Seeded float32 scores [r, c] on the card; prefill rows are causal:
+    columns past the query are -inf, as on the path."""
+    x = torch.from_numpy(rng.standard_normal((r, c), dtype="float32")
+                         * 8).to("cuda")
+    if name.startswith("prefill"):
+        x = torch.where(torch.arange(c, device="cuda")[None, :]
+                        > torch.arange(r, device="cuda")[:, None] % c,
+                        -torch.inf, x)
+    return x
+
+
+def twopass_digest(torch, tp) -> str:
+    """sha256 of the two-pass softmax and stats kernels' outputs on seeded
+    inputs: causal prefill rows and ragged rows in float32 and bfloat16,
+    and the sampler's row width."""
+    h = hashlib.sha256()
+    rng = np.random.default_rng(1234)
+    for name, r, c, dt in (("prefill", 4096, 1024, torch.float32),
+                           ("ragged", 40 * 37, 1000, torch.float32),
+                           ("ragged", 40 * 37, 1000, torch.bfloat16),
+                           ("sampler", 8, 152064, torch.float32)):
+        x = score_rows(torch, rng, name, r, c).to(dt)
+        for t in (tp.twopass_softmax_2d(x), *tp.twopass_stats_2d(x)):
+            h.update(t.float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def xent_phase(torch, held, softmax_tol, rows) -> None:
+    """Cross-entropy kernels against their plain versions at the LM head's
+    shape, float32 and bfloat16: the loss at rtol 1e-5 (sum order), n_sum
+    bit-equal (a max), dlogits at the softmax limits."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import twopass_xent as xe
+
+    rng = np.random.default_rng(7)
+    t, v = LM_HEAD
+    x32 = torch.from_numpy(rng.standard_normal((t, v), dtype="float32")
+                           * 4).to("cuda")
+    lab = torch.from_numpy(rng.integers(0, v, t)).to("cuda")
+    dl = torch.from_numpy(rng.standard_normal(t, dtype="float32")).to("cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        x = x32.to(dt)
+        loss, m, n = xe.xent_fwd_2d(x, lab)
+        torch.cuda.synchronize()
+        pl, pm, pn = xe.xent_fwd_2d_plain(x, lab)
+        check(torch.equal(n, pn), f"xent_fwd_2d {dt}: n_sum not bit-equal")
+        r_m = held(m, pm, dict(atol=0.0, rtol=1e-5), f"xent_fwd_2d {dt} m")
+        r_l = held(loss, pl, dict(atol=0.0, rtol=1e-5),
+                   f"xent_fwd_2d {dt} loss")
+        say("kernel_check", kernel="xent_fwd_2d", shape=[t, v],
+            dtype=str(dt), loss=r_l, m_sum=r_m, n_equal=True)
+        dx = xe.xent_bwd_2d(x, lab, m, n, dl)
+        torch.cuda.synchronize()
+        check(dx.dtype == dt, "xent_bwd_2d: output dtype")
+        r_d = held(dx, xe.xent_bwd_2d_plain(x, lab, m, n, dl),
+                   softmax_tol[dt], f"xent_bwd_2d {dt}")
+        say("kernel_check", kernel="xent_bwd_2d", shape=[t, v],
+            dtype=str(dt), **r_d)
+        case = "lm_head_f32" if dt == torch.float32 else "lm_head_bf16"
+        nb = t * v * x.element_size()
+        rows.setdefault("xent_fwd_2d", {})[case] = dict(
+            ms=cuda_ms(torch, lambda: xe.xent_fwd_2d(x, lab)),
+            plain_ms=cuda_ms(torch, lambda: xe.xent_fwd_2d_plain(x, lab), 5),
+            library_ms=cuda_ms(torch, lambda: F.cross_entropy(
+                x, lab, reduction="none")),
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(nb + 4 * t + 12 * t, STATS_OPS * t * v))),
+            max_abs_err=r_l["max_abs_err"], shape=[t, v])
+        rows.setdefault("xent_bwd_2d", {})[case] = dict(
+            ms=cuda_ms(torch, lambda: xe.xent_bwd_2d(x, lab, m, n, dl)),
+            plain_ms=cuda_ms(torch, lambda: xe.xent_bwd_2d_plain(
+                x, lab, m, n, dl), 5),
+            library_ms=None,       # no one PyTorch call gives dlogits
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(2 * nb + 16 * t, XENT_BWD_OPS * t * v))),
+            max_abs_err=r_d["max_abs_err"], shape=[t, v])
+        del x, loss, m, n, pl, pm, pn, dx
+
+
+def paper_comparison(torch, rows) -> None:
+    """The paper's comparison: the three softmax kernels side by side in
+    one call, each beside the 2N floor (read once, write once) and its own
+    traffic in the paper's count (3N, 4N, 5N).  The serving shapes take the
+    kernel phase's times; only rows whose re-reads miss the 50 MB L2 --
+    [512, 524288]: 2 MiB rows, over a hundred in flight -- can show that
+    traffic, and they are timed here."""
+    from repro_torch.kernels import threepass_softmax as tp3
+    from repro_torch.kernels import twopass_softmax as tp
+
+    algos = (("two_pass", "twopass_softmax_2d", tp.twopass_softmax_2d, 3),
+             ("three_pass_recompute", "threepass_recompute_2d",
+              tp3.threepass_recompute_2d, 4),
+             ("three_pass_reload", "threepass_reload_2d",
+              tp3.threepass_reload_2d, 5))
+    r, c = 512, 524288
+    x = score_rows(torch, np.random.default_rng(11), "beyond_l2", r, c)
+    times = {kname: cuda_ms(torch, lambda: fn(x))
+             for _, kname, fn, _ in algos}
+    del x
+    for case in ("prefill_bucket_1024", "sampler", "beyond_l2"):
+        for algo, kname, _, passes in algos:
+            if case == "beyond_l2":
+                ms, shape = times[kname], [r, c]
+            else:
+                ms, shape = rows[kname][case]["ms"], rows[kname][case]["shape"]
+            nb = shape[0] * shape[1] * 4
+            say("paper_comparison", case=case, shape=shape, algorithm=algo,
+                ms=ms, floor_2n_ms=2 * nb / HBM_BYTES_S * 1e3,
+                paper_traffic=f"{passes}N",
+                paper_ms=passes * nb / HBM_BYTES_S * 1e3)
+
+
 def kernel_phase(torch, rng):
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import threepass_softmax as tp3
     from repro_torch.kernels import twopass_softmax as tp
 
     dev = "cuda"
@@ -107,18 +259,30 @@ def kernel_phase(torch, rng):
         return (float(d.max()),
                 float((d / w.abs().clamp(min=1e-30)).max()))
 
-    # -- two-pass softmax / stats: prefill scores and the sampler --------
-    shapes = [("prefill_bucket_1024", 40 * 1024, 1024),
-              ("prefill_bucket_1664", 40 * 1664, 1664),
-              ("ragged", 40 * 37, 1000), ("sampler", 8, 152064)]
-    for name, r, c in shapes:
-        x = torch.from_numpy(rng.standard_normal((r, c), dtype="float32")
-                             * 8).to(dev)
-        if name.startswith("prefill"):
-            # causal rows: columns past the query are -inf, as on the path
-            x = torch.where(torch.arange(c, device=dev)[None, :]
-                            > torch.arange(r, device=dev)[:, None] % c,
-                            -torch.inf, x)
+    def held(got, want, tol, what):
+        a, rel = err(got, want)
+        excess = float(((got.float() - want.float()).abs()
+                        / (tol["atol"] + tol["rtol"] * want.float().abs()))
+                       .max())
+        check(excess <= 1.0, f"{what}: max abs err {a} beyond {tol}")
+        return dict(max_abs_err=a, max_rel_err=rel, tol=tol,
+                    worst_err_over_limit=excess)
+
+    # -- softmax under the paper's three algorithms, and the stats: prefill
+    # scores and the sampler.  Two-pass: the same ExtExp bits, only the
+    # order of the (m, n) sum differs.  Three-pass: the same Alg-4 bits,
+    # only the order of sigma's sum differs; in bfloat16 two float32
+    # results that close round at most one bfloat16 step apart.
+    softmax_tol = {torch.float32: dict(atol=5e-6, rtol=1e-5),
+                   torch.bfloat16: dict(atol=1e-37, rtol=2.0 ** -7)}
+    three = {"threepass_recompute_2d": (tp3.threepass_recompute_2d,
+                                        tp3.threepass_recompute_2d_plain,
+                                        RECOMPUTE_OPS),
+             "threepass_reload_2d": (tp3.threepass_reload_2d,
+                                     tp3.threepass_reload_2d_plain,
+                                     RELOAD_OPS)}
+    for name, r, c in SOFTMAX_SHAPES:
+        x = score_rows(torch, rng, name, r, c)
         y = tp.twopass_softmax_2d(x)
         torch.cuda.synchronize()
         a, rel = err(y, tp.twopass_softmax_2d_plain(x))
@@ -138,8 +302,8 @@ def kernel_phase(torch, rng):
         say("kernel_check", kernel="twopass_stats_2d", shape=[r, c],
             case=name, m_max_abs_err=sa, n_equal=True,
             tol="n_sum exact (a max); m_sum rtol 1e-5 (sum order)")
+        nb = r * c * 4
         if name in ("prefill_bucket_1024", "sampler"):
-            nb = r * c * 4
             t_k = cuda_ms(torch, lambda: tp.twopass_softmax_2d(x))
             t_p = cuda_ms(torch, lambda: tp.twopass_softmax_2d_plain(x), 5)
             t_l = cuda_ms(torch, lambda: torch.softmax(x, -1))
@@ -155,33 +319,76 @@ def kernel_phase(torch, rng):
             rows.setdefault("twopass_stats_2d", {})[name] = dict(
                 ms=s_k, plain_ms=s_p, library_ms=s_l, bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=sa, shape=[r, c])
-        del x, y, m, n, mp, np_
+        del y, m, n, mp, np_
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            for kname, (fn, plain, ops) in three.items():
+                got = fn(xd)
+                torch.cuda.synchronize()
+                check(got.dtype == dt, f"{kname}: output dtype")
+                res = held(got, plain(xd), softmax_tol[dt],
+                           f"{kname} {name} {dt}")
+                say("kernel_check", kernel=kname, shape=[r, c], case=name,
+                    dtype=str(dt), **res)
+                if dt == torch.float32 and name in ("prefill_bucket_1024",
+                                                    "sampler"):
+                    rows.setdefault(kname, {})[name] = dict(
+                        ms=cuda_ms(torch, lambda: fn(x)),
+                        plain_ms=cuda_ms(torch, lambda: plain(x), 5),
+                        library_ms=cuda_ms(torch,
+                                           lambda: torch.softmax(x, -1)),
+                        **dict(zip(("bound_ms", "bound_by"),
+                                   bound(2 * nb, ops * r * c))),
+                        max_abs_err=res["max_abs_err"], shape=[r, c])
+                del got
+            del xd
+        del x
 
     # -inf padding changes no bit, though it changes the threads per row
+    softmax_fns = (tp.twopass_softmax_2d, tp3.threepass_recompute_2d,
+                   tp3.threepass_reload_2d)
     for r, c, c2 in ((40 * 37, 1000, 1664), (8, 1000, 152064)):
         x = torch.from_numpy(rng.standard_normal((r, c), dtype="float32")
                              * 8).to(dev)
         xp = torch.full((r, c2), -torch.inf, device=dev)
         xp[:, :c] = x
-        y, yp = tp.twopass_softmax_2d(x), tp.twopass_softmax_2d(xp)
+        for fn in softmax_fns:
+            y, yp = fn(x), fn(xp)
+            check(torch.equal(y, yp[:, :c]) and not bool(yp[:, c:].any()),
+                  f"{fn.__name__} bits change under -inf padding "
+                  f"{c} -> {c2}")
         st, stp = tp.twopass_stats_2d(x), tp.twopass_stats_2d(xp)
-        check(torch.equal(y, yp[:, :c]) and not bool(yp[:, c:].any())
-              and all(torch.equal(a, b) for a, b in zip(st, stp)),
-              f"softmax bits change under -inf padding {c} -> {c2}")
-        say("kernel_check", kernel="twopass_softmax_2d+twopass_stats_2d",
+        check(all(torch.equal(a, b) for a, b in zip(st, stp)),
+              f"stats bits change under -inf padding {c} -> {c2}")
+        say("kernel_check",
+            kernel="+".join(f.__name__ for f in softmax_fns)
+            + "+twopass_stats_2d",
             case=f"-inf padding {c} -> {c2} columns",
             threads=[tp.threads_for(c), tp.threads_for(c2)],
             bitwise_equal=True)
     del x, xp, y, yp, st, stp
 
-    # all -inf row: NaN, as the reference kernel gives (m_sum = 0)
+    # all -inf row: NaN, as the reference kernels give (m_sum = 0 for the
+    # two-pass kernel, sigma = 0 for the three-pass ones)
     x = torch.full((2, 300), -torch.inf, device=dev)
     x[1, 7] = 1.0
-    y = tp.twopass_softmax_2d(x)
-    check(bool(torch.isnan(y[0]).all()) and abs(float(y[1, 7]) - 1) < 1e-6,
-          "all -inf row")
-    say("kernel_check", kernel="twopass_softmax_2d", case="all -inf row",
-        result="NaN row, as the reference kernel (m_sum = 0)")
+    for fn in softmax_fns:
+        y = fn(x)
+        check(bool(torch.isnan(y[0]).all())
+              and abs(float(y[1, 7]) - 1) < 1e-6, f"{fn.__name__}: all "
+              "-inf row")
+        say("kernel_check", kernel=fn.__name__, case="all -inf row",
+            result="NaN row, as the reference kernel")
+
+    # the two-pass kernels' bits are those of the kernels before the move
+    digest = twopass_digest(torch, tp)
+    check(digest == TWOPASS_DIGEST,
+          f"two-pass bits changed: {digest} != {TWOPASS_DIGEST}")
+    say("kernel_check", kernel="twopass_softmax_2d+twopass_stats_2d",
+        case="bits as before the fold moved into rowfold.cuh",
+        sha256=digest, equal=True)
+
+    xent_phase(torch, held, softmax_tol, rows)
 
     # -- decode attention at the serving shapes --------------------------
     s, hkv, g, d, ps = N_SLOTS, 8, 5, 128, 128
@@ -253,15 +460,6 @@ def kernel_phase(torch, rng):
         kw = dict(kk=k8, vv=v8, k_scale=ksc, v_scale=vsc)
         cases += [(f"int8_{gran}_bf16q", kw, bf16_tol),
                   (f"int8_{gran}_f32q", dict(kw, qq=qf), f32_tol)]
-
-    def held(got, want, tol, what):
-        a, rel = err(got, want)
-        excess = float(((got.float() - want.float()).abs()
-                        / (tol["atol"] + tol["rtol"] * want.float().abs()))
-                       .max())
-        check(excess <= 1.0, f"{what}: max abs err {a} beyond {tol}")
-        return dict(max_abs_err=a, max_rel_err=rel, tol=tol,
-                    worst_err_over_limit=excess)
 
     for name, kw, tol in cases:
         got = paged(**kw)
@@ -375,17 +573,22 @@ def engine_phase(torch, rng, n_layers: int):
     say("parity", check="strip == paged tokens", equal=True)
     launches["decode_attention"] = st2["launches"]["decode_attention"]
 
+    def prefill_logits(c):
+        out = []
+        for p in prompts[:3]:
+            lg, _ = engine.prefill(params, torch.tensor([p], device="cuda"),
+                                   cfg=c, max_len=MAX_LEN)
+            out.append(lg.float())
+        return out
+
+    def worst_rel(got, want):
+        return max(float((g - w).abs().max() / w.abs().max())
+                   for g, w in zip(got, want))
+
     # plain forms: prefill logits of each request, and token agreement
+    base_logits = prefill_logits(cfg)
     m_plain = build_model(ARCH, n_layers=n_layers, use_kernels=False)
-    worst = 0.0
-    for p in prompts[:3]:
-        tok = torch.tensor([p], device="cuda")
-        lk, _ = engine.prefill(params, tok, cfg=cfg, max_len=MAX_LEN)
-        lp, _ = engine.prefill(params, tok, cfg=m_plain.cfg,
-                               max_len=MAX_LEN)
-        rel = float((lk.float() - lp.float()).abs().max()
-                    / lp.float().abs().max())
-        worst = max(worst, rel)
+    worst = worst_rel(base_logits, prefill_logits(m_plain.cfg))
     check(worst <= 5e-2, f"prefill logits kernels vs plain: {worst}")
     toks_plain, st3 = serve(m_plain, paged=True, temperature=0.0)
     agree = sum(a == b for x, y in zip(toks_plain, toks_paged)
@@ -399,25 +602,125 @@ def engine_phase(torch, rng, n_layers: int):
     check(sum(st3["launches"].values()) == 0,
           "use_kernels=False launched a kernel")
 
-    # sampler: temperature 0.8 drives the softmax kernel over the vocab
-    m_s = build_model(ARCH, n_layers=n_layers, use_kernels=True)
-    eng = ContinuousBatchingEngine(m_s, params, slots=N_SLOTS,
-                                   max_len=MAX_LEN, temperature=0.8, seed=5)
-    K.reset_launch_counts()
-    comps = eng.run([Request(rid=i, prompt=prompts[i][:200],
-                             max_new_tokens=4) for i in range(N_SLOTS)])
-    torch.cuda.synchronize()
-    c = K.launch_counts()
-    check(all(len(x.tokens) == 4 for x in comps), "sampled token counts")
-    check(all(0 <= t < cfg.vocab for x in comps for t in x.tokens),
-          "sampled token range")
-    check(c["twopass_softmax_2d"] > (N_SLOTS * cfg.n_layers),
-          "sampler softmax kernel not launched")
-    say("engine", path="paged, use_kernels=True, temperature=0.8",
-        launches=c)
-    del eng
+    def sampled(model, kname):
+        """temperature 0.8 drives the algorithm's kernel over the vocab:
+        more launches than the prefills' and no other softmax kernel's."""
+        eng = ContinuousBatchingEngine(model, params, slots=N_SLOTS,
+                                       max_len=MAX_LEN, temperature=0.8,
+                                       seed=5)
+        K.reset_launch_counts()
+        comps = eng.run([Request(rid=i, prompt=prompts[i][:200],
+                                 max_new_tokens=4) for i in range(N_SLOTS)])
+        torch.cuda.synchronize()
+        c = K.launch_counts()
+        check(all(len(x.tokens) == 4 for x in comps), "sampled token counts")
+        check(all(0 <= t < cfg.vocab for x in comps for t in x.tokens),
+              "sampled token range")
+        check(c[kname] > N_SLOTS * cfg.n_layers
+              and all(c[k] == 0 for k in SOFTMAX_KERNELS if k != kname),
+              f"{kname}: sampler softmax kernel not launched: {c}")
+        say("engine", path=f"paged, {model.cfg.softmax_algorithm}, "
+            "use_kernels=True, temperature=0.8", launches=c)
+
+    sampled(m, "twopass_softmax_2d")
+
+    # the paper's three-pass baselines through the same engine: each run
+    # launches its own kernel for every prefill layer and no two-pass one
+    for algo, kname, strip in (
+            ("three_pass_recompute", "threepass_recompute_2d", False),
+            ("three_pass_reload", "threepass_reload_2d", True)):
+        m3 = build_model(ARCH, n_layers=n_layers, use_kernels=True,
+                         softmax_algorithm=algo)
+        toks3, st3 = serve(m3, paged=True, temperature=0.0)
+        c = st3["launches"]
+        check(st3["admitted"] >= N_REQ
+              and c[kname] == st3["admitted"] * cfg.n_layers,
+              f"{algo}: {c[kname]} launches of {kname}")
+        check(all(c[k] == 0 for k in SOFTMAX_KERNELS if k != kname)
+              and c["decode_attention_paged"] > 0,
+              f"{algo}: another softmax kernel ran: {c}")
+        worst3 = worst_rel(prefill_logits(m3.cfg), base_logits)
+        check(worst3 <= 5e-2, f"{algo} prefill logits vs two-pass: {worst3}")
+        agree3 = sum(a == b for x, y in zip(toks3, toks_paged)
+                     for a, b in zip(x, y)) / (N_REQ * NEW_TOKENS)
+        say("engine", path=f"paged, {algo}, use_kernels=True, "
+            "temperature=0", **st3)
+        say("parity", check=f"{algo} vs two_pass",
+            prefill_logits_max_err_over_max_logit=worst3,
+            tol="5e-2 of the largest logit, as kernels vs plain",
+            token_agreement=agree3)
+        launches[kname] = c[kname]
+        if strip:
+            toks3s, st3s = serve(m3, paged=False, temperature=0.0)
+            check(toks3s == toks3, f"{algo}: strip tokens != paged tokens")
+            check(st3s["launches"][kname] > 0, f"{algo} strip: no launch")
+            say("parity", check=f"{algo}: strip == paged tokens",
+                equal=True, launches=st3s["launches"])
+        sampled(m3, kname)
+        del m3
+
     idle = idle_share(torch, m, params, prompts)
+    launches.update(xent_path(torch, m, params, prompts[0]))
     return launches, idle
+
+
+def xent_path(torch, m, params, prompt) -> dict:
+    """Phase 6: teacher-forced per-token loss of one prompt under the served
+    model through ``SoftmaxPolicy.cross_entropy`` with kernels, and its
+    gradient in the logits, against the plain route; returns the launches
+    of that run."""
+    import repro_torch.kernels as K
+    from repro_torch.core.policy import SoftmaxPolicy
+    from repro_torch.models import transformer
+
+    cfg = m.cfg
+    tok = torch.tensor([prompt], device="cuda")
+    with torch.no_grad():
+        h = transformer.forward(params, tok, cfg=cfg)
+        logits = transformer.lm_logits(params, h, cfg=cfg)[0, :-1,
+                                                           :cfg.vocab]
+    logits = logits.contiguous().requires_grad_(True)
+    labels = tok[0, 1:]
+    K.reset_launch_counts()
+    loss = cfg.softmax_policy().cross_entropy(logits, labels)
+    loss.sum().backward()
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    loss = loss.detach()
+    plain = SoftmaxPolicy(algorithm=cfg.softmax_algorithm).cross_entropy(
+        logits.detach(), labels)
+    err = float(((loss - plain).abs() / plain.abs()).max())
+    grad_rows = logits.grad.float().sum(-1).abs().max()
+    check(loss.shape == plain.shape and bool(torch.isfinite(loss).all())
+          and err <= 1e-5, f"cross_entropy kernels vs plain: {err}")
+    check(launches["xent_fwd_2d"] == 1 and launches["xent_bwd_2d"] == 1,
+          f"cross_entropy kernels not launched: {launches}")
+    say("xent", path="SoftmaxPolicy.cross_entropy, use_kernels=True, "
+        "backward", shape=list(logits.shape), dtype=str(logits.dtype),
+        mean_loss=float(loss.mean()), max_rel_err_vs_plain=err,
+        tol="rtol 1e-5 (sum order)", dlogits_max_row_sum=float(grad_rows),
+        launches=launches)
+    return {k: launches[k] for k in ("xent_fwd_2d", "xent_bwd_2d")}
+
+
+def cli_phase(torch) -> None:
+    """Phase 7: the serving CLI at full width as a user runs it."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
+           "--slots", "8", "--requests", "8", "--prompt-len", "256",
+           "--steps", "8", "--softmax", "three_pass_reload", "--kernels"]
+    t = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=ROOT, env=dict(os.environ,
+                                            PYTHONPATH=str(ROOT / "src")))
+    lines = out.stdout.splitlines()
+    say("cli", cmd=" ".join(cmd[1:]), rc=out.returncode,
+        seconds=time.perf_counter() - t, stdout=lines,
+        stderr_tail=out.stderr.splitlines()[-5:])
+    check(out.returncode == 0, f"serving CLI exited {out.returncode}")
+    check(any(ln.startswith("prefill: 2048 tok") for ln in lines)
+          and any(ln.startswith("decode:") for ln in lines)
+          and any("threepass_reload_2d" in ln for ln in lines),
+          "serving CLI: no prefill/decode lines or no reload launches")
 
 
 def idle_share(torch, m, params, prompts):
@@ -459,16 +762,27 @@ REPLACES = {
     "twopass_stats_2d": "src/repro/kernels/twopass_softmax.py:115",
     "decode_attention_paged": "src/repro/kernels/decode_attention.py:239",
     "decode_attention": "src/repro/kernels/decode_attention.py:151",
+    "threepass_recompute_2d": "src/repro/kernels/threepass_softmax.py:116",
+    "threepass_reload_2d": "src/repro/kernels/threepass_softmax.py:148",
+    "xent_fwd_2d": "src/repro/kernels/twopass_xent.py:79",
+    "xent_bwd_2d": "src/repro/kernels/twopass_xent.py:110",
 }
 SOURCES = {
     "twopass_softmax_2d": "src/repro_torch/csrc/twopass_softmax.cu",
     "twopass_stats_2d": "src/repro_torch/csrc/twopass_softmax.cu",
     "decode_attention_paged": "src/repro_torch/csrc/decode_attention.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+    "threepass_recompute_2d": "src/repro_torch/csrc/threepass_softmax.cu",
+    "threepass_reload_2d": "src/repro_torch/csrc/threepass_softmax.cu",
+    "xent_fwd_2d": "src/repro_torch/csrc/twopass_xent.cu",
+    "xent_bwd_2d": "src/repro_torch/csrc/twopass_xent.cu",
 }
 MAIN_CASE = {"twopass_softmax_2d": "prefill_bucket_1024",
              "twopass_stats_2d": "prefill_bucket_1024",
-             "decode_attention_paged": "main", "decode_attention": "main"}
+             "decode_attention_paged": "main", "decode_attention": "main",
+             "threepass_recompute_2d": "prefill_bucket_1024",
+             "threepass_reload_2d": "prefill_bucket_1024",
+             "xent_fwd_2d": "lm_head_f32", "xent_bwd_2d": "lm_head_f32"}
 
 
 def main() -> int:
@@ -502,11 +816,18 @@ def main() -> int:
     torch.manual_seed(0)                 # the card's own random inputs
     t0 = time.perf_counter()
     rows = kernel_phase(torch, rng)
+    paper_comparison(torch, rows)
+    torch.cuda.empty_cache()
     say("kernels_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     launches, idle = engine_phase(torch, rng, args.layers)
+    gc.collect()
+    torch.cuda.empty_cache()             # the CLI's process needs the card
     say("engine_done", seconds=time.perf_counter() - t0,
         idle=idle if idle else "not measured")
+    t0 = time.perf_counter()
+    cli_phase(torch)
+    say("cli_done", seconds=time.perf_counter() - t0)
     kernels = []
     for name in REPLACES:
         r = rows[name][MAIN_CASE[name]]

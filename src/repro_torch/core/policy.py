@@ -97,10 +97,19 @@ class SoftmaxPolicy:
         out = (torch.log(s) + mu).to(x.dtype)
         return out if keepdims else out.squeeze(axis)
 
-    def cross_entropy(self, logits, labels):
-        raise NotImplementedError(
-            "SoftmaxPolicy.cross_entropy is not ported yet "
-            "(ROADMAP queue A item 8)")
+    def cross_entropy(self, logits: torch.Tensor,
+                      labels: torch.Tensor) -> torch.Tensor:
+        """Per-token CE ([T, V], [T] -> [T] float32).  Kernel path: the
+        fused two-pass CE (forward = pass 1, backward = pass 2); otherwise
+        this algorithm's logsumexp minus the label logit."""
+        if self.use_kernels:
+            from repro_torch.kernels import ops
+
+            return ops.cross_entropy(logits, labels)
+        x = logits.to(torch.float32)
+        lse = self.logsumexp(x, axis=-1)
+        ll = torch.gather(x, -1, labels.to(torch.int64)[:, None])[:, 0]
+        return lse - ll
 
     def lmhead_cross_entropy(self, h, w, labels):
         raise NotImplementedError(

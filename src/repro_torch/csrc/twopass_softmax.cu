@@ -11,7 +11,7 @@
 // design moves the paper's 3N:
 //   * one thread block per row; pass 1 reads the row once and folds every
 //     element into (m, n) pairs, exactly as ext_add does, in the fixed
-//     order of row_stats.  No exponential is stored.
+//     order of row_stats (rowfold.cuh).  No exponential is stored.
 //   * pass 2 re-reads the row (mostly from L2 for rows that fit) and
 //     writes y = m / m_sum * 2^(n - n_sum).
 //   * the ragged edge is masked in the loop: nothing is padded, where the
@@ -19,7 +19,7 @@
 // Threads per block follow the row length (about 8 elements a thread, one
 // warp for short rows, at most 1024), so a row of 48 scores takes one warp
 // and the sampler's 152064 logits take 1024 threads.  The ORDER of the
-// pass-1 fold depends on neither: see row_stats.  A -inf column adds the
+// pass-1 fold depends on neither: see rowfold.cuh.  A -inf column adds the
 // exact identity (m = 0, n = -1e38), so a row padded with -inf columns (a
 // longer cache, a page-rounded prefill) gives the same bits as the row
 // alone, whatever threads either launch takes.
@@ -34,70 +34,13 @@
 #include <cuda_runtime.h>
 
 #include "extexp.cuh"
+#include "rowfold.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-constexpr int kLanes = 32;
-constexpr int kPerLane = 8;                  // columns per lane per chunk
-constexpr int kChunk = kLanes * kPerLane;
-
-// (m, n) butterfly over a warp; every lane gets the same bits, because
-// ext_add is commutative bit for bit.
-__device__ __forceinline__ void warp_fold(float& m, float& n) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-    const float n2 = __shfl_xor_sync(0xffffffffu, n, off);
-    repro::ext_add(m, n, m2, n2);
-  }
-}
-
-// Pass 1: (m_sum, n_sum) of the row, for every thread, in one fixed order:
-//   * chunk j is columns [256 j, 256 j + 256); lane l of the warp that
-//     takes it folds columns 256 j + l + 32 e, e = 0..7, in order (loads
-//     coalesced), and a butterfly gives the chunk's pair;
-//   * slot j % 32 folds chunks j, j + 32, j + 64, ... in order;
-//   * a butterfly over the 32 slots gives the row's pair.
-// Warp w takes chunks w, w + W, ... (W warps, a power of two <= 32), so
-// every chunk of slot s falls to warp s % W, in increasing order, and lane
-// s / W of that warp holds the slot.
-template <typename T>
-__device__ __forceinline__ void row_stats(const T* row, int cols,
-                                          float& m_sum, float& n_sum) {
-  __shared__ float sm[kLanes], sn[kLanes];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const int slot = warp + lane * nwarps;       // this lane's slot, if < 32
-  float ms = 0.0f, ns = repro::kMinusInfN;
-  const int chunks = (cols + kChunk - 1) / kChunk;
-  for (int j = warp; j < chunks; j += nwarps) {
-    float m = 0.0f, n = repro::kMinusInfN;
-#pragma unroll
-    for (int e = 0; e < kPerLane; ++e) {
-      const int c = j * kChunk + e * kLanes + lane;
-      if (c < cols) {
-        float me, ne;
-        repro::ext_exp(to_f32(row[c]), me, ne);
-        repro::ext_add(m, n, me, ne);
-      }
-    }
-    warp_fold(m, n);
-    if (slot == (j & (kLanes - 1))) repro::ext_add(ms, ns, m, n);
-  }
-  if (slot < kLanes) { sm[slot] = ms; sn[slot] = ns; }
-  __syncthreads();
-  m_sum = sm[lane];
-  n_sum = sn[lane];
-  warp_fold(m_sum, n_sum);
-}
+using repro::row_stats;
+using repro::store;
+using repro::to_f32;
 
 template <typename T>
 __global__ void twopass_softmax_kernel(const T* __restrict__ x,

@@ -4,13 +4,18 @@ Importing this package builds nothing and needs neither ``nvcc`` nor
 ``triton``: a kernel is built at its first launch (``_build.load``).
 """
 
-from repro_torch.kernels import decode_attention, twopass_softmax
+from repro_torch.kernels import (decode_attention, threepass_softmax,
+                                 twopass_softmax, twopass_xent)
 
 # Every kernel wrapper of the package; each counts its launches in
 # ``.launches``.
 WRAPPERS = {
     "twopass_softmax_2d": twopass_softmax.twopass_softmax_2d,
     "twopass_stats_2d": twopass_softmax.twopass_stats_2d,
+    "threepass_recompute_2d": threepass_softmax.threepass_recompute_2d,
+    "threepass_reload_2d": threepass_softmax.threepass_reload_2d,
+    "xent_fwd_2d": twopass_xent.xent_fwd_2d,
+    "xent_bwd_2d": twopass_xent.xent_bwd_2d,
     "decode_attention_paged": decode_attention.decode_attention_paged,
     "decode_attention": decode_attention.decode_attention,
 }

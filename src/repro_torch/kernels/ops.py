@@ -1,5 +1,6 @@
-"""Public ops over the kernels: softmax (differentiable), logsumexp stats and
-the two decode-attention ops, with their dispatch.
+"""Public ops over the kernels: softmax under each of the paper's three
+algorithms and cross-entropy (both differentiable), logsumexp stats and the
+two decode-attention ops, with their dispatch.
 
 Dispatch: the kernel wrappers launch their CUDA kernel for a tensor on the
 card and run their plain version for a tensor on the CPU.  An op takes the
@@ -19,7 +20,9 @@ import torch
 from repro_torch.core.softmax_api import SoftmaxAlgorithm
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import registry
+from repro_torch.kernels import threepass_softmax as _tp3
 from repro_torch.kernels import twopass_softmax as _tp2
+from repro_torch.kernels import twopass_xent as _xent
 
 # Chunk-count guards of the plain chunked forms, which live beside the
 # kernels they are held against (kernels/decode_attention.py).
@@ -37,14 +40,21 @@ def _blocks(op: str, rows: int, cols: int, block_rows, block_cols,
                                  block_cols=block_cols)
 
 
+_SOFTMAX_2D = {
+    SoftmaxAlgorithm.TWO_PASS: _tp2.twopass_softmax_2d,
+    SoftmaxAlgorithm.THREE_PASS_RECOMPUTE: _tp3.threepass_recompute_2d,
+    SoftmaxAlgorithm.THREE_PASS_RELOAD: _tp3.threepass_reload_2d,
+}
+
+
 class _Softmax(torch.autograd.Function):
-    """Two-pass softmax kernel with the analytic VJP
+    """Softmax kernel of the chosen algorithm with the analytic VJP
     ``dx = y * (dy - sum(dy * y))``, which needs only ``y``."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, algorithm):
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
-        y = _tp2.twopass_softmax_2d(x2).reshape(x.shape)
+        y = _SOFTMAX_2D[algorithm](x2).reshape(x.shape)
         ctx.save_for_backward(y)
         return y
 
@@ -53,19 +63,41 @@ class _Softmax(torch.autograd.Function):
         (y,) = ctx.saved_tensors
         yf, dyf = y.to(torch.float32), dy.to(torch.float32)
         dx = yf * (dyf - (dyf * yf).sum(dim=-1, keepdim=True))
-        return dx.to(y.dtype)
+        return dx.to(y.dtype), None
 
 
 def softmax(x: torch.Tensor,
             algorithm: SoftmaxAlgorithm | str = SoftmaxAlgorithm.TWO_PASS
             ) -> torch.Tensor:
-    """Last-axis softmax through the kernel (any leading dims);
-    differentiable."""
-    if SoftmaxAlgorithm(algorithm) != SoftmaxAlgorithm.TWO_PASS:
-        raise NotImplementedError(
-            f"softmax kernel for {SoftmaxAlgorithm(algorithm).value!r}: the "
-            "three-pass kernels are not ported yet (ROADMAP queue A item 7)")
-    return _Softmax.apply(x)
+    """Last-axis softmax through the kernel of ``algorithm`` (any leading
+    dims); differentiable."""
+    return _Softmax.apply(x, SoftmaxAlgorithm(algorithm))
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """Fused cross-entropy: the forward is pass 1 (no probability is
+    stored), the backward pass 2 from the saved ``(m_sum, n_sum)``."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        logits = logits.contiguous()
+        loss, m_sum, n_sum = _xent.xent_fwd_2d(logits, labels)
+        ctx.save_for_backward(logits, labels, m_sum, n_sum)
+        return loss
+
+    @staticmethod
+    def backward(ctx, dloss):
+        logits, labels, m_sum, n_sum = ctx.saved_tensors
+        return _xent.xent_bwd_2d(logits, labels, m_sum, n_sum,
+                                 dloss.contiguous()), None
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Per-token CE loss ``[T, V], [T] -> [T]`` float32, probabilities never
+    materialised; differentiable in ``logits``.  The kernel sweeps whole
+    rows, so nothing is padded."""
+    return _CrossEntropy.apply(logits, labels)
 
 
 def logsumexp_stats(x: torch.Tensor):

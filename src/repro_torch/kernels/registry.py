@@ -8,9 +8,12 @@ reference package is not ported yet: ROADMAP queue A item 20.)
 The alignments are re-derived for Hopper rather than copied from the TPU's
 (8, 128) sublane/lane grid:
 
-  * ``softmax`` / ``logsumexp``: no spec.  The CUDA kernel gives each row
-    its own thread block, sweeps the whole row inside it and masks the
-    ragged edge itself, so it takes no tile and nothing is padded.
+  * ``softmax`` / ``logsumexp``: no spec.  The CUDA kernels (two-pass and
+    both three-pass baselines) give each row its own thread block, sweep
+    the whole row inside it and mask the ragged edge themselves, so they
+    take no tile and nothing is padded.
+  * ``xent``: no spec, for the same reason: the cross-entropy kernels
+    sweep whole rows of the logits, so ``ops.cross_entropy`` pads nothing.
   * ``decode_attention`` / ``decode_attention_paged``: one block per
     (slot, KV head), so slots never tile (``row_align`` 8 -> 1).  The col
     block is the kernel's KV tile, whose scores live in shared memory

@@ -21,7 +21,9 @@ from repro.kernels import ops as jops
 from repro_torch import kernels as tk
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import threepass_softmax as tp3
 from repro_torch.kernels import twopass_softmax as ttp
+from repro_torch.kernels import twopass_xent as txe
 
 F32 = dict(atol=5e-6, rtol=1e-5)          # tests/test_kernels.py, float32
 
@@ -79,11 +81,6 @@ def test_softmax_gradient_matches_jax_grad():
     xt = torch.from_numpy(x).requires_grad_(True)
     (tops.softmax(xt) * torch.from_numpy(w)).sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gj), atol=1e-6)
-
-
-def test_three_pass_kernels_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tops.softmax(torch.zeros(2, 4), algorithm="three_pass_reload")
 
 
 # ---------------------------------------------------------------------------
@@ -231,20 +228,31 @@ class TestDecode:
 # ---------------------------------------------------------------------------
 def test_cpu_tensors_take_the_plain_versions():
     x = torch.randn(4, 40)
-    torch.testing.assert_close(ttp.twopass_softmax_2d(x),
-                               ttp.twopass_softmax_2d_plain(x),
-                               atol=0, rtol=0)
+    lab = torch.tensor([0, 3, 39, 7])
+    for fn, plain in ((ttp.twopass_softmax_2d, ttp.twopass_softmax_2d_plain),
+                      (tp3.threepass_recompute_2d,
+                       tp3.threepass_recompute_2d_plain),
+                      (tp3.threepass_reload_2d,
+                       tp3.threepass_reload_2d_plain),
+                      (lambda a: txe.xent_fwd_2d(a, lab)[0],
+                       lambda a: txe.xent_fwd_2d_plain(a, lab)[0])):
+        torch.testing.assert_close(fn(x), plain(x), atol=0, rtol=0)
     q = torch.randn(2, 1, 2, 8)
     k = torch.randn(2, 1, 16, 8)
     lens = torch.tensor([3, 16])
     tops.decode_attention(q, k, k, lens, use_kernel=True)
+    tops.cross_entropy(x, lab)
     assert tk.launch_counts() == {n: 0 for n in tk.WRAPPERS}
 
 
 def test_other_devices_raise():
     x = torch.empty(4, 40, device="meta")
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        ttp.twopass_softmax_2d(x)
+    lab = torch.empty(4, dtype=torch.int32, device="meta")
+    for fn in (ttp.twopass_softmax_2d, tp3.threepass_recompute_2d,
+               tp3.threepass_reload_2d, lambda a: txe.xent_fwd_2d(a, lab),
+               lambda a: txe.xent_bwd_2d(a, lab, a[:, :1], a[:, :1], a[:, 0])):
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            fn(x)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tda.decode_attention(torch.empty(1, 1, 1, 8, device="meta"),
                              torch.empty(1, 1, 4, 8, device="meta"),

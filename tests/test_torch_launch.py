@@ -1,0 +1,68 @@
+"""The port's serving CLI (``python -m repro_torch.launch.serve``) on the CPU:
+it serves a reduced model under each softmax algorithm, and every flag for
+something not ported yet exits with an error that names its ROADMAP
+item."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+from repro_torch.launch import serve
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+BASE = ["--arch", "qwen2.5-14b", "--reduced", "--device", "cpu",
+        "--requests", "3", "--slots", "2", "--prompt-len", "12",
+        "--steps", "4"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--softmax", "three_pass_reload", "--kernels"],
+    ["--softmax", "three_pass_recompute", "--temperature", "0.8", "--strip"],
+    ["--temperature", "0", "--kernels", "--page-size", "8", "--pages", "4"],
+], ids=["reload-kernels", "recompute-sampled-strip", "two-pass-paged"])
+def test_cli_serves_on_the_cpu(extra, capsys):
+    serve.main(BASE + extra)
+    out = capsys.readouterr().out
+    assert "served 3 requests over 2 slots" in out
+    assert "prefill: 36 tok" in out
+    algo = extra[1] if extra[0] == "--softmax" else "two_pass"
+    assert "decode:  9 tok" in out and f"via {algo} sampler" in out
+    assert ("strip pool" in out) == ("--strip" in extra)
+    # CPU tensors take the plain versions: no kernel launches
+    assert ("kernel launches: {}" in out) == ("--kernels" in extra)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--kv-dtype", "int8"], 18), (["--scale-granularity", "page"], 18),
+    (["--host-swap-bytes", "1000"], 18), (["--shared-prefix-len", "4"], 17),
+    (["--no-prefix-cache"], 17), (["--stream"], 19), (["--mesh", "2x2"], 22),
+    (["--enc-frames", "8"], 12), (["--enc-chunk", "4"], 12),
+    (["--arch", "whisper-base"], 12), (["--arch", "qwen2-vl-7b"], 14),
+    (["--arch", "rwkv6-1.6b"], 11), (["--arch", "granite-moe-3b-a800m"], 13),
+    (["--arch", "hymba-1.5b"], 16),
+    (["--arch", "deepseek-v2-lite-16b"], 13),
+])
+def test_unported_flags_exit_with_their_item(flags, item, capsys):
+    with pytest.raises(SystemExit) as e:
+        serve.main(BASE + flags)
+    assert e.value.code == 2
+    assert f"ROADMAP queue A item {item}" in capsys.readouterr().err
+
+
+def test_cli_runs_as_a_module_and_defaults_to_the_card():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *BASE,
+         "--softmax", "three_pass_reload", "--kernels"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "decode:  9 tok" in out.stdout
+    if not __import__("torch").cuda.is_available():
+        no_device = [a for a in BASE if a not in ("--device", "cpu")]
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *no_device],
+            capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+        assert out.returncode == 2 and "no CUDA device" in out.stderr

@@ -54,12 +54,16 @@ def _port_lockstep(tm, tp, req):
     return toks[0].tolist()
 
 
-@pytest.mark.parametrize("use_kernels", [False, True],
-                         ids=["dense-plain", "dense-kernels"])
-def test_greedy_tokens_match_jax_lockstep(weights, use_kernels):
+@pytest.mark.parametrize("use_kernels,algorithm", [
+    pytest.param(k, a, id=("dense-kernels" if k else "dense-plain")
+                 + ("" if a == "two_pass" else f"-{a}"))
+    for a in ("two_pass", "three_pass_recompute", "three_pass_reload")
+    for k in (False, True)])
+def test_greedy_tokens_match_jax_lockstep(weights, use_kernels, algorithm):
     jm, jp, tm, tp = weights
-    jcfg = dataclasses.replace(jm.cfg, use_kernels=use_kernels)
-    tm = Model(dataclasses.replace(tm.cfg, use_kernels=use_kernels), "cpu")
+    knobs = dict(use_kernels=use_kernels, softmax_algorithm=algorithm)
+    jcfg = dataclasses.replace(jm.cfg, **knobs)
+    tm = Model(dataclasses.replace(tm.cfg, **knobs), "cpu")
     reqs = _requests(tm.cfg.vocab)
     ref = []
     for r in reqs:
@@ -156,7 +160,8 @@ def test_unported_families_and_policy_sites_raise():
         m.init(0)
     pol = tbuild(ARCH, reduced=True, device="cpu").cfg.softmax_policy()
     with pytest.raises(NotImplementedError, match="item 8"):
-        pol.cross_entropy(torch.zeros(2, 4), torch.zeros(2))
+        pol.lmhead_cross_entropy(torch.zeros(2, 4), torch.zeros(4, 8),
+                                 torch.zeros(2))
 
 
 def test_softmax_block_overrides_are_refused():
