@@ -13,12 +13,15 @@ Phases (any failure exits non-zero; nothing is caught):
    paper's algorithms, cross-entropy at the LM head's shape, decode
    attention), with its time, its plain version's time, one PyTorch
    library call's time where one computes the same function, and its
-   bound (bytes over 3.35 TB/s or operations over the float32 peak,
-   whichever is larger); the softmax kernels' bits do not change when a
+   bound (bytes over 3.35 TB/s or operations over the peak of the unit
+   that does them, float32 or bf16 tensor cores, whichever is larger); the softmax kernels' bits do not change when a
    row is padded with -inf columns, and the two-pass kernels' bits equal
    those recorded before their fold moved into ``rowfold.cuh``; the
    paper's comparison times the three softmax algorithms side by side,
-   also at a shape whose rows in flight exceed the 50 MB L2;
+   also at a shape whose rows in flight exceed the 50 MB L2; the fused
+   LM-head cross-entropy kernels (forward, dh, dw) at one loss chunk of the
+   train phase and at a ragged shape, within float32 accumulation limits
+   derived from the shapes, with the same bits on a second run;
 3. engine: qwen2.5-14b at full width (d_model 5120, 40/8 heads, d_ff
    13824, vocab 152064, bf16, seeded random weights) serving 12 requests
    through ``ContinuousBatchingEngine(paged=True, use_kernels=True,
@@ -37,7 +40,16 @@ Phases (any failure exits non-zero; nothing is caught):
 6. cross-entropy: the per-token loss of a prompt under the served model
    through ``SoftmaxPolicy.cross_entropy`` with kernels, and its gradient,
    against the plain route;
-7. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
+7. training: qwen2.5-14b at full width, depth cut to 4 layers (float32
+   parameters, bf16 activations, remat), batch 1 x 4096 from SyntheticLM:
+   from one state the fused LM-head CE route and the plain materialised
+   route give the loss and three parameters' gradients within stated
+   limits, then three steps of ``make_train_step`` with the LM-head kernels
+   on the loss policy launch each of them 8 times a step (one per loss
+   chunk), a fourth under the profiler shows where the step's device time
+   goes, and the same three steps on the plain route from the same initial
+   weights give the comparison;
+8. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
    three_pass_reload --kernels``, at full width, as a subprocess.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -46,6 +58,7 @@ The last line of standard output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import hashlib
 import json
@@ -63,6 +76,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_S = 989e12        # H100 SXM dense bf16 on the tensor cores
 SOFTMAX_OPS = 74           # float ops per element, both passes
 STATS_OPS = 46             # float ops per element, pass 1 (with its folds)
 RECOMPUTE_OPS = 61         # Alg 1: max 1, sum 30, scale 30 per element
@@ -111,8 +125,13 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+def bound(nbytes: float, ops: float,
+          bf16_ops: float = 0.0) -> tuple[float, str]:
+    """Least time: bytes over the memory rate, float32 operations over the
+    FFMA peak, bf16 tensor-core operations over their peak (the units run
+    side by side, so the largest of the three)."""
+    tb = nbytes / HBM_BYTES_S * 1e3
+    to = max(ops / F32_OPS_S, bf16_ops / BF16_OPS_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -208,6 +227,156 @@ def xent_phase(torch, held, softmax_tol, rows) -> None:
                        bound(2 * nb + 16 * t, XENT_BWD_OPS * t * v))),
             max_abs_err=r_d["max_abs_err"], shape=[t, v])
         del x, loss, m, n, pl, pm, pn, dx
+
+
+# ---------------------------------------------------------------------------
+# The fused LM-head CE kernels (9-11) against their plain versions.
+# ---------------------------------------------------------------------------
+LMHEAD_TRAIN = (512, 5120, 152064)   # one loss chunk of the train phase
+LMHEAD_RAGGED = (77, 1000, 50257)
+LMHEAD_BLOCK_V = 8192                # the registry's vocab slab at full width
+LMHEAD = ("lmhead_xent_fwd_2d", "lmhead_xent_dh_2d", "lmhead_xent_dw_2d")
+ROUND_LAMBDA = 8.0
+
+
+def lmhead_limits(torch, h, w, lab, dl, m_sum, n_sum, loss):
+    """Per-element limits for kernel vs plain, from float32 accumulation.
+
+    Both sides form the same products (bf16 x bf16 is exact in float32;
+    float32 inputs take FFMA on both) and sum them in other orders.  A
+    float32 sum of K terms in any order is within lambda sqrt(K) 2^-24
+    sum|terms| of the exact sum, except with probability 2 exp(-lambda^2
+    / 2) per element (Higham and Mary's probabilistic bound; lambda = 8,
+    5e-14): twice that between the two sides.  So a logit is within
+    ex_t = 2 lambda sqrt(D) u max_v (|h| @ |w|)_tv of its twin, the (m, n)
+    fold of V terms moves lse by es = 2 lambda sqrt(V) u, and the loss by
+    2 ex_t + es (lse and the label logit).  dlogits then move by at most
+    c_t p_tv, c_t = |dl_t| (2 ex_t + es), which the products carry into
+    dh as c (p @ |w|^T) and into dw as |h|^T @ (c p); their own sums over
+    V and T add 2 lambda sqrt(K) u (|dlog| @ |w|^T) and (|h|^T @ |dlog|).
+    The final roundings add 4 u |value|."""
+    from repro_torch.kernels import twopass_xent as xe
+
+    u = 2.0 ** -24
+    t, d = h.shape
+    v = w.shape[1]
+    ha, wa = h.float().abs(), w.float().abs()
+    ex = 2 * ROUND_LAMBDA * d ** 0.5 * u * (ha @ wa).amax(dim=1)
+    es = 2 * ROUND_LAMBDA * v ** 0.5 * u
+    dl1 = torch.ones_like(dl)
+    dlog1 = torch.cat([x for _, _, x in xe._lmhead_dlogits_plain(
+        h, w, lab, m_sum, n_sum, dl1, 16)], dim=1)      # p - onehot
+    hot = (torch.arange(v, device=h.device)[None, :]
+           == lab.long()[:, None])
+    p = dlog1 + hot.float()
+    adlog = dlog1.abs() * dl.abs()[:, None]
+    del dlog1, hot
+    c = (dl.abs() * (2 * ex + es))[:, None]
+    lse = torch.log(m_sum[:, 0]) + n_sum[:, 0] * xe.LN2
+    lim = dict(
+        loss=2 * ex + es + 4 * u * loss.abs(),
+        lse=ex + es + 4 * u * lse.abs(),
+        dh=(2 * ROUND_LAMBDA * v ** 0.5 * u * (adlog @ wa.T)
+            + c * (p @ wa.T)),
+        dw=(2 * ROUND_LAMBDA * t ** 0.5 * u * (ha.T @ adlog)
+            + ha.T @ (c * p)))
+    return {k: x.clamp(min=1e-30) for k, x in lim.items()}
+
+
+def lmhead_phase(torch, rows) -> None:
+    """Kernels 9-11 against their plain versions at one loss chunk of the
+    train phase (bf16) and at a ragged shape (float32 and bf16), each
+    within the accumulation limits of :func:`lmhead_limits`; the same bits
+    on a second run; times at the train shape."""
+    from repro_torch.kernels import twopass_xent as xe
+
+    def worst(got, want, lim):
+        d = (got.float() - want.float()).abs()
+        return float(d.max()), float((d / lim).max())
+
+    for case, (t, d, v), dt in (
+            ("train_chunk_bf16", LMHEAD_TRAIN, torch.bfloat16),
+            ("ragged_f32", LMHEAD_RAGGED, torch.float32),
+            ("ragged_bf16", LMHEAD_RAGGED, torch.bfloat16)):
+        g = torch.Generator(device="cuda").manual_seed(13)
+        h = torch.randn(t, d, device="cuda", generator=g).to(dt)
+        w = (torch.randn(d, v, device="cuda", generator=g)
+             * d ** -0.5).to(dt)
+        lab = torch.randint(0, v, (t,), device="cuda", generator=g)
+        lab[0] = v                                   # outside: gathers 0
+        dl = torch.randn(t, device="cuda", generator=g) / t
+        bv, nch = LMHEAD_BLOCK_V, xe.lmhead_v_chunks(v, LMHEAD_BLOCK_V)
+        loss, m, n = xe.lmhead_xent_fwd_2d(h, w, lab, block_v=bv)
+        torch.cuda.synchronize()
+        pl, pm, pn = xe.lmhead_xent_fwd_2d_plain(h, w, lab, nch)
+        args = (h, w, lab, pm, pn, dl)
+        lim = lmhead_limits(torch, h, w, lab, dl, pm, pn, pl)
+        res = {}
+        res["loss"] = worst(loss, pl, lim["loss"])
+        res["lse"] = worst(torch.log(m) + n * xe.LN2,
+                           torch.log(pm) + pn * xe.LN2, lim["lse"][:, None])
+        dh = xe.lmhead_xent_dh_2d(*args, block_v=bv)
+        torch.cuda.synchronize()
+        res["dh"] = worst(dh, xe.lmhead_xent_dh_2d_plain(*args, nch),
+                          lim["dh"])
+        dw = xe.lmhead_xent_dw_2d(*args, block_v=bv)
+        torch.cuda.synchronize()
+        res["dw"] = worst(dw, xe.lmhead_xent_dw_2d_plain(*args, nch),
+                          lim["dw"])
+        del lim
+        same = (torch.equal(xe.lmhead_xent_fwd_2d(h, w, lab, block_v=bv)[0],
+                            loss)
+                and torch.equal(xe.lmhead_xent_dh_2d(*args, block_v=bv), dh)
+                and torch.equal(xe.lmhead_xent_dw_2d(*args, block_v=bv), dw))
+        del dw
+        for what, (a, over) in res.items():
+            check(over <= 1.0, f"lmhead {case} {what}: max abs err {a} is "
+                  f"{over} of its limit")
+        check(same, f"lmhead {case}: bits differ between two runs")
+        for k, what in zip(LMHEAD, (("loss", "lse"), ("dh",), ("dw",))):
+            say("kernel_check", kernel=k, case=case, shape=[t, d, v],
+                dtype=str(dt), block_v=bv, same_bits_twice=True,
+                **{f"{x}_max_abs_err": res[x][0] for x in what},
+                **{f"{x}_worst_err_over_limit": res[x][1] for x in what},
+                tol="float32 accumulation limits (lmhead_limits: "
+                    "lambda 8 sqrt(K) 2^-24 sum|terms|, K = D for the "
+                    "logits, V for dh, T for dw)")
+        if case == "train_chunk_bf16":
+            es = h.element_size()
+            ins = t * d * es + d * v * es + 16 * t
+            mm = 2 * t * d * v
+            rows["lmhead_xent_fwd_2d"] = {case: dict(
+                ms=cuda_ms(torch, lambda: xe.lmhead_xent_fwd_2d(
+                    h, w, lab, block_v=bv)),
+                plain_ms=cuda_ms(torch, lambda: xe.lmhead_xent_fwd_2d_plain(
+                    h, w, lab, nch), 5),
+                library_ms=None,      # no one PyTorch call fuses h @ w + CE
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound(ins + 12 * t, STATS_OPS * t * v, mm))),
+                max_abs_err=res["loss"][0], shape=[t, d, v])}
+            for k, which, out in (("lmhead_xent_dh_2d", "dh", t * d * 4),
+                                  ("lmhead_xent_dw_2d", "dw", d * v * 4)):
+                fn = getattr(xe, k)
+                plain = getattr(xe, k + "_plain")
+                # the recomputed logits, then the dlogits product as three
+                # bf16 tensor-core products of the split float32 dlogits
+                rows[k] = {case: dict(
+                    ms=cuda_ms(torch, lambda: fn(*args, block_v=bv)),
+                    plain_ms=cuda_ms(torch, lambda: plain(*args, nch), 5),
+                    library_ms=None,
+                    **dict(zip(("bound_ms", "bound_by"), bound(
+                        ins + out, XENT_BWD_OPS * t * v, 4 * mm))),
+                    max_abs_err=res[which][0], shape=[t, d, v])}
+            say("context", what="torch.matmul(h, w) alone, bf16, the "
+                "logits of one chunk", shape=[t, d, v],
+                ms=cuda_ms(torch, lambda: torch.matmul(h, w)),
+                bound_ms=bound(ins + 2 * t * v, 0, mm)[0])
+        del h, w, loss, m, n, pl, pm, pn, dh, args
+        torch.cuda.empty_cache()
+    for k in LMHEAD:
+        r = rows[k]["train_chunk_bf16"]
+        say("kernel_time", kernel=k, case="train_chunk_bf16",
+            bound_us=r["bound_ms"] * 1e3, **r)
 
 
 def paper_comparison(torch, rows) -> None:
@@ -676,7 +845,10 @@ def xent_path(torch, m, params, prompt) -> dict:
     cfg = m.cfg
     tok = torch.tensor([prompt], device="cuda")
     with torch.no_grad():
-        h = transformer.forward(params, tok, cfg=cfg)
+        # a forward without a cache under use_kernels would take the flash
+        # route, which is not ported (ROADMAP queue B items 12-13)
+        h = transformer.forward(params, tok, cfg=dataclasses.replace(
+            cfg, use_kernels=False))
         logits = transformer.lm_logits(params, h, cfg=cfg)[0, :-1,
                                                            :cfg.vocab]
     logits = logits.contiguous().requires_grad_(True)
@@ -701,6 +873,221 @@ def xent_path(torch, m, params, prompt) -> dict:
         tol="rtol 1e-5 (sum order)", dlogits_max_row_sum=float(grad_rows),
         launches=launches)
     return {k: launches[k] for k in ("xent_fwd_2d", "xent_bwd_2d")}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: a train step of qwen2.5-14b at full width through make_train_step.
+# ---------------------------------------------------------------------------
+TRAIN_LAYERS = 4            # depth cut from 48 (memory: 16 bytes a param)
+TRAIN_SEQ = 4096            # the config's train_4k length, batch 1
+TRAIN_STEPS = 3
+GRADS_HELD = {"lm_head.w": ("lm_head", "w"),
+              "embed.table": ("embed", "table"),
+              "blocks.mlp.down.w": ("blocks", "mlp", "down", "w")}
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def train_phase(torch) -> dict:
+    """Three AdamW steps of qwen2.5-14b (full width, 4 layers, float32
+    parameters, bf16 activations, remat) on SyntheticLM batches of 1 x 4096
+    through ``make_train_step`` with the fused LM-head CE kernels on the
+    loss policy (the model's own ``use_kernels`` stays off: attention runs
+    the (m, n) tensor forms).  First, from the same state and batch, the
+    kernel route against the plain materialised route.  Returns the
+    launches of kernels 9-11 over the three steps."""
+    import math
+
+    import repro_torch.kernels as K
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core.policy import SoftmaxPolicy
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import build_model, transformer
+    from repro_torch.optim import adamw
+    from repro_torch.training import step_fn, train_state
+
+    m = build_model(ARCH, n_layers=TRAIN_LAYERS)
+    cfg = m.cfg
+    check(not cfg.use_kernels and cfg.remat and cfg.param_dtype == "float32"
+          and cfg.dtype == "bfloat16", f"train config: {cfg}")
+    t0 = time.perf_counter()
+    params = m.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in adamw.leaves(params))
+    ds = SyntheticLM(cfg, ShapeCell("train_4k_b1", TRAIN_SEQ, 1, "train"),
+                     seed=0)
+    tokens = TRAIN_SEQ - 1              # label positions of a batch
+    chunks = min(8, tokens)
+    say("train_config", arch=ARCH, n_layers=cfg.n_layers, full_depth=48,
+        reduced=["n_layers 48 -> 4"], d_model=cfg.d_model,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+        vocab=cfg.vocab, param_dtype=cfg.param_dtype, dtype=cfg.dtype,
+        remat=cfg.remat, params=n_params, batch=[1, TRAIN_SEQ],
+        loss_chunks=chunks, data="SyntheticLM seed 0",
+        lr="warmup_cosine (the default: peak 3e-4, 100 warm-up steps)",
+        init_s=time.perf_counter() - t0,
+        loss_policy="SoftmaxPolicy(use_kernels=True), model use_kernels="
+                    "False")
+    kern, plain = SoftmaxPolicy(use_kernels=True), SoftmaxPolicy()
+
+    # -- the kernel route against the plain route, same state and batch
+    batch = {"tokens": torch.from_numpy(ds.batch_at(0)["tokens"]).cuda()}
+    K.reset_launch_counts()
+    lk, gk = step_fn.loss_and_grads(m, params, batch, kern)
+    torch.cuda.synchronize()
+    ck = K.launch_counts()
+    held_k = {n: _at(gk, pth) for n, pth in GRADS_HELD.items()}
+    del gk
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    lp, gp = step_fn.loss_and_grads(m, params, batch, plain)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    cp = K.launch_counts()
+    held_p = {n: _at(gp, pth) for n, pth in GRADS_HELD.items()}
+    del gp
+    check(all(ck[k] == chunks for k in LMHEAD),
+          f"kernel route: {chunks} launches of each of {LMHEAD}: {ck}")
+    check(sum(cp.values()) == 0, f"plain route launched a kernel: {cp}")
+    with torch.no_grad():
+        h = transformer.forward(params, batch["tokens"][:, :-1], cfg=cfg)
+        w = transformer._head_w(params, cfg).to(h.dtype)
+        xmax = max(float((hc @ w).abs().amax())
+                   for hc in h[0].split(-(-tokens // chunks)))
+        del h, w
+    # the plain route rounds its logits to bf16 (h @ w in bf16): each
+    # within 2^-9 of its value, so lse and the label logit each move by
+    # 2^-9 max|x| at most; 1e-4 more for float32 sums
+    loss_lim = 2.0 ** -8 * xmax + 1e-4
+    check(abs(float(lk) - float(lp)) <= loss_lim,
+          f"loss kernels {float(lk)} vs plain {float(lp)} beyond {loss_lim}")
+    grads = {}
+    for name in GRADS_HELD:
+        a, b = held_k[name].float(), held_p[name].float()
+        rel = float((a - b).norm() / b.norm())
+        # lm_head.w: dlogits rounded to bf16 on the plain side and each
+        # route's bf16 chunk sums, a few 2^-9; the others: the backward
+        # through 4 layers of bf16 activations, each route rounding its own
+        lim = 2.0 ** -5 if name == "lm_head.w" else 2.0 ** -4
+        check(rel <= lim and bool(torch.isfinite(a).all()),
+              f"grad {name}: relative norm difference {rel} beyond {lim}")
+        grads[name] = dict(rel_norm_diff=rel, limit=lim,
+                           max_abs_err=float((a - b).abs().max()),
+                           max_abs=float(b.abs().max()))
+    del held_k, held_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    # loss and gradients alone (no optimizer), each route timed after its
+    # first run: the fused LM-head CE against materialised logits
+    t = time.perf_counter()
+    step_fn.loss_and_grads(m, params, batch, kern)
+    torch.cuda.synchronize()
+    kern_ms = (time.perf_counter() - t) * 1e3
+    say("train_parity", check="kernel route vs plain materialised route, "
+        "same state and batch", loss_kernels=float(lk),
+        loss_plain=float(lp), loss_abs_diff=abs(float(lk) - float(lp)),
+        loss_limit=loss_lim, max_abs_logit=xmax, grads=grads,
+        launches_kernel_route={k: ck[k] for k in LMHEAD},
+        launches_plain_route=sum(cp.values()),
+        loss_and_grads_ms={"kernel_route": kern_ms, "plain_route": plain_ms})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the train steps: the main path (kernels on the loss policy), then
+    # the plain route from the same initial weights, for comparison
+    def run(policy, route):
+        state = train_state.init_state(params if route == "kernel"
+                                       else m.init(seed=0))
+        step = step_fn.make_train_step(m, softmax_policy=policy)
+        counts, losses, times = dict.fromkeys(LMHEAD, 0), [], []
+        for i in range(TRAIN_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            t = time.perf_counter()
+            state, met = step(state, ds.batch_at(i))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            c = K.launch_counts()
+            want = chunks if route == "kernel" else 0
+            check(all(c[k] == want for k in LMHEAD),
+                  f"{route} step {i}: {want} launches of each LM-head "
+                  f"kernel: {c}")
+            for k in LMHEAD:
+                counts[k] += c[k]
+            loss = float(met["loss"])
+            check(math.isfinite(loss)
+                  and math.isfinite(float(met["grad_norm"])),
+                  f"{route} step {i}: loss {loss}")
+            losses.append(loss)
+            times.append(dt * 1e3)
+            say("train_step", route=route, step=i, loss=loss,
+                grad_norm=float(met["grad_norm"]), lr=float(met["lr"]),
+                ms=dt * 1e3, tokens_per_s=tokens / dt,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                launches={k: c[k] for k in LMHEAD})
+        check(int(state.opt.step) == TRAIN_STEPS, "optimizer step count")
+        if route == "kernel":
+            train_trace(torch, step, state, ds.batch_at(TRAIN_STEPS))
+        return counts, losses, times
+
+    launches, losses, times = run(kern, "kernel")
+    check(abs(losses[0] - math.log(cfg.vocab)) < 1.5,
+          f"first loss {losses[0]} not near ln V = {math.log(cfg.vocab)}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, plain_losses, plain_times = run(plain, "plain")
+    say("train", losses=losses, plain_route_losses=plain_losses,
+        step_ms=times, plain_route_step_ms=plain_times,
+        first_loss_minus_ln_v=losses[0] - math.log(cfg.vocab),
+        first_loss_equals_parity_loss=losses[0] == float(lk),
+        launches=launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_trace(torch, step, state, batch) -> None:
+    """Where a step's device time goes: one more step under
+    ``torch.profiler`` (CPU and CUDA activity; the CPU tracing slows the
+    host, so the idle share is an upper bound), its kernels' device time
+    summed by group and the ten largest by name.  Not one of the counted
+    steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    by_name = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            by_name[e.key] = getattr(e, "self_device_time_total", 0) / 1e3
+    busy = sum(by_name.values())
+    if busy <= 0:
+        say("train_trace", device_time="not measured (no CUDA events)")
+        return
+
+    def group(name):
+        if name.startswith("lmhead_") or "lmhead_" in name:
+            return "lmhead_xent kernels"
+        if any(k in name for k in ("gemm", "cutlass", "xmma", "sm90")):
+            return "cuBLAS products"
+        return "other (elementwise, reductions, copies)"
+
+    groups = {}
+    for name, ms in by_name.items():
+        groups[group(name)] = groups.get(group(name), 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    say("train_trace", wall_ms=wall * 1e3, device_busy_ms=busy,
+        idle_share=max(0.0, 1 - busy / (wall * 1e3)), groups_ms=groups,
+        top_kernels_ms=[[k[:120], v] for k, v in top])
 
 
 def cli_phase(torch) -> None:
@@ -766,6 +1153,9 @@ REPLACES = {
     "threepass_reload_2d": "src/repro/kernels/threepass_softmax.py:148",
     "xent_fwd_2d": "src/repro/kernels/twopass_xent.py:79",
     "xent_bwd_2d": "src/repro/kernels/twopass_xent.py:110",
+    "lmhead_xent_fwd_2d": "src/repro/kernels/twopass_xent.py:237",
+    "lmhead_xent_dh_2d": "src/repro/kernels/twopass_xent.py:275",
+    "lmhead_xent_dw_2d": "src/repro/kernels/twopass_xent.py:304",
 }
 SOURCES = {
     "twopass_softmax_2d": "src/repro_torch/csrc/twopass_softmax.cu",
@@ -776,13 +1166,17 @@ SOURCES = {
     "threepass_reload_2d": "src/repro_torch/csrc/threepass_softmax.cu",
     "xent_fwd_2d": "src/repro_torch/csrc/twopass_xent.cu",
     "xent_bwd_2d": "src/repro_torch/csrc/twopass_xent.cu",
+    "lmhead_xent_fwd_2d": "src/repro_torch/csrc/lmhead_xent.cu",
+    "lmhead_xent_dh_2d": "src/repro_torch/csrc/lmhead_xent.cu",
+    "lmhead_xent_dw_2d": "src/repro_torch/csrc/lmhead_xent.cu",
 }
 MAIN_CASE = {"twopass_softmax_2d": "prefill_bucket_1024",
              "twopass_stats_2d": "prefill_bucket_1024",
              "decode_attention_paged": "main", "decode_attention": "main",
              "threepass_recompute_2d": "prefill_bucket_1024",
              "threepass_reload_2d": "prefill_bucket_1024",
-             "xent_fwd_2d": "lm_head_f32", "xent_bwd_2d": "lm_head_f32"}
+             "xent_fwd_2d": "lm_head_f32", "xent_bwd_2d": "lm_head_f32",
+             **dict.fromkeys(LMHEAD, "train_chunk_bf16")}
 
 
 def main() -> int:
@@ -817,6 +1211,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = kernel_phase(torch, rng)
     paper_comparison(torch, rows)
+    lmhead_phase(torch, rows)
     torch.cuda.empty_cache()
     say("kernels_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
@@ -825,6 +1220,9 @@ def main() -> int:
     torch.cuda.empty_cache()             # the CLI's process needs the card
     say("engine_done", seconds=time.perf_counter() - t0,
         idle=idle if idle else "not measured")
+    t0 = time.perf_counter()
+    launches.update(train_phase(torch))
+    say("train_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     cli_phase(torch)
     say("cli_done", seconds=time.perf_counter() - t0)

@@ -111,10 +111,19 @@ class SoftmaxPolicy:
         ll = torch.gather(x, -1, labels.to(torch.int64)[:, None])[:, 0]
         return lse - ll
 
-    def lmhead_cross_entropy(self, h, w, labels):
-        raise NotImplementedError(
-            "SoftmaxPolicy.lmhead_cross_entropy is not ported yet "
-            "(ROADMAP queue A item 8)")
+    def lmhead_cross_entropy(self, h: torch.Tensor, w: torch.Tensor,
+                             labels: torch.Tensor) -> torch.Tensor:
+        """Fused LM-head CE ([T, D] @ [D, V] vs [T] -> [T] float32).  With
+        kernels, neither the logits nor their gradient is stored whole
+        (``ops.lmhead_cross_entropy``: the CUDA kernels on the card, the
+        plain (m, n) chunked forms on the CPU).  Without: materialised
+        float32 logits through :meth:`cross_entropy`."""
+        if self.use_kernels:
+            from repro_torch.kernels import ops
+
+            return ops.lmhead_cross_entropy(h, w, labels, policy=self)
+        logits = h.to(torch.float32) @ w.to(torch.float32)
+        return self.cross_entropy(logits, labels)
 
 
 DEFAULT_POLICY = SoftmaxPolicy()

@@ -16,6 +16,9 @@ WRAPPERS = {
     "threepass_reload_2d": threepass_softmax.threepass_reload_2d,
     "xent_fwd_2d": twopass_xent.xent_fwd_2d,
     "xent_bwd_2d": twopass_xent.xent_bwd_2d,
+    "lmhead_xent_fwd_2d": twopass_xent.lmhead_xent_fwd_2d,
+    "lmhead_xent_dh_2d": twopass_xent.lmhead_xent_dh_2d,
+    "lmhead_xent_dw_2d": twopass_xent.lmhead_xent_dw_2d,
     "decode_attention_paged": decode_attention.decode_attention_paged,
     "decode_attention": decode_attention.decode_attention,
 }

@@ -1,6 +1,7 @@
 """Public ops over the kernels: softmax under each of the paper's three
-algorithms and cross-entropy (both differentiable), logsumexp stats and the
-two decode-attention ops, with their dispatch.
+algorithms, cross-entropy and the fused LM-head cross-entropy (all
+differentiable), logsumexp stats and the two decode-attention ops, with
+their dispatch.
 
 Dispatch: the kernel wrappers launch their CUDA kernel for a tensor on the
 card and run their plain version for a tensor on the CPU.  An op takes the
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.core.softmax_api import SoftmaxAlgorithm
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import registry
 from repro_torch.kernels import threepass_softmax as _tp3
 from repro_torch.kernels import twopass_softmax as _tp2
@@ -98,6 +100,90 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     materialised; differentiable in ``logits``.  The kernel sweeps whole
     rows, so nothing is padded."""
     return _CrossEntropy.apply(logits, labels)
+
+
+# ---------------------------------------------------------------------------
+# Fused LM-head CE: loss(h @ w, labels) with the logits recomputed per vocab
+# tile in the forward and in both backward products -- neither the [T, V]
+# logits nor their gradient is stored whole.  Three implementations,
+# dispatched by ``train_bwd_impl``: "cuda" (the kernel wrappers of
+# kernels/twopass_xent.py; their plain versions for tensors on the CPU),
+# "twopass" (the plain chunked (m, n) forms on any device) and "ref"
+# (autograd over the materialised-logits oracle).  The ``lmhead_xent``
+# registry op.
+# ---------------------------------------------------------------------------
+TRAIN_IMPLS = ("cuda", "twopass", "ref")
+
+
+def train_bwd_impl(policy=None, impl: str | None = None,
+                   device=None) -> str:
+    """Implementation of :func:`lmhead_cross_entropy`: an explicit ``impl``
+    wins; ``policy.use_kernels`` takes the kernels ("cuda") for tensors on
+    the card and the plain (m, n) forms ("twopass") elsewhere; otherwise
+    the materialised reference ("ref")."""
+    if impl is not None:
+        if impl not in TRAIN_IMPLS:
+            raise ValueError(f"unknown impl {impl!r}")
+        return impl
+    if policy is not None and policy.use_kernels:
+        return ("cuda" if device is not None
+                and torch.device(device).type == "cuda" else "twopass")
+    return "ref"
+
+
+def _lmhead_blocks(h, w, block_v, policy) -> int:
+    """The vocab block: the backward kernels' dlogits slab and the plain
+    forms' chunk width (the kernels' token tile is fixed at 128)."""
+    return _blocks("lmhead_xent", h.shape[0], w.shape[1], None, block_v,
+                   policy)[1]
+
+
+class _LmheadCrossEntropy(torch.autograd.Function):
+    """Forward saves ``h, w, labels`` and the ``(m_sum, n_sum)`` stats; the
+    backward recomputes the logits for dh and for dw.  Nothing is padded:
+    the kernels mask the ragged token and vocab edges themselves, so no
+    padded token row ever reaches dw."""
+
+    @staticmethod
+    def forward(ctx, h, w, labels, block_v, impl):
+        h, w = h.contiguous(), w.contiguous()
+        if impl == "cuda":
+            loss, m_sum, n_sum = _xent.lmhead_xent_fwd_2d(h, w, labels,
+                                                          block_v=block_v)
+        else:
+            loss, m_sum, n_sum = _xent.lmhead_xent_fwd_2d_plain(
+                h, w, labels, _xent.lmhead_v_chunks(w.shape[1], block_v))
+        ctx.save_for_backward(h, w, labels, m_sum, n_sum)
+        ctx.block_v, ctx.impl = block_v, impl
+        return loss
+
+    @staticmethod
+    def backward(ctx, dloss):
+        h, w, labels, m_sum, n_sum = ctx.saved_tensors
+        args = (h, w, labels, m_sum, n_sum, dloss.contiguous())
+        if ctx.impl == "cuda":
+            dh = _xent.lmhead_xent_dh_2d(*args, block_v=ctx.block_v)
+            dw = _xent.lmhead_xent_dw_2d(*args, block_v=ctx.block_v)
+        else:
+            n = _xent.lmhead_v_chunks(w.shape[1], ctx.block_v)
+            dh = _xent.lmhead_xent_dh_2d_plain(*args, n)
+            dw = _xent.lmhead_xent_dw_2d_plain(*args, n)
+        return dh.to(h.dtype), dw.to(w.dtype), None, None, None
+
+
+def lmhead_cross_entropy(h: torch.Tensor, w: torch.Tensor,
+                         labels: torch.Tensor, block_v: int | None = None,
+                         policy=None, impl: str | None = None
+                         ) -> torch.Tensor:
+    """Per-token CE of ``h @ w`` against ``labels`` without materialising
+    the logits.  h: [T, D]; w: [D, V]; labels: [T] int -> loss [T] float32.
+    Differentiable in h and w (gradients in their dtypes); labels get
+    none.  ``impl`` pins "cuda" | "twopass" | "ref" (None: the policy's)."""
+    impl = train_bwd_impl(policy, impl, h.device)
+    if impl == "ref":
+        return _ref.lmhead_ref_loss(h, w, labels)
+    return _LmheadCrossEntropy.apply(
+        h, w, labels, _lmhead_blocks(h, w, block_v, policy), impl)
 
 
 def logsumexp_stats(x: torch.Tensor):

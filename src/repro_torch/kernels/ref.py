@@ -23,6 +23,23 @@ def logsumexp_ref(x: torch.Tensor) -> torch.Tensor:
             + mu[..., 0]).to(x.dtype)
 
 
+def cross_entropy_ref(logits: torch.Tensor,
+                      labels: torch.Tensor) -> torch.Tensor:
+    """Per-token CE oracle: ``lse(logits) - logits[label]``, float32."""
+    lf = logits.to(torch.float32)
+    ll = torch.gather(lf, -1, labels.to(torch.int64)[:, None])[:, 0]
+    return logsumexp_ref(lf) - ll
+
+
+def lmhead_ref_loss(h: torch.Tensor, w: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """The fused LM-head CE's oracle: materialised float32 logits
+    ``h @ w`` through :func:`cross_entropy_ref`; differentiable in h and w
+    by autograd."""
+    return cross_entropy_ref(h.to(torch.float32) @ w.to(torch.float32),
+                             labels)
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = False, scale: float | None = None,
                   window: int | None = None) -> torch.Tensor:

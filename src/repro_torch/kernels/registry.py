@@ -21,6 +21,13 @@ The alignments are re-derived for Hopper rather than copied from the TPU's
     (``col_align`` 128 -> 16, ``col_cap`` 2048 -> 128, no full-width
     tile), the same model as ``kv_page``, so a strip cache folds in the
     same tiles a paged cache folds in pages and the two give equal bits.
+  * ``lmhead_xent``: the fused LM-head CE (``csrc/lmhead_xent.cu``).  Its
+    kernels compute fixed 128 x 128 logit tiles (128 tokens, 128 vocab
+    columns: the wmma warp grid and the FFMA 8 x 8-a-thread tile), so the
+    row block is 128 and never tiles anything else.  The col block is the
+    vocab slab of the backward's float32 dlogits scratch (``[T, block_v]``,
+    16 MB at 512 tokens and 8192 columns: bounded, never ``[T, V]``) and
+    the plain versions' chunk width; 128-aligned, capped at 8192.
   * ``kv_page``: unchanged (128-token pages, 16-aligned, shrunk to the
     pool's own length for tiny pools), so the port resolves the same page
     size as the reference.
@@ -97,5 +104,7 @@ register(KernelSpec(name="decode_attention", row_align=1, row_cap=256,
                     col_align=16, col_cap=128, full_col_threshold=0))
 register(KernelSpec(name="decode_attention_paged", row_align=1, row_cap=256,
                     col_align=16, col_cap=128, full_col_threshold=0))
+register(KernelSpec(name="lmhead_xent", row_align=128, row_cap=128,
+                    col_align=128, col_cap=8192, full_col_threshold=8192))
 register(KernelSpec(name="kv_page", row_align=1, row_cap=1,
                     col_align=16, col_cap=128, full_col_threshold=0))

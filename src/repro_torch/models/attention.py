@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import numerics
 from repro_torch.core.policy import DEFAULT_POLICY, SoftmaxPolicy
+from repro_torch.core.softmax_api import SoftmaxAlgorithm
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers
 
@@ -136,12 +137,33 @@ def resolve_chunks(sq: int, skv: int,
             min(MAX_KV_CHUNKS, -(-skv // bk)))
 
 
+def _flash_route_refused(q, k, policy, *, causal, window, q_offset,
+                         kv_len, qpos) -> None:
+    """Raise where the reference's ``_flash_route`` would send the call
+    through its flash-attention kernel: kernels on, the two-pass
+    algorithm, no cache (no ``qpos``/``kv_len``, ``q_offset`` 0), and a
+    square score matrix when masked.  Serving always passes ``qpos``."""
+    if not (policy.use_kernels and qpos is None and kv_len is None
+            and q_offset == 0
+            and policy.algorithm == SoftmaxAlgorithm.TWO_PASS):
+        return
+    if (causal or window is not None) and q.shape[3] != k.shape[2]:
+        return
+    raise NotImplementedError(
+        "attention_core: self-attention without a cache under use_kernels "
+        "takes the flash-attention kernels, which are not ported yet "
+        "(ROADMAP queue B items 12-13); use use_kernels=False for the "
+        "model and put kernels on the loss policy only")
+
+
 def attention_core(q, k, v, *, causal, window, scale, q_offset=0,
                    kv_len=None, qpos=None, cfg: ModelConfig):
     """Serving always passes ``qpos`` (a cache is written), which takes
     :func:`full_attention` and so the policy's softmax.  The training flash
-    route is not ported yet (ROADMAP queue A item 9)."""
+    route raises until it is ported (:func:`_flash_route_refused`)."""
     policy = cfg.softmax_policy()
+    _flash_route_refused(q, k, policy, causal=causal, window=window,
+                         q_offset=q_offset, kv_len=kv_len, qpos=qpos)
     nq, nkv = resolve_chunks(q.shape[3], k.shape[2], policy)
     if (nq == 1 and nkv == 1) or qpos is not None:
         return full_attention(

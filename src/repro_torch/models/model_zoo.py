@@ -28,6 +28,12 @@ class Model:
         return transformer.init_lm(self.cfg, seed=seed, device=self.device,
                                    dtype=dtype)
 
+    def loss(self, params, batch: dict, policy=None):
+        """Mean next-token CE of ``batch`` (tensors on the device);
+        ``policy`` overrides the config's SoftmaxPolicy for the loss."""
+        return transformer.train_loss(params, batch, cfg=self.cfg,
+                                      policy=policy)
+
 
 def build_model(arch: str, reduced: bool = False, device="cuda",
                 **overrides) -> Model:

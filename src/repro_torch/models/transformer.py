@@ -1,13 +1,16 @@
-"""Model assembly for the dense family: decoder-only LM with an LM head.
+"""Model assembly for the dense family: decoder-only LM with an LM head,
+and its training loss.
 
 Layer parameters are stacked on a leading ``[L]`` axis, as in the
 reference; the layer loop is a Python loop that indexes them (the
-reference's ``lax.scan``).
+reference's ``lax.scan``), with a per-layer activation checkpoint under
+``cfg.remat`` (the reference's ``jax.checkpoint``).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -95,14 +98,30 @@ def _cos_sin(cfg: ModelConfig, positions):
                                cfg.rope_theta)
 
 
+def _scan_blocks(p_blocks, x, cos, sin, *, cfg: ModelConfig):
+    """Layer loop (train/prefill, no cache).  Under ``cfg.remat`` and with
+    gradients on, each layer is an activation checkpoint: its backward
+    recomputes the layer from its input, so only the layer inputs are
+    saved (the reference groups the checkpoints into sqrt(L) segments,
+    which changes memory, not numbers)."""
+    def body(h, p):
+        return block_apply(p, h, cos, sin, cfg=cfg)[0]
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        p = layer(p_blocks, i)
+        x = (checkpoint(body, x, p, use_reentrant=False) if remat
+             else body(x, p))
+    return x
+
+
 def forward(params: Params, tokens, *, cfg: ModelConfig):
     """Token forward to final hidden states [B, S, d] (no cache)."""
     _check_family(cfg)
     b, s = tokens.shape
     x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     cos, sin = _cos_sin(cfg, _positions_for(cfg, b, s, device=x.device))
-    for i in range(cfg.n_layers):
-        x, _ = block_apply(layer(params["blocks"], i), x, cos, sin, cfg=cfg)
+    x = _scan_blocks(params["blocks"], x, cos, sin, cfg=cfg)
     return layers.rmsnorm(params["norm_f"], x, eps=cfg.norm_eps)
 
 
@@ -115,3 +134,69 @@ def _head_w(params: Params, cfg: ModelConfig):
 def lm_logits(params: Params, h, *, cfg: ModelConfig):
     """Full logits for sampling/eval.  h: [..., d] -> [..., V_padded]."""
     return h @ _head_w(params, cfg).to(h.dtype)
+
+
+def lm_loss_from_hidden(params: Params, h, labels, *, cfg: ModelConfig,
+                        n_chunks: int = 8, mask=None, policy=None):
+    """Mean CE over tokens.  h: [B, S, d]; labels: [B, S].
+
+    The loss runs in ``n_chunks`` sequence chunks through the policy.  With
+    ``use_kernels`` each chunk is the fused LM-head CE
+    (``policy.lmhead_cross_entropy``): the logits are recomputed per vocab
+    tile in both passes from the saved (m, n) stats, so neither the
+    ``[T, V]`` logits nor their gradient is stored (no checkpoint needed).
+    Otherwise each chunk materialises float32 logits inside an activation
+    checkpoint, so the backward recomputes them instead of saving them."""
+    policy = policy or cfg.softmax_policy()
+    b, s, d = h.shape
+    w = _head_w(params, cfg).to(h.dtype)
+    n_chunks = min(n_chunks, s)
+    c = -(-s // n_chunks)
+
+    def chunk_ce_fused(hc, labc, w_):
+        tc = hc.shape[0] * hc.shape[1]
+        ce = policy.lmhead_cross_entropy(hc.reshape(tc, d), w_,
+                                         labc.reshape(tc))
+        return ce.reshape(hc.shape[0], hc.shape[1])
+
+    def chunk_ce_body(hc, labc, w_):
+        tc = hc.shape[0] * hc.shape[1]
+        logits = (hc.reshape(tc, d) @ w_).to(torch.float32)
+        ce = policy.cross_entropy(logits, labc.reshape(tc))
+        return ce.reshape(hc.shape[0], hc.shape[1])
+
+    def chunk_ce(hc, labc, w_):
+        if not torch.is_grad_enabled():
+            return chunk_ce_body(hc, labc, w_)
+        return checkpoint(chunk_ce_body, hc, labc, w_, use_reentrant=False)
+
+    if policy.use_kernels:
+        chunk_ce = chunk_ce_fused
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        lo, hi = i * c, min(s, (i + 1) * c)
+        if lo >= hi:
+            continue
+        ce = chunk_ce(h[:, lo:hi], labels[:, lo:hi], w)
+        if mask is not None:
+            mk = mask[:, lo:hi].to(torch.float32)
+            total = total + (ce * mk).sum()
+            count = count + mk.sum()
+        else:
+            total = total + ce.sum()
+            count = count + ce.numel()
+    return total / torch.clamp(count, min=1.0)
+
+
+def train_loss(params: Params, batch: dict, *, cfg: ModelConfig,
+               policy=None):
+    """Next-token CE of a dense LM on ``batch["tokens"]`` ([B, S]); an
+    optional ``batch["mask"]`` weights the label positions.  ``policy``
+    overrides the config's SoftmaxPolicy for the loss."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    h = forward(params, tokens[:, :-1], cfg=cfg)
+    return lm_loss_from_hidden(params, h, tokens[:, 1:], cfg=cfg,
+                               mask=batch.get("mask"), policy=policy)

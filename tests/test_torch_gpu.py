@@ -1,5 +1,5 @@
-"""The port's three-pass softmax and cross-entropy CUDA kernels against their
-plain versions on the card.  Every test here needs a CUDA device and skips
+"""The port's three-pass softmax, cross-entropy and fused LM-head
+cross-entropy CUDA kernels against their plain versions on the card.  Every test here needs a CUDA device and skips
 without one; the file imports no JAX, so it runs on a machine with a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -106,3 +106,70 @@ def test_ops_launch_the_algorithms_kernels(cuda, algo):
                                torch.zeros(16, device=cuda), atol=1e-5,
                                rtol=0)
     assert ops.softmax(x.detach(), algo).shape == x.shape
+
+
+# (tokens, d_model, vocab): ragged token tiles, a d_model that is no
+# multiple of 8 (unvectorised loads) or of the 32-wide k tile, vocab widths
+# that end inside a 128-column tile and span several backward slabs
+LMHEAD_SHAPES = [(40, 32, 300), (77, 999, 1000), (130, 64, 2000),
+                 (77, 1000, 50257)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,d,v", LMHEAD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lmhead_kernels_match_plain(cuda, dtype, t, d, v):
+    # Both sides take the same (bf16-exact) products and differ only in
+    # float32 sum order over d (logits) and over the vocab (dh) or the
+    # tokens (dw): errors ~1e-6 at these sizes.  Limits: the loss within
+    # atol 2e-4 + rtol 1e-5 (values ~ln v), dh and dw within atol 1e-5 +
+    # rtol 1e-4 (values ~1e-2).
+    g = torch.Generator(device=cuda).manual_seed(t + d + v)
+    h = torch.randn(t, d, device=cuda, generator=g).to(dtype)
+    w = (torch.randn(d, v, device=cuda, generator=g) * d ** -0.5).to(dtype)
+    lab = torch.randint(0, v, (t,), device=cuda, generator=g)
+    lab[0], lab[1] = -1, v                       # outside: gathers 0
+    dl = torch.randn(t, device=cuda, generator=g)
+    bv = 512
+    n = txe.lmhead_v_chunks(v, bv)
+    loss, m_sum, n_sum = txe.lmhead_xent_fwd_2d(h, w, lab, block_v=bv)
+    pl, pm, pn = txe.lmhead_xent_fwd_2d_plain(h, w, lab, n)
+    torch.testing.assert_close(loss, pl, atol=2e-4, rtol=1e-5)
+    lse = torch.log(m_sum) + n_sum * txe.LN2
+    torch.testing.assert_close(lse, torch.log(pm) + pn * txe.LN2,
+                               atol=2e-4, rtol=1e-5)
+    args = (h, w, lab, m_sum, n_sum, dl)
+    dh = txe.lmhead_xent_dh_2d(*args, block_v=bv)
+    dw = txe.lmhead_xent_dw_2d(*args, block_v=bv)
+    torch.testing.assert_close(dh, txe.lmhead_xent_dh_2d_plain(*args, n),
+                               atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(dw, txe.lmhead_xent_dw_2d_plain(*args, n),
+                               atol=1e-5, rtol=1e-4)
+    # no atomics: the same bits on a second run
+    assert torch.equal(txe.lmhead_xent_fwd_2d(h, w, lab, block_v=bv)[0],
+                       loss)
+    assert torch.equal(txe.lmhead_xent_dh_2d(*args, block_v=bv), dh)
+    assert torch.equal(txe.lmhead_xent_dw_2d(*args, block_v=bv), dw)
+    counts = tk.launch_counts()
+    assert counts["lmhead_xent_fwd_2d"] == 2
+    assert counts["lmhead_xent_dh_2d"] == counts["lmhead_xent_dw_2d"] == 2
+
+
+@pytest.mark.gpu
+def test_lmhead_op_launches_the_kernels_and_matches_the_reference(cuda):
+    h = torch.randn(100, 64, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(64, 3000, device=cuda) * 0.125).to(torch.bfloat16)
+    lab = torch.randint(0, 3000, (100,), device=cuda)
+    hk, wk = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    SoftmaxPolicy(use_kernels=True).lmhead_cross_entropy(
+        hk, wk, lab).sum().backward()
+    counts = tk.launch_counts()
+    assert [counts[f"lmhead_xent_{k}_2d"] for k in ("fwd", "dh", "dw")] \
+        == [1, 1, 1]
+    hr, wr = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    ops.lmhead_cross_entropy(hr, wr, lab, impl="ref").sum().backward()
+    assert hk.grad.dtype == wk.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(hk.grad.float(), hr.grad.float(), atol=1e-2,
+                               rtol=2.0 ** -6)
+    torch.testing.assert_close(wk.grad.float(), wr.grad.float(), atol=1e-2,
+                               rtol=2.0 ** -6)

@@ -16,6 +16,7 @@ from repro.serving import engine as jeng
 from repro_torch.convert import params_from_jax
 from repro_torch.models import Model
 from repro_torch.models import build_model as tbuild
+from repro_torch.models import transformer as ttr
 from repro_torch.serving import engine as teng
 from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
 
@@ -158,10 +159,12 @@ def test_unported_families_and_policy_sites_raise():
     with pytest.raises(NotImplementedError, match="ssm"):
         m = tbuild("rwkv6-1.6b", reduced=True, device="cpu")
         m.init(0)
-    pol = tbuild(ARCH, reduced=True, device="cpu").cfg.softmax_policy()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pol.lmhead_cross_entropy(torch.zeros(2, 4), torch.zeros(4, 8),
-                                 torch.zeros(2))
+    # the LM-head CE site is ported (tests/test_torch_training.py); the
+    # flash-attention site of a no-cache forward under kernels is not
+    m = tbuild(ARCH, reduced=True, device="cpu", use_kernels=True)
+    with pytest.raises(NotImplementedError, match="queue B items 12-13"):
+        ttr.forward(m.init(0), torch.zeros((1, 5), dtype=torch.long),
+                    cfg=m.cfg)
 
 
 def test_softmax_block_overrides_are_refused():
