@@ -21,7 +21,12 @@ Phases (any failure exits non-zero; nothing is caught):
    also at a shape whose rows in flight exceed the 50 MB L2; the fused
    LM-head cross-entropy kernels (forward, dh, dw) at one loss chunk of the
    train phase and at a ragged shape, within float32 accumulation limits
-   derived from the shapes, with the same bits on a second run;
+   derived from the shapes, with the same bits on a second run; the
+   flash-attention kernels (forward, and the dq and dk/dv backward) at the
+   train phase's attention shape, a ragged causal float32 call with rows
+   that see no key (exact zeros), a window and head dims 120 and 160,
+   within float32 accumulation limits derived from the inputs plus one
+   bf16 step, with the same bits on a second run;
 3. engine: qwen2.5-14b at full width (d_model 5120, 40/8 heads, d_ff
    13824, vocab 152064, bf16, seeded random weights) serving 12 requests
    through ``ContinuousBatchingEngine(paged=True, use_kernels=True,
@@ -39,18 +44,24 @@ Phases (any failure exits non-zero; nothing is caught):
    each launches its kernel for the sampler;
 6. cross-entropy: the per-token loss of a prompt under the served model
    through ``SoftmaxPolicy.cross_entropy`` with kernels, and its gradient,
-   against the plain route;
+   against the plain route (the prompt's forward takes the flash route);
 7. training: qwen2.5-14b at full width, depth cut to 4 layers (float32
-   parameters, bf16 activations, remat), batch 1 x 4096 from SyntheticLM:
-   from one state the fused LM-head CE route and the plain materialised
-   route give the loss and three parameters' gradients within stated
-   limits, then three steps of ``make_train_step`` with the LM-head kernels
-   on the loss policy launch each of them 8 times a step (one per loss
-   chunk), a fourth under the profiler shows where the step's device time
-   goes, and the same three steps on the plain route from the same initial
+   parameters, bf16 activations, remat), batch 1 x 4096 from SyntheticLM,
+   with the model's own ``use_kernels``: from one state the kernel route
+   (flash attention, fused LM-head CE) and the plain route (tensor forms,
+   materialised logits) give the loss and four parameters' gradients
+   within stated limits, then three steps through ``Trainer.run`` launch
+   the flash forward 8 times a step (4 layers, again under remat), its
+   backward 4 times and each LM-head kernel 8 times (one per loss chunk),
+   a fourth under the profiler shows where the step's device time goes,
+   and the same three steps on the plain route from the same initial
    weights give the comparison;
 8. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
-   three_pass_reload --kernels``, at full width, as a subprocess.
+   three_pass_reload --kernels``, at full width, as a subprocess;
+9. the training CLI, ``python -m repro_torch.launch.train --arch
+   qwen2.5-14b --reduced --kernels`` with a checkpoint directory under
+   ``build/``: 6 steps straight, then 3 and a resume to 6, whose final
+   losses agree.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -377,6 +388,260 @@ def lmhead_phase(torch, rows) -> None:
         r = rows[k]["train_chunk_bf16"]
         say("kernel_time", kernel=k, case="train_chunk_bf16",
             bound_us=r["bound_ms"] * 1e3, **r)
+
+
+# ---------------------------------------------------------------------------
+# The flash-attention kernels (12-13) against their plain versions.
+# ---------------------------------------------------------------------------
+# (B, H, Hkv, Sq, Skv, D, causal, window, dtype): the train phase's shape
+# (qwen2.5-14b, 1 x 4096), a ragged causal call with Sq > Skv (rows that
+# see no key) in float32, a window, and the dense family's head dims 120
+# (h2o-danube-3-4b) and 160 (stablelm-12b)
+FLASH_TRAIN = (1, 40, 8, 4096, 4096, 128, True, None, "bfloat16")
+FLASH_CASES = {"train_bf16": FLASH_TRAIN,
+               "ragged_empty_rows_f32": (1, 8, 2, 700, 300, 128, True, None,
+                                         "float32"),
+               "window_bf16": (1, 8, 2, 2048, 2048, 128, True, 300,
+                               "bfloat16"),
+               "d120_bf16": (1, 4, 1, 500, 500, 120, True, None, "bfloat16"),
+               "d160_f32": (1, 4, 2, 333, 333, 160, False, None, "float32"),
+               "d160_bf16": (1, 4, 2, 333, 333, 160, True, None,
+                             "bfloat16")}
+FLASH = ("flash_attention_fwd_gqa", "flash_attention_bwd_gqa")
+FLASH_EXTEXP_OPS = 25      # ExtExp, the max, rescale and sum per score
+FLASH_BWD_EW_OPS = 33      # ExtExp, p and ds per score
+
+
+def flash_visible(torch, sq, skv, causal, window) -> int:
+    """Scores the mask keeps (the work these inputs need)."""
+    qpos = torch.arange(sq, device="cuda")[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device="cuda")[None, :]
+    keep = torch.ones((sq, skv), dtype=torch.bool, device="cuda")
+    if causal:
+        keep &= kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    return int(keep.sum())
+
+
+def flash_limits(torch, q, k, v, do, o, m_sum, n_sum, causal, window, scale):
+    """Per-element limits for kernel vs plain, from float32 accumulation.
+
+    Both sides form the same products (bf16 x bf16 is exact in float32; w,
+    p and ds enter the kernels' tensor-core products as exact bf16 parts;
+    float32 inputs take FFMA on both sides) and sum them in other orders:
+    a float32 sum of K terms is within lambda sqrt(K) u sum|terms| of the
+    exact sum except with probability 2 exp(-lambda^2 / 2) (Higham and
+    Mary; lambda 8, u = 2^-24), twice that between the sides.  So a score
+    moves by es = 2 lambda sqrt(D) u scale (|q| @ |k|^T), dp by
+    edp = 2 lambda sqrt(D) u (|do| @ |v|^T); p (and the forward's weights)
+    relatively by es + 8 u; ds by scale (dp_p |dp - delta| + p edp).  These
+    carry through the products into o (and lse), dq, dk and dv, each of
+    whose own sums over K keys or rows adds 2 lambda sqrt(K) u times the
+    sum of its |terms|.  Final roundings add 4 u |value|, and a bf16 output
+    one bf16 step, 2^-7 |value|.  The probabilities are materialised here a
+    chunk of 512 rows at a time from the plain version's stats."""
+    from repro_torch.kernels import twopass_xent as xe
+
+    u, lam = 2.0 ** -24, ROUND_LAMBDA
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = h // hkv
+    c_d = 2 * lam * d ** 0.5 * u
+    f = [t.float() for t in (q, k, v, do, o)]
+    qf, kf, vf, dof, of = f
+    qg = qf.reshape(b, hkv, g, sq, d)
+    dog = dof.reshape(b, hkv, g, sq, d)
+    og = of.reshape(b, hkv, g, sq, d)
+    lse = (torch.log(m_sum) + n_sum * xe.LN2).reshape(b, hkv, g, sq, 1)
+    delta = (dof * of).sum(-1, keepdim=True).reshape(b, hkv, g, sq, 1)
+    ka, va = kf.abs(), vf.abs()
+    lim = {x: torch.zeros_like(t) for x, t in (
+        ("o", og), ("dq", qg), ("dk", kf), ("dv", vf))}
+    lim["lse"] = torch.zeros_like(lse)
+    c_k = 2 * lam * skv ** 0.5 * u              # sums over keys
+    c_q = 2 * lam * (g * sq) ** 0.5 * u          # sums over a group's rows
+    kpos = torch.arange(skv, device="cuda")[None, :]
+    for lo in range(0, sq, 512):
+        hi = min(sq, lo + 512)
+        qc, qa = qg[..., lo:hi, :], qg[..., lo:hi, :].abs()
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kf) * scale
+        qpos = torch.arange(lo, hi, device="cuda")[:, None] + (skv - sq)
+        keep = torch.ones((hi - lo, skv), dtype=torch.bool, device="cuda")
+        if causal:
+            keep &= kpos <= qpos
+        if window is not None:
+            keep &= kpos > qpos - window
+        p = torch.where(keep, torch.exp(s - lse[..., lo:hi, :]), 0.0)
+        del s
+        es = c_d * scale * torch.einsum("bhgqd,bhkd->bhgqk", qa, ka)
+        dpe = (es + 8 * u) * p                   # |dp_| of p
+        # forward: o = sum p v, lse
+        lim["o"][..., lo:hi, :] = (
+            torch.einsum("bhgqk,bhkd->bhgqd", dpe, va)
+            + og[..., lo:hi, :].abs() * dpe.sum(-1, keepdim=True)
+            + c_k * (torch.einsum("bhgqk,bhkd->bhgqd", p, va)
+                     + og[..., lo:hi, :].abs())
+            + 4 * u * og[..., lo:hi, :].abs())
+        lim["lse"][..., lo:hi, :] = ((p * es).sum(-1, keepdim=True) + c_k
+                                     + 4 * u * lse[..., lo:hi, :].abs())
+        del es
+        doc = dog[..., lo:hi, :]
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", doc, vf)
+        edp = c_d * torch.einsum("bhgqd,bhkd->bhgqk", doc.abs(), va)
+        resid = (dp - delta[..., lo:hi, :]).abs()
+        del dp
+        ds_a = scale * p * resid                 # |ds|
+        dds = scale * (dpe * resid + p * edp) + 4 * u * ds_a
+        del resid, edp
+        lim["dq"][..., lo:hi, :] = (
+            torch.einsum("bhgqk,bhkd->bhgqd", dds, ka)
+            + c_k * torch.einsum("bhgqk,bhkd->bhgqd", ds_a, ka))
+        lim["dk"] += (torch.einsum("bhgqk,bhgqd->bhkd", dds, qa)
+                      + c_q * torch.einsum("bhgqk,bhgqd->bhkd", ds_a, qa))
+        lim["dv"] += (torch.einsum("bhgqk,bhgqd->bhkd", dpe, doc.abs())
+                      + c_q * torch.einsum("bhgqk,bhgqd->bhkd", p,
+                                           doc.abs()))
+        del p, dpe, ds_a, dds
+    return {x: t.reshape(-1) for x, t in lim.items()}
+
+
+def flash_phase(torch, rows) -> None:
+    """Kernels 12-13 against their plain versions at the train phase's
+    shape and five other cases (within the limits of
+    :func:`flash_limits`; exact zeros on rows that see no key; the same
+    bits on a second run); times at the train shape beside the bound, the
+    plain versions and ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import twopass_xent as xe
+
+    for case, shape in FLASH_CASES.items():
+        b, h, hkv, sq, skv, d, causal, window, dts = shape
+        dt = getattr(torch, dts)
+        gen = torch.Generator(device="cuda").manual_seed(sq + d)
+        q, do = (torch.randn(b, h, sq, d, device="cuda", generator=gen)
+                 .to(dt) for _ in range(2))
+        k, v = (torch.randn(b, hkv, skv, d, device="cuda", generator=gen)
+                .to(dt) for _ in range(2))
+        scale = d ** -0.5
+        kw = dict(causal=causal, scale=scale, window=window)
+        nq, nkv = fa.chunk_counts(sq, skv, 64, 64)
+        pkw = dict(kw, n_q_chunks=nq, n_kv_chunks=nkv)
+        o, m, n = fa.flash_attention_fwd_gqa(q, k, v, **kw)
+        torch.cuda.synchronize()
+        po, pm, pn = fa.flash_attention_fwd_gqa_plain(q, k, v, **pkw)
+        # the backward of both sides from the plain forward's residuals
+        args = (q, k, v, po, pm, pn, do)
+        grads = fa.flash_attention_bwd_gqa(*args, **kw)
+        torch.cuda.synchronize()
+        pgrads = fa.flash_attention_bwd_gqa_plain(*args, **pkw)
+        lim = flash_limits(torch, q, k, v, do, po, pm, pn, causal, window,
+                           scale)
+        live = pm.reshape(-1) > 0
+        res = {}
+
+        def held(name, got, want):
+            got, want = got.float().reshape(-1), want.float().reshape(-1)
+            li = lim[name] + (2.0 ** -7 * want.abs()
+                              if dt == torch.bfloat16 and name != "lse"
+                              else 0.0)
+            err = (got - want).abs()
+            res[name] = (float(err.max()),
+                         float((err / li.clamp(min=1e-30)).max()))
+
+        held("o", o, po)
+        lse = (torch.log(m) + n * xe.LN2).reshape(-1)
+        plse = (torch.log(pm) + pn * xe.LN2).reshape(-1)
+        err = (lse[live] - plse[live]).abs()
+        res["lse"] = (float(err.max()),
+                      float((err / lim["lse"][live]).max()))
+        for name, a, w in zip(("dq", "dk", "dv"), grads, pgrads):
+            check(a.dtype == dt and a.shape == w.shape, f"flash {case} "
+                  f"{name}: {a.dtype} {tuple(a.shape)}")
+            held(name, a, w)
+        empty = 0
+        if causal and sq > skv:
+            empty = sq - skv
+            check(not o[:, :, :empty].any() and not m[:, :, :empty].any()
+                  and not grads[0][:, :, :empty].any(),
+                  f"flash {case}: rows that see no key are not exact zeros")
+        check(torch.equal(n.reshape(-1)[~live], pn.reshape(-1)[~live])
+              and torch.equal(m.reshape(-1)[~live], pm.reshape(-1)[~live]),
+              f"flash {case}: the stats of empty rows differ")
+        same = (all(torch.equal(x, y) for x, y in zip(
+            fa.flash_attention_fwd_gqa(q, k, v, **kw), (o, m, n)))
+            and all(torch.equal(x, y) for x, y in zip(
+                fa.flash_attention_bwd_gqa(*args, **kw), grads)))
+        del lim
+        for what, (a, over) in res.items():
+            check(over <= 1.0, f"flash {case} {what}: max abs err {a} is "
+                  f"{over} of its limit")
+        check(same, f"flash {case}: bits differ between two runs")
+        for kname, what in zip(FLASH, (("o", "lse"), ("dq", "dk", "dv"))):
+            say("kernel_check", kernel=kname, case=case,
+                shape=dict(b=b, h=h, hkv=hkv, sq=sq, skv=skv, d=d),
+                causal=causal, window=window, dtype=dts,
+                empty_rows_exact_zero=empty, same_bits_twice=True,
+                **{f"{x}_max_abs_err": res[x][0] for x in what},
+                **{f"{x}_worst_err_over_limit": res[x][1] for x in what},
+                tol="float32 accumulation limits (flash_limits: lambda 8 "
+                    "sqrt(K) 2^-24 sum|terms| carried through the scores, "
+                    "p, ds and the products) plus one bf16 step "
+                    "(2^-7 |value|) for a bf16 output; lse through "
+                    "ln m_sum + n_sum ln 2 on rows that see a key")
+        if case == "train_bf16":
+            vis = b * h * flash_visible(torch, sq, skv, causal, window)
+            es = q.element_size()
+            qb, kb = q.numel() * es, k.numel() * es
+            mm = 2 * vis * d                     # one product's operations
+            fwd_b = bound(2 * qb + 2 * kb + 8 * b * h * sq,
+                          FLASH_EXTEXP_OPS * vis, 2 * mm)
+            bwd_b = bound(4 * qb + 4 * kb + 12 * b * h * sq,
+                          FLASH_BWD_EW_OPS * vis, 5 * mm)
+            qr, kr, vr = (t.detach().clone().requires_grad_(True)
+                          for t in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qr, kr, vr, is_causal=True, enable_gqa=True)
+
+            lib_fwd = cuda_ms(torch, sdpa)
+            lib_both = cuda_ms(torch, lambda: torch.autograd.grad(
+                sdpa(), (qr, kr, vr), do))
+            rows["flash_attention_fwd_gqa"] = {case: dict(
+                ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_gqa(
+                    q, k, v, **kw)),
+                plain_ms=cuda_ms(torch, lambda: fa.
+                                 flash_attention_fwd_gqa_plain(
+                                     q, k, v, **pkw), 5),
+                library_ms=lib_fwd,
+                **dict(zip(("bound_ms", "bound_by"), fwd_b)),
+                split_bound_ms=bound(0, 0, 4 * mm)[0],
+                max_abs_err=res["o"][0],
+                shape=dict(b=b, h=h, hkv=hkv, s=sq, d=d, causal=causal))}
+            rows["flash_attention_bwd_gqa"] = {case: dict(
+                ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_gqa(
+                    *args, **kw)),
+                plain_ms=cuda_ms(torch, lambda: fa.
+                                 flash_attention_bwd_gqa_plain(
+                                     *args, **pkw), 5),
+                library_ms=lib_both - lib_fwd,
+                **dict(zip(("bound_ms", "bound_by"), bwd_b)),
+                split_bound_ms=bound(0, 0, 13 * mm)[0],
+                max_abs_err=max(res[x][0] for x in ("dq", "dk", "dv")),
+                shape=dict(b=b, h=h, hkv=hkv, s=sq, d=d, causal=causal))}
+            del qr, kr, vr
+        del q, k, v, do, o, m, n, po, pm, pn, grads, pgrads, args
+        torch.cuda.empty_cache()
+    for kname in FLASH:
+        r = rows[kname]["train_bf16"]
+        say("kernel_time", kernel=kname, case="train_bf16",
+            bound_us=r["bound_ms"] * 1e3,
+            split_products_note="split_bound_ms: the products the kernels "
+            "run (forward 1 + 3, backward 2 + 3 + 2 + 3 + 3) at the bf16 "
+            "peak", **r)
 
 
 def paper_comparison(torch, rows) -> None:
@@ -845,10 +1110,7 @@ def xent_path(torch, m, params, prompt) -> dict:
     cfg = m.cfg
     tok = torch.tensor([prompt], device="cuda")
     with torch.no_grad():
-        # a forward without a cache under use_kernels would take the flash
-        # route, which is not ported (ROADMAP queue B items 12-13)
-        h = transformer.forward(params, tok, cfg=dataclasses.replace(
-            cfg, use_kernels=False))
+        h = transformer.forward(params, tok, cfg=cfg)     # the flash route
         logits = transformer.lm_logits(params, h, cfg=cfg)[0, :-1,
                                                            :cfg.vocab]
     logits = logits.contiguous().requires_grad_(True)
@@ -876,14 +1138,16 @@ def xent_path(torch, m, params, prompt) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: a train step of qwen2.5-14b at full width through make_train_step.
+# Phase 7: training qwen2.5-14b at full width through Trainer.
 # ---------------------------------------------------------------------------
 TRAIN_LAYERS = 4            # depth cut from 48 (memory: 16 bytes a param)
 TRAIN_SEQ = 4096            # the config's train_4k length, batch 1
 TRAIN_STEPS = 3
 GRADS_HELD = {"lm_head.w": ("lm_head", "w"),
               "embed.table": ("embed", "table"),
-              "blocks.mlp.down.w": ("blocks", "mlp", "down", "w")}
+              "blocks.mlp.down.w": ("blocks", "mlp", "down", "w"),
+              "blocks.attn.wq.w": ("blocks", "attn", "wq", "w")}
+TRAIN_KERNELS = FLASH + LMHEAD
 
 
 def _at(tree, path):
@@ -895,66 +1159,77 @@ def _at(tree, path):
 def train_phase(torch) -> dict:
     """Three AdamW steps of qwen2.5-14b (full width, 4 layers, float32
     parameters, bf16 activations, remat) on SyntheticLM batches of 1 x 4096
-    through ``make_train_step`` with the fused LM-head CE kernels on the
-    loss policy (the model's own ``use_kernels`` stays off: attention runs
-    the (m, n) tensor forms).  First, from the same state and batch, the
-    kernel route against the plain materialised route.  Returns the
-    launches of kernels 9-11 over the three steps."""
+    through ``Trainer.run`` with the model's own ``use_kernels``: attention
+    through the flash-attention kernels, the loss through the fused LM-head
+    CE kernels.  First, from the same state and batch, that kernel route
+    against the plain route (the model's kernels off: attention in the
+    (m, n) tensor forms, materialised logits).  Returns the launches of
+    kernels 9-13 over the three steps."""
     import math
 
     import repro_torch.kernels as K
     from repro_torch.configs.base import ShapeCell
-    from repro_torch.core.policy import SoftmaxPolicy
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import build_model, transformer
     from repro_torch.optim import adamw
-    from repro_torch.training import step_fn, train_state
+    from repro_torch.training import step_fn
+    from repro_torch.training.trainer import Trainer, TrainerConfig
 
-    m = build_model(ARCH, n_layers=TRAIN_LAYERS)
-    cfg = m.cfg
-    check(not cfg.use_kernels and cfg.remat and cfg.param_dtype == "float32"
-          and cfg.dtype == "bfloat16", f"train config: {cfg}")
+    mk = build_model(ARCH, n_layers=TRAIN_LAYERS, use_kernels=True)
+    mp = build_model(ARCH, n_layers=TRAIN_LAYERS)
+    cfg = mk.cfg
+    check(cfg.use_kernels and cfg.remat and cfg.param_dtype == "float32"
+          and cfg.dtype == "bfloat16" and not mp.cfg.use_kernels,
+          f"train config: {cfg}")
     t0 = time.perf_counter()
-    params = m.init(seed=0)
+    params = mk.init(seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in adamw.leaves(params))
-    ds = SyntheticLM(cfg, ShapeCell("train_4k_b1", TRAIN_SEQ, 1, "train"),
-                     seed=0)
+    cell = ShapeCell("train_4k_b1", TRAIN_SEQ, 1, "train")
+    ds = SyntheticLM(cfg, cell, seed=0)
     tokens = TRAIN_SEQ - 1              # label positions of a batch
     chunks = min(8, tokens)
+    # a flash forward per layer, again in each layer's remat backward, and
+    # one backward per layer; one LM-head launch of each per loss chunk
+    want = {"flash_attention_fwd_gqa": 2 * TRAIN_LAYERS,
+            "flash_attention_bwd_gqa": TRAIN_LAYERS,
+            **dict.fromkeys(LMHEAD, chunks)}
+    tcfg = TrainerConfig(steps=TRAIN_STEPS, peak_lr=3e-4, warmup=100,
+                         log_every=1)
     say("train_config", arch=ARCH, n_layers=cfg.n_layers, full_depth=48,
         reduced=["n_layers 48 -> 4"], d_model=cfg.d_model,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
         vocab=cfg.vocab, param_dtype=cfg.param_dtype, dtype=cfg.dtype,
         remat=cfg.remat, params=n_params, batch=[1, TRAIN_SEQ],
         loss_chunks=chunks, data="SyntheticLM seed 0",
-        lr="warmup_cosine (the default: peak 3e-4, 100 warm-up steps)",
+        entry="Trainer.run", trainer=dataclasses.asdict(tcfg),
+        lr="warmup_cosine, peak 3e-4, 100 warm-up steps",
         init_s=time.perf_counter() - t0,
-        loss_policy="SoftmaxPolicy(use_kernels=True), model use_kernels="
-                    "False")
-    kern, plain = SoftmaxPolicy(use_kernels=True), SoftmaxPolicy()
+        kernel_route="model use_kernels=True: flash attention + fused "
+                     "LM-head CE", plain_route="use_kernels=False",
+        launches_per_step=want)
 
     # -- the kernel route against the plain route, same state and batch
     batch = {"tokens": torch.from_numpy(ds.batch_at(0)["tokens"]).cuda()}
     K.reset_launch_counts()
-    lk, gk = step_fn.loss_and_grads(m, params, batch, kern)
+    lk, gk = step_fn.loss_and_grads(mk, params, batch)
     torch.cuda.synchronize()
     ck = K.launch_counts()
     held_k = {n: _at(gk, pth) for n, pth in GRADS_HELD.items()}
     del gk
     K.reset_launch_counts()
     t = time.perf_counter()
-    lp, gp = step_fn.loss_and_grads(m, params, batch, plain)
+    lp, gp = step_fn.loss_and_grads(mp, params, batch)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t) * 1e3
     cp = K.launch_counts()
     held_p = {n: _at(gp, pth) for n, pth in GRADS_HELD.items()}
     del gp
-    check(all(ck[k] == chunks for k in LMHEAD),
-          f"kernel route: {chunks} launches of each of {LMHEAD}: {ck}")
+    check(all(ck[k] == want[k] for k in TRAIN_KERNELS),
+          f"kernel route: launches {want} expected, got {ck}")
     check(sum(cp.values()) == 0, f"plain route launched a kernel: {cp}")
     with torch.no_grad():
-        h = transformer.forward(params, batch["tokens"][:, :-1], cfg=cfg)
+        h = transformer.forward(params, batch["tokens"][:, :-1], cfg=mp.cfg)
         w = transformer._head_w(params, cfg).to(h.dtype)
         xmax = max(float((hc @ w).abs().amax())
                    for hc in h[0].split(-(-tokens // chunks)))
@@ -982,72 +1257,75 @@ def train_phase(torch) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     # loss and gradients alone (no optimizer), each route timed after its
-    # first run: the fused LM-head CE against materialised logits
+    # first run
     t = time.perf_counter()
-    step_fn.loss_and_grads(m, params, batch, kern)
+    step_fn.loss_and_grads(mk, params, batch)
     torch.cuda.synchronize()
     kern_ms = (time.perf_counter() - t) * 1e3
-    say("train_parity", check="kernel route vs plain materialised route, "
-        "same state and batch", loss_kernels=float(lk),
+    say("train_parity", check="kernel route vs plain route, same state "
+        "and batch", loss_kernels=float(lk),
         loss_plain=float(lp), loss_abs_diff=abs(float(lk) - float(lp)),
         loss_limit=loss_lim, max_abs_logit=xmax, grads=grads,
-        launches_kernel_route={k: ck[k] for k in LMHEAD},
+        launches_kernel_route={k: ck[k] for k in TRAIN_KERNELS},
         launches_plain_route=sum(cp.values()),
         loss_and_grads_ms={"kernel_route": kern_ms, "plain_route": plain_ms})
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # -- the train steps: the main path (kernels on the loss policy), then
-    # the plain route from the same initial weights, for comparison
-    def run(policy, route):
-        state = train_state.init_state(params if route == "kernel"
-                                       else m.init(seed=0))
-        step = step_fn.make_train_step(m, softmax_policy=policy)
-        counts, losses, times = dict.fromkeys(LMHEAD, 0), [], []
-        for i in range(TRAIN_STEPS):
-            torch.cuda.reset_peak_memory_stats()
-            K.reset_launch_counts()
-            t = time.perf_counter()
-            state, met = step(state, ds.batch_at(i))
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t
-            c = K.launch_counts()
-            want = chunks if route == "kernel" else 0
-            check(all(c[k] == want for k in LMHEAD),
-                  f"{route} step {i}: {want} launches of each LM-head "
-                  f"kernel: {c}")
-            for k in LMHEAD:
-                counts[k] += c[k]
-            loss = float(met["loss"])
-            check(math.isfinite(loss)
-                  and math.isfinite(float(met["grad_norm"])),
-                  f"{route} step {i}: loss {loss}")
-            losses.append(loss)
-            times.append(dt * 1e3)
-            say("train_step", route=route, step=i, loss=loss,
-                grad_norm=float(met["grad_norm"]), lr=float(met["lr"]),
-                ms=dt * 1e3, tokens_per_s=tokens / dt,
-                peak_bytes=torch.cuda.max_memory_allocated(),
-                launches={k: c[k] for k in LMHEAD})
-        check(int(state.opt.step) == TRAIN_STEPS, "optimizer step count")
-        if route == "kernel":
-            train_trace(torch, step, state, ds.batch_at(TRAIN_STEPS))
-        return counts, losses, times
-
-    launches, losses, times = run(kern, "kernel")
-    check(abs(losses[0] - math.log(cfg.vocab)) < 1.5,
-          f"first loss {losses[0]} not near ln V = {math.log(cfg.vocab)}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    _, plain_losses, plain_times = run(plain, "plain")
+
+    # -- the train steps through Trainer.run: the main path (the kernel
+    # route), then the plain route from the same initial weights
+    def run(model, route):
+        trainer = Trainer(model, cell, tcfg)
+        step = trainer.step
+        counts = dict.fromkeys(TRAIN_KERNELS, 0)
+        peaks = []
+
+        def counted(state, batch):
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            c = K.launch_counts()
+            i = len(peaks)
+            w = want if route == "kernel" else dict.fromkeys(want, 0)
+            check(all(c[k] == w[k] for k in TRAIN_KERNELS),
+                  f"{route} step {i}: launches {w} expected, got {c}")
+            for k in TRAIN_KERNELS:
+                counts[k] += c[k]
+            peaks.append(torch.cuda.max_memory_allocated())
+            return out
+
+        trainer.step = counted
+        state = trainer.run()
+        check(int(state.opt.step) == TRAIN_STEPS, "optimizer step count")
+        hist = trainer.metrics_history
+        check([r["step"] for r in hist] == list(range(TRAIN_STEPS)),
+              f"{route}: steps run {hist}")
+        for r, peak in zip(hist, peaks):
+            check(math.isfinite(r["loss"]), f"{route} step {r['step']}: "
+                  f"loss {r['loss']}")
+            say("train_step", route=route, entry="Trainer.run",
+                step=r["step"], loss=r["loss"], ms=r["time_s"] * 1e3,
+                tokens_per_s=tokens / r["time_s"], peak_bytes=peak)
+        if route == "kernel":
+            train_trace(torch, step, state, ds.batch_at(TRAIN_STEPS))
+        del state, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        return (counts, [r["loss"] for r in hist],
+                [r["time_s"] * 1e3 for r in hist], peaks)
+
+    launches, losses, times, peaks = run(mk, "kernel")
+    check(abs(losses[0] - math.log(cfg.vocab)) < 1.5,
+          f"first loss {losses[0]} not near ln V = {math.log(cfg.vocab)}")
+    _, plain_losses, plain_times, plain_peaks = run(mp, "plain")
     say("train", losses=losses, plain_route_losses=plain_losses,
         step_ms=times, plain_route_step_ms=plain_times,
+        peak_bytes=peaks, plain_route_peak_bytes=plain_peaks,
         first_loss_minus_ln_v=losses[0] - math.log(cfg.vocab),
         first_loss_equals_parity_loss=losses[0] == float(lk),
         launches=launches)
-    gc.collect()
-    torch.cuda.empty_cache()
     return launches
 
 
@@ -1077,7 +1355,10 @@ def train_trace(torch, step, state, batch) -> None:
     def group(name):
         if name.startswith("lmhead_") or "lmhead_" in name:
             return "lmhead_xent kernels"
-        if any(k in name for k in ("gemm", "cutlass", "xmma", "sm90")):
+        if "flash_fwd" in name or "flash_dq" in name or "flash_dkv" in name:
+            return "flash_attention kernels"
+        if any(k in name for k in ("gemm", "cutlass", "xmma", "sm90",
+                                   "nvjet", "cublas")):
             return "cuBLAS products"
         return "other (elementwise, reductions, copies)"
 
@@ -1108,6 +1389,55 @@ def cli_phase(torch) -> None:
           and any(ln.startswith("decode:") for ln in lines)
           and any("threepass_reload_2d" in ln for ln in lines),
           "serving CLI: no prefill/decode lines or no reload launches")
+
+
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+
+
+def train_cli_phase(torch) -> None:
+    """Phase 9: the training CLI as a user runs it, reduced qwen2.5-14b
+    with ``--kernels`` and a checkpoint directory: 6 steps straight, then 3
+    (the crash) and a resume to 6 from the same directory; the final losses
+    agree, and the flash and LM-head kernels ran."""
+    import ast
+    import shutil
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
+            "--reduced", "--kernels", "--checkpoint-every", "3"]
+    finals = {}
+    for name, steps, ck in (("straight", 6, "a"), ("crash", 3, "b"),
+                            ("resume", 6, "b")):
+        cmd = base + ["--steps", str(steps), "--checkpoint-dir",
+                      str(CKPT_DIR / ck)]
+        t = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=300, cwd=ROOT,
+                             env=dict(os.environ,
+                                      PYTHONPATH=str(ROOT / "src")))
+        lines = out.stdout.splitlines()
+        say("train_cli", run=name, cmd=" ".join(cmd[1:]), rc=out.returncode,
+            seconds=time.perf_counter() - t, stdout=lines,
+            stderr_tail=out.stderr.splitlines()[-4:])
+        check(out.returncode == 0, f"train CLI {name} exited "
+              f"{out.returncode}")
+        final = [ln for ln in lines if ln.startswith("final: ")]
+        launch = [ln for ln in lines if ln.startswith("kernel launches: ")]
+        check(len(final) == 1 and len(launch) == 1,
+              f"train CLI {name}: no final / launches line")
+        finals[name] = ast.literal_eval(final[0][len("final: "):])
+        counts = ast.literal_eval(launch[0][len("kernel launches: "):])
+        check(all(counts.get(k, 0) > 0 for k in TRAIN_KERNELS),
+              f"train CLI {name}: kernels not launched: {counts}")
+    a, b = finals["straight"], finals["resume"]
+    check(a["step"] == b["step"] == 5 and finals["crash"]["step"] == 2,
+          f"train CLI steps: {finals}")
+    rel = abs(a["loss"] - b["loss"]) / abs(a["loss"])
+    check(rel <= 1e-5, f"train CLI: resumed loss {b['loss']} vs straight "
+          f"{a['loss']}")
+    say("train_cli_resume", straight=a, resumed=b, rel_diff=rel,
+        tol="rtol 1e-5")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
 
 def idle_share(torch, m, params, prompts):
@@ -1156,6 +1486,8 @@ REPLACES = {
     "lmhead_xent_fwd_2d": "src/repro/kernels/twopass_xent.py:237",
     "lmhead_xent_dh_2d": "src/repro/kernels/twopass_xent.py:275",
     "lmhead_xent_dw_2d": "src/repro/kernels/twopass_xent.py:304",
+    "flash_attention_fwd_gqa": "src/repro/kernels/flash_attention.py:105",
+    "flash_attention_bwd_gqa": "src/repro/kernels/flash_attention.py:287",
 }
 SOURCES = {
     "twopass_softmax_2d": "src/repro_torch/csrc/twopass_softmax.cu",
@@ -1169,6 +1501,8 @@ SOURCES = {
     "lmhead_xent_fwd_2d": "src/repro_torch/csrc/lmhead_xent.cu",
     "lmhead_xent_dh_2d": "src/repro_torch/csrc/lmhead_xent.cu",
     "lmhead_xent_dw_2d": "src/repro_torch/csrc/lmhead_xent.cu",
+    "flash_attention_fwd_gqa": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_gqa": "src/repro_torch/csrc/flash_attention.cu",
 }
 MAIN_CASE = {"twopass_softmax_2d": "prefill_bucket_1024",
              "twopass_stats_2d": "prefill_bucket_1024",
@@ -1176,7 +1510,8 @@ MAIN_CASE = {"twopass_softmax_2d": "prefill_bucket_1024",
              "threepass_recompute_2d": "prefill_bucket_1024",
              "threepass_reload_2d": "prefill_bucket_1024",
              "xent_fwd_2d": "lm_head_f32", "xent_bwd_2d": "lm_head_f32",
-             **dict.fromkeys(LMHEAD, "train_chunk_bf16")}
+             **dict.fromkeys(LMHEAD, "train_chunk_bf16"),
+             **dict.fromkeys(FLASH, "train_bf16")}
 
 
 def main() -> int:
@@ -1213,6 +1548,8 @@ def main() -> int:
     paper_comparison(torch, rows)
     lmhead_phase(torch, rows)
     torch.cuda.empty_cache()
+    flash_phase(torch, rows)
+    torch.cuda.empty_cache()
     say("kernels_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     launches, idle = engine_phase(torch, rng, args.layers)
@@ -1226,6 +1563,9 @@ def main() -> int:
     t0 = time.perf_counter()
     cli_phase(torch)
     say("cli_done", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    train_cli_phase(torch)
+    say("train_cli_done", seconds=time.perf_counter() - t0)
     kernels = []
     for name in REPLACES:
         r = rows[name][MAIN_CASE[name]]

@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Build the port's CUDA kernels and probe the flash-attention ones on one
+NVIDIA GPU: the compiler's register / shared-memory lines, the flash cases
+of ``tests/test_torch_gpu.py``, and a bare timing at the train shape of
+``chip_smoke.py`` (B 1, H 40, Hkv 8, S 4096, D 128, bf16, causal) beside
+``scaled_dot_product_attention``.
+
+    python3 scripts/flash_probe.py
+
+A quick check of a kernel edit before the full ``chip_smoke.py``; exits
+non-zero when there is no card, the build fails or a test fails.
+"""
+
+from __future__ import annotations
+
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def ms(torch, fn, iters: int = 10) -> float:
+    """Mean of ``iters`` back-to-back launches after two warm-ups."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def main() -> int:
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("flash_probe: no CUDA device", file=sys.stderr)
+        return 2
+    import repro_torch  # noqa: F401  (sets the TF32 switches)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    _build.build_all()
+    print(f"build: {_build.build_seconds:.1f} s")
+    print("\n".join(ln for ln in _build.ptxas_report().splitlines()
+                    if ln.startswith("flash_attention")), flush=True)
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-x", "-m", "gpu",
+         "tests/test_torch_gpu.py", "-k", "flash", "-p", "no:cacheprovider"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=600)
+    print(tests.stdout[-4000:], tests.stderr[-2000:], flush=True)
+    if tests.returncode != 0:
+        return 1
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, h, hkv, s, d = 1, 40, 8, 4096, 128
+    q, do = (torch.randn(b, h, s, d, device="cuda", generator=g).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, s, d, device="cuda", generator=g).bfloat16()
+            for _ in range(2))
+    kw = dict(causal=True, scale=d ** -0.5)
+    o, m, n = fa.flash_attention_fwd_gqa(q, k, v, **kw)
+    times = {
+        "forward": lambda: fa.flash_attention_fwd_gqa(q, k, v, **kw),
+        "backward": lambda: fa.flash_attention_bwd_gqa(q, k, v, o, m, n, do,
+                                                       **kw),
+        "scaled_dot_product_attention forward":
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True)}
+    for name, fn in times.items():
+        print(f"{name} ms: {ms(torch, fn):.3f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -25,8 +25,8 @@ from repro_torch.core import twopass
 from repro_torch.core.softmax_api import _ALGOS, SoftmaxAlgorithm
 
 # the ops that take the attention block overrides below
-ATTENTION_OPS = ("chunk_attention", "decode_attention",
-                 "decode_attention_paged")
+ATTENTION_OPS = ("flash_attention", "chunk_attention", "decode_attention",
+                 "decode_attention_paged", "flash_attention_bwd")
 
 
 @dataclass(frozen=True)

@@ -1,2 +1,2 @@
-"""Gradient compression (the part of the reference's
-``repro.distributed`` that the train step uses)."""
+"""Gradient compression and the fault-tolerance units (the parts of the
+reference's ``repro.distributed`` that training uses)."""

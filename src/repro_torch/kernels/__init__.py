@@ -4,8 +4,9 @@ Importing this package builds nothing and needs neither ``nvcc`` nor
 ``triton``: a kernel is built at its first launch (``_build.load``).
 """
 
-from repro_torch.kernels import (decode_attention, threepass_softmax,
-                                 twopass_softmax, twopass_xent)
+from repro_torch.kernels import (decode_attention, flash_attention,
+                                 threepass_softmax, twopass_softmax,
+                                 twopass_xent)
 
 # Every kernel wrapper of the package; each counts its launches in
 # ``.launches``.
@@ -21,6 +22,8 @@ WRAPPERS = {
     "lmhead_xent_dw_2d": twopass_xent.lmhead_xent_dw_2d,
     "decode_attention_paged": decode_attention.decode_attention_paged,
     "decode_attention": decode_attention.decode_attention,
+    "flash_attention_fwd_gqa": flash_attention.flash_attention_fwd_gqa,
+    "flash_attention_bwd_gqa": flash_attention.flash_attention_bwd_gqa,
 }
 
 

@@ -1,7 +1,7 @@
 """Public ops over the kernels: softmax under each of the paper's three
-algorithms, cross-entropy and the fused LM-head cross-entropy (all
-differentiable), logsumexp stats and the two decode-attention ops, with
-their dispatch.
+algorithms, cross-entropy, the fused LM-head cross-entropy and flash
+attention (all differentiable), logsumexp stats and the two
+decode-attention ops, with their dispatch.
 
 Dispatch: the kernel wrappers launch their CUDA kernel for a tensor on the
 card and run their plain version for a tensor on the CPU.  An op takes the
@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core.softmax_api import SoftmaxAlgorithm
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import registry
 from repro_torch.kernels import threepass_softmax as _tp3
@@ -103,31 +104,40 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
+# The training ops, fused LM-head CE and flash attention.  Three
+# implementations each, dispatched by ``train_bwd_impl``: "cuda" (the
+# kernel wrappers; their plain versions for tensors on the CPU), "twopass"
+# (the plain chunked (m, n) forms on any device) and "ref" (autograd over
+# the materialised oracle of kernels/ref.py).
+#
 # Fused LM-head CE: loss(h @ w, labels) with the logits recomputed per vocab
 # tile in the forward and in both backward products -- neither the [T, V]
-# logits nor their gradient is stored whole.  Three implementations,
-# dispatched by ``train_bwd_impl``: "cuda" (the kernel wrappers of
-# kernels/twopass_xent.py; their plain versions for tensors on the CPU),
-# "twopass" (the plain chunked (m, n) forms on any device) and "ref"
-# (autograd over the materialised-logits oracle).  The ``lmhead_xent``
-# registry op.
+# logits nor their gradient is stored whole (kernels/twopass_xent.py; the
+# ``lmhead_xent`` registry op).
 # ---------------------------------------------------------------------------
 TRAIN_IMPLS = ("cuda", "twopass", "ref")
 
 
+def _train_backend_impl(device) -> str:
+    """The kernels ("cuda") for tensors on the card, the plain (m, n) forms
+    ("twopass") elsewhere."""
+    return ("cuda" if device is not None
+            and torch.device(device).type == "cuda" else "twopass")
+
+
 def train_bwd_impl(policy=None, impl: str | None = None,
                    device=None) -> str:
-    """Implementation of :func:`lmhead_cross_entropy`: an explicit ``impl``
-    wins; ``policy.use_kernels`` takes the kernels ("cuda") for tensors on
-    the card and the plain (m, n) forms ("twopass") elsewhere; otherwise
-    the materialised reference ("ref")."""
+    """Implementation of :func:`lmhead_cross_entropy` and
+    :func:`flash_attention`: an explicit ``impl`` wins;
+    ``policy.use_kernels`` takes the kernels ("cuda") for tensors on the
+    card and the plain (m, n) forms ("twopass") elsewhere; otherwise the
+    materialised reference ("ref")."""
     if impl is not None:
         if impl not in TRAIN_IMPLS:
             raise ValueError(f"unknown impl {impl!r}")
         return impl
     if policy is not None and policy.use_kernels:
-        return ("cuda" if device is not None
-                and torch.device(device).type == "cuda" else "twopass")
+        return _train_backend_impl(device)
     return "ref"
 
 
@@ -184,6 +194,137 @@ def lmhead_cross_entropy(h: torch.Tensor, w: torch.Tensor,
         return _ref.lmhead_ref_loss(h, w, labels)
     return _LmheadCrossEntropy.apply(
         h, w, labels, _lmhead_blocks(h, w, block_v, policy), impl)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (kernels/flash_attention.py; the ``flash_attention`` and
+# ``flash_attention_bwd`` registry ops): the forward saves o and the
+# per-row (m_sum, n_sum); the backward recomputes the probabilities from
+# them.  q: [B, H, Sq, D]; k, v: [B, Hkv, Skv, D], Hkv dividing H (GQA
+# indexes KV head h // (H // Hkv); Hkv == H is the reference's pre-expanded
+# layout).  Nothing is padded: the kernels mask ragged Sq / Skv edges
+# themselves.
+# ---------------------------------------------------------------------------
+def _flash_fwd(q, k, v, causal, scale, window, blocks, impl):
+    if impl == "cuda":
+        return _fa.flash_attention_fwd_gqa(
+            q, k, v, causal=causal, scale=scale, window=window,
+            block_q=blocks[0], block_k=blocks[1])
+    nq, nkv = _fa.chunk_counts(q.shape[2], k.shape[2], *blocks)
+    return _fa.flash_attention_fwd_gqa_plain(
+        q, k, v, causal=causal, scale=scale, window=window, n_q_chunks=nq,
+        n_kv_chunks=nkv)
+
+
+def _flash_bwd(q, k, v, o, m_sum, n_sum, do, causal, scale, window, blocks,
+               impl):
+    if impl == "cuda":
+        return _fa.flash_attention_bwd_gqa(
+            q, k, v, o, m_sum, n_sum, do, causal=causal, scale=scale,
+            window=window, block_q=blocks[0], block_k=blocks[1])
+    nq, nkv = _fa.chunk_counts(q.shape[2], k.shape[2], *blocks)
+    return _fa.flash_attention_bwd_gqa_plain(
+        q, k, v, o, m_sum, n_sum, do, causal=causal, scale=scale,
+        window=window, n_q_chunks=nq, n_kv_chunks=nkv)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward saves ``q, k, v, o`` and the ``(m_sum, n_sum)`` stats; the
+    backward recomputes ``p`` from them per tile."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window, fwd_blocks, bwd_blocks,
+                impl):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, m_sum, n_sum = _flash_fwd(q, k, v, causal, scale, window,
+                                     fwd_blocks, impl)
+        ctx.save_for_backward(q, k, v, o, m_sum, n_sum)
+        ctx.args = (causal, scale, window, bwd_blocks, impl)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, m_sum, n_sum = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, o, m_sum, n_sum, do.contiguous(),
+                                *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _expand_kv(q, x):
+    """K or V repeated to q's heads (the reference's layout)."""
+    return x.repeat_interleave(q.shape[1] // x.shape[1], dim=1)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False, scale: float | None = None,
+                    window: int | None = None, block_q: int | None = None,
+                    block_k: int | None = None, policy=None,
+                    impl: str | None = None) -> torch.Tensor:
+    """Attention ``[B, H, Sq, D]`` through the stats-saving forward and the
+    recompute-from-stats backward; differentiable in q, k and v (gradients
+    in their dtypes).  Masks are end-aligned (query ``i`` at position
+    ``i + Skv - Sq``).  ``block_q`` / ``block_k`` override the plain forms'
+    chunk lengths; ``impl`` pins "cuda" | "twopass" | "ref" (None: the
+    policy's; "ref" is autograd over ``ref.attention_ref`` with K/V
+    repeated to the q-heads)."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    impl = train_bwd_impl(policy, impl, q.device)
+    if impl == "ref":
+        return _ref.attention_ref(q, _expand_kv(q, k), _expand_kv(q, v),
+                                  causal=causal, scale=scale, window=window)
+    # the blocks are the plain forms' chunk lengths (the kernels' tile is
+    # fixed)
+    sq, skv = q.shape[2], k.shape[2]
+    return _FlashAttention.apply(
+        q, k, v, causal, scale, window,
+        _blocks("flash_attention", sq, skv, block_q, block_k, policy),
+        _blocks("flash_attention_bwd", sq, skv, block_q, block_k, policy),
+        impl)
+
+
+def _stats_impl(q, impl):
+    impl = impl or _train_backend_impl(q.device)
+    if impl not in ("cuda", "twopass"):
+        raise ValueError(f"impl {impl!r}: the stats-saving forms are "
+                         "'cuda' or 'twopass'")
+    return impl
+
+
+def flash_attention_fwd_stats(q, k, v, *, causal: bool = False,
+                              scale: float | None = None,
+                              window: int | None = None,
+                              block_q: int | None = None,
+                              block_k: int | None = None, policy=None,
+                              impl: str | None = None):
+    """``(o, m_sum, n_sum)`` of the stats-saving forward, the residuals
+    :func:`flash_attention_bwd` takes.  ``impl`` is "cuda" or "twopass"
+    (None: the kernels on the card, the plain forms elsewhere)."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    impl = _stats_impl(q, impl)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return _flash_fwd(q, k, v, causal, scale, window,
+                      _blocks("flash_attention", q.shape[2], k.shape[2],
+                              block_q, block_k, policy), impl)
+
+
+def flash_attention_bwd(q, k, v, o, m_sum, n_sum, do, *,
+                        causal: bool = False, scale: float | None = None,
+                        window: int | None = None,
+                        block_q: int | None = None,
+                        block_k: int | None = None, policy=None,
+                        impl: str | None = None):
+    """``(dq, dk, dv)`` from the forward's saved ``(m_sum, n_sum)`` at the
+    same mask and scale; ``impl`` as in :func:`flash_attention_fwd_stats`.
+    """
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    impl = _stats_impl(q, impl)
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    return _flash_bwd(q, k, v, o, m_sum, n_sum, do, causal, scale, window,
+                      _blocks("flash_attention_bwd", q.shape[2], k.shape[2],
+                              block_q, block_k, policy), impl)
 
 
 def logsumexp_stats(x: torch.Tensor):

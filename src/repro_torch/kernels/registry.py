@@ -28,6 +28,15 @@ The alignments are re-derived for Hopper rather than copied from the TPU's
     vocab slab of the backward's float32 dlogits scratch (``[T, block_v]``,
     16 MB at 512 tokens and 8192 columns: bounded, never ``[T, V]``) and
     the plain versions' chunk width; 128-aligned, capped at 8192.
+  * ``flash_attention`` / ``flash_attention_bwd``: rows = Sq, cols = Skv.
+    The CUDA kernels (``csrc/flash_attention.cu``) take a fixed tile of
+    64 query x 64 key rows (32 where a head dim over 128 or float32 inputs
+    would overflow shared memory): 4 warps of 16 wmma rows, one cp.async
+    stage.  The blocks here are that tile, 64-aligned and capped at 64
+    (the reference's 128 MXU tile halved), and they set only the plain
+    versions' chunk lengths: a block override (policy ``attn_block_q`` /
+    ``attn_block_k``) changes the plain forms' chunking and never reaches
+    the CUDA tile.
   * ``kv_page``: unchanged (128-token pages, 16-aligned, shrunk to the
     pool's own length for tiny pools), so the port resolves the same page
     size as the reference.
@@ -106,5 +115,9 @@ register(KernelSpec(name="decode_attention_paged", row_align=1, row_cap=256,
                     col_align=16, col_cap=128, full_col_threshold=0))
 register(KernelSpec(name="lmhead_xent", row_align=128, row_cap=128,
                     col_align=128, col_cap=8192, full_col_threshold=8192))
+register(KernelSpec(name="flash_attention", row_align=64, row_cap=64,
+                    col_align=64, col_cap=64, full_col_threshold=0))
+register(KernelSpec(name="flash_attention_bwd", row_align=64, row_cap=64,
+                    col_align=64, col_cap=64, full_col_threshold=0))
 register(KernelSpec(name="kv_page", row_align=1, row_cap=1,
                     col_align=16, col_cap=128, full_col_threshold=0))

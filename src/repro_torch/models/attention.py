@@ -137,33 +137,42 @@ def resolve_chunks(sq: int, skv: int,
             min(MAX_KV_CHUNKS, -(-skv // bk)))
 
 
-def _flash_route_refused(q, k, policy, *, causal, window, q_offset,
-                         kv_len, qpos) -> None:
-    """Raise where the reference's ``_flash_route`` would send the call
-    through its flash-attention kernel: kernels on, the two-pass
-    algorithm, no cache (no ``qpos``/``kv_len``, ``q_offset`` 0), and a
-    square score matrix when masked.  Serving always passes ``qpos``."""
+def _flash_route(q, k, v, policy, *, causal, window, scale, q_offset,
+                 kv_len, qpos):
+    """The training fast path: [B, Hkv, G, Sq, hd] self-attention through
+    the differentiable ``flash_attention`` op (stats-saving forward,
+    recompute-from-stats backward: the CUDA kernels on the card, their
+    plain versions on the CPU), under exactly the reference's conditions:
+    kernels on, the two-pass algorithm, no cache (no ``qpos`` / ``kv_len``,
+    ``q_offset`` 0), and Sq == Skv when masked, because the kernels'
+    positions are end-aligned and ``q_offset=0`` is begin-aligned.  Returns
+    None otherwise.  K/V keep their Hkv heads: the kernels index KV head
+    ``h // G`` (the reference broadcasts K/V to the q-heads instead)."""
     if not (policy.use_kernels and qpos is None and kv_len is None
             and q_offset == 0
             and policy.algorithm == SoftmaxAlgorithm.TWO_PASS):
-        return
-    if (causal or window is not None) and q.shape[3] != k.shape[2]:
-        return
-    raise NotImplementedError(
-        "attention_core: self-attention without a cache under use_kernels "
-        "takes the flash-attention kernels, which are not ported yet "
-        "(ROADMAP queue B items 12-13); use use_kernels=False for the "
-        "model and put kernels on the loss policy only")
+        return None
+    sq, skv = q.shape[3], k.shape[2]
+    if (causal or window is not None) and sq != skv:
+        return None
+    b, hkv, g, _, hd = q.shape
+    o = kernel_ops.flash_attention(q.reshape(b, hkv * g, sq, hd), k, v,
+                                   causal=causal, scale=scale, window=window,
+                                   policy=policy)
+    return o.reshape(b, hkv, g, sq, v.shape[3])
 
 
 def attention_core(q, k, v, *, causal, window, scale, q_offset=0,
                    kv_len=None, qpos=None, cfg: ModelConfig):
-    """Serving always passes ``qpos`` (a cache is written), which takes
-    :func:`full_attention` and so the policy's softmax.  The training flash
-    route raises until it is ported (:func:`_flash_route_refused`)."""
+    """The flash route first (:func:`_flash_route`), as the reference.
+    Serving always passes ``qpos`` (a cache is written), which takes
+    :func:`full_attention` and so the policy's softmax."""
     policy = cfg.softmax_policy()
-    _flash_route_refused(q, k, policy, causal=causal, window=window,
-                         q_offset=q_offset, kv_len=kv_len, qpos=qpos)
+    o = _flash_route(q, k, v, policy, causal=causal, window=window,
+                     scale=scale, q_offset=q_offset, kv_len=kv_len,
+                     qpos=qpos)
+    if o is not None:
+        return o
     nq, nkv = resolve_chunks(q.shape[3], k.shape[2], policy)
     if (nq == 1 and nkv == 1) or qpos is not None:
         return full_attention(

@@ -1,1 +1,2 @@
-"""The train step and its state (the reference's ``repro.training``)."""
+"""The train step, its state and the train loop (the reference's
+``repro.training``)."""

@@ -1,5 +1,6 @@
-"""The port's three-pass softmax, cross-entropy and fused LM-head
-cross-entropy CUDA kernels against their plain versions on the card.  Every test here needs a CUDA device and skips
+"""The port's three-pass softmax, cross-entropy, fused LM-head
+cross-entropy and flash-attention CUDA kernels against their plain
+versions on the card.  Every test here needs a CUDA device and skips
 without one; the file imports no JAX, so it runs on a machine with a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -10,6 +11,7 @@ import torch
 
 from repro_torch import kernels as tk
 from repro_torch.core.policy import SoftmaxPolicy
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import threepass_softmax as tp3
 from repro_torch.kernels import twopass_xent as txe
@@ -173,3 +175,110 @@ def test_lmhead_op_launches_the_kernels_and_matches_the_reference(cuda):
                                rtol=2.0 ** -6)
     torch.testing.assert_close(wk.grad.float(), wr.grad.float(), atol=1e-2,
                                rtol=2.0 ** -6)
+
+
+# (B, H, Hkv, Sq, Skv, D, causal, window): GQA groups, MQA, ragged Sq / Skv
+# (tile edges inside both), empty causal rows (Sq > Skv), a window, and the
+# dense family's other head dims (120: no multiple of 16; 160: over 128)
+FLASH_CASES = [(2, 4, 2, 200, 200, 64, True, None),
+               (1, 3, 1, 40, 100, 32, False, None),
+               (1, 4, 4, 129, 257, 64, True, None),
+               (1, 2, 1, 100, 40, 64, True, None),
+               (1, 4, 2, 150, 150, 64, True, 24),
+               (1, 2, 1, 70, 70, 120, True, None),
+               (1, 2, 2, 70, 90, 160, False, 33),
+               (1, 2, 1, 64, 64, 256, True, None)]
+# float32 on FFMA: only the sum order differs (errors ~1e-6 here); bf16: the
+# float32 results that close round at most one bf16 step apart
+FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
+             torch.bfloat16: dict(atol=1e-4, rtol=2.0 ** -7)}
+
+
+def _flash_inputs(cuda, dtype, b, h, hkv, sq, skv, d):
+    g = torch.Generator(device=cuda).manual_seed(sq * 1000 + skv + d)
+    q = torch.randn(b, h, sq, d, device=cuda, generator=g).to(dtype)
+    k = torch.randn(b, hkv, skv, d, device=cuda, generator=g).to(dtype)
+    v = torch.randn(b, hkv, skv, d, device=cuda, generator=g).to(dtype)
+    do = torch.randn(b, h, sq, d, device=cuda, generator=g).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(cuda, dtype, case):
+    b, h, hkv, sq, skv, d, causal, window = case
+    q, k, v, do = _flash_inputs(cuda, dtype, b, h, hkv, sq, skv, d)
+    kw = dict(causal=causal, scale=d ** -0.5, window=window)
+    o, m, n = tfa.flash_attention_fwd_gqa(q, k, v, **kw)
+    torch.cuda.synchronize()
+    po, pm, pn = tfa.flash_attention_fwd_gqa_plain(q, k, v, **kw)
+    assert o.dtype == dtype
+    torch.testing.assert_close(o.float(), po.float(), **FLASH_TOL[dtype])
+    # the stats pair through lse: m_sum may differ by a factor of 2 where a
+    # score lands on a rounding boundary of n
+    live = pm > 0
+    lse = torch.log(m) + n * txe.LN2
+    torch.testing.assert_close(lse[live], (torch.log(pm) + pn * txe.LN2)[live],
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(m[~live], pm[~live]) and torch.equal(n[~live],
+                                                            pn[~live])
+    grads = tfa.flash_attention_bwd_gqa(q, k, v, o, m, n, do, **kw)
+    torch.cuda.synchronize()
+    plain = tfa.flash_attention_bwd_gqa_plain(q, k, v, o, m, n, do, **kw)
+    for got, want in zip(grads, plain):
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **FLASH_TOL[dtype])
+    if causal and sq > skv:                     # rows that see no key
+        empty = sq - skv
+        assert not o[:, :, :empty].any() and not grads[0][:, :, :empty].any()
+        assert not m[:, :, :empty].any()
+    # no atomics: the same bits on a second run
+    again = tfa.flash_attention_fwd_gqa(q, k, v, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(again, (o, m, n)))
+    again = tfa.flash_attention_bwd_gqa(q, k, v, o, m, n, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(again, grads))
+    counts = tk.launch_counts()
+    assert counts["flash_attention_fwd_gqa"] == 2
+    assert counts["flash_attention_bwd_gqa"] == 2
+
+
+@pytest.mark.gpu
+def test_flash_refuses_what_the_kernels_do_not_take(cuda):
+    q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, 1, 2, 1, 16, 16, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention_fwd_gqa(q[..., :60].contiguous(),
+                                    k[..., :60].contiguous(),
+                                    v[..., :60].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_fwd_gqa(q.transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="window"):
+        tfa.flash_attention_fwd_gqa(q, k, v, window=0)
+    assert tk.launch_counts()["flash_attention_fwd_gqa"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_op_autograd_and_policy_route(cuda, dtype):
+    q, k, v, do = _flash_inputs(cuda, dtype, 1, 4, 2, 96, 96, 64)
+
+    def grads(**kw):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = ops.flash_attention(*leaves, causal=True, **kw)
+        o.backward(do)
+        return [o] + [t.grad for t in leaves]
+
+    got = grads(policy=SoftmaxPolicy(use_kernels=True))
+    counts = tk.launch_counts()
+    assert counts["flash_attention_fwd_gqa"] == 1
+    assert counts["flash_attention_bwd_gqa"] == 1
+    want = grads(impl="twopass")
+    assert sum(tk.launch_counts().values()) == 2
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), **FLASH_TOL[dtype])
+    ref = grads(impl="ref")
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2,
+                                   rtol=2.0 ** -6)

@@ -159,12 +159,23 @@ def test_unported_families_and_policy_sites_raise():
     with pytest.raises(NotImplementedError, match="ssm"):
         m = tbuild("rwkv6-1.6b", reduced=True, device="cpu")
         m.init(0)
-    # the LM-head CE site is ported (tests/test_torch_training.py); the
-    # flash-attention site of a no-cache forward under kernels is not
-    m = tbuild(ARCH, reduced=True, device="cpu", use_kernels=True)
-    with pytest.raises(NotImplementedError, match="queue B items 12-13"):
-        ttr.forward(m.init(0), torch.zeros((1, 5), dtype=torch.long),
-                    cfg=m.cfg)
+    # every softmax site of the dense family is ported: the LM-head CE
+    # (tests/test_torch_training.py) and the flash route of a no-cache
+    # forward under kernels (test_no_cache_forward_under_kernels_...)
+
+
+def test_no_cache_forward_under_kernels_matches_reference(weights):
+    from repro.models import transformer as jtr
+
+    jm, jp, tm, tp = weights
+    jcfg = dataclasses.replace(jm.cfg, use_kernels=True)
+    cfg = dataclasses.replace(tm.cfg, use_kernels=True)
+    tok = np.random.default_rng(2).integers(0, 256, (2, 21)).astype(
+        np.int32)
+    want = jtr.forward(jp, jnp.asarray(tok), cfg=jcfg)
+    got = ttr.forward(tp, torch.from_numpy(tok), cfg=cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               atol=1e-4, rtol=1e-4)
 
 
 def test_softmax_block_overrides_are_refused():

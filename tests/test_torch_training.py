@@ -313,7 +313,9 @@ LR = 5e-3
 
 
 def _jax_run(arch, steps, kernels, microbatches=1, remat=None):
-    jm = jbuild(arch, reduced=True)
+    # kernels "model": the model's own use_kernels (flash attention and the
+    # fused LM-head CE); True / False: the loss policy's only
+    jm = jbuild(arch, reduced=True, use_kernels=kernels == "model")
     if remat is not None:
         jm.cfg = dataclasses.replace(jm.cfg, remat=remat)
     params = jm.init(jax.random.PRNGKey(0))
@@ -322,7 +324,8 @@ def _jax_run(arch, steps, kernels, microbatches=1, remat=None):
     step = jax.jit(jstep.make_train_step(
         jm, lr_schedule=functools.partial(jsched.constant, peak_lr=LR),
         microbatches=microbatches,
-        softmax_policy=JPolicy(use_kernels=kernels)))
+        softmax_policy=(None if kernels == "model"
+                        else JPolicy(use_kernels=kernels))))
     out = []
     for i in range(steps):
         state, met = step(state, ds.batch_at(i))
@@ -331,14 +334,16 @@ def _jax_run(arch, steps, kernels, microbatches=1, remat=None):
 
 
 def _torch_run(arch, np_params, steps, kernels, microbatches=1, **over):
-    tm = build_model(arch, reduced=True, device="cpu", **over)
+    tm = build_model(arch, reduced=True, device="cpu",
+                     use_kernels=kernels == "model", **over)
     state = train_state.init_state(params_from_jax(np_params, tm.cfg,
                                                    device="cpu"))
     ds = SyntheticLM(tm.cfg, ShapeCell("t", *CELL, "train"), seed=0)
     step = step_fn.make_train_step(
         tm, lr_schedule=functools.partial(schedules.constant, peak_lr=LR),
         microbatches=microbatches,
-        softmax_policy=SoftmaxPolicy(use_kernels=kernels))
+        softmax_policy=(None if kernels == "model"
+                        else SoftmaxPolicy(use_kernels=kernels)))
     out = []
     for i in range(steps):
         state, met = step(state, ds.batch_at(i))
@@ -362,9 +367,12 @@ def _cached_jax(cache, *key):
 # update is lr * sign(g) wherever |g| >> eps, so the trajectories separate
 # only by float32 summation order (~1e-6 relative per step, amplified by
 # the sign-like first steps); rtol 1e-4 on the loss and 1e-3 on the
-# gradient norm.
-@pytest.mark.parametrize("kernels", [False, True],
-                         ids=["plain_loss", "fused_lmhead_loss"])
+# gradient norm.  "model_kernels" runs the model with its own use_kernels:
+# attention through the flash route (both sides' (m, n) chunked forms) and
+# the loss through the fused LM-head CE.
+@pytest.mark.parametrize("kernels", [False, True, "model"],
+                         ids=["plain_loss", "fused_lmhead_loss",
+                              "model_kernels"])
 @pytest.mark.parametrize("arch", ["qwen2.5-14b", "granite-20b"])
 def test_train_steps_match_reference(jax_runs, arch, kernels):
     params, want = _cached_jax(jax_runs, arch, 3, kernels)
@@ -432,8 +440,8 @@ def test_lm_loss_with_mask_matches_reference():
 
 
 # ---------------------------------------------------------------------------
-# The flash route (ROADMAP queue B items 12-13) raises where the reference
-# would take it, and only there.
+# The flash route: attention_core takes it under exactly the reference's
+# conditions, and gives the reference's attention_core there.
 # ---------------------------------------------------------------------------
 def _qkv(sq=8, skv=8):
     q = torch.randn(1, 2, 2, sq, 16)
@@ -441,23 +449,51 @@ def _qkv(sq=8, skv=8):
     return q, k, torch.randn(1, 2, skv, 16)
 
 
-def test_attention_core_refuses_the_unported_flash_route():
+@pytest.mark.parametrize("case", ["causal", "non_causal", "window",
+                                  "unmasked_ragged", "model_loss"])
+def test_attention_core_flash_route_matches_reference(case):
+    from repro.models import attention as jattn
+    from repro.models import transformer as jtr
+
+    from repro_torch import kernels as tk
+
+    if case == "model_loss":
+        # Model.loss with the model's kernels on: every layer's attention
+        # takes the route, and the loss the fused LM-head CE
+        jm = jbuild("qwen2.5-14b", reduced=True, use_kernels=True)
+        jp = jm.init(jax.random.PRNGKey(3))
+        tm = build_model("qwen2.5-14b", reduced=True, device="cpu",
+                         use_kernels=True)
+        tp = params_from_jax(jax.tree.map(np.asarray, jp), tm.cfg,
+                             device="cpu")
+        tok = np.random.default_rng(4).integers(0, 256, (2, 33)).astype(
+            np.int32)
+        want = jtr.train_loss(jp, {"tokens": jnp.asarray(tok)}, cfg=jm.cfg)
+        got = tm.loss(tp, {"tokens": torch.from_numpy(tok)})
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+        return
+    jcfg = dataclasses.replace(jbuild("qwen2.5-14b", reduced=True).cfg,
+                               use_kernels=True)
     cfg = dataclasses.replace(get_config("qwen2.5-14b").reduced(),
                               use_kernels=True)
-    q, k, v = _qkv()
-    for causal, window in ((True, None), (False, None), (True, 4)):
-        with pytest.raises(NotImplementedError,
-                           match="queue B items 12-13"):
-            tattn.attention_core(q, k, v, causal=causal, window=window,
-                                 scale=0.25, cfg=cfg)
-    q2, k2, v2 = _qkv(8, 12)          # not masked: any shape is flash's
-    with pytest.raises(NotImplementedError, match="queue B items 12-13"):
-        tattn.attention_core(q2, k2, v2, causal=False, window=None,
-                             scale=0.25, cfg=cfg)
-    tm = build_model("qwen2.5-14b", reduced=True, device="cpu",
-                     use_kernels=True)
-    with pytest.raises(NotImplementedError, match="queue B items 12-13"):
-        tm.loss(tm.init(0), {"tokens": torch.zeros((1, 9), dtype=torch.long)})
+    sq, skv = (24, 40) if case == "unmasked_ragged" else (40, 40)
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((1, 2, 3, sq, 16)).astype(np.float32)
+    k = rng.standard_normal((1, 2, skv, 16)).astype(np.float32)
+    v = rng.standard_normal((1, 2, skv, 16)).astype(np.float32)
+    kw = dict(causal=case in ("causal", "window"),
+              window=7 if case == "window" else None, scale=0.25)
+    assert tattn._flash_route(
+        *(torch.from_numpy(x) for x in (q, k, v)), cfg.softmax_policy(),
+        q_offset=0, kv_len=None, qpos=None, **kw) is not None
+    before = tk.launch_counts()
+    got = tattn.attention_core(*(torch.from_numpy(x) for x in (q, k, v)),
+                               cfg=cfg, **kw)
+    assert tk.launch_counts() == before   # plain versions on the CPU
+    want = jattn.attention_core(*(jnp.asarray(x) for x in (q, k, v)),
+                                cfg=jcfg, **kw)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 
 @pytest.mark.parametrize("case", ["qpos", "kv_len", "q_offset",
