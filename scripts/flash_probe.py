@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and probe the flash-attention ones on one
-NVIDIA GPU: the compiler's register / shared-memory lines, the flash cases
-of ``tests/test_torch_gpu.py``, and a bare timing at the train shape of
-``chip_smoke.py`` (B 1, H 40, Hkv 8, S 4096, D 128, bf16, causal) beside
-``scaled_dot_product_attention``.
+NVIDIA GPU: the compiler's register / shared-memory lines and the blocks
+an SM of the bf16 backward kernels, the flash cases of
+``tests/test_torch_gpu.py``, and a bare timing at the train shape of
+``chip_smoke.py`` (B 1, H 40, Hkv 8, S 4096, D 128, bf16, causal): the
+forward, the backward and each of its two kernels (dq, dk/dv) alone, beside
+``scaled_dot_product_attention``'s forward and backward.
 
     python3 scripts/flash_probe.py
 
@@ -54,7 +56,11 @@ def main() -> int:
     _build.build_all()
     print(f"build: {_build.build_seconds:.1f} s")
     print("\n".join(ln for ln in _build.ptxas_report().splitlines()
-                    if ln.startswith("flash_attention")), flush=True)
+                    if ln.startswith("flash_attention")))
+    for d in (64, 128):
+        print(f"bf16 backward blocks an SM at D {d}: dq "
+              f"{fa.bwd_blocks_per_sm(d, 0)}, dk/dv "
+              f"{fa.bwd_blocks_per_sm(d, 1)}", flush=True)
     tests = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-x", "-m", "gpu",
          "tests/test_torch_gpu.py", "-k", "flash", "-p", "no:cacheprovider"],
@@ -72,13 +78,25 @@ def main() -> int:
             for _ in range(2))
     kw = dict(causal=True, scale=d ** -0.5)
     o, m, n = fa.flash_attention_fwd_gqa(q, k, v, **kw)
+    delta = fa.attention_delta(o, do).contiguous()
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                              enable_gqa=True)
+
     times = {
         "forward": lambda: fa.flash_attention_fwd_gqa(q, k, v, **kw),
         "backward": lambda: fa.flash_attention_bwd_gqa(q, k, v, o, m, n, do,
                                                        **kw),
-        "scaled_dot_product_attention forward":
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                   enable_gqa=True)}
+        "backward dq kernel": lambda: fa.bwd_kernel(
+            0, q, k, v, do, m, n, delta, *grads, window=None, **kw),
+        "backward dk/dv kernel": lambda: fa.bwd_kernel(
+            1, q, k, v, do, m, n, delta, *grads, window=None, **kw),
+        "scaled_dot_product_attention forward": sdpa,
+        "scaled_dot_product_attention forward + backward":
+            lambda: torch.autograd.grad(sdpa(), (qr, kr, vr), do)}
     for name, fn in times.items():
         print(f"{name} ms: {ms(torch, fn):.3f}")
     return 0

@@ -698,6 +698,388 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// Backward for bf16 inputs with Dp <= 128: mma.sync.m16n8k16 (bf16 in,
+// float32 accumulation) from registers.  One block of 4 warps, 64-row
+// tiles on both axes; each warp owns 16 rows of the block's own tile.
+// Scores and dp land in accumulator registers, p and ds are formed there,
+// and their three bf16 parts are packed in place into the A operand of the
+// next product: the accumulator of two adjacent n8 tiles is the A fragment
+// of one k16 step.  The outputs accumulate in registers and are written
+// once.  The tiles of the other axis are double-buffered with cp.async, so
+// the next tile's loads overlap this tile's math.
+// ---------------------------------------------------------------------------
+constexpr int kTile = 64;  // rows of every tile of the mma backward
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of the
+// i-th.  .trans hands each thread a column pair instead of a row pair.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a b: A 16x16 row-major, B 16x8 column-major, bf16; c float32.
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The hi, mid and lo bf16 parts of (x0, x1), each part a packed pair (x0 in
+// the low half), into slot i of p[part][.]: hi + mid + lo == x exactly, as
+// put_parts.
+__device__ __forceinline__ void split_pair(float x0, float x1,
+                                           uint32_t (&p)[3][4], int i) {
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+  const float2 fh = __bfloat1622float2(hi);
+  const float r0 = __fsub_rn(x0, fh.x), r1 = __fsub_rn(x1, fh.y);
+  const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
+  const float2 fm = __bfloat1622float2(mid);
+  p[0][i] = as_u32(hi);
+  p[1][i] = as_u32(mid);
+  p[2][i] = as_u32(__floats2bfloat162_rn(__fsub_rn(r0, fm.x),
+                                         __fsub_rn(r1, fm.y)));
+}
+
+// c[NT] += A B^T for one warp: A the 16 rows at `a` (KS k16 steps), B the
+// 8 NT rows at `b`, both row-major bf16 with leading dimension LD.
+template <int KS, int NT, int LD>
+__device__ __forceinline__ void mma_nt(float (&c)[NT][4], const bf16* a,
+                                       const bf16* b, int lane) {
+  const unsigned pa = smem_u32(a + (lane & 15) * LD + (lane >> 4) * 8);
+  const unsigned pb = smem_u32(b + ((lane & 7) + ((lane >> 4) << 3)) * LD +
+                               ((lane >> 3) & 1) * 8);
+  // kk only moves the addresses: kept rolled, so that the compiler does not
+  // hoist the loads of later steps into registers (spills in flash_dkv_mma)
+#pragma unroll 1
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, pa + kk * 32);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t bf[4];
+      ldsm_x4(bf, pb + (j * 8 * LD) * 2 + kk * 32);
+      mma16816(c[j], af, bf[0], bf[1]);
+      mma16816(c[j + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[ND] += X B for one warp: X 16 x (16 KS) float32 in the accumulator
+// layout of 2 KS n8 tiles, entering as three bf16 parts; B the 16 KS rows
+// at `b` (row-major bf16, leading dimension LD), read with ldmatrix.trans.
+// Each element sums k16 steps in order, hi then mid then lo within a step.
+template <int KS, int ND, int LD>
+__device__ __forceinline__ void mma_parts(float (&acc)[ND][4],
+                                          const float (&x)[2 * KS][4],
+                                          const bf16* b, int lane) {
+  const unsigned pb = smem_u32(b + (lane & 15) * LD + (lane >> 4) * 8);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t af[3][4];
+    split_pair(x[2 * kk][0], x[2 * kk][1], af, 0);
+    split_pair(x[2 * kk][2], x[2 * kk][3], af, 1);
+    split_pair(x[2 * kk + 1][0], x[2 * kk + 1][1], af, 2);
+    split_pair(x[2 * kk + 1][2], x[2 * kk + 1][3], af, 3);
+#pragma unroll
+    for (int j = 0; j < ND; j += 2) {
+      uint32_t bf[4];
+      ldsm_x4_t(bf, pb + (kk * 16 * LD + j * 8) * 2);
+#pragma unroll
+      for (int part = 0; part < 3; ++part) {
+        mma16816(acc[j], af[part], bf[0], bf[1]);
+        mma16816(acc[j + 1], af[part], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// p of one score from its row's n_sum and 1 / max(m_sum, 1e-37), and ds
+// from p, dp and the row's delta, in the operation order of p_ds.
+__device__ __forceinline__ float p_of(float s, float ns, float inv,
+                                      float scale) {
+  float me, ne;
+  repro::ext_exp(__fmul_rn(s, scale), me, ne);
+  return __fmul_rn(__fmul_rn(me, repro::exp2_int(__fsub_rn(ne, ns))), inv);
+}
+__device__ __forceinline__ float ds_of(float p, float dp, float dl,
+                                       float scale) {
+  return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, dl)), scale);
+}
+
+// The rows of one warp's output in accumulator layout into dst [rows, D]
+// (rows from r0, this warp's 16 at r0 + 16 warp), bf16 pairs.
+template <int ND>
+__device__ __forceinline__ void store_acc(const float (&acc)[ND][4],
+                                          bf16* dst, int r0, int rows,
+                                          int D) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + warp * 16 + (lane >> 2) + half * 8;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int c = j * 8 + (lane & 3) * 2;
+      if (c < D)
+        *reinterpret_cast<__nv_bfloat162*>(dst + static_cast<size_t>(r) * D +
+                                           c) =
+            __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
+    }
+  }
+}
+
+// Shared memory of the mma backward: six 64-row bf16 tiles (the block's
+// own two, then two stages of the other axis's two) and, for dk/dv, two
+// stages of the Q tile's row stats.
+template <int DP>
+struct MmaBwdLayout {
+  static constexpr int ld = DP + 8;  // 16-byte pad: ldmatrix conflict-free
+  static constexpr int tile = kTile * ld;  // elements
+  static constexpr size_t bytes(bool dkv) {
+    return 6 * sizeof(bf16) * tile + (dkv ? 2 * 3 * kTile * sizeof(float) : 0);
+  }
+};
+
+// dk, dv.  grid (Hkv, B, ceil(Skv / 64)), KV tile 0 first (under causal
+// masking the busiest).  Warp w owns KV rows k0 + 16 w ..: s^T = k q^T and
+// dp^T = v do^T in registers, then dv += p^T do and dk += ds^T q.  The
+// (q-head g, Q tile) pairs of the group run as one sequence, double-
+// buffered across head boundaries too.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ m_sum,
+                  const float* __restrict__ n_sum,
+                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, Attn a) {
+  using L = MmaBwdLayout<DP>;
+  constexpr int BQ = kTile, BK = kTile, LD = L::ld, TILE = L::tile;
+  constexpr int NT = BQ / 8, ND = DP / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + TILE;
+  bf16* stages = Vs + TILE;  // stage s: Q at 2 s TILE, dO after it
+  // stage s: n_sum, m_sum (then 1 / max(m_sum, 1e-37)), delta
+  float* rows = reinterpret_cast<float*>(stages + 4 * TILE);
+
+  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BK;
+  const int G = a.H / a.Hkv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t krow = (static_cast<size_t>(b) * a.Hkv + hk) * a.Skv;
+  int ilo, ihi;
+  q_tiles<BQ, BK>(a, k0, ilo, ihi);
+  const int nq = ihi - ilo, n = G * nq;
+
+  // Q, dO and row stats of step i into stage i & 1; thread r < BQ copies
+  // row r's stats, so after its own wait it may rewrite them.
+  auto issue = [&](int i) {
+    const int q0 = (ilo + i % nq) * BQ;
+    const size_t qrow = (static_cast<size_t>(b) * a.H + hk * G + i / nq) *
+                        a.Sq;
+    bf16* Qs = stages + (i & 1) * 2 * TILE;
+    const bf16* qp = q + qrow * a.D;
+    const bf16* dop = dout + qrow * a.D;
+    load_tile(qp, q0, BQ, a.Sq, a.D, DP, Qs, LD, aligned16(qp));
+    load_tile(dop, q0, BQ, a.Sq, a.D, DP, Qs + TILE, LD, aligned16(dop));
+    float* st = rows + (i & 1) * 3 * BQ;
+    const int r = threadIdx.x;
+    if (r < BQ) {
+      if (q0 + r < a.Sq) {
+        cp_async4(st + r, n_sum + qrow + q0 + r);
+        cp_async4(st + BQ + r, m_sum + qrow + q0 + r);
+        cp_async4(st + 2 * BQ + r, delta + qrow + q0 + r);
+      } else {
+        st[r] = st[BQ + r] = st[2 * BQ + r] = 0.0f;
+      }
+    }
+  };
+
+  float dK[ND][4] = {}, dV[ND][4] = {};
+  if (n > 0) {
+    const bf16* kp = k + krow * a.D;
+    const bf16* vp = v + krow * a.D;
+    load_tile(kp, k0, BK, a.Skv, a.D, DP, Ks, LD, aligned16(kp));
+    load_tile(vp, k0, BK, a.Skv, a.D, DP, Vs, LD, aligned16(vp));
+    issue(0);
+  }
+  cp_async_commit();
+  const int kr = k0 + warp * 16 + (lane >> 2);  // this thread's KV rows
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    const int q0 = (ilo + i % nq) * BQ;
+    float* st = rows + (i & 1) * 3 * BQ;
+    if (threadIdx.x < BQ) {
+      const int r = threadIdx.x;
+      st[BQ + r] =
+          q0 + r < a.Sq ? __frcp_rn(fmaxf(st[BQ + r], 1e-37f)) : 0.0f;
+    }
+    __syncthreads();
+    const bf16* Qs = stages + (i & 1) * 2 * TILE;
+    const bf16* dOs = Qs + TILE;
+    // p^T in place of s^T (0 where masked), then dv += p^T do; dp^T only
+    // after that, so that s^T, dp^T and the parts are never live together
+    float s[NT][4] = {};
+    mma_nt<DP / 16, NT, LD>(s, Ks + warp * 16 * LD, Qs, lane);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + (lane & 3) * 2 + (e & 1);
+        const int qi = q0 + c;
+        s[j][e] = qi < a.Sq && visible(a, qi, kr + (e >> 1) * 8)
+                      ? p_of(s[j][e], st[c], st[BQ + c], a.scale)
+                      : 0.0f;
+      }
+    }
+    mma_parts<BQ / 16, ND, LD>(dV, s, dOs, lane);
+    // ds^T = p^T (dp^T - delta) scale in place of dp^T: zero where p^T
+    // is masked
+    float dp[NT][4] = {};
+    mma_nt<DP / 16, NT, LD>(dp, Vs + warp * 16 * LD, dOs, lane);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + (lane & 3) * 2 + (e & 1);
+        dp[j][e] = ds_of(s[j][e], dp[j][e], st[2 * BQ + c], a.scale);
+      }
+    }
+    mma_parts<BQ / 16, ND, LD>(dK, dp, Qs, lane);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  store_acc(dK, dk + krow * a.D, k0, a.Skv, a.D);
+  store_acc(dV, dv + krow * a.D, k0, a.Skv, a.D);
+}
+
+// dq.  grid (H, B, ceil(Sq / 64)), Q tiles from the last.  Warp w owns Q
+// rows q0 + 16 w ..: s = q k^T and dp = do v^T in registers, then
+// dq += ds k; the K / V tiles are double-buffered.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ m_sum,
+                 const float* __restrict__ n_sum,
+                 const float* __restrict__ delta, bf16* __restrict__ dq,
+                 Attn a) {
+  using L = MmaBwdLayout<DP>;
+  constexpr int BQ = kTile, BK = kTile, LD = L::ld, TILE = L::tile;
+  constexpr int NT = BK / 8, ND = DP / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + TILE;
+  bf16* stages = dOs + TILE;  // stage s: K at 2 s TILE, V after it
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int hk = h / (a.H / a.Hkv);
+  const size_t qrow = (static_cast<size_t>(b) * a.H + h) * a.Sq;
+  const size_t krow = (static_cast<size_t>(b) * a.Hkv + hk) * a.Skv;
+  const bf16* kp = k + krow * a.D;
+  const bf16* vp = v + krow * a.D;
+  const bool vk = aligned16(kp), vv = aligned16(vp);
+  int jlo, jhi;
+  kv_tiles<BQ, BK>(a, q0, jlo, jhi);
+  const int n = jhi - jlo;
+
+  // this thread's two rows: n_sum, 1 / max(m_sum, 1e-37), delta
+  const int qr = q0 + warp * 16 + (lane >> 2);
+  float ns[2], inv[2], dl[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int qi = qr + e * 8;
+    const bool ok = qi < a.Sq;
+    ns[e] = ok ? n_sum[qrow + qi] : 0.0f;
+    inv[e] = ok ? __frcp_rn(fmaxf(m_sum[qrow + qi], 1e-37f)) : 0.0f;
+    dl[e] = ok ? delta[qrow + qi] : 0.0f;
+  }
+
+  auto issue = [&](int i) {
+    const int k0 = (jlo + i) * BK;
+    bf16* Ks = stages + (i & 1) * 2 * TILE;
+    load_tile(kp, k0, BK, a.Skv, a.D, DP, Ks, LD, vk);
+    load_tile(vp, k0, BK, a.Skv, a.D, DP, Ks + TILE, LD, vv);
+  };
+
+  float dQ[ND][4] = {};
+  if (n > 0) {
+    const bf16* qp = q + qrow * a.D;
+    const bf16* dop = dout + qrow * a.D;
+    load_tile(qp, q0, BQ, a.Sq, a.D, DP, Qs, LD, aligned16(qp));
+    load_tile(dop, q0, BQ, a.Sq, a.D, DP, dOs, LD, aligned16(dop));
+    issue(0);
+  }
+  cp_async_commit();
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = (jlo + i) * BK;
+    const bf16* Ks = stages + (i & 1) * 2 * TILE;
+    const bf16* Vs = Ks + TILE;
+    float s[NT][4] = {}, dp[NT][4] = {};
+    mma_nt<DP / 16, NT, LD>(s, Qs + warp * 16 * LD, Ks, lane);
+    mma_nt<DP / 16, NT, LD>(dp, dOs + warp * 16 * LD, Vs, lane);
+    // ds in place of s; 0 where masked
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int qi = qr + r * 8;
+        s[j][e] = qi < a.Sq && visible(a, qi, k0 + j * 8 + (lane & 3) * 2 +
+                                                  (e & 1))
+                      ? ds_of(p_of(s[j][e], ns[r], inv[r], a.scale),
+                              dp[j][e], dl[r], a.scale)
+                      : 0.0f;
+      }
+    }
+    mma_parts<BK / 16, ND, LD>(dQ, s, Ks, lane);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  store_acc(dQ, dq + qrow * a.D, q0, a.Sq, a.D);
+}
+
+// ---------------------------------------------------------------------------
 // Host side: the tile shape is the first of (64, 64), (64, 32), (32, 32)
 // whose shared memory fits the card at this D and dtype; it depends on
 // nothing else, so the sum order (and the bits) depend on D only.
@@ -772,9 +1154,52 @@ cudaError_t bwd_launch(const BwdArgs& g, int B, const Attn& a, bool dkv,
   return cudaGetLastError();
 }
 
+// The mma backward's kernel at DP, its shared memory set (and the carveout
+// at its largest, so that two blocks fit an SM).
+template <int DP>
+cudaError_t mma_prepare(bool dkv, const void*& f, size_t& bytes) {
+  f = dkv ? reinterpret_cast<const void*>(&flash_dkv_mma<DP>)
+          : reinterpret_cast<const void*>(&flash_dq_mma<DP>);
+  bytes = MmaBwdLayout<DP>::bytes(dkv);
+  cudaError_t e = cudaFuncSetAttribute(
+      f, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(f, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
+template <int DP>
+cudaError_t mma_launch(const BwdArgs& g, int B, const Attn& a, bool dkv,
+                       cudaStream_t s) {
+  const void* f;
+  size_t bytes;
+  cudaError_t e = mma_prepare<DP>(dkv, f, bytes);
+  if (e != cudaSuccess) return e;
+  const bf16* q = static_cast<const bf16*>(g.q);
+  const bf16* k = static_cast<const bf16*>(g.k);
+  const bf16* v = static_cast<const bf16*>(g.v);
+  const bf16* d = static_cast<const bf16*>(g.dout);
+  if (dkv)
+    flash_dkv_mma<DP><<<dim3(a.Hkv, B, cdiv(a.Skv, kTile)), kThreads, bytes,
+                        s>>>(q, k, v, d, g.m, g.n, g.delta,
+                             static_cast<bf16*>(g.dk),
+                             static_cast<bf16*>(g.dv), a);
+  else
+    flash_dq_mma<DP><<<dim3(a.H, B, cdiv(a.Sq, kTile)), kThreads, bytes, s>>>(
+        q, k, v, d, g.m, g.n, g.delta, static_cast<bf16*>(g.dq), a);
+  return cudaGetLastError();
+}
+
+// bf16 with Dp <= 128 takes the mma backward; float32 and Dp in (128, 256]
+// the wmma / FFMA kernels above.  The choice reads the dtype and D only.
 template <typename T>
 cudaError_t bwd_any(const BwdArgs& g, int B, const Attn& a, bool dkv,
                     cudaStream_t s) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (a.Dp <= 64) return mma_launch<64>(g, B, a, dkv, s);
+    if (a.Dp <= 128) return mma_launch<128>(g, B, a, dkv, s);
+  }
   const size_t cap = static_cast<size_t>(max_smem());
   if (BwdLayout<T, 64, 64>(a.Dp, dkv).total <= cap)
     return bwd_launch<T, 64, 64>(g, B, a, dkv, s);
@@ -843,6 +1268,23 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   const cudaError_t e = dtype == 0 ? bwd_any<float>(g, B, a, which == 1, s)
                                    : bwd_any<bf16>(g, B, a, which == 1, s);
   return static_cast<int>(e);
+}
+
+// Blocks an SM of the mma backward's kernel for bf16 at head dim D
+// (which: 0 = dq, 1 = dk/dv), or -1 where that dtype and D take the other
+// kernels or the query fails.
+int flash_attention_bwd_blocks_per_sm(int D, int which) {
+  const void* f;
+  size_t bytes;
+  cudaError_t e;
+  if (D < 8 || D % 8 || round16(D) > 128) return -1;
+  e = round16(D) <= 64 ? mma_prepare<64>(which == 1, f, bytes)
+                       : mma_prepare<128>(which == 1, f, bytes);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, kThreads,
+                                                      bytes);
+  return e == cudaSuccess ? blocks : -1;
 }
 
 }  // extern "C"

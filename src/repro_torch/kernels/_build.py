@@ -17,6 +17,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -106,14 +107,35 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+def _kernel_name(mangled: str) -> str:
+    """``flash_dkv_mma<128>`` for a mangled kernel name where ``c++filt``
+    is on the path, else the mangled name."""
+    try:
+        out = subprocess.run(["c++filt", mangled], capture_output=True,
+                             text=True, check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return mangled
+    out = out.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return out.split("(", 1)[0]
+
+
 def ptxas_report() -> str:
-    """The compiler's ``-Xptxas -v`` lines (registers, shared memory,
-    spills) of the last build of every source."""
+    """One line per kernel of the last build of every source: its name, the
+    compiler's ``-Xptxas -v`` registers / barriers / stack line, and its
+    stack frame and spill bytes."""
     lines = []
     for src in sorted(CSRC.glob("*.cu")):
         log = _target(src).with_suffix(".log")
-        if log.exists():
-            lines += [f"{src.stem}: {ln.strip()}"
-                      for ln in log.read_text().splitlines()
-                      if "ptxas" in ln and ("Used" in ln or "spill" in ln)]
+        if not log.exists():
+            continue
+        name, spill = "?", ""
+        for ln in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                name, spill = _kernel_name(m.group(1)), ""
+            elif "spill" in ln:
+                spill = ln.strip()
+            elif "ptxas" in ln and "Used" in ln:
+                used = ln.split(":", 1)[-1].strip()
+                lines.append(f"{src.stem}: {name}: {used}; {spill}")
     return "\n".join(lines)

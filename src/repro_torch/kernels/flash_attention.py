@@ -197,7 +197,16 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 6 + [_F] + [_I] * 4 \
         + [_P]
     lib.flash_attention_bwd.restype = _I
+    lib.flash_attention_bwd_blocks_per_sm.argtypes = [_I, _I]
+    lib.flash_attention_bwd_blocks_per_sm.restype = _I
     return lib
+
+
+def bwd_blocks_per_sm(d: int, which: int) -> int:
+    """Blocks an SM of the bf16 backward kernel at head dim ``d`` (``which``
+    0 = dq, 1 = dk/dv), or -1 where bf16 at that ``d`` takes the float32 /
+    large-D kernels."""
+    return _lib().flash_attention_bwd_blocks_per_sm(d, which)
 
 
 def _check_qkv(what: str, q, k, v, window) -> None:
@@ -296,17 +305,26 @@ def flash_attention_bwd_gqa(q, k, v, o, m_sum, n_sum, do, *,
     dout = do.to(q.dtype).contiguous()
     m, n = (t.to(torch.float32).contiguous() for t in (m_sum, n_sum))
     delta = attention_delta(o, do).contiguous()
-    lib = _lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     for which in (0, 1):
-        rc = lib.flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            m.data_ptr(), n.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), *_args(q, k, scale, causal, window),
-            which, _DTYPES[q.dtype], stream)
-        _build.check(lib, rc, what)
+        bwd_kernel(which, q, k, v, dout, m, n, delta, dq, dk, dv,
+                   causal=causal, scale=scale, window=window)
     flash_attention_bwd_gqa.launches += 1
     return dq, dk, dv
+
+
+def bwd_kernel(which: int, q, k, v, dout, m, n, delta, dq, dk, dv, *,
+               causal: bool, scale: float, window: int | None) -> None:
+    """One kernel of the backward on checked, contiguous card tensors:
+    ``which`` 0 writes dq, 1 writes dk and dv.  Counts nothing: the wrapper
+    above counts its pair of launches, and a timing may call one alone."""
+    lib = _lib()
+    rc = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        m.data_ptr(), n.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), *_args(q, k, scale, causal, window),
+        which, _DTYPES[q.dtype], torch.cuda.current_stream(q.device)
+        .cuda_stream)
+    _build.check(lib, rc, "flash_attention_bwd_gqa")
 
 
 flash_attention_fwd_gqa.launches = 0
