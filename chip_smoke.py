@@ -511,7 +511,8 @@ def flash_phase(torch, rows) -> None:
     shape and five other cases (within the limits of
     :func:`flash_limits`; exact zeros on rows that see no key; the same
     bits on a second run); times at the train shape beside the bound, the
-    plain versions and ``scaled_dot_product_attention``."""
+    plain versions and ``scaled_dot_product_attention``, and the backward's
+    dq and dk/dv kernels alone (``dq_ms``, ``dkv_ms``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -621,9 +622,17 @@ def flash_phase(torch, rows) -> None:
                 split_bound_ms=bound(0, 0, 4 * mm)[0],
                 max_abs_err=res["o"][0],
                 shape=dict(b=b, h=h, hkv=hkv, s=sq, d=d, causal=causal))}
+            delta = fa.attention_delta(po, do).contiguous()
+            outs = [torch.empty_like(t) for t in (q, k, v)]
+
+            def one(which):                # one of the two kernels alone
+                return cuda_ms(torch, lambda: fa.bwd_kernel(
+                    which, q, k, v, do, pm, pn, delta, *outs, **kw))
+
             rows["flash_attention_bwd_gqa"] = {case: dict(
                 ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_gqa(
                     *args, **kw)),
+                dq_ms=one(0), dkv_ms=one(1),
                 plain_ms=cuda_ms(torch, lambda: fa.
                                  flash_attention_bwd_gqa_plain(
                                      *args, **pkw), 5),
@@ -632,7 +641,7 @@ def flash_phase(torch, rows) -> None:
                 split_bound_ms=bound(0, 0, 13 * mm)[0],
                 max_abs_err=max(res[x][0] for x in ("dq", "dk", "dv")),
                 shape=dict(b=b, h=h, hkv=hkv, s=sq, d=d, causal=causal))}
-            del qr, kr, vr
+            del qr, kr, vr, delta, outs
         del q, k, v, do, o, m, n, po, pm, pn, grads, pgrads, args
         torch.cuda.empty_cache()
     for kname in FLASH:

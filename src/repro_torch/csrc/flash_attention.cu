@@ -24,31 +24,49 @@
 // see no key: their o, dq and stats are exact zeros (m_sum = 0,
 // n_sum = -1e38).
 //
-// Design.  One block of 4 warps owns one tile of BQ query rows (forward,
-// dq) or BK key rows (dk/dv) and loops over the other axis inside the
-// block: the loop replaces the TPU's sequential grid axis.  Every output
-// element has one writer and every sum runs in a fixed order, so two runs
-// give the same bits (no atomics).  dk/dv of a KV head sum over the H/Hkv
-// q-heads of its group inside the block.  KV tiles wholly past the causal
-// diagonal or wholly outside the window are skipped: a masked tile folds in
-// as the monoid's identity, so the skip changes no bit.
+// Design.  One block of 4 warps owns one tile of query rows (forward, dq)
+// or key rows (dk/dv) and loops over the other axis inside the block: the
+// loop replaces the TPU's sequential grid axis.  Every output element has
+// one writer and every sum runs in a fixed order, so two runs give the same
+// bits (no atomics).  dk/dv of a KV head sum over the H/Hkv q-heads of its
+// group inside the block.  Tiles wholly past the causal diagonal or wholly
+// outside the window are skipped: a masked tile folds in as the monoid's
+// identity, so the skip changes no bit.
 //
-// Products.  bf16 inputs: q k^T and do v^T are bf16 x bf16 products, exact
-// in float32, on the tensor cores (nvcuda::wmma 16x16x16, float32
-// accumulation).  w, p and ds are float32: rounding them to bf16 or TF32
-// would change the function, so each is written to shared memory as three
-// bf16 parts that sum to it exactly (hi + mid + lo) and its product runs as
-// three tensor-core products.  Cost: the forward does 1 + 3 products where
-// the function needs 2; the backward 2 + 3 (dq) and 2 + 3 + 3 (dk/dv)
-// where it needs 5.  float32 inputs take FFMA throughout (the kernel
-// check's path).
+// Products.  q k^T and do v^T are bf16 x bf16 products, exact in float32,
+// on the tensor cores with float32 accumulation.  w, p and ds are float32:
+// rounding them to bf16 or TF32 would change the function, so each enters
+// its product as three bf16 parts that sum to it exactly (hi + mid + lo),
+// three tensor-core products.  Cost: the forward runs 1 + 3 products where
+// the function needs 2; the backward 2 + 3 (dq) and 2 + 3 + 3 (dk/dv), 13
+// where it needs 5.
+//
+// Which kernel runs, by dtype and D alone (never on a failure):
+//   * forward, every dtype and D: flash_fwd, nvcuda::wmma 16x16x16 through
+//     shared memory, one cp.async stage (unchanged since its port);
+//   * backward, bf16 with D rounded up to 16 at most 128 (every config the
+//     port trains): flash_dq_mma and flash_dkv_mma.  64-row tiles on both
+//     axes, each warp 16 rows of the block's own tile;
+//     mma.sync.m16n8k16 with ldmatrix (.trans for the operands read along
+//     their rows), so s^T = k q^T and dp^T = v do^T (dk/dv; s and dp for dq)
+//     land in accumulator registers, p and ds are formed there, and their
+//     parts are packed in place into the A operand of dv += p^T do,
+//     dk += ds^T q (dq += ds k): two adjacent n8 accumulator tiles are one
+//     k16 A fragment.  dk, dv and dq accumulate in registers and are written
+//     once.  The block's own K / V (Q / dO) tiles are loaded once; the other
+//     axis's tiles (with the Q tile's row stats) are double-buffered with
+//     cp.async, the (q-head, Q tile) pairs of dk/dv as one sequence, so the
+//     next tile's loads overlap this tile's math.  ~104 KB of shared memory
+//     and at most 255 registers a thread (no spills): two blocks an SM;
+//   * backward, float32 (FFMA, the kernel check's path) or D in (128, 256]:
+//     flash_dq and flash_dkv, wmma through shared memory as the forward.
 //
 // Bound on this card (B 1, H 40, Hkv 8, S 4096, D 128, bf16, causal):
 // operations.  The forward's 2 products over the causal half are 1.7e11
-// operations (0.17 ms at 989 TFLOP/s), the backward's 5 are 4.3e11
-// (0.43 ms); bytes are ~0.1 GB (0.03 ms).  The tiles are plain shared-
-// memory wmma with one cp.async stage: wgmma / TMA pipelines are later
-// work.
+// operations (0.174 ms at 989 TFLOP/s), the backward's 5 are 4.3e11
+// (0.434 ms), and the 13 split products the backward runs 1.1e12
+// (1.129 ms); bytes are ~0.1 GB (0.03 ms).  wgmma / TMA pipelines are
+// later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -454,9 +472,22 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Backward, shared: for this thread's columns of one (Q tile, KV tile),
-// (p, ds) from the scores Ss and dp = do v^T in Ps; 0 where masked.
+// Backward, shared: p of one score from its row's n_sum and
+// 1 / max(m_sum, 1e-37), and ds from p, dp and the row's delta.
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ float p_of(float s, float ns, float inv,
+                                      float scale) {
+  float me, ne;
+  repro::ext_exp(__fmul_rn(s, scale), me, ne);
+  return __fmul_rn(__fmul_rn(me, repro::exp2_int(__fsub_rn(ne, ns))), inv);
+}
+__device__ __forceinline__ float ds_of(float p, float dp, float dl,
+                                       float scale) {
+  return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, dl)), scale);
+}
+
+// For this thread's columns of one (Q tile, KV tile), (p, ds) from the
+// scores Ss and dp = do v^T in Ps; 0 where masked.
 template <int BQ, int BK, typename F>
 __device__ __forceinline__ void p_ds(const Attn& a, int q0, int k0,
                                      const float* Ss, const float* Ps,
@@ -473,12 +504,8 @@ __device__ __forceinline__ void p_ds(const Attn& a, int q0, int k0,
     const int c = part * CPT + j;
     float p = 0.0f, ds = 0.0f;
     if (row_ok && visible(a, qi, k0 + c)) {
-      float me, ne;
-      repro::ext_exp(__fmul_rn(Ss[r * lds + c], a.scale), me, ne);
-      p = __fmul_rn(__fmul_rn(me, repro::exp2_int(__fsub_rn(ne, n_sum[r]))),
-                    inv[r]);
-      ds = __fmul_rn(__fmul_rn(p, __fsub_rn(Ps[r * lds + c], delta[r])),
-                     a.scale);
+      p = p_of(Ss[r * lds + c], n_sum[r], inv[r], a.scale);
+      ds = ds_of(p, Ps[r * lds + c], delta[r], a.scale);
     }
     put(r, c, p, ds);
   }
@@ -698,15 +725,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Backward for bf16 inputs with Dp <= 128: mma.sync.m16n8k16 (bf16 in,
-// float32 accumulation) from registers.  One block of 4 warps, 64-row
-// tiles on both axes; each warp owns 16 rows of the block's own tile.
-// Scores and dp land in accumulator registers, p and ds are formed there,
-// and their three bf16 parts are packed in place into the A operand of the
-// next product: the accumulator of two adjacent n8 tiles is the A fragment
-// of one k16 step.  The outputs accumulate in registers and are written
-// once.  The tiles of the other axis are double-buffered with cp.async, so
-// the next tile's loads overlap this tile's math.
+// Backward for bf16 inputs with Dp <= 128 (the header's design):
+// mma.sync.m16n8k16 from registers, cp.async double buffering.
 // ---------------------------------------------------------------------------
 constexpr int kTile = 64;  // rows of every tile of the mma backward
 
@@ -823,19 +843,6 @@ __device__ __forceinline__ void mma_parts(float (&acc)[ND][4],
       }
     }
   }
-}
-
-// p of one score from its row's n_sum and 1 / max(m_sum, 1e-37), and ds
-// from p, dp and the row's delta, in the operation order of p_ds.
-__device__ __forceinline__ float p_of(float s, float ns, float inv,
-                                      float scale) {
-  float me, ne;
-  repro::ext_exp(__fmul_rn(s, scale), me, ne);
-  return __fmul_rn(__fmul_rn(me, repro::exp2_int(__fsub_rn(ne, ns))), inv);
-}
-__device__ __forceinline__ float ds_of(float p, float dp, float dl,
-                                       float scale) {
-  return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, dl)), scale);
 }
 
 // The rows of one warp's output in accumulator layout into dst [rows, D]

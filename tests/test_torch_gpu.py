@@ -179,7 +179,10 @@ def test_lmhead_op_launches_the_kernels_and_matches_the_reference(cuda):
 
 # (B, H, Hkv, Sq, Skv, D, causal, window): GQA groups, MQA, ragged Sq / Skv
 # (tile edges inside both), empty causal rows (Sq > Skv), a window, and the
-# dense family's other head dims (120: no multiple of 16; 160: over 128)
+# dense family's other head dims (120: no multiple of 16; 160: over 128).
+# bf16 with D <= 128 takes the mma backward kernels, D > 128 the others:
+# qwen2.5-14b's group of 5 at D 128, a window across several 64-row tiles,
+# and D 144, just past the mma kernels' limit.
 FLASH_CASES = [(2, 4, 2, 200, 200, 64, True, None),
                (1, 3, 1, 40, 100, 32, False, None),
                (1, 4, 4, 129, 257, 64, True, None),
@@ -187,7 +190,10 @@ FLASH_CASES = [(2, 4, 2, 200, 200, 64, True, None),
                (1, 4, 2, 150, 150, 64, True, 24),
                (1, 2, 1, 70, 70, 120, True, None),
                (1, 2, 2, 70, 90, 160, False, 33),
-               (1, 2, 1, 64, 64, 256, True, None)]
+               (1, 2, 1, 64, 64, 256, True, None),
+               (1, 10, 2, 333, 333, 128, True, None),
+               (1, 4, 2, 700, 700, 128, True, 100),
+               (1, 2, 1, 333, 333, 144, True, None)]
 # float32 on FFMA: only the sum order differs (errors ~1e-6 here); bf16: the
 # float32 results that close round at most one bf16 step apart
 FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
@@ -242,6 +248,27 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
     counts = tk.launch_counts()
     assert counts["flash_attention_fwd_gqa"] == 2
     assert counts["flash_attention_bwd_gqa"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, d, mma", [(torch.bfloat16, 128, True),
+                                           (torch.bfloat16, 120, True),
+                                           (torch.bfloat16, 144, False),
+                                           (torch.float32, 128, False)])
+def test_flash_backward_kernels_chosen_by_dtype_and_head_dim(cuda, dtype, d,
+                                                             mma):
+    q, k, v, do = _flash_inputs(cuda, dtype, 1, 2, 1, 64, 64, d)
+    o, m, n = tfa.flash_attention_fwd_gqa(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tfa.flash_attention_bwd_gqa(q, k, v, o, m, n, do, causal=True)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    for kernel in ("flash_dq_mma", "flash_dkv_mma"):
+        assert any(kernel in x for x in names) == mma, names
+    if dtype == torch.bfloat16:
+        assert (min(tfa.bwd_blocks_per_sm(d, w) for w in (0, 1)) >= 1) == mma
 
 
 @pytest.mark.gpu
