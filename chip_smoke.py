@@ -1342,7 +1342,8 @@ def train_trace(torch, step, state, batch) -> None:
     """Where a step's device time goes: one more step under
     ``torch.profiler`` (CPU and CUDA activity; the CPU tracing slows the
     host, so the idle share is an upper bound), its kernels' device time
-    summed by group and the ten largest by name.  Not one of the counted
+    summed by group, the ten largest by name, and every flash kernel by
+    name (which of the backward's kernels ran).  Not one of the counted
     steps."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1375,9 +1376,12 @@ def train_trace(torch, step, state, batch) -> None:
     for name, ms in by_name.items():
         groups[group(name)] = groups.get(group(name), 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    flash = {k[:120]: v for k, v in by_name.items()
+             if group(k) == "flash_attention kernels"}
     say("train_trace", wall_ms=wall * 1e3, device_busy_ms=busy,
         idle_share=max(0.0, 1 - busy / (wall * 1e3)), groups_ms=groups,
-        top_kernels_ms=[[k[:120], v] for k, v in top])
+        top_kernels_ms=[[k[:120], v] for k, v in top],
+        flash_kernels_ms=flash)
 
 
 def cli_phase(torch) -> None:
