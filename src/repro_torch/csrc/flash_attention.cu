@@ -912,7 +912,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // Q, dO and row stats of step i into stage i & 1; thread r < BQ copies
   // row r's stats, so after its own wait it may rewrite them.
-  auto issue = [&](int i) {
+  auto prefetch = [&](int i) {
     const int q0 = (ilo + i % nq) * BQ;
     const size_t qrow = (static_cast<size_t>(b) * a.H + hk * G + i / nq) *
                         a.Sq;
@@ -940,12 +940,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     const bf16* vp = v + krow * a.D;
     load_tile(kp, k0, BK, a.Skv, a.D, DP, Ks, LD, aligned16(kp));
     load_tile(vp, k0, BK, a.Skv, a.D, DP, Vs, LD, aligned16(vp));
-    issue(0);
+    prefetch(0);
   }
   cp_async_commit();
   const int kr = k0 + warp * 16 + (lane >> 2);  // this thread's KV rows
   for (int i = 0; i < n; ++i) {
-    if (i + 1 < n) issue(i + 1);
+    if (i + 1 < n) prefetch(i + 1);
     cp_async_commit();
     cp_async_wait<1>();
     const int q0 = (ilo + i % nq) * BQ;
@@ -1038,7 +1038,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     dl[e] = ok ? delta[qrow + qi] : 0.0f;
   }
 
-  auto issue = [&](int i) {
+  auto prefetch = [&](int i) {
     const int k0 = (jlo + i) * BK;
     bf16* Ks = stages + (i & 1) * 2 * TILE;
     load_tile(kp, k0, BK, a.Skv, a.D, DP, Ks, LD, vk);
@@ -1051,11 +1051,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     const bf16* dop = dout + qrow * a.D;
     load_tile(qp, q0, BQ, a.Sq, a.D, DP, Qs, LD, aligned16(qp));
     load_tile(dop, q0, BQ, a.Sq, a.D, DP, dOs, LD, aligned16(dop));
-    issue(0);
+    prefetch(0);
   }
   cp_async_commit();
   for (int i = 0; i < n; ++i) {
-    if (i + 1 < n) issue(i + 1);
+    if (i + 1 < n) prefetch(i + 1);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
