@@ -26,7 +26,8 @@ Phases (any failure exits non-zero; nothing is caught):
    train phase's attention shape, a ragged causal float32 call with rows
    that see no key (exact zeros), a window and head dims 120 and 160,
    within float32 accumulation limits derived from the inputs plus one
-   bf16 step, with the same bits on a second run;
+   bf16 step, with the same bits on a second run (bf16 with D <= 128
+   takes the mma.sync kernels, float32 and D 160 the wmma / FFMA ones);
 3. engine: qwen2.5-14b at full width (d_model 5120, 40/8 heads, d_ff
    13824, vocab 152064, bf16, seeded random weights) serving 12 requests
    through ``ContinuousBatchingEngine(paged=True, use_kernels=True,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and probe the flash-attention ones on one
 NVIDIA GPU: the compiler's register / shared-memory lines and the blocks
-an SM of the bf16 backward kernels, the flash cases of
+an SM of the bf16 forward and backward kernels, the flash cases of
 ``tests/test_torch_gpu.py``, and a bare timing at the train shape of
 ``chip_smoke.py`` (B 1, H 40, Hkv 8, S 4096, D 128, bf16, causal): the
 forward, the backward and each of its two kernels (dq, dk/dv) alone, beside
@@ -58,9 +58,9 @@ def main() -> int:
     print("\n".join(ln for ln in _build.ptxas_report().splitlines()
                     if ln.startswith("flash_attention")))
     for d in (64, 128):
-        print(f"bf16 backward blocks an SM at D {d}: dq "
-              f"{fa.bwd_blocks_per_sm(d, 0)}, dk/dv "
-              f"{fa.bwd_blocks_per_sm(d, 1)}", flush=True)
+        print(f"bf16 mma kernels, blocks an SM at D {d}: forward "
+              f"{fa.blocks_per_sm(d, 2)}, dq {fa.blocks_per_sm(d, 0)}, "
+              f"dk/dv {fa.blocks_per_sm(d, 1)}", flush=True)
     tests = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-x", "-m", "gpu",
          "tests/test_torch_gpu.py", "-k", "flash", "-p", "no:cacheprovider"],

@@ -42,11 +42,19 @@
 // where it needs 5.
 //
 // Which kernel runs, by dtype and D alone (never on a failure):
-//   * forward, every dtype and D: flash_fwd, nvcuda::wmma 16x16x16 through
-//     shared memory, one cp.async stage (unchanged since its port);
-//   * backward, bf16 with D rounded up to 16 at most 128 (every config the
-//     port trains): flash_dq_mma and flash_dkv_mma.  64-row tiles on both
-//     axes, each warp 16 rows of the block's own tile;
+//   * forward, bf16 with D rounded up to 16 at most 128 (every config the
+//     port trains): flash_fwd_mma.  64-row Q tile, each warp 16 of its rows;
+//     s = q k^T in mma.sync accumulator registers, scaled, masked and
+//     folded there (each row's (m, n) in registers, the row's max and sum
+//     over the quad of lanes that holds it), w's parts packed in place into
+//     the A operand of o += w v, V read by ldmatrix.trans, o accumulated in
+//     registers and written once; the K / V tiles double-buffered with
+//     cp.async.  ~87 KB of shared memory: two blocks an SM;
+//   * forward, float32 or D in (128, 256]: flash_fwd, nvcuda::wmma 16x16x16
+//     through shared memory, one cp.async stage (unchanged since its port);
+//   * backward, bf16 with D rounded up to 16 at most 128: flash_dq_mma and
+//     flash_dkv_mma.  64-row tiles on both axes, each warp 16 rows of the
+//     block's own tile;
 //     mma.sync.m16n8k16 with ldmatrix (.trans for the operands read along
 //     their rows), so s^T = k q^T and dp^T = v do^T (dk/dv; s and dp for dq)
 //     land in accumulator registers, p and ds are formed there, and their
@@ -63,10 +71,12 @@
 //
 // Bound on this card (B 1, H 40, Hkv 8, S 4096, D 128, bf16, causal):
 // operations.  The forward's 2 products over the causal half are 1.7e11
-// operations (0.174 ms at 989 TFLOP/s), the backward's 5 are 4.3e11
-// (0.434 ms), and the 13 split products the backward runs 1.1e12
-// (1.129 ms); bytes are ~0.1 GB (0.03 ms).  wgmma / TMA pipelines are
-// later work.
+// operations (0.174 ms at 989 TFLOP/s), and the 4 split products it runs
+// 3.4e11 (0.348 ms); the backward's 5 are 4.3e11 (0.434 ms), and the 13
+// split products it runs 1.1e12 (1.129 ms); bytes are ~0.1 GB (0.03 ms).
+// The mma kernels run ExtExp and the part splitting (~25 CUDA-core
+// operations a score in the forward) beside their tensor instructions.
+// wgmma / TMA pipelines are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -88,7 +98,7 @@ constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxD = 256;
 
-// The problem, shared by the three kernels.
+// The problem, shared by every kernel.
 struct Attn {
   int H, Hkv, Sq, Skv, D, Dp;
   float scale;
@@ -725,10 +735,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Backward for bf16 inputs with Dp <= 128 (the header's design):
-// mma.sync.m16n8k16 from registers, cp.async double buffering.
+// Forward and backward for bf16 inputs with Dp <= 128 (the header's
+// design): mma.sync.m16n8k16 from registers, cp.async double buffering.
 // ---------------------------------------------------------------------------
-constexpr int kTile = 64;  // rows of every tile of the mma backward
+constexpr int kTile = 64;  // rows of every tile of the mma kernels
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -867,15 +877,20 @@ __device__ __forceinline__ void store_acc(const float (&acc)[ND][4],
   }
 }
 
-// Shared memory of the mma backward: six 64-row bf16 tiles (the block's
-// own two, then two stages of the other axis's two) and, for dk/dv, two
-// stages of the Q tile's row stats.
+// The mma kernels, as the C interface's `which` names them.
+enum MmaKernel { kDq = 0, kDkv = 1, kFwd = 2 };
+
+// Shared memory of the mma kernels: 64-row bf16 tiles (the block's own --
+// Q and dO for dq, K and V for dk/dv, Q for the forward -- then two stages
+// of the other axis's two) and, for dk/dv, two stages of the Q tile's row
+// stats.
 template <int DP>
-struct MmaBwdLayout {
+struct MmaLayout {
   static constexpr int ld = DP + 8;  // 16-byte pad: ldmatrix conflict-free
   static constexpr int tile = kTile * ld;  // elements
-  static constexpr size_t bytes(bool dkv) {
-    return 6 * sizeof(bf16) * tile + (dkv ? 2 * 3 * kTile * sizeof(float) : 0);
+  static constexpr size_t bytes(int which) {
+    return (which == kFwd ? 5 : 6) * sizeof(bf16) * tile +
+           (which == kDkv ? 2 * 3 * kTile * sizeof(float) : 0);
   }
 };
 
@@ -892,7 +907,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                   const float* __restrict__ n_sum,
                   const float* __restrict__ delta, bf16* __restrict__ dk,
                   bf16* __restrict__ dv, Attn a) {
-  using L = MmaBwdLayout<DP>;
+  using L = MmaLayout<DP>;
   constexpr int BQ = kTile, BK = kTile, LD = L::ld, TILE = L::tile;
   constexpr int NT = BQ / 8, ND = DP / 8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1005,7 +1020,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                  const float* __restrict__ n_sum,
                  const float* __restrict__ delta, bf16* __restrict__ dq,
                  Attn a) {
-  using L = MmaBwdLayout<DP>;
+  using L = MmaLayout<DP>;
   constexpr int BQ = kTile, BK = kTile, LD = L::ld, TILE = L::tile;
   constexpr int NT = BK / 8, ND = DP / 8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1086,9 +1101,149 @@ __global__ void __launch_bounds__(kThreads, 2)
   store_acc(dQ, dq + qrow * a.D, q0, a.Sq, a.D);
 }
 
+// Forward.  grid (H, B, ceil(Sq / 64)), Q tiles from the last.  Warp w owns
+// Q rows q0 + 16 w ..; each thread holds two of them (the quad of lanes
+// 4 r .. 4 r + 3 shares rows r and r + 8) with their (m_acc, n_acc).  Per
+// KV tile: s = q k^T in registers, scaled and masked; n_new = max(n_acc,
+// n of the row's largest score); w = m 2^(n - n_new) in place of s; o =
+// o 2^(n_acc - n_new) + w v.  flash_fwd weighs w against the tile's own
+// n_loc and rescales w v by 2^(n_loc - n_new) afterwards: a power-of-two
+// rescale is exact in the normal range, so the two differ only where a
+// term lies more than 2^126 below its row's largest (subnormal or flushed
+// here), far inside the kernel checks' limits.  The K / V tiles are
+// double-buffered.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  float* __restrict__ m_out, float* __restrict__ n_out,
+                  Attn a) {
+  using L = MmaLayout<DP>;
+  constexpr int BQ = kTile, BK = kTile, LD = L::ld, TILE = L::tile;
+  constexpr int NT = BK / 8, ND = DP / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* stages = Qs + TILE;  // stage s: K at 2 s TILE, V after it
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int hk = h / (a.H / a.Hkv);
+  const size_t qrow = (static_cast<size_t>(b) * a.H + h) * a.Sq;
+  const size_t krow = (static_cast<size_t>(b) * a.Hkv + hk) * a.Skv;
+  const bf16* kp = k + krow * a.D;
+  const bf16* vp = v + krow * a.D;
+  const bool vk = aligned16(kp), vv = aligned16(vp);
+  int jlo, jhi;
+  kv_tiles<BQ, BK>(a, q0, jlo, jhi);
+  const int n = jhi - jlo;
+
+  auto prefetch = [&](int i) {
+    const int k0 = (jlo + i) * BK;
+    bf16* Ks = stages + (i & 1) * 2 * TILE;
+    load_tile(kp, k0, BK, a.Skv, a.D, DP, Ks, LD, vk);
+    load_tile(vp, k0, BK, a.Skv, a.D, DP, Ks + TILE, LD, vv);
+  };
+
+  float oacc[ND][4] = {};
+  float m_acc[2] = {0.0f, 0.0f};
+  float n_acc[2] = {repro::kMinusInfN, repro::kMinusInfN};
+  if (n > 0) {
+    const bf16* qp = q + qrow * a.D;
+    load_tile(qp, q0, BQ, a.Sq, a.D, DP, Qs, LD, aligned16(qp));
+    prefetch(0);
+  }
+  cp_async_commit();
+  const int qr = q0 + warp * 16 + (lane >> 2);  // this thread's rows qr, +8
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) prefetch(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = (jlo + i) * BK;
+    const bf16* Ks = stages + (i & 1) * 2 * TILE;
+    const bf16* Vs = Ks + TILE;
+    float s[NT][4] = {};
+    mma_nt<DP / 16, NT, LD>(s, Qs + warp * 16 * LD, Ks, lane);
+    // scaled, -inf where masked; each row's largest over its quad
+    float xmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kj = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+        s[j][e] = visible(a, qr + r * 8, kj) ? __fmul_rn(s[j][e], a.scale)
+                                             : -INFINITY;
+        xmax[r] = fmaxf(xmax[r], s[j][e]);
+      }
+    }
+    float n_new[2], a_old[2], msum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1)
+        xmax[r] = fmaxf(xmax[r], __shfl_xor_sync(0xffffffffu, xmax[r], off));
+      n_new[r] = fmaxf(n_acc[r], n_of_max(xmax[r]));
+      a_old[r] = repro::exp2_int(__fsub_rn(n_acc[r], n_new[r]));
+    }
+    // w in place of s (0 where masked), summed over the thread's columns
+    // in order, then over the quad: addition commutes, so the four lanes
+    // get the same bits
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float me, ne;
+        repro::ext_exp(s[j][e], me, ne);
+        s[j][e] = __fmul_rn(me, repro::exp2_int(__fsub_rn(ne, n_new[r])));
+        msum[r] = __fadd_rn(msum[r], s[j][e]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1)
+        msum[r] =
+            __fadd_rn(msum[r], __shfl_xor_sync(0xffffffffu, msum[r], off));
+      m_acc[r] = __fadd_rn(__fmul_rn(m_acc[r], a_old[r]), msum[r]);
+      n_acc[r] = n_new[r];
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        oacc[j][e] = __fmul_rn(oacc[j][e], a_old[e >> 1]);
+    }
+    mma_parts<BK / 16, ND, LD>(oacc, s, Vs, lane);
+    __syncthreads();
+  }
+  cp_async_wait<0>();  // also when no KV tile was visible
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      oacc[j][e] = __fdiv_rn(oacc[j][e], fmaxf(m_acc[e >> 1], 1e-37f));
+  }
+  store_acc(oacc, o + qrow * a.D, q0, a.Sq, a.D);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = qr + r * 8;
+      if (qi < a.Sq) {
+        m_out[qrow + qi] = m_acc[r];
+        n_out[qrow + qi] = n_acc[r];
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
-// Host side: the tile shape is the first of (64, 64), (64, 32), (32, 32)
-// whose shared memory fits the card at this D and dtype; it depends on
+// Host side: bf16 with Dp <= 128 takes the mma kernels, forward and
+// backward (64-row tiles).  Else the tile shape of flash_fwd, flash_dq and
+// flash_dkv is the first of (64, 64), (64, 32), (32, 32) whose shared
+// memory fits the card at this D and dtype.  Either choice depends on
 // nothing else, so the sum order (and the bits) depend on D only.
 // ---------------------------------------------------------------------------
 int max_smem() {
@@ -1106,6 +1261,22 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
       static_cast<int>(bytes));
 }
 
+// The mma kernel `which` at DP, its shared memory set (and the carveout at
+// its largest, so that two blocks fit an SM).
+template <int DP>
+cudaError_t mma_prepare(int which, const void*& f, size_t& bytes) {
+  f = which == kFwd   ? reinterpret_cast<const void*>(&flash_fwd_mma<DP>)
+      : which == kDkv ? reinterpret_cast<const void*>(&flash_dkv_mma<DP>)
+                      : reinterpret_cast<const void*>(&flash_dq_mma<DP>);
+  bytes = MmaLayout<DP>::bytes(which);
+  cudaError_t e = cudaFuncSetAttribute(
+      f, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(f, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
 template <typename T, int BQ, int BK>
 cudaError_t fwd_launch(const void* q, const void* k, const void* v, void* o,
                        float* m, float* n, int B, const Attn& a,
@@ -1119,9 +1290,29 @@ cudaError_t fwd_launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <int DP>
+cudaError_t fwd_mma_launch(const void* q, const void* k, const void* v,
+                           void* o, float* m, float* n, int B, const Attn& a,
+                           cudaStream_t s) {
+  const void* f;
+  size_t bytes;
+  cudaError_t e = mma_prepare<DP>(kFwd, f, bytes);
+  if (e != cudaSuccess) return e;
+  flash_fwd_mma<DP><<<dim3(a.H, B, cdiv(a.Sq, kTile)), kThreads, bytes, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), m, n, a);
+  return cudaGetLastError();
+}
+
+// bf16 with Dp <= 128 takes the mma forward; float32 and Dp in (128, 256]
+// flash_fwd.  The choice reads the dtype and D only.
 template <typename T>
 cudaError_t fwd_any(const void* q, const void* k, const void* v, void* o,
                     float* m, float* n, int B, const Attn& a, cudaStream_t s) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (a.Dp <= 64) return fwd_mma_launch<64>(q, k, v, o, m, n, B, a, s);
+    if (a.Dp <= 128) return fwd_mma_launch<128>(q, k, v, o, m, n, B, a, s);
+  }
   const size_t cap = static_cast<size_t>(max_smem());
   if (FwdLayout<T, 64, 64>(a.Dp).total <= cap)
     return fwd_launch<T, 64, 64>(q, k, v, o, m, n, B, a, s);
@@ -1161,27 +1352,12 @@ cudaError_t bwd_launch(const BwdArgs& g, int B, const Attn& a, bool dkv,
   return cudaGetLastError();
 }
 
-// The mma backward's kernel at DP, its shared memory set (and the carveout
-// at its largest, so that two blocks fit an SM).
-template <int DP>
-cudaError_t mma_prepare(bool dkv, const void*& f, size_t& bytes) {
-  f = dkv ? reinterpret_cast<const void*>(&flash_dkv_mma<DP>)
-          : reinterpret_cast<const void*>(&flash_dq_mma<DP>);
-  bytes = MmaBwdLayout<DP>::bytes(dkv);
-  cudaError_t e = cudaFuncSetAttribute(
-      f, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(f, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  return e;
-}
-
 template <int DP>
 cudaError_t mma_launch(const BwdArgs& g, int B, const Attn& a, bool dkv,
                        cudaStream_t s) {
   const void* f;
   size_t bytes;
-  cudaError_t e = mma_prepare<DP>(dkv, f, bytes);
+  cudaError_t e = mma_prepare<DP>(dkv ? kDkv : kDq, f, bytes);
   if (e != cudaSuccess) return e;
   const bf16* q = static_cast<const bf16*>(g.q);
   const bf16* k = static_cast<const bf16*>(g.k);
@@ -1277,16 +1453,17 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   return static_cast<int>(e);
 }
 
-// Blocks an SM of the mma backward's kernel for bf16 at head dim D
-// (which: 0 = dq, 1 = dk/dv), or -1 where that dtype and D take the other
+// Blocks an SM of the mma kernel for bf16 at head dim D (which: 0 = dq,
+// 1 = dk/dv, 2 = forward), or -1 where that dtype and D take the other
 // kernels or the query fails.
-int flash_attention_bwd_blocks_per_sm(int D, int which) {
+int flash_attention_blocks_per_sm(int D, int which) {
   const void* f;
   size_t bytes;
   cudaError_t e;
-  if (D < 8 || D % 8 || round16(D) > 128) return -1;
-  e = round16(D) <= 64 ? mma_prepare<64>(which == 1, f, bytes)
-                       : mma_prepare<128>(which == 1, f, bytes);
+  if (D < 8 || D % 8 || round16(D) > 128 || which < kDq || which > kFwd)
+    return -1;
+  e = round16(D) <= 64 ? mma_prepare<64>(which, f, bytes)
+                       : mma_prepare<128>(which, f, bytes);
   int blocks = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, kThreads,

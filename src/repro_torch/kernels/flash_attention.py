@@ -197,16 +197,16 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 6 + [_F] + [_I] * 4 \
         + [_P]
     lib.flash_attention_bwd.restype = _I
-    lib.flash_attention_bwd_blocks_per_sm.argtypes = [_I, _I]
-    lib.flash_attention_bwd_blocks_per_sm.restype = _I
+    lib.flash_attention_blocks_per_sm.argtypes = [_I, _I]
+    lib.flash_attention_blocks_per_sm.restype = _I
     return lib
 
 
-def bwd_blocks_per_sm(d: int, which: int) -> int:
-    """Blocks an SM of the bf16 backward kernel at head dim ``d`` (``which``
-    0 = dq, 1 = dk/dv), or -1 where bf16 at that ``d`` takes the float32 /
-    large-D kernels."""
-    return _lib().flash_attention_bwd_blocks_per_sm(d, which)
+def blocks_per_sm(d: int, which: int) -> int:
+    """Blocks an SM of the bf16 ``mma.sync`` kernel at head dim ``d``
+    (``which`` 0 = dq, 1 = dk/dv, 2 = forward), or -1 where bf16 at that
+    ``d`` takes the float32 / large-D kernels."""
+    return _lib().flash_attention_blocks_per_sm(d, which)
 
 
 def _check_qkv(what: str, q, k, v, window) -> None:

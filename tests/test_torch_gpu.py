@@ -180,9 +180,9 @@ def test_lmhead_op_launches_the_kernels_and_matches_the_reference(cuda):
 # (B, H, Hkv, Sq, Skv, D, causal, window): GQA groups, MQA, ragged Sq / Skv
 # (tile edges inside both), empty causal rows (Sq > Skv), a window, and the
 # dense family's other head dims (120: no multiple of 16; 160: over 128).
-# bf16 with D <= 128 takes the mma backward kernels, D > 128 the others:
-# qwen2.5-14b's group of 5 at D 128, a window across several 64-row tiles,
-# and D 144, just past the mma kernels' limit.
+# bf16 with D <= 128 takes the mma forward and backward kernels, D > 128
+# the others: qwen2.5-14b's group of 5 at D 128, a window across several
+# 64-row tiles, and D 144, just past the mma kernels' limit.
 FLASH_CASES = [(2, 4, 2, 200, 200, 64, True, None),
                (1, 3, 1, 40, 100, 32, False, None),
                (1, 4, 4, 129, 257, 64, True, None),
@@ -255,20 +255,29 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
                                            (torch.bfloat16, 120, True),
                                            (torch.bfloat16, 144, False),
                                            (torch.float32, 128, False)])
-def test_flash_backward_kernels_chosen_by_dtype_and_head_dim(cuda, dtype, d,
-                                                             mma):
+def test_flash_forward_and_backward_kernels_chosen_by_dtype_and_head_dim(
+        cuda, dtype, d, mma):
     q, k, v, do = _flash_inputs(cuda, dtype, 1, 2, 1, 64, 64, d)
-    o, m, n = tfa.flash_attention_fwd_gqa(q, k, v, causal=True)
-    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        o, m, n = tfa.flash_attention_fwd_gqa(q, k, v, causal=True)
         tfa.flash_attention_bwd_gqa(q, k, v, o, m, n, do, causal=True)
         torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages()]
-    for kernel in ("flash_dq_mma", "flash_dkv_mma"):
+    for kernel in ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma"):
         assert any(kernel in x for x in names) == mma, names
+    # flash_fwd (the wmma kernel) exactly where the mma kernels do not run
+    assert any("flash_fwd" in x and "flash_fwd_mma" not in x
+               for x in names) != mma, names
     if dtype == torch.bfloat16:
-        assert (min(tfa.bwd_blocks_per_sm(d, w) for w in (0, 1)) >= 1) == mma
+        assert (min(tfa.blocks_per_sm(d, w) for w in (0, 1, 2)) >= 1) == mma
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_mma_kernels_fit_two_blocks_an_sm(cuda, d):
+    # which: 0 = dq, 1 = dk/dv, 2 = forward
+    assert [tfa.blocks_per_sm(d, w) >= 2 for w in (0, 1, 2)] == [True] * 3
 
 
 @pytest.mark.gpu
