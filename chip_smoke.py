@@ -188,6 +188,64 @@ def twopass_digest(torch, tp) -> str:
     return h.hexdigest()
 
 
+def decode_digest(torch, da) -> str:
+    """sha256 of the decode kernels' outputs on seeded inputs, every launch
+    through the general tile body: bf16 and float32 q / K / V with and
+    without a window, strip and paged, and int8 pages at both scale
+    granularities under both q dtypes.  Lengths 0, 1, 128 (one tile), 129
+    and 700 (six tiles; window 300 starts at the fourth).  Runs against a
+    tree whose wrapper has no ``kernel_body`` as well: there every launch
+    takes the one kernel it has."""
+    h = hashlib.sha256()
+    rng = np.random.default_rng(4321)
+    s, hkv, g, d, ps, pmax = 5, 2, 5, 128, 64, 12
+    n_pages = 1 + s * pmax
+
+    def card(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to("cuda")
+
+    tab = card(rng.permutation(np.arange(1, n_pages)).reshape(s, pmax)
+               .astype(np.int32))
+    lens = card(np.array([0, 1, 128, 129, 700], np.int32))
+    q = card(rng.standard_normal((s, hkv, g, d), dtype=np.float32))
+    kp, vp = (card(rng.standard_normal((n_pages, ps, hkv, d),
+                                       dtype=np.float32)) for _ in "kv")
+    k8, v8 = (card(rng.integers(-127, 128, (n_pages, ps, hkv, d))
+                   .astype(np.int8)) for _ in "kv")
+    scales = {"page": [card(rng.uniform(0.001, 0.02, (n_pages, ps))
+                            .astype(np.float32)) for _ in "kv"],
+              "page_head": [card(rng.uniform(0.001, 0.02, (n_pages, ps, hkv))
+                                 .astype(np.float32)) for _ in "kv"]}
+    sc = d ** -0.5
+    outs = []
+    chooser = getattr(da, "kernel_body", None)
+    if chooser is not None:
+        da.kernel_body = lambda *a: "general"
+    try:
+        for dt in (torch.bfloat16, torch.float32):
+            qq, kk, vv = q.to(dt), kp.to(dt), vp.to(dt)
+            ks = kk[tab.long()].reshape(s, pmax * ps, hkv, d)
+            vs = vv[tab.long()].reshape(s, pmax * ps, hkv, d)
+            for window in (None, 300):
+                outs.append(da.decode_attention_paged(
+                    qq, kk, vv, tab, lens, scale=sc, window=window,
+                    pages_per_tile=2))
+                outs.append(da.decode_attention(
+                    qq, ks.transpose(1, 2), vs.transpose(1, 2), lens,
+                    scale=sc, window=window, block_t=128))
+        for ksc, vsc in scales.values():
+            for dt in (torch.bfloat16, torch.float32):
+                outs.append(da.decode_attention_paged(
+                    q.to(dt), k8, v8, tab, lens, ksc, vsc, scale=sc,
+                    pages_per_tile=2))
+    finally:
+        if chooser is not None:
+            da.kernel_body = chooser
+    for t in outs:
+        h.update(t.float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def xent_phase(torch, held, softmax_tol, rows) -> None:
     """Cross-entropy kernels against their plain versions at the LM head's
     shape, float32 and bfloat16: the loss at rtol 1e-5 (sum order), n_sum

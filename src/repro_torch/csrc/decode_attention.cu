@@ -9,36 +9,58 @@
 //
 // Bound on this card: bytes.  Each (slot, KV head) reads its K and V rows
 // once, about G = 5 multiply-adds per byte read, far below the ~295
-// operations per byte where an H100 stops being memory-bound.  So:
-//   * one thread block per (slot, KV head, group of up to 8 query heads):
-//     the G query heads that share a KV head read its rows once;
-//   * the block loops over the slot's KV in tiles of `tile` positions: the
-//     TPU's sequential grid axis becomes this loop, and the (o, m, n)
-//     accumulators stay in registers across it;
-//   * the loop STOPS AT THE SLOT'S LENGTH (and starts at the window's first
-//     tile).  The Pallas kernel sweeps every tile of the table; a tile past
-//     the length contributes m = 0, n = -1e38, to which the fold adds
-//     exactly zero, so skipping it changes no bit and saves its bytes.
-//     Within the last tile, rows past the length are not read either;
-//   * the paged kernel reads each page id from the table itself; int8
-//     arenas widen their codes in registers and apply the scales inside the
-//     fold: no dequantised copy is ever written.
-// Both kernels call the same tile fold, so with equal tiles (block_t of
-// the strip == pages_per_tile * page size) they give equal bits.
-// Known weakness: S * Hkv blocks (64 at 8 slots, 8 KV heads) underfill 132
-// SMs.  Split-KV with the exact (m, n) combine is later work.
+// operations per byte where an H100 stops being memory-bound.  At 8 slots
+// and 8 KV heads there are only 64 (slot, KV head) pairs for 132 SMs, so
+// the work is split along the cache (split-KV):
+//   * grid (slots * Hkv, ceil(T_max / tile), query-head groups): one block
+//     folds ONE tile of `tile` positions of one (slot, KV head) for up to 8
+//     query heads (the G heads that share a KV head read its rows once) and
+//     writes the tile's partial (o_loc[Dv], m_loc, n_loc) to a float32
+//     scratch [S, Hkv, G, n_split, Dv + 2].  A block whose tile lies past
+//     the slot's length, or before the window's first tile, returns at
+//     once: the TPU kernel sweeps every tile of the table, but a tile past
+//     the length adds exactly zero to the fold, so skipping it changes no
+//     bit and saves its bytes.  Rows past the length are never read;
+//   * a second kernel, launched by the same C entry on the same stream,
+//     folds each (slot, KV head, query head)'s live tiles IN TILE ORDER with
+//     the exact (m, n) rescales (powers of two), then normalises.  With the
+//     general body below this repeats the former one-block-per-slot loop
+//     operation by operation, so its bits are those of that loop.
+// Two tile bodies:
+//   * tile_bf16 (bf16 q and K/V, D and Dv multiples of 8, 16-byte aligned
+//     rows): a group of lanes covers one row, each lane 8 columns with one
+//     16-byte load, so a warp reads 32 / lanes-per-row rows a load; each warp
+//     issues its K and V loads a batch ahead, keeps q and o[G][8] in
+//     float32 registers and runs an online (m, n) fold of its own positions
+//     with no barrier; the four warps' (o, m, n) are folded once, in a fixed
+//     order, through shared memory.  ~2.5 FMA per byte: float32 FMA keeps
+//     up with the memory rate, so no tensor cores are needed;
+//   * tile_general (float32, int8 pages with scales, and what tile_bf16
+//     does not take): one warp per position scores through shared memory,
+//     ExtExp and the fold by query head, then w . V one column a thread;
+//     int8 arenas widen their codes in registers and apply the scales
+//     inside the fold: no dequantised copy is ever written.
+// The wrapper chooses the body (kernels/decode_attention.py:kernel_body);
+// this file refuses a bf16-body launch whose operands do not meet its
+// conditions.  Strip and paged run the same body on the same tiles, so with
+// equal tiles (block_t of the strip == pages_per_tile * page size) they give
+// equal bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "extexp.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxG = 8;       // query heads per block (grid.y covers more)
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxG = 8;       // query heads per block (grid.z covers more)
 constexpr int kMaxTile = 256;  // KV positions per tile
 constexpr int kMaxD = 256;     // head dim (<= 2 per thread for the output)
+constexpr int kBatch = 4;      // bf16 body: row loads in flight per lane
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -56,7 +78,9 @@ struct Common {
   const void* q;         // [S, Hkv, G, D] contiguous
   void* o;               // [S, Hkv, G, Dv] contiguous, q's dtype
   const int* lengths;    // [S]
+  float* part;           // [S, Hkv, G, n_split, Dv + 2] float32 scratch
   int hkv, g, d, dv, tile, window;  // window < 0: none
+  int n_split, gm, lpr;  // tiles a slot; query heads a block; lanes a row
   float scale;
 };
 
@@ -107,208 +131,392 @@ struct PagedSrc {
   static constexpr bool kQuant = Q;
 };
 
-// The shared body of both kernels: fold the tiles [first, len) of one
-// (slot, KV head) into (o, m, n), normalise, write.
+// The window's first tile: tiles before it hold no visible position.
+__device__ __forceinline__ int first_tile_base(const Common& c, int len) {
+  return c.window >= 0 ? max(0, len - c.window) / c.tile * c.tile : 0;
+}
+
+// This block's (slot, KV head, query heads, tile); false when its tile
+// holds nothing to fold.
+__device__ __forceinline__ bool tile_coords(const Common& c, int gm, int& s,
+                                            int& h, int& g0, int& gn,
+                                            int& base) {
+  s = blockIdx.x / c.hkv;
+  h = blockIdx.x % c.hkv;
+  g0 = blockIdx.z * gm;
+  gn = min(gm, c.g - g0);
+  base = blockIdx.y * c.tile;
+  const int len = c.lengths[s];
+  return gn > 0 && base < len && base >= first_tile_base(c, len);
+}
+
+// The tile's partial for query head g0 + g: o_loc at [0, Dv), m_loc at Dv,
+// n_loc at Dv + 1.
+__device__ __forceinline__ float* part_row(const Common& c, int s, int h,
+                                           int gq) {
+  return c.part +
+         ((static_cast<int64_t>(s * c.hkv + h) * c.g + gq) * c.n_split +
+          blockIdx.y) * (c.dv + 2);
+}
+
+// ---------------------------------------------------------------------------
+// The general body: one tile of positions [base, base + tile) of one
+// (slot, KV head) into (o_loc, m_loc, n_loc) for query heads g0 .. g0+gn.
+// ---------------------------------------------------------------------------
 template <typename QT, typename KT, typename Src>
-__device__ void decode_block(const Common& c, const Src& src, int s, int h,
-                             int g0, int gn) {
+__device__ void tile_general(const Common& c, const Src& src, int s, int h,
+                             int g0, int gn, int base) {
   __shared__ float q_s[kMaxG * kMaxD];
   __shared__ float w_s[kMaxG * kMaxTile];  // scores, then m, then weights
   __shared__ float n_s[kMaxG * kMaxTile];
   __shared__ float mloc_s[kMaxG], nloc_s[kMaxG];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = kThreads / 32;
   const int len = c.lengths[s];
   const int tile = c.tile;
 
   const QT* q = static_cast<const QT*>(c.q) +
                 ((static_cast<int64_t>(s) * c.hkv + h) * c.g + g0) * c.d;
   for (int i = tid; i < gn * c.d; i += kThreads) q_s[i] = to_f32(q[i]);
-
-  float o_acc[kMaxG][2], m_acc[kMaxG], n_acc[kMaxG];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    o_acc[g][0] = o_acc[g][1] = 0.0f;
-    m_acc[g] = 0.0f;
-    n_acc[g] = repro::kMinusInfN;
-  }
-  int first = 0;
-  if (c.window >= 0) first = max(0, len - c.window) / tile * tile;
   __syncthreads();
 
-  for (int base = first; base < len; base += tile) {
-    const int n_valid = min(tile, len - base);
-    // 1. scores: one warp per position, lanes split the head dim.
-    for (int i = warp; i < tile; i += nwarps) {
-      const int t = base + i;
-      if (i < n_valid) {
-        const KT* kr = src.krow(t);
-        float acc[kMaxG];
+  const int n_valid = min(tile, len - base);
+  // 1. scores: one warp per position, lanes split the head dim.
+  for (int i = warp; i < tile; i += kWarps) {
+    const int t = base + i;
+    if (i < n_valid) {
+      const KT* kr = src.krow(t);
+      float acc[kMaxG];
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g) acc[g] = 0.0f;
+      for (int g = 0; g < kMaxG; ++g) acc[g] = 0.0f;
 #pragma unroll 4
-        for (int dd = lane; dd < c.d; dd += 32) {
-          const float kv = to_f32(kr[dd]);
-#pragma unroll
-          for (int g = 0; g < kMaxG; ++g)
-            if (g < gn) acc[g] = fmaf(q_s[g * c.d + dd], kv, acc[g]);
-        }
+      for (int dd = lane; dd < c.d; dd += 32) {
+        const float kv = to_f32(kr[dd]);
 #pragma unroll
         for (int g = 0; g < kMaxG; ++g)
-          for (int off = 16; off > 0; off >>= 1)
-            acc[g] += __shfl_xor_sync(0xffffffffu, acc[g], off);
-        if (lane == 0) {
-          const float ks = Src::kQuant ? src.kscale(t) : 1.0f;
-          const bool vis = c.window < 0 || t > len - 1 - c.window;
-          for (int g = 0; g < gn; ++g) {
-            float sc = __fmul_rn(acc[g], c.scale);
-            if (Src::kQuant) sc = __fmul_rn(sc, ks);
-            w_s[g * tile + i] = vis ? sc : -INFINITY;
-          }
+          if (g < gn) acc[g] = fmaf(q_s[g * c.d + dd], kv, acc[g]);
+      }
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g)
+        for (int off = 16; off > 0; off >>= 1)
+          acc[g] += __shfl_xor_sync(0xffffffffu, acc[g], off);
+      if (lane == 0) {
+        const float ks = Src::kQuant ? src.kscale(t) : 1.0f;
+        const bool vis = c.window < 0 || t > len - 1 - c.window;
+        for (int g = 0; g < gn; ++g) {
+          float sc = __fmul_rn(acc[g], c.scale);
+          if (Src::kQuant) sc = __fmul_rn(sc, ks);
+          w_s[g * tile + i] = vis ? sc : -INFINITY;
         }
-      } else if (lane == 0) {
-        for (int g = 0; g < gn; ++g) w_s[g * tile + i] = -INFINITY;
       }
+    } else if (lane == 0) {
+      for (int g = 0; g < gn; ++g) w_s[g * tile + i] = -INFINITY;
     }
-    __syncthreads();
-    // 2. ExtExp, n_loc = max n, w = m * 2^(n - n_loc), m_loc = sum w:
-    //    one warp per query head; the sum order is fixed.
-    for (int g = warp; g < gn; g += nwarps) {
-      float nmax = repro::kMinusInfN;
-      for (int i = lane; i < tile; i += 32) {
-        float m, n;
-        repro::ext_exp(w_s[g * tile + i], m, n);
-        w_s[g * tile + i] = m;
-        n_s[g * tile + i] = n;
-        nmax = fmaxf(nmax, n);
-      }
-      for (int off = 16; off > 0; off >>= 1)
-        nmax = fmaxf(nmax, __shfl_xor_sync(0xffffffffu, nmax, off));
-      float msum = 0.0f;
-      for (int i = lane; i < tile; i += 32) {
-        float w = __fmul_rn(w_s[g * tile + i],
-                            repro::exp2_int(__fsub_rn(n_s[g * tile + i],
-                                                      nmax)));
-        msum = __fadd_rn(msum, w);
-        // v_scale goes into the numerator AFTER m_loc (the denominator
-        // must not see it); rows past the length are never read.
-        if (Src::kQuant && i < n_valid)
-          w = __fmul_rn(w, src.vscale(base + i));
-        w_s[g * tile + i] = w;
-      }
-      for (int off = 16; off > 0; off >>= 1)
-        msum = __fadd_rn(msum, __shfl_xor_sync(0xffffffffu, msum, off));
-      if (lane == 0) { mloc_s[g] = msum; nloc_s[g] = nmax; }
-    }
-    __syncthreads();
-    // 3. o_loc = w . V (one output column per thread, positions in order)
-    //    and the exact fold into the running (o, m, n).
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int dd = tid + j * kThreads;
-      if (dd >= c.dv) continue;
-      float ol[kMaxG];
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) ol[g] = 0.0f;
-#pragma unroll 4
-      for (int i = 0; i < n_valid; ++i) {
-        const float vv = to_f32(src.vrow(base + i)[dd]);
-#pragma unroll
-        for (int g = 0; g < kMaxG; ++g)
-          if (g < gn) ol[g] = fmaf(w_s[g * tile + i], vv, ol[g]);
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g >= gn) continue;
-        const float nn = fmaxf(n_acc[g], nloc_s[g]);
-        const float a_acc = repro::exp2_int(__fsub_rn(n_acc[g], nn));
-        const float a_loc = repro::exp2_int(__fsub_rn(nloc_s[g], nn));
-        o_acc[g][j] = __fadd_rn(__fmul_rn(o_acc[g][j], a_acc),
-                                __fmul_rn(ol[g], a_loc));
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= gn) continue;
-      const float nn = fmaxf(n_acc[g], nloc_s[g]);
-      m_acc[g] = __fadd_rn(
-          __fmul_rn(m_acc[g], repro::exp2_int(__fsub_rn(n_acc[g], nn))),
-          __fmul_rn(mloc_s[g], repro::exp2_int(__fsub_rn(nloc_s[g], nn))));
-      n_acc[g] = nn;
-    }
-    __syncthreads();  // w_s / mloc_s are rewritten by the next tile
   }
-
-  // Normalise.  A free slot (length 0) has m = 0: the max() guard gives
-  // exact zeros, never NaN.
-  QT* o = static_cast<QT*>(c.o) +
-          ((static_cast<int64_t>(s) * c.hkv + h) * c.g + g0) * c.dv;
+  __syncthreads();
+  // 2. ExtExp, n_loc = max n, w = m * 2^(n - n_loc), m_loc = sum w:
+  //    one warp per query head; the sum order is fixed.
+  for (int g = warp; g < gn; g += kWarps) {
+    float nmax = repro::kMinusInfN;
+    for (int i = lane; i < tile; i += 32) {
+      float m, n;
+      repro::ext_exp(w_s[g * tile + i], m, n);
+      w_s[g * tile + i] = m;
+      n_s[g * tile + i] = n;
+      nmax = fmaxf(nmax, n);
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      nmax = fmaxf(nmax, __shfl_xor_sync(0xffffffffu, nmax, off));
+    float msum = 0.0f;
+    for (int i = lane; i < tile; i += 32) {
+      float w = __fmul_rn(w_s[g * tile + i],
+                          repro::exp2_int(__fsub_rn(n_s[g * tile + i],
+                                                    nmax)));
+      msum = __fadd_rn(msum, w);
+      // v_scale goes into the numerator AFTER m_loc (the denominator
+      // must not see it); rows past the length are never read.
+      if (Src::kQuant && i < n_valid)
+        w = __fmul_rn(w, src.vscale(base + i));
+      w_s[g * tile + i] = w;
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      msum = __fadd_rn(msum, __shfl_xor_sync(0xffffffffu, msum, off));
+    if (lane == 0) { mloc_s[g] = msum; nloc_s[g] = nmax; }
+  }
+  __syncthreads();
+  // 3. o_loc = w . V (one output column per thread, positions in order).
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int dd = tid + j * kThreads;
     if (dd >= c.dv) continue;
+    float ol[kMaxG];
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) ol[g] = 0.0f;
+#pragma unroll 4
+    for (int i = 0; i < n_valid; ++i) {
+      const float vv = to_f32(src.vrow(base + i)[dd]);
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g)
+        if (g < gn) ol[g] = fmaf(w_s[g * tile + i], vv, ol[g]);
+    }
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g)
-      if (g < gn)
-        store(o + g * c.dv + dd,
-              __fdiv_rn(o_acc[g][j], fmaxf(m_acc[g], 1e-37f)));
+      if (g < gn) part_row(c, s, h, g0 + g)[dd] = ol[g];
+  }
+  if (tid < gn) {
+    float* p = part_row(c, s, h, g0 + tid);
+    p[c.dv] = mloc_s[tid];
+    p[c.dv + 1] = nloc_s[tid];
   }
 }
 
-__device__ __forceinline__ void block_coords(const Common& c, int& s, int& h,
-                                             int& g0, int& gn) {
-  s = blockIdx.x / c.hkv;
-  h = blockIdx.x % c.hkv;
-  g0 = blockIdx.y * kMaxG;
-  gn = min(kMaxG, c.g - g0);
+// ---------------------------------------------------------------------------
+// The bf16 body: the same tile's partial, with 16-byte row loads and the
+// accumulators in registers.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void bf16x8(const uint4& u, float* f) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
-template <typename QT, typename KT>
+template <int GM, typename Src>
+__device__ void tile_bf16(const Common& c, const Src& src, int s, int h,
+                          int g0, int gn, int base) {
+  __shared__ float o_s[kWarps][GM][kMaxD];
+  __shared__ float m_s[kWarps][GM], n_s[kWarps][GM];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int len = c.lengths[s];
+  const int lpr = c.lpr;                 // lanes a row: 1, 2, ..., 32
+  const int rows = 32 / lpr;             // rows a warp load covers
+  const int grp = lane / lpr, col = (lane % lpr) * 8;
+  const bool kcol = col < c.d, vcol = col < c.dv;
+  const int n_valid = min(c.tile, len - base);
+
+  // this lane's 8 columns of each query head, in float32
+  float qr[GM][8];
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(c.q) +
+                           ((static_cast<int64_t>(s) * c.hkv + h) * c.g +
+                            g0) * c.d + col;
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      qr[g][j] = (g < gn && kcol) ? __bfloat162float(q[g * c.d + j]) : 0.0f;
+
+  // Online (m, n) fold of this warp's positions.  n_run is the same in
+  // every lane of the warp (a butterfly max); m_run and o sum the lane
+  // group's own positions until the end.
+  float o[GM][8], m_run[GM], n_run[GM];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[g][j] = 0.0f;
+    m_run[g] = 0.0f;
+    n_run[g] = repro::kMinusInfN;
+  }
+  const int step = kWarps * rows;        // positions one load of all warps
+  for (int i0 = warp * rows; i0 < n_valid; i0 += kBatch * step) {
+    // every K and V load of the batch is issued before any is used; rows
+    // past the length or outside the window are not read (zeros, w = 0)
+    uint4 kr[kBatch], vr[kBatch];
+    bool live[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = i0 + b * step + grp, t = base + i;
+      live[b] = i < n_valid && (c.window < 0 || t > len - 1 - c.window);
+      kr[b] = vr[b] = make_uint4(0, 0, 0, 0);
+      if (live[b] && kcol)
+        kr[b] = __ldg(reinterpret_cast<const uint4*>(src.krow(t) + col));
+      if (live[b] && vcol)
+        vr[b] = __ldg(reinterpret_cast<const uint4*>(src.vrow(t) + col));
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (i0 + b * step >= n_valid) break;   // warp-uniform
+      float kf[8], vf[8];
+      bf16x8(kr[b], kf);
+      bf16x8(vr[b], vf);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g >= gn) continue;
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc = fmaf(qr[g][j], kf[j], acc);
+        for (int off = lpr >> 1; off > 0; off >>= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        const float sc = live[b] ? __fmul_rn(acc, c.scale) : -INFINITY;
+        float m, n;
+        repro::ext_exp(sc, m, n);
+        float nb = n;
+        for (int off = lpr; off < 32; off <<= 1)
+          nb = fmaxf(nb, __shfl_xor_sync(0xffffffffu, nb, off));
+        if (nb > n_run[g]) {                 // warp-uniform; exact rescale
+          const float a = repro::exp2_int(__fsub_rn(n_run[g], nb));
+          m_run[g] = __fmul_rn(m_run[g], a);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) o[g][j] = __fmul_rn(o[g][j], a);
+          n_run[g] = nb;
+        }
+        const float w =
+            __fmul_rn(m, repro::exp2_int(__fsub_rn(n, n_run[g])));
+        m_run[g] = __fadd_rn(m_run[g], w);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) o[g][j] = fmaf(w, vf[j], o[g][j]);
+      }
+    }
+  }
+  // the lane groups of a warp share n_run: their sums add as they are
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+    for (int off = lpr; off < 32; off <<= 1) {
+      m_run[g] = __fadd_rn(m_run[g],
+                           __shfl_xor_sync(0xffffffffu, m_run[g], off));
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        o[g][j] = __fadd_rn(o[g][j],
+                            __shfl_xor_sync(0xffffffffu, o[g][j], off));
+    }
+  if (grp == 0 && vcol) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o_s[warp][g][col + j] = o[g][j];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      m_s[warp][g] = m_run[g];
+      n_s[warp][g] = n_run[g];
+    }
+  }
+  __syncthreads();
+  // the warps' partials, folded in warp order with exact rescales
+  for (int idx = tid; idx < gn * (c.dv + 1); idx += kThreads) {
+    const int g = idx / (c.dv + 1), dd = idx % (c.dv + 1);
+    float nt = n_s[0][g];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) nt = fmaxf(nt, n_s[w][g]);
+    float acc = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      acc = __fadd_rn(acc, __fmul_rn(dd < c.dv ? o_s[w][g][dd] : m_s[w][g],
+                                     repro::exp2_int(
+                                         __fsub_rn(n_s[w][g], nt))));
+    float* p = part_row(c, s, h, g0 + g);
+    p[dd] = acc;                         // o_loc, then m_loc at Dv
+    if (dd == c.dv) p[c.dv + 1] = nt;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernels.
+// ---------------------------------------------------------------------------
+template <typename QT, typename KT, typename Src>
 __global__ void __launch_bounds__(kThreads)
-    contig_kernel(Common c, StripSrc<KT> src) {
-  int s, h, g0, gn;
-  block_coords(c, s, h, g0, gn);
+    decode_tile(Common c, Src src) {
+  int s, h, g0, gn, base;
+  if (!tile_coords(c, kMaxG, s, h, g0, gn, base)) return;
   src.s = s;
   src.h = h;
-  decode_block<QT, KT>(c, src, s, h, g0, gn);
+  tile_general<QT, KT>(c, src, s, h, g0, gn, base);
 }
 
-template <typename QT, typename KT, bool Q>
+template <int GM, typename Src>
 __global__ void __launch_bounds__(kThreads)
-    paged_kernel(Common c, PagedSrc<KT, Q> src) {
-  int s, h, g0, gn;
-  block_coords(c, s, h, g0, gn);
+    decode_tile_bf16(Common c, Src src) {
+  int s, h, g0, gn, base;
+  if (!tile_coords(c, GM, s, h, g0, gn, base)) return;
   src.s = s;
   src.h = h;
-  decode_block<QT, KT>(c, src, s, h, g0, gn);
+  tile_bf16<GM>(c, src, s, h, g0, gn, base);
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8.
-template <typename QT, typename KT>
-void launch_contig(const Common& c, dim3 grid, cudaStream_t st,
-                   const void* k, const void* v, int64_t ks_s, int64_t ks_h,
-                   int64_t ks_t, int64_t vs_s, int64_t vs_h, int64_t vs_t) {
-  StripSrc<KT> src{static_cast<const KT*>(k), static_cast<const KT*>(v),
-                   ks_s, ks_h, ks_t, vs_s, vs_h, vs_t, 0, 0};
-  contig_kernel<QT, KT><<<grid, kThreads, 0, st>>>(c, src);
+// Fold the live tiles of one (slot, KV head, query head) in tile order --
+// the former per-slot loop's arithmetic, operation by operation -- and
+// normalise.  A free slot (length 0) has m = 0: the max() guard gives
+// exact zeros, never NaN.
+template <typename QT>
+__global__ void __launch_bounds__(kThreads) decode_combine(Common c) {
+  const int s = blockIdx.x / c.hkv, h = blockIdx.x % c.hkv, gq = blockIdx.y;
+  const int len = c.lengths[s];
+  const int j0 = first_tile_base(c, len) / c.tile;
+  const int j1 = (len + c.tile - 1) / c.tile;
+  const int64_t row = static_cast<int64_t>(s * c.hkv + h) * c.g + gq;
+  const float* part = c.part + row * c.n_split * (c.dv + 2);
+  QT* o = static_cast<QT*>(c.o) + row * c.dv;
+  for (int dd = threadIdx.x; dd < c.dv; dd += kThreads) {
+    float o_acc = 0.0f, m_acc = 0.0f, n_acc = repro::kMinusInfN;
+#pragma unroll 4
+    for (int j = j0; j < j1; ++j) {
+      const float* p = part + static_cast<int64_t>(j) * (c.dv + 2);
+      const float ol = p[dd], ml = p[c.dv], nl = p[c.dv + 1];
+      const float nn = fmaxf(n_acc, nl);
+      const float a_acc = repro::exp2_int(__fsub_rn(n_acc, nn));
+      const float a_loc = repro::exp2_int(__fsub_rn(nl, nn));
+      o_acc = __fadd_rn(__fmul_rn(o_acc, a_acc), __fmul_rn(ol, a_loc));
+      m_acc = __fadd_rn(__fmul_rn(m_acc, a_acc), __fmul_rn(ml, a_loc));
+      n_acc = nn;
+    }
+    store(o + dd, __fdiv_rn(o_acc, fmaxf(m_acc, 1e-37f)));
+  }
 }
 
-template <typename QT, typename KT, bool Q>
-void launch_paged(const Common& c, dim3 grid, cudaStream_t st,
-                  const void* k, const void* v, const int* table,
-                  const float* ksc, const float* vsc, const int64_t* str,
-                  int pmax, int ps) {
-  PagedSrc<KT, Q> src{static_cast<const KT*>(k), static_cast<const KT*>(v),
-                      table, ksc, vsc,
-                      str[0], str[1], str[2], str[3], str[4], str[5],
-                      str[6], str[7], str[8], pmax, ps, 0, 0};
-  paged_kernel<QT, KT, Q><<<grid, kThreads, 0, st>>>(c, src);
+// bf16 body for GM query heads a block, GM in [1, kMaxG].
+template <int GM, typename Src>
+void launch_bf16(const Common& c, dim3 grid, cudaStream_t st,
+                 const Src& src) {
+  if constexpr (GM > 1) {
+    if (c.gm < GM) return launch_bf16<GM - 1>(c, grid, st, src);
+  }
+  decode_tile_bf16<GM, Src><<<grid, kThreads, 0, st>>>(c, src);
+}
+
+// The tile kernel, then the combine on the same stream.
+// The bf16 body spreads the query heads evenly over ceil(G / 8) blocks
+// (G 10: two of 5), so its registers hold no idle head.
+template <typename QT, typename KT, typename Src>
+int launch(Common c, int slots, int body, cudaStream_t st, const Src& src) {
+  const int groups = (c.g + kMaxG - 1) / kMaxG;
+  c.gm = body == 1 ? (c.g + groups - 1) / groups : kMaxG;
+  c.lpr = 1;
+  while (c.lpr * 8 < max(c.d, c.dv)) c.lpr <<= 1;
+  dim3 grid(slots * c.hkv, c.n_split, (c.g + c.gm - 1) / c.gm);
+  if constexpr (std::is_same_v<KT, __nv_bfloat16> && !Src::kQuant) {
+    if (body == 1)
+      launch_bf16<kMaxG>(c, grid, st, src);
+    else
+      decode_tile<QT, KT, Src><<<grid, kThreads, 0, st>>>(c, src);
+  } else {
+    decode_tile<QT, KT, Src><<<grid, kThreads, 0, st>>>(c, src);
+  }
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  decode_combine<QT><<<dim3(slots * c.hkv, c.g), kThreads, 0, st>>>(c);
+  return static_cast<int>(cudaGetLastError());
 }
 
 bool shape_ok(const Common& c) {
   return c.d > 0 && c.d <= kMaxD && c.dv > 0 && c.dv <= 2 * kThreads &&
-         c.tile > 0 && c.tile <= kMaxTile && c.g > 0;
+         c.tile > 0 && c.tile <= kMaxTile && c.g > 0 && c.n_split > 0 &&
+         c.n_split <= 65535 && c.part != nullptr;
 }
+
+// The bf16 body's conditions (its dtypes are checked by the caller): D and
+// Dv multiples of 8 and every K / V row 16-byte aligned.
+bool bf16_rows_ok(const Common& c, const void* k, const void* v,
+                  const int64_t* strides, int n) {
+  if (c.d % 8 != 0 || c.dv % 8 != 0) return false;
+  if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
+    return false;
+  for (int i = 0; i < n; ++i)
+    if (strides[i] % 8 != 0) return false;
+  return true;
+}
+
+constexpr int kBad = static_cast<int>(cudaErrorInvalidValue);
 
 }  // namespace
 
@@ -318,27 +526,36 @@ const char* repro_cuda_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// k/v strides in elements for the (slot, head, position) axes.
+// k/v strides in elements for the (slot, head, position) axes.  part: the
+// float32 scratch [S, Hkv, G, n_split, Dv + 2]; body 1 = tile_bf16 (bf16
+// only), 0 = tile_general.
 int decode_attention_contig(const void* q, const void* k, const void* v,
-                            const int* lengths, void* o, int slots, int hkv,
-                            int g, int d, int dv, int tile, int window,
-                            float scale, int q_dtype, int kv_dtype,
+                            const int* lengths, void* o, void* part,
+                            int slots, int hkv, int g, int d, int dv,
+                            int tile, int n_split, int window, float scale,
+                            int q_dtype, int kv_dtype, int body,
                             int64_t ks_s, int64_t ks_h, int64_t ks_t,
                             int64_t vs_s, int64_t vs_h, int64_t vs_t,
                             void* stream) {
-  Common c{q, o, lengths, hkv, g, d, dv, tile, window, scale};
-  if (!shape_ok(c)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(slots * hkv, (g + kMaxG - 1) / kMaxG);
+  Common c{q, o, lengths, static_cast<float*>(part), hkv, g, d, dv, tile,
+           window, n_split, 0, 0, scale};
+  if (!shape_ok(c)) return kBad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 1 && kv_dtype == 1)
-    launch_contig<__nv_bfloat16, __nv_bfloat16>(c, grid, st, k, v, ks_s,
-                                                ks_h, ks_t, vs_s, vs_h, vs_t);
-  else if (q_dtype == 0 && kv_dtype == 0)
-    launch_contig<float, float>(c, grid, st, k, v, ks_s, ks_h, ks_t, vs_s,
-                                vs_h, vs_t);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t strides[6] = {ks_s, ks_h, ks_t, vs_s, vs_h, vs_t};
+  if (q_dtype == 1 && kv_dtype == 1) {
+    if (body == 1 && !bf16_rows_ok(c, k, v, strides, 6)) return kBad;
+    using T = __nv_bfloat16;
+    StripSrc<T> src{static_cast<const T*>(k), static_cast<const T*>(v),
+                    ks_s, ks_h, ks_t, vs_s, vs_h, vs_t, 0, 0};
+    return launch<T, T>(c, slots, body, st, src);
+  }
+  if (q_dtype == 0 && kv_dtype == 0 && body == 0) {
+    StripSrc<float> src{static_cast<const float*>(k),
+                        static_cast<const float*>(v),
+                        ks_s, ks_h, ks_t, vs_s, vs_h, vs_t, 0, 0};
+    return launch<float, float>(c, slots, body, st, src);
+  }
+  return kBad;
 }
 
 // Strides in elements: k (page, pos, head), v (page, pos, head), scales
@@ -346,38 +563,52 @@ int decode_attention_contig(const void* q, const void* k, const void* v,
 int decode_attention_paged(const void* q, const void* k_pages,
                            const void* v_pages, const int* table,
                            const int* lengths, const float* k_scale,
-                           const float* v_scale, void* o, int slots,
-                           int hkv, int g, int d, int dv, int pmax, int ps,
-                           int tile, int window, float scale, int q_dtype,
-                           int kv_dtype, int64_t ks_p, int64_t ks_t,
-                           int64_t ks_h, int64_t vs_p, int64_t vs_t,
-                           int64_t vs_h, int64_t sc_p, int64_t sc_t,
-                           int64_t sc_h, void* stream) {
-  const int64_t strides[9] = {ks_p, ks_t, ks_h, vs_p, vs_t,
-                              vs_h, sc_p, sc_t, sc_h};
-  Common c{q, o, lengths, hkv, g, d, dv, tile, window, scale};
-  if (!shape_ok(c) || ps <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(slots * hkv, (g + kMaxG - 1) / kMaxG);
+                           const float* v_scale, void* o, void* part,
+                           int slots, int hkv, int g, int d, int dv,
+                           int pmax, int ps, int tile, int n_split,
+                           int window, float scale, int q_dtype,
+                           int kv_dtype, int body, int64_t ks_p,
+                           int64_t ks_t, int64_t ks_h, int64_t vs_p,
+                           int64_t vs_t, int64_t vs_h, int64_t sc_p,
+                           int64_t sc_t, int64_t sc_h, void* stream) {
+  const int64_t str[9] = {ks_p, ks_t, ks_h, vs_p, vs_t,
+                          vs_h, sc_p, sc_t, sc_h};
+  Common c{q, o, lengths, static_cast<float*>(part), hkv, g, d, dv, tile,
+           window, n_split, 0, 0, scale};
+  if (!shape_ok(c) || ps <= 0) return kBad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool quant = k_scale != nullptr;
-  if (kv_dtype == 2 && !quant) return static_cast<int>(cudaErrorInvalidValue);
-  if (q_dtype == 1 && kv_dtype == 1)
-    launch_paged<__nv_bfloat16, __nv_bfloat16, false>(
-        c, grid, st, k_pages, v_pages, table, k_scale, v_scale, strides,
-        pmax, ps);
-  else if (q_dtype == 0 && kv_dtype == 0)
-    launch_paged<float, float, false>(c, grid, st, k_pages, v_pages, table,
-                                      k_scale, v_scale, strides, pmax, ps);
-  else if (q_dtype == 1 && kv_dtype == 2)
-    launch_paged<__nv_bfloat16, int8_t, true>(c, grid, st, k_pages, v_pages,
-                                              table, k_scale, v_scale,
-                                              strides, pmax, ps);
-  else if (q_dtype == 0 && kv_dtype == 2)
-    launch_paged<float, int8_t, true>(c, grid, st, k_pages, v_pages, table,
-                                      k_scale, v_scale, strides, pmax, ps);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (kv_dtype == 2 && !quant) return kBad;
+  if (body == 1 && (q_dtype != 1 || kv_dtype != 1 || quant ||
+                    !bf16_rows_ok(c, k_pages, v_pages, str, 6)))
+    return kBad;
+  if (q_dtype == 1 && kv_dtype == 1) {
+    using T = __nv_bfloat16;
+    PagedSrc<T, false> src{static_cast<const T*>(k_pages),
+                           static_cast<const T*>(v_pages), table, k_scale,
+                           v_scale, str[0], str[1], str[2], str[3], str[4],
+                           str[5], str[6], str[7], str[8], pmax, ps, 0, 0};
+    return launch<T, T>(c, slots, body, st, src);
+  }
+  if (q_dtype == 0 && kv_dtype == 0) {
+    PagedSrc<float, false> src{static_cast<const float*>(k_pages),
+                               static_cast<const float*>(v_pages), table,
+                               k_scale, v_scale, str[0], str[1], str[2],
+                               str[3], str[4], str[5], str[6], str[7],
+                               str[8], pmax, ps, 0, 0};
+    return launch<float, float>(c, slots, body, st, src);
+  }
+  if (kv_dtype == 2) {
+    PagedSrc<int8_t, true> src{static_cast<const int8_t*>(k_pages),
+                               static_cast<const int8_t*>(v_pages), table,
+                               k_scale, v_scale, str[0], str[1], str[2],
+                               str[3], str[4], str[5], str[6], str[7],
+                               str[8], pmax, ps, 0, 0};
+    if (q_dtype == 1) return launch<__nv_bfloat16, int8_t>(c, slots, body,
+                                                          st, src);
+    if (q_dtype == 0) return launch<float, int8_t>(c, slots, body, st, src);
+  }
+  return kBad;
 }
 
 }  // extern "C"

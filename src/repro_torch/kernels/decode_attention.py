@@ -7,6 +7,11 @@ with the length/window mask applied per tile and the online softmax run in
 the paper's ``(m, n)`` form: rescales are exact powers of two, so tiles --
 and therefore pages -- may be folded in any order.
 
+The kernels split the cache along its positions: one block a tile, then a
+second kernel folds the tiles' partials in tile order.  Which tile body a
+launch takes -- bf16 with 16-byte loads, or the general one -- is decided
+by :func:`kernel_body` alone.
+
 The plain versions are the torch twins of the reference's chunked forms
 (``_decode_attention_chunked`` / ``_decode_attention_paged_chunked``):
 Python-looped chunks over slots and positions with the same
@@ -175,14 +180,40 @@ def decode_attention_paged_plain(q, k_pages, v_pages, page_table, lengths,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     f = lib.decode_attention_contig
-    f.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                  ctypes.c_float, _I, _I, *[_L] * 6, _P]
+    f.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                  ctypes.c_float, _I, _I, _I, *[_L] * 6, _P]
     f.restype = _I
     f = lib.decode_attention_paged
-    f.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                  _I, _I, _I, ctypes.c_float, _I, _I, *[_L] * 9, _P]
+    f.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                  _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I,
+                  *[_L] * 9, _P]
     f.restype = _I
     return lib
+
+
+BODIES = ("general", "bf16")     # index = the C entries' ``body`` code
+
+
+def kernel_body(q_dtype, kv_dtype, d: int, dv: int, row_bytes) -> str:
+    """The tile body a launch takes (``csrc/decode_attention.cu``).
+
+    ``"bf16"`` -- 16-byte row loads, q and the accumulators in registers
+    -- for bfloat16 q and K/V with D and Dv multiples of 8 (at most 256)
+    and every K / V row 16-byte aligned: ``row_bytes`` are the K and V base
+    addresses and their row strides in bytes (:func:`_row_bytes`), all
+    multiples of 16.  ``"general"`` for everything else: float32, int8
+    pages with scales, other head dims or alignments.  This reads dtypes,
+    head dims and alignment only.  The C entry refuses a ``"bf16"`` launch
+    whose operands do not meet these conditions; nothing falls back."""
+    return "general"     # the bf16 body is built, not yet chosen
+
+
+def _row_bytes(k, v) -> tuple[int, ...]:
+    """Base addresses and strides of the three row axes, in bytes, of K and
+    V (strip [S, Hkv, T, D] or arenas [P, ps, Hkv, D])."""
+    return (k.data_ptr(), v.data_ptr(),
+            *(x * k.element_size() for x in k.stride()[:3]),
+            *(x * v.element_size() for x in v.stride()[:3]))
 
 
 def _check_cuda(what: str, q, *tensors) -> None:
@@ -200,6 +231,58 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).contiguous()
 
 
+def _scratch(q, dv: int, positions: int, tile: int) -> torch.Tensor:
+    """The tiles' partials ``[S, Hkv, G, n_split, Dv + 2]`` (o_loc, m_loc,
+    n_loc), float32; only live tiles are written and read."""
+    s, hkv, g, _ = q.shape
+    n_split = max(1, -(-positions // tile))
+    return torch.empty((s, hkv, g, n_split, dv + 2), dtype=torch.float32,
+                       device=q.device)
+
+
+def launch_contig(body: str, q, k, v, lens, o, *, tile: int,
+                  window: int | None, scale: float) -> None:
+    """One strip launch (the tile kernel of ``body`` and the combine) on
+    checked card tensors: q contiguous, lens int32, o ``[S, Hkv, G, Dv]``.
+    Counts nothing: :func:`decode_attention` counts its launches, and a
+    check may call one body alone."""
+    s, hkv, g, d = q.shape
+    dv = v.shape[3]
+    part = _scratch(q, dv, k.shape[2], tile)
+    lib = _lib()
+    rc = lib.decode_attention_contig(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+        o.data_ptr(), part.data_ptr(), s, hkv, g, d, dv, tile,
+        part.shape[3], -1 if window is None else int(window), float(scale),
+        _DTYPES[q.dtype], _DTYPES[k.dtype], BODIES.index(body),
+        *k.stride()[:3], *v.stride()[:3],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "decode_attention")
+
+
+def launch_paged(body: str, q, k_pages, v_pages, table, lens, ksp, vsp,
+                 strides, o, *, tile: int, window: int | None,
+                 scale: float) -> None:
+    """One paged launch on checked card tensors (see
+    :func:`launch_contig`); ``strides`` are the arenas' and the scales'
+    element strides as the C entry takes them."""
+    s, hkv, g, d = q.shape
+    ps, dv = k_pages.shape[1], v_pages.shape[3]
+    pmax = table.shape[1]
+    part = _scratch(q, dv, pmax * ps, tile)
+    lib = _lib()
+    rc = lib.decode_attention_paged(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        table.data_ptr(), lens.data_ptr(),
+        None if ksp is None else ksp.data_ptr(),
+        None if vsp is None else vsp.data_ptr(), o.data_ptr(),
+        part.data_ptr(), s, hkv, g, d, dv, pmax, ps, tile, part.shape[3],
+        -1 if window is None else int(window), float(scale),
+        _DTYPES[q.dtype], _DTYPES[k_pages.dtype], BODIES.index(body),
+        *strides, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, "decode_attention_paged")
+
+
 def decode_attention(q, k, v, lengths, *, scale: float,
                      window: int | None = None,
                      block_t: int = 128) -> torch.Tensor:
@@ -208,8 +291,8 @@ def decode_attention(q, k, v, lengths, *, scale: float,
     q: [S, Hkv, G, D]; k/v: [S, Hkv, T, D|Dv] (any strides over the first
     three axes, contiguous last axis -- a transposed ``[S, T, Hkv, D]``
     strip is read in place); lengths: [S] int (0 = free slot, exact
-    zeros).  The kernel folds ``block_t`` positions per tile.  Returns
-    [S, Hkv, G, Dv] in q.dtype."""
+    zeros).  The kernel folds ``block_t`` positions per tile, one tile a
+    block, then combines the tiles.  Returns [S, Hkv, G, Dv] in q.dtype."""
     s, hkv, g, d = q.shape
     t = k.shape[2]
     dv = v.shape[3]
@@ -228,16 +311,35 @@ def decode_attention(q, k, v, lengths, *, scale: float,
     o = torch.empty((s, hkv, g, dv), dtype=q.dtype, device=q.device)
     if s == 0:
         return o
-    lib = _lib()
-    rc = lib.decode_attention_contig(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        o.data_ptr(), s, hkv, g, d, dv, tile,
-        -1 if window is None else int(window), float(scale),
-        _DTYPES[q.dtype], _DTYPES[k.dtype], *k.stride()[:3], *v.stride()[:3],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, rc, "decode_attention")
+    body = kernel_body(q.dtype, k.dtype, d, dv, _row_bytes(k, v))
+    launch_contig(body, q, k, v, lens, o, tile=tile, window=window,
+                  scale=scale)
     decode_attention.launches += 1
     return o
+
+
+def _paged_operands(what, q, k_pages, v_pages, k_scale, v_scale):
+    """Check a paged call's operands; returns the scales made contiguous and
+    the element strides the C entry takes (arenas, then scales)."""
+    hkv = q.shape[1]
+    ps = k_pages.shape[1]
+    quant = k_pages.dtype == torch.int8
+    if quant != (k_scale is not None) or (k_scale is None) != (
+            v_scale is None):
+        raise ValueError(f"{what}: int8 arenas need both k_scale and "
+                         "v_scale, and only they take scales")
+    if not quant and (k_pages.dtype != q.dtype or v_pages.dtype != q.dtype):
+        raise ValueError(f"{what}: q and the arenas must share a dtype")
+    if k_pages.stride(3) != 1 or v_pages.stride(3) != 1:
+        raise ValueError(f"{what}: arenas need a contiguous last axis")
+    strides = [*k_pages.stride()[:3], *v_pages.stride()[:3], 0, 0, 0]
+    if not quant:
+        return None, None, strides
+    if k_scale.shape != v_scale.shape or k_scale.dtype != torch.float32:
+        raise ValueError(f"{what}: scales must be f32 and of one shape")
+    ksp, vsp = k_scale.contiguous(), v_scale.contiguous()
+    strides[6:] = [ps, 1, 0] if ksp.ndim == 2 else [ps * hkv, hkv, 1]
+    return ksp, vsp, strides
 
 
 def decode_attention_paged(q, k_pages, v_pages, page_table, lengths,
@@ -251,7 +353,8 @@ def decode_attention_paged(q, k_pages, v_pages, page_table, lengths,
     ``[P, ps, Hkv]``); page_table: [S, Pmax] int; lengths: [S] int.  Table
     entries backing no valid position may point anywhere: the length mask
     hides them.  The kernel folds ``pages_per_tile * ps`` positions per
-    tile (at most ``MAX_TILE``).  Returns [S, Hkv, G, Dv] in q.dtype."""
+    tile (at most ``MAX_TILE``), one tile a block, then combines the
+    tiles.  Returns [S, Hkv, G, Dv] in q.dtype."""
     s, hkv, g, d = q.shape
     ps = k_pages.shape[1]
     dv = v_pages.shape[3]
@@ -263,41 +366,17 @@ def decode_attention_paged(q, k_pages, v_pages, page_table, lengths,
             scale=scale, window=window, n_t_chunks=max(1, -(-pmax // ppt)))
     _check_cuda("decode_attention_paged", q, k_pages, v_pages, page_table,
                 lengths, k_scale, v_scale)
-    quant = k_pages.dtype == torch.int8
-    if quant != (k_scale is not None) or (k_scale is None) != (
-            v_scale is None):
-        raise ValueError("decode_attention_paged: int8 arenas need both "
-                         "k_scale and v_scale, and only they take scales")
-    if not quant and (k_pages.dtype != q.dtype or v_pages.dtype != q.dtype):
-        raise ValueError("decode_attention_paged: q and the arenas must "
-                         "share a dtype")
-    if k_pages.stride(3) != 1 or v_pages.stride(3) != 1:
-        raise ValueError("decode_attention_paged: arenas need a contiguous "
-                         "last axis")
-    strides = [*k_pages.stride()[:3], *v_pages.stride()[:3], 0, 0, 0]
-    ksp = vsp = None
-    if quant:
-        if k_scale.shape != v_scale.shape or k_scale.dtype != torch.float32:
-            raise ValueError("decode_attention_paged: scales must be f32 "
-                             "and of one shape")
-        ksp, vsp = k_scale.contiguous(), v_scale.contiguous()
-        strides[6:] = ([ps, 1, 0] if ksp.ndim == 2
-                       else [ps * hkv, hkv, 1])
+    ksp, vsp, strides = _paged_operands("decode_attention_paged", q,
+                                        k_pages, v_pages, k_scale, v_scale)
     q = q.contiguous()
     table, lens = _i32(page_table), _i32(lengths)
     o = torch.empty((s, hkv, g, dv), dtype=q.dtype, device=q.device)
     if s == 0:
         return o
-    lib = _lib()
-    rc = lib.decode_attention_paged(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        table.data_ptr(), lens.data_ptr(),
-        ksp.data_ptr() if quant else None, vsp.data_ptr() if quant else None,
-        o.data_ptr(), s, hkv, g, d, dv, pmax, ps, min(ppt * ps, MAX_TILE),
-        -1 if window is None else int(window), float(scale),
-        _DTYPES[q.dtype], _DTYPES[k_pages.dtype], *strides,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, rc, "decode_attention_paged")
+    body = kernel_body(q.dtype, k_pages.dtype, d, dv,
+                       _row_bytes(k_pages, v_pages))
+    launch_paged(body, q, k_pages, v_pages, table, lens, ksp, vsp, strides,
+                 o, tile=min(ppt * ps, MAX_TILE), window=window, scale=scale)
     decode_attention_paged.launches += 1
     return o
 
