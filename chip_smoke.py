@@ -17,7 +17,9 @@ Phases (any failure exits non-zero; nothing is caught):
    that does them, float32 or bf16 tensor cores, whichever is larger); the softmax kernels' bits do not change when a
    row is padded with -inf columns, and the two-pass kernels' bits equal
    those recorded before their fold moved into ``rowfold.cuh``; the
-   paper's comparison times the three softmax algorithms side by side,
+   decode kernels' general tile body gives the bits recorded before the
+   split-KV grid, and they are also timed at one slot of 16,384 positions;
+   the paper's comparison times the three softmax algorithms side by side,
    also at a shape whose rows in flight exceed the 50 MB L2; the fused
    LM-head cross-entropy kernels (forward, dh, dw) at one loss chunk of the
    train phase and at a ragged shape, within float32 accumulation limits
@@ -99,6 +101,11 @@ XENT_BWD_OPS = 31          # pass 2 (28) + the one-hot, subtract, scale
 # 74bac5d); the move must change no bit.
 TWOPASS_DIGEST = ("a70341be27101df64373f32d0bd805d7"
                   "cfedd171cb181f04eb8442d31de3af6e")
+# sha256 of the decode kernels' outputs through the general tile body on
+# decode_digest's inputs, as the one-block-per-slot kernels gave them
+# before the split-KV grid (commit 5b92b8c): the split must change no bit.
+DECODE_DIGEST = ("f8030f5dd4e4c81d538c1e1a32c501bd"
+                 "903d4cf5315f7a115aa8a04772986fb1")
 ARCH = "qwen2.5-14b"
 MAX_LEN = 1664             # 13 pages of 128: prompts up to 1500 + 32 new
 N_SLOTS = 8
@@ -134,6 +141,36 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """Median device time of ``fn`` captured once in a CUDA graph and
+    replayed ``iters`` times, each after an L2 flush as in :func:`cuda_ms`.
+    The host's cost of the call (checks, ctypes, allocation) is left out:
+    the decode kernels run in less time than their wrapper takes on the
+    host, so :func:`cuda_ms` would time the host."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    del graph
     return statistics.median(times)
 
 
@@ -963,12 +1000,21 @@ def kernel_phase(torch, rng):
         cases += [(f"int8_{gran}_bf16q", kw, bf16_tol),
                   (f"int8_{gran}_f32q", dict(kw, qq=qf), f32_tol)]
 
+    def body(kw, strip=False):
+        """The tile body the wrapper's kernel_body picks for a case."""
+        kk, vv = kw.get("kk", kp), kw.get("vv", vp)
+        if strip:
+            kk, vv = kk.transpose(1, 2), vv.transpose(1, 2)
+        return da.kernel_body(kw.get("qq", q).dtype, kk.dtype, d, d,
+                              da._row_bytes(kk, vv))
+
     for name, kw, tol in cases:
         got = paged(**kw)
         torch.cuda.synchronize()
         r = held(got, paged_plain(**kw), tol, f"decode_attention_paged {name}")
         check(bool((got[3] == 0).all()), f"paged {name}: free slot not 0")
-        say("kernel_check", kernel="decode_attention_paged", case=name, **r)
+        say("kernel_check", kernel="decode_attention_paged", case=name,
+            body=body(kw), **r)
     ksf, vsf = ks.float(), vs.float()
     for name, kw, tol in cases[:4]:
         ckw = dict(kw, kk=ksf, vv=vsf) if "kk" in kw else kw
@@ -977,9 +1023,18 @@ def kernel_phase(torch, rng):
         r = held(got, contig_plain(**ckw), tol, f"decode_attention {name}")
         check(torch.equal(got, paged(**kw)),
               f"decode_attention {name}: strip != paged bits")
-        say("kernel_check", kernel="decode_attention", case=name, **r,
-            strip_equals_paged_bitwise=True)
+        say("kernel_check", kernel="decode_attention", case=name,
+            body=body(ckw, strip=True), **r, strip_equals_paged_bitwise=True)
     del qf, kf, vf, ksf, vsf
+
+    # the general body (float32, int8, and bf16 when asked) keeps the bits
+    # of the kernels before the split-KV grid
+    digest = decode_digest(torch, da)
+    check(digest == DECODE_DIGEST,
+          f"decode bits changed: {digest} != {DECODE_DIGEST}")
+    say("kernel_check", kernel="decode_attention_paged+decode_attention",
+        case="general body: bits as before the split-KV grid",
+        sha256=digest, equal=True)
 
     a_p, _ = err(paged(), paged_plain())
     a_c, _ = err(contig(), contig_plain())
@@ -988,18 +1043,66 @@ def kernel_phase(torch, rng):
     q_l = q.reshape(s, hkv * g, 1, d)
     k_l, v_l = ks.transpose(1, 2), vs.transpose(1, 2)
     b_ms, b_by = bound(kv_bytes + io_bytes, dec_ops)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q_l, k_l, v_l, attn_mask=mask,
+                                              enable_gqa=True)
+
+    # ms / library_ms: device time (CUDA-graph replay); eager_ms: a launch
+    # timed as every other kernel is, host included
     rows["decode_attention_paged"] = {"main": dict(
-        ms=cuda_ms(torch, paged), plain_ms=cuda_ms(torch, paged_plain, 5),
+        ms=graph_ms(torch, paged), eager_ms=cuda_ms(torch, paged),
+        plain_ms=cuda_ms(torch, paged_plain, 5),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=a_p,
         shape=dict(q=list(q.shape), pages=list(kp.shape), pmax=pmax,
                    lengths=lengths.tolist()))}
     rows["decode_attention"] = {"main": dict(
-        ms=cuda_ms(torch, contig), plain_ms=cuda_ms(torch, contig_plain, 5),
-        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q_l, k_l, v_l, attn_mask=mask, enable_gqa=True)),
+        ms=graph_ms(torch, contig), eager_ms=cuda_ms(torch, contig),
+        plain_ms=cuda_ms(torch, contig_plain, 5),
+        library_ms=graph_ms(torch, sdpa),
+        library_eager_ms=cuda_ms(torch, sdpa),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=a_c,
         shape=dict(q=list(q.shape), k=list(k_l.shape),
                    lengths=lengths.tolist()))}
+    del q_l, k_l, v_l, mask, ks, vs
+
+    # one slot of 16,384 positions: 128 tiles, the split axis alone
+    tl = 16384
+    pl = tl // ps
+    q1 = torch.randn((1, hkv, g, d), device=dev).to(bf)
+    kp1, vp1 = (torch.randn((1 + pl, ps, hkv, d), device=dev).to(bf)
+                for _ in "kv")
+    tab1 = torch.arange(1, 1 + pl, dtype=torch.int32, device=dev)[None]
+    len1 = torch.tensor([tl], dtype=torch.int32, device=dev)
+    k1, v1 = (x[tab1.long()].reshape(1, tl, hkv, d).transpose(1, 2)
+              for x in (kp1, vp1))
+    b1 = bound(tl * hkv * 2 * d * 2 + 2 * q1.numel() * 2 + pl * 4 + 4,
+               tl * hkv * g * (4 * d + 20))
+    for name, fn, plain in (
+            ("decode_attention_paged",
+             lambda: da.decode_attention_paged(q1, kp1, vp1, tab1, len1,
+                                               scale=sc),
+             lambda: da.decode_attention_paged_plain(
+                 q1, kp1, vp1, tab1, len1, scale=sc, n_t_chunks=pl)),
+            ("decode_attention",
+             lambda: da.decode_attention(q1, k1, v1, len1, scale=sc,
+                                         block_t=ps),
+             lambda: da.decode_attention_plain(q1, k1, v1, len1, scale=sc,
+                                               n_t_chunks=pl))):
+        got = fn()
+        torch.cuda.synchronize()
+        r = held(got, plain(), bf16_tol, f"{name} long slot")
+        say("kernel_check", kernel=name, case="long_slot_16384",
+            body=da.kernel_body(bf, bf, d, d, da._row_bytes(kp1, vp1)), **r)
+        rows[name]["long_slot_16384"] = dict(
+            ms=graph_ms(torch, fn), eager_ms=cuda_ms(torch, fn),
+            plain_ms=cuda_ms(torch, plain, 5),
+            library_ms=graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                q1.reshape(1, hkv * g, 1, d), k1, v1, enable_gqa=True)),
+            bound_ms=b1[0], bound_by=b1[1], max_abs_err=r["max_abs_err"],
+            shape=dict(q=list(q1.shape), pages=list(kp1.shape),
+                       lengths=[tl]))
+    del q1, kp1, vp1, k1, v1
     for name, by_case in rows.items():
         for case, r in by_case.items():
             say("kernel_time", kernel=name, case=case,

@@ -25,6 +25,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -50,6 +51,40 @@ def ms(torch, fn, iters: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_us(torch, fn, iters: int = 200) -> float:
+    """Host microseconds a call, back to back (the device keeps up)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return host / iters * 1e6
+
+
+def kernel_us(torch, fn, iters: int = 10) -> dict[str, float]:
+    """Device microseconds a call of each kernel ``fn`` launches (the
+    profiler's CUDA time), after an L2 flush each call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if any(x in e.key for x in ("decode", "attention", "fmha", "gemm")):
+            name = (e.key.replace("(anonymous namespace)::", "")
+                    .removeprefix("void ").split("(")[0])
+            out[name] = round(e.self_device_time_total / iters, 2)
+    return out
 
 
 def shapes(torch, rng):
@@ -131,19 +166,27 @@ def main() -> int:
                 da.kernel_body = lambda *a, _b=body: _b
             chosen = (chooser(q.dtype, kp.dtype, d, d, da._row_bytes(kp, vp))
                       if body is None and chooser else body)
-            paged = ms(torch, lambda: da.decode_attention_paged(
-                q, kp, vp, tab, lens, scale=sc, pages_per_tile=1))
-            strip = ms(torch, lambda: da.decode_attention(
-                q, ks, vs, lens, scale=sc, block_t=128))
+            fns = {"paged": lambda: da.decode_attention_paged(
+                       q, kp, vp, tab, lens, scale=sc, pages_per_tile=1),
+                   "strip": lambda: da.decode_attention(
+                       q, ks, vs, lens, scale=sc, block_t=128)}
+            for kind, fn in fns.items():
+                print(f"  body {chosen or 'the only one'}, {kind}: eager ms "
+                      f"{ms(torch, fn):.4f}, graph ms "
+                      f"{chip_smoke.graph_ms(torch, fn):.4f}, host us a call "
+                      f"{host_us(torch, fn):.1f}, kernels us "
+                      f"{kernel_us(torch, fn)}", flush=True)
             da.kernel_body = chooser
-            print(f"  body {chosen or 'the only one'}: paged ms {paged:.4f}, "
-                  f"strip ms {strip:.4f}", flush=True)
-        lib = ms(torch, lambda: F.scaled_dot_product_attention(
-            ql, ks, vs, attn_mask=mask, enable_gqa=True))
+
+        def lib():
+            return F.scaled_dot_product_attention(ql, ks, vs, attn_mask=mask,
+                                                  enable_gqa=True)
+
         kv_bytes = int(lens.sum()) * hkv * 2 * d * 2
-        print(f"  scaled_dot_product_attention ms {lib:.4f}; bytes bound "
-              f"ms {kv_bytes / chip_smoke.HBM_BYTES_S * 1e3:.4f}",
-              flush=True)
+        print(f"  scaled_dot_product_attention: eager ms {ms(torch, lib):.4f},"
+              f" graph ms {chip_smoke.graph_ms(torch, lib):.4f}, kernels us "
+              f"{kernel_us(torch, lib)}; bytes bound ms "
+              f"{kv_bytes / chip_smoke.HBM_BYTES_S * 1e3:.4f}", flush=True)
     return 0
 
 

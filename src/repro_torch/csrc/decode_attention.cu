@@ -8,33 +8,40 @@
 //                              (_contig_kernel + _mn_fold_tile)
 //
 // Bound on this card: bytes.  Each (slot, KV head) reads its K and V rows
-// once, about G = 5 multiply-adds per byte read, far below the ~295
-// operations per byte where an H100 stops being memory-bound.  At 8 slots
-// and 8 KV heads there are only 64 (slot, KV head) pairs for 132 SMs, so
-// the work is split along the cache (split-KV):
+// once, ~2.5 multiply-adds per byte read (G = 5 query heads share a KV
+// head), far below the ~295 operations per byte where an H100 stops being
+// memory-bound.  At 8 slots and 8 KV heads there are only 64 (slot, KV
+// head) pairs for 132 SMs, so the work is split along the cache (split-KV):
 //   * grid (slots * Hkv, ceil(T_max / tile), query-head groups): one block
-//     folds ONE tile of `tile` positions of one (slot, KV head) for up to 8
-//     query heads (the G heads that share a KV head read its rows once) and
-//     writes the tile's partial (o_loc[Dv], m_loc, n_loc) to a float32
-//     scratch [S, Hkv, G, n_split, Dv + 2].  A block whose tile lies past
-//     the slot's length, or before the window's first tile, returns at
-//     once: the TPU kernel sweeps every tile of the table, but a tile past
-//     the length adds exactly zero to the fold, so skipping it changes no
-//     bit and saves its bytes.  Rows past the length are never read;
+//     folds ONE tile of `tile` positions of one (slot, KV head) for its
+//     query heads (they read the KV head's rows once) and writes the tile's
+//     partial (o_loc[Dv], m_loc, n_loc) to a float32 scratch
+//     [S, Hkv, G, n_split, Dv + 2].  A block whose tile lies past the
+//     slot's length, or before the window's first tile, returns at once:
+//     the TPU kernel sweeps every tile of the table, but a tile past the
+//     length adds exactly zero to the fold, so skipping it changes no bit
+//     and saves its bytes.  Rows past the length are never read;
 //   * a second kernel, launched by the same C entry on the same stream,
 //     folds each (slot, KV head, query head)'s live tiles IN TILE ORDER with
-//     the exact (m, n) rescales (powers of two), then normalises.  With the
-//     general body below this repeats the former one-block-per-slot loop
-//     operation by operation, so its bits are those of that loop.
+//     the exact (m, n) rescales (powers of two), then normalises; it keeps
+//     16 tiles' partials in flight ahead of the fold.  The general body's
+//     partials are those of a sequential loop over the tiles, and the
+//     combine is that loop's fold, so its outputs do not depend on the
+//     split (chip_smoke.py pins their bits: DECODE_DIGEST).
 // Two tile bodies:
 //   * tile_bf16 (bf16 q and K/V, D and Dv multiples of 8, 16-byte aligned
-//     rows): a group of lanes covers one row, each lane 8 columns with one
-//     16-byte load, so a warp reads 32 / lanes-per-row rows a load; each warp
-//     issues its K and V loads a batch ahead, keeps q and o[G][8] in
-//     float32 registers and runs an online (m, n) fold of its own positions
-//     with no barrier; the four warps' (o, m, n) are folded once, in a fixed
-//     order, through shared memory.  ~2.5 FMA per byte: float32 FMA keeps
-//     up with the memory rate, so no tensor cores are needed;
+//     rows): a group of LPR >= 8 lanes covers one row, each lane 8 columns
+//     with one 16-byte load, so a warp reads 32 / LPR rows a load.  Each
+//     warp issues 4 rows' K and V loads before using any, keeps q and
+//     o[G][8] in float32 registers (float32 FMA keeps up with the memory
+//     rate: no tensor cores needed) and runs an online (m, n) fold of its
+//     own positions with no barrier.  The group's partial dot products are
+//     reduce-scattered so that one lane owns each query head's score: that
+//     lane alone runs ExtExp and the head's (m, n) state, and hands its
+//     weight to the group by a shuffle.  The four warps' (o, m, n) are
+//     folded once, in warp order, through shared memory.  What bounds it
+//     now is latency, not bytes: a block's warps wait out 4 round trips to
+//     memory each, at 3 blocks an SM (~150 registers);
 //   * tile_general (float32, int8 pages with scales, and what tile_bf16
 //     does not take): one warp per position scores through shared memory,
 //     ExtExp and the fold by query head, then w . V one column a thread;
@@ -61,6 +68,7 @@ constexpr int kMaxG = 8;       // query heads per block (grid.z covers more)
 constexpr int kMaxTile = 256;  // KV positions per tile
 constexpr int kMaxD = 256;     // head dim (<= 2 per thread for the output)
 constexpr int kBatch = 4;      // bf16 body: row loads in flight per lane
+constexpr int kAhead = 16;     // combine: tiles' partials in flight
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -98,6 +106,10 @@ struct StripSrc {
   __device__ const KT* vrow(int t) const {
     return v + s * vs_s + h * vs_h + t * vs_t;
   }
+  __device__ void rows(int t, const KT*& kr, const KT*& vr) const {
+    kr = krow(t);
+    vr = vrow(t);
+  }
   __device__ float kscale(int) const { return 1.0f; }
   __device__ float vscale(int) const { return 1.0f; }
   static constexpr bool kQuant = false;
@@ -122,6 +134,12 @@ struct PagedSrc {
   __device__ const KT* vrow(int t) const {
     return v + page(t) * vs_p + (t % ps) * vs_t + h * vs_h;
   }
+  // both rows of position t from one table read
+  __device__ void rows(int t, const KT*& kr, const KT*& vr) const {
+    const int64_t p = table[s * pmax + t / ps], r = t % ps;
+    kr = k + p * ks_p + r * ks_t + h * ks_h;
+    vr = v + p * vs_p + r * vs_t + h * vs_h;
+  }
   __device__ float kscale(int t) const {
     return ksc[page(t) * sc_p + (t % ps) * sc_t + h * sc_h];
   }
@@ -138,13 +156,12 @@ __device__ __forceinline__ int first_tile_base(const Common& c, int len) {
 
 // This block's (slot, KV head, query heads, tile); false when its tile
 // holds nothing to fold.
-__device__ __forceinline__ bool tile_coords(const Common& c, int gm, int& s,
-                                            int& h, int& g0, int& gn,
-                                            int& base) {
+__device__ __forceinline__ bool tile_coords(const Common& c, int& s, int& h,
+                                            int& g0, int& gn, int& base) {
   s = blockIdx.x / c.hkv;
   h = blockIdx.x % c.hkv;
-  g0 = blockIdx.z * gm;
-  gn = min(gm, c.g - g0);
+  g0 = blockIdx.z * c.gm;
+  gn = min(c.gm, c.g - g0);
   base = blockIdx.y * c.tile;
   const int len = c.lengths[s];
   return gn > 0 && base < len && base >= first_tile_base(c, len);
@@ -282,16 +299,72 @@ __device__ __forceinline__ void bf16x8(const uint4& u, float* f) {
   }
 }
 
-template <int GM, typename Src>
+// The lane of a group that ends up with query head g's score: the
+// identity for GM <= 2 (a butterfly a head), else 3-bit reversal (the
+// reduce-scatter of group_score).
+template <int GM>
+__device__ __forceinline__ int owner(int g) {
+  if constexpr (GM <= 2) return g;
+  else return ((g >> 2) & 1) | (g & 2) | ((g & 1) << 2);
+}
+
+// One row's scores for query heads [0, GM): the group's LPR partial dot
+// products summed across the group.  Lane gl returns the score of the
+// head it owns (owner(head) == gl % 8); every lane owning a head gets the
+// same bits.  GM > 2 pads to 8 heads and reduce-scatters them over lane
+// bits 0-2 (7 shuffles), then sums over the higher bits.
+template <int GM, int LPR>
+__device__ __forceinline__ float group_score(const float (&qr)[GM][8],
+                                             const float (&kf)[8], int gl) {
+  constexpr int NV = GM <= 2 ? GM : 8;
+  float v[NV];
+#pragma unroll
+  for (int g = 0; g < NV; ++g) {
+    v[g] = 0.0f;
+    if (g < GM) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[g] = fmaf(qr[g][j], kf[j], v[g]);
+    }
+  }
+  if constexpr (GM <= 2) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+#pragma unroll
+      for (int off = LPR / 2; off > 0; off >>= 1)
+        v[g] += __shfl_xor_sync(0xffffffffu, v[g], off);
+    return (GM == 2 && gl == 1) ? v[GM - 1] : v[0];
+  } else {
+    const bool b0 = gl & 1, b1 = gl & 2, b2 = gl & 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float keep = b0 ? v[4 + i] : v[i], send = b0 ? v[i] : v[4 + i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float keep = b1 ? v[2 + i] : v[i], send = b1 ? v[i] : v[2 + i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
+    }
+    const float keep = b2 ? v[1] : v[0], send = b2 ? v[0] : v[1];
+    v[0] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+#pragma unroll
+    for (int off = 8; off < LPR; off <<= 1)
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+    return v[0];
+  }
+}
+
+template <int GM, int LPR, typename Src>
 __device__ void tile_bf16(const Common& c, const Src& src, int s, int h,
                           int g0, int gn, int base) {
+  constexpr int kRows = 32 / LPR;        // rows a warp load covers
+  constexpr int kStep = kWarps * kRows;  // positions one load of all warps
   __shared__ float o_s[kWarps][GM][kMaxD];
   __shared__ float m_s[kWarps][GM], n_s[kWarps][GM];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = c.lengths[s];
-  const int lpr = c.lpr;                 // lanes a row: 1, 2, ..., 32
-  const int rows = 32 / lpr;             // rows a warp load covers
-  const int grp = lane / lpr, col = (lane % lpr) * 8;
+  const int gl = lane % LPR, grp = lane / LPR, col = gl * 8;
+  const int lead = grp * LPR;            // the lane group's first lane
   const bool kcol = col < c.d, vcol = col < c.dv;
   const int n_valid = min(c.tile, len - base);
 
@@ -306,91 +379,96 @@ __device__ void tile_bf16(const Common& c, const Src& src, int s, int h,
     for (int j = 0; j < 8; ++j)
       qr[g][j] = (g < gn && kcol) ? __bfloat162float(q[g * c.d + j]) : 0.0f;
 
-  // Online (m, n) fold of this warp's positions.  n_run is the same in
-  // every lane of the warp (a butterfly max); m_run and o sum the lane
-  // group's own positions until the end.
-  float o[GM][8], m_run[GM], n_run[GM];
+  // Online (m, n) fold of this warp's positions.  The lane that owns a
+  // query head's score runs that head's softmax: ExtExp once a score, not
+  // once a lane.  n_run is the same in every group (a butterfly max);
+  // m_run and o sum the group's own positions until the end.
+  float o[GM][8];
 #pragma unroll
-  for (int g = 0; g < GM; ++g) {
+  for (int g = 0; g < GM; ++g)
 #pragma unroll
     for (int j = 0; j < 8; ++j) o[g][j] = 0.0f;
-    m_run[g] = 0.0f;
-    n_run[g] = repro::kMinusInfN;
-  }
-  const int step = kWarps * rows;        // positions one load of all warps
-  for (int i0 = warp * rows; i0 < n_valid; i0 += kBatch * step) {
+  float m_run = 0.0f, n_run = repro::kMinusInfN;
+  for (int i0 = warp * kRows; i0 < n_valid; i0 += kBatch * kStep) {
     // every K and V load of the batch is issued before any is used; rows
     // past the length or outside the window are not read (zeros, w = 0)
     uint4 kr[kBatch], vr[kBatch];
     bool live[kBatch];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
-      const int i = i0 + b * step + grp, t = base + i;
+      const int i = i0 + b * kStep + grp, t = base + i;
       live[b] = i < n_valid && (c.window < 0 || t > len - 1 - c.window);
       kr[b] = vr[b] = make_uint4(0, 0, 0, 0);
-      if (live[b] && kcol)
-        kr[b] = __ldg(reinterpret_cast<const uint4*>(src.krow(t) + col));
-      if (live[b] && vcol)
-        vr[b] = __ldg(reinterpret_cast<const uint4*>(src.vrow(t) + col));
+      if (live[b]) {
+        const __nv_bfloat16 *krp, *vrp;
+        src.rows(t, krp, vrp);
+        if (kcol) kr[b] = __ldg(reinterpret_cast<const uint4*>(krp + col));
+        if (vcol) vr[b] = __ldg(reinterpret_cast<const uint4*>(vrp + col));
+      }
     }
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
-      if (i0 + b * step >= n_valid) break;   // warp-uniform
+      if (i0 + b * kStep >= n_valid) break;  // warp-uniform
       float kf[8], vf[8];
       bf16x8(kr[b], kf);
       bf16x8(vr[b], vf);
+      const float mine = group_score<GM, LPR>(qr, kf, gl);
+      const float sc = live[b] ? __fmul_rn(mine, c.scale) : -INFINITY;
+      float m, n;
+      repro::ext_exp(sc, m, n);
+      float nb = n;
+#pragma unroll
+      for (int off = LPR; off < 32; off <<= 1)
+        nb = fmaxf(nb, __shfl_xor_sync(0xffffffffu, nb, off));
+      float a = 1.0f;                        // exact rescale of the state
+      if (nb > n_run) {
+        a = repro::exp2_int(__fsub_rn(n_run, nb));
+        m_run = __fmul_rn(m_run, a);
+        n_run = nb;
+      }
+      const float w = __fmul_rn(m, repro::exp2_int(__fsub_rn(n, n_run)));
+      m_run = __fadd_rn(m_run, w);
+      // w . V: each query head's rescale (rare) and weight from its lane
+      if (__any_sync(0xffffffffu, a != 1.0f)) {
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          const float ag = __shfl_sync(0xffffffffu, a, lead + owner<GM>(g));
+#pragma unroll
+          for (int j = 0; j < 8; ++j) o[g][j] = __fmul_rn(o[g][j], ag);
+        }
+      }
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
-        if (g >= gn) continue;
-        float acc = 0.0f;
+        const float wg = __shfl_sync(0xffffffffu, w, lead + owner<GM>(g));
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc = fmaf(qr[g][j], kf[j], acc);
-        for (int off = lpr >> 1; off > 0; off >>= 1)
-          acc += __shfl_xor_sync(0xffffffffu, acc, off);
-        const float sc = live[b] ? __fmul_rn(acc, c.scale) : -INFINITY;
-        float m, n;
-        repro::ext_exp(sc, m, n);
-        float nb = n;
-        for (int off = lpr; off < 32; off <<= 1)
-          nb = fmaxf(nb, __shfl_xor_sync(0xffffffffu, nb, off));
-        if (nb > n_run[g]) {                 // warp-uniform; exact rescale
-          const float a = repro::exp2_int(__fsub_rn(n_run[g], nb));
-          m_run[g] = __fmul_rn(m_run[g], a);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) o[g][j] = __fmul_rn(o[g][j], a);
-          n_run[g] = nb;
-        }
-        const float w =
-            __fmul_rn(m, repro::exp2_int(__fsub_rn(n, n_run[g])));
-        m_run[g] = __fadd_rn(m_run[g], w);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) o[g][j] = fmaf(w, vf[j], o[g][j]);
+        for (int j = 0; j < 8; ++j) o[g][j] = fmaf(wg, vf[j], o[g][j]);
       }
     }
   }
   // the lane groups of a warp share n_run: their sums add as they are
 #pragma unroll
-  for (int g = 0; g < GM; ++g)
-    for (int off = lpr; off < 32; off <<= 1) {
-      m_run[g] = __fadd_rn(m_run[g],
-                           __shfl_xor_sync(0xffffffffu, m_run[g], off));
+  for (int off = LPR; off < 32; off <<= 1) {
+    m_run = __fadd_rn(m_run, __shfl_xor_sync(0xffffffffu, m_run, off));
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         o[g][j] = __fadd_rn(o[g][j],
                             __shfl_xor_sync(0xffffffffu, o[g][j], off));
+  }
+  if (grp == 0) {
+    if (vcol) {
+#pragma unroll
+      for (int g = 0; g < GM; ++g)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) o_s[warp][g][col + j] = o[g][j];
     }
-  if (grp == 0 && vcol) {
 #pragma unroll
     for (int g = 0; g < GM; ++g)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) o_s[warp][g][col + j] = o[g][j];
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      m_s[warp][g] = m_run[g];
-      n_s[warp][g] = n_run[g];
-    }
+      if (gl == owner<GM>(g)) {
+        m_s[warp][g] = m_run;
+        n_s[warp][g] = n_run;
+      }
   }
   __syncthreads();
   // the warps' partials, folded in warp order with exact rescales
@@ -418,20 +496,20 @@ template <typename QT, typename KT, typename Src>
 __global__ void __launch_bounds__(kThreads)
     decode_tile(Common c, Src src) {
   int s, h, g0, gn, base;
-  if (!tile_coords(c, kMaxG, s, h, g0, gn, base)) return;
+  if (!tile_coords(c, s, h, g0, gn, base)) return;
   src.s = s;
   src.h = h;
   tile_general<QT, KT>(c, src, s, h, g0, gn, base);
 }
 
-template <int GM, typename Src>
+template <int GM, int LPR, typename Src>
 __global__ void __launch_bounds__(kThreads)
     decode_tile_bf16(Common c, Src src) {
   int s, h, g0, gn, base;
-  if (!tile_coords(c, GM, s, h, g0, gn, base)) return;
+  if (!tile_coords(c, s, h, g0, gn, base)) return;
   src.s = s;
   src.h = h;
-  tile_bf16<GM>(c, src, s, h, g0, gn, base);
+  tile_bf16<GM, LPR>(c, src, s, h, g0, gn, base);
 }
 
 // Fold the live tiles of one (slot, KV head, query head) in tile order --
@@ -448,45 +526,81 @@ __global__ void __launch_bounds__(kThreads) decode_combine(Common c) {
   const float* part = c.part + row * c.n_split * (c.dv + 2);
   QT* o = static_cast<QT*>(c.o) + row * c.dv;
   for (int dd = threadIdx.x; dd < c.dv; dd += kThreads) {
+    // kAhead tiles' partials in flight while the previous kAhead fold
+    float ol[kAhead], ml[kAhead], nl[kAhead];
+    auto fetch = [&](int j, float* o_, float* m_, float* n_) {
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) {
+        if (j + k >= j1) break;
+        const float* p = part + static_cast<int64_t>(j + k) * (c.dv + 2);
+        o_[k] = p[dd];
+        m_[k] = p[c.dv];
+        n_[k] = p[c.dv + 1];
+      }
+    };
+    fetch(j0, ol, ml, nl);
     float o_acc = 0.0f, m_acc = 0.0f, n_acc = repro::kMinusInfN;
-#pragma unroll 4
-    for (int j = j0; j < j1; ++j) {
-      const float* p = part + static_cast<int64_t>(j) * (c.dv + 2);
-      const float ol = p[dd], ml = p[c.dv], nl = p[c.dv + 1];
-      const float nn = fmaxf(n_acc, nl);
-      const float a_acc = repro::exp2_int(__fsub_rn(n_acc, nn));
-      const float a_loc = repro::exp2_int(__fsub_rn(nl, nn));
-      o_acc = __fadd_rn(__fmul_rn(o_acc, a_acc), __fmul_rn(ol, a_loc));
-      m_acc = __fadd_rn(__fmul_rn(m_acc, a_acc), __fmul_rn(ml, a_loc));
-      n_acc = nn;
+    for (int j = j0; j < j1; j += kAhead) {
+      float ol2[kAhead] = {}, ml2[kAhead] = {}, nl2[kAhead] = {};
+      if (j + kAhead < j1) fetch(j + kAhead, ol2, ml2, nl2);
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) {
+        if (j + k >= j1) break;
+        const float nn = fmaxf(n_acc, nl[k]);
+        const float a_acc = repro::exp2_int(__fsub_rn(n_acc, nn));
+        const float a_loc = repro::exp2_int(__fsub_rn(nl[k], nn));
+        o_acc = __fadd_rn(__fmul_rn(o_acc, a_acc), __fmul_rn(ol[k], a_loc));
+        m_acc = __fadd_rn(__fmul_rn(m_acc, a_acc), __fmul_rn(ml[k], a_loc));
+        n_acc = nn;
+      }
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) {
+        ol[k] = ol2[k];
+        ml[k] = ml2[k];
+        nl[k] = nl2[k];
+      }
     }
     store(o + dd, __fdiv_rn(o_acc, fmaxf(m_acc, 1e-37f)));
   }
 }
 
-// bf16 body for GM query heads a block, GM in [1, kMaxG].
+// The bf16 body: GM the smallest of 1, 2, 4, 5, 8 that holds the block's
+// query heads, LPR its lanes a row.
 template <int GM, typename Src>
-void launch_bf16(const Common& c, dim3 grid, cudaStream_t st,
-                 const Src& src) {
-  if constexpr (GM > 1) {
-    if (c.gm < GM) return launch_bf16<GM - 1>(c, grid, st, src);
-  }
-  decode_tile_bf16<GM, Src><<<grid, kThreads, 0, st>>>(c, src);
+void launch_bf16_gm(const Common& c, dim3 grid, cudaStream_t st,
+                    const Src& src) {
+  if (c.lpr == 8)
+    decode_tile_bf16<GM, 8, Src><<<grid, kThreads, 0, st>>>(c, src);
+  else if (c.lpr == 16)
+    decode_tile_bf16<GM, 16, Src><<<grid, kThreads, 0, st>>>(c, src);
+  else
+    decode_tile_bf16<GM, 32, Src><<<grid, kThreads, 0, st>>>(c, src);
 }
 
-// The tile kernel, then the combine on the same stream.
+template <typename Src>
+void launch_bf16(const Common& c, dim3 grid, cudaStream_t st,
+                 const Src& src) {
+  if (c.gm <= 1) return launch_bf16_gm<1>(c, grid, st, src);
+  if (c.gm <= 2) return launch_bf16_gm<2>(c, grid, st, src);
+  if (c.gm <= 4) return launch_bf16_gm<4>(c, grid, st, src);
+  if (c.gm <= 5) return launch_bf16_gm<5>(c, grid, st, src);
+  launch_bf16_gm<8>(c, grid, st, src);
+}
+
 // The bf16 body spreads the query heads evenly over ceil(G / 8) blocks
 // (G 10: two of 5), so its registers hold no idle head.
 template <typename QT, typename KT, typename Src>
 int launch(Common c, int slots, int body, cudaStream_t st, const Src& src) {
   const int groups = (c.g + kMaxG - 1) / kMaxG;
   c.gm = body == 1 ? (c.g + groups - 1) / groups : kMaxG;
-  c.lpr = 1;
+  // the bf16 body's lanes a row: 8 columns each, at least 8 lanes so that
+  // each of up to 8 query heads has a lane of its own
+  c.lpr = 8;
   while (c.lpr * 8 < max(c.d, c.dv)) c.lpr <<= 1;
   dim3 grid(slots * c.hkv, c.n_split, (c.g + c.gm - 1) / c.gm);
   if constexpr (std::is_same_v<KT, __nv_bfloat16> && !Src::kQuant) {
     if (body == 1)
-      launch_bf16<kMaxG>(c, grid, st, src);
+      launch_bf16(c, grid, st, src);
     else
       decode_tile<QT, KT, Src><<<grid, kThreads, 0, st>>>(c, src);
   } else {

@@ -205,7 +205,10 @@ def kernel_body(q_dtype, kv_dtype, d: int, dv: int, row_bytes) -> str:
     pages with scales, other head dims or alignments.  This reads dtypes,
     head dims and alignment only.  The C entry refuses a ``"bf16"`` launch
     whose operands do not meet these conditions; nothing falls back."""
-    return "general"     # the bf16 body is built, not yet chosen
+    if (q_dtype == kv_dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0
+            and max(d, dv) <= 256 and all(x % 16 == 0 for x in row_bytes)):
+        return "bf16"
+    return "general"
 
 
 def _row_bytes(k, v) -> tuple[int, ...]:

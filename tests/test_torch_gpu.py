@@ -1,7 +1,8 @@
 """The port's three-pass softmax, cross-entropy, fused LM-head
-cross-entropy and flash-attention CUDA kernels against their plain
-versions on the card.  Every test here needs a CUDA device and skips
-without one; the file imports no JAX, so it runs on a machine with a card:
+cross-entropy, flash-attention and decode-attention CUDA kernels against
+their plain versions on the card.  Every test here needs a CUDA device
+and skips without one; the file imports no JAX, so it runs on a machine
+with a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
@@ -11,6 +12,7 @@ import torch
 
 from repro_torch import kernels as tk
 from repro_torch.core.policy import SoftmaxPolicy
+from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import threepass_softmax as tp3
@@ -318,3 +320,164 @@ def test_flash_op_autograd_and_policy_route(cuda, dtype):
     for a, b in zip(got, ref):
         torch.testing.assert_close(a.float(), b.float(), atol=2e-2,
                                    rtol=2.0 ** -6)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention (strip and paged) against the plain versions.
+# ---------------------------------------------------------------------------
+# bf16: the float32 results differ by the f32 sum order, then each rounds to
+# bf16, so they may land one bf16 step apart; f32: the order alone.  These
+# are chip_smoke.py's decode tolerances.
+DECODE_TOL = {torch.bfloat16: dict(atol=1e-5, rtol=1e-2),
+              torch.float32: dict(atol=1e-5, rtol=0.0)}
+# lengths: a free slot, one position, one exact tile (128), a tile and one,
+# six tiles; slot 1's table past its length aliases slot 4's pages
+DECODE_LENGTHS = [0, 1, 128, 129, 700]
+
+
+def _decode_inputs(cuda, dtype, d, g, *, hkv=2, ps=64, pmax=12,
+                   lengths=DECODE_LENGTHS, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed * 1000 + d + g)
+    s = len(lengths)
+    n_pages = 1 + s * pmax
+    table = torch.randperm(n_pages - 1, device=cuda, generator=gen)
+    table = (table + 1).reshape(s, pmax).to(torch.int32)
+    if s > 4:
+        table[1, 1:] = table[4, :pmax - 1]
+    q = torch.randn(s, hkv, g, d, device=cuda, generator=gen).to(dtype)
+    kp, vp = (torch.randn(n_pages, ps, hkv, d, device=cuda,
+                          generator=gen).to(dtype) for _ in "kv")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    return q, kp, vp, table, lens
+
+
+def _strip(arena, table):
+    """The paged cache as a strip pool [S, T, Hkv, D], read transposed."""
+    s, pmax = table.shape
+    _, ps, hkv, d = arena.shape
+    return (arena[table.long()].reshape(s, pmax * ps, hkv, d)
+            .transpose(1, 2))
+
+
+def _check_decode(q, kp, vp, table, lens, dtype, *, window=None, ppt=2,
+                  k_scale=None, v_scale=None, strip=True):
+    """Kernel vs plain, the same bits twice, a free slot's exact zeros,
+    and (``strip``: both take one body) strip bit-equal to paged."""
+    sc = q.shape[-1] ** -0.5
+    pmax, ps = table.shape[1], kp.shape[1]
+    got = tda.decode_attention_paged(q, kp, vp, table, lens, k_scale,
+                                     v_scale, scale=sc, window=window,
+                                     pages_per_tile=ppt)
+    torch.cuda.synchronize()
+    want = tda.decode_attention_paged_plain(
+        q, kp, vp, table, lens, k_scale, v_scale, scale=sc, window=window,
+        n_t_chunks=-(-pmax // ppt))
+    assert got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), **DECODE_TOL[dtype])
+    assert torch.equal(tda.decode_attention_paged(
+        q, kp, vp, table, lens, k_scale, v_scale, scale=sc, window=window,
+        pages_per_tile=ppt), got)
+    free = lens == 0
+    assert not got[free].any()
+    if strip:
+        st = tda.decode_attention(q, _strip(kp, table), _strip(vp, table),
+                                  lens, scale=sc, window=window,
+                                  block_t=ppt * ps)
+        assert torch.equal(st, got)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,g,window", [(16, 5, None), (64, 5, None),
+                                        (120, 5, None), (128, 5, None),
+                                        (160, 5, None), (128, 10, None),
+                                        (128, 5, 300), (64, 10, 300)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernels_match_plain(cuda, dtype, d, g, window):
+    q, kp, vp, table, lens = _decode_inputs(cuda, dtype, d, g)
+    _check_decode(q, kp, vp, table, lens, dtype, window=window)
+    assert tda.decode_attention_paged.launches == 2
+    assert tda.decode_attention.launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_long_slot_folds_128_tiles(cuda, dtype):
+    q, kp, vp, table, lens = _decode_inputs(cuda, dtype, 128, 5, hkv=8,
+                                            ps=128, pmax=128,
+                                            lengths=[16384])
+    _check_decode(q, kp, vp, table, lens, dtype, ppt=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gran", ["page", "page_head"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_int8_pages_with_scales(cuda, dtype, gran):
+    q, kp, _, table, lens = _decode_inputs(cuda, dtype, 128, 5)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    k8, v8 = (torch.randint(-127, 128, kp.shape, device=cuda, generator=gen,
+                            dtype=torch.int8) for _ in "kv")
+    shp = kp.shape[:2] if gran == "page" else kp.shape[:3]
+    ksc, vsc = (torch.rand(shp, device=cuda, generator=gen) * 0.02
+                for _ in "kv")
+    _check_decode(q, k8, v8, table, lens, dtype, k_scale=ksc, v_scale=vsc,
+                  strip=False)
+
+
+def _decode_kernel_names(fn):
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,int8,bf16_body",
+                         [(torch.bfloat16, False, True),
+                          (torch.float32, False, False),
+                          (torch.bfloat16, True, False)])
+def test_decode_body_chosen_by_dtype(cuda, dtype, int8, bf16_body):
+    q, kp, vp, table, lens = _decode_inputs(cuda, dtype, 128, 5)
+    kw = {}
+    if int8:
+        kp, vp = kp.to(torch.int8), vp.to(torch.int8)
+        kw = dict(k_scale=torch.ones(kp.shape[:2], device=cuda),
+                  v_scale=torch.ones(kp.shape[:2], device=cuda))
+    for fn in (lambda: tda.decode_attention_paged(q, kp, vp, table, lens,
+                                                  scale=0.1, **kw),
+               lambda: tda.decode_attention(q, _strip(kp, table),
+                                            _strip(vp, table), lens,
+                                            scale=0.1)):
+        names = _decode_kernel_names(fn)
+        assert any("decode_combine" in x for x in names), names
+        assert any("decode_tile_bf16" in x for x in names) == bf16_body
+        assert any("decode_tile<" in x for x in names) != bf16_body
+        if int8:
+            break                      # the strip takes no int8 cache
+    want = "bf16" if bf16_body else "general"
+    assert tda.kernel_body(q.dtype, kp.dtype, 128, 128,
+                           tda._row_bytes(kp, vp)) == want
+
+
+@pytest.mark.gpu
+def test_decode_misaligned_rows_take_the_general_body(cuda):
+    q, kp, vp, table, lens = _decode_inputs(cuda, torch.bfloat16, 128, 5)
+    # the same arenas 4 elements (8 bytes) past a 16-byte boundary
+    flat = torch.empty(kp.numel() + 4, dtype=kp.dtype, device=cuda)
+    ko = flat[4:].view(kp.shape)
+    ko.copy_(kp)
+    rows = tda._row_bytes(ko, vp)
+    assert tda.kernel_body(q.dtype, ko.dtype, 128, 128, rows) == "general"
+    names = _decode_kernel_names(lambda: tda.decode_attention_paged(
+        q, ko, vp, table, lens, scale=0.1))
+    assert not any("decode_tile_bf16" in x for x in names), names
+    # the strip copy is aligned (the bf16 body): no bit-equality to hold
+    _check_decode(q, ko, vp, table, lens, torch.bfloat16, strip=False)
+    # no fallback: the bf16 body refuses rows it cannot load 16 bytes at
+    # a time, and the launch raises
+    o = torch.empty_like(q)
+    _, _, strides = tda._paged_operands("t", q, ko, vp, None, None)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tda.launch_paged("bf16", q, ko, vp, table, lens, None, None, strides,
+                         o, tile=128, window=None, scale=0.1)

@@ -224,6 +224,50 @@ class TestDecode:
 
 
 # ---------------------------------------------------------------------------
+# The decode kernels' choice of tile body (dtype, head dims, alignment).
+# ---------------------------------------------------------------------------
+BF, F32T, I8 = torch.bfloat16, torch.float32, torch.int8
+ALIGNED = (1 << 20, 2 << 20, 2048, 256, 4096, 2048, 256, 4096)
+
+
+@pytest.mark.parametrize("q_dt,kv_dt,d,dv,row_bytes,want", [
+    (BF, BF, 128, 128, ALIGNED, "bf16"),
+    (BF, BF, 120, 120, ALIGNED, "bf16"),
+    (BF, BF, 16, 16, ALIGNED, "bf16"),
+    (BF, BF, 256, 256, ALIGNED, "bf16"),
+    (BF, BF, 192, 128, ALIGNED, "bf16"),
+    (BF, BF, 60, 60, ALIGNED, "general"),
+    (BF, BF, 128, 100, ALIGNED, "general"),
+    (BF, BF, 264, 264, ALIGNED, "general"),
+    (F32T, F32T, 128, 128, ALIGNED, "general"),
+    (BF, I8, 128, 128, ALIGNED, "general"),
+    (F32T, I8, 128, 128, ALIGNED, "general"),
+    (BF, BF, 128, 128, ((1 << 20) + 8,) + ALIGNED[1:], "general"),
+    (BF, BF, 128, 128, ALIGNED[:4] + (2056,) + ALIGNED[5:], "general"),
+])
+def test_decode_kernel_body_choice(q_dt, kv_dt, d, dv, row_bytes, want):
+    assert tda.kernel_body(q_dt, kv_dt, d, dv, row_bytes) == want
+
+
+def test_decode_row_bytes_of_the_pools():
+    # the strip pool [B, T, Hkv, hd] read transposed and the arena
+    # [P, ps, Hkv, hd] meet the bf16 body's alignment; a view 4 elements
+    # (8 bytes) off a 16-byte boundary, or a head dim of 12, do not
+    strip = torch.zeros(3, 40, 2, 64, dtype=BF)
+    arena = torch.zeros(9, 16, 2, 64, dtype=BF)
+    for k in (strip.transpose(1, 2), arena):
+        rows = tda._row_bytes(k, k)
+        assert tda.kernel_body(BF, BF, 64, 64, rows) == "bf16"
+    assert tda._row_bytes(arena, arena)[2:5] == (4096, 256, 128)
+    off = torch.zeros(arena.numel() + 4, dtype=BF)[4:].view(arena.shape)
+    assert tda.kernel_body(BF, BF, 64, 64,
+                           tda._row_bytes(off, arena)) == "general"
+    narrow = torch.zeros(9, 16, 2, 12, dtype=BF)
+    assert tda.kernel_body(BF, BF, 12, 12,
+                           tda._row_bytes(narrow, narrow)) == "general"
+
+
+# ---------------------------------------------------------------------------
 # Routing and lazy builds.
 # ---------------------------------------------------------------------------
 def test_cpu_tensors_take_the_plain_versions():
