@@ -28,10 +28,13 @@ constexpr float kXClamp = 1.0e37f;
 constexpr float kTClamp = 0.35f;
 
 // Exact 2^n for integral n by writing n + 127 into the exponent field;
-// n <= -127 flushes to zero.  Never exp2f: it is not exact.
+// n <= -127 flushes to zero.  Never exp2f: it is not exact.  The add of
+// 2^23 + 127 leaves n + 127 in the low mantissa bits of a float in
+// [2^23, 2^24), so no float-to-int conversion is issued: the shift keeps
+// those 8 bits and drops the float's own exponent.
 __device__ __forceinline__ float exp2_int(float n) {
   n = fminf(fmaxf(n, -127.0f), 127.0f);
-  return __int_as_float(static_cast<int>(__fadd_rn(n, 127.0f)) << 23);
+  return __uint_as_float(__float_as_uint(__fadd_rn(n, 8388735.0f)) << 23);
 }
 
 // e^x = m * 2^n with the reconstruction step left out.  rintf rounds half

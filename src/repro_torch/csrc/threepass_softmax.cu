@@ -7,27 +7,37 @@
 // _exp_store_kernel + _inplace_scale_kernel).
 //
 // These exist to be compared with the two-pass kernel
-// (twopass_softmax.cu), so they are built the same way and differ only in
-// their passes over memory: one thread block per row, the same threads per
-// row, every pass a sweep of the row in device memory, nothing kept on
-// chip between passes but the row's scalars (mu, sigma), the same ExtExp
-// arithmetic and the same fixed fold order (rowfold.cuh):
+// (twopass_softmax.cu): the same ExtExp arithmetic and the same fixed
+// fold order (rowfold.cuh), and they differ in their passes over memory:
 //   * Alg 1 (recompute): mu = max x; sigma = sum e(x - mu); y = e(x - mu) *
-//     (1 / sigma), the exponential computed again.  3 reads + 1 write: 4N.
+//     (1 / sigma), the exponential computed again.  It takes the two-pass
+//     kernel's two layouts:
+//       - registers (rows of at most 8192 columns): each lane loads its
+//         columns once and keeps x; the max by butterfly, sigma in
+//         row_sum's order, and pass 3 computes e(x - mu) again from the
+//         registers.  What keeps this Alg 1 and not Alg 2 is that the
+//         exponentials are never kept.  One read and one write (2N).
+//       - split (longer rows): launch 1 writes each fold slot's max to a
+//         float32 scratch [rows, 32, 2]; launch 2 reduces the 32 maxima to
+//         mu and writes each slot's part of sigma, in row_sum's order;
+//         launch 3 runs the 32-part butterfly that ends row_sum and
+//         writes y over 4096-column ranges.  3 reads + 1 write: 4N.
 //   * Alg 2 (reload): mu = max x; e = e(x - mu) stored to a float32 buffer
 //     while sigma sums it; y = e * (1 / sigma) read back.  2 reads + 1
 //     write, then 1 read + 1 write: 5N.  With float32 x the buffer is y
 //     itself and the last pass scales it in place; with bfloat16 x it is a
 //     float32 scratch row, and only the final scale rounds to bfloat16.
+//     One thread block per row, every pass a sweep of the row in device
+//     memory (row_max, row_sum).
 // e(t) is the paper's Alg 4, as the TPU kernel computes it: ExtExp's
 // (m, n) rebuilt as m * 2^n with the exponent-field exp2_int, which
 // flushes to 0 for n <= -127 (t below about -88) where expf would give
 // denormals.
 //
-// Bound on this card: bytes (about 61 float operations per element for
-// Alg 1, 32 for Alg 2, against 4 or 5 float32 accesses).  Rows that fit
-// in the 50 MB L2 with all the rows in flight are re-read from L2, so
-// 4N/5N only show for long rows.
+// Bound on this card: bytes, for Alg 1 once each element costs two ExtExp
+// (~60 float instructions, at the unfused 33.5e12 a second) and no more;
+// Alg 2 does 32.  Rows that fit in the 50 MB L2 with all the rows in
+// flight are re-read from L2, so 4N/5N only show for long rows.
 //
 // An all -inf row gives mu = -inf, x - mu = NaN, sigma = 0 and y = 0 * inf
 // = NaN, as in the TPU kernel.
@@ -49,19 +59,164 @@ __device__ __forceinline__ float exp_nonpos(float t) {
   return __fmul_rn(m, repro::exp2_int(n));
 }
 
-template <typename T>
-__global__ void threepass_recompute_kernel(const T* __restrict__ x,
-                                           T* __restrict__ y, int cols) {
-  const size_t r = blockIdx.x;
+using repro::kChunk;
+using repro::kLanes;
+using repro::kPerLane;
+
+constexpr int kScaleThreads = 256;                // launch 3
+constexpr int kScaleCols = kScaleThreads * 16;    // columns a block
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// One lane's part of sigma over its kPerLane columns of a chunk, in
+// column order (a missing or -inf column adds +0).
+__device__ __forceinline__ float lane_sum(const float (&x)[kPerLane],
+                                          float mu) {
+  float s = 0.0f;
+#pragma unroll
+  for (int e = 0; e < kPerLane; ++e)
+    s = __fadd_rn(s, exp_nonpos(__fsub_rn(x[e], mu)));
+  return s;
+}
+
+// Alg 1 for rows of at most 32 chunks, K chunks a warp, blockDim = (32 W,
+// rows a block): x in registers, read once.
+template <typename T, int K>
+__global__ void __launch_bounds__(256)
+    recompute_regs_kernel(const T* __restrict__ x, T* __restrict__ y,
+                          int rows, int cols) {
+  constexpr int kSpan = kLanes / K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const size_t r = static_cast<size_t>(blockIdx.x) * blockDim.y + threadIdx.y;
+  if (r >= static_cast<size_t>(rows)) return;     // whole warps (W = 1)
   const T* row = x + r * cols;
-  const float mu = repro::row_max(row, cols);                   // pass 1
-  const float sigma = repro::row_sum(cols, [&](int c) {         // pass 2
-    return exp_nonpos(__fsub_rn(to_f32(row[c]), mu));
-  });
+  float v[K][kPerLane];
+  float mu = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < kPerLane; ++e) {
+      const int c = (warp * K + k) * kChunk + e * kLanes + lane;
+      v[k][e] = c < cols ? to_f32(row[c]) : -INFINITY;
+      mu = fmaxf(mu, v[k][e]);
+    }
+  mu = warp_max(mu);                                           // pass 1
+  __shared__ float smax[8], ssum[kLanes];
+  if (nwarps > 1) {
+    if (lane == 0) smax[warp] = mu;
+    __syncthreads();
+    mu = warp_max(lane < nwarps ? smax[lane] : -INFINITY);
+  }
+  float part[K];                                               // pass 2
+#pragma unroll
+  for (int k = 0; k < K; ++k) part[k] = lane_sum(v[k], mu);
+  float sigma = repro::butterfly_scatter<K>(part);
+  if (nwarps == 1) {
+    sigma = repro::slots_in_warp<K>(sigma);
+  } else {
+    if (lane % kSpan == 0) ssum[warp * K + lane / kSpan] = sigma;
+    __syncthreads();
+    sigma = repro::warp_sum(lane < nwarps * K ? ssum[lane] : 0.0f);
+  }
   const float inv = __frcp_rn(sigma);
-  for (int c = threadIdx.x; c < cols; c += blockDim.x)          // pass 3
-    store(y + r * cols + c,
-          __fmul_rn(exp_nonpos(__fsub_rn(to_f32(row[c]), mu)), inv));
+  // Pass 3 computes e(x - mu) again: without this the compiler would keep
+  // pass 2's exponentials in registers instead of x, which is Alg 2.
+  asm volatile("" : "+f"(mu));
+#pragma unroll
+  for (int k = 0; k < K; ++k)                                  // pass 3
+#pragma unroll
+    for (int e = 0; e < kPerLane; ++e) {
+      const int c = (warp * K + k) * kChunk + e * kLanes + lane;
+      if (c < cols)
+        store(y + r * cols + c,
+              __fmul_rn(exp_nonpos(__fsub_rn(v[k][e], mu)), inv));
+    }
+}
+
+// Launch 1 of the split path: warp (row, slot) writes the max of the
+// slot's chunks to slots[row, slot, 0].
+template <typename T>
+__global__ void __launch_bounds__(128)
+    recompute_max_kernel(const T* __restrict__ x, float* __restrict__ slots,
+                         int rows, int cols) {
+  const size_t g = (static_cast<size_t>(blockIdx.x) * blockDim.x
+                    + threadIdx.x) >> 5;
+  const size_t r = g / kLanes;
+  const int slot = static_cast<int>(g % kLanes), lane = threadIdx.x & 31;
+  if (r >= static_cast<size_t>(rows)) return;
+  const T* row = x + r * cols;
+  float mx = -INFINITY;
+  for (long c0 = static_cast<long>(slot) * kChunk; c0 < cols;
+       c0 += static_cast<long>(kLanes) * kChunk * repro::kBatch) {
+    float v[repro::kBatch][kPerLane];
+#pragma unroll
+    for (int b = 0; b < repro::kBatch; ++b)
+#pragma unroll
+      for (int e = 0; e < kPerLane; ++e) {
+        const long c = c0 + static_cast<long>(b) * kLanes * kChunk
+                       + e * kLanes + lane;
+        v[b][e] = c < cols ? to_f32(row[c]) : -INFINITY;
+      }
+#pragma unroll
+    for (int b = 0; b < repro::kBatch; ++b)
+#pragma unroll
+      for (int e = 0; e < kPerLane; ++e) mx = fmaxf(mx, v[b][e]);
+  }
+  mx = warp_max(mx);
+  if (lane == 0) slots[g * 2] = mx;
+}
+
+// Launch 2: mu from the row's 32 maxima; warp (row, slot) writes the
+// slot's part of sigma (row_sum's slot sum) to slots[row, slot, 1].
+template <typename T>
+__global__ void __launch_bounds__(128)
+    recompute_sum_kernel(const T* __restrict__ x, float* __restrict__ slots,
+                         int rows, int cols) {
+  const size_t g = (static_cast<size_t>(blockIdx.x) * blockDim.x
+                    + threadIdx.x) >> 5;
+  const size_t r = g / kLanes;
+  const int slot = static_cast<int>(g % kLanes), lane = threadIdx.x & 31;
+  if (r >= static_cast<size_t>(rows)) return;
+  const float mu = warp_max(slots[(r * kLanes + lane) * 2]);
+  const float acc = repro::slot_fold(
+      x + r * cols, cols, slot, 0.0f,
+      [mu](const float (&xs)[kPerLane]) { return lane_sum(xs, mu); });
+  if (lane == 0) slots[g * 2 + 1] = acc;
+}
+
+// Launch 3: mu and sigma from the row's 32 slots, then y over kScaleCols
+// columns.
+template <typename T>
+__global__ void __launch_bounds__(kScaleThreads)
+    recompute_scale_kernel(const T* __restrict__ x,
+                           const float* __restrict__ slots,
+                           T* __restrict__ y, int cols, int blocks_per_row) {
+  const size_t r = blockIdx.x / blocks_per_row;
+  const int base = (blockIdx.x % blocks_per_row) * kScaleCols;
+  const int lane = threadIdx.x & 31;
+  const float mu = warp_max(slots[(r * kLanes + lane) * 2]);
+  const float inv =
+      __frcp_rn(repro::warp_sum(slots[(r * kLanes + lane) * 2 + 1]));
+  const T* row = x + r * cols;
+  constexpr int kE = kScaleCols / kScaleThreads;
+  float v[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int c = base + e * kScaleThreads + threadIdx.x;
+    v[e] = c < cols ? to_f32(row[c]) : 0.0f;
+  }
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int c = base + e * kScaleThreads + threadIdx.x;
+    if (c < cols)
+      store(y + r * cols + c,
+            __fmul_rn(exp_nonpos(__fsub_rn(v[e], mu)), inv));
+  }
 }
 
 // e may be y itself (float32 x): then pass 3 scales y in place.  The
@@ -83,6 +238,45 @@ __global__ void threepass_reload_kernel(const T* __restrict__ x, float* e,
     store(y + r * cols + c, __fmul_rn(erow[c], inv));
 }
 
+template <typename T>
+void launch_regs(const T* x, T* y, int rows, int cols, cudaStream_t s) {
+  const repro::RegsShape sh = repro::regs_shape(cols);
+  const dim3 block(kLanes * sh.warps, sh.rows_per_block);
+  const unsigned grid = (rows + sh.rows_per_block - 1) / sh.rows_per_block;
+  if (sh.k == 1)
+    recompute_regs_kernel<T, 1><<<grid, block, 0, s>>>(x, y, rows, cols);
+  else if (sh.k == 2)
+    recompute_regs_kernel<T, 2><<<grid, block, 0, s>>>(x, y, rows, cols);
+  else
+    recompute_regs_kernel<T, 4><<<grid, block, 0, s>>>(x, y, rows, cols);
+}
+
+template <typename T>
+void launch_split(const T* x, T* y, float* slots, int rows, int cols,
+                  cudaStream_t s) {
+  const unsigned blocks = static_cast<unsigned>(rows) * kLanes / 4;
+  recompute_max_kernel<T><<<blocks, 128, 0, s>>>(x, slots, rows, cols);
+  recompute_sum_kernel<T><<<blocks, 128, 0, s>>>(x, slots, rows, cols);
+  const int bpr = (cols + kScaleCols - 1) / kScaleCols;
+  recompute_scale_kernel<T><<<static_cast<unsigned>(rows) * bpr,
+                              kScaleThreads, 0, s>>>(x, slots, y, cols, bpr);
+}
+
+template <typename T>
+int recompute(const void* x, void* y, void* slots, int rows, int cols,
+              cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  if (slots == nullptr) {
+    if (cols > repro::kRegsMaxCols)
+      return static_cast<int>(cudaErrorInvalidValue);
+    launch_regs<T>(xt, yt, rows, cols, s);
+  } else {
+    launch_split<T>(xt, yt, static_cast<float*>(slots), rows, cols, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -92,17 +286,13 @@ const char* repro_cuda_error_string(int e) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  x and y are contiguous [rows, cols].
-int threepass_recompute_2d(const void* x, void* y, int rows, int cols,
-                           int dtype, int threads, void* stream) {
+// slots: null for the register path (cols <= 8192); else the split path's
+// float32 scratch [rows, 32, 2].
+int threepass_recompute_2d(const void* x, void* y, void* slots, int rows,
+                           int cols, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    threepass_recompute_kernel<float><<<rows, threads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(y), cols);
-  else
-    threepass_recompute_kernel<__nv_bfloat16><<<rows, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
-        cols);
-  return static_cast<int>(cudaGetLastError());
+  return dtype == 0 ? recompute<float>(x, y, slots, rows, cols, s)
+                    : recompute<__nv_bfloat16>(x, y, slots, rows, cols, s);
 }
 
 // scratch: float32 [rows, cols] for bfloat16 x; ignored (y is the buffer)

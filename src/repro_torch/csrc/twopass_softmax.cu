@@ -4,28 +4,35 @@
 // (twopass_softmax_2d: _pass1_kernel + _pass2_kernel; twopass_stats_2d:
 // _pass1_kernel alone).
 //
-// Bound on this card: bytes.  The work is ~74 float operations per element
-// (46 in pass 1, 28 in pass 2) against 4 bytes read twice and 4 written
-// (f32): ~6 per byte, below the ~20 operations per byte at which an H100's
-// float32 units, and not its 3.35 TB/s of memory, would limit.  So the
-// design moves the paper's 3N:
-//   * one thread block per row; pass 1 reads the row once and folds every
-//     element into (m, n) pairs, exactly as ext_add does, in the fixed
-//     order of row_stats (rowfold.cuh).  No exponential is stored.
-//   * pass 2 re-reads the row (mostly from L2 for rows that fit) and
-//     writes y = m / m_sum * 2^(n - n_sum).
-//   * the ragged edge is masked in the loop: nothing is padded, where the
-//     TPU wrapper copied the scores into a -inf padded tile.
-// Threads per block follow the row length (about 8 elements a thread, one
-// warp for short rows, at most 1024), so a row of 48 scores takes one warp
-// and the sampler's 152064 logits take 1024 threads.  The ORDER of the
-// pass-1 fold depends on neither: see rowfold.cuh.  A -inf column adds the
-// exact identity (m = 0, n = -1e38), so a row padded with -inf columns (a
-// longer cache, a page-rounded prefill) gives the same bits as the row
-// alone, whatever threads either launch takes.
-// Known weakness: the sampler's [slots, 152064] launches only `slots`
-// blocks on 132 SMs.  A split-row pass 1 with an exact (m, n) combine is
-// later work.
+// Bound on this card: bytes, once the arithmetic is cut to what the TPU
+// kernel does.  ExtExp is ~24 float instructions an element and issues at
+// the unfused rate (33.5e12 a second on an H100 at 700 W: no add or
+// multiply fuses, so that the bits equal PyTorch's, see extexp.cuh).  A
+// fold of every element by ext_add (~16 more) and a second ExtExp in pass
+// 2 made the kernel issue-bound; the design keeps ~40 an element:
+//   * pass 1 folds a lane's 8 columns of a chunk max-first (lane_fold in
+//     rowfold.cuh, as the TPU kernel folds a tile), with the same bits as
+//     the element-wise ext_add fold; only chunk and slot values go through
+//     ext_add;
+//   * exp2_int writes the exponent field through a float add, with no
+//     float-to-int conversion.
+// Two layouts, one fold order (rowfold.cuh), so a row padded with -inf
+// columns across the boundary between them keeps its bits:
+//   * registers, rows of at most 8192 columns (every prefill score
+//     bucket): each lane loads its columns once in the fold's layout (4-byte
+//     loads, coalesced), keeps ExtExp's (m, n) of each, and pass 2 writes
+//     y = m * (1 / m_sum) * 2^(n - n_sum) from them: one read and one write
+//     of the row (2N), no second ExtExp.  One warp a row up to 1024
+//     columns, four rows a block, no barrier and no shared memory; longer
+//     rows take one warp per 4 chunks and meet in 32 __shared__ slots.
+//   * split, longer rows (the sampler's vocabulary, the paper's long
+//     rows): launch A takes one warp per (row, fold slot) and writes the
+//     slot's (m, n) to a float32 scratch [rows, 32, 2]; launch B runs the
+//     slot butterfly from those 32 pairs in every block and writes y over
+//     4096-column ranges, many blocks a row: the paper's 3N, over
+//     rows x 32 warps and rows x cols / 4096 blocks instead of `rows` blocks.
+// The stats kernel (pass 1 alone) keeps one block a row, row_stats, with
+// threads as the wrapper gives them.
 //
 // An all -inf row gives m_sum = 0, so y = 0 * inf = NaN, as in the TPU
 // kernel and the plain version.  No row on the serving path is all -inf:
@@ -38,24 +45,125 @@
 
 namespace {
 
-using repro::row_stats;
+using repro::Ext;
+using repro::kChunk;
+using repro::kLanes;
+using repro::kPerLane;
 using repro::store;
 using repro::to_f32;
 
-template <typename T>
-__global__ void twopass_softmax_kernel(const T* __restrict__ x,
-                                       T* __restrict__ y, int cols) {
-  const size_t r = blockIdx.x;
+constexpr int kScaleThreads = 256;                // launch B
+constexpr int kScaleCols = kScaleThreads * 16;    // columns a block
+
+// Rows of at most 32 chunks, K chunks a warp, blockDim = (32 W, rows a
+// block): pass 1 and pass 2 from registers.
+template <typename T, int K>
+__global__ void __launch_bounds__(256)
+    twopass_regs_kernel(const T* __restrict__ x, T* __restrict__ y, int rows,
+                        int cols) {
+  constexpr int kSpan = kLanes / K;               // lanes a chunk after
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const size_t r = static_cast<size_t>(blockIdx.x) * blockDim.y + threadIdx.y;
+  if (r >= static_cast<size_t>(rows)) return;     // whole warps (W = 1)
   const T* row = x + r * cols;
-  float m_sum, n_sum;
-  row_stats(row, cols, m_sum, n_sum);                     // pass 1
+  float m[K][kPerLane], n[K][kPerLane];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < kPerLane; ++e) {
+      const int c = (warp * K + k) * kChunk + e * kLanes + lane;
+      m[k][e] = c < cols ? to_f32(row[c]) : -INFINITY;
+    }
+  Ext v[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int e = 0; e < kPerLane; ++e)
+      repro::ext_exp(m[k][e], m[k][e], n[k][e]);
+    repro::lane_fold(m[k], n[k], v[k].m, v[k].n);
+  }
+  Ext s = repro::butterfly_scatter<K>(v);
+  if (nwarps == 1) {
+    s = repro::slots_in_warp<K>(s);
+  } else {                                        // one row a block
+    __shared__ Ext slots[kLanes];
+    if (lane % kSpan == 0) slots[warp * K + lane / kSpan] = s;
+    __syncthreads();
+    s = lane < nwarps * K ? slots[lane] : repro::ext_identity();
+    repro::warp_fold(s.m, s.n);
+  }
+  const float lam = __frcp_rn(s.m);
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < kPerLane; ++e) {
+      const int c = (warp * K + k) * kChunk + e * kLanes + lane;
+      if (c < cols)
+        store(y + r * cols + c,
+              __fmul_rn(__fmul_rn(m[k][e], lam),
+                        repro::exp2_int(__fsub_rn(n[k][e], s.n))));
+    }
+}
+
+// Launch A of the split path: warp (row, slot) writes the slot's (m, n).
+template <typename T>
+__global__ void __launch_bounds__(128)
+    twopass_slots_kernel(const T* __restrict__ x, float* __restrict__ slots,
+                         int rows, int cols) {
+  const size_t g = (static_cast<size_t>(blockIdx.x) * blockDim.x
+                    + threadIdx.x) >> 5;
+  const size_t r = g / kLanes;
+  const int slot = static_cast<int>(g % kLanes);
+  if (r >= static_cast<size_t>(rows)) return;
+  const Ext acc = repro::slot_fold(
+      x + r * cols, cols, slot, repro::ext_identity(),
+      [](const float (&xs)[kPerLane]) {
+        float m[kPerLane], n[kPerLane];
+        Ext v;
+#pragma unroll
+        for (int e = 0; e < kPerLane; ++e) repro::ext_exp(xs[e], m[e], n[e]);
+        repro::lane_fold(m, n, v.m, v.n);
+        return v;
+      });
+  if ((threadIdx.x & 31) == 0) {
+    slots[g * 2] = acc.m;
+    slots[g * 2 + 1] = acc.n;
+  }
+}
+
+// Launch B of the split path: (m_sum, n_sum) from the row's 32 slots, then
+// y over kScaleCols columns.
+template <typename T>
+__global__ void __launch_bounds__(kScaleThreads)
+    twopass_scale_kernel(const T* __restrict__ x,
+                         const float* __restrict__ slots, T* __restrict__ y,
+                         int cols, int blocks_per_row) {
+  const size_t r = blockIdx.x / blocks_per_row;
+  const int base = (blockIdx.x % blocks_per_row) * kScaleCols;
+  const int lane = threadIdx.x & 31;
+  float m_sum = slots[(r * kLanes + lane) * 2];
+  float n_sum = slots[(r * kLanes + lane) * 2 + 1];
+  repro::warp_fold(m_sum, n_sum);
   const float lam = __frcp_rn(m_sum);
-  for (int c = threadIdx.x; c < cols; c += blockDim.x) {  // pass 2
-    float me, ne;
-    repro::ext_exp(to_f32(row[c]), me, ne);
-    store(y + r * cols + c,
-          __fmul_rn(__fmul_rn(me, lam),
-                    repro::exp2_int(__fsub_rn(ne, n_sum))));
+  const T* row = x + r * cols;
+  constexpr int kE = kScaleCols / kScaleThreads;
+  float v[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int c = base + e * kScaleThreads + threadIdx.x;
+    v[e] = c < cols ? to_f32(row[c]) : 0.0f;
+  }
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int c = base + e * kScaleThreads + threadIdx.x;
+    if (c < cols) {
+      float me, ne;
+      repro::ext_exp(v[e], me, ne);
+      store(y + r * cols + c,
+            __fmul_rn(__fmul_rn(me, lam),
+                      repro::exp2_int(__fsub_rn(ne, n_sum))));
+    }
   }
 }
 
@@ -65,8 +173,47 @@ __global__ void twopass_stats_kernel(const T* __restrict__ x,
                                      float* __restrict__ n_out, int cols) {
   const size_t r = blockIdx.x;
   float m_sum, n_sum;
-  row_stats(x + r * cols, cols, m_sum, n_sum);
+  repro::row_stats(x + r * cols, cols, m_sum, n_sum);
   if (threadIdx.x == 0) { m_out[r] = m_sum; n_out[r] = n_sum; }
+}
+
+template <typename T>
+void launch_regs(const T* x, T* y, int rows, int cols, cudaStream_t s) {
+  const repro::RegsShape sh = repro::regs_shape(cols);
+  const dim3 block(kLanes * sh.warps, sh.rows_per_block);
+  const unsigned grid = (rows + sh.rows_per_block - 1) / sh.rows_per_block;
+  if (sh.k == 1)
+    twopass_regs_kernel<T, 1><<<grid, block, 0, s>>>(x, y, rows, cols);
+  else if (sh.k == 2)
+    twopass_regs_kernel<T, 2><<<grid, block, 0, s>>>(x, y, rows, cols);
+  else
+    twopass_regs_kernel<T, 4><<<grid, block, 0, s>>>(x, y, rows, cols);
+}
+
+template <typename T>
+void launch_split(const T* x, T* y, float* slots, int rows, int cols,
+                  cudaStream_t s) {
+  const unsigned warps_a = static_cast<unsigned>(rows) * kLanes;
+  twopass_slots_kernel<T><<<(warps_a + 3) / 4, 128, 0, s>>>(x, slots, rows,
+                                                             cols);
+  const int bpr = (cols + kScaleCols - 1) / kScaleCols;
+  twopass_scale_kernel<T><<<static_cast<unsigned>(rows) * bpr, kScaleThreads,
+                            0, s>>>(x, slots, y, cols, bpr);
+}
+
+template <typename T>
+int softmax(const void* x, void* y, void* slots, int rows, int cols,
+            cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  if (slots == nullptr) {
+    if (cols > repro::kRegsMaxCols)
+      return static_cast<int>(cudaErrorInvalidValue);
+    launch_regs<T>(xt, yt, rows, cols, s);
+  } else {
+    launch_split<T>(xt, yt, static_cast<float*>(slots), rows, cols, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -78,17 +225,13 @@ const char* repro_cuda_error_string(int e) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  x and y are contiguous [rows, cols].
-int twopass_softmax_2d(const void* x, void* y, int rows, int cols, int dtype,
-                       int threads, void* stream) {
+// slots: null for the register path (cols <= 8192); else the split path's
+// float32 scratch [rows, 32, 2].
+int twopass_softmax_2d(const void* x, void* y, void* slots, int rows,
+                       int cols, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    twopass_softmax_kernel<float><<<rows, threads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(y), cols);
-  else
-    twopass_softmax_kernel<__nv_bfloat16><<<rows, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
-        cols);
-  return static_cast<int>(cudaGetLastError());
+  return dtype == 0 ? softmax<float>(x, y, slots, rows, cols, s)
+                    : softmax<__nv_bfloat16>(x, y, slots, rows, cols, s);
 }
 
 int twopass_stats_2d(const void* x, void* m_sum, void* n_sum, int rows,

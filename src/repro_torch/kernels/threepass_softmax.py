@@ -23,13 +23,13 @@ import torch
 from repro_torch.core import numerics
 from repro_torch.kernels import _build
 from repro_torch.kernels.twopass_softmax import _DTYPES, _I, _P, _check
-from repro_torch.kernels.twopass_softmax import threads_for
+from repro_torch.kernels.twopass_softmax import slot_scratch, threads_for
 
 
 @functools.cache
 def _lib():
     lib = _build.load("threepass_softmax")
-    lib.threepass_recompute_2d.argtypes = [_P, _P, _I, _I, _I, _I, _P]
+    lib.threepass_recompute_2d.argtypes = [_P, _P, _P, _I, _I, _I, _P]
     lib.threepass_recompute_2d.restype = _I
     lib.threepass_reload_2d.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
     lib.threepass_reload_2d.restype = _I
@@ -64,7 +64,9 @@ def threepass_reload_2d_plain(x: torch.Tensor) -> torch.Tensor:
 
 def threepass_recompute_2d(x: torch.Tensor) -> torch.Tensor:
     """Rowwise softmax of ``x [R, C]`` by Alg 1 (float32 or bfloat16, y in
-    x.dtype): 3 reads and 1 write of the row."""
+    x.dtype): 3 reads and 1 write of a long row; a row of at most
+    ``REGS_MAX_COLS`` columns is read once into registers and its
+    exponentials computed twice from there."""
     if x.device.type == "cpu":
         return threepass_recompute_2d_plain(x)
     _check(x, "threepass_recompute_2d")
@@ -72,10 +74,12 @@ def threepass_recompute_2d(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty_like(x)
     if rows == 0 or cols == 0:
         return y
+    slots = slot_scratch(x)
     lib = _lib()
     rc = lib.threepass_recompute_2d(
-        x.data_ptr(), y.data_ptr(), rows, cols, _DTYPES[x.dtype],
-        threads_for(cols), torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), y.data_ptr(), None if slots is None else
+        slots.data_ptr(), rows, cols, _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "threepass_recompute_2d")
     threepass_recompute_2d.launches += 1
     return y

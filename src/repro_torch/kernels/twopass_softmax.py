@@ -6,6 +6,12 @@ versions.
 versions beside them for a tensor on the CPU.  There is no fallback: a CUDA
 tensor reaches the kernel or the call raises.  Each wrapper counts its
 launches in ``.launches``.
+
+``twopass_softmax_2d`` (and ``threepass_recompute_2d``) take one of two
+layouts, named by :func:`path_for`: rows of at most ``REGS_MAX_COLS``
+columns are held in registers; longer rows are split over the fold's 32
+slots, two launches with a float32 scratch of ``[rows, 32, 2]`` that the
+wrapper gives.  Both fold in one order, so the bits do not depend on it.
 """
 
 from __future__ import annotations
@@ -26,17 +32,37 @@ _I = ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("twopass_softmax")
-    lib.twopass_softmax_2d.argtypes = [_P, _P, _I, _I, _I, _I, _P]
+    lib.twopass_softmax_2d.argtypes = [_P, _P, _P, _I, _I, _I, _P]
     lib.twopass_softmax_2d.restype = _I
     lib.twopass_stats_2d.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
     lib.twopass_stats_2d.restype = _I
     return lib
 
 
+REGS_MAX_COLS = 8192        # 32 chunks of 256 columns: one a fold slot
+SLOTS = 32                  # fold slots a row (csrc/rowfold.cuh)
+
+
+def path_for(cols: int) -> str:
+    """The layout the softmax kernels take for rows of ``cols`` columns:
+    ``"registers"`` up to ``REGS_MAX_COLS``, else ``"split"``."""
+    return "registers" if cols <= REGS_MAX_COLS else "split"
+
+
+def slot_scratch(x: torch.Tensor):
+    """The split path's float32 scratch ``[rows, 32, 2]`` for ``x``, or
+    None for the register path."""
+    if path_for(x.shape[1]) == "registers":
+        return None
+    return torch.empty((x.shape[0], SLOTS, 2), dtype=torch.float32,
+                       device=x.device)
+
+
 def threads_for(cols: int) -> int:
-    """Threads per row block: about 8 elements a thread, one warp for short
-    rows, at most 1024; always a power of two.  The kernel's sum order does
-    not depend on it."""
+    """Threads per row block of the one-block-a-row kernels (stats, reload,
+    cross-entropy): about 8 elements a thread, one warp for short rows, at
+    most 1024; always a power of two.  The kernels' sum order does not
+    depend on it."""
     want = max(1, -(-cols // 8))
     return min(1024, max(32, 1 << (want - 1).bit_length()))
 
@@ -69,10 +95,12 @@ def twopass_softmax_2d(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty_like(x)
     if rows == 0 or cols == 0:
         return y
+    slots = slot_scratch(x)
     lib = _lib()
     rc = lib.twopass_softmax_2d(
-        x.data_ptr(), y.data_ptr(), rows, cols, _DTYPES[x.dtype],
-        threads_for(cols), torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), y.data_ptr(), None if slots is None else
+        slots.data_ptr(), rows, cols, _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "twopass_softmax_2d")
     twopass_softmax_2d.launches += 1
     return y

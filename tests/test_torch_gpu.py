@@ -1,4 +1,4 @@
-"""The port's three-pass softmax, cross-entropy, fused LM-head
+"""The port's two-pass and three-pass softmax, cross-entropy, fused LM-head
 cross-entropy, flash-attention and decode-attention CUDA kernels against
 their plain versions on the card.  Every test here needs a CUDA device
 and skips without one; the file imports no JAX, so it runs on a machine
@@ -6,6 +6,10 @@ with a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+
+import importlib.util
+import json
+import pathlib
 
 import pytest
 import torch
@@ -16,6 +20,7 @@ from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import threepass_softmax as tp3
+from repro_torch.kernels import twopass_softmax as tp
 from repro_torch.kernels import twopass_xent as txe
 
 F32 = dict(atol=5e-6, rtol=1e-5)
@@ -24,6 +29,19 @@ THREE = {"three_pass_recompute": (tp3.threepass_recompute_2d,
                                   tp3.threepass_recompute_2d_plain),
          "three_pass_reload": (tp3.threepass_reload_2d,
                                tp3.threepass_reload_2d_plain)}
+
+
+# the kernels with a register path and a split path
+TWO_LAYOUTS = {"two_pass": (tp.twopass_softmax_2d,
+                            tp.twopass_softmax_2d_plain),
+               "three_pass_recompute": THREE["three_pass_recompute"]}
+SPLIT_KERNELS = {"two_pass": ("twopass_slots_kernel",
+                              "twopass_scale_kernel"),
+                 "three_pass_recompute": ("recompute_max_kernel",
+                                          "recompute_sum_kernel",
+                                          "recompute_scale_kernel")}
+REGS_KERNEL = {"two_pass": "twopass_regs_kernel",
+               "three_pass_recompute": "recompute_regs_kernel"}
 
 
 @pytest.fixture
@@ -63,6 +81,102 @@ def test_threepass_padding_and_all_neg_inf_rows(cuda):
         keep = torch.arange(40, device=cuda) != 3
         assert torch.equal(y[keep], yp[keep, :1000])
         assert not bool(yp[keep, 1000:].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cols", [1, 31, 32, 255, 256, 257, 1000, 1024,
+                                  1664, 8192, 8193, 152064])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_layouts_match_plain(cuda, dtype, cols):
+    """Two-pass and recompute on either side of the register path's edges
+    (a chunk is 256 columns, the register path ends at 8192): the same
+    ExtExp bits as the plain versions, only the sum order differs."""
+    rows = 5 if cols > 8192 else 37
+    gen = torch.Generator(device=cuda).manual_seed(cols)
+    x = (torch.randn(rows, cols, device=cuda, generator=gen) * 8).to(dtype)
+    x[0, cols // 2 + 1:] = -torch.inf
+    for fn, plain in TWO_LAYOUTS.values():
+        y = fn(x)
+        torch.cuda.synchronize()
+        assert fn.launches == 1 and y.dtype == dtype
+        torch.testing.assert_close(y.float(), plain(x).float(), **_tol(dtype))
+    m, n = tp.twopass_stats_2d(x)
+    mp, np_ = tp.twopass_stats_2d_plain(x)
+    assert torch.equal(n, np_)
+    torch.testing.assert_close(m, mp, atol=0, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cols,padded", [(1000, 8193), (8192, 16384),
+                                         (1000, 1664), (1000, 152064)])
+def test_softmax_bits_under_padding_across_layouts(cuda, cols, padded):
+    """-inf columns add the fold's identity, so a padded row keeps its bits
+    though the padding moves it from the register path to the split one."""
+    gen = torch.Generator(device=cuda).manual_seed(padded)
+    x = torch.randn(6, cols, device=cuda, generator=gen) * 8
+    xp = torch.full((6, padded), -torch.inf, device=cuda)
+    xp[:, :cols] = x
+    for fn in (tp.twopass_softmax_2d, tp3.threepass_recompute_2d,
+               tp3.threepass_reload_2d):
+        y, yp = fn(x), fn(xp)
+        assert torch.equal(y, yp[:, :cols]), fn.__name__
+        assert not bool(yp[:, cols:].any())
+    for a, b in zip(tp.twopass_stats_2d(x), tp.twopass_stats_2d(xp)):
+        assert torch.equal(a, b)
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+def test_two_pass_stats_and_xent_bits_as_pinned(cuda):
+    """The two-pass softmax and stats kernels, and xent_fwd_2d (whose pass
+    1 is row_stats), give the bits pinned in chip_smoke.py."""
+    cs = _chip_smoke()
+    assert cs.twopass_digest(torch, tp) == cs.TWOPASS_DIGEST
+    assert cs.xent_digest(torch, txe) == cs.XENT_DIGEST
+
+
+def _kernel_grids(fn, tmp_path):
+    """(name, blocks) of each kernel ``fn`` launches, from the profiler's
+    trace."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    out = []
+    for e in events:
+        if e.get("cat") == "kernel":
+            g = e["args"]["grid"]
+            out.append((e["name"], g[0] * g[1] * g[2]))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", ["two_pass", "three_pass_recompute"])
+def test_layout_chosen_by_row_length(cuda, tmp_path, algo):
+    """Rows of at most 8192 columns take the register kernel alone; the
+    sampler's [8, 152064] takes the split kernels, each launching more
+    blocks than there are rows."""
+    fn = TWO_LAYOUTS[algo][0]
+    x = torch.randn(8, 152064, device=cuda)
+    grids = _kernel_grids(lambda: fn(x), tmp_path)
+    for want in SPLIT_KERNELS[algo]:
+        blocks = [b for name, b in grids if want in name]
+        assert len(blocks) == 1 and blocks[0] > 8, (want, grids)
+    assert not any(REGS_KERNEL[algo] in name for name, _ in grids)
+    assert tp.path_for(152064) == "split" and tp.path_for(8192) == "registers"
+    short = x[:, :8192].contiguous()
+    grids = _kernel_grids(lambda: fn(short), tmp_path)
+    assert [REGS_KERNEL[algo] in name for name, _ in grids] == [True], grids
 
 
 @pytest.mark.gpu
