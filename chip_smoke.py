@@ -14,9 +14,14 @@ Phases (any failure exits non-zero; nothing is caught):
    attention), with its time, its plain version's time, one PyTorch
    library call's time where one computes the same function, and its
    bound (bytes over 3.35 TB/s or operations over the peak of the unit
-   that does them, float32 or bf16 tensor cores, whichever is larger); the softmax kernels' bits do not change when a
-   row is padded with -inf columns, and the two-pass kernels' bits equal
-   those recorded before their fold moved into ``rowfold.cuh``; the
+   that does them, float32 or bf16 tensor cores, whichever is larger); the
+   softmax rows are timed by CUDA-graph replay, eager beside, and each
+   check names the layout a kernel took (rows of at most 8192 columns in
+   registers, longer ones split over the fold's 32 slots); the softmax
+   kernels' bits do not change when a row is padded with -inf columns,
+   also across that boundary, the two-pass kernels' bits equal those
+   recorded before their fold moved into ``rowfold.cuh``, and
+   ``xent_fwd_2d``'s those recorded before the max-first lane fold; the
    decode kernels' general tile body gives the bits recorded before the
    split-KV grid, and they are also timed at one slot of 16,384 positions;
    the paper's comparison times the three softmax algorithms side by side,
@@ -101,6 +106,11 @@ XENT_BWD_OPS = 31          # pass 2 (28) + the one-hot, subtract, scale
 # 74bac5d); the move must change no bit.
 TWOPASS_DIGEST = ("a70341be27101df64373f32d0bd805d7"
                   "cfedd171cb181f04eb8442d31de3af6e")
+# sha256 of xent_fwd_2d's outputs on xent_digest's inputs, as the kernel gave
+# them before the max-first lane fold and the conversion-free exp2_int
+# (commit 44094ad): neither may change a bit.
+XENT_DIGEST = ("50efecde4bf1d747a37544f31fa8de5f"
+               "18184cdc9762ceca49f2e51cbc545f76")
 # sha256 of the decode kernels' outputs through the general tile body on
 # decode_digest's inputs, as the one-block-per-slot kernels gave them
 # before the split-KV grid (commit 5b92b8c): the split must change no bit.
@@ -221,6 +231,22 @@ def twopass_digest(torch, tp) -> str:
                            ("sampler", 8, 152064, torch.float32)):
         x = score_rows(torch, rng, name, r, c).to(dt)
         for t in (tp.twopass_softmax_2d(x), *tp.twopass_stats_2d(x)):
+            h.update(t.float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def xent_digest(torch, xe) -> str:
+    """sha256 of ``xent_fwd_2d``'s outputs (loss, m_sum, n_sum) on seeded
+    logits: float32 and bfloat16 rows of 1000 columns and float32 rows of
+    the vocabulary, with labels inside and outside [0, V)."""
+    h = hashlib.sha256()
+    rng = np.random.default_rng(2468)
+    for r, c, dt in ((300, 1000, torch.float32), (300, 1000, torch.bfloat16),
+                     (16, 152064, torch.float32)):
+        x = torch.from_numpy(rng.standard_normal((r, c), dtype="float32")
+                             * 4).to("cuda").to(dt)
+        lab = torch.from_numpy(rng.integers(-1, c + 1, r)).to("cuda")
+        for t in xe.xent_fwd_2d(x, lab):
             h.update(t.float().cpu().numpy().tobytes())
     return h.hexdigest()
 
@@ -755,7 +781,8 @@ def paper_comparison(torch, rows) -> None:
     traffic in the paper's count (3N, 4N, 5N).  The serving shapes take the
     kernel phase's times; only rows whose re-reads miss the 50 MB L2 --
     [512, 524288]: 2 MiB rows, over a hundred in flight -- can show that
-    traffic, and they are timed here."""
+    traffic, and they are timed here, by graph replay with eager beside,
+    and ``torch.softmax`` with them."""
     from repro_torch.kernels import threepass_softmax as tp3
     from repro_torch.kernels import twopass_softmax as tp
 
@@ -766,20 +793,27 @@ def paper_comparison(torch, rows) -> None:
               tp3.threepass_reload_2d, 5))
     r, c = 512, 524288
     x = score_rows(torch, np.random.default_rng(11), "beyond_l2", r, c)
-    times = {kname: cuda_ms(torch, lambda: fn(x))
+    times = {kname: dict(ms=graph_ms(torch, lambda: fn(x)),
+                         eager_ms=cuda_ms(torch, lambda: fn(x)))
              for _, kname, fn, _ in algos}
+    times["library"] = dict(ms=graph_ms(torch, lambda: torch.softmax(x, -1)),
+                            eager_ms=cuda_ms(torch,
+                                             lambda: torch.softmax(x, -1)))
     del x
     for case in ("prefill_bucket_1024", "sampler", "beyond_l2"):
         for algo, kname, _, passes in algos:
-            if case == "beyond_l2":
-                ms, shape = times[kname], [r, c]
-            else:
-                ms, shape = rows[kname][case]["ms"], rows[kname][case]["shape"]
+            t = times[kname] if case == "beyond_l2" else rows[kname][case]
+            shape = [r, c] if case == "beyond_l2" else t["shape"]
             nb = shape[0] * shape[1] * 4
             say("paper_comparison", case=case, shape=shape, algorithm=algo,
-                ms=ms, floor_2n_ms=2 * nb / HBM_BYTES_S * 1e3,
+                path=(tp.path_for(shape[1]) if passes < 5
+                      else "one block a row"),
+                ms=t["ms"], eager_ms=t["eager_ms"],
+                floor_2n_ms=2 * nb / HBM_BYTES_S * 1e3,
                 paper_traffic=f"{passes}N",
                 paper_ms=passes * nb / HBM_BYTES_S * 1e3)
+    say("paper_comparison", case="beyond_l2", shape=[r, c],
+        algorithm="torch.softmax", **times["library"])
 
 
 def kernel_phase(torch, rng):
@@ -806,6 +840,15 @@ def kernel_phase(torch, rng):
         check(excess <= 1.0, f"{what}: max abs err {a} beyond {tol}")
         return dict(max_abs_err=a, max_rel_err=rel, tol=tol,
                     worst_err_over_limit=excess)
+
+    def timed(fn, plain, library):
+        """The softmax rows' times: device time by graph replay (the
+        register kernels take less than their wrapper's host time), eager
+        beside; the plain version eager."""
+        return dict(ms=graph_ms(torch, fn), eager_ms=cuda_ms(torch, fn),
+                    plain_ms=cuda_ms(torch, plain, 5),
+                    library_ms=graph_ms(torch, library),
+                    library_eager_ms=cuda_ms(torch, library))
 
     # -- softmax under the paper's three algorithms, and the stats: prefill
     # scores and the sampler.  Two-pass: the same ExtExp bits, only the
@@ -835,7 +878,7 @@ def kernel_phase(torch, rng):
                                                      atol=0),
               f"twopass_stats_2d {name}: m err {sa}")
         say("kernel_check", kernel="twopass_softmax_2d", shape=[r, c],
-            case=name, max_abs_err=a, max_rel_err=rel,
+            case=name, path=tp.path_for(c), max_abs_err=a, max_rel_err=rel,
             tol="atol 5e-6 rtol 1e-5: the same ExtExp bits, only the "
                 "order of the (m, n) sum differs")
         say("kernel_check", kernel="twopass_stats_2d", shape=[r, c],
@@ -843,21 +886,20 @@ def kernel_phase(torch, rng):
             tol="n_sum exact (a max); m_sum rtol 1e-5 (sum order)")
         nb = r * c * 4
         if name in ("prefill_bucket_1024", "sampler"):
-            t_k = cuda_ms(torch, lambda: tp.twopass_softmax_2d(x))
-            t_p = cuda_ms(torch, lambda: tp.twopass_softmax_2d_plain(x), 5)
-            t_l = cuda_ms(torch, lambda: torch.softmax(x, -1))
             b_ms, b_by = bound(2 * nb, SOFTMAX_OPS * r * c)
             rows.setdefault("twopass_softmax_2d", {})[name] = dict(
-                ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                bound_by=b_by, paper_3n_ms=3 * nb / HBM_BYTES_S * 1e3,
-                max_abs_err=a, shape=[r, c])
-            s_k = cuda_ms(torch, lambda: tp.twopass_stats_2d(x))
-            s_p = cuda_ms(torch, lambda: tp.twopass_stats_2d_plain(x), 5)
-            s_l = cuda_ms(torch, lambda: torch.logsumexp(x, -1))
+                **timed(lambda: tp.twopass_softmax_2d(x),
+                        lambda: tp.twopass_softmax_2d_plain(x),
+                        lambda: torch.softmax(x, -1)),
+                bound_ms=b_ms, bound_by=b_by,
+                paper_3n_ms=3 * nb / HBM_BYTES_S * 1e3, max_abs_err=a,
+                shape=[r, c], path=tp.path_for(c))
             b_ms, b_by = bound(nb + 8 * r, STATS_OPS * r * c)
             rows.setdefault("twopass_stats_2d", {})[name] = dict(
-                ms=s_k, plain_ms=s_p, library_ms=s_l, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=sa, shape=[r, c])
+                **timed(lambda: tp.twopass_stats_2d(x),
+                        lambda: tp.twopass_stats_2d_plain(x),
+                        lambda: torch.logsumexp(x, -1)),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=sa, shape=[r, c])
         del y, m, n, mp, np_
         for dt in (torch.float32, torch.bfloat16):
             xd = x.to(dt)
@@ -867,26 +909,29 @@ def kernel_phase(torch, rng):
                 check(got.dtype == dt, f"{kname}: output dtype")
                 res = held(got, plain(xd), softmax_tol[dt],
                            f"{kname} {name} {dt}")
+                path = (tp.path_for(c) if kname == "threepass_recompute_2d"
+                        else "one block a row")
                 say("kernel_check", kernel=kname, shape=[r, c], case=name,
-                    dtype=str(dt), **res)
+                    dtype=str(dt), path=path, **res)
                 if dt == torch.float32 and name in ("prefill_bucket_1024",
                                                     "sampler"):
                     rows.setdefault(kname, {})[name] = dict(
-                        ms=cuda_ms(torch, lambda: fn(x)),
-                        plain_ms=cuda_ms(torch, lambda: plain(x), 5),
-                        library_ms=cuda_ms(torch,
-                                           lambda: torch.softmax(x, -1)),
+                        **timed(lambda: fn(x), lambda: plain(x),
+                                lambda: torch.softmax(x, -1)),
                         **dict(zip(("bound_ms", "bound_by"),
                                    bound(2 * nb, ops * r * c))),
-                        max_abs_err=res["max_abs_err"], shape=[r, c])
+                        max_abs_err=res["max_abs_err"], shape=[r, c],
+                        path=path)
                 del got
             del xd
         del x
 
     # -inf padding changes no bit, though it changes the threads per row
+    # and, past 8192 columns, the layout (registers -> split)
     softmax_fns = (tp.twopass_softmax_2d, tp3.threepass_recompute_2d,
                    tp3.threepass_reload_2d)
-    for r, c, c2 in ((40 * 37, 1000, 1664), (8, 1000, 152064)):
+    for r, c, c2 in ((40 * 37, 1000, 1664), (40 * 37, 1000, 8193),
+                     (40, 8192, 16384), (8, 1000, 152064)):
         x = torch.from_numpy(rng.standard_normal((r, c), dtype="float32")
                              * 8).to(dev)
         xp = torch.full((r, c2), -torch.inf, device=dev)
@@ -903,6 +948,7 @@ def kernel_phase(torch, rng):
             kernel="+".join(f.__name__ for f in softmax_fns)
             + "+twopass_stats_2d",
             case=f"-inf padding {c} -> {c2} columns",
+            paths=[tp.path_for(c), tp.path_for(c2)],
             threads=[tp.threads_for(c), tp.threads_for(c2)],
             bitwise_equal=True)
     del x, xp, y, yp, st, stp
@@ -926,6 +972,13 @@ def kernel_phase(torch, rng):
     say("kernel_check", kernel="twopass_softmax_2d+twopass_stats_2d",
         case="bits as before the fold moved into rowfold.cuh",
         sha256=digest, equal=True)
+    from repro_torch.kernels import twopass_xent as xe
+    digest = xent_digest(torch, xe)
+    check(digest == XENT_DIGEST,
+          f"xent_fwd_2d bits changed: {digest} != {XENT_DIGEST}")
+    say("kernel_check", kernel="xent_fwd_2d",
+        case="bits as before the max-first lane fold", sha256=digest,
+        equal=True)
 
     xent_phase(torch, held, softmax_tol, rows)
 
