@@ -96,9 +96,12 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_S = 989e12        # H100 SXM dense bf16 on the tensor cores
-SOFTMAX_OPS = 74           # float ops per element, both passes
+# Float instructions an element, counted in the kernels' SASS
+# (scripts/softmax_probe.py): twopass_regs_kernel<float, 4> 1418 and
+# recompute_regs_kernel<float, 4> 1615 for 32 elements a lane.
+SOFTMAX_OPS = 44           # both passes, ExtExp once
 STATS_OPS = 46             # float ops per element, pass 1 (with its folds)
-RECOMPUTE_OPS = 61         # Alg 1: max 1, sum 30, scale 30 per element
+RECOMPUTE_OPS = 50         # Alg 1: max, sum and scale, ExtExp twice
 RELOAD_OPS = 32            # Alg 2: max 1, exp + store + sum 30, scale 1
 XENT_BWD_OPS = 31          # pass 2 (28) + the one-hot, subtract, scale
 # sha256 of the two-pass kernels' outputs on twopass_digest's inputs, as

@@ -52,11 +52,25 @@ namespace {
 using repro::store;
 using repro::to_f32;
 
-// Paper Alg 4 for t <= 0: m * 2^n from ExtExp, rebuilt exactly.
+// Paper Alg 4 for t <= 0 (or NaN): m * 2^n from ExtExp, rebuilt exactly,
+// op for op as ext_exp and exp2_int but for the steps that cannot change
+// the result at such t: the upper clamps (t <= 0 and n <= 0) and the
+// +-inf cases (t = +inf does not occur, t = x - mu; t = -inf gives n <=
+// -127, which flushes to the +0 that ext_exp's (0, -1e38) gives).
 __device__ __forceinline__ float exp_nonpos(float t) {
-  float m, n;
-  repro::ext_exp(t, m, n);
-  return __fmul_rn(m, repro::exp2_int(n));
+  const float xc = fmaxf(t, -repro::kXClamp);     // NaN -> -1e37, as there
+  const float n = rintf(__fmul_rn(xc, repro::kLog2e));
+  float r = __fsub_rn(xc, __fmul_rn(n, repro::kLn2Hi));
+  r = __fsub_rn(r, __fmul_rn(n, repro::kLn2Lo));
+  r = fminf(fmaxf(r, -repro::kTClamp), repro::kTClamp);
+  float p = __fadd_rn(__fmul_rn(r, repro::kC5), repro::kC4);
+  p = __fadd_rn(__fmul_rn(p, r), repro::kC3);
+  p = __fadd_rn(__fmul_rn(p, r), repro::kC2);
+  p = __fadd_rn(__fmul_rn(p, r), repro::kC1);
+  const float m = __fadd_rn(__fmul_rn(p, r), 1.0f);
+  const float two_n = __uint_as_float(
+      __float_as_uint(__fadd_rn(fmaxf(n, -127.0f), 8388735.0f)) << 23);
+  return __fmul_rn(m, two_n);
 }
 
 using repro::kChunk;

@@ -240,6 +240,36 @@ def test_exp2_int_exponent_field_equals_conversion():
     assert torch.equal(got[1:255], torch.exp2(torch.arange(-126.0, 128.0)))
 
 
+def exp_nonpos_lean(t: torch.Tensor) -> torch.Tensor:
+    """threepass_softmax.cu's exp_nonpos: ExtExp and exp2_int without the
+    upper clamps and the +-inf cases, which cannot matter at t <= 0."""
+    xc = torch.maximum(t, torch.tensor(-nm._X_CLAMP))
+    n = torch.round(xc * nm.LOG2E)
+    r = xc - n * nm.LN2_HI
+    r = r - n * nm.LN2_LO
+    r = r.clamp(-nm._T_CLAMP, nm._T_CLAMP)
+    p = r * nm.EXP_C5 + nm.EXP_C4
+    p = p * r + nm.EXP_C3
+    p = p * r + nm.EXP_C2
+    p = p * r + nm.EXP_C1
+    m = p * r + 1.0
+    return m * exp2_int_field(torch.maximum(n, torch.tensor(-127.0)))
+
+
+def test_lean_exp_nonpos_equals_ext_exp_rebuilt():
+    """For t <= 0 (the three-pass kernels' x - mu) the lean form gives the
+    bits of ExtExp rebuilt as m * exp2_int(n), -inf and deep underflow
+    included."""
+    rng = np.random.default_rng(5)
+    t = -np.abs(np.concatenate([
+        rng.standard_normal(200000) * s for s in (1, 30, 1e3, 1e6, 1e30)]))
+    t = torch.from_numpy(np.concatenate(
+        [t, [0.0, -0.0, -87.3, -88.7, -103.0, -1e37, -3e38, -np.inf]])
+        .astype(np.float32))
+    assert torch.equal(exp_nonpos_lean(t).view(torch.int32),
+                       tp3._exp_nonpos(t).view(torch.int32))
+
+
 @pytest.mark.parametrize("scale", [1.0, 10.0, 100.0, 1e3, 1e4])
 def test_max_first_lane_fold_equals_sequential(scale):
     rng = np.random.default_rng(int(scale))
