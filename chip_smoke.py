@@ -97,9 +97,9 @@ HBM_BYTES_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_S = 989e12        # H100 SXM dense bf16 on the tensor cores
 # Float instructions an element, counted in the kernels' SASS
-# (scripts/softmax_probe.py): twopass_regs_kernel<float, 4> 1418 and
+# (scripts/softmax_probe.py): twopass_regs_kernel<float, 4> 1354 and
 # recompute_regs_kernel<float, 4> 1615 for 32 elements a lane.
-SOFTMAX_OPS = 44           # both passes, ExtExp once
+SOFTMAX_OPS = 42           # both passes, ExtExp once
 STATS_OPS = 46             # float ops per element, pass 1 (with its folds)
 RECOMPUTE_OPS = 50         # Alg 1: max, sum and scale, ExtExp twice
 RELOAD_OPS = 32            # Alg 2: max 1, exp + store + sum 30, scale 1

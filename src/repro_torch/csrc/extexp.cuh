@@ -32,9 +32,18 @@ constexpr float kTClamp = 0.35f;
 // 2^23 + 127 leaves n + 127 in the low mantissa bits of a float in
 // [2^23, 2^24), so no float-to-int conversion is issued: the shift keeps
 // those 8 bits and drops the float's own exponent.
-__device__ __forceinline__ float exp2_int(float n) {
-  n = fminf(fmaxf(n, -127.0f), 127.0f);
+__device__ __forceinline__ float exp2_int_field(float n) {
   return __uint_as_float(__float_as_uint(__fadd_rn(n, 8388735.0f)) << 23);
+}
+
+__device__ __forceinline__ float exp2_int(float n) {
+  return exp2_int_field(fminf(fmaxf(n, -127.0f), 127.0f));
+}
+
+// exp2_int for n <= 0 (a difference to a maximum): its upper clamp is then
+// a no-op and is left out.
+__device__ __forceinline__ float exp2_int_nonpos(float n) {
+  return exp2_int_field(fmaxf(n, -127.0f));
 }
 
 // e^x = m * 2^n with the reconstruction step left out.  rintf rounds half

@@ -35,6 +35,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "extexp.cuh"
 
 namespace repro {
@@ -82,7 +84,8 @@ __device__ __forceinline__ void lane_fold(const float (&m)[kPerLane],
   ms = 0.0f;
 #pragma unroll
   for (int e = 0; e < kPerLane; ++e)
-    ms = __fadd_rn(ms, __fmul_rn(m[e], exp2_int(__fsub_rn(n[e], ns))));
+    ms = __fadd_rn(ms,
+                   __fmul_rn(m[e], exp2_int_nonpos(__fsub_rn(n[e], ns))));
 }
 
 // The values the folds run on: an (m, n) pair, or a float sum.
@@ -194,19 +197,44 @@ __device__ __forceinline__ V slot_fold(const T* row, int cols, int slot,
   return acc;
 }
 
-// The register path's launch shape for a row of `cols` <= kRegsMaxCols
-// columns: K chunks a warp (1, 2 or 4), W warps a row, and rows a block
-// (four when one warp holds a row, so that no barrier is needed).
-struct RegsShape {
-  int k, warps, rows_per_block;
-};
-
-inline RegsShape regs_shape(int cols) {
+// The register layout's launch for `rows` rows of `cols` <= kRegsMaxCols
+// columns: K chunks a warp (1, 2 or 4), W warps a row (blockDim.x = 32 W)
+// and rows a block (blockDim.y: four when one warp holds a row, so that no
+// barrier is needed).  launch(std::integral_constant<int, K>, grid, block)
+// launches the kernel for K.
+template <typename Launch>
+void launch_regs(int rows, int cols, Launch launch) {
   const int chunks = (cols + kChunk - 1) / kChunk;
-  if (chunks <= 1) return {1, 1, 4};
-  if (chunks <= 2) return {2, 1, 4};
-  if (chunks <= 4) return {4, 1, 4};
-  return {4, (chunks + 3) / 4, 1};
+  const int k = chunks <= 1 ? 1 : chunks <= 2 ? 2 : 4;
+  const int warps = (chunks + k - 1) / k, per_block = warps == 1 ? 4 : 1;
+  const dim3 block(kLanes * warps, per_block);
+  const unsigned grid = (rows + per_block - 1) / per_block;
+  if (k == 1) launch(std::integral_constant<int, 1>{}, grid, block);
+  else if (k == 2) launch(std::integral_constant<int, 2>{}, grid, block);
+  else launch(std::integral_constant<int, 4>{}, grid, block);
+}
+
+// The split layout's last launch writes y over kScaleCols columns a block
+// of kScaleThreads: scale_cols stores f(x) for those columns of one row,
+// every load issued before the first store.
+constexpr int kScaleThreads = 256;
+constexpr int kScaleCols = kScaleThreads * 16;
+
+template <typename T, typename F>
+__device__ __forceinline__ void scale_cols(const T* row, T* yrow, int cols,
+                                           int base, F f) {
+  constexpr int kE = kScaleCols / kScaleThreads;
+  float v[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int c = base + e * kScaleThreads + threadIdx.x;
+    v[e] = c < cols ? to_f32(row[c]) : 0.0f;
+  }
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int c = base + e * kScaleThreads + threadIdx.x;
+    if (c < cols) store(yrow + c, f(v[e]));
+  }
 }
 
 // Pass 1 of the two-pass softmax: (m_sum, n_sum) of the row, for every

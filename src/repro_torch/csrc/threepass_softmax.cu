@@ -68,17 +68,14 @@ __device__ __forceinline__ float exp_nonpos(float t) {
   p = __fadd_rn(__fmul_rn(p, r), repro::kC2);
   p = __fadd_rn(__fmul_rn(p, r), repro::kC1);
   const float m = __fadd_rn(__fmul_rn(p, r), 1.0f);
-  const float two_n = __uint_as_float(
-      __float_as_uint(__fadd_rn(fmaxf(n, -127.0f), 8388735.0f)) << 23);
-  return __fmul_rn(m, two_n);
+  return __fmul_rn(m, repro::exp2_int_nonpos(n));
 }
 
 using repro::kChunk;
 using repro::kLanes;
 using repro::kPerLane;
-
-constexpr int kScaleThreads = 256;                // launch 3
-constexpr int kScaleCols = kScaleThreads * 16;    // columns a block
+using repro::kScaleCols;
+using repro::kScaleThreads;
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1)
@@ -120,7 +117,7 @@ __global__ void __launch_bounds__(256)
       mu = fmaxf(mu, v[k][e]);
     }
   mu = warp_max(mu);                                           // pass 1
-  __shared__ float smax[8], ssum[kLanes];
+  __shared__ float smax[8], ssum[kLanes];       // W <= 8 warps a row
   if (nwarps > 1) {
     if (lane == 0) smax[warp] = mu;
     __syncthreads();
@@ -216,21 +213,9 @@ __global__ void __launch_bounds__(kScaleThreads)
   const float mu = warp_max(slots[(r * kLanes + lane) * 2]);
   const float inv =
       __frcp_rn(repro::warp_sum(slots[(r * kLanes + lane) * 2 + 1]));
-  const T* row = x + r * cols;
-  constexpr int kE = kScaleCols / kScaleThreads;
-  float v[kE];
-#pragma unroll
-  for (int e = 0; e < kE; ++e) {
-    const int c = base + e * kScaleThreads + threadIdx.x;
-    v[e] = c < cols ? to_f32(row[c]) : 0.0f;
-  }
-#pragma unroll
-  for (int e = 0; e < kE; ++e) {
-    const int c = base + e * kScaleThreads + threadIdx.x;
-    if (c < cols)
-      store(y + r * cols + c,
-            __fmul_rn(exp_nonpos(__fsub_rn(v[e], mu)), inv));
-  }
+  repro::scale_cols(x + r * cols, y + r * cols, cols, base, [&](float v) {
+    return __fmul_rn(exp_nonpos(__fsub_rn(v, mu)), inv);
+  });
 }
 
 // e may be y itself (float32 x): then pass 3 scales y in place.  The
@@ -253,19 +238,6 @@ __global__ void threepass_reload_kernel(const T* __restrict__ x, float* e,
 }
 
 template <typename T>
-void launch_regs(const T* x, T* y, int rows, int cols, cudaStream_t s) {
-  const repro::RegsShape sh = repro::regs_shape(cols);
-  const dim3 block(kLanes * sh.warps, sh.rows_per_block);
-  const unsigned grid = (rows + sh.rows_per_block - 1) / sh.rows_per_block;
-  if (sh.k == 1)
-    recompute_regs_kernel<T, 1><<<grid, block, 0, s>>>(x, y, rows, cols);
-  else if (sh.k == 2)
-    recompute_regs_kernel<T, 2><<<grid, block, 0, s>>>(x, y, rows, cols);
-  else
-    recompute_regs_kernel<T, 4><<<grid, block, 0, s>>>(x, y, rows, cols);
-}
-
-template <typename T>
 void launch_split(const T* x, T* y, float* slots, int rows, int cols,
                   cudaStream_t s) {
   const unsigned blocks = static_cast<unsigned>(rows) * kLanes / 4;
@@ -284,7 +256,10 @@ int recompute(const void* x, void* y, void* slots, int rows, int cols,
   if (slots == nullptr) {
     if (cols > repro::kRegsMaxCols)
       return static_cast<int>(cudaErrorInvalidValue);
-    launch_regs<T>(xt, yt, rows, cols, s);
+    repro::launch_regs(rows, cols, [&](auto k, unsigned grid, dim3 block) {
+      recompute_regs_kernel<T, decltype(k)::value>
+          <<<grid, block, 0, s>>>(xt, yt, rows, cols);
+    });
   } else {
     launch_split<T>(xt, yt, static_cast<float*>(slots), rows, cols, s);
   }

@@ -49,11 +49,10 @@ using repro::Ext;
 using repro::kChunk;
 using repro::kLanes;
 using repro::kPerLane;
+using repro::kScaleCols;
+using repro::kScaleThreads;
 using repro::store;
 using repro::to_f32;
-
-constexpr int kScaleThreads = 256;                // launch B
-constexpr int kScaleCols = kScaleThreads * 16;    // columns a block
 
 // Rows of at most 32 chunks, K chunks a warp, blockDim = (32 W, rows a
 // block): pass 1 and pass 2 from registers.
@@ -102,7 +101,7 @@ __global__ void __launch_bounds__(256)
       if (c < cols)
         store(y + r * cols + c,
               __fmul_rn(__fmul_rn(m[k][e], lam),
-                        repro::exp2_int(__fsub_rn(n[k][e], s.n))));
+                        repro::exp2_int_nonpos(__fsub_rn(n[k][e], s.n))));
     }
 }
 
@@ -146,25 +145,12 @@ __global__ void __launch_bounds__(kScaleThreads)
   float n_sum = slots[(r * kLanes + lane) * 2 + 1];
   repro::warp_fold(m_sum, n_sum);
   const float lam = __frcp_rn(m_sum);
-  const T* row = x + r * cols;
-  constexpr int kE = kScaleCols / kScaleThreads;
-  float v[kE];
-#pragma unroll
-  for (int e = 0; e < kE; ++e) {
-    const int c = base + e * kScaleThreads + threadIdx.x;
-    v[e] = c < cols ? to_f32(row[c]) : 0.0f;
-  }
-#pragma unroll
-  for (int e = 0; e < kE; ++e) {
-    const int c = base + e * kScaleThreads + threadIdx.x;
-    if (c < cols) {
-      float me, ne;
-      repro::ext_exp(v[e], me, ne);
-      store(y + r * cols + c,
-            __fmul_rn(__fmul_rn(me, lam),
-                      repro::exp2_int(__fsub_rn(ne, n_sum))));
-    }
-  }
+  repro::scale_cols(x + r * cols, y + r * cols, cols, base, [&](float v) {
+    float me, ne;
+    repro::ext_exp(v, me, ne);
+    return __fmul_rn(__fmul_rn(me, lam),
+                     repro::exp2_int_nonpos(__fsub_rn(ne, n_sum)));
+  });
 }
 
 template <typename T>
@@ -175,19 +161,6 @@ __global__ void twopass_stats_kernel(const T* __restrict__ x,
   float m_sum, n_sum;
   repro::row_stats(x + r * cols, cols, m_sum, n_sum);
   if (threadIdx.x == 0) { m_out[r] = m_sum; n_out[r] = n_sum; }
-}
-
-template <typename T>
-void launch_regs(const T* x, T* y, int rows, int cols, cudaStream_t s) {
-  const repro::RegsShape sh = repro::regs_shape(cols);
-  const dim3 block(kLanes * sh.warps, sh.rows_per_block);
-  const unsigned grid = (rows + sh.rows_per_block - 1) / sh.rows_per_block;
-  if (sh.k == 1)
-    twopass_regs_kernel<T, 1><<<grid, block, 0, s>>>(x, y, rows, cols);
-  else if (sh.k == 2)
-    twopass_regs_kernel<T, 2><<<grid, block, 0, s>>>(x, y, rows, cols);
-  else
-    twopass_regs_kernel<T, 4><<<grid, block, 0, s>>>(x, y, rows, cols);
 }
 
 template <typename T>
@@ -209,7 +182,10 @@ int softmax(const void* x, void* y, void* slots, int rows, int cols,
   if (slots == nullptr) {
     if (cols > repro::kRegsMaxCols)
       return static_cast<int>(cudaErrorInvalidValue);
-    launch_regs<T>(xt, yt, rows, cols, s);
+    repro::launch_regs(rows, cols, [&](auto k, unsigned grid, dim3 block) {
+      twopass_regs_kernel<T, decltype(k)::value>
+          <<<grid, block, 0, s>>>(xt, yt, rows, cols);
+    });
   } else {
     launch_split<T>(xt, yt, static_cast<float*>(slots), rows, cols, s);
   }

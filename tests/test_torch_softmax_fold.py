@@ -38,7 +38,7 @@ BATCH = 4                                  # rowfold.cuh kBatch
 # ---------------------------------------------------------------------------
 # The device arithmetic, op by op.
 # ---------------------------------------------------------------------------
-def exp2_int_field(n: torch.Tensor) -> torch.Tensor:
+def exp2_int_device(n: torch.Tensor) -> torch.Tensor:
     """extexp.cuh's exp2_int: n + 2^23 + 127 leaves n + 127 in the low
     mantissa bits; a 32-bit shift by 23 moves them into the exponent."""
     n = n.clamp(-127.0, 127.0)
@@ -128,7 +128,7 @@ def ext_lane_max_first(m, n):
         ns = torch.maximum(ns, n[..., e, :])
     ms = torch.zeros_like(ns)
     for e in range(PER_LANE):
-        ms = ms + m[..., e, :] * exp2_int_field(n[..., e, :] - ns)
+        ms = ms + m[..., e, :] * exp2_int_device(n[..., e, :] - ns)
     return (ms, ns)
 
 
@@ -234,8 +234,11 @@ def test_exp2_int_exponent_field_equals_conversion():
     n = torch.cat([torch.arange(-127, 128, dtype=torch.float32),
                    torch.tensor([-0.0, -1e38, -1e4, -128.0, 128.0, 1e4,
                                  1e38])])
-    got, want = exp2_int_field(n), nm.exp2_int(n)
+    got, want = exp2_int_device(n), nm.exp2_int(n)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    nonpos = n[n <= 0]                  # exp2_int_nonpos: no upper clamp
+    assert torch.equal(exp2_int_device(nonpos.clamp(min=-127.0)),
+                       nm.exp2_int(nonpos))
     assert got[0] == 0.0                       # n <= -127 flushes to zero
     assert torch.equal(got[1:255], torch.exp2(torch.arange(-126.0, 128.0)))
 
@@ -253,7 +256,7 @@ def exp_nonpos_lean(t: torch.Tensor) -> torch.Tensor:
     p = p * r + nm.EXP_C2
     p = p * r + nm.EXP_C1
     m = p * r + 1.0
-    return m * exp2_int_field(torch.maximum(n, torch.tensor(-127.0)))
+    return m * exp2_int_device(torch.maximum(n, torch.tensor(-127.0)))
 
 
 def test_lean_exp_nonpos_equals_ext_exp_rebuilt():
