@@ -9,7 +9,9 @@ with a card:
 
 import importlib.util
 import json
+import math
 import pathlib
+import tempfile
 
 import pytest
 import torch
@@ -142,40 +144,46 @@ def test_two_pass_stats_and_xent_bits_as_pinned(cuda):
     assert cs.xent_digest(torch, txe) == cs.XENT_DIGEST
 
 
-def _kernel_grids(fn, tmp_path):
-    """(name, blocks) of each kernel ``fn`` launches, from the profiler's
-    trace."""
+def _launched_kernels(fn, expect, tries=5):
+    """(name, blocks) of each kernel one call of ``fn`` launches, from the
+    profiler's trace.  A profiler session sometimes comes back without
+    some of its kernel records (seen in a few full runs of this file on
+    an H100); a session whose
+    kernel names lack one of the substrings ``expect`` is taken again, up
+    to ``tries`` times, and the last one is returned for the caller's
+    checks."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    path = tmp_path / "trace.json"
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    out = []
-    for e in events:
-        if e.get("cat") == "kernel":
-            g = e["args"]["grid"]
-            out.append((e["name"], g[0] * g[1] * g[2]))
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = pathlib.Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        out = [(e["name"], math.prod(e["args"]["grid"])) for e in events
+               if e.get("cat") == "kernel"]
+        if all(any(w in name for name, _ in out) for w in expect):
+            break
     return out
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("algo", ["two_pass", "three_pass_recompute"])
-def test_layout_chosen_by_row_length(cuda, tmp_path, algo):
+def test_layout_chosen_by_row_length(cuda, algo):
     """Rows of at most 8192 columns take the register kernel alone; the
     sampler's [8, 152064] takes the split kernels, each launching more
     blocks than there are rows."""
     fn = TWO_LAYOUTS[algo][0]
     x = torch.randn(8, 152064, device=cuda)
-    grids = _kernel_grids(lambda: fn(x), tmp_path)
+    grids = _launched_kernels(lambda: fn(x), SPLIT_KERNELS[algo])
     for want in SPLIT_KERNELS[algo]:
         blocks = [b for name, b in grids if want in name]
         assert len(blocks) == 1 and blocks[0] > 8, (want, grids)
     assert not any(REGS_KERNEL[algo] in name for name, _ in grids)
     assert tp.path_for(152064) == "split" and tp.path_for(8192) == "registers"
     short = x[:, :8192].contiguous()
-    grids = _kernel_grids(lambda: fn(short), tmp_path)
+    grids = _launched_kernels(lambda: fn(short), [REGS_KERNEL[algo]])
     assert [REGS_KERNEL[algo] in name for name, _ in grids] == [True], grids
 
 
@@ -374,12 +382,13 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
 def test_flash_forward_and_backward_kernels_chosen_by_dtype_and_head_dim(
         cuda, dtype, d, mma):
     q, k, v, do = _flash_inputs(cuda, dtype, 1, 2, 1, 64, 64, d)
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def fwd_bwd():
         o, m, n = tfa.flash_attention_fwd_gqa(q, k, v, causal=True)
         tfa.flash_attention_bwd_gqa(q, k, v, o, m, n, do, causal=True)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()]
+
+    names = [name for name, _ in _launched_kernels(
+        fwd_bwd, ("flash_fwd", "flash_dq", "flash_dkv"))]
     for kernel in ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma"):
         assert any(kernel in x for x in names) == mma, names
     # flash_fwd (the wmma kernel) exactly where the mma kernels do not run
@@ -539,11 +548,8 @@ def test_decode_int8_pages_with_scales(cuda, dtype, gran):
 
 
 def _decode_kernel_names(fn):
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages()]
+    return [name for name, _ in _launched_kernels(
+        fn, ("decode_tile", "decode_combine"))]
 
 
 @pytest.mark.gpu
