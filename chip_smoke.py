@@ -20,7 +20,8 @@ Phases (any failure exits non-zero; nothing is caught):
    registers, longer ones split over the fold's 32 slots); the softmax
    kernels' bits do not change when a row is padded with -inf columns,
    also across that boundary, the two-pass kernels' bits equal those
-   recorded before their fold moved into ``rowfold.cuh``, and
+   recorded before their fold moved into ``rowfold.cuh``, the reload
+   kernels' those of the one-block-a-row kernel before its two layouts, and
    ``xent_fwd_2d``'s those recorded before the max-first lane fold; the
    decode kernels' general tile body gives the bits recorded before the
    split-KV grid, and they are also timed at one slot of 16,384 positions;
@@ -109,6 +110,11 @@ XENT_BWD_OPS = 31          # pass 2 (28) + the one-hot, subtract, scale
 # 74bac5d); the move must change no bit.
 TWOPASS_DIGEST = ("a70341be27101df64373f32d0bd805d7"
                   "cfedd171cb181f04eb8442d31de3af6e")
+# sha256 of the reload kernel's outputs on reload_digest's inputs, as the
+# one-block-a-row kernel gave them (commit 92a27cb, on an H100): its
+# register and split layouts must change no bit.
+RELOAD_DIGEST = ("b7eb6c7578f75f46d06721cd42dc6ba6"
+                 "dd498a2b91079ebe7f9c7053c602e98a")
 # sha256 of xent_fwd_2d's outputs on xent_digest's inputs, as the kernel gave
 # them before the max-first lane fold and the conversion-free exp2_int
 # (commit 44094ad): neither may change a bit.
@@ -235,6 +241,20 @@ def twopass_digest(torch, tp) -> str:
         x = score_rows(torch, rng, name, r, c).to(dt)
         for t in (tp.twopass_softmax_2d(x), *tp.twopass_stats_2d(x)):
             h.update(t.float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def reload_digest(torch, tp3) -> str:
+    """sha256 of the reload (Alg 2) kernel's outputs on twopass_digest's
+    seeded inputs."""
+    h = hashlib.sha256()
+    rng = np.random.default_rng(1234)
+    for name, r, c, dt in (("prefill", 4096, 1024, torch.float32),
+                           ("ragged", 40 * 37, 1000, torch.float32),
+                           ("ragged", 40 * 37, 1000, torch.bfloat16),
+                           ("sampler", 8, 152064, torch.float32)):
+        x = score_rows(torch, rng, name, r, c).to(dt)
+        h.update(tp3.threepass_reload_2d(x).float().cpu().numpy().tobytes())
     return h.hexdigest()
 
 
@@ -809,8 +829,7 @@ def paper_comparison(torch, rows) -> None:
             shape = [r, c] if case == "beyond_l2" else t["shape"]
             nb = shape[0] * shape[1] * 4
             say("paper_comparison", case=case, shape=shape, algorithm=algo,
-                path=(tp.path_for(shape[1]) if passes < 5
-                      else "one block a row"),
+                path=tp.path_for(shape[1]),
                 ms=t["ms"], eager_ms=t["eager_ms"],
                 floor_2n_ms=2 * nb / HBM_BYTES_S * 1e3,
                 paper_traffic=f"{passes}N",
@@ -912,8 +931,7 @@ def kernel_phase(torch, rng):
                 check(got.dtype == dt, f"{kname}: output dtype")
                 res = held(got, plain(xd), softmax_tol[dt],
                            f"{kname} {name} {dt}")
-                path = (tp.path_for(c) if kname == "threepass_recompute_2d"
-                        else "one block a row")
+                path = tp.path_for(c)
                 say("kernel_check", kernel=kname, shape=[r, c], case=name,
                     dtype=str(dt), path=path, **res)
                 if dt == torch.float32 and name in ("prefill_bucket_1024",
@@ -929,7 +947,7 @@ def kernel_phase(torch, rng):
             del xd
         del x
 
-    # -inf padding changes no bit, though it changes the threads per row
+    # -inf padding changes no bit, though it changes the warps per row
     # and, past 8192 columns, the layout (registers -> split)
     softmax_fns = (tp.twopass_softmax_2d, tp3.threepass_recompute_2d,
                    tp3.threepass_reload_2d)
@@ -951,9 +969,7 @@ def kernel_phase(torch, rng):
             kernel="+".join(f.__name__ for f in softmax_fns)
             + "+twopass_stats_2d",
             case=f"-inf padding {c} -> {c2} columns",
-            paths=[tp.path_for(c), tp.path_for(c2)],
-            threads=[tp.threads_for(c), tp.threads_for(c2)],
-            bitwise_equal=True)
+            paths=[tp.path_for(c), tp.path_for(c2)], bitwise_equal=True)
     del x, xp, y, yp, st, stp
 
     # all -inf row: NaN, as the reference kernels give (m_sum = 0 for the
@@ -975,6 +991,12 @@ def kernel_phase(torch, rng):
     say("kernel_check", kernel="twopass_softmax_2d+twopass_stats_2d",
         case="bits as before the fold moved into rowfold.cuh",
         sha256=digest, equal=True)
+    digest = reload_digest(torch, tp3)
+    check(digest == RELOAD_DIGEST,
+          f"reload bits changed: {digest} != {RELOAD_DIGEST}")
+    say("kernel_check", kernel="threepass_reload_2d",
+        case="bits as the one-block-a-row kernel gave them", sha256=digest,
+        equal=True)
     from repro_torch.kernels import twopass_xent as xe
     digest = xent_digest(torch, xe)
     check(digest == XENT_DIGEST,

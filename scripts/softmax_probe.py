@@ -2,8 +2,10 @@
 """Build the port's CUDA kernels and probe the row-wise softmax ones on one
 NVIDIA GPU: the compiler's register / spill lines and a count of each
 kernel's SASS instructions (``cuobjdump -sass``: all, float, conversions,
-shuffles), the sha256 of the two-pass and cross-entropy kernels' outputs
-(``chip_smoke.twopass_digest`` / ``xent_digest``), the softmax cases of
+shuffles, global loads and of those the 16-byte ones), the sha256 of the
+two-pass, reload and cross-entropy kernels' outputs
+(``chip_smoke.twopass_digest`` / ``reload_digest`` / ``xent_digest``),
+the softmax cases of
 ``tests/test_torch_gpu.py``, and with ``--times`` the device time of the
 softmax kernels beside ``torch.softmax`` / ``torch.logsumexp`` at the
 prefill score bucket [40960, 1024], the sampler [8, 152064] and a shape
@@ -15,8 +17,9 @@ microseconds for each kernel a call launches.
 
 A quick check of a kernel edit before the full ``chip_smoke.py``; exits
 non-zero when there is no card, the build fails, a test fails or the
-two-pass digest moved.  With ``--no-tests`` it runs against a tree without
-the new tests (an older commit, for its digests, counts and times).
+two-pass or reload digest moved.  With ``--no-tests`` it runs against a
+tree without the new tests (an older commit, for its digests, counts and
+times; copy this script and ``chip_smoke.py`` into it).
 """
 
 from __future__ import annotations
@@ -65,10 +68,12 @@ def sass_counts(so: pathlib.Path) -> dict[str, dict[str, int]]:
                 continue
             cur["all"] += 1
             cur[op] += 1
+            if op == "LDG" and ".128" in m.group(1):
+                cur["LDG128"] += 1
             if op in FLOAT_OPS:
                 cur["float"] += 1
     keep = ("all", "float", "F2I", "FRND", "I2F", "MUFU", "SHFL", "LDG",
-            "STG", "BAR")
+            "LDG128", "STG", "BAR")
     return {k: {x: c[x] for x in keep} for k, c in counts.items()}
 
 
@@ -105,7 +110,14 @@ def times(torch, chip_smoke) -> None:
            "threepass_reload_2d": tp3.threepass_reload_2d,
            "torch.softmax": lambda a: torch.softmax(a, -1),
            "torch.logsumexp": lambda a: torch.logsumexp(a, -1)}
-    path_for = getattr(tp, "path_for", lambda c: "one block a row")
+    def path_for(name, cols):
+        """The layout a kernel takes; in a tree from before reload and the
+        stats had the two layouts, one block a row for those two."""
+        if (name in ("twopass_stats_2d", "threepass_reload_2d")
+                and not hasattr(tp3, "reload_scratch")):
+            return "one block a row"
+        return tp.path_for(cols)
+
     for case, r, c in (("prefill_bucket_1024", 40 * 1024, 1024),
                        ("sampler", 8, 152064), ("beyond_l2", 512, 524288)):
         x = chip_smoke.score_rows(torch, np.random.default_rng(11), case,
@@ -115,7 +127,8 @@ def times(torch, chip_smoke) -> None:
             def call(fn=fn):
                 return fn(x)
             row = dict(case=case, shape=[r, c], kernel=name,
-                       path=path_for(c) if "_2d" in name else "library",
+                       path=path_for(name, c) if "_2d" in name
+                       else "library",
                        graph_ms=chip_smoke.graph_ms(torch, call),
                        eager_ms=chip_smoke.cuda_ms(torch, call),
                        bytes_2n_ms=2 * nb / chip_smoke.HBM_BYTES_S * 1e3)
@@ -142,6 +155,7 @@ def main() -> int:
     import chip_smoke
     import repro_torch  # noqa: F401  (sets the TF32 switches)
     from repro_torch.kernels import _build
+    from repro_torch.kernels import threepass_softmax as tp3
     from repro_torch.kernels import twopass_softmax as tp
     from repro_torch.kernels import twopass_xent as xe
 
@@ -160,9 +174,13 @@ def main() -> int:
     print(f"two-pass digest: {digest} (pinned "
           f"{chip_smoke.TWOPASS_DIGEST}: "
           f"{'equal' if digest == chip_smoke.TWOPASS_DIGEST else 'MOVED'})")
+    failed = digest != chip_smoke.TWOPASS_DIGEST
+    reload = chip_smoke.reload_digest(torch, tp3)
+    print(f"reload digest: {reload} (pinned {chip_smoke.RELOAD_DIGEST}: "
+          f"{'equal' if reload == chip_smoke.RELOAD_DIGEST else 'MOVED'})")
+    failed |= reload != chip_smoke.RELOAD_DIGEST
     print(f"xent_fwd digest: {chip_smoke.xent_digest(torch, xe)}",
           flush=True)
-    failed = digest != chip_smoke.TWOPASS_DIGEST
     if not args.no_tests:
         tests = subprocess.run(
             [sys.executable, "-m", "pytest", "-q", "-m", "gpu",

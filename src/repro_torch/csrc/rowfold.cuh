@@ -1,5 +1,8 @@
 // Row folds in one fixed order, shared by the row-wise kernels (two-pass
-// and three-pass softmax, cross-entropy), for one thread block per row.
+// and three-pass softmax, their stats, cross-entropy).  The order is
+// defined below for one thread block per row (row_stats, which
+// xent_fwd_2d still runs); the softmax kernels take it apart into the two
+// layouts at the end of this comment and keep its bits.
 //
 // Every fold here visits a row [0, cols) the same way:
 //   * chunk j is columns [256 j, 256 j + 256); lane l of the warp that
@@ -14,12 +17,10 @@
 // add an exact identity: (m = 0, n = -1e38) to an (m, n) fold, +0 to a
 // float sum.
 //
-// Each fold ends with __syncthreads() and writes its own __shared__ slots,
-// so two different folds may follow each other in one kernel; the same
-// fold twice needs a __syncthreads() between the calls.
+// row_stats ends with __syncthreads() and writes its own __shared__ slots.
 //
 // The same order, taken apart for the two layouts of the row-wise
-// softmax kernels (twopass_softmax.cu, threepass_softmax.cu):
+// softmax and stats kernels (twopass_softmax.cu, threepass_softmax.cu):
 //   * registers (rows of at most kRegsMaxCols = 32 chunks: one chunk a
 //     slot): a warp loads K chunks at once and keeps them; butterfly_scatter
 //     folds the K chunks over the warp in the butterfly's own pairs, and the
@@ -28,8 +29,9 @@
 //   * split (longer rows): one warp a (row, slot) folds the slot's chunks
 //     in order (slot_fold) and writes the slot's value; a later launch runs
 //     the slot butterfly from those 32 values.
-// Both give the bits of row_stats / row_sum (a -inf or missing column adds
-// the exact identity, and so does an empty slot).
+// Both give the bits of row_stats, and of the one-block float sum in the
+// same order (a -inf or missing column adds the exact identity, and so does
+// an empty slot).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -167,8 +169,9 @@ __device__ __forceinline__ V slots_in_warp(V x) {
 // Slot `slot` of a row of `cols` columns: acc folded with the slot's chunks
 // slot, slot + 32, ... in order, for one warp.  The chunks come kBatch at a
 // time: each lane loads its columns of the batch at once (a missing column
-// as -inf), lane_value(x) gives the lane's value of one chunk, and
-// butterfly_scatter the batch's chunk values.  Every lane returns the slot.
+// as -inf), lane_value(x, j) gives the lane's value of chunk j from its
+// columns x of it (256 j + 32 e + lane), and butterfly_scatter the batch's
+// chunk values.  Every lane returns the slot.
 constexpr int kBatch = 4;
 
 template <typename V, typename T, typename F>
@@ -188,7 +191,7 @@ __device__ __forceinline__ V slot_fold(const T* row, int cols, int slot,
       }
     V v[kBatch];
 #pragma unroll
-    for (int b = 0; b < kBatch; ++b) v[b] = lane_value(x[b]);
+    for (int b = 0; b < kBatch; ++b) v[b] = lane_value(x[b], j0 + kLanes * b);
     const V w = butterfly_scatter<kBatch>(v);
 #pragma unroll
     for (int b = 0; b < kBatch; ++b)
@@ -204,7 +207,7 @@ __device__ __forceinline__ V slot_fold(const T* row, int cols, int slot,
 // launches the kernel for K.
 template <typename Launch>
 void launch_regs(int rows, int cols, Launch launch) {
-  const int chunks = (cols + kChunk - 1) / kChunk;
+  const int chunks = cols > 0 ? (cols + kChunk - 1) / kChunk : 1;
   const int k = chunks <= 1 ? 1 : chunks <= 2 ? 2 : 4;
   const int warps = (chunks + k - 1) / k, per_block = warps == 1 ? 4 : 1;
   const dim3 block(kLanes * warps, per_block);
@@ -216,12 +219,12 @@ void launch_regs(int rows, int cols, Launch launch) {
 
 // The split layout's last launch writes y over kScaleCols columns a block
 // of kScaleThreads: scale_cols stores f(x) for those columns of one row,
-// every load issued before the first store.
+// every load issued before the first store, so yrow may be row itself.
 constexpr int kScaleThreads = 256;
 constexpr int kScaleCols = kScaleThreads * 16;
 
-template <typename T, typename F>
-__device__ __forceinline__ void scale_cols(const T* row, T* yrow, int cols,
+template <typename Tx, typename Ty, typename F>
+__device__ __forceinline__ void scale_cols(const Tx* row, Ty* yrow, int cols,
                                            int base, F f) {
   constexpr int kE = kScaleCols / kScaleThreads;
   float v[kE];
@@ -272,51 +275,6 @@ __device__ __forceinline__ float warp_sum(float s) {
   for (int off = 16; off > 0; off >>= 1)
     s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
   return s;
-}
-
-// Sum over the row of term(c), c in [0, cols), for every thread, in the
-// fixed order above (rounded adds, never contracted).  term is called
-// once for each column, by the lane that adds it.
-template <typename F>
-__device__ __forceinline__ float row_sum(int cols, F term) {
-  __shared__ float ss[kLanes];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const int slot = warp + lane * nwarps;
-  float acc = 0.0f;
-  const int chunks = (cols + kChunk - 1) / kChunk;
-  for (int j = warp; j < chunks; j += nwarps) {
-    float s = 0.0f;
-#pragma unroll
-    for (int e = 0; e < kPerLane; ++e) {
-      const int c = j * kChunk + e * kLanes + lane;
-      if (c < cols) s = __fadd_rn(s, term(c));
-    }
-    s = warp_sum(s);
-    if (slot == (j & (kLanes - 1))) acc = __fadd_rn(acc, s);
-  }
-  if (slot < kLanes) ss[slot] = acc;
-  __syncthreads();
-  return warp_sum(ss[lane]);
-}
-
-// Row max, for every thread.  A max does not depend on its order; -inf
-// columns leave it as it is, and an all -inf row gives -inf.
-template <typename T>
-__device__ __forceinline__ float row_max(const T* row, int cols) {
-  __shared__ float sx[kLanes];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float mx = -INFINITY;
-  for (int c = threadIdx.x; c < cols; c += blockDim.x)
-    mx = fmaxf(mx, to_f32(row[c]));
-  for (int off = 16; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  if (lane == 0) sx[warp] = mx;
-  __syncthreads();
-  mx = lane < (blockDim.x >> 5) ? sx[lane] : -INFINITY;
-  for (int off = 16; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  return mx;
 }
 
 }  // namespace repro

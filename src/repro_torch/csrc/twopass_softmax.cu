@@ -31,8 +31,10 @@
 //     slot butterfly from those 32 pairs in every block and writes y over
 //     4096-column ranges, many blocks a row: the paper's 3N, over
 //     rows x 32 warps and rows x cols / 4096 blocks instead of `rows` blocks.
-// The stats kernel (pass 1 alone) keeps one block a row, row_stats, with
-// threads as the wrapper gives them.
+// The stats kernel (pass 1 alone) takes the same two layouts and writes
+// (m_sum, n_sum): registers, pass 1 of the register kernel (regs_pass1)
+// with no pass 2, so it keeps no (m, n) of its columns; split, launch A,
+// then one warp a row folds the 32 slot pairs (stats_fold_kernel).
 //
 // An all -inf row gives m_sum = 0, so y = 0 * inf = NaN, as in the TPU
 // kernel and the plain version.  No row on the serving path is all -inf:
@@ -54,19 +56,18 @@ using repro::kScaleThreads;
 using repro::store;
 using repro::to_f32;
 
-// Rows of at most 32 chunks, K chunks a warp, blockDim = (32 W, rows a
-// block): pass 1 and pass 2 from registers.
+// Pass 1 in the register layout, rows of at most 32 chunks, K chunks a
+// warp, blockDim = (32 W, rows a block): loads the warp's columns of row
+// as ExtExp's (m, n) and returns the row's (m_sum, n_sum) in every lane.
+// The caller returns the warps of rows >= rows first (whole warps, W = 1);
+// W > 1 holds one row a block, so the __syncthreads() is reached by all.
 template <typename T, int K>
-__global__ void __launch_bounds__(256)
-    twopass_regs_kernel(const T* __restrict__ x, T* __restrict__ y, int rows,
-                        int cols) {
+__device__ __forceinline__ Ext regs_pass1(const T* row, int cols,
+                                          float (&m)[K][kPerLane],
+                                          float (&n)[K][kPerLane]) {
   constexpr int kSpan = kLanes / K;               // lanes a chunk after
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  const size_t r = static_cast<size_t>(blockIdx.x) * blockDim.y + threadIdx.y;
-  if (r >= static_cast<size_t>(rows)) return;     // whole warps (W = 1)
-  const T* row = x + r * cols;
-  float m[K][kPerLane], n[K][kPerLane];
 #pragma unroll
   for (int k = 0; k < K; ++k)
 #pragma unroll
@@ -92,6 +93,19 @@ __global__ void __launch_bounds__(256)
     s = lane < nwarps * K ? slots[lane] : repro::ext_identity();
     repro::warp_fold(s.m, s.n);
   }
+  return s;
+}
+
+// Rows of at most 32 chunks: pass 1 and pass 2 from registers.
+template <typename T, int K>
+__global__ void __launch_bounds__(256)
+    twopass_regs_kernel(const T* __restrict__ x, T* __restrict__ y, int rows,
+                        int cols) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t r = static_cast<size_t>(blockIdx.x) * blockDim.y + threadIdx.y;
+  if (r >= static_cast<size_t>(rows)) return;     // whole warps (W = 1)
+  float m[K][kPerLane], n[K][kPerLane];
+  const Ext s = regs_pass1<T, K>(x + r * cols, cols, m, n);
   const float lam = __frcp_rn(s.m);
 #pragma unroll
   for (int k = 0; k < K; ++k)
@@ -117,7 +131,7 @@ __global__ void __launch_bounds__(128)
   if (r >= static_cast<size_t>(rows)) return;
   const Ext acc = repro::slot_fold(
       x + r * cols, cols, slot, repro::ext_identity(),
-      [](const float (&xs)[kPerLane]) {
+      [](const float (&xs)[kPerLane], int) {
         float m[kPerLane], n[kPerLane];
         Ext v;
 #pragma unroll
@@ -153,22 +167,46 @@ __global__ void __launch_bounds__(kScaleThreads)
   });
 }
 
+// The stats in the register layout: pass 1 alone.
+template <typename T, int K>
+__global__ void __launch_bounds__(256)
+    stats_regs_kernel(const T* __restrict__ x, float* __restrict__ m_out,
+                      float* __restrict__ n_out, int rows, int cols) {
+  const size_t r = static_cast<size_t>(blockIdx.x) * blockDim.y + threadIdx.y;
+  if (r >= static_cast<size_t>(rows)) return;     // whole warps (W = 1)
+  float m[K][kPerLane], n[K][kPerLane];
+  const Ext s = regs_pass1<T, K>(x + r * cols, cols, m, n);
+  if (threadIdx.x == 0) { m_out[r] = s.m; n_out[r] = s.n; }
+}
+
+// The stats in the split layout, after launch A: one warp a row folds its
+// 32 slot pairs as twopass_scale_kernel does.
+__global__ void __launch_bounds__(128)
+    stats_fold_kernel(const float* __restrict__ slots,
+                      float* __restrict__ m_out, float* __restrict__ n_out,
+                      int rows) {
+  const size_t r = (static_cast<size_t>(blockIdx.x) * blockDim.x
+                    + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (r >= static_cast<size_t>(rows)) return;
+  float m_sum = slots[(r * kLanes + lane) * 2];
+  float n_sum = slots[(r * kLanes + lane) * 2 + 1];
+  repro::warp_fold(m_sum, n_sum);
+  if (lane == 0) { m_out[r] = m_sum; n_out[r] = n_sum; }
+}
+
 template <typename T>
-__global__ void twopass_stats_kernel(const T* __restrict__ x,
-                                     float* __restrict__ m_out,
-                                     float* __restrict__ n_out, int cols) {
-  const size_t r = blockIdx.x;
-  float m_sum, n_sum;
-  repro::row_stats(x + r * cols, cols, m_sum, n_sum);
-  if (threadIdx.x == 0) { m_out[r] = m_sum; n_out[r] = n_sum; }
+void launch_slots(const T* x, float* slots, int rows, int cols,
+                  cudaStream_t s) {
+  const unsigned warps_a = static_cast<unsigned>(rows) * kLanes;
+  twopass_slots_kernel<T><<<(warps_a + 3) / 4, 128, 0, s>>>(x, slots, rows,
+                                                             cols);
 }
 
 template <typename T>
 void launch_split(const T* x, T* y, float* slots, int rows, int cols,
                   cudaStream_t s) {
-  const unsigned warps_a = static_cast<unsigned>(rows) * kLanes;
-  twopass_slots_kernel<T><<<(warps_a + 3) / 4, 128, 0, s>>>(x, slots, rows,
-                                                             cols);
+  launch_slots<T>(x, slots, rows, cols, s);
   const int bpr = (cols + kScaleCols - 1) / kScaleCols;
   twopass_scale_kernel<T><<<static_cast<unsigned>(rows) * bpr, kScaleThreads,
                             0, s>>>(x, slots, y, cols, bpr);
@@ -192,6 +230,25 @@ int softmax(const void* x, void* y, void* slots, int rows, int cols,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int stats(const void* x, float* m, float* n, void* slots, int rows, int cols,
+          cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  if (slots == nullptr) {
+    if (cols > repro::kRegsMaxCols)
+      return static_cast<int>(cudaErrorInvalidValue);
+    repro::launch_regs(rows, cols, [&](auto k, unsigned grid, dim3 block) {
+      stats_regs_kernel<T, decltype(k)::value>
+          <<<grid, block, 0, s>>>(xt, m, n, rows, cols);
+    });
+  } else {
+    launch_slots<T>(xt, static_cast<float*>(slots), rows, cols, s);
+    stats_fold_kernel<<<(static_cast<unsigned>(rows) + 3) / 4, 128, 0, s>>>(
+        static_cast<const float*>(slots), m, n, rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -210,18 +267,15 @@ int twopass_softmax_2d(const void* x, void* y, void* slots, int rows,
                     : softmax<__nv_bfloat16>(x, y, slots, rows, cols, s);
 }
 
-int twopass_stats_2d(const void* x, void* m_sum, void* n_sum, int rows,
-                     int cols, int dtype, int threads, void* stream) {
+// m_sum, n_sum: float32 [rows]; slots as for twopass_softmax_2d.
+int twopass_stats_2d(const void* x, void* m_sum, void* n_sum, void* slots,
+                     int rows, int cols, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    twopass_stats_kernel<float><<<rows, threads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(m_sum),
-        static_cast<float*>(n_sum), cols);
-  else
-    twopass_stats_kernel<__nv_bfloat16><<<rows, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<float*>(m_sum),
-        static_cast<float*>(n_sum), cols);
-  return static_cast<int>(cudaGetLastError());
+  float* m = static_cast<float*>(m_sum);
+  float* n = static_cast<float*>(n_sum);
+  return dtype == 0
+             ? stats<float>(x, m, n, slots, rows, cols, s)
+             : stats<__nv_bfloat16>(x, m, n, slots, rows, cols, s);
 }
 
 }  // extern "C"

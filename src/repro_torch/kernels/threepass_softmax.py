@@ -5,7 +5,9 @@ wrappers and their plain versions.
 ``csrc/threepass_softmax.cu`` for a tensor on the card and run the plain
 versions beside them for a tensor on the CPU.  There is no fallback: a CUDA
 tensor reaches the kernel or the call raises.  Each wrapper counts its
-launches in ``.launches``.
+launches in ``.launches``.  Both take the two-pass kernel's two layouts
+(``twopass_softmax.path_for``): registers up to ``REGS_MAX_COLS`` columns,
+split beyond, with the same bits either way.
 
 The exponential is the paper's Alg 4 as the TPU kernels compute it
 (``ext_exp`` rebuilt as ``m * exp2_int(n)``), which flushes to zero where
@@ -23,7 +25,7 @@ import torch
 from repro_torch.core import numerics
 from repro_torch.kernels import _build
 from repro_torch.kernels.twopass_softmax import _DTYPES, _I, _P, _check
-from repro_torch.kernels.twopass_softmax import slot_scratch, threads_for
+from repro_torch.kernels.twopass_softmax import slot_scratch
 
 
 @functools.cache
@@ -31,7 +33,7 @@ def _lib():
     lib = _build.load("threepass_softmax")
     lib.threepass_recompute_2d.argtypes = [_P, _P, _P, _I, _I, _I, _P]
     lib.threepass_recompute_2d.restype = _I
-    lib.threepass_reload_2d.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+    lib.threepass_reload_2d.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
     lib.threepass_reload_2d.restype = _I
     return lib
 
@@ -62,6 +64,15 @@ def threepass_reload_2d_plain(x: torch.Tensor) -> torch.Tensor:
     return (e * (1.0 / sigma)).to(x.dtype)
 
 
+def reload_scratch(x: torch.Tensor):
+    """The reload kernels' float32 scratch for ``x``: the e buffer ``[rows,
+    cols]`` (None for float32 x, whose e buffer is y) and the split path's
+    slots (None for the register path)."""
+    e = (None if x.dtype == torch.float32
+         else torch.empty(x.shape, dtype=torch.float32, device=x.device))
+    return e, slot_scratch(x)
+
+
 def threepass_recompute_2d(x: torch.Tensor) -> torch.Tensor:
     """Rowwise softmax of ``x [R, C]`` by Alg 1 (float32 or bfloat16, y in
     x.dtype): 3 reads and 1 write of a long row; a row of at most
@@ -88,7 +99,9 @@ def threepass_recompute_2d(x: torch.Tensor) -> torch.Tensor:
 def threepass_reload_2d(x: torch.Tensor) -> torch.Tensor:
     """Rowwise softmax of ``x [R, C]`` by Alg 2 (float32 or bfloat16, y in
     x.dtype): the exponentials go to a float32 buffer -- y itself for
-    float32 x, scaled in place; a scratch tensor for bfloat16 x."""
+    float32 x, scaled in place; a scratch tensor for bfloat16 x -- and are
+    read back from it: 5N for a long row; a row of at most
+    ``REGS_MAX_COLS`` columns reads x once into registers."""
     if x.device.type == "cpu":
         return threepass_reload_2d_plain(x)
     _check(x, "threepass_reload_2d")
@@ -96,15 +109,12 @@ def threepass_reload_2d(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty_like(x)
     if rows == 0 or cols == 0:
         return y
-    scratch = (None if x.dtype == torch.float32
-               else torch.empty((rows, cols), dtype=torch.float32,
-                                device=x.device))
+    e, slots = reload_scratch(x)
     lib = _lib()
     rc = lib.threepass_reload_2d(
-        x.data_ptr(), y.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), rows, cols,
-        _DTYPES[x.dtype], threads_for(cols),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), y.data_ptr(), None if e is None else e.data_ptr(),
+        None if slots is None else slots.data_ptr(), rows, cols,
+        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "threepass_reload_2d")
     threepass_reload_2d.launches += 1
     return y

@@ -7,11 +7,12 @@ versions beside them for a tensor on the CPU.  There is no fallback: a CUDA
 tensor reaches the kernel or the call raises.  Each wrapper counts its
 launches in ``.launches``.
 
-``twopass_softmax_2d`` (and ``threepass_recompute_2d``) take one of two
-layouts, named by :func:`path_for`: rows of at most ``REGS_MAX_COLS``
-columns are held in registers; longer rows are split over the fold's 32
-slots, two launches with a float32 scratch of ``[rows, 32, 2]`` that the
-wrapper gives.  Both fold in one order, so the bits do not depend on it.
+``twopass_softmax_2d`` and ``twopass_stats_2d`` (and the three-pass
+wrappers) take one of two layouts, named by :func:`path_for`: rows of at
+most ``REGS_MAX_COLS`` columns are held in registers; longer rows are split
+over the fold's 32 slots, two launches with a float32 scratch of ``[rows,
+32, 2]`` that the wrapper gives.  Both fold in one order, so the bits do
+not depend on it.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("twopass_softmax")
     lib.twopass_softmax_2d.argtypes = [_P, _P, _P, _I, _I, _I, _P]
     lib.twopass_softmax_2d.restype = _I
-    lib.twopass_stats_2d.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+    lib.twopass_stats_2d.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
     lib.twopass_stats_2d.restype = _I
     return lib
 
@@ -59,8 +60,8 @@ def slot_scratch(x: torch.Tensor):
 
 
 def threads_for(cols: int) -> int:
-    """Threads per row block of the one-block-a-row kernels (stats, reload,
-    cross-entropy): about 8 elements a thread, one warp for short rows, at
+    """Threads per row block of the one-block-a-row kernels (cross-entropy):
+    about 8 elements a thread, one warp for short rows, at
     most 1024; always a power of two.  The kernels' sum order does not
     depend on it."""
     want = max(1, -(-cols // 8))
@@ -117,11 +118,12 @@ def twopass_stats_2d(x: torch.Tensor):
     n = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
     if rows == 0:
         return m, n
+    slots = slot_scratch(x)
     lib = _lib()
     rc = lib.twopass_stats_2d(
-        x.data_ptr(), m.data_ptr(), n.data_ptr(), rows, cols,
-        _DTYPES[x.dtype], threads_for(cols),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), m.data_ptr(), n.data_ptr(),
+        None if slots is None else slots.data_ptr(), rows, cols,
+        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "twopass_stats_2d")
     twopass_stats_2d.launches += 1
     return m, n

@@ -36,14 +36,22 @@ THREE = {"three_pass_recompute": (tp3.threepass_recompute_2d,
 # the kernels with a register path and a split path
 TWO_LAYOUTS = {"two_pass": (tp.twopass_softmax_2d,
                             tp.twopass_softmax_2d_plain),
-               "three_pass_recompute": THREE["three_pass_recompute"]}
+               "three_pass_recompute": THREE["three_pass_recompute"],
+               "three_pass_reload": THREE["three_pass_reload"],
+               "stats": (tp.twopass_stats_2d, tp.twopass_stats_2d_plain)}
 SPLIT_KERNELS = {"two_pass": ("twopass_slots_kernel",
                               "twopass_scale_kernel"),
                  "three_pass_recompute": ("recompute_max_kernel",
                                           "recompute_sum_kernel",
-                                          "recompute_scale_kernel")}
+                                          "recompute_scale_kernel"),
+                 "three_pass_reload": ("recompute_max_kernel",
+                                       "reload_sum_kernel",
+                                       "reload_scale_kernel"),
+                 "stats": ("twopass_slots_kernel", "stats_fold_kernel")}
 REGS_KERNEL = {"two_pass": "twopass_regs_kernel",
-               "three_pass_recompute": "recompute_regs_kernel"}
+               "three_pass_recompute": "recompute_regs_kernel",
+               "three_pass_reload": "reload_regs_kernel",
+               "stats": "stats_regs_kernel"}
 
 
 @pytest.fixture
@@ -90,14 +98,17 @@ def test_threepass_padding_and_all_neg_inf_rows(cuda):
                                   1664, 8192, 8193, 152064])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_softmax_layouts_match_plain(cuda, dtype, cols):
-    """Two-pass and recompute on either side of the register path's edges
-    (a chunk is 256 columns, the register path ends at 8192): the same
-    ExtExp bits as the plain versions, only the sum order differs."""
+    """Two-pass, recompute, reload and the stats on either side of the
+    register path's edges (a chunk is 256 columns, the register path ends
+    at 8192): the same ExtExp bits as the plain versions, only the sum
+    order differs."""
     rows = 5 if cols > 8192 else 37
     gen = torch.Generator(device=cuda).manual_seed(cols)
     x = (torch.randn(rows, cols, device=cuda, generator=gen) * 8).to(dtype)
     x[0, cols // 2 + 1:] = -torch.inf
-    for fn, plain in TWO_LAYOUTS.values():
+    for algo, (fn, plain) in TWO_LAYOUTS.items():
+        if algo == "stats":
+            continue
         y = fn(x)
         torch.cuda.synchronize()
         assert fn.launches == 1 and y.dtype == dtype
@@ -137,10 +148,12 @@ def _chip_smoke():
 
 @pytest.mark.gpu
 def test_two_pass_stats_and_xent_bits_as_pinned(cuda):
-    """The two-pass softmax and stats kernels, and xent_fwd_2d (whose pass
-    1 is row_stats), give the bits pinned in chip_smoke.py."""
+    """The two-pass softmax and stats kernels, the reload kernels, and
+    xent_fwd_2d (whose pass 1 is row_stats), give the bits pinned in
+    chip_smoke.py."""
     cs = _chip_smoke()
     assert cs.twopass_digest(torch, tp) == cs.TWOPASS_DIGEST
+    assert cs.reload_digest(torch, tp3) == cs.RELOAD_DIGEST
     assert cs.xent_digest(torch, txe) == cs.XENT_DIGEST
 
 
@@ -169,17 +182,21 @@ def _launched_kernels(fn, expect, tries=5):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("algo", ["two_pass", "three_pass_recompute"])
+@pytest.mark.parametrize("algo", list(TWO_LAYOUTS))
 def test_layout_chosen_by_row_length(cuda, algo):
     """Rows of at most 8192 columns take the register kernel alone; the
     sampler's [8, 152064] takes the split kernels, each launching more
-    blocks than there are rows."""
+    blocks than there are rows (the stats' fold: one warp a row)."""
     fn = TWO_LAYOUTS[algo][0]
     x = torch.randn(8, 152064, device=cuda)
     grids = _launched_kernels(lambda: fn(x), SPLIT_KERNELS[algo])
     for want in SPLIT_KERNELS[algo]:
         blocks = [b for name, b in grids if want in name]
-        assert len(blocks) == 1 and blocks[0] > 8, (want, grids)
+        assert len(blocks) == 1, (want, grids)
+        if want == "stats_fold_kernel":             # one warp a row
+            assert blocks[0] == 2, (want, grids)
+        else:
+            assert blocks[0] > 8, (want, grids)
     assert not any(REGS_KERNEL[algo] in name for name, _ in grids)
     assert tp.path_for(152064) == "split" and tp.path_for(8192) == "registers"
     short = x[:, :8192].contiguous()

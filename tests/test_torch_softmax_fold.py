@@ -12,9 +12,13 @@ layouts rest on, bit for bit:
   float-to-int form for every integral ``n`` it is called with;
 * the register layout (``butterfly_scatter``, then ``slots_in_warp`` or
   shared slots) and the split layout (``slot_fold`` a slot, then the slot
-  butterfly) give the bits of the one-block order of ``row_stats`` and
-  ``row_sum``, whatever the warps a block, for the two-pass (m, n) fold and
-  recompute's float sum.
+  butterfly) give the bits of the one-block order of ``row_stats`` and of
+  its float sum, whatever the warps a block, for the two-pass (m, n) fold
+  and recompute's float sum;
+* reload's split launch 2, which stores e at its columns and sums what it
+  stored, and the stats' fold launch over the slot scratch, give those
+  bits too; reload's pass 3 reads each column once, and every load takes a
+  column that another lane stored.
 """
 
 import numpy as np
@@ -133,8 +137,9 @@ def ext_lane_max_first(m, n):
 
 
 def sum_lane(x, mu, valid=None):
-    """row_sum's lane sum (a missing column skipped when ``valid`` is
-    given) or recompute's lane_sum (a missing column adds e(-inf) = +0)."""
+    """The one-block float sum's lane sum (a missing column skipped when
+    ``valid`` is given) or recompute's lane_sum (a missing column adds
+    e(-inf) = +0)."""
     acc = torch.zeros_like(x[..., 0, :])
     for e in range(PER_LANE):
         t = acc + tp3._exp_nonpos(x[..., e, :] - mu)
@@ -146,7 +151,7 @@ def sum_lane(x, mu, valid=None):
 # The three orders.
 # ---------------------------------------------------------------------------
 def block_order(lane_vals, combine, ident, warps: int):
-    """row_stats / row_sum with ``warps`` warps a block: warp w folds chunk
+    """row_stats and its float sum with ``warps`` warps a block: warp w folds chunk
     j = w, w + W, ... (butterfly), the lane of slot j % 32 adds it to the
     slot, then the butterfly over the 32 slots.  lane_vals [R, J, 32]."""
     r, chunks = lane_vals[0].shape[:2]
@@ -326,7 +331,7 @@ def _orders(x: torch.Tensor, cols: int, pad_chunks: int):
 @pytest.mark.parametrize("cols", [1000, 8193, 152064])
 def test_split_layout_equals_block_order(cols, warps):
     """Per-slot folds then the 32-slot butterfly (the long-row path) give
-    row_stats' / row_sum's bits at any warps a block."""
+    row_stats' bits and its float sum's at any warps a block."""
     x = rows_with_edges(cols, r=3)
     pad = -(-cols // (CHUNK * LANES * BATCH)) * LANES * BATCH
     seq, mf, s_seq, s_new = _orders(x, cols, pad)
@@ -340,8 +345,8 @@ def test_split_layout_equals_block_order(cols, warps):
                                   1664, 4096, 8192])
 def test_register_layout_equals_block_order(cols):
     """The register path at every launch shape it takes (K = 1, 2, 4
-    chunks a warp, 1 to 8 warps a row) gives row_stats' / row_sum's bits,
-    at the threads the one-block kernels take for the row."""
+    chunks a warp, 1 to 8 warps a row) gives row_stats' bits and its float
+    sum's, at the threads the one-block kernels take for the row."""
     x = rows_with_edges(cols)
     k, w = regs_shape(cols)
     seq, mf, s_seq, s_new = _orders(x, cols, k * w)
@@ -363,9 +368,127 @@ def test_register_layout_stats_equal_the_plain_stats_where_exact():
     torch.testing.assert_close(m, pm[:, 0], atol=0, rtol=1e-5)
 
 
+def reload_stored(x: torch.Tensor, pad_chunks: int):
+    """Reload's launch 2 (and its register pass 2): lane l of chunk j stores
+    e(x - mu) of column 256 j + 32 i + l at that column of a float32 buffer
+    (a missing column is not stored) and sums, in i order, what it stored
+    (a missing column adds e(-inf) = +0).  Returns the buffer, how often
+    each column was stored, and the lane sums [R, J, 32]."""
+    r, cols = x.shape
+    xl, _ = lanes(x, pad_chunks)
+    mu = x.amax(dim=1)[:, None, None]
+    col = (torch.arange(pad_chunks)[:, None, None] * CHUNK
+           + torch.arange(PER_LANE)[None, :, None] * LANES + LANE)
+    buf = torch.full((r, pad_chunks * CHUNK), torch.nan)
+    stores = torch.zeros(pad_chunks * CHUNK, dtype=torch.int64)
+    acc = torch.zeros(r, pad_chunks, LANES)
+    for i in range(PER_LANE):
+        ev = exp_nonpos_lean(xl[:, :, i, :] - mu)
+        c = col[:, i, :]
+        keep = c < cols
+        buf[:, c[keep]] = ev[:, keep]
+        stores[c[keep]] += 1
+        acc = acc + buf[:, c].where(keep, ev)     # the value it stored
+    return buf[:, :cols], stores[:cols], (acc,)
+
+
+@pytest.mark.parametrize("warps", [1, 8, 32])
+@pytest.mark.parametrize("cols", [1000, 8193, 152064])
+def test_reload_split_sum_equals_block_order(cols, warps):
+    """Reload's e buffer holds the plain version's e at every column,
+    stored once, and the split layout's sum of the stored values gives the
+    one-block float sum's bits."""
+    x = rows_with_edges(cols, r=3)
+    pad = -(-cols // (CHUNK * LANES * BATCH)) * LANES * BATCH
+    buf, stores, lane_sums = reload_stored(x, pad)
+    mu = x.amax(dim=1, keepdim=True)
+    assert torch.equal(buf.view(torch.int32),
+                       tp3._exp_nonpos(x - mu).view(torch.int32))
+    assert bool((stores == 1).all())
+    _, _, s_seq, _ = _orders(x, cols, pad)
+    assert_bits_equal(split_order(lane_sums, sum_combine, sum_ident),
+                      block_order(s_seq, sum_combine, sum_ident, warps))
+
+
+@pytest.mark.parametrize("cols", [8193, 20000, 152064])
+def test_stats_fold_launch_equals_row_stats(cols):
+    """The stats' split path: launch A's slot pairs written to the [rows,
+    32, 2] scratch (m at even, n at odd offsets) and folded by one warp a
+    row, lane l reading slot l, give row_stats' bits at the threads it ran
+    with; n_sum is the plain version's (a max, exact)."""
+    x = rows_with_edges(cols, r=3)
+    pad = -(-cols // (CHUNK * LANES * BATCH)) * LANES * BATCH
+    seq, mf, _, _ = _orders(x, cols, pad)
+    r, chunks = mf[0].shape[:2]
+    v = tuple(t.reshape(r, chunks // (LANES * BATCH), BATCH, LANES, LANES)
+              for t in mf)
+    acc = ext_ident((r, LANES, LANES))
+    for gi in range(v[0].shape[1]):
+        w = butterfly_scatter([tuple(t[:, gi, b] for t in v)
+                               for b in range(BATCH)], ext_combine)
+        for b in range(BATCH):
+            acc = ext_combine(acc, shfl(w, b * (LANES // BATCH)))
+    scratch = torch.stack([acc[0][:, :, 0], acc[1][:, :, 0]], -1)
+    flat = scratch.reshape(-1)                     # [rows, 32, 2] in memory
+    idx = (torch.arange(r)[:, None] * LANES + LANE) * 2
+    got = butterfly((flat[idx], flat[idx + 1]), ext_combine)
+    got = tuple(t[:, 0] for t in got)
+    assert_bits_equal(got, block_order(seq, ext_combine, ext_ident,
+                                       tp.threads_for(cols) // LANES))
+    assert torch.equal(got[1], tp.twopass_stats_2d_plain(x)[1][:, 0])
+
+
+def pass3_loads(cols: int):
+    """Reload's register pass 3 for a row of ``cols`` columns: per load, the
+    columns it reads and the lane that issues it, and the lane that stored
+    each column in pass 2 (column 256 j + 32 i + l by lane l)."""
+    k, w = regs_shape(cols)
+    loads = []
+    for warp in range(w):
+        c0 = warp * k * CHUNK
+        for lane in range(LANES):
+            if cols % 4 == 0:                       # 16-byte loads
+                for i in range(k * CHUNK // (4 * LANES)):
+                    c = c0 + 4 * (i * LANES + lane)
+                    if c < cols:
+                        loads.append((lane, list(range(c, c + 4))))
+            else:                                   # the neighbour's column
+                for j in range(k):
+                    for i in range(PER_LANE):
+                        c = c0 + j * CHUNK + i * LANES + (lane + 1) % LANES
+                        if c < cols:
+                            loads.append((lane, [c]))
+    return loads
+
+
+@pytest.mark.parametrize("cols", [1, 31, 256, 257, 1000, 1024, 1025, 1664,
+                                  4096, 8190, 8192])
+def test_reload_pass3_reads_what_other_lanes_stored(cols):
+    """Pass 3 reads every column once, within the warp that stored it, and
+    every load takes at least one column another lane stored, so no load
+    can be served from the issuing lane's registers."""
+    loads = pass3_loads(cols)
+    read = sorted(c for _, cs in loads for c in cs)
+    assert read == list(range(cols))
+    k, _ = regs_shape(cols)
+    for lane, cs in loads:
+        assert len({c // (k * CHUNK) for c in cs}) == 1   # one warp's span
+        assert any(c % LANES != lane for c in cs)
+
+
 def test_layout_named_by_row_length():
     assert tp.path_for(1) == tp.path_for(8192) == "registers"
     assert tp.path_for(8193) == tp.path_for(152064) == "split"
     assert tp.slot_scratch(torch.empty(3, 8192)) is None
     s = tp.slot_scratch(torch.empty(3, 8193))
     assert s.shape == (3, tp.SLOTS, 2) and s.dtype == torch.float32
+    # all four kernels take the layout path_for names: the split one with
+    # the slot scratch, and reload with its float32 e buffer for bfloat16
+    for cols in (8192, 8193):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.empty(3, cols, dtype=dt)
+            e, slots = tp3.reload_scratch(x)
+            assert (slots is None) == (tp.path_for(cols) == "registers")
+            assert (e is None) == (dt == torch.float32)
+            if e is not None:
+                assert e.shape == (3, cols) and e.dtype == torch.float32
