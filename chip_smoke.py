@@ -125,6 +125,14 @@ XENT_DIGEST = ("50efecde4bf1d747a37544f31fa8de5f"
 # before the split-KV grid (commit 5b92b8c): the split must change no bit.
 DECODE_DIGEST = ("f8030f5dd4e4c81d538c1e1a32c501bd"
                  "903d4cf5315f7a115aa8a04772986fb1")
+# sha256 of lmhead_xent_dh_2d's and lmhead_xent_dw_2d's outputs on
+# lmhead_digest's inputs, as the wgmma kernels give them (on an H100).  The
+# wmma kernels before them gave 116c7416...f20b76 (commit 8faa1d8): each dh
+# and dw element now sums its products in another order (16-deep k steps,
+# each dlogit's three parts in turn, into one float32 accumulator), and dh
+# adds 3 k-split parts a slab where it added 4.
+LMHEAD_DIGEST = ("b31d42bf00ced80d82c6c7129b03fb52"
+                 "0d8b3bf5c1c334e50002e237f0d2f9ba")
 ARCH = "qwen2.5-14b"
 MAX_LEN = 1664             # 13 pages of 128: prompts up to 1500 + 32 new
 N_SLOTS = 8
@@ -272,6 +280,33 @@ def xent_digest(torch, xe) -> str:
         for t in xe.xent_fwd_2d(x, lab):
             h.update(t.float().cpu().numpy().tobytes())
     return h.hexdigest()
+
+
+def lmhead_inputs(torch, shape, dt):
+    """Seeded ``(h, w, labels, dloss)`` on the card for the LM-head CE
+    kernels at ``shape`` = (T, D, V); labels[0] = V lies outside [0, V)."""
+    t, d, v = shape
+    g = torch.Generator(device="cuda").manual_seed(13)
+    h = torch.randn(t, d, device="cuda", generator=g).to(dt)
+    w = (torch.randn(d, v, device="cuda", generator=g) * d ** -0.5).to(dt)
+    lab = torch.randint(0, v, (t,), device="cuda", generator=g)
+    lab[0] = v                                       # outside: gathers 0
+    dl = torch.randn(t, device="cuda", generator=g) / t
+    return h, w, lab, dl
+
+
+def lmhead_digest(torch, xe) -> str:
+    """sha256 of ``lmhead_xent_dh_2d``'s and ``lmhead_xent_dw_2d``'s
+    outputs at one loss chunk of the train phase (bf16, ``block_v`` 8192)
+    on :func:`lmhead_inputs`, from the forward kernel's stats."""
+    h, w, lab, dl = lmhead_inputs(torch, LMHEAD_TRAIN, torch.bfloat16)
+    _, m, n = xe.lmhead_xent_fwd_2d(h, w, lab, block_v=LMHEAD_BLOCK_V)
+    out = hashlib.sha256()
+    for fn in (xe.lmhead_xent_dh_2d, xe.lmhead_xent_dw_2d):
+        x = fn(h, w, lab, m, n, dl, block_v=LMHEAD_BLOCK_V)
+        out.update(x.cpu().numpy().tobytes())
+        del x
+    return out.hexdigest()
 
 
 def decode_digest(torch, da) -> str:
@@ -439,28 +474,56 @@ def lmhead_limits(torch, h, w, lab, dl, m_sum, n_sum, loss):
     return {k: x.clamp(min=1e-30) for k, x in lim.items()}
 
 
+def lmhead_backward_launches(torch, h, w, lab, block_v) -> dict[str, int]:
+    """Launches of each LM-head kernel in one backward of the CE op through
+    the kernels, from the profiler (the forward runs before it).  A session
+    that comes back with no kernel record (seen in some profiler sessions
+    on an H100) is taken again, up to 5 times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    hg, wg = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    loss = ops.lmhead_cross_entropy(hg, wg, lab, block_v=block_v,
+                                    impl="cuda").sum()
+    out: dict[str, int] = {}
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            loss.backward(retain_graph=True)
+            torch.cuda.synchronize()
+        out = {e.key: e.count for e in prof.key_averages()
+               if "lmhead" in e.key}
+        if out:
+            break
+    return out
+
+
 def lmhead_phase(torch, rows) -> None:
     """Kernels 9-11 against their plain versions at one loss chunk of the
     train phase (bf16) and at a ragged shape (float32 and bf16), each
     within the accumulation limits of :func:`lmhead_limits`; the same bits
-    on a second run; times at the train shape."""
+    on a second run; the fused backward (each slab's dlogits once for dh
+    and dw) equal to the two entry points; dh and dw at the train chunk
+    equal to ``LMHEAD_DIGEST``; the op's backward launching one dlogits
+    kernel a slab; times at the train shape, cuBLAS's for the same
+    products beside them."""
     from repro_torch.kernels import twopass_xent as xe
 
     def worst(got, want, lim):
         d = (got.float() - want.float()).abs()
         return float(d.max()), float((d / lim).max())
 
+    digest = lmhead_digest(torch, xe)
+    check(digest == LMHEAD_DIGEST,
+          f"lmhead dh / dw bits changed: {digest} != {LMHEAD_DIGEST}")
+    say("kernel_check", kernel="lmhead_xent_dh_2d + lmhead_xent_dw_2d",
+        case="train_chunk_bf16 bits as pinned", sha256=digest, equal=True)
+    torch.cuda.empty_cache()
     for case, (t, d, v), dt in (
             ("train_chunk_bf16", LMHEAD_TRAIN, torch.bfloat16),
             ("ragged_f32", LMHEAD_RAGGED, torch.float32),
             ("ragged_bf16", LMHEAD_RAGGED, torch.bfloat16)):
-        g = torch.Generator(device="cuda").manual_seed(13)
-        h = torch.randn(t, d, device="cuda", generator=g).to(dt)
-        w = (torch.randn(d, v, device="cuda", generator=g)
-             * d ** -0.5).to(dt)
-        lab = torch.randint(0, v, (t,), device="cuda", generator=g)
-        lab[0] = v                                   # outside: gathers 0
-        dl = torch.randn(t, device="cuda", generator=g) / t
+        h, w, lab, dl = lmhead_inputs(torch, (t, d, v), dt)
         bv, nch = LMHEAD_BLOCK_V, xe.lmhead_v_chunks(v, LMHEAD_BLOCK_V)
         loss, m, n = xe.lmhead_xent_fwd_2d(h, w, lab, block_v=bv)
         torch.cuda.synchronize()
@@ -473,25 +536,30 @@ def lmhead_phase(torch, rows) -> None:
                            torch.log(pm) + pn * xe.LN2, lim["lse"][:, None])
         dh = xe.lmhead_xent_dh_2d(*args, block_v=bv)
         torch.cuda.synchronize()
-        res["dh"] = worst(dh, xe.lmhead_xent_dh_2d_plain(*args, nch),
-                          lim["dh"])
+        pdh, pdw = xe.lmhead_xent_bwd_2d_plain(*args, nch)
+        res["dh"] = worst(dh, pdh, lim["dh"])
+        del pdh
         dw = xe.lmhead_xent_dw_2d(*args, block_v=bv)
         torch.cuda.synchronize()
-        res["dw"] = worst(dw, xe.lmhead_xent_dw_2d_plain(*args, nch),
-                          lim["dw"])
-        del lim
+        res["dw"] = worst(dw, pdw, lim["dw"])
+        del lim, pdw
         same = (torch.equal(xe.lmhead_xent_fwd_2d(h, w, lab, block_v=bv)[0],
                             loss)
                 and torch.equal(xe.lmhead_xent_dh_2d(*args, block_v=bv), dh)
                 and torch.equal(xe.lmhead_xent_dw_2d(*args, block_v=bv), dw))
-        del dw
+        fdh, fdw = xe.lmhead_xent_bwd_2d(*args, block_v=bv)
+        fused = torch.equal(fdh, dh) and torch.equal(fdw, dw)
+        del dw, fdh, fdw
         for what, (a, over) in res.items():
             check(over <= 1.0, f"lmhead {case} {what}: max abs err {a} is "
                   f"{over} of its limit")
         check(same, f"lmhead {case}: bits differ between two runs")
+        check(fused, f"lmhead {case}: lmhead_xent_bwd_2d differs from the "
+              "separate dh and dw")
         for k, what in zip(LMHEAD, (("loss", "lse"), ("dh",), ("dw",))):
             say("kernel_check", kernel=k, case=case, shape=[t, d, v],
                 dtype=str(dt), block_v=bv, same_bits_twice=True,
+                fused_backward_equal=fused,
                 **{f"{x}_max_abs_err": res[x][0] for x in what},
                 **{f"{x}_worst_err_over_limit": res[x][1] for x in what},
                 tol="float32 accumulation limits (lmhead_limits: "
@@ -514,19 +582,54 @@ def lmhead_phase(torch, rows) -> None:
                                   ("lmhead_xent_dw_2d", "dw", d * v * 4)):
                 fn = getattr(xe, k)
                 plain = getattr(xe, k + "_plain")
-                # the recomputed logits, then the dlogits product as three
-                # bf16 tensor-core products of the split float32 dlogits
+                # the function's own products: the logits and the dlogits
+                # product; the kernels run the dlogits product as three
+                # bf16 products of the split float32 dlogits
                 rows[k] = {case: dict(
                     ms=cuda_ms(torch, lambda: fn(*args, block_v=bv)),
                     plain_ms=cuda_ms(torch, lambda: plain(*args, nch), 5),
                     library_ms=None,
                     **dict(zip(("bound_ms", "bound_by"), bound(
-                        ins + out, XENT_BWD_OPS * t * v, 4 * mm))),
+                        ins + out, XENT_BWD_OPS * t * v, 2 * mm))),
+                    split_bound_ms=bound(ins + out, XENT_BWD_OPS * t * v,
+                                         4 * mm)[0],
                     max_abs_err=res[which][0], shape=[t, d, v])}
-            say("context", what="torch.matmul(h, w) alone, bf16, the "
-                "logits of one chunk", shape=[t, d, v],
-                ms=cuda_ms(torch, lambda: torch.matmul(h, w)),
-                bound_ms=bound(ins + 2 * t * v, 0, mm)[0])
+            say("kernel_time", kernel="lmhead_xent_bwd_2d",
+                case="train_chunk_bf16 (dh and dw, one dlogits pass a slab)",
+                ms=cuda_ms(torch, lambda: xe.lmhead_xent_bwd_2d(
+                    *args, block_v=bv)),
+                bound_ms=bound(ins + t * d * 4 + d * v * 4,
+                               XENT_BWD_OPS * t * v, 3 * mm)[0],
+                split_bound_ms=bound(0, 0, 7 * mm)[0], shape=[t, d, v])
+            dlog = torch.randn(t, bv, device="cuda").to(dt)
+            ws = w[:, :bv].contiguous()
+            for what, fn, ops in (
+                    ("torch.matmul(h, w), the logits of one chunk",
+                     lambda: torch.matmul(h, w), mm),
+                    ("torch.matmul(dlog_slab, w_slab.T), dh's product of "
+                     "one slab", lambda: torch.matmul(dlog, ws.T),
+                     2 * t * d * bv),
+                    ("torch.matmul(h.T, dlog_slab), dw's product of one "
+                     "slab", lambda: torch.matmul(h.T, dlog),
+                     2 * t * d * bv)):
+                ms = cuda_ms(torch, fn)
+                say("context", what=what + ", bf16", shape=[t, d, v],
+                    block_v=bv, ms=ms, bound_ms=bound(0, 0, ops)[0],
+                    tflops=ops / ms / 1e9)
+            del dlog, ws
+            launched = lmhead_backward_launches(torch, h, w, lab, bv)
+
+            def count(name):
+                return sum(c for k, c in launched.items() if name in k)
+            slabs = -(-v // bv)
+            check(count("lmhead_dlogits") == slabs,
+                  f"the op's backward launched {count('lmhead_dlogits')} "
+                  f"dlogits kernels for {slabs} slabs: {launched}")
+            say("kernel_check", kernel="lmhead_cross_entropy backward",
+                case="one dlogits kernel a slab", slabs=slabs,
+                dlogits_launches=count("lmhead_dlogits"),
+                dh_slab_launches=count("lmhead_dh_slab"),
+                dw_slab_launches=count("lmhead_dw_slab"))
         del h, w, loss, m, n, pl, pm, pn, dh, args
         torch.cuda.empty_cache()
     for k in LMHEAD:
@@ -1771,6 +1874,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=48,
                     help="decoder depth of the engine phase (full: 48)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run the train phase alone (to compare the train "
+                    "step of two trees on one card); no kernels or ok line")
     args = ap.parse_args()
 
     import torch
@@ -1794,6 +1900,10 @@ def main() -> int:
     print(_build.ptxas_report(), flush=True)
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul on")
 
+    if args.train_only:
+        train_phase(torch)
+        print(smi, flush=True)
+        return 0
     rng = np.random.default_rng(0)
     torch.manual_seed(0)                 # the card's own random inputs
     t0 = time.perf_counter()

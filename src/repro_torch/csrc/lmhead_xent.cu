@@ -16,45 +16,56 @@
 // lse = log(max(m_sum, 1e-37)) + n_sum * ln2.  ExtExp and every rescale
 // use __fmul_rn / __fadd_rn and rintf (extexp.cuh).
 //
-// Design.  Every product is computed in 128 x 128 output tiles (8 warps,
-// 64 x 32 each) over the full reduction:
+// Design.  The forward computes its logits in 128 x 128 output tiles (8
+// warps, 64 x 32 each) over the full reduction:
 //   * bf16 h and w: bf16 tensor cores (nvcuda::wmma 16x16x16) with float32
 //     accumulation, the k tiles of both operands copied by cp.async into a
 //     ring in shared memory (tc_tile).  bf16 x bf16 products are exact in
 //     float32, so the logits are the float32 product of the upcast values
 //     up to sum order.
 //   * float32 h and w: FFMA, 8 x 8 outputs a thread (ffma_tile).
-// The forward folds each logit tile's 128 columns per row into one
-// (m, n, ll) partial ([V/128, T] float32 scratch) and a second kernel
-// folds the partials of a row in vocab order: no atomics.
+// It folds each logit tile's 128 columns per row into one (m, n, ll)
+// partial ([V/128, T] float32 scratch) and a second kernel folds the
+// partials of a row in vocab order: no atomics.
 //
 // The backward cannot keep a whole (T_tile, D) dh tile or (D, V_tile) dw
 // tile on chip at D = 5120 (a 128-column dw tile is 2.6 MB of float32), and
 // each recomputed logit needs the full D reduction.  So it takes a vocab
 // slab at a time (block_v columns, 8192 at full width): one kernel writes
-// the slab's dlogits to scratch, then a product adds dlogits @ w_slab^T
-// into dh (dh kernel) or writes h^T @ dlogits into dw[:, slab] (dw kernel).
-// The dlogits are float32 and these products keep float32 accuracy, never
-// TF32 or a bf16 rounding of the dlogits: with bf16 h and w each dlogit is
-// written as three bf16 parts that sum to it exactly (split3) and the
-// products run on the tensor cores, one per part, all summed in float32;
-// with float32 h and w the dlogits stay float32 and the products are FFMA.
-// dh [T, D] has only 160 tiles at full width, so its slab product is split
-// along the slab's columns into partial products that a small kernel adds
-// in split order.  Each output element is written by one thread in a fixed
-// order: the same bits on every run.
+// the slab's dlogits to scratch, once for both products, then one product
+// adds dlogits @ w_slab^T into dh and another writes h^T @ dlogits into
+// dw[:, slab].  The dlogits are float32 and these products keep float32
+// accuracy, never TF32 or a bf16 rounding of the dlogits: with bf16 h and
+// w each dlogit is written as three bf16 parts that sum to it exactly
+// (split3) and the products run on the tensor cores, one per part, all
+// summed in float32; with float32 h and w the dlogits stay float32 and the
+// products are FFMA.  dh [T, D] has only 80 tiles of 128 x 256 at full
+// width, so its slab product is split along the slab's columns into
+// partial products that a small kernel adds in split order.  Each output
+// element is written by one thread in a fixed order: the same bits on
+// every run.
+//
+// With bf16 h and w the backward's three products (the logit tile of the
+// dlogits kernel, dh's and dw's) run on one core for Hopper, wg_tile:
+// wgmma.mma_async from swizzled shared memory, a ring of k tiles filled by
+// a producer warp (TMA, or cp.async where rows are not 16-byte aligned)
+// for two consumer warpgroups, float32 accumulators in registers written
+// out in rows of four (quads).  Its grids put the token tiles that share a
+// w tile next to each other, so a call reads each w tile from memory about
+// once.
 //
 // Bound on this card: operations.  At T = 512, D = 5120, V = 152064 each
-// call does 2 T D V = 0.80 TFLOP of logit products (0.81 ms on the bf16
-// tensor cores at 989 TFLOP/s); dh and dw each add three such products of
-// the split dlogits (2.4 TFLOP, 2.4 ms).  Bytes: w is 1.56 GB (bf16), dw
-// is 3.1 GB (float32).
+// logit product is 2 T D V = 0.80 TFLOP (0.81 ms on the bf16 tensor cores
+// at 989 TFLOP/s); dh and dw each add three such products of the split
+// dlogits (2.4 TFLOP, 2.4 ms), so dh alone or dw alone is 3.2 ms and both
+// from one dlogits pass 5.7 ms.  Bytes: w is 1.56 GB (bf16), dw is 3.1 GB
+// (float32).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "extexp.cuh"
 #include "rowfold.cuh"
@@ -64,7 +75,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 using repro::to_f32;
 using nvcuda::wmma::accumulator;
-using nvcuda::wmma::col_major;
 using nvcuda::wmma::fragment;
 using nvcuda::wmma::matrix_a;
 using nvcuda::wmma::matrix_b;
@@ -86,12 +96,9 @@ constexpr int kFLd = kTile + 4;
 
 constexpr int kLogitSmemBytes = kTile * kCsLd * 4;  // the f32 logit tile
 constexpr int kFfmaSmemBytes = 2 * kFk * kFLd * 4;
-// ring of a split product: 2 slots of 4 rectangles (3 parts + 1)
-constexpr int kSplitSmemBytes = 2 * 4 * kRectElems * 2;
 static_assert(kBk * kWideLd <= kRectElems, "smem");
 static_assert(3 * 2 * kRectElems * 2 <= kLogitSmemBytes, "smem");
 static_assert(kFfmaSmemBytes <= kLogitSmemBytes, "smem");
-static_assert(8 * 256 * 4 <= kSplitSmemBytes, "smem");
 
 // 8 consecutive bf16 of row r, columns [c, c + 8), of a [rows, cols] matrix
 // with leading dimension ld into dst (16-byte aligned); zeros outside.  A
@@ -137,18 +144,16 @@ __device__ __forceinline__ void load_rect(const Mat& m, long long r0,
   }
 }
 
-// acc += sum over parts of A_pa @ B_pb, k in [0, K), on the bf16 tensor
-// cores; A is NA matrices (parts), B is NB.  A_KM: A's tile is stored k by m
-// (the matrix in memory is A^T, row-major [K, M]), else m by k (A row-major
-// [M, K]).  B_NK: B's tile is stored n by k (B^T row-major [N, K]), else k
-// by n (B row-major [K, N]).  The output tile's rows start at m0 of A, its
-// columns at n0 of B.  k tiles of kBk pass through a ring of STAGES slots
-// filled by cp.async, one commit group per tile.
-template <int NA, int NB, bool A_KM, bool B_NK, int STAGES>
-__device__ void tc_tile(const Mat (&a)[NA], const Mat (&b)[NB], long long m0,
+// acc += A @ B, k in [0, K), on the bf16 tensor cores: A row-major [M, K]
+// (its tile m by k), B row-major [K, N] (its tile k by n).  The output
+// tile's rows start at m0 of A, its columns at n0 of B.  k tiles of kBk
+// pass through a ring of STAGES slots filled by cp.async, one commit group
+// per tile.
+template <int STAGES>
+__device__ void tc_tile(const Mat& a, const Mat& b, long long m0,
                         long long n0, long long K, Acc (&acc)[4][2],
                         unsigned char* smem) {
-  constexpr int kSlot = (NA + NB) * kRectElems;
+  constexpr int kSlot = 2 * kRectElems;
   auto* ring = reinterpret_cast<bf16*>(smem);
   const int warp = threadIdx.x >> 5;
   const int wr = warp >> 2, wc = warp & 3;
@@ -157,20 +162,9 @@ __device__ void tc_tile(const Mat (&a)[NA], const Mat (&b)[NB], long long m0,
   };
   auto load_tile = [&](int kt) {
     const long long k0 = static_cast<long long>(kt) * kBk;
-#pragma unroll
-    for (int p = 0; p < NA; ++p) {
-      if (A_KM) load_rect<kBk, kTile>(a[p], k0, m0, rect(kt, p), kWideLd);
-      else load_rect<kTile, kBk>(a[p], m0, k0, rect(kt, p), kNarrowLd);
-    }
-#pragma unroll
-    for (int p = 0; p < NB; ++p) {
-      if (B_NK) load_rect<kTile, kBk>(b[p], n0, k0, rect(kt, NA + p),
-                                      kNarrowLd);
-      else load_rect<kBk, kTile>(b[p], k0, n0, rect(kt, NA + p), kWideLd);
-    }
+    load_rect<kTile, kBk>(a, m0, k0, rect(kt, 0), kNarrowLd);
+    load_rect<kBk, kTile>(b, k0, n0, rect(kt, 1), kWideLd);
   };
-  using LayA = std::conditional_t<A_KM, col_major, row_major>;
-  using LayB = std::conditional_t<B_NK, col_major, row_major>;
   const int nk = static_cast<int>((K + kBk - 1) / kBk);
   // wait_group(STAGES - 1) leaves tile kt complete at step kt: one group
   // per tile, empty past the end
@@ -186,35 +180,23 @@ __device__ void tc_tile(const Mat (&a)[NA], const Mat (&b)[NB], long long m0,
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kBk; kk += 16) {
+      const bf16* as = rect(kt, 0);
+      fragment<matrix_a, 16, 16, 16, bf16, row_major> fa[4];
 #pragma unroll
-      for (int pa = 0; pa < NA; ++pa) {
-        const bf16* as = rect(kt, pa);
-        fragment<matrix_a, 16, 16, 16, bf16, LayA> fa[4];
+      for (int i = 0; i < 4; ++i)
+        nvcuda::wmma::load_matrix_sync(
+            fa[i], as + (wr * 64 + i * 16) * kNarrowLd + kk, kNarrowLd);
+      const bf16* bs = rect(kt, 1);
+      fragment<matrix_b, 16, 16, 16, bf16, row_major> fb[2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          nvcuda::wmma::load_matrix_sync(
-              fa[i],
-              A_KM ? as + kk * kWideLd + wr * 64 + i * 16
-                   : as + (wr * 64 + i * 16) * kNarrowLd + kk,
-              A_KM ? kWideLd : kNarrowLd);
+      for (int j = 0; j < 2; ++j)
+        nvcuda::wmma::load_matrix_sync(
+            fb[j], bs + kk * kWideLd + wc * 32 + j * 16, kWideLd);
 #pragma unroll
-        for (int pb = 0; pb < NB; ++pb) {
-          const bf16* bs = rect(kt, NA + pb);
-          fragment<matrix_b, 16, 16, 16, bf16, LayB> fb[2];
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 2; ++j)
-            nvcuda::wmma::load_matrix_sync(
-                fb[j],
-                B_NK ? bs + (wc * 32 + j * 16) * kNarrowLd + kk
-                     : bs + kk * kWideLd + wc * 32 + j * 16,
-                B_NK ? kNarrowLd : kWideLd);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-              nvcuda::wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-        }
-      }
+        for (int j = 0; j < 2; ++j)
+          nvcuda::wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -229,37 +211,16 @@ __device__ __forceinline__ void zero(Acc (&acc)[4][2]) {
     for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.0f);
 }
 
-// The warp's 64 x 32 accumulator, element by element through a 16 x 16
-// staging buffer of its own in smem: out(r, c, v) at tile-local (r, c).
-template <typename F>
-__device__ __forceinline__ void store_acc(Acc (&acc)[4][2],
-                                          unsigned char* smem, F out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = warp >> 2, wc = warp & 3;
-  float* buf = reinterpret_cast<float*>(smem) + warp * 256;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      nvcuda::wmma::store_matrix_sync(buf, acc[i][j], 16,
-                                      nvcuda::wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32)
-        out(wr * 64 + i * 16 + e / 16, wc * 32 + j * 16 + e % 16, buf[e]);
-      __syncwarp();
-    }
-}
-
 // Logit tile x[t0:t0+128, v0:v0+128] = h @ w into cs (float32, ld kCsLd),
 // bf16 tensor cores.  h [T, D], w [D, V] row-major.
 __device__ void logits_tile(const bf16* __restrict__ h,
                             const bf16* __restrict__ w, int T, int D, int V,
                             int t0, int v0, unsigned char* smem) {
-  const Mat a[1] = {{h, T, D, D, aligned16(h, D)}};
-  const Mat b[1] = {{w, D, V, V, aligned16(w, V)}};
+  const Mat a = {h, T, D, D, aligned16(h, D)};
+  const Mat b = {w, D, V, V, aligned16(w, V)};
   Acc acc[4][2];
   zero(acc);
-  tc_tile<1, 1, false, false, 3>(a, b, t0, v0, D, acc, smem);
+  tc_tile<3>(a, b, t0, v0, D, acc, smem);
   float* cs = reinterpret_cast<float*>(smem);
   const int warp = threadIdx.x >> 5;
   const int wr = warp >> 2, wc = warp & 3;
@@ -412,42 +373,638 @@ __global__ void lmhead_fwd_combine(const float* __restrict__ pm,
 // hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid): the two
 // subtractions are exact and what is left after two 8-bit parts fits in the
 // third, so hi + mid + lo == x and each part x bf16 product is exact in
-// float32.  Parts are `stride` elements apart.
-__device__ __forceinline__ void split3(float x, bf16* p, size_t stride) {
-  const bf16 hi = __float2bfloat16_rn(x);
+// float32.
+__device__ __forceinline__ void split3(float x, bf16& hi, bf16& mid,
+                                       bf16& lo) {
+  hi = __float2bfloat16_rn(x);
   const float r1 = __fsub_rn(x, __bfloat162float(hi));
-  const bf16 mid = __float2bfloat16_rn(r1);
-  p[0] = hi;
-  p[stride] = mid;
-  p[2 * stride] = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(mid)));
+  mid = __float2bfloat16_rn(r1);
+  lo = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(mid)));
 }
 
-__device__ __forceinline__ void put_dlogit(float* dlog, size_t i, size_t,
-                                           float d) {
-  dlog[i] = d;
-}
-__device__ __forceinline__ void put_dlogit(bf16* dlog, size_t i,
-                                           size_t plane, float d) {
-  split3(d, dlog + i, plane);
+// ---------------------------------------------------------------------------
+// The bf16 product core of the backward, on Hopper's warpgroup MMA:
+// acc[128 x 256] += sum over parts of A_p B_p over a k range, float32.
+//
+// Two consumer warpgroups a block, 64 output rows each, issue
+// wgmma.mma_async m64n256k16 with both operands in shared memory.  Each
+// k tile (BK deep) of every operand is one tile in a swizzled layout that
+// the wgmma descriptors name:
+//   * K-major (k contiguous in memory), BK = 64: row r (an m or n index)
+//     of 128 bytes at r * 128, its 16-byte chunk c (k in [8c, 8c + 8)) at
+//     chunk c ^ (r % 8) (128-byte swizzle, 8-row groups 1024 bytes apart);
+//     BK = 32: rows of 64 bytes, chunk c at c ^ ((r / 2) % 4) (64-byte
+//     swizzle, 8-row groups 512 bytes apart);
+//   * MN-major (m or n contiguous), 128-byte swizzle: 64-column atoms of
+//     BK k rows, BK * 128 bytes apart (LBO); k row at (k / 8) * 1024 +
+//     (k % 8) * 128 (SBO 1024), chunk (mn % 64) / 8 ^ (k % 8).
+// A ring of STAGES such k tiles is filled by a producer warp and read by
+// two consumer warpgroups, handed back and forth by mbarriers (wg_tile).
+// The producer fills a slot with TMA (one thread; the tensor maps name the
+// same swizzle) where every operand's rows are 16-byte aligned, else with
+// cp.async (TileLoader).  A split operand's parts share the other
+// operand's tile: it is loaded once a k step.  Each output element is the
+// sum of its products in one fixed order: the same bits on every run, by
+// either loader.
+// ---------------------------------------------------------------------------
+constexpr int kWgThreads = 256;  // two consumer warpgroups of 64 rows
+constexpr int kProducers = 32;   // one warp that fills the ring
+constexpr int kBlockThreads = kWgThreads + kProducers;
+constexpr int kWgBm = 128;
+constexpr int kBn = 256;         // output columns: one m64n256k16 a k step
+
+template <int NA, int NB, int STAGES, int BK>
+struct WgCore {
+  static_assert(BK == 32 || BK == 64, "k tiles of 64 or 128 bytes");
+  static constexpr int kATile = kWgBm * BK * 2;  // bytes of a k tile
+  static constexpr int kBTile = kBn * BK * 2;
+  static constexpr int kStage = NA * kATile + NB * kBTile;
+  // + 1024 for alignment and 128 for the ring's mbarriers
+  static constexpr int kSmem = STAGES * kStage + 1024 + 128;
+  static_assert(STAGES >= 2, "a slot filled while another is read");
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Backward, dlogits of one vocab slab [vs0, vs0 + ws): grid (ceil(ws /
+template <int BK>
+__device__ __forceinline__ uint32_t kmajor_off(int r, int c) {
+  if constexpr (BK == 64) return r * 128 + ((c ^ (r & 7)) << 4);
+  else return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+template <int BK>
+__device__ __forceinline__ uint32_t mnmajor_off(int k, int cm) {
+  return (cm >> 3) * (BK * 128) + (k >> 3) * 1024 + (k & 7) * 128 +
+         (((cm & 7) ^ (k & 7)) << 4);
+}
+
+// Elements [c, c + 8) of row r of m into the 16 bytes at dst (shared),
+// element by element (rows not 16-byte aligned), zeros outside m.
+__device__ __forceinline__ void chunk16(const Mat& m, long long r,
+                                        long long c, unsigned char* dst) {
+  const bool in = r < m.rows;
+  uint32_t v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const long long c0 = c + 2 * e;
+    const uint32_t lo =
+        in && c0 < m.cols ? __bfloat16_as_ushort(m.p[r * m.ld + c0]) : 0u;
+    const uint32_t hi =
+        in && c0 + 1 < m.cols ? __bfloat16_as_ushort(m.p[r * m.ld + c0 + 1])
+                              : 0u;
+    v[e] = lo | (hi << 16);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// One producer lane's 16-byte chunks of an operand's BK-deep k tiles,
+// EXTENT rows (m or n) each.  Chunk j of tile kt is the 8 elements at
+// (row + j kDr, col) of the matrix in memory, k tile kt adding BK to row
+// (MN-major) or to col (K-major), stored at off(j) of the tile.  One
+// cp.async each, zero-filled past the matrix, where m's rows are 16-byte
+// aligned; element by element where they are not.
+template <int EXTENT, bool MN, int BK>
+struct TileLoader {
+  static constexpr int kPerRow = MN ? EXTENT / 8 : BK / 8;  // chunks a row
+  static constexpr int kJ = EXTENT * BK / 8 / kProducers;  // chunks a thread
+  static constexpr int kDr = kProducers / kPerRow;   // rows from j to j + 1
+  long long row, col;
+  int tr, tc;
+
+  __device__ __forceinline__ TileLoader(long long mn0, int tid) {
+    tr = tid / kPerRow;
+    tc = tid % kPerRow;
+    row = MN ? tr : mn0 + tr;
+    col = MN ? mn0 + 8 * tc : 8 * tc;
+  }
+
+  __device__ __forceinline__ uint32_t off(int j) const {
+    return MN ? mnmajor_off<BK>(tr + j * kDr, tc)
+              : kmajor_off<BK>(tr + j * kDr, tc);
+  }
+
+  __device__ __forceinline__ void load(const Mat& m, int kt,
+                                       unsigned char* tile) const {
+    const long long k0 = static_cast<long long>(kt) * BK;
+    const long long r = MN ? row + k0 : row, c = MN ? col : col + k0;
+    if (!m.vec) {
+#pragma unroll 4
+      for (int j = 0; j < kJ; ++j) chunk16(m, r + j * kDr, c, tile + off(j));
+      return;
+    }
+    const long long left = m.cols - c;
+    const int bytes = left >= 8 ? 16 : (left > 0 ? static_cast<int>(left) * 2
+                                                 : 0);
+    const bf16* src = m.p + r * m.ld + c;
+    const uint32_t dst = smem_u32(tile);
+#pragma unroll 8
+    for (int j = 0; j < kJ; ++j) {
+      const bool in = bytes > 0 && r + j * kDr < m.rows;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       dst + off(j)),
+                   "l"(in ? src + j * kDr * m.ld : m.p), "r"(in ? bytes : 0));
+    }
+  }
+};
+
+// mbarriers of the ring (shared addresses): a phase completes after
+// `count` arrivals.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Waits for the phase of the given parity to complete.  A phase that does
+// not complete within ~10 s of the SM clock (a lost arrival) traps: the
+// launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// TMA: a box of a tensor map (a __grid_constant__ kernel parameter) into
+// shared memory at dst, its bytes counted on the mbarrier bar.
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
+                                       int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
+                                       int c0, int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle (1: 128 bytes, 2: 64 bytes).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo, uint64_t swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (swizzle << 62);
+}
+
+// The descriptor of k step s (16 deep) of a tile at addr: MN-major, atoms
+// BK * 128 bytes apart and the step two 8-k groups on; K-major, the step 32
+// bytes along each row.
+template <bool MN, int BK>
+__device__ __forceinline__ uint64_t step_desc(uint32_t addr, int s) {
+  if constexpr (MN) return wg_desc(addr + s * 2048, BK * 128, 1024, 1);
+  else return wg_desc(addr + s * 32, 16, 16 * BK, BK == 64 ? 1 : 2);
+}
+
+// wgmma.mma_async m64n256k16, float32 += bf16 x bf16, D accumulated
+// (scale-d 1); TA / TB: A / B MN-major (transposed).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %132, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %130, %131;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "n"(TA), "n"(TB), "r"(1));
+}
+
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous MMAs (which it cannot see write the registers).
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+// acc = sum over parts of A_pa @ B_pb over k in [0, K): the output tile's
+// rows start at m0 of A, its columns at n0 of B.  A_MN: A is MN-major, the
+// matrix in memory is [K, M] (else [M, K]); B_MN: B is [K, N] in memory
+// (else [N, K]).  Every thread of the block calls it.  Warp-specialised:
+// the producer warp (threads 256-287) fills the ring's slots and returns
+// false; the two consumer warpgroups wait for each slot, run its MMAs and
+// hand the slot back, and return true with the tile in acc.  full[s]
+// completes when slot s holds its k tile: with TMA (use_tma: every
+// operand's rows are 16-byte aligned; tma(kt, slot, bar) issues the tile's
+// boxes) when the bytes of the stage have landed, else when the 32
+// producer lanes' copies and stores have.  empty[s] completes when the 8
+// consumer warps' MMAs on it are done (one step later: the MMAs of step kt
+// run while step kt + 1's are issued).  No block-wide barrier after the
+// set-up, which the block's first tile (g0 == 0) does.
+template <int NA, int NB, bool A_MN, bool B_MN, int STAGES, int BK,
+          typename Tma>
+__device__ __forceinline__ bool wg_tile(const Mat (&a)[NA],
+                                        const Mat (&b)[NB], long long m0,
+                                        long long n0, long long K, int g0,
+                                        bool use_tma, const Tma& tma,
+                                        float (&acc)[kBn / 2],
+                                        unsigned char* smem) {
+  using C = WgCore<NA, NB, STAGES, BK>;
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* ring = smem + (base - raw);
+  const uint32_t bars = base + STAGES * C::kStage;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  // slots by ring step g = g0 + kt (g0: the steps of the block's earlier
+  // tiles), so a block can run several tiles on one ring
+  auto a_off = [](int g, int p) {
+    return (g % STAGES) * C::kStage + p * C::kATile;
+  };
+  auto b_off = [](int g, int p) {
+    return (g % STAGES) * C::kStage + NA * C::kATile + p * C::kBTile;
+  };
+  if (g0 == 0) {  // the block's first tile: the ring's barriers
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(full(s), use_tma ? 1 : kProducers);
+        mbar_init(empty(s), kWgThreads / 32);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+  const int nk = static_cast<int>((K + BK - 1) / BK);
+  if (threadIdx.x >= kWgThreads && use_tma) {  // one thread, TMA
+    if (threadIdx.x == kWgThreads) {
+      for (int g = g0; g < g0 + nk; ++g) {
+        const int s = g % STAGES;
+        if (g >= STAGES) mbar_wait(empty(s), ((g / STAGES) - 1) & 1);
+        mbar_expect_tx(full(s), C::kStage);
+        tma(g - g0, base + s * C::kStage, full(s));
+      }
+    }
+    return false;
+  }
+  if (threadIdx.x >= kWgThreads) {  // the producer warp, cp.async
+    const int tid = threadIdx.x - kWgThreads;
+    const TileLoader<kWgBm, A_MN, BK> la(m0, tid);
+    const TileLoader<kBn, B_MN, BK> lb(n0, tid);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int g = g0 + kt, s = g % STAGES;
+      if (g >= STAGES) mbar_wait(empty(s), ((g / STAGES) - 1) & 1);
+#pragma unroll
+      for (int p = 0; p < NA; ++p) la.load(a[p], kt, ring + a_off(g, p));
+#pragma unroll
+      for (int p = 0; p < NB; ++p) lb.load(b[p], kt, ring + b_off(g, p));
+      // the lane's copies have landed and its element stores are fenced
+      // for the MMAs' proxy before it arrives
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(full(s));
+    }
+    return false;
+  }
+  // this warpgroup's 64 rows of A: 64 K-major rows or one MN-major atom
+  const uint32_t wg_a = (threadIdx.x >> 7) * (A_MN ? BK * 128 : 64 * BK * 2);
+#pragma unroll
+  for (int i = 0; i < kBn / 2; ++i) acc[i] = 0.0f;
+  fence_acc(acc);
+  for (int g = g0; g < g0 + nk; ++g) {
+    mbar_wait(full(g % STAGES), (g / STAGES) & 1);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int s = 0; s < BK / 16; ++s) {
+#pragma unroll
+      for (int pa = 0; pa < NA; ++pa) {
+        const uint64_t da =
+            step_desc<A_MN, BK>(base + a_off(g, pa) + wg_a, s);
+#pragma unroll
+        for (int pb = 0; pb < NB; ++pb) {
+          const uint64_t db = step_desc<B_MN, BK>(base + b_off(g, pb), s);
+          wgmma_n256<A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db);
+        }
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_acc(acc);
+    // step g - 1's MMAs are done: its slot goes back to the producer
+    if (g > g0 && (threadIdx.x & 31) == 0)
+      mbar_arrive(empty((g - 1) % STAGES));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc);
+  // and the last step's: the producer may fill it for the block's next
+  // tile while this one's epilogue runs
+  if (nk > 0 && (threadIdx.x & 31) == 0)
+    mbar_arrive(empty((g0 + nk - 1) % STAGES));
+  return true;
+}
+
+// The thread's output row of the block's 128 x 256 tile after quads().
+__device__ __forceinline__ int quad_row() {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  return (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2) + (lane & 1) * 8;
+}
+
+// Walks the accumulator as 4 consecutive columns of one row a thread.
+// wgmma leaves thread (warp w, lane l) of a warpgroup rows 16w + l/4 and
+// + 8, columns 8j + 2(l%4) + {0, 1} (acc[4j + 2h + e]); lanes l and l^1
+// trade one row's pair, so each then holds row quad_row()'s columns
+// 8j + 4((l%4)/2) .. + 3.  f(col, float4), col tile-local.  Every lane of
+// the warp calls it (the trades are shuffles).
+template <typename F>
+__device__ __forceinline__ void quads(const float (&acc)[kBn / 2], F f) {
+  const int lane = threadIdx.x & 31;
+  const bool odd = lane & 1;
+  const int c = 4 * ((lane & 3) >> 1);
+#pragma unroll
+  for (int j = 0; j < kBn / 8; ++j) {
+    const float s0 = odd ? acc[4 * j] : acc[4 * j + 2];
+    const float s1 = odd ? acc[4 * j + 1] : acc[4 * j + 3];
+    const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+    const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+    f(8 * j + c, odd ? make_float4(r0, r1, acc[4 * j + 2], acc[4 * j + 3])
+                     : make_float4(acc[4 * j], acc[4 * j + 1], r0, r1));
+  }
+}
+
+// v's first n (<= 4) values to out[0, n): one 16-byte store when all four
+// land on an aligned address, else one at a time.
+__device__ __forceinline__ void put4(float* out, int n, bool vec, float4 v) {
+  if (vec && n >= 4) {
+    *reinterpret_cast<float4*>(out) = v;
+    return;
+  }
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < n) out[i] = e[i];
+}
+
+// The three products' tiles, 128 x 256.  dlogits: 64-deep k tiles in 4
+// stages.  dh and dw: the three dlogit planes on the 128-row side (each k
+// tile then carries 3 x 128 + 256 rows, not 128 + 3 x 256), 32-deep k
+// tiles in 5 stages (40 KB each).
+constexpr int kProdBk = 32;
+using DlogCore = WgCore<1, 1, 4, 64>;
+using ProdCore = WgCore<3, 1, 5, kProdBk>;
+
+// Backward, dlogits of one vocab slab [vs0, vs0 + ws), bf16 h and w: grid
+// (ceil(T / 128), ceil(ws / 256)), the token tiles that share a w tile
+// adjacent.  The logit tile h @ w (h K-major, w MN-major) on the wgmma
+// core, then for t < T, v < vs0 + ws: dlog = (p - onehot) * dl as three
+// bf16 planes of T x ld (split3).
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    lmhead_dlogits_bf16(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                        const int* __restrict__ labels,
+                        const float* __restrict__ m_sum,
+                        const float* __restrict__ n_sum,
+                        const float* __restrict__ dloss,
+                        bf16* __restrict__ dlog, int Tn, int D, int V,
+                        int vs0, int ws, int ld,
+                        const __grid_constant__ CUtensorMap ta,
+                        const __grid_constant__ CUtensorMap tb,
+                        int use_tma) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int t0 = blockIdx.x * kWgBm, c0 = blockIdx.y * kBn;
+  const Mat a[1] = {{h, Tn, D, D, aligned16(h, D)}};
+  const Mat b[1] = {{w, D, V, V, aligned16(w, V)}};
+  // TMA: h [T, D] in boxes of 128 x 64 (K-major), w [D, V] in 64 x 64
+  // atoms (MN-major), four a k tile
+  auto tma = [&](int kt, uint32_t slot, uint32_t bar) {
+    tma_2d(slot, &ta, kt * 64, t0, bar);
+#pragma unroll
+    for (int q = 0; q < kBn / 64; ++q)
+      tma_2d(slot + DlogCore::kATile + q * 64 * 128, &tb, vs0 + c0 + 64 * q,
+             kt * 64, bar);
+  };
+  float acc[kBn / 2];
+  if (!wg_tile<1, 1, false, true, 4, 64>(
+          a, b, t0, vs0 + c0, D, 0, use_tma != 0, tma, acc, smem))
+    return;
+  // every lane takes part in quads' shuffles; rows past T store nothing
+  const int t = t0 + quad_row();
+  const int tr = t < Tn ? t : Tn - 1;
+  const float lam = __frcp_rn(fmaxf(m_sum[tr], 1e-37f));
+  const float ns = n_sum[tr], dl = dloss[tr];
+  const int lab = labels[tr];
+  const size_t plane = static_cast<size_t>(Tn) * ld;
+  bf16* row = dlog + static_cast<size_t>(tr) * ld;
+  quads(acc, [&](int c, float4 x4) {
+    const int cc = c0 + c;
+    if (t >= Tn || cc >= ws) return;
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+    bf16 part[3][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float me, ne;
+      repro::ext_exp(x[e], me, ne);
+      const float p = __fmul_rn(__fmul_rn(me, lam),
+                                repro::exp2_int(__fsub_rn(ne, ns)));
+      const float hot = (vs0 + cc + e == lab) ? 1.0f : 0.0f;
+      split3(__fmul_rn(__fsub_rn(p, hot), dl), part[0][e], part[1][e],
+             part[2][e]);
+    }
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      bf16* out = row + q * plane + cc;
+      if (cc + 4 <= ws) {  // ld % 8 == 0 and cc % 4 == 0: 8-byte aligned
+        *reinterpret_cast<uint2*>(out) =
+            make_uint2(__bfloat16_as_ushort(part[q][0]) |
+                           (uint32_t(__bfloat16_as_ushort(part[q][1])) << 16),
+                       __bfloat16_as_ushort(part[q][2]) |
+                           (uint32_t(__bfloat16_as_ushort(part[q][3])) << 16));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (e < ws - cc) out[e] = part[q][e];
+      }
+    }
+  });
+}
+
+// Split z of dlog[T, ws] @ w[:, vs0:vs0+ws]^T into part[z] ([T, D]) over
+// slab columns [z kc, (z + 1) kc), bf16: grid (ceil(T / 128), ceil(D /
+// 256), splits), the token tiles that share a w tile adjacent.  The three
+// dlogit planes (K-major) against one w tile (w[d, v] is K-major for
+// dh[t, d]) on the wgmma core.
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    lmhead_dh_slab_bf16(const bf16* __restrict__ dlog,
+                        const bf16* __restrict__ w, float* __restrict__ part,
+                        int Tn, int D, int V, int vs0, int ws, int ld,
+                        int kc, const __grid_constant__ CUtensorMap ta,
+                        const __grid_constant__ CUtensorMap tb,
+                        int use_tma) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int m0 = blockIdx.x * kWgBm, n0 = blockIdx.y * kBn;
+  const int k0 = blockIdx.z * kc;
+  // TMA: the three planes [3, T, ws] in boxes of 128 x 32 (K-major), w
+  // [D, V] in boxes of 256 x 32 (K-major); kc is a multiple of 32, so no
+  // box crosses into the next split
+  auto tma = [&](int kt, uint32_t slot, uint32_t bar) {
+    const int k = k0 + kt * kProdBk;
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      tma_3d(slot + p * ProdCore::kATile, &ta, k, m0, p, bar);
+    tma_2d(slot + 3 * ProdCore::kATile, &tb, vs0 + k, n0, bar);
+  };
+  const int kn = ws - k0 < kc ? ws - k0 : kc;
+  const size_t plane = static_cast<size_t>(Tn) * ld;
+  const bf16* d0 = dlog + k0;
+  const bool vd = aligned16(d0, ld);
+  const Mat a[3] = {{d0, Tn, kn, ld, vd}, {d0 + plane, Tn, kn, ld, vd},
+                    {d0 + 2 * plane, Tn, kn, ld, vd}};
+  const bf16* wk = w + vs0 + k0;  // [D, kn], leading dimension V
+  const Mat b[1] = {{wk, D, kn, V, aligned16(wk, V)}};
+  float acc[kBn / 2];
+  if (!wg_tile<3, 1, false, false, 5, kProdBk>(
+          a, b, m0, n0, kn, 0, use_tma != 0, tma, acc, smem))
+    return;
+  const int t = m0 + quad_row();
+  float* out = part + static_cast<size_t>(blockIdx.z) * Tn * D +
+               static_cast<size_t>(t) * D;
+  const bool vec = D % 4 == 0;
+  quads(acc, [&](int c, float4 v) {
+    const int d = n0 + c;
+    if (t < Tn && d < D) put4(out + d, D - d, vec, v);
+  });
+}
+
+// dw[:, vs0:vs0+ws] = h^T @ dlog over the T tokens, bf16 h.  Computed
+// transposed, dw^T = dlog^T @ h, so that the three dlogit planes
+// (MN-major) sit on the 128-row side against one h tile (MN-major).  The
+// ceil(ws / 128) x ceil(D / 256) tiles (vocab tiles adjacent) are shared
+// round-robin by the blocks of the grid, one an SM: K = T is short, so the
+// producer loads a block's next tile while its last one is written out.
+// Each thread writes its rows of four d as 4-byte stores, 64 contiguous
+// bytes of dw ([D, V] float32) per d row and warp.
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    lmhead_dw_slab_bf16(const bf16* __restrict__ h,
+                        const bf16* __restrict__ dlog, float* __restrict__ dw,
+                        int Tn, int D, int V, int vs0, int ws, int ld,
+                        const __grid_constant__ CUtensorMap ta,
+                        const __grid_constant__ CUtensorMap tb,
+                        int use_tma) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const size_t plane = static_cast<size_t>(Tn) * ld;
+  const bool vd = aligned16(dlog, ld);
+  const Mat a[3] = {{dlog, Tn, ws, ld, vd}, {dlog + plane, Tn, ws, ld, vd},
+                    {dlog + 2 * plane, Tn, ws, ld, vd}};
+  const Mat b[1] = {{h, Tn, D, D, aligned16(h, D)}};
+  const int vt = (ws + kWgBm - 1) / kWgBm;
+  const int tiles = vt * ((D + kBn - 1) / kBn);
+  const int nk = (Tn + kProdBk - 1) / kProdBk;
+  int g0 = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, g0 += nk) {
+    const int m0 = tile % vt * kWgBm, n0 = tile / vt * kBn;
+    // TMA: the three planes [3, T, ws] and h [T, D] in 64 x 32 atoms
+    // (MN-major)
+    auto tma = [&](int kt, uint32_t slot, uint32_t bar) {
+      const int k = kt * kProdBk;
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int q = 0; q < kWgBm / 64; ++q)
+          tma_3d(slot + p * ProdCore::kATile + q * kProdBk * 128, &ta,
+                 m0 + 64 * q, k, p, bar);
+#pragma unroll
+      for (int q = 0; q < kBn / 64; ++q)
+        tma_2d(slot + 3 * ProdCore::kATile + q * kProdBk * 128, &tb,
+               n0 + 64 * q, k, bar);
+    };
+    float acc[kBn / 2];
+    if (!wg_tile<3, 1, true, true, 5, kProdBk>(
+            a, b, m0, n0, Tn, g0, use_tma != 0, tma, acc, smem))
+      continue;
+    const int v = m0 + quad_row();
+    float* out = dw + vs0 + v;
+    quads(acc, [&](int c, float4 x) {
+      const float e[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int d = n0 + c + q;
+        if (v < ws && d < D) out[static_cast<size_t>(d) * V] = e[q];
+      }
+    });
+  }
+}
+
+// Backward, dlogits of one vocab slab for float32 h and w: grid (ceil(ws /
 // 128), ceil(T / 128)); writes dlog[t, v - vs0] = (p - onehot) * dl for
-// t < T, v < vs0 + ws (the slab ends at or before V), row stride ld: as
-// float32 for float32 h and w, as three bf16 planes of T x ld for bf16.
-template <typename T, typename D_T>
+// t < T, v < vs0 + ws (the slab ends at or before V), row stride ld.
 __global__ void __launch_bounds__(kThreads)
-    lmhead_dlogits(const T* __restrict__ h, const T* __restrict__ w,
+    lmhead_dlogits(const float* __restrict__ h, const float* __restrict__ w,
                    const int* __restrict__ labels,
                    const float* __restrict__ m_sum,
                    const float* __restrict__ n_sum,
-                   const float* __restrict__ dloss, D_T* __restrict__ dlog,
+                   const float* __restrict__ dloss, float* __restrict__ dlog,
                    int Tn, int D, int V, int vs0, int ws, int ld) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int c0 = blockIdx.x * kTile, t0 = blockIdx.y * kTile;
   logits_tile(h, w, Tn, D, V, t0, vs0 + c0, smem);
   const float* cs = reinterpret_cast<const float*>(smem);
-  const size_t plane = static_cast<size_t>(Tn) * ld;
   for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
     const int r = e / kTile, c = e % kTile;
     const int t = t0 + r, cc = c0 + c;
@@ -458,20 +1015,16 @@ __global__ void __launch_bounds__(kThreads)
     const float p = __fmul_rn(__fmul_rn(me, lam),
                               repro::exp2_int(__fsub_rn(ne, n_sum[t])));
     const float hot = (vs0 + cc == labels[t]) ? 1.0f : 0.0f;
-    put_dlogit(dlog, static_cast<size_t>(t) * ld + cc, plane,
-               __fmul_rn(__fsub_rn(p, hot), dloss[t]));
+    dlog[static_cast<size_t>(t) * ld + cc] =
+        __fmul_rn(__fsub_rn(p, hot), dloss[t]);
   }
 }
 
 // Split z of dlog[T, ws] @ w[:, vs0:vs0+ws]^T into part[z] ([T, D]) over
-// slab columns [z kc, (z + 1) kc); grid (ceil(D / 128), ceil(T / 128),
-// splits).  dh [T, D] alone has too few tiles to fill the card, so the
-// slab's k range is split and lmhead_dh_add folds the parts in order.
-// bf16: three tensor-core products of the split dlogits (planes of T x
-// ld) with w^T; float32: FFMA.
-template <typename T, typename D_T>
+// slab columns [z kc, (z + 1) kc), float32: FFMA; grid (ceil(D / 128),
+// ceil(T / 128), splits).
 __global__ void __launch_bounds__(kThreads)
-    lmhead_dh_slab(const D_T* __restrict__ dlog, const T* __restrict__ w,
+    lmhead_dh_slab(const float* __restrict__ dlog, const float* __restrict__ w,
                    float* __restrict__ part, int Tn, int D, int V, int vs0,
                    int ws, int ld, int kc) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -479,35 +1032,20 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = blockIdx.z * kc;
   const int kn = ws - k0 < kc ? ws - k0 : kc;
   float* out = part + static_cast<size_t>(blockIdx.z) * Tn * D;
-  auto put = [&](int r, int c, float v) {
-    if (m0 + r < Tn && n0 + c < D)
-      out[static_cast<size_t>(m0 + r) * D + n0 + c] = v;
-  };
-  if constexpr (std::is_same_v<T, bf16>) {
-    const size_t plane = static_cast<size_t>(Tn) * ld;
-    const bf16* d0 = dlog + k0;
-    const bool vd = aligned16(d0, ld);
-    const Mat a[3] = {{d0, Tn, kn, ld, vd}, {d0 + plane, Tn, kn, ld, vd},
-                      {d0 + 2 * plane, Tn, kn, ld, vd}};
-    // B^T = w[:, vs0 + k0 :] row-major [D, kn]
-    const bf16* wk = w + vs0 + k0;
-    const Mat b[1] = {{wk, D, kn, V, aligned16(wk, V)}};
-    Acc acc[4][2];
-    zero(acc);
-    tc_tile<3, 1, false, true, 2>(a, b, m0, n0, kn, acc, smem);
-    store_acc(acc, smem, put);
-  } else {
-    float acc[8][8] = {};
-    // b(k, n) = w[n, vs0 + k]: the transpose of the slab, k contiguous
-    ffma_tile<true, true>(RowMajor<float>{dlog + k0, Tn, kn, ld},
-                          Transposed<T>{w + vs0 + k0, kn, D, V}, m0, n0, kn,
-                          acc, smem);
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[8][8] = {};
+  // b(k, n) = w[n, vs0 + k]: the transpose of the slab, k contiguous
+  ffma_tile<true, true>(RowMajor<float>{dlog + k0, Tn, kn, ld},
+                        Transposed<float>{w + vs0 + k0, kn, D, V}, m0, n0, kn,
+                        acc, smem);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) put(ty + 16 * i, tx + 16 * j, acc[i][j]);
-  }
+    for (int j = 0; j < 8; ++j) {
+      const int r = ty + 16 * i, c = tx + 16 * j;
+      if (m0 + r < Tn && n0 + c < D)
+        out[static_cast<size_t>(m0 + r) * D + n0 + c] = acc[i][j];
+    }
 }
 
 // dh (+)= part[0] + part[1] + ... in split order; the first slab writes.
@@ -521,42 +1059,28 @@ __global__ void lmhead_dh_add(const float* __restrict__ part,
   dh[i] = first ? s : __fadd_rn(dh[i], s);
 }
 
-// dw[:, vs0:vs0+ws] = h^T @ dlog over the T tokens; grid (ceil(ws / 128),
-// ceil(D / 128)).  dw is [D, V] float32.  bf16: three tensor-core products
-// of h^T with the split dlogits; float32: FFMA.
-template <typename T, typename D_T>
+// dw[:, vs0:vs0+ws] = h^T @ dlog over the T tokens, float32: FFMA; grid
+// (ceil(ws / 128), ceil(D / 128)).
 __global__ void __launch_bounds__(kThreads)
-    lmhead_dw_slab(const T* __restrict__ h, const D_T* __restrict__ dlog,
+    lmhead_dw_slab(const float* __restrict__ h, const float* __restrict__ dlog,
                    float* __restrict__ dw, int Tn, int D, int V, int vs0,
                    int ws, int ld) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n0 = blockIdx.x * kTile, m0 = blockIdx.y * kTile;
-  auto put = [&](int r, int c, float v) {
-    if (m0 + r < D && n0 + c < ws)
-      dw[static_cast<size_t>(m0 + r) * V + vs0 + n0 + c] = v;
-  };
-  if constexpr (std::is_same_v<T, bf16>) {
-    const size_t plane = static_cast<size_t>(Tn) * ld;
-    const bool vd = aligned16(dlog, ld);
-    const Mat a[1] = {{h, Tn, D, D, aligned16(h, D)}};  // A^T = h
-    const Mat b[3] = {{dlog, Tn, ws, ld, vd}, {dlog + plane, Tn, ws, ld, vd},
-                      {dlog + 2 * plane, Tn, ws, ld, vd}};
-    Acc acc[4][2];
-    zero(acc);
-    tc_tile<1, 3, true, false, 2>(a, b, m0, n0, Tn, acc, smem);
-    store_acc(acc, smem, put);
-  } else {
-    float acc[8][8] = {};
-    // a(d, t) = h[t, d]: the transpose of h, d contiguous
-    ffma_tile<false, false>(Transposed<T>{h, D, Tn, D},
-                            RowMajor<float>{dlog, Tn, ws, ld}, m0, n0, Tn,
-                            acc, smem);
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[8][8] = {};
+  // a(d, t) = h[t, d]: the transpose of h, d contiguous
+  ffma_tile<false, false>(Transposed<float>{h, D, Tn, D},
+                          RowMajor<float>{dlog, Tn, ws, ld}, m0, n0, Tn, acc,
+                          smem);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) put(ty + 16 * i, tx + 16 * j, acc[i][j]);
-  }
+    for (int j = 0; j < 8; ++j) {
+      const int r = ty + 16 * i, c = tx + 16 * j;
+      if (m0 + r < D && n0 + c < ws)
+        dw[static_cast<size_t>(m0 + r) * V + vs0 + n0 + c] = acc[i][j];
+    }
 }
 
 template <typename K>
@@ -567,17 +1091,39 @@ cudaError_t allow_smem(K kernel, int bytes) {
 
 constexpr int kMaxDhSplits = 8;
 
-// k splits of a dh slab product: at least 4 blocks for each SM's worth of
-// tiles, each split a whole number of k tiles.
-int dh_splits(int tiles, int ws) {
+int sm_count() {
   int sms = 132;
   int dev;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int z = (4 * sms + tiles - 1) / tiles;
-  z = z < 1 ? 1 : (z > kMaxDhSplits ? kMaxDhSplits : z);
-  const int steps = (ws + kBk - 1) / kBk;
-  return z < steps ? z : steps;
+  return sms;
+}
+
+// k splits of a dh slab product over `tiles` output tiles, each split a
+// whole number of `step`-deep k tiles.  float32 (FFMA, several blocks an
+// SM): at least 4 blocks for each SM.  bf16 (one wgmma block an SM): the
+// fewest splits whose last wave fills at least 85 % of the SMs, else the
+// fullest last wave.
+int dh_splits(int tiles, int ws, bool bf16_core) {
+  const int sms = sm_count();
+  const int step = bf16_core ? kProdBk : kBk;
+  const int steps = (ws + step - 1) / step;
+  const int most = steps < kMaxDhSplits ? steps : kMaxDhSplits;
+  if (!bf16_core) {
+    int z = (4 * sms + tiles - 1) / tiles;
+    z = z < 1 ? 1 : (z > kMaxDhSplits ? kMaxDhSplits : z);
+    return z < steps ? z : steps;
+  }
+  int best = 1;
+  double best_fill = 0.0;
+  for (int z = 1; z <= most; ++z) {
+    const int blocks = tiles * z;
+    const double fill =
+        static_cast<double>(blocks) / (((blocks + sms - 1) / sms) * sms);
+    if (fill >= 0.85) return z;
+    if (fill > best_fill) best_fill = fill, best = z;
+  }
+  return best;
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -604,45 +1150,142 @@ int fwd(const void* h, const void* w, const int* lab, float* scratch,
   return static_cast<int>(cudaGetLastError());
 }
 
-// scratch: the slab's dlogits (float32 [T, slab] for float32 h and w,
-// three bf16 planes [3, T, slab] for bf16: either fits in 2 T slab
-// floats), then, for dh, kMaxDhSplits float32 [T, D] partial products.
-template <typename T>
-int bwd(const void* h, const void* w, const int* lab, const float* m,
-        const float* n, const float* dl, float* scratch, float* out, int Tn,
-        int D, int V, int slab, bool want_dh, cudaStream_t s) {
-  using D_T = std::conditional_t<std::is_same_v<T, bf16>, bf16, float>;
-  const T* hp = static_cast<const T*>(h);
-  const T* wp = static_cast<const T*>(w);
-  auto* dlog = reinterpret_cast<D_T*>(scratch);
+// The backward, one vocab slab at a time: the slab's dlogits once, then
+// dh's product (k-split parts, added in split order) and dw's, each where
+// its output is given (not null).  scratch: the slab's dlogits (float32
+// [T, slab] for float32 h and w, three bf16 planes [3, T, slab] for bf16:
+// either fits in 2 T slab floats), then, for dh, kMaxDhSplits float32
+// [T, D] partial products.
+int bwd_f32(const float* h, const float* w, const int* lab, const float* m,
+            const float* n, const float* dl, float* scratch, float* dh,
+            float* dw, int Tn, int D, int V, int slab, cudaStream_t s) {
+  float* dlog = scratch;
   float* parts = scratch + 2 * static_cast<size_t>(Tn) * slab;
   const size_t td = static_cast<size_t>(Tn) * D;
-  const int prod_smem =
-      std::is_same_v<T, bf16> ? kSplitSmemBytes : kFfmaSmemBytes;
-  cudaError_t e = allow_smem(lmhead_dlogits<T, D_T>, kLogitSmemBytes);
-  if (e == cudaSuccess)
-    e = want_dh ? allow_smem(lmhead_dh_slab<T, D_T>, prod_smem)
-                : allow_smem(lmhead_dw_slab<T, D_T>, prod_smem);
+  cudaError_t e = allow_smem(lmhead_dlogits, kLogitSmemBytes);
+  if (e == cudaSuccess) e = allow_smem(lmhead_dh_slab, kFfmaSmemBytes);
+  if (e == cudaSuccess) e = allow_smem(lmhead_dw_slab, kFfmaSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int dh_tiles = cdiv(D, kTile) * cdiv(Tn, kTile);
   for (int vs0 = 0; vs0 < V; vs0 += slab) {
     const int ws = V - vs0 < slab ? V - vs0 : slab;
-    lmhead_dlogits<T, D_T><<<dim3(cdiv(ws, kTile), cdiv(Tn, kTile)),
-                             kThreads, kLogitSmemBytes, s>>>(
-        hp, wp, lab, m, n, dl, dlog, Tn, D, V, vs0, ws, slab);
-    if (want_dh) {
-      const int z = dh_splits(dh_tiles, ws);
+    lmhead_dlogits<<<dim3(cdiv(ws, kTile), cdiv(Tn, kTile)), kThreads,
+                     kLogitSmemBytes, s>>>(h, w, lab, m, n, dl, dlog, Tn, D,
+                                           V, vs0, ws, slab);
+    if (dh) {
+      const int z = dh_splits(dh_tiles, ws, false);
       const int kc = cdiv(cdiv(ws, z), kBk) * kBk;
       const int zz = cdiv(ws, kc);  // splits that hold columns
-      lmhead_dh_slab<T, D_T><<<dim3(cdiv(D, kTile), cdiv(Tn, kTile), zz),
-                               kThreads, prod_smem, s>>>(
-          dlog, wp, parts, Tn, D, V, vs0, ws, slab, kc);
+      lmhead_dh_slab<<<dim3(cdiv(D, kTile), cdiv(Tn, kTile), zz), kThreads,
+                       kFfmaSmemBytes, s>>>(dlog, w, parts, Tn, D, V, vs0, ws,
+                                            slab, kc);
       lmhead_dh_add<<<static_cast<unsigned>((td + 255) / 256), 256, 0, s>>>(
-          parts, out, td, zz, vs0 == 0);
-    } else {
-      lmhead_dw_slab<T, D_T><<<dim3(cdiv(ws, kTile), cdiv(D, kTile)),
-                               kThreads, prod_smem, s>>>(
-          hp, dlog, out, Tn, D, V, vs0, ws, slab);
+          parts, dh, td, zz, vs0 == 0);
+    }
+    if (dw)
+      lmhead_dw_slab<<<dim3(cdiv(ws, kTile), cdiv(D, kTile)), kThreads,
+                       kFfmaSmemBytes, s>>>(h, dlog, dw, Tn, D, V, vs0, ws,
+                                            slab);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
+// cuTensorMapEncodeTiled of the driver, found through the runtime (no link
+// against libcuda); null where the driver has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A bf16 tensor map of `rank` dims (innermost first, byte strides of the
+// outer ones) read in boxes of `box`, 128- or 64-byte swizzled as the
+// wgmma tiles are; zeros outside the dims.
+bool tensor_map(CUtensorMap* m, const void* p, int rank,
+                const cuuint64_t* dims, const cuuint64_t* strides,
+                const cuuint32_t* box, bool sw128) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return fn != nullptr &&
+         fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p),
+            dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            sw128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int bwd_bf16(const bf16* h, const bf16* w, const int* lab, const float* m,
+             const float* n, const float* dl, float* scratch, float* dh,
+             float* dw, int Tn, int D, int V, int slab, cudaStream_t s) {
+  auto* dlog = reinterpret_cast<bf16*>(scratch);
+  float* parts = scratch + 2 * static_cast<size_t>(Tn) * slab;
+  const size_t td = static_cast<size_t>(Tn) * D;
+  cudaError_t e = allow_smem(lmhead_dlogits_bf16, DlogCore::kSmem);
+  if (e == cudaSuccess) e = allow_smem(lmhead_dh_slab_bf16, ProdCore::kSmem);
+  if (e == cudaSuccess) e = allow_smem(lmhead_dw_slab_bf16, ProdCore::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // each kernel loads by TMA where all its operands' rows are 16-byte
+  // aligned (the dlogit planes' always are), by cp.async otherwise
+  const int tma_h = aligned16(h, D), tma_w = aligned16(w, V);
+  CUtensorMap h_k{}, w_mn{}, w_k{}, h_mn{}, dl_k{}, dl_mn{};
+  const cuuint64_t hd[2] = {cuuint64_t(D), cuuint64_t(Tn)};
+  const cuuint64_t wd[2] = {cuuint64_t(V), cuuint64_t(D)};
+  const cuuint64_t hs[1] = {cuuint64_t(D) * 2}, wst[1] = {cuuint64_t(V) * 2};
+  const cuuint32_t b_hk[2] = {64, kWgBm}, b_wmn[2] = {64, 64};
+  const cuuint32_t b_wk[2] = {kProdBk, kBn}, b_hmn[2] = {64, kProdBk};
+  if ((tma_h && !(tensor_map(&h_k, h, 2, hd, hs, b_hk, true) &&
+                  tensor_map(&h_mn, h, 2, hd, hs, b_hmn, true))) ||
+      (tma_w && !(tensor_map(&w_mn, w, 2, wd, wst, b_wmn, true) &&
+                  tensor_map(&w_k, w, 2, wd, wst, b_wk, false))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int dh_tiles = cdiv(Tn, kWgBm) * cdiv(D, kBn);
+  const int sms = sm_count();
+  for (int vs0 = 0; vs0 < V; vs0 += slab) {
+    const int ws = V - vs0 < slab ? V - vs0 : slab;
+    // the slab's three dlogit planes [3, T, ws], row stride slab
+    const cuuint64_t pd[3] = {cuuint64_t(ws), cuuint64_t(Tn), 3};
+    const cuuint64_t ps[2] = {cuuint64_t(slab) * 2, cuuint64_t(slab) * 2 * Tn};
+    const cuuint32_t b_k[3] = {kProdBk, kWgBm, 1};
+    const cuuint32_t b_mn[3] = {64, kProdBk, 1};
+    if (!(tensor_map(&dl_k, dlog, 3, pd, ps, b_k, false) &&
+          tensor_map(&dl_mn, dlog, 3, pd, ps, b_mn, true)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    lmhead_dlogits_bf16<<<dim3(cdiv(Tn, kWgBm), cdiv(ws, kBn)),
+                          kBlockThreads, DlogCore::kSmem, s>>>(
+        h, w, lab, m, n, dl, dlog, Tn, D, V, vs0, ws, slab, h_k, w_mn,
+        tma_h && tma_w);
+    if (dh) {
+      const int z = dh_splits(dh_tiles, ws, true);
+      const int kc = cdiv(cdiv(ws, z), kProdBk) * kProdBk;
+      const int zz = cdiv(ws, kc);  // splits that hold columns
+      lmhead_dh_slab_bf16<<<dim3(cdiv(Tn, kWgBm), cdiv(D, kBn), zz),
+                            kBlockThreads, ProdCore::kSmem, s>>>(
+          dlog, w, parts, Tn, D, V, vs0, ws, slab, kc, dl_k, w_k, tma_w);
+      lmhead_dh_add<<<static_cast<unsigned>((td + 255) / 256), 256, 0, s>>>(
+          parts, dh, td, zz, vs0 == 0);
+    }
+    if (dw) {
+      const int tiles = cdiv(ws, kWgBm) * cdiv(D, kBn);
+      lmhead_dw_slab_bf16<<<tiles < sms ? tiles : sms, kBlockThreads,
+                            ProdCore::kSmem, s>>>(h, dlog, dw, Tn, D, V, vs0,
+                                                ws, slab, dl_mn, h_mn,
+                                                tma_h);
     }
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -674,13 +1317,13 @@ int lmhead_xent_fwd_2d(const void* h, const void* w, const void* labels,
   return fwd<bf16>(h, w, lab, sc, lo, m, n, T, D, V, s);
 }
 
-// want_dh 1: out = dh float32 [T, D]; 0: out = dw float32 [D, V].
-// scratch: float32, 2 T slab values (+ 8 T D for dh).  m_sum, n_sum, dloss
-// float32 [T].
+// dh float32 [T, D] and dw float32 [D, V], either null to skip it; the
+// slab's dlogits are computed once for both.  scratch: float32, 2 T slab
+// values (+ 8 T D with dh).  m_sum, n_sum, dloss float32 [T].
 int lmhead_xent_bwd_2d(const void* h, const void* w, const void* labels,
                        const void* m_sum, const void* n_sum,
-                       const void* dloss, void* scratch, void* out, int T,
-                       int D, int V, int slab, int want_dh, int dtype,
+                       const void* dloss, void* scratch, void* dh, void* dw,
+                       int T, int D, int V, int slab, int dtype,
                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* lab = static_cast<const int*>(labels);
@@ -688,12 +1331,13 @@ int lmhead_xent_bwd_2d(const void* h, const void* w, const void* labels,
   const float* n = static_cast<const float*>(n_sum);
   const float* dl = static_cast<const float*>(dloss);
   float* sc = static_cast<float*>(scratch);
-  float* o = static_cast<float*>(out);
+  float* gh = static_cast<float*>(dh);
+  float* gw = static_cast<float*>(dw);
   if (dtype == 0)
-    return bwd<float>(h, w, lab, m, n, dl, sc, o, T, D, V, slab, want_dh != 0,
-                      s);
-  return bwd<bf16>(h, w, lab, m, n, dl, sc, o, T, D, V, slab, want_dh != 0,
-                   s);
+    return bwd_f32(static_cast<const float*>(h), static_cast<const float*>(w),
+                   lab, m, n, dl, sc, gh, gw, T, D, V, slab, s);
+  return bwd_bf16(static_cast<const bf16*>(h), static_cast<const bf16*>(w),
+                  lab, m, n, dl, sc, gh, gw, T, D, V, slab, s);
 }
 
 }  // extern "C"

@@ -150,9 +150,9 @@ def _lmhead_blocks(h, w, block_v, policy) -> int:
 
 class _LmheadCrossEntropy(torch.autograd.Function):
     """Forward saves ``h, w, labels`` and the ``(m_sum, n_sum)`` stats; the
-    backward recomputes the logits for dh and for dw.  Nothing is padded:
-    the kernels mask the ragged token and vocab edges themselves, so no
-    padded token row ever reaches dw."""
+    backward recomputes each vocab slab's logits once for both dh and dw.
+    Nothing is padded: the kernels mask the ragged token and vocab edges
+    themselves, so no padded token row ever reaches dw."""
 
     @staticmethod
     def forward(ctx, h, w, labels, block_v, impl):
@@ -172,12 +172,10 @@ class _LmheadCrossEntropy(torch.autograd.Function):
         h, w, labels, m_sum, n_sum = ctx.saved_tensors
         args = (h, w, labels, m_sum, n_sum, dloss.contiguous())
         if ctx.impl == "cuda":
-            dh = _xent.lmhead_xent_dh_2d(*args, block_v=ctx.block_v)
-            dw = _xent.lmhead_xent_dw_2d(*args, block_v=ctx.block_v)
+            dh, dw = _xent.lmhead_xent_bwd_2d(*args, block_v=ctx.block_v)
         else:
-            n = _xent.lmhead_v_chunks(w.shape[1], ctx.block_v)
-            dh = _xent.lmhead_xent_dh_2d_plain(*args, n)
-            dw = _xent.lmhead_xent_dw_2d_plain(*args, n)
+            dh, dw = _xent.lmhead_xent_bwd_2d_plain(
+                *args, _xent.lmhead_v_chunks(w.shape[1], ctx.block_v))
         return dh.to(h.dtype), dw.to(w.dtype), None, None, None
 
 

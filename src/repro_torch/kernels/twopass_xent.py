@@ -4,10 +4,11 @@ plain versions.
 ``xent_fwd_2d`` (pass 1 plus the label logit) and ``xent_bwd_2d`` (pass 2)
 launch the kernels of ``csrc/twopass_xent.cu``; the fused LM-head CE
 ``lmhead_xent_fwd_2d`` / ``lmhead_xent_dh_2d`` / ``lmhead_xent_dw_2d``
-(logits ``h @ w`` recomputed per vocab tile, never stored whole) launch
-those of ``csrc/lmhead_xent.cu``.  Each wrapper launches its kernel for
-tensors on the card and runs its plain version beside it for tensors on the
-CPU.  There is no fallback: a CUDA tensor reaches the kernel or the call
+(logits ``h @ w`` recomputed per vocab tile, never stored whole) and the
+backward that computes each slab's dlogits once for both dh and dw,
+``lmhead_xent_bwd_2d``, launch those of ``csrc/lmhead_xent.cu``.  Each
+wrapper launches its kernel for tensors on the card and runs its plain
+version beside it for tensors on the CPU.  There is no fallback: a CUDA tensor reaches the kernel or the call
 raises.  Each wrapper counts its launches in ``.launches``.  A label
 outside ``[0, V)`` gathers 0, as in the TPU kernels.
 """
@@ -43,7 +44,7 @@ def _lmhead_lib():
     lib = _build.load("lmhead_xent")
     lib.lmhead_xent_fwd_2d.argtypes = [_P] * 7 + [_I] * 4 + [_P]
     lib.lmhead_xent_fwd_2d.restype = _I
-    lib.lmhead_xent_bwd_2d.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+    lib.lmhead_xent_bwd_2d.argtypes = [_P] * 9 + [_I] * 5 + [_P]
     lib.lmhead_xent_bwd_2d.restype = _I
     return lib
 
@@ -212,6 +213,21 @@ def lmhead_xent_dw_2d_plain(h, w, labels, m_sum, n_sum, dloss,
         h, w, labels, m_sum, n_sum, dloss, n_v_chunks)], dim=1)
 
 
+def lmhead_xent_bwd_2d_plain(h, w, labels, m_sum, n_sum, dloss,
+                             n_v_chunks: int = 1):
+    """``(dh, dw)`` of :func:`lmhead_xent_dh_2d_plain` and
+    :func:`lmhead_xent_dw_2d_plain` from one pass over the chunks' dlogits,
+    each chunk feeding both sums."""
+    hf, wf = h.to(torch.float32), w.to(torch.float32)
+    dh = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    dws = []
+    for lo, hi, dlog in _lmhead_dlogits_plain(h, w, labels, m_sum, n_sum,
+                                              dloss, n_v_chunks):
+        dh = dh + dlog @ wf[:, lo:hi].T
+        dws.append(hf.T @ dlog)
+    return dh, torch.cat(dws, dim=1)
+
+
 def _check_lmhead(h, w, labels, what):
     for t, name in ((h, "h"), (w, "w")):
         _check(t, f"{what} {name}")
@@ -251,17 +267,22 @@ def lmhead_xent_fwd_2d(h: torch.Tensor, w: torch.Tensor,
     return loss, m, n
 
 
-def _lmhead_bwd(h, w, labels, m_sum, n_sum, dloss, block_v, want_dh, what):
+def _lmhead_bwd(h, w, labels, m_sum, n_sum, dloss, block_v, want_dh,
+                want_dw, what):
+    """The backward kernels: ``(dh or None, dw or None)`` float32, each
+    vocab slab's dlogits computed once for both."""
     lab = _check_lmhead(h, w, labels, what)
     (t, d), v = h.shape, w.shape[1]
     for x, name in ((m_sum, "m_sum"), (n_sum, "n_sum"), (dloss, "dloss")):
         _check_rows(x, t, f"{what} {name}")
     m, n, dl = (x.to(torch.float32).contiguous()
                 for x in (m_sum, n_sum, dloss))
-    shape = (t, d) if want_dh else (d, v)
+    f32 = dict(dtype=torch.float32, device=h.device)
     if t == 0 or v == 0:
-        return torch.zeros(shape, dtype=torch.float32, device=h.device)
-    out = torch.empty(shape, dtype=torch.float32, device=h.device)
+        return (torch.zeros((t, d), **f32) if want_dh else None,
+                torch.zeros((d, v), **f32) if want_dw else None)
+    dh = torch.empty((t, d), **f32) if want_dh else None
+    dw = torch.empty((d, v), **f32) if want_dw else None
     if block_v <= 0 or block_v % 8:
         raise ValueError(f"{what}: block_v {block_v} must be a positive "
                          "multiple of 8 (16-byte rows of the scratch)")
@@ -269,16 +290,16 @@ def _lmhead_bwd(h, w, labels, m_sum, n_sum, dloss, block_v, want_dh, what):
     # dlogits of one slab (float32, or three bf16 planes: 2 t slab floats
     # either way); dh adds its float32 k-split parts
     scratch = torch.empty((2 * t * slab + (_DH_SPLITS * t * d if want_dh
-                                           else 0),),
-                          dtype=torch.float32, device=h.device)
+                                           else 0),), **f32)
     lib = _lmhead_lib()
     rc = lib.lmhead_xent_bwd_2d(
         h.data_ptr(), w.data_ptr(), lab.data_ptr(), m.data_ptr(),
-        n.data_ptr(), dl.data_ptr(), scratch.data_ptr(), out.data_ptr(), t, d,
-        v, slab, int(want_dh), _DTYPES[h.dtype],
+        n.data_ptr(), dl.data_ptr(), scratch.data_ptr(),
+        dh.data_ptr() if want_dh else None,
+        dw.data_ptr() if want_dw else None, t, d, v, slab, _DTYPES[h.dtype],
         torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(lib, rc, what)
-    return out
+    return dh, dw
 
 
 def lmhead_xent_dh_2d(h, w, labels, m_sum, n_sum, dloss, *,
@@ -290,8 +311,8 @@ def lmhead_xent_dh_2d(h, w, labels, m_sum, n_sum, dloss, *,
     if h.device.type == "cpu":
         return lmhead_xent_dh_2d_plain(h, w, labels, m_sum, n_sum, dloss,
                                        lmhead_v_chunks(w.shape[1], block_v))
-    dh = _lmhead_bwd(h, w, labels, m_sum, n_sum, dloss, block_v, True,
-                     "lmhead_xent_dh_2d")
+    dh, _ = _lmhead_bwd(h, w, labels, m_sum, n_sum, dloss, block_v, True,
+                        False, "lmhead_xent_dh_2d")
     lmhead_xent_dh_2d.launches += 1
     return dh
 
@@ -303,10 +324,26 @@ def lmhead_xent_dw_2d(h, w, labels, m_sum, n_sum, dloss, *,
     if h.device.type == "cpu":
         return lmhead_xent_dw_2d_plain(h, w, labels, m_sum, n_sum, dloss,
                                        lmhead_v_chunks(w.shape[1], block_v))
-    dw = _lmhead_bwd(h, w, labels, m_sum, n_sum, dloss, block_v, False,
-                     "lmhead_xent_dw_2d")
+    _, dw = _lmhead_bwd(h, w, labels, m_sum, n_sum, dloss, block_v, False,
+                        True, "lmhead_xent_dw_2d")
     lmhead_xent_dw_2d.launches += 1
     return dw
+
+
+def lmhead_xent_bwd_2d(h, w, labels, m_sum, n_sum, dloss, *,
+                       block_v: int):
+    """``(dh [T, D], dw [D, V])`` float32, equal to those of
+    :func:`lmhead_xent_dh_2d` and :func:`lmhead_xent_dw_2d`, with each
+    vocab slab's dlogits computed once for both products.  Counts one
+    launch on each of those two wrappers."""
+    if h.device.type == "cpu":
+        return lmhead_xent_bwd_2d_plain(h, w, labels, m_sum, n_sum, dloss,
+                                        lmhead_v_chunks(w.shape[1], block_v))
+    dh, dw = _lmhead_bwd(h, w, labels, m_sum, n_sum, dloss, block_v, True,
+                         True, "lmhead_xent_bwd_2d")
+    lmhead_xent_dh_2d.launches += 1
+    lmhead_xent_dw_2d.launches += 1
+    return dh, dw
 
 
 xent_fwd_2d.launches = 0

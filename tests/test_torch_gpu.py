@@ -299,6 +299,46 @@ def test_lmhead_kernels_match_plain(cuda, dtype, t, d, v):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t,d,v", LMHEAD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lmhead_fused_backward_equals_separate(cuda, dtype, t, d, v):
+    # lmhead_xent_bwd_2d runs the same kernels on the same slabs as the two
+    # entry points, each slab's dlogits computed once: equal bits, and one
+    # launch counted on each of the two wrappers
+    g = torch.Generator(device=cuda).manual_seed(t + d + v)
+    h = torch.randn(t, d, device=cuda, generator=g).to(dtype)
+    w = (torch.randn(d, v, device=cuda, generator=g) * d ** -0.5).to(dtype)
+    lab = torch.randint(0, v, (t,), device=cuda, generator=g)
+    lab[0], lab[1] = -1, v                       # outside: gathers 0
+    dl = torch.randn(t, device=cuda, generator=g)
+    _, m_sum, n_sum = txe.lmhead_xent_fwd_2d(h, w, lab, block_v=512)
+    args = (h, w, lab, m_sum, n_sum, dl)
+    dh, dw = txe.lmhead_xent_bwd_2d(*args, block_v=512)
+    assert tk.launch_counts()["lmhead_xent_dh_2d"] == 1
+    assert tk.launch_counts()["lmhead_xent_dw_2d"] == 1
+    assert torch.equal(dh, txe.lmhead_xent_dh_2d(*args, block_v=512))
+    assert torch.equal(dw, txe.lmhead_xent_dw_2d(*args, block_v=512))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lmhead_op_backward_computes_dlogits_once_a_slab(cuda, dtype):
+    # the op's backward launches one dlogits kernel for each vocab slab
+    # (3000 columns in slabs of 512: 6), not one for dh and one for dw
+    h = torch.randn(100, 64, device=cuda).to(dtype).requires_grad_(True)
+    w = (torch.randn(64, 3000, device=cuda) * 0.125).to(dtype)
+    w.requires_grad_(True)
+    lab = torch.randint(0, 3000, (100,), device=cuda)
+    loss = ops.lmhead_cross_entropy(h, w, lab, block_v=512, impl="cuda")
+    grads = _launched_kernels(lambda: loss.sum().backward(retain_graph=True),
+                              ["lmhead_dlogits"])
+    names = [name for name, _ in grads]
+    assert sum("lmhead_dlogits" in x for x in names) == 6, names
+    assert sum("lmhead_dw_slab" in x for x in names) == 6, names
+    assert sum("lmhead_dh_slab" in x for x in names) == 6, names
+
+
+@pytest.mark.gpu
 def test_lmhead_op_launches_the_kernels_and_matches_the_reference(cuda):
     h = torch.randn(100, 64, device=cuda).to(torch.bfloat16)
     w = (torch.randn(64, 3000, device=cuda) * 0.125).to(torch.bfloat16)
