@@ -126,13 +126,19 @@ XENT_DIGEST = ("50efecde4bf1d747a37544f31fa8de5f"
 DECODE_DIGEST = ("f8030f5dd4e4c81d538c1e1a32c501bd"
                  "903d4cf5315f7a115aa8a04772986fb1")
 # sha256 of lmhead_xent_dh_2d's and lmhead_xent_dw_2d's outputs on
-# lmhead_digest's inputs, as the wgmma kernels give them (on an H100).  The
-# wmma kernels before them gave 116c7416...f20b76 (commit 8faa1d8): each dh
-# and dw element now sums its products in another order (16-deep k steps,
-# each dlogit's three parts in turn, into one float32 accumulator), and dh
-# adds 3 k-split parts a slab where it added 4.
-LMHEAD_DIGEST = ("b31d42bf00ced80d82c6c7129b03fb52"
-                 "0d8b3bf5c1c334e50002e237f0d2f9ba")
+# lmhead_digest's inputs (the stats from the plain forward), as the wgmma
+# kernels of commit 86aca79 give them on an H100: a change to the forward
+# kernel must not move it.  (With the forward kernel's stats those kernels
+# gave b31d42bf...f2f9ba; the wmma kernels before them 116c7416...f20b76.)
+LMHEAD_DIGEST = ("01b9d3e64bead230971d09416538e945"
+                 "e7c436ffcc9fd2c68fad40dfd078a058")
+# sha256 of lmhead_xent_fwd_2d's outputs on lmhead_fwd_digest's inputs, as
+# the wgmma forward gives them on an H100, with or without the cluster
+# multicast (which changes how w arrives, not the sums).  PR 13's wmma
+# forward gave e1800cf1...73640f: each logit now sums its 16-deep k steps
+# in the backward's order, and the fold takes 256-column tiles.
+LMHEAD_FWD_DIGEST = ("d7c2045d23f88365945da27bc91db8d7"
+                     "d9f054744b3c2941c0e55c75de108001")
 ARCH = "qwen2.5-14b"
 MAX_LEN = 1664             # 13 pages of 128: prompts up to 1500 + 32 new
 N_SLOTS = 8
@@ -298,14 +304,28 @@ def lmhead_inputs(torch, shape, dt):
 def lmhead_digest(torch, xe) -> str:
     """sha256 of ``lmhead_xent_dh_2d``'s and ``lmhead_xent_dw_2d``'s
     outputs at one loss chunk of the train phase (bf16, ``block_v`` 8192)
-    on :func:`lmhead_inputs`, from the forward kernel's stats."""
+    on :func:`lmhead_inputs`.  The stats they take come from the plain
+    forward on the card (cuBLAS float32, TF32 off: one result a card and
+    library), so that the pin moves with the backward kernels alone and
+    not with the forward kernel's sum order."""
     h, w, lab, dl = lmhead_inputs(torch, LMHEAD_TRAIN, torch.bfloat16)
-    _, m, n = xe.lmhead_xent_fwd_2d(h, w, lab, block_v=LMHEAD_BLOCK_V)
+    _, m, n = xe.lmhead_xent_fwd_2d_plain(
+        h, w, lab, xe.lmhead_v_chunks(w.shape[1], LMHEAD_BLOCK_V))
     out = hashlib.sha256()
     for fn in (xe.lmhead_xent_dh_2d, xe.lmhead_xent_dw_2d):
         x = fn(h, w, lab, m, n, dl, block_v=LMHEAD_BLOCK_V)
         out.update(x.cpu().numpy().tobytes())
         del x
+    return out.hexdigest()
+
+
+def lmhead_fwd_digest(torch, xe) -> str:
+    """sha256 of ``lmhead_xent_fwd_2d``'s outputs (loss, m_sum, n_sum) at
+    one loss chunk of the train phase (bf16) on :func:`lmhead_inputs`."""
+    h, w, lab, _ = lmhead_inputs(torch, LMHEAD_TRAIN, torch.bfloat16)
+    out = hashlib.sha256()
+    for t in xe.lmhead_xent_fwd_2d(h, w, lab, block_v=LMHEAD_BLOCK_V):
+        out.update(t.cpu().numpy().tobytes())
     return out.hexdigest()
 
 
@@ -517,7 +537,25 @@ def lmhead_phase(torch, rows) -> None:
     check(digest == LMHEAD_DIGEST,
           f"lmhead dh / dw bits changed: {digest} != {LMHEAD_DIGEST}")
     say("kernel_check", kernel="lmhead_xent_dh_2d + lmhead_xent_dw_2d",
-        case="train_chunk_bf16 bits as pinned", sha256=digest, equal=True)
+        case="train_chunk_bf16 bits as pinned (plain forward's stats)",
+        sha256=digest, equal=True)
+    torch.cuda.empty_cache()
+    # the forward's bits, with the w tile multicast over clusters of up to
+    # FWD_CLUSTER token tiles and without a cluster
+    fwd = lmhead_fwd_digest(torch, xe)
+    cluster = xe.FWD_CLUSTER
+    xe.FWD_CLUSTER = 1
+    try:
+        fwd_one = lmhead_fwd_digest(torch, xe)
+    finally:
+        xe.FWD_CLUSTER = cluster
+    check(fwd == LMHEAD_FWD_DIGEST,
+          f"lmhead forward bits changed: {fwd} != {LMHEAD_FWD_DIGEST}")
+    check(fwd_one == fwd, f"lmhead forward: cluster {cluster} gives {fwd}, "
+          f"no cluster {fwd_one}")
+    say("kernel_check", kernel="lmhead_xent_fwd_2d",
+        case="train_chunk_bf16 bits as pinned, clusters of 1 and "
+             f"{cluster} alike", sha256=fwd, equal=True)
     torch.cuda.empty_cache()
     for case, (t, d, v), dt in (
             ("train_chunk_bf16", LMHEAD_TRAIN, torch.bfloat16),
@@ -569,9 +607,19 @@ def lmhead_phase(torch, rows) -> None:
             es = h.element_size()
             ins = t * d * es + d * v * es + 16 * t
             mm = 2 * t * d * v
+            def fwd_ms(cluster):
+                keep = xe.FWD_CLUSTER
+                xe.FWD_CLUSTER = cluster
+                try:
+                    return cuda_ms(torch, lambda: xe.lmhead_xent_fwd_2d(
+                        h, w, lab, block_v=bv))
+                finally:
+                    xe.FWD_CLUSTER = keep
             rows["lmhead_xent_fwd_2d"] = {case: dict(
-                ms=cuda_ms(torch, lambda: xe.lmhead_xent_fwd_2d(
-                    h, w, lab, block_v=bv)),
+                kernels=f"lmhead_fwd_bf16<{xe.FWD_CLUSTER}> (wgmma, w "
+                        "multicast over the cluster's token tiles) + "
+                        "lmhead_fwd_combine",
+                ms=fwd_ms(xe.FWD_CLUSTER), no_cluster_ms=fwd_ms(1),
                 plain_ms=cuda_ms(torch, lambda: xe.lmhead_xent_fwd_2d_plain(
                     h, w, lab, nch), 5),
                 library_ms=None,      # no one PyTorch call fuses h @ w + CE

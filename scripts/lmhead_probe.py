@@ -3,18 +3,20 @@
 NVIDIA GPU: the compiler's register / spill / shared-memory lines of
 ``csrc/lmhead_xent.cu`` and their SASS counts, the sha256 of dh and dw at
 one loss chunk of the train phase (``chip_smoke.lmhead_digest``) and of
-the forward's outputs there, the LM-head cases of
-``tests/test_torch_gpu.py``, and with ``--times`` the device time of the
-forward, dh, dw and (where the tree has it) the fused backward at that
-chunk ([512, 5120] x [5120, 152064] bf16, ``block_v`` 8192), each kernel's
-share of a call (profiler microseconds), and cuBLAS's time for the same
-products as context (``h @ w``, ``dlog_slab @ w_slab^T``,
-``h^T @ dlog_slab``).
+the forward's outputs there (``chip_smoke.lmhead_fwd_digest``, also with
+the bf16 forward's clusters of at most 1, 2 and 4 token tiles), the
+LM-head cases of ``tests/test_torch_gpu.py``, and with ``--times`` the
+device time of the forward (also at each cluster size), dh, dw and (where
+the tree has it) the fused backward at that chunk ([512, 5120] x [5120,
+152064] bf16, ``block_v`` 8192), each kernel's share of a call (profiler
+microseconds), and cuBLAS's time for the same products as context
+(``h @ w``, ``dlog_slab @ w_slab^T``, ``h^T @ dlog_slab``).
 
     python3 scripts/lmhead_probe.py [--times] [--no-tests] [--no-digest]
 
-Exits non-zero when there is no card, the build fails, a test fails or the
-digest differs from ``chip_smoke.LMHEAD_DIGEST`` (where that is pinned).
+Exits non-zero when there is no card, the build fails, a test fails, a
+digest differs from ``chip_smoke.LMHEAD_DIGEST`` or ``LMHEAD_FWD_DIGEST``
+(where pinned), or a cluster size changes the forward's bits.
 With ``--no-tests`` it runs against an older tree (copy this script and
 ``chip_smoke.py`` into it).
 """
@@ -40,8 +42,9 @@ def sass_counts(so: pathlib.Path) -> dict[str, dict[str, int]]:
     """Per kernel of a built library: its tensor-core MMAs (``HGMMA`` from
     wgmma, ``HMMA`` from wmma / mma.sync), the warpgroup waits between
     them (``WARPGROUP.DEPBAR``; one after every ``HGMMA`` means ptxas
-    serialised them), asynchronous copies (``LDGSTS``), barriers and
-    global stores, from ``cuobjdump -sass``."""
+    serialised them), asynchronous copies (``LDGSTS``), barriers, global
+    stores and local memory (``STL`` / ``LDL``: spills), from
+    ``cuobjdump -sass``."""
     from repro_torch.kernels import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -60,15 +63,24 @@ def sass_counts(so: pathlib.Path) -> dict[str, dict[str, int]]:
         if m and cur is not None:
             op = m.group(1)
             for key in ("HGMMA", "HMMA", "WARPGROUP.DEPBAR",
-                        "WARPGROUP.ARRIVE", "LDGSTS", "BAR", "STG"):
+                        "WARPGROUP.ARRIVE", "LDGSTS", "BAR", "STG",
+                        "STL", "LDL"):
                 if op.startswith(key):
                     cur[key] += 1
     return {k: dict(c) for k, c in counts.items()}
 
 
+def _short(name: str) -> str:
+    return (name.replace("(anonymous namespace)::", "")
+            .removeprefix("void ").split("(")[0])
+
+
 def kernel_us(torch, fn, iters: int = 5) -> dict[str, float]:
     """Device microseconds a call spends in each kernel it launches (the
-    profiler's CUDA time), and the launches a call makes of each."""
+    profiler's CUDA time), the launches a call makes of each, and each
+    one's grid (blocks) and block (threads) from the trace."""
+    import tempfile
+
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -81,28 +93,19 @@ def kernel_us(torch, fn, iters: int = 5) -> dict[str, float]:
     for e in prof.key_averages():
         if "lmhead" not in e.key:
             continue
-        name = (e.key.replace("(anonymous namespace)::", "")
-                .removeprefix("void ").split("(")[0])
-        out[name] = dict(us=round(e.self_device_time_total / iters, 1),
-                         launches=e.count / iters)
+        out[_short(e.key)] = dict(
+            us=round(e.self_device_time_total / iters, 1),
+            launches=e.count / iters)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    for e in events:
+        name = _short(e.get("name", ""))
+        if e.get("cat") == "kernel" and name in out:
+            out[name]["grid"] = e["args"].get("grid")
+            out[name]["block"] = e["args"].get("block")
     return out
-
-
-def fwd_digest(torch, chip_smoke) -> str:
-    """sha256 of ``lmhead_xent_fwd_2d``'s outputs (loss, m_sum, n_sum) at
-    the train chunk on ``chip_smoke.lmhead_inputs``: the forward keeps its
-    bits while the backward kernels change."""
-    import hashlib
-
-    from repro_torch.kernels import twopass_xent as xe
-
-    h, w, lab, _ = chip_smoke.lmhead_inputs(torch, chip_smoke.LMHEAD_TRAIN,
-                                            torch.bfloat16)
-    out = hashlib.sha256()
-    for t in xe.lmhead_xent_fwd_2d(h, w, lab,
-                                   block_v=chip_smoke.LMHEAD_BLOCK_V):
-        out.update(t.cpu().numpy().tobytes())
-    return out.hexdigest()
 
 
 def times(torch, chip_smoke) -> None:
@@ -127,6 +130,15 @@ def times(torch, chip_smoke) -> None:
         print(json.dumps(dict(kernel=name, shape=[t, d, v], block_v=bv,
                               ms=chip_smoke.cuda_ms(torch, fn, 10),
                               kernels=kernel_us(torch, fn, 3))), flush=True)
+    # the bf16 forward with clusters of at most 1, 2 and 4 token tiles
+    keep = getattr(xe, "FWD_CLUSTER", None)
+    for cluster in (1, 2, 4) if keep is not None else ():
+        xe.FWD_CLUSTER = cluster
+        fn = fns["lmhead_xent_fwd_2d"]
+        print(json.dumps(dict(kernel="lmhead_xent_fwd_2d", cluster=cluster,
+                              ms=chip_smoke.cuda_ms(torch, fn, 10),
+                              kernels=kernel_us(torch, fn, 3))), flush=True)
+        xe.FWD_CLUSTER = keep
     dlog = torch.randn(t, bv, device="cuda").to(torch.bfloat16)
     ws = w[:, :bv].contiguous()
     for what, fn, ops in (
@@ -148,6 +160,8 @@ def main() -> int:
                     help="skip the gpu tests (a tree that has none)")
     ap.add_argument("--no-digest", action="store_true",
                     help="skip the dh / dw digest")
+    ap.add_argument("--sass", metavar="FILE",
+                    help="write the SASS of csrc/lmhead_xent.cu to FILE")
     args = ap.parse_args()
 
     import torch
@@ -173,6 +187,11 @@ def main() -> int:
             print("ptxas:", ln.strip())
     for kernel, c in sass_counts(libs["lmhead_xent"]).items():
         print(json.dumps({"sass": kernel, **c}), flush=True)
+    if args.sass:
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        pathlib.Path(args.sass).write_text(subprocess.run(
+            [tool, "-sass", str(libs["lmhead_xent"])], capture_output=True,
+            text=True, check=True).stdout)
     failed = False
     if not args.no_digest:
         digest = chip_smoke.lmhead_digest(torch, xe)
@@ -180,8 +199,20 @@ def main() -> int:
         print(f"lmhead digest: {digest} (pinned {pinned}: "
               f"{'equal' if digest == pinned else 'differs'})", flush=True)
         failed |= pinned is not None and digest != pinned
-        print(f"lmhead forward digest: {fwd_digest(torch, chip_smoke)}",
-              flush=True)
+        fwd = chip_smoke.lmhead_fwd_digest(torch, xe)
+        pinned = getattr(chip_smoke, "LMHEAD_FWD_DIGEST", None)
+        print(f"lmhead forward digest: {fwd} (pinned {pinned}: "
+              f"{'equal' if fwd == pinned else 'differs'})", flush=True)
+        failed |= pinned is not None and fwd != pinned
+        keep = getattr(xe, "FWD_CLUSTER", None)
+        for cluster in (1, 2, 4) if keep is not None else ():
+            xe.FWD_CLUSTER = cluster
+            other = chip_smoke.lmhead_fwd_digest(torch, xe)
+            xe.FWD_CLUSTER = keep
+            print(f"lmhead forward digest, clusters of up to {cluster}: "
+                  f"{other} ({'equal' if other == fwd else 'differs'})",
+                  flush=True)
+            failed |= other != fwd
         torch.cuda.empty_cache()
     if not args.no_tests:
         tests = subprocess.run(

@@ -16,16 +16,20 @@
 // lse = log(max(m_sum, 1e-37)) + n_sum * ln2.  ExtExp and every rescale
 // use __fmul_rn / __fadd_rn and rintf (extexp.cuh).
 //
-// Design.  The forward computes its logits in 128 x 128 output tiles (8
-// warps, 64 x 32 each) over the full reduction:
-//   * bf16 h and w: bf16 tensor cores (nvcuda::wmma 16x16x16) with float32
-//     accumulation, the k tiles of both operands copied by cp.async into a
-//     ring in shared memory (tc_tile).  bf16 x bf16 products are exact in
-//     float32, so the logits are the float32 product of the upcast values
-//     up to sum order.
-//   * float32 h and w: FFMA, 8 x 8 outputs a thread (ffma_tile).
-// It folds each logit tile's 128 columns per row into one (m, n, ll)
-// partial ([V/128, T] float32 scratch) and a second kernel folds the
+// Design.  With bf16 h and w the forward computes its logits in 128 x 256
+// tiles on the backward's wgmma core (below: the dlogits kernel's
+// instantiation, boxes and k order, so each logit is the same float32 sum
+// in the forward and in the backward), in a persistent kernel
+// (lmhead_fwd_bf16: one block an SM, the token tiles of a w tile
+// adjacent).  Each tile is folded where wgmma leaves it, in registers:
+// each lane's 64 columns of a row max-first, then the row's four lanes by
+// shuffles, into one (m, n, ll) partial a row ([V/256, T] float32
+// scratch).  Where h's and w's rows are 16-byte aligned (TMA), clusters of
+// up to 4 blocks along the token axis share each w tile: every block
+// loads a quarter (half) of it and multicasts it to the cluster, so each
+// w byte crosses L2 once for up to four token tiles.  With float32 h and
+// w: FFMA, 8 x 8 outputs a thread of 128 x 128 tiles (ffma_tile), folded
+// from shared memory into 128-column partials.  A second kernel folds the
 // partials of a row in vocab order: no atomics.
 //
 // The backward cannot keep a whole (T_tile, D) dh tile or (D, V_tile) dw
@@ -46,7 +50,8 @@
 // every run.
 //
 // With bf16 h and w the backward's three products (the logit tile of the
-// dlogits kernel, dh's and dw's) run on one core for Hopper, wg_tile:
+// dlogits kernel, dh's and dw's) and the forward's logit tile run on one
+// core for Hopper, wg_tile:
 // wgmma.mma_async from swizzled shared memory, a ring of k tiles filled by
 // a producer warp (TMA, or cp.async where rows are not 16-byte aligned)
 // for two consumer warpgroups, float32 accumulators in registers written
@@ -63,7 +68,6 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
@@ -74,51 +78,21 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using repro::to_f32;
-using nvcuda::wmma::accumulator;
-using nvcuda::wmma::fragment;
-using nvcuda::wmma::matrix_a;
-using nvcuda::wmma::matrix_b;
-using nvcuda::wmma::row_major;
-using Acc = fragment<accumulator, 16, 16, 16, float>;
 
 // ln2 as the TPU kernel rounds LN2_HI + LN2_LO to float32.
 constexpr float kLn2 = 0x1.62E430p-1f;
 
-constexpr int kThreads = 256;  // 8 warps: 2 x 4, 64 x 32 outputs each
+// The float32 kernels (FFMA)
+constexpr int kThreads = 256;  // 16 x 16 threads, 8 x 8 outputs each
 constexpr int kTile = 128;     // output tile: 128 x 128
 constexpr int kCsLd = kTile + 4;
-constexpr int kBk = 32;        // tensor-core k tile
-constexpr int kNarrowLd = kBk + 8;    // smem rows of 32 k values
-constexpr int kWideLd = kTile + 8;    // smem rows of 128 m or n values
-constexpr int kRectElems = kTile * kNarrowLd;  // >= kBk * kWideLd
+constexpr int kBk = 32;        // the k-split step of dh's slab product
 constexpr int kFk = 8;         // FFMA k tile
 constexpr int kFLd = kTile + 4;
 
 constexpr int kLogitSmemBytes = kTile * kCsLd * 4;  // the f32 logit tile
 constexpr int kFfmaSmemBytes = 2 * kFk * kFLd * 4;
-static_assert(kBk * kWideLd <= kRectElems, "smem");
-static_assert(3 * 2 * kRectElems * 2 <= kLogitSmemBytes, "smem");
 static_assert(kFfmaSmemBytes <= kLogitSmemBytes, "smem");
-
-// 8 consecutive bf16 of row r, columns [c, c + 8), of a [rows, cols] matrix
-// with leading dimension ld into dst (16-byte aligned); zeros outside.  A
-// whole aligned group is one asynchronous 16-byte copy (cp.async, waited
-// for by the caller); the ragged edge is stored element by element.
-__device__ __forceinline__ void load8(const bf16* __restrict__ src,
-                                      long long r, long long c, long long rows,
-                                      long long cols, long long ld, bool vec,
-                                      bf16* dst) {
-  if (vec && r < rows && c + 8 <= cols) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src + r * ld + c));
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    dst[e] = (r < rows && c + e < cols) ? src[r * ld + c + e]
-                                        : __float2bfloat16_rn(0.0f);
-}
 
 // A row-major bf16 matrix in device memory: rows x cols, leading dimension
 // ld; vec: rows start 16-byte aligned (cp.async of 8-element groups).
@@ -130,108 +104,6 @@ struct Mat {
 
 __host__ __device__ inline bool aligned16(const void* p, long long ld) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && ld % 8 == 0;
-}
-
-// The ROWS x COLS block at (r0, c0) of m into dst (row stride dst_ld).
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_rect(const Mat& m, long long r0,
-                                          long long c0, bf16* dst,
-                                          int dst_ld) {
-  for (int i = threadIdx.x; i < ROWS * COLS / 8; i += kThreads) {
-    const int r = i / (COLS / 8), c = (i % (COLS / 8)) * 8;
-    load8(m.p, r0 + r, c0 + c, m.rows, m.cols, m.ld, m.vec,
-          dst + r * dst_ld + c);
-  }
-}
-
-// acc += A @ B, k in [0, K), on the bf16 tensor cores: A row-major [M, K]
-// (its tile m by k), B row-major [K, N] (its tile k by n).  The output
-// tile's rows start at m0 of A, its columns at n0 of B.  k tiles of kBk
-// pass through a ring of STAGES slots filled by cp.async, one commit group
-// per tile.
-template <int STAGES>
-__device__ void tc_tile(const Mat& a, const Mat& b, long long m0,
-                        long long n0, long long K, Acc (&acc)[4][2],
-                        unsigned char* smem) {
-  constexpr int kSlot = 2 * kRectElems;
-  auto* ring = reinterpret_cast<bf16*>(smem);
-  const int warp = threadIdx.x >> 5;
-  const int wr = warp >> 2, wc = warp & 3;
-  auto rect = [&](int kt, int j) {
-    return ring + (kt % STAGES) * kSlot + j * kRectElems;
-  };
-  auto load_tile = [&](int kt) {
-    const long long k0 = static_cast<long long>(kt) * kBk;
-    load_rect<kTile, kBk>(a, m0, k0, rect(kt, 0), kNarrowLd);
-    load_rect<kBk, kTile>(b, k0, n0, rect(kt, 1), kWideLd);
-  };
-  const int nk = static_cast<int>((K + kBk - 1) / kBk);
-  // wait_group(STAGES - 1) leaves tile kt complete at step kt: one group
-  // per tile, empty past the end
-  for (int kt = 0; kt < STAGES - 1; ++kt) {
-    if (kt < nk) load_tile(kt);
-    asm volatile("cp.async.commit_group;\n" ::);
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    // the slot refilled here was read at step kt - 1, before its barrier
-    if (kt + STAGES - 1 < nk) load_tile(kt + STAGES - 1);
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1));
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBk; kk += 16) {
-      const bf16* as = rect(kt, 0);
-      fragment<matrix_a, 16, 16, 16, bf16, row_major> fa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        nvcuda::wmma::load_matrix_sync(
-            fa[i], as + (wr * 64 + i * 16) * kNarrowLd + kk, kNarrowLd);
-      const bf16* bs = rect(kt, 1);
-      fragment<matrix_b, 16, 16, 16, bf16, row_major> fb[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        nvcuda::wmma::load_matrix_sync(
-            fb[j], bs + kk * kWideLd + wc * 32 + j * 16, kWideLd);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          nvcuda::wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();  // callers reuse the ring
-}
-
-__device__ __forceinline__ void zero(Acc (&acc)[4][2]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.0f);
-}
-
-// Logit tile x[t0:t0+128, v0:v0+128] = h @ w into cs (float32, ld kCsLd),
-// bf16 tensor cores.  h [T, D], w [D, V] row-major.
-__device__ void logits_tile(const bf16* __restrict__ h,
-                            const bf16* __restrict__ w, int T, int D, int V,
-                            int t0, int v0, unsigned char* smem) {
-  const Mat a = {h, T, D, D, aligned16(h, D)};
-  const Mat b = {w, D, V, V, aligned16(w, V)};
-  Acc acc[4][2];
-  zero(acc);
-  tc_tile<3>(a, b, t0, v0, D, acc, smem);
-  float* cs = reinterpret_cast<float*>(smem);
-  const int warp = threadIdx.x >> 5;
-  const int wr = warp >> 2, wc = warp & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      nvcuda::wmma::store_matrix_sync(
-          cs + (wr * 64 + i * 16) * kCsLd + wc * 32 + j * 16, acc[i][j],
-          kCsLd, nvcuda::wmma::mem_row_major);
-  __syncthreads();
 }
 
 // One 128 x 128 FFMA product tile: acc[i][j] += sum_k a(m0 + ty + 16 i, k)
@@ -311,12 +183,12 @@ __device__ void logits_tile(const float* __restrict__ h,
   __syncthreads();
 }
 
-// Forward, step 1: grid (ceil(V / 128), ceil(T / 128)).  Each block folds
-// its tile's 128 columns per row into (m, n) and the label logit: two
-// threads a row, 64 columns each in order, then one (m, n) add.
-template <typename T>
+// Forward, float32 h and w, step 1: grid (ceil(V / 128), ceil(T / 128)).
+// Each block folds its tile's 128 columns per row into (m, n) and the
+// label logit: two threads a row, 64 columns each in order, then one
+// (m, n) add.
 __global__ void __launch_bounds__(kThreads)
-    lmhead_fwd_tiles(const T* __restrict__ h, const T* __restrict__ w,
+    lmhead_fwd_tiles(const float* __restrict__ h, const float* __restrict__ w,
                      const int* __restrict__ labels, float* __restrict__ pm,
                      float* __restrict__ pn, float* __restrict__ pll, int Tn,
                      int D, int V) {
@@ -348,7 +220,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Forward, step 2: one thread a row folds the partials in vocab order.
+// Forward, step 2: one thread a row folds the partials in vocab order
+// (unrolled, so that the loads of later tiles are in flight while the
+// fold runs).
 __global__ void lmhead_fwd_combine(const float* __restrict__ pm,
                                    const float* __restrict__ pn,
                                    const float* __restrict__ pll,
@@ -359,6 +233,7 @@ __global__ void lmhead_fwd_combine(const float* __restrict__ pm,
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= Tn) return;
   float m = 0.0f, n = repro::kMinusInfN, ll = 0.0f;
+#pragma unroll 8
   for (int j = 0; j < tiles; ++j) {
     const size_t o = static_cast<size_t>(j) * Tn + t;
     repro::ext_add(m, n, pm[o], pn[o]);
@@ -383,7 +258,8 @@ __device__ __forceinline__ void split3(float x, bf16& hi, bf16& mid,
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 product core of the backward, on Hopper's warpgroup MMA:
+// The bf16 product core of the backward and the forward, on Hopper's
+// warpgroup MMA:
 // acc[128 x 256] += sum over parts of A_p B_p over a k range, float32.
 //
 // Two consumer warpgroups a block, 64 output rows each, issue
@@ -544,6 +420,36 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Thread block clusters: this block's rank in its cluster; a barrier over
+// every thread of the cluster (what a block wrote to shared memory before
+// it, mbarrier inits included, is seen by the others after it); an
+// arrival on the mbarrier at shared address bar of the cluster's block
+// `rank` (a consumer's release of a slot whose MMAs have completed, as
+// CUTLASS's cluster pipelines arrive).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar,
+                                                   uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
 // TMA: a box of a tensor map (a __grid_constant__ kernel parameter) into
 // shared memory at dst, its bytes counted on the mbarrier bar.
 __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
@@ -552,6 +458,22 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// The same box into shared memory at dst of every block of the cluster in
+// `mask`, counted on each one's mbarrier at bar (the same offsets in every
+// block).
+__device__ __forceinline__ void tma_2d_multicast(uint32_t dst,
+                                                 const CUtensorMap* map,
+                                                 int c0, int c1, uint32_t bar,
+                                                 uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar),
+      "h"(mask)
       : "memory");
 }
 
@@ -660,8 +582,14 @@ __device__ __forceinline__ void fence_acc(float (&acc)[N]) {
 // consumer warps' MMAs on it are done (one step later: the MMAs of step kt
 // run while step kt + 1's are issued).  No block-wide barrier after the
 // set-up, which the block's first tile (g0 == 0) does.
+//
+// CL > 1 (TMA only): the block is one of a cluster of CL that run the same
+// sequence of k steps and fill each other's slots (tma multicasts); so
+// empty[s] completes when the consumer warps of all CL blocks are done
+// with slot s (remote arrivals), and the set-up ends with a barrier over
+// the cluster.
 template <int NA, int NB, bool A_MN, bool B_MN, int STAGES, int BK,
-          typename Tma>
+          int CL = 1, typename Tma>
 __device__ __forceinline__ bool wg_tile(const Mat (&a)[NA],
                                         const Mat (&b)[NB], long long m0,
                                         long long n0, long long K, int g0,
@@ -687,11 +615,12 @@ __device__ __forceinline__ bool wg_tile(const Mat (&a)[NA],
     if (threadIdx.x == 0) {
       for (int s = 0; s < STAGES; ++s) {
         mbar_init(full(s), use_tma ? 1 : kProducers);
-        mbar_init(empty(s), kWgThreads / 32);
+        mbar_init(empty(s), kWgThreads / 32 * CL);
       }
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    __syncthreads();
+    if constexpr (CL > 1) cluster_sync();
+    else __syncthreads();
   }
   const int nk = static_cast<int>((K + BK - 1) / BK);
   if (threadIdx.x >= kWgThreads && use_tma) {  // one thread, TMA
@@ -724,6 +653,16 @@ __device__ __forceinline__ bool wg_tile(const Mat (&a)[NA],
     }
     return false;
   }
+  // slot s back to its fillers: lane 0 of each consumer warp, or with a
+  // cluster lane r to block r's empty[s]
+  const int lane = threadIdx.x & 31;
+  auto release = [&](int s) {
+    if constexpr (CL > 1) {
+      if (lane < CL) mbar_arrive_remote(empty(s), lane);
+    } else if (lane == 0) {
+      mbar_arrive(empty(s));
+    }
+  };
   // this warpgroup's 64 rows of A: 64 K-major rows or one MN-major atom
   const uint32_t wg_a = (threadIdx.x >> 7) * (A_MN ? BK * 128 : 64 * BK * 2);
 #pragma unroll
@@ -750,15 +689,13 @@ __device__ __forceinline__ bool wg_tile(const Mat (&a)[NA],
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
     fence_acc(acc);
     // step g - 1's MMAs are done: its slot goes back to the producer
-    if (g > g0 && (threadIdx.x & 31) == 0)
-      mbar_arrive(empty((g - 1) % STAGES));
+    if (g > g0) release((g - 1) % STAGES);
   }
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   fence_acc(acc);
   // and the last step's: the producer may fill it for the block's next
   // tile while this one's epilogue runs
-  if (nk > 0 && (threadIdx.x & 31) == 0)
-    mbar_arrive(empty((g0 + nk - 1) % STAGES));
+  if (nk > 0) release((g0 + nk - 1) % STAGES);
   return true;
 }
 
@@ -883,6 +820,151 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       }
     }
   });
+}
+
+// n of ext_exp(x) alone.  It does not decrease as x grows (clamp, a
+// product by log2 e and rintf each keep order; -inf and +inf map to the
+// ends), so the largest n of a row is n of its largest logit.
+__device__ __forceinline__ float ext_exp_n(float x) {
+  const float xc = fminf(fmaxf(x, -repro::kXClamp), repro::kXClamp);
+  float n = rintf(__fmul_rn(xc, repro::kLog2e));
+  if (x == -INFINITY) n = repro::kMinusInfN;
+  if (x == INFINITY) n = repro::kPlusInfN;
+  return n;
+}
+
+// Folds a 128 x 256 logit tile (rows t0.., columns v0..) in registers into
+// one (m, n, ll) partial a row, at [tile v0 / 256][t] of pm, pn, pll.
+// wgmma leaves thread (warp w, lane l) of a warpgroup rows 16 w + l / 4
+// (half 0) and + 8 (half 1), columns c = 8 j + 2 (l % 4) + e at
+// acc[4 j + 2 half + e], j < 32, e < 2: 64 columns of each of its rows,
+// the quad's four lanes the row's 256.  Columns v >= V are set to -inf
+// first (TMA and the cp.async loader fill them with zeros, and exp(0) = 1
+// would join every denominator).  Each lane folds its 64 values of a row
+// in the TPU kernel's max-first form: n_loc = max n (ext_exp_n of the
+// largest value); m_loc = sum over j, then e, of m 2^(n - n_loc), from 0
+// in that order.  Then the quad's lanes by ext_add with lane l ^ 1, then
+// l ^ 2 (ext_add is symmetric: all four end with the same pair), and the
+// label logit from the lane that holds its column (0 where the label lies
+// outside the tile or outside [0, V)).  Every lane of the warp calls it
+// (the shuffles); rows past T store nothing.
+__device__ __forceinline__ void fold_tile(float (&acc)[kBn / 2],
+                                          const int* __restrict__ labels,
+                                          float* __restrict__ pm,
+                                          float* __restrict__ pn,
+                                          float* __restrict__ pll, int Tn,
+                                          int V, int t0, int v0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = 2 * (lane & 3);  // the lane's first column
+  if (v0 + kBn > V) {  // the tile crosses V
+    const int left = V - v0 - c0;  // 8 j + e < left: inside
+#pragma unroll
+    for (int j = 0; j < kBn / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (8 * j + e >= left)
+          acc[4 * j + e] = acc[4 * j + 2 + e] = -INFINITY;
+  }
+  const size_t tile = static_cast<size_t>(v0 / kBn) * Tn;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = t0 + (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2) +
+                  8 * half;
+    const int lab = t < Tn ? labels[t] : -1;
+    const int lc = lab >= 0 && lab < V ? lab - v0 : -1;  // tile-local
+    const int key = lc - c0;  // 8 j + e where this lane holds the label
+    float xmax = -INFINITY, ll = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kBn / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = acc[4 * j + 2 * half + e];
+        xmax = fmaxf(xmax, x);
+        if (key == 8 * j + e) ll = x;
+      }
+    float n = ext_exp_n(xmax), m = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kBn / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float me, ne;
+        repro::ext_exp(acc[4 * j + 2 * half + e], me, ne);
+        m = __fadd_rn(m, __fmul_rn(me, repro::exp2_int_nonpos(
+                                           __fsub_rn(ne, n))));
+      }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+      const float n2 = __shfl_xor_sync(0xffffffffu, n, o);
+      repro::ext_add(m, n, m2, n2);
+    }
+    ll = __shfl_sync(0xffffffffu, ll, (lane & ~3) | ((lc >> 1) & 3));
+    if ((lane & 3) == half && t < Tn) {
+      pm[tile + t] = m;
+      pn[tile + t] = n;
+      pll[tile + t] = ll;
+    }
+  }
+}
+
+// Forward, bf16 h and w: the logit tiles x = h @ w of lmhead_dlogits_bf16
+// (the same wg_tile instantiation, TMA boxes, cp.async fallback and k
+// order, so each logit is the same float32 sum as in the backward), each
+// folded in registers by fold_tile into [3, ceil(V / 256), T] partials.
+// Persistent, one block an SM: units of one vocab tile and CL token tiles
+// go round-robin to the clusters (blocks where CL = 1), the token tiles
+// of a w tile adjacent so that blocks in flight together share it, and
+// g0 carries the ring across units, so the producer loads the next unit
+// while the consumers fold this one.  CL > 1 (TMA only): the CL blocks of
+// a cluster take the unit's CL token tiles; each loads its own h tile and
+// 4 / CL of the w tile's four 64-column boxes, multicast to every block
+// of the cluster, so w crosses L2 once for CL blocks.  A token tile past T
+// loads and multicasts its share and stores nothing.
+template <int CL>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    lmhead_fwd_bf16(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                    const int* __restrict__ labels, float* __restrict__ pm,
+                    float* __restrict__ pn, float* __restrict__ pll, int Tn,
+                    int D, int V, const __grid_constant__ CUtensorMap ta,
+                    const __grid_constant__ CUtensorMap tb, int use_tma) {
+  static_assert(CL == 1 || CL == 2 || CL == 4, "clusters of 1, 2 or 4");
+  constexpr int kBoxes = kBn / 64 / CL;  // w boxes a block issues
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Mat a[1] = {{h, Tn, D, D, aligned16(h, D)}};
+  const Mat b[1] = {{w, D, V, V, aligned16(w, V)}};
+  // unit u: vocab tile u / groups, token tiles (u % groups) CL + rank
+  const int groups = ((Tn + kWgBm - 1) / kWgBm + CL - 1) / CL;
+  const int units = (V + kBn - 1) / kBn * groups;
+  const int nk = (D + 63) / 64;
+  int g0 = 0;
+  for (int u = blockIdx.x / CL; u < units; u += gridDim.x / CL, g0 += nk) {
+    const int rank = CL > 1 ? static_cast<int>(cluster_rank()) : 0;
+    const int t0 = (u % groups * CL + rank) * kWgBm, v0 = u / groups * kBn;
+    // TMA: h [T, D] in boxes of 128 x 64 (K-major), w [D, V] in 64 x 64
+    // atoms (MN-major), four a k tile, as lmhead_dlogits_bf16
+    auto tma = [&](int kt, uint32_t slot, uint32_t bar) {
+      tma_2d(slot, &ta, kt * 64, t0, bar);
+#pragma unroll
+      for (int i = 0; i < kBoxes; ++i) {
+        const int q = rank * kBoxes + i;
+        const uint32_t dst = slot + DlogCore::kATile + q * 64 * 128;
+        if constexpr (CL > 1)
+          tma_2d_multicast(dst, &tb, v0 + 64 * q, kt * 64, bar,
+                           (1u << CL) - 1);
+        else
+          tma_2d(dst, &tb, v0 + 64 * q, kt * 64, bar);
+      }
+    };
+    float acc[kBn / 2];
+    // a cluster fills its slots by TMA alone
+    if (!wg_tile<1, 1, false, true, 4, 64, CL>(
+            a, b, t0, v0, D, g0, CL > 1 || use_tma != 0, tma, acc, smem))
+      continue;
+    fold_tile(acc, labels, pm, pn, pll, Tn, V, t0, v0);
+  }
+  // no block leaves while another may still fill its slots or arrive on
+  // its barriers
+  if constexpr (CL > 1) cluster_sync();
 }
 
 // Split z of dlog[T, ws] @ w[:, vs0:vs0+ws]^T into part[z] ([T, D]) over
@@ -1128,25 +1210,23 @@ int dh_splits(int tiles, int ws, bool bf16_core) {
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-template <typename T>
-int fwd(const void* h, const void* w, const int* lab, float* scratch,
-        float* loss, float* m, float* n, int Tn, int D, int V,
-        cudaStream_t s) {
-  const T* hp = static_cast<const T*>(h);
-  const T* wp = static_cast<const T*>(w);
+// The float32 forward: 128 x 128 FFMA tiles, one block each, grid
+// (ceil(V / 128), ceil(T / 128)), then the vocab-order combine.
+int fwd_f32(const float* h, const float* w, const int* lab, float* scratch,
+            float* loss, float* m, float* n, int Tn, int D, int V,
+            cudaStream_t s) {
   const int tiles = cdiv(V, kTile);
   float* pm = scratch;
   float* pn = pm + static_cast<size_t>(tiles) * Tn;
   float* pll = pn + static_cast<size_t>(tiles) * Tn;
-  cudaError_t e = allow_smem(lmhead_fwd_tiles<T>, kLogitSmemBytes);
+  cudaError_t e = allow_smem(lmhead_fwd_tiles, kLogitSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  lmhead_fwd_tiles<T><<<dim3(tiles, cdiv(Tn, kTile)), kThreads,
-                        kLogitSmemBytes, s>>>(hp, wp, lab, pm, pn, pll, Tn, D,
-                                              V);
+  lmhead_fwd_tiles<<<dim3(tiles, cdiv(Tn, kTile)), kThreads,
+                     kLogitSmemBytes, s>>>(h, w, lab, pm, pn, pll, Tn, D, V);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  lmhead_fwd_combine<<<cdiv(Tn, 128), 128, 0, s>>>(pm, pn, pll, loss, m, n,
-                                                   Tn, tiles);
+  lmhead_fwd_combine<<<cdiv(Tn, 64), 64, 0, s>>>(pm, pn, pll, loss, m, n, Tn,
+                                                 tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1230,6 +1310,85 @@ bool tensor_map(CUtensorMap* m, const void* p, int rank,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// lmhead_fwd_bf16<CL> over `units` units: one block an SM (CL = 1), or
+// as many clusters of CL as the card holds at once
+// (cudaOccupancyMaxActiveClusters), launched with the cluster attribute.
+template <int CL>
+cudaError_t launch_fwd_bf16(const bf16* h, const bf16* w, const int* lab,
+                            float* pm, float* pn, float* pll, int Tn, int D,
+                            int V, const CUtensorMap& ta,
+                            const CUtensorMap& tb, int use_tma, int units,
+                            cudaStream_t s) {
+  cudaError_t e = allow_smem(lmhead_fwd_bf16<CL>, DlogCore::kSmem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1] = {};
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kBlockThreads);
+  cfg.dynamicSmemBytes = DlogCore::kSmem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  int slots = sm_count();  // clusters (blocks when CL = 1) in flight
+  if constexpr (CL > 1) {
+    static int cached = 0;
+    if (cached == 0) {
+      cfg.gridDim = dim3(CL * (slots / CL));
+      e = cudaOccupancyMaxActiveClusters(&cached, lmhead_fwd_bf16<CL>, &cfg);
+      if (e != cudaSuccess) return e;
+      if (cached == 0) return cudaErrorInvalidConfiguration;
+    }
+    slots = cached;
+  }
+  cfg.gridDim = dim3(CL * (units < slots ? units : slots));
+  return cudaLaunchKernelEx(&cfg, lmhead_fwd_bf16<CL>, h, w, lab, pm, pn,
+                            pll, Tn, D, V, ta, tb, use_tma);
+}
+
+// The bf16 forward: lmhead_fwd_bf16 into [3, ceil(V / 256), T] partials,
+// then the vocab-order combine.  Where h's and w's rows are 16-byte
+// aligned it loads by TMA, in clusters of up to `cluster` blocks (1, 2 or
+// 4: the fewest powers of two that hold the token tiles, at most
+// `cluster`), else by cp.async without a cluster.
+int fwd_bf16(const bf16* h, const bf16* w, const int* lab, float* scratch,
+             float* loss, float* m, float* n, int Tn, int D, int V,
+             int cluster, cudaStream_t s) {
+  const int tiles = cdiv(V, kBn);
+  float* pm = scratch;
+  float* pn = pm + static_cast<size_t>(tiles) * Tn;
+  float* pll = pn + static_cast<size_t>(tiles) * Tn;
+  const int use_tma = aligned16(h, D) && aligned16(w, V);
+  CUtensorMap h_k{}, w_mn{};
+  const cuuint64_t hd[2] = {cuuint64_t(D), cuuint64_t(Tn)};
+  const cuuint64_t wd[2] = {cuuint64_t(V), cuuint64_t(D)};
+  const cuuint64_t hs[1] = {cuuint64_t(D) * 2}, wst[1] = {cuuint64_t(V) * 2};
+  const cuuint32_t b_hk[2] = {64, kWgBm}, b_wmn[2] = {64, 64};
+  if (use_tma && !(tensor_map(&h_k, h, 2, hd, hs, b_hk, true) &&
+                   tensor_map(&w_mn, w, 2, wd, wst, b_wmn, true)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster != 1 && cluster != 2 && cluster != 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int token_tiles = cdiv(Tn, kWgBm);
+  int cl = 1;
+  while (use_tma && cl < cluster && cl < token_tiles) cl *= 2;
+  const int units = tiles * cdiv(token_tiles, cl);
+  cudaError_t e =
+      cl == 4 ? launch_fwd_bf16<4>(h, w, lab, pm, pn, pll, Tn, D, V, h_k,
+                                   w_mn, use_tma, units, s)
+      : cl == 2 ? launch_fwd_bf16<2>(h, w, lab, pm, pn, pll, Tn, D, V, h_k,
+                                     w_mn, use_tma, units, s)
+                : launch_fwd_bf16<1>(h, w, lab, pm, pn, pll, Tn, D, V, h_k,
+                                     w_mn, use_tma, units, s);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  lmhead_fwd_combine<<<cdiv(Tn, 64), 64, 0, s>>>(pm, pn, pll, loss, m, n, Tn,
+                                                 tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int bwd_bf16(const bf16* h, const bf16* w, const int* lab, const float* m,
              const float* n, const float* dl, float* scratch, float* dh,
              float* dw, int Tn, int D, int V, int slab, cudaStream_t s) {
@@ -1303,18 +1462,23 @@ const char* repro_cuda_error_string(int e) {
 
 // dtype: 0 = float32, 1 = bfloat16 (h and w alike).  h [T, D], w [D, V]
 // contiguous; labels int32 [T]; loss, m_sum, n_sum float32 [T]; scratch
-// float32 [3, ceil(V / 128), T].
+// float32 [3, ceil(V / 128), T] (float32 folds 128-column tiles, bf16
+// 256-column ones).  cluster: bf16's largest cluster (1, 2 or 4).
 int lmhead_xent_fwd_2d(const void* h, const void* w, const void* labels,
                        void* scratch, void* loss, void* m_sum, void* n_sum,
-                       int T, int D, int V, int dtype, void* stream) {
+                       int T, int D, int V, int dtype, int cluster,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* lab = static_cast<const int*>(labels);
   float* sc = static_cast<float*>(scratch);
   float* lo = static_cast<float*>(loss);
   float* m = static_cast<float*>(m_sum);
   float* n = static_cast<float*>(n_sum);
-  if (dtype == 0) return fwd<float>(h, w, lab, sc, lo, m, n, T, D, V, s);
-  return fwd<bf16>(h, w, lab, sc, lo, m, n, T, D, V, s);
+  if (dtype == 0)
+    return fwd_f32(static_cast<const float*>(h), static_cast<const float*>(w),
+                   lab, sc, lo, m, n, T, D, V, s);
+  return fwd_bf16(static_cast<const bf16*>(h), static_cast<const bf16*>(w),
+                  lab, sc, lo, m, n, T, D, V, cluster, s);
 }
 
 // dh float32 [T, D] and dw float32 [D, V], either null to skip it; the

@@ -358,6 +358,86 @@ def test_lmhead_op_launches_the_kernels_and_matches_the_reference(cuda):
                                rtol=2.0 ** -6)
 
 
+# The bf16 forward (lmhead_fwd_bf16): T 1 and 77 (< 128), 130 (a second
+# tile of 2 rows), 300 (3 token tiles: a cluster of 4 with one tile past
+# T); V 1000 + 129, 50257 and 769 (rows not 16-byte aligned: the cp.async
+# loader; 769 leaves one column in the last tile), 1000, 3000 and 4096
+# (TMA); D 200 ends inside a 64-deep k tile
+LMHEAD_FWD_EDGES = [(1, 64, 1000), (77, 256, 1000 + 129), (130, 128, 50257),
+                    (300, 200, 3000), (300, 64, 769), (512, 128, 4096)]
+
+
+def _lmhead_fwd_inputs(cuda, t, d, v):
+    g = torch.Generator(device=cuda).manual_seed(t + d + v)
+    h = torch.randn(t, d, device=cuda, generator=g).to(torch.bfloat16)
+    w = (torch.randn(d, v, device=cuda, generator=g) * d ** -0.5).to(
+        torch.bfloat16)
+    lab = torch.randint(0, v, (t,), device=cuda, generator=g)
+    # the last column, outside [0, V) at -1 and at V (in the last tile's
+    # masked columns where V is not a multiple of 256), the last tile's
+    # first column
+    for i, x in enumerate((v - 1, -1, v, (v - 1) // 256 * 256)[:t]):
+        lab[i] = x
+    return h, w, lab
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,d,v", LMHEAD_FWD_EDGES)
+def test_lmhead_forward_edges_match_plain(cuda, t, d, v):
+    # tolerances as test_lmhead_kernels_match_plain: the same bf16-exact
+    # products summed in other float32 orders
+    h, w, lab = _lmhead_fwd_inputs(cuda, t, d, v)
+    loss, m_sum, n_sum = txe.lmhead_xent_fwd_2d(h, w, lab, block_v=512)
+    pl, pm, pn = txe.lmhead_xent_fwd_2d_plain(h, w, lab,
+                                              txe.lmhead_v_chunks(v, 512))
+    torch.testing.assert_close(loss, pl, atol=2e-4, rtol=1e-5)
+    torch.testing.assert_close(torch.log(m_sum) + n_sum * txe.LN2,
+                               torch.log(pm) + pn * txe.LN2, atol=2e-4,
+                               rtol=1e-5)
+    assert torch.equal(txe.lmhead_xent_fwd_2d(h, w, lab, block_v=512)[0],
+                       loss)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [130, 300, 512, 700])
+def test_lmhead_forward_cluster_keeps_the_bits(cuda, monkeypatch, t):
+    # the multicast of the w tile changes how its bytes arrive, not the k
+    # order or the fold: clusters of at most 1, 2 and 4 token tiles give
+    # the same bits (T 700: 6 token tiles, the second cluster of 4 with
+    # two past T)
+    h, w, lab = _lmhead_fwd_inputs(cuda, t, 200, 3000)
+    outs = {}
+    for c in (1, 2, 4):
+        monkeypatch.setattr(txe, "FWD_CLUSTER", c)
+        outs[c] = txe.lmhead_xent_fwd_2d(h, w, lab, block_v=512)
+    for c in (2, 4):
+        for got, want in zip(outs[c], outs[1]):
+            assert torch.equal(got, want), c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,v,kernel", [
+    (torch.bfloat16, 4096, "lmhead_fwd_bf16<4>"),
+    (torch.bfloat16, 4095, "lmhead_fwd_bf16<1>"),
+    (torch.float32, 4096, "lmhead_fwd_tiles")])
+def test_lmhead_forward_kernel_by_dtype_and_alignment(cuda, dtype, v,
+                                                      kernel):
+    # bf16 takes the wgmma kernel, in clusters of 4 where the rows are
+    # 16-byte aligned (TMA) and without a cluster where they are not
+    # (cp.async); float32 PR 13's FFMA tiles.  Then the combine.  (The
+    # wrapper's int32 cast of the labels is a PyTorch kernel.)
+    h = torch.randn(512, 64, device=cuda).to(dtype)
+    w = (torch.randn(64, v, device=cuda) * 0.125).to(dtype)
+    lab = torch.randint(0, v, (512,), device=cuda)
+    launched = _launched_kernels(
+        lambda: txe.lmhead_xent_fwd_2d(h, w, lab, block_v=512),
+        [kernel, "lmhead_fwd_combine"])
+    names = [name for name, _ in launched if "lmhead" in name]
+    assert sum(kernel in x for x in names) == 1, names
+    assert sum("lmhead_fwd_combine" in x for x in names) == 1, names
+    assert len(names) == 2, names
+
+
 # (B, H, Hkv, Sq, Skv, D, causal, window): GQA groups, MQA, ragged Sq / Skv
 # (tile edges inside both), empty causal rows (Sq > Skv), a window, and the
 # dense family's other head dims (120: no multiple of 16; 160: over 128).
