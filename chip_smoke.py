@@ -29,7 +29,9 @@ Phases (any failure exits non-zero; nothing is caught):
    also at a shape whose rows in flight exceed the 50 MB L2; the fused
    LM-head cross-entropy kernels (forward, dh, dw) at one loss chunk of the
    train phase and at a ragged shape, within float32 accumulation limits
-   derived from the shapes, with the same bits on a second run; the
+   derived from the shapes, with the same bits on a second run, and at the
+   train chunk the forward's bits and dh / dw's (from the plain forward's
+   stats) as pinned; the
    flash-attention kernels (forward, and the dq and dk/dv backward) at the
    train phase's attention shape, a ragged causal float32 call with rows
    that see no key (exact zeros), a window and head dims 120 and 160,
@@ -133,10 +135,10 @@ DECODE_DIGEST = ("f8030f5dd4e4c81d538c1e1a32c501bd"
 LMHEAD_DIGEST = ("01b9d3e64bead230971d09416538e945"
                  "e7c436ffcc9fd2c68fad40dfd078a058")
 # sha256 of lmhead_xent_fwd_2d's outputs on lmhead_fwd_digest's inputs, as
-# the wgmma forward gives them on an H100, with or without the cluster
-# multicast (which changes how w arrives, not the sums).  PR 13's wmma
-# forward gave e1800cf1...73640f: each logit now sums its 16-deep k steps
-# in the backward's order, and the fold takes 256-column tiles.
+# the wgmma forward gives them on an H100 (commit 83938bf gave the same
+# with its w multicast over clusters of 1, 2 and 4 token tiles).  PR 13's
+# wmma forward gave e1800cf1...73640f: each logit now sums its 16-deep k
+# steps in the backward's order, and the fold takes 256-column tiles.
 LMHEAD_FWD_DIGEST = ("d7c2045d23f88365945da27bc91db8d7"
                      "d9f054744b3c2941c0e55c75de108001")
 ARCH = "qwen2.5-14b"
@@ -540,22 +542,11 @@ def lmhead_phase(torch, rows) -> None:
         case="train_chunk_bf16 bits as pinned (plain forward's stats)",
         sha256=digest, equal=True)
     torch.cuda.empty_cache()
-    # the forward's bits, with the w tile multicast over clusters of up to
-    # FWD_CLUSTER token tiles and without a cluster
     fwd = lmhead_fwd_digest(torch, xe)
-    cluster = xe.FWD_CLUSTER
-    xe.FWD_CLUSTER = 1
-    try:
-        fwd_one = lmhead_fwd_digest(torch, xe)
-    finally:
-        xe.FWD_CLUSTER = cluster
     check(fwd == LMHEAD_FWD_DIGEST,
           f"lmhead forward bits changed: {fwd} != {LMHEAD_FWD_DIGEST}")
-    check(fwd_one == fwd, f"lmhead forward: cluster {cluster} gives {fwd}, "
-          f"no cluster {fwd_one}")
     say("kernel_check", kernel="lmhead_xent_fwd_2d",
-        case="train_chunk_bf16 bits as pinned, clusters of 1 and "
-             f"{cluster} alike", sha256=fwd, equal=True)
+        case="train_chunk_bf16 bits as pinned", sha256=fwd, equal=True)
     torch.cuda.empty_cache()
     for case, (t, d, v), dt in (
             ("train_chunk_bf16", LMHEAD_TRAIN, torch.bfloat16),
@@ -607,19 +598,11 @@ def lmhead_phase(torch, rows) -> None:
             es = h.element_size()
             ins = t * d * es + d * v * es + 16 * t
             mm = 2 * t * d * v
-            def fwd_ms(cluster):
-                keep = xe.FWD_CLUSTER
-                xe.FWD_CLUSTER = cluster
-                try:
-                    return cuda_ms(torch, lambda: xe.lmhead_xent_fwd_2d(
-                        h, w, lab, block_v=bv))
-                finally:
-                    xe.FWD_CLUSTER = keep
             rows["lmhead_xent_fwd_2d"] = {case: dict(
-                kernels=f"lmhead_fwd_bf16<{xe.FWD_CLUSTER}> (wgmma, w "
-                        "multicast over the cluster's token tiles) + "
-                        "lmhead_fwd_combine",
-                ms=fwd_ms(xe.FWD_CLUSTER), no_cluster_ms=fwd_ms(1),
+                kernels="lmhead_fwd_bf16 (wgmma, persistent, folded in "
+                        "registers) + lmhead_fwd_combine",
+                ms=cuda_ms(torch, lambda: xe.lmhead_xent_fwd_2d(
+                    h, w, lab, block_v=bv)),
                 plain_ms=cuda_ms(torch, lambda: xe.lmhead_xent_fwd_2d_plain(
                     h, w, lab, nch), 5),
                 library_ms=None,      # no one PyTorch call fuses h @ w + CE

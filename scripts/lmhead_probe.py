@@ -3,20 +3,20 @@
 NVIDIA GPU: the compiler's register / spill / shared-memory lines of
 ``csrc/lmhead_xent.cu`` and their SASS counts, the sha256 of dh and dw at
 one loss chunk of the train phase (``chip_smoke.lmhead_digest``) and of
-the forward's outputs there (``chip_smoke.lmhead_fwd_digest``, also with
-the bf16 forward's clusters of at most 1, 2 and 4 token tiles), the
+the forward's outputs there (``chip_smoke.lmhead_fwd_digest``), the
 LM-head cases of ``tests/test_torch_gpu.py``, and with ``--times`` the
-device time of the forward (also at each cluster size), dh, dw and (where
-the tree has it) the fused backward at that chunk ([512, 5120] x [5120,
-152064] bf16, ``block_v`` 8192), each kernel's share of a call (profiler
-microseconds), and cuBLAS's time for the same products as context
-(``h @ w``, ``dlog_slab @ w_slab^T``, ``h^T @ dlog_slab``).
+device time of the forward, dh, dw and (where the tree has it) the fused
+backward at that chunk ([512, 5120] x [5120, 152064] bf16, ``block_v``
+8192), each kernel's share of a call (profiler microseconds, grid and
+block), and cuBLAS's time for the same products as context (``h @ w``,
+``dlog_slab @ w_slab^T``, ``h^T @ dlog_slab``).  ``--sass FILE`` writes
+the library's SASS.
 
     python3 scripts/lmhead_probe.py [--times] [--no-tests] [--no-digest]
 
-Exits non-zero when there is no card, the build fails, a test fails, a
+Exits non-zero when there is no card, the build fails, a test fails or a
 digest differs from ``chip_smoke.LMHEAD_DIGEST`` or ``LMHEAD_FWD_DIGEST``
-(where pinned), or a cluster size changes the forward's bits.
+(where pinned).
 With ``--no-tests`` it runs against an older tree (copy this script and
 ``chip_smoke.py`` into it).
 """
@@ -130,15 +130,6 @@ def times(torch, chip_smoke) -> None:
         print(json.dumps(dict(kernel=name, shape=[t, d, v], block_v=bv,
                               ms=chip_smoke.cuda_ms(torch, fn, 10),
                               kernels=kernel_us(torch, fn, 3))), flush=True)
-    # the bf16 forward with clusters of at most 1, 2 and 4 token tiles
-    keep = getattr(xe, "FWD_CLUSTER", None)
-    for cluster in (1, 2, 4) if keep is not None else ():
-        xe.FWD_CLUSTER = cluster
-        fn = fns["lmhead_xent_fwd_2d"]
-        print(json.dumps(dict(kernel="lmhead_xent_fwd_2d", cluster=cluster,
-                              ms=chip_smoke.cuda_ms(torch, fn, 10),
-                              kernels=kernel_us(torch, fn, 3))), flush=True)
-        xe.FWD_CLUSTER = keep
     dlog = torch.randn(t, bv, device="cuda").to(torch.bfloat16)
     ws = w[:, :bv].contiguous()
     for what, fn, ops in (
@@ -204,15 +195,6 @@ def main() -> int:
         print(f"lmhead forward digest: {fwd} (pinned {pinned}: "
               f"{'equal' if fwd == pinned else 'differs'})", flush=True)
         failed |= pinned is not None and fwd != pinned
-        keep = getattr(xe, "FWD_CLUSTER", None)
-        for cluster in (1, 2, 4) if keep is not None else ():
-            xe.FWD_CLUSTER = cluster
-            other = chip_smoke.lmhead_fwd_digest(torch, xe)
-            xe.FWD_CLUSTER = keep
-            print(f"lmhead forward digest, clusters of up to {cluster}: "
-                  f"{other} ({'equal' if other == fwd else 'differs'})",
-                  flush=True)
-            failed |= other != fwd
         torch.cuda.empty_cache()
     if not args.no_tests:
         tests = subprocess.run(

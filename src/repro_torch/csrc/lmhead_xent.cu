@@ -24,13 +24,10 @@
 // adjacent).  Each tile is folded where wgmma leaves it, in registers:
 // each lane's 64 columns of a row max-first, then the row's four lanes by
 // shuffles, into one (m, n, ll) partial a row ([V/256, T] float32
-// scratch).  Where h's and w's rows are 16-byte aligned (TMA), clusters of
-// up to 4 blocks along the token axis share each w tile: every block
-// loads a quarter (half) of it and multicasts it to the cluster, so each
-// w byte crosses L2 once for up to four token tiles.  With float32 h and
-// w: FFMA, 8 x 8 outputs a thread of 128 x 128 tiles (ffma_tile), folded
-// from shared memory into 128-column partials.  A second kernel folds the
-// partials of a row in vocab order: no atomics.
+// scratch).  With float32 h and w: FFMA, 8 x 8 outputs a thread of 128 x
+// 128 tiles (ffma_tile), folded from shared memory into 128-column
+// partials.  A second kernel folds the partials of a row in vocab order:
+// no atomics.
 //
 // The backward cannot keep a whole (T_tile, D) dh tile or (D, V_tile) dw
 // tile on chip at D = 5120 (a 128-column dw tile is 2.6 MB of float32), and
@@ -420,36 +417,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// Thread block clusters: this block's rank in its cluster; a barrier over
-// every thread of the cluster (what a block wrote to shared memory before
-// it, mbarrier inits included, is seen by the others after it); an
-// arrival on the mbarrier at shared address bar of the cluster's block
-// `rank` (a consumer's release of a slot whose MMAs have completed, as
-// CUTLASS's cluster pipelines arrive).
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release;\n"
-      "barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar,
-                                                   uint32_t rank) {
-  asm volatile(
-      "{\n"
-      ".reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
-      "}\n" ::"r"(bar),
-      "r"(rank)
-      : "memory");
-}
-
 // TMA: a box of a tensor map (a __grid_constant__ kernel parameter) into
 // shared memory at dst, its bytes counted on the mbarrier bar.
 __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
@@ -458,22 +425,6 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// The same box into shared memory at dst of every block of the cluster in
-// `mask`, counted on each one's mbarrier at bar (the same offsets in every
-// block).
-__device__ __forceinline__ void tma_2d_multicast(uint32_t dst,
-                                                 const CUtensorMap* map,
-                                                 int c0, int c1, uint32_t bar,
-                                                 uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
-          dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar),
-      "h"(mask)
       : "memory");
 }
 
@@ -582,14 +533,8 @@ __device__ __forceinline__ void fence_acc(float (&acc)[N]) {
 // consumer warps' MMAs on it are done (one step later: the MMAs of step kt
 // run while step kt + 1's are issued).  No block-wide barrier after the
 // set-up, which the block's first tile (g0 == 0) does.
-//
-// CL > 1 (TMA only): the block is one of a cluster of CL that run the same
-// sequence of k steps and fill each other's slots (tma multicasts); so
-// empty[s] completes when the consumer warps of all CL blocks are done
-// with slot s (remote arrivals), and the set-up ends with a barrier over
-// the cluster.
 template <int NA, int NB, bool A_MN, bool B_MN, int STAGES, int BK,
-          int CL = 1, typename Tma>
+          typename Tma>
 __device__ __forceinline__ bool wg_tile(const Mat (&a)[NA],
                                         const Mat (&b)[NB], long long m0,
                                         long long n0, long long K, int g0,
@@ -615,12 +560,11 @@ __device__ __forceinline__ bool wg_tile(const Mat (&a)[NA],
     if (threadIdx.x == 0) {
       for (int s = 0; s < STAGES; ++s) {
         mbar_init(full(s), use_tma ? 1 : kProducers);
-        mbar_init(empty(s), kWgThreads / 32 * CL);
+        mbar_init(empty(s), kWgThreads / 32);
       }
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    if constexpr (CL > 1) cluster_sync();
-    else __syncthreads();
+    __syncthreads();
   }
   const int nk = static_cast<int>((K + BK - 1) / BK);
   if (threadIdx.x >= kWgThreads && use_tma) {  // one thread, TMA
@@ -653,16 +597,6 @@ __device__ __forceinline__ bool wg_tile(const Mat (&a)[NA],
     }
     return false;
   }
-  // slot s back to its fillers: lane 0 of each consumer warp, or with a
-  // cluster lane r to block r's empty[s]
-  const int lane = threadIdx.x & 31;
-  auto release = [&](int s) {
-    if constexpr (CL > 1) {
-      if (lane < CL) mbar_arrive_remote(empty(s), lane);
-    } else if (lane == 0) {
-      mbar_arrive(empty(s));
-    }
-  };
   // this warpgroup's 64 rows of A: 64 K-major rows or one MN-major atom
   const uint32_t wg_a = (threadIdx.x >> 7) * (A_MN ? BK * 128 : 64 * BK * 2);
 #pragma unroll
@@ -689,13 +623,15 @@ __device__ __forceinline__ bool wg_tile(const Mat (&a)[NA],
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
     fence_acc(acc);
     // step g - 1's MMAs are done: its slot goes back to the producer
-    if (g > g0) release((g - 1) % STAGES);
+    if (g > g0 && (threadIdx.x & 31) == 0)
+      mbar_arrive(empty((g - 1) % STAGES));
   }
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   fence_acc(acc);
   // and the last step's: the producer may fill it for the block's next
   // tile while this one's epilogue runs
-  if (nk > 0) release((g0 + nk - 1) % STAGES);
+  if (nk > 0 && (threadIdx.x & 31) == 0)
+    mbar_arrive(empty((g0 + nk - 1) % STAGES));
   return true;
 }
 
@@ -911,60 +847,41 @@ __device__ __forceinline__ void fold_tile(float (&acc)[kBn / 2],
 // (the same wg_tile instantiation, TMA boxes, cp.async fallback and k
 // order, so each logit is the same float32 sum as in the backward), each
 // folded in registers by fold_tile into [3, ceil(V / 256), T] partials.
-// Persistent, one block an SM: units of one vocab tile and CL token tiles
-// go round-robin to the clusters (blocks where CL = 1), the token tiles
-// of a w tile adjacent so that blocks in flight together share it, and
-// g0 carries the ring across units, so the producer loads the next unit
-// while the consumers fold this one.  CL > 1 (TMA only): the CL blocks of
-// a cluster take the unit's CL token tiles; each loads its own h tile and
-// 4 / CL of the w tile's four 64-column boxes, multicast to every block
-// of the cluster, so w crosses L2 once for CL blocks.  A token tile past T
-// loads and multicasts its share and stores nothing.
-template <int CL>
+// Persistent, one block an SM: the ceil(V / 256) ceil(T / 128) tiles go
+// round-robin to the blocks, the token tiles of a w tile adjacent so that
+// blocks in flight together share it in L2, and g0 carries the ring
+// across tiles, so the producer loads the next tile while the consumers
+// fold this one.
 __global__ void __launch_bounds__(kBlockThreads, 1)
     lmhead_fwd_bf16(const bf16* __restrict__ h, const bf16* __restrict__ w,
                     const int* __restrict__ labels, float* __restrict__ pm,
                     float* __restrict__ pn, float* __restrict__ pll, int Tn,
                     int D, int V, const __grid_constant__ CUtensorMap ta,
                     const __grid_constant__ CUtensorMap tb, int use_tma) {
-  static_assert(CL == 1 || CL == 2 || CL == 4, "clusters of 1, 2 or 4");
-  constexpr int kBoxes = kBn / 64 / CL;  // w boxes a block issues
   extern __shared__ __align__(128) unsigned char smem[];
   const Mat a[1] = {{h, Tn, D, D, aligned16(h, D)}};
   const Mat b[1] = {{w, D, V, V, aligned16(w, V)}};
-  // unit u: vocab tile u / groups, token tiles (u % groups) CL + rank
-  const int groups = ((Tn + kWgBm - 1) / kWgBm + CL - 1) / CL;
-  const int units = (V + kBn - 1) / kBn * groups;
+  const int tt = (Tn + kWgBm - 1) / kWgBm;
+  const int tiles = (V + kBn - 1) / kBn * tt;
   const int nk = (D + 63) / 64;
   int g0 = 0;
-  for (int u = blockIdx.x / CL; u < units; u += gridDim.x / CL, g0 += nk) {
-    const int rank = CL > 1 ? static_cast<int>(cluster_rank()) : 0;
-    const int t0 = (u % groups * CL + rank) * kWgBm, v0 = u / groups * kBn;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, g0 += nk) {
+    const int t0 = tile % tt * kWgBm, v0 = tile / tt * kBn;
     // TMA: h [T, D] in boxes of 128 x 64 (K-major), w [D, V] in 64 x 64
     // atoms (MN-major), four a k tile, as lmhead_dlogits_bf16
     auto tma = [&](int kt, uint32_t slot, uint32_t bar) {
       tma_2d(slot, &ta, kt * 64, t0, bar);
 #pragma unroll
-      for (int i = 0; i < kBoxes; ++i) {
-        const int q = rank * kBoxes + i;
-        const uint32_t dst = slot + DlogCore::kATile + q * 64 * 128;
-        if constexpr (CL > 1)
-          tma_2d_multicast(dst, &tb, v0 + 64 * q, kt * 64, bar,
-                           (1u << CL) - 1);
-        else
-          tma_2d(dst, &tb, v0 + 64 * q, kt * 64, bar);
-      }
+      for (int q = 0; q < kBn / 64; ++q)
+        tma_2d(slot + DlogCore::kATile + q * 64 * 128, &tb, v0 + 64 * q,
+               kt * 64, bar);
     };
     float acc[kBn / 2];
-    // a cluster fills its slots by TMA alone
-    if (!wg_tile<1, 1, false, true, 4, 64, CL>(
-            a, b, t0, v0, D, g0, CL > 1 || use_tma != 0, tma, acc, smem))
+    if (!wg_tile<1, 1, false, true, 4, 64>(a, b, t0, v0, D, g0, use_tma != 0,
+                                           tma, acc, smem))
       continue;
     fold_tile(acc, labels, pm, pn, pll, Tn, V, t0, v0);
   }
-  // no block leaves while another may still fill its slots or arrive on
-  // its barriers
-  if constexpr (CL > 1) cluster_sync();
 }
 
 // Split z of dlog[T, ws] @ w[:, vs0:vs0+ws]^T into part[z] ([T, D]) over
@@ -1310,56 +1227,18 @@ bool tensor_map(CUtensorMap* m, const void* p, int rank,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// lmhead_fwd_bf16<CL> over `units` units: one block an SM (CL = 1), or
-// as many clusters of CL as the card holds at once
-// (cudaOccupancyMaxActiveClusters), launched with the cluster attribute.
-template <int CL>
-cudaError_t launch_fwd_bf16(const bf16* h, const bf16* w, const int* lab,
-                            float* pm, float* pn, float* pll, int Tn, int D,
-                            int V, const CUtensorMap& ta,
-                            const CUtensorMap& tb, int use_tma, int units,
-                            cudaStream_t s) {
-  cudaError_t e = allow_smem(lmhead_fwd_bf16<CL>, DlogCore::kSmem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1] = {};
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(kBlockThreads);
-  cfg.dynamicSmemBytes = DlogCore::kSmem;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = CL > 1 ? 1 : 0;
-  int slots = sm_count();  // clusters (blocks when CL = 1) in flight
-  if constexpr (CL > 1) {
-    static int cached = 0;
-    if (cached == 0) {
-      cfg.gridDim = dim3(CL * (slots / CL));
-      e = cudaOccupancyMaxActiveClusters(&cached, lmhead_fwd_bf16<CL>, &cfg);
-      if (e != cudaSuccess) return e;
-      if (cached == 0) return cudaErrorInvalidConfiguration;
-    }
-    slots = cached;
-  }
-  cfg.gridDim = dim3(CL * (units < slots ? units : slots));
-  return cudaLaunchKernelEx(&cfg, lmhead_fwd_bf16<CL>, h, w, lab, pm, pn,
-                            pll, Tn, D, V, ta, tb, use_tma);
-}
-
-// The bf16 forward: lmhead_fwd_bf16 into [3, ceil(V / 256), T] partials,
-// then the vocab-order combine.  Where h's and w's rows are 16-byte
-// aligned it loads by TMA, in clusters of up to `cluster` blocks (1, 2 or
-// 4: the fewest powers of two that hold the token tiles, at most
-// `cluster`), else by cp.async without a cluster.
+// The bf16 forward: lmhead_fwd_bf16 into [3, ceil(V / 256), T] partials
+// (TMA where h's and w's rows are 16-byte aligned, else cp.async), then
+// the vocab-order combine.
 int fwd_bf16(const bf16* h, const bf16* w, const int* lab, float* scratch,
              float* loss, float* m, float* n, int Tn, int D, int V,
-             int cluster, cudaStream_t s) {
-  const int tiles = cdiv(V, kBn);
+             cudaStream_t s) {
+  const int vt = cdiv(V, kBn);
   float* pm = scratch;
-  float* pn = pm + static_cast<size_t>(tiles) * Tn;
-  float* pll = pn + static_cast<size_t>(tiles) * Tn;
+  float* pn = pm + static_cast<size_t>(vt) * Tn;
+  float* pll = pn + static_cast<size_t>(vt) * Tn;
+  cudaError_t e = allow_smem(lmhead_fwd_bf16, DlogCore::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int use_tma = aligned16(h, D) && aligned16(w, V);
   CUtensorMap h_k{}, w_mn{};
   const cuuint64_t hd[2] = {cuuint64_t(D), cuuint64_t(Tn)};
@@ -1369,23 +1248,14 @@ int fwd_bf16(const bf16* h, const bf16* w, const int* lab, float* scratch,
   if (use_tma && !(tensor_map(&h_k, h, 2, hd, hs, b_hk, true) &&
                    tensor_map(&w_mn, w, 2, wd, wst, b_wmn, true)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (cluster != 1 && cluster != 2 && cluster != 4)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int token_tiles = cdiv(Tn, kWgBm);
-  int cl = 1;
-  while (use_tma && cl < cluster && cl < token_tiles) cl *= 2;
-  const int units = tiles * cdiv(token_tiles, cl);
-  cudaError_t e =
-      cl == 4 ? launch_fwd_bf16<4>(h, w, lab, pm, pn, pll, Tn, D, V, h_k,
-                                   w_mn, use_tma, units, s)
-      : cl == 2 ? launch_fwd_bf16<2>(h, w, lab, pm, pn, pll, Tn, D, V, h_k,
-                                     w_mn, use_tma, units, s)
-                : launch_fwd_bf16<1>(h, w, lab, pm, pn, pll, Tn, D, V, h_k,
-                                     w_mn, use_tma, units, s);
-  if (e == cudaSuccess) e = cudaGetLastError();
+  const int tiles = vt * cdiv(Tn, kWgBm), sms = sm_count();
+  lmhead_fwd_bf16<<<tiles < sms ? tiles : sms, kBlockThreads,
+                    DlogCore::kSmem, s>>>(h, w, lab, pm, pn, pll, Tn, D, V,
+                                          h_k, w_mn, use_tma);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   lmhead_fwd_combine<<<cdiv(Tn, 64), 64, 0, s>>>(pm, pn, pll, loss, m, n, Tn,
-                                                 tiles);
+                                                 vt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1463,11 +1333,10 @@ const char* repro_cuda_error_string(int e) {
 // dtype: 0 = float32, 1 = bfloat16 (h and w alike).  h [T, D], w [D, V]
 // contiguous; labels int32 [T]; loss, m_sum, n_sum float32 [T]; scratch
 // float32 [3, ceil(V / 128), T] (float32 folds 128-column tiles, bf16
-// 256-column ones).  cluster: bf16's largest cluster (1, 2 or 4).
+// 256-column ones).
 int lmhead_xent_fwd_2d(const void* h, const void* w, const void* labels,
                        void* scratch, void* loss, void* m_sum, void* n_sum,
-                       int T, int D, int V, int dtype, int cluster,
-                       void* stream) {
+                       int T, int D, int V, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* lab = static_cast<const int*>(labels);
   float* sc = static_cast<float*>(scratch);
@@ -1478,7 +1347,7 @@ int lmhead_xent_fwd_2d(const void* h, const void* w, const void* labels,
     return fwd_f32(static_cast<const float*>(h), static_cast<const float*>(w),
                    lab, sc, lo, m, n, T, D, V, s);
   return fwd_bf16(static_cast<const bf16*>(h), static_cast<const bf16*>(w),
-                  lab, sc, lo, m, n, T, D, V, cluster, s);
+                  lab, sc, lo, m, n, T, D, V, s);
 }
 
 // dh float32 [T, D] and dw float32 [D, V], either null to skip it; the

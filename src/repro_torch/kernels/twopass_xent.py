@@ -42,7 +42,7 @@ def _lib():
 @functools.cache
 def _lmhead_lib():
     lib = _build.load("lmhead_xent")
-    lib.lmhead_xent_fwd_2d.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+    lib.lmhead_xent_fwd_2d.argtypes = [_P] * 7 + [_I] * 4 + [_P]
     lib.lmhead_xent_fwd_2d.restype = _I
     lib.lmhead_xent_bwd_2d.argtypes = [_P] * 9 + [_I] * 5 + [_P]
     lib.lmhead_xent_bwd_2d.restype = _I
@@ -140,9 +140,6 @@ def xent_bwd_2d(logits: torch.Tensor, labels: torch.Tensor,
 # ---------------------------------------------------------------------------
 MAX_V_CHUNKS = 16          # chunk-count guard of the plain versions
 _DH_SPLITS = 8             # kMaxDhSplits of csrc/lmhead_xent.cu
-# the bf16 forward's largest cluster of token tiles that share one TMA
-# multicast of each w tile (1, 2 or 4; csrc/lmhead_xent.cu fwd_bf16)
-FWD_CLUSTER = 4
 
 
 def lmhead_v_chunks(v: int, block_v: int) -> int:
@@ -249,9 +246,7 @@ def lmhead_xent_fwd_2d(h: torch.Tensor, w: torch.Tensor,
     n_sum [T, 1])``, float32.  ``block_v`` is the plain version's vocab
     chunk width; the kernels fold tiles of their own whatever it is: 256
     columns for bf16 (``lmhead_fwd_bf16``, ``wgmma``), 128 for float32
-    (FFMA).  bf16 takes clusters of up to :data:`FWD_CLUSTER` token tiles
-    where h's and w's rows are 16-byte aligned; a tensor map or a cluster
-    launch that fails raises."""
+    (FFMA).  A tensor map that cannot be made raises."""
     if h.device.type == "cpu":
         return lmhead_xent_fwd_2d_plain(
             h, w, labels, lmhead_v_chunks(w.shape[1], block_v))
@@ -269,8 +264,7 @@ def lmhead_xent_fwd_2d(h: torch.Tensor, w: torch.Tensor,
     rc = lib.lmhead_xent_fwd_2d(
         h.data_ptr(), w.data_ptr(), lab.data_ptr(), scratch.data_ptr(),
         loss.data_ptr(), m.data_ptr(), n.data_ptr(), t, d, v,
-        _DTYPES[h.dtype], FWD_CLUSTER,
-        torch.cuda.current_stream(h.device).cuda_stream)
+        _DTYPES[h.dtype], torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(lib, rc, "lmhead_xent_fwd_2d")
     lmhead_xent_fwd_2d.launches += 1
     return loss, m, n

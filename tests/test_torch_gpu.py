@@ -359,10 +359,10 @@ def test_lmhead_op_launches_the_kernels_and_matches_the_reference(cuda):
 
 
 # The bf16 forward (lmhead_fwd_bf16): T 1 and 77 (< 128), 130 (a second
-# tile of 2 rows), 300 (3 token tiles: a cluster of 4 with one tile past
-# T); V 1000 + 129, 50257 and 769 (rows not 16-byte aligned: the cp.async
-# loader; 769 leaves one column in the last tile), 1000, 3000 and 4096
-# (TMA); D 200 ends inside a 64-deep k tile
+# token tile of 2 rows), 300 and 512; V 1000 + 129, 50257 and 769 (rows
+# not 16-byte aligned: the cp.async loader; 769 leaves one column in the
+# last tile), 1000, 3000 and 4096 (TMA); D 200 ends inside a 64-deep k
+# tile
 LMHEAD_FWD_EDGES = [(1, 64, 1000), (77, 256, 1000 + 129), (130, 128, 50257),
                     (300, 200, 3000), (300, 64, 769), (512, 128, 4096)]
 
@@ -399,43 +399,30 @@ def test_lmhead_forward_edges_match_plain(cuda, t, d, v):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("t", [130, 300, 512, 700])
-def test_lmhead_forward_cluster_keeps_the_bits(cuda, monkeypatch, t):
-    # the multicast of the w tile changes how its bytes arrive, not the k
-    # order or the fold: clusters of at most 1, 2 and 4 token tiles give
-    # the same bits (T 700: 6 token tiles, the second cluster of 4 with
-    # two past T)
-    h, w, lab = _lmhead_fwd_inputs(cuda, t, 200, 3000)
-    outs = {}
-    for c in (1, 2, 4):
-        monkeypatch.setattr(txe, "FWD_CLUSTER", c)
-        outs[c] = txe.lmhead_xent_fwd_2d(h, w, lab, block_v=512)
-    for c in (2, 4):
-        for got, want in zip(outs[c], outs[1]):
-            assert torch.equal(got, want), c
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,v,kernel", [
-    (torch.bfloat16, 4096, "lmhead_fwd_bf16<4>"),
-    (torch.bfloat16, 4095, "lmhead_fwd_bf16<1>"),
+    (torch.bfloat16, 4096, "lmhead_fwd_bf16"),
+    (torch.bfloat16, 4095, "lmhead_fwd_bf16"),
     (torch.float32, 4096, "lmhead_fwd_tiles")])
-def test_lmhead_forward_kernel_by_dtype_and_alignment(cuda, dtype, v,
-                                                      kernel):
-    # bf16 takes the wgmma kernel, in clusters of 4 where the rows are
-    # 16-byte aligned (TMA) and without a cluster where they are not
-    # (cp.async); float32 PR 13's FFMA tiles.  Then the combine.  (The
-    # wrapper's int32 cast of the labels is a PyTorch kernel.)
+def test_lmhead_forward_kernel_by_dtype(cuda, dtype, v, kernel):
+    # bf16 takes the wgmma kernel, by TMA where the rows are 16-byte
+    # aligned and by cp.async where they are not (V 4095), persistent over
+    # min(SMs, tiles) blocks (16 x 4 tiles of 128 x 256 here); float32 PR
+    # 13's FFMA tiles.  Then the combine.  (The wrapper's int32 cast of the
+    # labels is a PyTorch kernel.)
     h = torch.randn(512, 64, device=cuda).to(dtype)
     w = (torch.randn(64, v, device=cuda) * 0.125).to(dtype)
     lab = torch.randint(0, v, (512,), device=cuda)
-    launched = _launched_kernels(
+    launched = [(name, blocks) for name, blocks in _launched_kernels(
         lambda: txe.lmhead_xent_fwd_2d(h, w, lab, block_v=512),
-        [kernel, "lmhead_fwd_combine"])
-    names = [name for name, _ in launched if "lmhead" in name]
+        [kernel, "lmhead_fwd_combine"]) if "lmhead" in name]
+    names = [name for name, _ in launched]
     assert sum(kernel in x for x in names) == 1, names
     assert sum("lmhead_fwd_combine" in x for x in names) == 1, names
     assert len(names) == 2, names
+    if dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        blocks = [b for name, b in launched if kernel in name]
+        assert blocks == [min(sms, 16 * 4)], launched
 
 
 # (B, H, Hkv, Sq, Skv, D, causal, window): GQA groups, MQA, ragged Sq / Skv

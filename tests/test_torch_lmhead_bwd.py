@@ -4,8 +4,7 @@ version against the separate plain dh and dw (bit for bit) and against the
 reference's Pallas kernels (interpret mode), the op's backward against the
 reference's VJP, and a model of the shared-memory layout of the bf16
 product core (``wg_tile`` in ``csrc/lmhead_xent.cu``, shared by the
-backward and the forward) that the ``wgmma`` descriptors read, and of the
-forward's TMA multicast of the w tile over a cluster."""
+backward and the forward) that the ``wgmma`` descriptors read."""
 
 import itertools
 
@@ -230,33 +229,3 @@ def test_core_descriptors_read_the_stored_elements(kind, extent, bk,
                           + ((mn0 + mn) & 7) * 2)
             got = _desc_read(kind, bk, start, lbo, sbo, mn, kk)
             assert got == stored, (g, s, mn, kk)
-
-
-def _tma_box_map(q, bk):
-    """[bk, 8] offsets at which a 128-byte swizzled TMA box of 64 columns
-    (8 chunks of 16 bytes) by bk k rows, the q-th of an MN-major k tile,
-    stores each (k, chunk): the box is a dense [bk, 128 bytes] array
-    swizzled as a whole, starting q * bk * 128 bytes into the tile."""
-    k, c = torch.meshgrid(torch.arange(bk), torch.arange(8), indexing="ij")
-    return q * bk * 128 + swizzle(k * 128 + c * 16, 128)
-
-
-@pytest.mark.parametrize("cluster", [1, 2, 4])
-def test_multicast_slices_of_the_w_tile_are_the_single_block_boxes(cluster):
-    # lmhead_fwd_bf16: block `rank` of a cluster issues boxes [rank * 4 /
-    # cluster, (rank + 1) * 4 / cluster) of a 64-deep w tile (256 columns,
-    # MN-major), each multicast to the same offset in every block.  The
-    # slices of all ranks together place every (k, column chunk) where the
-    # single block's four boxes do, where mnmajor_off (the descriptors'
-    # layout) has it, each byte once: one permutation of the tile.
-    bk, boxes = 64, 4
-    want = _tile_map("mn", 256, bk)              # [k, 32 column chunks]
-    got = torch.full_like(want, -1)
-    for rank in range(cluster):
-        for q in range(rank * boxes // cluster,
-                       (rank + 1) * boxes // cluster):
-            assert torch.all(got[:, 8 * q:8 * q + 8] == -1)
-            got[:, 8 * q:8 * q + 8] = _tma_box_map(q, bk)
-    assert torch.equal(got, want)
-    assert torch.equal(torch.sort(got.flatten()).values,
-                       torch.arange(0, 256 * bk * 2, 16))
