@@ -136,9 +136,10 @@ LMHEAD_DIGEST = ("01b9d3e64bead230971d09416538e945"
                  "e7c436ffcc9fd2c68fad40dfd078a058")
 # sha256 of lmhead_xent_fwd_2d's outputs on lmhead_fwd_digest's inputs, as
 # the wgmma forward gives them on an H100 (commit 83938bf gave the same
-# with its w multicast over clusters of 1, 2 and 4 token tiles).  PR 13's
-# wmma forward gave e1800cf1...73640f: each logit now sums its 16-deep k
-# steps in the backward's order, and the fold takes 256-column tiles.
+# with its w multicast over clusters of 1, 2 and 4 token tiles).  The
+# wmma forward before it gave e1800cf1...73640f (commit a03f3e2): each
+# logit now sums its 16-deep k steps in the backward's order, and the fold
+# takes 256-column tiles.
 LMHEAD_FWD_DIGEST = ("d7c2045d23f88365945da27bc91db8d7"
                      "d9f054744b3c2941c0e55c75de108001")
 ARCH = "qwen2.5-14b"

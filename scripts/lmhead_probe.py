@@ -7,10 +7,9 @@ the forward's outputs there (``chip_smoke.lmhead_fwd_digest``), the
 LM-head cases of ``tests/test_torch_gpu.py``, and with ``--times`` the
 device time of the forward, dh, dw and (where the tree has it) the fused
 backward at that chunk ([512, 5120] x [5120, 152064] bf16, ``block_v``
-8192), each kernel's share of a call (profiler microseconds, grid and
-block), and cuBLAS's time for the same products as context (``h @ w``,
-``dlog_slab @ w_slab^T``, ``h^T @ dlog_slab``).  ``--sass FILE`` writes
-the library's SASS.
+8192), each kernel's share of a call (profiler microseconds), and
+cuBLAS's time for the same products as context (``h @ w``,
+``dlog_slab @ w_slab^T``, ``h^T @ dlog_slab``).
 
     python3 scripts/lmhead_probe.py [--times] [--no-tests] [--no-digest]
 
@@ -58,8 +57,8 @@ def sass_counts(so: pathlib.Path) -> dict[str, dict[str, int]]:
             cur = counts.setdefault(_build._kernel_name(m.group(1)),
                                     collections.Counter())
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
-                     ln)
+        m = re.match(
+            r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", ln)
         if m and cur is not None:
             op = m.group(1)
             for key in ("HGMMA", "HMMA", "WARPGROUP.DEPBAR",
@@ -70,17 +69,9 @@ def sass_counts(so: pathlib.Path) -> dict[str, dict[str, int]]:
     return {k: dict(c) for k, c in counts.items()}
 
 
-def _short(name: str) -> str:
-    return (name.replace("(anonymous namespace)::", "")
-            .removeprefix("void ").split("(")[0])
-
-
 def kernel_us(torch, fn, iters: int = 5) -> dict[str, float]:
     """Device microseconds a call spends in each kernel it launches (the
-    profiler's CUDA time), the launches a call makes of each, and each
-    one's grid (blocks) and block (threads) from the trace."""
-    import tempfile
-
+    profiler's CUDA time), and the launches a call makes of each."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -93,18 +84,10 @@ def kernel_us(torch, fn, iters: int = 5) -> dict[str, float]:
     for e in prof.key_averages():
         if "lmhead" not in e.key:
             continue
-        out[_short(e.key)] = dict(
-            us=round(e.self_device_time_total / iters, 1),
-            launches=e.count / iters)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = pathlib.Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-    for e in events:
-        name = _short(e.get("name", ""))
-        if e.get("cat") == "kernel" and name in out:
-            out[name]["grid"] = e["args"].get("grid")
-            out[name]["block"] = e["args"].get("block")
+        name = (e.key.replace("(anonymous namespace)::", "")
+                .removeprefix("void ").split("(")[0])
+        out[name] = dict(us=round(e.self_device_time_total / iters, 1),
+                         launches=e.count / iters)
     return out
 
 
@@ -151,8 +134,6 @@ def main() -> int:
                     help="skip the gpu tests (a tree that has none)")
     ap.add_argument("--no-digest", action="store_true",
                     help="skip the dh / dw digest")
-    ap.add_argument("--sass", metavar="FILE",
-                    help="write the SASS of csrc/lmhead_xent.cu to FILE")
     args = ap.parse_args()
 
     import torch
@@ -178,11 +159,6 @@ def main() -> int:
             print("ptxas:", ln.strip())
     for kernel, c in sass_counts(libs["lmhead_xent"]).items():
         print(json.dumps({"sass": kernel, **c}), flush=True)
-    if args.sass:
-        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-        pathlib.Path(args.sass).write_text(subprocess.run(
-            [tool, "-sass", str(libs["lmhead_xent"])], capture_output=True,
-            text=True, check=True).stdout)
     failed = False
     if not args.no_digest:
         digest = chip_smoke.lmhead_digest(torch, xe)

@@ -406,8 +406,8 @@ def test_lmhead_forward_edges_match_plain(cuda, t, d, v):
 def test_lmhead_forward_kernel_by_dtype(cuda, dtype, v, kernel):
     # bf16 takes the wgmma kernel, by TMA where the rows are 16-byte
     # aligned and by cp.async where they are not (V 4095), persistent over
-    # min(SMs, tiles) blocks (16 x 4 tiles of 128 x 256 here); float32 PR
-    # 13's FFMA tiles.  Then the combine.  (The wrapper's int32 cast of the
+    # min(SMs, tiles) blocks (16 x 4 tiles of 128 x 256 here); float32 the
+    # FFMA tiles.  Then the combine.  (The wrapper's int32 cast of the
     # labels is a PyTorch kernel.)
     h = torch.randn(512, 64, device=cuda).to(dtype)
     w = (torch.randn(64, v, device=cuda) * 0.125).to(dtype)
