@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--layers N]
+    python3 chip_smoke.py [--layers N] [--train-only | --swa-only]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -56,7 +56,22 @@ Phases (any failure exits non-zero; nothing is caught):
 6. cross-entropy: the per-token loss of a prompt under the served model
    through ``SoftmaxPolicy.cross_entropy`` with kernels, and its gradient,
    against the plain route (the prompt's forward takes the flash route);
-7. training: qwen2.5-14b at full width, depth cut to 4 layers (float32
+7. swa: the sliding-window ring cache and head dims 120 / 160 at full
+   width.  The decode kernels at G 4 with D 120 under the 4096 window and
+   D 160 without one, and the two-pass softmax on partly written ring
+   rows [4096, 4096], against their plain versions; h2o-danube-3-4b (24
+   layers, window 4096) serving 8 requests of 4,500-7,000 prompt tokens
+   and stablelm-12b (40 layers, head dim 160, vocab 100352) serving 4 of
+   300-1,500, each through ``Model.serving_engine`` paged (the main path),
+   strip (the same tokens) and at ``temperature=0.8`` (the sampler's
+   kernel on rows past 8192 columns); h2o's ring (``Model.init_cache``,
+   ``Model.decode_step``) stepped 4,160 times from position 0 at 4 of its
+   24 layers against a position-addressed cache prefilled with the first
+   4,096 tokens, greedy tokens equal over the 64 steps past the wrap; and
+   the ring at the decode_32k cell's shape (batch 128, 32,768 positions,
+   ~48.3 GB where ``ring=False`` would need ~386.5 GB) stepped 8 times,
+   with its peak memory;
+8. training: qwen2.5-14b at full width, depth cut to 4 layers (float32
    parameters, bf16 activations, remat), batch 1 x 4096 from SyntheticLM,
    with the model's own ``use_kernels``: from one state the kernel route
    (flash attention, fused LM-head CE) and the plain route (tensor forms,
@@ -67,9 +82,9 @@ Phases (any failure exits non-zero; nothing is caught):
    a fourth under the profiler shows where the step's device time goes,
    and the same three steps on the plain route from the same initial
    weights give the comparison;
-8. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
+9. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
    three_pass_reload --kernels``, at full width, as a subprocess;
-9. the training CLI, ``python -m repro_torch.launch.train --arch
+10. the training CLI, ``python -m repro_torch.launch.train --arch
    qwen2.5-14b --reduced --kernels`` with a checkpoint directory under
    ``build/``: 6 steps straight, then 3 and a resume to 6, whose final
    losses agree.
@@ -223,6 +238,35 @@ def bound(nbytes: float, ops: float,
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions.
 # ---------------------------------------------------------------------------
+def err(got, want):
+    """(max abs error, max relative error) of ``got`` against ``want``."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    return (float(d.max()),
+            float((d / w.abs().clamp(min=1e-30)).max()))
+
+
+def held(got, want, tol, what):
+    """Fail unless |got - want| <= atol + rtol |want| everywhere."""
+    a, rel = err(got, want)
+    excess = float(((got.float() - want.float()).abs()
+                    / (tol["atol"] + tol["rtol"] * want.float().abs()))
+                   .max())
+    check(excess <= 1.0, f"{what}: max abs err {a} beyond {tol}")
+    return dict(max_abs_err=a, max_rel_err=rel, tol=tol,
+                worst_err_over_limit=excess)
+
+
+def timed(torch, fn, plain, library):
+    """The softmax rows' times: device time by graph replay (the register
+    kernels take less than their wrapper's host time), eager beside; the
+    plain version eager."""
+    return dict(ms=graph_ms(torch, fn), eager_ms=cuda_ms(torch, fn),
+                plain_ms=cuda_ms(torch, plain, 5),
+                library_ms=graph_ms(torch, library),
+                library_eager_ms=cuda_ms(torch, library))
+
+
 # softmax rows on the serving path: prefill score buckets (40 heads x
 # bucket rows, causal), a ragged row count, the sampler over the vocab
 SOFTMAX_SHAPES = [("prefill_bucket_1024", 40 * 1024, 1024),
@@ -983,30 +1027,6 @@ def kernel_phase(torch, rng):
     dev = "cuda"
     rows = {}
 
-    def err(got, want):
-        g, w = got.float(), want.float()
-        d = (g - w).abs()
-        return (float(d.max()),
-                float((d / w.abs().clamp(min=1e-30)).max()))
-
-    def held(got, want, tol, what):
-        a, rel = err(got, want)
-        excess = float(((got.float() - want.float()).abs()
-                        / (tol["atol"] + tol["rtol"] * want.float().abs()))
-                       .max())
-        check(excess <= 1.0, f"{what}: max abs err {a} beyond {tol}")
-        return dict(max_abs_err=a, max_rel_err=rel, tol=tol,
-                    worst_err_over_limit=excess)
-
-    def timed(fn, plain, library):
-        """The softmax rows' times: device time by graph replay (the
-        register kernels take less than their wrapper's host time), eager
-        beside; the plain version eager."""
-        return dict(ms=graph_ms(torch, fn), eager_ms=cuda_ms(torch, fn),
-                    plain_ms=cuda_ms(torch, plain, 5),
-                    library_ms=graph_ms(torch, library),
-                    library_eager_ms=cuda_ms(torch, library))
-
     # -- softmax under the paper's three algorithms, and the stats: prefill
     # scores and the sampler.  Two-pass: the same ExtExp bits, only the
     # order of the (m, n) sum differs.  Three-pass: the same Alg-4 bits,
@@ -1045,7 +1065,7 @@ def kernel_phase(torch, rng):
         if name in ("prefill_bucket_1024", "sampler"):
             b_ms, b_by = bound(2 * nb, SOFTMAX_OPS * r * c)
             rows.setdefault("twopass_softmax_2d", {})[name] = dict(
-                **timed(lambda: tp.twopass_softmax_2d(x),
+                **timed(torch, lambda: tp.twopass_softmax_2d(x),
                         lambda: tp.twopass_softmax_2d_plain(x),
                         lambda: torch.softmax(x, -1)),
                 bound_ms=b_ms, bound_by=b_by,
@@ -1053,7 +1073,7 @@ def kernel_phase(torch, rng):
                 shape=[r, c], path=tp.path_for(c))
             b_ms, b_by = bound(nb + 8 * r, STATS_OPS * r * c)
             rows.setdefault("twopass_stats_2d", {})[name] = dict(
-                **timed(lambda: tp.twopass_stats_2d(x),
+                **timed(torch, lambda: tp.twopass_stats_2d(x),
                         lambda: tp.twopass_stats_2d_plain(x),
                         lambda: torch.logsumexp(x, -1)),
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=sa, shape=[r, c])
@@ -1072,7 +1092,7 @@ def kernel_phase(torch, rng):
                 if dt == torch.float32 and name in ("prefill_bucket_1024",
                                                     "sampler"):
                     rows.setdefault(kname, {})[name] = dict(
-                        **timed(lambda: fn(x), lambda: plain(x),
+                        **timed(torch, lambda: fn(x), lambda: plain(x),
                                 lambda: torch.softmax(x, -1)),
                         **dict(zip(("bound_ms", "bound_by"),
                                    bound(2 * nb, ops * r * c))),
@@ -1326,6 +1346,31 @@ def kernel_phase(torch, rng):
 # ---------------------------------------------------------------------------
 # Phases 3-4: the engine at full width.
 # ---------------------------------------------------------------------------
+def serve_requests(torch, model, params, reqs, **kw):
+    """Serve ``reqs`` through ``model.serving_engine(params, **kw)``, with
+    the launch counts zeroed just before the run and read just after.
+    Returns (tokens a request, the engine's throughput with the wall time,
+    launches, ms a decode step and the peak bytes)."""
+    import repro_torch.kernels as K
+
+    eng = model.serving_engine(params, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    comps = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = K.launch_counts()
+    toks = [list(c.tokens) for c in comps]
+    out = dict(eng.throughput(), wall_s=wall, launches=counts,
+               decode_ms_per_step=(eng.stats["decode_s"]
+                                   / max(1, eng.stats["steps"]) * 1e3),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    del eng
+    torch.cuda.empty_cache()
+    return toks, out
+
+
 def engine_phase(torch, rng, n_layers: int):
     import repro_torch.kernels as K
     from repro_torch.models import build_model
@@ -1353,23 +1398,8 @@ def engine_phase(torch, rng, n_layers: int):
                 for i, p in enumerate(prompts)]
 
     def serve(model, **kw):
-        eng = ContinuousBatchingEngine(model, params, slots=N_SLOTS,
-                                       max_len=MAX_LEN, seed=3, **kw)
-        torch.cuda.reset_peak_memory_stats()
-        K.reset_launch_counts()
-        t = time.perf_counter()
-        comps = eng.run(reqs())
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        counts = K.launch_counts()
-        toks = [list(c.tokens) for c in comps]
-        out = dict(eng.throughput(), wall_s=wall, launches=counts,
-                   decode_ms_per_step=(eng.stats["decode_s"]
-                                       / max(1, eng.stats["steps"]) * 1e3),
-                   peak_bytes=torch.cuda.max_memory_allocated())
-        del eng
-        torch.cuda.empty_cache()
-        return toks, out
+        return serve_requests(torch, model, params, reqs(), slots=N_SLOTS,
+                              max_len=MAX_LEN, seed=3, **kw)
 
     # main path: paged pool, kernels on, greedy
     toks_paged, st = serve(m, paged=True, temperature=0.0)
@@ -1522,7 +1552,335 @@ def xent_path(torch, m, params, prompt) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: training qwen2.5-14b at full width through Trainer.
+# Phase 7: the SWA ring cache and head dim 160 at full width.
+# ---------------------------------------------------------------------------
+SWA_ARCH = "h2o-danube-3-4b"    # 24 layers, 32 / 8 heads of 120, window 4096
+D160_ARCH = "stablelm-12b"      # 40 layers, 32 / 8 heads of 160, vocab 100352
+SWA_SEED = 24
+SWA_MAX_LEN = 8192
+SWA_PROMPTS = (8, 4500, 7001)   # requests, prompt lengths in [lo, hi)
+D160_PROMPTS = (4, 300, 1501)
+WRAP_LAYERS = 4                 # depth cut: 4,160 eager steps
+WRAP_BATCH = 2
+WRAP_STEPS = 64                 # steps past the wrap
+DECODE_32K = (128, 32768, 8)    # the decode_32k cell: batch, positions, steps
+LOGIT_TOL = 5e-2                # of the largest logit, as in the engine phase
+F32_LOGIT_TOL = 1e-4            # the same in float32 activations
+SWA_KERNELS = ("twopass_softmax_2d", "decode_attention_paged",
+               "decode_attention")
+
+
+def swa_kernel_checks(torch, rng, rows) -> None:
+    """Kernels 1, 3 and 4 at this phase's shapes: decode at G 4 with D 120
+    under the 4096 window and D 160 without one (8 slots, 1,000-7,000
+    positions), and the two-pass softmax on ring score rows whose tails
+    are not written yet (-inf), the first row with one valid slot."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import twopass_softmax as tp
+
+    dev, bf = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SWA_SEED)
+    s, hkv, g, ps = N_SLOTS, 8, 4, 128
+    pmax = SWA_MAX_LEN // ps
+    lengths = rng.integers(1000, 7001, s).astype(np.int32)
+    lens = torch.from_numpy(lengths).to(dev)
+    n_pages = 1 + s * pmax
+    tab = torch.from_numpy(rng.permutation(np.arange(1, n_pages)).reshape(
+        s, pmax).astype(np.int32)).to(dev)
+    bf16_tol = dict(atol=1e-5, rtol=1e-2)        # as in the kernel phase
+    for d, window in ((120, 4096), (160, None)):
+        case = f"g4_d{d}_" + (f"window_{window}" if window else "no_window")
+        q = torch.randn((s, hkv, g, d), device=dev, generator=gen).to(bf)
+        kp, vp = (torch.randn((n_pages, ps, hkv, d), device=dev,
+                              generator=gen).to(bf) for _ in "kv")
+        ks, vs = (x[tab.long()].reshape(s, pmax * ps, hkv, d).transpose(1, 2)
+                  for x in (kp, vp))
+        sc = d ** -0.5
+        fns = {
+            "decode_attention_paged": (
+                lambda: da.decode_attention_paged(
+                    q, kp, vp, tab, lens, scale=sc, window=window,
+                    pages_per_tile=1),
+                lambda: da.decode_attention_paged_plain(
+                    q, kp, vp, tab, lens, scale=sc, window=window,
+                    n_t_chunks=pmax)),
+            "decode_attention": (
+                lambda: da.decode_attention(q, ks, vs, lens, scale=sc,
+                                            window=window, block_t=ps),
+                lambda: da.decode_attention_plain(
+                    q, ks, vs, lens, scale=sc, window=window,
+                    n_t_chunks=pmax))}
+        pos = torch.arange(pmax * ps, device=dev)[None, :]
+        mask = pos < lens[:, None]
+        if window is not None:
+            mask &= pos > lens[:, None] - 1 - window
+        visible = int(mask.sum())
+        q_l = q.reshape(s, hkv * g, 1, d)
+        b_ms, b_by = bound(visible * hkv * 2 * d * 2 + 2 * q.numel() * 2
+                           + s * pmax * 4 + s * 4,
+                           visible * hkv * g * (4 * d + 20))
+        paged_out = None
+        for name, (fn, plain) in fns.items():
+            got = fn()
+            torch.cuda.synchronize()
+            r = held(got, plain(), bf16_tol, f"{name} {case}")
+            if paged_out is None:
+                paged_out = got
+            else:
+                check(torch.equal(got, paged_out),
+                      f"decode_attention {case}: strip != paged bits")
+            body = da.kernel_body(bf, bf, d, d, da._row_bytes(kp, vp))
+            say("kernel_check", kernel=name, case=case, body=body, **r)
+            rows.setdefault(name, {})[case] = dict(
+                ms=graph_ms(torch, fn), eager_ms=cuda_ms(torch, fn),
+                plain_ms=cuda_ms(torch, plain, 5),
+                library_ms=graph_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q_l, ks, vs, attn_mask=mask[:, None, None, :],
+                        enable_gqa=True)),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=r["max_abs_err"],
+                shape=dict(q=list(q.shape), pages=list(kp.shape),
+                           window=window, lengths=lengths.tolist()))
+        del q, kp, vp, ks, vs, q_l, mask, paged_out
+
+    # ring score rows: slot order, -inf past each row's written slots
+    r = c = 4096
+    x = torch.randn((r, c), device=dev, generator=gen) * 8
+    valid = torch.from_numpy(rng.integers(1, c + 1, r)).to(dev)
+    valid[0], valid[-1] = 1, c
+    x.masked_fill_(torch.arange(c, device=dev)[None, :] >= valid[:, None],
+                   -torch.inf)
+    y = tp.twopass_softmax_2d(x)
+    torch.cuda.synchronize()
+    plain = tp.twopass_softmax_2d_plain(x)
+    a, rel = err(y, plain)
+    check(torch.allclose(y, plain, atol=5e-6, rtol=1e-5),
+          f"twopass_softmax_2d ring rows: max abs err {a}")
+    check(not bool(y.masked_select(torch.isinf(x)).any())
+          and float(y[0, 0]) == 1.0, "ring rows: -inf slots not exact 0")
+    say("kernel_check", kernel="twopass_softmax_2d", shape=[r, c],
+        case="ring_rows_partly_filled", path=tp.path_for(c),
+        valid_min=int(valid.min()), max_abs_err=a, max_rel_err=rel,
+        tol="atol 5e-6 rtol 1e-5, as the kernel phase; -inf slots exact 0")
+    rows["twopass_softmax_2d"]["ring_rows_4096"] = dict(
+        **timed(torch, lambda: tp.twopass_softmax_2d(x),
+                lambda: tp.twopass_softmax_2d_plain(x),
+                lambda: torch.softmax(x, -1)),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(2 * r * c * 4, SOFTMAX_OPS * r * c))),
+        max_abs_err=a, shape=[r, c], path=tp.path_for(c))
+    del x, y, plain
+    for name in SWA_KERNELS:
+        for case, row in rows[name].items():
+            if case.startswith(("g4_", "ring_")):
+                say("kernel_time", kernel=name, case=case,
+                    bound_us=row["bound_ms"] * 1e3, **row)
+
+
+def serve_model(torch, arch, rng, n_req, lo, hi, max_len):
+    """One model at full width and depth with seeded bf16 weights, through
+    ``serving_engine``: greedy on the paged pool (the main path), the strip
+    pool (the same tokens) and a ``temperature=0.8`` run whose sampler
+    launches the two-pass kernel.  Returns the model, its weights and the
+    main path's launches (the strip run's for kernel 4)."""
+    from repro_torch.kernels import twopass_softmax as tp
+    from repro_torch.models import build_model
+    from repro_torch.serving.scheduler import Request
+
+    m = build_model(arch, use_kernels=True)
+    cfg = m.cfg
+    t0 = time.perf_counter()
+    params = m.init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    say("swa_config", arch=arch, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim(), d_ff=cfg.d_ff, vocab=cfg.vocab,
+        swa_window=cfg.swa_window, weights_s=time.perf_counter() - t0,
+        weights_bytes=sum(t.numel() * 2 for t in _leaves(params)))
+    plens = rng.integers(lo, hi, n_req)
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab, n))
+               for n in plens]
+
+    def reqs(new=NEW_TOKENS, cut=None):
+        return [Request(rid=i, prompt=p[:cut], max_new_tokens=new)
+                for i, p in enumerate(prompts)]
+
+    kw = dict(slots=n_req, max_len=max_len, seed=3)
+    toks, st = serve_requests(torch, m, params, reqs(), paged=True,
+                              temperature=0.0, **kw)
+    say("engine", arch=arch, path="paged, use_kernels=True, temperature=0",
+        prompt_lens=plens.tolist(), **st)
+    c = st["launches"]
+    check(all(len(t) == NEW_TOKENS for t in toks), f"{arch}: token counts")
+    check(c["twopass_softmax_2d"] == n_req * cfg.n_layers
+          and c["decode_attention_paged"] > 0,
+          f"{arch}: kernels not launched on the main path: {c}")
+    launches = {k: c[k] for k in SWA_KERNELS}
+    toks_strip, st2 = serve_requests(torch, m, params, reqs(), paged=False,
+                                     temperature=0.0, **kw)
+    say("engine", arch=arch, path="strip, use_kernels=True, temperature=0",
+        **st2)
+    check(toks_strip == toks, f"{arch}: strip tokens != paged tokens")
+    check(st2["launches"]["decode_attention"] > 0,
+          f"{arch}: strip decode kernel not launched")
+    launches["decode_attention"] = st2["launches"]["decode_attention"]
+    say("parity", arch=arch, check="strip == paged tokens", equal=True)
+    toks_t, st3 = serve_requests(torch, m, params, reqs(4, 512), paged=True,
+                                 temperature=0.8, **kw)
+    c = st3["launches"]
+    check(c["twopass_softmax_2d"] > n_req * cfg.n_layers
+          and all(0 <= t < cfg.vocab for x in toks_t for t in x),
+          f"{arch}: sampler softmax kernel not launched: {c}")
+    say("engine", arch=arch, path="paged, use_kernels=True, "
+        "temperature=0.8", sampler_path=tp.path_for(cfg.vocab), **st3)
+    return m, params, launches
+
+
+def ring_vs_full(torch, model, params, toks):
+    """A ring stepped from position 0 over all of ``toks`` [B, window +
+    WRAP_STEPS], and a position-addressed cache prefilled with the first
+    window of them and stepped on: each side's logits [WRAP_STEPS, B, V]
+    past the wrap, and the ring steps' two-pass launches and seconds."""
+    import repro_torch.kernels as K
+
+    w, v = model.cfg.swa_window, model.cfg.vocab
+    n = toks.shape[1]
+    ring = model.init_cache(toks.shape[0], n)
+    check(ring["k"].shape[2] == w, "ring not sized at the window")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = []
+    for t in range(n):
+        lg, ring = model.decode_step(params, ring, toks[:, t], t)
+        if t >= w:
+            got.append(lg[:, :v].float())
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    launched = K.launch_counts()["twopass_softmax_2d"]
+    check(launched == n * model.cfg.n_layers,
+          f"ring: {launched} two-pass launches for {n} steps")
+    _, full = model.prefill(params, toks[:, :w], max_len=n)
+    check(full["k"].shape[2] == n, "full cache not position-addressed")
+    want = []
+    for t in range(w, n):
+        lg, full = model.decode_step(params, full, toks[:, t], t)
+        want.append(lg[:, :v].float())
+    return torch.stack(got), torch.stack(want), launched, ring_s
+
+
+def ring_wrap_check(torch, m, params, rng) -> int:
+    """The ring past its wrap at full width, depth cut to WRAP_LAYERS, with
+    the model's bf16 activations and again with float32 ones (the same
+    weights, widened): ``ring_vs_full`` over WRAP_STEPS steps past the
+    wrap.  The ring's scores come in slot order, so its logits are only
+    close: within LOGIT_TOL of the largest in bf16, F32_LOGIT_TOL in
+    float32.  Greedy tokens are ``==`` in float32; in bf16 the logits are
+    rounded to a step of up to 2^-5 near the largest, and the count that
+    agrees is reported.  Returns the ring steps' two-pass launches."""
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import torch_dtype
+
+    def first_layers(tree, dt):
+        if isinstance(tree, dict):
+            return {k: first_layers(v, dt) for k, v in tree.items()}
+        return tree[:WRAP_LAYERS].to(dt)
+
+    cfg = dataclasses.replace(m.cfg, n_layers=WRAP_LAYERS)
+    n = cfg.swa_window + WRAP_STEPS
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                         (WRAP_BATCH, n))).cuda()
+    launched = 0
+    for dtype, tol in (("bfloat16", LOGIT_TOL), ("float32", F32_LOGIT_TOL)):
+        dt = torch_dtype(dtype)
+        p4 = {k: first_layers(v, dt) if k == "blocks" else
+              {n_: t.to(dt) for n_, t in v.items()}
+              for k, v in params.items()}
+        model = Model(dataclasses.replace(cfg, dtype=dtype), m.device)
+        got, want, n_l, ring_s = ring_vs_full(torch, model, p4, toks)
+        launched += n_l
+        worst = float((got - want).abs().max() / want.abs().max())
+        same = got.argmax(-1) == want.argmax(-1)
+        say("swa_ring_wrap", arch=cfg.name, dtype=dtype,
+            n_layers=WRAP_LAYERS, full_depth=m.cfg.n_layers,
+            batch=WRAP_BATCH, ring_slots=cfg.swa_window, steps=n,
+            steps_compared=WRAP_STEPS, ring_ms_per_step=ring_s / n * 1e3,
+            twopass_launches=n_l, tokens_equal=int(same.sum()),
+            tokens_compared=same.numel(),
+            logits_max_err_over_max_logit=worst,
+            tol=f"{tol} of the largest logit: the ring's sums in slot "
+                "order, the full cache's prompt prefilled in one pass")
+        check(worst <= tol, f"ring logits vs full cache, {dtype}: {worst}")
+        del got, want, p4
+    check(bool(same.all()), "float32 ring greedy tokens != full-cache "
+          "tokens")
+    return launched
+
+
+def ring_decode_32k(torch, m, params, rng) -> int:
+    """``Model.init_cache`` at the decode_32k cell's shape with the ring on,
+    stepped DECODE_32K[2] times at the last positions: a memory and time
+    line (the ring holds zeros; ring_wrap_check holds correctness).
+    Returns the steps' two-pass launches."""
+    import repro_torch.kernels as K
+    from repro_torch.serving import kv_cache
+
+    b, t_max, steps = DECODE_32K
+    cfg = m.cfg
+    ring_b = kv_cache.cache_bytes(cfg, b, t_max)
+    full_b = kv_cache.cache_bytes(cfg, b, t_max, ring=False)
+    torch.cuda.reset_peak_memory_stats()
+    cache = m.init_cache(b, t_max)
+    check(sum(x.numel() * x.element_size() for x in cache.values())
+          == ring_b, "ring cache bytes != cache_bytes")
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, b)).cuda()
+    K.reset_launch_counts()
+    ms = []
+    for pos in range(t_max - steps, t_max):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = m.decode_step(params, cache, tok, pos)
+        tok = lg[:, :cfg.vocab].argmax(-1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launched = K.launch_counts()["twopass_softmax_2d"]
+    check(lg.shape == (b, cfg.padded_vocab())
+          and bool(torch.isfinite(lg).all()), "decode_32k ring logits")
+    check(launched == steps * cfg.n_layers,
+          f"decode_32k ring: {launched} two-pass launches")
+    say("swa_ring_decode_32k", arch=cfg.name, n_layers=cfg.n_layers,
+        batch=b, positions=t_max, ring_slots=cache["k"].shape[2],
+        cache_bytes=ring_b, cache_bytes_ring_false=full_b,
+        peak_bytes=torch.cuda.max_memory_allocated(), step_ms=ms,
+        median_step_ms=statistics.median(ms),
+        tok_s=b / statistics.median(ms) * 1e3, twopass_launches=launched)
+    return launched
+
+
+def swa_phase(torch, rows) -> dict:
+    """Phase 7; returns its main paths' launches of kernels 1, 3 and 4."""
+    rng = np.random.default_rng(SWA_SEED)
+    swa_kernel_checks(torch, rng, rows)
+    m, params, launches = serve_model(torch, SWA_ARCH, rng, *SWA_PROMPTS,
+                                      SWA_MAX_LEN)
+    launches["twopass_softmax_2d"] += ring_wrap_check(torch, m, params, rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["twopass_softmax_2d"] += ring_decode_32k(torch, m, params, rng)
+    del m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    m, params, more = serve_model(torch, D160_ARCH, rng, *D160_PROMPTS,
+                                  MAX_LEN)
+    del m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches[k] + more[k] for k in SWA_KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: training qwen2.5-14b at full width through Trainer.
 # ---------------------------------------------------------------------------
 TRAIN_LAYERS = 4            # depth cut from 48 (memory: 16 bytes a param)
 TRAIN_SEQ = 4096            # the config's train_4k length, batch 1
@@ -1760,7 +2118,7 @@ def train_trace(torch, step, state, batch) -> None:
 
 
 def cli_phase(torch) -> None:
-    """Phase 7: the serving CLI at full width as a user runs it."""
+    """Phase 9: the serving CLI at full width as a user runs it."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
            "--slots", "8", "--requests", "8", "--prompt-len", "256",
            "--steps", "8", "--softmax", "three_pass_reload", "--kernels"]
@@ -1783,7 +2141,7 @@ CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 
 
 def train_cli_phase(torch) -> None:
-    """Phase 9: the training CLI as a user runs it, reduced qwen2.5-14b
+    """Phase 10: the training CLI as a user runs it, reduced qwen2.5-14b
     with ``--kernels`` and a checkpoint directory: 6 steps straight, then 3
     (the crash) and a resume to 6 from the same directory; the final losses
     agree, and the flash and LM-head kernels ran."""
@@ -1909,6 +2267,8 @@ def main() -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="run the train phase alone (to compare the train "
                     "step of two trees on one card); no kernels or ok line")
+    ap.add_argument("--swa-only", action="store_true",
+                    help="run the swa phase alone; no kernels or ok line")
     args = ap.parse_args()
 
     import torch
@@ -1932,8 +2292,11 @@ def main() -> int:
     print(_build.ptxas_report(), flush=True)
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul on")
 
-    if args.train_only:
-        train_phase(torch)
+    if args.train_only or args.swa_only:
+        if args.train_only:
+            train_phase(torch)
+        else:
+            swa_phase(torch, {"twopass_softmax_2d": {}})
         print(smi, flush=True)
         return 0
     rng = np.random.default_rng(0)
@@ -1952,6 +2315,10 @@ def main() -> int:
     torch.cuda.empty_cache()             # the CLI's process needs the card
     say("engine_done", seconds=time.perf_counter() - t0,
         idle=idle if idle else "not measured")
+    t0 = time.perf_counter()
+    for name, n in swa_phase(torch, rows).items():
+        launches[name] += n
+    say("swa_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     launches.update(train_phase(torch))
     say("train_done", seconds=time.perf_counter() - t0)

@@ -184,6 +184,19 @@ class ModelConfig:
         return dataclasses.replace(self, **changes)
 
 
+# families this package does not serve yet -> ROADMAP queue A item
+UNPORTED_FAMILIES = {"ssm": 11, "encdec": 12, "moe": 13, "vlm": 14,
+                     "hybrid": 16}
+
+
+def check_dense(cfg: ModelConfig, what: str) -> None:
+    """Refuse a family this package does not serve yet, naming its item."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r}: {what} is not ported yet (ROADMAP "
+            f"queue A item {UNPORTED_FAMILIES[cfg.family]})")
+
+
 # ---------------------------------------------------------------------------
 # Input-shape cells (assigned): every arch pairs with these four.
 # ---------------------------------------------------------------------------

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import argparse
 
+from repro_torch.configs.base import UNPORTED_FAMILIES
+
 # unported flag -> (its value when unused, ROADMAP queue A item)
 UNPORTED_FLAGS = {
     "kv_dtype": (None, 18), "scale_granularity": (None, 18),
@@ -30,9 +32,6 @@ UNPORTED_FLAGS = {
     "no_prefix_cache": (False, 17), "stream": (False, 19),
     "mesh": (None, 22), "enc_frames": (None, 12), "enc_chunk": (None, 12),
 }
-# families this package does not serve yet -> ROADMAP queue A item
-UNPORTED_FAMILIES = {"ssm": 11, "encdec": 12, "moe": 13, "vlm": 14,
-                     "hybrid": 16}
 
 
 def parser() -> argparse.ArgumentParser:

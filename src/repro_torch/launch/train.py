@@ -58,8 +58,7 @@ def main(argv=None) -> None:
                         format="%(asctime)s %(levelname)s %(message)s")
 
     from repro_torch import kernels
-    from repro_torch.configs.base import SHAPES, ShapeCell
-    from repro_torch.launch.serve import UNPORTED_FAMILIES
+    from repro_torch.configs.base import SHAPES, UNPORTED_FAMILIES, ShapeCell
     from repro_torch.models import build_model
     from repro_torch.training.trainer import Trainer, TrainerConfig
 

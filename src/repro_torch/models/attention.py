@@ -200,11 +200,17 @@ def init_attention(gen, cfg: ModelConfig, dtype, lead: tuple = ()) -> dict:
 
 def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
               causal: bool = True, cache: dict | None = None,
-              cache_pos=None, cache_positions=None, page_table=None):
+              cache_pos=None, cache_positions=None, page_table=None,
+              ring_valid=None):
     """GQA self-attention.  x: [B, S, d].
 
     * ``cache`` + ``cache_pos`` (int): write-then-attend over the cache
       (prefill at 0, lockstep decode at the fill).
+    * ``ring_valid`` (int, with ``cache_pos`` already reduced mod the
+      ring): the cache is an SWA ring whose first ``ring_valid`` slots are
+      written.  Every written slot holds an in-window position, so only
+      that bound masks: no causal or window mask, and the scores come in
+      slot order.
     * ``cache_positions`` ([B] int, S == 1): ragged continuous-batching
       decode.  Each slot writes at its own position and attends its own
       prefix through ``decode_attention``; with ``page_table`` ([B, Pmax])
@@ -232,6 +238,7 @@ def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
 
     if cache_positions is not None:
         assert cache is not None and s == 1
+        assert ring_valid is None, "ring caches are not slot-addressable"
         if "k_scale" in cache:
             raise NotImplementedError(
                 "int8 page writes are not ported yet (ROADMAP queue A "
@@ -274,6 +281,8 @@ def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
             kv_len = cache_pos + s
             qpos = torch.arange(s, device=x.device) + cache_pos
         k, v = ck, cv
+    if ring_valid is not None:
+        kv_len, qpos, causal, window = ring_valid, None, False, None
 
     qg = q.reshape(b, s, hkv, gq, hd).permute(0, 2, 3, 1, 4)
     o = attention_core(qg, k.transpose(1, 2), v.transpose(1, 2),

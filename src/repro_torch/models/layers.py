@@ -17,7 +17,16 @@ import torch.nn.functional as F
 Params = dict
 
 
-def _randn(gen: torch.Generator, shape, dtype, scale: float):
+class MetaDraws:
+    """Stands in for a generator on the ``meta`` device, which has none:
+    the ``init_*`` functions then give shapes and dtypes with no storage
+    and nothing drawn."""
+    device = torch.device("meta")
+
+
+def _randn(gen: torch.Generator | MetaDraws, shape, dtype, scale: float):
+    if isinstance(gen, MetaDraws):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=dtype) * scale
 

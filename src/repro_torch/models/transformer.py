@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, check_dense
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 
@@ -25,10 +25,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: only the dense "
-            "family serves in this package (ROADMAP queue A items 11-16)")
+    check_dense(cfg, "the model")
 
 
 def layer(tree, i: int):
@@ -50,7 +47,8 @@ def init_block(gen, cfg: ModelConfig, dtype, lead: tuple = ()) -> Params:
 
 
 def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
-                cache_pos=None, cache_positions=None, page_table=None):
+                cache_pos=None, cache_positions=None, page_table=None,
+                ring_valid=None):
     """One dense block.  x: [B, S, d] or [B, d] (a decode token).  Returns
     (x, cache)."""
     single = x.ndim == 2
@@ -59,7 +57,8 @@ def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
     a, cache = attn_mod.attention(p["attn"], h, cos, sin, cfg=cfg,
                                   cache=cache, cache_pos=cache_pos,
                                   cache_positions=cache_positions,
-                                  page_table=page_table)
+                                  page_table=page_table,
+                                  ring_valid=ring_valid)
     x1 = xin + a
     h2 = layers.rmsnorm(p["ln2"], x1, eps=cfg.norm_eps)
     out = x1 + layers.mlp(p["mlp"], h2, act=cfg.act)
@@ -71,11 +70,15 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     """Random weights from a seeded ``torch.Generator`` on ``device``.
     ``dtype`` defaults to ``cfg.param_dtype``; on the card the compute
     dtype (bf16) halves the weights' memory with identical results, since
-    every use casts to the activation dtype."""
+    every use casts to the activation dtype.  On the ``meta`` device the
+    tree has shapes and dtypes only."""
     _check_family(cfg)
     dt = dtype or torch_dtype(cfg.param_dtype)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    if torch.device(device).type == "meta":
+        gen = layers.MetaDraws()
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     vp = cfg.padded_vocab()
     p: Params = {
         "embed": layers.init_embedding(gen, vp, cfg.d_model, dt),

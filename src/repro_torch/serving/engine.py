@@ -47,15 +47,26 @@ def _finish(params, h, cfg):
 def decode_step(params: Params, cache: dict, tokens, pos: int, *,
                 cfg: ModelConfig):
     """One lockstep decode step.  tokens: [B] int; pos: the cache fill.
-    Writes the cache in place.  Returns (logits [B, V_padded], cache)."""
+    Writes the cache in place.  Returns (logits [B, V_padded], cache).
+
+    An SWA config's cache of at most ``swa_window`` positions is a ring
+    (``kv_cache.init_cache(ring=True)``, or a prefill of ``max_len <=
+    window``): the token goes to slot ``pos % T`` and attends the first
+    ``min(pos + 1, T)`` slots."""
     b = tokens.shape[0]
     dev = _device(params)
+    pos = int(pos)
     x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     cos, sin = _cos_sin_at(cfg, torch.tensor(pos, device=dev), b)
+    cache_pos, ring_valid = pos, None
+    alloc = cache["k"].shape[2]
+    if cfg.swa_window is not None and alloc <= cfg.swa_window:
+        cache_pos, ring_valid = pos % alloc, min(pos + 1, alloc)
     for i in range(cfg.n_layers):
         x, _ = transformer.block_apply(
             layer(params["blocks"], i), x, cos, sin, cfg=cfg,
-            cache=layer(cache, i), cache_pos=int(pos))
+            cache=layer(cache, i), cache_pos=cache_pos,
+            ring_valid=ring_valid)
     return _finish(params, x, cfg), cache
 
 
@@ -99,7 +110,7 @@ def prefill(params: Params, tokens, *, cfg: ModelConfig,
     b, s = tokens.shape
     dev = _device(params)
     max_len = max(max_len or 0, s)
-    cache = kv_cache.init_cache(cfg, b, max_len, device=dev)
+    cache = kv_cache.init_cache(cfg, b, max_len, ring=False, device=dev)
     x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     cos, sin = transformer._cos_sin(
         cfg, transformer._positions_for(cfg, b, s, device=dev))

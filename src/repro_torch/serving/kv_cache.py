@@ -6,6 +6,11 @@ functions that change a pool change it IN PLACE and return it (the
 reference is functional): at full width a pool is tens of gigabytes, and a
 copy per admission or step would double it.
 
+  * lockstep cache (:func:`init_cache`): ``ring=True`` sizes an SWA
+    config's cache at its window, and decode addresses it ``pos % window``
+    (every written slot holds an in-window position, RoPE baked in at the
+    write, so a read needs only a validity bound); ``ring=False`` is
+    position-addressed at ``max_len``, which prefill and the pools use.
   * strip pool (:func:`init_slot_pool`): ``max_len`` positions per slot plus
     per-slot ``lengths`` (0 = free; also the next write position).
   * paged pool (:func:`init_paged_pool`): a shared arena of ``ps``-token
@@ -18,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, check_dense
 from repro_torch.models.transformer import torch_dtype
 
 TRASH_PAGE = 0
@@ -30,18 +35,20 @@ def cache_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r}: only dense caches are ported yet "
-            "(ROADMAP queue A items 11-16)")
+    check_dense(cfg, "its cache")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda") -> dict:
-    """Position-addressed stacked-layer cache ``{"k", "v"}: [L, B, T, Hkv,
-    hd]`` (the reference's ``ring=False`` layout)."""
+               ring: bool = True, device="cuda") -> dict:
+    """Stacked-layer lockstep cache ``{"k", "v"}: [L, B, T, Hkv, hd]``.
+    ``T`` is ``max_len``, or ``min(max_len, swa_window)`` for an SWA config
+    with ``ring`` (the ring that ``engine.decode_step`` addresses mod
+    ``T``); prefill paths pass ``ring=False`` for position addressing."""
     _check_dense(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+    alloc = max_len
+    if ring and cfg.swa_window is not None:
+        alloc = min(max_len, cfg.swa_window)
+    shape = (cfg.n_layers, batch, alloc, cfg.n_kv_heads,
              cfg.resolved_head_dim())
     dt = cache_dtype(cfg)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
@@ -53,7 +60,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 # ---------------------------------------------------------------------------
 def init_slot_pool(cfg: ModelConfig, slots: int, max_len: int, *,
                    device="cuda") -> dict:
-    return {"kv": init_cache(cfg, slots, max_len, device=device),
+    return {"kv": init_cache(cfg, slots, max_len, ring=False,
+                             device=device),
             "lengths": torch.zeros((slots,), dtype=torch.int32,
                                    device=device)}
 
@@ -223,6 +231,13 @@ def _nbytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_nbytes(v) for v in tree.values())
     return tree.numel() * tree.element_size()
+
+
+def cache_bytes(cfg: ModelConfig, batch: int, max_len: int, *,
+                ring: bool = True) -> int:
+    """Bytes of a lockstep cache (:func:`init_cache`), at any size."""
+    return _nbytes(init_cache(cfg, batch, max_len, ring=ring,
+                              device="meta"))
 
 
 def slot_pool_bytes(cfg: ModelConfig, slots: int, max_len: int) -> int:

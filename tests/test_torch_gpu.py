@@ -1,8 +1,9 @@
 """The port's two-pass and three-pass softmax, cross-entropy, fused LM-head
 cross-entropy, flash-attention and decode-attention CUDA kernels against
-their plain versions on the card.  Every test here needs a CUDA device
-and skips without one; the file imports no JAX, so it runs on a machine
-with a card:
+their plain versions on the card, and an SWA ring's decode step with
+the kernels against the same step without them.  Every test here needs a
+CUDA device and skips without one; the file imports no JAX, so it runs on
+a machine with a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
@@ -654,6 +655,49 @@ def test_decode_long_slot_folds_128_tiles(cuda, dtype):
                                             ps=128, pmax=128,
                                             lengths=[16384])
     _check_decode(q, kp, vp, table, lens, dtype, ppt=1)
+
+
+# the SWA serving shapes: h2o-danube-3-4b (G 4, D 120, window 4096) and
+# stablelm-12b (G 4, D 160); lengths past the window leave whole tiles
+# outside it
+SWA_LENGTHS = [0, 1, 4096, 4097, 7000]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,window", [(120, 4096), (120, None),
+                                      (160, 4096), (160, None)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernels_at_the_swa_shapes(cuda, dtype, d, window):
+    q, kp, vp, table, lens = _decode_inputs(cuda, dtype, d, 4, hkv=8,
+                                            ps=128, pmax=55,
+                                            lengths=SWA_LENGTHS)
+    _check_decode(q, kp, vp, table, lens, dtype, window=window)
+
+
+@pytest.mark.gpu
+def test_ring_decode_step_kernels_match_plain(cuda):
+    from repro_torch.models import build_model
+
+    toks = torch.randint(0, 256, (2, 21), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    logits = {}
+    for use_kernels in (False, True):
+        m = build_model("h2o-danube-3-4b", reduced=True,
+                        use_kernels=use_kernels)
+        params = m.init(seed=0)
+        cache = m.init_cache(2, 32)
+        assert cache["k"].shape[2] == m.cfg.swa_window
+        tk.reset_launch_counts()
+        out = []
+        for t in range(toks.shape[1]):
+            lg, cache = m.decode_step(params, cache, toks[:, t], t)
+            out.append(lg)
+        logits[use_kernels] = torch.stack(out)
+        launched = tk.launch_counts()["twopass_softmax_2d"]
+        assert launched == use_kernels * m.cfg.n_layers * toks.shape[1]
+    # float32: only the order of the softmax sums differs
+    torch.testing.assert_close(logits[True], logits[False], atol=1e-4,
+                               rtol=0)
 
 
 @pytest.mark.gpu
