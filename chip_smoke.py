@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--layers N] [--train-only | --swa-only]
+    python3 chip_smoke.py [--layers N] [--only {train,swa}]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -1570,6 +1570,41 @@ SWA_KERNELS = ("twopass_softmax_2d", "decode_attention_paged",
                "decode_attention")
 
 
+def softmax_rows_check(torch, rows, key, x, case, **info) -> None:
+    """Kernel 1 on the score rows ``x`` [r, c] (float32, -inf where the
+    path masks) against its plain version, at the kernel phase's
+    tolerance, with -inf columns exactly 0; timed into
+    ``rows["twopass_softmax_2d"][key]``."""
+    from repro_torch.kernels import twopass_softmax as tp
+
+    r, c = x.shape
+    y = tp.twopass_softmax_2d(x)
+    torch.cuda.synchronize()
+    plain = tp.twopass_softmax_2d_plain(x)
+    a, rel = err(y, plain)
+    check(torch.allclose(y, plain, atol=5e-6, rtol=1e-5),
+          f"twopass_softmax_2d {case}: max abs err {a}")
+    one = torch.isfinite(x).sum(1) == 1
+    check(not bool(y.masked_select(torch.isinf(x)).any())
+          and bool((y[one].amax(1) == 1).all()),
+          f"twopass_softmax_2d {case}: -inf columns not exact 0, or a row "
+          "of one finite column not exact 1")
+    say("kernel_check", kernel="twopass_softmax_2d", shape=[r, c],
+        case=case, path=tp.path_for(c), max_abs_err=a, max_rel_err=rel,
+        tol="atol 5e-6 rtol 1e-5, as the kernel phase; -inf columns "
+            "exact 0", rows_of_one_column=int(one.sum()), **info)
+    del y, plain, one
+    row = rows["twopass_softmax_2d"][key] = dict(
+        **timed(torch, lambda: tp.twopass_softmax_2d(x),
+                lambda: tp.twopass_softmax_2d_plain(x),
+                lambda: torch.softmax(x, -1)),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(2 * r * c * 4, SOFTMAX_OPS * r * c))),
+        max_abs_err=a, shape=[r, c], path=tp.path_for(c))
+    say("kernel_time", kernel="twopass_softmax_2d", case=key,
+        bound_us=row["bound_ms"] * 1e3, **row)
+
+
 def swa_kernel_checks(torch, rng, rows) -> None:
     """Kernels 1, 3 and 4 at this phase's shapes: decode at G 4 with D 120
     under the 4096 window and D 160 without one (8 slots, 1,000-7,000
@@ -1578,7 +1613,6 @@ def swa_kernel_checks(torch, rng, rows) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import twopass_softmax as tp
 
     dev, bf = "cuda", torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SWA_SEED)
@@ -1652,39 +1686,26 @@ def swa_kernel_checks(torch, rng, rows) -> None:
     valid[0], valid[-1] = 1, c
     x.masked_fill_(torch.arange(c, device=dev)[None, :] >= valid[:, None],
                    -torch.inf)
-    y = tp.twopass_softmax_2d(x)
-    torch.cuda.synchronize()
-    plain = tp.twopass_softmax_2d_plain(x)
-    a, rel = err(y, plain)
-    check(torch.allclose(y, plain, atol=5e-6, rtol=1e-5),
-          f"twopass_softmax_2d ring rows: max abs err {a}")
-    check(not bool(y.masked_select(torch.isinf(x)).any())
-          and float(y[0, 0]) == 1.0, "ring rows: -inf slots not exact 0")
-    say("kernel_check", kernel="twopass_softmax_2d", shape=[r, c],
-        case="ring_rows_partly_filled", path=tp.path_for(c),
-        valid_min=int(valid.min()), max_abs_err=a, max_rel_err=rel,
-        tol="atol 5e-6 rtol 1e-5, as the kernel phase; -inf slots exact 0")
-    rows["twopass_softmax_2d"]["ring_rows_4096"] = dict(
-        **timed(torch, lambda: tp.twopass_softmax_2d(x),
-                lambda: tp.twopass_softmax_2d_plain(x),
-                lambda: torch.softmax(x, -1)),
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(2 * r * c * 4, SOFTMAX_OPS * r * c))),
-        max_abs_err=a, shape=[r, c], path=tp.path_for(c))
-    del x, y, plain
-    for name in SWA_KERNELS:
+    softmax_rows_check(torch, rows, "ring_rows_4096", x,
+                       "ring_rows_partly_filled",
+                       valid_min=int(valid.min()))
+    for name in SWA_KERNELS[1:]:
         for case, row in rows[name].items():
-            if case.startswith(("g4_", "ring_")):
+            if case.startswith("g4_"):
                 say("kernel_time", kernel=name, case=case,
                     bound_us=row["bound_ms"] * 1e3, **row)
 
 
-def serve_model(torch, arch, rng, n_req, lo, hi, max_len):
+def serve_model(torch, rows, arch, rng, n_req, lo, hi, max_len):
     """One model at full width and depth with seeded bf16 weights, through
     ``serving_engine``: greedy on the paged pool (the main path), the strip
     pool (the same tokens) and a ``temperature=0.8`` run whose sampler
-    launches the two-pass kernel.  Returns the model, its weights and the
-    main path's launches (the strip run's for kernel 4)."""
+    launches the two-pass kernel.  Kernel 1 is held against its plain
+    version on the rows this model gives it (:func:`swa_softmax_rows`), and
+    the prefill logits of its shortest, median and longest prompts with
+    kernels against those without (:func:`swa_prefill_parity`).  Returns
+    the model, its weights and the main path's launches (the strip run's
+    for kernel 4)."""
     from repro_torch.kernels import twopass_softmax as tp
     from repro_torch.models import build_model
     from repro_torch.serving.scheduler import Request
@@ -1702,6 +1723,8 @@ def serve_model(torch, arch, rng, n_req, lo, hi, max_len):
     plens = rng.integers(lo, hi, n_req)
     prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab, n))
                for n in plens]
+
+    swa_softmax_rows(torch, rows, cfg, int(plens.max()), n_req)
 
     def reqs(new=NEW_TOKENS, cut=None):
         return [Request(rid=i, prompt=p[:cut], max_new_tokens=new)
@@ -1735,7 +1758,74 @@ def serve_model(torch, arch, rng, n_req, lo, hi, max_len):
           f"{arch}: sampler softmax kernel not launched: {c}")
     say("engine", arch=arch, path="paged, use_kernels=True, "
         "temperature=0.8", sampler_path=tp.path_for(cfg.vocab), **st3)
+    order = np.argsort(plens, kind="stable")
+    swa_prefill_parity(torch, m, params, [
+        prompts[i] for i in (order[0], order[len(order) // 2], order[-1])],
+        max_len)
     return m, params, launches
+
+
+def swa_softmax_rows(torch, rows, cfg, s_max, n_req) -> None:
+    """Kernel 1 on the two kinds of rows a served model gives it, at its
+    own shapes: the prefill scores of its longest prompt, [G * S, S] for one
+    KV head's G query heads, with the path's causal mask and window; and
+    the sampler's [n_req, vocab] rows at temperature 0.8."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SWA_SEED)
+    g, w = cfg.n_heads // cfg.n_kv_heads, cfg.swa_window
+    pos = torch.arange(s_max, device=dev)
+    dead = pos[None, :] > pos[:, None]
+    if w is not None:
+        dead |= pos[None, :] <= pos[:, None] - w
+    x = (torch.randn((g, s_max, s_max), device=dev, generator=gen) * 8
+         ).masked_fill_(dead, -torch.inf).reshape(g * s_max, s_max)
+    del dead
+    softmax_rows_check(torch, rows, f"swa_{cfg.name}_prefill_rows", x,
+                       f"{cfg.name} prefill score rows, causal, window {w}",
+                       prompt_len=s_max, heads=g)
+    del x
+    x = torch.randn((n_req, cfg.vocab), device=dev, generator=gen) * 8 / 0.8
+    softmax_rows_check(torch, rows, f"swa_{cfg.name}_sampler_rows", x,
+                       f"{cfg.name} sampler rows, temperature 0.8")
+    del x
+    torch.cuda.empty_cache()
+
+
+def swa_prefill_parity(torch, m, params, prompts, max_len) -> None:
+    """``Model.prefill`` logits of ``prompts`` with kernels against the same
+    model built with ``use_kernels=False``, within LOGIT_TOL of the largest
+    logit, as the engine phase holds them; the plain run launches
+    nothing."""
+    import repro_torch.kernels as K
+    from repro_torch.models import Model
+
+    v = m.cfg.vocab
+
+    def logits(model):
+        out = []
+        for p in prompts:
+            lg, cache = model.prefill(
+                params, torch.tensor([p], device="cuda"), max_len=max_len)
+            out.append(lg[:, :v].float())
+            del cache
+            torch.cuda.empty_cache()
+        return torch.cat(out)
+
+    got = logits(m)
+    plain = Model(dataclasses.replace(m.cfg, use_kernels=False), m.device)
+    K.reset_launch_counts()
+    want = logits(plain)
+    check(sum(K.launch_counts().values()) == 0,
+          f"{m.cfg.name}: use_kernels=False launched a kernel")
+    worst = float(((got - want).abs().amax(1)
+                   / want.abs().amax(1)).max())
+    check(worst <= LOGIT_TOL,
+          f"{m.cfg.name}: prefill logits kernels vs plain: {worst}")
+    say("parity", arch=m.cfg.name, check="prefill logits, use_kernels="
+        "True vs False", prompt_lens=[len(p) for p in prompts],
+        prefill_logits_max_err_over_max_logit=worst,
+        argmax_equal=int((got.argmax(1) == want.argmax(1)).sum()),
+        tol=f"{LOGIT_TOL} of the largest logit, as the engine phase")
 
 
 def ring_vs_full(torch, model, params, toks):
@@ -1776,9 +1866,12 @@ def ring_wrap_check(torch, m, params, rng) -> int:
     weights, widened): ``ring_vs_full`` over WRAP_STEPS steps past the
     wrap.  The ring's scores come in slot order, so its logits are only
     close: within LOGIT_TOL of the largest in bf16, F32_LOGIT_TOL in
-    float32.  Greedy tokens are ``==`` in float32; in bf16 the logits are
-    rounded to a step of up to 2^-5 near the largest, and the count that
-    agrees is reported.  Returns the ring steps' two-pass launches."""
+    float32.  Greedy tokens are ``==`` at every compared step in float32.
+    In bf16 they are ``==`` at every step whose full-cache top-2 margin
+    exceeds twice the largest logit error measured in that run (the steps
+    where that error could swap the two are counted and their margins
+    printed), and the count that agrees over all steps is reported.
+    Returns the ring steps' two-pass launches."""
     from repro_torch.models import Model
     from repro_torch.models.transformer import torch_dtype
 
@@ -1800,18 +1893,29 @@ def ring_wrap_check(torch, m, params, rng) -> int:
         model = Model(dataclasses.replace(cfg, dtype=dtype), m.device)
         got, want, n_l, ring_s = ring_vs_full(torch, model, p4, toks)
         launched += n_l
-        worst = float((got - want).abs().max() / want.abs().max())
+        abs_err = float((got - want).abs().max())
+        worst = abs_err / float(want.abs().max())
         same = got.argmax(-1) == want.argmax(-1)
+        top2 = want.topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]             # [steps, batch]
+        decided = margin > 2 * abs_err
         say("swa_ring_wrap", arch=cfg.name, dtype=dtype,
             n_layers=WRAP_LAYERS, full_depth=m.cfg.n_layers,
             batch=WRAP_BATCH, ring_slots=cfg.swa_window, steps=n,
             steps_compared=WRAP_STEPS, ring_ms_per_step=ring_s / n * 1e3,
             twopass_launches=n_l, tokens_equal=int(same.sum()),
             tokens_compared=same.numel(),
-            logits_max_err_over_max_logit=worst,
+            logits_max_err_over_max_logit=worst, logits_max_abs_err=abs_err,
             tol=f"{tol} of the largest logit: the ring's sums in slot "
-                "order, the full cache's prompt prefilled in one pass")
+                "order, the full cache's prompt prefilled in one pass",
+            top2_margin=margin.tolist(),
+            tokens_decided=int(decided.sum()),
+            tokens_left_out=int((~decided).sum()),
+            margins_left_out=margin[~decided].tolist(),
+            margins_of_unequal=margin[~same].tolist())
         check(worst <= tol, f"ring logits vs full cache, {dtype}: {worst}")
+        check(bool(same[decided].all()), f"ring greedy tokens != full-cache "
+              f"tokens, {dtype}, at a top-2 margin above 2 x {abs_err}")
         del got, want, p4
     check(bool(same.all()), "float32 ring greedy tokens != full-cache "
           "tokens")
@@ -1862,8 +1966,8 @@ def swa_phase(torch, rows) -> dict:
     """Phase 7; returns its main paths' launches of kernels 1, 3 and 4."""
     rng = np.random.default_rng(SWA_SEED)
     swa_kernel_checks(torch, rng, rows)
-    m, params, launches = serve_model(torch, SWA_ARCH, rng, *SWA_PROMPTS,
-                                      SWA_MAX_LEN)
+    m, params, launches = serve_model(torch, rows, SWA_ARCH, rng,
+                                      *SWA_PROMPTS, SWA_MAX_LEN)
     launches["twopass_softmax_2d"] += ring_wrap_check(torch, m, params, rng)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1871,8 +1975,8 @@ def swa_phase(torch, rows) -> dict:
     del m, params
     gc.collect()
     torch.cuda.empty_cache()
-    m, params, more = serve_model(torch, D160_ARCH, rng, *D160_PROMPTS,
-                                  MAX_LEN)
+    m, params, more = serve_model(torch, rows, D160_ARCH, rng,
+                                  *D160_PROMPTS, MAX_LEN)
     del m, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2264,11 +2368,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=48,
                     help="decoder depth of the engine phase (full: 48)")
-    ap.add_argument("--train-only", action="store_true",
-                    help="run the train phase alone (to compare the train "
+    ap.add_argument("--only", choices=("train", "swa"),
+                    help="run one phase alone (train: to compare the train "
                     "step of two trees on one card); no kernels or ok line")
-    ap.add_argument("--swa-only", action="store_true",
-                    help="run the swa phase alone; no kernels or ok line")
     args = ap.parse_args()
 
     import torch
@@ -2292,8 +2394,8 @@ def main() -> int:
     print(_build.ptxas_report(), flush=True)
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul on")
 
-    if args.train_only or args.swa_only:
-        if args.train_only:
+    if args.only:
+        if args.only == "train":
             train_phase(torch)
         else:
             swa_phase(torch, {"twopass_softmax_2d": {}})

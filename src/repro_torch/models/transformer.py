@@ -24,10 +24,6 @@ def torch_dtype(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    check_dense(cfg, "the model")
-
-
 def layer(tree, i: int):
     """Layer ``i`` of a stacked-layer tree (views, no copies)."""
     if isinstance(tree, dict):
@@ -72,7 +68,7 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     dtype (bf16) halves the weights' memory with identical results, since
     every use casts to the activation dtype.  On the ``meta`` device the
     tree has shapes and dtypes only."""
-    _check_family(cfg)
+    check_dense(cfg, "the model")
     dt = dtype or torch_dtype(cfg.param_dtype)
     if torch.device(device).type == "meta":
         gen = layers.MetaDraws()
@@ -120,7 +116,7 @@ def _scan_blocks(p_blocks, x, cos, sin, *, cfg: ModelConfig):
 
 def forward(params: Params, tokens, *, cfg: ModelConfig):
     """Token forward to final hidden states [B, S, d] (no cache)."""
-    _check_family(cfg)
+    check_dense(cfg, "the model")
     b, s = tokens.shape
     x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     cos, sin = _cos_sin(cfg, _positions_for(cfg, b, s, device=x.device))
@@ -198,7 +194,7 @@ def train_loss(params: Params, batch: dict, *, cfg: ModelConfig,
     """Next-token CE of a dense LM on ``batch["tokens"]`` ([B, S]); an
     optional ``batch["mask"]`` weights the label positions.  ``policy``
     overrides the config's SoftmaxPolicy for the loss."""
-    _check_family(cfg)
+    check_dense(cfg, "the model")
     tokens = batch["tokens"]
     h = forward(params, tokens[:, :-1], cfg=cfg)
     return lm_loss_from_hidden(params, h, tokens[:, 1:], cfg=cfg,

@@ -34,17 +34,13 @@ def cache_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch_dtype(cfg.dtype)
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    check_dense(cfg, "its cache")
-
-
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                ring: bool = True, device="cuda") -> dict:
     """Stacked-layer lockstep cache ``{"k", "v"}: [L, B, T, Hkv, hd]``.
     ``T`` is ``max_len``, or ``min(max_len, swa_window)`` for an SWA config
     with ``ring`` (the ring that ``engine.decode_step`` addresses mod
     ``T``); prefill paths pass ``ring=False`` for position addressing."""
-    _check_dense(cfg)
+    check_dense(cfg, "its cache")
     alloc = max_len
     if ring and cfg.swa_window is not None:
         alloc = min(max_len, cfg.swa_window)
@@ -114,7 +110,7 @@ def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
     int32[slots, pages_per_slot], "lengths": int32[slots]}``.  ``pages``
     defaults to full provisioning (``1 + slots * pages_per_slot``, page 0
     the trash page); fewer oversubscribe the arena."""
-    _check_dense(cfg)
+    check_dense(cfg, "its cache")
     ps = resolve_page_size(cfg, max_len, page_size)
     n_tab = pages_per_slot(max_len, ps)
     if pages is None:
