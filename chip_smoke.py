@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--layers N] [--only {train,swa}]
+    python3 chip_smoke.py [--layers N] [--only {train,swa,engine}]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -41,12 +41,20 @@ Phases (any failure exits non-zero; nothing is caught):
 3. engine: qwen2.5-14b at full width (d_model 5120, 40/8 heads, d_ff
    13824, vocab 152064, bf16, seeded random weights) serving 12 requests
    through ``ContinuousBatchingEngine(paged=True, use_kernels=True,
-   temperature=0)`` on 8 slots; launch counts are zeroed just before and
-   read just after;
+   temperature=0)`` on 8 slots, the decode step captured in a CUDA graph
+   when the engine is built and replayed (the main path); launch counts
+   are zeroed just before the run and read just after; each pool is served
+   again with the eager step (``fused=False``): the same tokens and the
+   same launches, the graph's launches a replay, decode ms a step, tok/s,
+   peak memory, the capture's seconds and its graph pool side by side
+   (``engine_fused``), the device's idle share of a short traced run each
+   way (``idle_share``) and of one decode burst alone, with the device's
+   time a step by kernel group (``decode_trace``);
 4. parity: the strip pool (``paged=False``) gives the same tokens; the
    plain forms (``use_kernels=False``) give prefill logits within a stated
    bf16 tolerance; a short ``temperature=0.8`` run drives the sampler's
-   softmax kernel;
+   softmax kernel in every replay of the graph, as many launches as the
+   eager step's;
 5. three-pass baselines: the same 12 requests under
    ``softmax_algorithm="three_pass_recompute"`` and ``"three_pass_reload"``
    launch their own kernel for every prefill layer and no two-pass one;
@@ -62,8 +70,10 @@ Phases (any failure exits non-zero; nothing is caught):
    rows [4096, 4096], against their plain versions; h2o-danube-3-4b (24
    layers, window 4096) serving 8 requests of 4,500-7,000 prompt tokens
    and stablelm-12b (40 layers, head dim 160, vocab 100352) serving 4 of
-   300-1,500, each through ``Model.serving_engine`` paged (the main path),
-   strip (the same tokens) and at ``temperature=0.8`` (the sampler's
+   300-1,500, each through ``Model.serving_engine`` paged (the main path,
+   the decode step a CUDA graph), paged with the eager step (the same
+   tokens and launches), strip (the same tokens) and at
+   ``temperature=0.8`` (the sampler's
    kernel on rows past 8192 columns); h2o's ring (``Model.init_cache``,
    ``Model.decode_step``) stepped 4,160 times from position 0 at 4 of its
    24 layers against a position-addressed cache prefilled with the first
@@ -468,11 +478,18 @@ def xent_phase(torch, held, softmax_tol, rows) -> None:
             dtype=str(dt), **r_d)
         case = "lm_head_f32" if dt == torch.float32 else "lm_head_bf16"
         nb = t * v * x.element_size()
+        xr = x.detach().clone().requires_grad_(True)
+        lib_fwd = cuda_ms(torch, lambda: F.cross_entropy(
+            x, lab, reduction="none"))
+        # F.cross_entropy's backward, timed as its forward + backward less
+        # its forward (as the flash backward's library time)
+        dlr = dl.to(dt)
+        lib_both = cuda_ms(torch, lambda: torch.autograd.grad(
+            F.cross_entropy(xr, lab, reduction="none"), xr, dlr))
         rows.setdefault("xent_fwd_2d", {})[case] = dict(
             ms=cuda_ms(torch, lambda: xe.xent_fwd_2d(x, lab)),
             plain_ms=cuda_ms(torch, lambda: xe.xent_fwd_2d_plain(x, lab), 5),
-            library_ms=cuda_ms(torch, lambda: F.cross_entropy(
-                x, lab, reduction="none")),
+            library_ms=lib_fwd,
             **dict(zip(("bound_ms", "bound_by"),
                        bound(nb + 4 * t + 12 * t, STATS_OPS * t * v))),
             max_abs_err=r_l["max_abs_err"], shape=[t, v])
@@ -480,11 +497,11 @@ def xent_phase(torch, held, softmax_tol, rows) -> None:
             ms=cuda_ms(torch, lambda: xe.xent_bwd_2d(x, lab, m, n, dl)),
             plain_ms=cuda_ms(torch, lambda: xe.xent_bwd_2d_plain(
                 x, lab, m, n, dl), 5),
-            library_ms=None,       # no one PyTorch call gives dlogits
+            library_ms=lib_both - lib_fwd,
             **dict(zip(("bound_ms", "bound_by"),
                        bound(2 * nb + 16 * t, XENT_BWD_OPS * t * v))),
             max_abs_err=r_d["max_abs_err"], shape=[t, v])
-        del x, loss, m, n, pl, pm, pn, dx
+        del x, xr, loss, m, n, pl, pm, pn, dx
 
 
 # ---------------------------------------------------------------------------
@@ -1348,13 +1365,18 @@ def kernel_phase(torch, rng):
 # ---------------------------------------------------------------------------
 def serve_requests(torch, model, params, reqs, **kw):
     """Serve ``reqs`` through ``model.serving_engine(params, **kw)``, with
-    the launch counts zeroed just before the run and read just after.
+    the launch counts zeroed just before the run (after the engine, and so
+    its graph's warm-up and capture, is built) and read just after.
     Returns (tokens a request, the engine's throughput with the wall time,
-    launches, ms a decode step and the peak bytes)."""
+    launches, ms a decode step, the capture's seconds, graph pool bytes and
+    launches a replay when fused, and the peak bytes allocated and
+    reserved since before the engine was built)."""
     import repro_torch.kernels as K
 
-    eng = model.serving_engine(params, **kw)
+    gc.collect()
+    torch.cuda.empty_cache()             # peaks from this run's state alone
     torch.cuda.reset_peak_memory_stats()
+    eng = model.serving_engine(params, **kw)
     K.reset_launch_counts()
     t = time.perf_counter()
     comps = eng.run(reqs)
@@ -1365,8 +1387,10 @@ def serve_requests(torch, model, params, reqs, **kw):
     out = dict(eng.throughput(), wall_s=wall, launches=counts,
                decode_ms_per_step=(eng.stats["decode_s"]
                                    / max(1, eng.stats["steps"]) * 1e3),
-               peak_bytes=torch.cuda.max_memory_allocated())
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               peak_reserved_bytes=torch.cuda.max_memory_reserved())
     del eng
+    gc.collect()
     torch.cuda.empty_cache()
     return toks, out
 
@@ -1401,25 +1425,52 @@ def engine_phase(torch, rng, n_layers: int):
         return serve_requests(torch, model, params, reqs(), slots=N_SLOTS,
                               max_len=MAX_LEN, seed=3, **kw)
 
-    # main path: paged pool, kernels on, greedy
-    toks_paged, st = serve(m, paged=True, temperature=0.0)
-    say("engine", path="paged, use_kernels=True, temperature=0",
-        prompt_lens=plens.tolist(), **st)
-    check(all(len(t) == NEW_TOKENS for t in toks_paged), "token counts")
-    check(st["launches"]["twopass_softmax_2d"] > 0,
-          "softmax kernel not launched on the main path")
-    check(st["launches"]["decode_attention_paged"] > 0,
-          "paged decode kernel not launched on the main path")
-    check(st["admitted"] == N_REQ and N_REQ > N_SLOTS, "backfill")
-    launches = dict(st["launches"])
-
-    toks_strip, st2 = serve(m, paged=False, temperature=0.0)
-    say("engine", path="strip, use_kernels=True, temperature=0", **st2)
-    check(st2["launches"]["decode_attention"] > 0,
-          "strip decode kernel not launched")
+    # main path: paged pool, kernels on, greedy, the decode step captured
+    # in a CUDA graph; each pool again with the eager step (fused=False),
+    # the graph's oracle: the same tokens and the same launches
+    runs = {}
+    for pool, paged, kname in (("paged", True, "decode_attention_paged"),
+                               ("strip", False, "decode_attention")):
+        for fused in (True, False):
+            step = "graph" if fused else "eager"
+            toks, st = serve(m, paged=paged, temperature=0.0, fused=fused)
+            say("engine", path=f"{pool}, use_kernels=True, temperature=0, "
+                f"{step} step", prompt_lens=plens.tolist(), **st)
+            check(st["fused"] is fused, f"{pool}: fused is {st['fused']}")
+            check(all(len(t) == NEW_TOKENS for t in toks),
+                  f"{pool}, {step}: token counts")
+            check(st["launches"]["twopass_softmax_2d"] > 0
+                  and st["launches"][kname] > 0,
+                  f"{pool}, {step}: kernels not launched: {st['launches']}")
+            check(st["admitted"] == N_REQ and N_REQ > N_SLOTS, "backfill")
+            runs[pool, step] = toks, st
+        (tg, sg), (te, se) = runs[pool, "graph"], runs[pool, "eager"]
+        per = sg["launches_per_replay"]
+        check(tg == te, f"{pool}: graph tokens != eager tokens")
+        check(per.get(kname) == cfg.n_layers and sg["replays"] == sg["steps"]
+              and sg["launches"] == se["launches"],
+              f"{pool}: graph launches {sg['launches']} ({per} a replay, "
+              f"{sg['replays']} replays) != eager {se['launches']}")
+        say("parity", check=f"{pool}: graph == eager tokens and launches",
+            equal=True, launches_per_replay=per, replays=sg["replays"])
+    toks_paged, st = runs["paged", "graph"]
+    toks_strip, st2 = runs["strip", "graph"]
     check(toks_strip == toks_paged, "strip tokens != paged tokens")
     say("parity", check="strip == paged tokens", equal=True)
+    launches = dict(st["launches"])
     launches["decode_attention"] = st2["launches"]["decode_attention"]
+    keys = ("decode_ms_per_step", "decode_tok_s", "prefill_tok_s",
+            "peak_bytes", "peak_reserved_bytes", "steps")
+    say("engine_fused", n_layers=cfg.n_layers, **{
+        pool: dict(graph={k: runs[pool, "graph"][1][k] for k in keys},
+                   eager={k: runs[pool, "eager"][1][k] for k in keys},
+                   capture_s=runs[pool, "graph"][1]["capture_s"],
+                   graph_pool_bytes=runs[pool, "graph"][1][
+                       "graph_pool_bytes"],
+                   eager_over_graph_ms=(
+                       runs[pool, "eager"][1]["decode_ms_per_step"]
+                       / runs[pool, "graph"][1]["decode_ms_per_step"]))
+        for pool in ("paged", "strip")})
 
     def prefill_logits(c):
         out = []
@@ -1452,23 +1503,39 @@ def engine_phase(torch, rng, n_layers: int):
 
     def sampled(model, kname):
         """temperature 0.8 drives the algorithm's kernel over the vocab:
-        more launches than the prefills' and no other softmax kernel's."""
-        eng = ContinuousBatchingEngine(model, params, slots=N_SLOTS,
-                                       max_len=MAX_LEN, temperature=0.8,
-                                       seed=5)
-        K.reset_launch_counts()
-        comps = eng.run([Request(rid=i, prompt=prompts[i][:200],
-                                 max_new_tokens=4) for i in range(N_SLOTS)])
-        torch.cuda.synchronize()
-        c = K.launch_counts()
-        check(all(len(x.tokens) == 4 for x in comps), "sampled token counts")
-        check(all(0 <= t < cfg.vocab for x in comps for t in x.tokens),
-              "sampled token range")
-        check(c[kname] > N_SLOTS * cfg.n_layers
-              and all(c[k] == 0 for k in SOFTMAX_KERNELS if k != kname),
-              f"{kname}: sampler softmax kernel not launched: {c}")
-        say("engine", path=f"paged, {model.cfg.softmax_algorithm}, "
-            "use_kernels=True, temperature=0.8", launches=c)
+        more launches than the prefills' and no other softmax kernel's,
+        one in every replay of the graph, as many as the eager step's."""
+        counts = {}
+        for fused in (True, False):
+            eng = ContinuousBatchingEngine(model, params, slots=N_SLOTS,
+                                           max_len=MAX_LEN, temperature=0.8,
+                                           seed=5, fused=fused)
+            K.reset_launch_counts()
+            comps = eng.run([Request(rid=i, prompt=prompts[i][:200],
+                                     max_new_tokens=4)
+                             for i in range(N_SLOTS)])
+            torch.cuda.synchronize()
+            c = counts[fused] = K.launch_counts()
+            check(all(len(x.tokens) == 4 for x in comps),
+                  "sampled token counts")
+            check(all(0 <= t < cfg.vocab for x in comps for t in x.tokens),
+                  "sampled token range")
+            check(c[kname] > N_SLOTS * cfg.n_layers
+                  and all(c[k] == 0 for k in SOFTMAX_KERNELS if k != kname),
+                  f"{kname}: sampler softmax kernel not launched: {c}")
+            info = eng.throughput()
+            per = info.get("launches_per_replay")
+            check(not fused or (per.get(kname) == 1
+                                and info["replays"] == info["steps"]),
+                  f"{kname}: not in every replay: {per}")
+            say("engine", path=f"paged, {model.cfg.softmax_algorithm}, "
+                f"use_kernels=True, temperature=0.8, "
+                f"{'graph' if fused else 'eager'} step", launches=c,
+                launches_per_replay=per, steps=info["steps"])
+            del eng
+        check(counts[True] == counts[False],
+              f"{kname}: graph launches {counts[True]} != eager "
+              f"{counts[False]}")
 
     sampled(m, "twopass_softmax_2d")
 
@@ -1507,7 +1574,11 @@ def engine_phase(torch, rng, n_layers: int):
         sampled(m3, kname)
         del m3
 
-    idle = idle_share(torch, m, params, prompts)
+    idle = {step: idle_share(torch, m, params, prompts, fused=fused)
+            for step, fused in (("graph", True), ("eager", False))}
+    say("idle_share", **{k: v or "not measured" for k, v in idle.items()})
+    for fused in (True, False):
+        decode_trace(torch, m, params, prompts, fused=fused)
     launches.update(xent_path(torch, m, params, prompts[0]))
     return launches, idle
 
@@ -1698,12 +1769,14 @@ def swa_kernel_checks(torch, rng, rows) -> None:
 
 def serve_model(torch, rows, arch, rng, n_req, lo, hi, max_len):
     """One model at full width and depth with seeded bf16 weights, through
-    ``serving_engine``: greedy on the paged pool (the main path), the strip
-    pool (the same tokens) and a ``temperature=0.8`` run whose sampler
-    launches the two-pass kernel.  Kernel 1 is held against its plain
-    version on the rows this model gives it (:func:`swa_softmax_rows`), and
-    the prefill logits of its shortest, median and longest prompts with
-    kernels against those without (:func:`swa_prefill_parity`).  Returns
+    ``serving_engine``: greedy on the paged pool (the main path, the decode
+    step a CUDA graph), the same with the eager step (the same tokens and
+    launches), the strip pool (the same tokens) and a ``temperature=0.8``
+    run whose sampler launches the two-pass kernel.  Kernel 1 is held
+    against its plain version on the rows this model gives it
+    (:func:`swa_softmax_rows`), and the prefill logits of its shortest,
+    median and longest prompts with kernels against those without
+    (:func:`swa_prefill_parity`).  Returns
     the model, its weights and the main path's launches (the strip run's
     for kernel 4)."""
     from repro_torch.kernels import twopass_softmax as tp
@@ -1741,6 +1814,17 @@ def serve_model(torch, rows, arch, rng, n_req, lo, hi, max_len):
           and c["decode_attention_paged"] > 0,
           f"{arch}: kernels not launched on the main path: {c}")
     launches = {k: c[k] for k in SWA_KERNELS}
+    toks_eager, st_e = serve_requests(torch, m, params, reqs(), paged=True,
+                                      temperature=0.0, fused=False, **kw)
+    say("engine", arch=arch, path="paged, use_kernels=True, temperature=0, "
+        "eager step", **st_e)
+    check(st["fused"] and not st_e["fused"], f"{arch}: fused flags")
+    check(toks_eager == toks and st_e["launches"] == st["launches"],
+          f"{arch}: graph tokens or launches != the eager step's")
+    say("parity", arch=arch, check="paged: graph == eager tokens and "
+        "launches", equal=True, launches_per_replay=st["launches_per_replay"],
+        graph_ms_per_step=st["decode_ms_per_step"],
+        eager_ms_per_step=st_e["decode_ms_per_step"])
     toks_strip, st2 = serve_requests(torch, m, params, reqs(), paged=False,
                                      temperature=0.0, **kw)
     say("engine", arch=arch, path="strip, use_kernels=True, temperature=0",
@@ -2290,15 +2374,17 @@ def train_cli_phase(torch) -> None:
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
 
-def idle_share(torch, m, params, prompts):
-    """Device busy time over wall time for a short traced serving run."""
+def idle_share(torch, m, params, prompts, *, fused: bool):
+    """Device busy time over wall time for a short traced serving run, the
+    decode step a CUDA graph or eager (its capture before the trace)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.scheduler import ContinuousBatchingEngine
     from repro_torch.serving.scheduler import Request
 
     eng = ContinuousBatchingEngine(m, params, slots=N_SLOTS,
-                                   max_len=MAX_LEN, temperature=0.0)
+                                   max_len=MAX_LEN, temperature=0.0,
+                                   fused=fused)
     reqs = [Request(rid=i, prompt=prompts[i][:256], max_new_tokens=8)
             for i in range(N_SLOTS)]
     with profile(activities=[ProfilerActivity.CPU,
@@ -2313,7 +2399,75 @@ def idle_share(torch, m, params, prompts):
     if busy <= 0:
         return None
     return dict(wall_s=wall, device_busy_s=busy,
-                idle_share=max(0.0, 1 - busy / wall))
+                idle_share=max(0.0, 1 - busy / wall),
+                decode_ms_per_step=(eng.stats["decode_s"]
+                                    / max(1, eng.stats["steps"]) * 1e3))
+
+
+KERNEL_GROUPS = (("decode attention", ("decode_tile", "decode_combine")),
+                 ("softmax", ("regs_kernel", "slots_kernel",
+                              "scale_kernel")),
+                 ("matmul", ("gemm", "gemv", "xmma", "cutlass", "cublas",
+                             "nvjet")))
+
+
+def kernel_group(name: str) -> str:
+    low = name.lower()
+    for group, keys in KERNEL_GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "elementwise and other"
+
+
+def decode_trace(torch, m, params, prompts, *, fused: bool) -> None:
+    """One decode burst alone under the profiler: 8 slots admitted first
+    (their prefills outside the trace), then ``NEW_TOKENS - 1`` steps in
+    one burst.  Prints wall and device ms a step, the device's idle share
+    and its time by kernel group (what paces the step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine
+    from repro_torch.serving.scheduler import Request
+
+    eng = ContinuousBatchingEngine(m, params, slots=N_SLOTS,
+                                   max_len=MAX_LEN, temperature=0.0,
+                                   fused=fused)
+    for i in range(N_SLOTS):
+        eng.submit(Request(rid=i, prompt=prompts[i],
+                           max_new_tokens=NEW_TOKENS))
+    eng._run_start = 0.0
+    eng._admit_arrived(0.0)
+    check(len(eng.active_slots()) == N_SLOTS, "decode trace: admission")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    steps = eng.stats["steps"]
+    groups: dict[str, float] = {}
+    names: dict[str, float] = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            ms = e.self_device_time_total / 1e3
+            g = kernel_group(e.key)
+            groups[g] = groups.get(g, 0.0) + ms
+            names[e.key[:80]] = names.get(e.key[:80], 0.0) + ms
+    busy = sum(groups.values())
+    say("decode_trace", step="graph" if fused else "eager", steps=steps,
+        slot_lengths=[len(p) for p in prompts[:N_SLOTS]],
+        wall_ms_per_step=wall * 1e3 / steps,
+        device_ms_per_step=busy / steps,
+        idle_share=max(0.0, 1 - busy / (wall * 1e3)) if busy else
+        "not measured",
+        device_ms_per_step_by_group={k: v / steps for k, v in sorted(
+            groups.items(), key=lambda kv: -kv[1])},
+        top_kernels_ms_per_step={k: v / steps for k, v in sorted(
+            names.items(), key=lambda kv: -kv[1])[:10]})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -2368,7 +2522,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=48,
                     help="decoder depth of the engine phase (full: 48)")
-    ap.add_argument("--only", choices=("train", "swa"),
+    ap.add_argument("--only", choices=("train", "swa", "engine"),
                     help="run one phase alone (train: to compare the train "
                     "step of two trees on one card); no kernels or ok line")
     args = ap.parse_args()
@@ -2397,6 +2551,9 @@ def main() -> int:
     if args.only:
         if args.only == "train":
             train_phase(torch)
+        elif args.only == "engine":
+            say("engine_done", launches=engine_phase(
+                torch, np.random.default_rng(0), args.layers)[0])
         else:
             swa_phase(torch, {"twopass_softmax_2d": {}})
         print(smi, flush=True)
@@ -2416,7 +2573,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()             # the CLI's process needs the card
     say("engine_done", seconds=time.perf_counter() - t0,
-        idle=idle if idle else "not measured")
+        idle={k: v or "not measured" for k, v in idle.items()})
     t0 = time.perf_counter()
     for name, n in swa_phase(torch, rows).items():
         launches[name] += n

@@ -132,7 +132,13 @@ def sample_token(logits, generator: torch.Generator | None,
                  policy: SoftmaxPolicy | None = None):
     """Greedy (``temperature == 0``) or temperature sampling.  The sampling
     softmax resolves through the policy (the two-pass kernel with
-    ``use_kernels``); draws come from ``generator``."""
+    ``use_kernels``); draws come from ``generator``.
+
+    The draw is the one ``torch.multinomial(probs, 1)`` makes -- the
+    exponential race ``argmax(p / q)``, ``q ~ Exp(1)``, the same numbers
+    from the same generator -- without its check that ``probs`` is a
+    distribution, which reads the result back to the host and so cannot
+    run inside a CUDA graph (the fused decode step)."""
     if policy is None:
         policy = cfg.softmax_policy() if cfg is not None else DEFAULT_POLICY
     v = vocab or logits.shape[-1]
@@ -140,7 +146,8 @@ def sample_token(logits, generator: torch.Generator | None,
     if temperature == 0.0:
         return logits.argmax(dim=-1)
     probs = policy.softmax(logits / temperature, axis=-1)
-    return torch.multinomial(probs, 1, generator=generator)[..., 0]
+    race = torch.empty_like(probs).exponential_(generator=generator)
+    return (probs / race).argmax(dim=-1)
 
 
 def generate_timed(params, prompt, *, cfg: ModelConfig, steps: int,

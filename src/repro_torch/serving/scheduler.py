@@ -24,6 +24,9 @@ batch axis full.  The scheduler:
 
 Host state (who owns which slot and pages, emitted tokens) stays in Python;
 device state (arenas, page table, lengths) is the pool, changed in place.
+The decode step reads its tokens and active mask from static buffers and
+writes the sampled tokens back in place; on the card it is captured once in
+a CUDA graph and replayed (``serving/fused.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving import engine, kv_cache
+from repro_torch.serving.fused import FusedStep, graph_for
 
 
 def _unported(what: str, item: int):
@@ -80,7 +84,20 @@ class ContinuousBatchingEngine:
     """Slot-based continuous batching for one model + parameter set on one
     device.  ``slots`` is given, or derived from ``memory_budget_bytes``
     (strip pool: slots that fit; paged pool: the budget buys pages and the
-    slot count fits ``avg_tokens_hint`` tokens per request)."""
+    slot count fits ``avg_tokens_hint`` tokens per request).
+
+    The decode step -- ``engine.decode_step_ragged`` and ``sample_token``
+    over the static buffers ``_tokens`` / ``_active`` -- is FUSED on the
+    card: captured once in a CUDA graph when the engine is built, before
+    any admission, and replayed ``runahead`` times a burst, greedy and at
+    ``temperature > 0`` alike (the generator is registered with the
+    graph).  The graph keeps what the step read at capture: the
+    temperature and config for the engine's life, and the tensors of
+    :meth:`step_buffers`, which are written in place and checked before
+    each burst.  A capture that fails raises.  ``fused=False`` keeps the
+    step eager on the card: the oracle the graph is held against, as
+    ``jax.disable_jit`` is the reference's.  On the CPU the step is
+    always eager."""
 
     def __init__(self, model, params, *, slots: int | None = None,
                  max_len: int = 256, temperature: float = 1.0,
@@ -91,7 +108,7 @@ class ContinuousBatchingEngine:
                  avg_tokens_hint: int | None = None,
                  prefix_cache: bool | str = "auto", mesh=None,
                  page_dtype: str | None = None,
-                 host_swap_bytes: int | None = None):
+                 host_swap_bytes: int | None = None, fused: bool = True):
         cfg = model.cfg
         if prefix_cache is True:
             raise _unported("prefix_cache=True", 17)
@@ -166,15 +183,42 @@ class ContinuousBatchingEngine:
                           decode_s=0.0, steps=0, admitted=0, preempted=0,
                           peak_pages=0)
 
+        # The decode step's static buffers: written in place each burst,
+        # never rebound (a captured graph reads them).  ``_history`` keeps
+        # a burst's sampled tokens on the device until it ends.
+        dev = self.device
+        self._tokens = torch.zeros((self.n_slots,), dtype=torch.int64,
+                                   device=dev)
+        self._active = torch.zeros((self.n_slots,), dtype=torch.bool,
+                                   device=dev)
+        self._history = torch.zeros((self.max_len, self.n_slots),
+                                    dtype=torch.int64, device=dev)
+        self._fused = None
+        graph = graph_for(dev, self.generator) if fused else None
+        if graph is not None:
+            # every slot is free: the warm-up steps write nothing that a
+            # slot will read
+            self._fused = FusedStep(self._decode, graph, self.step_buffers())
+
     # -- device steps ---------------------------------------------------------
     def _sample(self, logits):
         return engine.sample_token(logits, self.generator, self.temperature,
                                    cfg=self.cfg, vocab=self.cfg.vocab)
 
-    def _step(self, tokens, active):
-        logits, self.pool = engine.decode_step_ragged(
-            self.params, self.pool, tokens, cfg=self.cfg, active=active)
-        return self._sample(logits)
+    def _decode(self) -> None:
+        """One decode step over the static buffers: ``_tokens`` of the
+        ``_active`` slots in, their sampled tokens written back into
+        ``_tokens``."""
+        logits, _ = engine.decode_step_ragged(
+            self.params, self.pool, self._tokens, cfg=self.cfg,
+            active=self._active)
+        self._tokens.copy_(self._sample(logits))
+
+    def step_buffers(self) -> dict:
+        """Every tensor the decode step reads or writes that outlives it:
+        the parameters, the pool and the static step buffers."""
+        return {"params": self.params, "pool": self.pool,
+                "tokens": self._tokens, "active": self._active}
 
     def _row(self, row: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(row).to(self.device)
@@ -445,14 +489,17 @@ class ContinuousBatchingEngine:
                 return bool(self.pending)
         mask = np.zeros((self.n_slots,), bool)
         mask[active] = True
-        mask_dev = torch.from_numpy(mask).to(self.device)
-        toks = torch.from_numpy(self.next_tok).to(self.device)
-        sampled = []
+        self._active.copy_(torch.from_numpy(mask))
+        self._tokens.copy_(torch.from_numpy(self.next_tok))
+        decode = self._decode
+        if self._fused is not None:
+            self._fused.check(self.step_buffers())
+            decode = self._fused
         t0 = time.perf_counter()
-        for _ in range(runahead):
-            toks = self._step(toks, mask_dev)
-            sampled.append(toks)
-        harvested = torch.stack(sampled).cpu().numpy()   # waits once
+        for i in range(runahead):
+            decode()
+            self._history[i].copy_(self._tokens)
+        harvested = self._history[:runahead].cpu().numpy()   # waits once
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_tokens"] += len(active) * runahead
         self.stats["steps"] += runahead
@@ -507,7 +554,10 @@ class ContinuousBatchingEngine:
             slots=self.n_slots, steps=st["steps"], admitted=st["admitted"],
             prefill_tokens=st["prefill_tokens"],
             decode_tokens=st["decode_tokens"], wall_s=wall,
-            paged=self.paged, prefill_shapes=len(self._prefill_shapes))
+            paged=self.paged, prefill_shapes=len(self._prefill_shapes),
+            fused=self._fused is not None)
+        if self._fused is not None:
+            out.update(self._fused.info())
         if self.paged:
             out.update(page_size=self.page_size,
                        pages=self.allocator.usable_pages,

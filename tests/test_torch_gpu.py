@@ -769,3 +769,109 @@ def test_decode_misaligned_rows_take_the_general_body(cuda):
     with pytest.raises(RuntimeError, match="CUDA error"):
         tda.launch_paged("bf16", q, ko, vp, table, lens, None, None, strides,
                          o, tile=128, window=None, scale=0.1)
+
+
+# ---------------------------------------------------------------------------
+# The fused decode step: the engine's step captured in a CUDA graph.
+# ---------------------------------------------------------------------------
+def _fused_model():
+    from repro_torch.models import build_model
+
+    m = build_model("qwen2.5-14b", reduced=True, use_kernels=True)
+    assert m.cfg.n_layers == 2
+    return m, m.init(seed=0)
+
+
+def _fused_requests(vocab, n=5, new=12):
+    from repro_torch.serving.scheduler import Request
+
+    gen = torch.Generator().manual_seed(11)
+    return [Request(rid=i, prompt=tuple(torch.randint(
+        0, vocab, (9 + i,), generator=gen).tolist()), max_new_tokens=new)
+        for i in range(n)]
+
+
+def _serve(m, params, paged, fuse, reqs, **kw):
+    """Tokens, launches and the engine of one run, the counts zeroed after
+    the engine (and so its capture) is built."""
+    eng = m.serving_engine(params, slots=3, max_len=48, page_size=8,
+                           pages=7 if paged else None, paged=paged,
+                           fused=fuse, **kw)
+    tk.reset_launch_counts()
+    comps = eng.run(reqs)
+    torch.cuda.synchronize()
+    return [c.tokens for c in comps], tk.launch_counts(), eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "strip"])
+def test_fused_step_tokens_equal_eager(cuda, paged):
+    m, params = _fused_model()
+    reqs = _fused_requests(m.cfg.vocab)
+    runs = {f: _serve(m, params, paged, f, reqs, temperature=0.0)
+            for f in (True, False)}
+    (toks, counts, eng), (toks_e, counts_e, eng_e) = runs[True], runs[False]
+    assert toks == toks_e
+    assert eng._fused is not None and eng_e._fused is None
+    st = eng.stats
+    assert st["admitted"] > eng.n_slots and st["steps"] == eng_e.stats["steps"]
+    assert (st["preempted"] > 0) is paged
+    kname = "decode_attention_paged" if paged else "decode_attention"
+    assert eng._fused.launches == {kname: m.cfg.n_layers}
+    assert eng._fused.replays == st["steps"]
+    assert counts == counts_e and counts[kname] == m.cfg.n_layers * st["steps"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "strip"])
+def test_graph_captured_before_admission_leaves_the_cache_as_eager(cuda,
+                                                                   paged):
+    m, params = _fused_model()
+    reqs = _fused_requests(m.cfg.vocab, n=4, new=6)
+    pools = {}
+    for fuse in (True, False):
+        _, _, eng = _serve(m, params, paged, fuse, reqs, temperature=0.0)
+        assert eng.stats["admitted"] > eng.n_slots
+        pools[fuse] = eng.pool["kv"]
+    for name in ("k", "v"):
+        got, want = pools[True][name], pools[False][name]
+        if paged:                 # page 0 is the trash page: dead writes
+            got, want = got[:, 1:], want[:, 1:]
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.gpu
+def test_fused_sampling_is_seeded_and_launches_the_softmax_kernel(cuda):
+    m, params = _fused_model()
+    reqs = _fused_requests(m.cfg.vocab, n=4, new=5)
+    runs = [_serve(m, params, True, True, reqs, temperature=0.8, seed=9)
+            for _ in range(2)]
+    assert runs[0][0] == runs[1][0]
+    assert all(0 <= t < m.cfg.vocab for x in runs[0][0] for t in x)
+    _, counts, eng = runs[0]
+    st = eng.stats
+    assert eng._fused.launches == {"decode_attention_paged": m.cfg.n_layers,
+                                   "twopass_softmax_2d": 1}
+    # a prefill: a launch a layer and one for its sampler; a replay: one
+    assert counts["twopass_softmax_2d"] == (
+        st["admitted"] * (m.cfg.n_layers + 1) + st["steps"])
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_raises(cuda, monkeypatch):
+    m, params = _fused_model()
+    launch = tda.launch_paged
+
+    def syncing(*args, **kw):
+        torch.cuda.current_stream().synchronize()   # waits for the device
+        return launch(*args, **kw)
+
+    monkeypatch.setattr(tda, "launch_paged", syncing)
+    with pytest.raises(RuntimeError):
+        m.serving_engine(params, slots=2, max_len=48, temperature=0.0)
+    # nothing falls back: only fused=False steps eagerly, through the same
+    # syncing wrapper
+    eng = m.serving_engine(params, slots=2, max_len=48, temperature=0.0,
+                           fused=False)
+    assert eng._fused is None
+    assert len(eng.run(_fused_requests(m.cfg.vocab, n=2, new=3))) == 2
