@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--layers N] [--only {train,swa,engine}]
+    python3 chip_smoke.py [--layers N] [--only {train,swa,engine,mqa,ssm}]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -81,7 +81,32 @@ Phases (any failure exits non-zero; nothing is caught):
    the ring at the decode_32k cell's shape (batch 128, 32,768 positions,
    ~48.3 GB where ``ring=False`` would need ~386.5 GB) stepped 8 times,
    with its peak memory;
-8. training: qwen2.5-14b at full width, depth cut to 4 layers (float32
+8. mqa: granite-20b (52 layers, d_model 6144, 48 query heads over one
+   KV head of 128, d_ff 24576, vocab 49152, 56.3 GB of bf16 weights, the
+   earlier phases' models freed first).  The decode kernels at the served
+   shape [8, 1, 48, 128] (G 48) against their plain versions, timed beside
+   ``scaled_dot_product_attention``; then, as the swa phase serves its
+   models, 8 requests of 200-1,500 prompt tokens + 32 new on 8 slots
+   (``max_len`` 1664): paged with the decode step a CUDA graph (the main
+   path), paged eager (the same tokens and launches), strip (the same
+   tokens), ``temperature=0.8``, the two-pass kernel on its prefill score
+   rows [48 S, S] and sampler rows, prefill logits against
+   ``use_kernels=False``, and ms a step beside the weights' read time;
+9. ssm: rwkv6-1.6b (24 layers, d_model 2048, 32 heads of 64, d_ff 7168,
+   vocab 65536, bf16 weights, 12.6 MB of recurrent state a slot) on the
+   strip pool, 32 slots: 48 requests of 200-4,000 prompt tokens + 64 new,
+   greedy, the decode step a CUDA graph (the main path) and eager (the
+   same tokens and launches, the state after the run bit-equal), with
+   ``use_kernels=False`` (the same tokens), then ``temperature=0.8``
+   under each softmax algorithm, one request a slot (its kernel once a
+   replay; two-pass also eager, as many launches), each kernel held
+   against its plain version on
+   the sampler rows [32, 65536]; a decode burst under the profiler, graph
+   and eager; and the chunked scan's scan branch, one prompt of 16,384
+   tokens (64 chunks of 256) against 16,128 prefilled + 256 decode steps,
+   bf16 and float32, logits and state within a stated share of the
+   largest value, the next 32 greedy tokens equal in float32;
+10. training: qwen2.5-14b at full width, depth cut to 4 layers (float32
    parameters, bf16 activations, remat), batch 1 x 4096 from SyntheticLM,
    with the model's own ``use_kernels``: from one state the kernel route
    (flash attention, fused LM-head CE) and the plain route (tensor forms,
@@ -92,9 +117,9 @@ Phases (any failure exits non-zero; nothing is caught):
    a fourth under the profiler shows where the step's device time goes,
    and the same three steps on the plain route from the same initial
    weights give the comparison;
-9. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
+11. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
    three_pass_reload --kernels``, at full width, as a subprocess;
-10. the training CLI, ``python -m repro_torch.launch.train --arch
+12. the training CLI, ``python -m repro_torch.launch.train --arch
    qwen2.5-14b --reduced --kernels`` with a checkpoint directory under
    ``build/``: 6 steps straight, then 3 and a resume to 6, whose final
    losses agree.
@@ -1363,14 +1388,16 @@ def kernel_phase(torch, rng):
 # ---------------------------------------------------------------------------
 # Phases 3-4: the engine at full width.
 # ---------------------------------------------------------------------------
-def serve_requests(torch, model, params, reqs, **kw):
+def serve_requests(torch, model, params, reqs, state=None, **kw):
     """Serve ``reqs`` through ``model.serving_engine(params, **kw)``, with
     the launch counts zeroed just before the run (after the engine, and so
     its graph's warm-up and capture, is built) and read just after.
     Returns (tokens a request, the engine's throughput with the wall time,
     launches, ms a decode step, the capture's seconds, graph pool bytes and
     launches a replay when fused, and the peak bytes allocated and
-    reserved since before the engine was built)."""
+    reserved since before the engine was built).  A dict ``state`` gets a
+    copy of the pool's cache leaves after the run and the slots that
+    served a request (``"slots"``)."""
     import repro_torch.kernels as K
 
     gc.collect()
@@ -1389,6 +1416,9 @@ def serve_requests(torch, model, params, reqs, **kw):
                                    / max(1, eng.stats["steps"]) * 1e3),
                peak_bytes=torch.cuda.max_memory_allocated(),
                peak_reserved_bytes=torch.cuda.max_memory_reserved())
+    if state is not None:
+        state.update({k: v.clone() for k, v in eng.pool["kv"].items()},
+                     slots={c.slot for c in comps})
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -1656,14 +1686,20 @@ def softmax_rows_check(torch, rows, key, x, case, **info) -> None:
     check(torch.allclose(y, plain, atol=5e-6, rtol=1e-5),
           f"twopass_softmax_2d {case}: max abs err {a}")
     one = torch.isfinite(x).sum(1) == 1
+    # a row of one finite column is m RN(1/m), as the reference's Pallas
+    # kernel computes it (lam = 1 / m_sum): 1, or 1 - 2^-24 for about one
+    # m in seven; the plain version's bits
     check(not bool(y.masked_select(torch.isinf(x)).any())
-          and bool((y[one].amax(1) == 1).all()),
+          and torch.equal(y[one], plain[one])
+          and bool((y[one].amax(1) >= 1 - 2.0 ** -24).all()),
           f"twopass_softmax_2d {case}: -inf columns not exact 0, or a row "
-          "of one finite column not exact 1")
+          "of one finite column not its plain version's m RN(1/m)")
     say("kernel_check", kernel="twopass_softmax_2d", shape=[r, c],
         case=case, path=tp.path_for(c), max_abs_err=a, max_rel_err=rel,
         tol="atol 5e-6 rtol 1e-5, as the kernel phase; -inf columns "
-            "exact 0", rows_of_one_column=int(one.sum()), **info)
+            "exact 0; a row of one finite column the plain version's bits",
+        rows_of_one_column=int(one.sum()),
+        rows_of_one_column_below_1=int((y[one].amax(1) < 1).sum()), **info)
     del y, plain, one
     row = rows["twopass_softmax_2d"][key] = dict(
         **timed(torch, lambda: tp.twopass_softmax_2d(x),
@@ -1676,79 +1712,95 @@ def softmax_rows_check(torch, rows, key, x, case, **info) -> None:
         bound_us=row["bound_ms"] * 1e3, **row)
 
 
-def swa_kernel_checks(torch, rng, rows) -> None:
-    """Kernels 1, 3 and 4 at this phase's shapes: decode at G 4 with D 120
-    under the 4096 window and D 160 without one (8 slots, 1,000-7,000
-    positions), and the two-pass softmax on ring score rows whose tails
-    are not written yet (-inf), the first row with one valid slot."""
+def decode_case(torch, rows, gen, case, *, lengths, tab, hkv, g, d,
+                window=None, ps=128) -> None:
+    """Kernels 3 and 4 on bf16 q [S, hkv, g, d] and a seeded arena read
+    through ``tab`` (the strip pool is the same pages laid end to end) at
+    ``lengths``, against their plain versions (bf16 tolerance of the kernel
+    phase), strip bit-equal to paged; timed by graph replay into
+    ``rows[kernel][case]`` beside ``scaled_dot_product_attention`` over the
+    strip, with the bound of the visible positions' bytes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
 
     dev, bf = "cuda", torch.bfloat16
+    s, pmax = tab.shape
+    n_pages = 1 + s * pmax
+    lens = torch.from_numpy(lengths).to(dev)
+    bf16_tol = dict(atol=1e-5, rtol=1e-2)        # as in the kernel phase
+    q = torch.randn((s, hkv, g, d), device=dev, generator=gen).to(bf)
+    kp, vp = (torch.randn((n_pages, ps, hkv, d), device=dev,
+                          generator=gen).to(bf) for _ in "kv")
+    ks, vs = (x[tab.long()].reshape(s, pmax * ps, hkv, d).transpose(1, 2)
+              for x in (kp, vp))
+    sc = d ** -0.5
+    fns = {
+        "decode_attention_paged": (
+            lambda: da.decode_attention_paged(
+                q, kp, vp, tab, lens, scale=sc, window=window,
+                pages_per_tile=1),
+            lambda: da.decode_attention_paged_plain(
+                q, kp, vp, tab, lens, scale=sc, window=window,
+                n_t_chunks=pmax)),
+        "decode_attention": (
+            lambda: da.decode_attention(q, ks, vs, lens, scale=sc,
+                                        window=window, block_t=ps),
+            lambda: da.decode_attention_plain(
+                q, ks, vs, lens, scale=sc, window=window,
+                n_t_chunks=pmax))}
+    pos = torch.arange(pmax * ps, device=dev)[None, :]
+    mask = pos < lens[:, None]
+    if window is not None:
+        mask &= pos > lens[:, None] - 1 - window
+    visible = int(mask.sum())
+    q_l = q.reshape(s, hkv * g, 1, d)
+    b_ms, b_by = bound(visible * hkv * 2 * d * 2 + 2 * q.numel() * 2
+                       + s * pmax * 4 + s * 4,
+                       visible * hkv * g * (4 * d + 20))
+    paged_out = None
+    for name, (fn, plain) in fns.items():
+        got = fn()
+        torch.cuda.synchronize()
+        r = held(got, plain(), bf16_tol, f"{name} {case}")
+        if paged_out is None:
+            paged_out = got
+        else:
+            check(torch.equal(got, paged_out),
+                  f"decode_attention {case}: strip != paged bits")
+        body = da.kernel_body(bf, bf, d, d, da._row_bytes(kp, vp))
+        say("kernel_check", kernel=name, case=case, body=body, **r)
+        rows.setdefault(name, {})[case] = dict(
+            ms=graph_ms(torch, fn), eager_ms=cuda_ms(torch, fn),
+            plain_ms=cuda_ms(torch, plain, 5),
+            library_ms=graph_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q_l, ks, vs, attn_mask=mask[:, None, None, :],
+                    enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=r["max_abs_err"],
+            shape=dict(q=list(q.shape), pages=list(kp.shape),
+                       window=window, lengths=lengths.tolist()))
+        say("kernel_time", kernel=name, case=case,
+            bound_us=b_ms * 1e3, **rows[name][case])
+
+
+def swa_kernel_checks(torch, rng, rows) -> None:
+    """Kernels 1, 3 and 4 at this phase's shapes: decode at G 4 with D 120
+    under the 4096 window and D 160 without one (8 slots, 1,000-7,000
+    positions), and the two-pass softmax on ring score rows whose tails
+    are not written yet (-inf), the first row with one valid slot."""
+    dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(SWA_SEED)
-    s, hkv, g, ps = N_SLOTS, 8, 4, 128
+    s, ps = N_SLOTS, 128
     pmax = SWA_MAX_LEN // ps
     lengths = rng.integers(1000, 7001, s).astype(np.int32)
-    lens = torch.from_numpy(lengths).to(dev)
     n_pages = 1 + s * pmax
     tab = torch.from_numpy(rng.permutation(np.arange(1, n_pages)).reshape(
         s, pmax).astype(np.int32)).to(dev)
-    bf16_tol = dict(atol=1e-5, rtol=1e-2)        # as in the kernel phase
     for d, window in ((120, 4096), (160, None)):
         case = f"g4_d{d}_" + (f"window_{window}" if window else "no_window")
-        q = torch.randn((s, hkv, g, d), device=dev, generator=gen).to(bf)
-        kp, vp = (torch.randn((n_pages, ps, hkv, d), device=dev,
-                              generator=gen).to(bf) for _ in "kv")
-        ks, vs = (x[tab.long()].reshape(s, pmax * ps, hkv, d).transpose(1, 2)
-                  for x in (kp, vp))
-        sc = d ** -0.5
-        fns = {
-            "decode_attention_paged": (
-                lambda: da.decode_attention_paged(
-                    q, kp, vp, tab, lens, scale=sc, window=window,
-                    pages_per_tile=1),
-                lambda: da.decode_attention_paged_plain(
-                    q, kp, vp, tab, lens, scale=sc, window=window,
-                    n_t_chunks=pmax)),
-            "decode_attention": (
-                lambda: da.decode_attention(q, ks, vs, lens, scale=sc,
-                                            window=window, block_t=ps),
-                lambda: da.decode_attention_plain(
-                    q, ks, vs, lens, scale=sc, window=window,
-                    n_t_chunks=pmax))}
-        pos = torch.arange(pmax * ps, device=dev)[None, :]
-        mask = pos < lens[:, None]
-        if window is not None:
-            mask &= pos > lens[:, None] - 1 - window
-        visible = int(mask.sum())
-        q_l = q.reshape(s, hkv * g, 1, d)
-        b_ms, b_by = bound(visible * hkv * 2 * d * 2 + 2 * q.numel() * 2
-                           + s * pmax * 4 + s * 4,
-                           visible * hkv * g * (4 * d + 20))
-        paged_out = None
-        for name, (fn, plain) in fns.items():
-            got = fn()
-            torch.cuda.synchronize()
-            r = held(got, plain(), bf16_tol, f"{name} {case}")
-            if paged_out is None:
-                paged_out = got
-            else:
-                check(torch.equal(got, paged_out),
-                      f"decode_attention {case}: strip != paged bits")
-            body = da.kernel_body(bf, bf, d, d, da._row_bytes(kp, vp))
-            say("kernel_check", kernel=name, case=case, body=body, **r)
-            rows.setdefault(name, {})[case] = dict(
-                ms=graph_ms(torch, fn), eager_ms=cuda_ms(torch, fn),
-                plain_ms=cuda_ms(torch, plain, 5),
-                library_ms=graph_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        q_l, ks, vs, attn_mask=mask[:, None, None, :],
-                        enable_gqa=True)),
-                bound_ms=b_ms, bound_by=b_by, max_abs_err=r["max_abs_err"],
-                shape=dict(q=list(q.shape), pages=list(kp.shape),
-                           window=window, lengths=lengths.tolist()))
-        del q, kp, vp, ks, vs, q_l, mask, paged_out
+        decode_case(torch, rows, gen, case, lengths=lengths, tab=tab,
+                    hkv=8, g=4, d=d, window=window, ps=ps)
 
     # ring score rows: slot order, -inf past each row's written slots
     r = c = 4096
@@ -1760,14 +1812,10 @@ def swa_kernel_checks(torch, rng, rows) -> None:
     softmax_rows_check(torch, rows, "ring_rows_4096", x,
                        "ring_rows_partly_filled",
                        valid_min=int(valid.min()))
-    for name in SWA_KERNELS[1:]:
-        for case, row in rows[name].items():
-            if case.startswith("g4_"):
-                say("kernel_time", kernel=name, case=case,
-                    bound_us=row["bound_ms"] * 1e3, **row)
 
 
-def serve_model(torch, rows, arch, rng, n_req, lo, hi, max_len):
+def serve_model(torch, rows, arch, rng, n_req, lo, hi, max_len,
+                tag: str = "swa"):
     """One model at full width and depth with seeded bf16 weights, through
     ``serving_engine``: greedy on the paged pool (the main path, the decode
     step a CUDA graph), the same with the eager step (the same tokens and
@@ -1778,7 +1826,7 @@ def serve_model(torch, rows, arch, rng, n_req, lo, hi, max_len):
     median and longest prompts with kernels against those without
     (:func:`swa_prefill_parity`).  Returns
     the model, its weights and the main path's launches (the strip run's
-    for kernel 4)."""
+    for kernel 4).  ``tag`` names the phase in the config line."""
     from repro_torch.kernels import twopass_softmax as tp
     from repro_torch.models import build_model
     from repro_torch.serving.scheduler import Request
@@ -1788,11 +1836,12 @@ def serve_model(torch, rows, arch, rng, n_req, lo, hi, max_len):
     t0 = time.perf_counter()
     params = m.init(seed=0, dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    say("swa_config", arch=arch, n_layers=cfg.n_layers,
+    weights_bytes = sum(t.numel() * 2 for t in _leaves(params))
+    say(f"{tag}_config", arch=arch, n_layers=cfg.n_layers,
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim(), d_ff=cfg.d_ff, vocab=cfg.vocab,
         swa_window=cfg.swa_window, weights_s=time.perf_counter() - t0,
-        weights_bytes=sum(t.numel() * 2 for t in _leaves(params)))
+        weights_bytes=weights_bytes, param_count=cfg.param_count())
     plens = rng.integers(lo, hi, n_req)
     prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab, n))
                for n in plens]
@@ -1824,7 +1873,8 @@ def serve_model(torch, rows, arch, rng, n_req, lo, hi, max_len):
     say("parity", arch=arch, check="paged: graph == eager tokens and "
         "launches", equal=True, launches_per_replay=st["launches_per_replay"],
         graph_ms_per_step=st["decode_ms_per_step"],
-        eager_ms_per_step=st_e["decode_ms_per_step"])
+        eager_ms_per_step=st_e["decode_ms_per_step"],
+        weights_read_ms=weights_bytes / HBM_BYTES_S * 1e3)
     toks_strip, st2 = serve_requests(torch, m, params, reqs(), paged=False,
                                      temperature=0.0, **kw)
     say("engine", arch=arch, path="strip, use_kernels=True, temperature=0",
@@ -2068,7 +2118,334 @@ def swa_phase(torch, rows) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: training qwen2.5-14b at full width through Trainer.
+# Phase 8: granite-20b's multi-query attention at full width and depth.
+# ---------------------------------------------------------------------------
+MQA_ARCH = "granite-20b"     # 52 layers, 48 query heads over 1 KV head of 128
+MQA_SEED = 20
+MQA_PROMPTS = (N_SLOTS, 200, 1501)     # requests, prompt lengths [lo, hi)
+
+
+def mqa_phase(torch, rows) -> dict:
+    """Phase 8: kernels 3 and 4 at the served decode shape [8, 1, 48, 128]
+    (the bf16 body's G 48: six blocks of eight query heads a KV head),
+    then granite-20b served through :func:`serve_model` (which also holds
+    kernel 1 on its prefill score rows [48 * S, S] and sampler rows).
+    Its 56.3 GB of bf16 weights leave no room for a second model: the
+    caller frees every earlier phase's first.  Returns the main paths'
+    launches of kernels 1, 3 and 4."""
+    rng = np.random.default_rng(MQA_SEED)
+    gen = torch.Generator(device="cuda").manual_seed(MQA_SEED)
+    ps = 128
+    pmax = MAX_LEN // ps
+    n_pages = 1 + N_SLOTS * pmax
+    lengths = rng.integers(200, 1501 + NEW_TOKENS, N_SLOTS).astype(np.int32)
+    tab = torch.from_numpy(rng.permutation(np.arange(1, n_pages)).reshape(
+        N_SLOTS, pmax).astype(np.int32)).cuda()
+    decode_case(torch, rows, gen, "mqa_g48_d128", lengths=lengths, tab=tab,
+                hkv=1, g=48, d=128, ps=ps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    m, params, launches = serve_model(torch, rows, MQA_ARCH, rng,
+                                      *MQA_PROMPTS, MAX_LEN, tag="mqa")
+    del m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the ssm family, rwkv6-1.6b, at full width and depth.
+# ---------------------------------------------------------------------------
+SSM_ARCH = "rwkv6-1.6b"      # 24 layers, d 2048, 32 heads of 64, vocab 65536
+SSM_SEED = 16
+SSM_SLOTS = 32
+SSM_PROMPTS = (48, 200, 4001)          # requests, prompt lengths [lo, hi)
+SSM_NEW = 64
+SSM_MAX_LEN = 4000 + SSM_NEW
+SSM_SAMPLED = (128, 8)       # temperature 0.8: one request a slot, prompt
+                             # cut, new tokens
+SCAN_LEN = 16384             # 64 chunks of 256: the chunked scan's scan branch
+SCAN_SPLIT = 16128           # 63 chunks of 256 prefilled, then 256 steps
+SCAN_TOKENS = 32             # greedy tokens held == after both, float32
+# the prefill of SCAN_LEN against SCAN_SPLIT + steps, as a share of the
+# largest value (logits, and each state leaf).  float32: set from the
+# float32 chunk's summation order (tests/test_torch_ssm.py: 1e-6 sqrt(256)
+# of the largest output of one scan), with room for 24 layers.  bf16: the
+# two paths round different values to bf16, so the limit is derived in the
+# run from float32 activations on the same weights: twice the bf16
+# prefill's own distance from the float32 prefill (were the step path no
+# farther from float32 than the prefill, the two would be within that)
+SCAN_F32_TOL = 1e-3
+SSM_SOFTMAX = (("two_pass", "twopass_softmax_2d"),
+               ("three_pass_recompute", "threepass_recompute_2d"),
+               ("three_pass_reload", "threepass_reload_2d"))
+
+
+def sampler_rows_check(torch, rows, kname, x, key) -> None:
+    """``kname`` (a softmax kernel) on sampler rows ``x`` [r, vocab]
+    against its plain version at the kernel phase's float32 tolerance;
+    timed into ``rows[kname][key]``."""
+    from repro_torch.kernels import threepass_softmax as tp3
+    from repro_torch.kernels import twopass_softmax as tp
+
+    fn, plain, ops = {
+        "twopass_softmax_2d": (tp.twopass_softmax_2d,
+                               tp.twopass_softmax_2d_plain, SOFTMAX_OPS),
+        "threepass_recompute_2d": (tp3.threepass_recompute_2d,
+                                   tp3.threepass_recompute_2d_plain,
+                                   RECOMPUTE_OPS),
+        "threepass_reload_2d": (tp3.threepass_reload_2d,
+                                tp3.threepass_reload_2d_plain,
+                                RELOAD_OPS)}[kname]
+    r, c = x.shape
+    got = fn(x)
+    torch.cuda.synchronize()
+    h = held(got, plain(x), dict(atol=5e-6, rtol=1e-5), f"{kname} {key}")
+    say("kernel_check", kernel=kname, case=key, shape=[r, c],
+        path=tp.path_for(c), **h)
+    row = rows.setdefault(kname, {})[key] = dict(
+        **timed(torch, lambda: fn(x), lambda: plain(x),
+                lambda: torch.softmax(x, -1)),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(2 * r * c * 4, ops * r * c))),
+        max_abs_err=h["max_abs_err"], shape=[r, c], path=tp.path_for(c))
+    say("kernel_time", kernel=kname, case=key,
+        bound_us=row["bound_ms"] * 1e3, **row)
+
+
+def ssm_serving(torch, m, params, prompts) -> dict:
+    """The served traffic through ``Model.serving_engine`` (the strip pool,
+    32 slots): greedy with the decode step a CUDA graph (the main path),
+    again eager (the same tokens and launches, the state after the run
+    bit-equal), with ``use_kernels=False`` (the same tokens: greedy runs
+    no kernel); then ``temperature=0.8`` under each softmax algorithm,
+    its kernel once a replay (two-pass also eager: as many launches).
+    Returns the sampled runs' launches."""
+    from repro_torch.models import Model
+    from repro_torch.serving.scheduler import Request
+
+    cfg = m.cfg
+
+    def reqs(cut=None, new=SSM_NEW, n=None):
+        return [Request(rid=i, prompt=p[:cut], max_new_tokens=new)
+                for i, p in enumerate(prompts[:n])]
+
+    kw = dict(slots=SSM_SLOTS, max_len=SSM_MAX_LEN, seed=3)
+    runs, states = {}, {}
+    for step, fused in (("graph", True), ("eager", False)):
+        states[step] = {}
+        toks, st = serve_requests(torch, m, params, reqs(),
+                                  state=states[step], temperature=0.0,
+                                  fused=fused, **kw)
+        say("engine", arch=cfg.name, path=f"strip, use_kernels=True, "
+            f"temperature=0, {step} step",
+            prompt_lens=[len(p) for p in prompts], **st)
+        check(st["fused"] is fused and not st["paged"],
+              f"{cfg.name} {step}: fused {st['fused']}, paged {st['paged']}")
+        check(all(len(t) == SSM_NEW for t in toks),
+              f"{cfg.name} {step}: token counts")
+        check(st["admitted"] == len(prompts) > SSM_SLOTS
+              and st["prefill_shapes"] == len(set(map(len, prompts))),
+              f"{cfg.name} {step}: backfill, or a prompt was padded")
+        runs[step] = toks, st
+    (tg, sg), (te, se) = runs["graph"], runs["eager"]
+    check(tg == te and sg["launches"] == se["launches"],
+          f"{cfg.name}: graph tokens or launches != eager")
+    check(sg["launches_per_replay"] == {}
+          and sg["replays"] == sg["steps"] == se["steps"],
+          f"{cfg.name}: greedy graph launches {sg['launches_per_replay']}")
+    check(states["graph"].pop("slots") == set(range(SSM_SLOTS))
+          == states["eager"].pop("slots"), "not every slot was adopted")
+    same = {k: bool(torch.equal(v, states["eager"][k]))
+            for k, v in states["graph"].items()}
+    check(all(same.values()), f"{cfg.name}: graph state != eager: {same}")
+    weights_bytes = sum(t.numel() * t.element_size()
+                        for t in _leaves(params))
+    keys = ("decode_ms_per_step", "decode_tok_s", "prefill_tok_s",
+            "peak_bytes", "peak_reserved_bytes", "steps", "capture_s",
+            "graph_pool_bytes")
+    say("parity", arch=cfg.name, check="strip: graph == eager tokens and "
+        "launches, the state after the run bit-equal", equal=True,
+        state_equal=same, graph={k: sg.get(k) for k in keys},
+        eager={k: se.get(k) for k in keys},
+        eager_over_graph_ms=se["decode_ms_per_step"]
+        / sg["decode_ms_per_step"],
+        weights_bytes=weights_bytes,
+        weights_read_ms=weights_bytes / HBM_BYTES_S * 1e3)
+    del states
+    plain = Model(dataclasses.replace(cfg, use_kernels=False), m.device)
+    toks_p, st_p = serve_requests(torch, plain, params, reqs(),
+                                  temperature=0.0, **kw)
+    check(toks_p == tg and sum(st_p["launches"].values()) == 0,
+          f"{cfg.name}: use_kernels=False tokens != kernels', or launched")
+    say("parity", arch=cfg.name, check="use_kernels=False == True tokens "
+        "(greedy launches no kernel)", equal=True,
+        decode_ms_per_step=st_p["decode_ms_per_step"])
+
+    launches = {}
+    cut, new = SSM_SAMPLED
+    for algo, kname in SSM_SOFTMAX:
+        model = Model(dataclasses.replace(cfg, softmax_algorithm=algo),
+                      m.device)
+        counts = {}
+        for fused in (True, False) if algo == "two_pass" else (True,):
+            toks, st = serve_requests(torch, model, params,
+                                      reqs(cut, new, SSM_SLOTS),
+                                      temperature=0.8, fused=fused, **kw)
+            c = counts[fused] = st["launches"]
+            check(all(len(t) == new and all(0 <= x < cfg.vocab for x in t)
+                      for t in toks), f"{algo}: sampled tokens")
+            check(c[kname] == st["admitted"] + st["steps"]
+                  and all(c[k] == 0 for k in SOFTMAX_KERNELS if k != kname),
+                  f"{algo}: sampler kernel launches {c}")
+            check(not fused or (st["launches_per_replay"] == {kname: 1}
+                                and st["replays"] == st["steps"]),
+                  f"{algo}: not once a replay: {st.get('launches_per_replay')}")
+            say("engine", arch=cfg.name, path=f"strip, {algo}, use_kernels="
+                f"True, temperature=0.8, {'graph' if fused else 'eager'} "
+                "step", **st)
+        check(counts[True] == counts.get(False, counts[True]),
+              f"{algo}: graph launches != eager: {counts}")
+        launches[kname] = counts[True][kname]
+    return launches
+
+
+def ssm_scan_check(torch, m, params, rng) -> None:
+    """The chunked scan's scan branch at full width: one prompt of
+    SCAN_LEN tokens (64 chunks of 256) prefilled, against the first
+    SCAN_SPLIT (63 chunks of 256, the scan branch too: the reference's
+    needs a multiple of the chunk) prefilled and SCAN_LEN - SCAN_SPLIT
+    steps of ``Model.decode_step``, in float32 activations (the same
+    weights, widened: the last logits and every state leaf within
+    SCAN_F32_TOL of the largest value, the next SCAN_TOKENS greedy tokens
+    ``==``) and in bf16 (within twice the bf16 prefill's distance from the
+    float32 prefill, see SCAN_F32_TOL)."""
+    from repro_torch.models import Model, ssm
+    from repro_torch.models.transformer import torch_dtype
+
+    cfg = m.cfg
+    for s, n in ((SCAN_LEN, 64), (SCAN_SPLIT, 63)):
+        check(ssm.chunk_plan("rwkv6", s, cfg.ssm.chunk_size) == (256, n, True),
+              f"{s} tokens: not the scan branch's 256 x {n}")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, SCAN_LEN))).cuda()
+    v = cfg.vocab
+
+    def greedy(model, p, logits, state, pos):
+        out = []
+        for t in range(SCAN_TOKENS):
+            tok = logits[:, :v].argmax(-1)
+            out.append(int(tok))
+            logits, state = model.decode_step(p, state, tok, pos + t)
+        return out
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    def errs(lg, st, lg_ref, st_ref):
+        return dict(logits=rel(lg[:, :v], lg_ref[:, :v]),
+                    **{k: rel(st[k], st_ref[k]) for k in st_ref})
+
+    f32 = None
+    for dtype in ("float32", "bfloat16"):
+        dt = torch_dtype(dtype)
+        p = _cast_tree(params, dt)
+        model = Model(dataclasses.replace(cfg, dtype=dtype), m.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lg_a, st_a = model.prefill(p, toks)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        lg_b, st_b = model.prefill(p, toks[:, :SCAN_SPLIT])
+        t0 = time.perf_counter()
+        for t in range(SCAN_SPLIT, SCAN_LEN):
+            lg_b, st_b = model.decode_step(p, st_b, toks[:, t], t)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / (SCAN_LEN - SCAN_SPLIT) * 1e3
+        check(all(torch.isfinite(x).all() for x in (lg_a, *st_a.values())),
+              f"scan branch {dtype}: non-finite")
+        paths = errs(lg_b, st_b, lg_a, st_a)
+        info, tokens = {}, {}
+        if f32 is None:
+            limit = dict.fromkeys(paths, SCAN_F32_TOL)
+            f32 = (lg_a.float().clone(),
+                   {k: t.float().clone() for k, t in st_a.items()})
+            tokens = dict(prefill=greedy(model, p, lg_a, st_a, SCAN_LEN),
+                          steps=greedy(model, p, lg_b, st_b, SCAN_LEN))
+        else:
+            own = errs(lg_a, st_a, *f32)
+            limit = {k: 2 * e for k, e in own.items()}
+            info = dict(prefill_vs_float32=own,
+                        steps_vs_float32=errs(lg_b, st_b, *f32))
+        say("ssm_scan_branch", arch=cfg.name, dtype=dtype,
+            prompt=SCAN_LEN, chunks="64 x 256", split=SCAN_SPLIT,
+            steps=SCAN_LEN - SCAN_SPLIT, max_err_over_max=paths,
+            limit=limit, **info, prefill_s=prefill_s,
+            prefill_tok_s=SCAN_LEN / prefill_s, prefill_peak_bytes=peak,
+            step_ms=step_ms, argmax_equal=bool(
+                lg_a[:, :v].argmax() == lg_b[:, :v].argmax()),
+            greedy_tokens=tokens)
+        check(all(paths[k] <= limit[k] for k in paths),
+              f"scan branch {dtype}: {paths} beyond {limit}")
+        check(tokens.get("prefill") == tokens.get("steps"),
+              f"scan branch {dtype}: greedy tokens {tokens}")
+        del p, lg_a, st_a, lg_b, st_b, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _cast_tree(tree, dt):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dt) for k, v in tree.items()}
+    return tree.to(dt)
+
+
+def ssm_phase(torch, rows) -> dict:
+    """Phase 9; returns the sampled runs' launches of kernels 1, 5, 6."""
+    from repro_torch.models import build_model
+
+    rng = np.random.default_rng(SSM_SEED)
+    m = build_model(SSM_ARCH, use_kernels=True)
+    cfg = m.cfg
+    t0 = time.perf_counter()
+    params = m.init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    state = sum(x.numel() * x.element_size()
+                for x in m.init_cache(1, 1).values())
+    say("ssm_config", arch=SSM_ARCH, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, n_heads=cfg.n_heads,
+        head_dim=cfg.ssm.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
+        chunk_size=cfg.ssm.chunk_size, weights_s=time.perf_counter() - t0,
+        weights_bytes=sum(t.numel() * 2 for t in _leaves(params)),
+        param_count=cfg.param_count(), state_bytes_a_slot=state)
+    gen = torch.Generator(device="cuda").manual_seed(SSM_SEED)
+    x = torch.randn((SSM_SLOTS, cfg.vocab), device="cuda",
+                    generator=gen) * 8 / 0.8
+    for _, kname in SSM_SOFTMAX:
+        sampler_rows_check(torch, rows, kname, x, "ssm_sampler_rows")
+    del x
+    n_req, lo, hi = SSM_PROMPTS
+    plens = rng.integers(lo, hi, n_req)
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab, n))
+               for n in plens]
+    launches = ssm_serving(torch, m, params, prompts)
+    # a decode burst alone: the state's size does not depend on the
+    # prompt, so the trace's prefills are cut to 256 tokens
+    for fused in (True, False):
+        decode_trace(torch, m, params, [p[:256] for p in prompts],
+                     fused=fused, slots=SSM_SLOTS, max_len=SSM_MAX_LEN,
+                     new=SSM_NEW)
+    ssm_scan_check(torch, m, params, rng)
+    del m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: training qwen2.5-14b at full width through Trainer.
 # ---------------------------------------------------------------------------
 TRAIN_LAYERS = 4            # depth cut from 48 (memory: 16 bytes a param)
 TRAIN_SEQ = 4096            # the config's train_4k length, batch 1
@@ -2419,9 +2796,11 @@ def kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
-def decode_trace(torch, m, params, prompts, *, fused: bool) -> None:
-    """One decode burst alone under the profiler: 8 slots admitted first
-    (their prefills outside the trace), then ``NEW_TOKENS - 1`` steps in
+def decode_trace(torch, m, params, prompts, *, fused: bool,
+                 slots: int = N_SLOTS, max_len: int = MAX_LEN,
+                 new: int = NEW_TOKENS) -> None:
+    """One decode burst alone under the profiler: ``slots`` slots admitted
+    first (their prefills outside the trace), then ``new - 1`` steps in
     one burst.  Prints wall and device ms a step, the device's idle share
     and its time by kernel group (what paces the step)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2429,15 +2808,13 @@ def decode_trace(torch, m, params, prompts, *, fused: bool) -> None:
     from repro_torch.serving.scheduler import ContinuousBatchingEngine
     from repro_torch.serving.scheduler import Request
 
-    eng = ContinuousBatchingEngine(m, params, slots=N_SLOTS,
-                                   max_len=MAX_LEN, temperature=0.0,
-                                   fused=fused)
-    for i in range(N_SLOTS):
-        eng.submit(Request(rid=i, prompt=prompts[i],
-                           max_new_tokens=NEW_TOKENS))
+    eng = ContinuousBatchingEngine(m, params, slots=slots, max_len=max_len,
+                                   temperature=0.0, fused=fused)
+    for i in range(slots):
+        eng.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=new))
     eng._run_start = 0.0
     eng._admit_arrived(0.0)
-    check(len(eng.active_slots()) == N_SLOTS, "decode trace: admission")
+    check(len(eng.active_slots()) == slots, "decode trace: admission")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2455,8 +2832,8 @@ def decode_trace(torch, m, params, prompts, *, fused: bool) -> None:
             groups[g] = groups.get(g, 0.0) + ms
             names[e.key[:80]] = names.get(e.key[:80], 0.0) + ms
     busy = sum(groups.values())
-    say("decode_trace", step="graph" if fused else "eager", steps=steps,
-        slot_lengths=[len(p) for p in prompts[:N_SLOTS]],
+    say("decode_trace", arch=m.cfg.name, step="graph" if fused else "eager",
+        steps=steps, slot_lengths=[len(p) for p in prompts[:slots]],
         wall_ms_per_step=wall * 1e3 / steps,
         device_ms_per_step=busy / steps,
         idle_share=max(0.0, 1 - busy / (wall * 1e3)) if busy else
@@ -2522,7 +2899,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=48,
                     help="decoder depth of the engine phase (full: 48)")
-    ap.add_argument("--only", choices=("train", "swa", "engine"),
+    ap.add_argument("--only", choices=("train", "swa", "engine", "mqa",
+                                       "ssm"),
                     help="run one phase alone (train: to compare the train "
                     "step of two trees on one card); no kernels or ok line")
     args = ap.parse_args()
@@ -2554,6 +2932,12 @@ def main() -> int:
         elif args.only == "engine":
             say("engine_done", launches=engine_phase(
                 torch, np.random.default_rng(0), args.layers)[0])
+        elif args.only in ("mqa", "ssm"):
+            phase = mqa_phase if args.only == "mqa" else ssm_phase
+            t0 = time.perf_counter()
+            say(f"{args.only}_done", launches=phase(
+                torch, {"twopass_softmax_2d": {}}),
+                seconds=time.perf_counter() - t0)
         else:
             swa_phase(torch, {"twopass_softmax_2d": {}})
         print(smi, flush=True)
@@ -2578,6 +2962,14 @@ def main() -> int:
     for name, n in swa_phase(torch, rows).items():
         launches[name] += n
     say("swa_done", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for name, n in mqa_phase(torch, rows).items():
+        launches[name] += n
+    say("mqa_done", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for name, n in ssm_phase(torch, rows).items():
+        launches[name] += n
+    say("ssm_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     launches.update(train_phase(torch))
     say("train_done", seconds=time.perf_counter() - t0)

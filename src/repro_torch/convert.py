@@ -15,6 +15,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
+# a leaf every layer of the family has: its stack length is the depth
+_LAYER_LEAF = {"dense": ("ln1", "scale"), "ssm": ("ln_t", "scale")}
+
 
 def _to_torch(tree, device):
     if isinstance(tree, dict):
@@ -24,11 +27,11 @@ def _to_torch(tree, device):
 
 def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
                     device="cuda") -> dict:
-    """The port's parameters from a numpy tree of the reference's dense LM
-    parameters."""
-    if cfg.family != "dense":
+    """The port's parameters from a numpy tree of the reference's dense or
+    ssm LM parameters."""
+    if cfg.family not in _LAYER_LEAF:
         raise NotImplementedError(
-            f"family {cfg.family!r}: only dense weights convert yet")
+            f"family {cfg.family!r}: only dense and ssm weights convert yet")
     want = {"embed", "norm_f", "blocks"} | (
         set() if cfg.tie_embeddings else {"lm_head"})
     if set(tree_of_numpy) != want:
@@ -37,7 +40,8 @@ def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
     table = np.shape(tree_of_numpy["embed"]["table"])
     if table != (cfg.padded_vocab(), cfg.d_model):
         raise ValueError(f"embed table {table} does not match the config")
-    lead = np.shape(tree_of_numpy["blocks"]["ln1"]["scale"])[0]
+    norm, leaf = _LAYER_LEAF[cfg.family]
+    lead = np.shape(tree_of_numpy["blocks"][norm][leaf])[0]
     if lead != cfg.n_layers:
         raise ValueError(f"blocks stack {lead} layers, config has "
                          f"{cfg.n_layers}")

@@ -12,10 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.configs.base import ModelConfig, ShapeCell
-
-# families whose batches are not ported yet, with their ROADMAP items
-_UNPORTED = {"ssm": 11, "encdec": 12, "moe": 13, "vlm": 14, "hybrid": 16}
+from repro_torch.configs.base import (UNTRAINED_FAMILIES, ModelConfig,
+                                      ShapeCell)
 
 
 class SyntheticLM:
@@ -23,10 +21,10 @@ class SyntheticLM:
 
     def __init__(self, cfg: ModelConfig, cell: ShapeCell, seed: int = 0,
                  zipf_a: float = 1.2):
-        if cfg.family in _UNPORTED:
+        if cfg.family in UNTRAINED_FAMILIES:
             raise NotImplementedError(
                 f"SyntheticLM: family {cfg.family!r} is not ported yet "
-                f"(ROADMAP queue A item {_UNPORTED[cfg.family]})")
+                f"(ROADMAP queue A item {UNTRAINED_FAMILIES[cfg.family]})")
         self.cfg = cfg
         self.cell = cell
         self.seed = seed

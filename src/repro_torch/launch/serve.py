@@ -3,6 +3,7 @@
     python -m repro_torch.launch.serve --arch qwen2.5-14b --kernels
     python -m repro_torch.launch.serve --arch qwen2.5-14b --reduced \
         --device cpu
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b --kernels
 
 Requests stream in (optionally Poisson -- ``--arrival-rate``), join the pool
 by prefilling into a free slot, decode raggedly one step at a time for every
@@ -15,7 +16,7 @@ hand-written CUDA kernels.
 The model runs on ``--device`` (``cuda`` unless the CPU is asked for), with
 random weights made from seed 0 in the compute dtype.  Flags for what this
 package does not serve yet (int8 pages, host swap, the prefix cache,
-streaming, a mesh, families other than dense) exit with an error that names
+streaming, a mesh, families other than dense and ssm) exit with an error that names
 their ROADMAP item.
 """
 

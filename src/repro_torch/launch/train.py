@@ -58,7 +58,8 @@ def main(argv=None) -> None:
                         format="%(asctime)s %(levelname)s %(message)s")
 
     from repro_torch import kernels
-    from repro_torch.configs.base import SHAPES, UNPORTED_FAMILIES, ShapeCell
+    from repro_torch.configs.base import (SHAPES, UNTRAINED_FAMILIES,
+                                          ShapeCell)
     from repro_torch.models import build_model
     from repro_torch.training.trainer import Trainer, TrainerConfig
 
@@ -69,10 +70,10 @@ def main(argv=None) -> None:
                             use_kernels=args.kernels)
     except (KeyError, RuntimeError) as e:    # unknown arch; no card
         p.error(str(e))
-    if model.cfg.family in UNPORTED_FAMILIES:
-        p.error(f"family {model.cfg.family!r} ({args.arch}) is not ported "
-                f"yet (ROADMAP queue A item "
-                f"{UNPORTED_FAMILIES[model.cfg.family]})")
+    if model.cfg.family in UNTRAINED_FAMILIES:
+        p.error(f"family {model.cfg.family!r} ({args.arch}): training is "
+                f"not ported yet (ROADMAP queue A item "
+                f"{UNTRAINED_FAMILIES[model.cfg.family]})")
     base = SHAPES[args.shape]
     cell = ShapeCell(base.name,
                      args.seq or (64 if args.reduced else base.seq_len),

@@ -106,7 +106,9 @@ def _spec(shape, dtype) -> torch.Tensor:
 def input_specs(cfg: ModelConfig, cell: ShapeCell | str) -> dict:
     """Input shapes for one cell.  ``train``/``prefill`` describe the step
     batch; ``decode`` describes (cache, tokens, pos), and raises for a
-    family whose cache is not ported, naming its ROADMAP item."""
+    family whose cache is not ported, naming its ROADMAP item.  An ssm
+    decode cell's cache is the recurrent state, the same at any
+    ``seq_len`` (long_500k included)."""
     if isinstance(cell, str):
         cell = SHAPES[cell]
     b, s = cell.global_batch, cell.seq_len

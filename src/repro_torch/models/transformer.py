@@ -1,5 +1,5 @@
-"""Model assembly for the dense family: decoder-only LM with an LM head,
-and its training loss.
+"""Model assembly for the dense and ssm (RWKV6) families: decoder-only LM
+with an LM head, and the dense family's training loss.
 
 Layer parameters are stacked on a leading ``[L]`` axis, as in the
 reference; the layer loop is a Python loop that indexes them (the
@@ -12,9 +12,11 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig, check_dense
+from repro_torch.configs.base import (UNTRAINED_FAMILIES, ModelConfig,
+                                      check_ported)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import rwkv as rwkv_mod
 
 Params = dict
 
@@ -32,6 +34,8 @@ def layer(tree, i: int):
 
 
 def init_block(gen, cfg: ModelConfig, dtype, lead: tuple = ()) -> Params:
+    if cfg.family == "ssm":
+        return rwkv_mod.init_rwkv_block(gen, cfg, dtype, lead)
     dev = gen.device
     return {
         "ln1": layers.init_rmsnorm(cfg.d_model, dtype, dev, lead),
@@ -45,8 +49,19 @@ def init_block(gen, cfg: ModelConfig, dtype, lead: tuple = ()) -> Params:
 def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
                 cache_pos=None, cache_positions=None, page_table=None,
                 ring_valid=None):
-    """One dense block.  x: [B, S, d] or [B, d] (a decode token).  Returns
-    (x, cache)."""
+    """One block.  x: [B, S, d] or [B, d] (a decode token).  Returns
+    (x, cache), the cache written in place.  An ssm block's cache is its
+    recurrent state ``{"wkv", "last_t", "last_c"}`` (no RoPE, no
+    positions): a prefill starts from it and a decode token steps it, and
+    the new state is copied into it."""
+    if cfg.family == "ssm":
+        if cache is None:
+            return rwkv_mod.rwkv_block(p, x, cfg=cfg), None
+        x, new = rwkv_mod.rwkv_block(p, x, cfg=cfg, state=cache,
+                                     return_state=True)
+        for name, t in new.items():
+            cache[name].copy_(t)
+        return x, cache
     single = x.ndim == 2
     xin = x[:, None] if single else x
     h = layers.rmsnorm(p["ln1"], xin, eps=cfg.norm_eps)
@@ -68,7 +83,7 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     dtype (bf16) halves the weights' memory with identical results, since
     every use casts to the activation dtype.  On the ``meta`` device the
     tree has shapes and dtypes only."""
-    check_dense(cfg, "the model")
+    check_ported(cfg, "the model")
     dt = dtype or torch_dtype(cfg.param_dtype)
     if torch.device(device).type == "meta":
         gen = layers.MetaDraws()
@@ -116,10 +131,12 @@ def _scan_blocks(p_blocks, x, cos, sin, *, cfg: ModelConfig):
 
 def forward(params: Params, tokens, *, cfg: ModelConfig):
     """Token forward to final hidden states [B, S, d] (no cache)."""
-    check_dense(cfg, "the model")
+    check_ported(cfg, "the model")
     b, s = tokens.shape
     x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
-    cos, sin = _cos_sin(cfg, _positions_for(cfg, b, s, device=x.device))
+    cos = sin = None                      # an ssm block takes no positions
+    if cfg.family != "ssm":
+        cos, sin = _cos_sin(cfg, _positions_for(cfg, b, s, device=x.device))
     x = _scan_blocks(params["blocks"], x, cos, sin, cfg=cfg)
     return layers.rmsnorm(params["norm_f"], x, eps=cfg.norm_eps)
 
@@ -194,7 +211,7 @@ def train_loss(params: Params, batch: dict, *, cfg: ModelConfig,
     """Next-token CE of a dense LM on ``batch["tokens"]`` ([B, S]); an
     optional ``batch["mask"]`` weights the label positions.  ``policy``
     overrides the config's SoftmaxPolicy for the loss."""
-    check_dense(cfg, "the model")
+    check_ported(cfg, "training", UNTRAINED_FAMILIES)
     tokens = batch["tokens"]
     h = forward(params, tokens[:, :-1], cfg=cfg)
     return lm_loss_from_hidden(params, h, tokens[:, 1:], cfg=cfg,

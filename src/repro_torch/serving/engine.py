@@ -1,4 +1,4 @@
-"""Serving: prefill and single-token decode steps (dense family).
+"""Serving: prefill and single-token decode steps (dense and ssm families).
 
 ``decode_step`` is the lockstep step of one batch against a cache;
 ``decode_step_ragged`` is its continuous-batching form over a slot pool
@@ -52,11 +52,14 @@ def decode_step(params: Params, cache: dict, tokens, pos: int, *,
     An SWA config's cache of at most ``swa_window`` positions is a ring
     (``kv_cache.init_cache(ring=True)``, or a prefill of ``max_len <=
     window``): the token goes to slot ``pos % T`` and attends the first
-    ``min(pos + 1, T)`` slots."""
+    ``min(pos + 1, T)`` slots.  An ssm config's cache is its state, which
+    takes no position."""
     b = tokens.shape[0]
     dev = _device(params)
     pos = int(pos)
     x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    if cfg.family == "ssm":
+        return _finish(params, _ssm_layers(params, x, cache, cfg), cfg), cache
     cos, sin = _cos_sin_at(cfg, torch.tensor(pos, device=dev), b)
     cache_pos, ring_valid = pos, None
     alloc = cache["k"].shape[2]
@@ -70,6 +73,15 @@ def decode_step(params: Params, cache: dict, tokens, pos: int, *,
     return _finish(params, x, cfg), cache
 
 
+def _ssm_layers(params, x, state, cfg):
+    """The ssm layer loop: x [B, d] steps the state tree ``[L, B, ...]``,
+    x [B, S, d] prefills it, in place.  Returns the last layer's output."""
+    for i in range(cfg.n_layers):
+        x, _ = transformer.block_apply(layer(params["blocks"], i), x, None,
+                                       None, cfg=cfg, cache=layer(state, i))
+    return x
+
+
 def decode_step_ragged(params: Params, pool: dict, tokens, *,
                        cfg: ModelConfig, active=None):
     """One continuous-batching decode step over a slot pool
@@ -80,13 +92,19 @@ def decode_step_ragged(params: Params, pool: dict, tokens, *,
     compute -- their writes land in dead rows (the trash page of a paged
     pool) -- but their lengths do not advance.  Each slot writes at its
     current length and attends its own prefix.  The pool changes in place.
-    Returns (logits [S, V_padded], pool)."""
+    An ssm pool's state has no position axis: every slot steps its own
+    state, and an inactive slot's is dead state that ``adopt_slot``
+    overwrites.  Returns (logits [S, V_padded], pool)."""
     kv, lengths = pool["kv"], pool["lengths"]
     page_table = pool.get("page_table")
     s = tokens.shape[0]
     if active is None:
         active = lengths > 0
     x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    if cfg.family == "ssm":
+        logits = _finish(params, _ssm_layers(params, x, kv, cfg), cfg)
+        lengths.add_(active.to(torch.int32))
+        return logits, pool
     cos, sin = _cos_sin_at(cfg, lengths, s)
     for i in range(cfg.n_layers):
         x, _ = transformer.block_apply(
@@ -106,18 +124,23 @@ def prefill(params: Params, tokens, *, cfg: ModelConfig,
     ``last_pos`` ([B] or scalar int): index of the true last prompt token
     (bucketed prefill pads prompts; the pad tail sits causally after the
     prompt and is hidden later by the pool's length mask).  None reads
-    ``h[:, -1]``."""
+    ``h[:, -1]``.  An ssm prompt must not be padded: a pad tail would run
+    through the recurrence into the state decode goes on from (the
+    scheduler does not bucket ssm prompts)."""
     b, s = tokens.shape
     dev = _device(params)
     max_len = max(max_len or 0, s)
     cache = kv_cache.init_cache(cfg, b, max_len, ring=False, device=dev)
     x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
-    cos, sin = transformer._cos_sin(
-        cfg, transformer._positions_for(cfg, b, s, device=dev))
-    for i in range(cfg.n_layers):
-        x, _ = transformer.block_apply(
-            layer(params["blocks"], i), x, cos, sin, cfg=cfg,
-            cache=layer(cache, i), cache_pos=0)
+    if cfg.family == "ssm":
+        x = _ssm_layers(params, x, cache, cfg)
+    else:
+        cos, sin = transformer._cos_sin(
+            cfg, transformer._positions_for(cfg, b, s, device=dev))
+        for i in range(cfg.n_layers):
+            x, _ = transformer.block_apply(
+                layer(params["blocks"], i), x, cos, sin, cfg=cfg,
+                cache=layer(cache, i), cache_pos=0)
     if last_pos is None:
         h = x[:, -1]
     else:

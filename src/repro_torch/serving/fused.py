@@ -8,10 +8,11 @@ every op and kernel from the host, so at full width the host, not the card,
 paces it.  A CUDA graph records the step's launches once, and one host call
 replays them all.  What that asks of the step:
 
-  * every tensor the graph reads -- the parameters, the pool, the engine's
-    static step buffers -- is written in place between replays and never
-    rebound: :meth:`FusedStep.check` holds their addresses to those at
-    capture;
+  * every tensor the graph reads -- the parameters, the pool (an ssm
+    pool's state leaves too, which each step writes with ``copy_``), the
+    engine's static step buffers -- is written in place between replays
+    and never rebound: :meth:`FusedStep.check` holds their addresses to
+    those at capture;
   * nothing in the step waits for the device or allocates outside PyTorch:
     the kernel wrappers allocate with ``torch.empty`` (from the graph's
     pool during capture) and launch on the current stream (the capture
@@ -22,7 +23,8 @@ replays them all.  What that asks of the step:
     stream first.  Those steps execute, so the engine captures before its
     first admission, while every slot is free: their K/V writes land on
     the paged pool's trash page or on the strip rows that admission
-    overwrites, and ``lengths`` do not advance (no slot is active);
+    overwrites, an ssm pool's state writes are dead state that admission
+    replaces whole, and ``lengths`` do not advance (no slot is active);
   * a wrapper's ``.launches`` counts when Python calls it, which under a
     graph is at capture only: :class:`FusedStep` takes the capture's
     counts back out and adds them once per replay, so the counters go on

@@ -1,5 +1,5 @@
-"""KV cache construction for the dense family: the lockstep cache, the
-continuous-batching strip pool and the PAGED pool.
+"""Cache construction for the dense and ssm families: the lockstep cache,
+the continuous-batching strip pool and the PAGED pool.
 
 Cache leaves are stacked on a leading layer axis ``[L, ...]``.  The
 functions that change a pool change it IN PLACE and return it (the
@@ -17,20 +17,26 @@ copy per admission or step would double it.
     pages plus a per-slot page table.  Arena page 0 is the TRASH page:
     free slots' rows and entries past a slot's pages point at it, so the
     writes inactive slots still issue land where nothing is read.
+
+An ssm (RWKV6) cache is the recurrent state, with no position axis:
+``{"wkv": float32 [L, B, H, hd, hd], "last_t", "last_c": [L, B, d]}`` in
+the compute dtype.  It rides the strip pool, one state a slot, and cannot
+page.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, check_dense
+from repro_torch.configs.base import ModelConfig, check_ported
 from repro_torch.models.transformer import torch_dtype
 
 TRASH_PAGE = 0
 
 
 def cache_dtype(cfg: ModelConfig) -> torch.dtype:
-    """KV-cache storage dtype: the model's compute dtype."""
+    """Cache storage dtype: the model's compute dtype (an ssm state's
+    ``wkv`` is the exception: it accumulates in float32)."""
     return torch_dtype(cfg.dtype)
 
 
@@ -39,14 +45,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     """Stacked-layer lockstep cache ``{"k", "v"}: [L, B, T, Hkv, hd]``.
     ``T`` is ``max_len``, or ``min(max_len, swa_window)`` for an SWA config
     with ``ring`` (the ring that ``engine.decode_step`` addresses mod
-    ``T``); prefill paths pass ``ring=False`` for position addressing."""
-    check_dense(cfg, "its cache")
+    ``T``); prefill paths pass ``ring=False`` for position addressing.  An
+    ssm config's cache is its state, whatever ``max_len``."""
+    check_ported(cfg, "its cache")
+    dt = cache_dtype(cfg)
+    if cfg.family == "ssm":
+        h, hd, d = cfg.n_heads, cfg.ssm.head_dim, cfg.d_model
+        ls = cfg.n_layers
+        return {"wkv": torch.zeros((ls, batch, h, hd, hd),
+                                   dtype=torch.float32, device=device),
+                "last_t": torch.zeros((ls, batch, d), dtype=dt,
+                                      device=device),
+                "last_c": torch.zeros((ls, batch, d), dtype=dt,
+                                      device=device)}
     alloc = max_len
     if ring and cfg.swa_window is not None:
         alloc = min(max_len, cfg.swa_window)
     shape = (cfg.n_layers, batch, alloc, cfg.n_kv_heads,
              cfg.resolved_head_dim())
-    dt = cache_dtype(cfg)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -65,10 +81,16 @@ def init_slot_pool(cfg: ModelConfig, slots: int, max_len: int, *,
 def adopt_slot(pool: dict, cache: dict, slot: int, length: int) -> dict:
     """Copy a batch=1 prefill cache of at most ``max_len`` positions into
     the head of ``slot``'s strip; rows past it keep stale values, hidden by
-    the length mask until overwritten."""
+    the length mask until overwritten.  An ssm state (``"wkv"`` in the
+    pool) is copied whole, every leaf of the slot, in place: it replaces
+    the dead state a free slot's steps left there."""
+    state = "wkv" in pool["kv"]
     for n, dst in pool["kv"].items():
         src = cache[n][:, 0]
-        dst[:, slot, :src.shape[1]] = src.to(dst.dtype)
+        if state:
+            dst[:, slot].copy_(src)
+        else:
+            dst[:, slot, :src.shape[1]] = src.to(dst.dtype)
     pool["lengths"][slot] = length
     return pool
 
@@ -83,6 +105,8 @@ def free_slot(pool: dict, slot: int) -> dict:
 # Paged pool.
 # ---------------------------------------------------------------------------
 def supports_paging(cfg: ModelConfig) -> bool:
+    """Position-addressed caches page; an ssm state has no position axis
+    and stays on the strip pool."""
     return cfg.family != "ssm"
 
 
@@ -110,7 +134,10 @@ def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
     int32[slots, pages_per_slot], "lengths": int32[slots]}``.  ``pages``
     defaults to full provisioning (``1 + slots * pages_per_slot``, page 0
     the trash page); fewer oversubscribe the arena."""
-    check_dense(cfg, "its cache")
+    check_ported(cfg, "its cache")
+    if not supports_paging(cfg):
+        raise ValueError(f"family {cfg.family!r}: the recurrent state has "
+                         "no position axis to page; use the strip pool")
     ps = resolve_page_size(cfg, max_len, page_size)
     n_tab = pages_per_slot(max_len, ps)
     if pages is None:

@@ -12,7 +12,9 @@ batch axis full.  The scheduler:
     also needs ``ceil(prompt / page_size)`` free pages;
   * BUCKETS prompt lengths (multiples of the page size, doubling up to
     ``max_len``); logits are read at the true last token and the pad tail
-    is hidden by the pool's length mask;
+    is hidden by the pool's length mask.  Only families whose prefill is
+    position-local bucket by default: an ssm prompt's pad tail would run
+    through the recurrence into the state decode goes on from;
   * advances every occupied slot with one ragged decode step per
     iteration, whatever its age;
   * allocates decode-time pages just before each burst; when pages run
@@ -39,6 +41,14 @@ import torch
 
 from repro_torch.serving import engine, kv_cache
 from repro_torch.serving.fused import FusedStep, graph_for
+
+
+# families whose prefill is position-local: a pad tail past the true prompt
+# cannot influence earlier positions, so it stays invisible behind the
+# length mask and prompts can be bucketed (the reference's set; ssm and
+# hybrid carry state through prefill, moe sizes expert capacity from the
+# padded length)
+_BUCKETABLE_FAMILIES = ("dense", "vlm", "encdec")
 
 
 def _unported(what: str, item: int):
@@ -225,10 +235,13 @@ class ContinuousBatchingEngine:
 
     # -- prefill buckets -------------------------------------------------------
     def _resolve_buckets(self, prefill_buckets):
-        """Padded prompt lengths.  None = exact lengths."""
+        """Padded prompt lengths.  None = exact lengths (a family outside
+        ``_BUCKETABLE_FAMILIES`` under "auto", or an explicit opt-out)."""
         if prefill_buckets is None or prefill_buckets is False:
             return None
         if prefill_buckets == "auto":
+            if self.cfg.family not in _BUCKETABLE_FAMILIES:
+                return None
             base = self.page_size or kv_cache.resolve_page_size(
                 self.cfg, self.max_len)
             bs, b = [], base

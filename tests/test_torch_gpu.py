@@ -875,3 +875,93 @@ def test_a_failed_capture_raises(cuda, monkeypatch):
                            fused=False)
     assert eng._fused is None
     assert len(eng.run(_fused_requests(m.cfg.vocab, n=2, new=3))) == 2
+
+
+# ---------------------------------------------------------------------------
+# granite-20b's multi-query decode: 48 query heads over one KV head.
+# ---------------------------------------------------------------------------
+# the served shape's lengths (prompts of 200-1,500 + 32 new, pages of 128,
+# max_len 1664): a free slot, one position, a page and one, the longest
+MQA_LENGTHS = [0, 1, 129, 700, 1500, 1532, 1663, 1664]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernels_at_g48_over_one_kv_head(cuda, dtype):
+    q, kp, vp, table, lens = _decode_inputs(cuda, dtype, 128, 48, hkv=1,
+                                            ps=128, pmax=13,
+                                            lengths=MQA_LENGTHS)
+    assert q.shape == (8, 1, 48, 128)
+    _check_decode(q, kp, vp, table, lens, dtype, ppt=1)
+    assert tda.decode_attention_paged.launches == 2
+    assert tda.decode_attention.launches == 1
+
+
+# ---------------------------------------------------------------------------
+# The ssm family (rwkv6-1.6b): its recurrent state inside the graph step.
+# ---------------------------------------------------------------------------
+def _rwkv_model(dtype="float32"):
+    from repro_torch.models import build_model
+
+    m = build_model("rwkv6-1.6b", reduced=True, use_kernels=True,
+                    dtype=dtype)
+    assert m.cfg.n_layers == 2
+    return m, m.init(seed=0)
+
+
+def _serve_strip(m, params, fuse, reqs, **kw):
+    eng = m.serving_engine(params, slots=3, max_len=48, fused=fuse, **kw)
+    tk.reset_launch_counts()
+    comps = eng.run(reqs)
+    torch.cuda.synchronize()
+    return [c.tokens for c in comps], tk.launch_counts(), eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv_graph_step_equals_eager_with_the_state_bit_equal(cuda, dtype):
+    m, params = _rwkv_model(dtype)
+    reqs = _fused_requests(m.cfg.vocab)
+    runs = {f: _serve_strip(m, params, f, reqs, temperature=0.0)
+            for f in (True, False)}
+    (toks, counts, eng), (toks_e, counts_e, eng_e) = runs[True], runs[False]
+    assert not eng.paged and eng.buckets is None
+    assert toks == toks_e and counts == counts_e
+    assert eng._fused is not None and eng_e._fused is None
+    assert eng._fused.launches == {}           # greedy: no kernel a step
+    st = eng.stats
+    assert st["admitted"] > eng.n_slots and st["steps"] == eng_e.stats["steps"]
+    assert eng._fused.replays == st["steps"]
+    # every slot was admitted, so the warm-up's dead state was overwritten
+    assert {c.slot for c in eng.completions} == set(range(eng.n_slots))
+    for name in ("wkv", "last_t", "last_c"):
+        assert torch.equal(eng.pool["kv"][name], eng_e.pool["kv"][name]), name
+    assert torch.equal(eng.pool["lengths"], eng_e.pool["lengths"])
+
+
+@pytest.mark.gpu
+def test_rwkv_sampler_launches_the_softmax_kernel_once_a_replay(cuda):
+    m, params = _rwkv_model()
+    reqs = _fused_requests(m.cfg.vocab, n=4, new=5)
+    runs = [_serve_strip(m, params, True, reqs, temperature=0.8, seed=9)
+            for _ in range(2)]
+    assert runs[0][0] == runs[1][0]
+    assert all(0 <= t < m.cfg.vocab for x in runs[0][0] for t in x)
+    _, counts, eng = runs[0]
+    st = eng.stats
+    assert eng._fused.launches == {"twopass_softmax_2d": 1}
+    # a prefill: one launch for its sampler; a replay: one
+    assert counts["twopass_softmax_2d"] == st["admitted"] + st["steps"]
+    _, counts_e, _ = _serve_strip(m, params, False, reqs, temperature=0.8,
+                                  seed=9)
+    assert counts_e == counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 32])
+def test_softmax_kernel_on_rwkv_sampler_rows(cuda, rows):
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    x = torch.randn((rows, 65536), device=cuda, generator=gen) * 8 / 0.8
+    got = tp.twopass_softmax_2d(x)
+    torch.testing.assert_close(got, tp.twopass_softmax_2d_plain(x), **F32)
+    assert tp.path_for(65536) == "split"

@@ -41,7 +41,7 @@ def test_cli_serves_on_the_cpu(extra, capsys):
     (["--no-prefix-cache"], 17), (["--stream"], 19), (["--mesh", "2x2"], 22),
     (["--enc-frames", "8"], 12), (["--enc-chunk", "4"], 12),
     (["--arch", "whisper-base"], 12), (["--arch", "qwen2-vl-7b"], 14),
-    (["--arch", "rwkv6-1.6b"], 11), (["--arch", "granite-moe-3b-a800m"], 13),
+    (["--arch", "granite-moe-3b-a800m"], 13),
     (["--arch", "hymba-1.5b"], 16),
     (["--arch", "deepseek-v2-lite-16b"], 13),
 ])
@@ -50,6 +50,16 @@ def test_unported_flags_exit_with_their_item(flags, item, capsys):
         serve.main(BASE + flags)
     assert e.value.code == 2
     assert f"ROADMAP queue A item {item}" in capsys.readouterr().err
+
+
+def test_cli_serves_the_ssm_family_on_the_strip_pool(capsys):
+    serve.main(["--arch", "rwkv6-1.6b"] + BASE[2:]
+               + ["--temperature", "0", "--kernels"])
+    out = capsys.readouterr().out
+    assert "rwkv6-1.6b: served 3 requests over 2 slots / strip pool" in out
+    # exact prompt lengths: an ssm prompt is never padded to a bucket
+    assert "1 prefill buckets" in out and "prefill: 36 tok" in out
+    assert "decode:  9 tok" in out and "kernel launches: {}" in out
 
 
 def test_cli_runs_as_a_module_and_defaults_to_the_card():

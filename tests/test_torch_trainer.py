@@ -234,7 +234,7 @@ class TestTrainCli:
         assert Checkpointer(tmp_path).steps() == [2, 3]
 
     @pytest.mark.parametrize("flags,item", [
-        (["--mesh", "1x1"], 22), (["--arch", "rwkv6-1.6b"], 11),
+        (["--mesh", "1x1"], 22), (["--arch", "rwkv6-1.6b"], 27),
         (["--arch", "granite-moe-3b-a800m"], 13)])
     def test_unported_flags_exit_with_their_item(self, flags, item, capsys):
         with pytest.raises(SystemExit) as e:
