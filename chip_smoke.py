@@ -2171,11 +2171,14 @@ SCAN_TOKENS = 32             # greedy tokens held == after both, float32
 # largest value (logits, and each state leaf).  float32: set from the
 # float32 chunk's summation order (tests/test_torch_ssm.py: 1e-6 sqrt(256)
 # of the largest output of one scan), with room for 24 layers.  bf16: the
-# two paths round different values to bf16, so the limit is derived in the
-# run from float32 activations on the same weights: twice the bf16
-# prefill's own distance from the float32 prefill (were the step path no
-# farther from float32 than the prefill, the two would be within that)
+# two paths round different values to bf16, so each is held against the
+# float32 prefill on the same weights: the step path's distance from it
+# within (1 + SCAN_BF16_MARGIN) times the bf16 prefill's own.  Measured on
+# the H100 (chip_smoke.py --only ssm) the ratio is 0.99 for the logits and
+# 0.70-0.87 for the state leaves; the margin leaves a quarter above that.
+# The bf16 step-vs-prefill distance is reported, not held.
 SCAN_F32_TOL = 1e-3
+SCAN_BF16_MARGIN = 0.25
 SSM_SOFTMAX = (("two_pass", "twopass_softmax_2d"),
                ("three_pass_recompute", "threepass_recompute_2d"),
                ("three_pass_reload", "threepass_reload_2d"))
@@ -2318,8 +2321,8 @@ def ssm_scan_check(torch, m, params, rng) -> None:
     steps of ``Model.decode_step``, in float32 activations (the same
     weights, widened: the last logits and every state leaf within
     SCAN_F32_TOL of the largest value, the next SCAN_TOKENS greedy tokens
-    ``==``) and in bf16 (within twice the bf16 prefill's distance from the
-    float32 prefill, see SCAN_F32_TOL)."""
+    ``==``) and in bf16 (the step path's distance from the float32
+    prefill within 1 + SCAN_BF16_MARGIN times the bf16 prefill's own)."""
     from repro_torch.models import Model, ssm
     from repro_torch.models.transformer import torch_dtype
 
@@ -2369,26 +2372,29 @@ def ssm_scan_check(torch, m, params, rng) -> None:
         paths = errs(lg_b, st_b, lg_a, st_a)
         info, tokens = {}, {}
         if f32 is None:
-            limit = dict.fromkeys(paths, SCAN_F32_TOL)
+            held, limit = paths, dict.fromkeys(paths, SCAN_F32_TOL)
             f32 = (lg_a.float().clone(),
                    {k: t.float().clone() for k, t in st_a.items()})
             tokens = dict(prefill=greedy(model, p, lg_a, st_a, SCAN_LEN),
                           steps=greedy(model, p, lg_b, st_b, SCAN_LEN))
         else:
             own = errs(lg_a, st_a, *f32)
-            limit = {k: 2 * e for k, e in own.items()}
-            info = dict(prefill_vs_float32=own,
-                        steps_vs_float32=errs(lg_b, st_b, *f32))
+            held = errs(lg_b, st_b, *f32)
+            limit = {k: (1 + SCAN_BF16_MARGIN) * e for k, e in own.items()}
+            info = dict(prefill_vs_float32=own, steps_vs_float32=held,
+                        steps_over_prefill={k: held[k] / own[k]
+                                            for k in own})
         say("ssm_scan_branch", arch=cfg.name, dtype=dtype,
             prompt=SCAN_LEN, chunks="64 x 256", split=SCAN_SPLIT,
             steps=SCAN_LEN - SCAN_SPLIT, max_err_over_max=paths,
-            limit=limit, **info, prefill_s=prefill_s,
+            held="steps_vs_prefill" if held is paths else
+            "steps_vs_float32", limit=limit, **info, prefill_s=prefill_s,
             prefill_tok_s=SCAN_LEN / prefill_s, prefill_peak_bytes=peak,
             step_ms=step_ms, argmax_equal=bool(
                 lg_a[:, :v].argmax() == lg_b[:, :v].argmax()),
             greedy_tokens=tokens)
-        check(all(paths[k] <= limit[k] for k in paths),
-              f"scan branch {dtype}: {paths} beyond {limit}")
+        check(all(held[k] <= limit[k] for k in held),
+              f"scan branch {dtype}: {held} beyond {limit}")
         check(tokens.get("prefill") == tokens.get("steps"),
               f"scan branch {dtype}: greedy tokens {tokens}")
         del p, lg_a, st_a, lg_b, st_b, model

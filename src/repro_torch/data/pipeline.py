@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.configs.base import (UNTRAINED_FAMILIES, ModelConfig,
-                                      ShapeCell)
+                                      ShapeCell, check_ported)
 
 
 class SyntheticLM:
@@ -21,10 +21,7 @@ class SyntheticLM:
 
     def __init__(self, cfg: ModelConfig, cell: ShapeCell, seed: int = 0,
                  zipf_a: float = 1.2):
-        if cfg.family in UNTRAINED_FAMILIES:
-            raise NotImplementedError(
-                f"SyntheticLM: family {cfg.family!r} is not ported yet "
-                f"(ROADMAP queue A item {UNTRAINED_FAMILIES[cfg.family]})")
+        check_ported(cfg, "training", UNTRAINED_FAMILIES)
         self.cfg = cfg
         self.cell = cell
         self.seed = seed

@@ -59,7 +59,7 @@ def main(argv=None) -> None:
 
     from repro_torch import kernels
     from repro_torch.configs.base import (SHAPES, UNTRAINED_FAMILIES,
-                                          ShapeCell)
+                                          ShapeCell, check_ported)
     from repro_torch.models import build_model
     from repro_torch.training.trainer import Trainer, TrainerConfig
 
@@ -70,10 +70,10 @@ def main(argv=None) -> None:
                             use_kernels=args.kernels)
     except (KeyError, RuntimeError) as e:    # unknown arch; no card
         p.error(str(e))
-    if model.cfg.family in UNTRAINED_FAMILIES:
-        p.error(f"family {model.cfg.family!r} ({args.arch}): training is "
-                f"not ported yet (ROADMAP queue A item "
-                f"{UNTRAINED_FAMILIES[model.cfg.family]})")
+    try:
+        check_ported(model.cfg, "training", UNTRAINED_FAMILIES)
+    except NotImplementedError as e:
+        p.error(f"{args.arch}: {e}")
     base = SHAPES[args.shape]
     cell = ShapeCell(base.name,
                      args.seq or (64 if args.reduced else base.seq_len),

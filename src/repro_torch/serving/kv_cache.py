@@ -81,16 +81,12 @@ def init_slot_pool(cfg: ModelConfig, slots: int, max_len: int, *,
 def adopt_slot(pool: dict, cache: dict, slot: int, length: int) -> dict:
     """Copy a batch=1 prefill cache of at most ``max_len`` positions into
     the head of ``slot``'s strip; rows past it keep stale values, hidden by
-    the length mask until overwritten.  An ssm state (``"wkv"`` in the
-    pool) is copied whole, every leaf of the slot, in place: it replaces
-    the dead state a free slot's steps left there."""
-    state = "wkv" in pool["kv"]
+    the length mask until overwritten.  Every leaf is written in place; an
+    ssm state's leaves have no position axis, so the slice is all of them
+    and replaces the dead state a free slot's steps left there."""
     for n, dst in pool["kv"].items():
         src = cache[n][:, 0]
-        if state:
-            dst[:, slot].copy_(src)
-        else:
-            dst[:, slot, :src.shape[1]] = src.to(dst.dtype)
+        dst[:, slot, :src.shape[1]] = src.to(dst.dtype)
     pool["lengths"][slot] = length
     return pool
 
