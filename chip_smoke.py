@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--layers N] [--only {train,swa,engine,mqa,ssm}]
+    python3 chip_smoke.py [--layers N]
+                          [--only {train,swa,engine,mqa,ssm,encdec}]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -106,7 +107,27 @@ Phases (any failure exits non-zero; nothing is caught):
    tokens (64 chunks of 256) against 16,128 prefilled + 256 decode steps,
    bf16 and float32, logits and state within a stated share of the
    largest value, the next 32 greedy tokens equal in float32;
-10. training: qwen2.5-14b at full width, depth cut to 4 layers (float32
+10. encdec: whisper-base at full width and depth (6 encoder and 6 decoder
+   layers, d_model 512, 8 heads of 64 over 8 KV heads, d_ff 2048, GELU,
+   vocab 51865, bf16 weights).  The flash forward non-causal at D 64 over
+   one 30-s window [1, 8, 1500, 64] (the encoder), a prefill bucket's
+   queries against it [1, 8, 128, 1500] (the cross-attention at prefill)
+   and one query a slot [32, 8, 1, 1500] (the lockstep cross read), the
+   paged decode at G 1, D 64 over cross lengths 600-1,500 and self lengths
+   up to 448, and the two-pass softmax on the decoder prefill's score rows
+   and the sampler's rows, each against its plain version and timed beside
+   its bound and ``scaled_dot_product_attention``; then 64 greedy
+   requests (48 of 1,500 frames, 16 of 600-1,499; decoder prompts of
+   4-64 tokens; 32-192 new tokens) on 32 slots, paged, ``max_cross_len``
+   1,500: the decode step a CUDA graph (the main path) and eager (the
+   same tokens, launches and arena pages), ``temperature=0.8`` under each
+   softmax algorithm, chunked admission (``enc_chunk`` 500, graph ==
+   eager), prefill logits against ``use_kernels=False``, the served bf16
+   tokens fed back through the engine's step and the lockstep one (``==``
+   where the top-2 margin exceeds twice their logit difference), a decode
+   burst under the profiler, graph and eager, and a 2-layer float32 cut
+   whose served tokens ``==`` the batch-1 lockstep ``Model.generate``;
+11. training: qwen2.5-14b at full width, depth cut to 4 layers (float32
    parameters, bf16 activations, remat), batch 1 x 4096 from SyntheticLM,
    with the model's own ``use_kernels``: from one state the kernel route
    (flash attention, fused LM-head CE) and the plain route (tensor forms,
@@ -117,9 +138,9 @@ Phases (any failure exits non-zero; nothing is caught):
    a fourth under the profiler shows where the step's device time goes,
    and the same three steps on the plain route from the same initial
    weights give the comparison;
-11. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
+12. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
    three_pass_reload --kernels``, at full width, as a subprocess;
-12. the training CLI, ``python -m repro_torch.launch.train --arch
+13. the training CLI, ``python -m repro_torch.launch.train --arch
    qwen2.5-14b --reduced --kernels`` with a checkpoint directory under
    ``build/``: 6 steps straight, then 3 and a resume to 6, whose final
    losses agree.
@@ -2451,7 +2472,472 @@ def ssm_phase(torch, rows) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: training qwen2.5-14b at full width through Trainer.
+# Phase 10: the encdec family, whisper-base, at full width and depth.
+# ---------------------------------------------------------------------------
+ENC_ARCH = "whisper-base"    # 6 + 6 layers, d 512, 8 heads of 64, vocab 51865
+ENC_SEED = 27
+ENC_SLOTS = 32
+ENC_MAX_LEN = 448            # the config's dec_len
+ENC_FRAMES = 1500            # one 30-s window at 50 frames a second
+ENC_REQS = (48, 16)          # requests of 1,500 frames, of 600-1,499
+ENC_PROMPTS = (4, 65)        # decoder prompt lengths [lo, hi)
+ENC_NEW = (32, 193)          # new tokens [lo, hi)
+ENC_SAMPLED = (32, 8)        # temperature 0.8: requests, new tokens
+ENC_CHUNK = 500              # chunked admission: three windows of 1,500
+ENC_CHUNKED = (16, 32)       # chunked admission: requests, new tokens
+ENC_F32 = (2, 8, 16)         # the float32 cut: layers, requests, new tokens
+ENC_LOCKSTEP = (4, 32)       # the bf16 lockstep check: requests, steps
+# whisper's <|startofprev|>, then the previous text, then
+# <|startoftranscript|> <|en|> <|transcribe|>
+SOT_PREV, SOT = 50361, (50258, 50259, 50359)
+ENC_FLASH = {"encdec_encoder": (1, 1500, 1500),
+             "encdec_cross_prefill": (1, 128, 1500),
+             "encdec_cross_lockstep": (ENC_SLOTS, 1, 1500)}
+ENC_SOFTMAX = ("twopass_softmax_2d", "threepass_recompute_2d",
+               "threepass_reload_2d")
+
+
+def encdec_requests(rng, cfg, new=None):
+    """ENC_REQS requests in a seeded order: frames (seeded float32 frame
+    embeddings, the audio front end not modelled), a decoder prompt of
+    ENC_PROMPTS tokens (a previous-text prompt and the start-of-transcript
+    tokens) and ENC_NEW new tokens."""
+    from repro_torch.serving.scheduler import Request
+
+    full, ragged = ENC_REQS
+    lens = np.concatenate([np.full(full, ENC_FRAMES),
+                           rng.integers(600, ENC_FRAMES, ragged)])
+    lens = lens[rng.permutation(full + ragged)]
+    out = []
+    for i, t in enumerate(lens):
+        n = int(rng.integers(*ENC_PROMPTS))
+        prev = tuple(int(x) for x in rng.integers(0, 50257, n - 4))
+        out.append(Request(
+            rid=i, prompt=(SOT_PREV,) + prev + SOT,
+            max_new_tokens=new or int(rng.integers(*ENC_NEW)),
+            frames=rng.standard_normal((int(t), cfg.d_model)).astype(
+                np.float32)))
+    return out
+
+
+def _reqs(reqs, n=None, new=None):
+    """Fresh copies of the first ``n`` requests, ``new`` tokens each."""
+    return [dataclasses.replace(r, max_new_tokens=new or r.max_new_tokens)
+            for r in reqs[:n]]
+
+
+def encdec_flash_case(torch, rows, case, b, sq, skv) -> None:
+    """Kernel 12 non-causal at D 64, 8 heads over 8 KV heads (bf16):
+    against its plain version within :func:`flash_limits` (o and lse),
+    the same bits twice; timed by graph replay (eager beside) next to the
+    bound and ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import twopass_xent as xe
+
+    h, d = 8, 64
+    gen = torch.Generator(device="cuda").manual_seed(sq + skv)
+    q, do = (torch.randn(b, h, sq, d, device="cuda", generator=gen)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, h, skv, d, device="cuda", generator=gen)
+            .to(torch.bfloat16) for _ in range(2))
+    kw = dict(causal=False, scale=d ** -0.5, window=None)
+    nq, nkv = fa.chunk_counts(sq, skv, 64, 64)
+    pkw = dict(kw, n_q_chunks=nq, n_kv_chunks=nkv)
+    o, m, n = fa.flash_attention_fwd_gqa(q, k, v, **kw)
+    torch.cuda.synchronize()
+    po, pm, pn = fa.flash_attention_fwd_gqa_plain(q, k, v, **pkw)
+    lim = flash_limits(torch, q, k, v, do, po, pm, pn, False, None,
+                       kw["scale"])
+    err_o = (o.float() - po.float()).abs().reshape(-1)
+    over_o = float((err_o / (lim["o"] + 2.0 ** -7 * po.float().abs()
+                             .reshape(-1)).clamp(min=1e-30)).max())
+    lse = (torch.log(m) + n * xe.LN2).reshape(-1)
+    err_l = (lse - (torch.log(pm) + pn * xe.LN2).reshape(-1)).abs()
+    over_l = float((err_l / lim["lse"].clamp(min=1e-30)).max())
+    same = all(torch.equal(x, y) for x, y in zip(
+        fa.flash_attention_fwd_gqa(q, k, v, **kw), (o, m, n)))
+    del lim, do
+    check(over_o <= 1.0 and over_l <= 1.0 and same,
+          f"flash {case}: o {over_o}, lse {over_l} of their limits, same "
+          f"bits twice {same}")
+    say("kernel_check", kernel="flash_attention_fwd_gqa", case=case,
+        shape=dict(b=b, h=h, hkv=h, sq=sq, skv=skv, d=d), causal=False,
+        dtype="bfloat16", same_bits_twice=True,
+        o_max_abs_err=float(err_o.max()), o_worst_err_over_limit=over_o,
+        lse_max_abs_err=float(err_l.max()), lse_worst_err_over_limit=over_l,
+        tol="flash_limits (float32 accumulation) plus one bf16 step")
+    vis = b * h * sq * skv
+    mm = 2 * vis * d
+    qb, kb = q.numel() * 2, k.numel() * 2
+
+    def fn():
+        return fa.flash_attention_fwd_gqa(q, k, v, **kw)
+
+    row = rows.setdefault("flash_attention_fwd_gqa", {})[case] = dict(
+        ms=graph_ms(torch, fn), eager_ms=cuda_ms(torch, fn),
+        plain_ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_gqa_plain(
+            q, k, v, **pkw), 5),
+        library_ms=graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v)),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(2 * qb + 2 * kb + 8 * b * h * sq,
+                         FLASH_EXTEXP_OPS * vis, 2 * mm))),
+        split_bound_ms=bound(0, 0, 4 * mm)[0],
+        max_abs_err=float(err_o.max()),
+        shape=dict(b=b, h=h, hkv=h, sq=sq, skv=skv, d=d, causal=False))
+    say("kernel_time", kernel="flash_attention_fwd_gqa", case=case,
+        bound_us=row["bound_ms"] * 1e3, **row)
+    del q, k, v, o, m, n, po, pm, pn
+    torch.cuda.empty_cache()
+
+
+def encdec_kernel_checks(torch, rows, rng, cfg) -> None:
+    """Kernels 12, 3 and 1 at the shapes whisper-base's serving gives
+    them: the flash forward over one 30-s window (the encoder), a prefill
+    bucket's queries against it (the cross-attention at prefill) and one
+    query a slot (the lockstep cross read); the paged decode at G 1, D 64
+    over cross lengths of 600-1,500 frames and self lengths up to 448; the
+    two-pass softmax on the decoder prefill's causal score rows [8 x 128,
+    128] and the sampler's rows [32, 51865] at temperature 0.8."""
+    for case, (b, sq, skv) in ENC_FLASH.items():
+        encdec_flash_case(torch, rows, case, b, sq, skv)
+    gen = torch.Generator(device="cuda").manual_seed(ENC_SEED)
+    ps = 128
+    for case, hi, span in (("encdec_cross_g1_d64", ENC_FRAMES, 600),
+                           ("encdec_self_g1_d64", ENC_MAX_LEN, 4)):
+        pmax = -(-hi // ps)
+        lengths = rng.integers(span, hi + 1, ENC_SLOTS).astype(np.int32)
+        lengths[0] = hi
+        n_pages = 1 + ENC_SLOTS * pmax
+        tab = torch.from_numpy(rng.permutation(np.arange(1, n_pages))
+                               .reshape(ENC_SLOTS, pmax).astype(np.int32)
+                               ).cuda()
+        decode_case(torch, rows, gen, case, lengths=lengths, tab=tab,
+                    hkv=cfg.n_kv_heads, g=1, d=cfg.resolved_head_dim(),
+                    ps=ps)
+    s = 128
+    pos = torch.arange(s, device="cuda")
+    x = (torch.randn((cfg.n_heads, s, s), device="cuda", generator=gen) * 8
+         ).masked_fill_(pos[None, :] > pos[:, None], -torch.inf)
+    softmax_rows_check(torch, rows, "encdec_prefill_rows",
+                       x.reshape(cfg.n_heads * s, s),
+                       "whisper-base decoder prefill score rows, causal, "
+                       "bucket 128", heads=cfg.n_heads)
+    x = torch.randn((ENC_SLOTS, cfg.vocab), device="cuda",
+                    generator=gen) * 8 / 0.8
+    softmax_rows_check(torch, rows, "encdec_sampler_rows", x,
+                       "whisper-base sampler rows, temperature 0.8")
+    del x
+    torch.cuda.empty_cache()
+
+
+def encdec_launches(cfg, st, windows: int | None = None) -> dict:
+    """The launches a greedy two-pass run must make: the flash forward
+    for every encoder window's layers and every prefill's cross layers,
+    the two-pass softmax for every prefill's self layers, two paged
+    decode launches a decoder layer a step (self and cross)."""
+    windows = st["admitted"] if windows is None else windows
+    return {"flash_attention_fwd_gqa": cfg.n_enc_layers * windows
+            + cfg.n_layers * st["admitted"],
+            "twopass_softmax_2d": cfg.n_layers * st["admitted"],
+            "decode_attention_paged": 2 * cfg.n_layers * st["steps"]}
+
+
+def encdec_serving(torch, m, params, reqs) -> dict:
+    """The served traffic through ``Model.serving_engine`` (paged, 32
+    slots, ``max_cross_len`` 1,500): greedy with the decode step a CUDA
+    graph (the main path) and eager (the same tokens, launches and arena
+    bits); ``temperature=0.8`` under each softmax algorithm; chunked
+    admission (``enc_chunk`` 500) graph against eager.  Returns (the main
+    path's tokens, its launches of kernels 1, 3 and 12, and the sampled
+    runs' of kernels 1, 5 and 6)."""
+    from repro_torch.models import Model
+
+    cfg = m.cfg
+    kw = dict(slots=ENC_SLOTS, max_len=ENC_MAX_LEN,
+              max_cross_len=ENC_FRAMES, seed=3)
+    frames = [r.frames.shape[0] for r in reqs]
+    runs, states = {}, {}
+    for step, fused in (("graph", True), ("eager", False)):
+        states[step] = {}
+        toks, st = serve_requests(torch, m, params, _reqs(reqs),
+                                  state=states[step], temperature=0.0,
+                                  fused=fused, **kw)
+        say("engine", arch=cfg.name, path=f"paged, use_kernels=True, "
+            f"temperature=0, {step} step", frames=frames,
+            prompt_lens=[len(r.prompt) for r in reqs], **st)
+        check(st["fused"] is fused and st["paged"],
+              f"{cfg.name} {step}: fused {st['fused']}, paged {st['paged']}")
+        check([len(t) for t in toks] == [r.max_new_tokens for r in reqs],
+              f"{cfg.name} {step}: token counts")
+        check(st["admitted"] == len(reqs) > ENC_SLOTS
+              and st["encode_frames"] == sum(frames),
+              f"{cfg.name} {step}: admissions or frames")
+        want = encdec_launches(cfg, st)
+        check(all(st["launches"][k] == n for k, n in want.items()),
+              f"{cfg.name} {step}: launches {st['launches']}, want {want}")
+        runs[step] = toks, st
+    (tg, sg), (te, se) = runs["graph"], runs["eager"]
+    check(tg == te and sg["launches"] == se["launches"],
+          f"{cfg.name}: graph tokens or launches != eager")
+    check(sg["launches_per_replay"] == {
+        "decode_attention_paged": 2 * cfg.n_layers}
+        and sg["replays"] == sg["steps"] == se["steps"],
+        f"{cfg.name}: graph launches {sg['launches_per_replay']}")
+    check(states["graph"].pop("slots") == set(range(ENC_SLOTS))
+          == states["eager"].pop("slots"), "not every slot was used")
+    # page 0 is the trash page: dead writes
+    same = {k: bool(torch.equal(v[:, 1:], states["eager"][k][:, 1:]))
+            for k, v in states["graph"].items()}
+    check(all(same.values()), f"{cfg.name}: graph arenas != eager: {same}")
+    del states
+    keys = ("decode_ms_per_step", "decode_tok_s", "prefill_tok_s",
+            "prompt_tok_s", "encode_frames_s", "encode_s", "peak_bytes",
+            "peak_reserved_bytes", "steps", "capture_s", "graph_pool_bytes")
+    weights_bytes = sum(t.numel() * t.element_size()
+                        for t in _leaves(params))
+    say("parity", arch=cfg.name, check="paged: graph == eager tokens, "
+        "launches and arena pages", equal=True, pages_equal=same,
+        graph={k: sg.get(k) for k in keys},
+        eager={k: se.get(k) for k in keys},
+        eager_over_graph_ms=se["decode_ms_per_step"]
+        / sg["decode_ms_per_step"], weights_bytes=weights_bytes,
+        weights_read_ms=weights_bytes / HBM_BYTES_S * 1e3)
+    launches = {k: sg["launches"][k] for k in (
+        "flash_attention_fwd_gqa", "twopass_softmax_2d",
+        "decode_attention_paged")}
+
+    n, new = ENC_SAMPLED
+    for algo, kname in SSM_SOFTMAX:
+        model = Model(dataclasses.replace(cfg, softmax_algorithm=algo),
+                      m.device)
+        toks, st = serve_requests(torch, model, params,
+                                  _reqs(reqs, n, new), temperature=0.8,
+                                  **kw)
+        c = st["launches"]
+        check(all(len(t) == new and all(0 <= x < cfg.vocab for x in t)
+                  for t in toks), f"encdec {algo}: sampled tokens")
+        # two-pass: prefill self layers + the sampler (flash elsewhere);
+        # three-pass: no flash route, every softmax site takes the kernel
+        sites = (cfg.n_layers if algo == "two_pass"
+                 else cfg.n_enc_layers + 2 * cfg.n_layers)
+        check(c[kname] == st["admitted"] * (sites + 1) + st["steps"]
+              and all(c[k] == 0 for k in ENC_SOFTMAX if k != kname)
+              and (c["flash_attention_fwd_gqa"] > 0) == (algo == "two_pass"),
+              f"encdec {algo}: launches {c}")
+        check(st["launches_per_replay"] == {
+            "decode_attention_paged": 2 * cfg.n_layers, kname: 1},
+            f"encdec {algo}: a replay {st['launches_per_replay']}")
+        say("engine", arch=cfg.name, path=f"paged, {algo}, use_kernels="
+            "True, temperature=0.8, graph step", **st)
+        if algo != "two_pass":
+            launches[kname] = c[kname]
+
+    n, new = ENC_CHUNKED
+    chunked = {}
+    for step, fused in (("graph", True), ("eager", False)):
+        toks, st = serve_requests(torch, m, params, _reqs(reqs, n, new),
+                                  temperature=0.0, fused=fused,
+                                  enc_chunk=ENC_CHUNK, **kw)
+        windows = sum(-(-r.frames.shape[0] // ENC_CHUNK) for r in reqs[:n])
+        want = encdec_launches(cfg, st, windows)
+        check(all(st["launches"][k] == w for k, w in want.items()),
+              f"encdec chunked {step}: launches {st['launches']}, "
+              f"want {want}")
+        say("engine", arch=cfg.name, path=f"paged, enc_chunk={ENC_CHUNK}, "
+            f"use_kernels=True, temperature=0, {step} step",
+            windows=windows, **st)
+        chunked[step] = toks, st
+    (tg2, sg2), (te2, se2) = chunked["graph"], chunked["eager"]
+    check(tg2 == te2 and sg2["launches"] == se2["launches"],
+          "encdec chunked: graph tokens or launches != eager")
+    whole = [t[:new] for t in tg[:n]]
+    say("parity", arch=cfg.name, check=f"enc_chunk={ENC_CHUNK}: graph == "
+        "eager tokens and launches", equal=True,
+        tokens_equal_to_whole_encode=sum(a == b for x, y in zip(tg2, whole)
+                                         for a, b in zip(x, y)),
+        tokens_compared=n * new,
+        note="each window is encoded alone from position 0, so the "
+             "tokens may differ from a whole encode's")
+    return tg, launches
+
+
+def encdec_prefill_parity(torch, m, params, reqs) -> None:
+    """``Model.prefill`` logits with frames, kernels against the same
+    model with ``use_kernels=False``, within LOGIT_TOL of the largest
+    logit; the plain run launches nothing."""
+    import repro_torch.kernels as K
+    from repro_torch.models import Model
+
+    v = m.cfg.vocab
+    order = sorted(range(len(reqs)), key=lambda i: reqs[i].frames.shape[0])
+    pick = [reqs[i] for i in (order[0], order[len(order) // 2], order[-1])]
+
+    def logits(model):
+        return torch.cat([model.prefill(
+            params, torch.tensor([r.prompt], device="cuda"),
+            frames=torch.from_numpy(r.frames)[None].cuda())[0][:, :v]
+            .float() for r in pick])
+
+    got = logits(m)
+    plain = Model(dataclasses.replace(m.cfg, use_kernels=False), m.device)
+    K.reset_launch_counts()
+    want = logits(plain)
+    check(sum(K.launch_counts().values()) == 0,
+          "encdec: use_kernels=False launched a kernel")
+    worst = float(((got - want).abs().amax(1) / want.abs().amax(1)).max())
+    check(worst <= LOGIT_TOL, f"encdec prefill logits kernels vs plain: "
+          f"{worst}")
+    say("parity", arch=m.cfg.name, check="prefill logits with frames, "
+        "use_kernels=True vs False",
+        frames=[r.frames.shape[0] for r in pick],
+        prompt_lens=[len(r.prompt) for r in pick],
+        prefill_logits_max_err_over_max_logit=worst,
+        argmax_equal=int((got.argmax(1) == want.argmax(1)).sum()),
+        tol=f"{LOGIT_TOL} of the largest logit, as the engine phase")
+
+
+def encdec_teacher_forced(torch, m, params, req, toks):
+    """Logits [len(toks) + 1, V] of one request fed ``toks`` after its
+    prompt, two ways from one prefill: the engine's step
+    (``decode_step_ragged`` over a one-slot paged pool: the paged decode
+    kernel for the self and cross reads) and the lockstep one
+    (``Model.decode_step`` over the ``{"self", "cross"}`` cache: the flash
+    forward for the cross read, the two-pass softmax for the self)."""
+    from repro_torch.serving import engine, kv_cache
+
+    cfg, v = m.cfg, m.cfg.vocab
+    plen, t = len(req.prompt), req.frames.shape[0]
+    prompt = torch.tensor([req.prompt], device="cuda")
+    frames = torch.from_numpy(req.frames)[None].cuda()
+    tok = torch.tensor(toks, device="cuda")[:, None]
+    lg0, cache = m.prefill(params, prompt, frames=frames,
+                           max_len=plen + len(toks))
+    pool = kv_cache.init_paged_pool(cfg, 1, ENC_MAX_LEN, page_size=128,
+                                    cross_len=ENC_FRAMES, device="cuda")
+    n_self = pool["page_table"].shape[1]
+    rows = torch.arange(1, 1 + n_self + pool["cross_table"].shape[1],
+                        dtype=torch.int32, device="cuda")
+    kv_cache.adopt_slot_encdec(pool, cache, 0, plen, rows[:n_self], t,
+                               rows[n_self:])
+    paged, lock = [lg0], [lg0]
+    for i in range(len(toks)):
+        lg, _ = engine.decode_step_ragged(params, pool, tok[i], cfg=cfg)
+        paged.append(lg)
+        lg, cache = m.decode_step(params, cache, tok[i], plen + i)
+        lock.append(lg)
+    return (torch.cat(paged)[:, :v].float(), torch.cat(lock)[:, :v].float())
+
+
+def encdec_lockstep_bf16(torch, m, params, reqs, toks) -> None:
+    """Full depth, bf16: the served tokens of ENC_LOCKSTEP requests fed
+    back through :func:`encdec_teacher_forced`.  The engine's step and the
+    lockstep one sum in other orders, so greedy tokens are held ``==``
+    only at steps whose lockstep top-2 margin exceeds twice the largest
+    logit difference measured between the two; the served tokens are held
+    against the engine step's argmax the same way."""
+    n, steps = ENC_LOCKSTEP
+    paged, lock, served = [], [], []
+    for r, t in zip(reqs[:n], toks[:n]):
+        p, q = encdec_teacher_forced(torch, m, params, r, t[:steps])
+        paged.append(p)
+        lock.append(q)
+        served.append(torch.tensor(t[:steps + 1], device="cuda"))
+    paged, lock, served = (torch.stack(x) for x in (paged, lock, served))
+    abs_err = float((paged - lock).abs().max())
+    top2 = lock.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    decided = margin > 2 * abs_err
+    same = paged.argmax(-1) == lock.argmax(-1)
+    top2p = paged.topk(2, dim=-1).values
+    decided_p = top2p[..., 0] - top2p[..., 1] > 2 * abs_err
+    served_same = served == paged.argmax(-1)
+    say("encdec_lockstep", arch=m.cfg.name, dtype=m.cfg.dtype,
+        n_layers=m.cfg.n_layers, requests=n, steps=steps,
+        logits_max_abs_err=abs_err,
+        logits_max_err_over_max_logit=abs_err / float(lock.abs().max()),
+        tokens_equal=int(same.sum()), tokens_compared=same.numel(),
+        tokens_decided=int(decided.sum()),
+        margins_left_out=margin[~decided].tolist(),
+        margins_of_unequal=margin[~same].tolist(),
+        served_equal_to_engine_step=int(served_same.sum()),
+        rule="== where the lockstep top-2 margin exceeds 2 x the largest "
+             "logit difference between the engine's step and the lockstep")
+    check(bool(same[decided].all()), "encdec bf16: engine step != lockstep "
+          f"at a top-2 margin above 2 x {abs_err}")
+    check(bool(served_same[decided_p].all()),
+          "encdec bf16: served tokens != the engine step's argmax")
+
+
+def encdec_f32_cut(torch, m, reqs) -> None:
+    """Full width, depth cut to ENC_F32 layers, float32 activations and
+    weights: the engine's greedy tokens (graph step) ``==`` the batch-1
+    lockstep ``Model.generate`` over the same frames."""
+    from repro_torch.models import Model
+
+    layers, n, new = ENC_F32
+    cfg = dataclasses.replace(m.cfg, n_layers=layers, n_enc_layers=layers,
+                              dtype="float32")
+    model = Model(cfg, m.device)
+    params = model.init(seed=1, dtype=torch.float32)
+    sub = _reqs(reqs, n, new)
+    toks, st = serve_requests(torch, model, params, sub, temperature=0.0,
+                              slots=ENC_SLOTS, max_len=ENC_MAX_LEN,
+                              max_cross_len=ENC_FRAMES, seed=3)
+    want = [model.generate(
+        params, torch.tensor([r.prompt], device="cuda"), steps=new - 1,
+        temperature=0.0, max_len=len(r.prompt) + new,
+        frames=torch.from_numpy(r.frames)[None].cuda())[0].tolist()
+        for r in sub]
+    equal = sum(a == b for x, y in zip(toks, want) for a, b in zip(x, y))
+    say("encdec_lockstep", arch=cfg.name, dtype="float32",
+        n_layers=layers, requests=n, new_tokens=new, tokens_equal=equal,
+        tokens_compared=n * new, rule="==")
+    check(toks == want, "encdec float32: engine tokens != lockstep tokens")
+    del params
+
+
+def encdec_phase(torch, rows) -> dict:
+    """Phase 10; returns the main path's launches of kernels 1, 3 and 12
+    and the sampled runs' of kernels 5 and 6."""
+    from repro_torch.models import build_model
+
+    rng = np.random.default_rng(ENC_SEED)
+    m = build_model(ENC_ARCH, use_kernels=True)
+    cfg = m.cfg
+    encdec_kernel_checks(torch, rows, rng, cfg)
+    t0 = time.perf_counter()
+    params = m.init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    say("encdec_config", arch=ENC_ARCH, n_layers=cfg.n_layers,
+        n_enc_layers=cfg.n_enc_layers, d_model=cfg.d_model,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim(), d_ff=cfg.d_ff, vocab=cfg.vocab,
+        padded_vocab=cfg.padded_vocab(), act=cfg.act,
+        weights_s=time.perf_counter() - t0,
+        weights_bytes=sum(t.numel() * 2 for t in _leaves(params)),
+        param_count=cfg.param_count(), slots=ENC_SLOTS,
+        max_len=ENC_MAX_LEN, max_cross_len=ENC_FRAMES)
+    reqs = encdec_requests(rng, cfg)
+    toks, launches = encdec_serving(torch, m, params, reqs)
+    encdec_prefill_parity(torch, m, params, reqs)
+    encdec_lockstep_bf16(torch, m, params, reqs, toks)
+    for fused in (True, False):
+        decode_trace(torch, m, params, [r.prompt for r in reqs],
+                     fused=fused, slots=ENC_SLOTS, max_len=ENC_MAX_LEN,
+                     new=ENC_NEW[0], frames=[r.frames for r in reqs],
+                     max_cross_len=ENC_FRAMES)
+    encdec_f32_cut(torch, m, reqs)
+    del m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: training qwen2.5-14b at full width through Trainer.
 # ---------------------------------------------------------------------------
 TRAIN_LAYERS = 4            # depth cut from 48 (memory: 16 bytes a param)
 TRAIN_SEQ = 4096            # the config's train_4k length, batch 1
@@ -2689,7 +3175,7 @@ def train_trace(torch, step, state, batch) -> None:
 
 
 def cli_phase(torch) -> None:
-    """Phase 9: the serving CLI at full width as a user runs it."""
+    """Phase 12: the serving CLI at full width as a user runs it."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
            "--slots", "8", "--requests", "8", "--prompt-len", "256",
            "--steps", "8", "--softmax", "three_pass_reload", "--kernels"]
@@ -2712,7 +3198,7 @@ CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 
 
 def train_cli_phase(torch) -> None:
-    """Phase 10: the training CLI as a user runs it, reduced qwen2.5-14b
+    """Phase 13: the training CLI as a user runs it, reduced qwen2.5-14b
     with ``--kernels`` and a checkpoint directory: 6 steps straight, then 3
     (the crash) and a resume to 6 from the same directory; the final losses
     agree, and the flash and LM-head kernels ran."""
@@ -2804,20 +3290,22 @@ def kernel_group(name: str) -> str:
 
 def decode_trace(torch, m, params, prompts, *, fused: bool,
                  slots: int = N_SLOTS, max_len: int = MAX_LEN,
-                 new: int = NEW_TOKENS) -> None:
+                 new: int = NEW_TOKENS, frames=None, **engine_kw) -> None:
     """One decode burst alone under the profiler: ``slots`` slots admitted
     first (their prefills outside the trace), then ``new - 1`` steps in
     one burst.  Prints wall and device ms a step, the device's idle share
-    and its time by kernel group (what paces the step)."""
+    and its time by kernel group (what paces the step).  ``frames`` (an
+    encdec model's) go with the prompts; ``engine_kw`` to the engine."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.scheduler import ContinuousBatchingEngine
     from repro_torch.serving.scheduler import Request
 
     eng = ContinuousBatchingEngine(m, params, slots=slots, max_len=max_len,
-                                   temperature=0.0, fused=fused)
+                                   temperature=0.0, fused=fused, **engine_kw)
     for i in range(slots):
-        eng.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=new))
+        eng.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=new,
+                           frames=None if frames is None else frames[i]))
     eng._run_start = 0.0
     eng._admit_arrived(0.0)
     check(len(eng.active_slots()) == slots, "decode trace: admission")
@@ -2906,7 +3394,7 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=48,
                     help="decoder depth of the engine phase (full: 48)")
     ap.add_argument("--only", choices=("train", "swa", "engine", "mqa",
-                                       "ssm"),
+                                       "ssm", "encdec"),
                     help="run one phase alone (train: to compare the train "
                     "step of two trees on one card); no kernels or ok line")
     args = ap.parse_args()
@@ -2938,8 +3426,9 @@ def main() -> int:
         elif args.only == "engine":
             say("engine_done", launches=engine_phase(
                 torch, np.random.default_rng(0), args.layers)[0])
-        elif args.only in ("mqa", "ssm"):
-            phase = mqa_phase if args.only == "mqa" else ssm_phase
+        elif args.only in ("mqa", "ssm", "encdec"):
+            phase = {"mqa": mqa_phase, "ssm": ssm_phase,
+                     "encdec": encdec_phase}[args.only]
             t0 = time.perf_counter()
             say(f"{args.only}_done", launches=phase(
                 torch, {"twopass_softmax_2d": {}}),
@@ -2977,7 +3466,12 @@ def main() -> int:
         launches[name] += n
     say("ssm_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
+    enc_launches = encdec_phase(torch, rows)
+    say("encdec_done", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
     launches.update(train_phase(torch))
+    for name, n in enc_launches.items():     # the flash forward's too
+        launches[name] += n
     say("train_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     cli_phase(torch)

@@ -16,7 +16,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 # a leaf every layer of the family has: its stack length is the depth
-_LAYER_LEAF = {"dense": ("ln1", "scale"), "ssm": ("ln_t", "scale")}
+_LAYER_LEAF = {"dense": ("ln1", "scale"), "ssm": ("ln_t", "scale"),
+               "encdec": ("ln1", "scale")}
 
 
 def _to_torch(tree, device):
@@ -27,13 +28,17 @@ def _to_torch(tree, device):
 
 def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
                     device="cuda") -> dict:
-    """The port's parameters from a numpy tree of the reference's dense or
-    ssm LM parameters."""
+    """The port's parameters from a numpy tree of the reference's dense,
+    ssm or encdec LM parameters.  An encdec tree also has the encoder's
+    ``enc_blocks`` (stacked ``n_enc_layers``) and ``enc_norm``, and each
+    decoder block its cross-attention ``ln_x`` / ``xattn``."""
     if cfg.family not in _LAYER_LEAF:
         raise NotImplementedError(
-            f"family {cfg.family!r}: only dense and ssm weights convert yet")
+            f"family {cfg.family!r}: only dense, ssm and encdec weights "
+            "convert yet")
     want = {"embed", "norm_f", "blocks"} | (
-        set() if cfg.tie_embeddings else {"lm_head"})
+        set() if cfg.tie_embeddings else {"lm_head"}) | (
+        {"enc_blocks", "enc_norm"} if cfg.family == "encdec" else set())
     if set(tree_of_numpy) != want:
         raise ValueError(f"expected top-level keys {sorted(want)}, got "
                          f"{sorted(tree_of_numpy)}")
@@ -41,8 +46,14 @@ def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
     if table != (cfg.padded_vocab(), cfg.d_model):
         raise ValueError(f"embed table {table} does not match the config")
     norm, leaf = _LAYER_LEAF[cfg.family]
-    lead = np.shape(tree_of_numpy["blocks"][norm][leaf])[0]
-    if lead != cfg.n_layers:
-        raise ValueError(f"blocks stack {lead} layers, config has "
-                         f"{cfg.n_layers}")
+    stacks = [("blocks", cfg.n_layers)]
+    if cfg.family == "encdec":
+        stacks.append(("enc_blocks", cfg.n_enc_layers))
+        if "xattn" not in tree_of_numpy["blocks"]:
+            raise ValueError("encdec decoder blocks need ln_x / xattn")
+    for name, depth in stacks:
+        lead = np.shape(tree_of_numpy[name][norm][leaf])[0]
+        if lead != depth:
+            raise ValueError(f"{name} stack {lead} layers, config has "
+                             f"{depth}")
     return _to_torch(tree_of_numpy, torch.device(device))

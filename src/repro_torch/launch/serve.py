@@ -4,6 +4,8 @@
     python -m repro_torch.launch.serve --arch qwen2.5-14b --reduced \
         --device cpu
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --kernels
+    python -m repro_torch.launch.serve --arch whisper-base --kernels \
+        --enc-frames 1500 --enc-chunk 500
 
 Requests stream in (optionally Poisson -- ``--arrival-rate``), join the pool
 by prefilling into a free slot, decode raggedly one step at a time for every
@@ -13,11 +15,16 @@ softmax site (prefill attention scores, the sampler at ``--temperature >
 0``); ``--kernels`` runs those sites and the decode attention through the
 hand-written CUDA kernels.
 
+An encdec (whisper) request carries ``--enc-frames`` seeded encoder frame
+embeddings (default ``--prompt-len``; the audio front end is not
+modelled), whose cross K/V is adopted as read-only arena pages at
+admission; ``--enc-chunk`` encodes them that many frames a scheduler step.
+
 The model runs on ``--device`` (``cuda`` unless the CPU is asked for), with
 random weights made from seed 0 in the compute dtype.  Flags for what this
 package does not serve yet (int8 pages, host swap, the prefix cache,
-streaming, a mesh, families other than dense and ssm) exit with an error that names
-their ROADMAP item.
+streaming, a mesh, families other than dense, ssm and encdec) exit with an
+error that names their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ UNPORTED_FLAGS = {
     "kv_dtype": (None, 18), "scale_granularity": (None, 18),
     "host_swap_bytes": (None, 18), "shared_prefix_len": (0, 17),
     "no_prefix_cache": (False, 17), "stream": (False, 19),
-    "mesh": (None, 22), "enc_frames": (None, 12), "enc_chunk": (None, 12),
+    "mesh": (None, 22),
 }
 
 
@@ -75,9 +82,11 @@ def parser() -> argparse.ArgumentParser:
                    choices=["two_pass", "three_pass_recompute",
                             "three_pass_reload"])
     p.add_argument("--enc-frames", type=int, default=None,
-                   help="encdec encoder frames: not ported yet")
+                   help="encdec: encoder frames a request (default "
+                        "--prompt-len); the pool's max_cross_len")
     p.add_argument("--enc-chunk", type=int, default=None,
-                   help="encdec windowed encode: not ported yet")
+                   help="encdec: encode this many frames a scheduler step "
+                        "(default: the whole request at admission)")
     p.add_argument("--stream", action="store_true",
                    help="streaming generator: not ported yet")
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
@@ -122,12 +131,19 @@ def main(argv=None) -> None:
     # weights in the compute dtype: every use casts to it, so the results
     # equal float32 weights' at half the memory
     params = model.init(seed=0, dtype=torch_dtype(cfg.dtype))
-    eng = ContinuousBatchingEngine(
-        model, params, slots=args.slots,
-        max_len=args.prompt_len + args.steps + 8,
-        temperature=args.temperature, seed=2,
-        paged=False if args.strip else "auto", page_size=args.page_size,
-        pages=args.pages)
+    encdec = cfg.family == "encdec"
+    n_frames = args.enc_frames or args.prompt_len
+    try:
+        eng = ContinuousBatchingEngine(
+            model, params, slots=args.slots,
+            max_len=args.prompt_len + args.steps + 8,
+            temperature=args.temperature, seed=2,
+            paged=False if args.strip else "auto", page_size=args.page_size,
+            pages=args.pages,
+            **(dict(max_cross_len=n_frames, enc_chunk=args.enc_chunk)
+               if encdec else {}))
+    except ValueError as e:                  # e.g. encdec on the strip pool
+        p.error(str(e))
     rng = np.random.default_rng(0)
     arrivals = (np.cumsum(rng.exponential(1.0 / args.arrival_rate,
                                           args.requests))
@@ -135,7 +151,10 @@ def main(argv=None) -> None:
     reqs = [Request(rid=i,
                     prompt=tuple(rng.integers(0, cfg.vocab,
                                               args.prompt_len)),
-                    max_new_tokens=args.steps, arrival_s=float(arrivals[i]))
+                    max_new_tokens=args.steps, arrival_s=float(arrivals[i]),
+                    frames=(rng.standard_normal(
+                        (n_frames, cfg.d_model)).astype(np.float32)
+                        if encdec else None))
             for i in range(args.requests)]
     kernels.reset_launch_counts()
     comps = eng.run(reqs)
@@ -159,6 +178,9 @@ def main(argv=None) -> None:
     dec = st["decode_tokens"] / max(st["decode_s"], 1e-9)
     print(f"prefill: {st['prefill_tokens']} tok in {st['prefill_s']:.2f}s "
           f"({pre:.1f} tok/s)")
+    if encdec:
+        print(f"encode:  {st['encode_frames']} frames in "
+              f"{st['encode_s']:.2f}s (counted in prefill, as the frames)")
     print(f"decode:  {st['decode_tokens']} tok in {st['decode_s']:.2f}s "
           f"({dec:.1f} tok/s) via {args.softmax} sampler")
 

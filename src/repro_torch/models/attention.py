@@ -200,9 +200,19 @@ def init_attention(gen, cfg: ModelConfig, dtype, lead: tuple = ()) -> dict:
 
 def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
               causal: bool = True, cache: dict | None = None,
-              cache_pos=None, cache_positions=None, page_table=None,
+              cache_pos=None, xkv: torch.Tensor | None = None,
+              use_rope: bool = True, cache_positions=None, page_table=None,
               ring_valid=None):
-    """GQA self-attention.  x: [B, S, d].
+    """GQA attention.  x: [B, S, d].
+
+    * ``xkv`` ([B, T, d]): cross-attention, K/V from the encoder states,
+      no causal mask.  RoPE applies only when ``use_rope and xkv is
+      None``, as in the reference.
+    * ``cache`` with ``cache_pos`` None (and no ``cache_positions``): a
+      read-only cache (the lockstep decode's cross half): the query
+      attends all of it, and nothing is written.  The K/V this call would
+      project are not needed and not computed (the reference projects and
+      drops them).
 
     * ``cache`` + ``cache_pos`` (int): write-then-attend over the cache
       (prefill at 0, lockstep decode at the fill).
@@ -231,10 +241,17 @@ def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
     policy = cfg.softmax_policy()
 
     q = layers.dense(p["wq"], x).reshape(b, s, hq, hd)
-    k = layers.dense(p["wk"], x).reshape(b, s, hkv, hd)
-    v = layers.dense(p["wv"], x).reshape(b, s, hkv, hd)
-    q = layers.apply_rope(q, cos, sin)
-    k = layers.apply_rope(k, cos, sin)
+    rope = use_rope and xkv is None
+    if rope:
+        q = layers.apply_rope(q, cos, sin)
+    if cache is not None and cache_pos is None and cache_positions is None:
+        k = v = None                  # read-only: the cache is the K/V below
+    else:
+        src = x if xkv is None else xkv
+        k = layers.dense(p["wk"], src).reshape(b, src.shape[1], hkv, hd)
+        v = layers.dense(p["wv"], src).reshape(b, src.shape[1], hkv, hd)
+        if rope:
+            k = layers.apply_rope(k, cos, sin)
 
     if cache_positions is not None:
         assert cache is not None and s == 1
@@ -286,7 +303,35 @@ def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
 
     qg = q.reshape(b, s, hkv, gq, hd).permute(0, 2, 3, 1, 4)
     o = attention_core(qg, k.transpose(1, 2), v.transpose(1, 2),
-                       causal=causal, window=window, scale=hd ** -0.5,
-                       kv_len=kv_len, qpos=qpos, cfg=cfg)
+                       causal=causal and xkv is None, window=window,
+                       scale=hd ** -0.5, kv_len=kv_len, qpos=qpos, cfg=cfg)
     o = o.permute(0, 3, 1, 2, 4).reshape(b, s, hq * hd)
     return layers.dense(p["wo"], o), cache
+
+
+def cross_attention_paged(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
+                          kv: dict, cross_table, cross_lengths):
+    """Ragged READ-ONLY cross-attention over paged encoder K/V (the encdec
+    continuous-batching decode).  x: [B, 1, d], one decoder query a slot.
+    ``kv`` is one layer's page arenas (``{"k", "v"}: [P, ps, Hkv, hd]``),
+    the same arenas self-attention pages into; ``cross_table`` ([B,
+    Pmax_x] int32) and ``cross_lengths`` ([B] int32, the slot's encoder
+    frames) address the slot's encoder pages.  Nothing is written: the
+    cross pages were filled at admission, and the paged decode op's
+    length-prefix mask is exactly the cross mask (every frame visible, no
+    causality).  No RoPE, no window.  A slot of length 0 (free, or parked
+    mid-encode) reads exact zeros."""
+    b, s, _ = x.shape
+    assert s == 1
+    hd = cfg.resolved_head_dim()
+    hq, grouped, _, _ = head_layout(cfg)
+    if not grouped:
+        raise NotImplementedError(
+            "cross_attention_paged: only the grouped GQA layout is ported "
+            "(tensor-parallel head padding is ROADMAP queue A item 22)")
+    hkv = cfg.n_kv_heads
+    q = layers.dense(p["wq"], x).reshape(b, hkv, hq // hkv, hd)
+    o = kernel_ops.decode_attention_paged(
+        q, kv["k"], kv["v"], cross_table, cross_lengths, scale=hd ** -0.5,
+        window=None, policy=cfg.softmax_policy())
+    return layers.dense(p["wo"], o.reshape(b, 1, hq * hd))

@@ -76,7 +76,9 @@ def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     if act == "silu":
         h = F.silu(dense(p["gate"], x)) * up
     else:
-        h = F.gelu(up)
+        # the tanh form, as the reference's ``jax.nn.gelu`` (its default
+        # ``approximate=True``); the erf form differs by up to 4.7e-4
+        h = F.gelu(up, approximate="tanh")
     return dense(p["down"], h)
 
 

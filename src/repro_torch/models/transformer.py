@@ -1,5 +1,7 @@
-"""Model assembly for the dense and ssm (RWKV6) families: decoder-only LM
-with an LM head, and the dense family's training loss.
+"""Model assembly for the dense, ssm (RWKV6) and encdec (whisper)
+families: a decoder LM with an LM head (an encdec one also has an encoder
+over stubbed frame embeddings and cross-attention in every decoder block),
+and the dense family's training loss.
 
 Layer parameters are stacked on a leading ``[L]`` axis, as in the
 reference; the layer loop is a Python loop that indexes them (the
@@ -33,27 +35,41 @@ def layer(tree, i: int):
     return tree[i]
 
 
-def init_block(gen, cfg: ModelConfig, dtype, lead: tuple = ()) -> Params:
+def init_block(gen, cfg: ModelConfig, dtype, lead: tuple = (),
+               cross: bool = False) -> Params:
+    """``cross`` adds an encdec decoder block's cross-attention (``ln_x``,
+    ``xattn``)."""
     if cfg.family == "ssm":
         return rwkv_mod.init_rwkv_block(gen, cfg, dtype, lead)
     dev = gen.device
-    return {
-        "ln1": layers.init_rmsnorm(cfg.d_model, dtype, dev, lead),
-        "attn": attn_mod.init_attention(gen, cfg, dtype, lead),
-        "ln2": layers.init_rmsnorm(cfg.d_model, dtype, dev, lead),
-        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
-                               act=cfg.act, lead=lead),
-    }
+    p = {"ln1": layers.init_rmsnorm(cfg.d_model, dtype, dev, lead),
+         "attn": attn_mod.init_attention(gen, cfg, dtype, lead)}
+    if cross:
+        p["ln_x"] = layers.init_rmsnorm(cfg.d_model, dtype, dev, lead)
+        p["xattn"] = attn_mod.init_attention(gen, cfg, dtype, lead)
+    p["ln2"] = layers.init_rmsnorm(cfg.d_model, dtype, dev, lead)
+    p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                               act=cfg.act, lead=lead)
+    return p
 
 
 def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
-                cache_pos=None, cache_positions=None, page_table=None,
-                ring_valid=None):
+                cache_pos=None, enc=None, causal: bool = True,
+                cache_positions=None, page_table=None, ring_valid=None,
+                cross_table=None, cross_lengths=None):
     """One block.  x: [B, S, d] or [B, d] (a decode token).  Returns
     (x, cache), the cache written in place.  An ssm block's cache is its
     recurrent state ``{"wkv", "last_t", "last_c"}`` (no RoPE, no
     positions): a prefill starts from it and a decode token steps it, and
-    the new state is copied into it."""
+    the new state is copied into it.
+
+    An encdec decoder block (one with ``xattn``) reads the encoder by one
+    of three routes, as the reference: ``cross_table`` /
+    ``cross_lengths`` (with the ragged paged path) read the slot's
+    read-only cross pages in the same arenas (``cache``); ``enc`` ([B,
+    T_enc, d]) projects fresh cross K/V (prefill); otherwise ``cache`` is
+    the lockstep ``{"self", "cross"}`` cache and the cross half is read
+    whole.  ``causal=False`` is the encoder's self-attention."""
     if cfg.family == "ssm":
         if cache is None:
             return rwkv_mod.rwkv_block(p, x, cfg=cfg), None
@@ -65,12 +81,30 @@ def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
     single = x.ndim == 2
     xin = x[:, None] if single else x
     h = layers.rmsnorm(p["ln1"], xin, eps=cfg.norm_eps)
-    a, cache = attn_mod.attention(p["attn"], h, cos, sin, cfg=cfg,
-                                  cache=cache, cache_pos=cache_pos,
-                                  cache_positions=cache_positions,
-                                  page_table=page_table,
-                                  ring_valid=ring_valid)
+    lockstep_encdec = isinstance(cache, dict) and "cross" in cache
+    a, _ = attn_mod.attention(
+        p["attn"], h, cos, sin, cfg=cfg, causal=causal,
+        cache=cache["self"] if lockstep_encdec else cache,
+        cache_pos=cache_pos, cache_positions=cache_positions,
+        page_table=page_table, ring_valid=ring_valid)
     x1 = xin + a
+    if "xattn" in p:
+        hx = layers.rmsnorm(p["ln_x"], x1, eps=cfg.norm_eps)
+        if cross_table is not None:          # ragged paged cross read
+            xa = attn_mod.cross_attention_paged(
+                p["xattn"], hx, cfg=cfg, kv=cache, cross_table=cross_table,
+                cross_lengths=cross_lengths)
+        elif enc is not None:                # fresh cross K/V (prefill)
+            xa, _ = attn_mod.attention(p["xattn"], hx, cos, sin, cfg=cfg,
+                                       causal=False, xkv=enc)
+        elif lockstep_encdec:                # the lockstep cross half
+            xa, _ = attn_mod.attention(p["xattn"], hx, cos, sin, cfg=cfg,
+                                       causal=False, cache=cache["cross"],
+                                       use_rope=False)
+        else:
+            raise ValueError("an encdec decoder block needs enc=, a "
+                             "{'self', 'cross'} cache or cross_table=")
+        x1 = x1 + xa
     h2 = layers.rmsnorm(p["ln2"], x1, eps=cfg.norm_eps)
     out = x1 + layers.mlp(p["mlp"], h2, act=cfg.act)
     return (out[:, 0] if single else out), cache
@@ -94,10 +128,14 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     p: Params = {
         "embed": layers.init_embedding(gen, vp, cfg.d_model, dt),
         "norm_f": layers.init_rmsnorm(cfg.d_model, dt, gen.device),
-        "blocks": init_block(gen, cfg, dt, lead=(cfg.n_layers,)),
+        "blocks": init_block(gen, cfg, dt, lead=(cfg.n_layers,),
+                             cross=cfg.family == "encdec"),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = layers.init_dense(gen, cfg.d_model, vp, dt)
+    if cfg.family == "encdec":
+        p["enc_blocks"] = init_block(gen, cfg, dt, lead=(cfg.n_enc_layers,))
+        p["enc_norm"] = layers.init_rmsnorm(cfg.d_model, dt, gen.device)
     return p
 
 
@@ -127,6 +165,19 @@ def _scan_blocks(p_blocks, x, cos, sin, *, cfg: ModelConfig):
         x = (checkpoint(body, x, p, use_reentrant=False) if remat
              else body(x, p))
     return x
+
+
+def encode(params: Params, frames, *, cfg: ModelConfig):
+    """The encoder over stubbed frame embeddings [B, T, d] (the audio
+    front end is not modelled, as in the reference): non-causal
+    self-attention with RoPE at positions ``0 .. T-1``, then
+    ``enc_norm``."""
+    x = frames.to(torch_dtype(cfg.dtype))
+    cos, sin = _cos_sin(cfg, torch.arange(x.shape[1], device=x.device))
+    for i in range(cfg.n_enc_layers):
+        x, _ = block_apply(layer(params["enc_blocks"], i), x, cos, sin,
+                           cfg=cfg, causal=False)
+    return layers.rmsnorm(params["enc_norm"], x, eps=cfg.norm_eps)
 
 
 def forward(params: Params, tokens, *, cfg: ModelConfig):

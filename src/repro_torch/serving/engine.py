@@ -1,4 +1,5 @@
-"""Serving: prefill and single-token decode steps (dense and ssm families).
+"""Serving: prefill and single-token decode steps (dense, ssm and encdec
+families).
 
 ``decode_step`` is the lockstep step of one batch against a cache;
 ``decode_step_ragged`` is its continuous-batching form over a slot pool
@@ -53,7 +54,9 @@ def decode_step(params: Params, cache: dict, tokens, pos: int, *,
     (``kv_cache.init_cache(ring=True)``, or a prefill of ``max_len <=
     window``): the token goes to slot ``pos % T`` and attends the first
     ``min(pos + 1, T)`` slots.  An ssm config's cache is its state, which
-    takes no position."""
+    takes no position.  An encdec config's cache is ``{"self", "cross"}``
+    (:func:`prefill`): the token writes the self half and reads the cross
+    half whole."""
     b = tokens.shape[0]
     dev = _device(params)
     pos = int(pos)
@@ -62,9 +65,10 @@ def decode_step(params: Params, cache: dict, tokens, pos: int, *,
         return _finish(params, _ssm_layers(params, x, cache, cfg), cfg), cache
     cos, sin = _cos_sin_at(cfg, torch.tensor(pos, device=dev), b)
     cache_pos, ring_valid = pos, None
-    alloc = cache["k"].shape[2]
-    if cfg.swa_window is not None and alloc <= cfg.swa_window:
-        cache_pos, ring_valid = pos % alloc, min(pos + 1, alloc)
+    if cfg.swa_window is not None and cfg.family != "encdec":
+        alloc = cache["k"].shape[2]
+        if alloc <= cfg.swa_window:
+            cache_pos, ring_valid = pos % alloc, min(pos + 1, alloc)
     for i in range(cfg.n_layers):
         x, _ = transformer.block_apply(
             layer(params["blocks"], i), x, cos, sin, cfg=cfg,
@@ -97,6 +101,8 @@ def decode_step_ragged(params: Params, pool: dict, tokens, *,
     overwrites.  Returns (logits [S, V_padded], pool)."""
     kv, lengths = pool["kv"], pool["lengths"]
     page_table = pool.get("page_table")
+    cross_table = pool.get("cross_table")
+    cross_lengths = pool.get("cross_lengths")
     s = tokens.shape[0]
     if active is None:
         active = lengths > 0
@@ -110,14 +116,24 @@ def decode_step_ragged(params: Params, pool: dict, tokens, *,
         x, _ = transformer.block_apply(
             layer(params["blocks"], i), x, cos, sin, cfg=cfg,
             cache=layer(kv, i), cache_positions=lengths,
-            page_table=page_table)
+            page_table=page_table, cross_table=cross_table,
+            cross_lengths=cross_lengths)
     logits = _finish(params, x, cfg)
     lengths.add_(active.to(torch.int32))
     return logits, pool
 
 
+def _last(h, last_pos, dev):
+    """``h[:, -1]``, or each row at ``last_pos`` ([B] or scalar)."""
+    if last_pos is None:
+        return h[:, -1]
+    b = h.shape[0]
+    idx = torch.as_tensor(last_pos, device=dev).long().expand(b)
+    return h[torch.arange(b, device=dev), idx]
+
+
 def prefill(params: Params, tokens, *, cfg: ModelConfig,
-            max_len: int | None = None, last_pos=None):
+            max_len: int | None = None, last_pos=None, frames=None):
     """Process whole prompts; returns (logits at the last prompt token,
     filled cache of ``max_len`` positions).
 
@@ -126,10 +142,17 @@ def prefill(params: Params, tokens, *, cfg: ModelConfig,
     prompt and is hidden later by the pool's length mask).  None reads
     ``h[:, -1]``.  An ssm prompt must not be padded: a pad tail would run
     through the recurrence into the state decode goes on from (the
-    scheduler does not bucket ssm prompts)."""
+    scheduler does not bucket ssm prompts).
+
+    An encdec prompt is the decoder's; ``frames`` ([B, T_enc, d]) go
+    through the encoder first (:func:`prefill_with_encoder`)."""
     b, s = tokens.shape
     dev = _device(params)
     max_len = max(max_len or 0, s)
+    if cfg.family == "encdec":
+        enc = transformer.encode(params, frames, cfg=cfg)
+        return prefill_with_encoder(params, enc, tokens, cfg=cfg,
+                                    max_len=max_len, last_pos=last_pos)
     cache = kv_cache.init_cache(cfg, b, max_len, ring=False, device=dev)
     x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     if cfg.family == "ssm":
@@ -141,12 +164,40 @@ def prefill(params: Params, tokens, *, cfg: ModelConfig,
             x, _ = transformer.block_apply(
                 layer(params["blocks"], i), x, cos, sin, cfg=cfg,
                 cache=layer(cache, i), cache_pos=0)
-    if last_pos is None:
-        h = x[:, -1]
-    else:
-        idx = torch.as_tensor(last_pos, device=dev).long().expand(b)
-        h = x[torch.arange(b, device=dev), idx]
-    return _finish(params, h, cfg), cache
+    return _finish(params, _last(x, last_pos, dev), cfg), cache
+
+
+def prefill_with_encoder(params: Params, enc, tokens, *, cfg: ModelConfig,
+                         max_len: int | None = None, last_pos=None):
+    """The decoder's prefill over encoded frames ``enc`` ([B, T_enc, d]),
+    apart from :func:`prefill` so that chunked admission can encode a
+    request window by window and hand the joined states here.  Projects
+    each layer's cross K/V from ``enc`` once (the cache's ``"cross"``
+    half, read-only after, exactly ``T_enc`` positions long: the lockstep
+    cross read masks nothing, so a placeholder row past ``T_enc`` would
+    take softmax weight), then runs the decoder with ``cache_pos=0`` and
+    ``enc``, writing the prompt's self K/V.  Returns (logits at the last
+    prompt token, ``{"self", "cross"}`` cache)."""
+    b, s = tokens.shape
+    dev = _device(params)
+    max_len = max(max_len or 0, s)
+    dt = kv_cache.cache_dtype(cfg)
+    shape = (b, enc.shape[1], cfg.n_kv_heads, cfg.resolved_head_dim())
+    blocks = params["blocks"]["xattn"]
+    cache = {"self": kv_cache.init_cache(cfg, b, max_len, ring=False,
+                                         device=dev)["self"],
+             "cross": {n: torch.stack([
+                 layers.dense(layer(blocks[f"w{n}"], i), enc).reshape(
+                     shape).to(dt) for i in range(cfg.n_layers)])
+                 for n in ("k", "v")}}
+    x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    cos, sin = transformer._cos_sin(
+        cfg, transformer._positions_for(cfg, b, s, device=dev))
+    for i in range(cfg.n_layers):
+        x, _ = transformer.block_apply(
+            layer(params["blocks"], i), x, cos, sin, cfg=cfg,
+            cache=layer(cache, i), cache_pos=0, enc=enc)
+    return _finish(params, _last(x, last_pos, dev), cfg), cache
 
 
 def sample_token(logits, generator: torch.Generator | None,
@@ -175,15 +226,18 @@ def sample_token(logits, generator: torch.Generator | None,
 
 def generate_timed(params, prompt, *, cfg: ModelConfig, steps: int,
                    generator: torch.Generator | None = None,
-                   max_len: int | None = None, temperature: float = 1.0):
+                   max_len: int | None = None, temperature: float = 1.0,
+                   **prefill_kw):
     """Lockstep generation with per-phase timing: ``steps + 1`` tokens (one
-    from the prefill logits, ``steps`` decoded).  Returns (tokens [B,
+    from the prefill logits, ``steps`` decoded).  ``prefill_kw`` goes to
+    :func:`prefill` (an encdec prompt's ``frames``).  Returns (tokens [B,
     steps + 1], stats with prefill/decode seconds and token counts)."""
     b, s = prompt.shape
     dev = _device(params)
     max_len = max_len or (s + steps)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, prompt, cfg=cfg, max_len=max_len)
+    logits, cache = prefill(params, prompt, cfg=cfg, max_len=max_len,
+                            **prefill_kw)
     tok = sample_token(logits, generator, temperature, cfg=cfg,
                        vocab=cfg.vocab)
     sync(dev)
@@ -204,8 +258,9 @@ def generate_timed(params, prompt, *, cfg: ModelConfig, steps: int,
 
 def generate(params, prompt, *, cfg: ModelConfig, steps: int,
              generator: torch.Generator | None = None,
-             max_len: int | None = None, temperature: float = 1.0):
+             max_len: int | None = None, temperature: float = 1.0,
+             **prefill_kw):
     """Greedy/temperature lockstep generation: tokens [B, steps + 1]."""
     return generate_timed(params, prompt, cfg=cfg, steps=steps,
                           generator=generator, max_len=max_len,
-                          temperature=temperature)[0]
+                          temperature=temperature, **prefill_kw)[0]

@@ -1,5 +1,5 @@
-"""Cache construction for the dense and ssm families: the lockstep cache,
-the continuous-batching strip pool and the PAGED pool.
+"""Cache construction for the dense, ssm and encdec families: the lockstep
+cache, the continuous-batching strip pool and the PAGED pool.
 
 Cache leaves are stacked on a leading layer axis ``[L, ...]``.  The
 functions that change a pool change it IN PLACE and return it (the
@@ -21,7 +21,9 @@ copy per admission or step would double it.
 An ssm (RWKV6) cache is the recurrent state, with no position axis:
 ``{"wkv": float32 [L, B, H, hd, hd], "last_t", "last_c": [L, B, d]}`` in
 the compute dtype.  It rides the strip pool, one state a slot, and cannot
-page.
+page.  An encdec (whisper) lockstep cache is ``{"self", "cross"}``; its
+paged pool keeps the encoder's cross K/V as read-only pages of the same
+arenas, addressed by a second table.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ``T`` is ``max_len``, or ``min(max_len, swa_window)`` for an SWA config
     with ``ring`` (the ring that ``engine.decode_step`` addresses mod
     ``T``); prefill paths pass ``ring=False`` for position addressing.  An
-    ssm config's cache is its state, whatever ``max_len``."""
+    ssm config's cache is its state, whatever ``max_len``.  An encdec
+    config's is ``{"self": {"k", "v"}, "cross": {"k", "v"}}``."""
     check_ported(cfg, "its cache")
     dt = cache_dtype(cfg)
     if cfg.family == "ssm":
@@ -63,8 +66,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         alloc = min(max_len, cfg.swa_window)
     shape = (cfg.n_layers, batch, alloc, cfg.n_kv_heads,
              cfg.resolved_head_dim())
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def kv():
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    if cfg.family == "encdec":
+        # the cross half is a placeholder of max_len positions, as the
+        # reference's: the prefill replaces it with T_enc positions
+        return {"self": kv(), "cross": kv()}
+    return kv()
 
 
 # ---------------------------------------------------------------------------
@@ -125,28 +136,43 @@ def pages_per_slot(max_len: int, page_size: int) -> int:
 
 def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
                     page_size: int | None = None, pages: int | None = None,
-                    device="cuda") -> dict:
+                    cross_len: int | None = None, device="cuda") -> dict:
     """``{"kv": {"k", "v"}: [L, pages, ps, Hkv, hd], "page_table":
     int32[slots, pages_per_slot], "lengths": int32[slots]}``.  ``pages``
     defaults to full provisioning (``1 + slots * pages_per_slot``, page 0
-    the trash page); fewer oversubscribe the arena."""
+    the trash page); fewer oversubscribe the arena.
+
+    An encdec pool has two tables over the one arena: the encoder's
+    cross K/V has self K/V's leaf shape a position, so its pages live in
+    the same arenas (one allocator), addressed by ``cross_table
+    int32[slots, ceil(cross_len / ps)]`` and ``cross_lengths
+    int32[slots]`` (``cross_len`` defaults to ``max_len``; the default
+    ``pages`` covers both tables).  Cross pages are written once at
+    admission and only read after."""
     check_ported(cfg, "its cache")
     if not supports_paging(cfg):
         raise ValueError(f"family {cfg.family!r}: the recurrent state has "
                          "no position axis to page; use the strip pool")
     ps = resolve_page_size(cfg, max_len, page_size)
     n_tab = pages_per_slot(max_len, ps)
+    encdec = cfg.family == "encdec"
+    n_xtab = pages_per_slot(cross_len or max_len, ps) if encdec else 0
     if pages is None:
-        pages = 1 + slots * n_tab
+        pages = 1 + slots * (n_tab + n_xtab)
     shape = (cfg.n_layers, pages, ps, cfg.n_kv_heads,
              cfg.resolved_head_dim())
     dt = cache_dtype(cfg)
-    return {"kv": {"k": torch.zeros(shape, dtype=dt, device=device),
+
+    def i32(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+
+    pool = {"kv": {"k": torch.zeros(shape, dtype=dt, device=device),
                    "v": torch.zeros(shape, dtype=dt, device=device)},
-            "page_table": torch.zeros((slots, n_tab), dtype=torch.int32,
-                                      device=device),
-            "lengths": torch.zeros((slots,), dtype=torch.int32,
-                                   device=device)}
+            "page_table": i32(slots, n_tab), "lengths": i32(slots)}
+    if encdec:
+        pool["cross_table"] = i32(slots, n_xtab)
+        pool["cross_lengths"] = i32(slots)
+    return pool
 
 
 def _copy_pages(dst, src, page_row):
@@ -176,12 +202,37 @@ def adopt_slot_paged(pool: dict, cache: dict, slot: int, length: int,
     return pool
 
 
+def adopt_slot_encdec(pool: dict, cache: dict, slot: int, length: int,
+                      page_row: torch.Tensor, cross_len: int,
+                      cross_row: torch.Tensor) -> dict:
+    """Admit a batch=1 encdec prefill cache (``{"self", "cross"}``) into
+    ``slot``: the decoder's self K/V goes through ``page_row`` as
+    :func:`adopt_slot_paged`'s, the encoder's cross K/V through
+    ``cross_row`` into the same arenas, its tail page zero-padded and
+    hidden behind ``cross_lengths``.  The cross pages are never written
+    again.  Every tensor is written in place (a captured decode step reads
+    the tables)."""
+    for n, dst in pool["kv"].items():
+        _copy_pages(dst, cache["self"][n], page_row)
+        _copy_pages(dst, cache["cross"][n], cross_row)
+    pool["page_table"][slot] = page_row.to(torch.int32)
+    pool["lengths"][slot] = length
+    pool["cross_table"][slot] = cross_row.to(torch.int32)
+    pool["cross_lengths"][slot] = cross_len
+    return pool
+
+
 def free_slot_paged(pool: dict, slot: int) -> dict:
     """Mark ``slot`` free: length 0 and the table row reset to the trash
     page, so its dead writes cannot land in a page handed to someone
-    else."""
+    else.  An encdec pool's cross row and length are reset too: the cross
+    pages are only read, but a stale row must not alias pages handed
+    out again."""
     pool["page_table"][slot] = TRASH_PAGE
     pool["lengths"][slot] = 0
+    if "cross_table" in pool:
+        pool["cross_table"][slot] = TRASH_PAGE
+        pool["cross_lengths"][slot] = 0
     return pool
 
 

@@ -22,7 +22,12 @@ batch axis full.  The scheduler:
     requeued with prompt = original prompt + tokens so far), and a lone
     request that cannot grow retires as ``"oom_pages"``;
   * frees slots on max-tokens / EOS / cache-full and backfills them from
-    the queue between bursts.
+    the queue between bursts;
+  * for the encdec family (paged only), reserves a request's self and
+    cross pages in one allocation, encodes its frames whole or one
+    ``enc_chunk`` window a scheduler step (the slot parked meanwhile),
+    then prefills the decoder prompt and adopts both halves, the cross
+    K/V as read-only pages of the same arenas.
 
 Host state (who owns which slot and pages, emitted tokens) stays in Python;
 device state (arenas, page table, lengths) is the pool, changed in place.
@@ -39,6 +44,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.models import transformer
 from repro_torch.serving import engine, kv_cache
 from repro_torch.serving.fused import FusedStep, graph_for
 
@@ -60,12 +66,16 @@ def _unported(what: str, item: int):
 @dataclass
 class Request:
     """One generation request.  ``resumed`` marks a requeue after a page
-    preemption (prompt = original prompt + tokens generated before)."""
+    preemption (prompt = original prompt + tokens generated before).
+    ``frames`` (encdec only) are the encoder's frame embeddings [T_enc,
+    d_model]; they go with the request through a preemption, so that its
+    readmission encodes them again."""
     rid: int
     prompt: tuple[int, ...]
     max_new_tokens: int = 32
     arrival_s: float = 0.0             # offset from ``run()`` start
     resumed: bool = False
+    frames: np.ndarray | None = None   # encdec: [T_enc, d_model]
 
     def __post_init__(self):
         self.prompt = tuple(int(t) for t in self.prompt)
@@ -107,7 +117,13 @@ class ContinuousBatchingEngine:
     each burst.  A capture that fails raises.  ``fused=False`` keeps the
     step eager on the card: the oracle the graph is held against, as
     ``jax.disable_jit`` is the reference's.  On the CPU the step is
-    always eager."""
+    always eager.
+
+    encdec (paged only): ``max_cross_len`` bounds a request's encoder
+    frames (default ``max_len``) and sizes its cross table; ``enc_chunk``
+    encodes a request ``enc_chunk`` frames a scheduler step, each window
+    alone with its positions from 0 (the reference's streaming windows;
+    None encodes the whole request at admission)."""
 
     def __init__(self, model, params, *, slots: int | None = None,
                  max_len: int = 256, temperature: float = 1.0,
@@ -118,7 +134,9 @@ class ContinuousBatchingEngine:
                  avg_tokens_hint: int | None = None,
                  prefix_cache: bool | str = "auto", mesh=None,
                  page_dtype: str | None = None,
-                 host_swap_bytes: int | None = None, fused: bool = True):
+                 host_swap_bytes: int | None = None, fused: bool = True,
+                 max_cross_len: int | None = None,
+                 enc_chunk: int | None = None):
         cfg = model.cfg
         if prefix_cache is True:
             raise _unported("prefix_cache=True", 17)
@@ -130,8 +148,18 @@ class ContinuousBatchingEngine:
             raise _unported("mesh", 22)
         if paged == "auto":
             paged = kv_cache.supports_paging(cfg)
+        self.encdec = cfg.family == "encdec"
+        if self.encdec and not paged:
+            raise ValueError(
+                "encdec serving needs the paged pool: the encoder's cross "
+                "K/V lives in read-only arena pages (cross_table); the "
+                "strip pool has nowhere to put it")
+        if enc_chunk is not None and not self.encdec:
+            raise ValueError("enc_chunk only applies to the encdec family")
         self.paged = bool(paged)
         self.max_len = int(max_len)
+        self.max_cross_len = int(max_cross_len or max_len)
+        self.enc_chunk = int(enc_chunk) if enc_chunk else None
         self.page_size = (kv_cache.resolve_page_size(cfg, max_len, page_size)
                           if self.paged else None)
         if slots is None:
@@ -166,14 +194,24 @@ class ContinuousBatchingEngine:
         if self.paged:
             self.pages_per_slot = kv_cache.pages_per_slot(self.max_len,
                                                           self.page_size)
+            self.cross_pages_per_slot = (
+                kv_cache.pages_per_slot(self.max_cross_len, self.page_size)
+                if self.encdec else 0)
             if pages is None:
-                pages = 1 + self.n_slots * self.pages_per_slot
+                pages = 1 + self.n_slots * (self.pages_per_slot
+                                            + self.cross_pages_per_slot)
+            # an encdec pool's cross_table / cross_lengths exist from here
+            # on, before the capture, and are only written in place
             self.pool = kv_cache.init_paged_pool(
                 cfg, self.n_slots, self.max_len, page_size=self.page_size,
-                pages=int(pages), device=self.device)
+                pages=int(pages),
+                cross_len=self.max_cross_len if self.encdec else None,
+                device=self.device)
             self.allocator = kv_cache.PageAllocator(int(pages))
             self.slot_pages: list[list[int]] = [[] for _ in
                                                 range(self.n_slots)]
+            self.slot_cross_pages: list[list[int]] = [[] for _ in
+                                                      range(self.n_slots)]
         else:
             self.pool = kv_cache.init_slot_pool(cfg, self.n_slots,
                                                 self.max_len,
@@ -186,12 +224,18 @@ class ContinuousBatchingEngine:
         self.next_tok = np.zeros((self.n_slots,), np.int64)
         self.pending: list[Request] = []
         self.completions: list[Completion] = []
+        # encdec chunked admission: slot -> its encode in flight (pages
+        # reserved, windows still to run); the slot is neither free nor
+        # active until the last window lands
+        self._encoding: dict[int, dict] = {}
         self._carried: dict[int, tuple[int, list[int], float | None]] = {}
         self._admit_seq = 0
         self._run_start: float | None = None
+        # prefill_tokens counts an encdec request's frames and prompt, as
+        # the reference; encode_frames / encode_s are the encoder's share
         self.stats = dict(prefill_tokens=0, prefill_s=0.0, decode_tokens=0,
                           decode_s=0.0, steps=0, admitted=0, preempted=0,
-                          peak_pages=0)
+                          peak_pages=0, encode_frames=0, encode_s=0.0)
 
         # The decode step's static buffers: written in place each burst,
         # never rebound (a captured graph reads them).  ``_history`` keeps
@@ -262,6 +306,19 @@ class ContinuousBatchingEngine:
         return next(b for b in self.buckets if b >= plen)
 
     # -- request intake --------------------------------------------------------
+    def _check_frames(self, req: Request) -> int:
+        """An encdec request's frame count; raises for missing frames or
+        more than ``max_cross_len``."""
+        if req.frames is None:
+            raise ValueError(f"request {req.rid}: encdec requests need "
+                             "frames")
+        t_enc = int(req.frames.shape[0])
+        if t_enc > self.max_cross_len:
+            raise ValueError(
+                f"request {req.rid}: {t_enc} encoder frames exceed "
+                f"max_cross_len {self.max_cross_len}")
+        return t_enc
+
     def submit(self, req: Request) -> None:
         """Queue ``req``; requests that can never be served are rejected."""
         plen = len(req.prompt)
@@ -269,16 +326,21 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"request {req.rid}: prompt {plen} + {req.max_new_tokens} "
                 f"new tokens exceeds max_len {self.max_len}")
-        if self.paged and self._pages_for(plen) > self.allocator.usable_pages:
+        need = self._pages_for(plen) if self.paged else 0
+        if self.encdec:
+            need += self._pages_for(self._check_frames(req))
+        if self.paged and need > self.allocator.usable_pages:
             raise ValueError(
-                f"request {req.rid}: prompt {plen} needs "
-                f"{self._pages_for(plen)} pages; the pool has "
-                f"{self.allocator.usable_pages} (page_size {self.page_size})")
+                f"request {req.rid}: prompt {plen} needs {need} pages; the "
+                f"pool has {self.allocator.usable_pages} (page_size "
+                f"{self.page_size})")
         self.pending.append(req)
         self.pending.sort(key=lambda r: r.arrival_s)
 
     def free_slots(self) -> list[int]:
-        return [i for i, o in enumerate(self.slot_owner) if o is None]
+        """Slots with no owner; a slot parked mid-encode is reserved."""
+        return [i for i, o in enumerate(self.slot_owner)
+                if o is None and i not in self._encoding]
 
     def active_slots(self) -> list[int]:
         return [i for i, o in enumerate(self.slot_owner) if o is not None]
@@ -290,6 +352,15 @@ class ContinuousBatchingEngine:
     def _page_row(self, slot: int) -> np.ndarray:
         row = np.full((self.pages_per_slot,), kv_cache.TRASH_PAGE, np.int32)
         ids = self.slot_pages[slot]
+        row[:len(ids)] = ids
+        return row
+
+    def _cross_row(self, slot: int) -> np.ndarray:
+        """The slot's cross-table row (encdec): its cross pages, then the
+        trash page."""
+        row = np.full((self.cross_pages_per_slot,), kv_cache.TRASH_PAGE,
+                      np.int32)
+        ids = self.slot_cross_pages[slot]
         row[:len(ids)] = ids
         return row
 
@@ -306,6 +377,9 @@ class ContinuousBatchingEngine:
             kv_cache.free_slot_paged(self.pool, slot)
             self.allocator.free(self.slot_pages[slot])
             self.slot_pages[slot] = []
+            if self.encdec:
+                self.allocator.free(self.slot_cross_pages[slot])
+                self.slot_cross_pages[slot] = []
         else:
             kv_cache.free_slot(self.pool, slot)
 
@@ -313,6 +387,8 @@ class ContinuousBatchingEngine:
     def _admit(self, req: Request, slot: int, now: float) -> bool:
         """Prefill ``req`` into ``slot``; False (nothing consumed) when the
         page pool cannot back the prompt right now."""
+        if self.encdec:
+            return self._admit_encdec(req, slot, now)
         plen = len(req.prompt)
         bucket = self._bucket_for(plen)
         page_ids = None
@@ -349,15 +425,23 @@ class ContinuousBatchingEngine:
             self._note_peak()
         else:
             kv_cache.adopt_slot(self.pool, cache, slot, plen)
+        self._seat(req, slot, tok_dev, plen, now, now, t0)
+        return True
+
+    def _seat(self, req: Request, slot: int, tok_dev, tokens: int,
+              admitted_s: float, now: float, t0: float) -> None:
+        """Give ``slot`` to ``req`` after its prefill: wait for its first
+        token, count ``tokens`` prefilled since ``t0``, retire it if one
+        token was all it wanted."""
         tok = int(tok_dev[0])                # waits for the device
         t1 = time.perf_counter()
         self.stats["prefill_s"] += t1 - t0
-        self.stats["prefill_tokens"] += plen
+        self.stats["prefill_tokens"] += tokens
         self.stats["admitted"] += 1
         self._admit_seq += 1
-        comp = Completion(rid=req.rid, slot=slot, prompt_len=plen,
-                          max_new_tokens=req.max_new_tokens, admitted_s=now,
-                          seq=self._admit_seq)
+        comp = Completion(rid=req.rid, slot=slot, prompt_len=len(req.prompt),
+                          max_new_tokens=req.max_new_tokens,
+                          admitted_s=admitted_s, seq=self._admit_seq)
         comp.ttft_s = (max(0.0, t1 - self._run_start - req.arrival_s)
                        if self._run_start is not None else t1 - t0)
         self.slot_owner[slot] = comp
@@ -365,7 +449,88 @@ class ContinuousBatchingEngine:
         comp.tokens.append(tok)
         self.next_tok[slot] = tok
         self._maybe_retire(slot, now)        # max_new_tokens == 1
+
+    # -- encdec admission --------------------------------------------------------
+    def _admit_encdec(self, req: Request, slot: int, now: float) -> bool:
+        """Reserve the request's self and cross pages in one all-or-nothing
+        allocation, then encode its frames: whole (and finish now), or one
+        ``enc_chunk`` window a scheduler step with the slot parked in
+        ``_encoding`` while other requests go on admitting."""
+        plen = len(req.prompt)
+        t_enc = self._check_frames(req)
+        need = self._pages_for(plen) + self._pages_for(t_enc)
+        if need > self.allocator.usable_pages:
+            if req.resumed:
+                self._finalize_oom(req, now)
+                return True
+            raise ValueError(
+                f"request {req.rid}: prompt {plen} + {t_enc} frames need "
+                f"{need} pages; the pool has {self.allocator.usable_pages} "
+                f"(page_size {self.page_size})")
+        page_ids = self.allocator.alloc(need)
+        if page_ids is None:
+            return False
+        n_self = self._pages_for(plen)
+        self.slot_pages[slot] = page_ids[:n_self]
+        self.slot_cross_pages[slot] = page_ids[n_self:]
+        ent = dict(req=req, parts=[], off=0, admit_s=now)
+        if self.enc_chunk is None:
+            enc = self._encode(req.frames)
+            self._finish_encdec(slot, ent, enc, now)
+        else:
+            self._encoding[slot] = ent
         return True
+
+    def _encode(self, frames: np.ndarray) -> torch.Tensor:
+        """Encode frames [T, d] as one window: [1, T, d] on the device."""
+        t0 = time.perf_counter()
+        enc = transformer.encode(
+            self.params, torch.from_numpy(np.asarray(frames))[None].to(
+                self.device), cfg=self.cfg)
+        engine.sync(self.device)
+        dt = time.perf_counter() - t0
+        self.stats["encode_s"] += dt
+        self.stats["prefill_s"] += dt
+        self.stats["encode_frames"] += int(frames.shape[0])
+        return enc
+
+    def _advance_encoding(self, now: float) -> None:
+        """Encode one ``enc_chunk`` window of every parked slot (once a
+        scheduler step, between admission and the decode burst).  Each
+        window is encoded alone, its positions from 0; the windows are
+        joined on the position axis when the last one lands."""
+        for slot in list(self._encoding):
+            ent = self._encoding[slot]
+            frames = ent["req"].frames
+            end = min(int(frames.shape[0]), ent["off"] + self.enc_chunk)
+            ent["parts"].append(self._encode(frames[ent["off"]:end]))
+            ent["off"] = end
+            if end >= frames.shape[0]:
+                del self._encoding[slot]
+                self._finish_encdec(slot, ent, torch.cat(ent["parts"], 1),
+                                    now)
+
+    def _finish_encdec(self, slot: int, ent: dict, enc, now: float) -> None:
+        """The decoder prompt's prefill against the encoded frames (self
+        K/V written, cross K/V projected once), both halves adopted into
+        the arenas through their tables, the first token sampled."""
+        req = ent["req"]
+        plen = len(req.prompt)
+        t_enc = int(req.frames.shape[0])
+        bucket = self._bucket_for(plen)
+        t0 = time.perf_counter()
+        padded = torch.zeros((1, bucket), dtype=torch.int64)
+        padded[0, :plen] = torch.tensor(req.prompt)
+        logits, cache = engine.prefill_with_encoder(
+            self.params, enc, padded.to(self.device), cfg=self.cfg,
+            max_len=bucket, last_pos=plen - 1)
+        tok_dev = self._sample(logits)
+        self._prefill_shapes.add(bucket)
+        kv_cache.adopt_slot_encdec(
+            self.pool, cache, slot, plen, self._row(self._page_row(slot)),
+            t_enc, self._row(self._cross_row(slot)))
+        self._note_peak()
+        self._seat(req, slot, tok_dev, plen + t_enc, ent["admit_s"], now, t0)
 
     def _admit_arrived(self, now: float) -> None:
         free = self.free_slots()
@@ -422,7 +587,8 @@ class ContinuousBatchingEngine:
         remaining = comp.max_new_tokens - len(comp.tokens)
         self.pending.insert(0, Request(
             rid=comp.rid, prompt=tuple(req.prompt) + tuple(comp.tokens),
-            max_new_tokens=max(1, remaining), arrival_s=0.0, resumed=True))
+            max_new_tokens=max(1, remaining), arrival_s=0.0, resumed=True,
+            frames=req.frames))
         self._release_slot(slot)
         self.stats["preempted"] += 1
 
@@ -480,6 +646,8 @@ class ContinuousBatchingEngine:
             return 1
         if self.pending and self.free_slots():
             return 1
+        if self._encoding:
+            return 1                     # chunked encodes advance a step
         rem = min(c.max_new_tokens - len(c.tokens) for c in comps)
         head = min(self.max_len - (c.prompt_len + len(c.tokens))
                    for c in comps)
@@ -491,9 +659,11 @@ class ContinuousBatchingEngine:
         if now is None:
             now = 0.0
         self._admit_arrived(now)
+        if self._encoding:
+            self._advance_encoding(now)
         active = self.active_slots()
         if not active:
-            return False
+            return bool(self._encoding)
         runahead = self._runahead([self.slot_owner[s] for s in active])
         if self.paged:
             runahead = self._ensure_pages(runahead, now)
@@ -538,7 +708,7 @@ class ContinuousBatchingEngine:
                 req.arrival_s = 0.0
         start = time.perf_counter()
         self._run_start = start
-        while self.pending or self.active_slots():
+        while self.pending or self.active_slots() or self._encoding:
             now = (time.perf_counter() - start) if use_wall_clock else 0.0
             progressed = self.step(now=now)
             if not progressed and self.pending:
@@ -571,6 +741,17 @@ class ContinuousBatchingEngine:
             fused=self._fused is not None)
         if self._fused is not None:
             out.update(self._fused.info())
+        if self.encdec:
+            # the prefill's two parts apart: the encoder over the frames,
+            # the decoder over the prompt tokens
+            prompt = st["prefill_tokens"] - st["encode_frames"]
+            dec_s = st["prefill_s"] - st["encode_s"]
+            out.update(encode_frames=st["encode_frames"],
+                       encode_s=st["encode_s"],
+                       encode_frames_s=(st["encode_frames"] / st["encode_s"]
+                                        if st["encode_s"] else 0.0),
+                       prompt_tokens=prompt,
+                       prompt_tok_s=prompt / dec_s if dec_s > 0 else 0.0)
         if self.paged:
             out.update(page_size=self.page_size,
                        pages=self.allocator.usable_pages,

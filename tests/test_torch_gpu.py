@@ -8,6 +8,7 @@ a machine with a card:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 import importlib.util
 import json
 import math
@@ -573,6 +574,34 @@ def test_flash_op_autograd_and_policy_route(cuda, dtype):
 # ---------------------------------------------------------------------------
 # Decode attention (strip and paged) against the plain versions.
 # ---------------------------------------------------------------------------
+# The encdec family's shapes (whisper-base, D 64, 8 heads over 8 KV heads),
+# non-causal with Sq != Skv: the encoder's self-attention over one 30-s
+# window, the cross-attention at a prefill of 37 prompt tokens, and the
+# lockstep decode's cross read, one query a row.  The forward only: the
+# backward at these shapes is encdec training (ROADMAP item 28).
+FLASH_ENCDEC = [(1, 8, 8, 1500, 1500), (1, 8, 8, 37, 1500), (3, 8, 8, 1, 700)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_ENCDEC)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_at_the_encdec_shapes(cuda, dtype, case):
+    b, h, hkv, sq, skv = case
+    q, k, v, _ = _flash_inputs(cuda, dtype, b, h, hkv, sq, skv, 64)
+    kw = dict(causal=False, scale=64 ** -0.5, window=None)
+    o, m, n = tfa.flash_attention_fwd_gqa(q, k, v, **kw)
+    torch.cuda.synchronize()
+    po, pm, pn = tfa.flash_attention_fwd_gqa_plain(q, k, v, **kw)
+    assert o.dtype == dtype and o.shape == (b, h, sq, 64)
+    torch.testing.assert_close(o.float(), po.float(), **FLASH_TOL[dtype])
+    lse = torch.log(m) + n * txe.LN2
+    torch.testing.assert_close(lse, torch.log(pm) + pn * txe.LN2,
+                               atol=1e-5, rtol=1e-5)
+    again = tfa.flash_attention_fwd_gqa(q, k, v, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(again, (o, m, n)))
+    assert tk.launch_counts()["flash_attention_fwd_gqa"] == 2
+
+
 # bf16: the float32 results differ by the f32 sum order, then each rounds to
 # bf16, so they may land one bf16 step apart; f32: the order alone.  These
 # are chip_smoke.py's decode tolerances.
@@ -772,6 +801,17 @@ def test_decode_misaligned_rows_take_the_general_body(cuda):
 
 
 # ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernels_at_the_encdec_cross_read(cuda, dtype):
+    # whisper's cross read: G 1 (8 query heads over 8 KV heads), D 64, a
+    # shuffled table of 12 pages of 128 (1,500 frames), one empty slot
+    q, kp, vp, table, lens = _decode_inputs(
+        cuda, dtype, 64, 1, hkv=8, ps=128, pmax=12,
+        lengths=[600, 0, 1500, 1, 1499])
+    _check_decode(q, kp, vp, table, lens, dtype, ppt=1)
+
+
 # The fused decode step: the engine's step captured in a CUDA graph.
 # ---------------------------------------------------------------------------
 def _fused_model():
@@ -965,3 +1005,48 @@ def test_softmax_kernel_on_rwkv_sampler_rows(cuda, rows):
     got = tp.twopass_softmax_2d(x)
     torch.testing.assert_close(got, tp.twopass_softmax_2d_plain(x), **F32)
     assert tp.path_for(65536) == "split"
+
+
+# ---------------------------------------------------------------------------
+# The encdec family (whisper-base): the cross read inside the graph step.
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc_chunk", [None, 4], ids=["whole", "chunked"])
+def test_whisper_graph_step_equals_eager(cuda, enc_chunk):
+    from repro_torch.models import build_model
+
+    m = build_model("whisper-base", reduced=True, use_kernels=True)
+    assert m.cfg.n_layers == 2
+    params = m.init(seed=0)
+    reqs = _fused_requests(m.cfg.vocab)
+    gen = torch.Generator().manual_seed(3)
+    for i, r in enumerate(reqs):
+        r.frames = torch.randn((5 + 2 * i, m.cfg.d_model),
+                               generator=gen).numpy()
+    runs = {}
+    for fuse in (True, False):
+        eng = m.serving_engine(params, slots=3, max_len=48, page_size=8,
+                               max_cross_len=16, enc_chunk=enc_chunk,
+                               temperature=0.0, fused=fuse)
+        tk.reset_launch_counts()
+        comps = eng.run([dataclasses.replace(r) for r in reqs])
+        torch.cuda.synchronize()
+        runs[fuse] = [c.tokens for c in comps], tk.launch_counts(), eng
+    (toks, counts, eng), (toks_e, counts_e, eng_e) = runs[True], runs[False]
+    assert toks == toks_e and counts == counts_e
+    st = eng.stats
+    assert st["admitted"] == 5 > eng.n_slots
+    # a replay: self and cross reads, one each a layer
+    assert eng._fused.launches == {"decode_attention_paged":
+                                   2 * m.cfg.n_layers}
+    assert eng._fused.replays == st["steps"] == eng_e.stats["steps"]
+    # every encode window and every prefill's cross read take the flash
+    # forward (the decoder's self-attention prefill takes the softmax)
+    windows = sum(-(-r.frames.shape[0] // (enc_chunk or 99)) for r in reqs)
+    assert counts["flash_attention_fwd_gqa"] == (
+        m.cfg.n_enc_layers * windows + m.cfg.n_layers * st["admitted"])
+    for name in ("k", "v"):                     # page 0: the trash page
+        assert torch.equal(eng.pool["kv"][name][:, 1:],
+                           eng_e.pool["kv"][name][:, 1:])
+    for name in ("page_table", "lengths", "cross_table", "cross_lengths"):
+        assert torch.equal(eng.pool[name], eng_e.pool[name]), name

@@ -1,7 +1,7 @@
 """The port's serving CLI (``python -m repro_torch.launch.serve``) on the CPU:
-it serves a reduced model under each softmax algorithm, and every flag for
-something not ported yet exits with an error that names its ROADMAP
-item."""
+it serves a reduced model under each softmax algorithm, the ssm and encdec
+families too, and every flag for something not ported yet exits with an
+error that names its ROADMAP item."""
 
 import os
 import pathlib
@@ -39,8 +39,7 @@ def test_cli_serves_on_the_cpu(extra, capsys):
     (["--kv-dtype", "int8"], 18), (["--scale-granularity", "page"], 18),
     (["--host-swap-bytes", "1000"], 18), (["--shared-prefix-len", "4"], 17),
     (["--no-prefix-cache"], 17), (["--stream"], 19), (["--mesh", "2x2"], 22),
-    (["--enc-frames", "8"], 12), (["--enc-chunk", "4"], 12),
-    (["--arch", "whisper-base"], 12), (["--arch", "qwen2-vl-7b"], 14),
+    (["--arch", "qwen2-vl-7b"], 14),
     (["--arch", "granite-moe-3b-a800m"], 13),
     (["--arch", "hymba-1.5b"], 16),
     (["--arch", "deepseek-v2-lite-16b"], 13),
@@ -50,6 +49,27 @@ def test_unported_flags_exit_with_their_item(flags, item, capsys):
         serve.main(BASE + flags)
     assert e.value.code == 2
     assert f"ROADMAP queue A item {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,frames", [
+    (["--enc-frames", "8"], 8), (["--enc-frames", "8", "--enc-chunk", "4"], 8),
+    ([], 12)], ids=["enc-frames", "enc-chunk", "frames-default"])
+def test_cli_serves_the_encdec_family(flags, frames, capsys):
+    serve.main(["--arch", "whisper-base"] + BASE[2:]
+               + ["--temperature", "0", "--kernels"] + flags)
+    out = capsys.readouterr().out
+    assert "whisper-base: served 3 requests over 2 slots / paged pool" in out
+    # prefill counts each request's frames and prompt, as the reference
+    assert f"prefill: {3 * (12 + frames)} tok" in out
+    assert f"encode:  {3 * frames} frames" in out
+    assert "decode:  9 tok" in out and "kernel launches: {}" in out
+
+
+def test_cli_refuses_the_strip_pool_for_encdec(capsys):
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--arch", "whisper-base"] + BASE[2:] + ["--strip"])
+    assert e.value.code == 2 and "needs the paged pool" in \
+        capsys.readouterr().err
 
 
 def test_cli_serves_the_ssm_family_on_the_strip_pool(capsys):

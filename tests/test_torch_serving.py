@@ -156,9 +156,10 @@ def test_unported_options_raise(weights, kw, item):
 
 
 def test_unported_families_and_policy_sites_raise():
-    # the ssm family is served (tests/test_torch_ssm.py); encdec is not
-    with pytest.raises(NotImplementedError, match="encdec.*item 12"):
-        m = tbuild("whisper-base", reduced=True, device="cpu")
+    # the ssm and encdec families are served (tests/test_torch_ssm.py,
+    # tests/test_torch_encdec.py); moe is not
+    with pytest.raises(NotImplementedError, match="moe.*item 13"):
+        m = tbuild("granite-moe-3b-a800m", reduced=True, device="cpu")
         m.init(0)
     # every softmax site of the dense family is ported: the LM-head CE
     # (tests/test_torch_training.py) and the flash route of a no-cache
