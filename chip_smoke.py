@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--layers N]
-                          [--only {train,swa,engine,mqa,ssm,encdec}]
+                          [--only {train,swa,engine,mqa,ssm,encdec,moe}]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -127,7 +127,30 @@ Phases (any failure exits non-zero; nothing is caught):
    where the top-2 margin exceeds twice their logit difference), a decode
    burst under the profiler, graph and eager, and a 2-layer float32 cut
    whose served tokens ``==`` the batch-1 lockstep ``Model.generate``;
-11. training: qwen2.5-14b at full width, depth cut to 4 layers (float32
+11. moe: granite-moe-3b-a800m at full width and depth (32 layers,
+   d_model 1536, 24 query heads over 8 KV heads of 64, 40 experts top 8 of
+   d_expert 512, no shared expert, vocab 49155, bf16 weights with the
+   router in float32).  The two-pass softmax and the three-pass kernels
+   on the router's float32 rows [2048, 40] and [32, 40] and on the
+   sampler's rows [32, 49155], and the decode kernels at G 3, D 64 over
+   32 slots of up to 4,160 positions, bf16 and float32, each against its
+   plain version, timed beside its library call and bound; then 50
+   greedy requests (48 of 200-2,048 prompt tokens, one of 4,096 -- two
+   capacity groups of 2,048 -- and one of 3,000, capacity 750; 64 new
+   tokens each) on 32 slots, ``max_len`` 4,160, ``moe_impl="dispatch"``:
+   paged with the decode step a CUDA graph (the main path: the router's
+   softmax and the decode read once a layer a replay), paged eager (the
+   same tokens, launches and arena pages), strip (the same tokens) and
+   under ``moe_impl="gather"`` (the dispatch tokens wherever the top-2
+   margin exceeds twice the impls' logit difference, from both fed the
+   served tokens), ``temperature=0.8`` under each softmax algorithm (the
+   router and the sampler through its kernel), prefill logits against
+   ``use_kernels=False``, the 32 layers' MoE of one step alone beside the
+   time to read every expert once, a decode burst under the profiler,
+   graph and eager (the MoE's kernels a group of their own), and a
+   2-layer float32 cut whose served tokens ``==`` the batch-1 lockstep
+   ``Model.generate``;
+12. training: qwen2.5-14b at full width, depth cut to 4 layers (float32
    parameters, bf16 activations, remat), batch 1 x 4096 from SyntheticLM,
    with the model's own ``use_kernels``: from one state the kernel route
    (flash attention, fused LM-head CE) and the plain route (tensor forms,
@@ -138,9 +161,9 @@ Phases (any failure exits non-zero; nothing is caught):
    a fourth under the profiler shows where the step's device time goes,
    and the same three steps on the plain route from the same initial
    weights give the comparison;
-12. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
+13. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
    three_pass_reload --kernels``, at full width, as a subprocess;
-13. the training CLI, ``python -m repro_torch.launch.train --arch
+14. the training CLI, ``python -m repro_torch.launch.train --arch
    qwen2.5-14b --reduced --kernels`` with a checkpoint directory under
    ``build/``: 6 steps straight, then 3 and a resume to 6, whose final
    losses agree.
@@ -1415,8 +1438,8 @@ def serve_requests(torch, model, params, reqs, state=None, **kw):
     its graph's warm-up and capture, is built) and read just after.
     Returns (tokens a request, the engine's throughput with the wall time,
     launches, ms a decode step, the capture's seconds, graph pool bytes and
-    launches a replay when fused, and the peak bytes allocated and
-    reserved since before the engine was built).  A dict ``state`` gets a
+    launches a replay when fused, the bytes allocated before the engine
+    was built, and the peak bytes allocated and reserved since).  A dict ``state`` gets a
     copy of the pool's cache leaves after the run and the slots that
     served a request (``"slots"``)."""
     import repro_torch.kernels as K
@@ -1424,6 +1447,7 @@ def serve_requests(torch, model, params, reqs, state=None, **kw):
     gc.collect()
     torch.cuda.empty_cache()             # peaks from this run's state alone
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     eng = model.serving_engine(params, **kw)
     K.reset_launch_counts()
     t = time.perf_counter()
@@ -1435,6 +1459,7 @@ def serve_requests(torch, model, params, reqs, state=None, **kw):
     out = dict(eng.throughput(), wall_s=wall, launches=counts,
                decode_ms_per_step=(eng.stats["decode_s"]
                                    / max(1, eng.stats["steps"]) * 1e3),
+               base_bytes=base,
                peak_bytes=torch.cuda.max_memory_allocated(),
                peak_reserved_bytes=torch.cuda.max_memory_reserved())
     if state is not None:
@@ -1734,22 +1759,27 @@ def softmax_rows_check(torch, rows, key, x, case, **info) -> None:
 
 
 def decode_case(torch, rows, gen, case, *, lengths, tab, hkv, g, d,
-                window=None, ps=128) -> None:
-    """Kernels 3 and 4 on bf16 q [S, hkv, g, d] and a seeded arena read
-    through ``tab`` (the strip pool is the same pages laid end to end) at
-    ``lengths``, against their plain versions (bf16 tolerance of the kernel
-    phase), strip bit-equal to paged; timed by graph replay into
-    ``rows[kernel][case]`` beside ``scaled_dot_product_attention`` over the
-    strip, with the bound of the visible positions' bytes."""
+                window=None, ps=128, dtype=None) -> None:
+    """Kernels 3 and 4 on q [S, hkv, g, d] (bf16 unless ``dtype``) and a
+    seeded arena read through ``tab`` (the strip pool is the same pages
+    laid end to end) at ``lengths``, against their plain versions (the
+    kernel phase's tolerance for the dtype), strip bit-equal to paged;
+    timed by graph replay into ``rows[kernel][case]`` beside
+    ``scaled_dot_product_attention`` over the strip, with the bound of the
+    visible positions' bytes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
 
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf = "cuda", dtype or torch.bfloat16
     s, pmax = tab.shape
     n_pages = 1 + s * pmax
     lens = torch.from_numpy(lengths).to(dev)
-    bf16_tol = dict(atol=1e-5, rtol=1e-2)        # as in the kernel phase
+    # as in the kernel phase: bf16 may round one step apart, float32 differs
+    # by the sum order
+    tol = (dict(atol=1e-5, rtol=1e-2) if bf == torch.bfloat16
+           else dict(atol=1e-5, rtol=0.0))
+    size = torch.finfo(bf).bits // 8
     q = torch.randn((s, hkv, g, d), device=dev, generator=gen).to(bf)
     kp, vp = (torch.randn((n_pages, ps, hkv, d), device=dev,
                           generator=gen).to(bf) for _ in "kv")
@@ -1776,14 +1806,14 @@ def decode_case(torch, rows, gen, case, *, lengths, tab, hkv, g, d,
         mask &= pos > lens[:, None] - 1 - window
     visible = int(mask.sum())
     q_l = q.reshape(s, hkv * g, 1, d)
-    b_ms, b_by = bound(visible * hkv * 2 * d * 2 + 2 * q.numel() * 2
+    b_ms, b_by = bound(visible * hkv * 2 * d * size + 2 * q.numel() * size
                        + s * pmax * 4 + s * 4,
                        visible * hkv * g * (4 * d + 20))
     paged_out = None
     for name, (fn, plain) in fns.items():
         got = fn()
         torch.cuda.synchronize()
-        r = held(got, plain(), bf16_tol, f"{name} {case}")
+        r = held(got, plain(), tol, f"{name} {case}")
         if paged_out is None:
             paged_out = got
         else:
@@ -2937,7 +2967,421 @@ def encdec_phase(torch, rows) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: training qwen2.5-14b at full width through Trainer.
+# Phase 11: the moe family, granite-moe-3b-a800m, at full width and depth.
+# ---------------------------------------------------------------------------
+MOE_ARCH = "granite-moe-3b-a800m"   # 32 layers, d 1536, 24 / 8 heads of 64,
+                                    # 40 experts top 8 of 512, vocab 49155
+MOE_SEED = 28
+MOE_SLOTS = 32
+MOE_PROMPTS = (48, 200, 2049)       # requests, prompt lengths [lo, hi)
+MOE_LONG = (4096, 3000)             # two groups of 2,048; one group, cap 750
+MOE_NEW = 64
+MOE_MAX_LEN = MOE_LONG[0] + MOE_NEW
+MOE_SAMPLED = (32, 128, 8)          # temperature 0.8: requests, prompt, new
+MOE_FORCED = 16                     # requests fed back through both impls
+MOE_TRACE = (1024, 32, 8)           # the traces: prompt cut, new tokens
+                                    # graph and eager (a burst of 31 / 7)
+MOE_F32 = (2, 8, 32)                # float32 cut: layers, requests, new
+
+
+def moe_kernel_checks(torch, rows, rng, cfg) -> None:
+    """Kernel 1 on the router's float32 rows [2048, 40] (one prefill
+    group) and [32, 40] (a decode step's slots) and on the sampler's rows
+    [32, 49155]; kernels 5 and 6 on the same rows; the decode kernels at G
+    3, D 64 (24 query heads over 8 KV heads) over 32 slots of the served
+    lengths, bf16 and float32.  Each against its plain version, timed
+    beside its library call and bound."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    e = cfg.moe.n_experts
+    three = [k for _, k in SSM_SOFTMAX[1:]]
+    # router logits: rms-normed activations over a d**-0.5 router, about
+    # unit scale
+    for r in (2048, MOE_SLOTS):
+        x = torch.randn((r, e), device=dev, generator=gen)
+        key = f"moe_router_rows_{r}"
+        softmax_rows_check(torch, rows, key, x, f"moe router rows [{r}, {e}]")
+        for kname in three:
+            sampler_rows_check(torch, rows, kname, x, key)
+    x = torch.randn((MOE_SLOTS, cfg.vocab), device=dev,
+                    generator=gen) * 8 / 0.8
+    softmax_rows_check(torch, rows, "moe_sampler_rows", x,
+                       "moe sampler rows, temperature 0.8")
+    for kname in three:
+        sampler_rows_check(torch, rows, kname, x, "moe_sampler_rows")
+    del x
+    s, ps = MOE_SLOTS, 128
+    pmax = -(-MOE_MAX_LEN // ps)
+    lengths = rng.integers(201, MOE_MAX_LEN + 1, s).astype(np.int32)
+    lengths[:3] = (1, MOE_MAX_LEN, MOE_LONG[1] + MOE_NEW)
+    tab = torch.from_numpy(rng.permutation(np.arange(1, 1 + s * pmax))
+                           .reshape(s, pmax).astype(np.int32)).to(dev)
+    for dt in (torch.bfloat16, torch.float32):
+        decode_case(torch, rows, gen, f"g3_d64_{str(dt)[6:]}",
+                    lengths=lengths, tab=tab, hkv=cfg.n_kv_heads,
+                    g=cfg.n_heads // cfg.n_kv_heads,
+                    d=cfg.resolved_head_dim(), ps=ps, dtype=dt)
+    torch.cuda.empty_cache()
+
+
+def moe_launches(cfg, st, sampled: bool = False) -> dict:
+    """The kernels a moe run launches: a prefill runs each layer's score
+    rows and router rows through the softmax kernel (and its first token's
+    sampler rows when ``sampled``), a step each layer's router rows and
+    decode read (and the sampler's rows)."""
+    n_l = cfg.n_layers
+    extra = 1 if sampled else 0
+    read = "decode_attention_paged" if st["paged"] else "decode_attention"
+    return {"softmax": st["admitted"] * (2 * n_l + extra)
+            + st["steps"] * (n_l + extra), read: st["steps"] * n_l}
+
+
+def moe_serving(torch, m, params, prompts) -> tuple:
+    """The served traffic through ``Model.serving_engine`` (32 slots,
+    ``max_len`` 4,160, ``moe_impl="dispatch"``): paged with the decode
+    step a CUDA graph (the main path), paged eager (the same tokens,
+    launches and arena pages), strip (the same tokens), paged under
+    ``moe_impl="gather"``; then ``temperature=0.8`` under each softmax
+    algorithm, whose kernel the router and the sampler run.  Returns (the
+    dispatch and gather tokens, the main path's launches of kernels 1 and
+    3, the strip run's of kernel 4, the sampled runs' of kernels 5 and
+    6)."""
+    from repro_torch.models import Model
+    from repro_torch.serving.scheduler import Request
+
+    cfg = m.cfg
+    n_l = cfg.n_layers
+
+    def reqs(cut=None, new=MOE_NEW, n=None):
+        return [Request(rid=i, prompt=p[:cut], max_new_tokens=new)
+                for i, p in enumerate(prompts[:n])]
+
+    kw = dict(slots=MOE_SLOTS, max_len=MOE_MAX_LEN, seed=3)
+    keys = ("decode_ms_per_step", "decode_tok_s", "prefill_tok_s",
+            "peak_bytes", "peak_reserved_bytes", "steps", "capture_s",
+            "graph_pool_bytes", "wall_s")
+    runs, states = {}, {}
+
+    def run(name, paged, fused, impl, keep=False):
+        """``keep``: copy the arena after the run into ``states``."""
+        if keep:
+            states[name] = {}
+        toks, st = serve_requests(torch, m, params, reqs(),
+                                  state=states.get(name),
+                                  temperature=0.0, paged=paged, fused=fused,
+                                  moe_impl=impl, **kw)
+        say("engine", arch=cfg.name, path=f"{'paged' if paged else 'strip'}"
+            f", moe_impl={impl}, use_kernels=True, temperature=0, "
+            f"{'graph' if fused else 'eager'} step",
+            prompt_lens=[len(p) for p in prompts], **st)
+        check(st["fused"] is fused and st["paged"] is paged,
+              f"{cfg.name} {name}: fused {st['fused']}, paged {st['paged']}")
+        check(all(len(t) == MOE_NEW for t in toks),
+              f"{cfg.name} {name}: token counts")
+        check(st["admitted"] == len(prompts) > MOE_SLOTS
+              and st["prefill_shapes"] == len(set(map(len, prompts))),
+              f"{cfg.name} {name}: backfill, or a prompt was padded")
+        want = moe_launches(cfg, st)
+        read = next(k for k in want if k != "softmax")
+        c = dict(st["launches"])
+        got = {"softmax": c.pop("twopass_softmax_2d"), read: c.pop(read)}
+        check(got == want and not any(c.values()),
+              f"{cfg.name} {name}: launches {st['launches']}, want {want}")
+        if fused:
+            check(st["launches_per_replay"] == {
+                read: n_l, "twopass_softmax_2d": n_l}
+                and st["replays"] == st["steps"],
+                f"{cfg.name} {name}: a replay {st['launches_per_replay']}")
+        runs[name] = toks, st
+
+    run("graph", True, True, "dispatch", keep=True)
+    run("eager", True, False, "dispatch", keep=True)
+    (tg, sg), (te, se) = runs["graph"], runs["eager"]
+    check(tg == te and sg["launches"] == se["launches"],
+          f"{cfg.name}: graph tokens or launches != eager")
+    check(states["graph"].pop("slots") == set(range(MOE_SLOTS))
+          == states["eager"].pop("slots"), "not every slot was used")
+    # page 0 is the trash page: dead writes
+    same = {k: bool(torch.equal(v[:, 1:], states["eager"][k][:, 1:]))
+            for k, v in states["graph"].items()}
+    check(all(same.values()), f"{cfg.name}: graph arenas != eager: {same}")
+    states.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    weights_bytes = sum(t.numel() * t.element_size()
+                        for t in _leaves(params))
+    m_cfg = cfg.moe
+    experts_bytes = (n_l * m_cfg.n_experts * 3 * cfg.d_model
+                     * m_cfg.d_expert * 2)
+    say("parity", arch=cfg.name, check="paged: graph == eager tokens, "
+        "launches and arena pages", equal=True, pages_equal=same,
+        graph={k: sg.get(k) for k in keys},
+        eager={k: se.get(k) for k in keys},
+        eager_over_graph_ms=se["decode_ms_per_step"]
+        / sg["decode_ms_per_step"], weights_bytes=weights_bytes,
+        weights_read_ms=weights_bytes / HBM_BYTES_S * 1e3,
+        experts_bytes=experts_bytes,
+        experts_read_ms=experts_bytes / HBM_BYTES_S * 1e3)
+    run("strip", False, True, "dispatch")
+    run("gather", True, True, "gather")
+    ts, ss = runs["strip"]
+    check(ts == tg, f"{cfg.name}: strip tokens != paged tokens")
+    say("parity", arch=cfg.name, check="strip == paged tokens", equal=True,
+        strip_ms_per_step=ss["decode_ms_per_step"],
+        paged_ms_per_step=sg["decode_ms_per_step"])
+    launches = {"twopass_softmax_2d": sg["launches"]["twopass_softmax_2d"],
+                "decode_attention_paged":
+                    sg["launches"]["decode_attention_paged"],
+                "decode_attention": ss["launches"]["decode_attention"]}
+
+    n, cut, new = MOE_SAMPLED
+    for algo, kname in SSM_SOFTMAX:
+        model = Model(dataclasses.replace(cfg, softmax_algorithm=algo),
+                      m.device)
+        toks, st = serve_requests(torch, model, params, reqs(cut, new, n),
+                                  temperature=0.8, **kw)
+        c = dict(st["launches"])
+        want = moe_launches(cfg, st, sampled=True)
+        check(all(len(t) == new and all(0 <= x < cfg.vocab for x in t)
+                  for t in toks), f"moe {algo}: sampled tokens")
+        check(c.pop(kname) == want["softmax"]
+              and c.pop("decode_attention_paged")
+              == want["decode_attention_paged"] and not any(c.values()),
+              f"moe {algo}: launches {st['launches']}, want {want}")
+        check(st["launches_per_replay"] == {
+            "decode_attention_paged": n_l, kname: n_l + 1},
+            f"moe {algo}: a replay {st['launches_per_replay']}")
+        say("engine", arch=cfg.name, path=f"paged, {algo}, moe_impl="
+            "dispatch, use_kernels=True, temperature=0.8, graph step", **st)
+        if algo != "two_pass":
+            launches[kname] = st["launches"][kname]
+    return tg, runs["gather"][0], launches
+
+
+def moe_forced(torch, m, params, prompts, toks, impl):
+    """Logits [n, MOE_NEW, V] of each request fed its served tokens, its
+    prefill and the steps under ``impl``: batch-1 prefills adopted into a
+    strip pool of n slots, then ``decode_step_ragged`` over all of them."""
+    from repro_torch.serving import engine, kv_cache
+
+    cfg, v = m.cfg, m.cfg.vocab
+    n = len(toks)
+    pool = kv_cache.init_slot_pool(cfg, n, MOE_MAX_LEN, device="cuda")
+    first = []
+    for i in range(n):
+        lg, cache = m.prefill(params, torch.tensor([prompts[i]],
+                                                   device="cuda"),
+                              moe_impl=impl)
+        first.append(lg[0, :v].float())
+        kv_cache.adopt_slot(pool, cache, i, len(prompts[i]))
+        del cache
+    out = [torch.stack(first)]
+    forced = torch.tensor([t[:MOE_NEW - 1] for t in toks], device="cuda")
+    for j in range(MOE_NEW - 1):
+        lg, _ = engine.decode_step_ragged(params, pool, forced[:, j],
+                                          cfg=cfg, moe_impl=impl)
+        out.append(lg[:, :v].float())
+    del pool
+    torch.cuda.empty_cache()
+    return torch.stack(out, 1)
+
+
+def moe_gather_margin(torch, m, params, prompts, toks_d, toks_g) -> None:
+    """``moe_impl="gather"`` against ``"dispatch"``: the same capacity
+    and drops, the combine summed in another order.  The first MOE_FORCED
+    requests' dispatch tokens are fed back through both impls; the two
+    argmaxes must agree at every position whose dispatch top-2 margin
+    exceeds twice the largest logit difference measured between them, and
+    each request's served gather tokens may leave its dispatch tokens only
+    at a position the rule does not decide."""
+    n = MOE_FORCED
+    ld = moe_forced(torch, m, params, prompts, toks_d[:n], "dispatch")
+    lg = moe_forced(torch, m, params, prompts, toks_g[:n], "gather")
+    # gather's logits along the dispatch tokens: the same contexts up to
+    # each request's first divergence
+    same_ctx = torch.tensor([[all(a == b for a, b in zip(x[:j], y[:j]))
+                              for j in range(MOE_NEW)]
+                             for x, y in zip(toks_d[:n], toks_g[:n])],
+                            device="cuda")
+    abs_err = float((ld - lg).abs().amax(-1)[same_ctx].max())
+    top2 = ld.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    decided = (margin > 2 * abs_err) & same_ctx
+    same = ld.argmax(-1) == lg.argmax(-1)
+    served_d = torch.tensor(toks_d[:n], device="cuda")
+    served_g = torch.tensor(toks_g[:n], device="cuda")
+    first_diff = [next((j for j in range(MOE_NEW) if a[j] != b[j]), None)
+                  for a, b in zip(toks_d[:n], toks_g[:n])]
+    bad = [(i, j) for i, j in enumerate(first_diff)
+           if j is not None and bool(decided[i, j])]
+    all_equal = sum(a == b for x, y in zip(toks_d, toks_g)
+                    for a, b in zip(x, y))
+    say("moe_gather_vs_dispatch", arch=m.cfg.name, requests=n,
+        positions=n * MOE_NEW, logits_max_abs_err=abs_err,
+        logits_max_err_over_max_logit=abs_err / float(ld.abs().max()),
+        tokens_decided=int(decided.sum()),
+        tokens_compared=int(same_ctx.sum()),
+        argmax_equal=int((same & same_ctx).sum()),
+        served_dispatch_equal_to_forced=int(
+            (served_d == ld.argmax(-1)).sum()),
+        served_gather_equal_to_forced=int(
+            ((served_g == lg.argmax(-1)) & same_ctx).sum()),
+        first_divergence=first_diff,
+        margins_left_out=margin[same_ctx & ~decided].tolist()[:64],
+        served_tokens_equal=all_equal,
+        served_tokens=sum(len(x) for x in toks_d),
+        rule="== where the dispatch top-2 margin exceeds 2 x the largest "
+             "logit difference between the impls")
+    check(bool(same[decided].all()), "moe gather != dispatch at a top-2 "
+          f"margin above 2 x {abs_err}")
+    check(bool((served_d == ld.argmax(-1))[decided].all()),
+          "moe: served dispatch tokens != their forced argmax")
+    check(not bad, f"moe: gather left dispatch at decided positions {bad}")
+    del ld, lg
+    torch.cuda.empty_cache()
+
+
+def moe_step_alone(torch, m, params) -> None:
+    """The MoE layers of one decode step alone (32 slots, the 32 layers'
+    ``moe_apply`` under each impl), captured in a CUDA graph, against
+    the bound of reading every expert's weights once."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer
+
+    cfg = m.cfg
+    x = torch.randn((MOE_SLOTS, 1, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1)
+                    ).to(torch.bfloat16)
+    mlp = [layer(params["blocks"]["mlp"], i) for i in range(cfg.n_layers)]
+    experts = sum(t.numel() * t.element_size() for p in mlp
+                  for k, t in p.items() if k != "router")
+    out = {}
+    for impl in ("dispatch", "gather"):
+        out[impl] = graph_ms(torch, lambda: [
+            moe.moe_apply(p, x, cfg, impl=impl) for p in mlp], iters=10)
+    say("moe_step_alone", arch=cfg.name, slots=MOE_SLOTS,
+        layers=cfg.n_layers, ms=out, experts_bytes=experts,
+        bound_ms=experts / HBM_BYTES_S * 1e3, bound_by="bytes")
+
+
+def _moe_range():
+    """While on: each ``moe_apply`` call runs inside a profiler range
+    ``"moe"``, so an eager trace can group the kernels launched under it
+    (a graph replay's kernels have no host range)."""
+    import contextlib
+
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe
+
+    @contextlib.contextmanager
+    def on():
+        apply = moe.moe_apply
+
+        def ranged(*a, **kw):
+            with record_function("moe"):
+                return apply(*a, **kw)
+
+        moe.moe_apply = ranged
+        try:
+            yield
+        finally:
+            moe.moe_apply = apply
+
+    return on()
+
+
+def moe_f32_cut(torch, m, prompts) -> None:
+    """Full width, depth cut to MOE_F32 layers, float32 activations and
+    weights: the engine's greedy tokens (paged, graph step, dispatch)
+    ``==`` the batch-1 lockstep ``Model.generate``."""
+    from repro_torch.models import Model
+    from repro_torch.serving.scheduler import Request
+
+    layers, n, new = MOE_F32
+    cfg = dataclasses.replace(m.cfg, n_layers=layers, dtype="float32")
+    model = Model(cfg, m.device)
+    params = model.init(seed=1, dtype=torch.float32)
+    sub = [Request(rid=i, prompt=p, max_new_tokens=new)
+           for i, p in enumerate(prompts[:n])]
+    toks, st = serve_requests(torch, model, params, sub, temperature=0.0,
+                              slots=MOE_SLOTS, max_len=MOE_MAX_LEN, seed=3)
+    want = [model.generate(
+        params, torch.tensor([r.prompt], device="cuda"), steps=new - 1,
+        temperature=0.0, max_len=len(r.prompt) + new)[0].tolist()
+        for r in sub]
+    equal = sum(a == b for x, y in zip(toks, want) for a, b in zip(x, y))
+    say("moe_lockstep", arch=cfg.name, dtype="float32", n_layers=layers,
+        requests=n, new_tokens=new, tokens_equal=equal,
+        tokens_compared=n * new, fused=st["fused"], rule="==")
+    check(toks == want, "moe float32: engine tokens != lockstep tokens")
+    del params
+
+
+def moe_phase(torch, rows) -> dict:
+    """Phase 11; returns the main path's launches of kernels 1 and 3, the
+    strip run's of kernel 4 and the sampled runs' of kernels 5 and 6."""
+    from repro_torch.models import build_model
+
+    rng = np.random.default_rng(MOE_SEED)
+    m = build_model(MOE_ARCH, use_kernels=True)
+    cfg = m.cfg
+    t0 = time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        say("moe_part", part=name, seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+
+    moe_kernel_checks(torch, rows, rng, cfg)
+    part("kernel checks")
+    t0 = time.perf_counter()
+    params = m.init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    say("moe_config", arch=MOE_ARCH, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim(), n_experts=cfg.moe.n_experts,
+        top_k=cfg.moe.top_k, d_expert=cfg.moe.d_expert,
+        n_shared=cfg.moe.n_shared, vocab=cfg.vocab,
+        padded_vocab=cfg.padded_vocab(), weights_s=time.perf_counter() - t0,
+        weights_bytes=sum(t.numel() * t.element_size()
+                          for t in _leaves(params)),
+        router_dtype=str(params["blocks"]["mlp"]["router"]["w"].dtype),
+        param_count=cfg.param_count(), slots=MOE_SLOTS,
+        max_len=MOE_MAX_LEN)
+    n, lo, hi = MOE_PROMPTS
+    plens = [int(x) for x in rng.integers(lo, hi, n)] + list(MOE_LONG)
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab, k))
+               for k in plens]
+    toks_d, toks_g, launches = moe_serving(torch, m, params, prompts)
+    part("serving")
+    moe_gather_margin(torch, m, params, prompts, toks_d, toks_g)
+    part("gather vs dispatch")
+    order = np.argsort(plens, kind="stable")
+    swa_prefill_parity(torch, m, params, [
+        prompts[i] for i in (order[0], order[len(order) // 2],
+                             plens.index(MOE_LONG[0]))], MOE_MAX_LEN)
+    moe_step_alone(torch, m, params)
+    part("prefill parity, the MoE alone")
+    cut, new_graph, new_eager = MOE_TRACE
+    trace = [p[:cut] for p in prompts]
+    decode_trace(torch, m, params, trace, fused=True, slots=MOE_SLOTS,
+                 max_len=MOE_MAX_LEN, new=new_graph)
+    # the eager burst is host-bound and its trace large: fewer steps
+    with _moe_range():
+        decode_trace(torch, m, params, trace, fused=False, slots=MOE_SLOTS,
+                     max_len=MOE_MAX_LEN, new=new_eager, ranges=("moe",))
+    part("decode traces")
+    moe_f32_cut(torch, m, prompts)
+    part("float32 cut")
+    del m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: training qwen2.5-14b at full width through Trainer.
 # ---------------------------------------------------------------------------
 TRAIN_LAYERS = 4            # depth cut from 48 (memory: 16 bytes a param)
 TRAIN_SEQ = 4096            # the config's train_4k length, batch 1
@@ -3175,7 +3619,7 @@ def train_trace(torch, step, state, batch) -> None:
 
 
 def cli_phase(torch) -> None:
-    """Phase 12: the serving CLI at full width as a user runs it."""
+    """Phase 13: the serving CLI at full width as a user runs it."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
            "--slots", "8", "--requests", "8", "--prompt-len", "256",
            "--steps", "8", "--softmax", "three_pass_reload", "--kernels"]
@@ -3198,7 +3642,7 @@ CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 
 
 def train_cli_phase(torch) -> None:
-    """Phase 13: the training CLI as a user runs it, reduced qwen2.5-14b
+    """Phase 14: the training CLI as a user runs it, reduced qwen2.5-14b
     with ``--kernels`` and a checkpoint directory: 6 steps straight, then 3
     (the crash) and a resume to 6 from the same directory; the final losses
     agree, and the flash and LM-head kernels ran."""
@@ -3274,6 +3718,7 @@ def idle_share(torch, m, params, prompts, *, fused: bool):
 
 
 KERNEL_GROUPS = (("decode attention", ("decode_tile", "decode_combine")),
+                 ("sort and scan (moe routing)", ("sort", "scan")),
                  ("softmax", ("regs_kernel", "slots_kernel",
                               "scale_kernel")),
                  ("matmul", ("gemm", "gemv", "xmma", "cutlass", "cublas",
@@ -3290,12 +3735,16 @@ def kernel_group(name: str) -> str:
 
 def decode_trace(torch, m, params, prompts, *, fused: bool,
                  slots: int = N_SLOTS, max_len: int = MAX_LEN,
-                 new: int = NEW_TOKENS, frames=None, **engine_kw) -> None:
+                 new: int = NEW_TOKENS, frames=None, ranges=(),
+                 **engine_kw) -> None:
     """One decode burst alone under the profiler: ``slots`` slots admitted
     first (their prefills outside the trace), then ``new - 1`` steps in
     one burst.  Prints wall and device ms a step, the device's idle share
     and its time by kernel group (what paces the step).  ``frames`` (an
-    encdec model's) go with the prompts; ``engine_kw`` to the engine."""
+    encdec model's) go with the prompts; ``engine_kw`` to the engine.
+    Each host range named in ``ranges`` (an eager step's) becomes a group
+    of its own: the kernels launched under it, taken out of the groups
+    their names give."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.scheduler import ContinuousBatchingEngine
@@ -3320,13 +3769,26 @@ def decode_trace(torch, m, params, prompts, *, fused: bool,
     groups: dict[str, float] = {}
     names: dict[str, float] = {}
     for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
+        # a host range may also show as a device-side annotation: not a
+        # kernel
+        if str(e.device_type).endswith("CUDA") and e.key not in ranges:
             ms = e.self_device_time_total / 1e3
             g = kernel_group(e.key)
             groups[g] = groups.get(g, 0.0) + ms
             names[e.key[:80]] = names.get(e.key[:80], 0.0) + ms
     busy = sum(groups.values())
+    in_range = _range_kernels(prof, ranges)
+    for name, kernels in in_range.items():
+        for k, ms in kernels:
+            g = kernel_group(k)
+            groups[g] -= ms
+            groups[name] = groups.get(name, 0.0) + ms
+    extra = {}
+    if ranges:
+        extra["kernels_under_range"] = {k: len(v)
+                                        for k, v in in_range.items()}
     say("decode_trace", arch=m.cfg.name, step="graph" if fused else "eager",
+        **extra,
         steps=steps, slot_lengths=[len(p) for p in prompts[:slots]],
         wall_ms_per_step=wall * 1e3 / steps,
         device_ms_per_step=busy / steps,
@@ -3339,6 +3801,24 @@ def decode_trace(torch, m, params, prompts, *, fused: bool,
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _range_kernels(prof, names) -> dict:
+    """For each host range in ``names``: (name, device ms) of every kernel
+    launched under it, found through the launching call's host parents."""
+    out = {n: [] for n in names}
+    if not names:
+        return out
+    for e in prof.events():
+        kernels = getattr(e, "kernels", None)
+        if not kernels:
+            continue
+        p = e
+        while p is not None and p.name not in out:
+            p = p.cpu_parent
+        if p is not None:
+            out[p.name] += [(k.name, k.duration / 1e3) for k in kernels]
+    return out
 
 
 def _leaves(tree):
@@ -3394,7 +3874,7 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=48,
                     help="decoder depth of the engine phase (full: 48)")
     ap.add_argument("--only", choices=("train", "swa", "engine", "mqa",
-                                       "ssm", "encdec"),
+                                       "ssm", "encdec", "moe"),
                     help="run one phase alone (train: to compare the train "
                     "step of two trees on one card); no kernels or ok line")
     args = ap.parse_args()
@@ -3426,9 +3906,9 @@ def main() -> int:
         elif args.only == "engine":
             say("engine_done", launches=engine_phase(
                 torch, np.random.default_rng(0), args.layers)[0])
-        elif args.only in ("mqa", "ssm", "encdec"):
+        elif args.only in ("mqa", "ssm", "encdec", "moe"):
             phase = {"mqa": mqa_phase, "ssm": ssm_phase,
-                     "encdec": encdec_phase}[args.only]
+                     "encdec": encdec_phase, "moe": moe_phase}[args.only]
             t0 = time.perf_counter()
             say(f"{args.only}_done", launches=phase(
                 torch, {"twopass_softmax_2d": {}}),
@@ -3468,6 +3948,10 @@ def main() -> int:
     t0 = time.perf_counter()
     enc_launches = encdec_phase(torch, rows)
     say("encdec_done", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for name, n in moe_phase(torch, rows).items():
+        launches[name] += n
+    say("moe_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     launches.update(train_phase(torch))
     for name, n in enc_launches.items():     # the flash forward's too

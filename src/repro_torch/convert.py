@@ -13,11 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, check_ported
 
 # a leaf every layer of the family has: its stack length is the depth
 _LAYER_LEAF = {"dense": ("ln1", "scale"), "ssm": ("ln_t", "scale"),
-               "encdec": ("ln1", "scale")}
+               "encdec": ("ln1", "scale"), "moe": ("ln1", "scale")}
 
 
 def _to_torch(tree, device):
@@ -29,13 +29,15 @@ def _to_torch(tree, device):
 def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
                     device="cuda") -> dict:
     """The port's parameters from a numpy tree of the reference's dense,
-    ssm or encdec LM parameters.  An encdec tree also has the encoder's
-    ``enc_blocks`` (stacked ``n_enc_layers``) and ``enc_norm``, and each
-    decoder block its cross-attention ``ln_x`` / ``xattn``."""
-    if cfg.family not in _LAYER_LEAF:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: only dense, ssm and encdec weights "
-            "convert yet")
+    ssm, encdec or moe LM parameters.  An encdec tree also has the
+    encoder's ``enc_blocks`` (stacked ``n_enc_layers``) and ``enc_norm``,
+    and each decoder block its cross-attention ``ln_x`` / ``xattn``.  A
+    moe block's ``mlp`` is the experts: ``router.w`` float32 ``[L, d,
+    E]``, ``wg`` / ``wu`` ``[L, E, d, d_expert]``, ``wd`` ``[L, E,
+    d_expert, d]`` and, with shared experts, ``shared`` (a plain MLP).  A
+    family that is not ported, or a tree with multi-head latent attention,
+    is refused naming its item."""
+    check_ported(cfg, "weight conversion")
     want = {"embed", "norm_f", "blocks"} | (
         set() if cfg.tie_embeddings else {"lm_head"}) | (
         {"enc_blocks", "enc_norm"} if cfg.family == "encdec" else set())
@@ -51,6 +53,17 @@ def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
         stacks.append(("enc_blocks", cfg.n_enc_layers))
         if "xattn" not in tree_of_numpy["blocks"]:
             raise ValueError("encdec decoder blocks need ln_x / xattn")
+    if cfg.family == "moe":
+        mlp, m = tree_of_numpy["blocks"]["mlp"], cfg.moe
+        want_mlp = {"router", "wg", "wu", "wd"} | (
+            {"shared"} if m.n_shared else set())
+        if set(mlp) != want_mlp:
+            raise ValueError(f"moe mlp keys {sorted(mlp)}, expected "
+                             f"{sorted(want_mlp)}")
+        if np.shape(mlp["wg"])[1:] != (m.n_experts, cfg.d_model,
+                                       m.d_expert):
+            raise ValueError(f"moe wg {np.shape(mlp['wg'])} does not match "
+                             "the config")
     for name, depth in stacks:
         lead = np.shape(tree_of_numpy[name][norm][leaf])[0]
         if lead != depth:

@@ -4,6 +4,7 @@
     python -m repro_torch.launch.serve --arch qwen2.5-14b --reduced \
         --device cpu
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --kernels
+    python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --kernels
     python -m repro_torch.launch.serve --arch whisper-base --kernels \
         --enc-frames 1500 --enc-chunk 500
 
@@ -23,15 +24,17 @@ admission; ``--enc-chunk`` encodes them that many frames a scheduler step.
 The model runs on ``--device`` (``cuda`` unless the CPU is asked for), with
 random weights made from seed 0 in the compute dtype.  Flags for what this
 package does not serve yet (int8 pages, host swap, the prefix cache,
-streaming, a mesh, families other than dense, ssm and encdec) exit with an
-error that names their ROADMAP item.
+streaming, a mesh, the vlm and hybrid families, multi-head latent
+attention) exit with an error that names their ROADMAP item.  A moe model
+routes through capacity dispatch (``moe_impl="dispatch"``, the reference's
+default; its CLI has no flag for it either).
 """
 
 from __future__ import annotations
 
 import argparse
 
-from repro_torch.configs.base import UNPORTED_FAMILIES
+from repro_torch.configs.base import check_ported
 
 # unported flag -> (its value when unused, ROADMAP queue A item)
 UNPORTED_FLAGS = {
@@ -125,9 +128,10 @@ def main(argv=None) -> None:
     except (KeyError, RuntimeError) as e:    # unknown arch; no card
         p.error(str(e))
     cfg = model.cfg
-    if cfg.family in UNPORTED_FAMILIES:
-        p.error(f"family {cfg.family!r} ({args.arch}) is not ported yet "
-                f"(ROADMAP queue A item {UNPORTED_FAMILIES[cfg.family]})")
+    try:
+        check_ported(cfg, "serving")
+    except NotImplementedError as e:
+        p.error(f"{args.arch}: {e}")
     # weights in the compute dtype: every use casts to it, so the results
     # equal float32 weights' at half the memory
     params = model.init(seed=0, dtype=torch_dtype(cfg.dtype))

@@ -50,8 +50,10 @@ class Model:
     def prefill(self, params, tokens, **kw):
         return engine.prefill(params, tokens, cfg=self.cfg, **kw)
 
-    def decode_step(self, params, cache, tokens, pos):
-        return engine.decode_step(params, cache, tokens, pos, cfg=self.cfg)
+    def decode_step(self, params, cache, tokens, pos,
+                    moe_impl: str = "dispatch"):
+        return engine.decode_step(params, cache, tokens, pos, cfg=self.cfg,
+                                  moe_impl=moe_impl)
 
     def init_cache(self, batch: int, max_len: int, ring: bool = True):
         return kv_cache.init_cache(self.cfg, batch, max_len, ring=ring,
@@ -67,9 +69,10 @@ class Model:
         return kv_cache.init_slot_pool(self.cfg, slots, max_len,
                                        device=self.device)
 
-    def decode_step_ragged(self, params, pool, tokens, active=None):
+    def decode_step_ragged(self, params, pool, tokens, active=None,
+                           moe_impl: str = "dispatch"):
         return engine.decode_step_ragged(params, pool, tokens, cfg=self.cfg,
-                                         active=active)
+                                         moe_impl=moe_impl, active=active)
 
     def serving_engine(self, params, **kw):
         """A :class:`repro_torch.serving.scheduler.ContinuousBatchingEngine`

@@ -1,7 +1,8 @@
-"""Model assembly for the dense, ssm (RWKV6) and encdec (whisper)
-families: a decoder LM with an LM head (an encdec one also has an encoder
-over stubbed frame embeddings and cross-attention in every decoder block),
-and the dense family's training loss.
+"""Model assembly for the dense, moe, ssm (RWKV6) and encdec (whisper)
+families: a decoder LM with an LM head (a moe block's MLP is its experts;
+an encdec one also has an encoder over stubbed frame embeddings and
+cross-attention in every decoder block), and the dense family's training
+loss.
 
 Layer parameters are stacked on a leading ``[L]`` axis, as in the
 reference; the layer loop is a Python loop that indexes them (the
@@ -18,6 +19,7 @@ from repro_torch.configs.base import (UNTRAINED_FAMILIES, ModelConfig,
                                       check_ported)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 
 Params = dict
@@ -48,15 +50,19 @@ def init_block(gen, cfg: ModelConfig, dtype, lead: tuple = (),
         p["ln_x"] = layers.init_rmsnorm(cfg.d_model, dtype, dev, lead)
         p["xattn"] = attn_mod.init_attention(gen, cfg, dtype, lead)
     p["ln2"] = layers.init_rmsnorm(cfg.d_model, dtype, dev, lead)
-    p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
-                               act=cfg.act, lead=lead)
+    if cfg.family == "moe":
+        p["mlp"] = moe_mod.init_moe(gen, cfg, dtype, lead)
+    else:
+        p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                                   act=cfg.act, lead=lead)
     return p
 
 
 def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
                 cache_pos=None, enc=None, causal: bool = True,
                 cache_positions=None, page_table=None, ring_valid=None,
-                cross_table=None, cross_lengths=None):
+                cross_table=None, cross_lengths=None,
+                moe_impl: str = "dispatch"):
     """One block.  x: [B, S, d] or [B, d] (a decode token).  Returns
     (x, cache), the cache written in place.  An ssm block's cache is its
     recurrent state ``{"wkv", "last_t", "last_c"}`` (no RoPE, no
@@ -69,7 +75,8 @@ def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
     read-only cross pages in the same arenas (``cache``); ``enc`` ([B,
     T_enc, d]) projects fresh cross K/V (prefill); otherwise ``cache`` is
     the lockstep ``{"self", "cross"}`` cache and the cross half is read
-    whole.  ``causal=False`` is the encoder's self-attention."""
+    whole.  ``causal=False`` is the encoder's self-attention.  A moe
+    block's MLP is :func:`moe.moe_apply` by ``moe_impl``."""
     if cfg.family == "ssm":
         if cache is None:
             return rwkv_mod.rwkv_block(p, x, cfg=cfg), None
@@ -106,7 +113,11 @@ def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
                              "{'self', 'cross'} cache or cross_table=")
         x1 = x1 + xa
     h2 = layers.rmsnorm(p["ln2"], x1, eps=cfg.norm_eps)
-    out = x1 + layers.mlp(p["mlp"], h2, act=cfg.act)
+    if cfg.family == "moe":
+        f = moe_mod.moe_apply(p["mlp"], h2, cfg, impl=moe_impl)
+    else:
+        f = layers.mlp(p["mlp"], h2, act=cfg.act)
+    out = x1 + f
     return (out[:, 0] if single else out), cache
 
 
@@ -150,14 +161,15 @@ def _cos_sin(cfg: ModelConfig, positions):
                                cfg.rope_theta)
 
 
-def _scan_blocks(p_blocks, x, cos, sin, *, cfg: ModelConfig):
+def _scan_blocks(p_blocks, x, cos, sin, *, cfg: ModelConfig,
+                 moe_impl: str = "dispatch"):
     """Layer loop (train/prefill, no cache).  Under ``cfg.remat`` and with
     gradients on, each layer is an activation checkpoint: its backward
     recomputes the layer from its input, so only the layer inputs are
     saved (the reference groups the checkpoints into sqrt(L) segments,
     which changes memory, not numbers)."""
     def body(h, p):
-        return block_apply(p, h, cos, sin, cfg=cfg)[0]
+        return block_apply(p, h, cos, sin, cfg=cfg, moe_impl=moe_impl)[0]
 
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
@@ -180,7 +192,8 @@ def encode(params: Params, frames, *, cfg: ModelConfig):
     return layers.rmsnorm(params["enc_norm"], x, eps=cfg.norm_eps)
 
 
-def forward(params: Params, tokens, *, cfg: ModelConfig):
+def forward(params: Params, tokens, *, cfg: ModelConfig,
+            moe_impl: str = "dispatch"):
     """Token forward to final hidden states [B, S, d] (no cache)."""
     check_ported(cfg, "the model")
     b, s = tokens.shape
@@ -188,7 +201,8 @@ def forward(params: Params, tokens, *, cfg: ModelConfig):
     cos = sin = None                      # an ssm block takes no positions
     if cfg.family != "ssm":
         cos, sin = _cos_sin(cfg, _positions_for(cfg, b, s, device=x.device))
-    x = _scan_blocks(params["blocks"], x, cos, sin, cfg=cfg)
+    x = _scan_blocks(params["blocks"], x, cos, sin, cfg=cfg,
+                     moe_impl=moe_impl)
     return layers.rmsnorm(params["norm_f"], x, eps=cfg.norm_eps)
 
 

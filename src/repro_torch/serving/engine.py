@@ -1,11 +1,14 @@
-"""Serving: prefill and single-token decode steps (dense, ssm and encdec
-families).
+"""Serving: prefill and single-token decode steps (dense, moe, ssm and
+encdec families).
 
 ``decode_step`` is the lockstep step of one batch against a cache;
 ``decode_step_ragged`` is its continuous-batching form over a slot pool
 whose slots sit at different positions (the step the scheduler drives).
 The layer loop is a Python loop over the stacked parameters.  Sampling is a
-softmax site: it resolves through the config's SoftmaxPolicy.
+softmax site: it resolves through the config's SoftmaxPolicy.  A moe
+model's blocks route by ``moe_impl`` (``"dispatch"``, ``"gather"`` or
+``"dense"``; ``models/moe.py``), which every step and prefill takes, as
+the reference's.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ def _finish(params, h, cfg):
 
 
 def decode_step(params: Params, cache: dict, tokens, pos: int, *,
-                cfg: ModelConfig):
+                cfg: ModelConfig, moe_impl: str = "dispatch"):
     """One lockstep decode step.  tokens: [B] int; pos: the cache fill.
     Writes the cache in place.  Returns (logits [B, V_padded], cache).
 
@@ -73,7 +76,7 @@ def decode_step(params: Params, cache: dict, tokens, pos: int, *,
         x, _ = transformer.block_apply(
             layer(params["blocks"], i), x, cos, sin, cfg=cfg,
             cache=layer(cache, i), cache_pos=cache_pos,
-            ring_valid=ring_valid)
+            ring_valid=ring_valid, moe_impl=moe_impl)
     return _finish(params, x, cfg), cache
 
 
@@ -87,7 +90,8 @@ def _ssm_layers(params, x, state, cfg):
 
 
 def decode_step_ragged(params: Params, pool: dict, tokens, *,
-                       cfg: ModelConfig, active=None):
+                       cfg: ModelConfig, moe_impl: str = "dispatch",
+                       active=None):
     """One continuous-batching decode step over a slot pool
     (``kv_cache.init_slot_pool`` or ``init_paged_pool`` state).
 
@@ -117,7 +121,7 @@ def decode_step_ragged(params: Params, pool: dict, tokens, *,
             layer(params["blocks"], i), x, cos, sin, cfg=cfg,
             cache=layer(kv, i), cache_positions=lengths,
             page_table=page_table, cross_table=cross_table,
-            cross_lengths=cross_lengths)
+            cross_lengths=cross_lengths, moe_impl=moe_impl)
     logits = _finish(params, x, cfg)
     lengths.add_(active.to(torch.int32))
     return logits, pool
@@ -133,7 +137,8 @@ def _last(h, last_pos, dev):
 
 
 def prefill(params: Params, tokens, *, cfg: ModelConfig,
-            max_len: int | None = None, last_pos=None, frames=None):
+            max_len: int | None = None, last_pos=None, frames=None,
+            moe_impl: str = "dispatch"):
     """Process whole prompts; returns (logits at the last prompt token,
     filled cache of ``max_len`` positions).
 
@@ -142,7 +147,8 @@ def prefill(params: Params, tokens, *, cfg: ModelConfig,
     prompt and is hidden later by the pool's length mask).  None reads
     ``h[:, -1]``.  An ssm prompt must not be padded: a pad tail would run
     through the recurrence into the state decode goes on from (the
-    scheduler does not bucket ssm prompts).
+    scheduler does not bucket ssm prompts), and a moe prompt should not
+    be: its expert capacity comes from the padded length.
 
     An encdec prompt is the decoder's; ``frames`` ([B, T_enc, d]) go
     through the encoder first (:func:`prefill_with_encoder`)."""
@@ -163,7 +169,7 @@ def prefill(params: Params, tokens, *, cfg: ModelConfig,
         for i in range(cfg.n_layers):
             x, _ = transformer.block_apply(
                 layer(params["blocks"], i), x, cos, sin, cfg=cfg,
-                cache=layer(cache, i), cache_pos=0)
+                cache=layer(cache, i), cache_pos=0, moe_impl=moe_impl)
     return _finish(params, _last(x, last_pos, dev), cfg), cache
 
 
@@ -227,7 +233,7 @@ def sample_token(logits, generator: torch.Generator | None,
 def generate_timed(params, prompt, *, cfg: ModelConfig, steps: int,
                    generator: torch.Generator | None = None,
                    max_len: int | None = None, temperature: float = 1.0,
-                   **prefill_kw):
+                   moe_impl: str = "dispatch", **prefill_kw):
     """Lockstep generation with per-phase timing: ``steps + 1`` tokens (one
     from the prefill logits, ``steps`` decoded).  ``prefill_kw`` goes to
     :func:`prefill` (an encdec prompt's ``frames``).  Returns (tokens [B,
@@ -237,7 +243,7 @@ def generate_timed(params, prompt, *, cfg: ModelConfig, steps: int,
     max_len = max_len or (s + steps)
     t0 = time.perf_counter()
     logits, cache = prefill(params, prompt, cfg=cfg, max_len=max_len,
-                            **prefill_kw)
+                            moe_impl=moe_impl, **prefill_kw)
     tok = sample_token(logits, generator, temperature, cfg=cfg,
                        vocab=cfg.vocab)
     sync(dev)
@@ -245,7 +251,8 @@ def generate_timed(params, prompt, *, cfg: ModelConfig, steps: int,
     toks = []
     for i in range(steps):
         toks.append(tok)
-        logits, cache = decode_step(params, cache, tok, s + i, cfg=cfg)
+        logits, cache = decode_step(params, cache, tok, s + i, cfg=cfg,
+                                    moe_impl=moe_impl)
         tok = sample_token(logits, generator, temperature, cfg=cfg,
                            vocab=cfg.vocab)
     toks.append(tok)
@@ -259,8 +266,9 @@ def generate_timed(params, prompt, *, cfg: ModelConfig, steps: int,
 def generate(params, prompt, *, cfg: ModelConfig, steps: int,
              generator: torch.Generator | None = None,
              max_len: int | None = None, temperature: float = 1.0,
-             **prefill_kw):
+             moe_impl: str = "dispatch", **prefill_kw):
     """Greedy/temperature lockstep generation: tokens [B, steps + 1]."""
     return generate_timed(params, prompt, cfg=cfg, steps=steps,
                           generator=generator, max_len=max_len,
-                          temperature=temperature, **prefill_kw)[0]
+                          temperature=temperature, moe_impl=moe_impl,
+                          **prefill_kw)[0]

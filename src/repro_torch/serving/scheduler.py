@@ -119,6 +119,10 @@ class ContinuousBatchingEngine:
     ``jax.disable_jit`` is the reference's.  On the CPU the step is
     always eager.
 
+    moe: ``moe_impl`` routes the prefills and the decode step (the
+    graph keeps the one it captured); prompts are not bucketed under
+    "auto", since expert capacity comes from the prompt's length.
+
     encdec (paged only): ``max_cross_len`` bounds a request's encoder
     frames (default ``max_len``) and sizes its cross table; ``enc_chunk``
     encodes a request ``enc_chunk`` frames a scheduler step, each window
@@ -136,9 +140,18 @@ class ContinuousBatchingEngine:
                  page_dtype: str | None = None,
                  host_swap_bytes: int | None = None, fused: bool = True,
                  max_cross_len: int | None = None,
-                 enc_chunk: int | None = None):
+                 enc_chunk: int | None = None, moe_impl: str = "dispatch"):
         cfg = model.cfg
         if prefix_cache is True:
+            if cfg.family == "moe" and moe_impl != "dense":
+                # as the reference: capacity dispatch sizes the expert
+                # queues from the whole prompt, so a prefix and its tail
+                # compete for capacity and a split prompt drops others
+                raise ValueError(
+                    f"prefix_cache=True: family 'moe' (moe_impl "
+                    f"{moe_impl!r}) cannot share prefixes: capacity "
+                    "dispatch couples tokens across the sequence; use "
+                    "prefix_cache='auto'")
             raise _unported("prefix_cache=True", 17)
         if page_dtype is not None:
             raise _unported("page_dtype", 18)
@@ -157,6 +170,7 @@ class ContinuousBatchingEngine:
         if enc_chunk is not None and not self.encdec:
             raise ValueError("enc_chunk only applies to the encdec family")
         self.paged = bool(paged)
+        self.moe_impl = moe_impl
         self.max_len = int(max_len)
         self.max_cross_len = int(max_cross_len or max_len)
         self.enc_chunk = int(enc_chunk) if enc_chunk else None
@@ -265,7 +279,7 @@ class ContinuousBatchingEngine:
         ``_tokens``."""
         logits, _ = engine.decode_step_ragged(
             self.params, self.pool, self._tokens, cfg=self.cfg,
-            active=self._active)
+            moe_impl=self.moe_impl, active=self._active)
         self._tokens.copy_(self._sample(logits))
 
     def step_buffers(self) -> dict:
@@ -415,7 +429,7 @@ class ContinuousBatchingEngine:
         # pages for the paged one.)
         logits, cache = engine.prefill(
             self.params, padded.to(self.device), cfg=self.cfg,
-            max_len=bucket, last_pos=plen - 1)
+            max_len=bucket, last_pos=plen - 1, moe_impl=self.moe_impl)
         tok_dev = self._sample(logits)
         self._prefill_shapes.add(bucket)
         if self.paged:

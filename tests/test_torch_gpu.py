@@ -1050,3 +1050,71 @@ def test_whisper_graph_step_equals_eager(cuda, enc_chunk):
                            eng_e.pool["kv"][name][:, 1:])
     for name in ("page_table", "lengths", "cross_table", "cross_lengths"):
         assert torch.equal(eng.pool[name], eng_e.pool[name]), name
+
+
+# ---------------------------------------------------------------------------
+# The moe family (granite-moe-3b-a800m): the router's rows through the
+# softmax kernels, the decode kernels at G 3 / D 64, the graph step.
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [32, 2048])
+@pytest.mark.parametrize("algo", ["two_pass", "three_pass_recompute",
+                                  "three_pass_reload"])
+def test_softmax_kernels_on_moe_router_rows(cuda, algo, rows):
+    # the router's float32 logits over 40 experts: a decode step's 32
+    # slots and one prefill group of 2,048 tokens
+    fn, plain = TWO_LAYOUTS[algo]
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    x = torch.randn((rows, 40), device=cuda, generator=gen) * 4
+    got = fn(x)
+    torch.testing.assert_close(got, plain(x), **F32)
+    assert tp.path_for(40) == "registers"
+    assert fn.launches == 1
+
+
+# granite-moe's served lengths: prompts of 200-4,096 + 64 new tokens,
+# pages of 128, max_len 4,160
+MOE_LENGTHS = [0, 1, 129, 2048, 3064, 4159, 4160]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernels_at_g3_d64(cuda, dtype):
+    q, kp, vp, table, lens = _decode_inputs(cuda, dtype, 64, 3, hkv=8,
+                                            ps=128, pmax=33,
+                                            lengths=MOE_LENGTHS)
+    assert q.shape == (7, 8, 3, 64)
+    _check_decode(q, kp, vp, table, lens, dtype, ppt=1)
+    assert tda.decode_attention_paged.launches == 2
+    assert tda.decode_attention.launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["dispatch", "gather"])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "strip"])
+def test_moe_graph_step_equals_eager_with_the_cache_bit_equal(cuda, paged,
+                                                              impl):
+    from repro_torch.models import build_model
+
+    m = build_model("granite-moe-3b-a800m", reduced=True, use_kernels=True)
+    assert m.cfg.n_layers == 2
+    params = m.init(seed=0)
+    reqs = _fused_requests(m.cfg.vocab)
+    runs = {f: _serve(m, params, paged, f, reqs, temperature=0.0,
+                      moe_impl=impl) for f in (True, False)}
+    (toks, counts, eng), (toks_e, counts_e, eng_e) = runs[True], runs[False]
+    assert eng.buckets is None and eng.moe_impl == impl
+    assert toks == toks_e and counts == counts_e
+    st = eng.stats
+    assert st["admitted"] > eng.n_slots and st["steps"] == eng_e.stats["steps"]
+    # a replay: the decode read and the router's softmax, one each a layer
+    kname = "decode_attention_paged" if paged else "decode_attention"
+    assert eng._fused.launches == {kname: m.cfg.n_layers,
+                                   "twopass_softmax_2d": m.cfg.n_layers}
+    assert eng._fused.replays == st["steps"]
+    for name in ("k", "v"):
+        got, want = eng.pool["kv"][name], eng_e.pool["kv"][name]
+        if paged:                 # page 0 is the trash page: dead writes
+            got, want = got[:, 1:], want[:, 1:]
+        assert torch.equal(got, want), name
+    assert torch.equal(eng.pool["lengths"], eng_e.pool["lengths"])

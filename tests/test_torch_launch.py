@@ -1,6 +1,6 @@
 """The port's serving CLI (``python -m repro_torch.launch.serve``) on the CPU:
-it serves a reduced model under each softmax algorithm, the ssm and encdec
-families too, and every flag for something not ported yet exits with an
+it serves a reduced model under each softmax algorithm, the ssm, encdec and
+moe families too, and every flag for something not ported yet exits with an
 error that names its ROADMAP item."""
 
 import os
@@ -40,9 +40,8 @@ def test_cli_serves_on_the_cpu(extra, capsys):
     (["--host-swap-bytes", "1000"], 18), (["--shared-prefix-len", "4"], 17),
     (["--no-prefix-cache"], 17), (["--stream"], 19), (["--mesh", "2x2"], 22),
     (["--arch", "qwen2-vl-7b"], 14),
-    (["--arch", "granite-moe-3b-a800m"], 13),
     (["--arch", "hymba-1.5b"], 16),
-    (["--arch", "deepseek-v2-lite-16b"], 13),
+    (["--arch", "deepseek-v2-lite-16b"], 15),
 ])
 def test_unported_flags_exit_with_their_item(flags, item, capsys):
     with pytest.raises(SystemExit) as e:
@@ -63,6 +62,18 @@ def test_cli_serves_the_encdec_family(flags, frames, capsys):
     assert f"prefill: {3 * (12 + frames)} tok" in out
     assert f"encode:  {3 * frames} frames" in out
     assert "decode:  9 tok" in out and "kernel launches: {}" in out
+
+
+def test_cli_serves_the_moe_family(capsys):
+    serve.main(["--arch", "granite-moe-3b-a800m"] + BASE[2:]
+               + ["--temperature", "0", "--kernels"])
+    out = capsys.readouterr().out
+    assert ("granite-moe-3b-a800m: served 3 requests over 2 slots / paged "
+            "pool") in out
+    # exact prompt lengths: expert capacity comes from a prompt's length
+    assert "1 prefill buckets" in out
+    assert "prefill: 36 tok" in out and "decode:  9 tok" in out
+    assert "kernel launches: {}" in out
 
 
 def test_cli_refuses_the_strip_pool_for_encdec(capsys):

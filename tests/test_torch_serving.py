@@ -156,10 +156,12 @@ def test_unported_options_raise(weights, kw, item):
 
 
 def test_unported_families_and_policy_sites_raise():
-    # the ssm and encdec families are served (tests/test_torch_ssm.py,
-    # tests/test_torch_encdec.py); moe is not
-    with pytest.raises(NotImplementedError, match="moe.*item 13"):
-        m = tbuild("granite-moe-3b-a800m", reduced=True, device="cpu")
+    # the ssm, encdec and moe families are served (tests/test_torch_ssm.py,
+    # tests/test_torch_encdec.py, tests/test_torch_moe.py); multi-head
+    # latent attention (deepseek, family moe) is not
+    with pytest.raises(NotImplementedError,
+                       match="latent attention.*item 15"):
+        m = tbuild("deepseek-v2-lite-16b", reduced=True, device="cpu")
         m.init(0)
     # every softmax site of the dense family is ported: the LM-head CE
     # (tests/test_torch_training.py) and the flash route of a no-cache
