@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--layers N]
-                          [--only {train,swa,engine,mqa,ssm,encdec,moe}]
+                          [--only {train,swa,engine,mqa,ssm,encdec,moe,mla}]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -40,7 +40,9 @@ Phases (any failure exits non-zero; nothing is caught):
    bf16 step, with the same bits on a second run (bf16 with D <= 128
    takes the mma.sync kernels, float32 and D 160 the wmma / FFMA ones);
 3. engine: qwen2.5-14b at full width (d_model 5120, 40/8 heads, d_ff
-   13824, vocab 152064, bf16, seeded random weights) serving 12 requests
+   13824, vocab 152064, bf16, seeded random weights; depth cut to 24 of
+   its 48 layers unless ``--layers`` says otherwise, so that the whole
+   script stays inside its time limit) serving 12 requests
    through ``ContinuousBatchingEngine(paged=True, use_kernels=True,
    temperature=0)`` on 8 slots, the decode step captured in a CUDA graph
    when the engine is built and replayed (the main path); launch counts
@@ -95,7 +97,8 @@ Phases (any failure exits non-zero; nothing is caught):
    ``use_kernels=False``, and ms a step beside the weights' read time;
 9. ssm: rwkv6-1.6b (24 layers, d_model 2048, 32 heads of 64, d_ff 7168,
    vocab 65536, bf16 weights, 12.6 MB of recurrent state a slot) on the
-   strip pool, 32 slots: 48 requests of 200-4,000 prompt tokens + 64 new,
+   strip pool at 8 of its 24 layers (the whole script's time limit),
+   32 slots: 48 requests of 200-4,000 prompt tokens + 64 new,
    greedy, the decode step a CUDA graph (the main path) and eager (the
    same tokens and launches, the state after the run bit-equal), with
    ``use_kernels=False`` (the same tokens), then ``temperature=0.8``
@@ -103,7 +106,8 @@ Phases (any failure exits non-zero; nothing is caught):
    replay; two-pass also eager, as many launches), each kernel held
    against its plain version on
    the sampler rows [32, 65536]; a decode burst under the profiler, graph
-   and eager; and the chunked scan's scan branch, one prompt of 16,384
+   and eager; and, at all 24 layers, the chunked scan's scan branch, one
+   prompt of 16,384
    tokens (64 chunks of 256) against 16,128 prefilled + 256 decode steps,
    bf16 and float32, logits and state within a stated share of the
    largest value, the next 32 greedy tokens equal in float32;
@@ -150,7 +154,24 @@ Phases (any failure exits non-zero; nothing is caught):
    graph and eager (the MoE's kernels a group of their own), and a
    2-layer float32 cut whose served tokens ``==`` the batch-1 lockstep
    ``Model.generate``;
-12. training: qwen2.5-14b at full width, depth cut to 4 layers (float32
+12. multi-head latent attention: deepseek-v2-lite-16b at full width and
+   depth (27 layers, 16 heads of 128 nope + 64 rope query / key columns
+   and 128 value columns, a 512-wide latent cache, 64 experts top 6 plus
+   2 shared; 32.4 GB of bf16 weights, the router float32).  Kernels 12-13
+   with v's head dim apart from q's (D 192 / Dv 128 at a 2,048-token
+   prompt, D 24 / Dv 16 reduced, bf16 and float32) within
+   ``flash_limits``, kernel 4 at G 1, D 192 / Dv 128 over 16 slots of up
+   to 4,160 positions, kernels 1, 5, 6 on its router and sampler rows,
+   each timed beside its bound and library call; then 40 requests of
+   200-2,048 tokens and one of 4,096, 64 new tokens each, on 16 slots
+   (``max_len`` 4,160, pages of 64) through the moe phase's runs (graph
+   ``==`` eager tokens, launches and latent pages; strip ``==`` paged;
+   ``temperature=0.8`` under each algorithm), the no-cache forward's
+   logits (kernel 12 in every layer) against ``use_kernels=False``, a
+   graph and an eager decode trace (the eager one's up-projection and
+   expansion and its experts grouped by host range) and a 2-layer
+   float32 cut ``==`` ``Model.generate``;
+13. training: qwen2.5-14b at full width, depth cut to 4 layers (float32
    parameters, bf16 activations, remat), batch 1 x 4096 from SyntheticLM,
    with the model's own ``use_kernels``: from one state the kernel route
    (flash attention, fused LM-head CE) and the plain route (tensor forms,
@@ -161,9 +182,9 @@ Phases (any failure exits non-zero; nothing is caught):
    a fourth under the profiler shows where the step's device time goes,
    and the same three steps on the plain route from the same initial
    weights give the comparison;
-13. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
+14. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
    three_pass_reload --kernels``, at full width, as a subprocess;
-14. the training CLI, ``python -m repro_torch.launch.train --arch
+15. the training CLI, ``python -m repro_torch.launch.train --arch
    qwen2.5-14b --reduced --kernels`` with a checkpoint directory under
    ``build/``: 6 steps straight, then 3 and a resume to 6, whose final
    losses agree.
@@ -850,19 +871,21 @@ def flash_limits(torch, q, k, v, do, o, m_sum, n_sum, causal, window, scale):
     whose own sums over K keys or rows adds 2 lambda sqrt(K) u times the
     sum of its |terms|.  Final roundings add 4 u |value|, and a bf16 output
     one bf16 step, 2^-7 |value|.  The probabilities are materialised here a
-    chunk of 512 rows at a time from the plain version's stats."""
+    chunk of 512 rows at a time from the plain version's stats.  v, o and
+    do may carry a head dim Dv of their own: dp's sums run over Dv."""
     from repro_torch.kernels import twopass_xent as xe
 
     u, lam = 2.0 ** -24, ROUND_LAMBDA
     b, h, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // hkv
     c_d = 2 * lam * d ** 0.5 * u
+    c_dv = 2 * lam * dv ** 0.5 * u
     f = [t.float() for t in (q, k, v, do, o)]
     qf, kf, vf, dof, of = f
     qg = qf.reshape(b, hkv, g, sq, d)
-    dog = dof.reshape(b, hkv, g, sq, d)
-    og = of.reshape(b, hkv, g, sq, d)
+    dog = dof.reshape(b, hkv, g, sq, dv)
+    og = of.reshape(b, hkv, g, sq, dv)
     lse = (torch.log(m_sum) + n_sum * xe.LN2).reshape(b, hkv, g, sq, 1)
     delta = (dof * of).sum(-1, keepdim=True).reshape(b, hkv, g, sq, 1)
     ka, va = kf.abs(), vf.abs()
@@ -898,7 +921,7 @@ def flash_limits(torch, q, k, v, do, o, m_sum, n_sum, causal, window, scale):
         del es
         doc = dog[..., lo:hi, :]
         dp = torch.einsum("bhgqd,bhkd->bhgqk", doc, vf)
-        edp = c_d * torch.einsum("bhgqd,bhkd->bhgqk", doc.abs(), va)
+        edp = c_dv * torch.einsum("bhgqd,bhkd->bhgqk", doc.abs(), va)
         resid = (dp - delta[..., lo:hi, :]).abs()
         del dp
         ds_a = scale * p * resid                 # |ds|
@@ -916,151 +939,186 @@ def flash_limits(torch, q, k, v, do, o, m_sum, n_sum, causal, window, scale):
     return {x: t.reshape(-1) for x, t in lim.items()}
 
 
-def flash_phase(torch, rows) -> None:
-    """Kernels 12-13 against their plain versions at the train phase's
-    shape and five other cases (within the limits of
-    :func:`flash_limits`; exact zeros on rows that see no key; the same
-    bits on a second run); times at the train shape beside the bound, the
-    plain versions and ``scaled_dot_product_attention``, and the backward's
-    dq and dk/dv kernels alone (``dq_ms``, ``dkv_ms``)."""
-    import torch.nn.functional as F
-
+def flash_check(torch, case, shape) -> dict:
+    """Kernels 12-13 at one ``shape`` (FLASH_CASES' tuple, with v's head
+    dim Dv as an optional tenth entry) against their plain versions,
+    within the limits of :func:`flash_limits` (plus one bf16 step for a
+    bf16 output); exact zeros on rows that see no key; the same bits on a
+    second run.  Prints its ``kernel_check`` lines and returns the inputs,
+    the plain forward's residuals and the errors for a timing."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import twopass_xent as xe
 
-    for case, shape in FLASH_CASES.items():
-        b, h, hkv, sq, skv, d, causal, window, dts = shape
-        dt = getattr(torch, dts)
-        gen = torch.Generator(device="cuda").manual_seed(sq + d)
-        q, do = (torch.randn(b, h, sq, d, device="cuda", generator=gen)
-                 .to(dt) for _ in range(2))
-        k, v = (torch.randn(b, hkv, skv, d, device="cuda", generator=gen)
-                .to(dt) for _ in range(2))
-        scale = d ** -0.5
-        kw = dict(causal=causal, scale=scale, window=window)
-        nq, nkv = fa.chunk_counts(sq, skv, 64, 64)
-        pkw = dict(kw, n_q_chunks=nq, n_kv_chunks=nkv)
-        o, m, n = fa.flash_attention_fwd_gqa(q, k, v, **kw)
-        torch.cuda.synchronize()
-        po, pm, pn = fa.flash_attention_fwd_gqa_plain(q, k, v, **pkw)
-        # the backward of both sides from the plain forward's residuals
-        args = (q, k, v, po, pm, pn, do)
-        grads = fa.flash_attention_bwd_gqa(*args, **kw)
-        torch.cuda.synchronize()
-        pgrads = fa.flash_attention_bwd_gqa_plain(*args, **pkw)
-        lim = flash_limits(torch, q, k, v, do, po, pm, pn, causal, window,
-                           scale)
-        live = pm.reshape(-1) > 0
-        res = {}
+    b, h, hkv, sq, skv, d, causal, window, dts, *rest = shape
+    dv = rest[0] if rest else d
+    dt = getattr(torch, dts)
+    gen = torch.Generator(device="cuda").manual_seed(sq + d)
+    q, do = (torch.randn(b, h, sq, e, device="cuda", generator=gen).to(dt)
+             for e in (d, dv))
+    k, v = (torch.randn(b, hkv, skv, e, device="cuda", generator=gen)
+            .to(dt) for e in (d, dv))
+    scale = d ** -0.5
+    kw = dict(causal=causal, scale=scale, window=window)
+    nq, nkv = fa.chunk_counts(sq, skv, 64, 64)
+    pkw = dict(kw, n_q_chunks=nq, n_kv_chunks=nkv)
+    o, m, n = fa.flash_attention_fwd_gqa(q, k, v, **kw)
+    torch.cuda.synchronize()
+    po, pm, pn = fa.flash_attention_fwd_gqa_plain(q, k, v, **pkw)
+    # the backward of both sides from the plain forward's residuals
+    args = (q, k, v, po, pm, pn, do)
+    grads = fa.flash_attention_bwd_gqa(*args, **kw)
+    torch.cuda.synchronize()
+    pgrads = fa.flash_attention_bwd_gqa_plain(*args, **pkw)
+    lim = flash_limits(torch, q, k, v, do, po, pm, pn, causal, window,
+                       scale)
+    live = pm.reshape(-1) > 0
+    res = {}
 
-        def held(name, got, want):
-            got, want = got.float().reshape(-1), want.float().reshape(-1)
-            li = lim[name] + (2.0 ** -7 * want.abs()
-                              if dt == torch.bfloat16 and name != "lse"
-                              else 0.0)
-            err = (got - want).abs()
-            res[name] = (float(err.max()),
-                         float((err / li.clamp(min=1e-30)).max()))
+    def held(name, got, want):
+        got, want = got.float().reshape(-1), want.float().reshape(-1)
+        li = lim[name] + (2.0 ** -7 * want.abs()
+                          if dt == torch.bfloat16 and name != "lse"
+                          else 0.0)
+        err = (got - want).abs()
+        res[name] = (float(err.max()),
+                     float((err / li.clamp(min=1e-30)).max()))
 
-        held("o", o, po)
-        lse = (torch.log(m) + n * xe.LN2).reshape(-1)
-        plse = (torch.log(pm) + pn * xe.LN2).reshape(-1)
-        err = (lse[live] - plse[live]).abs()
-        res["lse"] = (float(err.max()),
-                      float((err / lim["lse"][live]).max()))
-        for name, a, w in zip(("dq", "dk", "dv"), grads, pgrads):
-            check(a.dtype == dt and a.shape == w.shape, f"flash {case} "
-                  f"{name}: {a.dtype} {tuple(a.shape)}")
-            held(name, a, w)
-        empty = 0
-        if causal and sq > skv:
-            empty = sq - skv
-            check(not o[:, :, :empty].any() and not m[:, :, :empty].any()
-                  and not grads[0][:, :, :empty].any(),
-                  f"flash {case}: rows that see no key are not exact zeros")
-        check(torch.equal(n.reshape(-1)[~live], pn.reshape(-1)[~live])
-              and torch.equal(m.reshape(-1)[~live], pm.reshape(-1)[~live]),
-              f"flash {case}: the stats of empty rows differ")
-        same = (all(torch.equal(x, y) for x, y in zip(
-            fa.flash_attention_fwd_gqa(q, k, v, **kw), (o, m, n)))
-            and all(torch.equal(x, y) for x, y in zip(
-                fa.flash_attention_bwd_gqa(*args, **kw), grads)))
-        del lim
-        for what, (a, over) in res.items():
-            check(over <= 1.0, f"flash {case} {what}: max abs err {a} is "
-                  f"{over} of its limit")
-        check(same, f"flash {case}: bits differ between two runs")
-        for kname, what in zip(FLASH, (("o", "lse"), ("dq", "dk", "dv"))):
-            say("kernel_check", kernel=kname, case=case,
-                shape=dict(b=b, h=h, hkv=hkv, sq=sq, skv=skv, d=d),
-                causal=causal, window=window, dtype=dts,
-                empty_rows_exact_zero=empty, same_bits_twice=True,
-                **{f"{x}_max_abs_err": res[x][0] for x in what},
-                **{f"{x}_worst_err_over_limit": res[x][1] for x in what},
-                tol="float32 accumulation limits (flash_limits: lambda 8 "
-                    "sqrt(K) 2^-24 sum|terms| carried through the scores, "
-                    "p, ds and the products) plus one bf16 step "
-                    "(2^-7 |value|) for a bf16 output; lse through "
-                    "ln m_sum + n_sum ln 2 on rows that see a key")
-        if case == "train_bf16":
-            vis = b * h * flash_visible(torch, sq, skv, causal, window)
-            es = q.element_size()
-            qb, kb = q.numel() * es, k.numel() * es
-            mm = 2 * vis * d                     # one product's operations
-            fwd_b = bound(2 * qb + 2 * kb + 8 * b * h * sq,
-                          FLASH_EXTEXP_OPS * vis, 2 * mm)
-            bwd_b = bound(4 * qb + 4 * kb + 12 * b * h * sq,
-                          FLASH_BWD_EW_OPS * vis, 5 * mm)
-            qr, kr, vr = (t.detach().clone().requires_grad_(True)
-                          for t in (q, k, v))
+    check(o.shape == po.shape == (b, h, sq, dv),
+          f"flash {case} o: {tuple(o.shape)}")
+    held("o", o, po)
+    lse = (torch.log(m) + n * xe.LN2).reshape(-1)
+    plse = (torch.log(pm) + pn * xe.LN2).reshape(-1)
+    err = (lse[live] - plse[live]).abs()
+    res["lse"] = (float(err.max()),
+                  float((err / lim["lse"][live]).max()))
+    for name, a, w in zip(("dq", "dk", "dv"), grads, pgrads):
+        check(a.dtype == dt and a.shape == w.shape, f"flash {case} "
+              f"{name}: {a.dtype} {tuple(a.shape)}")
+        held(name, a, w)
+    empty = 0
+    if causal and sq > skv:
+        empty = sq - skv
+        check(not o[:, :, :empty].any() and not m[:, :, :empty].any()
+              and not grads[0][:, :, :empty].any(),
+              f"flash {case}: rows that see no key are not exact zeros")
+    check(torch.equal(n.reshape(-1)[~live], pn.reshape(-1)[~live])
+          and torch.equal(m.reshape(-1)[~live], pm.reshape(-1)[~live]),
+          f"flash {case}: the stats of empty rows differ")
+    same = (all(torch.equal(x, y) for x, y in zip(
+        fa.flash_attention_fwd_gqa(q, k, v, **kw), (o, m, n)))
+        and all(torch.equal(x, y) for x, y in zip(
+            fa.flash_attention_bwd_gqa(*args, **kw), grads)))
+    del lim, o, m, n, grads, pgrads
+    for what, (a, over) in res.items():
+        check(over <= 1.0, f"flash {case} {what}: max abs err {a} is "
+              f"{over} of its limit")
+    check(same, f"flash {case}: bits differ between two runs")
+    for kname, what in zip(FLASH, (("o", "lse"), ("dq", "dk", "dv"))):
+        say("kernel_check", kernel=kname, case=case,
+            shape=dict(b=b, h=h, hkv=hkv, sq=sq, skv=skv, d=d, dv=dv),
+            causal=causal, window=window, dtype=dts,
+            empty_rows_exact_zero=empty, same_bits_twice=True,
+            **{f"{x}_max_abs_err": res[x][0] for x in what},
+            **{f"{x}_worst_err_over_limit": res[x][1] for x in what},
+            tol="float32 accumulation limits (flash_limits: lambda 8 "
+                "sqrt(K) 2^-24 sum|terms| carried through the scores, "
+                "p, ds and the products) plus one bf16 step "
+                "(2^-7 |value|) for a bf16 output; lse through "
+                "ln m_sum + n_sum ln 2 on rows that see a key")
+    return dict(q=q, k=k, v=v, do=do, kw=kw, pkw=pkw, args=args, res=res,
+                shape=dict(b=b, h=h, hkv=hkv, s=sq, skv=skv, d=d, dv=dv,
+                           causal=causal))
 
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    qr, kr, vr, is_causal=True, enable_gqa=True)
 
-            lib_fwd = cuda_ms(torch, sdpa)
-            lib_both = cuda_ms(torch, lambda: torch.autograd.grad(
-                sdpa(), (qr, kr, vr), do))
-            rows["flash_attention_fwd_gqa"] = {case: dict(
-                ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_gqa(
-                    q, k, v, **kw)),
-                plain_ms=cuda_ms(torch, lambda: fa.
-                                 flash_attention_fwd_gqa_plain(
-                                     q, k, v, **pkw), 5),
-                library_ms=lib_fwd,
-                **dict(zip(("bound_ms", "bound_by"), fwd_b)),
-                split_bound_ms=bound(0, 0, 4 * mm)[0],
-                max_abs_err=res["o"][0],
-                shape=dict(b=b, h=h, hkv=hkv, s=sq, d=d, causal=causal))}
-            delta = fa.attention_delta(po, do).contiguous()
-            outs = [torch.empty_like(t) for t in (q, k, v)]
+def flash_times(torch, rows, case, c, *, dq_dkv: bool = False) -> None:
+    """Times of kernels 12-13 on :func:`flash_check`'s case ``c`` into
+    ``rows[kernel][case]``: the forward and the backward beside their
+    bound, the plain versions and ``scaled_dot_product_attention`` (its
+    backward: forward + backward - forward); with ``dq_dkv`` also the
+    backward's dq and dk/dv kernels alone.  The bound counts the visible
+    scores' products: 2 forward (q k^T over D, w v over Dv), 5 backward
+    (three over D, two over Dv), on the bf16 tensor cores for bf16 inputs
+    and FFMA for float32."""
+    import torch.nn.functional as F
 
-            def one(which):                # one of the two kernels alone
-                return cuda_ms(torch, lambda: fa.bwd_kernel(
-                    which, q, k, v, do, pm, pn, delta, *outs, **kw))
+    from repro_torch.kernels import flash_attention as fa
 
-            rows["flash_attention_bwd_gqa"] = {case: dict(
-                ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_gqa(
-                    *args, **kw)),
-                dq_ms=one(0), dkv_ms=one(1),
-                plain_ms=cuda_ms(torch, lambda: fa.
-                                 flash_attention_bwd_gqa_plain(
-                                     *args, **pkw), 5),
-                library_ms=lib_both - lib_fwd,
-                **dict(zip(("bound_ms", "bound_by"), bwd_b)),
-                split_bound_ms=bound(0, 0, 13 * mm)[0],
-                max_abs_err=max(res[x][0] for x in ("dq", "dk", "dv")),
-                shape=dict(b=b, h=h, hkv=hkv, s=sq, d=d, causal=causal))}
-            del qr, kr, vr, delta, outs
-        del q, k, v, do, o, m, n, po, pm, pn, grads, pgrads, args
-        torch.cuda.empty_cache()
+    q, k, v, do, kw, pkw = (c[x] for x in ("q", "k", "v", "do", "kw",
+                                           "pkw"))
+    args = c["args"]
+    b, h, sq, d = q.shape
+    hkv, skv, dv = k.shape[1], k.shape[2], v.shape[3]
+    vis = b * h * flash_visible(torch, sq, skv, kw["causal"], kw["window"])
+    es = q.element_size()
+    rows_q, rows_k = b * h * sq, b * hkv * skv
+    bf = q.dtype == torch.bfloat16
+    fwd_mm, bwd_mm = 2 * vis * (d + dv), 2 * vis * (3 * d + 2 * dv)
+
+    def ops(ew, mm):                    # (float32 ops, bf16 tensor ops)
+        return (ew * vis, mm) if bf else (ew * vis + mm, 0.0)
+
+    fwd_b = bound(es * (rows_q * (d + dv) + rows_k * (d + dv))
+                  + 8 * rows_q, *ops(FLASH_EXTEXP_OPS, fwd_mm))
+    bwd_b = bound(es * (rows_q * (2 * d + 2 * dv) + rows_k * (2 * d + 2 * dv))
+                  + 12 * rows_q, *ops(FLASH_BWD_EW_OPS, bwd_mm))
+    qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qr, kr, vr, is_causal=kw["causal"], enable_gqa=True)
+
+    lib_fwd = cuda_ms(torch, sdpa)
+    lib_both = cuda_ms(torch, lambda: torch.autograd.grad(
+        sdpa(), (qr, kr, vr), do))
+    extra = {}
+    if dq_dkv:
+        delta = fa.attention_delta(args[3], do).contiguous()
+        outs = [torch.empty_like(t) for t in (q, k, v)]
+
+        def one(which):                # one of the two kernels alone
+            return cuda_ms(torch, lambda: fa.bwd_kernel(
+                which, q, k, v, do, args[4], args[5], delta, *outs, **kw))
+
+        extra = dict(dq_ms=one(0), dkv_ms=one(1))
+    res = c["res"]
+    rows.setdefault("flash_attention_fwd_gqa", {})[case] = dict(
+        ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_gqa(q, k, v, **kw)),
+        plain_ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_gqa_plain(
+            q, k, v, **pkw), 5),
+        library_ms=lib_fwd,
+        **dict(zip(("bound_ms", "bound_by"), fwd_b)),
+        split_bound_ms=bound(0, 0, 2 * fwd_mm)[0],
+        max_abs_err=res["o"][0], shape=c["shape"])
+    rows.setdefault("flash_attention_bwd_gqa", {})[case] = dict(
+        ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_gqa(*args, **kw)),
+        **extra,
+        plain_ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_gqa_plain(
+            *args, **pkw), 5),
+        library_ms=lib_both - lib_fwd,
+        **dict(zip(("bound_ms", "bound_by"), bwd_b)),
+        split_bound_ms=bound(0, 0, 13 * vis * (d + dv))[0],
+        max_abs_err=max(res[x][0] for x in ("dq", "dk", "dv")),
+        shape=c["shape"])
     for kname in FLASH:
-        r = rows[kname]["train_bf16"]
-        say("kernel_time", kernel=kname, case="train_bf16",
+        r = rows[kname][case]
+        say("kernel_time", kernel=kname, case=case,
             bound_us=r["bound_ms"] * 1e3,
-            split_products_note="split_bound_ms: the products the kernels "
-            "run (forward 1 + 3, backward 2 + 3 + 2 + 3 + 3) at the bf16 "
-            "peak", **r)
+            split_products_note="split_bound_ms: the products the bf16 "
+            "kernels run (forward 1 + 3, backward 2 + 3 + 2 + 3 + 3) at "
+            "the bf16 peak", **r)
+
+
+def flash_phase(torch, rows) -> None:
+    """Kernels 12-13 against their plain versions at the train phase's
+    shape and five other cases (:func:`flash_check`); times at the train
+    shape (:func:`flash_times`, with the backward's dq and dk/dv kernels
+    alone: ``dq_ms``, ``dkv_ms``)."""
+    for case, shape in FLASH_CASES.items():
+        c = flash_check(torch, case, shape)
+        if case == "train_bf16":
+            flash_times(torch, rows, case, c, dq_dkv=True)
+        del c
+        torch.cuda.empty_cache()
 
 
 def paper_comparison(torch, rows) -> None:
@@ -2208,6 +2266,10 @@ def mqa_phase(torch, rows) -> dict:
 # Phase 9: the ssm family, rwkv6-1.6b, at full width and depth.
 # ---------------------------------------------------------------------------
 SSM_ARCH = "rwkv6-1.6b"      # 24 layers, d 2048, 32 heads of 64, vocab 65536
+SSM_SERVE_LAYERS = 8         # the serving path's depth: the first 8 layers'
+                             # weights, so that the whole script keeps
+                             # inside its time limit; the scan check runs
+                             # all 24
 SSM_SEED = 16
 SSM_SLOTS = 32
 SSM_PROMPTS = (48, 200, 4001)          # requests, prompt lengths [lo, hi)
@@ -2460,8 +2522,11 @@ def _cast_tree(tree, dt):
 
 
 def ssm_phase(torch, rows) -> dict:
-    """Phase 9; returns the sampled runs' launches of kernels 1, 5, 6."""
-    from repro_torch.models import build_model
+    """Phase 9; returns the sampled runs' launches of kernels 1, 5, 6.
+    The serving path runs SSM_SERVE_LAYERS of the 24 layers, the scan
+    check all of them."""
+    from repro_torch.models import Model, build_model
+    from repro_torch.models.transformer import layer
 
     rng = np.random.default_rng(SSM_SEED)
     m = build_model(SSM_ARCH, use_kernels=True)
@@ -2476,7 +2541,8 @@ def ssm_phase(torch, rows) -> dict:
         head_dim=cfg.ssm.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
         chunk_size=cfg.ssm.chunk_size, weights_s=time.perf_counter() - t0,
         weights_bytes=sum(t.numel() * 2 for t in _leaves(params)),
-        param_count=cfg.param_count(), state_bytes_a_slot=state)
+        param_count=cfg.param_count(), state_bytes_a_slot=state,
+        serving_layers=SSM_SERVE_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(SSM_SEED)
     x = torch.randn((SSM_SLOTS, cfg.vocab), device="cuda",
                     generator=gen) * 8 / 0.8
@@ -2487,13 +2553,18 @@ def ssm_phase(torch, rows) -> dict:
     plens = rng.integers(lo, hi, n_req)
     prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab, n))
                for n in plens]
-    launches = ssm_serving(torch, m, params, prompts)
+    served = Model(dataclasses.replace(cfg, n_layers=SSM_SERVE_LAYERS),
+                   m.device)
+    sp = dict(params, blocks=layer(params["blocks"],
+                                   slice(0, SSM_SERVE_LAYERS)))
+    launches = ssm_serving(torch, served, sp, prompts)
     # a decode burst alone: the state's size does not depend on the
     # prompt, so the trace's prefills are cut to 256 tokens
     for fused in (True, False):
-        decode_trace(torch, m, params, [p[:256] for p in prompts],
+        decode_trace(torch, served, sp, [p[:256] for p in prompts],
                      fused=fused, slots=SSM_SLOTS, max_len=SSM_MAX_LEN,
                      new=SSM_NEW)
+    del sp
     ssm_scan_check(torch, m, params, rng)
     del m, params
     gc.collect()
@@ -2984,32 +3055,40 @@ MOE_TRACE = (1024, 32, 8)           # the traces: prompt cut, new tokens
 MOE_F32 = (2, 8, 32)                # float32 cut: layers, requests, new
 
 
-def moe_kernel_checks(torch, rows, rng, cfg) -> None:
-    """Kernel 1 on the router's float32 rows [2048, 40] (one prefill
-    group) and [32, 40] (a decode step's slots) and on the sampler's rows
-    [32, 49155]; kernels 5 and 6 on the same rows; the decode kernels at G
-    3, D 64 (24 query heads over 8 KV heads) over 32 slots of the served
-    lengths, bf16 and float32.  Each against its plain version, timed
-    beside its library call and bound."""
-    dev = "cuda"
-    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+def router_rows_checks(torch, rows, gen, cfg, slots, tag) -> None:
+    """Kernel 1 on a moe router's float32 rows [2048, E] (one prefill
+    group) and [slots, E] (a decode step's slots) and on the sampler's
+    rows [slots, vocab] at temperature 0.8; kernels 5 and 6 on the same
+    rows.  Each against its plain version, timed beside its library call
+    and bound, under ``rows[kernel][f"{tag}_..."]``."""
     e = cfg.moe.n_experts
     three = [k for _, k in SSM_SOFTMAX[1:]]
     # router logits: rms-normed activations over a d**-0.5 router, about
     # unit scale
-    for r in (2048, MOE_SLOTS):
-        x = torch.randn((r, e), device=dev, generator=gen)
-        key = f"moe_router_rows_{r}"
-        softmax_rows_check(torch, rows, key, x, f"moe router rows [{r}, {e}]")
+    for r in (2048, slots):
+        x = torch.randn((r, e), device="cuda", generator=gen)
+        key = f"{tag}_router_rows_{r}"
+        softmax_rows_check(torch, rows, key, x,
+                           f"{tag} router rows [{r}, {e}]")
         for kname in three:
             sampler_rows_check(torch, rows, kname, x, key)
-    x = torch.randn((MOE_SLOTS, cfg.vocab), device=dev,
+    x = torch.randn((slots, cfg.vocab), device="cuda",
                     generator=gen) * 8 / 0.8
-    softmax_rows_check(torch, rows, "moe_sampler_rows", x,
-                       "moe sampler rows, temperature 0.8")
+    softmax_rows_check(torch, rows, f"{tag}_sampler_rows", x,
+                       f"{tag} sampler rows, temperature 0.8")
     for kname in three:
-        sampler_rows_check(torch, rows, kname, x, "moe_sampler_rows")
-    del x
+        sampler_rows_check(torch, rows, kname, x, f"{tag}_sampler_rows")
+
+
+def moe_kernel_checks(torch, rows, rng, cfg) -> None:
+    """Kernels 1, 5 and 6 on the router's and the sampler's rows
+    (:func:`router_rows_checks`); the decode kernels at G 3, D 64 (24
+    query heads over 8 KV heads) over 32 slots of the served lengths,
+    bf16 and float32, against their plain versions, timed beside their
+    library call and bound."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    router_rows_checks(torch, rows, gen, cfg, MOE_SLOTS, "moe")
     s, ps = MOE_SLOTS, 128
     pmax = -(-MOE_MAX_LEN // ps)
     lengths = rng.integers(201, MOE_MAX_LEN + 1, s).astype(np.int32)
@@ -3024,6 +3103,15 @@ def moe_kernel_checks(torch, rows, rng, cfg) -> None:
     torch.cuda.empty_cache()
 
 
+def moe_read(cfg, paged: bool) -> str:
+    """The decode kernel a moe step reads its cache with: the paged one on
+    a paged pool, except under multi-head latent attention, whose step
+    gathers its latent pages and reads the up-projected K/V with the strip
+    kernel on both pools."""
+    return ("decode_attention_paged" if paged and cfg.mla is None
+            else "decode_attention")
+
+
 def moe_launches(cfg, st, sampled: bool = False) -> dict:
     """The kernels a moe run launches: a prefill runs each layer's score
     rows and router rows through the softmax kernel (and its first token's
@@ -3031,32 +3119,36 @@ def moe_launches(cfg, st, sampled: bool = False) -> dict:
     decode read (and the sampler's rows)."""
     n_l = cfg.n_layers
     extra = 1 if sampled else 0
-    read = "decode_attention_paged" if st["paged"] else "decode_attention"
+    read = moe_read(cfg, st["paged"])
     return {"softmax": st["admitted"] * (2 * n_l + extra)
             + st["steps"] * (n_l + extra), read: st["steps"] * n_l}
 
 
-def moe_serving(torch, m, params, prompts) -> tuple:
-    """The served traffic through ``Model.serving_engine`` (32 slots,
-    ``max_len`` 4,160, ``moe_impl="dispatch"``): paged with the decode
-    step a CUDA graph (the main path), paged eager (the same tokens,
-    launches and arena pages), strip (the same tokens), paged under
-    ``moe_impl="gather"``; then ``temperature=0.8`` under each softmax
-    algorithm, whose kernel the router and the sampler run.  Returns (the
-    dispatch and gather tokens, the main path's launches of kernels 1 and
-    3, the strip run's of kernel 4, the sampled runs' of kernels 5 and
-    6)."""
+def moe_serving(torch, m, params, prompts, *, slots=MOE_SLOTS,
+                max_len=MOE_MAX_LEN, new_tokens=MOE_NEW,
+                sampled=MOE_SAMPLED, gather=True, **engine_kw) -> tuple:
+    """The served traffic through ``Model.serving_engine`` (granite-moe:
+    32 slots, ``max_len`` 4,160, ``moe_impl="dispatch"``): paged with the
+    decode step a CUDA graph (the main path), paged eager (the same
+    tokens, launches and arena pages), strip (the same tokens), with
+    ``gather`` paged under ``moe_impl="gather"``; then
+    ``temperature=0.8`` under each softmax algorithm (``sampled``:
+    requests, prompt cut, new tokens), whose kernel the router and the
+    sampler run.  ``engine_kw`` go to every engine (a page size).
+    Returns (the dispatch and gather tokens, None without ``gather``; the
+    main path's launches of kernel 1 and of its decode read, the strip
+    run's of kernel 4, the sampled runs' of kernels 5 and 6)."""
     from repro_torch.models import Model
     from repro_torch.serving.scheduler import Request
 
     cfg = m.cfg
     n_l = cfg.n_layers
 
-    def reqs(cut=None, new=MOE_NEW, n=None):
+    def reqs(cut=None, new=new_tokens, n=None):
         return [Request(rid=i, prompt=p[:cut], max_new_tokens=new)
                 for i, p in enumerate(prompts[:n])]
 
-    kw = dict(slots=MOE_SLOTS, max_len=MOE_MAX_LEN, seed=3)
+    kw = dict(slots=slots, max_len=max_len, seed=3, **engine_kw)
     keys = ("decode_ms_per_step", "decode_tok_s", "prefill_tok_s",
             "peak_bytes", "peak_reserved_bytes", "steps", "capture_s",
             "graph_pool_bytes", "wall_s")
@@ -3076,9 +3168,9 @@ def moe_serving(torch, m, params, prompts) -> tuple:
             prompt_lens=[len(p) for p in prompts], **st)
         check(st["fused"] is fused and st["paged"] is paged,
               f"{cfg.name} {name}: fused {st['fused']}, paged {st['paged']}")
-        check(all(len(t) == MOE_NEW for t in toks),
+        check(all(len(t) == new_tokens for t in toks),
               f"{cfg.name} {name}: token counts")
-        check(st["admitted"] == len(prompts) > MOE_SLOTS
+        check(st["admitted"] == len(prompts) > slots
               and st["prefill_shapes"] == len(set(map(len, prompts))),
               f"{cfg.name} {name}: backfill, or a prompt was padded")
         want = moe_launches(cfg, st)
@@ -3099,7 +3191,7 @@ def moe_serving(torch, m, params, prompts) -> tuple:
     (tg, sg), (te, se) = runs["graph"], runs["eager"]
     check(tg == te and sg["launches"] == se["launches"],
           f"{cfg.name}: graph tokens or launches != eager")
-    check(states["graph"].pop("slots") == set(range(MOE_SLOTS))
+    check(states["graph"].pop("slots") == set(range(slots))
           == states["eager"].pop("slots"), "not every slot was used")
     # page 0 is the trash page: dead writes
     same = {k: bool(torch.equal(v[:, 1:], states["eager"][k][:, 1:]))
@@ -3123,18 +3215,20 @@ def moe_serving(torch, m, params, prompts) -> tuple:
         experts_bytes=experts_bytes,
         experts_read_ms=experts_bytes / HBM_BYTES_S * 1e3)
     run("strip", False, True, "dispatch")
-    run("gather", True, True, "gather")
+    if gather:
+        run("gather", True, True, "gather")
     ts, ss = runs["strip"]
     check(ts == tg, f"{cfg.name}: strip tokens != paged tokens")
     say("parity", arch=cfg.name, check="strip == paged tokens", equal=True,
         strip_ms_per_step=ss["decode_ms_per_step"],
         paged_ms_per_step=sg["decode_ms_per_step"])
+    read = moe_read(cfg, True)
     launches = {"twopass_softmax_2d": sg["launches"]["twopass_softmax_2d"],
-                "decode_attention_paged":
-                    sg["launches"]["decode_attention_paged"],
-                "decode_attention": ss["launches"]["decode_attention"]}
+                read: sg["launches"][read]}
+    if read != "decode_attention":
+        launches["decode_attention"] = ss["launches"]["decode_attention"]
 
-    n, cut, new = MOE_SAMPLED
+    n, cut, new = sampled
     for algo, kname in SSM_SOFTMAX:
         model = Model(dataclasses.replace(cfg, softmax_algorithm=algo),
                       m.device)
@@ -3145,17 +3239,15 @@ def moe_serving(torch, m, params, prompts) -> tuple:
         check(all(len(t) == new and all(0 <= x < cfg.vocab for x in t)
                   for t in toks), f"moe {algo}: sampled tokens")
         check(c.pop(kname) == want["softmax"]
-              and c.pop("decode_attention_paged")
-              == want["decode_attention_paged"] and not any(c.values()),
+              and c.pop(read) == want[read] and not any(c.values()),
               f"moe {algo}: launches {st['launches']}, want {want}")
-        check(st["launches_per_replay"] == {
-            "decode_attention_paged": n_l, kname: n_l + 1},
-            f"moe {algo}: a replay {st['launches_per_replay']}")
+        check(st["launches_per_replay"] == {read: n_l, kname: n_l + 1},
+              f"moe {algo}: a replay {st['launches_per_replay']}")
         say("engine", arch=cfg.name, path=f"paged, {algo}, moe_impl="
             "dispatch, use_kernels=True, temperature=0.8, graph step", **st)
         if algo != "two_pass":
             launches[kname] = st["launches"][kname]
-    return tg, runs["gather"][0], launches
+    return tg, runs["gather"][0] if gather else None, launches
 
 
 def moe_forced(torch, m, params, prompts, toks, impl):
@@ -3264,48 +3356,54 @@ def moe_step_alone(torch, m, params) -> None:
         bound_ms=experts / HBM_BYTES_S * 1e3, bound_by="bytes")
 
 
-def _moe_range():
-    """While on: each ``moe_apply`` call runs inside a profiler range
-    ``"moe"``, so an eager trace can group the kernels launched under it
-    (a graph replay's kernels have no host range)."""
+def _host_ranges(*targets):
+    """While on: each call of ``module.attr`` for every ``(module, attr,
+    name)`` of ``targets`` runs inside a profiler range ``name``, so an
+    eager trace can group the kernels launched under it (a graph replay's
+    kernels have no host range)."""
     import contextlib
 
     from torch.profiler import record_function
 
-    from repro_torch.models import moe
+    def wrap(fn, name):
+        def ranged(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return ranged
 
     @contextlib.contextmanager
     def on():
-        apply = moe.moe_apply
-
-        def ranged(*a, **kw):
-            with record_function("moe"):
-                return apply(*a, **kw)
-
-        moe.moe_apply = ranged
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+        for (mod, attr, fn), (_, _, name) in zip(saved, targets):
+            setattr(mod, attr, wrap(fn, name))
         try:
             yield
         finally:
-            moe.moe_apply = apply
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
 
     return on()
 
 
-def moe_f32_cut(torch, m, prompts) -> None:
-    """Full width, depth cut to MOE_F32 layers, float32 activations and
-    weights: the engine's greedy tokens (paged, graph step, dispatch)
-    ``==`` the batch-1 lockstep ``Model.generate``."""
+
+def moe_f32_cut(torch, m, prompts, cut=MOE_F32, slots=MOE_SLOTS,
+                max_len=MOE_MAX_LEN, **engine_kw) -> None:
+    """Full width, depth cut to ``cut``'s layers, float32 activations and
+    weights: the engine's greedy tokens (paged, graph step, dispatch) of
+    ``cut``'s requests and new tokens ``==`` the batch-1 lockstep
+    ``Model.generate``."""
     from repro_torch.models import Model
     from repro_torch.serving.scheduler import Request
 
-    layers, n, new = MOE_F32
+    layers, n, new = cut
     cfg = dataclasses.replace(m.cfg, n_layers=layers, dtype="float32")
     model = Model(cfg, m.device)
     params = model.init(seed=1, dtype=torch.float32)
     sub = [Request(rid=i, prompt=p, max_new_tokens=new)
            for i, p in enumerate(prompts[:n])]
     toks, st = serve_requests(torch, model, params, sub, temperature=0.0,
-                              slots=MOE_SLOTS, max_len=MOE_MAX_LEN, seed=3)
+                              slots=slots, max_len=max_len, seed=3,
+                              **engine_kw)
     want = [model.generate(
         params, torch.tensor([r.prompt], device="cuda"), steps=new - 1,
         temperature=0.0, max_len=len(r.prompt) + new)[0].tolist()
@@ -3321,7 +3419,7 @@ def moe_f32_cut(torch, m, prompts) -> None:
 def moe_phase(torch, rows) -> dict:
     """Phase 11; returns the main path's launches of kernels 1 and 3, the
     strip run's of kernel 4 and the sampled runs' of kernels 5 and 6."""
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe
 
     rng = np.random.default_rng(MOE_SEED)
     m = build_model(MOE_ARCH, use_kernels=True)
@@ -3368,7 +3466,7 @@ def moe_phase(torch, rows) -> dict:
     decode_trace(torch, m, params, trace, fused=True, slots=MOE_SLOTS,
                  max_len=MOE_MAX_LEN, new=new_graph)
     # the eager burst is host-bound and its trace large: fewer steps
-    with _moe_range():
+    with _host_ranges((moe, "moe_apply", "moe")):
         decode_trace(torch, m, params, trace, fused=False, slots=MOE_SLOTS,
                      max_len=MOE_MAX_LEN, new=new_eager, ranges=("moe",))
     part("decode traces")
@@ -3381,7 +3479,356 @@ def moe_phase(torch, rows) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: training qwen2.5-14b at full width through Trainer.
+# Phase 12: multi-head latent attention, deepseek-v2-lite-16b at full width.
+# ---------------------------------------------------------------------------
+MLA_ARCH = "deepseek-v2-lite-16b"   # 27 layers, d 2048, 16 heads: q / k of
+                                    # 128 nope + 64 rope, v 128; latent 512;
+                                    # 64 experts top 6 + 2 shared of 1,408
+MLA_SEED = 29
+MLA_SLOTS = 16
+MLA_PROMPTS = (40, 200, 2049)       # requests, prompt lengths [lo, hi)
+MLA_LONG = 4096                     # and one long document
+MLA_NEW = 64
+MLA_MAX_LEN = MLA_LONG + MLA_NEW    # 4,160
+MLA_PAGE = 64                       # 65 pages a slot: a paged slot gathers
+                                    # the strip's 4,160 positions exactly
+MLA_SAMPLED = (16, 128, 8)          # temperature 0.8: requests, prompt, new
+MLA_TRACE = (1024, 16, 6)           # the traces: prompt cut, new tokens
+                                    # graph and eager (a burst of 15 / 5)
+MLA_F32 = (2, 4, 16)                # float32 cut: layers, requests, new
+# (B, H, Hkv, Sq, Skv, D, causal, window, dtype, Dv): kernels 12-13 at the
+# no-cache forward's shape of a 2,048-token prompt (16 heads, D 128 + 64,
+# Dv 128) and at reduced deepseek's (D 16 + 8, Dv 16; 37 rows, a ragged
+# edge), each in both dtypes
+MLA_FLASH = {
+    f"mla_{name}_{short}": (b, h, h, s, s, d, True, None, dts, dv)
+    for name, (b, h, s, d, dv) in (("d192_dv128", (1, 16, 2048, 192, 128)),
+                                   ("reduced_d24_dv16", (2, 4, 37, 24, 16)))
+    for dts, short in (("bfloat16", "bf16"), ("float32", "f32"))}
+MLA_EXPAND = "mla up-projection and expansion"     # the eager trace's ranges
+MLA_EXPERTS = "experts (moe)"
+
+
+def mla_decode_check(torch, rows, rng, cfg) -> None:
+    """Kernel 4 at G 1, D 192 / Dv 128 (bf16) as the MLA step calls it:
+    each head's key the up-projected nope part and the shared rope key,
+    read through transposed views of [16, 4160, 16, 192] and of the value
+    half of [16, 4160, 16, 256], over 16 slots of 1-4,160 positions;
+    through the op with the config's policy against its plain version
+    (the kernel phase's bf16 tolerance), the same bits twice; timed by
+    graph replay beside ``scaled_dot_product_attention`` over the same
+    views and the bound of the visible positions' bytes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    m = cfg.mla
+    s, t, h, nd = MLA_SLOTS, MLA_MAX_LEN, cfg.n_heads, m.qk_nope_head_dim
+    d, dv = nd + m.qk_rope_head_dim, m.v_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(MLA_SEED)
+    lengths = rng.integers(1, t + 1, s).astype(np.int32)
+    lengths[:2] = (1, t)
+    lens = torch.from_numpy(lengths).cuda()
+    bf = torch.bfloat16
+    kf = torch.randn((s, t, h, d), device="cuda", generator=gen).to(bf)
+    kv = torch.randn((s, t, h, nd + dv), device="cuda", generator=gen).to(bf)
+    q = torch.randn((s, h, 1, d), device="cuda", generator=gen).to(bf)
+    k, v = kf.transpose(1, 2), kv[..., nd:].transpose(1, 2)
+    kw = dict(scale=d ** -0.5, policy=cfg.softmax_policy())
+
+    def fn():
+        return ops.decode_attention(q, k, v, lens, **kw)
+
+    def plain():
+        return ops.decode_attention(q, k, v, lens, use_kernel=False, **kw)
+
+    got = fn()
+    torch.cuda.synchronize()
+    r = held(got, plain(), dict(atol=1e-5, rtol=1e-2),
+             "decode_attention mla_g1_d192_dv128")
+    check(got.shape == (s, h, 1, dv) and torch.equal(fn(), got),
+          "decode_attention mla: shape, or bits differ between two runs")
+    say("kernel_check", kernel="decode_attention", case="mla_g1_d192_dv128",
+        same_bits_twice=True, **r)
+    mask = torch.arange(t, device="cuda")[None, :] < lens[:, None]
+    visible = int(lengths.sum())
+    b_ms, b_by = bound(visible * h * (d + dv) * 2 + s * h * (d + dv) * 2
+                       + s * 4, visible * h * (2 * d + 2 * dv + 20))
+    row = rows.setdefault("decode_attention", {})["mla_g1_d192_dv128"] = \
+        dict(ms=graph_ms(torch, fn), eager_ms=cuda_ms(torch, fn),
+             plain_ms=cuda_ms(torch, plain, 5),
+             library_ms=graph_ms(
+                 torch, lambda: F.scaled_dot_product_attention(
+                     q, k, v, attn_mask=mask[:, None, None, :],
+                     scale=kw["scale"])),
+             bound_ms=b_ms, bound_by=b_by, max_abs_err=r["max_abs_err"],
+             shape=dict(q=list(q.shape), k=list(k.shape), v=list(v.shape),
+                        lengths=lengths.tolist()))
+    say("kernel_time", kernel="decode_attention", case="mla_g1_d192_dv128",
+        bound_us=b_ms * 1e3, **row)
+    del kf, kv, q, k, v, got
+    torch.cuda.empty_cache()
+
+
+def mla_kernel_checks(torch, rows, rng, cfg) -> None:
+    """Kernels 12-13 at Dv != D (:data:`MLA_FLASH`: checked and timed),
+    kernel 4 at G 1, D 192 / Dv 128 (:func:`mla_decode_check`), kernels
+    1, 5 and 6 on the router's rows [2048, 64] / [16, 64] and the
+    sampler's [16, 102400] (:func:`router_rows_checks`)."""
+    for case, shape in MLA_FLASH.items():
+        c = flash_check(torch, case, shape)
+        flash_times(torch, rows, case, c)
+        del c
+        torch.cuda.empty_cache()
+    mla_decode_check(torch, rows, rng, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(MLA_SEED)
+    router_rows_checks(torch, rows, gen, cfg, MLA_SLOTS, "mla")
+    torch.cuda.empty_cache()
+
+
+def mla_forward_parity(torch, m, params, prompts) -> int:
+    """The no-cache forward (``Model.forward``, the flash route: kernel 12
+    at D 192, Dv 128 in every layer) with kernels against the model built
+    with ``use_kernels=False``, bf16, at each prompt's last position.  Any
+    rounding difference can flip one of a token's top-6 experts in some
+    layer, so the logits are held by the margin rule of the bf16 ring and
+    the gather impl: the argmax ``==`` wherever the plain top-2 margin
+    exceeds twice the largest logit difference.  The distance is printed
+    beside those of two routes that differ from the plain forward in
+    rounding only: the plain prefill (``full_attention``; the chunked
+    form at 4,096 tokens) and the served prefill with kernels (kernel 1).
+    Kernel 12's own agreement is held without bf16 by
+    :func:`mla_f32_forward` and on these activations by
+    :func:`mla_layer_parity`.  Returns kernel 12's launches (one a layer a
+    prompt); the plain runs launch nothing."""
+    import repro_torch.kernels as K
+    from repro_torch.models import Model, transformer
+
+    cfg, v = m.cfg, m.cfg.vocab
+    plain = Model(dataclasses.replace(cfg, use_kernels=False), m.device)
+
+    def logits(model, route):
+        out = []
+        for p in prompts:
+            tok = torch.tensor([p], device="cuda")
+            if route == "forward":
+                h = model.forward(params, tok)
+                lg = transformer.lm_logits(params, h[:, -1], cfg=cfg)
+            else:
+                lg, _ = model.prefill(params, tok)
+            out.append(lg[:, :v].float())
+            del tok, lg
+            torch.cuda.empty_cache()
+        return torch.cat(out)
+
+    K.reset_launch_counts()
+    got = logits(m, "forward")
+    flash = K.launch_counts()["flash_attention_fwd_gqa"]
+    check(flash == len(prompts) * cfg.n_layers,
+          f"{cfg.name}: the forward launched kernel 12 {flash} times")
+    K.reset_launch_counts()
+    want = logits(plain, "forward")
+    plain_prefill = logits(plain, "prefill")
+    check(sum(K.launch_counts().values()) == 0,
+          f"{cfg.name}: use_kernels=False launched a kernel")
+    served = logits(m, "prefill")
+
+    def over(a):
+        return ((a - want).abs().amax(1) / want.abs().amax(1)).tolist()
+
+    err = (got - want).abs().amax(1)
+    top2 = want.topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * err
+    same = got.argmax(1) == want.argmax(1)
+    say("parity", arch=cfg.name, check="bf16 no-cache forward logits at the "
+        "last position, use_kernels=True (flash, D 192 / Dv 128) vs False",
+        prompt_lens=[len(p) for p in prompts], flash_launches=flash,
+        max_err_over_max_logit=over(got),
+        served_prefill_kernels_vs_plain_forward=over(served),
+        plain_prefill_vs_plain_forward=over(plain_prefill),
+        top2_margin=(top2[:, 0] - top2[:, 1]).tolist(),
+        max_abs_err=err.tolist(), decided=decided.tolist(),
+        argmax_equal=same.tolist(),
+        rule="argmax == where the plain top-2 margin exceeds 2 x the "
+             "largest logit difference")
+    check(bool(same[decided].all()),
+          f"{cfg.name}: forward argmax kernels vs plain at a decided prompt")
+    return flash
+
+
+def mla_layer_parity(torch, m, params, prompts) -> None:
+    """Kernel 12 on the model's own bf16 activations, without the drift
+    the layers add: the plain forward's input to each of the 27 layers
+    goes through both attentions (``mla_attention`` with kernels, the
+    flash route; without, ``attention_core``'s plain route), and the
+    attention outputs before ``wo`` are held within one bf16 step of the
+    value (rtol 2^-7: both round a float32 result once) plus 1e-4 of the
+    layer's largest value (the float32 sums in another order)."""
+    from repro_torch.models import attention, layers, transformer
+
+    cfg = m.cfg
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    core, outs = attention.attention_core, []
+
+    def keep(*a, **kw):
+        outs.append(core(*a, **kw))
+        return outs[-1]
+
+    worst, layers_held = 0.0, 0
+    attention.attention_core = keep
+    try:
+        for p in prompts:
+            tok = torch.tensor([p], device="cuda")
+            x = layers.embed(params["embed"], tok,
+                             transformer.torch_dtype(cfg.dtype))
+            cos, sin = transformer._cos_sin(
+                cfg, torch.arange(len(p), device="cuda"))
+            for i in range(cfg.n_layers):
+                lp = transformer.layer(params["blocks"], i)
+                h = layers.rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
+                outs.clear()
+                for c in (cfg, plain_cfg):
+                    attention.mla_attention(lp["attn"], h, cos, sin, cfg=c)
+                got, want = outs
+                r = held(got, want, dict(
+                    atol=1e-4 * float(want.abs().max()), rtol=2.0 ** -7),
+                    f"{cfg.name} layer {i} attention, kernels vs plain")
+                worst = max(worst, r["worst_err_over_limit"])
+                layers_held += 1
+                x, _ = transformer.block_apply(lp, x, cos, sin,
+                                               cfg=plain_cfg)
+            del tok, x, h
+            outs.clear()
+            torch.cuda.empty_cache()
+    finally:
+        attention.attention_core = core
+    say("parity", arch=cfg.name, check="bf16 attention outputs a layer on "
+        "the plain forward's activations, flash (D 192 / Dv 128) vs plain",
+        prompt_lens=[len(p) for p in prompts], layers_held=layers_held,
+        worst_err_over_limit=worst,
+        tol="rtol 2^-7 (one bf16 step) + atol 1e-4 of the layer's largest "
+            "value")
+
+
+MLA_F32_TOL = 1e-4       # float32 forward, kernels vs plain: sum orders
+
+
+def mla_f32_forward(torch, m, prompts) -> None:
+    """Kernel 12 in the model without bf16 roundings: full width, depth
+    cut to MLA_F32's layers, float32 weights and activations; the
+    no-cache forward's last-position logits with kernels (the FFMA flash
+    kernels at D 192 / Dv 128) against ``use_kernels=False`` within
+    MLA_F32_TOL of the largest logit (the two differ in sum order
+    only)."""
+    from repro_torch.models import Model, transformer
+
+    cfg = dataclasses.replace(m.cfg, n_layers=MLA_F32[0], dtype="float32")
+    model = Model(cfg, m.device)
+    params = model.init(seed=1, dtype=torch.float32)
+    plain = Model(dataclasses.replace(cfg, use_kernels=False), m.device)
+    out = []
+    for mod in (model, plain):
+        lg = [transformer.lm_logits(
+            params, mod.forward(params, torch.tensor([p], device="cuda"))
+            [:, -1], cfg=cfg)[:, :cfg.vocab] for p in prompts]
+        out.append(torch.cat(lg))
+    got, want = out
+    errs = ((got - want).abs().amax(1) / want.abs().amax(1)).tolist()
+    say("parity", arch=cfg.name, check="float32 no-cache forward logits, "
+        "use_kernels=True vs False", n_layers=cfg.n_layers,
+        prompt_lens=[len(p) for p in prompts], per_prompt=errs,
+        argmax_equal=int((got.argmax(1) == want.argmax(1)).sum()),
+        tol=f"{MLA_F32_TOL} of the largest logit")
+    check(max(errs) <= MLA_F32_TOL,
+          f"{cfg.name} float32 forward kernels vs plain: {errs}")
+    del params, out, got, want
+    torch.cuda.empty_cache()
+
+
+def mla_phase(torch, rows) -> dict:
+    """Phase 12: deepseek-v2-lite-16b at full width and depth, bf16
+    weights seeded on the card (router float32): the kernel checks, the
+    served traffic through :func:`moe_serving` (16 slots, ``max_len``
+    4,160 in pages of 64, 40 requests of 200-2,048 tokens and one of
+    4,096, 64 new tokens each, no gather run), the no-cache forward's
+    logits with kernels against without, a graph and an eager decode
+    trace (the eager one grouping the up-projection and expansion and the
+    experts by host range) and a 2-layer float32 cut.  Returns the main
+    path's launches of kernels 1 and 4, the sampled runs' of 5 and 6 and
+    the forward's of 12."""
+    from repro_torch.models import attention, build_model, moe
+    from repro_torch.serving import kv_cache
+
+    rng = np.random.default_rng(MLA_SEED)
+    m = build_model(MLA_ARCH, use_kernels=True)
+    cfg = m.cfg
+    t0 = time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        say("mla_part", part=name, seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+
+    mla_kernel_checks(torch, rows, rng, cfg)
+    part("kernel checks")
+    params = m.init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    mc = cfg.mla
+    say("mla_config", arch=MLA_ARCH, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, n_heads=cfg.n_heads,
+        kv_lora_rank=mc.kv_lora_rank, qk_nope_head_dim=mc.qk_nope_head_dim,
+        qk_rope_head_dim=mc.qk_rope_head_dim, v_head_dim=mc.v_head_dim,
+        n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+        d_expert=cfg.moe.d_expert, n_shared=cfg.moe.n_shared,
+        vocab=cfg.vocab, padded_vocab=cfg.padded_vocab(),
+        weights_s=time.perf_counter() - t0,
+        weights_bytes=sum(t.numel() * t.element_size()
+                          for t in _leaves(params)),
+        router_dtype=str(params["blocks"]["mlp"]["router"]["w"].dtype),
+        param_count=cfg.param_count(), slots=MLA_SLOTS,
+        max_len=MLA_MAX_LEN, page_size=MLA_PAGE,
+        latent_bytes_a_token=kv_cache.cache_bytes(cfg, 1, 1),
+        paged_pool_bytes=kv_cache.paged_pool_bytes(
+            cfg, MLA_SLOTS, MLA_MAX_LEN, page_size=MLA_PAGE))
+    part("weights")
+    n, lo, hi = MLA_PROMPTS
+    plens = [int(x) for x in rng.integers(lo, hi, n)] + [MLA_LONG]
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab, k))
+               for k in plens]
+    _, _, launches = moe_serving(
+        torch, m, params, prompts, slots=MLA_SLOTS, max_len=MLA_MAX_LEN,
+        new_tokens=MLA_NEW, sampled=MLA_SAMPLED, gather=False,
+        page_size=MLA_PAGE)
+    part("serving")
+    order = np.argsort(plens, kind="stable")
+    three = [prompts[i] for i in (order[0], order[len(order) // 2],
+                                  plens.index(MLA_LONG))]
+    mla_f32_forward(torch, m, three)
+    mla_layer_parity(torch, m, params, three)
+    launches["flash_attention_fwd_gqa"] = mla_forward_parity(
+        torch, m, params, three)
+    part("forward parity")
+    cut, new_graph, new_eager = MLA_TRACE
+    trace = [p[:cut] for p in prompts]
+    kw = dict(slots=MLA_SLOTS, max_len=MLA_MAX_LEN, page_size=MLA_PAGE)
+    decode_trace(torch, m, params, trace, fused=True, new=new_graph, **kw)
+    # the eager burst is host-bound and its trace large: fewer steps
+    with _host_ranges((attention, "_expand_latent", MLA_EXPAND),
+                      (moe, "moe_apply", MLA_EXPERTS)):
+        decode_trace(torch, m, params, trace, fused=False, new=new_eager,
+                     ranges=(MLA_EXPAND, MLA_EXPERTS), **kw)
+    part("decode traces")
+    moe_f32_cut(torch, m, prompts, cut=MLA_F32, slots=MLA_SLOTS,
+                max_len=MLA_MAX_LEN, page_size=MLA_PAGE)
+    part("float32 cut")
+    del m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: training qwen2.5-14b at full width through Trainer.
 # ---------------------------------------------------------------------------
 TRAIN_LAYERS = 4            # depth cut from 48 (memory: 16 bytes a param)
 TRAIN_SEQ = 4096            # the config's train_4k length, batch 1
@@ -3619,7 +4066,7 @@ def train_trace(torch, step, state, batch) -> None:
 
 
 def cli_phase(torch) -> None:
-    """Phase 13: the serving CLI at full width as a user runs it."""
+    """Phase 14: the serving CLI at full width as a user runs it."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
            "--slots", "8", "--requests", "8", "--prompt-len", "256",
            "--steps", "8", "--softmax", "three_pass_reload", "--kernels"]
@@ -3642,7 +4089,7 @@ CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 
 
 def train_cli_phase(torch) -> None:
-    """Phase 14: the training CLI as a user runs it, reduced qwen2.5-14b
+    """Phase 15: the training CLI as a user runs it, reduced qwen2.5-14b
     with ``--kernels`` and a checkpoint directory: 6 steps straight, then 3
     (the crash) and a resume to 6 from the same directory; the final losses
     agree, and the flash and LM-head kernels ran."""
@@ -3871,10 +4318,11 @@ MAIN_CASE = {"twopass_softmax_2d": "prefill_bucket_1024",
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=48,
-                    help="decoder depth of the engine phase (full: 48)")
+    ap.add_argument("--layers", type=int, default=24,
+                    help="decoder depth of the engine phase (full: 48; "
+                    "24 keeps the whole script inside its time limit)")
     ap.add_argument("--only", choices=("train", "swa", "engine", "mqa",
-                                       "ssm", "encdec", "moe"),
+                                       "ssm", "encdec", "moe", "mla"),
                     help="run one phase alone (train: to compare the train "
                     "step of two trees on one card); no kernels or ok line")
     args = ap.parse_args()
@@ -3906,9 +4354,10 @@ def main() -> int:
         elif args.only == "engine":
             say("engine_done", launches=engine_phase(
                 torch, np.random.default_rng(0), args.layers)[0])
-        elif args.only in ("mqa", "ssm", "encdec", "moe"):
+        elif args.only in ("mqa", "ssm", "encdec", "moe", "mla"):
             phase = {"mqa": mqa_phase, "ssm": ssm_phase,
-                     "encdec": encdec_phase, "moe": moe_phase}[args.only]
+                     "encdec": encdec_phase, "moe": moe_phase,
+                     "mla": mla_phase}[args.only]
             t0 = time.perf_counter()
             say(f"{args.only}_done", launches=phase(
                 torch, {"twopass_softmax_2d": {}}),
@@ -3953,8 +4402,12 @@ def main() -> int:
         launches[name] += n
     say("moe_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
+    mla_launches = mla_phase(torch, rows)
+    say("mla_done", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
     launches.update(train_phase(torch))
-    for name, n in enc_launches.items():     # the flash forward's too
+    # after the train phase's counts: the flash forward's too
+    for name, n in (*enc_launches.items(), *mla_launches.items()):
         launches[name] += n
     say("train_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()

@@ -8,13 +8,18 @@ forward, the backward and each of its two kernels (dq, dk/dv) alone, beside
 ``scaled_dot_product_attention``'s forward and backward.
 
     python3 scripts/flash_probe.py
+    python3 scripts/flash_probe.py --digest
 
 A quick check of a kernel edit before the full ``chip_smoke.py``; exits
 non-zero when there is no card, the build fails or a test fails.
+``--digest`` only prints the sha256 of the forward's and the backward's
+outputs at ``chip_smoke.py``'s flash cases (v's head dim equal to q's):
+copied into an older tree, it shows whether an edit kept their bits.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import pathlib
 import subprocess
@@ -39,6 +44,42 @@ def ms(torch, fn, iters: int = 10) -> float:
     return a.elapsed_time(b) / iters
 
 
+# (B, H, Hkv, Sq, Skv, D, causal, window, dtype): chip_smoke.py's
+# FLASH_CASES and one bf16 case of the 64-wide mma kernels
+DIGEST_CASES = [(1, 40, 8, 4096, 4096, 128, True, None, "bfloat16"),
+                (1, 8, 2, 700, 300, 128, True, None, "float32"),
+                (1, 8, 2, 2048, 2048, 128, True, 300, "bfloat16"),
+                (1, 4, 1, 500, 500, 120, True, None, "bfloat16"),
+                (1, 4, 2, 333, 333, 160, False, None, "float32"),
+                (1, 4, 2, 333, 333, 160, True, None, "bfloat16"),
+                (1, 8, 8, 1500, 1500, 64, False, None, "bfloat16")]
+
+
+def digest(torch, fa) -> None:
+    """The sha256 of (o, m_sum, n_sum, dq, dk, dv) a case, the backward
+    from the kernel forward's residuals; inputs from a seeded generator on
+    the card."""
+    whole = hashlib.sha256()
+    for case in DIGEST_CASES:
+        b, h, hkv, sq, skv, d, causal, window, dts = case
+        dt = getattr(torch, dts)
+        g = torch.Generator(device="cuda").manual_seed(sq + d)
+        q, do = (torch.randn(b, h, sq, d, device="cuda", generator=g).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(b, hkv, skv, d, device="cuda", generator=g)
+                .to(dt) for _ in range(2))
+        kw = dict(causal=causal, scale=d ** -0.5, window=window)
+        o, m, n = fa.flash_attention_fwd_gqa(q, k, v, **kw)
+        grads = fa.flash_attention_bwd_gqa(q, k, v, o, m, n, do, **kw)
+        one = hashlib.sha256()
+        for t in (o, m, n, *grads):
+            one.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                       .tobytes())
+        whole.update(one.digest())
+        print(f"flash digest {case}: {one.hexdigest()}", flush=True)
+    print(f"flash digest, all cases: {whole.hexdigest()}", flush=True)
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -49,6 +90,11 @@ def main() -> int:
     import repro_torch  # noqa: F401  (sets the TF32 switches)
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+
+    if "--digest" in sys.argv[1:]:
+        _build.build_all()
+        digest(torch, fa)
+        return 0
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -187,23 +187,16 @@ class ModelConfig:
 # families this package does not serve yet -> ROADMAP queue A item
 UNPORTED_FAMILIES = {"vlm": 14, "hybrid": 16}
 # families it serves but does not train yet (ssm training is item 27,
-# encdec training item 28, moe training item 29)
+# encdec training item 28, moe training item 29: deepseek-v2-lite-16b's
+# multi-head latent attention is served and trains with the moe family)
 UNTRAINED_FAMILIES = {**UNPORTED_FAMILIES, "ssm": 27, "encdec": 28,
                       "moe": 29}
-# multi-head latent attention (deepseek-v2-lite-16b, family moe)
-MLA_ITEM = 15
 
 
 def check_ported(cfg: ModelConfig, what: str,
                  families: dict = UNPORTED_FAMILIES) -> None:
     """Refuse a family this package does not serve yet (or, given
-    ``UNTRAINED_FAMILIES``, does not train yet), naming its item, and any
-    config with multi-head latent attention, which is not ported for any
-    use (item 15)."""
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"multi-head latent attention: {what} is not ported yet "
-            f"(ROADMAP queue A item {MLA_ITEM})")
+    ``UNTRAINED_FAMILIES``, does not train yet), naming its item."""
     if cfg.family in families:
         raise NotImplementedError(
             f"family {cfg.family!r}: {what} is not ported yet (ROADMAP "

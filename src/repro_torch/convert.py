@@ -35,8 +35,9 @@ def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
     moe block's ``mlp`` is the experts: ``router.w`` float32 ``[L, d,
     E]``, ``wg`` / ``wu`` ``[L, E, d, d_expert]``, ``wd`` ``[L, E,
     d_expert, d]`` and, with shared experts, ``shared`` (a plain MLP).  A
-    family that is not ported, or a tree with multi-head latent attention,
-    is refused naming its item."""
+    config with multi-head latent attention (deepseek) has the latent
+    leaves in ``attn``: ``wq``, ``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo``.
+    A family that is not ported is refused naming its item."""
     check_ported(cfg, "weight conversion")
     want = {"embed", "norm_f", "blocks"} | (
         set() if cfg.tie_embeddings else {"lm_head"}) | (
@@ -64,6 +65,16 @@ def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
                                        m.d_expert):
             raise ValueError(f"moe wg {np.shape(mlp['wg'])} does not match "
                              "the config")
+    if cfg.mla is not None:
+        attn, m = tree_of_numpy["blocks"]["attn"], cfg.mla
+        want_attn = {"wq", "wkv_a", "kv_norm", "wkv_b", "wo"}
+        if set(attn) != want_attn:
+            raise ValueError(f"mla attn keys {sorted(attn)}, expected "
+                             f"{sorted(want_attn)}")
+        wkv_b = np.shape(attn["wkv_b"]["w"])[1:]
+        if wkv_b != (m.kv_lora_rank, cfg.n_heads * (m.qk_nope_head_dim
+                                                     + m.v_head_dim)):
+            raise ValueError(f"mla wkv_b {wkv_b} does not match the config")
     for name, depth in stacks:
         lead = np.shape(tree_of_numpy[name][norm][leaf])[0]
         if lead != depth:

@@ -14,15 +14,18 @@
 // ExtExp and every rescale use __fmul_rn / __fadd_rn and rintf
 // (extexp.cuh), so kernel and plain version share their (m, n) bits.
 //
-// Layouts: q, o, do [B, H, Sq, D]; k, v [B, Hkv, Skv, D], H a multiple of
-// Hkv (GQA: q-head h reads KV head h / (H / Hkv), K/V are never repeated);
-// stats and delta [B, H, Sq] float32; all contiguous.  D is a multiple of 8
-// up to 256; tiles are zero-filled to Dp (D rounded up to 16) in shared
-// memory, and ragged Sq / Skv edges are masked here, so nothing is padded
-// in device memory.  Query row i sits at position i + Skv - Sq (the ends
-// of the two sequences align), so a causal call with Sq > Skv has rows that
-// see no key: their o, dq and stats are exact zeros (m_sum = 0,
-// n_sum = -1e38).
+// Layouts: q, dq [B, H, Sq, D]; o, do [B, H, Sq, Dv]; k, dk [B, Hkv, Skv,
+// D]; v, dv [B, Hkv, Skv, Dv], H a multiple of Hkv (GQA: q-head h reads KV
+// head h / (H / Hkv), K/V are never repeated); stats and delta [B, H, Sq]
+// float32; all contiguous.  D and Dv (v's head dim, which multi-head latent
+// attention sets apart from D: 192 / 128 for deepseek-v2-lite) are each at
+// most 256, any width; tiles are zero-filled to Dp / Dvp (D / Dv rounded
+// up to 16) in shared memory, with scalar loads where a row is not a
+// whole number of 16-byte groups, and ragged Sq / Skv edges are masked
+// here, so nothing is padded in device memory.  Query row i sits at
+// position i + Skv - Sq (the ends of the two sequences align), so a causal
+// call with Sq > Skv has rows that see no key: their o, dq and stats are
+// exact zeros (m_sum = 0, n_sum = -1e38).
 //
 // Design.  One block of 4 warps owns one tile of query rows (forward, dq)
 // or key rows (dk/dv) and loops over the other axis inside the block: the
@@ -41,18 +44,20 @@
 // the function needs 2; the backward 2 + 3 (dq) and 2 + 3 + 3 (dk/dv), 13
 // where it needs 5.
 //
-// Which kernel runs, by dtype and D alone (never on a failure):
-//   * forward, bf16 with D rounded up to 16 at most 128 (every config the
-//     port trains): flash_fwd_mma.  64-row Q tile, each warp 16 of its rows;
-//     s = q k^T in mma.sync accumulator registers, scaled, masked and
-//     folded there (each row's (m, n) in registers, the row's max and sum
-//     over the quad of lanes that holds it), w's parts packed in place into
+// Which kernel runs, by dtype, D and Dv alone (never on a failure):
+//   * forward, bf16 with Dv == D, D a multiple of 8 and rounded up to 16
+//     at most 128 (every config the port trains): flash_fwd_mma.  64-row
+//     Q tile, each warp 16 of its rows; s = q k^T in mma.sync accumulator
+//     registers, scaled, masked and folded there (each row's (m, n) in
+//     registers, the row's max and sum over the quad of lanes that holds
+//     it), w's parts packed in place into
 //     the A operand of o += w v, V read by ldmatrix.trans, o accumulated in
 //     registers and written once; the K / V tiles double-buffered with
 //     cp.async.  ~87 KB of shared memory: two blocks an SM;
-//   * forward, float32 or D in (128, 256]: flash_fwd, nvcuda::wmma 16x16x16
-//     through shared memory, one cp.async stage (unchanged since its port);
-//   * backward, bf16 with D rounded up to 16 at most 128: flash_dq_mma and
+//   * forward, float32, D in (128, 256], Dv != D or D not a multiple of 8:
+//     flash_fwd, nvcuda::wmma 16x16x16 through shared memory, one cp.async
+//     stage, with V, o and the P.V product in Dvp columns;
+//   * backward, bf16 under the forward's mma condition: flash_dq_mma and
 //     flash_dkv_mma.  64-row tiles on both axes, each warp 16 rows of the
 //     block's own tile;
 //     mma.sync.m16n8k16 with ldmatrix (.trans for the operands read along
@@ -66,8 +71,9 @@
 //     cp.async, the (q-head, Q tile) pairs of dk/dv as one sequence, so the
 //     next tile's loads overlap this tile's math.  ~104 KB of shared memory
 //     and at most 255 registers a thread (no spills): two blocks an SM;
-//   * backward, float32 (FFMA, the kernel check's path) or D in (128, 256]:
-//     flash_dq and flash_dkv, wmma through shared memory as the forward.
+//   * backward otherwise (float32 with FFMA, the kernel check's path):
+//     flash_dq and flash_dkv, wmma through shared memory as the forward,
+//     dO / V in Dvp columns, dv written in Dv.
 //
 // Bound on this card (B 1, H 40, Hkv 8, S 4096, D 128, bf16, causal):
 // operations.  The forward's 2 products over the causal half are 1.7e11
@@ -103,6 +109,7 @@ struct Attn {
   int H, Hkv, Sq, Skv, D, Dp;
   float scale;
   int causal, window;  // window <= 0: none
+  int Dv, Dvp;         // v's head dim; the mma kernels take Dv == D only
 };
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -178,13 +185,16 @@ struct Carve {
 
 // Rows [r0, r0 + nrows) of a row-major [rows, D] matrix into dst (leading
 // dimension ld), columns zero-filled to Dp and rows past `rows` zero.
-// Aligned 16-byte groups go by cp.async (waited for by the caller).
+// Aligned 16-byte groups go by cp.async (waited for by the caller): `vec`
+// says the matrix starts 16-byte aligned, and rows of a D that is no
+// multiple of 16 bytes go element by element.
 template <typename T>
 __device__ __forceinline__ void load_tile(const T* __restrict__ src, int r0,
                                           int nrows, int rows, int D, int Dp,
                                           T* dst, int ld, bool vec) {
   constexpr int kVec = 16 / sizeof(T);
   const int groups = Dp / kVec;
+  vec = vec && D % kVec == 0;
   for (int i = threadIdx.x; i < nrows * groups; i += kThreads) {
     const int r = i / groups, c = (i % groups) * kVec;
     const int gr = r0 + r;
@@ -347,7 +357,7 @@ __device__ __forceinline__ float n_of_max(float x) {
 template <typename T, int BQ, int BK>
 struct FwdLayout {
   size_t qs, ks, vs, sw, os, rows, total;
-  __host__ __device__ explicit FwdLayout(int Dp) {
+  __host__ __device__ FwdLayout(int Dp, int Dvp) {
     using P = Parts<T>;
     Carve c;
     const int ld = ld_in<T>(Dp);
@@ -355,12 +365,12 @@ struct FwdLayout {
     // ks also holds the per-warp staging buffers while w v runs
     const size_t kb = sizeof(T) * BK * ld;
     ks = c.take(kb > 4 * kWarps * 256 ? kb : 4 * kWarps * 256);
-    vs = c.take(sizeof(T) * BK * ld);
+    vs = c.take(sizeof(T) * BK * ld_in<T>(Dvp));
     // the scores, then (in the same bytes) the parts of w
     const size_t sb = 4 * BQ * (BK + 4);
     const size_t wb = sizeof(typename P::type) * P::n * BQ * (BK + P::pad);
     sw = c.take(sb > wb ? sb : wb);
-    os = c.take(4 * BQ * (Dp + 4));
+    os = c.take(4 * BQ * (Dvp + 4));
     rows = c.take(4 * 4 * BQ);
     total = c.off;
   }
@@ -376,9 +386,9 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int TPR = kThreads / BQ;  // threads per row
   constexpr int CPT = BK / TPR;       // columns per thread
   extern __shared__ __align__(128) unsigned char smem[];
-  const FwdLayout<T, BQ, BK> L(a.Dp);
-  const int ld = ld_in<T>(a.Dp), lds = BK + 4, ldw = BK + P::pad,
-            ldo = a.Dp + 4;
+  const FwdLayout<T, BQ, BK> L(a.Dp, a.Dvp);
+  const int ld = ld_in<T>(a.Dp), ldv = ld_in<T>(a.Dvp), lds = BK + 4,
+            ldw = BK + P::pad, ldo = a.Dvp + 4;
   T* Qs = reinterpret_cast<T*>(smem + L.qs);
   T* Ks = reinterpret_cast<T*>(smem + L.ks);
   float* stage = reinterpret_cast<float*>(smem + L.ks);
@@ -399,7 +409,7 @@ __global__ void __launch_bounds__(kThreads)
   const size_t krow = (static_cast<size_t>(b) * a.Hkv + hk) * a.Skv;
   const T* qp = q + qrow * a.D;
   const T* kp = k + krow * a.D;
-  const T* vp = v + krow * a.D;
+  const T* vp = v + krow * a.Dv;
   const bool vq = aligned16(qp), vk = aligned16(kp), vv = aligned16(vp);
 
   load_tile(qp, q0, BQ, a.Sq, a.D, a.Dp, Qs, ld, vq);
@@ -415,7 +425,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int jt = jlo; jt < jhi; ++jt) {
     const int k0 = jt * BK;
     load_tile(kp, k0, BK, a.Skv, a.D, a.Dp, Ks, ld, vk);
-    load_tile(vp, k0, BK, a.Skv, a.D, a.Dp, Vs, ld, vv);
+    load_tile(vp, k0, BK, a.Skv, a.Dv, a.Dvp, Vs, ldv, vv);
     wait_loads();
     prod_nt(Qs, ld, Ks, ld, BQ, BK, a.Dp, Ss, lds);
     __syncthreads();
@@ -458,7 +468,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     // o = o * a_old + (w v) * a_loc
-    prod_parts<false>(Wp, ldw, plane, Vs, ld, BQ, a.Dp, BK, stage,
+    prod_parts<false>(Wp, ldw, plane, Vs, ldv, BQ, a.Dvp, BK, stage,
                       [&](int rr, int c, float val) {
                         float* p = Os + rr * ldo + c;
                         *p = __fadd_rn(__fmul_rn(*p, a_old[rr]),
@@ -467,10 +477,10 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
   wait_loads();  // also when no KV tile was visible
-  for (int i = threadIdx.x; i < BQ * a.D; i += kThreads) {
-    const int rr = i / a.D, c = i % a.D;
+  for (int i = threadIdx.x; i < BQ * a.Dv; i += kThreads) {
+    const int rr = i / a.Dv, c = i % a.Dv;
     if (q0 + rr < a.Sq)
-      repro::store(o + (qrow + q0 + rr) * a.D + c,
+      repro::store(o + (qrow + q0 + rr) * a.Dv + c,
                    __fdiv_rn(Os[rr * ldo + c], fmaxf(m_acc[rr], 1e-37f)));
   }
   for (int rr = threadIdx.x; rr < BQ; rr += kThreads) {
@@ -542,22 +552,22 @@ template <typename T, int BQ, int BK>
 struct BwdLayout {
   // dq: a = Q, b = dO (BQ rows), c = K, d = V (BK rows), acc0 = dQ;
   // dk/dv: a = K, b = V (BK rows), c = Q, d = dO (BQ rows), acc0 = dK,
-  // acc1 = dV.
+  // acc1 = dV.  a, c and acc0 are Dp wide; b, d and acc1 Dvp.
   size_t a, b, c, d, ss, ps, parts, acc0, acc1, stage, rows, total;
-  __host__ __device__ BwdLayout(int Dp, bool dkv) {
+  __host__ __device__ BwdLayout(int Dp, int Dvp, bool dkv) {
     using P = Parts<T>;
     Carve cv;
-    const int ld = ld_in<T>(Dp);
+    const int ld = ld_in<T>(Dp), ldv = ld_in<T>(Dvp);
     const int ra = dkv ? BK : BQ, rc = dkv ? BQ : BK;
     a = cv.take(sizeof(T) * ra * ld);
-    b = cv.take(sizeof(T) * ra * ld);
+    b = cv.take(sizeof(T) * ra * ldv);
     c = cv.take(sizeof(T) * rc * ld);
-    d = cv.take(sizeof(T) * rc * ld);
+    d = cv.take(sizeof(T) * rc * ldv);
     ss = cv.take(4 * BQ * (BK + 4));
     ps = cv.take(4 * BQ * (BK + 4));
     parts = cv.take(sizeof(typename P::type) * P::n * BQ * (BK + P::pad));
     acc0 = cv.take(4 * ra * (Dp + 4));
-    acc1 = dkv ? cv.take(4 * BK * (Dp + 4)) : acc0;
+    acc1 = dkv ? cv.take(4 * BK * (Dvp + 4)) : acc0;
     stage = cv.take(4 * kWarps * 256);
     rows = cv.take(4 * 3 * BQ);
     total = cv.off;
@@ -574,9 +584,9 @@ __global__ void __launch_bounds__(kThreads)
   using P = Parts<T>;
   using PT = typename P::type;
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdLayout<T, BQ, BK> L(a.Dp, false);
-  const int ld = ld_in<T>(a.Dp), lds = BK + 4, ldw = BK + P::pad,
-            ldo = a.Dp + 4;
+  const BwdLayout<T, BQ, BK> L(a.Dp, a.Dvp, false);
+  const int ld = ld_in<T>(a.Dp), ldv = ld_in<T>(a.Dvp), lds = BK + 4,
+            ldw = BK + P::pad, ldo = a.Dp + 4;
   T* Qs = reinterpret_cast<T*>(smem + L.a);
   T* dOs = reinterpret_cast<T*>(smem + L.b);
   T* Ks = reinterpret_cast<T*>(smem + L.c);
@@ -597,13 +607,13 @@ __global__ void __launch_bounds__(kThreads)
   const size_t qrow = (static_cast<size_t>(b) * a.H + h) * a.Sq;
   const size_t krow = (static_cast<size_t>(b) * a.Hkv + hk) * a.Skv;
   const T* qp = q + qrow * a.D;
-  const T* dop = dout + qrow * a.D;
+  const T* dop = dout + qrow * a.Dv;
   const T* kp = k + krow * a.D;
-  const T* vp = v + krow * a.D;
+  const T* vp = v + krow * a.Dv;
   const bool vk = aligned16(kp), vv = aligned16(vp);
 
   load_tile(qp, q0, BQ, a.Sq, a.D, a.Dp, Qs, ld, aligned16(qp));
-  load_tile(dop, q0, BQ, a.Sq, a.D, a.Dp, dOs, ld, aligned16(dop));
+  load_tile(dop, q0, BQ, a.Sq, a.Dv, a.Dvp, dOs, ldv, aligned16(dop));
   load_rows<BQ>(m_sum, n_sum, delta, qrow, q0, a.Sq, ns, inv, dl);
   for (int i = threadIdx.x; i < BQ * ldo; i += kThreads) dQs[i] = 0.0f;
   int jlo, jhi;
@@ -611,10 +621,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int jt = jlo; jt < jhi; ++jt) {
     const int k0 = jt * BK;
     load_tile(kp, k0, BK, a.Skv, a.D, a.Dp, Ks, ld, vk);
-    load_tile(vp, k0, BK, a.Skv, a.D, a.Dp, Vs, ld, vv);
+    load_tile(vp, k0, BK, a.Skv, a.Dv, a.Dvp, Vs, ldv, vv);
     wait_loads();
     prod_nt(Qs, ld, Ks, ld, BQ, BK, a.Dp, Ss, lds);
-    prod_nt(dOs, ld, Vs, ld, BQ, BK, a.Dp, Ps, lds);
+    prod_nt(dOs, ldv, Vs, ldv, BQ, BK, a.Dvp, Ps, lds);
     __syncthreads();
     p_ds<BQ, BK>(a, q0, k0, Ss, Ps, lds, ns, inv, dl,
                  [&](int rr, int c, float, float ds) {
@@ -649,9 +659,9 @@ __global__ void __launch_bounds__(kThreads)
   using P = Parts<T>;
   using PT = typename P::type;
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdLayout<T, BQ, BK> L(a.Dp, true);
-  const int ld = ld_in<T>(a.Dp), lds = BK + 4, ldw = BK + P::pad,
-            ldo = a.Dp + 4;
+  const BwdLayout<T, BQ, BK> L(a.Dp, a.Dvp, true);
+  const int ld = ld_in<T>(a.Dp), ldv = ld_in<T>(a.Dvp), lds = BK + 4,
+            ldw = BK + P::pad, ldo = a.Dp + 4, ldov = a.Dvp + 4;
   T* Ks = reinterpret_cast<T*>(smem + L.a);
   T* Vs = reinterpret_cast<T*>(smem + L.b);
   T* Qs = reinterpret_cast<T*>(smem + L.c);
@@ -672,29 +682,27 @@ __global__ void __launch_bounds__(kThreads)
   const int G = a.H / a.Hkv;
   const size_t krow = (static_cast<size_t>(b) * a.Hkv + hk) * a.Skv;
   const T* kp = k + krow * a.D;
-  const T* vp = v + krow * a.D;
+  const T* vp = v + krow * a.Dv;
   load_tile(kp, k0, BK, a.Skv, a.D, a.Dp, Ks, ld, aligned16(kp));
-  load_tile(vp, k0, BK, a.Skv, a.D, a.Dp, Vs, ld, aligned16(vp));
-  for (int i = threadIdx.x; i < BK * ldo; i += kThreads) {
-    dKs[i] = 0.0f;
-    dVs[i] = 0.0f;
-  }
+  load_tile(vp, k0, BK, a.Skv, a.Dv, a.Dvp, Vs, ldv, aligned16(vp));
+  for (int i = threadIdx.x; i < BK * ldo; i += kThreads) dKs[i] = 0.0f;
+  for (int i = threadIdx.x; i < BK * ldov; i += kThreads) dVs[i] = 0.0f;
   int ilo, ihi;
   q_tiles<BQ, BK>(a, k0, ilo, ihi);
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     const size_t qrow = (static_cast<size_t>(b) * a.H + h) * a.Sq;
     const T* qp = q + qrow * a.D;
-    const T* dop = dout + qrow * a.D;
+    const T* dop = dout + qrow * a.Dv;
     const bool vq = aligned16(qp), vd = aligned16(dop);
     for (int it = ilo; it < ihi; ++it) {
       const int q0 = it * BQ;
       load_tile(qp, q0, BQ, a.Sq, a.D, a.Dp, Qs, ld, vq);
-      load_tile(dop, q0, BQ, a.Sq, a.D, a.Dp, dOs, ld, vd);
+      load_tile(dop, q0, BQ, a.Sq, a.Dv, a.Dvp, dOs, ldv, vd);
       load_rows<BQ>(m_sum, n_sum, delta, qrow, q0, a.Sq, ns, inv, dl);
       wait_loads();
       prod_nt(Qs, ld, Ks, ld, BQ, BK, a.Dp, Ss, lds);
-      prod_nt(dOs, ld, Vs, ld, BQ, BK, a.Dp, Ps, lds);
+      prod_nt(dOs, ldv, Vs, ldv, BQ, BK, a.Dvp, Ps, lds);
       __syncthreads();
       // p's parts for dv; ds kept in place of dp (one thread per element)
       p_ds<BQ, BK>(a, q0, k0, Ss, Ps, lds, ns, inv, dl,
@@ -704,9 +712,9 @@ __global__ void __launch_bounds__(kThreads)
                    });
       __syncthreads();
       // dv += p^T do
-      prod_parts<true>(Pp, ldw, plane, dOs, ld, BK, a.Dp, BQ, stage,
+      prod_parts<true>(Pp, ldw, plane, dOs, ldv, BK, a.Dvp, BQ, stage,
                        [&](int rr, int c, float val) {
-                         float* p = dVs + rr * ldo + c;
+                         float* p = dVs + rr * ldov + c;
                          *p = __fadd_rn(*p, val);
                        });
       __syncthreads();
@@ -727,10 +735,13 @@ __global__ void __launch_bounds__(kThreads)
   wait_loads();
   for (int i = threadIdx.x; i < BK * a.D; i += kThreads) {
     const int rr = i / a.D, c = i % a.D;
-    if (k0 + rr < a.Skv) {
+    if (k0 + rr < a.Skv)
       repro::store(dk + (krow + k0 + rr) * a.D + c, dKs[rr * ldo + c]);
-      repro::store(dv + (krow + k0 + rr) * a.D + c, dVs[rr * ldo + c]);
-    }
+  }
+  for (int i = threadIdx.x; i < BK * a.Dv; i += kThreads) {
+    const int rr = i / a.Dv, c = i % a.Dv;
+    if (k0 + rr < a.Skv)
+      repro::store(dv + (krow + k0 + rr) * a.Dv + c, dVs[rr * ldov + c]);
   }
 }
 
@@ -1281,7 +1292,7 @@ template <typename T, int BQ, int BK>
 cudaError_t fwd_launch(const void* q, const void* k, const void* v, void* o,
                        float* m, float* n, int B, const Attn& a,
                        cudaStream_t s) {
-  const size_t bytes = FwdLayout<T, BQ, BK>(a.Dp).total;
+  const size_t bytes = FwdLayout<T, BQ, BK>(a.Dp, a.Dvp).total;
   cudaError_t e = allow_smem(flash_fwd<T, BQ, BK>, bytes);
   if (e != cudaSuccess) return e;
   flash_fwd<T, BQ, BK><<<dim3(a.H, B, cdiv(a.Sq, BQ)), kThreads, bytes, s>>>(
@@ -1304,19 +1315,26 @@ cudaError_t fwd_mma_launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// bf16 with Dp <= 128 takes the mma forward; float32 and Dp in (128, 256]
-// flash_fwd.  The choice reads the dtype and D only.
+// The mma kernels take bf16 with Dv == D, D a multiple of 8 and Dp <= 128.
+bool mma_ok(const Attn& a) {
+  return a.Dv == a.D && a.D % 8 == 0 && a.Dp <= 128;
+}
+
+// bf16 under mma_ok takes the mma forward; everything else flash_fwd, its
+// tile the largest whose shared memory (D and Dv both) fits.  The choice
+// reads the dtype, D and Dv only.
 template <typename T>
 cudaError_t fwd_any(const void* q, const void* k, const void* v, void* o,
                     float* m, float* n, int B, const Attn& a, cudaStream_t s) {
   if constexpr (std::is_same_v<T, bf16>) {
-    if (a.Dp <= 64) return fwd_mma_launch<64>(q, k, v, o, m, n, B, a, s);
-    if (a.Dp <= 128) return fwd_mma_launch<128>(q, k, v, o, m, n, B, a, s);
+    if (mma_ok(a) && a.Dp <= 64)
+      return fwd_mma_launch<64>(q, k, v, o, m, n, B, a, s);
+    if (mma_ok(a)) return fwd_mma_launch<128>(q, k, v, o, m, n, B, a, s);
   }
   const size_t cap = static_cast<size_t>(max_smem());
-  if (FwdLayout<T, 64, 64>(a.Dp).total <= cap)
+  if (FwdLayout<T, 64, 64>(a.Dp, a.Dvp).total <= cap)
     return fwd_launch<T, 64, 64>(q, k, v, o, m, n, B, a, s);
-  if (FwdLayout<T, 64, 32>(a.Dp).total <= cap)
+  if (FwdLayout<T, 64, 32>(a.Dp, a.Dvp).total <= cap)
     return fwd_launch<T, 64, 32>(q, k, v, o, m, n, B, a, s);
   return fwd_launch<T, 32, 32>(q, k, v, o, m, n, B, a, s);
 }
@@ -1330,7 +1348,7 @@ struct BwdArgs {
 template <typename T, int BQ, int BK>
 cudaError_t bwd_launch(const BwdArgs& g, int B, const Attn& a, bool dkv,
                        cudaStream_t s) {
-  const size_t bytes = BwdLayout<T, BQ, BK>(a.Dp, dkv).total;
+  const size_t bytes = BwdLayout<T, BQ, BK>(a.Dp, a.Dvp, dkv).total;
   const T* q = static_cast<const T*>(g.q);
   const T* k = static_cast<const T*>(g.k);
   const T* v = static_cast<const T*>(g.v);
@@ -1374,29 +1392,30 @@ cudaError_t mma_launch(const BwdArgs& g, int B, const Attn& a, bool dkv,
   return cudaGetLastError();
 }
 
-// bf16 with Dp <= 128 takes the mma backward; float32 and Dp in (128, 256]
-// the wmma / FFMA kernels above.  The choice reads the dtype and D only.
+// bf16 under mma_ok takes the mma backward; everything else the wmma /
+// FFMA kernels above, as the forward chooses.
 template <typename T>
 cudaError_t bwd_any(const BwdArgs& g, int B, const Attn& a, bool dkv,
                     cudaStream_t s) {
   if constexpr (std::is_same_v<T, bf16>) {
-    if (a.Dp <= 64) return mma_launch<64>(g, B, a, dkv, s);
-    if (a.Dp <= 128) return mma_launch<128>(g, B, a, dkv, s);
+    if (mma_ok(a) && a.Dp <= 64) return mma_launch<64>(g, B, a, dkv, s);
+    if (mma_ok(a)) return mma_launch<128>(g, B, a, dkv, s);
   }
   const size_t cap = static_cast<size_t>(max_smem());
-  if (BwdLayout<T, 64, 64>(a.Dp, dkv).total <= cap)
+  if (BwdLayout<T, 64, 64>(a.Dp, a.Dvp, dkv).total <= cap)
     return bwd_launch<T, 64, 64>(g, B, a, dkv, s);
-  if (BwdLayout<T, 64, 32>(a.Dp, dkv).total <= cap)
+  if (BwdLayout<T, 64, 32>(a.Dp, a.Dvp, dkv).total <= cap)
     return bwd_launch<T, 64, 32>(g, B, a, dkv, s);
   return bwd_launch<T, 32, 32>(g, B, a, dkv, s);
 }
 
-bool make_attn(int H, int Hkv, int Sq, int Skv, int D, float scale,
+bool make_attn(int H, int Hkv, int Sq, int Skv, int D, int Dv, float scale,
                int causal, int window, Attn& a) {
-  if (H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Skv < 0 || D < 8 ||
-      D > kMaxD || D % 8)
+  if (H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Skv < 0 || D < 1 ||
+      D > kMaxD || Dv < 1 || Dv > kMaxD)
     return false;
-  a = Attn{H, Hkv, Sq, Skv, D, round16(D), scale, causal, window};
+  a = Attn{H, Hkv, Sq, Skv, D, round16(D), scale, causal, window, Dv,
+           round16(Dv)};
   return true;
 }
 
@@ -1408,14 +1427,14 @@ const char* repro_cuda_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o alike).  m_sum, n_sum
-// float32 [B, H, Sq].
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o alike).  o [B, H, Sq, Dv];
+// m_sum, n_sum float32 [B, H, Sq].
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* m_sum, void* n_sum, int B, int H, int Hkv,
-                        int Sq, int Skv, int D, float scale, int causal,
-                        int window, int dtype, void* stream) {
+                        int Sq, int Skv, int D, int Dv, float scale,
+                        int causal, int window, int dtype, void* stream) {
   Attn a;
-  if (!make_attn(H, Hkv, Sq, Skv, D, scale, causal, window, a))
+  if (!make_attn(H, Hkv, Sq, Skv, D, Dv, scale, causal, window, a))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(m_sum);
@@ -1426,16 +1445,17 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(e);
 }
 
-// which: 0 = dq [B, H, Sq, D]; 1 = dk, dv [B, Hkv, Skv, D].  delta =
-// rowsum(do * o) float32 [B, H, Sq].
+// which: 0 = dq [B, H, Sq, D]; 1 = dk [B, Hkv, Skv, D], dv [B, Hkv, Skv,
+// Dv].  dout [B, H, Sq, Dv]; delta = rowsum(do * o) float32 [B, H, Sq].
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* dout, const void* m_sum,
                         const void* n_sum, const void* delta, void* dq,
                         void* dk, void* dv, int B, int H, int Hkv, int Sq,
-                        int Skv, int D, float scale, int causal, int window,
-                        int which, int dtype, void* stream) {
+                        int Skv, int D, int Dv, float scale, int causal,
+                        int window, int which, int dtype, void* stream) {
   Attn a;
-  if (!make_attn(H, Hkv, Sq, Skv, D, scale, causal, window, a) || Skv <= 0)
+  if (!make_attn(H, Hkv, Sq, Skv, D, Dv, scale, causal, window, a) ||
+      Skv <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs g{q,
                   k,

@@ -10,8 +10,10 @@ for tensors on the CPU.  There is no fallback: a CUDA tensor reaches the
 kernel or the call raises.  Each wrapper counts its launches in
 ``.launches``.
 
-Layouts: q, o, do ``[B, H, Sq, D]``; k, v ``[B, Hkv, Skv, D]`` with H a
-multiple of Hkv.  GQA indexes KV head ``h // (H // Hkv)`` for q-head ``h``:
+Layouts: q ``[B, H, Sq, D]``; o, do ``[B, H, Sq, Dv]``; k ``[B, Hkv, Skv,
+D]``, v ``[B, Hkv, Skv, Dv]`` with H a multiple of Hkv.  v may carry a head
+dim of its own (multi-head latent attention: D 192, Dv 128), as the
+reference's.  GQA indexes KV head ``h // (H // Hkv)`` for q-head ``h``:
 K/V are never repeated, and dk/dv sum over the group.  With Hkv == H this
 is the reference's layout (K/V pre-expanded to the q-heads).  Query row
 ``i`` sits at position ``i + Skv - Sq``: the ends of the two sequences
@@ -135,9 +137,9 @@ def flash_attention_fwd_gqa_plain(q, k, v, *, causal: bool, scale: float,
 
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """``rowsum(do * o)`` float32 ``[B, H, Sq, 1]``: the backward's
-    diagonal term, plain PyTorch on every route (the reference computes it
-    outside its kernels too)."""
+    """``rowsum(do * o)`` over the Dv columns, float32 ``[B, H, Sq, 1]``:
+    the backward's diagonal term, plain PyTorch on every route (the
+    reference computes it outside its kernels too)."""
     return (do.to(torch.float32) * o.to(torch.float32)).sum(dim=-1,
                                                            keepdim=True)
 
@@ -191,10 +193,10 @@ def flash_attention_bwd_gqa_plain(q, k, v, o, m_sum, n_sum, do, *,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    lib.flash_attention_fwd.argtypes = [_P] * 6 + [_I] * 6 + [_F, _I, _I,
+    lib.flash_attention_fwd.argtypes = [_P] * 6 + [_I] * 7 + [_F, _I, _I,
                                                               _I, _P]
     lib.flash_attention_fwd.restype = _I
-    lib.flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 6 + [_F] + [_I] * 4 \
+    lib.flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 7 + [_F] + [_I] * 4 \
         + [_P]
     lib.flash_attention_bwd.restype = _I
     lib.flash_attention_blocks_per_sm.argtypes = [_I, _I]
@@ -224,28 +226,27 @@ def _check_qkv(what: str, q, k, v, window) -> None:
             or h % k.shape[1] or k.shape[3] != d):
         raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}: need q [B, H, Sq, D], k "
-                         "[B, Hkv, Skv, D] with Hkv dividing H")
-    if v.shape[3] != d:
-        raise ValueError(f"{what}: the kernels take v's head dim equal to "
-                         f"q's ({v.shape[3]} != {d})")
-    if d % 8 or not 8 <= d <= MAX_D:
-        raise ValueError(f"{what}: head dim D = {d}; the kernels take a "
-                         f"multiple of 8 up to {MAX_D}")
+                         "[B, Hkv, Skv, D], v [B, Hkv, Skv, Dv] with Hkv "
+                         "dividing H")
+    for name, e in (("D", d), ("Dv", v.shape[3])):
+        if not 1 <= e <= MAX_D:
+            raise ValueError(f"{what}: head dim {name} = {e}; the kernels "
+                             f"take 1 to {MAX_D}")
     if window is not None and window <= 0:
         raise ValueError(f"{what}: window {window} must be positive")
 
 
-def _args(q, k, scale, causal, window):
+def _args(q, k, v, scale, causal, window):
     b, h, sq, d = q.shape
-    return (b, h, k.shape[1], sq, k.shape[2], d, scale, int(bool(causal)),
-            0 if window is None else int(window))
+    return (b, h, k.shape[1], sq, k.shape[2], d, v.shape[3], scale,
+            int(bool(causal)), 0 if window is None else int(window))
 
 
 def flash_attention_fwd_gqa(q, k, v, *, causal: bool = False,
                             scale: float | None = None,
                             window: int | None = None, block_q: int = 64,
                             block_k: int = 64):
-    """Flash-attention forward: ``(o [B, H, Sq, D] in q.dtype, m_sum,
+    """Flash-attention forward: ``(o [B, H, Sq, Dv] in q.dtype, m_sum,
     n_sum [B, H, Sq, 1] float32)``.  ``block_q`` / ``block_k`` are the
     plain version's chunk lengths; the kernel's tile depends on D and the
     dtype only."""
@@ -258,7 +259,7 @@ def flash_attention_fwd_gqa(q, k, v, *, causal: bool = False,
             n_q_chunks=nq, n_kv_chunks=nkv)
     _check_qkv("flash_attention_fwd_gqa", q, k, v, window)
     b, h, sq, _ = q.shape
-    o = torch.empty_like(q)
+    o = q.new_empty((b, h, sq, v.shape[3]))
     m = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
     n = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
@@ -266,7 +267,7 @@ def flash_attention_fwd_gqa(q, k, v, *, causal: bool = False,
     lib = _lib()
     rc = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        m.data_ptr(), n.data_ptr(), *_args(q, k, scale, causal, window),
+        m.data_ptr(), n.data_ptr(), *_args(q, k, v, scale, causal, window),
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "flash_attention_fwd_gqa")
     flash_attention_fwd_gqa.launches += 1
@@ -290,10 +291,12 @@ def flash_attention_bwd_gqa(q, k, v, o, m_sum, n_sum, do, *,
             window=window, n_q_chunks=nq, n_kv_chunks=nkv)
     what = "flash_attention_bwd_gqa"
     _check_qkv(what, q, k, v, window)
+    want = (*q.shape[:3], v.shape[3])
     for t, name in ((o, "o"), (do, "do")):
-        if t.shape != q.shape or t.device != q.device:
+        if tuple(t.shape) != want or t.device != q.device:
             raise ValueError(f"{what}: {name} {tuple(t.shape)} on "
-                             f"{t.device} must match q {tuple(q.shape)}")
+                             f"{t.device}; expected {want} (q's rows, v's "
+                             f"head dim) on {q.device}")
     rows = q.shape[0] * q.shape[1] * q.shape[2]
     for t, name in ((m_sum, "m_sum"), (n_sum, "n_sum")):
         if t.numel() != rows or t.device != q.device:
@@ -321,7 +324,8 @@ def bwd_kernel(which: int, q, k, v, dout, m, n, delta, dq, dk, dv, *,
     rc = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         m.data_ptr(), n.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), *_args(q, k, scale, causal, window),
+        dk.data_ptr(), dv.data_ptr(), *_args(q, k, v, scale, causal,
+                                             window),
         which, _DTYPES[q.dtype], torch.cuda.current_stream(q.device)
         .cuda_stream)
     _build.check(lib, rc, "flash_attention_bwd_gqa")

@@ -258,9 +258,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: int | None = None, block_q: int | None = None,
                     block_k: int | None = None, policy=None,
                     impl: str | None = None) -> torch.Tensor:
-    """Attention ``[B, H, Sq, D]`` through the stats-saving forward and the
+    """Attention ``[B, H, Sq, Dv]`` (v's head dim, which may differ from
+    q's and k's D) through the stats-saving forward and the
     recompute-from-stats backward; differentiable in q, k and v (gradients
-    in their dtypes).  Masks are end-aligned (query ``i`` at position
+    in their shapes and dtypes).  Masks are end-aligned (query ``i`` at position
     ``i + Skv - Sq``).  ``block_q`` / ``block_k`` override the plain forms'
     chunk lengths; ``impl`` pins "cuda" | "twopass" | "ref" (None: the
     policy's; "ref" is autograd over ``ref.attention_ref`` with K/V

@@ -5,6 +5,7 @@
         --device cpu
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --kernels
     python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --kernels
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --kernels
     python -m repro_torch.launch.serve --arch whisper-base --kernels \
         --enc-frames 1500 --enc-chunk 500
 
@@ -24,10 +25,11 @@ admission; ``--enc-chunk`` encodes them that many frames a scheduler step.
 The model runs on ``--device`` (``cuda`` unless the CPU is asked for), with
 random weights made from seed 0 in the compute dtype.  Flags for what this
 package does not serve yet (int8 pages, host swap, the prefix cache,
-streaming, a mesh, the vlm and hybrid families, multi-head latent
-attention) exit with an error that names their ROADMAP item.  A moe model
-routes through capacity dispatch (``moe_impl="dispatch"``, the reference's
-default; its CLI has no flag for it either).
+streaming, a mesh, the vlm and hybrid families) exit with an error that
+names their ROADMAP item.  A moe model (deepseek-v2-lite-16b with its
+multi-head latent attention too) routes through capacity dispatch
+(``moe_impl="dispatch"``, the reference's default; its CLI has no flag for
+it either).
 """
 
 from __future__ import annotations

@@ -1,4 +1,6 @@
-"""GQA attention with the paper's (m, n) softmax as its core (dense family).
+"""GQA attention with the paper's (m, n) softmax as its core (dense, encdec
+and moe families), and DeepSeek-V2's multi-head latent attention (MLA: a
+compressed latent cache re-expanded on every read).
 
 Cores take q: [B, Hkv, G, Sq, D]; k: [B, Hkv, Skv, D]; v: [B, Hkv, Skv, Dv]:
 GQA runs in grouped form, KV heads are never repeated.
@@ -335,3 +337,118 @@ def cross_attention_paged(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
         q, kv["k"], kv["v"], cross_table, cross_lengths, scale=hd ** -0.5,
         window=None, policy=cfg.softmax_policy())
     return layers.dense(p["wo"], o.reshape(b, 1, hq * hd))
+
+
+# ---------------------------------------------------------------------------
+# MLA: DeepSeek-V2 multi-head latent attention (compressed KV cache).
+# ---------------------------------------------------------------------------
+def init_mla(gen, cfg: ModelConfig, dtype, lead: tuple = ()) -> dict:
+    """The reference's leaves: ``wq`` (every head's nope and rope query),
+    ``wkv_a`` (the down-projection to the latent ``c`` and the head-shared
+    rope key), ``kv_norm`` (over ``c``), ``wkv_b`` (the up-projection of
+    ``c`` to every head's nope key and value) and ``wo``."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.padded_heads(1)
+    nd, rd, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    return {
+        "wq": layers.init_dense(gen, d, h * (nd + rd), dtype, lead=lead),
+        "wkv_a": layers.init_dense(gen, d, m.kv_lora_rank + rd, dtype,
+                                   lead=lead),
+        "kv_norm": layers.init_rmsnorm(m.kv_lora_rank, dtype, gen.device,
+                                       lead),
+        "wkv_b": layers.init_dense(gen, m.kv_lora_rank, h * (nd + vd), dtype,
+                                   lead=lead),
+        "wo": layers.init_dense(gen, h * vd, d, dtype, lead=lead),
+    }
+
+
+def _expand_latent(p, cc, ckr, h, nd, vd):
+    """Every head's key ``[B, H, T, nd + rd]`` (the up-projected nope part,
+    then the shared rope key) and value ``[B, H, T, vd]`` from the latent
+    ``cc`` ``[B, T, rank]`` and rope key ``ckr`` ``[B, T, rd]``, as
+    transposed views whose last axis is contiguous."""
+    b, t, _ = cc.shape
+    kv = layers.dense(p["wkv_b"], cc).reshape(b, t, h, nd + vd)
+    kf = torch.cat([kv[..., :nd],
+                    ckr[:, :, None, :].expand(b, t, h, ckr.shape[-1])], -1)
+    return kf.transpose(1, 2), kv[..., nd:].transpose(1, 2)
+
+
+def mla_attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
+                  cache: dict | None = None, cache_pos=None,
+                  cache_positions=None, page_table=None):
+    """MLA forward, x: [B, S, d].  The cache holds only the latent ``c``
+    (``kv_lora_rank`` wide, after ``kv_norm``) and the head-shared rope
+    key ``kr``; every read re-expands them through ``wkv_b`` into per-head
+    keys of ``nd + rd`` columns and values of ``vd``, as the reference
+    does (no weight absorption).  The scale is ``(nd + rd) ** -0.5``.
+
+    * no cache: causal self-attention through :func:`attention_core` (the
+      flash kernels, D ``nd + rd`` and Dv ``vd``, with kernels on);
+    * ``cache`` + ``cache_pos`` (int): write ``(c, kr)`` at the fill, then
+      attend the whole cache up to ``cache_pos + S`` (prefill, lockstep
+      decode); ``cache`` alone: read it whole;
+    * ``cache_positions`` ([B], S == 1): ragged decode.  Each slot writes
+      its row at its own position, then its latent is up-projected and
+      ``decode_attention`` (G 1) reads it.  With ``page_table`` the leaves
+      are arenas ``[P, ps, ...]``: the row is scattered through the table
+      and the slot-contiguous latent gathered back before the
+      up-projection.
+
+    The cache is written in place.  Returns (out, cache)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.padded_heads(1)
+    nd, rd, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    scale = (nd + rd) ** -0.5
+
+    q = layers.dense(p["wq"], x).reshape(b, s, h, nd + rd)
+    qf = torch.cat([q[..., :nd], layers.apply_rope(q[..., nd:], cos, sin)],
+                   -1)
+    a = layers.dense(p["wkv_a"], x)
+    c = layers.rmsnorm(p["kv_norm"], a[..., :m.kv_lora_rank],
+                       eps=cfg.norm_eps)
+    kr = layers.apply_rope(a[..., m.kv_lora_rank:][:, :, None, :], cos,
+                           sin)[:, :, 0, :]           # [B, S, rd]
+
+    if cache_positions is not None:
+        assert cache is not None and s == 1
+        cl, kl = cache["c"], cache["kr"]
+        if page_table is not None:
+            ps = cl.shape[1]
+            t_logical = page_table.shape[1] * ps
+            wpos = torch.clamp(cache_positions.long(), max=t_logical - 1)
+            pt = page_table.long()
+            pg = pt.gather(1, (wpos // ps)[:, None])[:, 0]
+            off = wpos % ps
+            cl[pg, off] = c[:, 0].to(cl.dtype)
+            kl[pg, off] = kr[:, 0].to(kl.dtype)
+            cc = cl[pt].reshape(b, t_logical, -1)
+            ckr = kl[pt].reshape(b, t_logical, -1)
+        else:
+            wpos = torch.clamp(cache_positions.long(), max=cl.shape[1] - 1)
+            rows = torch.arange(b, device=x.device)
+            cl[rows, wpos] = c[:, 0].to(cl.dtype)
+            kl[rows, wpos] = kr[:, 0].to(kl.dtype)
+            cc, ckr = cl, kl
+        kk, vv = _expand_latent(p, cc, ckr, h, nd, vd)
+        o = kernel_ops.decode_attention(
+            qf[:, 0][:, :, None], kk, vv, wpos + 1, scale=scale,
+            policy=cfg.softmax_policy())
+        return layers.dense(p["wo"], o.reshape(b, 1, h * vd)), cache
+
+    kv_len = qpos = None
+    if cache is not None:
+        cc, ckr = cache["c"], cache["kr"]         # [B, Smax, ...]
+        if cache_pos is not None:
+            cc[:, cache_pos:cache_pos + s] = c.to(cc.dtype)
+            ckr[:, cache_pos:cache_pos + s] = kr.to(ckr.dtype)
+            kv_len = cache_pos + s
+            qpos = torch.arange(s, device=x.device) + cache_pos
+        c, kr = cc, ckr
+    kk, vv = _expand_latent(p, c, kr, h, nd, vd)
+    o = attention_core(qf.permute(0, 2, 1, 3)[:, :, None], kk, vv,
+                       causal=True, window=None, scale=scale, kv_len=kv_len,
+                       qpos=qpos, cfg=cfg)            # [B, H, 1, S, vd]
+    o = o[:, :, 0].transpose(1, 2).reshape(b, s, h * vd)
+    return layers.dense(p["wo"], o), cache

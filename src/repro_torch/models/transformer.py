@@ -1,8 +1,8 @@
 """Model assembly for the dense, moe, ssm (RWKV6) and encdec (whisper)
-families: a decoder LM with an LM head (a moe block's MLP is its experts;
-an encdec one also has an encoder over stubbed frame embeddings and
-cross-attention in every decoder block), and the dense family's training
-loss.
+families: a decoder LM with an LM head (a moe block's MLP is its experts,
+and deepseek's attention is multi-head latent attention; an encdec one
+also has an encoder over stubbed frame embeddings and cross-attention in
+every decoder block), and the dense family's training loss.
 
 Layer parameters are stacked on a leading ``[L]`` axis, as in the
 reference; the layer loop is a Python loop that indexes them (the
@@ -45,7 +45,8 @@ def init_block(gen, cfg: ModelConfig, dtype, lead: tuple = (),
         return rwkv_mod.init_rwkv_block(gen, cfg, dtype, lead)
     dev = gen.device
     p = {"ln1": layers.init_rmsnorm(cfg.d_model, dtype, dev, lead),
-         "attn": attn_mod.init_attention(gen, cfg, dtype, lead)}
+         "attn": (attn_mod.init_mla(gen, cfg, dtype, lead) if cfg.mla
+                  else attn_mod.init_attention(gen, cfg, dtype, lead))}
     if cross:
         p["ln_x"] = layers.init_rmsnorm(cfg.d_model, dtype, dev, lead)
         p["xattn"] = attn_mod.init_attention(gen, cfg, dtype, lead)
@@ -76,7 +77,9 @@ def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
     T_enc, d]) projects fresh cross K/V (prefill); otherwise ``cache`` is
     the lockstep ``{"self", "cross"}`` cache and the cross half is read
     whole.  ``causal=False`` is the encoder's self-attention.  A moe
-    block's MLP is :func:`moe.moe_apply` by ``moe_impl``."""
+    block's MLP is :func:`moe.moe_apply` by ``moe_impl``.  A config with
+    ``mla`` attends through :func:`attention.mla_attention`, its cache the
+    latent ``{"c", "kr"}``."""
     if cfg.family == "ssm":
         if cache is None:
             return rwkv_mod.rwkv_block(p, x, cfg=cfg), None
@@ -89,11 +92,17 @@ def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
     xin = x[:, None] if single else x
     h = layers.rmsnorm(p["ln1"], xin, eps=cfg.norm_eps)
     lockstep_encdec = isinstance(cache, dict) and "cross" in cache
-    a, _ = attn_mod.attention(
-        p["attn"], h, cos, sin, cfg=cfg, causal=causal,
-        cache=cache["self"] if lockstep_encdec else cache,
-        cache_pos=cache_pos, cache_positions=cache_positions,
-        page_table=page_table, ring_valid=ring_valid)
+    if cfg.mla is not None:
+        a, _ = attn_mod.mla_attention(
+            p["attn"], h, cos, sin, cfg=cfg, cache=cache,
+            cache_pos=cache_pos, cache_positions=cache_positions,
+            page_table=page_table)
+    else:
+        a, _ = attn_mod.attention(
+            p["attn"], h, cos, sin, cfg=cfg, causal=causal,
+            cache=cache["self"] if lockstep_encdec else cache,
+            cache_pos=cache_pos, cache_positions=cache_positions,
+            page_table=page_table, ring_valid=ring_valid)
     x1 = xin + a
     if "xattn" in p:
         hx = layers.rmsnorm(p["ln_x"], x1, eps=cfg.norm_eps)
@@ -156,8 +165,15 @@ def _positions_for(cfg: ModelConfig, b: int, s: int, start: int = 0,
     return torch.arange(s, device=device) + start
 
 
+def rope_head_dim(cfg: ModelConfig) -> int:
+    """The width RoPE rotates: the head dim, or MLA's ``qk_rope_head_dim``
+    (only the rope part of its queries and keys turns)."""
+    return (cfg.mla.qk_rope_head_dim if cfg.mla is not None
+            else cfg.resolved_head_dim())
+
+
 def _cos_sin(cfg: ModelConfig, positions):
-    return layers.rope_cos_sin(positions, cfg.resolved_head_dim(),
+    return layers.rope_cos_sin(positions, rope_head_dim(cfg),
                                cfg.rope_theta)
 
 

@@ -39,7 +39,7 @@ def sync(device) -> None:
 def _cos_sin_at(cfg: ModelConfig, pos: torch.Tensor, batch: int):
     """RoPE tables at a per-row position ([B] or scalar) -> [B, 1, hd/2]."""
     positions = pos.reshape(-1, 1).expand(batch, 1)
-    return layers.rope_cos_sin(positions, cfg.resolved_head_dim(),
+    return layers.rope_cos_sin(positions, transformer.rope_head_dim(cfg),
                                cfg.rope_theta)
 
 

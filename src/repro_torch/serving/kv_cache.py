@@ -1,5 +1,5 @@
-"""Cache construction for the dense, ssm and encdec families: the lockstep
-cache, the continuous-batching strip pool and the PAGED pool.
+"""Cache construction for the dense, moe, ssm and encdec families: the
+lockstep cache, the continuous-batching strip pool and the PAGED pool.
 
 Cache leaves are stacked on a leading layer axis ``[L, ...]``.  The
 functions that change a pool change it IN PLACE and return it (the
@@ -23,7 +23,11 @@ An ssm (RWKV6) cache is the recurrent state, with no position axis:
 the compute dtype.  It rides the strip pool, one state a slot, and cannot
 page.  An encdec (whisper) lockstep cache is ``{"self", "cross"}``; its
 paged pool keeps the encoder's cross K/V as read-only pages of the same
-arenas, addressed by a second table.
+arenas, addressed by a second table.  A multi-head latent attention
+(deepseek) cache is the latent ``{"c": [L, B, T, kv_lora_rank], "kr": [L,
+B, T, qk_rope_head_dim]}``, paged as arenas ``[L, P, ps, ...]`` like any
+position-addressed leaf: admission, page copies and freeing need no branch
+of their own.
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     with ``ring`` (the ring that ``engine.decode_step`` addresses mod
     ``T``); prefill paths pass ``ring=False`` for position addressing.  An
     ssm config's cache is its state, whatever ``max_len``.  An encdec
-    config's is ``{"self": {"k", "v"}, "cross": {"k", "v"}}``."""
+    config's is ``{"self": {"k", "v"}, "cross": {"k", "v"}}``, an MLA
+    config's the latent ``{"c", "kr"}``."""
     check_ported(cfg, "its cache")
     dt = cache_dtype(cfg)
     if cfg.family == "ssm":
@@ -61,6 +66,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                                       device=device),
                 "last_c": torch.zeros((ls, batch, d), dtype=dt,
                                       device=device)}
+    if cfg.mla is not None:
+        return _latent(cfg, batch, max_len, dt, device)
     alloc = max_len
     if ring and cfg.swa_window is not None:
         alloc = min(max_len, cfg.swa_window)
@@ -76,6 +83,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         # reference's: the prefill replaces it with T_enc positions
         return {"self": kv(), "cross": kv()}
     return kv()
+
+
+def _latent(cfg: ModelConfig, n: int, t: int, dt, device) -> dict:
+    """MLA's latent leaves ``[L, n, t, ...]`` (slots x positions, or arena
+    pages x page size)."""
+    m, ls = cfg.mla, cfg.n_layers
+    return {"c": torch.zeros((ls, n, t, m.kv_lora_rank), dtype=dt,
+                             device=device),
+            "kr": torch.zeros((ls, n, t, m.qk_rope_head_dim), dtype=dt,
+                              device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +157,8 @@ def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
     """``{"kv": {"k", "v"}: [L, pages, ps, Hkv, hd], "page_table":
     int32[slots, pages_per_slot], "lengths": int32[slots]}``.  ``pages``
     defaults to full provisioning (``1 + slots * pages_per_slot``, page 0
-    the trash page); fewer oversubscribe the arena.
+    the trash page); fewer oversubscribe the arena.  An MLA pool's arenas
+    are the latent ``{"c", "kr"}: [L, pages, ps, ...]``.
 
     An encdec pool has two tables over the one arena: the encoder's
     cross K/V has self K/V's leaf shape a position, so its pages live in
@@ -166,9 +184,13 @@ def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
     def i32(*shape):
         return torch.zeros(shape, dtype=torch.int32, device=device)
 
-    pool = {"kv": {"k": torch.zeros(shape, dtype=dt, device=device),
-                   "v": torch.zeros(shape, dtype=dt, device=device)},
-            "page_table": i32(slots, n_tab), "lengths": i32(slots)}
+    if cfg.mla is not None:
+        kv = _latent(cfg, pages, ps, dt, device)
+    else:
+        kv = {"k": torch.zeros(shape, dtype=dt, device=device),
+              "v": torch.zeros(shape, dtype=dt, device=device)}
+    pool = {"kv": kv, "page_table": i32(slots, n_tab),
+            "lengths": i32(slots)}
     if encdec:
         pool["cross_table"] = i32(slots, n_xtab)
         pool["cross_lengths"] = i32(slots)

@@ -24,13 +24,14 @@ from repro_torch.kernels import ops, registry
 LN2 = float(np.log(2.0))
 
 
-def _inputs(b=2, h=3, sq=48, skv=80, d=16, hkv=None, seed=0):
+def _inputs(b=2, h=3, sq=48, skv=80, d=16, hkv=None, seed=0, dv=None):
     rng = np.random.default_rng(seed)
     hkv = hkv or h
+    dv = dv or d
     q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
     k = rng.standard_normal((b, hkv, skv, d)).astype(np.float32)
-    v = rng.standard_normal((b, hkv, skv, d)).astype(np.float32)
-    do = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, skv, dv)).astype(np.float32)
+    do = rng.standard_normal((b, h, sq, dv)).astype(np.float32)
     return q, k, v, do
 
 
@@ -163,6 +164,48 @@ def test_bwd_from_the_reference_stats(impl, jimpl):
         *(torch.from_numpy(np.array(x)) for x in (q, k, v, o, m, n, do)),
         causal=True, window=20, impl=impl)
     for name, a, b in zip("dq dk dv".split(), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=3e-5,
+                                   err_msg=name)
+
+
+# v's head dim apart from q's and k's (multi-head latent attention: reduced
+# deepseek's 24 / 16), and head dims that are no multiple of 8
+V_DIMS = [(24, 16), (20, 12)]
+
+
+@pytest.mark.parametrize("impl", ["cuda", "twopass"])
+@pytest.mark.parametrize("d,dv", V_DIMS, ids=["d24-dv16", "d20-dv12"])
+def test_v_head_dim_matches_reference(impl, d, dv):
+    q, k, v, do = _inputs(b=2, h=4, hkv=2, sq=37, skv=37, d=d, dv=dv)
+    got = _torch(q, k, v, do, impl, True)
+    assert [x.shape[-1] for x in got] == [dv, d, d, dv]
+    _close(got, _jax(q, k, v, do, "pallas", True), 3e-5,
+           f"{impl} d={d} dv={dv}")
+
+
+@pytest.mark.parametrize("d,dv", V_DIMS, ids=["d24-dv16", "d20-dv12"])
+def test_v_head_dim_stats_and_bwd_match_reference(d, dv):
+    # the plain forward's o and stats against the reference's Pallas
+    # forward, then the plain backward from the reference's residuals
+    # against its Pallas backward
+    q, k, v, do = _inputs(b=1, h=2, sq=45, skv=45, d=d, dv=dv)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    o, m, n = jops.flash_attention_fwd_stats(jq, jk, jv, causal=True,
+                                             impl="pallas")
+    got = tfa.flash_attention_fwd_gqa(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal=True)
+    assert got[0].shape == (1, 2, 45, dv)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(o), atol=1e-5)
+    lse = np.log(got[1].numpy()) + got[2].numpy() * LN2
+    np.testing.assert_allclose(
+        lse, np.log(np.asarray(m)) + np.asarray(n) * LN2, atol=1e-4)
+    want = jops.flash_attention_bwd(jq, jk, jv, o, m, n, jdo, causal=True,
+                                    impl="pallas")
+    grads = tfa.flash_attention_bwd_gqa(
+        *(torch.from_numpy(np.array(x)) for x in (q, k, v, o, m, n, do)),
+        causal=True)
+    for name, a, b in zip("dq dk dv".split(), grads, want):
+        assert a.shape == b.shape, name
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=3e-5,
                                    err_msg=name)
 

@@ -534,10 +534,13 @@ def test_flash_mma_kernels_fit_two_blocks_an_sm(cuda, d):
 @pytest.mark.gpu
 def test_flash_refuses_what_the_kernels_do_not_take(cuda):
     q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, 1, 2, 1, 16, 16, 64)
-    with pytest.raises(ValueError, match="head dim"):
-        tfa.flash_attention_fwd_gqa(q[..., :60].contiguous(),
-                                    k[..., :60].contiguous(),
-                                    v[..., :60].contiguous())
+    # any head dim up to 256 is taken (D 60, Dv != D too); past it the
+    # tiles would not fit shared memory
+    wide = [t.repeat(1, 1, 1, 5)[..., :264].contiguous() for t in (q, k, v)]
+    with pytest.raises(ValueError, match="head dim D = 264"):
+        tfa.flash_attention_fwd_gqa(*wide)
+    with pytest.raises(ValueError, match="head dim Dv = 264"):
+        tfa.flash_attention_fwd_gqa(q, k, wide[2])
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention_fwd_gqa(q.transpose(2, 3), k, v)
     with pytest.raises(ValueError, match="window"):
@@ -1118,3 +1121,125 @@ def test_moe_graph_step_equals_eager_with_the_cache_bit_equal(cuda, paged,
             got, want = got[:, 1:], want[:, 1:]
         assert torch.equal(got, want), name
     assert torch.equal(eng.pool["lengths"], eng_e.pool["lengths"])
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (deepseek-v2-lite-16b): kernels 12-13 with v's
+# head dim Dv apart from D (192 / 128 at full width, 24 / 16 reduced) and
+# head dims that are no multiple of 8; the decode kernel at G 1, D 192 /
+# Dv 128; reduced deepseek's graph step.
+# ---------------------------------------------------------------------------
+# (b, h, hkv, sq, skv, d, dv, causal)
+FLASH_V_DIMS = [(1, 16, 16, 300, 300, 192, 128, True),
+                (2, 4, 4, 37, 37, 24, 16, True),
+                (1, 2, 1, 45, 60, 20, 12, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_V_DIMS,
+                         ids=["d192-dv128", "d24-dv16", "d20-dv12"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_v_head_dims(cuda, dtype, case):
+    b, h, hkv, sq, skv, d, dv, causal = case
+    q, k, _, _ = _flash_inputs(cuda, dtype, b, h, hkv, sq, skv, d)
+    _, _, v, do = _flash_inputs(cuda, dtype, b, h, hkv, sq, skv, dv)
+    kw = dict(causal=causal, scale=d ** -0.5, window=None)
+    o, m, n = tfa.flash_attention_fwd_gqa(q, k, v, **kw)
+    torch.cuda.synchronize()
+    po, pm, pn = tfa.flash_attention_fwd_gqa_plain(q, k, v, **kw)
+    assert o.dtype == dtype and o.shape == (b, h, sq, dv)
+    torch.testing.assert_close(o.float(), po.float(), **FLASH_TOL[dtype])
+    lse = torch.log(m) + n * txe.LN2
+    torch.testing.assert_close(lse, torch.log(pm) + pn * txe.LN2,
+                               atol=1e-5, rtol=1e-5)
+    grads = tfa.flash_attention_bwd_gqa(q, k, v, o, m, n, do, **kw)
+    torch.cuda.synchronize()
+    plain = tfa.flash_attention_bwd_gqa_plain(q, k, v, o, m, n, do, **kw)
+    for got, want, t in zip(grads, plain, (q, k, v)):
+        assert got.dtype == dtype and got.shape == t.shape
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **FLASH_TOL[dtype])
+    again = tfa.flash_attention_fwd_gqa(q, k, v, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(again, (o, m, n)))
+    again = tfa.flash_attention_bwd_gqa(q, k, v, o, m, n, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(again, grads))
+
+    def fwd_bwd():
+        o_, m_, n_ = tfa.flash_attention_fwd_gqa(q, k, v, **kw)
+        tfa.flash_attention_bwd_gqa(q, k, v, o_, m_, n_, do, **kw)
+
+    # Dv != D takes the wmma / FFMA kernels, never the mma ones
+    names = [x for x, _ in _launched_kernels(
+        fwd_bwd, ("flash_fwd", "flash_dq", "flash_dkv"))]
+    assert not any("_mma" in x for x in names), names
+    assert all(any(k_ in x for x in names)
+               for k_ in ("flash_fwd", "flash_dq", "flash_dkv")), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_at_g1_d192_dv128(cuda, dtype):
+    # the MLA ragged decode's operands: each head's key the up-projected
+    # nope part and the shared rope key, read through transposed views of
+    # [S, T, H, 192] and of the value half of [S, T, H, 256]
+    s, t, h = 5, 700, 16
+    gen = torch.Generator(device=cuda).manual_seed(192)
+    kf = torch.randn(s, t, h, 192, device=cuda, generator=gen).to(dtype)
+    kv = torch.randn(s, t, h, 256, device=cuda, generator=gen).to(dtype)
+    q = torch.randn(s, h, 1, 192, device=cuda, generator=gen).to(dtype)
+    k, v = kf.transpose(1, 2), kv[..., 128:].transpose(1, 2)
+    lens = torch.tensor([0, 1, 129, 512, 700], dtype=torch.int32,
+                        device=cuda)
+    got = tda.decode_attention(q, k, v, lens, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    want = tda.decode_attention_plain(q, k, v, lens, scale=192 ** -0.5)
+    assert got.shape == (s, h, 1, 128) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **DECODE_TOL[dtype])
+    assert not got[0].any()                      # a free slot
+    assert torch.equal(tda.decode_attention(q, k, v, lens,
+                                            scale=192 ** -0.5), got)
+    assert tda.decode_attention.launches == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "strip"])
+def test_mla_graph_step_equals_eager_with_the_cache_bit_equal(cuda, paged):
+    from repro_torch.models import build_model
+
+    m = build_model("deepseek-v2-lite-16b", reduced=True, use_kernels=True)
+    assert m.cfg.n_layers == 2 and m.cfg.mla is not None
+    params = m.init(seed=0)
+    reqs = _fused_requests(m.cfg.vocab)
+    runs = {f: _serve(m, params, paged, f, reqs, temperature=0.0)
+            for f in (True, False)}
+    (toks, counts, eng), (toks_e, counts_e, eng_e) = runs[True], runs[False]
+    assert eng.buckets is None
+    assert toks == toks_e and counts == counts_e
+    st = eng.stats
+    assert st["admitted"] > eng.n_slots and st["steps"] == eng_e.stats["steps"]
+    # a replay: the strip decode op over the up-projected latent (both
+    # pools) and the router's softmax, one each a layer
+    assert eng._fused.launches == {"decode_attention": m.cfg.n_layers,
+                                   "twopass_softmax_2d": m.cfg.n_layers}
+    assert eng._fused.replays == st["steps"]
+    for name in ("c", "kr"):
+        got, want = eng.pool["kv"][name], eng_e.pool["kv"][name]
+        if paged:                 # page 0 is the trash page: dead writes
+            got, want = got[:, 1:], want[:, 1:]
+        assert torch.equal(got, want), name
+    assert torch.equal(eng.pool["lengths"], eng_e.pool["lengths"])
+    if paged:
+        # strip == paged where no request is preempted (a preempted one is
+        # prefilled again over its tokens, which rounds otherwise): with
+        # every page provisioned a slot gathers the strip's 48 positions
+        full, strip = (m.serving_engine(params, slots=3, max_len=48,
+                                        page_size=8, paged=p,
+                                        temperature=0.0) for p in (True,
+                                                                   False))
+        def tokens(e):
+            return [c.tokens for c in sorted(e.run(reqs),
+                                             key=lambda c: c.rid)]
+
+        toks_full = tokens(full)
+        assert full.stats["preempted"] == 0
+        assert tokens(strip) == toks_full

@@ -1,7 +1,8 @@
 """The port's serving CLI (``python -m repro_torch.launch.serve``) on the CPU:
 it serves a reduced model under each softmax algorithm, the ssm, encdec and
-moe families too, and every flag for something not ported yet exits with an
-error that names its ROADMAP item."""
+moe families too (deepseek's multi-head latent attention with them), and
+every flag for something not ported yet exits with an error that names its
+ROADMAP item."""
 
 import os
 import pathlib
@@ -41,7 +42,6 @@ def test_cli_serves_on_the_cpu(extra, capsys):
     (["--no-prefix-cache"], 17), (["--stream"], 19), (["--mesh", "2x2"], 22),
     (["--arch", "qwen2-vl-7b"], 14),
     (["--arch", "hymba-1.5b"], 16),
-    (["--arch", "deepseek-v2-lite-16b"], 15),
 ])
 def test_unported_flags_exit_with_their_item(flags, item, capsys):
     with pytest.raises(SystemExit) as e:
@@ -72,6 +72,17 @@ def test_cli_serves_the_moe_family(capsys):
             "pool") in out
     # exact prompt lengths: expert capacity comes from a prompt's length
     assert "1 prefill buckets" in out
+    assert "prefill: 36 tok" in out and "decode:  9 tok" in out
+    assert "kernel launches: {}" in out
+
+
+def test_cli_serves_multi_head_latent_attention(capsys):
+    serve.main(["--arch", "deepseek-v2-lite-16b"] + BASE[2:]
+               + ["--temperature", "0", "--kernels"])
+    out = capsys.readouterr().out
+    assert ("deepseek-v2-lite-16b: served 3 requests over 2 slots / paged "
+            "pool") in out
+    assert "1 prefill buckets" in out         # moe: exact prompt lengths
     assert "prefill: 36 tok" in out and "decode:  9 tok" in out
     assert "kernel launches: {}" in out
 

@@ -11,8 +11,9 @@ probabilities give the reference's experts (lower id first).  The model:
 prefill and decode logits within 1e-4 (as test_torch_models), greedy
 tokens through the paged and strip pools ``==`` the JAX lockstep with
 kernels off and on, and through the replay path with a stand-in graph.
-Then the gates: deepseek-v2-lite-16b (multi-head latent attention) is
-refused naming item 15 everywhere, moe training naming item 29."""
+Then the gates: deepseek-v2-lite-16b (multi-head latent attention, held
+in tests/test_torch_mla.py) passes every serving gate and its training is
+refused naming item 29, as all moe training."""
 
 import dataclasses
 
@@ -439,7 +440,7 @@ def _mla():
 @pytest.mark.parametrize("gate", [
     "init_lm", "init_cache", "slot_pool", "paged_pool", "decode_specs",
     "convert", "training", "synthetic_batches"])
-def test_mla_is_refused_naming_item_15(gate):
+def test_mla_passes_the_serving_gates_and_training_names_item_29(gate):
     m = _mla()
     assert m.cfg.family == "moe" and m.cfg.mla is not None
     calls = {
@@ -459,18 +460,39 @@ def test_mla_is_refused_naming_item_15(gate):
         "synthetic_batches": lambda: SyntheticLM(
             m.cfg, ShapeCell("t", 16, 2, "train")),
     }
-    with pytest.raises(NotImplementedError,
-                       match="latent attention.*ROADMAP queue A item 15\\)"):
-        calls[gate]()
+    if gate in ("training", "synthetic_batches"):
+        with pytest.raises(NotImplementedError,
+                           match="family 'moe'.*ROADMAP queue A item 29\\)"):
+            calls[gate]()
+        return
+    out = calls[gate]()
+    leaves = out if isinstance(out, dict) else {}
+    if gate in ("init_cache", "decode_specs"):
+        leaves = out["cache"] if gate == "decode_specs" else out
+        assert set(leaves) == {"c", "kr"}          # the latent cache
+    if gate in ("slot_pool", "paged_pool"):
+        assert set(out["kv"]) == {"c", "kr"}
+    if gate in ("init_lm", "convert"):
+        assert set(out["blocks"]["attn"]) == {"wq", "wkv_a", "kv_norm",
+                                              "wkv_b", "wo"}
 
 
 @pytest.mark.parametrize("cli", ["serve", "train"])
-def test_cli_refuses_mla_naming_item_15(cli, capsys):
-    main = serve.main if cli == "serve" else train_cli.main
+def test_cli_serves_mla_and_refuses_its_training_naming_item_29(cli,
+                                                                capsys):
+    argv = ["--arch", MLA_ARCH, "--reduced", "--device", "cpu"]
+    if cli == "serve":
+        serve.main(argv + ["--requests", "3", "--slots", "2",
+                           "--prompt-len", "12", "--steps", "4",
+                           "--temperature", "0"])
+        out = capsys.readouterr().out
+        assert f"{MLA_ARCH}: served 3 requests over 2 slots / paged" in out
+        assert "prefill: 36 tok" in out and "decode:  9 tok" in out
+        return
     with pytest.raises(SystemExit) as e:
-        main(["--arch", MLA_ARCH, "--reduced", "--device", "cpu"])
+        train_cli.main(argv)
     assert e.value.code == 2
-    assert "ROADMAP queue A item 15" in capsys.readouterr().err
+    assert "ROADMAP queue A item 29" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("gate", ["train_loss", "model_loss",

@@ -157,11 +157,10 @@ def test_unported_options_raise(weights, kw, item):
 
 def test_unported_families_and_policy_sites_raise():
     # the ssm, encdec and moe families are served (tests/test_torch_ssm.py,
-    # tests/test_torch_encdec.py, tests/test_torch_moe.py); multi-head
-    # latent attention (deepseek, family moe) is not
-    with pytest.raises(NotImplementedError,
-                       match="latent attention.*item 15"):
-        m = tbuild("deepseek-v2-lite-16b", reduced=True, device="cpu")
+    # tests/test_torch_encdec.py, tests/test_torch_moe.py; deepseek's
+    # multi-head latent attention in tests/test_torch_mla.py); vlm is not
+    with pytest.raises(NotImplementedError, match="'vlm'.*item 14\\)"):
+        m = tbuild("qwen2-vl-7b", reduced=True, device="cpu")
         m.init(0)
     # every softmax site of the dense family is ported: the LM-head CE
     # (tests/test_torch_training.py) and the flash route of a no-cache
