@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--layers N]
-                          [--only {train,swa,engine,mqa,ssm,encdec,moe,mla}]
+                          [--only {train,swa,engine,mqa,ssm,encdec,moe,mla,
+                                   vlm,hybrid}]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -40,7 +41,7 @@ Phases (any failure exits non-zero; nothing is caught):
    bf16 step, with the same bits on a second run (bf16 with D <= 128
    takes the mma.sync kernels, float32 and D 160 the wmma / FFMA ones);
 3. engine: qwen2.5-14b at full width (d_model 5120, 40/8 heads, d_ff
-   13824, vocab 152064, bf16, seeded random weights; depth cut to 24 of
+   13824, vocab 152064, bf16, seeded random weights; depth cut to 16 of
    its 48 layers unless ``--layers`` says otherwise, so that the whole
    script stays inside its time limit) serving 12 requests
    through ``ContinuousBatchingEngine(paged=True, use_kernels=True,
@@ -131,8 +132,9 @@ Phases (any failure exits non-zero; nothing is caught):
    where the top-2 margin exceeds twice their logit difference), a decode
    burst under the profiler, graph and eager, and a 2-layer float32 cut
    whose served tokens ``==`` the batch-1 lockstep ``Model.generate``;
-11. moe: granite-moe-3b-a800m at full width and depth (32 layers,
-   d_model 1536, 24 query heads over 8 KV heads of 64, 40 experts top 8 of
+11. moe: granite-moe-3b-a800m at full width, depth cut to 16 of its 32
+   layers so that the whole script stays inside its time limit (d_model
+   1536, 24 query heads over 8 KV heads of 64, 40 experts top 8 of
    d_expert 512, no shared expert, vocab 49155, bf16 weights with the
    router in float32).  The two-pass softmax and the three-pass kernels
    on the router's float32 rows [2048, 40] and [32, 40] and on the
@@ -149,15 +151,16 @@ Phases (any failure exits non-zero; nothing is caught):
    margin exceeds twice the impls' logit difference, from both fed the
    served tokens), ``temperature=0.8`` under each softmax algorithm (the
    router and the sampler through its kernel), prefill logits against
-   ``use_kernels=False``, the 32 layers' MoE of one step alone beside the
+   ``use_kernels=False``, the 16 layers' MoE of one step alone beside the
    time to read every expert once, a decode burst under the profiler,
    graph and eager (the MoE's kernels a group of their own), and a
    2-layer float32 cut whose served tokens ``==`` the batch-1 lockstep
    ``Model.generate``;
-12. multi-head latent attention: deepseek-v2-lite-16b at full width and
-   depth (27 layers, 16 heads of 128 nope + 64 rope query / key columns
-   and 128 value columns, a 512-wide latent cache, 64 experts top 6 plus
-   2 shared; 32.4 GB of bf16 weights, the router float32).  Kernels 12-13
+12. multi-head latent attention: deepseek-v2-lite-16b at full width,
+   depth cut to 14 of its 27 layers so that the whole script stays inside
+   its time limit (16 heads of 128 nope + 64 rope query / key columns and
+   128 value columns, a 512-wide latent cache, 64 experts top 6 plus 2
+   shared; bf16 weights, the router float32).  Kernels 12-13
    with v's head dim apart from q's (D 192 / Dv 128 at a 2,048-token
    prompt, D 24 / Dv 16 reduced, bf16 and float32) within
    ``flash_limits``, kernel 4 at G 1, D 192 / Dv 128 over 16 slots of up
@@ -171,7 +174,42 @@ Phases (any failure exits non-zero; nothing is caught):
    graph and an eager decode trace (the eager one's up-projection and
    expansion and its experts grouped by host range) and a 2-layer
    float32 cut ``==`` ``Model.generate``;
-13. training: qwen2.5-14b at full width, depth cut to 4 layers (float32
+13. vlm: qwen2-vl-7b at full width and depth (28 layers, d_model 3584,
+   28 query heads over 4 KV heads of 128, d_ff 18944, vocab 152064,
+   M-RoPE sections (16, 24, 24), 256 stub patches; 15.2 GB of bf16
+   weights).  The decode kernels at G 7, D 128 over 16 slots of up to
+   2,176 positions, bf16 and float32, kernel 12 at the patch forward's
+   [1, 28, 768, 128] causal, and kernel 1 on the prefill score rows
+   [28 S, S] of the longest prompt and the sampler's rows, each against
+   its plain version and timed beside its bound and library call; then 40
+   text requests of 100-2,000 tokens (both sides of the 256-token vision
+   grid), 64 new tokens each, on 16 slots, ``max_len`` 2,176, through the
+   moe phase's runs (graph ``==`` eager tokens, launches and pages; strip
+   ``==`` paged; ``temperature=0.8`` under each algorithm), prefill logits
+   against ``use_kernels=False``, a graph and an eager decode trace; the
+   serving CLI's lockstep path with patches (batch 8, 256 patches + 512
+   text tokens, 32 steps through ``Model.generate``, the prefill logits
+   with patches against ``use_kernels=False``, the no-cache forward with
+   patches, kernel 12 in every layer, against the plain route); a 2-layer
+   float32 cut (engine ``==`` lockstep; with patches ``generate`` kernels
+   ``==`` plain, the forward within 1e-4); and
+   ``python -m repro_torch.launch.serve --arch qwen2-vl-7b --kernels``;
+14. hybrid: hymba-1.5b at full width and depth (32 layers, d_model 1600,
+   25 query heads over 5 KV heads of 64 under a 1,024 window, 25 mamba
+   heads of 64 with state 16 in every block, d_ff 5504, vocab 32001;
+   3.28 MB of float32 ssm state a slot, slot-major beside the paged
+   attention arenas).  The decode kernels at G 5, D 64, window 1024 over
+   32 slots of up to 3,136 positions, bf16 and float32, and kernel 1 on
+   the windowed prefill score rows [25 S, S] and the sampler's rows; then
+   48 requests of 200-3,000 tokens, 64 new tokens each, on 32 slots,
+   ``max_len`` 3,136 in pages of 64, through the same runs (graph ``==``
+   eager tokens, launches, pages and the ssm state bit for bit), prefill
+   logits against ``use_kernels=False``, ``Model.decode_step`` on the
+   ring (``init_cache(ring=True)``) past its wrap at 4 of the 32 layers
+   against a prefilled position-addressed cache, as h2o's, a decode trace
+   of the graph step, a 2-layer float32 cut ``==`` the lockstep, and
+   ``python -m repro_torch.launch.serve --arch hymba-1.5b --kernels``;
+15. training: qwen2.5-14b at full width, depth cut to 4 layers (float32
    parameters, bf16 activations, remat), batch 1 x 4096 from SyntheticLM,
    with the model's own ``use_kernels``: from one state the kernel route
    (flash attention, fused LM-head CE) and the plain route (tensor forms,
@@ -182,9 +220,9 @@ Phases (any failure exits non-zero; nothing is caught):
    a fourth under the profiler shows where the step's device time goes,
    and the same three steps on the plain route from the same initial
    weights give the comparison;
-14. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
+16. the serving CLI, ``python -m repro_torch.launch.serve ... --softmax
    three_pass_reload --kernels``, at full width, as a subprocess;
-15. the training CLI, ``python -m repro_torch.launch.train --arch
+17. the training CLI, ``python -m repro_torch.launch.train --arch
    qwen2.5-14b --reduced --kernels`` with a checkpoint directory under
    ``build/``: 6 steps straight, then 3 and a resume to 6, whose final
    losses agree.
@@ -1495,11 +1533,17 @@ def serve_requests(torch, model, params, reqs, state=None, **kw):
     the launch counts zeroed just before the run (after the engine, and so
     its graph's warm-up and capture, is built) and read just after.
     Returns (tokens a request, the engine's throughput with the wall time,
-    launches, ms a decode step, the capture's seconds, graph pool bytes and
+    launches, the number of prefill buckets (0: exact lengths), ms a
+    decode step, the capture's seconds, graph pool bytes and
     launches a replay when fused, the bytes allocated before the engine
     was built, and the peak bytes allocated and reserved since).  A dict ``state`` gets a
-    copy of the pool's cache leaves after the run and the slots that
-    served a request (``"slots"``)."""
+    copy of the pool's cache leaves after the run, by path (a hybrid
+    pool's ``"attn/k"``, ``"attn/v"``), and the slots that served a
+    request (``"slots"``).  A hybrid pool's ssm state is kept instead as
+    each request left its slot (``"ssm"``: (request id, the slot's state)
+    at every release, in order): after that the free slot goes on
+    stepping dead state whose attention half reads the trash page, which
+    every free slot writes at once, in no fixed order."""
     import repro_torch.kernels as K
 
     gc.collect()
@@ -1507,6 +1551,16 @@ def serve_requests(torch, model, params, reqs, state=None, **kw):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     eng = model.serving_engine(params, **kw)
+    released = []
+    if state is not None and "ssm" in eng.pool["kv"]:
+        release, ssm = eng._release_slot, eng.pool["kv"]["ssm"]
+
+        def keep(slot):
+            released.append((eng.slot_owner[slot].rid,
+                             ssm[:, slot].clone()))
+            release(slot)
+
+        eng._release_slot = keep
     K.reset_launch_counts()
     t = time.perf_counter()
     comps = eng.run(reqs)
@@ -1515,14 +1569,17 @@ def serve_requests(torch, model, params, reqs, state=None, **kw):
     counts = K.launch_counts()
     toks = [list(c.tokens) for c in comps]
     out = dict(eng.throughput(), wall_s=wall, launches=counts,
+               bucketed=len(eng.buckets or ()),
                decode_ms_per_step=(eng.stats["decode_s"]
                                    / max(1, eng.stats["steps"]) * 1e3),
                base_bytes=base,
                peak_bytes=torch.cuda.max_memory_allocated(),
                peak_reserved_bytes=torch.cuda.max_memory_reserved())
     if state is not None:
-        state.update({k: v.clone() for k, v in eng.pool["kv"].items()},
-                     slots={c.slot for c in comps})
+        state.update({k: v.clone() for k, v in _paths(eng.pool["kv"])
+                      if k != "ssm"}, slots={c.slot for c in comps})
+        if released:
+            state["ssm"] = released
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2008,14 +2065,16 @@ def serve_model(torch, rows, arch, rng, n_req, lo, hi, max_len,
     return m, params, launches
 
 
-def swa_softmax_rows(torch, rows, cfg, s_max, n_req) -> None:
+def swa_softmax_rows(torch, rows, cfg, s_max, n_req,
+                     heads: int | None = None) -> None:
     """Kernel 1 on the two kinds of rows a served model gives it, at its
-    own shapes: the prefill scores of its longest prompt, [G * S, S] for one
-    KV head's G query heads, with the path's causal mask and window; and
-    the sampler's [n_req, vocab] rows at temperature 0.8."""
+    own shapes: the prefill scores of its longest prompt, [heads * S, S]
+    (``heads`` defaults to one KV head's G query heads; all of them is
+    the one launch a layer makes), with the path's causal mask and window;
+    and the sampler's [n_req, vocab] rows at temperature 0.8."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(SWA_SEED)
-    g, w = cfg.n_heads // cfg.n_kv_heads, cfg.swa_window
+    g, w = heads or cfg.n_heads // cfg.n_kv_heads, cfg.swa_window
     pos = torch.arange(s_max, device=dev)
     dead = pos[None, :] > pos[:, None]
     if w is not None:
@@ -2071,6 +2130,11 @@ def swa_prefill_parity(torch, m, params, prompts, max_len) -> None:
         tol=f"{LOGIT_TOL} of the largest logit, as the engine phase")
 
 
+def _keys(cache):
+    """A lockstep cache's K leaf (a hybrid cache's attention half's)."""
+    return cache["attn"]["k"] if "attn" in cache else cache["k"]
+
+
 def ring_vs_full(torch, model, params, toks):
     """A ring stepped from position 0 over all of ``toks`` [B, window +
     WRAP_STEPS], and a position-addressed cache prefilled with the first
@@ -2081,7 +2145,7 @@ def ring_vs_full(torch, model, params, toks):
     w, v = model.cfg.swa_window, model.cfg.vocab
     n = toks.shape[1]
     ring = model.init_cache(toks.shape[0], n)
-    check(ring["k"].shape[2] == w, "ring not sized at the window")
+    check(_keys(ring).shape[2] == w, "ring not sized at the window")
     K.reset_launch_counts()
     t0 = time.perf_counter()
     got = []
@@ -2095,7 +2159,7 @@ def ring_vs_full(torch, model, params, toks):
     check(launched == n * model.cfg.n_layers,
           f"ring: {launched} two-pass launches for {n} steps")
     _, full = model.prefill(params, toks[:, :w], max_len=n)
-    check(full["k"].shape[2] == n, "full cache not position-addressed")
+    check(_keys(full).shape[2] == n, "full cache not position-addressed")
     want = []
     for t in range(w, n):
         lg, full = model.decode_step(params, full, toks[:, t], t)
@@ -2114,14 +2178,16 @@ def ring_wrap_check(torch, m, params, rng) -> int:
     exceeds twice the largest logit error measured in that run (the steps
     where that error could swap the two are counted and their margins
     printed), and the count that agrees over all steps is reported.
-    Returns the ring steps' two-pass launches."""
+    Returns the ring steps' two-pass launches.  Float32 weights (a hybrid
+    model's ``a_log`` and ``dt_bias``) stay float32."""
     from repro_torch.models import Model
     from repro_torch.models.transformer import torch_dtype
 
     def first_layers(tree, dt):
         if isinstance(tree, dict):
             return {k: first_layers(v, dt) for k, v in tree.items()}
-        return tree[:WRAP_LAYERS].to(dt)
+        return tree[:WRAP_LAYERS].to(
+            torch.float32 if tree.dtype == torch.float32 else dt)
 
     cfg = dataclasses.replace(m.cfg, n_layers=WRAP_LAYERS)
     n = cfg.swa_window + WRAP_STEPS
@@ -3038,11 +3104,13 @@ def encdec_phase(torch, rows) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: the moe family, granite-moe-3b-a800m, at full width and depth.
+# Phase 11: the moe family, granite-moe-3b-a800m, at full width.
 # ---------------------------------------------------------------------------
 MOE_ARCH = "granite-moe-3b-a800m"   # 32 layers, d 1536, 24 / 8 heads of 64,
                                     # 40 experts top 8 of 512, vocab 49155
 MOE_SEED = 28
+MOE_LAYERS = 16                     # depth cut from 32, so that the whole
+                                    # script keeps inside its time limit
 MOE_SLOTS = 32
 MOE_PROMPTS = (48, 200, 2049)       # requests, prompt lengths [lo, hi)
 MOE_LONG = (4096, 3000)             # two groups of 2,048; one group, cap 750
@@ -3112,37 +3180,44 @@ def moe_read(cfg, paged: bool) -> str:
             else "decode_attention")
 
 
-def moe_launches(cfg, st, sampled: bool = False) -> dict:
-    """The kernels a moe run launches: a prefill runs each layer's score
-    rows and router rows through the softmax kernel (and its first token's
-    sampler rows when ``sampled``), a step each layer's router rows and
-    decode read (and the sampler's rows)."""
+def served_launches(cfg, st, sampled: bool = False) -> dict:
+    """The kernels a served run launches: a prefill runs each layer's
+    score rows through the softmax kernel (and its first token's sampler
+    rows when ``sampled``), a step each layer's decode read (and the
+    sampler's rows); a moe model's router rows go through the softmax
+    kernel too, in each layer of a prefill and of a step."""
     n_l = cfg.n_layers
+    router = n_l if cfg.moe is not None else 0
     extra = 1 if sampled else 0
     read = moe_read(cfg, st["paged"])
-    return {"softmax": st["admitted"] * (2 * n_l + extra)
-            + st["steps"] * (n_l + extra), read: st["steps"] * n_l}
+    return {"softmax": st["admitted"] * (n_l + router + extra)
+            + st["steps"] * (router + extra), read: st["steps"] * n_l}
 
 
-def moe_serving(torch, m, params, prompts, *, slots=MOE_SLOTS,
-                max_len=MOE_MAX_LEN, new_tokens=MOE_NEW,
-                sampled=MOE_SAMPLED, gather=True, **engine_kw) -> tuple:
+def family_serving(torch, m, params, prompts, *, slots=MOE_SLOTS,
+                   max_len=MOE_MAX_LEN, new_tokens=MOE_NEW,
+                   sampled=MOE_SAMPLED, gather=True, **engine_kw) -> tuple:
     """The served traffic through ``Model.serving_engine`` (granite-moe:
     32 slots, ``max_len`` 4,160, ``moe_impl="dispatch"``): paged with the
     decode step a CUDA graph (the main path), paged eager (the same
-    tokens, launches and arena pages), strip (the same tokens), with
-    ``gather`` paged under ``moe_impl="gather"``; then
-    ``temperature=0.8`` under each softmax algorithm (``sampled``:
-    requests, prompt cut, new tokens), whose kernel the router and the
-    sampler run.  ``engine_kw`` go to every engine (a page size).
-    Returns (the dispatch and gather tokens, None without ``gather``; the
-    main path's launches of kernel 1 and of its decode read, the strip
-    run's of kernel 4, the sampled runs' of kernels 5 and 6)."""
+    tokens, launches and arena pages; a hybrid pool's slot-major ssm
+    state bit-equal too), strip (the same tokens), with ``gather`` paged
+    under ``moe_impl="gather"``; then ``temperature=0.8`` under each
+    softmax algorithm (``sampled``: requests, prompt cut, new tokens),
+    whose kernel the sampler (and a moe model's router) runs.
+    ``engine_kw`` go to every engine (a page size).  A family whose
+    prompts are bucketed (vlm) prefills at most as many shapes as there
+    are buckets, any other its prompts' lengths.  Returns (the dispatch
+    and gather tokens, None without ``gather``; the main path's launches
+    of kernel 1 and of its decode read, the strip run's of kernel 4, the
+    sampled runs' of kernels 5 and 6)."""
     from repro_torch.models import Model
     from repro_torch.serving.scheduler import Request
 
     cfg = m.cfg
     n_l = cfg.n_layers
+    router = {"twopass_softmax_2d": n_l} if cfg.moe is not None else {}
+    impl_fmt = ", moe_impl={}" if cfg.moe is not None else ""
 
     def reqs(cut=None, new=new_tokens, n=None):
         return [Request(rid=i, prompt=p[:cut], max_new_tokens=new)
@@ -3154,6 +3229,9 @@ def moe_serving(torch, m, params, prompts, *, slots=MOE_SLOTS,
             "graph_pool_bytes", "wall_s")
     runs, states = {}, {}
 
+    def impl_of(name):
+        return impl_fmt.format(name)
+
     def run(name, paged, fused, impl, keep=False):
         """``keep``: copy the arena after the run into ``states``."""
         if keep:
@@ -3163,26 +3241,28 @@ def moe_serving(torch, m, params, prompts, *, slots=MOE_SLOTS,
                                   temperature=0.0, paged=paged, fused=fused,
                                   moe_impl=impl, **kw)
         say("engine", arch=cfg.name, path=f"{'paged' if paged else 'strip'}"
-            f", moe_impl={impl}, use_kernels=True, temperature=0, "
+            f"{impl_of(impl)}, use_kernels=True, temperature=0, "
             f"{'graph' if fused else 'eager'} step",
             prompt_lens=[len(p) for p in prompts], **st)
         check(st["fused"] is fused and st["paged"] is paged,
               f"{cfg.name} {name}: fused {st['fused']}, paged {st['paged']}")
         check(all(len(t) == new_tokens for t in toks),
               f"{cfg.name} {name}: token counts")
+        shapes = len(set(map(len, prompts)))
         check(st["admitted"] == len(prompts) > slots
-              and st["prefill_shapes"] == len(set(map(len, prompts))),
+              and (st["prefill_shapes"] == shapes if not st["bucketed"]
+                   else st["prefill_shapes"] <= min(shapes,
+                                                     st["bucketed"])),
               f"{cfg.name} {name}: backfill, or a prompt was padded")
-        want = moe_launches(cfg, st)
+        want = served_launches(cfg, st)
         read = next(k for k in want if k != "softmax")
         c = dict(st["launches"])
         got = {"softmax": c.pop("twopass_softmax_2d"), read: c.pop(read)}
         check(got == want and not any(c.values()),
               f"{cfg.name} {name}: launches {st['launches']}, want {want}")
         if fused:
-            check(st["launches_per_replay"] == {
-                read: n_l, "twopass_softmax_2d": n_l}
-                and st["replays"] == st["steps"],
+            check(st["launches_per_replay"] == {read: n_l, **router}
+                  and st["replays"] == st["steps"],
                 f"{cfg.name} {name}: a replay {st['launches_per_replay']}")
         runs[name] = toks, st
 
@@ -3193,27 +3273,42 @@ def moe_serving(torch, m, params, prompts, *, slots=MOE_SLOTS,
           f"{cfg.name}: graph tokens or launches != eager")
     check(states["graph"].pop("slots") == set(range(slots))
           == states["eager"].pop("slots"), "not every slot was used")
-    # page 0 is the trash page: dead writes
-    same = {k: bool(torch.equal(v[:, 1:], states["eager"][k][:, 1:]))
+    # page 0 of an arena is the trash page: dead writes; a hybrid pool's
+    # ssm state as each request left its slot
+    def equal(k, a, b):
+        if k == "ssm":
+            return len(a) == len(b) and all(
+                ra == rb and torch.equal(x, y) for (ra, x), (rb, y)
+                in zip(a, b))
+        return torch.equal(a[:, 1:], b[:, 1:])
+
+    same = {k: bool(equal(k, v, states["eager"][k]))
             for k, v in states["graph"].items()}
     check(all(same.values()), f"{cfg.name}: graph arenas != eager: {same}")
+    releases = len(states["graph"].get("ssm", ()))
+    check("ssm" not in same or releases >= len(prompts),
+          f"{cfg.name}: {releases} states kept at release")
     states.clear()
     gc.collect()
     torch.cuda.empty_cache()
     weights_bytes = sum(t.numel() * t.element_size()
                         for t in _leaves(params))
-    m_cfg = cfg.moe
-    experts_bytes = (n_l * m_cfg.n_experts * 3 * cfg.d_model
-                     * m_cfg.d_expert * 2)
+    extra = {}
+    if cfg.moe is not None:
+        experts_bytes = (n_l * cfg.moe.n_experts * 3 * cfg.d_model
+                         * cfg.moe.d_expert * 2)
+        extra = dict(experts_bytes=experts_bytes,
+                     experts_read_ms=experts_bytes / HBM_BYTES_S * 1e3)
     say("parity", arch=cfg.name, check="paged: graph == eager tokens, "
-        "launches and arena pages", equal=True, pages_equal=same,
+        "launches and arena pages" + (
+            ", the ssm state as each request left its slot bit-equal"
+            if "ssm" in same else ""),
+        equal=True, pages_equal=same, ssm_releases=releases,
         graph={k: sg.get(k) for k in keys},
         eager={k: se.get(k) for k in keys},
         eager_over_graph_ms=se["decode_ms_per_step"]
         / sg["decode_ms_per_step"], weights_bytes=weights_bytes,
-        weights_read_ms=weights_bytes / HBM_BYTES_S * 1e3,
-        experts_bytes=experts_bytes,
-        experts_read_ms=experts_bytes / HBM_BYTES_S * 1e3)
+        weights_read_ms=weights_bytes / HBM_BYTES_S * 1e3, **extra)
     run("strip", False, True, "dispatch")
     if gather:
         run("gather", True, True, "gather")
@@ -3235,16 +3330,18 @@ def moe_serving(torch, m, params, prompts, *, slots=MOE_SLOTS,
         toks, st = serve_requests(torch, model, params, reqs(cut, new, n),
                                   temperature=0.8, **kw)
         c = dict(st["launches"])
-        want = moe_launches(cfg, st, sampled=True)
+        want = served_launches(cfg, st, sampled=True)
         check(all(len(t) == new and all(0 <= x < cfg.vocab for x in t)
-                  for t in toks), f"moe {algo}: sampled tokens")
+                  for t in toks), f"{cfg.name} {algo}: sampled tokens")
         check(c.pop(kname) == want["softmax"]
               and c.pop(read) == want[read] and not any(c.values()),
-              f"moe {algo}: launches {st['launches']}, want {want}")
-        check(st["launches_per_replay"] == {read: n_l, kname: n_l + 1},
-              f"moe {algo}: a replay {st['launches_per_replay']}")
-        say("engine", arch=cfg.name, path=f"paged, {algo}, moe_impl="
-            "dispatch, use_kernels=True, temperature=0.8, graph step", **st)
+              f"{cfg.name} {algo}: launches {st['launches']}, want {want}")
+        check(st["launches_per_replay"] == {
+            read: n_l, kname: len(router) * n_l + 1},
+            f"{cfg.name} {algo}: a replay {st['launches_per_replay']}")
+        say("engine", arch=cfg.name, path=f"paged, {algo}"
+            f"{impl_of('dispatch')}, use_kernels=True, temperature=0.8, "
+            "graph step", **st)
         if algo != "two_pass":
             launches[kname] = st["launches"][kname]
     return tg, runs["gather"][0] if gather else None, launches
@@ -3334,7 +3431,7 @@ def moe_gather_margin(torch, m, params, prompts, toks_d, toks_g) -> None:
 
 
 def moe_step_alone(torch, m, params) -> None:
-    """The MoE layers of one decode step alone (32 slots, the 32 layers'
+    """The MoE layers of one decode step alone (32 slots, the model's layers'
     ``moe_apply`` under each impl), captured in a CUDA graph, against
     the bound of reading every expert's weights once."""
     from repro_torch.models import moe
@@ -3387,7 +3484,7 @@ def _host_ranges(*targets):
 
 
 def moe_f32_cut(torch, m, prompts, cut=MOE_F32, slots=MOE_SLOTS,
-                max_len=MOE_MAX_LEN, **engine_kw) -> None:
+                max_len=MOE_MAX_LEN, tag="moe", **engine_kw):
     """Full width, depth cut to ``cut``'s layers, float32 activations and
     weights: the engine's greedy tokens (paged, graph step, dispatch) of
     ``cut``'s requests and new tokens ``==`` the batch-1 lockstep
@@ -3409,11 +3506,12 @@ def moe_f32_cut(torch, m, prompts, cut=MOE_F32, slots=MOE_SLOTS,
         temperature=0.0, max_len=len(r.prompt) + new)[0].tolist()
         for r in sub]
     equal = sum(a == b for x, y in zip(toks, want) for a, b in zip(x, y))
-    say("moe_lockstep", arch=cfg.name, dtype="float32", n_layers=layers,
+    say(f"{tag}_lockstep", arch=cfg.name, dtype="float32", n_layers=layers,
         requests=n, new_tokens=new, tokens_equal=equal,
         tokens_compared=n * new, fused=st["fused"], rule="==")
-    check(toks == want, "moe float32: engine tokens != lockstep tokens")
-    del params
+    check(toks == want, f"{cfg.name} float32: engine tokens != lockstep "
+          "tokens")
+    return model, params
 
 
 def moe_phase(torch, rows) -> dict:
@@ -3422,7 +3520,7 @@ def moe_phase(torch, rows) -> dict:
     from repro_torch.models import build_model, moe
 
     rng = np.random.default_rng(MOE_SEED)
-    m = build_model(MOE_ARCH, use_kernels=True)
+    m = build_model(MOE_ARCH, use_kernels=True, n_layers=MOE_LAYERS)
     cfg = m.cfg
     t0 = time.perf_counter()
 
@@ -3451,7 +3549,7 @@ def moe_phase(torch, rows) -> dict:
     plens = [int(x) for x in rng.integers(lo, hi, n)] + list(MOE_LONG)
     prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab, k))
                for k in plens]
-    toks_d, toks_g, launches = moe_serving(torch, m, params, prompts)
+    toks_d, toks_g, launches = family_serving(torch, m, params, prompts)
     part("serving")
     moe_gather_margin(torch, m, params, prompts, toks_d, toks_g)
     part("gather vs dispatch")
@@ -3485,6 +3583,8 @@ MLA_ARCH = "deepseek-v2-lite-16b"   # 27 layers, d 2048, 16 heads: q / k of
                                     # 128 nope + 64 rope, v 128; latent 512;
                                     # 64 experts top 6 + 2 shared of 1,408
 MLA_SEED = 29
+MLA_LAYERS = 14                     # depth cut from 27, so that the whole
+                                    # script keeps inside its time limit
 MLA_SLOTS = 16
 MLA_PROMPTS = (40, 200, 2049)       # requests, prompt lengths [lo, hi)
 MLA_LONG = 4096                     # and one long document
@@ -3658,7 +3758,7 @@ def mla_forward_parity(torch, m, params, prompts) -> int:
 
 def mla_layer_parity(torch, m, params, prompts) -> None:
     """Kernel 12 on the model's own bf16 activations, without the drift
-    the layers add: the plain forward's input to each of the 27 layers
+    the layers add: the plain forward's input to each of the model's layers
     goes through both attentions (``mla_attention`` with kernels, the
     flash route; without, ``attention_core``'s plain route), and the
     attention outputs before ``wo`` are held within one bf16 step of the
@@ -3746,9 +3846,9 @@ def mla_f32_forward(torch, m, prompts) -> None:
 
 
 def mla_phase(torch, rows) -> dict:
-    """Phase 12: deepseek-v2-lite-16b at full width and depth, bf16
+    """Phase 12: deepseek-v2-lite-16b at full width, MLA_LAYERS deep, bf16
     weights seeded on the card (router float32): the kernel checks, the
-    served traffic through :func:`moe_serving` (16 slots, ``max_len``
+    served traffic through :func:`family_serving` (16 slots, ``max_len``
     4,160 in pages of 64, 40 requests of 200-2,048 tokens and one of
     4,096, 64 new tokens each, no gather run), the no-cache forward's
     logits with kernels against without, a graph and an eager decode
@@ -3760,7 +3860,7 @@ def mla_phase(torch, rows) -> dict:
     from repro_torch.serving import kv_cache
 
     rng = np.random.default_rng(MLA_SEED)
-    m = build_model(MLA_ARCH, use_kernels=True)
+    m = build_model(MLA_ARCH, use_kernels=True, n_layers=MLA_LAYERS)
     cfg = m.cfg
     t0 = time.perf_counter()
 
@@ -3795,7 +3895,7 @@ def mla_phase(torch, rows) -> dict:
     plens = [int(x) for x in rng.integers(lo, hi, n)] + [MLA_LONG]
     prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab, k))
                for k in plens]
-    _, _, launches = moe_serving(
+    _, _, launches = family_serving(
         torch, m, params, prompts, slots=MLA_SLOTS, max_len=MLA_MAX_LEN,
         new_tokens=MLA_NEW, sampled=MLA_SAMPLED, gather=False,
         page_size=MLA_PAGE)
@@ -3828,7 +3928,388 @@ def mla_phase(torch, rows) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 13: training qwen2.5-14b at full width through Trainer.
+# Phase 13: the vlm family, qwen2-vl-7b, at full width and depth.
+# ---------------------------------------------------------------------------
+VLM_ARCH = "qwen2-vl-7b"     # 28 layers, d 3584, 28 query heads over 4 KV
+                             # heads of 128 (G 7), d_ff 18944, vocab 152064,
+                             # M-RoPE sections (16, 24, 24), 256 patches
+VLM_SEED = 30
+VLM_SLOTS = 16
+VLM_PROMPTS = (40, 100, 2001)       # requests, prompt lengths [lo, hi):
+                                    # both sides of the 256-token grid
+VLM_NEW = 64
+VLM_MAX_LEN = 2176                  # 17 pages of 128
+VLM_SAMPLED = (16, 128, 8)          # temperature 0.8: requests, prompt, new
+VLM_TRACE = (1024, 16, 6)           # the traces: prompt cut, new tokens
+VLM_F32 = (2, 4, 16)                # float32 cut: layers, requests, new
+VLM_LOCKSTEP = (8, 512, 32)         # the CLI's path: batch, text tokens
+                                    # after the 256 patches, steps
+# kernel 12 at the lockstep batch's no-cache forward (256 + 512 positions)
+VLM_FLASH = {"vlm_patches_768_bf16": (1, 28, 4, 768, 768, 128, True, None,
+                                      "bfloat16")}
+
+
+def decode_family_checks(torch, rows, rng, tag, *, slots, max_len, hkv, g,
+                         d, window=None, ps=128) -> None:
+    """Kernels 3 and 4 at a served family's decode shape, bf16 and
+    float32 (:func:`decode_case`), over ``slots`` slots of 1 to
+    ``max_len`` positions (the first one, the second ``max_len``)."""
+    gen = torch.Generator(device="cuda").manual_seed(max_len + g)
+    pmax = -(-max_len // ps)
+    lengths = rng.integers(1, max_len + 1, slots).astype(np.int32)
+    lengths[:2] = (1, max_len)
+    tab = torch.from_numpy(rng.permutation(np.arange(
+        1, 1 + slots * pmax)).reshape(slots, pmax).astype(np.int32)).cuda()
+    for dt, short in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        decode_case(torch, rows, gen, f"{tag}_{short}", lengths=lengths,
+                    tab=tab, hkv=hkv, g=g, d=d, window=window, ps=ps,
+                    dtype=dt)
+    torch.cuda.empty_cache()
+
+
+def three_pass_sampler_rows(torch, rows, cfg, slots, tag) -> None:
+    """Kernels 5 and 6 on a served model's sampler rows [slots, vocab] at
+    temperature 0.8 (:func:`sampler_rows_check`)."""
+    gen = torch.Generator(device="cuda").manual_seed(cfg.vocab)
+    x = torch.randn((slots, cfg.vocab), device="cuda", generator=gen) * 8
+    for _, kname in SSM_SOFTMAX[1:]:
+        sampler_rows_check(torch, rows, kname, x / 0.8,
+                           f"{tag}_sampler_{slots}x{cfg.vocab}")
+
+
+def vlm_lockstep(torch, m, params, rng) -> int:
+    """The CLI's vlm path at full width: a lockstep batch of
+    VLM_LOCKSTEP's prompts, each its 256 seeded patches then its text,
+    through ``Model.generate`` (its phase times from
+    ``engine.generate_timed``); the prefill logits with patches against
+    ``use_kernels=False`` (within LOGIT_TOL of the largest logit); and the
+    no-cache ``Model.forward`` with patches, kernel 12 in every layer,
+    against the plain route by the margin rule (argmax ``==`` where the
+    plain top-2 margin exceeds twice the largest logit difference; kernel
+    12's own agreement is held in float32 by :func:`vlm_f32_cut`).
+    Returns kernel 12's launches."""
+    import repro_torch.kernels as K
+    from repro_torch.models import Model, transformer
+    from repro_torch.serving import engine
+
+    cfg, v = m.cfg, m.cfg.vocab
+    b, s, steps = VLM_LOCKSTEP
+    prompt = torch.from_numpy(rng.integers(0, v, (b, s))).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(VLM_SEED)
+    patches = torch.randn((b, cfg.n_patches, cfg.d_model), device="cuda",
+                          generator=gen)
+    K.reset_launch_counts()
+    toks, st = engine.generate_timed(params, prompt, cfg=cfg, steps=steps,
+                                     temperature=0.0, patches=patches)
+    torch.cuda.synchronize()
+    c = K.launch_counts()
+    check(tuple(toks.shape) == (b, steps + 1)
+          and bool(((toks >= 0) & (toks < v)).all()),
+          f"{cfg.name} lockstep with patches: tokens")
+    # a prefill layer's scores and a step layer's over the lockstep cache
+    check(c["twopass_softmax_2d"] == cfg.n_layers * (1 + steps)
+          and sum(c.values()) == c["twopass_softmax_2d"],
+          f"{cfg.name} lockstep with patches: launches {c}")
+    again = m.generate(params, prompt, steps=steps, temperature=0.0,
+                       patches=patches)
+    check(torch.equal(again, toks), f"{cfg.name}: Model.generate != "
+          "generate_timed")
+    say("vlm_lockstep", arch=cfg.name, batch=b, patches=cfg.n_patches,
+        text_tokens=s, steps=steps, launches=c,
+        prefill_ms=st["prefill_s"] * 1e3,
+        decode_ms_per_step=st["decode_s"] / steps * 1e3,
+        decode_tok_s=st["decode_tokens"] / st["decode_s"],
+        first_token=toks[:, 0].tolist())
+    del again
+    plain = Model(dataclasses.replace(cfg, use_kernels=False), m.device)
+    got, _ = m.prefill(params, prompt, patches=patches)
+    want, _ = plain.prefill(params, prompt, patches=patches)
+    got, want = got[:, :v].float(), want[:, :v].float()
+    worst = float(((got - want).abs().amax(1) / want.abs().amax(1)).max())
+    check(worst <= LOGIT_TOL,
+          f"{cfg.name}: prefill logits with patches, kernels vs plain: "
+          f"{worst}")
+    say("parity", arch=cfg.name, check="prefill logits with patches, "
+        "use_kernels=True vs False", batch=b, positions=cfg.n_patches + s,
+        prefill_logits_max_err_over_max_logit=worst,
+        argmax_equal=int((got.argmax(1) == want.argmax(1)).sum()),
+        tol=f"{LOGIT_TOL} of the largest logit, as the engine phase")
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    out = []
+    for model in (m, plain):
+        h = model.forward(params, prompt, patches=patches)
+        out.append(transformer.lm_logits(params, h[:, -1], cfg=cfg)
+                   [:, :v].float())
+        del h
+        torch.cuda.empty_cache()
+    flash = K.launch_counts()["flash_attention_fwd_gqa"]
+    check(flash == cfg.n_layers and sum(K.launch_counts().values())
+          == flash, f"{cfg.name}: the forward launched kernel 12 {flash} "
+          "times")
+    got, want = out
+    err = (got - want).abs().amax(1)
+    top2 = want.topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * err
+    same = got.argmax(1) == want.argmax(1)
+    say("parity", arch=cfg.name, check="bf16 no-cache forward logits with "
+        "patches at the last position, use_kernels=True (flash) vs False",
+        batch=b, positions=cfg.n_patches + s, flash_launches=flash,
+        max_err_over_max_logit=(err / want.abs().amax(1)).tolist(),
+        top2_margin=(top2[:, 0] - top2[:, 1]).tolist(),
+        decided=decided.tolist(), argmax_equal=same.tolist(),
+        rule="argmax == where the plain top-2 margin exceeds 2 x the "
+             "largest logit difference")
+    check(bool(same[decided].all()),
+          f"{cfg.name}: forward argmax kernels vs plain at a decided row")
+    return flash
+
+
+def vlm_f32_cut(torch, m, prompts, rng) -> int:
+    """Full width, depth cut to VLM_F32's layers, float32: the engine's
+    greedy tokens ``==`` the batch-1 lockstep (:func:`moe_f32_cut`); then
+    with patches, ``Model.generate`` with kernels ``==`` without, and the
+    no-cache forward's logits with kernel 12 within 1e-4 of the largest
+    of the plain route's (sum order only).  Returns kernel 12's
+    launches."""
+    import repro_torch.kernels as K
+    from repro_torch.models import Model, transformer
+
+    model, params = moe_f32_cut(torch, m, prompts, cut=VLM_F32,
+                                slots=VLM_SLOTS, max_len=VLM_MAX_LEN,
+                                tag="vlm")
+    cfg = model.cfg
+    plain = Model(dataclasses.replace(cfg, use_kernels=False), m.device)
+    b, s = 2, 300
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(VLM_SEED + 1)
+    patches = torch.randn((b, cfg.n_patches, cfg.d_model), device="cuda",
+                          generator=gen)
+    toks = [mod.generate(params, prompt, steps=16, temperature=0.0,
+                         patches=patches) for mod in (model, plain)]
+    K.reset_launch_counts()
+    lg = [transformer.lm_logits(params, mod.forward(
+        params, prompt, patches=patches)[:, -1], cfg=cfg)[:, :cfg.vocab]
+        for mod in (model, plain)]
+    flash = K.launch_counts()["flash_attention_fwd_gqa"]
+    worst = float(((lg[0] - lg[1]).abs().amax(1)
+                   / lg[1].abs().amax(1)).max())
+    say("vlm_lockstep", arch=cfg.name, dtype="float32", n_layers=VLM_F32[0],
+        check="with patches: generate kernels == plain; forward logits "
+        "kernel 12 vs plain", batch=b, positions=cfg.n_patches + s,
+        tokens_equal=bool(torch.equal(*toks)), flash_launches=flash,
+        forward_max_err_over_max_logit=worst, tol=MLA_F32_TOL)
+    check(torch.equal(*toks), f"{cfg.name} float32: generate with patches "
+          "kernels != plain")
+    check(flash == VLM_F32[0] and worst <= MLA_F32_TOL,
+          f"{cfg.name} float32 forward with patches: {flash} launches, "
+          f"{worst}")
+    del model, params, lg, toks
+    torch.cuda.empty_cache()
+    return flash
+
+
+def vlm_phase(torch, rows) -> dict:
+    """Phase 13: qwen2-vl-7b at full width and depth, bf16 weights seeded
+    on the card.  Kernels 3-4 at G 7, D 128, kernel 12 at the patch
+    forward's shape, kernel 1 on its prefill score rows [28 S, S] and
+    sampler rows and kernels 5-6 on the sampler rows; then text requests
+    through :func:`family_serving` (16 slots, ``max_len`` 2,176, 40
+    requests of 100-2,000 tokens, 64 new),
+    prefill logits against ``use_kernels=False``, a graph and an eager
+    decode trace, the CLI's lockstep path with patches
+    (:func:`vlm_lockstep`), a 2-layer float32 cut (:func:`vlm_f32_cut`)
+    and the serving CLI.  Returns the main path's launches of kernels 1,
+    3 and 4, the sampled runs' of 5 and 6 and the forwards' of 12."""
+    from repro_torch.models import build_model
+    from repro_torch.serving import kv_cache
+
+    rng = np.random.default_rng(VLM_SEED)
+    m = build_model(VLM_ARCH, use_kernels=True)
+    cfg = m.cfg
+    t0 = time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        say("vlm_part", part=name, seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+
+    n, lo, hi = VLM_PROMPTS
+    plens = [int(x) for x in rng.integers(lo, hi, n)]
+    for case, shape in VLM_FLASH.items():
+        c = flash_check(torch, case, shape)
+        flash_times(torch, rows, case, c)
+        del c
+        torch.cuda.empty_cache()
+    decode_family_checks(torch, rows, rng, "vlm_g7_d128", slots=VLM_SLOTS,
+                         max_len=VLM_MAX_LEN, hkv=cfg.n_kv_heads,
+                         g=cfg.n_heads // cfg.n_kv_heads,
+                         d=cfg.resolved_head_dim())
+    swa_softmax_rows(torch, rows, cfg, max(plens), VLM_SLOTS,
+                     heads=cfg.n_heads)
+    three_pass_sampler_rows(torch, rows, cfg, VLM_SLOTS, "vlm")
+    part("kernel checks")
+    params = m.init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    say("vlm_config", arch=VLM_ARCH, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim(), d_ff=cfg.d_ff, vocab=cfg.vocab,
+        padded_vocab=cfg.padded_vocab(), mrope_sections=cfg.mrope_sections,
+        n_patches=cfg.n_patches, weights_s=time.perf_counter() - t0,
+        weights_bytes=sum(t.numel() * t.element_size()
+                          for t in _leaves(params)),
+        param_count=cfg.param_count(), slots=VLM_SLOTS,
+        max_len=VLM_MAX_LEN,
+        kv_bytes_a_token=kv_cache.cache_bytes(cfg, 1, 2, ring=False)
+        - kv_cache.cache_bytes(cfg, 1, 1, ring=False),
+        paged_pool_bytes=kv_cache.paged_pool_bytes(cfg, VLM_SLOTS,
+                                                   VLM_MAX_LEN))
+    part("weights")
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab, k))
+               for k in plens]
+    _, _, launches = family_serving(
+        torch, m, params, prompts, slots=VLM_SLOTS, max_len=VLM_MAX_LEN,
+        new_tokens=VLM_NEW, sampled=VLM_SAMPLED, gather=False)
+    part("serving")
+    order = np.argsort(plens, kind="stable")
+    swa_prefill_parity(torch, m, params, [
+        prompts[i] for i in (order[0], order[len(order) // 2], order[-1])],
+        VLM_MAX_LEN)
+    part("prefill parity")
+    cut, new_graph, new_eager = VLM_TRACE
+    trace = [p[:cut] for p in prompts]
+    kw = dict(slots=VLM_SLOTS, max_len=VLM_MAX_LEN)
+    decode_trace(torch, m, params, trace, fused=True, new=new_graph, **kw)
+    decode_trace(torch, m, params, trace, fused=False, new=new_eager, **kw)
+    part("decode traces")
+    flash = vlm_lockstep(torch, m, params, rng)
+    part("lockstep with patches")
+    flash += vlm_f32_cut(torch, m, prompts, rng)
+    part("float32 cut")
+    launches["flash_attention_fwd_gqa"] = flash
+    del m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_cli(torch, VLM_ARCH, ("qwen2-vl-7b: lockstep batch=4", "prefill:",
+                              "decode:", "kernel launches:"))
+    part("cli")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the hybrid family, hymba-1.5b, at full width and depth.
+# ---------------------------------------------------------------------------
+HYB_ARCH = "hymba-1.5b"      # 32 layers, d 1600, 25 query heads over 5 KV
+                             # heads of 64 (G 5), SWA 1024, 25 mamba heads of
+                             # 64 (state 16) a block, d_ff 5504, vocab 32001
+HYB_SEED = 31
+HYB_SLOTS = 32
+HYB_PROMPTS = (48, 200, 3001)       # requests, prompt lengths [lo, hi):
+                                    # past the window
+HYB_NEW = 64
+HYB_MAX_LEN = 3136                  # 49 pages of 64
+HYB_PAGE = 64
+HYB_SAMPLED = (32, 128, 8)          # temperature 0.8: requests, prompt, new
+HYB_TRACE = (1024, 16)              # the graph trace: prompt cut, new tokens
+HYB_F32 = (2, 4, 16)                # float32 cut: layers, requests, new
+
+
+def hybrid_phase(torch, rows) -> dict:
+    """Phase 14: hymba-1.5b at full width and depth, bf16 weights seeded
+    on the card (``a_log`` and ``dt_bias`` float32).  Kernels 3-4 at G 5,
+    D 64 under the 1,024 window, kernel 1 on its windowed prefill score
+    rows [25 S, S] and sampler rows and kernels 5-6 on the sampler rows;
+    then requests through :func:`family_serving` (32 slots, ``max_len``
+    3,136 in pages of 64, 48 requests of 200-3,000 tokens, 64 new; the
+    ssm state as each request leaves its slot bit-equal graph vs eager),
+    prefill logits against ``use_kernels=False``, the ring past its wrap
+    at 4 layers against a position-addressed cache
+    (:func:`ring_wrap_check`), a decode trace of the graph step, a
+    2-layer float32 cut and the serving CLI.  Returns the main path's
+    launches of kernels 1, 3 and 4 and the sampled runs' of 5 and 6."""
+    from repro_torch.models import build_model
+    from repro_torch.serving import kv_cache
+
+    rng = np.random.default_rng(HYB_SEED)
+    m = build_model(HYB_ARCH, use_kernels=True)
+    cfg = m.cfg
+    t0 = time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        say("hybrid_part", part=name, seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+
+    n, lo, hi = HYB_PROMPTS
+    plens = [int(x) for x in rng.integers(lo, hi, n)]
+    decode_family_checks(torch, rows, rng, "hybrid_g5_d64_w1024",
+                         slots=HYB_SLOTS, max_len=HYB_MAX_LEN,
+                         hkv=cfg.n_kv_heads,
+                         g=cfg.n_heads // cfg.n_kv_heads,
+                         d=cfg.resolved_head_dim(), window=cfg.swa_window,
+                         ps=HYB_PAGE)
+    swa_softmax_rows(torch, rows, cfg, max(plens), HYB_SLOTS,
+                     heads=cfg.n_heads)
+    three_pass_sampler_rows(torch, rows, cfg, HYB_SLOTS, "hybrid")
+    part("kernel checks")
+    params = m.init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    state = kv_cache.init_cache(cfg, 1, 1, device="meta")["ssm"]
+    say("hybrid_config", arch=HYB_ARCH, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim(), swa_window=cfg.swa_window,
+        mamba_heads=cfg.d_model // cfg.ssm.head_dim,
+        state_size=cfg.ssm.state_size, d_ff=cfg.d_ff, vocab=cfg.vocab,
+        weights_s=time.perf_counter() - t0,
+        weights_bytes=sum(t.numel() * t.element_size()
+                          for t in _leaves(params)),
+        a_log_dtype=str(params["blocks"]["mamba"]["a_log"].dtype),
+        param_count=cfg.param_count(), slots=HYB_SLOTS,
+        max_len=HYB_MAX_LEN, page_size=HYB_PAGE,
+        kv_bytes_a_token=kv_cache.cache_bytes(cfg, 1, 2, ring=False)
+        - kv_cache.cache_bytes(cfg, 1, 1, ring=False),
+        ssm_state_bytes_a_slot=state.numel() * state.element_size(),
+        paged_pool_bytes=kv_cache.paged_pool_bytes(
+            cfg, HYB_SLOTS, HYB_MAX_LEN, page_size=HYB_PAGE))
+    part("weights")
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab, k))
+               for k in plens]
+    _, _, launches = family_serving(
+        torch, m, params, prompts, slots=HYB_SLOTS, max_len=HYB_MAX_LEN,
+        new_tokens=HYB_NEW, sampled=HYB_SAMPLED, gather=False,
+        page_size=HYB_PAGE)
+    part("serving")
+    order = np.argsort(plens, kind="stable")
+    swa_prefill_parity(torch, m, params, [
+        prompts[i] for i in (order[0], order[len(order) // 2], order[-1])],
+        HYB_MAX_LEN)
+    part("prefill parity")
+    launches["twopass_softmax_2d"] += ring_wrap_check(torch, m, params, rng)
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("ring")
+    # the graph step's trace only: each trace admits 32 prompts of a full
+    # window first, ~15 s of prefill
+    cut, new = HYB_TRACE
+    decode_trace(torch, m, params, [p[:cut] for p in prompts], fused=True,
+                 new=new, slots=HYB_SLOTS, max_len=HYB_MAX_LEN,
+                 page_size=HYB_PAGE)
+    part("decode trace")
+    moe_f32_cut(torch, m, prompts, cut=HYB_F32, slots=HYB_SLOTS,
+                max_len=HYB_MAX_LEN, page_size=HYB_PAGE, tag="hybrid")
+    part("float32 cut")
+    del m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_cli(torch, HYB_ARCH, ("hymba-1.5b: served 8 requests over 4 slots "
+                              "/ paged pool", "prefill:", "decode:",
+                              "kernel launches:"))
+    part("cli")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: training qwen2.5-14b at full width through Trainer.
 # ---------------------------------------------------------------------------
 TRAIN_LAYERS = 4            # depth cut from 48 (memory: 16 bytes a param)
 TRAIN_SEQ = 4096            # the config's train_4k length, batch 1
@@ -4065,31 +4546,38 @@ def train_trace(torch, step, state, batch) -> None:
         flash_kernels_ms=flash)
 
 
-def cli_phase(torch) -> None:
-    """Phase 14: the serving CLI at full width as a user runs it."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
-           "--slots", "8", "--requests", "8", "--prompt-len", "256",
-           "--steps", "8", "--softmax", "three_pass_reload", "--kernels"]
+def run_cli(torch, arch, expect, *flags, timeout=600) -> None:
+    """``python -m repro_torch.launch.serve --arch arch ... --kernels`` at
+    full width as a user runs it; each of ``expect`` must be in a line of
+    its output."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+           *flags, "--kernels"]
     t = time.perf_counter()
-    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                         cwd=ROOT, env=dict(os.environ,
-                                            PYTHONPATH=str(ROOT / "src")))
+    out = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=timeout, cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     lines = out.stdout.splitlines()
     say("cli", cmd=" ".join(cmd[1:]), rc=out.returncode,
         seconds=time.perf_counter() - t, stdout=lines,
         stderr_tail=out.stderr.splitlines()[-5:])
-    check(out.returncode == 0, f"serving CLI exited {out.returncode}")
-    check(any(ln.startswith("prefill: 2048 tok") for ln in lines)
-          and any(ln.startswith("decode:") for ln in lines)
-          and any("threepass_reload_2d" in ln for ln in lines),
-          "serving CLI: no prefill/decode lines or no reload launches")
+    check(out.returncode == 0, f"{arch} serving CLI exited {out.returncode}")
+    check(all(any(e in ln for ln in lines) for e in expect),
+          f"{arch} serving CLI: a line with one of {expect} is missing")
+
+
+def cli_phase(torch) -> None:
+    """Phase 16: the serving CLI at full width as a user runs it."""
+    run_cli(torch, ARCH, ("prefill: 2048 tok", "decode:",
+                          "threepass_reload_2d"),
+            "--slots", "8", "--requests", "8", "--prompt-len", "256",
+            "--steps", "8", "--softmax", "three_pass_reload")
 
 
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 
 
 def train_cli_phase(torch) -> None:
-    """Phase 15: the training CLI as a user runs it, reduced qwen2.5-14b
+    """Phase 17: the training CLI as a user runs it, reduced qwen2.5-14b
     with ``--kernels`` and a checkpoint directory: 6 steps straight, then 3
     (the crash) and a resume to 6 from the same directory; the final losses
     agree, and the flash and LM-head kernels ran."""
@@ -4276,6 +4764,16 @@ def _leaves(tree):
         yield tree
 
 
+def _paths(tree, prefix: str = ""):
+    """(path, leaf) of every tensor in a nested dict, paths joined by
+    ``/``."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
 REPLACES = {
     "twopass_softmax_2d": "src/repro/kernels/twopass_softmax.py:76",
     "twopass_stats_2d": "src/repro/kernels/twopass_softmax.py:115",
@@ -4318,11 +4816,12 @@ MAIN_CASE = {"twopass_softmax_2d": "prefill_bucket_1024",
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=24,
+    ap.add_argument("--layers", type=int, default=16,
                     help="decoder depth of the engine phase (full: 48; "
-                    "24 keeps the whole script inside its time limit)")
+                    "16 keeps the whole script inside its time limit)")
     ap.add_argument("--only", choices=("train", "swa", "engine", "mqa",
-                                       "ssm", "encdec", "moe", "mla"),
+                                       "ssm", "encdec", "moe", "mla", "vlm",
+                                       "hybrid"),
                     help="run one phase alone (train: to compare the train "
                     "step of two trees on one card); no kernels or ok line")
     args = ap.parse_args()
@@ -4354,10 +4853,12 @@ def main() -> int:
         elif args.only == "engine":
             say("engine_done", launches=engine_phase(
                 torch, np.random.default_rng(0), args.layers)[0])
-        elif args.only in ("mqa", "ssm", "encdec", "moe", "mla"):
+        elif args.only in ("mqa", "ssm", "encdec", "moe", "mla", "vlm",
+                           "hybrid"):
             phase = {"mqa": mqa_phase, "ssm": ssm_phase,
                      "encdec": encdec_phase, "moe": moe_phase,
-                     "mla": mla_phase}[args.only]
+                     "mla": mla_phase, "vlm": vlm_phase,
+                     "hybrid": hybrid_phase}[args.only]
             t0 = time.perf_counter()
             say(f"{args.only}_done", launches=phase(
                 torch, {"twopass_softmax_2d": {}}),
@@ -4405,9 +4906,17 @@ def main() -> int:
     mla_launches = mla_phase(torch, rows)
     say("mla_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
+    vlm_launches = vlm_phase(torch, rows)
+    say("vlm_done", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for name, n in hybrid_phase(torch, rows).items():
+        launches[name] += n
+    say("hybrid_done", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
     launches.update(train_phase(torch))
     # after the train phase's counts: the flash forward's too
-    for name, n in (*enc_launches.items(), *mla_launches.items()):
+    for name, n in (*enc_launches.items(), *mla_launches.items(),
+                    *vlm_launches.items()):
         launches[name] += n
     say("train_done", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()

@@ -184,13 +184,15 @@ class ModelConfig:
         return dataclasses.replace(self, **changes)
 
 
-# families this package does not serve yet -> ROADMAP queue A item
-UNPORTED_FAMILIES = {"vlm": 14, "hybrid": 16}
+# families this package does not serve yet -> ROADMAP queue A item (none:
+# every family the reference serves is served)
+UNPORTED_FAMILIES: dict[str, int] = {}
 # families it serves but does not train yet (ssm training is item 27,
 # encdec training item 28, moe training item 29: deepseek-v2-lite-16b's
-# multi-head latent attention is served and trains with the moe family)
+# multi-head latent attention is served and trains with the moe family;
+# vlm training item 31, hybrid training item 32)
 UNTRAINED_FAMILIES = {**UNPORTED_FAMILIES, "ssm": 27, "encdec": 28,
-                      "moe": 29}
+                      "moe": 29, "vlm": 31, "hybrid": 32}
 
 
 def check_ported(cfg: ModelConfig, what: str,

@@ -17,7 +17,8 @@ from repro_torch.configs.base import ModelConfig, check_ported
 
 # a leaf every layer of the family has: its stack length is the depth
 _LAYER_LEAF = {"dense": ("ln1", "scale"), "ssm": ("ln_t", "scale"),
-               "encdec": ("ln1", "scale"), "moe": ("ln1", "scale")}
+               "encdec": ("ln1", "scale"), "moe": ("ln1", "scale"),
+               "vlm": ("ln1", "scale"), "hybrid": ("ln_in", "scale")}
 
 
 def _to_torch(tree, device):
@@ -28,8 +29,8 @@ def _to_torch(tree, device):
 
 def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
                     device="cuda") -> dict:
-    """The port's parameters from a numpy tree of the reference's dense,
-    ssm, encdec or moe LM parameters.  An encdec tree also has the
+    """The port's parameters from a numpy tree of the reference's LM
+    parameters, of any family.  An encdec tree also has the
     encoder's ``enc_blocks`` (stacked ``n_enc_layers``) and ``enc_norm``,
     and each decoder block its cross-attention ``ln_x`` / ``xattn``.  A
     moe block's ``mlp`` is the experts: ``router.w`` float32 ``[L, d,
@@ -37,11 +38,17 @@ def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
     d_expert, d]`` and, with shared experts, ``shared`` (a plain MLP).  A
     config with multi-head latent attention (deepseek) has the latent
     leaves in ``attn``: ``wq``, ``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo``.
-    A family that is not ported is refused naming its item."""
+    A vlm tree also has ``patch_proj`` (a dense ``[d, d]``).  A hybrid
+    block is ``ln_in``, ``attn``, ``mamba`` (the mamba heads: ``in_x``,
+    ``in_z``, ``in_b``, ``in_c``, ``in_dt``, float32 ``a_log`` and
+    ``dt_bias``, ``out_norm``, ``wo``), ``ln_mlp``, ``mlp``, ``norm_a``
+    and ``norm_m``.  A family that is not ported is refused naming its
+    item."""
     check_ported(cfg, "weight conversion")
     want = {"embed", "norm_f", "blocks"} | (
         set() if cfg.tie_embeddings else {"lm_head"}) | (
-        {"enc_blocks", "enc_norm"} if cfg.family == "encdec" else set())
+        {"enc_blocks", "enc_norm"} if cfg.family == "encdec" else set()) | (
+        {"patch_proj"} if cfg.family == "vlm" else set())
     if set(tree_of_numpy) != want:
         raise ValueError(f"expected top-level keys {sorted(want)}, got "
                          f"{sorted(tree_of_numpy)}")
@@ -65,6 +72,17 @@ def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
                                        m.d_expert):
             raise ValueError(f"moe wg {np.shape(mlp['wg'])} does not match "
                              "the config")
+    if cfg.family == "hybrid":
+        blocks = tree_of_numpy["blocks"]
+        want_blk = {"ln_in", "attn", "mamba", "ln_mlp", "mlp", "norm_a",
+                    "norm_m"}
+        if set(blocks) != want_blk:
+            raise ValueError(f"hybrid block keys {sorted(blocks)}, expected "
+                             f"{sorted(want_blk)}")
+        h = cfg.d_model // cfg.ssm.head_dim
+        in_b = np.shape(blocks["mamba"]["in_b"]["w"])[1:]
+        if in_b != (cfg.d_model, h * cfg.ssm.state_size):
+            raise ValueError(f"hybrid in_b {in_b} does not match the config")
     if cfg.mla is not None:
         attn, m = tree_of_numpy["blocks"]["attn"], cfg.mla
         want_attn = {"wq", "wkv_a", "kv_norm", "wkv_b", "wo"}

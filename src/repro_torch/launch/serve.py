@@ -8,6 +8,8 @@
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --kernels
     python -m repro_torch.launch.serve --arch whisper-base --kernels \
         --enc-frames 1500 --enc-chunk 500
+    python -m repro_torch.launch.serve --arch hymba-1.5b --kernels
+    python -m repro_torch.launch.serve --arch qwen2-vl-7b --kernels
 
 Requests stream in (optionally Poisson -- ``--arrival-rate``), join the pool
 by prefilling into a free slot, decode raggedly one step at a time for every
@@ -22,14 +24,19 @@ embeddings (default ``--prompt-len``; the audio front end is not
 modelled), whose cross K/V is adopted as read-only arena pages at
 admission; ``--enc-chunk`` encodes them that many frames a scheduler step.
 
+A vlm (qwen2-vl) model has no continuous-batching path, as in the
+reference: ``--slots`` prompts of ``--prompt-len`` tokens, each after
+``n_patches`` seeded patch embeddings, run as one lockstep batch through
+the phase-timed ``engine.generate_timed`` (the engine's flags do not
+apply).
+
 The model runs on ``--device`` (``cuda`` unless the CPU is asked for), with
 random weights made from seed 0 in the compute dtype.  Flags for what this
 package does not serve yet (int8 pages, host swap, the prefix cache,
-streaming, a mesh, the vlm and hybrid families) exit with an error that
-names their ROADMAP item.  A moe model (deepseek-v2-lite-16b with its
-multi-head latent attention too) routes through capacity dispatch
-(``moe_impl="dispatch"``, the reference's default; its CLI has no flag for
-it either).
+streaming, a mesh) exit with an error that names their ROADMAP item.  A
+moe model (deepseek-v2-lite-16b with its multi-head latent attention too)
+routes through capacity dispatch (``moe_impl="dispatch"``, the
+reference's default; its CLI has no flag for it either).
 """
 
 from __future__ import annotations
@@ -114,13 +121,9 @@ def main(argv=None) -> None:
             p.error(f"--{name.replace('_', '-')} is not ported yet "
                     f"(ROADMAP queue A item {item})")
 
-    import numpy as np
-
     from repro_torch import kernels
     from repro_torch.models import build_model
     from repro_torch.models.transformer import torch_dtype
-    from repro_torch.serving.scheduler import ContinuousBatchingEngine
-    from repro_torch.serving.scheduler import Request
 
     try:
         model = build_model(args.arch, reduced=args.reduced,
@@ -137,6 +140,63 @@ def main(argv=None) -> None:
     # weights in the compute dtype: every use casts to it, so the results
     # equal float32 weights' at half the memory
     params = model.init(seed=0, dtype=torch_dtype(cfg.dtype))
+    if cfg.family == "vlm":
+        st = _serve_lockstep(args, model, params)
+    else:
+        st = _serve_engine(args, p, model, params)
+    if args.kernels:
+        print("kernel launches:", {k: v for k, v in
+                                   kernels.launch_counts().items() if v})
+    pre = st["prefill_tokens"] / max(st["prefill_s"], 1e-9)
+    dec = st["decode_tokens"] / max(st["decode_s"], 1e-9)
+    print(f"prefill: {st['prefill_tokens']} tok in {st['prefill_s']:.2f}s "
+          f"({pre:.1f} tok/s)")
+    if cfg.family == "encdec":
+        print(f"encode:  {st['encode_frames']} frames in "
+              f"{st['encode_s']:.2f}s (counted in prefill, as the frames)")
+    print(f"decode:  {st['decode_tokens']} tok in {st['decode_s']:.2f}s "
+          f"({dec:.1f} tok/s) via {args.softmax} sampler")
+
+
+def _serve_lockstep(args, model, params) -> dict:
+    """vlm, as the reference: a lockstep batch of ``--slots`` prompts with
+    seeded patch inputs through the phase-timed ``generate_timed`` (the
+    scheduler's requests carry no patches).  Returns its stats."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serving import engine
+
+    cfg, dev = model.cfg, model.device
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (args.slots, args.prompt_len))).to(dev)
+    patches = torch.from_numpy(rng.standard_normal(
+        (args.slots, cfg.n_patches, cfg.d_model)).astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    kernels.reset_launch_counts()
+    toks, st = engine.generate_timed(
+        params, prompt, cfg=cfg, steps=args.steps, generator=gen,
+        temperature=args.temperature,
+        max_len=args.prompt_len + args.steps + 8, patches=patches)
+    print(f"{args.arch}: lockstep batch={args.slots}, {cfg.n_patches} "
+          f"patches a prompt (no continuous-batching path for family="
+          f"{cfg.family})")
+    print("sample row:", toks[0, :16].tolist())
+    return st
+
+
+def _serve_engine(args, p, model, params) -> dict:
+    """Every other family: the requests through the continuous-batching
+    engine.  Returns its stats."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine
+    from repro_torch.serving.scheduler import Request
+
+    cfg = model.cfg
     encdec = cfg.family == "encdec"
     n_frames = args.enc_frames or args.prompt_len
     try:
@@ -162,6 +222,7 @@ def main(argv=None) -> None:
                         (n_frames, cfg.d_model)).astype(np.float32)
                         if encdec else None))
             for i in range(args.requests)]
+    # after the engine is built: its graph's warm-up steps are not counted
     kernels.reset_launch_counts()
     comps = eng.run(reqs)
     st = eng.stats
@@ -177,18 +238,7 @@ def main(argv=None) -> None:
         print(f"ttft: p50 {ttfts[len(ttfts) // 2] * 1e3:.2f}ms  "
               f"max {ttfts[-1] * 1e3:.2f}ms")
     print("sample row:", comps[0].tokens[:16])
-    if args.kernels:
-        print("kernel launches:", {k: v for k, v in
-                                   kernels.launch_counts().items() if v})
-    pre = st["prefill_tokens"] / max(st["prefill_s"], 1e-9)
-    dec = st["decode_tokens"] / max(st["decode_s"], 1e-9)
-    print(f"prefill: {st['prefill_tokens']} tok in {st['prefill_s']:.2f}s "
-          f"({pre:.1f} tok/s)")
-    if encdec:
-        print(f"encode:  {st['encode_frames']} frames in "
-              f"{st['encode_s']:.2f}s (counted in prefill, as the frames)")
-    print(f"decode:  {st['decode_tokens']} tok in {st['decode_s']:.2f}s "
-          f"({dec:.1f} tok/s) via {args.softmax} sampler")
+    return st
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Shared model layers: norms, MLPs, embeddings, RoPE.
+"""Shared model layers: norms, MLPs, embeddings, RoPE and M-RoPE.
 
 Functional style, as in the reference: ``init_*(gen, ...) -> params`` (a
 nested dict of tensors) plus apply functions.  Weights keep the reference's
@@ -92,18 +92,31 @@ def embed(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE (rotate-half convention).
+# RoPE (rotate-half convention), and M-RoPE for qwen2-vl.
 # ---------------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                         device=device) / head_dim)
 
 
-def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: tuple[int, ...] | None = None):
     """positions: [..., S] int -> cos, sin of shape [..., S, head_dim//2]
-    (f32).  M-RoPE sections are not ported yet (ROADMAP queue A item 14)."""
+    (f32).  With ``sections`` (qwen2-vl's M-RoPE: the half-dim split per
+    stream, summing to ``head_dim // 2``) positions are [3, ..., S], the
+    temporal / height / width streams, and each frequency band takes its
+    angle from the stream its section belongs to."""
     inv = rope_freqs(head_dim, theta, positions.device)
     ang = positions.to(torch.float32)[..., None] * inv
+    if sections is not None:
+        if positions.ndim < 2 or positions.shape[0] != len(sections):
+            raise ValueError(f"M-RoPE positions {tuple(positions.shape)} "
+                             f"for {len(sections)} sections")
+        parts, lo = [], 0
+        for i, width in enumerate(sections):
+            parts.append(ang[i, ..., lo:lo + width])
+            lo += width
+        ang = torch.cat(parts, dim=-1)
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -44,10 +44,15 @@ class Model:
         return transformer.train_loss(params, batch, cfg=self.cfg,
                                       policy=policy)
 
-    def forward(self, params, tokens):
-        return transformer.forward(params, tokens, cfg=self.cfg)
+    def forward(self, params, tokens, patches=None):
+        """Hidden states [B, S, d]; a vlm prompt's ``patches`` ([B,
+        n_patches, d]) come first and count in S."""
+        return transformer.forward(params, tokens, cfg=self.cfg,
+                                   patches=patches)
 
     def prefill(self, params, tokens, **kw):
+        """``kw`` as :func:`engine.prefill`'s (``max_len``, ``last_pos``,
+        an encdec prompt's ``frames``, a vlm prompt's ``patches``)."""
         return engine.prefill(params, tokens, cfg=self.cfg, **kw)
 
     def decode_step(self, params, cache, tokens, pos,
@@ -61,6 +66,8 @@ class Model:
 
     def generate(self, params, prompt, *, steps: int,
                  generator: torch.Generator | None = None, **kw):
+        """Lockstep tokens [B, steps + 1] (:func:`engine.generate`; a vlm
+        prompt's ``patches`` go in ``kw``)."""
         return engine.generate(params, prompt, cfg=self.cfg, steps=steps,
                                generator=generator, **kw)
 
@@ -108,10 +115,10 @@ def _spec(shape, dtype) -> torch.Tensor:
 
 def input_specs(cfg: ModelConfig, cell: ShapeCell | str) -> dict:
     """Input shapes for one cell.  ``train``/``prefill`` describe the step
-    batch; ``decode`` describes (cache, tokens, pos), and raises for a
-    family whose cache is not ported, naming its ROADMAP item.  An ssm
-    decode cell's cache is the recurrent state, the same at any
-    ``seq_len`` (long_500k included)."""
+    batch; ``decode`` describes (cache, tokens, pos).  An ssm decode
+    cell's cache is the recurrent state, the same at any ``seq_len``
+    (long_500k included); a hybrid one's is ``{"attn", "ssm"}``, the
+    attention half a ring of ``swa_window`` positions."""
     if isinstance(cell, str):
         cell = SHAPES[cell]
     b, s = cell.global_batch, cell.seq_len

@@ -56,24 +56,7 @@ def _slices(s: int, chunk: int, nchunks: int, use_scan: bool):
 # ---------------------------------------------------------------------------
 # Chunked scalar-decay SSD (mamba2-style).  Everything is [B, S, H, ...].
 # ---------------------------------------------------------------------------
-def _ssd_chunk(state, xvc, lac, bc, cc):
-    """One chunk: returns (new_state, y_chunk).  All float32."""
-    c = xvc.shape[1]
-    la_cum = torch.cumsum(lac, dim=1)                       # [B, c, H]
-    # the carried state's contribution to every position
-    y_state = torch.einsum("bch,bchk,bhkv->bchv", torch.exp(la_cum), cc,
-                           state)
-    # inside the chunk: D_ij = exp(LA_i - LA_j) for j <= i (<= 1, safe)
-    delta = la_cum[:, :, None, :] - la_cum[:, None, :, :]  # [B, c, c, H]
-    tri = torch.tril(torch.ones((c, c), dtype=F32, device=xvc.device))
-    d = torch.exp(torch.clamp(delta, max=0.0)) * tri[None, :, :, None]
-    scores = torch.einsum("bchk,bjhk->bcjh", cc, bc) * d
-    y_intra = torch.einsum("bcjh,bjhv->bchv", scores, xvc)
-    # the state to the next chunk: exp(LA_C) h_0 + sum_j exp(LA_C - LA_j) b x
-    w_all = torch.exp(la_cum[:, -1:, :] - la_cum)           # [B, c, H]
-    state = (torch.exp(la_cum[:, -1])[:, :, None, None] * state
-             + torch.einsum("bch,bchk,bchv->bhkv", w_all, bc, xvc))
-    return state, y_state + y_intra
+SSD_GROUP_ELEMS = 1 << 24   # elements of one [B, g, c, c, H] decay tensor
 
 
 def ssd_chunked(xv, log_a, bk, ck, chunk: int, state0=None,
@@ -83,18 +66,56 @@ def ssd_chunked(xv, log_a, bk, ck, chunk: int, state0=None,
     xv:    [B, S, H, dv]   (input values, dt premultiplied)
     log_a: [B, S, H]       (<= 0; per-head scalar log decay)
     bk,ck: [B, S, H, dk]   (input/output projections, B and C)
-    Returns y: [B, S, H, dv] (and the final state [B, H, dk, dv])."""
+    Returns y: [B, S, H, dv] (and the final state [B, H, dk, dv]).
+
+    The chunks are the reference's; the work inside them, which does not
+    depend on the carried state, runs for a group of chunks at once (as
+    many as keep a [B, g, c, c, H] tensor within SSD_GROUP_ELEMS), and
+    only the carry from chunk to chunk is a loop: a scan of one chunk at
+    a time is bound by the host, some 30 small kernel launches a chunk.  A ragged last
+    chunk is zero-padded: its pad positions decay by exp(0) = 1 and add
+    nothing (b = 0), so the state and the real positions are unchanged."""
     b, s, h, dv = xv.shape
-    dk = bk.shape[-1]
     chunk, nchunks, use_scan = _plan(s, chunk, SSD_CHUNK_CAP)
-    state = (torch.zeros((b, h, dk, dv), dtype=F32, device=xv.device)
+    _slices(s, chunk, nchunks, use_scan)
+    pad = nchunks * chunk - s
+
+    def chunks(t):                     # -> float32 [B, n, c, H, ...]
+        t = t.to(F32)
+        if pad:
+            t = torch.cat([t, t.new_zeros((b, pad, *t.shape[2:]))], dim=1)
+        return t.reshape(b, nchunks, chunk, *t.shape[2:])
+
+    xvc, bc, cc = chunks(xv), chunks(bk), chunks(ck)
+    la_cum = torch.cumsum(chunks(log_a), dim=2)            # [B, n, c, H]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=F32,
+                                device=xv.device))[:, :, None]
+    state = (torch.zeros((b, h, bk.shape[-1], dv), dtype=F32,
+                         device=xv.device)
              if state0 is None else state0.to(F32))
+    group = max(1, SSD_GROUP_ELEMS // (b * chunk * chunk * h))
     ys = []
-    for sl in _slices(s, chunk, nchunks, use_scan):
-        state, y = _ssd_chunk(state, xv[:, sl].to(F32), log_a[:, sl].to(F32),
-                              bk[:, sl].to(F32), ck[:, sl].to(F32))
-        ys.append(y.to(xv.dtype))
-    y = torch.cat(ys, dim=1)
+    for lo in range(0, nchunks, group):
+        la, x, bg, cg = (t[:, lo:lo + group] for t in (la_cum, xvc, bc, cc))
+        # inside a chunk: D_ij = exp(LA_i - LA_j) for j <= i (<= 1, safe)
+        delta = la[:, :, :, None, :] - la[:, :, None, :, :]  # [B,g,c,c,H]
+        d = torch.exp(torch.clamp(delta, max=0.0)) * tri
+        scores = torch.einsum("bnchk,bnjhk->bncjh", cg, bg) * d
+        y_intra = torch.einsum("bncjh,bnjhv->bnchv", scores, x)
+        # each chunk's own part of the state it hands on:
+        # sum_j exp(LA_C - LA_j) b_j x_j^T; the carry adds exp(LA_C) h_0
+        w_all = torch.exp(la[:, :, -1:] - la)                 # [B, g, c, H]
+        own = torch.einsum("bnch,bnchk,bnchv->bnhkv", w_all, bg, x)
+        decay = torch.exp(la[:, :, -1])[..., None, None]     # [B,g,H,1,1]
+        entering = []
+        for i in range(own.shape[1]):
+            entering.append(state)
+            state = decay[:, i] * state + own[:, i]
+        # the carried state's contribution to every position
+        y_state = torch.einsum("bnch,bnchk,bnhkv->bnchv", torch.exp(la), cg,
+                               torch.stack(entering, dim=1))
+        ys.append((y_state + y_intra).to(xv.dtype))
+    y = torch.cat(ys, dim=1).reshape(b, nchunks * chunk, h, dv)[:, :s]
     return (y, state) if return_state else y
 
 

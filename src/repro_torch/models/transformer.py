@@ -1,8 +1,10 @@
-"""Model assembly for the dense, moe, ssm (RWKV6) and encdec (whisper)
-families: a decoder LM with an LM head (a moe block's MLP is its experts,
-and deepseek's attention is multi-head latent attention; an encdec one
-also has an encoder over stubbed frame embeddings and cross-attention in
-every decoder block), and the dense family's training loss.
+"""Model assembly for every family: a decoder LM with an LM head (a moe
+block's MLP is its experts, and deepseek's attention is multi-head latent
+attention; a hybrid block runs attention and mamba heads in parallel; an
+encdec model also has an encoder over stubbed frame embeddings and
+cross-attention in every decoder block; a vlm prompt may start with
+stubbed patch embeddings, projected by ``patch_proj``, and its positions
+are M-RoPE's three streams), and the dense family's training loss.
 
 Layer parameters are stacked on a leading ``[L]`` axis, as in the
 reference; the layer loop is a Python loop that indexes them (the
@@ -18,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import (UNTRAINED_FAMILIES, ModelConfig,
                                       check_ported)
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -43,6 +46,8 @@ def init_block(gen, cfg: ModelConfig, dtype, lead: tuple = (),
     ``xattn``)."""
     if cfg.family == "ssm":
         return rwkv_mod.init_rwkv_block(gen, cfg, dtype, lead)
+    if cfg.family == "hybrid":
+        return hybrid_mod.init_hybrid_block(gen, cfg, dtype, lead)
     dev = gen.device
     p = {"ln1": layers.init_rmsnorm(cfg.d_model, dtype, dev, lead),
          "attn": (attn_mod.init_mla(gen, cfg, dtype, lead) if cfg.mla
@@ -68,7 +73,10 @@ def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
     (x, cache), the cache written in place.  An ssm block's cache is its
     recurrent state ``{"wkv", "last_t", "last_c"}`` (no RoPE, no
     positions): a prefill starts from it and a decode token steps it, and
-    the new state is copied into it.
+    the new state is copied into it.  A hybrid block
+    (:func:`hybrid.hybrid_block`) takes ``{"attn", "ssm"}``: the attention
+    half's K/V addressed as any attention cache, the mamba half's state
+    written in place.
 
     An encdec decoder block (one with ``xattn``) reads the encoder by one
     of three routes, as the reference: ``cross_table`` /
@@ -88,6 +96,11 @@ def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
         for name, t in new.items():
             cache[name].copy_(t)
         return x, cache
+    if cfg.family == "hybrid":
+        return hybrid_mod.hybrid_block(
+            p, x, cos, sin, cfg=cfg, cache=cache, cache_pos=cache_pos,
+            ring_valid=ring_valid, cache_positions=cache_positions,
+            page_table=page_table)
     single = x.ndim == 2
     xin = x[:, None] if single else x
     h = layers.rmsnorm(p["ln1"], xin, eps=cfg.norm_eps)
@@ -156,13 +169,38 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     if cfg.family == "encdec":
         p["enc_blocks"] = init_block(gen, cfg, dt, lead=(cfg.n_enc_layers,))
         p["enc_norm"] = layers.init_rmsnorm(cfg.d_model, dt, gen.device)
+    if cfg.family == "vlm":
+        # projects the stubbed patch features (the vision tower is not
+        # modelled, as in the reference)
+        p["patch_proj"] = layers.init_dense(gen, cfg.d_model, cfg.d_model,
+                                            dt)
     return p
+
+
+def _positions_at(cfg: ModelConfig, b: int, idx: torch.Tensor):
+    """Position ids of the token indices ``idx`` ([s]): ``idx`` itself,
+    or for M-RoPE the three streams [3, b, s], as the reference: the first
+    ``n_patches`` indices lie on the vision grid (temporal 0, height
+    ``idx // grid``, width ``idx % grid``) and every later index ``idx -
+    n_patches + grid`` on all three, whether or not the prompt has
+    patches.  (Decode gives every stream the raw cache length:
+    ``engine._cos_sin_at``.)"""
+    if cfg.mrope_sections is None:
+        return idx
+    npz = cfg.n_patches
+    grid = max(1, int(round(npz ** 0.5)))
+    text = idx - npz + grid
+    vision = idx < npz
+    pos = torch.stack([torch.where(vision, 0, text),
+                       torch.where(vision, idx // grid, text),
+                       torch.where(vision, idx % grid, text)])
+    return pos[:, None, :].expand(3, b, idx.shape[0])
 
 
 def _positions_for(cfg: ModelConfig, b: int, s: int, start: int = 0,
                    device=None):
     """Position ids for a prompt's first ``s`` tokens (offset ``start``)."""
-    return torch.arange(s, device=device) + start
+    return _positions_at(cfg, b, torch.arange(s, device=device) + start)
 
 
 def rope_head_dim(cfg: ModelConfig) -> int:
@@ -174,7 +212,7 @@ def rope_head_dim(cfg: ModelConfig) -> int:
 
 def _cos_sin(cfg: ModelConfig, positions):
     return layers.rope_cos_sin(positions, rope_head_dim(cfg),
-                               cfg.rope_theta)
+                               cfg.rope_theta, sections=cfg.mrope_sections)
 
 
 def _scan_blocks(p_blocks, x, cos, sin, *, cfg: ModelConfig,
@@ -208,12 +246,24 @@ def encode(params: Params, frames, *, cfg: ModelConfig):
     return layers.rmsnorm(params["enc_norm"], x, eps=cfg.norm_eps)
 
 
-def forward(params: Params, tokens, *, cfg: ModelConfig,
+def embed_prompt(params: Params, tokens, cfg: ModelConfig, patches=None):
+    """The prompt's embeddings [B, S, d]: the tokens', after a vlm
+    prompt's projected patches ([B, n_patches, d]) when it has them."""
+    dt = torch_dtype(cfg.dtype)
+    x = layers.embed(params["embed"], tokens, dt)
+    if cfg.family == "vlm" and patches is not None:
+        pe = layers.dense(params["patch_proj"], patches.to(dt))
+        x = torch.cat([pe, x], dim=1)
+    return x
+
+
+def forward(params: Params, tokens, *, cfg: ModelConfig, patches=None,
             moe_impl: str = "dispatch"):
-    """Token forward to final hidden states [B, S, d] (no cache)."""
+    """Token (and a vlm prompt's patch) forward to final hidden states
+    [B, S, d] (no cache); S counts the patches."""
     check_ported(cfg, "the model")
-    b, s = tokens.shape
-    x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    x = embed_prompt(params, tokens, cfg, patches)
+    b, s = x.shape[:2]
     cos = sin = None                      # an ssm block takes no positions
     if cfg.family != "ssm":
         cos, sin = _cos_sin(cfg, _positions_for(cfg, b, s, device=x.device))

@@ -1,5 +1,4 @@
-"""Serving: prefill and single-token decode steps (dense, moe, ssm and
-encdec families).
+"""Serving: prefill and single-token decode steps for every family.
 
 ``decode_step`` is the lockstep step of one batch against a cache;
 ``decode_step_ragged`` is its continuous-batching form over a slot pool
@@ -8,7 +7,9 @@ The layer loop is a Python loop over the stacked parameters.  Sampling is a
 softmax site: it resolves through the config's SoftmaxPolicy.  A moe
 model's blocks route by ``moe_impl`` (``"dispatch"``, ``"gather"`` or
 ``"dense"``; ``models/moe.py``), which every step and prefill takes, as
-the reference's.
+the reference's.  A vlm prompt may carry stubbed patch embeddings
+(``patches``), prefilled ahead of its tokens; a hybrid model's cache is
+``{"attn", "ssm"}`` (``models/hybrid.py``).
 """
 
 from __future__ import annotations
@@ -37,10 +38,15 @@ def sync(device) -> None:
 
 
 def _cos_sin_at(cfg: ModelConfig, pos: torch.Tensor, batch: int):
-    """RoPE tables at a per-row position ([B] or scalar) -> [B, 1, hd/2]."""
+    """RoPE tables at a per-row position ([B] or scalar) -> [B, 1, hd/2].
+    Under M-RoPE all three streams take the position, as the reference's
+    (a decode token's raw cache length, not the prefill's grid-shifted
+    text position: the two differ by ``n_patches - grid``)."""
     positions = pos.reshape(-1, 1).expand(batch, 1)
+    if cfg.mrope_sections is not None:
+        positions = positions[None].expand(3, batch, 1)
     return layers.rope_cos_sin(positions, transformer.rope_head_dim(cfg),
-                               cfg.rope_theta)
+                               cfg.rope_theta, sections=cfg.mrope_sections)
 
 
 def _finish(params, h, cfg):
@@ -59,7 +65,8 @@ def decode_step(params: Params, cache: dict, tokens, pos: int, *,
     ``min(pos + 1, T)`` slots.  An ssm config's cache is its state, which
     takes no position.  An encdec config's cache is ``{"self", "cross"}``
     (:func:`prefill`): the token writes the self half and reads the cross
-    half whole."""
+    half whole.  A hybrid config's is ``{"attn", "ssm"}``: its attention
+    half is the ring or the position-addressed cache."""
     b = tokens.shape[0]
     dev = _device(params)
     pos = int(pos)
@@ -69,7 +76,8 @@ def decode_step(params: Params, cache: dict, tokens, pos: int, *,
     cos, sin = _cos_sin_at(cfg, torch.tensor(pos, device=dev), b)
     cache_pos, ring_valid = pos, None
     if cfg.swa_window is not None and cfg.family != "encdec":
-        alloc = cache["k"].shape[2]
+        kbuf = cache["attn"]["k"] if cfg.family == "hybrid" else cache["k"]
+        alloc = kbuf.shape[2]
         if alloc <= cfg.swa_window:
             cache_pos, ring_valid = pos % alloc, min(pos + 1, alloc)
     for i in range(cfg.n_layers):
@@ -138,7 +146,7 @@ def _last(h, last_pos, dev):
 
 def prefill(params: Params, tokens, *, cfg: ModelConfig,
             max_len: int | None = None, last_pos=None, frames=None,
-            moe_impl: str = "dispatch"):
+            patches=None, moe_impl: str = "dispatch"):
     """Process whole prompts; returns (logits at the last prompt token,
     filled cache of ``max_len`` positions).
 
@@ -151,16 +159,21 @@ def prefill(params: Params, tokens, *, cfg: ModelConfig,
     be: its expert capacity comes from the padded length.
 
     An encdec prompt is the decoder's; ``frames`` ([B, T_enc, d]) go
-    through the encoder first (:func:`prefill_with_encoder`)."""
+    through the encoder first (:func:`prefill_with_encoder`).  A vlm
+    prompt's ``patches`` ([B, n_patches, d]) are prefilled ahead of its
+    tokens: the cache holds at least ``n_patches + s`` positions, and
+    ``last_pos`` counts the patches."""
     b, s = tokens.shape
     dev = _device(params)
+    if cfg.family == "vlm" and patches is not None:
+        s += cfg.n_patches
     max_len = max(max_len or 0, s)
     if cfg.family == "encdec":
         enc = transformer.encode(params, frames, cfg=cfg)
         return prefill_with_encoder(params, enc, tokens, cfg=cfg,
                                     max_len=max_len, last_pos=last_pos)
     cache = kv_cache.init_cache(cfg, b, max_len, ring=False, device=dev)
-    x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    x = transformer.embed_prompt(params, tokens, cfg, patches)
     if cfg.family == "ssm":
         x = _ssm_layers(params, x, cache, cfg)
     else:
@@ -236,8 +249,15 @@ def generate_timed(params, prompt, *, cfg: ModelConfig, steps: int,
                    moe_impl: str = "dispatch", **prefill_kw):
     """Lockstep generation with per-phase timing: ``steps + 1`` tokens (one
     from the prefill logits, ``steps`` decoded).  ``prefill_kw`` goes to
-    :func:`prefill` (an encdec prompt's ``frames``).  Returns (tokens [B,
-    steps + 1], stats with prefill/decode seconds and token counts)."""
+    :func:`prefill` (an encdec prompt's ``frames``, a vlm prompt's
+    ``patches``).  Returns (tokens [B, steps + 1], stats with
+    prefill/decode seconds and token counts).
+
+    Step ``i`` decodes at position ``s + i``, ``s`` the TEXT length, as
+    the reference's: with patches the prefill filled ``n_patches + s``
+    rows, so the first step overwrites row ``s``, inside the prefix, and
+    attends rows ``0 .. s`` (the reference's behaviour, kept so that the
+    tokens are its tokens)."""
     b, s = prompt.shape
     dev = _device(params)
     max_len = max_len or (s + steps)

@@ -9,7 +9,8 @@ paces it.  A CUDA graph records the step's launches once, and one host call
 replays them all.  What that asks of the step:
 
   * every tensor the graph reads -- the parameters, the pool (an ssm
-    pool's state leaves too, which each step writes with ``copy_``), the
+    pool's state leaves too, and a hybrid pool's ``ssm`` leaf, which each
+    step writes with ``copy_``), the
     engine's static step buffers -- is written in place between replays
     and never rebound: :meth:`FusedStep.check` holds their addresses to
     those at capture;
@@ -23,8 +24,9 @@ replays them all.  What that asks of the step:
     stream first.  Those steps execute, so the engine captures before its
     first admission, while every slot is free: their K/V writes land on
     the paged pool's trash page or on the strip rows that admission
-    overwrites, an ssm pool's state writes are dead state that admission
-    replaces whole, and ``lengths`` do not advance (no slot is active);
+    overwrites, an ssm (or hybrid) pool's state writes are dead state
+    that admission replaces whole, and ``lengths`` do not advance (no slot
+    is active);
   * a wrapper's ``.launches`` counts when Python calls it, which under a
     graph is at capture only: :class:`FusedStep` takes the capture's
     counts back out and adds them once per replay, so the counters go on

@@ -1,5 +1,5 @@
-"""Cache construction for the dense, moe, ssm and encdec families: the
-lockstep cache, the continuous-batching strip pool and the PAGED pool.
+"""Cache construction for every family: the lockstep cache, the
+continuous-batching strip pool and the PAGED pool.
 
 Cache leaves are stacked on a leading layer axis ``[L, ...]``.  The
 functions that change a pool change it IN PLACE and return it (the
@@ -27,7 +27,10 @@ arenas, addressed by a second table.  A multi-head latent attention
 (deepseek) cache is the latent ``{"c": [L, B, T, kv_lora_rank], "kr": [L,
 B, T, qk_rope_head_dim]}``, paged as arenas ``[L, P, ps, ...]`` like any
 position-addressed leaf: admission, page copies and freeing need no branch
-of their own.
+of their own.  A hybrid (hymba) cache is ``{"attn": {"k", "v"}, "ssm":
+float32 [L, B, H, state_size, head_dim]}``: its paged pool pages the
+attention half as arenas and keeps the ssm state slot-major ``[L, slots,
+...]``, one state a slot, as the reference's.
 """
 
 from __future__ import annotations
@@ -54,7 +57,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ``T``); prefill paths pass ``ring=False`` for position addressing.  An
     ssm config's cache is its state, whatever ``max_len``.  An encdec
     config's is ``{"self": {"k", "v"}, "cross": {"k", "v"}}``, an MLA
-    config's the latent ``{"c", "kr"}``."""
+    config's the latent ``{"c", "kr"}``, a hybrid config's ``{"attn":
+    {"k", "v"}, "ssm"}`` (the ring applies to the attention half)."""
     check_ported(cfg, "its cache")
     dt = cache_dtype(cfg)
     if cfg.family == "ssm":
@@ -82,7 +86,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         # the cross half is a placeholder of max_len positions, as the
         # reference's: the prefill replaces it with T_enc positions
         return {"self": kv(), "cross": kv()}
+    if cfg.family == "hybrid":
+        return {"attn": kv(), "ssm": _ssm_state(cfg, batch, device)}
     return kv()
+
+
+def _ssm_state(cfg: ModelConfig, n: int, device) -> torch.Tensor:
+    """A hybrid model's float32 mamba state ``[L, n, H, state_size,
+    head_dim]`` (``n`` lockstep rows or pool slots)."""
+    return torch.zeros((cfg.n_layers, n, cfg.d_model // cfg.ssm.head_dim,
+                        cfg.ssm.state_size, cfg.ssm.head_dim),
+                       dtype=torch.float32, device=device)
 
 
 def _latent(cfg: ModelConfig, n: int, t: int, dt, device) -> dict:
@@ -106,15 +120,23 @@ def init_slot_pool(cfg: ModelConfig, slots: int, max_len: int, *,
                                    device=device)}
 
 
+def _adopt_strip(dst: dict, src: dict, slot: int) -> None:
+    for n, d in dst.items():
+        if isinstance(d, dict):
+            _adopt_strip(d, src[n], slot)
+        else:
+            s = src[n][:, 0]
+            d[:, slot, :s.shape[1]] = s.to(d.dtype)
+
+
 def adopt_slot(pool: dict, cache: dict, slot: int, length: int) -> dict:
     """Copy a batch=1 prefill cache of at most ``max_len`` positions into
     the head of ``slot``'s strip; rows past it keep stale values, hidden by
     the length mask until overwritten.  Every leaf is written in place; an
-    ssm state's leaves have no position axis, so the slice is all of them
-    and replaces the dead state a free slot's steps left there."""
-    for n, dst in pool["kv"].items():
-        src = cache[n][:, 0]
-        dst[:, slot, :src.shape[1]] = src.to(dst.dtype)
+    ssm state's leaves (and a hybrid cache's ``ssm``) have no position
+    axis, so the slice is all of them and replaces the dead state a free
+    slot's steps left there."""
+    _adopt_strip(pool["kv"], cache, slot)
     pool["lengths"][slot] = length
     return pool
 
@@ -166,7 +188,8 @@ def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
     int32[slots, ceil(cross_len / ps)]`` and ``cross_lengths
     int32[slots]`` (``cross_len`` defaults to ``max_len``; the default
     ``pages`` covers both tables).  Cross pages are written once at
-    admission and only read after."""
+    admission and only read after.  A hybrid pool's ``kv`` is ``{"attn":
+    {"k", "v"} arenas, "ssm": [L, slots, H, state_size, head_dim]}``."""
     check_ported(cfg, "its cache")
     if not supports_paging(cfg):
         raise ValueError(f"family {cfg.family!r}: the recurrent state has "
@@ -189,6 +212,8 @@ def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
     else:
         kv = {"k": torch.zeros(shape, dtype=dt, device=device),
               "v": torch.zeros(shape, dtype=dt, device=device)}
+    if cfg.family == "hybrid":
+        kv = {"attn": kv, "ssm": _ssm_state(cfg, slots, device)}
     pool = {"kv": kv, "page_table": i32(slots, n_tab),
             "lengths": i32(slots)}
     if encdec:
@@ -216,8 +241,15 @@ def _copy_pages(dst, src, page_row):
 def adopt_slot_paged(pool: dict, cache: dict, slot: int, length: int,
                      page_row: torch.Tensor) -> dict:
     """Admit a batch=1 prefill cache into ``slot``: copy its pages to the
-    row's arena pages, set the table row and the length."""
-    for n, dst in pool["kv"].items():
+    row's arena pages, set the table row and the length.  A hybrid
+    cache's attention half pages so; its ssm state is copied into the
+    slot's row of the slot-major state, replacing the dead state a free
+    slot's steps left there."""
+    kv = pool["kv"]
+    if "ssm" in kv:
+        kv["ssm"][:, slot] = cache["ssm"][:, 0]
+        kv, cache = kv["attn"], cache["attn"]
+    for n, dst in kv.items():
         _copy_pages(dst, cache[n], page_row)
     pool["page_table"][slot] = page_row.to(torch.int32)
     pool["lengths"][slot] = length
@@ -249,7 +281,9 @@ def free_slot_paged(pool: dict, slot: int) -> dict:
     page, so its dead writes cannot land in a page handed to someone
     else.  An encdec pool's cross row and length are reset too: the cross
     pages are only read, but a stale row must not alias pages handed
-    out again."""
+    out again.  A hybrid pool's ssm row is left as it is, as the
+    reference's: the free slot's steps go on writing dead state there,
+    which the next admission replaces."""
     pool["page_table"][slot] = TRASH_PAGE
     pool["lengths"][slot] = 0
     if "cross_table" in pool:

@@ -13,8 +13,8 @@ batch axis full.  The scheduler:
   * BUCKETS prompt lengths (multiples of the page size, doubling up to
     ``max_len``); logits are read at the true last token and the pad tail
     is hidden by the pool's length mask.  Only families whose prefill is
-    position-local bucket by default: an ssm prompt's pad tail would run
-    through the recurrence into the state decode goes on from;
+    position-local bucket by default: an ssm or hybrid prompt's pad tail
+    would run through the recurrence into the state decode goes on from;
   * advances every occupied slot with one ragged decode step per
     iteration, whatever its age;
   * allocates decode-time pages just before each burst; when pages run

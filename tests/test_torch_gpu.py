@@ -834,12 +834,15 @@ def _fused_requests(vocab, n=5, new=12):
         for i in range(n)]
 
 
-def _serve(m, params, paged, fuse, reqs, **kw):
+def _serve(m, params, paged, fuse, reqs, hook=None, **kw):
     """Tokens, launches and the engine of one run, the counts zeroed after
-    the engine (and so its capture) is built."""
+    the engine (and so its capture) is built; ``hook(eng)`` runs before
+    the requests."""
     eng = m.serving_engine(params, slots=3, max_len=48, page_size=8,
                            pages=7 if paged else None, paged=paged,
                            fused=fuse, **kw)
+    if hook is not None:
+        hook(eng)
     tk.reset_launch_counts()
     comps = eng.run(reqs)
     torch.cuda.synchronize()
@@ -1243,3 +1246,125 @@ def test_mla_graph_step_equals_eager_with_the_cache_bit_equal(cuda, paged):
         toks_full = tokens(full)
         assert full.stats["preempted"] == 0
         assert tokens(strip) == toks_full
+
+
+# ---------------------------------------------------------------------------
+# The vlm and hybrid families: the decode kernels at qwen2-vl-7b's G 7, D
+# 128 and hymba-1.5b's G 5, D 64 under its 1,024 window; the two-pass
+# softmax on hymba's windowed prefill rows; both reduced models' graph step.
+# ---------------------------------------------------------------------------
+# (hkv, g, d, window, lengths): lengths past hymba's window leave whole
+# tiles outside it; qwen2-vl's reach its max_len of 2,176
+FAMILY_DECODE = {"vlm_g7_d128": (4, 7, 128, None, [0, 1, 256, 257, 2176]),
+                 "hybrid_g5_d64_w1024": (5, 5, 64, 1024,
+                                         [0, 1, 1024, 1025, 3136])}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(FAMILY_DECODE))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernels_at_the_vlm_and_hybrid_shapes(cuda, dtype, case):
+    hkv, g, d, window, lengths = FAMILY_DECODE[case]
+    q, kp, vp, table, lens = _decode_inputs(cuda, dtype, d, g, hkv=hkv,
+                                            ps=64, pmax=49, lengths=lengths)
+    _check_decode(q, kp, vp, table, lens, dtype, window=window)
+    assert tda.decode_attention_paged.launches == 2
+    assert tda.decode_attention.launches == 1
+
+
+@pytest.mark.gpu
+def test_two_pass_softmax_on_windowed_hybrid_rows(cuda):
+    # one KV head's 5 query heads over a 1,500-token prompt: causal, and
+    # nothing 1,024 or more positions back
+    s, g, w = 1500, 5, 1024
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    pos = torch.arange(s, device=cuda)
+    dead = (pos[None, :] > pos[:, None]) | (pos[None, :] <= pos[:, None] - w)
+    x = (torch.randn(g, s, s, device=cuda, generator=gen) * 8).masked_fill_(
+        dead, -torch.inf).reshape(g * s, s)
+    got = tp.twopass_softmax_2d(x)
+    torch.cuda.synchronize()
+    want = tp.twopass_softmax_2d_plain(x)
+    torch.testing.assert_close(got, want, atol=5e-6, rtol=1e-5)
+    assert not got.masked_select(torch.isinf(x)).any()
+    assert torch.equal(got[0], want[0])        # one finite column
+    assert tp.twopass_softmax_2d.launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "hymba-1.5b"])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "strip"])
+def test_vlm_and_hybrid_graph_step_equals_eager(cuda, arch, paged):
+    from repro_torch.models import build_model
+
+    m = build_model(arch, reduced=True, use_kernels=True)
+    assert m.cfg.n_layers == 2
+    params = m.init(seed=0)
+    reqs = _fused_requests(m.cfg.vocab)
+    released = {True: [], False: []}
+
+    def keeping(fuse):
+        """Keep a hybrid slot's mamba state as each request leaves it:
+        after that the free slot steps dead state whose attention reads
+        the trash page, which every free slot writes at once."""
+        def hook(eng):
+            if m.cfg.family != "hybrid":
+                return
+            release, ssm = eng._release_slot, eng.pool["kv"]["ssm"]
+
+            def keep(slot):
+                released[fuse].append((eng.slot_owner[slot].rid,
+                                       ssm[:, slot].clone()))
+                release(slot)
+
+            eng._release_slot = keep
+        return hook
+
+    runs = {f: _serve(m, params, paged, f, reqs, hook=keeping(f),
+                      temperature=0.0) for f in (True, False)}
+    (toks, counts, eng), (toks_e, counts_e, eng_e) = runs[True], runs[False]
+    assert toks == toks_e and counts == counts_e
+    assert (eng.buckets is None) is (m.cfg.family == "hybrid")
+    st = eng.stats
+    assert st["admitted"] > eng.n_slots and st["steps"] == eng_e.stats["steps"]
+    kname = "decode_attention_paged" if paged else "decode_attention"
+    assert eng._fused.launches == {kname: m.cfg.n_layers}
+    assert eng._fused.replays == st["steps"]
+    kv, kv_e = eng.pool["kv"], eng_e.pool["kv"]
+    if m.cfg.family == "hybrid":
+        # the mamba state, written in place by every replay, as each
+        # request (preempted ones too) left its slot
+        got, want = released[True], released[False]
+        assert len(got) == len(want) >= len(reqs)
+        assert all(ra == rb and torch.equal(a, b)
+                   for (ra, a), (rb, b) in zip(got, want))
+        kv, kv_e = kv["attn"], kv_e["attn"]
+    for name in ("k", "v"):
+        got, want = kv[name], kv_e[name]
+        if paged:                 # page 0 is the trash page: dead writes
+            got, want = got[:, 1:], want[:, 1:]
+        assert torch.equal(got, want), name
+    assert torch.equal(eng.pool["lengths"], eng_e.pool["lengths"])
+
+
+@pytest.mark.gpu
+def test_vlm_lockstep_with_patches_kernels_equal_plain(cuda):
+    from repro_torch.models import build_model
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    toks = {}
+    for use_kernels in (True, False):
+        m = build_model("qwen2-vl-7b", reduced=True, use_kernels=use_kernels)
+        params = m.init(seed=0)
+        prompt = torch.randint(0, m.cfg.vocab, (3, 9), device=cuda,
+                               generator=gen.manual_seed(7))
+        patches = torch.randn(3, m.cfg.n_patches, m.cfg.d_model,
+                              device=cuda, generator=gen.manual_seed(8))
+        tk.reset_launch_counts()
+        toks[use_kernels] = m.generate(params, prompt, steps=6,
+                                       temperature=0.0, patches=patches)
+        counts = tk.launch_counts()
+        # a prefill layer's scores and a step layer's over a cache of
+        # max_len rows: the two-pass kernel each
+        assert counts["twopass_softmax_2d"] == use_kernels * 7 * 2
+    assert torch.equal(toks[True], toks[False])

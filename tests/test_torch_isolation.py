@@ -25,7 +25,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                   "repro_torch.")]
     assert {"repro_torch.serving.scheduler", "repro_torch.models.ssm",
-            "repro_torch.models.rwkv"} <= set(mods)
+            "repro_torch.models.rwkv", "repro_torch.models.hybrid"} <= set(
+        mods)
     code = "\n".join(
         ["import sys", f"sys.path.insert(0, {str(ROOT)!r})",
          *[f"import {m}" for m in mods], "import chip_smoke",

@@ -1,8 +1,9 @@
 """The port's serving CLI (``python -m repro_torch.launch.serve``) on the CPU:
-it serves a reduced model under each softmax algorithm, the ssm, encdec and
-moe families too (deepseek's multi-head latent attention with them), and
-every flag for something not ported yet exits with an error that names its
-ROADMAP item."""
+it serves a reduced model under each softmax algorithm, every other family
+too (deepseek's multi-head latent attention with moe; vlm as the
+reference's lockstep batch with patch inputs), and every flag for
+something not ported yet exits with an error that names its ROADMAP
+item."""
 
 import os
 import pathlib
@@ -40,8 +41,6 @@ def test_cli_serves_on_the_cpu(extra, capsys):
     (["--kv-dtype", "int8"], 18), (["--scale-granularity", "page"], 18),
     (["--host-swap-bytes", "1000"], 18), (["--shared-prefix-len", "4"], 17),
     (["--no-prefix-cache"], 17), (["--stream"], 19), (["--mesh", "2x2"], 22),
-    (["--arch", "qwen2-vl-7b"], 14),
-    (["--arch", "hymba-1.5b"], 16),
 ])
 def test_unported_flags_exit_with_their_item(flags, item, capsys):
     with pytest.raises(SystemExit) as e:
@@ -84,6 +83,33 @@ def test_cli_serves_multi_head_latent_attention(capsys):
             "pool") in out
     assert "1 prefill buckets" in out         # moe: exact prompt lengths
     assert "prefill: 36 tok" in out and "decode:  9 tok" in out
+    assert "kernel launches: {}" in out
+
+
+@pytest.mark.parametrize("extra", [[], ["--strip"]], ids=["paged", "strip"])
+def test_cli_serves_the_hybrid_family(extra, capsys):
+    serve.main(["--arch", "hymba-1.5b"] + BASE[2:]
+               + ["--temperature", "0", "--kernels"] + extra)
+    out = capsys.readouterr().out
+    pool = "strip pool" if extra else "paged pool"
+    assert f"hymba-1.5b: served 3 requests over 2 slots / {pool}" in out
+    # exact prompt lengths: the mamba state runs through a prompt's pad
+    assert "1 prefill buckets" in out
+    assert "prefill: 36 tok" in out and "decode:  9 tok" in out
+    assert "kernel launches: {}" in out
+
+
+@pytest.mark.parametrize("temperature", ["0", "0.8"])
+def test_cli_serves_the_vlm_family_in_lockstep_with_patches(temperature,
+                                                            capsys):
+    serve.main(["--arch", "qwen2-vl-7b"] + BASE[2:]
+               + ["--temperature", temperature, "--kernels"])
+    out = capsys.readouterr().out
+    # as the reference: one lockstep batch of --slots prompts, each after
+    # the reduced config's 8 patches; tokens count the text only
+    assert ("qwen2-vl-7b: lockstep batch=2, 8 patches a prompt (no "
+            "continuous-batching path for family=vlm)") in out
+    assert "prefill: 24 tok" in out and "decode:  8 tok" in out
     assert "kernel launches: {}" in out
 
 

@@ -156,12 +156,18 @@ def test_unported_options_raise(weights, kw, item):
 
 
 def test_unported_families_and_policy_sites_raise():
-    # the ssm, encdec and moe families are served (tests/test_torch_ssm.py,
-    # tests/test_torch_encdec.py, tests/test_torch_moe.py; deepseek's
-    # multi-head latent attention in tests/test_torch_mla.py); vlm is not
-    with pytest.raises(NotImplementedError, match="'vlm'.*item 14\\)"):
-        m = tbuild("qwen2-vl-7b", reduced=True, device="cpu")
-        m.init(0)
+    # every family is served now (tests/test_torch_ssm.py,
+    # tests/test_torch_encdec.py, tests/test_torch_moe.py,
+    # tests/test_torch_mla.py, tests/test_torch_vlm.py,
+    # tests/test_torch_hybrid.py): vlm builds and serves text requests
+    from repro_torch.configs.base import UNPORTED_FAMILIES
+
+    assert UNPORTED_FAMILIES == {}
+    m = tbuild("qwen2-vl-7b", reduced=True, device="cpu")
+    eng = m.serving_engine(m.init(0), slots=2, max_len=MAX_LEN,
+                           temperature=0.0)
+    comps = eng.run(_copy(_requests(m.cfg.vocab, n=3)))
+    assert sorted(len(c.tokens) for c in comps) == [4, 5, 6]
     # every softmax site of the dense family is ported: the LM-head CE
     # (tests/test_torch_training.py) and the flash route of a no-cache
     # forward under kernels (test_no_cache_forward_under_kernels_...)

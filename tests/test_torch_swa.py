@@ -27,7 +27,6 @@ from repro.models import model_zoo as jzoo
 from repro.serving import engine as jeng
 from repro.serving import kv_cache as jkv
 from repro_torch.configs import SHAPES, get_config
-from repro_torch.configs.base import UNPORTED_FAMILIES
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve
 from repro_torch.models import build_model as tbuild
@@ -229,11 +228,7 @@ def test_input_specs_and_cell_supported_match_reference(arch, cell):
     assert tzoo.cell_supported(tcfg, cell) == jzoo.cell_supported(jcfg,
                                                                    cell)
     want = jzoo.input_specs(jcfg, cell)
-    item = UNPORTED_FAMILIES.get(tcfg.family)
-    if SHAPES[cell].kind == "decode" and item is not None:
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            tzoo.input_specs(tcfg, cell)
-        return
+    # every family's cells, decode caches too (vlm and hybrid included)
     assert _shapes(tzoo.input_specs(tcfg, cell)) == _jshapes(want)
 
 

@@ -235,7 +235,8 @@ class TestTrainCli:
 
     @pytest.mark.parametrize("flags,item", [
         (["--mesh", "1x1"], 22), (["--arch", "rwkv6-1.6b"], 27),
-        (["--arch", "granite-moe-3b-a800m"], 29)])
+        (["--arch", "granite-moe-3b-a800m"], 29),
+        (["--arch", "qwen2-vl-7b"], 31), (["--arch", "hymba-1.5b"], 32)])
     def test_unported_flags_exit_with_their_item(self, flags, item, capsys):
         with pytest.raises(SystemExit) as e:
             train_cli.main(self.BASE + flags)
