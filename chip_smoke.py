@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--layers N]
                           [--only {train,swa,engine,mqa,ssm,encdec,moe,mla,
-                                   vlm,hybrid}]
+                                   vlm,hybrid,prefix}]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -225,7 +225,26 @@ Phases (any failure exits non-zero; nothing is caught):
 17. the training CLI, ``python -m repro_torch.launch.train --arch
    qwen2.5-14b --reduced --kernels`` with a checkpoint directory under
    ``build/``: 6 steps straight, then 3 and a resume to 6, whose final
-   losses agree.
+   losses agree;
+18. prefix sharing and streaming: the engine phase's qwen2.5-14b (full
+   width, ``--layers`` deep, bf16, paged, 8 slots, ``max_len`` 1,664,
+   pages of 128) serving 20 greedy requests that share a head (16 of its
+   1,000 tokens and tails of 24-400, 4 that leave it mid-page at token
+   900; 32 new tokens each): the prefix cache on (``"auto"``) with the
+   graph step, driven through ``stream()`` (its deltas ``==`` the
+   tokens), on with the eager step (the same tokens, launches and
+   counters) and off; at least 19 hits, copy-on-write copies, kernel 1 in
+   every layer of each hit's tail prefill, kernel 3 over pages that two
+   slots' rows name, free + cached pages == usable when the run ends;
+   prefill seconds, tok/s, tokens reused and peak pages on and off; a run
+   on a 48-page arena that evicts cached pages, and each hit's
+   first-token logits against a whole prefill within the engine phase's
+   bf16 limit.  Tokens on, off and evicted are held ``==``; where they
+   differ, each request's first differing position and the off run's
+   top-2 margin there are reported.  The mla phase serves 8 requests
+   sharing a 1,024-token head under ``moe_impl="dense"`` and the vlm
+   phase 8 text requests sharing a 400-token head (across the 256
+   positions of the vision grid) the same way, on and off.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -1528,7 +1547,8 @@ def kernel_phase(torch, rng):
 # ---------------------------------------------------------------------------
 # Phases 3-4: the engine at full width.
 # ---------------------------------------------------------------------------
-def serve_requests(torch, model, params, reqs, state=None, **kw):
+def serve_requests(torch, model, params, reqs, state=None, hook=None,
+                   stream=False, **kw):
     """Serve ``reqs`` through ``model.serving_engine(params, **kw)``, with
     the launch counts zeroed just before the run (after the engine, and so
     its graph's warm-up and capture, is built) and read just after.
@@ -1543,7 +1563,10 @@ def serve_requests(torch, model, params, reqs, state=None, **kw):
     each request left its slot (``"ssm"``: (request id, the slot's state)
     at every release, in order): after that the free slot goes on
     stepping dead state whose attention half reads the trash page, which
-    every free slot writes at once, in no fixed order."""
+    every free slot writes at once, in no fixed order.  ``hook(eng)``
+    runs before the counts are zeroed; with ``stream`` the requests go
+    through ``eng.stream()`` and the throughput gets its deltas joined
+    by request (``streamed``) and their number (``deltas``)."""
     import repro_torch.kernels as K
 
     gc.collect()
@@ -1561,9 +1584,18 @@ def serve_requests(torch, model, params, reqs, state=None, **kw):
             release(slot)
 
         eng._release_slot = keep
+    if hook is not None:
+        hook(eng)
+    streamed, deltas = {}, 0
     K.reset_launch_counts()
     t = time.perf_counter()
-    comps = eng.run(reqs)
+    if stream:
+        for rid, new in eng.stream(reqs):
+            streamed.setdefault(rid, []).extend(new)
+            deltas += 1
+        comps = eng.completions
+    else:
+        comps = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = K.launch_counts()
@@ -1575,6 +1607,12 @@ def serve_requests(torch, model, params, reqs, state=None, **kw):
                base_bytes=base,
                peak_bytes=torch.cuda.max_memory_allocated(),
                peak_reserved_bytes=torch.cuda.max_memory_reserved())
+    if stream:
+        out.update(streamed=[streamed.get(c.rid, []) for c in comps],
+                   deltas=deltas)
+    out.update(prefill_s=eng.stats["prefill_s"])
+    if eng.prefix_cache is not None:
+        out.update(free_pages=eng.allocator.free_pages)
     if state is not None:
         state.update({k: v.clone() for k, v in _paths(eng.pool["kv"])
                       if k != "ssm"}, slots={c.slot for c in comps})
@@ -3900,6 +3938,16 @@ def mla_phase(torch, rows) -> dict:
         new_tokens=MLA_NEW, sampled=MLA_SAMPLED, gather=False,
         page_size=MLA_PAGE)
     part("serving")
+    n, head, lo, hi, new = MLA_PREFIX
+    pre = prefix_serving(
+        torch, m, params, shared_prompts(np.random.default_rng(MLA_SEED + 100),
+                                         cfg.vocab, head, n, lo, hi),
+        slots=MLA_SLOTS, max_len=MLA_MAX_LEN, new=new,
+        read=moe_read(cfg, True), tag="mla prefix", page_size=MLA_PAGE,
+        moe_impl="dense")
+    for k, v in pre["launches"].items():
+        launches[k] += v
+    part("prefix sharing")
     order = np.argsort(plens, kind="stable")
     three = [prompts[i] for i in (order[0], order[len(order) // 2],
                                   plens.index(MLA_LONG))]
@@ -4171,6 +4219,15 @@ def vlm_phase(torch, rows) -> dict:
         torch, m, params, prompts, slots=VLM_SLOTS, max_len=VLM_MAX_LEN,
         new_tokens=VLM_NEW, sampled=VLM_SAMPLED, gather=False)
     part("serving")
+    n, head, lo, hi, new = VLM_PREFIX
+    pre = prefix_serving(
+        torch, m, params, shared_prompts(np.random.default_rng(VLM_SEED + 100),
+                                         cfg.vocab, head, n, lo, hi),
+        slots=VLM_SLOTS, max_len=VLM_MAX_LEN, new=new,
+        read="decode_attention_paged", tag="vlm prefix")
+    for k, v in pre["launches"].items():
+        launches[k] += v
+    part("prefix sharing")
     order = np.argsort(plens, kind="stable")
     swa_prefill_parity(torch, m, params, [
         prompts[i] for i in (order[0], order[len(order) // 2], order[-1])],
@@ -4622,6 +4679,454 @@ def train_cli_phase(torch) -> None:
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: prefix sharing and streaming, qwen2.5-14b at full width.
+# ---------------------------------------------------------------------------
+PREFIX_SEED = 31
+PREFIX_HEAD = 1000           # 7 whole pages of 128 and 104 tokens of an 8th
+PREFIX_TAILS = (16, 24, 401)  # requests after the whole head, tails [lo, hi)
+PREFIX_MID = (4, 900)        # requests that leave the head mid-page at 900
+PREFIX_NEW = 32
+PREFIX_EVICT_PAGES = 49      # 48 usable: the index must give pages back
+MLA_PREFIX = (8, 1024, 40, 301, 32)     # requests, head, tails [lo, hi), new
+VLM_PREFIX = (8, 400, 40, 301, 32)      # the head crosses the 256-position grid
+
+
+def shared_prompts(rng, vocab, head_len, n, lo, hi, mid=None):
+    """``n`` prompts of one random head of ``head_len`` tokens and distinct
+    tails of ``lo``..``hi - 1`` tokens, then ``mid`` = (requests, cut)
+    prompts that leave the head after ``cut`` tokens."""
+    head = tuple(int(t) for t in rng.integers(0, vocab, head_len))
+
+    def tail(k):
+        return tuple(int(t) for t in rng.integers(0, vocab, k))
+
+    out = [head + tail(int(k)) for k in rng.integers(lo, hi, n)]
+    if mid is not None:
+        out += [head[:mid[1]] + tail(int(k))
+                for k in rng.integers(lo, hi, mid[0])]
+    return out
+
+
+def watch_admissions(admits: list):
+    """A ``serve_requests`` hook: each admission records its prompt's
+    length and its wall ms, from the call to its first token on the host
+    (an admission ends by reading that token, and the decode burst before
+    it by reading its tokens); a prefix hit also its matched tokens, its
+    tail bucket, the kernel launches of its tail prefill and how many
+    arena pages two or more slots' rows then name (the decode bursts that
+    follow read them)."""
+    import repro_torch.kernels as K
+
+    def hook(eng):
+        admit, prefill_hit = eng._admit, eng._prefill_hit
+        current = {}
+
+        def hit(req, slot, match, m_tok, tail_bucket, page_ids):
+            before = K.launch_counts()
+            out = prefill_hit(req, slot, match, m_tok, tail_bucket,
+                              page_ids)
+            after = K.launch_counts()
+            rows = [p for pages in eng.slot_pages for p in pages]
+            current.update(
+                hit=True, matched=m_tok, tail_bucket=tail_bucket,
+                launches={k: after[k] - before[k] for k in after
+                          if after[k] != before[k]},
+                aliased_pages=len({p for p in rows if rows.count(p) > 1}))
+            return out
+
+        def timed(req, slot, now):
+            current.clear()
+            t = time.perf_counter()
+            ok = admit(req, slot, now)
+            if ok:
+                admits.append({"hit": False, "plen": len(req.prompt),
+                               "ms": (time.perf_counter() - t) * 1e3,
+                               **current})
+            return ok
+
+        eng._admit, eng._prefill_hit = timed, hit
+    return hook
+
+
+def _ms_summary(xs) -> dict:
+    xs = sorted(xs)
+    return dict(n=len(xs), median=statistics.median(xs), min=xs[0],
+                max=xs[-1]) if xs else dict(n=0)
+
+
+def hit_logits_limit(torch, m, params, n: int):
+    """A ``serve_requests`` hook that holds the first ``n`` prefix hits'
+    first-token logits (the tail prefilled after gathered pages) against
+    a whole prefill of the same prompt: their largest difference over the
+    largest logit goes into ``hook.errs``, and (the largest difference,
+    the whole prefill's top-2 margin, whether the argmaxes agree) into
+    ``hook.margins``.  ``hook.restore()`` takes the wrapper of
+    ``engine.prefill_extend`` out again."""
+    from repro_torch.serving import engine
+
+    errs, margins = [], []
+    extend = engine.prefill_extend
+
+    def hook(eng):
+        admit = eng._prefill_hit
+        current = {}
+
+        def hit(req, *args, **kw):
+            current["prompt"] = req.prompt
+            return admit(req, *args, **kw)
+
+        def ext(*args, **kw):
+            logits, cache = extend(*args, **kw)
+            if len(errs) < n:
+                # the whole prompt prefilled as a miss is: padded to its
+                # bucket, read at its last token
+                p = current["prompt"]
+                padded = torch.zeros((1, eng._bucket_for(len(p))),
+                                     dtype=torch.int64)
+                padded[0, :len(p)] = torch.tensor(p)
+                want, _ = engine.prefill(
+                    params, padded.to(eng.device), cfg=m.cfg,
+                    max_len=padded.shape[1], last_pos=len(p) - 1,
+                    moe_impl=eng.moe_impl)
+                want = want[:, :m.cfg.vocab].float()
+                got = logits[:, :m.cfg.vocab].float()
+                diff = float((got - want).abs().max())
+                top2 = want[0].topk(2).values
+                errs.append(diff / float(want.abs().max()))
+                margins.append((diff, float(top2[0] - top2[1]),
+                                bool(got.argmax() == want.argmax())))
+            return logits, cache
+
+        eng._prefill_hit = hit
+        engine.prefill_extend = ext
+
+    hook.errs, hook.margins = errs, margins
+    hook.restore = lambda: setattr(engine, "prefill_extend", extend)
+    return hook
+
+
+def hold_tokens(torch, m, params, prompts, got, want, what: str,
+                moe_impl: str = "dispatch") -> bool:
+    """``got`` == ``want`` (greedy tokens a request), or a report: each
+    request that differs, the first position where it does and the top-2
+    logit margin of ``want``'s run there (its prompt and tokens before
+    that position prefilled whole).  Returns whether they were equal."""
+    from repro_torch.serving import engine
+
+    if got == want:
+        say("parity", arch=m.cfg.name, check=what, equal=True)
+        return True
+    diffs = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        ctx = list(prompts[i]) + list(b[:j])
+        lg, _ = engine.prefill(params, torch.tensor([ctx], device="cuda"),
+                               cfg=m.cfg, max_len=len(ctx),
+                               moe_impl=moe_impl)
+        top2 = lg[0, :m.cfg.vocab].float().topk(2).values
+        diffs.append(dict(request=i, position=j, got=a[j], want=b[j],
+                          want_top2_margin=float(top2[0] - top2[1]),
+                          largest_logit=float(lg.float().abs().max())))
+    say("prefix_mismatch", arch=m.cfg.name, check=what, requests=len(got),
+        differ=len(diffs), first_differences=diffs)
+    return False
+
+
+def admission_trace(torch, m, params, prompts, tag, **kw) -> None:
+    """One miss (``prompts[0]``) and then one hit (``prompts[1]``)
+    admitted alone under the profiler: each admission's wall ms beside
+    the device's busy ms and kernel count, so a host-bound admission
+    shows.  ``kw`` go to the engine (its prefix cache on)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.scheduler import Request
+
+    eng = m.serving_engine(params, temperature=0.0, **kw)
+    out = {}
+    for slot, name in ((0, "miss"), (1, "hit")):
+        req = Request(rid=slot, prompt=prompts[slot], max_new_tokens=2)
+        hits = eng.stats["prefix_hits"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            eng._admit(req, slot, 0.0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        dev = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+        out[name] = dict(
+            plen=len(req.prompt), hit=eng.stats["prefix_hits"] > hits,
+            wall_ms=wall * 1e3,
+            device_busy_ms=sum(getattr(e, "self_device_time_total", 0)
+                               for e in dev) / 1e3,
+            kernels=sum(e.count for e in dev))
+    say("prefix_admission_trace", arch=m.cfg.name, run=tag, **out)
+    check(out["hit"]["hit"] and not out["miss"]["hit"],
+          f"{tag}: the traced admissions did not miss, then hit")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def hold_hit_logits(torch, m, params, reqs, tag, tol=LOGIT_TOL,
+                    **kw) -> None:
+    """Serve ``reqs`` again with the prefix cache on, every hit's
+    first-token logits held against the whole prompt's prefill: the
+    argmaxes agree wherever the whole prefill's top-2 margin exceeds
+    twice their largest difference (the bf16 rule of the swa, moe and mla
+    phases), and, unless ``tol`` is None, the difference is within
+    ``tol`` of the largest logit (the engine phase's bf16 limit).  A
+    multi-head latent attention model is held by the margin rule alone,
+    as its forward is (:func:`mla_forward_parity`: its bf16 logits miss
+    5e-2 between two plain routes' rounding)."""
+    limit = hit_logits_limit(torch, m, params, len(reqs))
+    try:
+        serve_requests(torch, m, params, reqs, hook=limit, **kw)
+    finally:
+        limit.restore()
+    worst = max(limit.errs)
+    decided = [(d, mg, eq) for d, mg, eq in limit.margins if mg > 2 * d]
+    if m.cfg.mla is not None:
+        tol = None
+    say("parity", arch=m.cfg.name, check=f"{tag}: each hit's first-token "
+        "logits vs the whole prompt's bucketed prefill", hits=len(limit.errs),
+        max_err_over_max_logit=worst, errs=limit.errs,
+        bit_equal=sum(e == 0 for e in limit.errs),
+        max_abs_err=[d for d, _, _ in limit.margins],
+        top2_margin=[mg for _, mg, _ in limit.margins],
+        argmax_equal=[eq for _, _, eq in limit.margins],
+        decided=len(decided),
+        rule="argmax == where the whole prefill's top-2 margin exceeds 2 x "
+             "the largest logit difference" + (
+                 "" if tol is None else
+                 f"; within {tol} of the largest logit, as the engine phase"))
+    check(all(eq for _, _, eq in decided),
+          f"{tag}: a hit's argmax != the whole prefill's at a decided margin")
+    check(tol is None or worst <= tol,
+          f"{tag}: hit logits vs whole prefill {worst}")
+
+
+def prefix_f32_cut(torch, m, prompts, tag, *, new, **kw) -> None:
+    """Full width, depth cut to 2 layers, float32 weights and activations:
+    the prefix cache on (graph step) and off give the same greedy tokens,
+    and each hit's first-token logits lie within F32_LOGIT_TOL of the
+    largest logit of its whole prefill's (the tail's rows only round
+    otherwise)."""
+    from repro_torch.models import Model
+    from repro_torch.serving.scheduler import Request
+
+    cfg = dataclasses.replace(m.cfg, n_layers=2, dtype="float32")
+    model = Model(cfg, m.device)
+    params = model.init(seed=1, dtype=torch.float32)
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=new)
+                for i, p in enumerate(prompts)]
+
+    kw = dict(kw, temperature=0.0, seed=3)
+    limit = hit_logits_limit(torch, model, params, len(prompts))
+    try:
+        on, st = serve_requests(torch, model, params, reqs(), hook=limit,
+                                **kw)
+    finally:
+        limit.restore()
+    off, _ = serve_requests(torch, model, params, reqs(), prefix_cache=False,
+                            **kw)
+    worst = max(limit.errs)
+    equal = sum(a == b for x, y in zip(on, off) for a, b in zip(x, y))
+    say("parity", arch=cfg.name, check=f"{tag}: float32, 2 layers: prefix "
+        "cache on == off tokens; each hit's first-token logits vs its whole "
+        "prefill", dtype="float32", n_layers=2, hits=st["prefix_hits"],
+        tokens_equal=equal, tokens_compared=sum(map(len, off)),
+        max_err_over_max_logit=worst, tol=F32_LOGIT_TOL)
+    check(on == off, f"{tag}: float32 tokens, prefix cache on != off")
+    check(st["prefix_hits"] == len(limit.errs) > 0 and worst <= F32_LOGIT_TOL,
+          f"{tag}: float32 hit logits vs whole prefill {worst}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def prefix_serving(torch, m, params, prompts, *, slots, max_len, new,
+                   read, tag, check_logits=True, **engine_kw) -> dict:
+    """The shared-head traffic with the prefix cache on (the graph step,
+    through ``stream()``) and off (the graph step, through ``run()``):
+    tokens ``==``, or reported by :func:`hold_tokens` and then, with
+    ``check_logits``, each hit's first-token logits held by
+    :func:`hold_hit_logits`; prefill seconds, tok/s, reused tokens, peak
+    pages and the admissions' wall ms of each; every hit's admission
+    launches kernel 1 once a layer and no decode read, and slots' rows
+    alias arena pages.  Returns the on run's launches of kernel 1 and of
+    the decode read, and its tokens, the off run's and the throughputs."""
+    from repro_torch.serving.scheduler import Request
+
+    cfg = m.cfg
+    n_l = cfg.n_layers
+    router = n_l if cfg.moe is not None else 0
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=new)
+                for i, p in enumerate(prompts)]
+
+    kw = dict(slots=slots, max_len=max_len, seed=3, temperature=0.0,
+              **engine_kw)
+    # off first: the first prefill after a model is built pays for its
+    # warm-up, which the on run's one miss would otherwise carry
+    admits, admits_off = [], []
+    off, st_off = serve_requests(torch, m, params, reqs(),
+                                 hook=watch_admissions(admits_off),
+                                 prefix_cache=False, **kw)
+    on, st_on = serve_requests(torch, m, params, reqs(),
+                               hook=watch_admissions(admits), stream=True,
+                               **kw)
+    hits = [a for a in admits if a["hit"]]
+    streamed = st_on.pop("streamed")
+    keys = ("prefill_s", "prefill_tok_s", "prefill_tokens", "decode_tok_s",
+            "decode_ms_per_step", "peak_pages", "steps", "wall_s")
+    for name, st in (("on", st_on), ("off", st_off)):
+        say("prefix_run", arch=cfg.name, run=tag, cache=name,
+            prompt_lens=[len(p) for p in prompts],
+            prefix_tokens_reused=st.get("prefix_tokens_reused", 0),
+            **{k: st[k] for k in keys},
+            **{k: st[k] for k in ("prefix_hits", "cow_copies",
+                                  "prefix_evictions", "cached_pages")
+               if k in st}, launches=st["launches"])
+    check(streamed == on, f"{tag}: stream deltas != the run's tokens")
+    check(st_on["prefix_cache"] and not st_off["prefix_cache"],
+          f"{tag}: the cache's switch")
+    check(st_on["prefix_hits"] >= len(prompts) - 1
+          and len(hits) == st_on["prefix_hits"],
+          f"{tag}: {st_on['prefix_hits']} hits of {len(prompts)}")
+    check(st_on["free_pages"] + st_on["cached_pages"] == st_on["pages"],
+          f"{tag}: free {st_on['free_pages']} + cached "
+          f"{st_on['cached_pages']} != usable {st_on['pages']}")
+    # a hit's tail prefill: the score rows (and a moe model's router rows)
+    # through kernel 1 in every layer, no decode read
+    want = {"twopass_softmax_2d": n_l + router}
+    check(all(h["launches"] == want for h in hits),
+          f"{tag}: a hit's launches {[h['launches'] for h in hits]}")
+    check(max((h["aliased_pages"] for h in hits), default=0) > 0,
+          f"{tag}: no two slots' rows named one page")
+    per = {read: n_l, **({"twopass_softmax_2d": router} if router else {})}
+    check(st_on["launches"][read] > 0
+          and st_on["launches_per_replay"] == per, f"{tag}: decode reads "
+          f"{st_on['launches']}, {st_on['launches_per_replay']} a replay")
+    say("prefix_hits", arch=cfg.name, run=tag, hits=len(hits),
+        launches_a_hit=want, max_aliased_pages=max(
+            (h["aliased_pages"] for h in hits), default=0),
+        aliased_pages=[h["aliased_pages"] for h in hits],
+        tail_buckets=[h["tail_bucket"] for h in hits],
+        matched=[h["matched"] for h in hits],
+        stream_deltas=st_on["deltas"], stream_equal=True)
+    say("prefix_admissions", arch=cfg.name, run=tag,
+        hit_ms=_ms_summary([a["ms"] for a in hits]),
+        miss_ms=_ms_summary([a["ms"] for a in admits if not a["hit"]]),
+        off_ms=_ms_summary([a["ms"] for a in admits_off]),
+        hits=[(a["plen"], a["tail_bucket"], a["ms"]) for a in hits],
+        off=[(a["plen"], a["ms"]) for a in admits_off])
+    equal = hold_tokens(torch, m, params, prompts, on, off,
+                        f"{tag}: prefix cache on == off tokens",
+                        engine_kw.get("moe_impl", "dispatch"))
+    if not equal and check_logits:
+        hold_hit_logits(torch, m, params, reqs(), tag, **kw)
+    admission_trace(torch, m, params, prompts, tag, slots=slots,
+                    max_len=max_len, **engine_kw)
+    prefix_f32_cut(torch, m, prompts, tag, new=new, slots=slots,
+                   max_len=max_len, **engine_kw)
+    return dict(launches={k: st_on["launches"][k]
+                          for k in ("twopass_softmax_2d", read)},
+                on=on, off=off, st_on=st_on, st_off=st_off, equal=equal)
+
+
+def prefix_phase(torch, n_layers: int) -> dict:
+    """Phase 18: the engine phase's qwen2.5-14b (full width, ``n_layers``
+    deep, bf16, paged, 8 slots, ``max_len`` 1,664, pages of 128) serving
+    20 greedy requests that share a head: 16 of its 1,000 tokens and
+    tails of 24-400, 4 that leave it mid-page at token 900, 32 new tokens
+    each.  The prefix cache on with the graph step (through ``stream()``,
+    its deltas ``==`` the tokens), on with the eager step (the same tokens
+    and launches) and off; hits, copy-on-write copies, kernel 1 in each
+    hit's tail prefill, kernel 3 over pages two slots' rows name, free +
+    cached == usable when the run ends; an eviction run on a 48-page
+    arena; each hit's first-token logits against a whole prefill.
+    Returns the on run's launches of kernels 1 and 3."""
+    from repro_torch.models import build_model
+
+    rng = np.random.default_rng(PREFIX_SEED)
+    m = build_model(ARCH, n_layers=n_layers, use_kernels=True)
+    cfg = m.cfg
+    params = m.init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n, lo, hi = PREFIX_TAILS
+    prompts = shared_prompts(rng, cfg.vocab, PREFIX_HEAD, n, lo, hi,
+                             mid=PREFIX_MID)
+    say("prefix_config", arch=ARCH, n_layers=cfg.n_layers, slots=N_SLOTS,
+        max_len=MAX_LEN, head=PREFIX_HEAD, requests=len(prompts),
+        mid_cut=PREFIX_MID[1], new_tokens=PREFIX_NEW,
+        prompt_lens=[len(p) for p in prompts])
+    kw = dict(slots=N_SLOTS, max_len=MAX_LEN)
+    out = prefix_serving(torch, m, params, prompts, new=PREFIX_NEW,
+                         read="decode_attention_paged", tag="prefix",
+                         check_logits=False, **kw)
+    st_on = out["st_on"]
+    check(st_on["cow_copies"] > 0, "prefix: no copy-on-write copy")
+    from repro_torch.serving.scheduler import Request
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=PREFIX_NEW)
+                for i, p in enumerate(prompts)]
+
+    # the graph's oracle: the eager step gives the same tokens, launches
+    # and counters
+    eager, st_e = serve_requests(torch, m, params, reqs(), temperature=0.0,
+                                 fused=False, seed=3, **kw)
+    same = ("prefix_hits", "prefix_tokens_reused", "cow_copies",
+            "prefix_evictions", "peak_pages", "cached_pages")
+    check(eager == out["on"] and st_e["launches"] == st_on["launches"]
+          and all(st_e[k] == st_on[k] for k in same),
+          f"prefix: eager {st_e['launches']} != graph {st_on['launches']}")
+    say("parity", arch=ARCH, check="prefix cache on: graph == eager tokens, "
+        "launches and counters; stream() deltas == run() tokens",
+        equal=out["on"] == eager, eager_decode_ms_per_step=st_e[
+            "decode_ms_per_step"],
+        graph_decode_ms_per_step=st_on["decode_ms_per_step"])
+    # a 48-page arena: admissions and growth evict cold cached pages;
+    # every hit's first-token logits against its whole prefill
+    limit = hit_logits_limit(torch, m, params, len(prompts))
+    try:
+        evict, st_x = serve_requests(
+            torch, m, params, reqs(), temperature=0.0, seed=3,
+            pages=PREFIX_EVICT_PAGES, hook=limit, **kw)
+    finally:
+        limit.restore()
+    say("prefix_run", arch=ARCH, run="prefix", cache="on, 48 pages "
+        "(prefill times include the logits check's whole prefills)",
+        **{k: st_x[k] for k in ("prefix_hits", "prefix_tokens_reused",
+                                "cow_copies", "prefix_evictions",
+                                "cached_pages", "peak_pages", "preempted")})
+    check(st_x["prefix_evictions"] > 0, "prefix: nothing evicted")
+    check(st_x["free_pages"] + st_x["cached_pages"] == st_x["pages"],
+          "prefix: the 48-page arena did not drain")
+    hold_tokens(torch, m, params, prompts, evict, out["off"],
+                "prefix: 48-page arena == cache off tokens")
+    worst = max(limit.errs)
+    say("parity", arch=ARCH, check="prefix: each hit's first-token logits "
+        "vs the whole prompt's bucketed prefill", hits=len(limit.errs),
+        max_err_over_max_logit=worst, errs=limit.errs,
+        bit_equal=sum(e == 0 for e in limit.errs),
+        top2_margin=[mg for _, mg, _ in limit.margins],
+        argmax_equal=[eq for _, _, eq in limit.margins],
+        tol=f"{LOGIT_TOL} of the largest logit, as the engine phase")
+    check(worst <= LOGIT_TOL, f"prefix: hit logits vs whole prefill {worst}")
+    del m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out["launches"]
+
+
 def idle_share(torch, m, params, prompts, *, fused: bool):
     """Device busy time over wall time for a short traced serving run, the
     decode step a CUDA graph or eager (its capture before the trace)."""
@@ -4821,7 +5326,7 @@ def main() -> int:
                     "16 keeps the whole script inside its time limit)")
     ap.add_argument("--only", choices=("train", "swa", "engine", "mqa",
                                        "ssm", "encdec", "moe", "mla", "vlm",
-                                       "hybrid"),
+                                       "hybrid", "prefix"),
                     help="run one phase alone (train: to compare the train "
                     "step of two trees on one card); no kernels or ok line")
     args = ap.parse_args()
@@ -4853,6 +5358,10 @@ def main() -> int:
         elif args.only == "engine":
             say("engine_done", launches=engine_phase(
                 torch, np.random.default_rng(0), args.layers)[0])
+        elif args.only == "prefix":
+            t0 = time.perf_counter()
+            say("prefix_done", launches=prefix_phase(torch, args.layers),
+                seconds=time.perf_counter() - t0)
         elif args.only in ("mqa", "ssm", "encdec", "moe", "mla", "vlm",
                            "hybrid"):
             phase = {"mqa": mqa_phase, "ssm": ssm_phase,
@@ -4925,6 +5434,10 @@ def main() -> int:
     t0 = time.perf_counter()
     train_cli_phase(torch)
     say("train_cli_done", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for name, n in prefix_phase(torch, args.layers).items():
+        launches[name] += n
+    say("prefix_done", seconds=time.perf_counter() - t0)
     kernels = []
     for name in REPLACES:
         r = rows[name][MAIN_CASE[name]]

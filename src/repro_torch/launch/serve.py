@@ -19,6 +19,14 @@ softmax site (prefill attention scores, the sampler at ``--temperature >
 0``); ``--kernels`` runs those sites and the decode attention through the
 hand-written CUDA kernels.
 
+``--shared-prefix-len N`` gives every request the same first N prompt
+tokens: with the prefix cache (on by default wherever a tail can prefill
+exactly after cached pages; ``--no-prefix-cache`` turns it off) the
+matched pages are adopted by reference and only the tail prefills, and
+the run prints the cache's counters.  ``--stream`` serves through the
+engine's streaming generator, which yields each request's new tokens
+after every scheduler step.
+
 An encdec (whisper) request carries ``--enc-frames`` seeded encoder frame
 embeddings (default ``--prompt-len``; the audio front end is not
 modelled), whose cross K/V is adopted as read-only arena pages at
@@ -32,8 +40,8 @@ apply).
 
 The model runs on ``--device`` (``cuda`` unless the CPU is asked for), with
 random weights made from seed 0 in the compute dtype.  Flags for what this
-package does not serve yet (int8 pages, host swap, the prefix cache,
-streaming, a mesh) exit with an error that names their ROADMAP item.  A
+package does not serve yet (int8 pages, host swap, a mesh) exit with an
+error that names their ROADMAP item.  A
 moe model (deepseek-v2-lite-16b with its multi-head latent attention too)
 routes through capacity dispatch (``moe_impl="dispatch"``, the
 reference's default; its CLI has no flag for it either).
@@ -48,9 +56,7 @@ from repro_torch.configs.base import check_ported
 # unported flag -> (its value when unused, ROADMAP queue A item)
 UNPORTED_FLAGS = {
     "kv_dtype": (None, 18), "scale_granularity": (None, 18),
-    "host_swap_bytes": (None, 18), "shared_prefix_len": (0, 17),
-    "no_prefix_cache": (False, 17), "stream": (False, 19),
-    "mesh": (None, 22),
+    "host_swap_bytes": (None, 18), "mesh": (None, 22),
 }
 
 
@@ -83,10 +89,13 @@ def parser() -> argparse.ArgumentParser:
                         "(default: all offered at t=0)")
     p.add_argument("--prompt-len", type=int, default=16)
     p.add_argument("--shared-prefix-len", type=int, default=0,
-                   help="shared prompt prefix (prefix cache): not ported "
-                        "yet")
+                   help="give every request the same first N prompt "
+                        "tokens (the prefix cache adopts the matched "
+                        "pages by reference; only the tail prefills)")
     p.add_argument("--no-prefix-cache", action="store_true",
-                   help="prefix cache switch: not ported yet")
+                   help="turn prefix sharing off (default: on wherever "
+                        "the family's tail can prefill exactly after "
+                        "cached pages)")
     p.add_argument("--steps", type=int, default=32,
                    help="max new tokens per request")
     p.add_argument("--temperature", type=float, default=1.0)
@@ -100,7 +109,8 @@ def parser() -> argparse.ArgumentParser:
                    help="encdec: encode this many frames a scheduler step "
                         "(default: the whole request at admission)")
     p.add_argument("--stream", action="store_true",
-                   help="streaming generator: not ported yet")
+                   help="serve through the streaming generator: each "
+                        "request's new tokens after every scheduler step")
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
                    help="sharded serving over a device mesh: not ported "
                         "yet")
@@ -120,6 +130,8 @@ def main(argv=None) -> None:
         if getattr(args, name) != unused:
             p.error(f"--{name.replace('_', '-')} is not ported yet "
                     f"(ROADMAP queue A item {item})")
+    if not 0 <= args.shared_prefix_len <= args.prompt_len:
+        p.error("--shared-prefix-len must lie in [0, --prompt-len]")
 
     from repro_torch import kernels
     from repro_torch.models import build_model
@@ -206,6 +218,7 @@ def _serve_engine(args, p, model, params) -> dict:
             temperature=args.temperature, seed=2,
             paged=False if args.strip else "auto", page_size=args.page_size,
             pages=args.pages,
+            prefix_cache=False if args.no_prefix_cache else "auto",
             **(dict(max_cross_len=n_frames, enc_chunk=args.enc_chunk)
                if encdec else {}))
     except ValueError as e:                  # e.g. encdec on the strip pool
@@ -214,9 +227,10 @@ def _serve_engine(args, p, model, params) -> dict:
     arrivals = (np.cumsum(rng.exponential(1.0 / args.arrival_rate,
                                           args.requests))
                 if args.arrival_rate else np.zeros(args.requests))
+    head = tuple(rng.integers(0, cfg.vocab, args.shared_prefix_len))
     reqs = [Request(rid=i,
-                    prompt=tuple(rng.integers(0, cfg.vocab,
-                                              args.prompt_len)),
+                    prompt=head + tuple(rng.integers(
+                        0, cfg.vocab, args.prompt_len - len(head))),
                     max_new_tokens=args.steps, arrival_s=float(arrivals[i]),
                     frames=(rng.standard_normal(
                         (n_frames, cfg.d_model)).astype(np.float32)
@@ -224,7 +238,17 @@ def _serve_engine(args, p, model, params) -> dict:
             for i in range(args.requests)]
     # after the engine is built: its graph's warm-up steps are not counted
     kernels.reset_launch_counts()
-    comps = eng.run(reqs)
+    if args.stream:
+        first_delta, n_events = {}, 0
+        for rid, toks in eng.stream(reqs):
+            n_events += 1
+            first_delta.setdefault(rid, n_events)
+            print(f"delta: request {rid} +{toks}")
+        comps = eng.completions
+        print(f"streamed: {n_events} delta events; first delta per "
+              f"request (event #): {dict(sorted(first_delta.items()))}")
+    else:
+        comps = eng.run(reqs)
     st = eng.stats
     pool = (f"paged pool ({eng.allocator.usable_pages} pages x "
             f"{eng.page_size} tok, peak {st['peak_pages']} in use, "
@@ -233,6 +257,14 @@ def _serve_engine(args, p, model, params) -> dict:
           f"slots / {pool} ({st['steps']} ragged decode steps, "
           f"{st['admitted']} admissions, {len(eng._prefill_shapes)} "
           "prefill buckets)")
+    if eng.prefix_cache is not None:
+        print(f"prefix cache: {st['prefix_hits']} hits, "
+              f"{st['prefix_tokens_reused']} prompt tok adopted by "
+              f"reference, {st['cow_copies']} copy-on-write page copies, "
+              f"{st['prefix_evictions']} evictions, "
+              f"{eng.prefix_cache.n_pages} pages indexed")
+    elif not args.no_prefix_cache and eng.paged:
+        print("prefix cache: off (family needs full-prompt prefill)")
     ttfts = sorted(c.ttft_s for c in comps if c.ttft_s is not None)
     if ttfts:
         print(f"ttft: p50 {ttfts[len(ttfts) // 2] * 1e3:.2f}ms  "

@@ -9,7 +9,8 @@ model's blocks route by ``moe_impl`` (``"dispatch"``, ``"gather"`` or
 ``"dense"``; ``models/moe.py``), which every step and prefill takes, as
 the reference's.  A vlm prompt may carry stubbed patch embeddings
 (``patches``), prefilled ahead of its tokens; a hybrid model's cache is
-``{"attn", "ssm"}`` (``models/hybrid.py``).
+``{"attn", "ssm"}`` (``models/hybrid.py``).  ``prefill_extend`` prefills
+a prompt's tail after prefix pages already in the arena (prefix sharing).
 """
 
 from __future__ import annotations
@@ -183,6 +184,63 @@ def prefill(params: Params, tokens, *, cfg: ModelConfig,
             x, _ = transformer.block_apply(
                 layer(params["blocks"], i), x, cos, sin, cfg=cfg,
                 cache=layer(cache, i), cache_pos=0, moe_impl=moe_impl)
+    return _finish(params, _last(x, last_pos, dev), cfg), cache
+
+
+def gather_pages(kv: dict, page_row) -> dict:
+    """Arena pages as a batch=1 position-major prefill cache: each leaf
+    ``[L, P, ps, ...]`` -> ``[L, 1, n * ps, ...]``, ``page_row``'s ``n``
+    pages laid end to end (a copy: the arena is never written through
+    it).  The read side of prefix sharing: a matched prefix's K/V (or
+    MLA's latent ``{c, kr}``) is lifted out so that the prompt's tail can
+    prefill after it (:func:`prefill_extend`).  Entries past the matched
+    prefix may be the trash page: their rows lie past ``cache_pos``, and
+    the tail's own writes or the length mask cover them."""
+    idx = torch.as_tensor(page_row,
+                          device=next(iter(kv.values())).device).long()
+
+    def one(leaf):
+        g = leaf[:, idx]                           # [L, n, ps, ...]
+        return g.reshape(g.shape[0], 1, g.shape[1] * g.shape[2],
+                         *g.shape[3:])
+
+    return {n: one(leaf) for n, leaf in kv.items()}
+
+
+def prefill_extend(params: Params, tokens, kv: dict, page_row,
+                   start_pos: int, *, cfg: ModelConfig,
+                   moe_impl: str = "dispatch", last_pos=None):
+    """Prefill only the TAIL of a prompt whose first ``start_pos``
+    positions have K/V in arena pages already (prefix sharing).
+
+    ``tokens``: [1, t] the prompt from ``start_pos`` on (padded to a tail
+    bucket; ``last_pos`` indexes the true last token in it).  ``kv``: the
+    paged pool's arenas.  ``page_row``: the pages whose gather covers
+    positions ``[0, n * ps)`` of the prompt: the matched chain, then the
+    copy-on-write source, then the trash page; ``start_pos + t <= n *
+    ps``.  The tail's RoPE is taken at the prompt's original indices
+    (``transformer._positions_at``: under M-RoPE a text prompt's first
+    ``n_patches`` indices lie on the vision grid), and it attends
+    through the write-then-attend branch of attention with ``cache_pos =
+    start_pos`` (with kernels, ``full_attention``'s scores, rows
+    ``[H * t, n * ps]``, go through the policy's softmax kernel).  The
+    cached prefix holds the values a whole prefill would compute at the
+    same positions; only the tail's rows are shorter, so the order of
+    summation may differ.  Returns (last-token logits, the batch=1 cache
+    of ``n * ps`` positions, prefix and tail), from which adoption copies
+    the fresh pages."""
+    b, t = tokens.shape
+    dev = _device(params)
+    cache = gather_pages(kv, page_row)
+    idx = torch.arange(t, device=dev) + int(start_pos)
+    cos, sin = transformer._cos_sin(
+        cfg, transformer._positions_at(cfg, b, idx))
+    x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    for i in range(cfg.n_layers):
+        x, _ = transformer.block_apply(
+            layer(params["blocks"], i), x, cos, sin, cfg=cfg,
+            cache=layer(cache, i), cache_pos=int(start_pos),
+            moe_impl=moe_impl)
     return _finish(params, _last(x, last_pos, dev), cfg), cache
 
 

@@ -27,6 +27,15 @@ replays them all.  What that asks of the step:
     overwrites, an ssm (or hybrid) pool's state writes are dead state
     that admission replaces whole, and ``lengths`` do not advance (no slot
     is active);
+  * page-table rows may alias one arena page (prefix sharing,
+    ``serving/prefix_cache.py``): the graph reads the table as the eager
+    step does, so a replay reads a shared page as two private copies.  No
+    replay writes one: a prefix match is clipped to ``len(prompt) - 1``
+    tokens (``PrefixCache.match``), so a slot's shared pages all lie
+    before its prompt's last token, and every decode write, at the slot's
+    length or past it, lands in a page of its own
+    (``ContinuousBatchingEngine._prefill_hit`` adopts only fresh pages
+    through its copy row);
   * a wrapper's ``.launches`` counts when Python calls it, which under a
     graph is at capture only: :class:`FusedStep` takes the capture's
     counts back out and adds them once per replay, so the counters go on

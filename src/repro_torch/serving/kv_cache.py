@@ -239,18 +239,29 @@ def _copy_pages(dst, src, page_row):
 
 
 def adopt_slot_paged(pool: dict, cache: dict, slot: int, length: int,
-                     page_row: torch.Tensor) -> dict:
+                     page_row: torch.Tensor,
+                     copy_row: torch.Tensor | None = None) -> dict:
     """Admit a batch=1 prefill cache into ``slot``: copy its pages to the
     row's arena pages, set the table row and the length.  A hybrid
     cache's attention half pages so; its ssm state is copied into the
     slot's row of the slot-major state, replacing the dead state a free
-    slot's steps left there."""
+    slot's steps left there.
+
+    ``copy_row`` (default ``page_row``) says where the cache's pages are
+    WRITTEN, apart from what the table row names: the copy-on-write seam
+    of prefix sharing.  A prefix hit's table row names the shared pages
+    and then the fresh ones; its copy row names only the fresh ones, with
+    the trash page in the shared positions, so a shared page is never
+    written.  This holds for every paged leaf (``{k, v}``, MLA's latent
+    ``{c, kr}``)."""
     kv = pool["kv"]
+    if copy_row is None:
+        copy_row = page_row
     if "ssm" in kv:
         kv["ssm"][:, slot] = cache["ssm"][:, 0]
         kv, cache = kv["attn"], cache["attn"]
     for n, dst in kv.items():
-        _copy_pages(dst, cache[n], page_row)
+        _copy_pages(dst, cache[n], copy_row)
     pool["page_table"][slot] = page_row.to(torch.int32)
     pool["lengths"][slot] = length
     return pool

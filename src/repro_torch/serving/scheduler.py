@@ -27,7 +27,15 @@ batch axis full.  The scheduler:
     cross pages in one allocation, encodes its frames whole or one
     ``enc_chunk`` window a scheduler step (the slot parked meanwhile),
     then prefills the decoder prompt and adopts both halves, the cross
-    K/V as read-only pages of the same arenas.
+    K/V as read-only pages of the same arenas;
+  * SHARES prompt prefixes already in the arena (``serving/
+    prefix_cache.py``) where a tail can prefill exactly after them:
+    admission matches the prompt against a radix index of page-sized
+    token blocks, adopts the matched pages by reference (refcounted,
+    ``PageAllocator.share``) and prefills only the tail after them
+    (``engine.prefill_extend``); the first part-filled or divergent page
+    is copied, never aliased.  Retired prompts stay indexed until page
+    pressure evicts them, least recently matched first.
 
 Host state (who owns which slot and pages, emitted tokens) stays in Python;
 device state (arenas, page table, lengths) is the pool, changed in place.
@@ -47,6 +55,7 @@ import torch
 from repro_torch.models import transformer
 from repro_torch.serving import engine, kv_cache
 from repro_torch.serving.fused import FusedStep, graph_for
+from repro_torch.serving.prefix_cache import PrefixCache
 
 
 # families whose prefill is position-local: a pad tail past the true prompt
@@ -123,6 +132,11 @@ class ContinuousBatchingEngine:
     graph keeps the one it captured); prompts are not bucketed under
     "auto", since expert capacity comes from the prompt's length.
 
+    ``prefix_cache``: "auto" shares prompt prefixes wherever a tail can
+    prefill exactly after cached pages (:meth:`_prefix_shareable`: the
+    paged pool of the dense and vlm families, and of moe under
+    ``moe_impl="dense"``); True raises where it cannot.
+
     encdec (paged only): ``max_cross_len`` bounds a request's encoder
     frames (default ``max_len``) and sizes its cross table; ``enc_chunk``
     encodes a request ``enc_chunk`` frames a scheduler step, each window
@@ -142,17 +156,6 @@ class ContinuousBatchingEngine:
                  max_cross_len: int | None = None,
                  enc_chunk: int | None = None, moe_impl: str = "dispatch"):
         cfg = model.cfg
-        if prefix_cache is True:
-            if cfg.family == "moe" and moe_impl != "dense":
-                # as the reference: capacity dispatch sizes the expert
-                # queues from the whole prompt, so a prefix and its tail
-                # compete for capacity and a split prompt drops others
-                raise ValueError(
-                    f"prefix_cache=True: family 'moe' (moe_impl "
-                    f"{moe_impl!r}) cannot share prefixes: capacity "
-                    "dispatch couples tokens across the sequence; use "
-                    "prefix_cache='auto'")
-            raise _unported("prefix_cache=True", 17)
         if page_dtype is not None:
             raise _unported("page_dtype", 18)
         if host_swap_bytes is not None:
@@ -231,7 +234,23 @@ class ContinuousBatchingEngine:
                                                 self.max_len,
                                                 device=self.device)
         self.buckets = self._resolve_buckets(prefill_buckets)
-        self._prefill_shapes: set[tuple] = set()
+        self._prefill_shapes: set = set()
+
+        # prefix sharing: the radix index over the arena ("auto" = on
+        # wherever a tail prefills exactly after cached pages)
+        self.prefix_cache: PrefixCache | None = None
+        shareable = self._prefix_shareable()
+        if prefix_cache == "auto":
+            prefix_cache = shareable
+        if prefix_cache:
+            if not shareable:
+                raise ValueError(
+                    f"prefix_cache=True: family {cfg.family!r} "
+                    f"(moe_impl {moe_impl!r}, paged {self.paged}) cannot "
+                    "share prefixes — ssm/hybrid carry recurrent prefill "
+                    "state and moe capacity dispatch couples tokens "
+                    "across the sequence; use prefix_cache='auto'")
+            self.prefix_cache = PrefixCache(self.allocator, self.page_size)
 
         self.slot_owner: list[Completion | None] = [None] * self.n_slots
         self.slot_req: list[Request | None] = [None] * self.n_slots
@@ -249,7 +268,9 @@ class ContinuousBatchingEngine:
         # the reference; encode_frames / encode_s are the encoder's share
         self.stats = dict(prefill_tokens=0, prefill_s=0.0, decode_tokens=0,
                           decode_s=0.0, steps=0, admitted=0, preempted=0,
-                          peak_pages=0, encode_frames=0, encode_s=0.0)
+                          peak_pages=0, encode_frames=0, encode_s=0.0,
+                          prefix_hits=0, prefix_tokens_reused=0,
+                          cow_copies=0, prefix_evictions=0)
 
         # The decode step's static buffers: written in place each burst,
         # never rebound (a captured graph reads them).  ``_history`` keeps
@@ -318,6 +339,59 @@ class ContinuousBatchingEngine:
         if self.buckets is None:
             return plen
         return next(b for b in self.buckets if b >= plen)
+
+    # -- prefix sharing ----------------------------------------------------------
+    def _prefix_shareable(self) -> bool:
+        """Whether a prompt's tail can prefill EXACTLY after cached prefix
+        pages: a paged pool and a position-local prefill.  ssm and hybrid
+        carry recurrent state through the prompt (K/V pages cannot replay
+        it), and moe's capacity dispatch sizes the expert queues from the
+        whole sequence (prefix and tail tokens compete for capacity, so a
+        split prompt drops other tokens).  dense and vlm qualify, and moe
+        under the per-token ``moe_impl="dense"``."""
+        if not self.paged:
+            return False
+        if self.cfg.family in ("dense", "vlm"):
+            return True
+        return self.cfg.family == "moe" and self.moe_impl == "dense"
+
+    def _plan_prefix(self, prompt, alloc_len: int):
+        """Match ``prompt`` against the index and fit a padded tail after
+        it inside ``alloc_len`` (the bucket in whole pages, as the
+        reference's cache allocation): the smallest tail bucket ``B``
+        whose ``min(matched, alloc_len - B)`` matched tokens and ``B``
+        tail positions cover the prompt (the tail's writes may not spill
+        past the allocation).  The match is trimmed when the bucket leaves
+        room for only part of it.  Returns ``(match, matched_tokens,
+        tail_bucket)``, or ``(None, 0, 0)`` when nothing usable is
+        cached."""
+        ps = self.page_size
+        match = self.prefix_cache.match(prompt)
+        m = match.matched_tokens(ps)
+        plen = len(prompt)
+        if m <= 0:
+            return None, 0, 0
+        if self.buckets is None:
+            return match, m, plen - m
+        for b in self.buckets:
+            use = min(m, alloc_len - b)
+            if use > 0 and plen - use <= b:
+                if use < m:
+                    match = match.trim(ps, use)
+                return match, use, b
+        return None, 0, 0
+
+    def _alloc_pages(self, n: int):
+        """``allocator.alloc`` that, on a miss, evicts cold cached prefix
+        pages (refcount 1: the index is their only reader) and tries
+        again.  Cached pages a live slot shares stay pinned."""
+        ids = self.allocator.alloc(n)
+        if ids is None and self.prefix_cache is not None:
+            freed = self.prefix_cache.evict(n - self.allocator.free_pages)
+            if freed:
+                self.stats["prefix_evictions"] += freed
+                ids = self.allocator.alloc(n)
+        return ids
 
     # -- request intake --------------------------------------------------------
     def _check_frames(self, req: Request) -> int:
@@ -406,6 +480,7 @@ class ContinuousBatchingEngine:
         plen = len(req.prompt)
         bucket = self._bucket_for(plen)
         page_ids = None
+        match, m_tok, tail_bucket = None, 0, 0
         if self.paged:
             need = self._pages_for(plen)
             if need > self.allocator.usable_pages:
@@ -417,30 +492,89 @@ class ContinuousBatchingEngine:
                 raise ValueError(
                     f"request {req.rid}: prompt {plen} needs {need} pages; "
                     f"the pool has {self.allocator.usable_pages}")
-            page_ids = self.allocator.alloc(need)
+            if self.prefix_cache is not None:
+                match, m_tok, tail_bucket = self._plan_prefix(
+                    req.prompt, self._pages_for(bucket) * self.page_size)
+            n_shared = len(match.pages) if match is not None else 0
+            if n_shared:
+                # the slot's references first: they pin the matched pages
+                # against the eviction _alloc_pages may make
+                self.allocator.share(match.pages)
+            page_ids = self._alloc_pages(need - n_shared)
             if page_ids is None:
+                if n_shared:
+                    self.allocator.free(match.pages)
                 return False
         t0 = time.perf_counter()
-        padded = torch.zeros((1, bucket), dtype=torch.int64)
-        padded[0, :plen] = torch.tensor(req.prompt)
-        # Prefill attends over the bucket's positions and no more, for
-        # either pool: keys past the bucket would all be masked.  (The
-        # reference prefills max_len positions for the strip pool and whole
-        # pages for the paged one.)
-        logits, cache = engine.prefill(
-            self.params, padded.to(self.device), cfg=self.cfg,
-            max_len=bucket, last_pos=plen - 1, moe_impl=self.moe_impl)
-        tok_dev = self._sample(logits)
-        self._prefill_shapes.add(bucket)
-        if self.paged:
-            self.slot_pages[slot] = page_ids
-            kv_cache.adopt_slot_paged(self.pool, cache, slot, plen,
-                                      self._row(self._page_row(slot)))
-            self._note_peak()
+        if m_tok > 0:
+            tok_dev = self._prefill_hit(req, slot, match, m_tok, tail_bucket,
+                                        page_ids)
         else:
-            kv_cache.adopt_slot(self.pool, cache, slot, plen)
+            padded = torch.zeros((1, bucket), dtype=torch.int64)
+            padded[0, :plen] = torch.tensor(req.prompt)
+            # Prefill attends over the bucket's positions and no more, for
+            # either pool: keys past the bucket would all be masked.  (The
+            # reference prefills max_len positions for the strip pool and
+            # whole pages for the paged one.)
+            logits, cache = engine.prefill(
+                self.params, padded.to(self.device), cfg=self.cfg,
+                max_len=bucket, last_pos=plen - 1, moe_impl=self.moe_impl)
+            tok_dev = self._sample(logits)
+            self._prefill_shapes.add(bucket)
+            if self.paged:
+                self.slot_pages[slot] = page_ids
+                kv_cache.adopt_slot_paged(self.pool, cache, slot, plen,
+                                          self._row(self._page_row(slot)))
+                self._note_peak()
+            else:
+                kv_cache.adopt_slot(self.pool, cache, slot, plen)
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(
+                req.prompt, self.slot_pages[slot][:self._pages_for(plen)])
         self._seat(req, slot, tok_dev, plen, now, now, t0)
         return True
+
+    def _prefill_hit(self, req: Request, slot: int, match, m_tok: int,
+                     tail_bucket: int, page_ids: list[int]):
+        """A prefix hit's admission: gather the matched pages (and the
+        copy-on-write source), prefill only the tail after them, adopt the
+        matched pages by reference and copy the cache's fresh pages into
+        ``page_ids``.  Returns the sampled first token on the device.
+
+        The gather spans the pages the tail's bucket reaches, not the
+        reference's whole allocation: keys past the tail would all be
+        masked (the port prefills only the bucket, as for a miss)."""
+        plen = len(req.prompt)
+        n_shared = len(match.pages)
+        width = self._pages_for(m_tok + tail_bucket)
+        gather = np.full((width,), kv_cache.TRASH_PAGE, np.int32)
+        gather[:n_shared] = match.pages
+        if match.partial is not None:
+            gather[n_shared] = match.partial[0]
+        tail = torch.zeros((1, tail_bucket), dtype=torch.int64)
+        tail[0, :plen - m_tok] = torch.tensor(req.prompt[m_tok:])
+        logits, cache = engine.prefill_extend(
+            self.params, tail.to(self.device), self.pool["kv"],
+            self._row(gather), m_tok, cfg=self.cfg, moe_impl=self.moe_impl,
+            last_pos=plen - m_tok - 1)
+        tok_dev = self._sample(logits)
+        self._prefill_shapes.add(("extend", tail_bucket, width))
+        self.slot_pages[slot] = list(match.pages) + page_ids
+        # copy-on-write: the table row names the shared and the fresh
+        # pages; the copy row only the fresh ones (the trash page where
+        # the row is shared), so a shared page is never written
+        copy = np.full((self.pages_per_slot,), kv_cache.TRASH_PAGE,
+                       np.int32)
+        copy[n_shared:self._pages_for(plen)] = page_ids
+        kv_cache.adopt_slot_paged(self.pool, cache, slot, plen,
+                                  self._row(self._page_row(slot)),
+                                  self._row(copy))
+        self._note_peak()
+        self.stats["prefix_hits"] += 1
+        self.stats["prefix_tokens_reused"] += m_tok
+        if match.partial is not None:
+            self.stats["cow_copies"] += 1
+        return tok_dev
 
     def _seat(self, req: Request, slot: int, tok_dev, tokens: int,
               admitted_s: float, now: float, t0: float) -> None:
@@ -481,7 +615,7 @@ class ContinuousBatchingEngine:
                 f"request {req.rid}: prompt {plen} + {t_enc} frames need "
                 f"{need} pages; the pool has {self.allocator.usable_pages} "
                 f"(page_size {self.page_size})")
-        page_ids = self.allocator.alloc(need)
+        page_ids = self._alloc_pages(need)
         if page_ids is None:
             return False
         n_self = self._pages_for(plen)
@@ -629,6 +763,14 @@ class ContinuousBatchingEngine:
                            - len(self.slot_pages[slot]))
 
             h = max(1, runahead)
+            # page pressure evicts cold cached prefixes BEFORE the horizon
+            # shrinks or anyone is preempted: a page only the index reads
+            # is cheaper to give up than live work
+            short = (sum(extra(s, h) for s in active)
+                     - self.allocator.free_pages)
+            if short > 0 and self.prefix_cache is not None:
+                self.stats["prefix_evictions"] += self.prefix_cache.evict(
+                    short)
             while h > 1 and (sum(extra(s, h) for s in active)
                              > self.allocator.free_pages):
                 h -= 1
@@ -708,11 +850,11 @@ class ContinuousBatchingEngine:
             self._maybe_retire(slot, now)
         return True
 
-    def run(self, requests=None, *,
-            use_wall_clock: bool | None = None) -> list[Completion]:
-        """Serve ``requests`` (plus anything submitted) to completion.
-        Arrival times are honoured against the wall clock when any request
-        has ``arrival_s > 0``; otherwise everything is offered at t=0."""
+    def _serve(self, requests, use_wall_clock):
+        """Submit ``requests``, then step until nothing is left; yields
+        after every scheduler step.  Arrival times are honoured against
+        the wall clock when any request has ``arrival_s > 0``; otherwise
+        everything is offered at t=0."""
         for req in requests or ():
             self.submit(req)
         if use_wall_clock is None:
@@ -725,12 +867,48 @@ class ContinuousBatchingEngine:
         while self.pending or self.active_slots() or self._encoding:
             now = (time.perf_counter() - start) if use_wall_clock else 0.0
             progressed = self.step(now=now)
+            yield
             if not progressed and self.pending:
                 wait = self.pending[0].arrival_s - now
                 if use_wall_clock and wait > 0:
                     time.sleep(min(wait, 0.05))
         self.completions.sort(key=lambda c: c.rid)
+
+    def run(self, requests=None, *,
+            use_wall_clock: bool | None = None) -> list[Completion]:
+        """Serve ``requests`` (plus anything submitted) to completion."""
+        for _ in self._serve(requests, use_wall_clock):
+            pass
         return self.completions
+
+    def stream(self, requests=None, *, use_wall_clock: bool | None = None):
+        """Serve as :meth:`run`, but YIELD tokens as they come: a generator
+        of ``(rid, [token, ...])`` deltas, after every scheduler step, for
+        each request that gained tokens in it.  A preempted request's
+        tokens already yielded are not yielded again after readmission:
+        the tokens carried across preemptions come first in its one
+        monotone view.  Once the generator is spent, ``self.completions``
+        is what :meth:`run` would have returned."""
+        emitted: dict[int, int] = {}
+        for _ in self._serve(requests, use_wall_clock):
+            yield from self._deltas(emitted)
+
+    def _deltas(self, emitted: dict[int, int]) -> list:
+        """The tokens each request gained since ``emitted`` (rid -> tokens
+        yielded so far, updated here)."""
+        views = []
+        for slot in self.active_slots():
+            comp = self.slot_owner[slot]
+            prior = self._carried.get(comp.rid, (0, [], None))[1]
+            views.append((comp.rid, prior + comp.tokens))
+        views += [(comp.rid, comp.tokens) for comp in self.completions]
+        out = []
+        for rid, toks in views:
+            n = emitted.get(rid, 0)
+            if len(toks) > n:
+                out.append((rid, [int(t) for t in toks[n:]]))
+                emitted[rid] = len(toks)
+        return out
 
     def reset_stats(self) -> None:
         """Zero the counters and completions (keeps the pool)."""
@@ -770,5 +948,12 @@ class ContinuousBatchingEngine:
             out.update(page_size=self.page_size,
                        pages=self.allocator.usable_pages,
                        peak_pages=st["peak_pages"],
-                       preempted=st["preempted"])
+                       preempted=st["preempted"],
+                       prefix_cache=self.prefix_cache is not None)
+            if self.prefix_cache is not None:
+                out.update(prefix_hits=st["prefix_hits"],
+                           prefix_tokens_reused=st["prefix_tokens_reused"],
+                           cow_copies=st["cow_copies"],
+                           prefix_evictions=st["prefix_evictions"],
+                           cached_pages=self.prefix_cache.n_pages)
         return out

@@ -923,6 +923,66 @@ def test_a_failed_capture_raises(cuda, monkeypatch):
     assert len(eng.run(_fused_requests(m.cfg.vocab, n=2, new=3))) == 2
 
 
+def _shared_head_requests(vocab, n=5, new=10):
+    from repro_torch.serving.scheduler import Request
+
+    gen = torch.Generator().manual_seed(5)
+    head = tuple(torch.randint(0, vocab, (20,), generator=gen).tolist())
+    return [Request(rid=i, prompt=head + tuple(torch.randint(
+        0, vocab, (3 + i,), generator=gen).tolist()), max_new_tokens=new)
+        for i in range(n)]
+
+
+@pytest.mark.gpu
+def test_shared_pages_graph_equals_eager_and_unshared_tokens(cuda):
+    """Requests that share a 20-token head (two whole pages of 8 and a
+    copy-on-write page) on 6 usable pages: the graph step replays over
+    table rows that alias arena pages as the eager step runs (the same
+    tokens, launches, counters and pages), each hit's tail prefill
+    launches the softmax kernel once a layer, and the tokens equal the
+    cache-off run's."""
+    m, params = _fused_model()
+    runs = {name: _serve(m, params, True, fuse,
+                         _shared_head_requests(m.cfg.vocab),
+                         temperature=0.0, prefix_cache=pc)
+            for name, fuse, pc in (("graph", True, "auto"),
+                                   ("eager", False, "auto"),
+                                   ("off", True, False))}
+    (toks, counts, eng), (toks_e, counts_e, eng_e) = (runs["graph"],
+                                                      runs["eager"])
+    st = eng.stats
+    assert st["prefix_hits"] > 0 and st["cow_copies"] > 0
+    assert st["preempted"] > 0 or st["prefix_evictions"] > 0
+    assert toks == toks_e and counts == counts_e
+    keys = ("prefix_hits", "prefix_tokens_reused", "cow_copies",
+            "prefix_evictions", "peak_pages", "preempted", "steps")
+    assert {k: st[k] for k in keys} == {k: eng_e.stats[k] for k in keys}
+    for name in ("k", "v"):                  # page 0: the trash page
+        assert torch.equal(eng.pool["kv"][name][:, 1:],
+                           eng_e.pool["kv"][name][:, 1:]), name
+    n_l = m.cfg.n_layers
+    assert counts["twopass_softmax_2d"] == st["admitted"] * n_l
+    assert counts["decode_attention_paged"] == st["steps"] * n_l
+    assert toks == runs["off"][0]
+    assert runs["off"][2].stats["prefix_hits"] == 0
+
+
+@pytest.mark.gpu
+def test_stream_deltas_equal_run_tokens_on_the_graph_step(cuda):
+    m, params = _fused_model()
+    kw = dict(slots=3, max_len=48, page_size=8, pages=7, temperature=0.0)
+    eng = m.serving_engine(params, **kw)
+    assert eng._fused is not None
+    got = {}
+    for rid, new in eng.stream(_shared_head_requests(m.cfg.vocab)):
+        got.setdefault(rid, []).extend(new)
+    want = m.serving_engine(params, **kw).run(
+        _shared_head_requests(m.cfg.vocab))
+    assert eng.stats["prefix_hits"] > 0
+    assert {c.rid: c.tokens for c in want} == got
+    assert [c.tokens for c in eng.completions] == [c.tokens for c in want]
+
+
 # ---------------------------------------------------------------------------
 # granite-20b's multi-query decode: 48 query heads over one KV head.
 # ---------------------------------------------------------------------------

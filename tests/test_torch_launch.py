@@ -1,9 +1,9 @@
 """The port's serving CLI (``python -m repro_torch.launch.serve``) on the CPU:
 it serves a reduced model under each softmax algorithm, every other family
 too (deepseek's multi-head latent attention with moe; vlm as the
-reference's lockstep batch with patch inputs), and every flag for
-something not ported yet exits with an error that names its ROADMAP
-item."""
+reference's lockstep batch with patch inputs), the prefix cache's and
+the streaming generator's flags, and every flag for something not ported
+yet exits with an error that names its ROADMAP item."""
 
 import os
 import pathlib
@@ -39,14 +39,50 @@ def test_cli_serves_on_the_cpu(extra, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--kv-dtype", "int8"], 18), (["--scale-granularity", "page"], 18),
-    (["--host-swap-bytes", "1000"], 18), (["--shared-prefix-len", "4"], 17),
-    (["--no-prefix-cache"], 17), (["--stream"], 19), (["--mesh", "2x2"], 22),
+    (["--host-swap-bytes", "1000"], 18), (["--mesh", "2x2"], 22),
 ])
 def test_unported_flags_exit_with_their_item(flags, item, capsys):
     with pytest.raises(SystemExit) as e:
         serve.main(BASE + flags)
     assert e.value.code == 2
     assert f"ROADMAP queue A item {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,hits", [
+    (["--shared-prefix-len", "8"], 2),
+    (["--shared-prefix-len", "8", "--kernels", "--temperature", "0"], 2),
+    (["--shared-prefix-len", "12", "--stream"], 2),
+    (["--shared-prefix-len", "8", "--no-prefix-cache"], None),
+    (["--stream"], 0)],
+    ids=["shared-prefix", "shared-prefix-kernels", "shared-prefix-stream",
+         "no-prefix-cache", "stream"])
+def test_cli_serves_the_prefix_cache_and_stream_flags(flags, hits, capsys):
+    """The prefix cache is on by default, ``--no-prefix-cache`` turns it
+    off, and ``--stream`` prints each request's deltas as they come.  In
+    pages of 8, the second and third requests adopt the head's first page
+    by reference: with a 12-token head (the whole prompt) the match of 11
+    tokens is trimmed to that page, since the 16-token bucket leaves room
+    for a tail of 8 after 8 tokens only."""
+    serve.main(BASE + ["--page-size", "8"] + flags)
+    out = capsys.readouterr().out
+    assert "served 3 requests over 2 slots" in out
+    assert "prefill: 36 tok" in out and "decode:  9 tok" in out
+    if hits is None:
+        assert "prefix cache" not in out
+    else:
+        assert (f"prefix cache: {hits} hits, {hits * 8} prompt tok "
+                "adopted by reference") in out
+    deltas = [line for line in out.splitlines()
+              if line.startswith("delta: request ")]
+    assert bool(deltas) == ("--stream" in flags)
+    if deltas:
+        assert "streamed: " in out and "first delta per request" in out
+        toks = {}
+        for line in deltas:
+            rid, new = line[len("delta: request "):].split(" +")
+            toks.setdefault(int(rid), []).extend(eval(new))
+        assert sorted(len(t) for t in toks.values()) == [4, 4, 4]
+        assert f"sample row: {toks[0]}" in out
 
 
 @pytest.mark.parametrize("flags,frames", [

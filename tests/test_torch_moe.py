@@ -403,14 +403,35 @@ def test_replayed_step_matches_jax_lockstep(weights, jax_lockstep,
 
 @pytest.mark.parametrize("impl,exc,match", [
     ("dispatch", ValueError, "capacity dispatch"),
-    ("gather", ValueError, "capacity dispatch"),
-    ("dense", NotImplementedError, "item 17")])
+    ("gather", ValueError, "capacity dispatch")])
 def test_prefix_cache_true_is_refused(weights, impl, exc, match):
     _, _, cfg, tp = weights
     with pytest.raises(exc, match=match):
         ContinuousBatchingEngine(Model(cfg, "cpu"), tp, slots=2,
                                  max_len=MAX_LEN, prefix_cache=True,
                                  moe_impl=impl)
+    eng = ContinuousBatchingEngine(Model(cfg, "cpu"), tp, slots=2,
+                                   max_len=MAX_LEN, moe_impl=impl)
+    assert eng.prefix_cache is None             # "auto" resolves off
+
+
+def test_prefix_cache_serves_under_the_dense_impl(weights):
+    """``moe_impl="dense"`` routes each token alone, so a tail prefills
+    exactly after shared pages: True is taken, "auto" resolves on, and
+    the hits' tokens are the reference lockstep's under dense."""
+    jm, jp, cfg, tp = weights
+    head = tuple(range(5, 21))                    # two pages of 8
+    reqs = [Request(rid=i, prompt=head + (30 + i, 40 + i), max_new_tokens=4)
+            for i in range(3)]
+    for pc in (True, "auto"):
+        eng = ContinuousBatchingEngine(Model(cfg, "cpu"), tp, slots=2,
+                                       max_len=MAX_LEN, page_size=8,
+                                       temperature=0.0, moe_impl="dense",
+                                       prefix_cache=pc)
+        got = _tokens(eng.run([dataclasses.replace(r) for r in reqs]))
+        th = eng.throughput()
+        assert th["prefix_hits"] == 2 and th["prefix_tokens_reused"] == 32
+        assert got == [_jax_greedy(jp, jm.cfg, r, "dense") for r in reqs]
 
 
 # ---------------------------------------------------------------------------

@@ -97,12 +97,21 @@ def test_paged_equals_strip_and_ragged_equals_lockstep(weights, buckets):
 
 
 def _refcount_identity(eng):
-    """Every live page is held by exactly its slot; the rest are free."""
+    """Every live page is held by exactly its slot and, once indexed, the
+    prefix cache (these prompts share no head: no page has two slots);
+    the rest are free."""
     alloc = eng.allocator
     held = [p for pages in eng.slot_pages for p in pages]
+    indexed, stack = set(), list(eng.prefix_cache.root.children.values())
+    while stack:                                  # the radix index's nodes
+        node = stack.pop()
+        indexed.add(node.page)
+        stack.extend(node.children.values())
+    assert len(indexed) == eng.prefix_cache.n_pages
     assert len(held) == len(set(held))
-    assert all(alloc.refcount(p) == 1 for p in held)
-    assert alloc.free_pages + len(held) == alloc.usable_pages
+    assert all(alloc.refcount(p) == 1 + (p in indexed) for p in held)
+    assert all(alloc.refcount(p) == 1 for p in indexed - set(held))
+    assert alloc.free_pages + len(indexed | set(held)) == alloc.usable_pages
     for slot, pages in enumerate(eng.slot_pages):
         row = eng.pool["page_table"][slot].tolist()
         assert row[:len(pages)] == pages
@@ -147,12 +156,31 @@ def test_budgeted_pools_and_backfill(weights):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(prefix_cache=True), "17"), (dict(page_dtype="int8"), "18"),
+    (dict(page_dtype="int8"), "18"),
     (dict(host_swap_bytes=1 << 20), "18"), (dict(mesh=object()), "22")])
 def test_unported_options_raise(weights, kw, item):
     _, _, tm, tp = weights
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         ContinuousBatchingEngine(tm, tp, slots=2, max_len=MAX_LEN, **kw)
+
+
+@pytest.mark.parametrize("prefix_cache", [True, False, "auto"])
+def test_prefix_cache_options_serve(weights, prefix_cache):
+    """``prefix_cache`` is served (ROADMAP item 17): requests sharing a
+    16-token head give the JAX lockstep's tokens, with the tails prefilled
+    after the shared pages unless the cache is off."""
+    jm, jp, tm, tp = weights
+    head = tuple(range(7, 23))
+    reqs = [Request(rid=i, prompt=head + (50 + i,), max_new_tokens=4)
+            for i in range(3)]
+    eng = ContinuousBatchingEngine(tm, tp, slots=2, max_len=MAX_LEN,
+                                   page_size=8, temperature=0.0,
+                                   prefix_cache=prefix_cache)
+    assert _tokens(eng.run(_copy(reqs))) == [_port_lockstep(tm, tp, r)
+                                             for r in reqs]
+    th = eng.throughput()
+    assert th["prefix_cache"] is bool(prefix_cache)
+    assert th.get("prefix_hits", 0) == (2 if prefix_cache else 0)
 
 
 def test_unported_families_and_policy_sites_raise():
