@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--layers N]
                           [--only {train,swa,engine,mqa,ssm,encdec,moe,mla,
-                                   vlm,hybrid,prefix}]
+                                   vlm,hybrid,prefix,quant}]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -244,7 +244,26 @@ Phases (any failure exits non-zero; nothing is caught):
    top-2 margin there are reported.  The mla phase serves 8 requests
    sharing a 1,024-token head under ``moe_impl="dense"`` and the vlm
    phase 8 text requests sharing a 400-token head (across the 256
-   positions of the vision grid) the same way, on and off.
+   positions of the vision grid) the same way, on and off;
+19. int8 pages and the host-RAM swap tier: the engine phase's
+   qwen2.5-14b (full width, ``--layers`` deep, bf16, 8 slots, ``max_len``
+   1,664, pages of 128) serving 12 greedy requests of 200-1,500 prompt
+   tokens + 32 new from bf16 pages, int8 "page" and int8 "page_head"
+   pages, each through the graph step (the main path) and the eager step:
+   tokens, launches and the arenas' codes and scales equal; kernel 3 at
+   that shape (q [8, 8, 5, 128] bf16) over bf16 pages (its bf16 body)
+   and int8 pages at both granularities (its general body, the scales
+   fused) against its plain version, timed beside its bound; the pools'
+   pages at one budget (int8 >= 1.8x the bf16 page tokens); int8 against
+   bf16 tokens reported with the top-2 margin at each first difference;
+   the swap tier on an arena that holds the first 8 prompts and no more
+   page (57 of 105 pages), the prefix cache off: demotions == promotions
+   > 0, nothing preempted, each promotion's bytes equal to its
+   demotion's, each one's ms and MB, on bf16 and int8 pages; and a
+   2-layer float32 cut (int8 kernels == the plain route over the same
+   pools, logits within 1e-4; the swap run == the unpressured run).
+   The ``kernels`` line counts kernel 3's launches over int8 arenas apart
+   (``decode_attention_paged_int8``, from the int8 "page" graph run).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -1611,7 +1630,7 @@ def serve_requests(torch, model, params, reqs, state=None, hook=None,
         out.update(streamed=[streamed.get(c.rid, []) for c in comps],
                    deltas=deltas)
     out.update(prefill_s=eng.stats["prefill_s"])
-    if eng.prefix_cache is not None:
+    if eng.paged:
         out.update(free_pages=eng.allocator.free_pages)
     if state is not None:
         state.update({k: v.clone() for k, v in _paths(eng.pool["kv"])
@@ -4807,11 +4826,13 @@ def hit_logits_limit(torch, m, params, n: int):
 
 
 def hold_tokens(torch, m, params, prompts, got, want, what: str,
-                moe_impl: str = "dispatch") -> bool:
-    """``got`` == ``want`` (greedy tokens a request), or a report: each
-    request that differs, the first position where it does and the top-2
-    logit margin of ``want``'s run there (its prompt and tokens before
-    that position prefilled whole).  Returns whether they were equal."""
+                moe_impl: str = "dispatch",
+                tag: str = "prefix_mismatch") -> bool:
+    """``got`` == ``want`` (greedy tokens a request), or a report under
+    ``tag``: each request that differs, the first position where it does
+    and the top-2 logit margin of ``want``'s run there (its prompt and
+    tokens before that position prefilled whole).  Returns whether they
+    were equal."""
     from repro_torch.serving import engine
 
     if got == want:
@@ -4823,14 +4844,14 @@ def hold_tokens(torch, m, params, prompts, got, want, what: str,
         if j is None:
             continue
         ctx = list(prompts[i]) + list(b[:j])
-        lg, _ = engine.prefill(params, torch.tensor([ctx], device="cuda"),
+        lg, _ = engine.prefill(params, torch.tensor([ctx], device=m.device),
                                cfg=m.cfg, max_len=len(ctx),
                                moe_impl=moe_impl)
         top2 = lg[0, :m.cfg.vocab].float().topk(2).values
         diffs.append(dict(request=i, position=j, got=a[j], want=b[j],
                           want_top2_margin=float(top2[0] - top2[1]),
                           largest_logit=float(lg.float().abs().max())))
-    say("prefix_mismatch", arch=m.cfg.name, check=what, requests=len(got),
+    say(tag, arch=m.cfg.name, check=what, requests=len(got),
         differ=len(diffs), first_differences=diffs)
     return False
 
@@ -5127,6 +5148,444 @@ def prefix_phase(torch, n_layers: int) -> dict:
     return out["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: int8 KV pages and the host-RAM swap tier.
+# ---------------------------------------------------------------------------
+QUANT_SEED = 32              # its first 8 prompts fill 56 pages of 128, and
+#                              two of them grow into a new page within their
+#                              32 new tokens
+QUANT_POOLS = (("bf16", None, None), ("int8_page", "int8", "page"),
+               ("int8_page_head", "int8", "page_head"))
+QUANT_PAGE = 128             # the registry's page size at max_len 1,664
+QUANT_LAYERS_F32 = 2         # the float32 cut's depth
+SWAP_BYTES = 8 << 30         # host RAM for demoted slots: never the limit
+DECODE_BF16_TOL = dict(atol=1e-5, rtol=1e-2)    # kernel_phase's bf16 limit
+
+
+def quant_kernel_checks(torch, rows, lengths) -> None:
+    """Kernel 3 at the quant phase's served shape: q [8, 8, 5, 128] bf16,
+    pages of 128, a shuffled table of 13 pages a slot, ``lengths`` the
+    served slots' lengths.  The bf16 arenas (the bf16 body) and the same
+    values quantized a page at a time as adoption does, int8 at both
+    granularities (the general body, scales fused), each against its
+    plain version at the decode limits, timed by graph replay beside its
+    bound: each valid position's codes, scales and q read once, o written
+    once, over 3.35 TB/s.  No single library call reads int8 pages with
+    their scales (``library_ms`` null); ``sdpa_dequantized_ms`` times
+    ``scaled_dot_product_attention`` over the dequantized cache laid out
+    as a strip, for context."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.serving import kv_cache
+
+    gen = torch.Generator(device="cuda").manual_seed(QUANT_SEED)
+    s, hkv, g, d, ps = N_SLOTS, 8, 5, 128, QUANT_PAGE
+    pmax = MAX_LEN // ps
+    n_pages = 1 + s * pmax
+    tab = (torch.randperm(n_pages - 1, device="cuda", generator=gen) + 1
+           ).reshape(s, pmax).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = torch.randn((s, hkv, g, d), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    kb, vb = (torch.randn((n_pages, ps, hkv, d), device="cuda",
+                          generator=gen).to(torch.bfloat16) for _ in "kv")
+    sc = d ** -0.5
+    n_pos = int(lens.sum())
+    mask = (torch.arange(pmax * ps, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    q_l = q.reshape(s, hkv * g, 1, d)
+    rows["decode_attention_paged_int8"] = {}
+    for name, gran in (("bf16", None), ("int8_page", "page"),
+                       ("int8_page_head", "page_head")):
+        if gran is None:
+            k, v, ksc, vsc = kb, vb, None, None
+            kv_bytes = n_pos * hkv * d * 2 * 2
+        else:
+            axes = (1, 2, 3) if gran == "page" else (1, 3)
+            sshape = (n_pages, ps) if gran == "page" else (n_pages, ps, hkv)
+            (k, ksc), (v, vsc) = (kv_cache.quantize_symmetric(x, axes)
+                                  for x in (kb, vb))
+            ksc, vsc = (x.expand(-1, ps, hkv if gran == "page_head" else 1, 1)
+                        .reshape(sshape).contiguous() for x in (ksc, vsc))
+            kv_bytes = n_pos * (hkv * d * 2 + 4 * 2 * (
+                hkv if gran == "page_head" else 1))
+
+        def fn(k=k, v=v, ksc=ksc, vsc=vsc):
+            return da.decode_attention_paged(q, k, v, tab, lens, ksc, vsc,
+                                             scale=sc, pages_per_tile=1)
+
+        def plain(k=k, v=v, ksc=ksc, vsc=vsc):
+            return da.decode_attention_paged_plain(
+                q, k, v, tab, lens, ksc, vsc, scale=sc, n_t_chunks=pmax)
+
+        got = fn()
+        torch.cuda.synchronize()
+        r = held(got, plain(), DECODE_BF16_TOL,
+                 f"decode_attention_paged {name} at the quant shape")
+        check(bool((got[lens == 0] == 0).all()), f"{name}: free slot not 0")
+        body = da.kernel_body(q.dtype, k.dtype, d, d, da._row_bytes(k, v))
+        check(body == ("bf16" if gran is None else "general"),
+              f"{name}: took the {body} body")
+        if gran is None:
+            kd, vd = kb, vb
+        else:
+            kd, vd = (kv_cache.dequantize_pages(
+                {"k": k, "v": v, "k_scale": ksc, "v_scale": vsc},
+                torch.bfloat16)[n] for n in ("k", "v"))
+        k_l, v_l = (x[tab.long()].reshape(s, pmax * ps, hkv, d).transpose(1, 2)
+                    for x in (kd, vd))
+        io_bytes = 2 * q.numel() * 2 + s * pmax * 4 + s * 4
+        ops = n_pos * hkv * g * (4 * d + 20 + (2 if gran else 0))
+        b_ms, b_by = bound(kv_bytes + io_bytes, ops)
+        row = dict(
+            ms=graph_ms(torch, fn), eager_ms=cuda_ms(torch, fn),
+            plain_ms=cuda_ms(torch, plain, 5), library_ms=None,
+            sdpa_dequantized_ms=graph_ms(torch, lambda: (
+                F.scaled_dot_product_attention(q_l, k_l, v_l, attn_mask=mask,
+                                               enable_gqa=True))),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=r["max_abs_err"],
+            body=body, shape=dict(q=list(q.shape), pages=list(k.shape),
+                                  scales=None if ksc is None
+                                  else list(ksc.shape), pmax=pmax,
+                                  lengths=list(lengths)))
+        row["bound_share"] = b_ms / row["ms"]
+        say("kernel_check", kernel="decode_attention_paged", case=name,
+            phase="quant", body=body, **r)
+        case = {"bf16": "bf16_body", "int8_page": "main",
+                "int8_page_head": "page_head"}[name]
+        rows["decode_attention_paged_int8"][case] = row
+        say("kernel_time", kernel="decode_attention_paged", case=name,
+            phase="quant", bound_us=b_ms * 1e3, **row)
+        del k_l, v_l, kd, vd
+    del kb, vb
+
+
+def swap_watch(torch):
+    """A ``serve_requests`` hook that times each demotion and promotion
+    (the card synchronised before and after) and, after each promotion,
+    gathers the slot's restored pages and holds them against the bytes
+    its demotion captured (the blob the host store kept).  The events go
+    into ``hook.events``: ``(kind, ms, bytes)``, a promotion's with
+    whether the bytes were equal."""
+    from repro_torch.serving import kv_cache
+
+    events = []
+
+    def hook(eng):
+        demote, promote, put = (eng._demote, eng._promote_swapped,
+                                eng.host_swap.put)
+        blobs = {}
+
+        def put_(rid, blob):
+            ok = put(rid, blob)
+            if ok:
+                blobs[rid] = blob
+            return ok
+
+        def demote_(slot):
+            rid = eng.slot_owner[slot].rid
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ok = demote(slot)
+            torch.cuda.synchronize()
+            if ok:
+                events.append(("demote", (time.perf_counter() - t) * 1e3,
+                               kv_cache.HostSwapStore.blob_bytes(
+                                   blobs[rid])))
+            return ok
+
+        def promote_(slot):
+            rid = next(iter(eng._swapped))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ok = promote(slot)
+            torch.cuda.synchronize()
+            if ok:
+                ms = (time.perf_counter() - t) * 1e3
+                n = eng._pages_for(int(eng.pool["lengths"][slot]))
+                blob = blobs.pop(rid)
+                got = kv_cache.gather_slot(eng.pool,
+                                           eng._row(eng._page_row(slot)))
+                equal = all(torch.equal(got[k][:, :n].cpu(), blob[k][:, :n])
+                            for k in blob)
+                events.append(("promote", ms,
+                               kv_cache.HostSwapStore.blob_bytes(blob),
+                               equal))
+            return ok
+
+        eng.host_swap.put = put_
+        eng._demote = demote_
+        eng._promote_swapped = promote_
+
+    hook.events = events
+    return hook
+
+
+def quant_serving(torch, m, params, prompts) -> tuple[dict, dict]:
+    """The three pools (bf16 pages, int8 "page", int8 "page_head"), each
+    with the graph step (the main path) and the eager step: tokens,
+    launches and every arena leaf (codes and scales; the trash page
+    aside) equal; decode ms a step, prefill tok/s, peak GB; int8 against
+    bf16 tokens reported (the share of positions that agree, the top-2
+    margin at each first difference), not held.  Returns the graph runs
+    (tokens, throughput) by pool and the int8 "page" run's launches."""
+    from repro_torch.serving.scheduler import Request
+
+    cfg = m.cfg
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                for i, p in enumerate(prompts)]
+
+    runs = {}
+    for name, pd, gran in QUANT_POOLS:
+        kname = "decode_attention_paged" + ("_int8" if pd else "")
+        out = {}
+        for fused in (True, False):
+            state = {}
+            toks, st = serve_requests(
+                torch, m, params, reqs(), state=state, slots=N_SLOTS,
+                max_len=MAX_LEN, seed=3, temperature=0.0, fused=fused,
+                page_dtype=pd, scale_granularity=gran)
+            check(all(len(t) == NEW_TOKENS for t in toks),
+                  f"quant {name}: token counts")
+            check(st["launches"][kname] == cfg.n_layers * st["steps"]
+                  and st["launches"]["twopass_softmax_2d"] > 0,
+                  f"quant {name}: launches {st['launches']}")
+            check(pd is None or st["launches"]["decode_attention_paged"] == 0,
+                  f"quant {name}: a bf16 launch of kernel 3")
+            out[fused] = toks, st, state
+        (tg, sg, kg), (te, se, ke) = out[True], out[False]
+        check(tg == te, f"quant {name}: graph tokens != eager tokens")
+        check(sg["launches"] == se["launches"]
+              and sg["launches_per_replay"] == {kname: cfg.n_layers},
+              f"quant {name}: graph launches {sg['launches']} "
+              f"({sg['launches_per_replay']} a replay) != eager "
+              f"{se['launches']}")
+        leaves = [k for k in kg if k != "slots"]
+        for k in leaves:
+            check(torch.equal(kg[k][:, 1:], ke[k][:, 1:]),
+                  f"quant {name}: graph {k} != eager")
+        say("parity", arch=ARCH, check=f"quant {name}: graph == eager "
+            "tokens, launches and arena leaves (trash page aside)",
+            equal=True, leaves=leaves,
+            launches_per_replay=sg["launches_per_replay"])
+        keys = ("decode_ms_per_step", "decode_tok_s", "prefill_tok_s",
+                "peak_bytes", "peak_reserved_bytes", "steps", "pages",
+                "peak_pages")
+        say("quant_serving", arch=ARCH, n_layers=cfg.n_layers, pool=name,
+            page_dtype=pd or "bfloat16", scale_granularity=gran,
+            graph={k: sg[k] for k in keys}, eager={k: se[k] for k in keys},
+            peak_gb=sg["peak_bytes"] / 1e9, capture_s=sg["capture_s"],
+            launches=sg["launches"])
+        runs[name] = tg, sg
+        del out, kg, ke
+        gc.collect()
+        torch.cuda.empty_cache()
+    bf = runs["bf16"][0]
+    for name in ("int8_page", "int8_page_head"):
+        q8 = runs[name][0]
+        agree = sum(a == b for x, y in zip(q8, bf) for a, b in zip(x, y))
+        say("parity", arch=ARCH, check=f"quant {name} vs bf16 pages tokens "
+            "(reported, not held: bf16 near-ties flip)",
+            token_agreement=agree / sum(map(len, bf)),
+            requests_equal=sum(x == y for x, y in zip(q8, bf)))
+        hold_tokens(torch, m, params, prompts, q8, bf,
+                    f"quant {name} vs bf16 pages", tag="quant_mismatch")
+    return runs, runs["int8_page"][1]["launches"]
+
+
+def quant_budget(cfg) -> None:
+    """The pool's bytes and pages at one budget (the bf16 pool at full
+    provisioning: 8 slots x 13 pages + the trash page): the int8 "page"
+    pool holds >= 1.8x its page tokens."""
+    from repro_torch.serving import kv_cache
+
+    ps = QUANT_PAGE
+    budget = kv_cache.paged_pool_bytes(cfg, N_SLOTS, MAX_LEN, page_size=ps)
+    out = {}
+    for name, pd, gran in QUANT_POOLS:
+        kw = dict(page_size=ps, page_dtype=pd, scale_granularity=gran)
+        pages = kv_cache.max_pages_in_budget(cfg, N_SLOTS, MAX_LEN, budget,
+                                             **kw)
+        out[name] = dict(pages=pages, page_tokens=(pages - 1) * ps,
+                         bytes=kv_cache.paged_pool_bytes(
+                             cfg, N_SLOTS, MAX_LEN, pages=pages, **kw))
+    ratio = out["int8_page"]["page_tokens"] / out["bf16"]["page_tokens"]
+    say("quant_budget", arch=ARCH, n_layers=cfg.n_layers, budget=budget,
+        ratio_page=ratio, ratio_page_head=(out["int8_page_head"][
+            "page_tokens"] / out["bf16"]["page_tokens"]), **out)
+    check(ratio >= 1.8, f"quant: int8 pages hold {ratio}x the bf16 tokens")
+
+
+def quant_swap(torch, m, params, prompts, unpressured) -> None:
+    """The same model on an arena that holds the first 8 prompts and not a
+    page more (57 of the 105 pages of full provisioning), the prefix cache
+    off and the swap tier on: growth must demote.  On bf16 and on int8
+    "page" pages, through the graph step: demoted == prefetched > 0,
+    nothing preempted, the store empty and every page free at the end,
+    each promotion's restored bytes equal to its demotion's captured
+    bytes; each demotion's and promotion's ms and MB; tokens against the
+    unpressured run reported."""
+    from repro_torch.serving.scheduler import Request
+
+    ps = QUANT_PAGE
+    pages = 1 + sum(-(-len(p) // ps) for p in prompts[:N_SLOTS])
+    grows = sum(-(-(len(p) + NEW_TOKENS - 1) // ps) > -(-len(p) // ps)
+                for p in prompts[:N_SLOTS])
+    check(grows > 0, "quant swap: no admitted prompt grows a page")
+    for name, pd, gran in QUANT_POOLS[:2]:
+        watch = swap_watch(torch)
+        toks, st = serve_requests(
+            torch, m, params, [Request(rid=i, prompt=p,
+                                       max_new_tokens=NEW_TOKENS)
+                               for i, p in enumerate(prompts)],
+            hook=watch, slots=N_SLOTS, max_len=MAX_LEN, seed=3,
+            temperature=0.0, pages=pages, prefix_cache=False,
+            host_swap_bytes=SWAP_BYTES, page_dtype=pd,
+            scale_granularity=gran)
+        ev = watch.events
+        dem = [e for e in ev if e[0] == "demote"]
+        pro = [e for e in ev if e[0] == "promote"]
+        want = unpressured[name][0]
+        agree = sum(a == b for x, y in zip(toks, want) for a, b in zip(x, y))
+        say("quant_swap", arch=ARCH, pool=name, pages=pages,
+            full_pages=1 + N_SLOTS * (MAX_LEN // ps), growing_prompts=grows,
+            **{k: st[k] for k in ("demoted", "prefetched", "preempted",
+                                  "swap_bytes_used", "free_pages",
+                                  "decode_ms_per_step", "prefill_tok_s",
+                                  "peak_pages")},
+            demote_ms=[e[1] for e in dem], demote_mb=[e[2] / 1e6 for e in dem],
+            promote_ms=[e[1] for e in pro],
+            promote_mb=[e[2] / 1e6 for e in pro],
+            restored_equal=[e[3] for e in pro],
+            token_agreement_vs_unpressured=agree / sum(map(len, want)),
+            requests_equal=sum(x == y for x, y in zip(toks, want)))
+        check(st["demoted"] == st["prefetched"] == len(dem) == len(pro) > 0,
+              f"quant swap {name}: demoted {st['demoted']}, prefetched "
+              f"{st['prefetched']}")
+        check(st["preempted"] == 0 and st["swap_bytes_used"] == 0
+              and st["free_pages"] == st["pages"],
+              f"quant swap {name}: {st}")
+        check(all(e[3] for e in pro),
+              f"quant swap {name}: restored bytes != captured bytes")
+        check(st["launches"]["decode_attention_paged"
+                             + ("_int8" if pd else "")] > 0,
+              f"quant swap {name}: kernel 3 not launched")
+
+
+def quant_f32_cut(torch, m, prompts) -> None:
+    """Full width, depth cut to 2 layers, float32: over int8 pools at both
+    granularities the kernels (eager step) and the plain route give ``==``
+    greedy tokens, and every sampled row's logits up to the first decode
+    step (the prefills' first tokens, then one step over the int8 pages)
+    lie within 1e-4 of the largest logit; and on the swap run's arena
+    (float32 and int8 "page" pages) the tokens equal the unpressured
+    run's."""
+    from repro_torch.models import Model
+    from repro_torch.serving.scheduler import Request
+
+    cfg = dataclasses.replace(m.cfg, n_layers=QUANT_LAYERS_F32,
+                              dtype="float32")
+    model = Model(cfg, m.device)
+    plain = Model(dataclasses.replace(cfg, use_kernels=False), m.device)
+    params = model.init(seed=1, dtype=torch.float32)
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                for i, p in enumerate(prompts)]
+
+    def recorder(store):
+        def hook(eng):
+            sample = eng._sample
+
+            def rec(logits):
+                if len(store) <= N_SLOTS:     # the prefills, then a step
+                    store.append(logits[:, :cfg.vocab].float().clone())
+                return sample(logits)
+
+            eng._sample = rec
+        return hook
+
+    kw = dict(slots=N_SLOTS, max_len=MAX_LEN, seed=3, temperature=0.0,
+              fused=False)
+    for gran in ("page", "page_head"):
+        got, want = [], []
+        on, st_on = serve_requests(torch, model, params, reqs(),
+                                   hook=recorder(got), page_dtype="int8",
+                                   scale_granularity=gran, **kw)
+        off, st_off = serve_requests(torch, plain, params, reqs(),
+                                     hook=recorder(want), page_dtype="int8",
+                                     scale_granularity=gran, **kw)
+        worst = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(got, want))
+        say("parity", arch=cfg.name, check=f"quant int8 {gran}, float32, "
+            f"{QUANT_LAYERS_F32} layers: kernels == plain route tokens; "
+            "logits of the prefills and the first decode step",
+            tokens_equal=on == off, logits_compared=len(got),
+            max_err_over_max_logit=worst, tol=F32_LOGIT_TOL,
+            launches=st_on["launches"])
+        check(on == off, f"quant f32 {gran}: kernel tokens != plain tokens")
+        check(len(got) == len(want) == N_SLOTS + 1 and worst <= F32_LOGIT_TOL,
+              f"quant f32 {gran}: logits {worst}")
+        check(st_on["launches"]["decode_attention_paged_int8"] > 0
+              and sum(st_off["launches"].values()) == 0,
+              f"quant f32 {gran}: launches {st_on['launches']} / "
+              f"{st_off['launches']}")
+    pages = 1 + sum(-(-len(p) // QUANT_PAGE) for p in prompts[:N_SLOTS])
+    for pd in (None, "int8"):
+        kw = dict(slots=N_SLOTS, max_len=MAX_LEN, seed=3, temperature=0.0,
+                  prefix_cache=False, page_dtype=pd)
+        roomy, _ = serve_requests(torch, model, params, reqs(), **kw)
+        tight, st = serve_requests(torch, model, params, reqs(), pages=pages,
+                                   host_swap_bytes=SWAP_BYTES, **kw)
+        say("parity", arch=cfg.name, check=f"quant swap, float32 "
+            f"{pd or 'float32'} pages, {QUANT_LAYERS_F32} layers: {pages} "
+            "pages == full provisioning tokens", equal=tight == roomy,
+            demoted=st["demoted"], prefetched=st["prefetched"],
+            preempted=st["preempted"])
+        check(tight == roomy, f"quant swap f32 {pd}: tokens != unpressured")
+        check(st["demoted"] == st["prefetched"] > 0 and st["preempted"] == 0,
+              f"quant swap f32 {pd}: {st}")
+    del model, plain, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def quant_phase(torch, rows, n_layers: int) -> dict:
+    """Phase 19: qwen2.5-14b at full width, ``n_layers`` deep, served from
+    int8 pages at both granularities through the CUDA-graph step, and
+    under page pressure with the host-RAM swap tier (see the module's
+    docstring).  Returns the main path's launches of kernel 3 over int8
+    arenas (the int8 "page" graph run)."""
+    from repro_torch.models import build_model
+
+    rng = np.random.default_rng(QUANT_SEED)
+    m = build_model(ARCH, n_layers=n_layers, use_kernels=True)
+    cfg = m.cfg
+    params = m.init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    plens = rng.integers(200, 1501, N_REQ)
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab, n))
+               for n in plens]
+    say("quant_config", arch=ARCH, n_layers=cfg.n_layers, slots=N_SLOTS,
+        max_len=MAX_LEN, requests=N_REQ, new_tokens=NEW_TOKENS,
+        prompt_lens=plens.tolist())
+    quant_kernel_checks(torch, rows,
+                        [int(p) + NEW_TOKENS - 1 for p in plens[:N_SLOTS]])
+    quant_budget(cfg)
+    runs, launches = quant_serving(torch, m, params, prompts)
+    quant_swap(torch, m, params, prompts, runs)
+    del m, params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant_f32_cut(torch, build_model(ARCH, n_layers=QUANT_LAYERS_F32,
+                                     use_kernels=True), prompts)
+    return {"decode_attention_paged_int8":
+            launches["decode_attention_paged_int8"]}
+
+
 def idle_share(torch, m, params, prompts, *, fused: bool):
     """Device busy time over wall time for a short traced serving run, the
     decode step a CUDA graph or eager (its capture before the trace)."""
@@ -5283,6 +5742,8 @@ REPLACES = {
     "twopass_softmax_2d": "src/repro/kernels/twopass_softmax.py:76",
     "twopass_stats_2d": "src/repro/kernels/twopass_softmax.py:115",
     "decode_attention_paged": "src/repro/kernels/decode_attention.py:239",
+    "decode_attention_paged_int8":
+        "src/repro/kernels/decode_attention.py:239",
     "decode_attention": "src/repro/kernels/decode_attention.py:151",
     "threepass_recompute_2d": "src/repro/kernels/threepass_softmax.py:116",
     "threepass_reload_2d": "src/repro/kernels/threepass_softmax.py:148",
@@ -5298,6 +5759,7 @@ SOURCES = {
     "twopass_softmax_2d": "src/repro_torch/csrc/twopass_softmax.cu",
     "twopass_stats_2d": "src/repro_torch/csrc/twopass_softmax.cu",
     "decode_attention_paged": "src/repro_torch/csrc/decode_attention.cu",
+    "decode_attention_paged_int8": "src/repro_torch/csrc/decode_attention.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "threepass_recompute_2d": "src/repro_torch/csrc/threepass_softmax.cu",
     "threepass_reload_2d": "src/repro_torch/csrc/threepass_softmax.cu",
@@ -5312,6 +5774,7 @@ SOURCES = {
 MAIN_CASE = {"twopass_softmax_2d": "prefill_bucket_1024",
              "twopass_stats_2d": "prefill_bucket_1024",
              "decode_attention_paged": "main", "decode_attention": "main",
+             "decode_attention_paged_int8": "main",
              "threepass_recompute_2d": "prefill_bucket_1024",
              "threepass_reload_2d": "prefill_bucket_1024",
              "xent_fwd_2d": "lm_head_f32", "xent_bwd_2d": "lm_head_f32",
@@ -5326,7 +5789,7 @@ def main() -> int:
                     "16 keeps the whole script inside its time limit)")
     ap.add_argument("--only", choices=("train", "swa", "engine", "mqa",
                                        "ssm", "encdec", "moe", "mla", "vlm",
-                                       "hybrid", "prefix"),
+                                       "hybrid", "prefix", "quant"),
                     help="run one phase alone (train: to compare the train "
                     "step of two trees on one card); no kernels or ok line")
     args = ap.parse_args()
@@ -5361,6 +5824,10 @@ def main() -> int:
         elif args.only == "prefix":
             t0 = time.perf_counter()
             say("prefix_done", launches=prefix_phase(torch, args.layers),
+                seconds=time.perf_counter() - t0)
+        elif args.only == "quant":
+            t0 = time.perf_counter()
+            say("quant_done", launches=quant_phase(torch, {}, args.layers),
                 seconds=time.perf_counter() - t0)
         elif args.only in ("mqa", "ssm", "encdec", "moe", "mla", "vlm",
                            "hybrid"):
@@ -5438,6 +5905,9 @@ def main() -> int:
     for name, n in prefix_phase(torch, args.layers).items():
         launches[name] += n
     say("prefix_done", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    launches.update(quant_phase(torch, rows, args.layers))
+    say("quant_done", seconds=time.perf_counter() - t0)
     kernels = []
     for name in REPLACES:
         r = rows[name][MAIN_CASE[name]]

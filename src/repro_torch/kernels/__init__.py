@@ -9,7 +9,8 @@ from repro_torch.kernels import (decode_attention, flash_attention,
                                  twopass_xent)
 
 # Every kernel wrapper of the package; each counts its launches in
-# ``.launches``.
+# ``.launches`` (the paged decode's launches over int8 arenas apart, under
+# their own name).
 WRAPPERS = {
     "twopass_softmax_2d": twopass_softmax.twopass_softmax_2d,
     "twopass_stats_2d": twopass_softmax.twopass_stats_2d,
@@ -21,6 +22,8 @@ WRAPPERS = {
     "lmhead_xent_dh_2d": twopass_xent.lmhead_xent_dh_2d,
     "lmhead_xent_dw_2d": twopass_xent.lmhead_xent_dw_2d,
     "decode_attention_paged": decode_attention.decode_attention_paged,
+    "decode_attention_paged_int8":
+        decode_attention.decode_attention_paged_int8,
     "decode_attention": decode_attention.decode_attention,
     "flash_attention_fwd_gqa": flash_attention.flash_attention_fwd_gqa,
     "flash_attention_bwd_gqa": flash_attention.flash_attention_bwd_gqa,

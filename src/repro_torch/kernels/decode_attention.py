@@ -17,13 +17,16 @@ The plain versions are the torch twins of the reference's chunked forms
 Python-looped chunks over slots and positions with the same
 ``_mn_mask_update`` fold.  A wrapper runs its plain version for a tensor on
 the CPU and launches its kernel for a tensor on the card; each counts its
-launches in ``.launches``.
+launches in ``.launches``.  The paged wrapper counts its launches over
+int8 arenas apart, in ``decode_attention_paged_int8.launches``, and the
+rest in its own.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import types
 
 import torch
 
@@ -380,9 +383,15 @@ def decode_attention_paged(q, k_pages, v_pages, page_table, lengths,
                        _row_bytes(k_pages, v_pages))
     launch_paged(body, q, k_pages, v_pages, table, lens, ksp, vsp, strides,
                  o, tile=min(ppt * ps, MAX_TILE), window=window, scale=scale)
-    decode_attention_paged.launches += 1
+    if ksp is None:
+        decode_attention_paged.launches += 1
+    else:
+        decode_attention_paged_int8.launches += 1
     return o
 
 
 decode_attention.launches = 0
 decode_attention_paged.launches = 0
+# the paged kernel's launches over int8 arenas (its general body with the
+# scales fused), counted apart from its other launches
+decode_attention_paged_int8 = types.SimpleNamespace(launches=0)

@@ -40,6 +40,11 @@ The alignments are re-derived for Hopper rather than copied from the TPU's
   * ``kv_page``: unchanged (128-token pages, 16-aligned, shrunk to the
     pool's own length for tiny pools), so the port resolves the same page
     size as the reference.
+  * ``kv_page_quant``: unchanged.  An int8 pool's cols are its tokens per
+    page, exactly as ``kv_page``'s; its rows are the scale granularity (1
+    row: one float32 scale a stored position, "page"; more: one a
+    position and KV head, "page_head").  The heuristic keeps ``kv_page``'s
+    pages with "page" scales.
 """
 
 from __future__ import annotations
@@ -120,4 +125,6 @@ register(KernelSpec(name="flash_attention", row_align=64, row_cap=64,
 register(KernelSpec(name="flash_attention_bwd", row_align=64, row_cap=64,
                     col_align=64, col_cap=64, full_col_threshold=0))
 register(KernelSpec(name="kv_page", row_align=1, row_cap=1,
+                    col_align=16, col_cap=128, full_col_threshold=0))
+register(KernelSpec(name="kv_page_quant", row_align=1, row_cap=1,
                     col_align=16, col_cap=128, full_col_threshold=0))

@@ -27,6 +27,13 @@ the run prints the cache's counters.  ``--stream`` serves through the
 engine's streaming generator, which yields each request's new tokens
 after every scheduler step.
 
+``--kv-dtype int8`` stores the paged arenas as int8 with float32 scale
+sidecars (``--scale-granularity`` page or page_head; dense, moe and vlm);
+the decode kernel reads them with the scales fused.  ``--host-swap-bytes
+N`` turns the host-RAM swap tier on: under page pressure a cold slot's
+pages are demoted to host RAM, bit for bit, and promoted back, instead of
+being preempted and prefilled again.
+
 An encdec (whisper) request carries ``--enc-frames`` seeded encoder frame
 embeddings (default ``--prompt-len``; the audio front end is not
 modelled), whose cross K/V is adopted as read-only arena pages at
@@ -39,9 +46,9 @@ the phase-timed ``engine.generate_timed`` (the engine's flags do not
 apply).
 
 The model runs on ``--device`` (``cuda`` unless the CPU is asked for), with
-random weights made from seed 0 in the compute dtype.  Flags for what this
-package does not serve yet (int8 pages, host swap, a mesh) exit with an
-error that names their ROADMAP item.  A
+random weights made from seed 0 in the compute dtype.  A flag for what
+this package does not serve yet (a mesh) exits with an error that names
+its ROADMAP item.  A
 moe model (deepseek-v2-lite-16b with its multi-head latent attention too)
 routes through capacity dispatch (``moe_impl="dispatch"``, the
 reference's default; its CLI has no flag for it either).
@@ -54,10 +61,7 @@ import argparse
 from repro_torch.configs.base import check_ported
 
 # unported flag -> (its value when unused, ROADMAP queue A item)
-UNPORTED_FLAGS = {
-    "kv_dtype": (None, 18), "scale_granularity": (None, 18),
-    "host_swap_bytes": (None, 18), "mesh": (None, 22),
-}
+UNPORTED_FLAGS = {"mesh": (None, 22)}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -77,12 +81,19 @@ def parser() -> argparse.ArgumentParser:
                         "full provisioning; fewer = oversubscribe, "
                         "preempt on OOM)")
     p.add_argument("--kv-dtype", default=None, choices=["int8"],
-                   help="int8 KV pages: not ported yet")
+                   help="quantize the page arenas (int8 pages + float32 "
+                        "scale sidecars, read by the decode kernel; "
+                        "default: the model dtype)")
     p.add_argument("--scale-granularity", default=None,
                    choices=["page", "page_head"],
-                   help="int8 scale granularity: not ported yet")
+                   help="int8 scale granularity: one scale a page "
+                        "position, or a (position, kv head) (default: "
+                        "kv_page_quant registry resolution)")
     p.add_argument("--host-swap-bytes", type=int, default=None,
-                   help="host-RAM swap tier: not ported yet")
+                   help="host-RAM swap budget: under page pressure cold "
+                        "slots demote their pages to host RAM "
+                        "(bit-lossless) instead of being preempted and "
+                        "recomputed (default: swap tier off)")
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--arrival-rate", type=float, default=None,
                    help="Poisson request arrivals per second "
@@ -219,6 +230,9 @@ def _serve_engine(args, p, model, params) -> dict:
             paged=False if args.strip else "auto", page_size=args.page_size,
             pages=args.pages,
             prefix_cache=False if args.no_prefix_cache else "auto",
+            page_dtype=args.kv_dtype,
+            scale_granularity=args.scale_granularity,
+            host_swap_bytes=args.host_swap_bytes,
             **(dict(max_cross_len=n_frames, enc_chunk=args.enc_chunk)
                if encdec else {}))
     except ValueError as e:                  # e.g. encdec on the strip pool
@@ -250,8 +264,10 @@ def _serve_engine(args, p, model, params) -> dict:
     else:
         comps = eng.run(reqs)
     st = eng.stats
+    quant = (f", int8/{eng.scale_granularity} scales" if eng.page_dtype
+             else "")
     pool = (f"paged pool ({eng.allocator.usable_pages} pages x "
-            f"{eng.page_size} tok, peak {st['peak_pages']} in use, "
+            f"{eng.page_size} tok{quant}, peak {st['peak_pages']} in use, "
             f"{st['preempted']} preempted)" if eng.paged else "strip pool")
     print(f"{args.arch}: served {len(comps)} requests over {args.slots} "
           f"slots / {pool} ({st['steps']} ragged decode steps, "
@@ -265,6 +281,9 @@ def _serve_engine(args, p, model, params) -> dict:
               f"{eng.prefix_cache.n_pages} pages indexed")
     elif not args.no_prefix_cache and eng.paged:
         print("prefix cache: off (family needs full-prompt prefill)")
+    if eng.host_swap is not None:
+        print(f"host swap: {st['demoted']} demoted, {st['prefetched']} "
+              f"prefetched back, {eng.host_swap.bytes_used} bytes resident")
     ttfts = sorted(c.ttft_s for c in comps if c.ttft_s is not None)
     if ttfts:
         print(f"ttft: p50 {ttfts[len(ttfts) // 2] * 1e3:.2f}ms  "

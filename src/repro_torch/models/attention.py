@@ -258,10 +258,6 @@ def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
     if cache_positions is not None:
         assert cache is not None and s == 1
         assert ring_valid is None, "ring caches are not slot-addressable"
-        if "k_scale" in cache:
-            raise NotImplementedError(
-                "int8 page writes are not ported yet (ROADMAP queue A "
-                "item 18)")
         qg = q[:, 0].reshape(b, hkv, gq, hd)
         if page_table is not None:
             # Paged ragged decode: scatter this token's K/V through the
@@ -272,11 +268,16 @@ def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
             wpos = torch.clamp(cache_positions.long(), max=t_logical - 1)
             pg = page_table.long().gather(1, (wpos // ps)[:, None])[:, 0]
             off = wpos % ps
-            cache["k"][pg, off] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][pg, off] = v[:, 0].to(cache["v"].dtype)
+            if "k_scale" in cache:
+                _write_int8_rows(cache, k[:, 0], v[:, 0], pg, off)
+            else:
+                cache["k"][pg, off] = k[:, 0].to(cache["k"].dtype)
+                cache["v"][pg, off] = v[:, 0].to(cache["v"].dtype)
             o = kernel_ops.decode_attention_paged(
                 qg, cache["k"], cache["v"], page_table, wpos + 1,
-                scale=hd ** -0.5, window=window, policy=policy)
+                scale=hd ** -0.5, window=window,
+                k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+                policy=policy)
         else:
             # strip cache [B, T, Hkv, hd]: read in place through a
             # transposed view [B, Hkv, T, hd]
@@ -309,6 +310,25 @@ def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
                        scale=hd ** -0.5, kv_len=kv_len, qpos=qpos, cfg=cfg)
     o = o.permute(0, 3, 1, 2, 4).reshape(b, s, hq * hd)
     return layers.dense(p["wo"], o), cache
+
+
+def _write_int8_rows(cache: dict, k, v, pg, off) -> None:
+    """This token's K/V rows ``[B, Hkv, hd]`` into an int8 arena layer at
+    ``[pg, off]``: each row quantized by its own absmax (per row at
+    "page" granularity, a ``[P, ps]`` sidecar; per row and KV head at
+    "page_head", ``[P, ps, Hkv]``), its scale written beside it, as the
+    reference's row write (``kv_cache.quantize_symmetric``'s order of
+    operations).  In-place writes only, no host sync: the captured decode
+    step runs it."""
+    from repro_torch.serving import kv_cache   # serving imports models
+
+    per_head = cache["k_scale"].ndim == 3
+    for n, row in (("k", k), ("v", v)):
+        codes, scale = kv_cache.quantize_symmetric(
+            row, (2,) if per_head else (1, 2))
+        cache[n][pg, off] = codes
+        cache[n + "_scale"][pg, off] = (scale[..., 0] if per_head
+                                        else scale[:, 0, 0])
 
 
 def cross_attention_paged(p: dict, x: torch.Tensor, *, cfg: ModelConfig,

@@ -187,7 +187,7 @@ def prefill(params: Params, tokens, *, cfg: ModelConfig,
     return _finish(params, _last(x, last_pos, dev), cfg), cache
 
 
-def gather_pages(kv: dict, page_row) -> dict:
+def gather_pages(kv: dict, page_row, dtype=None) -> dict:
     """Arena pages as a batch=1 position-major prefill cache: each leaf
     ``[L, P, ps, ...]`` -> ``[L, 1, n * ps, ...]``, ``page_row``'s ``n``
     pages laid end to end (a copy: the arena is never written through
@@ -195,7 +195,12 @@ def gather_pages(kv: dict, page_row) -> dict:
     MLA's latent ``{c, kr}``) is lifted out so that the prompt's tail can
     prefill after it (:func:`prefill_extend`).  Entries past the matched
     prefix may be the trash page: their rows lie past ``cache_pos``, and
-    the tail's own writes or the length mask cover them."""
+    the tail's own writes or the length mask cover them.
+
+    An int8 arena dequantizes on gather, into ``dtype`` (default
+    float32), and its scale leaves are dropped: the caller gets the plain
+    ``{"k", "v"}`` cache every prefill takes.  Only the gathered pages
+    widen, never the arena; adoption quantizes the fresh pages again."""
     idx = torch.as_tensor(page_row,
                           device=next(iter(kv.values())).device).long()
 
@@ -204,7 +209,10 @@ def gather_pages(kv: dict, page_row) -> dict:
         return g.reshape(g.shape[0], 1, g.shape[1] * g.shape[2],
                          *g.shape[3:])
 
-    return {n: one(leaf) for n, leaf in kv.items()}
+    out = {n: one(leaf) for n, leaf in kv.items()}
+    if "k_scale" in out:
+        out = kv_cache.dequantize_pages(out, dtype or torch.float32)
+    return out
 
 
 def prefill_extend(params: Params, tokens, kv: dict, page_row,
@@ -215,10 +223,11 @@ def prefill_extend(params: Params, tokens, kv: dict, page_row,
 
     ``tokens``: [1, t] the prompt from ``start_pos`` on (padded to a tail
     bucket; ``last_pos`` indexes the true last token in it).  ``kv``: the
-    paged pool's arenas.  ``page_row``: the pages whose gather covers
-    positions ``[0, n * ps)`` of the prompt: the matched chain, then the
-    copy-on-write source, then the trash page; ``start_pos + t <= n *
-    ps``.  The tail's RoPE is taken at the prompt's original indices
+    paged pool's arenas (int8 arenas dequantize into the compute dtype).
+    ``page_row``: the pages whose gather covers positions ``[0, n * ps)``
+    of the prompt: the matched chain, then the copy-on-write source, then
+    the trash page; ``start_pos + t <= n * ps``.  The tail's RoPE is
+    taken at the prompt's original indices
     (``transformer._positions_at``: under M-RoPE a text prompt's first
     ``n_patches`` indices lie on the vision grid), and it attends
     through the write-then-attend branch of attention with ``cache_pos =
@@ -231,7 +240,7 @@ def prefill_extend(params: Params, tokens, kv: dict, page_row,
     the fresh pages."""
     b, t = tokens.shape
     dev = _device(params)
-    cache = gather_pages(kv, page_row)
+    cache = gather_pages(kv, page_row, dtype=torch_dtype(cfg.dtype))
     idx = torch.arange(t, device=dev) + int(start_pos)
     cos, sin = transformer._cos_sin(
         cfg, transformer._positions_at(cfg, b, idx))

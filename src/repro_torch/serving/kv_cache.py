@@ -16,7 +16,11 @@ copy per admission or step would double it.
   * paged pool (:func:`init_paged_pool`): a shared arena of ``ps``-token
     pages plus a per-slot page table.  Arena page 0 is the TRASH page:
     free slots' rows and entries past a slot's pages point at it, so the
-    writes inactive slots still issue land where nothing is read.
+    writes inactive slots still issue land where nothing is read.  The
+    flat k/v families' arenas may be int8 with float32 scale sidecars
+    (``page_dtype="int8"``); a demoted slot's pages wait in host RAM
+    (:class:`HostSwapStore`) until :func:`restore_slot_paged` scatters
+    them back.
 
 An ssm (RWKV6) cache is the recurrent state, with no position axis:
 ``{"wkv": float32 [L, B, H, hd, hd], "last_t", "last_c": [L, B, d]}`` in
@@ -169,13 +173,55 @@ def resolve_page_size(cfg: ModelConfig, max_len: int,
     return int(ps)
 
 
+def resolve_page_quant(cfg: ModelConfig, max_len: int,
+                       page_size: int | None = None,
+                       scale_granularity: str | None = None
+                       ) -> tuple[int, str]:
+    """``(page_size, scale_granularity)`` of an int8 pool, through the
+    registry's ``kv_page_quant`` spec: its cols are the tokens per page
+    (as ``kv_page``'s), its rows the granularity (1 row: one scale a
+    stored position, "page"; more: one a position and KV head,
+    "page_head").  Explicit arguments win per axis; else the heuristic
+    (128-token pages, "page" scales)."""
+    if page_size is not None and scale_granularity is not None:
+        _check_granularity(scale_granularity)
+        return int(page_size), scale_granularity
+    from repro_torch.kernels import registry
+
+    gr, ps = registry.block_shapes("kv_page_quant", cfg.n_kv_heads, max_len)
+    if page_size is not None:
+        ps = page_size
+    if scale_granularity is None:
+        scale_granularity = "page_head" if gr > 1 else "page"
+    _check_granularity(scale_granularity)
+    return int(ps), scale_granularity
+
+
+def _check_granularity(granularity: str) -> None:
+    if granularity not in ("page", "page_head"):
+        raise ValueError(f"unknown scale granularity {granularity!r}; "
+                         "expected 'page' or 'page_head'")
+
+
 def pages_per_slot(max_len: int, page_size: int) -> int:
     return -(-int(max_len) // int(page_size))
 
 
+def supports_page_quant(cfg: ModelConfig) -> bool:
+    """Families whose paged pool can hold int8 pages: the flat ``k``/``v``
+    arenas (dense, moe, vlm).  MLA's latent pages, hybrid (slot-major ssm
+    state beside its pages) and encdec (cross pages written once, read
+    every step) keep the compute dtype, as the reference's."""
+    return (supports_paging(cfg) and cfg.mla is None
+            and cfg.family not in ("hybrid", "encdec"))
+
+
 def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
                     page_size: int | None = None, pages: int | None = None,
-                    cross_len: int | None = None, device="cuda") -> dict:
+                    cross_len: int | None = None,
+                    page_dtype: str | None = None,
+                    scale_granularity: str | None = None,
+                    device="cuda") -> dict:
     """``{"kv": {"k", "v"}: [L, pages, ps, Hkv, hd], "page_table":
     int32[slots, pages_per_slot], "lengths": int32[slots]}``.  ``pages``
     defaults to full provisioning (``1 + slots * pages_per_slot``, page 0
@@ -189,12 +235,34 @@ def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
     int32[slots]`` (``cross_len`` defaults to ``max_len``; the default
     ``pages`` covers both tables).  Cross pages are written once at
     admission and only read after.  A hybrid pool's ``kv`` is ``{"attn":
-    {"k", "v"} arenas, "ssm": [L, slots, H, state_size, head_dim]}``."""
+    {"k", "v"} arenas, "ssm": [L, slots, H, state_size, head_dim]}``.
+
+    ``page_dtype="int8"`` (:func:`supports_page_quant` families) makes
+    ``k``/``v`` symmetric-absmax int8 arenas with float32 sidecars
+    ``k_scale``/``v_scale``: ``[L, pages, ps]`` ("page" granularity) or
+    ``[L, pages, ps, Hkv]`` ("page_head").  A scale is stored for every
+    POSITION even at "page" granularity: adoption broadcasts a page's
+    absmax over its positions, and a decode write quantizes its own row
+    with its own scale, so no page is ever requantized.  The sidecars
+    exist from construction and are written in place (the captured
+    decode step reads them)."""
     check_ported(cfg, "its cache")
     if not supports_paging(cfg):
         raise ValueError(f"family {cfg.family!r}: the recurrent state has "
                          "no position axis to page; use the strip pool")
-    ps = resolve_page_size(cfg, max_len, page_size)
+    if page_dtype not in (None, "int8"):
+        raise ValueError(f"unknown page_dtype {page_dtype!r}; "
+                         "expected None or 'int8'")
+    quant = page_dtype == "int8"
+    if quant and not supports_page_quant(cfg):
+        raise ValueError(f"family {cfg.family!r} (mla={cfg.mla is not None})"
+                         " has no int8 page path: quantized pages need the"
+                         " flat k/v arenas (dense / moe / vlm)")
+    if quant:
+        ps, gran = resolve_page_quant(cfg, max_len, page_size,
+                                      scale_granularity)
+    else:
+        ps = resolve_page_size(cfg, max_len, page_size)
     n_tab = pages_per_slot(max_len, ps)
     encdec = cfg.family == "encdec"
     n_xtab = pages_per_slot(cross_len or max_len, ps) if encdec else 0
@@ -209,6 +277,13 @@ def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
 
     if cfg.mla is not None:
         kv = _latent(cfg, pages, ps, dt, device)
+    elif quant:
+        sshape = shape[:3] if gran == "page" else shape[:4]
+        kv = {n: torch.zeros(shape, dtype=torch.int8, device=device)
+              for n in ("k", "v")}
+        kv.update({n: torch.zeros(sshape, dtype=torch.float32,
+                                  device=device)
+                   for n in ("k_scale", "v_scale")})
     else:
         kv = {"k": torch.zeros(shape, dtype=dt, device=device),
               "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -222,20 +297,73 @@ def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
     return pool
 
 
+def quantize_symmetric(x: torch.Tensor, axes):
+    """Symmetric absmax int8 of ``x``, one scale an element of the dims
+    not in ``axes``: ``scale = absmax / 127`` (1 where the absmax is 0, so
+    zeros round-trip exactly), ``q = round(clip(x / scale, -127, 127))``,
+    rounding half to even.  The reference's order of operations, so that
+    equal inputs give equal codes.  Returns ``(q int8, scale float32 with
+    ``axes`` kept as size-1 dims)``."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=tuple(axes), keepdim=True)
+    scale = torch.where(amax > 0.0, amax / 127.0, 1.0)
+    q = torch.round(torch.clamp(xf / scale, -127.0, 127.0)).to(torch.int8)
+    return q, scale
+
+
+def dequantize_pages(kv: dict, dtype) -> dict:
+    """``{"k", "v", "k_scale", "v_scale"}`` int8 leaves (arena or gathered
+    shape; the scales trail the values by 2 dims at "page" granularity, by
+    1 at "page_head") back to ``{"k", "v"}`` in ``dtype``."""
+    out = {}
+    for n in ("k", "v"):
+        s = kv[n + "_scale"]
+        s = s[..., None, None] if s.ndim == kv[n].ndim - 2 else s[..., None]
+        out[n] = (kv[n].to(torch.float32) * s).to(dtype)
+    return out
+
+
+def _src_pages(src, ps: int, width: int):
+    """A batch=1 position-major cache ``[L, 1, T, ...]`` as whole pages
+    ``[L, n, ps, ...]``, ``n = min(ceil(T / ps), width)``: a ragged last
+    page is zero-filled past T, source pages past ``width`` dropped."""
+    ls = src.shape[0]
+    n_copy = min(-(-src.shape[2] // ps), width)
+    src = src[:, 0, :n_copy * ps]
+    tail = n_copy * ps - src.shape[1]
+    if tail:
+        src = torch.cat([src, src.new_zeros((ls, tail, *src.shape[2:]))], 1)
+    return src.reshape(ls, n_copy, ps, *src.shape[2:])
+
+
 def _copy_pages(dst, src, page_row):
     """Scatter a batch=1 position-major cache ``[L, 1, T, ...]`` into arena
     pages ``[L, P, ps, ...]`` at ``page_row``'s ids.  A ragged last page is
     zero-filled past T; source pages past the row are dropped, and row
     entries past the allocated pages are the trash page (garbage over
     garbage)."""
-    ls, _, ps = dst.shape[:3]
-    n_copy = min(-(-src.shape[2] // ps), page_row.shape[0])
-    src = src[:, 0, :n_copy * ps]
-    tail = n_copy * ps - src.shape[1]
-    if tail:
-        src = torch.cat([src, src.new_zeros((ls, tail, *src.shape[2:]))], 1)
-    srcp = src.reshape(ls, n_copy, ps, *src.shape[2:])
-    dst[:, page_row[:n_copy].long()] = srcp.to(dst.dtype)
+    srcp = _src_pages(src, dst.shape[2], page_row.shape[0])
+    dst[:, page_row[:srcp.shape[1]].long()] = srcp.to(dst.dtype)
+
+
+def _copy_pages_quant(dst, scale_dst, src, page_row):
+    """Quantizing :func:`_copy_pages`: scatter a compute-dtype cache into an
+    int8 arena and its float32 sidecar.  The absmax is taken per page
+    ("page", a 3-D sidecar) or per page and KV head ("page_head", 4-D)
+    and broadcast over the page's positions.  The zero rows past T move
+    no absmax: the reference's cache holds zeros there too (it allocates
+    whole pages and writes the bucket's positions)."""
+    srcp = _src_pages(src, dst.shape[2], page_row.shape[0])
+    ls, n, ps = srcp.shape[:3]
+    per_head = scale_dst.ndim == 4
+    q, scale = quantize_symmetric(srcp, (2, 4) if per_head else (2, 3, 4))
+    if per_head:                                  # [ls, n, 1, H, 1]
+        srows = scale[..., 0].expand(ls, n, ps, srcp.shape[3])
+    else:                                         # [ls, n, 1, 1, 1]
+        srows = scale[:, :, :, 0, 0].expand(ls, n, ps)
+    idx = page_row[:n].long()
+    dst[:, idx] = q
+    scale_dst[:, idx] = srows
 
 
 def adopt_slot_paged(pool: dict, cache: dict, slot: int, length: int,
@@ -253,15 +381,21 @@ def adopt_slot_paged(pool: dict, cache: dict, slot: int, length: int,
     and then the fresh ones; its copy row names only the fresh ones, with
     the trash page in the shared positions, so a shared page is never
     written.  This holds for every paged leaf (``{k, v}``, MLA's latent
-    ``{c, kr}``)."""
+    ``{c, kr}``).  An int8 pool quantizes the cache's pages as it copies
+    them (:func:`_copy_pages_quant`): a copied page takes its codes and
+    its scales together."""
     kv = pool["kv"]
     if copy_row is None:
         copy_row = page_row
     if "ssm" in kv:
         kv["ssm"][:, slot] = cache["ssm"][:, 0]
         kv, cache = kv["attn"], cache["attn"]
-    for n, dst in kv.items():
-        _copy_pages(dst, cache[n], copy_row)
+    if "k_scale" in kv:
+        for n in ("k", "v"):
+            _copy_pages_quant(kv[n], kv[n + "_scale"], cache[n], copy_row)
+    else:
+        for n, dst in kv.items():
+            _copy_pages(dst, cache[n], copy_row)
     pool["page_table"][slot] = page_row.to(torch.int32)
     pool["lengths"][slot] = length
     return pool
@@ -308,6 +442,82 @@ def set_page_row(pool: dict, slot: int, page_row: torch.Tensor) -> dict:
     Entries past the slot's pages must be the trash page."""
     pool["page_table"][slot] = page_row.to(torch.int32)
     return pool
+
+
+def gather_slot(pool: dict, page_row: torch.Tensor) -> dict:
+    """A slot's pages as they lie in the arenas, page-major ``[L,
+    len(page_row), ps, ...]`` for every leaf (int8 codes and float32
+    scales as stored), gathered on the pool's device.  ``page_row`` is the
+    slot's whole table row, the trash page as padding: one shape for
+    every length, as the reference's demotion gathers."""
+    idx = page_row.to(pool["lengths"].device).long()
+    return {n: leaf[:, idx] for n, leaf in pool["kv"].items()}
+
+
+def restore_slot_paged(pool: dict, blob: dict, slot: int, length: int,
+                       page_row: torch.Tensor,
+                       copy_row: torch.Tensor | None = None) -> dict:
+    """Re-admit a demoted slot from its host blob (the swap tier's
+    promotion): every leaf of ``blob`` (page-major ``[L, pages_per_slot,
+    ps, ...]``, as :func:`gather_slot` took it) is scattered through
+    ``copy_row`` (default ``page_row``), whose trash entries send the
+    padding back to the trash page.  A copy of the demoted bytes in their
+    own dtype (int8 codes and float32 scales included), so demotion and
+    promotion are bit-lossless, where preemption recomputes the prefix.
+    Written in place: a captured decode step reads the restored pages at
+    its next replay."""
+    if copy_row is None:
+        copy_row = page_row
+    dev = pool["lengths"].device
+    idx = copy_row.to(dev).long()
+    for n, leaf in pool["kv"].items():
+        leaf[:, idx] = blob[n].to(device=dev, dtype=leaf.dtype)
+    pool["page_table"][slot] = page_row.to(torch.int32)
+    pool["lengths"][slot] = length
+    return pool
+
+
+class HostSwapStore:
+    """Host RAM for demoted slots' pages (the swap tier's cold side),
+    keyed by request id.  A blob is a dict of CPU tensors (pinned where
+    the pages came from the card), the exact bytes of the arenas' leaves,
+    scale sidecars included.  ``budget_bytes`` caps the store (None:
+    unbounded); :meth:`put` refuses a blob over it, and a request id
+    already stored, and the scheduler then preempts instead."""
+
+    def __init__(self, budget_bytes: int | None = None):
+        self.budget_bytes = budget_bytes
+        self.bytes_used = 0
+        self._blobs: dict[int, dict] = {}
+
+    def __len__(self) -> int:
+        return len(self._blobs)
+
+    def __contains__(self, rid: int) -> bool:
+        return rid in self._blobs
+
+    @staticmethod
+    def blob_bytes(blob: dict) -> int:
+        return sum(x.numel() * x.element_size() for x in blob.values())
+
+    def fits(self, nbytes: int) -> bool:
+        return (self.budget_bytes is None
+                or self.bytes_used + nbytes <= self.budget_bytes)
+
+    def put(self, rid: int, blob: dict) -> bool:
+        """Store ``rid``'s pages; False (nothing stored) if over budget or
+        already stored."""
+        nbytes = self.blob_bytes(blob)
+        if rid in self._blobs or not self.fits(nbytes):
+            return False
+        self._blobs[rid] = blob
+        self.bytes_used += nbytes
+        return True
+
+    def pop(self, rid: int) -> dict:
+        blob = self._blobs.pop(rid)
+        self.bytes_used -= self.blob_bytes(blob)
+        return blob
 
 
 class PageAllocator:
@@ -391,30 +601,45 @@ def max_slots_in_budget(cfg: ModelConfig, max_len: int,
 
 def paged_pool_bytes(cfg: ModelConfig, slots: int, max_len: int, *,
                      page_size: int | None = None,
-                     pages: int | None = None) -> int:
+                     pages: int | None = None,
+                     page_dtype: str | None = None,
+                     scale_granularity: str | None = None) -> int:
+    """Bytes of a paged pool: arenas, tables, lengths and, on an int8
+    pool, the scale sidecars."""
     return _nbytes(init_paged_pool(cfg, slots, max_len, page_size=page_size,
-                                   pages=pages, device="meta"))
+                                   pages=pages, page_dtype=page_dtype,
+                                   scale_granularity=scale_granularity,
+                                   device="meta"))
 
 
 def max_pages_in_budget(cfg: ModelConfig, slots: int, max_len: int,
                         budget_bytes: int, *,
-                        page_size: int | None = None) -> int:
-    """Largest arena page count (trash page included) that fits."""
-    one = paged_pool_bytes(cfg, slots, max_len, page_size=page_size, pages=1)
-    per_page = max(1, paged_pool_bytes(cfg, slots, max_len,
-                                       page_size=page_size, pages=2) - one)
+                        page_size: int | None = None,
+                        page_dtype: str | None = None,
+                        scale_granularity: str | None = None) -> int:
+    """Largest arena page count (trash page included) that fits.  An int8
+    page and its scale rows cost about half a bf16 page, so the same
+    budget buys about twice the pages."""
+    kw = dict(page_size=page_size, page_dtype=page_dtype,
+              scale_granularity=scale_granularity)
+    one = paged_pool_bytes(cfg, slots, max_len, pages=1, **kw)
+    per_page = max(1, paged_pool_bytes(cfg, slots, max_len, pages=2, **kw)
+                   - one)
     return max(0, int((budget_bytes - (one - per_page)) // per_page))
 
 
 def paged_dims_in_budget(cfg: ModelConfig, max_len: int, budget_bytes: int,
-                         *, page_size: int,
-                         avg_tokens: int) -> tuple[int, int]:
+                         *, page_size: int, avg_tokens: int,
+                         page_dtype: str | None = None,
+                         scale_granularity: str | None = None
+                         ) -> tuple[int, int]:
     """(slots, pages) under ``budget_bytes``: the budget buys pages, and
     the slot count is sized for ``avg_tokens``-token requests."""
+    kw = dict(page_size=page_size, page_dtype=page_dtype,
+              scale_granularity=scale_granularity)
     slots, pages = 1, 0
     for _ in range(4):
-        pages = max_pages_in_budget(cfg, slots, max_len, budget_bytes,
-                                    page_size=page_size)
+        pages = max_pages_in_budget(cfg, slots, max_len, budget_bytes, **kw)
         if pages < 2:
             break
         new_slots = max(1, ((pages - 1) * page_size) // max(1, avg_tokens))
@@ -422,6 +647,5 @@ def paged_dims_in_budget(cfg: ModelConfig, max_len: int, budget_bytes: int,
             break
         slots = new_slots
     else:
-        pages = max_pages_in_budget(cfg, slots, max_len, budget_bytes,
-                                    page_size=page_size)
+        pages = max_pages_in_budget(cfg, slots, max_len, budget_bytes, **kw)
     return slots, pages

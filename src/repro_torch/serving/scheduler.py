@@ -18,9 +18,11 @@ batch axis full.  The scheduler:
   * advances every occupied slot with one ragged decode step per
     iteration, whatever its age;
   * allocates decode-time pages just before each burst; when pages run
-    out the latest-admitted request is PREEMPTED (pages recycled, request
-    requeued with prompt = original prompt + tokens so far), and a lone
-    request that cannot grow retires as ``"oom_pages"``;
+    out the latest-admitted request is DEMOTED to host RAM where the swap
+    tier is on (its pages' bytes copied out, promoted back bit for bit
+    before anything new is admitted), else PREEMPTED (pages recycled,
+    request requeued with prompt = original prompt + tokens so far), and
+    a lone request that cannot grow retires as ``"oom_pages"``;
   * frees slots on max-tokens / EOS / cache-full and backfills them from
     the queue between bursts;
   * for the encdec family (paged only), reserves a request's self and
@@ -137,6 +139,14 @@ class ContinuousBatchingEngine:
     paged pool of the dense and vlm families, and of moe under
     ``moe_impl="dense"``); True raises where it cannot.
 
+    ``page_dtype="int8"`` (paged pool; dense, moe and vlm) stores the
+    arenas as int8 with float32 scales, ``scale_granularity`` "page" or
+    "page_head" (default: the registry's ``kv_page_quant``); the decode
+    kernel reads them with the scales fused.  ``host_swap_bytes`` turns
+    the host-RAM swap tier on with that budget (paged pool; not hybrid,
+    whose ssm state is slot-major, nor encdec, whose cross pages the
+    demotion would strand).
+
     encdec (paged only): ``max_cross_len`` bounds a request's encoder
     frames (default ``max_len``) and sizes its cross table; ``enc_chunk``
     encodes a request ``enc_chunk`` frames a scheduler step, each window
@@ -152,14 +162,11 @@ class ContinuousBatchingEngine:
                  avg_tokens_hint: int | None = None,
                  prefix_cache: bool | str = "auto", mesh=None,
                  page_dtype: str | None = None,
+                 scale_granularity: str | None = None,
                  host_swap_bytes: int | None = None, fused: bool = True,
                  max_cross_len: int | None = None,
                  enc_chunk: int | None = None, moe_impl: str = "dispatch"):
         cfg = model.cfg
-        if page_dtype is not None:
-            raise _unported("page_dtype", 18)
-        if host_swap_bytes is not None:
-            raise _unported("host_swap_bytes", 18)
         if mesh is not None:
             raise _unported("mesh", 22)
         if paged == "auto":
@@ -177,8 +184,24 @@ class ContinuousBatchingEngine:
         self.max_len = int(max_len)
         self.max_cross_len = int(max_cross_len or max_len)
         self.enc_chunk = int(enc_chunk) if enc_chunk else None
-        self.page_size = (kv_cache.resolve_page_size(cfg, max_len, page_size)
-                          if self.paged else None)
+        self.page_dtype = page_dtype
+        self.scale_granularity: str | None = None
+        if page_dtype is not None:
+            if not self.paged:
+                raise ValueError(
+                    "page_dtype needs a paged pool (the slot-strip pool "
+                    "stays full-precision)")
+            if not kv_cache.supports_page_quant(cfg):
+                raise ValueError(
+                    f"family {cfg.family!r} has no quantizable page arena "
+                    "(mla latents and hybrid ssm state keep full precision)")
+            self.page_size, self.scale_granularity = \
+                kv_cache.resolve_page_quant(cfg, max_len, page_size,
+                                            scale_granularity)
+        else:
+            self.page_size = (kv_cache.resolve_page_size(cfg, max_len,
+                                                         page_size)
+                              if self.paged else None)
         if slots is None:
             if memory_budget_bytes is None:
                 raise ValueError("pass slots= or memory_budget_bytes=")
@@ -186,7 +209,9 @@ class ContinuousBatchingEngine:
                 slots, pages = kv_cache.paged_dims_in_budget(
                     cfg, max_len, memory_budget_bytes,
                     page_size=self.page_size,
-                    avg_tokens=avg_tokens_hint or max(1, max_len // 2))
+                    avg_tokens=avg_tokens_hint or max(1, max_len // 2),
+                    page_dtype=page_dtype,
+                    scale_granularity=self.scale_granularity)
                 if slots < 1 or pages < 2:
                     raise ValueError(
                         f"memory budget {memory_budget_bytes} fits no usable "
@@ -223,6 +248,8 @@ class ContinuousBatchingEngine:
                 cfg, self.n_slots, self.max_len, page_size=self.page_size,
                 pages=int(pages),
                 cross_len=self.max_cross_len if self.encdec else None,
+                page_dtype=page_dtype,
+                scale_granularity=self.scale_granularity,
                 device=self.device)
             self.allocator = kv_cache.PageAllocator(int(pages))
             self.slot_pages: list[list[int]] = [[] for _ in
@@ -233,6 +260,26 @@ class ContinuousBatchingEngine:
             self.pool = kv_cache.init_slot_pool(cfg, self.n_slots,
                                                 self.max_len,
                                                 device=self.device)
+
+        # host-RAM swap tier: under page pressure a cold slot's pages move
+        # to host RAM, bit for bit, instead of being preempted; promotion
+        # scatters them back (_demote / _promote_swapped)
+        self.host_swap: kv_cache.HostSwapStore | None = None
+        self._swapped: dict[int, dict] = {}
+        if host_swap_bytes is not None:
+            if not self.paged:
+                raise ValueError("host_swap_bytes needs a paged pool")
+            if cfg.family == "hybrid":
+                raise ValueError(
+                    "host swap does not cover the hybrid family: its "
+                    "recurrent ssm state is slot-major, not paged, and "
+                    "would be lost at demotion")
+            if self.encdec:
+                raise ValueError(
+                    "host swap does not cover the encdec family yet: the "
+                    "demotion blob gathers only the slot's self-KV page "
+                    "row, so its cross pages would be stranded")
+            self.host_swap = kv_cache.HostSwapStore(int(host_swap_bytes))
         self.buckets = self._resolve_buckets(prefill_buckets)
         self._prefill_shapes: set = set()
 
@@ -270,7 +317,8 @@ class ContinuousBatchingEngine:
                           decode_s=0.0, steps=0, admitted=0, preempted=0,
                           peak_pages=0, encode_frames=0, encode_s=0.0,
                           prefix_hits=0, prefix_tokens_reused=0,
-                          cow_copies=0, prefix_evictions=0)
+                          cow_copies=0, prefix_evictions=0, demoted=0,
+                          prefetched=0)
 
         # The decode step's static buffers: written in place each burst,
         # never rebound (a captured graph reads them).  ``_history`` keeps
@@ -682,6 +730,13 @@ class ContinuousBatchingEngine:
 
     def _admit_arrived(self, now: float) -> None:
         free = self.free_slots()
+        # promote swapped-out work before admitting anything new: a demoted
+        # request resumes with a copy of its bytes, a new one costs a
+        # prefill
+        while free and self._swapped:
+            if not self._promote_swapped(free[0]):
+                break                        # no pages yet: keep waiting
+            free = self.free_slots()
         while free and self.pending and self.pending[0].arrival_s <= now:
             if not self._admit(self.pending[0], free[0], now):
                 break                        # no pages: wait for retirements
@@ -745,10 +800,70 @@ class ContinuousBatchingEngine:
         return max((self.slot_owner[s].seq, s)
                    for s in self.active_slots())[1]
 
+    # -- host-RAM swap tier ------------------------------------------------------
+    def _demote(self, slot: int) -> bool:
+        """Swap ``slot``'s pages out to host RAM instead of preempting it:
+        the slot's whole table row is gathered (the trash page as
+        padding, one shape for every length), copied to the host and
+        waited for, and only then are the pages given back to the
+        allocator.  Refuses (the caller preempts) when the tier is off,
+        when a page of the slot is shared (refcount > 1: another slot or
+        the prefix index reads it, so its bytes stay in the arena), or
+        when the blob is over the host budget."""
+        if self.host_swap is None:
+            return False
+        ids = self.slot_pages[slot]
+        if not ids or any(self.allocator.refcount(p) > 1 for p in ids):
+            return False
+        comp = self.slot_owner[slot]
+        dev = kv_cache.gather_slot(self.pool, self._row(self._page_row(slot)))
+        if not self.host_swap.fits(kv_cache.HostSwapStore.blob_bytes(dev)):
+            return False
+        pin = self.device.type == "cuda"
+        blob = {}
+        for n, x in dev.items():
+            blob[n] = torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
+            blob[n].copy_(x)                 # waits for the copy
+        if not self.host_swap.put(comp.rid, blob):
+            return False
+        self._swapped[comp.rid] = dict(
+            comp=comp, req=self.slot_req[slot],
+            length=comp.prompt_len + len(comp.tokens) - 1,
+            next_tok=int(self.next_tok[slot]))
+        self._release_slot(slot)
+        self.stats["demoted"] += 1
+        return True
+
+    def _promote_swapped(self, slot: int) -> bool:
+        """Promote the longest-swapped request into ``slot``: allocate its
+        pages, scatter its blob back through a row that sends the padding
+        to the trash page (written in place, ordered before the next
+        replay on the same stream), and resume decoding at the token it
+        was about to write.  False (nothing taken) while the arena cannot
+        back it."""
+        rid, ent = next(iter(self._swapped.items()))
+        page_ids = self._alloc_pages(self._pages_for(ent["length"]))
+        if page_ids is None:
+            return False
+        del self._swapped[rid]
+        blob = self.host_swap.pop(rid)
+        self.slot_pages[slot] = page_ids
+        kv_cache.restore_slot_paged(self.pool, blob, slot, ent["length"],
+                                    self._row(self._page_row(slot)))
+        self._note_peak()
+        comp = ent["comp"]
+        comp.slot = slot
+        self.slot_owner[slot] = comp
+        self.slot_req[slot] = ent["req"]
+        self.next_tok[slot] = ent["next_tok"]
+        self.stats["prefetched"] += 1
+        return True
+
     def _ensure_pages(self, runahead: int, now: float) -> int:
         """Back every active slot's next ``h <= runahead`` write positions
-        with pages.  Shrinks the horizon first, then preempts the latest
-        admitted slot; a lone slot that cannot grow retires as
+        with pages.  Shrinks the horizon first, then demotes the latest
+        admitted slot to host RAM (the swap tier) or, failing that,
+        preempts it; a lone slot that cannot grow retires as
         ``"oom_pages"``.  Returns the horizon (0 = nothing left active)."""
         while True:
             active = self.active_slots()
@@ -791,7 +906,11 @@ class ContinuousBatchingEngine:
                 self.completions.append(comp)
                 self._release_slot(active[0])
                 return 0
-            self._preempt(self._pick_victim(), now)
+            # demotion first: the swap tier keeps the victim's computed
+            # pages, preemption throws them away and prefills again
+            victim = self._pick_victim()
+            if not self._demote(victim):
+                self._preempt(victim, now)
 
     # -- one scheduler iteration ------------------------------------------------
     def _runahead(self, comps: list[Completion]) -> int:
@@ -825,7 +944,7 @@ class ContinuousBatchingEngine:
             runahead = self._ensure_pages(runahead, now)
             active = self.active_slots()
             if not active:
-                return bool(self.pending)
+                return bool(self.pending or self._swapped)
         mask = np.zeros((self.n_slots,), bool)
         mask[active] = True
         self._active.copy_(torch.from_numpy(mask))
@@ -864,7 +983,8 @@ class ContinuousBatchingEngine:
                 req.arrival_s = 0.0
         start = time.perf_counter()
         self._run_start = start
-        while self.pending or self.active_slots() or self._encoding:
+        while (self.pending or self.active_slots() or self._swapped
+               or self._encoding):
             now = (time.perf_counter() - start) if use_wall_clock else 0.0
             progressed = self.step(now=now)
             yield
@@ -887,8 +1007,9 @@ class ContinuousBatchingEngine:
         each request that gained tokens in it.  A preempted request's
         tokens already yielded are not yielded again after readmission:
         the tokens carried across preemptions come first in its one
-        monotone view.  Once the generator is spent, ``self.completions``
-        is what :meth:`run` would have returned."""
+        monotone view, and a demoted request's tokens wait with it in host
+        RAM.  Once the generator is spent, ``self.completions`` is what
+        :meth:`run` would have returned."""
         emitted: dict[int, int] = {}
         for _ in self._serve(requests, use_wall_clock):
             yield from self._deltas(emitted)
@@ -896,9 +1017,10 @@ class ContinuousBatchingEngine:
     def _deltas(self, emitted: dict[int, int]) -> list:
         """The tokens each request gained since ``emitted`` (rid -> tokens
         yielded so far, updated here)."""
+        live = [self.slot_owner[s] for s in self.active_slots()]
+        live += [ent["comp"] for ent in self._swapped.values()]
         views = []
-        for slot in self.active_slots():
-            comp = self.slot_owner[slot]
+        for comp in live:
             prior = self._carried.get(comp.rid, (0, [], None))[1]
             views.append((comp.rid, prior + comp.tokens))
         views += [(comp.rid, comp.tokens) for comp in self.completions]
@@ -950,6 +1072,13 @@ class ContinuousBatchingEngine:
                        peak_pages=st["peak_pages"],
                        preempted=st["preempted"],
                        prefix_cache=self.prefix_cache is not None)
+            if self.page_dtype is not None:
+                out.update(page_dtype=self.page_dtype,
+                           scale_granularity=self.scale_granularity)
+            if self.host_swap is not None:
+                out.update(demoted=st["demoted"],
+                           prefetched=st["prefetched"],
+                           swap_bytes_used=self.host_swap.bytes_used)
             if self.prefix_cache is not None:
                 out.update(prefix_hits=st["prefix_hits"],
                            prefix_tokens_reused=st["prefix_tokens_reused"],

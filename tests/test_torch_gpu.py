@@ -984,6 +984,103 @@ def test_stream_deltas_equal_run_tokens_on_the_graph_step(cuda):
 
 
 # ---------------------------------------------------------------------------
+# int8 KV pages and the host-RAM swap tier.
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("gran", ["page", "page_head"])
+def test_int8_graph_step_equals_eager_with_codes_and_scales(cuda, gran):
+    """Reduced qwen2.5-14b on int8 arenas: the graph step writes the same
+    codes and scales as the eager step (the trash page aside), with the
+    same tokens and launches, every launch of kernel 3 an int8 one."""
+    m, params = _fused_model()
+    reqs = _fused_requests(m.cfg.vocab)
+    runs = {f: _serve(m, params, True, f, reqs, temperature=0.0,
+                      page_dtype="int8", scale_granularity=gran)
+            for f in (True, False)}
+    (toks, counts, eng), (toks_e, counts_e, eng_e) = runs[True], runs[False]
+    assert toks == toks_e and counts == counts_e
+    assert eng._fused.launches == {"decode_attention_paged_int8":
+                                   m.cfg.n_layers}
+    assert counts["decode_attention_paged"] == 0
+    assert counts["decode_attention_paged_int8"] == (
+        m.cfg.n_layers * eng.stats["steps"])
+    for name in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(eng.pool["kv"][name][:, 1:],
+                           eng_e.pool["kv"][name][:, 1:]), name
+    assert eng.pool["kv"]["k"].dtype == torch.int8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gran", ["page", "page_head"])
+def test_decode_int8_at_the_served_shape(cuda, gran):
+    """Kernel 3 at the quant phase's shape (q [8, 8, 5, 128] bf16, pages of
+    128, up to 1,664 positions) over arenas quantized a page at a time
+    as adoption does, against its plain version at the decode limits."""
+    from repro_torch.serving import kv_cache
+
+    q, kp, vp, table, lens = _decode_inputs(
+        cuda, torch.bfloat16, 128, 5, hkv=8, ps=128, pmax=13,
+        lengths=[0, 1, 129, 700, 1500, 1532, 1663, 1664])
+    axes = (1, 2, 3) if gran == "page" else (1, 3)
+    (k8, ksc), (v8, vsc) = (kv_cache.quantize_symmetric(x, axes)
+                            for x in (kp, vp))
+    ksc, vsc = (x.expand(-1, 128, 8 if gran == "page_head" else 1, 1)
+                .reshape((-1, 128, 8) if gran == "page_head" else (-1, 128))
+                .contiguous() for x in (ksc, vsc))
+    _check_decode(q, k8, v8, table, lens, torch.bfloat16, k_scale=ksc,
+                  v_scale=vsc, strip=False, ppt=1)
+    assert tda.decode_attention_paged_int8.launches == 2
+    assert tda.decode_attention_paged.launches == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page_dtype", [None, "int8"])
+def test_demote_promote_round_trip_on_the_card(cuda, page_dtype):
+    """A slot's pages gathered to pinned host memory and scattered back
+    into other pages are the same bytes; then an overloaded engine with
+    the swap tier on demotes and promotes (never preempts), and its graph
+    step, replaying after each promotion, gives the eager step's tokens
+    and launches and the unpressured run's tokens."""
+    from repro_torch.serving import kv_cache
+
+    m, params = _fused_model()
+    pool = kv_cache.init_paged_pool(m.cfg, 2, 48, page_size=8, pages=9,
+                                    page_dtype=page_dtype, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for leaf in pool["kv"].values():
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, device=cuda,
+                                     generator=gen, dtype=torch.int8))
+        else:
+            leaf.copy_(torch.randn(leaf.shape, device=cuda, generator=gen))
+    src = torch.tensor([1, 2, 3, 0, 0, 0], dtype=torch.int32)
+    dst = torch.tensor([6, 4, 8, 0, 0, 0], dtype=torch.int32)
+    dev = kv_cache.gather_slot(pool, src)
+    blob = {n: torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
+            for n, x in dev.items()}
+    kv_cache.restore_slot_paged(pool, blob, 1, 20, dst)
+    for n, leaf in pool["kv"].items():
+        assert torch.equal(leaf[:, [6, 4, 8]], leaf[:, [1, 2, 3]]), n
+        assert torch.equal(leaf[:, [6, 4, 8]].cpu(), blob[n][:, :3]), n
+    assert pool["page_table"][1].tolist() == dst.tolist()
+
+    reqs = [r for r in _fused_requests(m.cfg.vocab, n=5, new=14)]
+    kw = dict(temperature=0.0, prefix_cache=False, page_dtype=page_dtype)
+    runs = {f: _serve(m, params, True, f, reqs, host_swap_bytes=1 << 30,
+                      **kw) for f in (True, False)}
+    (toks, counts, eng), (toks_e, counts_e, eng_e) = runs[True], runs[False]
+    st = eng.stats
+    assert st["demoted"] == st["prefetched"] > 0 and st["preempted"] == 0
+    assert eng.host_swap.bytes_used == 0
+    assert eng.allocator.free_pages == eng.allocator.usable_pages
+    assert toks == toks_e and counts == counts_e
+    assert eng._fused.replays == st["steps"]
+    roomy = m.serving_engine(params, slots=3, max_len=48, page_size=8,
+                             **kw).run(reqs)
+    assert toks == [c.tokens for c in roomy]
+
+
+# ---------------------------------------------------------------------------
 # granite-20b's multi-query decode: 48 query heads over one KV head.
 # ---------------------------------------------------------------------------
 # the served shape's lengths (prompts of 200-1,500 + 32 new, pages of 128,

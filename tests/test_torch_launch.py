@@ -2,8 +2,9 @@
 it serves a reduced model under each softmax algorithm, every other family
 too (deepseek's multi-head latent attention with moe; vlm as the
 reference's lockstep batch with patch inputs), the prefix cache's and
-the streaming generator's flags, and every flag for something not ported
-yet exits with an error that names its ROADMAP item."""
+the streaming generator's flags, int8 pages and the host swap tier, and
+every flag for something not ported yet exits with an error that names
+its ROADMAP item."""
 
 import os
 import pathlib
@@ -37,15 +38,45 @@ def test_cli_serves_on_the_cpu(extra, capsys):
     assert ("kernel launches: {}" in out) == ("--kernels" in extra)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--kv-dtype", "int8"], 18), (["--scale-granularity", "page"], 18),
-    (["--host-swap-bytes", "1000"], 18), (["--mesh", "2x2"], 22),
-])
+@pytest.mark.parametrize("flags,item", [(["--mesh", "2x2"], 22)])
 def test_unported_flags_exit_with_their_item(flags, item, capsys):
     with pytest.raises(SystemExit) as e:
         serve.main(BASE + flags)
     assert e.value.code == 2
     assert f"ROADMAP queue A item {item}" in capsys.readouterr().err
+
+
+SWAP = ["--host-swap-bytes", "1000000", "--pages", "5", "--prompt-len",
+        "14", "--steps", "6", "--no-prefix-cache"]
+
+
+@pytest.mark.parametrize("flags,quant,swap", [
+    (["--kv-dtype", "int8"], "page", False),
+    (["--kv-dtype", "int8", "--scale-granularity", "page_head"],
+     "page_head", False),
+    (SWAP, None, True),
+    (["--kv-dtype", "int8", "--kernels"] + SWAP, "page", True)],
+    ids=["int8", "int8-page_head", "swap", "int8-swap-kernels"])
+def test_cli_serves_int8_pages_and_the_swap_tier(flags, quant, swap,
+                                                 capsys):
+    """``--kv-dtype int8`` serves from int8 arenas at either scale
+    granularity; ``--host-swap-bytes`` on 4 usable pages of 8 (two
+    14-token prompts that grow into a third page) demotes a slot to host
+    RAM and promotes it back, the store empty at the end."""
+    serve.main(BASE + ["--page-size", "8", "--temperature", "0"] + flags)
+    out = capsys.readouterr().out
+    assert "served 3 requests over 2 slots" in out
+    assert ("prefill: 42 tok" if swap else "prefill: 36 tok") in out
+    assert ("decode:  15 tok" if swap else "decode:  9 tok") in out
+    assert (f", int8/{quant} scales" in out) == (quant is not None)
+    lines = [line for line in out.splitlines()
+             if line.startswith("host swap: ")]
+    assert bool(lines) == swap
+    if swap:
+        n = int(lines[0].split()[2])
+        assert n > 0 and lines[0] == (f"host swap: {n} demoted, {n} "
+                                      "prefetched back, 0 bytes resident")
+        assert "0 preempted" in out
 
 
 @pytest.mark.parametrize("flags,hits", [

@@ -13,6 +13,7 @@ import torch
 
 from repro.models import build_model as jbuild
 from repro.serving import engine as jeng
+from repro.serving import scheduler as jsched
 from repro_torch.convert import params_from_jax
 from repro_torch.models import Model
 from repro_torch.models import build_model as tbuild
@@ -155,13 +156,35 @@ def test_budgeted_pools_and_backfill(weights):
                                      pages=p) <= 4 * one
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(page_dtype="int8"), "18"),
-    (dict(host_swap_bytes=1 << 20), "18"), (dict(mesh=object()), "22")])
+@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "22")])
 def test_unported_options_raise(weights, kw, item):
     _, _, tm, tp = weights
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         ContinuousBatchingEngine(tm, tp, slots=2, max_len=MAX_LEN, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(page_dtype="int8"), dict(host_swap_bytes=1 << 20),
+    dict(page_dtype="int8", scale_granularity="page_head",
+         host_swap_bytes=1 << 20)],
+    ids=["int8", "swap", "int8-page_head-swap"])
+def test_int8_and_swap_options_serve(weights, kw):
+    """``page_dtype`` and ``host_swap_bytes`` are served (ROADMAP item
+    18): greedy tokens equal the JAX engine's under the same options
+    (``tests/test_torch_kv_quant.py`` holds them at page pressure)."""
+    jm, jp, tm, tp = weights
+    reqs = _requests(tm.cfg.vocab, n=5)
+    want = jsched.ContinuousBatchingEngine(
+        jm, jp, slots=2, max_len=MAX_LEN, page_size=8, temperature=0.0,
+        **kw).run([jsched.Request(rid=r.rid, prompt=r.prompt,
+                                  max_new_tokens=r.max_new_tokens)
+                   for r in reqs])
+    eng = ContinuousBatchingEngine(tm, tp, slots=2, max_len=MAX_LEN,
+                                   page_size=8, temperature=0.0, **kw)
+    assert _tokens(eng.run(_copy(reqs))) == _tokens(want)
+    th = eng.throughput()
+    assert th.get("page_dtype") == kw.get("page_dtype")
+    assert ("swap_bytes_used" in th) == ("host_swap_bytes" in kw)
 
 
 @pytest.mark.parametrize("prefix_cache", [True, False, "auto"])

@@ -13,9 +13,11 @@ scheduler step:
 
 The dense walk runs the eager step and the replay path (a stand-in graph
 on the CPU, as ``tests/test_torch_fused_decode.py``), with the prefix
-index on and prompts that share heads.  ``stream()`` is held against
-``run()``, across preemptions too.  (The reference's swap walk waits for
-the host swap tier, ROADMAP item 18.)"""
+index on and prompts that share heads.  The swap walk overloads the
+arena with the host-RAM tier on, so that slots are demoted and promoted
+(a demoted slot holds no page; the store is empty when a walk ends).
+``stream()`` is held against ``run()``, across preemptions and
+demotions too."""
 
 import dataclasses
 
@@ -152,7 +154,8 @@ def _engine_walk(eng, seed, n_requests, rid0, *, frames_dim=None,
     rng = np.random.default_rng(seed)
     vocab = eng.cfg.vocab
     rid, left, steps = rid0, n_requests, 0
-    while left or eng.pending or eng.active_slots() or eng._encoding:
+    while (left or eng.pending or eng.active_slots() or eng._swapped
+           or eng._encoding):
         # fill the slots before the first burst (concurrency makes the
         # page pressure), then trickle the rest in
         n_sub = (min(left, eng.n_slots) if steps == 0
@@ -246,6 +249,33 @@ def test_dense_walk_replay_equals_eager(dense, monkeypatch):
     assert _dense_walk(dense, monkeypatch, "replay", True) == eager
 
 
+@pytest.mark.parametrize("page_dtype", [None, "int8"])
+@pytest.mark.parametrize("step", ["eager", "replay"])
+def test_swap_engine_walk(dense, monkeypatch, step, page_dtype):
+    """An overloaded arena with the host-RAM tier on: prompts fill 3 pages
+    of 16 and every budget crosses into a 4th, so three resident slots
+    want 12 of the 9 usable pages and growth demotes.  The walks demote
+    and promote, the identities hold after every step (a demoted request
+    holds no page), and the tier balances when each walk ends."""
+    m, params = dense
+    graph = _ReplayingGraph() if step == "replay" else None
+    monkeypatch.setattr(scheduler, "graph_for", lambda dev, gen=None: graph)
+    eng = ContinuousBatchingEngine(m, params, slots=3, max_len=128,
+                                   page_size=16, pages=10, temperature=0.0,
+                                   seed=4, prefix_cache=False,
+                                   host_swap_bytes=1 << 30,
+                                   page_dtype=page_dtype)
+    rid = 0
+    for seed in range(3):
+        rid = _engine_walk(eng, seed, n_requests=5, rid0=rid, plen_lo=44,
+                           plen_hi=49, max_new_lo=10, max_new_hi=17)
+        assert eng.stats["demoted"] == eng.stats["prefetched"]
+        assert eng.allocator.free_pages == eng.allocator.usable_pages
+        assert eng.host_swap.bytes_used == 0 and not eng._swapped
+    assert eng.stats["demoted"] > 0 and eng.stats["preempted"] == 0
+    assert len(eng.completions) == 15
+
+
 def test_encdec_engine_walk():
     """encdec walks: cross pages are taken at admission and obey the same
     identities as self pages at every step (the cross table is one more
@@ -322,6 +352,27 @@ def test_stream_after_preemption_yields_no_token_twice(dense):
     assert got == {c.rid: c.tokens for c in want}
     assert all(len(got[r.rid]) == r.max_new_tokens for r in reqs)
     # a preempted request's carried tokens are not yielded again
+    assert sum(len(t) for _, t in deltas) == sum(len(c.tokens)
+                                                 for c in want)
+
+
+def test_stream_through_demotions_yields_every_token_once(dense):
+    """The same traffic with the host-RAM tier on: requests are demoted
+    and promoted instead of preempted, and their deltas (a demoted
+    request's view comes from the swap tier) add up to run()'s tokens,
+    each token once."""
+    m, params = dense
+    reqs = [Request(rid=i, prompt=tuple(range(3 + i, 14 + i)),
+                    max_new_tokens=12) for i in range(4)]
+    mk = dict(slots=3, max_len=48, page_size=8, pages=7, temperature=0.0,
+              eos_token=-1, prefix_cache=False, host_swap_bytes=1 << 30)
+    want = ContinuousBatchingEngine(m, params, **mk).run(
+        [dataclasses.replace(r) for r in reqs])
+    eng = ContinuousBatchingEngine(m, params, **mk)
+    got, deltas = _streamed(eng, [dataclasses.replace(r) for r in reqs])
+    assert eng.stats["demoted"] == eng.stats["prefetched"] > 0
+    assert eng.stats["preempted"] == 0
+    assert got == {c.rid: c.tokens for c in want}
     assert sum(len(t) for _, t in deltas) == sum(len(c.tokens)
                                                  for c in want)
 
