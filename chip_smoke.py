@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--layers N]
                           [--only {train,swa,engine,mqa,ssm,encdec,moe,mla,
-                                   vlm,hybrid,prefix,quant}]
+                                   vlm,hybrid,prefix,quant,tune}]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -263,7 +263,28 @@ Phases (any failure exits non-zero; nothing is caught):
    2-layer float32 cut (int8 kernels == the plain route over the same
    pools, logits within 1e-4; the swap run == the unpressured run).
    The ``kernels`` line counts kernel 3's launches over int8 arenas apart
-   (``decode_attention_paged_int8``, from the int8 "page" graph run).
+   (``decode_attention_paged_int8``, from the int8 "page" graph run);
+20. the block-shape autotuner (``repro_torch.kernels.autotune``): into a
+   cache file under ``build/``, the reference's sweep rows that reach a
+   CUDA kernel (kernels 3 and 4 at 8 slots x 4,096 positions, bf16 and
+   float32; int8 page layouts at 2 KV heads x 4,096; the LM-head forward
+   and backward at 128 x 4,096), qwen2.5-14b's served buckets (kernels 3
+   and 4 at 8 x 1,664 bf16, its page size, its int8 layout at 8 KV
+   heads) and the LM-head at the train chunk (512 x 152,064 bf16), each
+   with its timing table, best, default and speedup; each tuned block held
+   against its plain version (the decode sweeps at their inputs, kernels
+   3 and 4 at the served shape under the tuned and the heuristic's blocks,
+   over the tuned int8 layout and over 512-token pages, the LM-head at the
+   train chunk at the best ``block_v`` within ``lmhead_limits``); then
+   the engine phase's qwen2.5-14b (``--layers`` deep) serving 12 requests
+   from the tuned cache (``softmax_autotune=True``: page size, pages a
+   tile and the strip tile resolved before the graph's capture) through
+   the graph step (the main path), the eager step (tokens and launches
+   ``==``), the strip pool (``==`` paged where the tiles coincide, else
+   the margin rule) and int8 pages (page size and granularity from the
+   cache), and with the heuristic's blocks (``==`` where page and tile
+   coincide, else tokens where the top-2 margin exceeds twice the logit
+   difference, both fed the same tokens).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -1620,7 +1641,7 @@ def serve_requests(torch, model, params, reqs, state=None, hook=None,
     counts = K.launch_counts()
     toks = [list(c.tokens) for c in comps]
     out = dict(eng.throughput(), wall_s=wall, launches=counts,
-               bucketed=len(eng.buckets or ()),
+               bucketed=len(eng.buckets or ()), buckets=eng.buckets,
                decode_ms_per_step=(eng.stats["decode_s"]
                                    / max(1, eng.stats["steps"]) * 1e3),
                base_bytes=base,
@@ -5586,6 +5607,471 @@ def quant_phase(torch, rows, n_layers: int) -> dict:
             launches["decode_attention_paged_int8"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the block-shape autotuner.
+# ---------------------------------------------------------------------------
+TUNE_SEED = 33
+TUNE_CACHE = ROOT / "build" / "chip_smoke_autotune.json"
+# (op, rows, cols, dtype): the reference's DEFAULT_SWEEP rows that reach a
+# CUDA kernel, the served buckets (qwen2.5-14b's 8 slots x 1,664
+# positions, its 8 KV heads) and the LM-head at the train phase's loss
+# chunk
+TUNE_SWEEP = (
+    ("decode_attention", 8, 4096, "bfloat16"),
+    ("decode_attention", 8, 4096, "float32"),
+    ("decode_attention_paged", 8, 4096, "bfloat16"),
+    ("decode_attention_paged", 8, 4096, "float32"),
+    ("kv_page_quant", 2, 4096, "int8"),
+    ("lmhead_xent", 128, 4096, "float32"),
+    ("decode_attention", N_SLOTS, MAX_LEN, "bfloat16"),
+    ("decode_attention_paged", N_SLOTS, MAX_LEN, "bfloat16"),
+    ("kv_page", 1, MAX_LEN, "bfloat16"),
+    ("kv_page_quant", N_SLOTS, MAX_LEN, "int8"),
+    ("lmhead_xent", LMHEAD_TRAIN[0], LMHEAD_TRAIN[2], "bfloat16"),
+)
+TUNE_PAGE_MAX = 512          # the kv_page envelope: pages longer than a tile
+
+
+def tune_sweeps(torch, smi) -> dict:
+    """Each row of ``TUNE_SWEEP`` swept by ``autotune.autotune_op`` on the
+    card into ``TUNE_CACHE`` (emptied first): its timing table (µs a call,
+    each call ending in a synchronize, the reference's protocol), the
+    candidates refused before any launch, the best, the heuristic's block
+    and the speedup, beside the card's name and power limit."""
+    from repro_torch.kernels import autotune
+
+    TUNE_CACHE.parent.mkdir(parents=True, exist_ok=True)
+    TUNE_CACHE.unlink(missing_ok=True)
+    out = {}
+    for op, rows, cols, dt in TUNE_SWEEP:
+        t = time.perf_counter()
+        r = autotune.autotune_op(op, rows, cols, getattr(torch, dt),
+                                 cache_file=str(TUNE_CACHE))
+        out[op, rows, cols, dt] = r
+        say("tune_sweep", op=op, rows=rows, cols=cols, dtype=r.dtype,
+            key=r.cache_key,
+            timings_us={f"{br}x{bc}": s * 1e6
+                        for (br, bc), s in sorted(r.timings.items())},
+            refused={f"{br}x{bc}": why
+                     for (br, bc), why in r.refused.items()},
+            best=list(r.best), best_us=r.best_s * 1e6,
+            default=list(r.default), default_us=r.default_s * 1e6,
+            speedup=r.speedup, seconds=time.perf_counter() - t, card=smi)
+    return out
+
+
+def tuned_blocks(torch, cfg, *, page_dtype=None) -> dict:
+    """What the served engine resolves under ``cfg``'s policy at qwen's
+    bucket (8 slots, ``MAX_LEN``, bf16 q): page size (and granularity for
+    int8 pages), the paged kernel's pages a tile and tile, the strip
+    kernel's tile."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.serving import kv_cache
+
+    gran = None
+    if page_dtype is None:
+        ps = kv_cache.resolve_page_size(cfg, MAX_LEN, device="cuda")
+    else:
+        ps, gran = kv_cache.resolve_page_quant(cfg, MAX_LEN, device="cuda")
+    pol = cfg.softmax_policy()
+    pmax = -(-MAX_LEN // ps)
+    _, bt = pol.resolve_blocks("decode_attention_paged", N_SLOTS, pmax * ps,
+                               torch.bfloat16, backend="gpu")
+    _, bs = pol.resolve_blocks("decode_attention", N_SLOTS, MAX_LEN,
+                               torch.bfloat16, backend="gpu")
+    ppt = min(max(1, bt // ps), pmax, da.MAX_PAGES_PER_TILE)
+    return dict(page_size=ps, scale_granularity=gran, pages_per_tile=ppt,
+                paged_tile=min(ppt * ps, da.MAX_TILE),
+                strip_tile=min(bs, da.MAX_TILE))
+
+
+def served_decode_case(torch, case, lengths, *, ps, ppt, strip_tile=None,
+                       gran=None, seed=TUNE_SEED) -> dict:
+    """Kernel 3 at the served shape (q [8, 8, 5, 128] bf16) over seeded
+    pages of ``ps`` tokens behind a shuffled table, ``ppt`` pages a tile
+    (bf16 pages, or int8 at ``gran`` with the scales fused), and, with
+    ``strip_tile``, kernel 4 over the same cache laid out as a strip:
+    each against its plain version at the decode limits, strip bit-equal
+    to paged where the two tiles coincide; each timed by graph replay
+    beside its bound."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.serving import kv_cache
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    s, hkv, g, d = N_SLOTS, 8, 5, 128
+    pmax = -(-MAX_LEN // ps)
+    n_pages = 1 + s * pmax
+    tab = (torch.randperm(n_pages - 1, device="cuda", generator=gen) + 1
+           ).reshape(s, pmax).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = torch.randn((s, hkv, g, d), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    kb, vb = (torch.randn((n_pages, ps, hkv, d), device="cuda",
+                          generator=gen).to(torch.bfloat16) for _ in "kv")
+    k, v, ksc, vsc = kb, vb, None, None
+    if gran is not None:
+        axes = (1, 2, 3) if gran == "page" else (1, 3)
+        (k, ksc), (v, vsc) = (kv_cache.quantize_symmetric(x, axes)
+                              for x in (kb, vb))
+        ksc, vsc = (x.expand(-1, ps, hkv if gran == "page_head" else 1, 1)
+                    .reshape((n_pages, ps, hkv) if gran == "page_head"
+                             else (n_pages, ps)).contiguous()
+                    for x in (ksc, vsc))
+    sc = d ** -0.5
+    n_pos = int(lens.sum())
+    kv_bytes = n_pos * hkv * d * 2 * (1 if gran else 2) + (
+        n_pos * 4 * 2 * (hkv if gran == "page_head" else 1) if gran else 0)
+    b_ms, b_by = bound(kv_bytes + 2 * q.numel() * 2 + s * pmax * 4 + s * 4,
+                       n_pos * hkv * g * (4 * d + 20 + (2 if gran else 0)))
+
+    def paged():
+        return da.decode_attention_paged(q, k, v, tab, lens, ksc, vsc,
+                                         scale=sc, pages_per_tile=ppt)
+
+    got = paged()
+    torch.cuda.synchronize()
+    tile = min(ppt * ps, da.MAX_TILE)
+    r = held(got, da.decode_attention_paged_plain(
+        q, k, v, tab, lens, ksc, vsc, scale=sc,
+        n_t_chunks=-(-pmax // ppt)), DECODE_BF16_TOL,
+        f"decode_attention_paged {case}")
+    out = dict(page_size=ps, pages_per_tile=ppt, tile=tile,
+               scale_granularity=gran, paged_ms=graph_ms(torch, paged),
+               bound_ms=b_ms, bound_by=b_by, paged=r)
+    if strip_tile is not None:
+        ks, vs = (x[tab.long()].reshape(s, pmax * ps, hkv, d).transpose(1, 2)
+                  for x in (kb, vb))
+
+        def strip():
+            return da.decode_attention(q, ks, vs, lens, scale=sc,
+                                       block_t=strip_tile)
+
+        st = strip()
+        torch.cuda.synchronize()
+        out["strip"] = held(st, da.decode_attention_plain(
+            q, ks, vs, lens, scale=sc,
+            n_t_chunks=-(-pmax * ps // strip_tile)), DECODE_BF16_TOL,
+            f"decode_attention {case}")
+        out.update(strip_tile=strip_tile, strip_ms=graph_ms(torch, strip))
+        if strip_tile == tile:
+            check(torch.equal(st, got), f"{case}: strip != paged bits at "
+                  f"one tile of {tile}")
+            out["strip_equals_paged"] = True
+    say("tune_kernel_check", case=case, **out)
+    return out
+
+
+def tune_kernel_checks(torch, sweeps, blocks, lengths) -> None:
+    """Each tuned block held against its plain version: the decode sweeps'
+    best at their own inputs; kernels 3 and 4 at the served shape under
+    the tuned blocks and the heuristic's (times side by side), over int8
+    pages at the tuned layout, and over 512-token pages (bf16 and int8);
+    the LM-head forward and backward at the train chunk at the best
+    ``block_v`` within ``lmhead_limits``, the backward timed at it and at
+    ``LMHEAD_BLOCK_V``."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import twopass_xent as xe
+
+    dev = torch.device("cuda")
+    for (op, rows, cols, dt), res in sweeps.items():
+        if op not in autotune.DECODE_OPS:
+            continue
+        x = autotune._inputs_for(op, rows, cols, getattr(torch, dt), dev)
+        got = autotune._runner_for(op)(x, *res.best)
+        torch.cuda.synchronize()
+        q = x[0]
+        if op == "decode_attention":
+            tile = min(res.best[1], da.MAX_TILE)
+            want = da.decode_attention_plain(
+                *x, scale=q.shape[-1] ** -0.5,
+                n_t_chunks=-(-x[1].shape[2] // tile))
+        else:
+            pmax = x[3].shape[1]
+            ppt = min(max(1, res.best[1] // x[1].shape[1]), pmax,
+                      da.MAX_PAGES_PER_TILE)
+            want = da.decode_attention_paged_plain(
+                *x, scale=q.shape[-1] ** -0.5, n_t_chunks=-(-pmax // ppt))
+        tol = (DECODE_BF16_TOL if dt == "bfloat16"
+               else dict(atol=1e-5, rtol=0.0))
+        r = held(got, want, tol, f"{op} {rows}x{cols} {dt} at {res.best}")
+        say("tune_kernel_check", case=f"{op} {rows}x{cols} {dt}",
+            block=list(res.best), **r)
+    t, u, q8 = blocks["tuned"], blocks["untuned"], blocks["tuned_int8"]
+    tuned = served_decode_case(torch, "served, tuned blocks", lengths,
+                               ps=t["page_size"], ppt=t["pages_per_tile"],
+                               strip_tile=t["strip_tile"])
+    base = served_decode_case(torch, "served, heuristic blocks", lengths,
+                              ps=u["page_size"], ppt=u["pages_per_tile"],
+                              strip_tile=u["strip_tile"])
+    say("tune_kernel_time", case="served q [8, 8, 5, 128] bf16",
+        paged_ms=dict(tuned=tuned["paged_ms"], heuristic=base["paged_ms"]),
+        strip_ms=dict(tuned=tuned["strip_ms"], heuristic=base["strip_ms"]),
+        bound_ms=dict(tuned=tuned["bound_ms"], heuristic=base["bound_ms"]))
+    served_decode_case(torch, "served, tuned int8 layout", lengths,
+                       ps=q8["page_size"], ppt=q8["pages_per_tile"],
+                       gran=q8["scale_granularity"])
+    for gran in (None, "page"):
+        served_decode_case(torch, f"served, {TUNE_PAGE_MAX}-token pages, "
+                           f"{gran or 'bf16'}", lengths, ps=TUNE_PAGE_MAX,
+                           ppt=1, gran=gran,
+                           strip_tile=None if gran else da.MAX_TILE)
+
+    bv = sweeps["lmhead_xent", LMHEAD_TRAIN[0], LMHEAD_TRAIN[2],
+                "bfloat16"].best[1]
+    h, w, lab, dl = lmhead_inputs(torch, LMHEAD_TRAIN, torch.bfloat16)
+    nch = xe.lmhead_v_chunks(w.shape[1], bv)
+    loss, m, n = xe.lmhead_xent_fwd_2d(h, w, lab, block_v=bv)
+    torch.cuda.synchronize()
+    pl, pm, pn = xe.lmhead_xent_fwd_2d_plain(h, w, lab, nch)
+    args = (h, w, lab, pm, pn, dl)
+    lim = lmhead_limits(torch, h, w, lab, dl, pm, pn, pl)
+    dh, dw = xe.lmhead_xent_bwd_2d(*args, block_v=bv)
+    torch.cuda.synchronize()
+    pdh, pdw = xe.lmhead_xent_bwd_2d_plain(*args, nch)
+    res = {}
+    for what, got, want in (("loss", loss, pl), ("dh", dh, pdh),
+                            ("dw", dw, pdw)):
+        d = (got.float() - want.float()).abs()
+        res[what] = dict(max_abs_err=float(d.max()),
+                         worst_err_over_limit=float((d / lim[what]).max()))
+        check(res[what]["worst_err_over_limit"] <= 1.0,
+              f"lmhead at block_v {bv} {what}: {res[what]}")
+    del lim, pdh, pdw, dh, dw
+    times = {b: cuda_ms(torch, lambda b=b: xe.lmhead_xent_bwd_2d(
+        *args, block_v=b), 10) for b in sorted({bv, LMHEAD_BLOCK_V})}
+    say("tune_kernel_check", case="lmhead_xent train chunk bf16, tuned "
+        "block_v", shape=list(LMHEAD_TRAIN), block_v=bv,
+        slabs=-(-w.shape[1] // bv), tol="lmhead_limits", **res,
+        fused_backward_ms={str(b): ms for b, ms in times.items()})
+    del h, w, args, pm, pn, pl
+    torch.cuda.empty_cache()
+
+
+def forced_logits(torch, m, params, prompts, toks, *, buckets, tile):
+    """Logits [n, NEW_TOKENS, V] of each request fed its tokens ``toks``:
+    the prefill padded to its bucket in ``buckets`` (as the engine pads
+    it), adopted into a strip pool of ``N_SLOTS`` slots (groups of 8
+    requests, as the engine's steps), then the decode steps with the strip
+    kernel at ``tile``, which folds as the paged kernel at that tile."""
+    from repro_torch.serving import engine, kv_cache
+
+    cfg = dataclasses.replace(m.cfg, attn_block_k=tile)
+    v = cfg.vocab
+    out = []
+    for g0 in range(0, len(toks), N_SLOTS):
+        idx = range(g0, min(len(toks), g0 + N_SLOTS))
+        pool = kv_cache.init_slot_pool(cfg, N_SLOTS, MAX_LEN, device="cuda")
+        first = []
+        for s, i in enumerate(idx):
+            p = prompts[i]
+            b = next(x for x in buckets if x >= len(p))
+            padded = torch.zeros((1, b), dtype=torch.int64)
+            padded[0, :len(p)] = torch.tensor(p)
+            lg, cache = engine.prefill(params, padded.to("cuda"), cfg=m.cfg,
+                                       max_len=b, last_pos=len(p) - 1)
+            first.append(lg[0, :v].float())
+            kv_cache.adopt_slot(pool, cache, s, len(p))
+            del cache
+        rows = [torch.stack(first)]
+        forced = torch.zeros((N_SLOTS, NEW_TOKENS), dtype=torch.int64,
+                             device="cuda")
+        forced[:len(idx)] = torch.tensor([toks[i] for i in idx])
+        for j in range(NEW_TOKENS - 1):
+            lg, _ = engine.decode_step_ragged(params, pool, forced[:, j],
+                                              cfg=cfg)
+            rows.append(lg[:len(idx), :v].float())
+        out.append(torch.stack(rows, 1))
+        del pool
+    torch.cuda.empty_cache()
+    return torch.cat(out)
+
+
+def hold_by_margin(torch, what, want, got) -> dict:
+    """``got`` against ``want`` (two served runs, each a (model, params,
+    prompts, tokens, buckets, tile)) by the margin rule of the swa and moe
+    phases: both fed ``want``'s tokens (:func:`forced_logits`), their
+    argmaxes agree wherever ``want``'s top-2 margin exceeds twice the
+    largest logit difference between them, and ``got``'s tokens leave
+    ``want``'s only at a position the rule does not decide."""
+    (mw, pw, prompts, tw, bw, tl_w), (mg, _, _, tg, bg, tl_g) = want, got
+    lw = forced_logits(torch, mw, pw, prompts, tw, buckets=bw, tile=tl_w)
+    lg = forced_logits(torch, mg, pw, prompts, tw, buckets=bg, tile=tl_g)
+    abs_err = float((lw - lg).abs().max())
+    top2 = lw.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    decided = margin > 2 * abs_err
+    same = lw.argmax(-1) == lg.argmax(-1)
+    first = [next((j for j in range(NEW_TOKENS) if a[j] != b[j]), None)
+             for a, b in zip(tw, tg)]
+    bad = [(i, j) for i, j in enumerate(first)
+           if j is not None and bool(decided[i, j])]
+    out = dict(logits_max_abs_err=abs_err,
+               logits_max_err_over_max_logit=abs_err / float(
+                   lw.abs().max()),
+               positions=int(decided.numel()),
+               decided=int(decided.sum()),
+               argmax_equal_where_decided=bool(same[decided].all()),
+               first_divergence=first,
+               margins_at_divergence=[
+                   None if j is None else float(margin[i, j])
+                   for i, j in enumerate(first)],
+               served_tokens_equal=sum(a == b for x, y in zip(tw, tg)
+                                       for a, b in zip(x, y)),
+               served_tokens=sum(map(len, tw)),
+               rule="== where the top-2 margin exceeds 2 x the largest "
+                    "logit difference, both fed the same tokens")
+    say("tune_margin", check=what, **out)
+    check(out["argmax_equal_where_decided"],
+          f"{what}: argmax differs at a top-2 margin above 2 x {abs_err}")
+    check(not bad, f"{what}: tokens differ at decided positions {bad}")
+    del lw, lg
+    torch.cuda.empty_cache()
+    return out
+
+
+def tune_serving(torch, mt, mu, params, prompts, smi) -> dict:
+    """qwen2.5-14b through ``ContinuousBatchingEngine(paged=True,
+    use_kernels=True)``: from the tuned cache (``softmax_autotune=True``)
+    with the graph step (the main path) and the eager step, the strip pool
+    and int8 pages (page size and granularity from the cache); and with
+    the heuristic's blocks.  Held: tuned graph == eager (tokens and
+    launches); strip == paged where their tiles coincide, tuned ==
+    untuned where tile and page coincide, else the margin rule.  Returns
+    the main path's launches."""
+    from repro_torch.serving.scheduler import Request
+
+    cfg = mt.cfg
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                for i, p in enumerate(prompts)]
+
+    runs = {}
+    plan = (("tuned paged graph", mt, dict(fused=True)),
+            ("tuned paged eager", mt, dict(fused=False)),
+            ("tuned strip graph", mt, dict(paged=False)),
+            ("untuned paged graph", mu, dict(fused=True)),
+            ("tuned int8 graph", mt, dict(page_dtype="int8")))
+    for name, model, kw in plan:
+        kw = dict(dict(paged=True, fused=True), **kw)
+        toks, st = serve_requests(torch, model, params, reqs(),
+                                  slots=N_SLOTS, max_len=MAX_LEN, seed=3,
+                                  temperature=0.0, **kw)
+        blocks = tuned_blocks(torch, model.cfg,
+                              page_dtype=kw.get("page_dtype"))
+        kname = ("decode_attention" if not kw["paged"] else
+                 "decode_attention_paged" + ("_int8" if "page_dtype" in kw
+                                             else ""))
+        check(all(len(x) == NEW_TOKENS for x in toks),
+              f"tune {name}: token counts")
+        check(st["launches"][kname] == cfg.n_layers * st["steps"]
+              and st["launches"]["twopass_softmax_2d"] > 0,
+              f"tune {name}: launches {st['launches']}")
+        if kw["paged"]:
+            check(st["page_size"] == blocks["page_size"],
+                  f"tune {name}: page size {st['page_size']} != "
+                  f"{blocks['page_size']}")
+        keys = ("decode_ms_per_step", "decode_tok_s", "prefill_tok_s",
+                "peak_bytes", "steps", "bucketed")
+        say("tune_serving", run=name, arch=ARCH, n_layers=cfg.n_layers,
+            autotune=model.cfg.softmax_autotune, **blocks,
+            **{k: st.get(k) for k in keys}, launches=st["launches"],
+            launches_per_replay=st.get("launches_per_replay"), card=smi)
+        runs[name] = toks, st, blocks
+    (tg, sg, bt), (te, se, _) = (runs["tuned paged graph"],
+                                 runs["tuned paged eager"])
+    check(tg == te, "tune: graph tokens != eager tokens under tuned blocks")
+    check(sg["launches"] == se["launches"] and sg["launches_per_replay"]
+          == {"decode_attention_paged": cfg.n_layers},
+          f"tune: graph launches {sg['launches']} != eager "
+          f"{se['launches']}")
+    say("parity", arch=ARCH, check="tune: tuned graph == eager tokens and "
+        "launches", equal=True)
+
+    ts = runs["tuned strip graph"][0]
+    if bt["strip_tile"] == bt["paged_tile"]:
+        check(ts == tg, "tune: strip != paged tokens at one tile")
+        say("parity", arch=ARCH, check="tune: strip == paged tokens (tiles "
+            f"coincide at {bt['paged_tile']})", equal=True)
+    else:
+        hold_by_margin(torch, "tune: strip vs paged, tiles "
+                       f"{bt['strip_tile']} / {bt['paged_tile']}",
+                       (mt, params, prompts, tg, sg["buckets"],
+                        bt["paged_tile"]),
+                       (mt, params, prompts, ts, sg["buckets"],
+                        bt["strip_tile"]))
+    tu, su, bu = runs["untuned paged graph"]
+    # the margin rule always runs here: where page and tile coincide the
+    # two forced runs must give equal logits and the served tokens ==
+    same = (bu["page_size"], bu["paged_tile"]) == (bt["page_size"],
+                                                   bt["paged_tile"])
+    rule = hold_by_margin(
+        torch, f"tune: tuned (page {bt['page_size']}, tile "
+        f"{bt['paged_tile']}) vs untuned (page {bu['page_size']}, tile "
+        f"{bu['paged_tile']})",
+        (mu, params, prompts, tu, su["buckets"], bu["paged_tile"]),
+        (mt, params, prompts, tg, sg["buckets"], bt["paged_tile"]))
+    if same:
+        check(tu == tg and rule["logits_max_abs_err"] == 0.0,
+              "tune: tuned != untuned at one page and tile")
+        say("parity", arch=ARCH, check="tune: tuned == untuned tokens "
+            "(page and tile coincide)", equal=True)
+    t8, s8, b8 = runs["tuned int8 graph"]
+    agree = sum(a == b for x, y in zip(t8, tg) for a, b in zip(x, y))
+    say("parity", arch=ARCH, check="tune: int8 pages (tuned layout) vs "
+        "bf16 pages tokens (reported, not held, as the quant phase does)",
+        token_agreement=agree / sum(map(len, tg)),
+        page_size=s8["page_size"], scale_granularity=s8.get(
+            "scale_granularity"))
+    check(s8.get("scale_granularity") == b8["scale_granularity"],
+          f"tune: int8 granularity {s8.get('scale_granularity')}")
+    launches = dict(sg["launches"])
+    launches["decode_attention"] = runs["tuned strip graph"][1][
+        "launches"]["decode_attention"]
+    launches["decode_attention_paged_int8"] = s8["launches"][
+        "decode_attention_paged_int8"]
+    return launches
+
+
+def tune_phase(torch, n_layers: int, smi: str) -> dict:
+    """Phase 20: the block-shape autotuner on the card.  (a) The sweeps of
+    ``TUNE_SWEEP`` into ``TUNE_CACHE``; (b) each tuned block held against
+    its plain version; (c) qwen2.5-14b at full width, ``n_layers`` deep,
+    served from the tuned cache and with the heuristic's blocks (see
+    :func:`tune_serving`).  Every other phase keeps ``softmax_autotune``
+    off.  Returns the main path's launches (the tuned graph run, its strip
+    and int8 runs)."""
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    sweeps = tune_sweeps(torch, smi)
+    say("tune_sweeps_done", seconds=time.perf_counter() - t0)
+    mt = build_model(ARCH, n_layers=n_layers, use_kernels=True,
+                     softmax_autotune=True,
+                     softmax_autotune_cache=str(TUNE_CACHE))
+    mu = build_model(ARCH, n_layers=n_layers, use_kernels=True)
+    blocks = {"tuned": tuned_blocks(torch, mt.cfg),
+              "untuned": tuned_blocks(torch, mu.cfg),
+              "tuned_int8": tuned_blocks(torch, mt.cfg, page_dtype="int8")}
+    say("tune_blocks", arch=ARCH, n_layers=n_layers, **blocks)
+    rng = np.random.default_rng(TUNE_SEED)
+    plens = rng.integers(200, 1501, N_REQ)
+    prompts = [tuple(int(t) for t in rng.integers(0, mt.cfg.vocab, n))
+               for n in plens]
+    tune_kernel_checks(torch, sweeps, blocks,
+                       [int(p) + NEW_TOKENS - 1 for p in plens[:N_SLOTS]])
+    say("tune_kernels_done", seconds=time.perf_counter() - t0)
+    params = mt.init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = tune_serving(torch, mt, mu, params, prompts, smi)
+    del params, mt, mu
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("tune_phase", seconds=time.perf_counter() - t0, card=smi)
+    return launches
+
+
 def idle_share(torch, m, params, prompts, *, fused: bool):
     """Device busy time over wall time for a short traced serving run, the
     decode step a CUDA graph or eager (its capture before the trace)."""
@@ -5789,7 +6275,8 @@ def main() -> int:
                     "16 keeps the whole script inside its time limit)")
     ap.add_argument("--only", choices=("train", "swa", "engine", "mqa",
                                        "ssm", "encdec", "moe", "mla", "vlm",
-                                       "hybrid", "prefix", "quant"),
+                                       "hybrid", "prefix", "quant",
+                                       "tune"),
                     help="run one phase alone (train: to compare the train "
                     "step of two trees on one card); no kernels or ok line")
     args = ap.parse_args()
@@ -5828,6 +6315,10 @@ def main() -> int:
         elif args.only == "quant":
             t0 = time.perf_counter()
             say("quant_done", launches=quant_phase(torch, {}, args.layers),
+                seconds=time.perf_counter() - t0)
+        elif args.only == "tune":
+            t0 = time.perf_counter()
+            say("tune_done", launches=tune_phase(torch, args.layers, smi),
                 seconds=time.perf_counter() - t0)
         elif args.only in ("mqa", "ssm", "encdec", "moe", "mla", "vlm",
                            "hybrid"):
@@ -5908,6 +6399,10 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(quant_phase(torch, rows, args.layers))
     say("quant_done", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for name, n in tune_phase(torch, args.layers, smi).items():
+        launches[name] += n
+    say("tune_done", seconds=time.perf_counter() - t0)
     kernels = []
     for name in REPLACES:
         r = rows[name][MAIN_CASE[name]]

@@ -1,10 +1,12 @@
 """SoftmaxPolicy: one frozen object deciding how every softmax site runs.
 
 A policy carries which of the paper's three algorithms runs, whether the
-hand-written CUDA kernels are used (vs the plain tensor forms), and explicit
-attention block-shape overrides.  ``configs/base.py`` builds it once per
+hand-written CUDA kernels are used (vs the plain tensor forms), explicit
+attention block-shape overrides, and whether resolution may consult the
+persisted autotune cache.  ``configs/base.py`` builds it once per
 ``ModelConfig`` (:meth:`ModelConfig.softmax_policy`).  Block shapes resolve
-through ``repro_torch.kernels.registry``.  The CUDA softmax takes no tile
+through ``repro_torch.kernels.registry``: overrides > the cache (with
+``autotune``) > the heuristic.  The CUDA softmax takes no tile
 (one thread block sweeps a whole row), so a config's
 ``softmax_block_rows``/``softmax_block_cols`` are refused rather than
 silently ignored.
@@ -33,18 +35,14 @@ ATTENTION_OPS = ("flash_attention", "chunk_attention", "decode_attention",
 class SoftmaxPolicy:
     algorithm: SoftmaxAlgorithm = SoftmaxAlgorithm.TWO_PASS
     use_kernels: bool = False
-    autotune: bool = False               # not ported yet (ROADMAP item 20)
-    autotune_cache: Optional[str] = None
+    autotune: bool = False               # consult the persisted tune cache
+    autotune_cache: Optional[str] = None  # cache file (None: env / default)
     attn_block_q: Optional[int] = None
     attn_block_k: Optional[int] = None
 
     def __post_init__(self):
         object.__setattr__(self, "algorithm",
                            SoftmaxAlgorithm(self.algorithm))
-        if self.autotune:
-            raise NotImplementedError(
-                "SoftmaxPolicy(autotune=True): the autotune cache is not "
-                "ported yet (ROADMAP queue A item 20)")
 
     @classmethod
     def from_config(cls, cfg) -> "SoftmaxPolicy":
@@ -63,19 +61,35 @@ class SoftmaxPolicy:
             attn_block_q=getattr(cfg, "attn_block_q", None),
             attn_block_k=getattr(cfg, "attn_block_k", None))
 
-    def resolve_blocks(self, op: str, rows: int, cols: int, *,
+    def resolve_blocks(self, op: str, rows: int, cols: int,
+                       dtype=torch.float32, *,
                        block_rows: Optional[int] = None,
-                       block_cols: Optional[int] = None) -> tuple[int, int]:
-        """Explicit args > this policy's attention overrides > registry
-        heuristic."""
+                       block_cols: Optional[int] = None,
+                       shards: int = 1,
+                       backend: Optional[str] = None) -> tuple[int, int]:
+        """Explicit args > this policy's attention overrides > (autotune
+        cache) > registry heuristic.  ``backend`` ("gpu" | "cpu") is the
+        device the op runs on (None: ``registry.default_backend()``);
+        ``shards`` keys tensor-parallel variants apart."""
         from repro_torch.kernels import registry
 
         pbr, pbc = ((self.attn_block_q, self.attn_block_k)
                     if op in ATTENTION_OPS else (None, None))
         return registry.block_shapes(
-            op, rows, cols,
+            op, rows, cols, dtype,
             block_rows=block_rows if block_rows is not None else pbr,
-            block_cols=block_cols if block_cols is not None else pbc)
+            block_cols=block_cols if block_cols is not None else pbc,
+            use_cache=self.autotune, backend=backend,
+            cache_file=self.autotune_cache, shards=shards)
+
+    def tune(self, op: str, rows: int, cols: int, dtype=torch.float32, **kw):
+        """Sweep one (op, shape) now and persist the best block to this
+        policy's cache (``autotune.autotune_op``; it times real calls, on
+        the card unless ``device=`` says otherwise)."""
+        from repro_torch.kernels import autotune
+
+        return autotune.autotune_op(op, rows, cols, dtype,
+                                    cache_file=self.autotune_cache, **kw)
 
     def softmax(self, x: torch.Tensor, axis: int = -1) -> torch.Tensor:
         """Softmax along ``axis``.  The kernel path covers last-axis

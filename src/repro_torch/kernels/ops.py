@@ -8,7 +8,8 @@ card and run their plain version for a tensor on the CPU.  An op takes the
 kernel wrapper when its :class:`SoftmaxPolicy` says ``use_kernels`` (or an
 explicit ``use_kernel=`` says so) and the plain (m, n) chunked forms
 otherwise, on any device.  Block shapes resolve through
-``repro_torch.kernels.registry``.
+``repro_torch.kernels.registry`` (overrides > the policy's autotune cache >
+the heuristic), keyed by the operands' dtype and device.
 
 float32 matrix products on the card must not run in TF32: this package
 turns it off where it is imported (``repro_torch/__init__.py``).
@@ -33,14 +34,19 @@ MAX_SLOT_CHUNKS = 8
 MAX_T_CHUNKS = 16
 
 
-def _blocks(op: str, rows: int, cols: int, block_rows, block_cols,
-            policy=None) -> tuple[int, int]:
-    """Explicit args win, then the policy's overrides, then the registry."""
+def _blocks(op: str, rows: int, cols: int, dtype, device, block_rows,
+            block_cols, policy=None) -> tuple[int, int]:
+    """Explicit args win, then the policy's overrides and cache setting,
+    then the registry.  The cache key carries the operands' dtype and the
+    backend of the device they are on."""
+    backend = registry.backend_of(device)
     if policy is not None:
-        return policy.resolve_blocks(op, rows, cols, block_rows=block_rows,
-                                     block_cols=block_cols)
-    return registry.block_shapes(op, rows, cols, block_rows=block_rows,
-                                 block_cols=block_cols)
+        return policy.resolve_blocks(op, rows, cols, dtype,
+                                     block_rows=block_rows,
+                                     block_cols=block_cols, backend=backend)
+    return registry.block_shapes(op, rows, cols, dtype,
+                                 block_rows=block_rows,
+                                 block_cols=block_cols, backend=backend)
 
 
 _SOFTMAX_2D = {
@@ -144,8 +150,8 @@ def train_bwd_impl(policy=None, impl: str | None = None,
 def _lmhead_blocks(h, w, block_v, policy) -> int:
     """The vocab block: the backward kernels' dlogits slab and the plain
     forms' chunk width (the kernels' token tile is fixed at 128)."""
-    return _blocks("lmhead_xent", h.shape[0], w.shape[1], None, block_v,
-                   policy)[1]
+    return _blocks("lmhead_xent", h.shape[0], w.shape[1], h.dtype,
+                   h.device, None, block_v, policy)[1]
 
 
 class _LmheadCrossEntropy(torch.autograd.Function):
@@ -277,8 +283,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sq, skv = q.shape[2], k.shape[2]
     return _FlashAttention.apply(
         q, k, v, causal, scale, window,
-        _blocks("flash_attention", sq, skv, block_q, block_k, policy),
-        _blocks("flash_attention_bwd", sq, skv, block_q, block_k, policy),
+        _blocks("flash_attention", sq, skv, q.dtype, q.device, block_q,
+                block_k, policy),
+        _blocks("flash_attention_bwd", sq, skv, q.dtype, q.device, block_q,
+                block_k, policy),
         impl)
 
 
@@ -305,7 +313,8 @@ def flash_attention_fwd_stats(q, k, v, *, causal: bool = False,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return _flash_fwd(q, k, v, causal, scale, window,
                       _blocks("flash_attention", q.shape[2], k.shape[2],
-                              block_q, block_k, policy), impl)
+                              q.dtype, q.device, block_q, block_k, policy),
+                      impl)
 
 
 def flash_attention_bwd(q, k, v, o, m_sum, n_sum, do, *,
@@ -323,7 +332,8 @@ def flash_attention_bwd(q, k, v, o, m_sum, n_sum, do, *,
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     return _flash_bwd(q, k, v, o, m_sum, n_sum, do, causal, scale, window,
                       _blocks("flash_attention_bwd", q.shape[2], k.shape[2],
-                              block_q, block_k, policy), impl)
+                              q.dtype, q.device, block_q, block_k, policy),
+                      impl)
 
 
 def logsumexp_stats(x: torch.Tensor):
@@ -351,7 +361,8 @@ def decode_attention(q, k, v, lengths, *, scale: float | None = None,
     lengths."""
     s, _, _, d = q.shape
     t = k.shape[2]
-    bs, bt = _blocks("decode_attention", s, t, block_s, block_t, policy)
+    bs, bt = _blocks("decode_attention", s, t, q.dtype, q.device, block_s,
+                     block_t, policy)
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     if _kernel_path(policy, use_kernel):
@@ -378,8 +389,8 @@ def decode_attention_paged(q, k_pages, v_pages, page_table, lengths, *,
     s, _, _, d = q.shape
     ps = k_pages.shape[1]
     pmax = page_table.shape[1]
-    bs, bt = _blocks("decode_attention_paged", s, pmax * ps, block_s,
-                     block_t, policy)
+    bs, bt = _blocks("decode_attention_paged", s, pmax * ps, q.dtype,
+                     q.device, block_s, block_t, policy)
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     pages_per_chunk = max(1, bt // ps)

@@ -122,17 +122,25 @@ def full_attention(q, k, v, *, causal, window=None, scale, q_offset=0,
 MAX_Q_CHUNKS = 8
 MAX_KV_CHUNKS = 16
 # Score matrices up to this size stay single-block (policy-honouring
-# full_attention) unless blocks are overridden.
+# full_attention) unless blocks are overridden or tuned.
 SINGLE_BLOCK_SCORES = 2048 * 2048
 
 
-def resolve_chunks(sq: int, skv: int,
-                   policy: SoftmaxPolicy | None = None) -> tuple[int, int]:
-    """Chunk counts for :func:`mn_chunk_attention`; (1, 1) = single block."""
+def resolve_chunks(sq: int, skv: int, policy: SoftmaxPolicy | None = None,
+                   dtype=torch.float32, device=None) -> tuple[int, int]:
+    """Chunk counts for :func:`mn_chunk_attention`; (1, 1) = single block.
+    The registry's ``chunk_attention`` op resolves chunk LENGTHS (policy
+    overrides > autotune cache > heuristic, keyed by ``dtype`` and the
+    backend of ``device``); absent overrides or an autotune opt-in the
+    heuristic never chunks a score matrix under ``SINGLE_BLOCK_SCORES``."""
+    from repro_torch.kernels import registry
+
     policy = policy or DEFAULT_POLICY
-    bq, bk = policy.resolve_blocks("chunk_attention", sq, skv)
+    bq, bk = policy.resolve_blocks("chunk_attention", sq, skv, dtype,
+                                   backend=registry.backend_of(device))
     heuristic_only = (policy.attn_block_q is None
-                      and policy.attn_block_k is None)
+                      and policy.attn_block_k is None
+                      and not policy.autotune)
     if heuristic_only and sq * skv <= SINGLE_BLOCK_SCORES:
         return 1, 1
     return (min(MAX_Q_CHUNKS, -(-sq // bq)),
@@ -175,7 +183,8 @@ def attention_core(q, k, v, *, causal, window, scale, q_offset=0,
                      qpos=qpos)
     if o is not None:
         return o
-    nq, nkv = resolve_chunks(q.shape[3], k.shape[2], policy)
+    nq, nkv = resolve_chunks(q.shape[3], k.shape[2], policy, q.dtype,
+                             q.device)
     if (nq == 1 and nkv == 1) or qpos is not None:
         return full_attention(
             q, k, v, causal=causal, window=window, scale=scale,

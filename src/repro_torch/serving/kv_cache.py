@@ -161,34 +161,45 @@ def supports_paging(cfg: ModelConfig) -> bool:
 
 
 def resolve_page_size(cfg: ModelConfig, max_len: int,
-                      page_size: int | None = None) -> int:
-    """Tokens per page: explicit ``page_size``, else the registry's
-    ``kv_page`` heuristic (128, shrunk to the pool's length for tiny
-    pools)."""
+                      page_size: int | None = None, device=None) -> int:
+    """Tokens per page, resolved through the registry's ``kv_page`` spec:
+    explicit ``page_size`` > the autotune cache (when the config's policy
+    opts in; keyed by ``cache_dtype(cfg)`` and the backend of ``device``)
+    > the 128-token heuristic, shrunk to the pool's length for tiny
+    pools."""
     if page_size is not None:
         return int(page_size)
     from repro_torch.kernels import registry
 
-    _, ps = registry.block_shapes("kv_page", 1, max_len)
+    pol = cfg.softmax_policy()
+    _, ps = registry.block_shapes(
+        "kv_page", 1, max_len, cache_dtype(cfg), use_cache=pol.autotune,
+        backend=registry.backend_of(device), cache_file=pol.autotune_cache)
     return int(ps)
 
 
 def resolve_page_quant(cfg: ModelConfig, max_len: int,
                        page_size: int | None = None,
-                       scale_granularity: str | None = None
+                       scale_granularity: str | None = None, device=None
                        ) -> tuple[int, str]:
     """``(page_size, scale_granularity)`` of an int8 pool, through the
     registry's ``kv_page_quant`` spec: its cols are the tokens per page
     (as ``kv_page``'s), its rows the granularity (1 row: one scale a
     stored position, "page"; more: one a position and KV head,
-    "page_head").  Explicit arguments win per axis; else the heuristic
-    (128-token pages, "page" scales)."""
+    "page_head").  Explicit arguments win per axis; else the policy's
+    autotune cache (keyed by int8 and the backend of ``device``; a tuned
+    row count is clamped to ``n_kv_heads``); else the heuristic (128-token
+    pages, "page" scales)."""
     if page_size is not None and scale_granularity is not None:
         _check_granularity(scale_granularity)
         return int(page_size), scale_granularity
     from repro_torch.kernels import registry
 
-    gr, ps = registry.block_shapes("kv_page_quant", cfg.n_kv_heads, max_len)
+    pol = cfg.softmax_policy()
+    gr, ps = registry.block_shapes(
+        "kv_page_quant", cfg.n_kv_heads, max_len, torch.int8,
+        use_cache=pol.autotune, backend=registry.backend_of(device),
+        cache_file=pol.autotune_cache)
     if page_size is not None:
         ps = page_size
     if scale_granularity is None:
@@ -260,9 +271,9 @@ def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
                          " flat k/v arenas (dense / moe / vlm)")
     if quant:
         ps, gran = resolve_page_quant(cfg, max_len, page_size,
-                                      scale_granularity)
+                                      scale_granularity, device)
     else:
-        ps = resolve_page_size(cfg, max_len, page_size)
+        ps = resolve_page_size(cfg, max_len, page_size, device)
     n_tab = pages_per_slot(max_len, ps)
     encdec = cfg.family == "encdec"
     n_xtab = pages_per_slot(cross_len or max_len, ps) if encdec else 0

@@ -197,11 +197,11 @@ class ContinuousBatchingEngine:
                     "(mla latents and hybrid ssm state keep full precision)")
             self.page_size, self.scale_granularity = \
                 kv_cache.resolve_page_quant(cfg, max_len, page_size,
-                                            scale_granularity)
+                                            scale_granularity, model.device)
         else:
-            self.page_size = (kv_cache.resolve_page_size(cfg, max_len,
-                                                         page_size)
-                              if self.paged else None)
+            self.page_size = (kv_cache.resolve_page_size(
+                cfg, max_len, page_size, model.device)
+                if self.paged else None)
         if slots is None:
             if memory_budget_bytes is None:
                 raise ValueError("pass slots= or memory_budget_bytes=")
@@ -370,7 +370,7 @@ class ContinuousBatchingEngine:
             if self.cfg.family not in _BUCKETABLE_FAMILIES:
                 return None
             base = self.page_size or kv_cache.resolve_page_size(
-                self.cfg, self.max_len)
+                self.cfg, self.max_len, device=self.device)
             bs, b = [], base
             while b < self.max_len:
                 bs.append(b)

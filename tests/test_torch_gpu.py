@@ -1525,3 +1525,102 @@ def test_vlm_lockstep_with_patches_kernels_equal_plain(cuda):
         # max_len rows: the two-pass kernel each
         assert counts["twopass_softmax_2d"] == use_kernels * 7 * 2
     assert torch.equal(toks[True], toks[False])
+
+
+# ---------------------------------------------------------------------------
+# The autotuner on the card (repro_torch.kernels.autotune).
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+def test_autotune_decode_paged_on_the_card(cuda, tmp_path):
+    """A sweep of kernel 3 at 8 slots x 256 positions in bf16: every
+    candidate is whole pages within the kernel, the best is persisted under
+    the gpu backend, and the kernel at the best block agrees with its plain
+    version at the decode limits."""
+    from repro_torch.kernels import autotune, registry
+
+    t = str(tmp_path / "tune.json")
+    res = autotune.autotune_op("decode_attention_paged", 8, 256,
+                               torch.bfloat16, reps=1, min_time_s=0.005,
+                               cache_file=t)
+    ps = autotune.ATTN_PAGE_SIZE
+    assert res.refused == {} and res.best in res.timings
+    assert all(bc % ps == 0 and bc <= tda.MAX_TILE for _, bc in res.timings)
+    assert res.cache_key == "decode_attention_paged|r8|c256|bfloat16|gpu"
+    assert tda.decode_attention_paged.launches > 0
+    registry.load_cache(t, force=True)
+    assert registry.block_shapes("decode_attention_paged", 8, 256,
+                                 torch.bfloat16, use_cache=True,
+                                 backend="gpu", cache_file=t) == res.best
+    q, kp, vp, pt, lens = autotune._inputs_for(
+        "decode_attention_paged", 8, 256, torch.bfloat16, cuda)
+    got = autotune._runner_for("decode_attention_paged")(
+        (q, kp, vp, pt, lens), *res.best)
+    torch.cuda.synchronize()
+    ppt = max(1, res.best[1] // ps)
+    want = tda.decode_attention_paged_plain(
+        q, kp, vp, pt, lens, scale=q.shape[-1] ** -0.5,
+        n_t_chunks=-(-pt.shape[1] // ppt))
+    torch.testing.assert_close(got.float(), want.float(),
+                               **DECODE_TOL[torch.bfloat16])
+    registry.load_cache(t, force=True)
+
+
+@pytest.mark.gpu
+def test_autotune_refuses_past_the_kernel_before_any_launch(cuda, tmp_path,
+                                                           monkeypatch):
+    """Candidates past MAX_TILE or MAX_PAGES_PER_TILE never reach the
+    kernel: with 16-token pages a 256-position block is 16 pages a tile,
+    and a 512-position block is past the tile; with every candidate and
+    the heuristic's block refused the sweep raises having launched
+    nothing."""
+    from repro_torch.kernels import autotune, registry
+
+    t = str(tmp_path / "tune.json")
+    x = autotune._inputs_for("decode_attention_paged", 8, 1024,
+                             torch.bfloat16, cuda)
+    pages16 = (x[0], x[1][:, :16], x[2][:, :16], x[3], x[4])
+    assert "MAX_PAGES_PER_TILE" in autotune._refusal(
+        "decode_attention_paged", 8, 256, pages16)
+    monkeypatch.setattr(autotune, "_inputs_for", lambda *a: pages16)
+    tk.reset_launch_counts()
+    res = autotune.autotune_op("decode_attention_paged", 8, 1024,
+                               torch.bfloat16, candidates=[(8, 256),
+                                                           (8, 512)],
+                               reps=1, min_time_s=0.005, cache_file=t)
+    assert set(res.refused) == {(8, 256), (8, 512)}
+    assert set(res.timings) == {(8, 128)}
+    pages48 = (x[0], x[1][:, :48], x[2][:, :48], x[3], x[4])
+    monkeypatch.setattr(autotune, "_inputs_for", lambda *a: pages48)
+    tk.reset_launch_counts()
+    with pytest.raises(ValueError, match="no viable block candidate"):
+        autotune.autotune_op("decode_attention_paged", 8, 1024,
+                             torch.bfloat16, candidates=[(8, 512)], reps=1,
+                             min_time_s=0.005, cache_file=t)
+    assert sum(tk.launch_counts().values()) == 0
+    registry.load_cache(t, force=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_paged_over_512_token_pages(cuda, int8):
+    """Pages of 512 tokens, the kv_page envelope's largest, are longer than
+    the kernel's tile: kernel 3 folds them in tiles of MAX_TILE positions
+    (the bf16 body for bf16 pages, the general one with scales for int8),
+    against its plain version at the decode limits and, bf16, bit-equal to
+    the strip at the same tile."""
+    q, kp, vp, table, lens = _decode_inputs(
+        cuda, torch.bfloat16, 128, 5, hkv=8, ps=512, pmax=4,
+        lengths=[0, 1, 255, 256, 511, 513, 1500, 2048])
+    if not int8:
+        _check_decode(q, kp, vp, table, lens, torch.bfloat16, ppt=1)
+        assert tda.decode_attention_paged.launches == 2
+        return
+    from repro_torch.serving import kv_cache
+
+    (k8, ksc), (v8, vsc) = (kv_cache.quantize_symmetric(x, (1, 2, 3))
+                            for x in (kp, vp))
+    ksc, vsc = (x.expand(-1, 512, 1, 1).reshape(-1, 512).contiguous()
+                for x in (ksc, vsc))
+    _check_decode(q, k8, v8, table, lens, torch.bfloat16, k_scale=ksc,
+                  v_scale=vsc, strip=False, ppt=1)
+    assert tda.decode_attention_paged_int8.launches == 2
