@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--layers N]
                           [--only {train,swa,engine,mqa,ssm,encdec,moe,mla,
-                                   vlm,hybrid,prefix,quant,tune}]
+                                   vlm,hybrid,prefix,quant,tune,
+                                   family_train}]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -79,7 +80,7 @@ Phases (any failure exits non-zero; nothing is caught):
    tokens and launches), strip (the same tokens) and at
    ``temperature=0.8`` (the sampler's
    kernel on rows past 8192 columns); h2o's ring (``Model.init_cache``,
-   ``Model.decode_step``) stepped 4,160 times from position 0 at 4 of its
+   ``Model.decode_step``) stepped 4,160 times from position 0 at 2 of its
    24 layers against a position-addressed cache prefilled with the first
    4,096 tokens, greedy tokens equal over the 64 steps past the wrap; and
    the ring at the decode_32k cell's shape (batch 128, 32,768 positions,
@@ -98,7 +99,7 @@ Phases (any failure exits non-zero; nothing is caught):
    ``use_kernels=False``, and ms a step beside the weights' read time;
 9. ssm: rwkv6-1.6b (24 layers, d_model 2048, 32 heads of 64, d_ff 7168,
    vocab 65536, bf16 weights, 12.6 MB of recurrent state a slot) on the
-   strip pool at 8 of its 24 layers (the whole script's time limit),
+   strip pool at 4 of its 24 layers (the whole script's time limit),
    32 slots: 48 requests of 200-4,000 prompt tokens + 64 new,
    greedy, the decode step a CUDA graph (the main path) and eager (the
    same tokens and launches, the state after the run bit-equal), with
@@ -194,7 +195,8 @@ Phases (any failure exits non-zero; nothing is caught):
    float32 cut (engine ``==`` lockstep; with patches ``generate`` kernels
    ``==`` plain, the forward within 1e-4); and
    ``python -m repro_torch.launch.serve --arch qwen2-vl-7b --kernels``;
-14. hybrid: hymba-1.5b at full width and depth (32 layers, d_model 1600,
+14. hybrid: hymba-1.5b at full width, 16 of its 32 layers (the script's
+   time limit; the CLI at all 32) (d_model 1600,
    25 query heads over 5 KV heads of 64 under a 1,024 window, 25 mamba
    heads of 64 with state 16 in every block, d_ff 5504, vocab 32001;
    3.28 MB of float32 ssm state a slot, slot-major beside the paged
@@ -205,7 +207,7 @@ Phases (any failure exits non-zero; nothing is caught):
    ``max_len`` 3,136 in pages of 64, through the same runs (graph ``==``
    eager tokens, launches, pages and the ssm state bit for bit), prefill
    logits against ``use_kernels=False``, ``Model.decode_step`` on the
-   ring (``init_cache(ring=True)``) past its wrap at 4 of the 32 layers
+   ring (``init_cache(ring=True)``) past its wrap at 2 of the 32 layers
    against a prefilled position-addressed cache, as h2o's, a decode trace
    of the graph step, a 2-layer float32 cut ``==`` the lockstep, and
    ``python -m repro_torch.launch.serve --arch hymba-1.5b --kernels``;
@@ -284,7 +286,28 @@ Phases (any failure exits non-zero; nothing is caught):
    the margin rule) and int8 pages (page size and granularity from the
    cache), and with the heuristic's blocks (``==`` where page and tile
    coincide, else tokens where the top-2 margin exceeds twice the logit
-   difference, both fed the same tokens).
+   difference, both fed the same tokens);
+21. training the four families without experts: kernels 12-13 at the
+   shapes their train steps give them (whisper-base's encoder [1, 8,
+   1500, 64] and cross-attention [1, 8, 447 | 1500, 64], non-causal, and
+   its decoder [1, 8, 447, 64] causal; qwen2-vl-7b's [1, 28 | 4, 4095,
+   128] causal, G 7; hymba-1.5b's [1, 25 | 5, 4095, 64] causal under its
+   1,024 window, G 5) and kernels 9-11 at each family's loss chunk (d 512
+   / 2048 / 3584 / 1600 over its padded vocabulary, and the configs' own
+   51,865 and 32,001, whose bf16 rows take the cp.async loads), each
+   within the derived limits of the kernel phase and timed beside its
+   bound, plain version and library call; then whisper-base (8 x (1,500
+   frames, 448 decoder tokens)), rwkv6-1.6b (1 x 4,096), qwen2-vl-7b (1 x
+   (256 patches + 3,840 tokens), 4 of its 28 layers) and hymba-1.5b (1 x
+   4,096) at full width, float32 parameters, bf16 activations, remat:
+   from one state the kernel route against the plain route (the loss and
+   four gradients within limits derived from both routes' logits,
+   ``family_parity_limits``), the launches of kernels 9-13 against the
+   count the shapes imply, three AdamW steps through ``Trainer.run``
+   (finite losses, the first within 1.5 of ln V; ms, tokens/s, peak
+   bytes), a traced fourth step (``train_trace``: device time by group,
+   idle share), and ``python -m repro_torch.launch.train --reduced
+   --kernels`` for each family.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -296,6 +319,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import math
 import os
 import pathlib
 import statistics
@@ -780,10 +804,6 @@ def lmhead_phase(torch, rows) -> None:
     products beside them."""
     from repro_torch.kernels import twopass_xent as xe
 
-    def worst(got, want, lim):
-        d = (got.float() - want.float()).abs()
-        return float(d.max()), float((d / lim).max())
-
     digest = lmhead_digest(torch, xe)
     check(digest == LMHEAD_DIGEST,
           f"lmhead dh / dw bits changed: {digest} != {LMHEAD_DIGEST}")
@@ -797,89 +817,23 @@ def lmhead_phase(torch, rows) -> None:
     say("kernel_check", kernel="lmhead_xent_fwd_2d",
         case="train_chunk_bf16 bits as pinned", sha256=fwd, equal=True)
     torch.cuda.empty_cache()
-    for case, (t, d, v), dt in (
+    for case, shape, dt in (
             ("train_chunk_bf16", LMHEAD_TRAIN, torch.bfloat16),
             ("ragged_f32", LMHEAD_RAGGED, torch.float32),
             ("ragged_bf16", LMHEAD_RAGGED, torch.bfloat16)):
-        h, w, lab, dl = lmhead_inputs(torch, (t, d, v), dt)
-        bv, nch = LMHEAD_BLOCK_V, xe.lmhead_v_chunks(v, LMHEAD_BLOCK_V)
-        loss, m, n = xe.lmhead_xent_fwd_2d(h, w, lab, block_v=bv)
-        torch.cuda.synchronize()
-        pl, pm, pn = xe.lmhead_xent_fwd_2d_plain(h, w, lab, nch)
-        args = (h, w, lab, pm, pn, dl)
-        lim = lmhead_limits(torch, h, w, lab, dl, pm, pn, pl)
-        res = {}
-        res["loss"] = worst(loss, pl, lim["loss"])
-        res["lse"] = worst(torch.log(m) + n * xe.LN2,
-                           torch.log(pm) + pn * xe.LN2, lim["lse"][:, None])
-        dh = xe.lmhead_xent_dh_2d(*args, block_v=bv)
-        torch.cuda.synchronize()
-        pdh, pdw = xe.lmhead_xent_bwd_2d_plain(*args, nch)
-        res["dh"] = worst(dh, pdh, lim["dh"])
-        del pdh
-        dw = xe.lmhead_xent_dw_2d(*args, block_v=bv)
-        torch.cuda.synchronize()
-        res["dw"] = worst(dw, pdw, lim["dw"])
-        del lim, pdw
-        same = (torch.equal(xe.lmhead_xent_fwd_2d(h, w, lab, block_v=bv)[0],
-                            loss)
-                and torch.equal(xe.lmhead_xent_dh_2d(*args, block_v=bv), dh)
-                and torch.equal(xe.lmhead_xent_dw_2d(*args, block_v=bv), dw))
-        fdh, fdw = xe.lmhead_xent_bwd_2d(*args, block_v=bv)
-        fused = torch.equal(fdh, dh) and torch.equal(fdw, dw)
-        del dw, fdh, fdw
-        for what, (a, over) in res.items():
-            check(over <= 1.0, f"lmhead {case} {what}: max abs err {a} is "
-                  f"{over} of its limit")
-        check(same, f"lmhead {case}: bits differ between two runs")
-        check(fused, f"lmhead {case}: lmhead_xent_bwd_2d differs from the "
-              "separate dh and dw")
-        for k, what in zip(LMHEAD, (("loss", "lse"), ("dh",), ("dw",))):
-            say("kernel_check", kernel=k, case=case, shape=[t, d, v],
-                dtype=str(dt), block_v=bv, same_bits_twice=True,
-                fused_backward_equal=fused,
-                **{f"{x}_max_abs_err": res[x][0] for x in what},
-                **{f"{x}_worst_err_over_limit": res[x][1] for x in what},
-                tol="float32 accumulation limits (lmhead_limits: "
-                    "lambda 8 sqrt(K) 2^-24 sum|terms|, K = D for the "
-                    "logits, V for dh, T for dw)")
+        c = lmhead_check(torch, case, shape, dt)
         if case == "train_chunk_bf16":
-            es = h.element_size()
-            ins = t * d * es + d * v * es + 16 * t
+            lmhead_times(torch, rows, case, c)
+            h, w, lab, args, bv = (c[x] for x in ("h", "w", "lab", "args",
+                                                  "bv"))
+            t, d, v = shape
             mm = 2 * t * d * v
-            rows["lmhead_xent_fwd_2d"] = {case: dict(
-                kernels="lmhead_fwd_bf16 (wgmma, persistent, folded in "
-                        "registers) + lmhead_fwd_combine",
-                ms=cuda_ms(torch, lambda: xe.lmhead_xent_fwd_2d(
-                    h, w, lab, block_v=bv)),
-                plain_ms=cuda_ms(torch, lambda: xe.lmhead_xent_fwd_2d_plain(
-                    h, w, lab, nch), 5),
-                library_ms=None,      # no one PyTorch call fuses h @ w + CE
-                **dict(zip(("bound_ms", "bound_by"),
-                           bound(ins + 12 * t, STATS_OPS * t * v, mm))),
-                max_abs_err=res["loss"][0], shape=[t, d, v])}
-            for k, which, out in (("lmhead_xent_dh_2d", "dh", t * d * 4),
-                                  ("lmhead_xent_dw_2d", "dw", d * v * 4)):
-                fn = getattr(xe, k)
-                plain = getattr(xe, k + "_plain")
-                # the function's own products: the logits and the dlogits
-                # product; the kernels run the dlogits product as three
-                # bf16 products of the split float32 dlogits
-                rows[k] = {case: dict(
-                    ms=cuda_ms(torch, lambda: fn(*args, block_v=bv)),
-                    plain_ms=cuda_ms(torch, lambda: plain(*args, nch), 5),
-                    library_ms=None,
-                    **dict(zip(("bound_ms", "bound_by"), bound(
-                        ins + out, XENT_BWD_OPS * t * v, 2 * mm))),
-                    split_bound_ms=bound(ins + out, XENT_BWD_OPS * t * v,
-                                         4 * mm)[0],
-                    max_abs_err=res[which][0], shape=[t, d, v])}
             say("kernel_time", kernel="lmhead_xent_bwd_2d",
                 case="train_chunk_bf16 (dh and dw, one dlogits pass a slab)",
                 ms=cuda_ms(torch, lambda: xe.lmhead_xent_bwd_2d(
                     *args, block_v=bv)),
-                bound_ms=bound(ins + t * d * 4 + d * v * 4,
-                               XENT_BWD_OPS * t * v, 3 * mm)[0],
+                bound_ms=bound(t * d * 2 + d * v * 2 + 16 * t + t * d * 4
+                               + d * v * 4, XENT_BWD_OPS * t * v, 3 * mm)[0],
                 split_bound_ms=bound(0, 0, 7 * mm)[0], shape=[t, d, v])
             dlog = torch.randn(t, bv, device="cuda").to(dt)
             ws = w[:, :bv].contiguous()
@@ -910,11 +864,114 @@ def lmhead_phase(torch, rows) -> None:
                 dlogits_launches=count("lmhead_dlogits"),
                 dh_slab_launches=count("lmhead_dh_slab"),
                 dw_slab_launches=count("lmhead_dw_slab"))
-        del h, w, loss, m, n, pl, pm, pn, dh, args
+            del h, w, lab, args
+        del c
         torch.cuda.empty_cache()
+
+
+def lmhead_check(torch, case, shape, dt, bv: int = LMHEAD_BLOCK_V) -> dict:
+    """Kernels 9-11 at ``shape`` = (T, D, V) against their plain versions
+    within the accumulation limits of :func:`lmhead_limits`; the same bits
+    on a second run; the fused backward equal to the two entry points.
+    Prints its ``kernel_check`` lines; returns the inputs and the errors
+    for a timing."""
+    from repro_torch.kernels import twopass_xent as xe
+
+    def worst(got, want, lim):
+        d = (got.float() - want.float()).abs()
+        return float(d.max()), float((d / lim).max())
+
+    t, d, v = shape
+    h, w, lab, dl = lmhead_inputs(torch, shape, dt)
+    nch = xe.lmhead_v_chunks(v, bv)
+    loss, m, n = xe.lmhead_xent_fwd_2d(h, w, lab, block_v=bv)
+    torch.cuda.synchronize()
+    pl, pm, pn = xe.lmhead_xent_fwd_2d_plain(h, w, lab, nch)
+    args = (h, w, lab, pm, pn, dl)
+    lim = lmhead_limits(torch, h, w, lab, dl, pm, pn, pl)
+    res = {}
+    res["loss"] = worst(loss, pl, lim["loss"])
+    res["lse"] = worst(torch.log(m) + n * xe.LN2,
+                       torch.log(pm) + pn * xe.LN2, lim["lse"][:, None])
+    dh = xe.lmhead_xent_dh_2d(*args, block_v=bv)
+    torch.cuda.synchronize()
+    pdh, pdw = xe.lmhead_xent_bwd_2d_plain(*args, nch)
+    res["dh"] = worst(dh, pdh, lim["dh"])
+    del pdh
+    dw = xe.lmhead_xent_dw_2d(*args, block_v=bv)
+    torch.cuda.synchronize()
+    res["dw"] = worst(dw, pdw, lim["dw"])
+    del lim, pdw
+    same = (torch.equal(xe.lmhead_xent_fwd_2d(h, w, lab, block_v=bv)[0],
+                        loss)
+            and torch.equal(xe.lmhead_xent_dh_2d(*args, block_v=bv), dh)
+            and torch.equal(xe.lmhead_xent_dw_2d(*args, block_v=bv), dw))
+    fdh, fdw = xe.lmhead_xent_bwd_2d(*args, block_v=bv)
+    fused = torch.equal(fdh, dh) and torch.equal(fdw, dw)
+    del dh, dw, fdh, fdw, loss, m, n, pl
+    for what, (a, over) in res.items():
+        check(over <= 1.0, f"lmhead {case} {what}: max abs err {a} is "
+              f"{over} of its limit")
+    check(same, f"lmhead {case}: bits differ between two runs")
+    check(fused, f"lmhead {case}: lmhead_xent_bwd_2d differs from the "
+          "separate dh and dw")
+    # bf16 rows of w that are not 16-byte aligned take the cp.async loads
+    aligned = (v * w.element_size()) % 16 == 0
+    for k, what in zip(LMHEAD, (("loss", "lse"), ("dh",), ("dw",))):
+        say("kernel_check", kernel=k, case=case, shape=[t, d, v],
+            dtype=str(dt), block_v=bv, same_bits_twice=True,
+            fused_backward_equal=fused, w_rows_16_byte_aligned=aligned,
+            **{f"{x}_max_abs_err": res[x][0] for x in what},
+            **{f"{x}_worst_err_over_limit": res[x][1] for x in what},
+            tol="float32 accumulation limits (lmhead_limits: "
+                "lambda 8 sqrt(K) 2^-24 sum|terms|, K = D for the "
+                "logits, V for dh, T for dw)")
+    return dict(h=h, w=w, lab=lab, dl=dl, args=args, nch=nch, bv=bv,
+                res=res, shape=[t, d, v])
+
+
+def lmhead_times(torch, rows, case, c) -> None:
+    """Times of kernels 9-11 on :func:`lmhead_check`'s case ``c`` into
+    ``rows[kernel][case]``, beside their bound, the plain versions and
+    ``h @ w`` alone (no one PyTorch call fuses the product with the CE:
+    ``library_ms`` is null).  The bound counts the function's own products
+    (the logits; dh and dw also the dlogits product) on the bf16 tensor
+    cores; the kernels run the dlogits product as three bf16 products of
+    the split float32 dlogits (``split_bound_ms``)."""
+    from repro_torch.kernels import twopass_xent as xe
+
+    h, w, lab, args, nch, bv, res = (c[x] for x in (
+        "h", "w", "lab", "args", "nch", "bv", "res"))
+    t, d, v = c["shape"]
+    es = h.element_size()
+    ins = t * d * es + d * v * es + 16 * t
+    mm = 2 * t * d * v
+    matmul_ms = cuda_ms(torch, lambda: torch.matmul(h, w))
+    rows.setdefault("lmhead_xent_fwd_2d", {})[case] = dict(
+        ms=cuda_ms(torch, lambda: xe.lmhead_xent_fwd_2d(h, w, lab,
+                                                        block_v=bv)),
+        plain_ms=cuda_ms(torch, lambda: xe.lmhead_xent_fwd_2d_plain(
+            h, w, lab, nch), 5),
+        library_ms=None, matmul_ms=matmul_ms,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(ins + 12 * t, STATS_OPS * t * v, mm))),
+        max_abs_err=res["loss"][0], shape=[t, d, v])
+    for k, which, out in (("lmhead_xent_dh_2d", "dh", t * d * 4),
+                          ("lmhead_xent_dw_2d", "dw", d * v * 4)):
+        fn = getattr(xe, k)
+        plain = getattr(xe, k + "_plain")
+        rows.setdefault(k, {})[case] = dict(
+            ms=cuda_ms(torch, lambda: fn(*args, block_v=bv)),
+            plain_ms=cuda_ms(torch, lambda: plain(*args, nch), 5),
+            library_ms=None, matmul_ms=matmul_ms,
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                ins + out, XENT_BWD_OPS * t * v, 2 * mm))),
+            split_bound_ms=bound(ins + out, XENT_BWD_OPS * t * v,
+                                 4 * mm)[0],
+            max_abs_err=res[which][0], shape=[t, d, v])
     for k in LMHEAD:
-        r = rows[k]["train_chunk_bf16"]
-        say("kernel_time", kernel=k, case="train_chunk_bf16",
+        r = rows[k][case]
+        say("kernel_time", kernel=k, case=case,
             bound_us=r["bound_ms"] * 1e3, **r)
 
 
@@ -1160,9 +1217,17 @@ def flash_times(torch, rows, case, c, *, dq_dkv: bool = False) -> None:
                   + 12 * rows_q, *ops(FLASH_BWD_EW_OPS, bwd_mm))
     qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
 
+    mask = None
+    if kw["window"] is not None:        # the same function: the window's mask
+        qpos = torch.arange(sq, device="cuda")[:, None] + (skv - sq)
+        kpos = torch.arange(skv, device="cuda")[None, :]
+        mask = (kpos > qpos - kw["window"]) & (
+            kpos <= qpos if kw["causal"] else True)
+
     def sdpa():
         return F.scaled_dot_product_attention(
-            qr, kr, vr, is_causal=kw["causal"], enable_gqa=True)
+            qr, kr, vr, attn_mask=mask,
+            is_causal=kw["causal"] and mask is None, enable_gqa=True)
 
     lib_fwd = cuda_ms(torch, sdpa)
     lib_both = cuda_ms(torch, lambda: torch.autograd.grad(
@@ -1900,7 +1965,8 @@ SWA_SEED = 24
 SWA_MAX_LEN = 8192
 SWA_PROMPTS = (8, 4500, 7001)   # requests, prompt lengths in [lo, hi)
 D160_PROMPTS = (4, 300, 1501)
-WRAP_LAYERS = 4                 # depth cut: 4,160 eager steps
+WRAP_LAYERS = 2                 # depth cut (4 until PR 34, the script's
+                                # time limit): 4,160 eager steps
 WRAP_BATCH = 2
 WRAP_STEPS = 64                 # steps past the wrap
 DECODE_32K = (128, 32768, 8)    # the decode_32k cell: batch, positions, steps
@@ -2410,10 +2476,10 @@ def mqa_phase(torch, rows) -> dict:
 # Phase 9: the ssm family, rwkv6-1.6b, at full width and depth.
 # ---------------------------------------------------------------------------
 SSM_ARCH = "rwkv6-1.6b"      # 24 layers, d 2048, 32 heads of 64, vocab 65536
-SSM_SERVE_LAYERS = 8         # the serving path's depth: the first 8 layers'
-                             # weights, so that the whole script keeps
-                             # inside its time limit; the scan check runs
-                             # all 24
+SSM_SERVE_LAYERS = 4         # the serving path's depth: the first 4 layers'
+                             # weights (8 until PR 34), so that the whole
+                             # script keeps inside its time limit; the scan
+                             # check runs all 24
 SSM_SEED = 16
 SSM_SLOTS = 32
 SSM_PROMPTS = (48, 200, 4001)          # requests, prompt lengths [lo, hi)
@@ -4300,6 +4366,8 @@ HYB_ARCH = "hymba-1.5b"      # 32 layers, d 1600, 25 query heads over 5 KV
                              # heads of 64 (G 5), SWA 1024, 25 mamba heads of
                              # 64 (state 16) a block, d_ff 5504, vocab 32001
 HYB_SEED = 31
+HYB_LAYERS = 16                     # depth cut from 32 (PR 34), so that the
+                                    # whole script keeps inside its limit
 HYB_SLOTS = 32
 HYB_PROMPTS = (48, 200, 3001)       # requests, prompt lengths [lo, hi):
                                     # past the window
@@ -4312,8 +4380,8 @@ HYB_F32 = (2, 4, 16)                # float32 cut: layers, requests, new
 
 
 def hybrid_phase(torch, rows) -> dict:
-    """Phase 14: hymba-1.5b at full width and depth, bf16 weights seeded
-    on the card (``a_log`` and ``dt_bias`` float32).  Kernels 3-4 at G 5,
+    """Phase 14: hymba-1.5b at full width, HYB_LAYERS of its 32 layers
+    (the serving CLI at all 32), bf16 weights seeded on the card (``a_log`` and ``dt_bias`` float32).  Kernels 3-4 at G 5,
     D 64 under the 1,024 window, kernel 1 on its windowed prefill score
     rows [25 S, S] and sampler rows and kernels 5-6 on the sampler rows;
     then requests through :func:`family_serving` (32 slots, ``max_len``
@@ -4328,7 +4396,7 @@ def hybrid_phase(torch, rows) -> dict:
     from repro_torch.serving import kv_cache
 
     rng = np.random.default_rng(HYB_SEED)
-    m = build_model(HYB_ARCH, use_kernels=True)
+    m = build_model(HYB_ARCH, use_kernels=True, n_layers=HYB_LAYERS)
     cfg = m.cfg
     t0 = time.perf_counter()
 
@@ -4353,6 +4421,7 @@ def hybrid_phase(torch, rows) -> dict:
     torch.cuda.synchronize()
     state = kv_cache.init_cache(cfg, 1, 1, device="meta")["ssm"]
     say("hybrid_config", arch=HYB_ARCH, n_layers=cfg.n_layers,
+        full_depth=32,
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim(), swa_window=cfg.swa_window,
         mamba_heads=cfg.d_model // cfg.ssm.head_dim,
@@ -4433,8 +4502,6 @@ def train_phase(torch) -> dict:
     against the plain route (the model's kernels off: attention in the
     (m, n) tensor forms, materialised logits).  Returns the launches of
     kernels 9-13 over the three steps."""
-    import math
-
     import repro_torch.kernels as K
     from repro_torch.configs.base import ShapeCell
     from repro_torch.data.pipeline import SyntheticLM
@@ -4577,7 +4644,8 @@ def train_phase(torch) -> dict:
                 step=r["step"], loss=r["loss"], ms=r["time_s"] * 1e3,
                 tokens_per_s=tokens / r["time_s"], peak_bytes=peak)
         if route == "kernel":
-            train_trace(torch, step, state, ds.batch_at(TRAIN_STEPS))
+            train_trace(torch, step, state, ds.batch_at(TRAIN_STEPS),
+                        untraced_ms=min(r["time_s"] for r in hist) * 1e3)
         del state, trainer
         gc.collect()
         torch.cuda.empty_cache()
@@ -4597,17 +4665,19 @@ def train_phase(torch) -> dict:
     return launches
 
 
-def train_trace(torch, step, state, batch) -> None:
+def train_trace(torch, step, state, batch, *, arch: str = ARCH,
+                untraced_ms: float) -> None:
     """Where a step's device time goes: one more step under
-    ``torch.profiler`` (CPU and CUDA activity; the CPU tracing slows the
-    host, so the idle share is an upper bound), its kernels' device time
-    summed by group, the ten largest by name, and every flash kernel by
-    name (which of the backward's kernels ran).  Not one of the counted
-    steps."""
+    ``torch.profiler`` (CUDA activity only: tracing the CPU's ops too
+    slowed the host and took minutes to fold at rwkv6's ~10^5 kernels a
+    step), its kernels' device time summed by group, the ten largest by
+    name, and every flash kernel by name (which of the backward's kernels
+    ran).  Not one of the counted steps.  ``untraced_ms``, an untraced
+    step's wall time, gives the host's share without the profiler's cost:
+    1 - device busy / that step."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         step(state, batch)
         torch.cuda.synchronize()
@@ -4618,7 +4688,8 @@ def train_trace(torch, step, state, batch) -> None:
             by_name[e.key] = getattr(e, "self_device_time_total", 0) / 1e3
     busy = sum(by_name.values())
     if busy <= 0:
-        say("train_trace", device_time="not measured (no CUDA events)")
+        say("train_trace", arch=arch,
+            device_time="not measured (no CUDA events)")
         return
 
     def group(name):
@@ -4637,8 +4708,12 @@ def train_trace(torch, step, state, batch) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     flash = {k[:120]: v for k, v in by_name.items()
              if group(k) == "flash_attention kernels"}
-    say("train_trace", wall_ms=wall * 1e3, device_busy_ms=busy,
-        idle_share=max(0.0, 1 - busy / (wall * 1e3)), groups_ms=groups,
+    say("train_trace", arch=arch, wall_ms=wall * 1e3,
+        trace_s=time.perf_counter() - t, device_busy_ms=busy,
+        idle_share=max(0.0, 1 - busy / (wall * 1e3)),
+        untraced_step_ms=untraced_ms,
+        idle_share_untraced=max(0.0, 1 - busy / untraced_ms),
+        groups_ms=groups,
         top_kernels_ms=[[k[:120], v] for k, v in top],
         flash_kernels_ms=flash)
 
@@ -6072,6 +6147,399 @@ def tune_phase(torch, n_layers: int, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: training the four families without experts at full width.
+# ---------------------------------------------------------------------------
+# arch: (depth cut or None, batch, SyntheticLM seq_len)
+FAM_TRAIN = {
+    # 8 x (1,500 frames, 448 decoder tokens): 6 + 6 layers
+    "whisper-base": (None, 8, 1500),
+    # 1 x 4,096: 4,095 positions in 32 WKV6 chunks of 128 (the reference's
+    # plan: at least 4,095 / 32 a chunk), 8 of its 24 layers: at 24 a
+    # step takes 4.7 s and the phase 158 s of the script's time limit
+    "rwkv6-1.6b": (8, 1, 4096),
+    # 1 x (256 patches + 3,840 tokens), 4 of its 28 layers: 7.6 G float32
+    # parameters at 16 bytes each (parameter, gradient, two moments) are
+    # 122 GB, past the card's 80
+    "qwen2-vl-7b": (4, 1, 4096),
+    # 1 x 4,096: 4x the window of 1,024, 32 layers
+    "hymba-1.5b": (None, 1, 4096),
+}
+FAM_STEPS = 3
+# bf16 ops a block's backward rounds the gradient in: two norms, the
+# attention's or mixer's four products and the MLP's three, their
+# elementwise neighbours (activation, gates, softmax or scan) and the two
+# residual adds
+BLOCK_ROUNDINGS = 16
+# per family: the leaves whose gradients are held, kernel route vs plain
+FAM_GRADS = {
+    "whisper-base": {"lm_head.w": ("lm_head", "w"),
+                     "embed.table": ("embed", "table"),
+                     "blocks.xattn.wq.w": ("blocks", "xattn", "wq", "w"),
+                     "enc_blocks.attn.wq.w": ("enc_blocks", "attn", "wq",
+                                              "w")},
+    "rwkv6-1.6b": {"lm_head.w": ("lm_head", "w"),
+                   "embed.table": ("embed", "table"),
+                   "blocks.w0 (time-mix decay)": ("blocks", "w0"),
+                   "blocks.wk.w": ("blocks", "wk", "w")},
+    "qwen2-vl-7b": {"lm_head.w": ("lm_head", "w"),
+                    "embed.table": ("embed", "table"),
+                    "blocks.attn.wq.w": ("blocks", "attn", "wq", "w"),
+                    "patch_proj.w": ("patch_proj", "w")},
+    "hymba-1.5b": {"lm_head.w": ("lm_head", "w"),
+                   "embed.table": ("embed", "table"),
+                   "blocks.attn.wq.w": ("blocks", "attn", "wq", "w"),
+                   "blocks.mamba.a_log": ("blocks", "mamba", "a_log")},
+}
+# kernels 12-13 at the shapes the four train steps give them, depth-free
+# (batch 1): bf16 with D <= 128, so the mma.sync kernels, timed; whisper's
+# two non-causal shapes also in float32 (the wmma / FFMA kernels), held
+# only.  The decoder's 447 and the others' 4,095 positions are the label
+# positions (the last token has none); 4,095 = 256 patches + 3,839 for
+# qwen2-vl.
+FAM_FLASH = {
+    "whisper_encoder": (1, 8, 8, 1500, 1500, 64, False, None, "bfloat16"),
+    "whisper_cross": (1, 8, 8, 447, 1500, 64, False, None, "bfloat16"),
+    "whisper_encoder_f32": (1, 8, 8, 1500, 1500, 64, False, None,
+                            "float32"),
+    "whisper_cross_f32": (1, 8, 8, 447, 1500, 64, False, None, "float32"),
+    "whisper_decoder": (1, 8, 8, 447, 447, 64, True, None, "bfloat16"),
+    "qwen2vl_g7": (1, 28, 4, 4095, 4095, 128, True, None, "bfloat16"),
+    "hymba_g5_window": (1, 25, 5, 4095, 4095, 64, True, 1024, "bfloat16"),
+}
+# kernels 9-11 at one loss chunk of each step: (T, d, padded vocab); the
+# model pads its vocab to a multiple of 128, so the train path's w rows
+# are 16-byte aligned (TMA); the configs' own vocabularies 51,865 and
+# 32,001 take the kernels' cp.async loads
+FAM_LMHEAD = {
+    "whisper_chunk": (448, 512, 51968),       # 8 x 56 of 447 positions
+    "rwkv6_chunk": (512, 2048, 65536),
+    "qwen2vl_chunk": (480, 3584, 152064),     # 480 of the 3,839 text labels
+    "hymba_chunk": (512, 1600, 32128),
+    "whisper_v51865_cp_async": (448, 512, 51865),
+    "hymba_v32001_cp_async": (512, 1600, 32001),
+}
+
+
+def attention_calls(cfg) -> int:
+    """Attention calls in one forward of the family's loss: the flash
+    route's forwards (each again in its layer's remat backward) and
+    backwards a step."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "encdec":            # encoder, decoder self, cross
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def family_parity_limits(torch, mk, mp, params, batch, layers_crossed):
+    """Limits for the kernel route against the plain route from one state,
+    derived from the logits both routes' hidden states give (x_k, x_p,
+    float32, their difference dx):
+
+    * the loss: a token's CE = lse(x) - x_label moves by at most twice
+      max_v |dx| (lse and the label logit each by max |dx|), so the mean
+      by at most 2 mean_t max_v |dx_tv|; the plain route rounds its
+      logits to bf16 (lse and the label logit each within 2^-9 max|x|);
+      the kernels' float32 sums over d differ from these logits' by at
+      most 2 lambda sqrt(d) u (|h| @ |w|) a logit (lmhead_limits); 1e-4
+      for the float32 sums over tokens;
+    * lm_head.w's gradient, sum_t h_t (p_t - onehot_t) dl: the relative
+      norm differences of its two factors add, r_h for the hidden states
+      (measured) and r_D for dlogits, plus each route's bf16 rounding of
+      the product, 2^-8.  A token's probabilities move relatively by at
+      most e^(2 m_t) - 1, m_t = max_v |dx_tv| + 2^-9 max_v |x_tv| (softmax
+      moves p_v by e^(+-2 max |dx|); the plain route's bf16 logits), so
+      r_D = sqrt(sum_t ((e^(2 m_t) - 1) |p_t|)^2 / sum_t |p_t - onehot_t|^2);
+    * every other held leaf: lm_head's limit, plus the bf16 rounding
+      noise of the backward through the L blocks it crosses (and the
+      head): once the two routes' gradients differ at all, each rounds
+      its own, so each of a block's ~BLOCK_ROUNDINGS bf16 ops adds an
+      independent relative error of RMS 2^-9 sqrt(2/3) between them (two
+      uniform roundings of half a step); in quadrature over k (L + 1)
+      ops, times lambda: lambda 2^-9 sqrt(2 k (L + 1) / 3).
+    Returns (limits, measurements)."""
+    from repro_torch.models import transformer
+
+    u, lam = 2.0 ** -24, ROUND_LAMBDA
+    with torch.no_grad():
+        hk, lab = transformer.train_hidden(params, batch, cfg=mk.cfg)
+        hp, _ = transformer.train_hidden(params, batch, cfg=mp.cfg)
+        d = hk.shape[-1]
+        hk, hp, lab = hk.reshape(-1, d), hp.reshape(-1, d), lab.reshape(-1)
+        w = transformer._head_w(params, mk.cfg).to(hk.dtype).float()
+        wa = w.abs()
+        r_h = float((hk.float() - hp.float()).norm() / hp.float().norm())
+        dmax, ex, dp2, dn2, xmax = [], [], 0.0, 0.0, 0.0
+        for lo in range(0, hk.shape[0], 512):
+            a, b = hk[lo:lo + 512].float(), hp[lo:lo + 512].float()
+            xk, xp = a @ w, b @ w
+            dm = (xk - xp).abs().amax(dim=1)
+            m_t = dm + 2.0 ** -9 * xp.abs().amax(dim=1)
+            p = torch.softmax(xp, dim=1)
+            dp2 += float(((torch.expm1(2 * m_t) * p.norm(dim=1)) ** 2).sum())
+            p[torch.arange(p.shape[0], device=p.device),
+              lab[lo:lo + 512].long()] -= 1.0
+            dn2 += float((p.norm(dim=1) ** 2).sum())
+            dmax.append(dm)
+            xmax = max(xmax, float(xk.abs().max()), float(xp.abs().max()))
+            ex.append(2 * lam * d ** 0.5 * u * (a.abs() @ wa).amax(dim=1))
+            del xk, xp, p
+        dmax, ex = torch.cat(dmax), torch.cat(ex)
+        del hk, hp, w, wa
+    r_d = math.sqrt(dp2 / dn2)
+    loss_lim = (2 * float(dmax.mean()) + 2.0 ** -8 * xmax
+                + 2 * float(ex.mean()) + 1e-4)
+    lm_lim = r_h + r_d + 2.0 ** -8
+    noise = lam * 2.0 ** -9 * math.sqrt(
+        2 * BLOCK_ROUNDINGS * (layers_crossed + 1) / 3)
+    return (dict(loss=loss_lim, lm_head=lm_lim, inner=lm_lim + noise),
+            dict(hidden_rel_norm_diff=r_h, dlogits_rel_norm_bound=r_d,
+                 max_logit_diff=float(dmax.max()),
+                 mean_max_logit_diff=float(dmax.mean()), max_abs_logit=xmax))
+
+
+def family_train(torch, arch) -> dict:
+    """One family's train step at full width (float32 parameters, bf16
+    activations, remat): the kernel route (``use_kernels=True``: flash
+    attention, fused LM-head CE) against the plain route from one state
+    and batch, then three AdamW steps through ``Trainer.run`` on the
+    kernel route, each step's launches of kernels 9-13 counted, and a
+    traced fourth step.  Returns the launches over the three steps."""
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.training import step_fn
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    depth, batch, seq = FAM_TRAIN[arch]
+    over = {} if depth is None else {"n_layers": depth}
+    mk = build_model(arch, use_kernels=True, **over)
+    mp = build_model(arch, **over)
+    cfg = mk.cfg
+    full = get_config(arch)
+    check(cfg.use_kernels and cfg.remat and cfg.param_dtype == "float32"
+          and cfg.dtype == "bfloat16" and not mp.cfg.use_kernels,
+          f"{arch} train config: {cfg}")
+    params = mk.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in adamw.leaves(params))
+    cell = ShapeCell(f"train_{arch}", seq, batch, "train")
+    ds = SyntheticLM(cfg, cell, seed=0)
+    batch0 = {k: torch.from_numpy(v).cuda()
+              for k, v in ds.batch_at(0).items()}
+    # label positions a row: the decoder's, or the text's after the patches
+    s_lab = (cfg.dec_len if cfg.family == "encdec"
+             else seq - cfg.n_patches) - 1
+    labels = batch * s_lab
+    chunks = min(8, s_lab)
+    att = attention_calls(cfg)
+    # a flash forward per attention call, again in its layer's remat
+    # backward, one backward per call; one LM-head launch of each kernel
+    # per loss chunk
+    want = {"flash_attention_fwd_gqa": 2 * att,
+            "flash_attention_bwd_gqa": att,
+            **dict.fromkeys(LMHEAD, chunks)}
+    blocks = cfg.n_layers + (cfg.n_enc_layers if cfg.family == "encdec"
+                             else 0)
+    reduced = ([] if depth is None else
+               [f"n_layers {full.n_layers} -> {depth}"])
+    say("family_train_config", arch=arch, family=cfg.family,
+        n_layers=cfg.n_layers, n_enc_layers=cfg.n_enc_layers,
+        full_depth=full.n_layers, reduced=reduced, d_model=cfg.d_model,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+        vocab=cfg.vocab, padded_vocab=cfg.padded_vocab(),
+        param_dtype=cfg.param_dtype, dtype=cfg.dtype, remat=cfg.remat,
+        params=n_params, state_bytes=16 * n_params,
+        batch={k: list(v.shape) for k, v in batch0.items()},
+        label_positions=labels, loss_chunks=chunks,
+        data="SyntheticLM seed 0", entry="Trainer.run",
+        attention_calls=att,
+        launches_per_step=want,
+        launches_formula="flash fwd 2 x attention calls (remat), bwd 1 x; "
+                         "each LM-head kernel once a loss chunk (8)",
+        init_s=time.perf_counter() - t0)
+
+    # -- the kernel route against the plain route, same state and batch
+    held_paths = FAM_GRADS[arch]
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    lk, gk = step_fn.loss_and_grads(mk, params, batch0)
+    torch.cuda.synchronize()
+    kern_first_ms = (time.perf_counter() - t) * 1e3
+    ck = K.launch_counts()
+    held_k = {n: _at(gk, pth) for n, pth in held_paths.items()}
+    del gk
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    lp, gp = step_fn.loss_and_grads(mp, params, batch0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    cp = K.launch_counts()
+    held_p = {n: _at(gp, pth) for n, pth in held_paths.items()}
+    del gp
+    check(all(ck[k] == want[k] for k in TRAIN_KERNELS),
+          f"{arch} kernel route: launches {want} expected, got "
+          f"{ {k: ck[k] for k in TRAIN_KERNELS} }")
+    check(sum(cp.values()) == 0, f"{arch} plain route launched a kernel: "
+          f"{ {k: v for k, v in cp.items() if v} }")
+    lim, meas = family_parity_limits(torch, mk, mp, params, batch0, blocks)
+    check(abs(float(lk) - float(lp)) <= lim["loss"],
+          f"{arch} loss kernels {float(lk)} vs plain {float(lp)} beyond "
+          f"{lim['loss']}")
+    grads = {}
+    for name in held_paths:
+        a, b = held_k[name], held_p[name]
+        check(a.dtype == b.dtype == _at(params, held_paths[name]).dtype,
+              f"{arch} grad {name}: dtypes {a.dtype} / {b.dtype}")
+        a, b = a.float(), b.float()
+        rel = float((a - b).norm() / b.norm())
+        li = lim["lm_head"] if name == "lm_head.w" else lim["inner"]
+        check(rel <= li and bool(torch.isfinite(a).all()),
+              f"{arch} grad {name}: relative norm difference {rel} beyond "
+              f"{li}")
+        grads[name] = dict(rel_norm_diff=rel, limit=li,
+                           dtype=str(held_k[name].dtype),
+                           max_abs_err=float((a - b).abs().max()),
+                           max_abs=float(b.abs().max()))
+    del held_k, held_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("family_train_parity", arch=arch,
+        check="kernel route vs plain route, same state and batch",
+        loss_kernels=float(lk), loss_plain=float(lp),
+        loss_abs_diff=abs(float(lk) - float(lp)), loss_limit=lim["loss"],
+        grads=grads, limits=lim, **meas,
+        limits_note="family_parity_limits: CE's Lipschitz bound in the "
+                    "logits, bf16 and float32 roundings; lm_head.w: the "
+                    "factors' relative differences; other leaves: plus "
+                    "the backward's bf16 rounding noise over the blocks",
+        launches_kernel_route={k: ck[k] for k in TRAIN_KERNELS},
+        launches_plain_route=sum(cp.values()),
+        loss_and_grads_first_ms={"kernel_route": kern_first_ms,
+                                 "plain_route": plain_ms})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- three steps through Trainer.run on the kernel route (the main
+    # path), each step's launches counted
+    tcfg = TrainerConfig(steps=FAM_STEPS, peak_lr=3e-4, warmup=100,
+                         log_every=1)
+    trainer = Trainer(mk, cell, tcfg)
+    step = trainer.step
+    counts = dict.fromkeys(TRAIN_KERNELS, 0)
+    peaks = []
+
+    def counted(state, b):
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        out = step(state, b)
+        torch.cuda.synchronize()
+        c = K.launch_counts()
+        check(all(c[k] == want[k] for k in TRAIN_KERNELS),
+              f"{arch} step {len(peaks)}: launches {want} expected, got "
+              f"{ {k: c[k] for k in TRAIN_KERNELS} }")
+        for k in TRAIN_KERNELS:
+            counts[k] += c[k]
+        peaks.append(torch.cuda.max_memory_allocated())
+        return out
+
+    trainer.step = counted
+    state = trainer.run()
+    check(int(state.opt.step) == FAM_STEPS, f"{arch}: optimizer steps")
+    hist = trainer.metrics_history
+    check([r["step"] for r in hist] == list(range(FAM_STEPS)),
+          f"{arch}: steps run {hist}")
+    for r, peak in zip(hist, peaks):
+        check(math.isfinite(r["loss"]),
+              f"{arch} step {r['step']}: loss {r['loss']}")
+        say("family_train_step", arch=arch, entry="Trainer.run",
+            step=r["step"], loss=r["loss"], ms=r["time_s"] * 1e3,
+            tokens_per_s=labels / r["time_s"], peak_bytes=peak)
+    first = hist[0]["loss"]
+    check(abs(first - math.log(cfg.vocab)) < 1.5,
+          f"{arch}: first loss {first} not near ln V = "
+          f"{math.log(cfg.vocab)}")
+    step_ms = min(r["time_s"] for r in hist[1:]) * 1e3
+    train_trace(torch, step, state, ds.batch_at(FAM_STEPS), arch=arch,
+                untraced_ms=step_ms)
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("family_train", arch=arch, losses=[r["loss"] for r in hist],
+        first_loss_minus_ln_v=first - math.log(cfg.vocab),
+        first_loss_equals_parity_loss=first == float(lk),
+        step_ms=[r["time_s"] * 1e3 for r in hist], peak_bytes=peaks,
+        launches=counts, seconds=time.perf_counter() - t0)
+    return counts
+
+
+def family_train_cli() -> None:
+    """``python -m repro_torch.launch.train --arch A --reduced --kernels``
+    for the four families, all four processes at once: each exits 0 with
+    its final loss, and the attention families launch the flash kernels,
+    every family the LM-head kernels."""
+    import ast
+
+    t = time.perf_counter()
+    procs = {a: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", a,
+         "--reduced", "--kernels", "--steps", "3"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        for a in FAM_TRAIN}
+    for arch, proc in procs.items():
+        out, errs = proc.communicate(timeout=300)
+        lines = out.splitlines()
+        final = [ln for ln in lines if ln.startswith("final: ")]
+        launch = [ln for ln in lines if ln.startswith("kernel launches: ")]
+        say("family_train_cli", arch=arch, rc=proc.returncode,
+            stdout=lines, stderr_tail=errs.splitlines()[-4:])
+        check(proc.returncode == 0 and len(final) == len(launch) == 1,
+              f"train CLI {arch} exited {proc.returncode}")
+        counts = ast.literal_eval(launch[0][len("kernel launches: "):])
+        loss = ast.literal_eval(final[0][len("final: "):])["loss"]
+        need = LMHEAD + (() if arch == "rwkv6-1.6b" else FLASH)
+        check(all(counts.get(k, 0) > 0 for k in need) and
+              math.isfinite(loss),
+              f"train CLI {arch}: loss {loss}, launches {counts}")
+    say("family_train_cli_done", seconds=time.perf_counter() - t)
+
+
+def family_train_phase(torch, rows) -> dict:
+    """Phase 21: kernels 12-13 at the five attention shapes the four
+    families' train steps give them (whisper's non-causal two also in
+    float32) and kernels 9-11 at each family's loss
+    chunk (and at the configs' unpadded vocabularies, the cp.async loads),
+    each against its plain version and timed beside its bound; then each
+    family's train step (:func:`family_train`) and the train CLI for each.
+    Returns the launches of kernels 9-13 over the four families' steps."""
+    t0 = time.perf_counter()
+    for case, shape in FAM_FLASH.items():
+        c = flash_check(torch, case, shape)
+        if shape[-1] == "bfloat16":
+            flash_times(torch, rows, case, c)
+        del c
+        torch.cuda.empty_cache()
+    for case, shape in FAM_LMHEAD.items():
+        c = lmhead_check(torch, case, shape, torch.bfloat16)
+        lmhead_times(torch, rows, case, c)
+        del c
+        torch.cuda.empty_cache()
+    say("family_kernels_done", seconds=time.perf_counter() - t0)
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    for arch in FAM_TRAIN:
+        for k, n in family_train(torch, arch).items():
+            launches[k] += n
+    family_train_cli()
+    return launches
+
+
 def idle_share(torch, m, params, prompts, *, fused: bool):
     """Device busy time over wall time for a short traced serving run, the
     decode step a CUDA graph or eager (its capture before the trace)."""
@@ -6276,7 +6744,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("train", "swa", "engine", "mqa",
                                        "ssm", "encdec", "moe", "mla", "vlm",
                                        "hybrid", "prefix", "quant",
-                                       "tune"),
+                                       "tune", "family_train"),
                     help="run one phase alone (train: to compare the train "
                     "step of two trees on one card); no kernels or ok line")
     args = ap.parse_args()
@@ -6315,6 +6783,11 @@ def main() -> int:
         elif args.only == "quant":
             t0 = time.perf_counter()
             say("quant_done", launches=quant_phase(torch, {}, args.layers),
+                seconds=time.perf_counter() - t0)
+        elif args.only == "family_train":
+            t0 = time.perf_counter()
+            say("family_train_done",
+                launches=family_train_phase(torch, {}),
                 seconds=time.perf_counter() - t0)
         elif args.only == "tune":
             t0 = time.perf_counter()
@@ -6403,6 +6876,10 @@ def main() -> int:
     for name, n in tune_phase(torch, args.layers, smi).items():
         launches[name] += n
     say("tune_done", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for name, n in family_train_phase(torch, rows).items():
+        launches[name] += n
+    say("family_train_done", seconds=time.perf_counter() - t0)
     kernels = []
     for name in REPLACES:
         r = rows[name][MAIN_CASE[name]]

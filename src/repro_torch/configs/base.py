@@ -187,12 +187,10 @@ class ModelConfig:
 # families this package does not serve yet -> ROADMAP queue A item (none:
 # every family the reference serves is served)
 UNPORTED_FAMILIES: dict[str, int] = {}
-# families it serves but does not train yet (ssm training is item 27,
-# encdec training item 28, moe training item 29: deepseek-v2-lite-16b's
-# multi-head latent attention is served and trains with the moe family;
-# vlm training item 31, hybrid training item 32)
-UNTRAINED_FAMILIES = {**UNPORTED_FAMILIES, "ssm": 27, "encdec": 28,
-                      "moe": 29, "vlm": 31, "hybrid": 32}
+# families it serves but does not train yet: moe (ROADMAP queue A item
+# 29; deepseek-v2-lite-16b's multi-head latent attention trains with the
+# moe family, item 30, and both are the next slice)
+UNTRAINED_FAMILIES = {**UNPORTED_FAMILIES, "moe": 29}
 
 
 def check_ported(cfg: ModelConfig, what: str,

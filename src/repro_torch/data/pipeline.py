@@ -4,7 +4,10 @@ fresh run would have seen.
 
 Tokens follow a Zipf law drawn by inverse CDF from
 ``numpy.random.default_rng((seed, step))``: the same token arrays, bit for
-bit, as the reference's ``repro.data.pipeline.SyntheticLM``.  numpy only;
+bit, as the reference's ``repro.data.pipeline.SyntheticLM``; an encdec
+batch is ``{"frames" [b, s, d_model] float32, "dec_tokens" [b, dec_len]}``
+and a vlm batch ``{"tokens" [b, s - n_patches], "patches" [b, n_patches,
+d_model] float32}``, drawn in the reference's order.  numpy only;
 the train step moves a batch to its device.
 """
 
@@ -37,7 +40,21 @@ class SyntheticLM:
     def batch_at(self, step: int) -> dict:
         rng = np.random.default_rng((self.seed, step))
         b, s = self.cell.global_batch, self.cell.seq_len
-        return {"tokens": self._tokens(rng, (b, s))}
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return {
+                "frames": rng.standard_normal(
+                    (b, s, cfg.d_model)).astype(np.float32),
+                "dec_tokens": self._tokens(rng, (b, cfg.dec_len)),
+            }
+        batch = {"tokens": self._tokens(rng, (b, s))}
+        if cfg.family == "vlm":
+            # the reference draws the full-length tokens first and then
+            # redraws the text tail: the same draws, in the same order
+            batch["tokens"] = self._tokens(rng, (b, s - cfg.n_patches))
+            batch["patches"] = rng.standard_normal(
+                (b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        return batch
 
     def iterate(self, start_step: int = 0):
         """Resume-aware iterator: skip-ahead is O(1) (exactly-once)."""

@@ -10,8 +10,10 @@ time_s}``), plus ``--device`` (``cuda`` unless the CPU is asked for) and
 ``--kernels`` (the model's ``use_kernels``: attention through the
 flash-attention kernels and the loss through the fused LM-head CE kernels;
 on the CPU their plain versions).  Weights are random, from seed 0, in the
-config's parameter dtype.  ``--mesh`` and families other than dense exit
-with an error that names their ROADMAP item.
+config's parameter dtype.  Every family trains but moe: an encdec
+batch is seeded frames and decoder tokens, a vlm batch seeded patches
+ahead of the tokens (``SyntheticLM``).  ``--mesh`` and the moe family
+exit with an error that names their ROADMAP item.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ attention; a hybrid block runs attention and mamba heads in parallel; an
 encdec model also has an encoder over stubbed frame embeddings and
 cross-attention in every decoder block; a vlm prompt may start with
 stubbed patch embeddings, projected by ``patch_proj``, and its positions
-are M-RoPE's three streams), and the dense family's training loss.
+are M-RoPE's three streams), and the training loss of every family
+but moe.
 
 Layer parameters are stacked on a leading ``[L]`` axis, as in the
 reference; the layer loop is a Python loop that indexes them (the
@@ -215,35 +216,61 @@ def _cos_sin(cfg: ModelConfig, positions):
                                cfg.rope_theta, sections=cfg.mrope_sections)
 
 
-def _scan_blocks(p_blocks, x, cos, sin, *, cfg: ModelConfig,
-                 moe_impl: str = "dispatch"):
-    """Layer loop (train/prefill, no cache).  Under ``cfg.remat`` and with
-    gradients on, each layer is an activation checkpoint: its backward
-    recomputes the layer from its input, so only the layer inputs are
-    saved (the reference groups the checkpoints into sqrt(L) segments,
-    which changes memory, not numbers)."""
-    def body(h, p):
-        return block_apply(p, h, cos, sin, cfg=cfg, moe_impl=moe_impl)[0]
-
-    remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
+def _layer_loop(p_blocks, n_layers: int, x, body, remat: bool):
+    """``x = body(x, p)`` over the stacked layers.  Under ``remat`` (the
+    config's) and with gradients on, each layer is an activation
+    checkpoint: its backward recomputes the layer from its input, so only
+    the layer inputs are saved (the reference groups the checkpoints into
+    sqrt(L) segments, which changes memory, not numbers)."""
+    remat = remat and torch.is_grad_enabled()
+    for i in range(n_layers):
         p = layer(p_blocks, i)
         x = (checkpoint(body, x, p, use_reentrant=False) if remat
              else body(x, p))
     return x
 
 
+def _scan_blocks(p_blocks, x, cos, sin, *, cfg: ModelConfig,
+                 moe_impl: str = "dispatch"):
+    """Layer loop (train/prefill, no cache), each layer an activation
+    checkpoint under ``cfg.remat`` (:func:`_layer_loop`)."""
+    def body(h, p):
+        return block_apply(p, h, cos, sin, cfg=cfg, moe_impl=moe_impl)[0]
+
+    return _layer_loop(p_blocks, cfg.n_layers, x, body, cfg.remat)
+
+
 def encode(params: Params, frames, *, cfg: ModelConfig):
     """The encoder over stubbed frame embeddings [B, T, d] (the audio
     front end is not modelled, as in the reference): non-causal
     self-attention with RoPE at positions ``0 .. T-1``, then
-    ``enc_norm``."""
+    ``enc_norm``.  Each layer is an activation checkpoint under
+    ``cfg.remat``, as the reference's ``jax.checkpoint``."""
     x = frames.to(torch_dtype(cfg.dtype))
     cos, sin = _cos_sin(cfg, torch.arange(x.shape[1], device=x.device))
-    for i in range(cfg.n_enc_layers):
-        x, _ = block_apply(layer(params["enc_blocks"], i), x, cos, sin,
-                           cfg=cfg, causal=False)
+
+    def body(h, p):
+        return block_apply(p, h, cos, sin, cfg=cfg, causal=False)[0]
+
+    x = _layer_loop(params["enc_blocks"], cfg.n_enc_layers, x, body,
+                    cfg.remat)
     return layers.rmsnorm(params["enc_norm"], x, eps=cfg.norm_eps)
+
+
+def decode_with_encoder(params: Params, enc, dec_tokens, *,
+                        cfg: ModelConfig):
+    """The encdec decoder's full-sequence pass (training): causal
+    self-attention with RoPE at ``0 .. S-1`` and, in every block,
+    cross-attention on fresh K/V projected from ``enc`` ([B, T, d]), then
+    ``norm_f``.  Returns hidden states [B, S, d]."""
+    x = layers.embed(params["embed"], dec_tokens, torch_dtype(cfg.dtype))
+    cos, sin = _cos_sin(cfg, torch.arange(x.shape[1], device=x.device))
+
+    def body(h, p):
+        return block_apply(p, h, cos, sin, cfg=cfg, enc=enc)[0]
+
+    x = _layer_loop(params["blocks"], cfg.n_layers, x, body, cfg.remat)
+    return layers.rmsnorm(params["norm_f"], x, eps=cfg.norm_eps)
 
 
 def embed_prompt(params: Params, tokens, cfg: ModelConfig, patches=None):
@@ -337,13 +364,32 @@ def lm_loss_from_hidden(params: Params, h, labels, *, cfg: ModelConfig,
     return total / torch.clamp(count, min=1.0)
 
 
+def train_hidden(params: Params, batch: dict, *, cfg: ModelConfig):
+    """The final hidden states the family's loss reads and their labels:
+    ``(h [B, S, d], labels [B, S])``.  Next-token on ``batch["tokens"]``;
+    an encdec model's decoder on ``batch["dec_tokens"]`` given the encoder
+    over ``batch["frames"]``; a vlm model's text tail after
+    ``batch["patches"]``, as the reference's ``train_loss``."""
+    check_ported(cfg, "training", UNTRAINED_FAMILIES)
+    if cfg.family == "encdec":
+        enc = encode(params, batch["frames"], cfg=cfg)
+        dec = batch["dec_tokens"]
+        return (decode_with_encoder(params, enc, dec[:, :-1], cfg=cfg),
+                dec[:, 1:])
+    tokens = batch["tokens"]
+    patches = batch.get("patches")
+    h = forward(params, tokens[:, :-1], cfg=cfg, patches=patches)
+    if cfg.family == "vlm" and patches is not None:
+        h = h[:, patches.shape[1]:]              # the loss on the text tail
+    return h, tokens[:, 1:]
+
+
 def train_loss(params: Params, batch: dict, *, cfg: ModelConfig,
                policy=None):
-    """Next-token CE of a dense LM on ``batch["tokens"]`` ([B, S]); an
-    optional ``batch["mask"]`` weights the label positions.  ``policy``
-    overrides the config's SoftmaxPolicy for the loss."""
-    check_ported(cfg, "training", UNTRAINED_FAMILIES)
-    tokens = batch["tokens"]
-    h = forward(params, tokens[:, :-1], cfg=cfg)
-    return lm_loss_from_hidden(params, h, tokens[:, 1:], cfg=cfg,
+    """Mean next-token CE of every family but moe over
+    :func:`train_hidden`; an optional ``batch["mask"]`` weights the label
+    positions.  ``policy`` overrides the config's SoftmaxPolicy for the
+    loss."""
+    h, labels = train_hidden(params, batch, cfg=cfg)
+    return lm_loss_from_hidden(params, h, labels, cfg=cfg,
                                mask=batch.get("mask"), policy=policy)

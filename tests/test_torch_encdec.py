@@ -153,22 +153,6 @@ def test_cache_and_pool_shapes_match_reference(ring):
     assert pool["kv"]["k"].shape[1] == 1 + 32 * (4 + 12)
 
 
-def test_training_refuses_naming_item_28(weights):
-    from repro_torch.configs import SHAPES
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.training.trainer import Trainer, TrainerConfig
-
-    _, _, tm, tp = weights
-    batch = {"frames": torch.zeros((1, 4, 64)),
-             "dec_tokens": torch.zeros((1, 5), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="item 28"):
-        tm.loss(tp, batch)
-    with pytest.raises(NotImplementedError, match="item 28"):
-        SyntheticLM(tm.cfg, SHAPES["train_4k"])
-    with pytest.raises(NotImplementedError, match="item 28"):
-        Trainer(tm, SHAPES["train_4k"], TrainerConfig(steps=1))
-
-
 # ---------------------------------------------------------------------------
 # The encoder, the cross routes, prefill and lockstep decode.
 # ---------------------------------------------------------------------------

@@ -1624,3 +1624,76 @@ def test_decode_paged_over_512_token_pages(cuda, int8):
     _check_decode(q, k8, v8, table, lens, torch.bfloat16, k_scale=ksc,
                   v_scale=vsc, strip=False, ppt=1)
     assert tda.decode_attention_paged_int8.launches == 2
+
+
+# ---------------------------------------------------------------------------
+# Training of the families without experts: kernels 12-13 at the shapes
+# their train steps give them, kernels 9-11 at their (d, vocab), and each
+# reduced family's train step, kernel route against plain route.
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    "whisper_encoder", "whisper_cross", "whisper_encoder_f32",
+    "whisper_cross_f32", "whisper_decoder", "qwen2vl_g7",
+    "hymba_g5_window"])
+def test_flash_kernels_at_the_family_train_shapes(cuda, case):
+    # o, lse, dq, dk, dv within chip_smoke.py's derived limits plus one bf16
+    # step, the same bits twice (a failed check raises SystemExit)
+    cs = _chip_smoke()
+    c = cs.flash_check(torch, case, cs.FAM_FLASH[case])
+    assert all(over <= 1.0 for _, over in c["res"].values()), c["res"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,v", [(512, 51968), (2048, 65536),
+                                 (3584, 152064), (1600, 32128),
+                                 (512, 51865), (1600, 32001)])
+def test_lmhead_kernels_at_the_family_vocabularies(cuda, d, v):
+    # 130 tokens (a ragged token tile) at each family's d and padded vocab,
+    # and at the configs' own 51,865 and 32,001, whose bf16 w rows are not
+    # 16-byte aligned (the cp.async loads); chip_smoke.py's derived limits
+    cs = _chip_smoke()
+    c = cs.lmhead_check(torch, f"t130_d{d}_v{v}", (130, d, v),
+                        torch.bfloat16)
+    assert all(over <= 1.0 for _, over in c["res"].values()), c["res"]
+    counts = tk.launch_counts()
+    assert counts["lmhead_xent_fwd_2d"] == 2
+    assert counts["lmhead_xent_dh_2d"] == counts["lmhead_xent_dw_2d"] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "whisper-base",
+                                  "qwen2-vl-7b", "hymba-1.5b"])
+def test_family_train_step_kernels_equal_plain(cuda, arch):
+    # reduced and float32: the kernels (flash on FFMA, the fused LM-head CE)
+    # and the plain route differ only in float32 summation order
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.training import step_fn
+
+    mk = build_model(arch, reduced=True, use_kernels=True)
+    mp = build_model(arch, reduced=True)
+    cfg = mk.cfg
+    params = mk.init(seed=0)
+    batch = {k: torch.from_numpy(x).to(cuda) for k, x in SyntheticLM(
+        cfg, ShapeCell("t", 40, 2, "train"), seed=0).batch_at(0).items()}
+    tk.reset_launch_counts()
+    lk, gk = step_fn.loss_and_grads(mk, params, batch)
+    counts = tk.launch_counts()
+    tk.reset_launch_counts()
+    lp, gp = step_fn.loss_and_grads(mp, params, batch)
+    assert not any(tk.launch_counts().values())
+    att = {"ssm": 0, "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}.get(
+        cfg.family, cfg.n_layers)
+    assert counts["flash_attention_fwd_gqa"] == att * (2 if cfg.remat
+                                                        else 1)
+    assert counts["flash_attention_bwd_gqa"] == att
+    assert all(counts[k] == 8 for k in ("lmhead_xent_fwd_2d",
+                                        "lmhead_xent_dh_2d",
+                                        "lmhead_xent_dw_2d"))
+    torch.testing.assert_close(lk, lp, atol=0, rtol=1e-5)
+    for a, b in zip(adamw.leaves(gk), adamw.leaves(gp)):
+        assert a.dtype == b.dtype and torch.isfinite(a).all()
+        assert float((a - b).norm()) <= 1e-4 * float(b.norm()) + 1e-9

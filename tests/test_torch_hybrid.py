@@ -26,7 +26,7 @@ from repro.models import hybrid as jhyb
 from repro.models import transformer as jtr
 from repro.serving import engine as jeng
 from repro.serving import kv_cache as jkv
-from repro_torch.configs import SHAPES, get_config
+from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import Model
 from repro_torch.models import build_model as tbuild
@@ -452,17 +452,3 @@ def test_rebinding_the_state_stops_the_replay(weights, monkeypatch):
     eng.pool["kv"]["ssm"] = eng.pool["kv"]["ssm"].clone()
     with pytest.raises(RuntimeError, match="/pool/kv/ssm"):
         eng.run(_copy(_requests(tm.cfg.vocab)[:2]))
-
-
-def test_training_refuses_naming_item_32(weights):
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.training.trainer import Trainer, TrainerConfig
-
-    _, _, tm, tp = weights
-    batch = {"tokens": torch.from_numpy(_tokens(2, 9)).long()}
-    with pytest.raises(NotImplementedError, match="item 32"):
-        tm.loss(tp, batch)
-    with pytest.raises(NotImplementedError, match="item 32"):
-        SyntheticLM(tm.cfg, SHAPES["train_4k"])
-    with pytest.raises(NotImplementedError, match="item 32"):
-        Trainer(tm, SHAPES["train_4k"], TrainerConfig(steps=1))

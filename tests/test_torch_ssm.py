@@ -346,21 +346,6 @@ def test_input_specs_match_reference(cell):
     assert _shapes(tzoo.input_specs(tcfg, cell)) == want
 
 
-def test_training_refuses_naming_item_27(weights):
-    from repro_torch.configs import SHAPES
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.training.trainer import Trainer, TrainerConfig
-
-    _, _, tm, tp = weights
-    batch = {"tokens": torch.from_numpy(_tokens(2, 9)).long()}
-    with pytest.raises(NotImplementedError, match="item 27"):
-        tm.loss(tp, batch)
-    with pytest.raises(NotImplementedError, match="item 27"):
-        SyntheticLM(tm.cfg, SHAPES["train_4k"])
-    with pytest.raises(NotImplementedError, match="item 27"):
-        Trainer(tm, SHAPES["train_4k"], TrainerConfig(steps=1))
-
-
 # ---------------------------------------------------------------------------
 # Serving: greedy tokens through the strip pool against the JAX lockstep.
 # ---------------------------------------------------------------------------

@@ -294,9 +294,7 @@ def test_synthetic_batches_equal_the_reference(arch, reduced):
                                         jd.batch_at(5)["tokens"])
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("whisper-base", 28), ("rwkv6-1.6b", 27), ("granite-moe-3b-a800m", 29),
-    ("qwen2-vl-7b", 31), ("hymba-1.5b", 32)])
+@pytest.mark.parametrize("arch,item", [("granite-moe-3b-a800m", 29)])
 def test_synthetic_batches_refuse_unported_families(arch, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue A item {item}\\)"):
@@ -396,10 +394,14 @@ def test_microbatching_matches_full_batch(jax_runs):
                                rtol=1e-4)
 
 
-def test_remat_changes_no_number(jax_runs):
-    params, _ = _cached_jax(jax_runs, "qwen2.5-14b", 3, True)
-    st_a, a = _torch_run("qwen2.5-14b", params, 2, True, remat=False)
-    st_b, b = _torch_run("qwen2.5-14b", params, 2, True, remat=True)
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "whisper-base"])
+def test_remat_changes_no_number(arch):
+    # whisper-base: the encoder's and the decoder's layers (with the
+    # cross-attention) are checkpointed as the decoder-only stack's
+    params = jax.tree.map(np.asarray, jbuild(arch, reduced=True).init(
+        jax.random.PRNGKey(0)))
+    st_a, a = _torch_run(arch, params, 2, True, remat=False)
+    st_b, b = _torch_run(arch, params, 2, True, remat=True)
     assert a == b
     for x, y in zip(adamw.leaves(st_a.params), adamw.leaves(st_b.params)):
         assert torch.equal(x, y)

@@ -31,7 +31,7 @@ from repro.models import build_model as jbuild
 from repro.models import layers as jlayers
 from repro.models import transformer as jtr
 from repro.serving import engine as jeng
-from repro_torch.configs import SHAPES, get_config
+from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import Model
 from repro_torch.models import build_model as tbuild
@@ -289,17 +289,3 @@ def test_full_width_parameters_match_reference():
                         jbuild(ARCH).init_shape())
     assert _shapes(got) == want
     assert tuple(got["patch_proj"]["w"].shape) == (3584, 3584)
-
-
-def test_training_refuses_naming_item_31(weights):
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.training.trainer import Trainer, TrainerConfig
-
-    _, _, tm, tp = weights
-    batch = {"tokens": torch.from_numpy(_tokens(2, 9)).long()}
-    with pytest.raises(NotImplementedError, match="item 31"):
-        tm.loss(tp, batch)
-    with pytest.raises(NotImplementedError, match="item 31"):
-        SyntheticLM(tm.cfg, SHAPES["train_4k"])
-    with pytest.raises(NotImplementedError, match="item 31"):
-        Trainer(tm, SHAPES["train_4k"], TrainerConfig(steps=1))
