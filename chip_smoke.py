@@ -287,27 +287,35 @@ Phases (any failure exits non-zero; nothing is caught):
    cache), and with the heuristic's blocks (``==`` where page and tile
    coincide, else tokens where the top-2 margin exceeds twice the logit
    difference, both fed the same tokens);
-21. training the four families without experts: kernels 12-13 at the
+21. training every family but dense (phase 15): kernels 12-13 at the
    shapes their train steps give them (whisper-base's encoder [1, 8,
    1500, 64] and cross-attention [1, 8, 447 | 1500, 64], non-causal, and
    its decoder [1, 8, 447, 64] causal; qwen2-vl-7b's [1, 28 | 4, 4095,
    128] causal, G 7; hymba-1.5b's [1, 25 | 5, 4095, 64] causal under its
-   1,024 window, G 5) and kernels 9-11 at each family's loss chunk (d 512
-   / 2048 / 3584 / 1600 over its padded vocabulary, and the configs' own
-   51,865 and 32,001, whose bf16 rows take the cp.async loads), each
-   within the derived limits of the kernel phase and timed beside its
-   bound, plain version and library call; then whisper-base (8 x (1,500
-   frames, 448 decoder tokens)), rwkv6-1.6b (1 x 4,096), qwen2-vl-7b (1 x
-   (256 patches + 3,840 tokens), 4 of its 28 layers) and hymba-1.5b (1 x
-   4,096) at full width, float32 parameters, bf16 activations, remat:
-   from one state the kernel route against the plain route (the loss and
-   four gradients within limits derived from both routes' logits,
-   ``family_parity_limits``), the launches of kernels 9-13 against the
+   1,024 window, G 5; granite-moe-3b-a800m's [1, 24 | 8, 4095, 64]
+   causal, G 3; deepseek-v2-lite-16b's [1, 16, 4095, 192] causal, Dv
+   128), kernel 1 on the routers' float32 rows of one train group
+   ([4095, 40], [4095, 64]) and kernels 9-11 at each family's loss chunk
+   (d 512 / 2048 / 3584 / 1600 / 1536 / 2048 over its padded vocabulary,
+   and the configs' own 51,865 and 32,001, whose bf16 rows take the
+   cp.async loads), each within the derived limits of the kernel phase
+   and timed beside its bound, plain version and library call; then
+   whisper-base (8 x (1,500 frames, 448 decoder tokens)), rwkv6-1.6b (1
+   x 4,096), qwen2-vl-7b (1 x (256 patches + 3,840 tokens), 4 of its 28
+   layers), hymba-1.5b (1 x 4,096), granite-moe-3b-a800m (1 x 4,096, 16
+   of its 32 layers) and deepseek-v2-lite-16b (1 x 4,096, 4 of its 27
+   layers; both moe_impl "dispatch", one group of 4,095 tokens) at full
+   width, float32 parameters, bf16 activations, remat: from one state the
+   kernel route against the plain route (the loss and four or five
+   gradients within limits derived from both routes' logits,
+   ``family_parity_limits``, with a block's bf16 ops counted by
+   ``block_roundings``), the launches of kernels 1 and 9-13 against the
    count the shapes imply, three AdamW steps through ``Trainer.run``
    (finite losses, the first within 1.5 of ln V; ms, tokens/s, peak
    bytes), a traced fourth step (``train_trace``: device time by group,
-   idle share), and ``python -m repro_torch.launch.train --reduced
-   --kernels`` for each family.
+   a moe model's router, experts, shared experts and dispatch / combine
+   apart, idle share), and ``python -m repro_torch.launch.train
+   --reduced --kernels`` for each family.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -315,9 +323,11 @@ The last line of standard output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import hashlib
+import importlib
 import json
 import math
 import os
@@ -3602,8 +3612,6 @@ def _host_ranges(*targets):
     name)`` of ``targets`` runs inside a profiler range ``name``, so an
     eager trace can group the kernels launched under it (a graph replay's
     kernels have no host range)."""
-    import contextlib
-
     from torch.profiler import record_function
 
     def wrap(fn, name):
@@ -4665,26 +4673,79 @@ def train_phase(torch) -> dict:
     return launches
 
 
+def _moe_range_times(prof) -> dict:
+    """Device ms by ``MOE_GROUPS`` range and kernel name.  A kernel's op
+    belongs to its innermost range; an op of the backward (under an
+    autograd node, scope 1) to the node's forward op, the last op of the
+    forward that took the node's sequence number on its thread (as
+    ``torch.profiler`` pairs them for stacks).  ``MOE_BLOCK``, around
+    every block, keeps a remat recompute's ops (run inside a node's
+    backward) from taking that node's range.  Kernels in no range are
+    left out."""
+    names = {g for _, _, g in MOE_GROUPS}
+
+    def walk(e, fwd):
+        # (an op of the backward, its group)
+        while e is not None:
+            if e.name in names:
+                return False, e.name
+            if e.name == MOE_BLOCK:
+                return False, None
+            if e.scope == 1:
+                return True, fwd.get((e.sequence_nr, e.fwd_thread))
+            e = e.cpu_parent
+        return False, None
+
+    events = [e for e in prof.events() if str(e.device_type).endswith("CPU")]
+    fwd, last = {}, {}
+    for e in events:
+        key = (e.sequence_nr, e.thread)
+        if e.sequence_nr < 0 or e.name.startswith("autograd::engine::"):
+            continue
+        backward, g = walk(e, {})
+        if not backward and e.time_range.start >= last.get(key, -1):
+            last[key], fwd[key] = e.time_range.start, g
+    out = {}
+    for e in events:
+        g = walk(e, fwd)[1] if e.kernels else None
+        if g is not None:
+            by_kernel = out.setdefault(g, {})
+            for k in e.kernels:
+                if k.name not in MOE_RANGES:
+                    by_kernel[k.name] = by_kernel.get(k.name, 0.0) \
+                        + k.duration / 1e3
+    return out
+
+
 def train_trace(torch, step, state, batch, *, arch: str = ARCH,
-                untraced_ms: float) -> None:
+                untraced_ms: float, moe: bool = False) -> None:
     """Where a step's device time goes: one more step under
     ``torch.profiler`` (CUDA activity only: tracing the CPU's ops too
     slowed the host and took minutes to fold at rwkv6's ~10^5 kernels a
     step), its kernels' device time summed by group, the ten largest by
     name, and every flash kernel by name (which of the backward's kernels
-    ran).  Not one of the counted steps.  ``untraced_ms``, an untraced
-    step's wall time, gives the host's share without the profiler's cost:
-    1 - device busy / that step."""
+    ran).  With ``moe`` the CPU's ops are traced too, each function of
+    ``MOE_GROUPS`` inside a host range, and its kernels' time (forward,
+    remat recompute and backward, :func:`_moe_range_times`) moves from
+    the name groups to a group of its own.  Not one of the counted steps.
+    ``untraced_ms``, an untraced step's wall time, gives the host's share
+    without the profiler's cost: 1 - device busy / that step."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if moe else [])
+    ranges = _host_ranges(*[
+        (importlib.import_module(f"repro_torch.models.{mod}"), f, g)
+        for mod, f, g in (*MOE_GROUPS, ("transformer", "block_apply",
+                                        MOE_BLOCK))]) \
+        if moe else contextlib.nullcontext()
+    with ranges, profile(activities=acts) as prof:
         t = time.perf_counter()
         step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     by_name = {}
     for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
+        if str(e.device_type).endswith("CUDA") and e.key not in MOE_RANGES:
             by_name[e.key] = getattr(e, "self_device_time_total", 0) / 1e3
     busy = sum(by_name.values())
     if busy <= 0:
@@ -4705,6 +4766,11 @@ def train_trace(torch, step, state, batch, *, arch: str = ARCH,
     groups = {}
     for name, ms in by_name.items():
         groups[group(name)] = groups.get(group(name), 0.0) + ms
+    # a moe range's kernels leave the group their name gives
+    for g, kernels in (_moe_range_times(prof) if moe else {}).items():
+        for kname, ms in kernels.items():
+            groups[group(kname)] -= ms
+        groups[g] = sum(kernels.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     flash = {k[:120]: v for k, v in by_name.items()
              if group(k) == "flash_attention kernels"}
@@ -6148,7 +6214,7 @@ def tune_phase(torch, n_layers: int, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 21: training the four families without experts at full width.
+# Phase 21: training every family but dense at full width.
 # ---------------------------------------------------------------------------
 # arch: (depth cut or None, batch, SyntheticLM seq_len)
 FAM_TRAIN = {
@@ -6164,12 +6230,40 @@ FAM_TRAIN = {
     "qwen2-vl-7b": (4, 1, 4096),
     # 1 x 4,096: 4x the window of 1,024, 32 layers
     "hymba-1.5b": (None, 1, 4096),
+    # 1 x 4,096: one dispatch group of 4,095 tokens (no multiple of
+    # 2,048), capacity int(4095 * 8 * 1.25 / 40) = 1,023; 16 of its 32
+    # layers, the moe phase's cut: 1.76 G float32 parameters, 28.2 GB of
+    # state (54.0 GB at all 32, before activations)
+    "granite-moe-3b-a800m": (16, 1, 4096),
+    # 1 x 4,096, capacity int(4095 * 6 * 1.25 / 64) = 479; 4 of its 27
+    # layers: 2.76 G parameters, 44.1 GB of state, and the parity step's
+    # second gradient set (all 27 would need 259 GB)
+    "deepseek-v2-lite-16b": (4, 1, 4096),
 }
 FAM_STEPS = 3
+# the kernels a family's train step launches: flash, the LM-head CE and
+# (a moe router) the two-pass softmax
+FAM_KERNELS = TRAIN_KERNELS + ("twopass_softmax_2d",)
+# a moe step's traced groups: (module of repro_torch.models, function,
+# group); each function runs inside a host range named after its group,
+# the innermost range names a kernel's group, and a backward kernel
+# takes its forward op's.  moe_apply's own ops are the impl's queue and
+# its dispatch and combine products; layers.mlp is only the shared
+# expert in a moe model.
+MOE_GROUPS = (("moe", "moe_apply", "moe dispatch and combine (queue, "
+                                   "one-hot products)"),
+              ("moe", "_router", "moe router (float32 logits, softmax, "
+                                 "top k)"),
+              ("moe", "_experts", "moe experts (batched SwiGLU products)"),
+              ("layers", "mlp", "moe shared experts (SwiGLU MLP)"))
+MOE_BLOCK = "transformer block"     # a range around transformer.block_apply
+# the ranges' own spans on the device timeline (a trace of the CPU too
+# gives each host range a device annotation): not kernels
+MOE_RANGES = {g for _, _, g in MOE_GROUPS} | {MOE_BLOCK}
 # bf16 ops a block's backward rounds the gradient in: two norms, the
 # attention's or mixer's four products and the MLP's three, their
 # elementwise neighbours (activation, gates, softmax or scan) and the two
-# residual adds
+# residual adds (a moe block's count: block_roundings)
 BLOCK_ROUNDINGS = 16
 # per family: the leaves whose gradients are held, kernel route vs plain
 FAM_GRADS = {
@@ -6190,6 +6284,19 @@ FAM_GRADS = {
                    "embed.table": ("embed", "table"),
                    "blocks.attn.wq.w": ("blocks", "attn", "wq", "w"),
                    "blocks.mamba.a_log": ("blocks", "mamba", "a_log")},
+    "granite-moe-3b-a800m": {
+        "lm_head.w": ("lm_head", "w"),
+        "embed.table": ("embed", "table"),
+        "blocks.attn.wq.w": ("blocks", "attn", "wq", "w"),
+        "blocks.mlp.router.w (float32)": ("blocks", "mlp", "router", "w"),
+        "blocks.mlp.wg (experts)": ("blocks", "mlp", "wg")},
+    "deepseek-v2-lite-16b": {
+        "lm_head.w": ("lm_head", "w"),
+        "embed.table": ("embed", "table"),
+        "blocks.attn.wkv_b.w (latent up-projection)": ("blocks", "attn",
+                                                       "wkv_b", "w"),
+        "blocks.mlp.router.w (float32)": ("blocks", "mlp", "router", "w"),
+        "blocks.mlp.wg (experts)": ("blocks", "mlp", "wg")},
 }
 # kernels 12-13 at the shapes the four train steps give them, depth-free
 # (batch 1): bf16 with D <= 128, so the mma.sync kernels, timed; whisper's
@@ -6206,7 +6313,16 @@ FAM_FLASH = {
     "whisper_decoder": (1, 8, 8, 447, 447, 64, True, None, "bfloat16"),
     "qwen2vl_g7": (1, 28, 4, 4095, 4095, 128, True, None, "bfloat16"),
     "hymba_g5_window": (1, 25, 5, 4095, 4095, 64, True, 1024, "bfloat16"),
+    # granite-moe: 24 heads over 8 (the mma.sync kernels); deepseek's MLA:
+    # 16 heads of D 128 + 64, Dv 128 (the wmma kernels, flash_fwd / flash_dq /
+    # flash_dkv)
+    "granite_moe_g3": (1, 24, 8, 4095, 4095, 64, True, None, "bfloat16"),
+    "deepseek_d192_dv128": (1, 16, 16, 4095, 4095, 192, True, None,
+                            "bfloat16", 128),
 }
+# kernel 1 on the router's float32 rows of one train group: [4095, E]
+FAM_ROUTER = {"granite_moe_router_rows_4095": (4095, 40),
+              "deepseek_router_rows_4095": (4095, 64)}
 # kernels 9-11 at one loss chunk of each step: (T, d, padded vocab); the
 # model pads its vocab to a multiple of 128, so the train path's w rows
 # are 16-byte aligned (TMA); the configs' own vocabularies 51,865 and
@@ -6216,6 +6332,8 @@ FAM_LMHEAD = {
     "rwkv6_chunk": (512, 2048, 65536),
     "qwen2vl_chunk": (480, 3584, 152064),     # 480 of the 3,839 text labels
     "hymba_chunk": (512, 1600, 32128),
+    "granite_moe_chunk": (512, 1536, 49280),
+    "deepseek_chunk": (512, 2048, 102400),
     "whisper_v51865_cp_async": (448, 512, 51865),
     "hymba_v32001_cp_async": (512, 1600, 32001),
 }
@@ -6230,6 +6348,26 @@ def attention_calls(cfg) -> int:
     if cfg.family == "encdec":            # encoder, decoder self, cross
         return cfg.n_enc_layers + 2 * cfg.n_layers
     return cfg.n_layers
+
+
+def block_roundings(cfg) -> int:
+    """The bf16 ops of one block's backward, by the block's code
+    (``transformer.block_apply``).  A block with an MLP has
+    ``BLOCK_ROUNDINGS``.  A moe block (``moe.moe_dispatch``, the
+    train path's impl) trades the MLP's three products, activation and
+    gate (5) for 9: the top-k weights' cast to bf16, the dispatch product
+    ``xe``, the experts' three batched products with their activation and
+    gate, the combine weights ``comb`` and the combine product.  The
+    router's logits and softmax are float32.  A shared expert adds its
+    MLP (5) and its add (1).  MLA's attention adds the latent's norm
+    ``kv_norm`` (1) to the four products (wq, wkv_a, wkv_b, wo).  So
+    granite-moe counts 20 a block and deepseek 27."""
+    n = BLOCK_ROUNDINGS
+    if cfg.moe is not None:
+        n += 9 - 5 + (6 if cfg.moe.n_shared else 0)
+    if cfg.mla is not None:
+        n += 1
+    return n
 
 
 def family_parity_limits(torch, mk, mp, params, batch, layers_crossed):
@@ -6254,10 +6392,10 @@ def family_parity_limits(torch, mk, mp, params, batch, layers_crossed):
     * every other held leaf: lm_head's limit, plus the bf16 rounding
       noise of the backward through the L blocks it crosses (and the
       head): once the two routes' gradients differ at all, each rounds
-      its own, so each of a block's ~BLOCK_ROUNDINGS bf16 ops adds an
-      independent relative error of RMS 2^-9 sqrt(2/3) between them (two
-      uniform roundings of half a step); in quadrature over k (L + 1)
-      ops, times lambda: lambda 2^-9 sqrt(2 k (L + 1) / 3).
+      its own, so each of a block's k bf16 ops (:func:`block_roundings`)
+      adds an independent relative error of RMS 2^-9 sqrt(2/3) between
+      them (two uniform roundings of half a step); in quadrature over
+      k (L + 1) ops, times lambda: lambda 2^-9 sqrt(2 k (L + 1) / 3).
     Returns (limits, measurements)."""
     from repro_torch.models import transformer
 
@@ -6292,7 +6430,7 @@ def family_parity_limits(torch, mk, mp, params, batch, layers_crossed):
                 + 2 * float(ex.mean()) + 1e-4)
     lm_lim = r_h + r_d + 2.0 ** -8
     noise = lam * 2.0 ** -9 * math.sqrt(
-        2 * BLOCK_ROUNDINGS * (layers_crossed + 1) / 3)
+        2 * block_roundings(mk.cfg) * (layers_crossed + 1) / 3)
     return (dict(loss=loss_lim, lm_head=lm_lim, inner=lm_lim + noise),
             dict(hidden_rel_norm_diff=r_h, dlogits_rel_norm_bound=r_d,
                  max_logit_diff=float(dmax.max()),
@@ -6302,10 +6440,12 @@ def family_parity_limits(torch, mk, mp, params, batch, layers_crossed):
 def family_train(torch, arch) -> dict:
     """One family's train step at full width (float32 parameters, bf16
     activations, remat): the kernel route (``use_kernels=True``: flash
-    attention, fused LM-head CE) against the plain route from one state
-    and batch, then three AdamW steps through ``Trainer.run`` on the
-    kernel route, each step's launches of kernels 9-13 counted, and a
-    traced fourth step.  Returns the launches over the three steps."""
+    attention, fused LM-head CE, a moe router's softmax) against the
+    plain route from one state and batch, then three AdamW steps through
+    ``Trainer.run`` on the kernel route (a moe model's experts by
+    ``dispatch``, the Trainer's impl), each step's launches of kernels 1
+    and 9-13 counted, and a traced fourth step.  Returns the launches
+    over the three steps."""
     import repro_torch.kernels as K
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeCell
@@ -6340,10 +6480,12 @@ def family_train(torch, arch) -> dict:
     att = attention_calls(cfg)
     # a flash forward per attention call, again in its layer's remat
     # backward, one backward per call; one LM-head launch of each kernel
-    # per loss chunk
+    # per loss chunk; a moe router's softmax once a layer, again in its
+    # remat backward (the op's backward launches nothing)
     want = {"flash_attention_fwd_gqa": 2 * att,
             "flash_attention_bwd_gqa": att,
-            **dict.fromkeys(LMHEAD, chunks)}
+            **dict.fromkeys(LMHEAD, chunks),
+            "twopass_softmax_2d": 2 * cfg.n_layers if cfg.moe else 0}
     blocks = cfg.n_layers + (cfg.n_enc_layers if cfg.family == "encdec"
                              else 0)
     reduced = ([] if depth is None else
@@ -6361,7 +6503,16 @@ def family_train(torch, arch) -> dict:
         attention_calls=att,
         launches_per_step=want,
         launches_formula="flash fwd 2 x attention calls (remat), bwd 1 x; "
-                         "each LM-head kernel once a loss chunk (8)",
+                         "each LM-head kernel once a loss chunk (8); "
+                         "two-pass softmax 2 x a moe model's layers "
+                         "(router, remat)",
+        moe=(None if cfg.moe is None else dict(
+            impl="dispatch", experts=cfg.moe.n_experts,
+            top_k=cfg.moe.top_k, shared=cfg.moe.n_shared,
+            d_expert=cfg.moe.d_expert, group_tokens=s_lab,
+            capacity=int(s_lab * cfg.moe.top_k * 1.25
+                         / cfg.moe.n_experts))),
+        block_roundings=block_roundings(cfg),
         init_s=time.perf_counter() - t0)
 
     # -- the kernel route against the plain route, same state and batch
@@ -6382,9 +6533,9 @@ def family_train(torch, arch) -> dict:
     cp = K.launch_counts()
     held_p = {n: _at(gp, pth) for n, pth in held_paths.items()}
     del gp
-    check(all(ck[k] == want[k] for k in TRAIN_KERNELS),
+    check(all(ck[k] == want[k] for k in FAM_KERNELS),
           f"{arch} kernel route: launches {want} expected, got "
-          f"{ {k: ck[k] for k in TRAIN_KERNELS} }")
+          f"{ {k: ck[k] for k in FAM_KERNELS} }")
     check(sum(cp.values()) == 0, f"{arch} plain route launched a kernel: "
           f"{ {k: v for k, v in cp.items() if v} }")
     lim, meas = family_parity_limits(torch, mk, mp, params, batch0, blocks)
@@ -6418,7 +6569,7 @@ def family_train(torch, arch) -> dict:
                     "logits, bf16 and float32 roundings; lm_head.w: the "
                     "factors' relative differences; other leaves: plus "
                     "the backward's bf16 rounding noise over the blocks",
-        launches_kernel_route={k: ck[k] for k in TRAIN_KERNELS},
+        launches_kernel_route={k: ck[k] for k in FAM_KERNELS},
         launches_plain_route=sum(cp.values()),
         loss_and_grads_first_ms={"kernel_route": kern_first_ms,
                                  "plain_route": plain_ms})
@@ -6432,7 +6583,7 @@ def family_train(torch, arch) -> dict:
                          log_every=1)
     trainer = Trainer(mk, cell, tcfg)
     step = trainer.step
-    counts = dict.fromkeys(TRAIN_KERNELS, 0)
+    counts = dict.fromkeys(FAM_KERNELS, 0)
     peaks = []
 
     def counted(state, b):
@@ -6441,10 +6592,10 @@ def family_train(torch, arch) -> dict:
         out = step(state, b)
         torch.cuda.synchronize()
         c = K.launch_counts()
-        check(all(c[k] == want[k] for k in TRAIN_KERNELS),
+        check(all(c[k] == want[k] for k in FAM_KERNELS),
               f"{arch} step {len(peaks)}: launches {want} expected, got "
-              f"{ {k: c[k] for k in TRAIN_KERNELS} }")
-        for k in TRAIN_KERNELS:
+              f"{ {k: c[k] for k in FAM_KERNELS} }")
+        for k in FAM_KERNELS:
             counts[k] += c[k]
         peaks.append(torch.cuda.max_memory_allocated())
         return out
@@ -6467,7 +6618,7 @@ def family_train(torch, arch) -> dict:
           f"{math.log(cfg.vocab)}")
     step_ms = min(r["time_s"] for r in hist[1:]) * 1e3
     train_trace(torch, step, state, ds.batch_at(FAM_STEPS), arch=arch,
-                untraced_ms=step_ms)
+                untraced_ms=step_ms, moe=cfg.moe is not None)
     del state, trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -6481,10 +6632,13 @@ def family_train(torch, arch) -> dict:
 
 def family_train_cli() -> None:
     """``python -m repro_torch.launch.train --arch A --reduced --kernels``
-    for the four families, all four processes at once: each exits 0 with
-    its final loss, and the attention families launch the flash kernels,
-    every family the LM-head kernels."""
+    for each family of ``FAM_TRAIN``, all processes at once: each exits 0
+    with its final loss, and the attention families launch the flash
+    kernels, the moe ones kernel 1 (the router), every family the LM-head
+    kernels."""
     import ast
+
+    from repro_torch.configs import get_config
 
     t = time.perf_counter()
     procs = {a: subprocess.Popen(
@@ -6504,7 +6658,8 @@ def family_train_cli() -> None:
               f"train CLI {arch} exited {proc.returncode}")
         counts = ast.literal_eval(launch[0][len("kernel launches: "):])
         loss = ast.literal_eval(final[0][len("final: "):])["loss"]
-        need = LMHEAD + (() if arch == "rwkv6-1.6b" else FLASH)
+        need = LMHEAD + (() if arch == "rwkv6-1.6b" else FLASH) + (
+            ("twopass_softmax_2d",) if get_config(arch).moe else ())
         check(all(counts.get(k, 0) > 0 for k in need) and
               math.isfinite(loss),
               f"train CLI {arch}: loss {loss}, launches {counts}")
@@ -6512,17 +6667,26 @@ def family_train_cli() -> None:
 
 
 def family_train_phase(torch, rows) -> dict:
-    """Phase 21: kernels 12-13 at the five attention shapes the four
-    families' train steps give them (whisper's non-causal two also in
-    float32) and kernels 9-11 at each family's loss
-    chunk (and at the configs' unpadded vocabularies, the cp.async loads),
-    each against its plain version and timed beside its bound; then each
-    family's train step (:func:`family_train`) and the train CLI for each.
-    Returns the launches of kernels 9-13 over the four families' steps."""
+    """Phase 21: kernels 12-13 at the seven attention shapes the families'
+    train steps give them (whisper's non-causal two also in float32),
+    kernel 1 on the moe routers' rows of one train group and kernels 9-11
+    at each family's loss chunk (and at the configs' unpadded
+    vocabularies, the cp.async loads), each against its plain version and
+    timed beside its bound; then each family's train step
+    (:func:`family_train`) and the train CLI for each.  Returns the
+    launches of kernels 1 and 9-13 over the families' steps."""
     t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows.setdefault("twopass_softmax_2d", {})
+    for key, (r, e) in FAM_ROUTER.items():
+        # rms-normed activations over a d**-0.5 router: about unit scale
+        x = torch.randn((r, e), device="cuda", generator=gen)
+        softmax_rows_check(torch, rows, key, x,
+                           f"train router rows [{r}, {e}]")
+        del x
     for case, shape in FAM_FLASH.items():
         c = flash_check(torch, case, shape)
-        if shape[-1] == "bfloat16":
+        if shape[8] == "bfloat16":
             flash_times(torch, rows, case, c)
         del c
         torch.cuda.empty_cache()
@@ -6532,7 +6696,7 @@ def family_train_phase(torch, rows) -> dict:
         del c
         torch.cuda.empty_cache()
     say("family_kernels_done", seconds=time.perf_counter() - t0)
-    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    launches = dict.fromkeys(FAM_KERNELS, 0)
     for arch in FAM_TRAIN:
         for k, n in family_train(torch, arch).items():
             launches[k] += n

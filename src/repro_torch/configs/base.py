@@ -184,25 +184,6 @@ class ModelConfig:
         return dataclasses.replace(self, **changes)
 
 
-# families this package does not serve yet -> ROADMAP queue A item (none:
-# every family the reference serves is served)
-UNPORTED_FAMILIES: dict[str, int] = {}
-# families it serves but does not train yet: moe (ROADMAP queue A item
-# 29; deepseek-v2-lite-16b's multi-head latent attention trains with the
-# moe family, item 30, and both are the next slice)
-UNTRAINED_FAMILIES = {**UNPORTED_FAMILIES, "moe": 29}
-
-
-def check_ported(cfg: ModelConfig, what: str,
-                 families: dict = UNPORTED_FAMILIES) -> None:
-    """Refuse a family this package does not serve yet (or, given
-    ``UNTRAINED_FAMILIES``, does not train yet), naming its item."""
-    if cfg.family in families:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: {what} is not ported yet (ROADMAP "
-            f"queue A item {families[cfg.family]})")
-
-
 # ---------------------------------------------------------------------------
 # Input-shape cells (assigned): every arch pairs with these four.
 # ---------------------------------------------------------------------------

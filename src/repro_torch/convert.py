@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, check_ported
+from repro_torch.configs.base import ModelConfig
 
 # a leaf every layer of the family has: its stack length is the depth
 _LAYER_LEAF = {"dense": ("ln1", "scale"), "ssm": ("ln_t", "scale"),
@@ -42,9 +42,7 @@ def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
     block is ``ln_in``, ``attn``, ``mamba`` (the mamba heads: ``in_x``,
     ``in_z``, ``in_b``, ``in_c``, ``in_dt``, float32 ``a_log`` and
     ``dt_bias``, ``out_norm``, ``wo``), ``ln_mlp``, ``mlp``, ``norm_a``
-    and ``norm_m``.  A family that is not ported is refused naming its
-    item."""
-    check_ported(cfg, "weight conversion")
+    and ``norm_m``."""
     want = {"embed", "norm_f", "blocks"} | (
         set() if cfg.tie_embeddings else {"lm_head"}) | (
         {"enc_blocks", "enc_norm"} if cfg.family == "encdec" else set()) | (

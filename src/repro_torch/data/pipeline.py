@@ -15,8 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.configs.base import (UNTRAINED_FAMILIES, ModelConfig,
-                                      ShapeCell, check_ported)
+from repro_torch.configs.base import ModelConfig, ShapeCell
 
 
 class SyntheticLM:
@@ -24,7 +23,6 @@ class SyntheticLM:
 
     def __init__(self, cfg: ModelConfig, cell: ShapeCell, seed: int = 0,
                  zipf_a: float = 1.2):
-        check_ported(cfg, "training", UNTRAINED_FAMILIES)
         self.cfg = cfg
         self.cell = cell
         self.seed = seed

@@ -58,8 +58,6 @@ from __future__ import annotations
 
 import argparse
 
-from repro_torch.configs.base import check_ported
-
 # unported flag -> (its value when unused, ROADMAP queue A item)
 UNPORTED_FLAGS = {"mesh": (None, 22)}
 
@@ -156,10 +154,6 @@ def main(argv=None) -> None:
     except (KeyError, RuntimeError) as e:    # unknown arch; no card
         p.error(str(e))
     cfg = model.cfg
-    try:
-        check_ported(cfg, "serving")
-    except NotImplementedError as e:
-        p.error(f"{args.arch}: {e}")
     # weights in the compute dtype: every use casts to it, so the results
     # equal float32 weights' at half the memory
     params = model.init(seed=0, dtype=torch_dtype(cfg.dtype))

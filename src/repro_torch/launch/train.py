@@ -10,10 +10,11 @@ time_s}``), plus ``--device`` (``cuda`` unless the CPU is asked for) and
 ``--kernels`` (the model's ``use_kernels``: attention through the
 flash-attention kernels and the loss through the fused LM-head CE kernels;
 on the CPU their plain versions).  Weights are random, from seed 0, in the
-config's parameter dtype.  Every family trains but moe: an encdec
-batch is seeded frames and decoder tokens, a vlm batch seeded patches
-ahead of the tokens (``SyntheticLM``).  ``--mesh`` and the moe family
-exit with an error that names their ROADMAP item.
+config's parameter dtype.  Every family trains: an encdec batch is
+seeded frames and decoder tokens, a vlm batch seeded patches ahead of
+the tokens (``SyntheticLM``), and a moe model routes through the
+reference's default ``moe_impl``, ``dispatch``.  ``--mesh`` exits with
+an error that names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -60,8 +61,7 @@ def main(argv=None) -> None:
                         format="%(asctime)s %(levelname)s %(message)s")
 
     from repro_torch import kernels
-    from repro_torch.configs.base import (SHAPES, UNTRAINED_FAMILIES,
-                                          ShapeCell, check_ported)
+    from repro_torch.configs.base import SHAPES, ShapeCell
     from repro_torch.models import build_model
     from repro_torch.training.trainer import Trainer, TrainerConfig
 
@@ -72,10 +72,6 @@ def main(argv=None) -> None:
                             use_kernels=args.kernels)
     except (KeyError, RuntimeError) as e:    # unknown arch; no card
         p.error(str(e))
-    try:
-        check_ported(model.cfg, "training", UNTRAINED_FAMILIES)
-    except NotImplementedError as e:
-        p.error(f"{args.arch}: {e}")
     base = SHAPES[args.shape]
     cell = ShapeCell(base.name,
                      args.seq or (64 if args.reduced else base.seq_len),

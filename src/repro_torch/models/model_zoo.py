@@ -38,11 +38,13 @@ class Model:
         return transformer.init_lm(self.cfg, device="meta")
 
     # -- functional entry points -------------------------------------------
-    def loss(self, params, batch: dict, policy=None):
-        """Mean next-token CE of ``batch`` (tensors on the device);
-        ``policy`` overrides the config's SoftmaxPolicy for the loss."""
+    def loss(self, params, batch: dict, moe_impl: str = "dispatch",
+             policy=None):
+        """Mean next-token CE of ``batch`` (tensors on the device); a moe
+        model's experts run by ``moe_impl``; ``policy`` overrides the
+        config's SoftmaxPolicy for the loss."""
         return transformer.train_loss(params, batch, cfg=self.cfg,
-                                      policy=policy)
+                                      moe_impl=moe_impl, policy=policy)
 
     def forward(self, params, tokens, patches=None):
         """Hidden states [B, S, d]; a vlm prompt's ``patches`` ([B,

@@ -64,7 +64,9 @@ def _router(p, x, cfg: ModelConfig):
     The top k are taken by a stable descending sort, so equal
     probabilities give the lower expert id first, as ``jax.lax.top_k``
     does (``torch.topk`` does not): the order decides the experts and,
-    through the queue order, which tokens drop."""
+    through the queue order, which tokens drop.  The sort's backward
+    sends the weights' gradient to the k chosen probabilities only, as
+    top_k's does."""
     m = cfg.moe
     logits = x.to(torch.float32) @ p["router"]["w"].to(torch.float32)
     probs = cfg.softmax_policy().softmax(logits, axis=-1)

@@ -4,8 +4,7 @@ attention; a hybrid block runs attention and mamba heads in parallel; an
 encdec model also has an encoder over stubbed frame embeddings and
 cross-attention in every decoder block; a vlm prompt may start with
 stubbed patch embeddings, projected by ``patch_proj``, and its positions
-are M-RoPE's three streams), and the training loss of every family
-but moe.
+are M-RoPE's three streams), and the training loss of every family.
 
 Layer parameters are stacked on a leading ``[L]`` axis, as in the
 reference; the layer loop is a Python loop that indexes them (the
@@ -18,8 +17,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import (UNTRAINED_FAMILIES, ModelConfig,
-                                      check_ported)
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import layers
@@ -151,7 +149,6 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     dtype (bf16) halves the weights' memory with identical results, since
     every use casts to the activation dtype.  On the ``meta`` device the
     tree has shapes and dtypes only."""
-    check_ported(cfg, "the model")
     dt = dtype or torch_dtype(cfg.param_dtype)
     if torch.device(device).type == "meta":
         gen = layers.MetaDraws()
@@ -288,7 +285,6 @@ def forward(params: Params, tokens, *, cfg: ModelConfig, patches=None,
             moe_impl: str = "dispatch"):
     """Token (and a vlm prompt's patch) forward to final hidden states
     [B, S, d] (no cache); S counts the patches."""
-    check_ported(cfg, "the model")
     x = embed_prompt(params, tokens, cfg, patches)
     b, s = x.shape[:2]
     cos = sin = None                      # an ssm block takes no positions
@@ -364,13 +360,14 @@ def lm_loss_from_hidden(params: Params, h, labels, *, cfg: ModelConfig,
     return total / torch.clamp(count, min=1.0)
 
 
-def train_hidden(params: Params, batch: dict, *, cfg: ModelConfig):
+def train_hidden(params: Params, batch: dict, *, cfg: ModelConfig,
+                 moe_impl: str = "dispatch"):
     """The final hidden states the family's loss reads and their labels:
     ``(h [B, S, d], labels [B, S])``.  Next-token on ``batch["tokens"]``;
     an encdec model's decoder on ``batch["dec_tokens"]`` given the encoder
     over ``batch["frames"]``; a vlm model's text tail after
-    ``batch["patches"]``, as the reference's ``train_loss``."""
-    check_ported(cfg, "training", UNTRAINED_FAMILIES)
+    ``batch["patches"]``; a moe model's experts by ``moe_impl``, as the
+    reference's ``train_loss``."""
     if cfg.family == "encdec":
         enc = encode(params, batch["frames"], cfg=cfg)
         dec = batch["dec_tokens"]
@@ -378,18 +375,20 @@ def train_hidden(params: Params, batch: dict, *, cfg: ModelConfig):
                 dec[:, 1:])
     tokens = batch["tokens"]
     patches = batch.get("patches")
-    h = forward(params, tokens[:, :-1], cfg=cfg, patches=patches)
+    h = forward(params, tokens[:, :-1], cfg=cfg, patches=patches,
+                moe_impl=moe_impl)
     if cfg.family == "vlm" and patches is not None:
         h = h[:, patches.shape[1]:]              # the loss on the text tail
     return h, tokens[:, 1:]
 
 
 def train_loss(params: Params, batch: dict, *, cfg: ModelConfig,
-               policy=None):
-    """Mean next-token CE of every family but moe over
-    :func:`train_hidden`; an optional ``batch["mask"]`` weights the label
-    positions.  ``policy`` overrides the config's SoftmaxPolicy for the
+               moe_impl: str = "dispatch", policy=None):
+    """Mean next-token CE over :func:`train_hidden`; an optional
+    ``batch["mask"]`` weights the label positions.  A moe model's experts
+    run by ``moe_impl``, with no load-balance term (the reference's adds
+    none).  ``policy`` overrides the config's SoftmaxPolicy for the
     loss."""
-    h, labels = train_hidden(params, batch, cfg=cfg)
+    h, labels = train_hidden(params, batch, cfg=cfg, moe_impl=moe_impl)
     return lm_loss_from_hidden(params, h, labels, cfg=cfg,
                                mask=batch.get("mask"), policy=policy)

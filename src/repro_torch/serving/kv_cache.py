@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, check_ported
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import torch_dtype
 
 TRASH_PAGE = 0
@@ -63,7 +63,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     config's is ``{"self": {"k", "v"}, "cross": {"k", "v"}}``, an MLA
     config's the latent ``{"c", "kr"}``, a hybrid config's ``{"attn":
     {"k", "v"}, "ssm"}`` (the ring applies to the attention half)."""
-    check_ported(cfg, "its cache")
     dt = cache_dtype(cfg)
     if cfg.family == "ssm":
         h, hd, d = cfg.n_heads, cfg.ssm.head_dim, cfg.d_model
@@ -257,7 +256,6 @@ def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
     with its own scale, so no page is ever requantized.  The sidecars
     exist from construction and are written in place (the captured
     decode step reads them)."""
-    check_ported(cfg, "its cache")
     if not supports_paging(cfg):
         raise ValueError(f"family {cfg.family!r}: the recurrent state has "
                          "no position axis to page; use the strip pool")

@@ -25,7 +25,8 @@ def _to_device(batch: dict, device) -> dict:
                 else v).to(device) for k, v in batch.items()}
 
 
-def loss_and_grads(model: Model, params, batch: dict, policy=None):
+def loss_and_grads(model: Model, params, batch: dict, policy=None,
+                   moe_impl: str = "dispatch"):
     """``(loss, grads)`` of ``model.loss`` at ``params``: ``grads`` has the
     tree of ``params`` and their dtypes.  ``params`` are unchanged and hold
     no gradient afterwards."""
@@ -34,7 +35,7 @@ def loss_and_grads(model: Model, params, batch: dict, policy=None):
         p.requires_grad_(True)
         p.grad = None
     try:
-        loss = model.loss(params, batch, policy=policy)
+        loss = model.loss(params, batch, moe_impl=moe_impl, policy=policy)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in ps]
@@ -48,13 +49,15 @@ def loss_and_grads(model: Model, params, batch: dict, policy=None):
 
 def make_train_step(model: Model, *, lr_schedule: Callable | None = None,
                     microbatches: int = 1, grad_compression: str = "none",
+                    moe_impl: str = "dispatch",
                     max_grad_norm: float | None = 1.0,
                     softmax_policy=None):
     """``train_step(state, batch) -> (state, metrics)``; ``metrics`` holds
     ``loss``, ``lr`` and ``grad_norm`` (0-d float32 tensors).  The state's
-    parameters and moments are updated in place.  ``softmax_policy``
-    overrides the model config's policy for the loss only: the
-    training-side switch for the fused LM-head CE kernels."""
+    parameters and moments are updated in place.  A moe model's experts
+    run by ``moe_impl``.  ``softmax_policy`` overrides the model config's
+    policy for the loss only: the training-side switch for the fused
+    LM-head CE kernels."""
     lr_fn = lr_schedule or functools.partial(schedules.warmup_cosine)
     policy = softmax_policy or model.cfg.softmax_policy()
     if grad_compression not in ("none", "bf16"):
@@ -75,13 +78,14 @@ def make_train_step(model: Model, *, lr_schedule: Callable | None = None,
                                       device=p.device), state.params)
             for i in range(microbatches):
                 li, gi = loss_and_grads(model, state.params, slice_mb(i),
-                                        policy)
+                                        policy, moe_impl)
                 loss = loss + li / microbatches
                 for a, g in zip(adamw.leaves(grads), adamw.leaves(gi)):
                     a.add_(g.to(torch.float32) / microbatches)
                 del gi
         else:
-            loss, grads = loss_and_grads(model, state.params, batch, policy)
+            loss, grads = loss_and_grads(model, state.params, batch, policy,
+                                         moe_impl)
 
         if grad_compression == "bf16":
             grads = compression.decompress_bf16(

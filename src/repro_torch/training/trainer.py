@@ -63,7 +63,9 @@ class Trainer:
                                peak_lr=tcfg.peak_lr, warmup=tcfg.warmup,
                                total=tcfg.steps)
         # the loss runs under the model config's SoftmaxPolicy: with
-        # use_kernels, the flash-attention and LM-head CE kernels
+        # use_kernels, the flash-attention and LM-head CE kernels (and a
+        # moe router's softmax); a moe model's experts by the default
+        # moe_impl, "dispatch", as the reference's Trainer
         self.step = step_mod.make_train_step(
             model, lr_schedule=lr, microbatches=tcfg.microbatches)
 

@@ -1697,3 +1697,83 @@ def test_family_train_step_kernels_equal_plain(cuda, arch):
     for a, b in zip(adamw.leaves(gk), adamw.leaves(gp)):
         assert a.dtype == b.dtype and torch.isfinite(a).all()
         assert float((a - b).norm()) <= 1e-4 * float(b.norm()) + 1e-9
+
+
+# ---------------------------------------------------------------------------
+# Training of the moe family (granite-moe-3b-a800m, deepseek-v2-lite-16b):
+# kernels 12-13 at their train shapes cut in length, kernel 1 on the
+# router's rows of one 4,095-token group, and each reduced model's train
+# step under each moe_impl, kernel route against plain route.
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["granite_moe_g3", "deepseek_d192_dv128"])
+def test_flash_kernels_at_the_moe_train_shapes(cuda, case):
+    # the step's heads and head dims (G 3, D 64; D 192 / Dv 128) over
+    # 1,023 of its 4,095 positions, causal, bf16, within chip_smoke.py's
+    # derived limits, the same bits twice
+    cs = _chip_smoke()
+    shape = cs.FAM_FLASH[case]
+    assert shape[3] == shape[4] == 4095
+    c = cs.flash_check(torch, f"{case}_1023", (*shape[:3], 1023, 1023,
+                                               *shape[5:]))
+    assert all(over <= 1.0 for _, over in c["res"].values()), c["res"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("experts", [40, 64])
+def test_twopass_softmax_on_the_train_router_rows(cuda, experts):
+    # [4095, E] float32, the router's rows of one train group; the op's
+    # backward is the analytic VJP from y alone, so no second launch
+    gen = torch.Generator(device=cuda).manual_seed(experts)
+    x = torch.randn((4095, experts), device=cuda, generator=gen) * 4
+    got = tp.twopass_softmax_2d(x)
+    torch.testing.assert_close(got, tp.twopass_softmax_2d_plain(x), **F32)
+    assert tp.path_for(experts) == "registers"
+    dy = torch.randn((4095, experts), device=cuda, generator=gen)
+    xk = x.clone().requires_grad_(True)
+    xp = x.clone().requires_grad_(True)
+    ops.softmax(xk).backward(dy)
+    torch.softmax(xp, -1).backward(dy)
+    torch.testing.assert_close(xk.grad, xp.grad, **F32)
+    assert tp.twopass_softmax_2d.launches == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["dense", "dispatch", "gather"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
+def test_moe_train_step_kernels_equal_plain(cuda, arch, impl):
+    # reduced and float32: the kernels (the router's softmax, flash on
+    # FFMA at D 16 or 24 / Dv 16, the fused LM-head CE) and the plain
+    # route differ only in float32 summation order, so both routes pick
+    # the same experts and drop the same (token, k) pairs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.training import step_fn
+
+    mk = build_model(arch, reduced=True, use_kernels=True)
+    mp = build_model(arch, reduced=True)
+    cfg = mk.cfg
+    params = mk.init(seed=0)
+    batch = {k: torch.from_numpy(x).to(cuda) for k, x in SyntheticLM(
+        cfg, ShapeCell("t", 40, 2, "train"), seed=0).batch_at(0).items()}
+    tk.reset_launch_counts()
+    lk, gk = step_fn.loss_and_grads(mk, params, batch, moe_impl=impl)
+    counts = tk.launch_counts()
+    tk.reset_launch_counts()
+    lp, gp = step_fn.loss_and_grads(mp, params, batch, moe_impl=impl)
+    assert not any(tk.launch_counts().values())
+    per_layer = 2 if cfg.remat else 1
+    assert counts["twopass_softmax_2d"] == cfg.n_layers * per_layer
+    assert counts["flash_attention_fwd_gqa"] == cfg.n_layers * per_layer
+    assert counts["flash_attention_bwd_gqa"] == cfg.n_layers
+    assert all(counts[k] == 8 for k in ("lmhead_xent_fwd_2d",
+                                        "lmhead_xent_dh_2d",
+                                        "lmhead_xent_dw_2d"))
+    torch.testing.assert_close(lk, lp, atol=0, rtol=1e-5)
+    for a, b in zip(adamw.leaves(gk), adamw.leaves(gp)):
+        assert a.dtype == b.dtype and torch.isfinite(a).all()
+        assert float((a - b).norm()) <= 1e-4 * float(b.norm()) + 1e-9
+    assert gk["blocks"]["mlp"]["router"]["w"].dtype == torch.float32

@@ -12,8 +12,10 @@ prefill and decode logits within 1e-4 (as test_torch_models), greedy
 tokens through the paged and strip pools ``==`` the JAX lockstep with
 kernels off and on, and through the replay path with a stand-in graph.
 Then the gates: deepseek-v2-lite-16b (multi-head latent attention, held
-in tests/test_torch_mla.py) passes every serving gate and its training is
-refused naming item 29, as all moe training."""
+in tests/test_torch_mla.py) passes every serving gate, and both models
+train through every entry point (a finite loss, batches of the cell's
+shape, the CLI to its end; held against the reference in
+tests/test_torch_moe_training.py and tests/test_torch_mla_training.py)."""
 
 import dataclasses
 
@@ -461,7 +463,7 @@ def _mla():
 @pytest.mark.parametrize("gate", [
     "init_lm", "init_cache", "slot_pool", "paged_pool", "decode_specs",
     "convert", "training", "synthetic_batches"])
-def test_mla_passes_the_serving_gates_and_training_names_item_29(gate):
+def test_mla_passes_the_serving_gates_and_trains(gate):
     m = _mla()
     assert m.cfg.family == "moe" and m.cfg.mla is not None
     calls = {
@@ -476,17 +478,18 @@ def test_mla_passes_the_serving_gates_and_training_names_item_29(gate):
             jbuild(MLA_ARCH, reduced=True).init(jax.random.PRNGKey(0)),
             m.cfg),
         "training": lambda: transformer.train_loss(
-            {}, {"tokens": torch.zeros((1, 4), dtype=torch.int64)},
+            m.init(0), {"tokens": torch.zeros((1, 4), dtype=torch.int64)},
             cfg=m.cfg),
         "synthetic_batches": lambda: SyntheticLM(
-            m.cfg, ShapeCell("t", 16, 2, "train")),
+            m.cfg, ShapeCell("t", 16, 2, "train")).batch_at(0),
     }
-    if gate in ("training", "synthetic_batches"):
-        with pytest.raises(NotImplementedError,
-                           match="family 'moe'.*ROADMAP queue A item 29\\)"):
-            calls[gate]()
-        return
     out = calls[gate]()
+    if gate == "training":
+        assert out.shape == () and torch.isfinite(out)
+        return
+    if gate == "synthetic_batches":
+        assert set(out) == {"tokens"} and out["tokens"].shape == (2, 16)
+        return
     leaves = out if isinstance(out, dict) else {}
     if gate in ("init_cache", "decode_specs"):
         leaves = out["cache"] if gate == "decode_specs" else out
@@ -498,9 +501,14 @@ def test_mla_passes_the_serving_gates_and_training_names_item_29(gate):
                                               "wkv_b", "wo"}
 
 
+def _final_loss(out):
+    final = [ln for ln in out.splitlines() if ln.startswith("final: ")]
+    assert len(final) == 1
+    return float(final[0].split("'loss': ")[1].split(",")[0])
+
+
 @pytest.mark.parametrize("cli", ["serve", "train"])
-def test_cli_serves_mla_and_refuses_its_training_naming_item_29(cli,
-                                                                capsys):
+def test_cli_serves_and_trains_mla(cli, capsys):
     argv = ["--arch", MLA_ARCH, "--reduced", "--device", "cpu"]
     if cli == "serve":
         serve.main(argv + ["--requests", "3", "--slots", "2",
@@ -510,29 +518,31 @@ def test_cli_serves_mla_and_refuses_its_training_naming_item_29(cli,
         assert f"{MLA_ARCH}: served 3 requests over 2 slots / paged" in out
         assert "prefill: 36 tok" in out and "decode:  9 tok" in out
         return
-    with pytest.raises(SystemExit) as e:
-        train_cli.main(argv)
-    assert e.value.code == 2
-    assert "ROADMAP queue A item 29" in capsys.readouterr().err
+    train_cli.main(argv + ["--steps", "1", "--seq", "16", "--batch", "2"])
+    assert np.isfinite(_final_loss(capsys.readouterr().out))
 
 
 @pytest.mark.parametrize("gate", ["train_loss", "model_loss",
                                   "synthetic_batches", "cli"])
-def test_moe_training_is_refused_naming_item_29(weights, gate, capsys):
+def test_moe_trains_through_every_entry_point(weights, gate, capsys):
     _, _, cfg, tp = weights
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.int64)}
     if gate == "cli":
-        with pytest.raises(SystemExit) as e:
-            train_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                            "--steps", "1"])
-        assert e.value.code == 2
-        assert "ROADMAP queue A item 29" in capsys.readouterr().err
+        train_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                        "--steps", "1", "--seq", "16", "--batch", "2"])
+        assert np.isfinite(_final_loss(capsys.readouterr().out))
         return
     calls = {
         "train_loss": lambda: transformer.train_loss(tp, batch, cfg=cfg),
         "model_loss": lambda: Model(cfg, "cpu").loss(tp, batch),
-        "synthetic_batches": lambda: SyntheticLM(cfg, SHAPES["train_4k"]),
+        "synthetic_batches": lambda: SyntheticLM(
+            cfg, SHAPES["train_4k"]).batch_at(0),
     }
-    with pytest.raises(NotImplementedError,
-                       match="family 'moe'.*ROADMAP queue A item 29\\)"):
-        calls[gate]()
+    out = calls[gate]()
+    if gate == "synthetic_batches":
+        assert set(out) == {"tokens"}
+        assert out["tokens"].shape == (SHAPES["train_4k"].global_batch,
+                                       SHAPES["train_4k"].seq_len)
+        assert 0 <= out["tokens"].min() <= out["tokens"].max() < cfg.vocab
+        return
+    assert out.shape == () and torch.isfinite(out)

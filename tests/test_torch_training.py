@@ -276,7 +276,8 @@ def test_bf16_compression_matches_reference():
 
 @pytest.mark.parametrize("arch,reduced", [("qwen2.5-14b", True),
                                           ("qwen2.5-14b", False),
-                                          ("granite-20b", True)])
+                                          ("granite-20b", True),
+                                          ("granite-moe-3b-a800m", True)])
 def test_synthetic_batches_equal_the_reference(arch, reduced):
     from repro.configs import get_config as jget
 
@@ -292,14 +293,6 @@ def test_synthetic_batches_equal_the_reference(arch, reduced):
     step, batch = next(td.iterate(5))
     assert step == 5 and np.array_equal(batch["tokens"],
                                         jd.batch_at(5)["tokens"])
-
-
-@pytest.mark.parametrize("arch,item", [("granite-moe-3b-a800m", 29)])
-def test_synthetic_batches_refuse_unported_families(arch, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue A item {item}\\)"):
-        SyntheticLM(get_config(arch).reduced(),
-                    ShapeCell("t", 16, 2, "train"))
 
 
 # ---------------------------------------------------------------------------
