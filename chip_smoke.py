@@ -37,10 +37,14 @@ Phases (any failure exits non-zero; nothing is caught):
    stats) as pinned; the
    flash-attention kernels (forward, and the dq and dk/dv backward) at the
    train phase's attention shape, a ragged causal float32 call with rows
-   that see no key (exact zeros), a window and head dims 120 and 160,
-   within float32 accumulation limits derived from the inputs plus one
-   bf16 step, with the same bits on a second run (bf16 with D <= 128
-   takes the mma.sync kernels, float32 and D 160 the wmma / FFMA ones);
+   that see no key (exact zeros), a window, head dims 120, 160 and 256
+   and stablelm-12b's train shape, within float32 accumulation limits
+   derived from the inputs plus one bf16 step, with the same bits on a
+   second run (bf16 with D and Dv multiples of 8 takes the mma.sync
+   kernels, float32 the wmma / FFMA ones; each ``kernel_check`` line
+   names its ``design``); at qwen2.5-14b's and granite-moe's train shapes
+   the mma kernels' sha256 equals ``FLASH_MMA_DIGEST``, and no mma
+   instantiation spills (``ptxas -v``);
 3. engine: qwen2.5-14b at full width (d_model 5120, 40/8 heads, d_ff
    13824, vocab 152064, bf16, seeded random weights; depth cut to 16 of
    its 48 layers unless ``--layers`` says otherwise, so that the whole
@@ -388,6 +392,16 @@ LMHEAD_DIGEST = ("01b9d3e64bead230971d09416538e945"
 # takes 256-column tiles.
 LMHEAD_FWD_DIGEST = ("d7c2045d23f88365945da27bc91db8d7"
                      "d9f054744b3c2941c0e55c75de108001")
+# sha256 of the flash kernels' (o, m_sum, n_sum, dq, dk, dv) at flash_check's
+# inputs, the backward from the kernel forward's residuals, as the mma
+# kernels of commit 2919eec (before they took DP and DVP apart) give them
+# on an H100 (scripts/flash_probe.py --digest): the templated kernels must
+# change no bit at D <= 128.
+FLASH_MMA_DIGEST = {
+    "train_bf16": ("85c47c8018aaa084f00639987eb3f01c"
+                   "78ffba51e91002b3120753bf50febae8"),
+    "granite_moe_g3": ("d521a030bcea9ede8b0c0b1709a7e5e5"
+                       "c83a9c76b4f44cf267ed9ef28fcf9f22")}
 ARCH = "qwen2.5-14b"
 MAX_LEN = 1664             # 13 pages of 128: prompts up to 1500 + 32 new
 N_SLOTS = 8
@@ -990,8 +1004,10 @@ def lmhead_times(torch, rows, case, c) -> None:
 # ---------------------------------------------------------------------------
 # (B, H, Hkv, Sq, Skv, D, causal, window, dtype): the train phase's shape
 # (qwen2.5-14b, 1 x 4096), a ragged causal call with Sq > Skv (rows that
-# see no key) in float32, a window, and the dense family's head dims 120
-# (h2o-danube-3-4b) and 160 (stablelm-12b)
+# see no key) in float32, a window, the dense family's head dims 120
+# (h2o-danube-3-4b) and 160 (stablelm-12b, also at its train shape, 32
+# heads over 8, 1 x 4096; timed), and 256 (the split forward and the
+# single set of parts planes of the mma dk/dv kernel, a ragged edge)
 FLASH_TRAIN = (1, 40, 8, 4096, 4096, 128, True, None, "bfloat16")
 FLASH_CASES = {"train_bf16": FLASH_TRAIN,
                "ragged_empty_rows_f32": (1, 8, 2, 700, 300, 128, True, None,
@@ -1001,7 +1017,12 @@ FLASH_CASES = {"train_bf16": FLASH_TRAIN,
                "d120_bf16": (1, 4, 1, 500, 500, 120, True, None, "bfloat16"),
                "d160_f32": (1, 4, 2, 333, 333, 160, False, None, "float32"),
                "d160_bf16": (1, 4, 2, 333, 333, 160, True, None,
-                             "bfloat16")}
+                             "bfloat16"),
+               "d256_bf16": (1, 4, 2, 333, 333, 256, True, None,
+                             "bfloat16"),
+               "stablelm_train_d160": (1, 32, 8, 4096, 4096, 160, True,
+                                       None, "bfloat16")}
+FLASH_TIMED = ("train_bf16", "stablelm_train_d160")   # with dq, dk/dv apart
 FLASH = ("flash_attention_fwd_gqa", "flash_attention_bwd_gqa")
 FLASH_EXTEXP_OPS = 25      # ExtExp, the max, rescale and sum per score
 FLASH_BWD_EW_OPS = 33      # ExtExp, p and ds per score
@@ -1108,8 +1129,10 @@ def flash_check(torch, case, shape) -> dict:
     dim Dv as an optional tenth entry) against their plain versions,
     within the limits of :func:`flash_limits` (plus one bf16 step for a
     bf16 output); exact zeros on rows that see no key; the same bits on a
-    second run.  Prints its ``kernel_check`` lines and returns the inputs,
-    the plain forward's residuals and the errors for a timing."""
+    second run; at a case of :data:`FLASH_MMA_DIGEST`, the pinned bits.
+    Prints its ``kernel_check`` lines (``design``: the kernels the call
+    took, ``mma`` or ``wmma``) and returns the inputs, the plain forward's
+    residuals and the errors for a timing."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import twopass_xent as xe
 
@@ -1172,6 +1195,18 @@ def flash_check(torch, case, shape) -> dict:
         fa.flash_attention_fwd_gqa(q, k, v, **kw), (o, m, n)))
         and all(torch.equal(x, y) for x, y in zip(
             fa.flash_attention_bwd_gqa(*args, **kw), grads)))
+    pin = {}
+    if case in FLASH_MMA_DIGEST:
+        digest = hashlib.sha256()
+        for t in (o, m, n, *fa.flash_attention_bwd_gqa(q, k, v, o, m, n, do,
+                                                       **kw)):
+            digest.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes())
+        pin = dict(sha256=digest.hexdigest(),
+                   sha256_pinned=FLASH_MMA_DIGEST[case])
+        check(pin["sha256"] == pin["sha256_pinned"],
+              f"flash {case}: the mma kernels' bits moved: {pin}")
+    design = fa.design(dt, d, dv)
     del lim, o, m, n, grads, pgrads
     for what, (a, over) in res.items():
         check(over <= 1.0, f"flash {case} {what}: max abs err {a} is "
@@ -1180,7 +1215,7 @@ def flash_check(torch, case, shape) -> dict:
     for kname, what in zip(FLASH, (("o", "lse"), ("dq", "dk", "dv"))):
         say("kernel_check", kernel=kname, case=case,
             shape=dict(b=b, h=h, hkv=hkv, sq=sq, skv=skv, d=d, dv=dv),
-            causal=causal, window=window, dtype=dts,
+            causal=causal, window=window, dtype=dts, design=design, **pin,
             empty_rows_exact_zero=empty, same_bits_twice=True,
             **{f"{x}_max_abs_err": res[x][0] for x in what},
             **{f"{x}_worst_err_over_limit": res[x][1] for x in what},
@@ -1282,12 +1317,12 @@ def flash_times(torch, rows, case, c, *, dq_dkv: bool = False) -> None:
 
 def flash_phase(torch, rows) -> None:
     """Kernels 12-13 against their plain versions at the train phase's
-    shape and five other cases (:func:`flash_check`); times at the train
-    shape (:func:`flash_times`, with the backward's dq and dk/dv kernels
-    alone: ``dq_ms``, ``dkv_ms``)."""
+    shape and seven other cases (:func:`flash_check`); times at the train
+    shapes of qwen2.5-14b and stablelm-12b (:func:`flash_times`, with the
+    backward's dq and dk/dv kernels alone: ``dq_ms``, ``dkv_ms``)."""
     for case, shape in FLASH_CASES.items():
         c = flash_check(torch, case, shape)
-        if case == "train_bf16":
+        if case in FLASH_TIMED:
             flash_times(torch, rows, case, c, dq_dkv=True)
         del c
         torch.cuda.empty_cache()
@@ -2885,7 +2920,8 @@ def encdec_flash_case(torch, rows, case, b, sq, skv) -> None:
           f"bits twice {same}")
     say("kernel_check", kernel="flash_attention_fwd_gqa", case=case,
         shape=dict(b=b, h=h, hkv=h, sq=sq, skv=skv, d=d), causal=False,
-        dtype="bfloat16", same_bits_twice=True,
+        dtype="bfloat16", design=fa.design(torch.bfloat16, d),
+        same_bits_twice=True,
         o_max_abs_err=float(err_o.max()), o_worst_err_over_limit=over_o,
         lse_max_abs_err=float(err_l.max()), lse_worst_err_over_limit=over_l,
         tol="flash_limits (float32 accumulation) plus one bf16 step")
@@ -3829,7 +3865,8 @@ def mla_kernel_checks(torch, rows, rng, cfg) -> None:
     sampler's [16, 102400] (:func:`router_rows_checks`)."""
     for case, shape in MLA_FLASH.items():
         c = flash_check(torch, case, shape)
-        flash_times(torch, rows, case, c)
+        flash_times(torch, rows, case, c,
+                    dq_dkv=shape[5] == 192 and shape[8] == "bfloat16")
         del c
         torch.cuda.empty_cache()
     mla_decode_check(torch, rows, rng, cfg)
@@ -6298,12 +6335,12 @@ FAM_GRADS = {
         "blocks.mlp.router.w (float32)": ("blocks", "mlp", "router", "w"),
         "blocks.mlp.wg (experts)": ("blocks", "mlp", "wg")},
 }
-# kernels 12-13 at the shapes the four train steps give them, depth-free
-# (batch 1): bf16 with D <= 128, so the mma.sync kernels, timed; whisper's
-# two non-causal shapes also in float32 (the wmma / FFMA kernels), held
-# only.  The decoder's 447 and the others' 4,095 positions are the label
-# positions (the last token has none); 4,095 = 256 patches + 3,839 for
-# qwen2-vl.
+# kernels 12-13 at the shapes the families' train steps give them,
+# depth-free (batch 1): bf16, so the mma.sync kernels, timed (deepseek's
+# with dq and dk/dv apart); whisper's two non-causal shapes also in
+# float32 (the wmma / FFMA kernels), held only.  The decoder's 447 and the
+# others' 4,095 positions are the label positions (the last token has
+# none); 4,095 = 256 patches + 3,839 for qwen2-vl.
 FAM_FLASH = {
     "whisper_encoder": (1, 8, 8, 1500, 1500, 64, False, None, "bfloat16"),
     "whisper_cross": (1, 8, 8, 447, 1500, 64, False, None, "bfloat16"),
@@ -6313,9 +6350,8 @@ FAM_FLASH = {
     "whisper_decoder": (1, 8, 8, 447, 447, 64, True, None, "bfloat16"),
     "qwen2vl_g7": (1, 28, 4, 4095, 4095, 128, True, None, "bfloat16"),
     "hymba_g5_window": (1, 25, 5, 4095, 4095, 64, True, 1024, "bfloat16"),
-    # granite-moe: 24 heads over 8 (the mma.sync kernels); deepseek's MLA:
-    # 16 heads of D 128 + 64, Dv 128 (the wmma kernels, flash_fwd / flash_dq /
-    # flash_dkv)
+    # granite-moe: 24 heads over 8; deepseek's MLA: 16 heads of D 128 + 64,
+    # Dv 128 (the (192, 128) mma kernels, the backward split)
     "granite_moe_g3": (1, 24, 8, 4095, 4095, 64, True, None, "bfloat16"),
     "deepseek_d192_dv128": (1, 16, 16, 4095, 4095, 192, True, None,
                             "bfloat16", 128),
@@ -6687,7 +6723,8 @@ def family_train_phase(torch, rows) -> dict:
     for case, shape in FAM_FLASH.items():
         c = flash_check(torch, case, shape)
         if shape[8] == "bfloat16":
-            flash_times(torch, rows, case, c)
+            flash_times(torch, rows, case, c,
+                        dq_dkv=case == "deepseek_d192_dv128")
         del c
         torch.cuda.empty_cache()
     for case, shape in FAM_LMHEAD.items():
@@ -6931,7 +6968,11 @@ def main() -> int:
         allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
         allow_tf32_cudnn=torch.backends.cudnn.allow_tf32,
         build_s=_build.build_seconds)
-    print(_build.ptxas_report(), flush=True)
+    ptxas = _build.ptxas_report()
+    print(ptxas, flush=True)
+    mma = [ln for ln in ptxas.splitlines() if "_mma<" in ln]
+    check(len(mma) == 18 and all("0 bytes spill stores" in ln for ln in mma),
+          "flash mma kernels: not 18 instantiations, or one spills")
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul on")
 
     if args.only:

@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and probe the flash-attention ones on one
-NVIDIA GPU: the compiler's register / shared-memory lines and the blocks
-an SM of the bf16 forward and backward kernels, the flash cases of
-``tests/test_torch_gpu.py``, and a bare timing at the train shape of
-``chip_smoke.py`` (B 1, H 40, Hkv 8, S 4096, D 128, bf16, causal): the
-forward, the backward and each of its two kernels (dq, dk/dv) alone, beside
-``scaled_dot_product_attention``'s forward and backward.
+NVIDIA GPU: the compiler's register / shared-memory / spill lines and the
+blocks an SM of the bf16 forward and backward kernels at every ``mma``
+instantiation, the flash cases of ``tests/test_torch_gpu.py``, and a bare
+timing at the train shape of ``chip_smoke.py`` (B 1, H 40, Hkv 8, S 4096,
+D 128, bf16, causal): the forward, the backward and each of its two
+kernels (dq, dk/dv) alone, beside ``scaled_dot_product_attention``'s
+forward and backward.
 
     python3 scripts/flash_probe.py
     python3 scripts/flash_probe.py --digest
+    python3 scripts/flash_probe.py --times [--label NAME]
 
 A quick check of a kernel edit before the full ``chip_smoke.py``; exits
 non-zero when there is no card, the build fails or a test fails.
 ``--digest`` only prints the sha256 of the forward's and the backward's
-outputs at ``chip_smoke.py``'s flash cases (v's head dim equal to q's):
-copied into an older tree, it shows whether an edit kept their bits.
+outputs at ``chip_smoke.py``'s flash cases and granite-moe's train shape
+(v's head dim equal to q's): copied into an older tree, it shows whether
+an edit kept their bits.  ``--times`` only prints one JSON line a shape
+of :data:`TIME_SHAPES` (deepseek-v2-lite-16b's train and no-cache
+shapes, stablelm-12b's and qwen2.5-14b's train shapes, bf16, causal):
+the forward, the backward, its dq and dk/dv kernels alone, and SDPA's
+forward and backward, each the median of 20 CUDA-event timings after a
+128 MiB L2 flush; copied into an older tree it times that tree's kernels
+on the same inputs, so two trees run in one call compare on one card.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 import pathlib
+import statistics
 import subprocess
 import sys
 
@@ -44,40 +55,112 @@ def ms(torch, fn, iters: int = 10) -> float:
     return a.elapsed_time(b) / iters
 
 
+def median_ms(torch, fn, reps: int = 20) -> float:
+    """Median of ``reps`` single launches, each after a 128 MiB write that
+    flushes the 50 MB L2 (as ``chip_smoke.py`` times the kernels)."""
+    junk = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        junk.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
 # (B, H, Hkv, Sq, Skv, D, causal, window, dtype): chip_smoke.py's
-# FLASH_CASES and one bf16 case of the 64-wide mma kernels
+# FLASH_CASES, one bf16 case of the 64-wide mma kernels and granite-moe's
+# train shape (G 3, D 64)
 DIGEST_CASES = [(1, 40, 8, 4096, 4096, 128, True, None, "bfloat16"),
                 (1, 8, 2, 700, 300, 128, True, None, "float32"),
                 (1, 8, 2, 2048, 2048, 128, True, 300, "bfloat16"),
                 (1, 4, 1, 500, 500, 120, True, None, "bfloat16"),
                 (1, 4, 2, 333, 333, 160, False, None, "float32"),
                 (1, 4, 2, 333, 333, 160, True, None, "bfloat16"),
-                (1, 8, 8, 1500, 1500, 64, False, None, "bfloat16")]
+                (1, 8, 8, 1500, 1500, 64, False, None, "bfloat16"),
+                (1, 24, 8, 4095, 4095, 64, True, None, "bfloat16")]
+# (name, B, H, Hkv, S, D, Dv), bf16, causal
+TIME_SHAPES = [("deepseek_train", 1, 16, 16, 4095, 192, 128),
+               ("deepseek_nocache_2048", 1, 16, 16, 2048, 192, 128),
+               ("stablelm_train", 1, 32, 8, 4096, 160, 160),
+               ("qwen_train", 1, 40, 8, 4096, 128, 128)]
+# every mma instantiation's (DP, DVP)
+MMA_SHAPES = [(64, 64), (128, 128), (160, 160), (192, 128), (192, 192),
+              (256, 256)]
+
+
+def case_digest(torch, fa, case) -> str:
+    """The sha256 of (o, m_sum, n_sum, dq, dk, dv) at one case, the
+    backward from the kernel forward's residuals; inputs from a seeded
+    generator on the card (``chip_smoke.flash_check``'s)."""
+    b, h, hkv, sq, skv, d, causal, window, dts = case
+    dt = getattr(torch, dts)
+    g = torch.Generator(device="cuda").manual_seed(sq + d)
+    q, do = (torch.randn(b, h, sq, d, device="cuda", generator=g).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, skv, d, device="cuda", generator=g)
+            .to(dt) for _ in range(2))
+    kw = dict(causal=causal, scale=d ** -0.5, window=window)
+    o, m, n = fa.flash_attention_fwd_gqa(q, k, v, **kw)
+    grads = fa.flash_attention_bwd_gqa(q, k, v, o, m, n, do, **kw)
+    one = hashlib.sha256()
+    for t in (o, m, n, *grads):
+        one.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return one.hexdigest()
 
 
 def digest(torch, fa) -> None:
-    """The sha256 of (o, m_sum, n_sum, dq, dk, dv) a case, the backward
-    from the kernel forward's residuals; inputs from a seeded generator on
-    the card."""
     whole = hashlib.sha256()
     for case in DIGEST_CASES:
-        b, h, hkv, sq, skv, d, causal, window, dts = case
-        dt = getattr(torch, dts)
-        g = torch.Generator(device="cuda").manual_seed(sq + d)
-        q, do = (torch.randn(b, h, sq, d, device="cuda", generator=g).to(dt)
-                 for _ in range(2))
-        k, v = (torch.randn(b, hkv, skv, d, device="cuda", generator=g)
-                .to(dt) for _ in range(2))
-        kw = dict(causal=causal, scale=d ** -0.5, window=window)
-        o, m, n = fa.flash_attention_fwd_gqa(q, k, v, **kw)
-        grads = fa.flash_attention_bwd_gqa(q, k, v, o, m, n, do, **kw)
-        one = hashlib.sha256()
-        for t in (o, m, n, *grads):
-            one.update(t.contiguous().view(torch.uint8).cpu().numpy()
-                       .tobytes())
-        whole.update(one.digest())
-        print(f"flash digest {case}: {one.hexdigest()}", flush=True)
+        one = case_digest(torch, fa, case)
+        whole.update(bytes.fromhex(one))
+        print(f"flash digest {case}: {one}", flush=True)
     print(f"flash digest, all cases: {whole.hexdigest()}", flush=True)
+
+
+def times(torch, fa, label: str) -> None:
+    """One JSON line a shape of :data:`TIME_SHAPES`."""
+    import torch.nn.functional as F
+
+    for name, b, h, hkv, s, d, dv in TIME_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(s + d)
+        q = torch.randn(b, h, s, d, device="cuda", generator=g).bfloat16()
+        do = torch.randn(b, h, s, dv, device="cuda", generator=g).bfloat16()
+        k = torch.randn(b, hkv, s, d, device="cuda", generator=g).bfloat16()
+        v = torch.randn(b, hkv, s, dv, device="cuda", generator=g).bfloat16()
+        kw = dict(causal=True, scale=d ** -0.5)
+        o, m, n = fa.flash_attention_fwd_gqa(q, k, v, **kw)
+        delta = fa.attention_delta(o, do).contiguous()
+        outs = [torch.empty_like(t) for t in (q, k, v)]
+        qr, kr, vr = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qr, kr, vr, is_causal=True, enable_gqa=True)
+
+        row = dict(
+            label=label, shape=name, b=b, h=h, hkv=hkv, s=s, d=d, dv=dv,
+            fwd_ms=median_ms(torch, lambda: fa.flash_attention_fwd_gqa(
+                q, k, v, **kw)),
+            bwd_ms=median_ms(torch, lambda: fa.flash_attention_bwd_gqa(
+                q, k, v, o, m, n, do, **kw)),
+            dq_ms=median_ms(torch, lambda: fa.bwd_kernel(
+                0, q, k, v, do, m, n, delta, *outs, window=None, **kw)),
+            dkv_ms=median_ms(torch, lambda: fa.bwd_kernel(
+                1, q, k, v, do, m, n, delta, *outs, window=None, **kw)))
+        sd_f = median_ms(torch, sdpa)
+        sd_fb = median_ms(torch, lambda: torch.autograd.grad(
+            sdpa(), (qr, kr, vr), do))
+        row.update(sdpa_fwd_ms=sd_f, sdpa_bwd_ms=sd_fb - sd_f)
+        print("flash_times " + json.dumps(row), flush=True)
+        del q, k, v, do, o, m, n, delta, outs, qr, kr, vr
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -91,9 +174,15 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
 
-    if "--digest" in sys.argv[1:]:
+    args = sys.argv[1:]
+    if "--digest" in args:
         _build.build_all()
         digest(torch, fa)
+        return 0
+    if "--times" in args:
+        _build.build_all()
+        label = args[args.index("--label") + 1] if "--label" in args else ""
+        times(torch, fa, label)
         return 0
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -103,10 +192,10 @@ def main() -> int:
     print(f"build: {_build.build_seconds:.1f} s")
     print("\n".join(ln for ln in _build.ptxas_report().splitlines()
                     if ln.startswith("flash_attention")))
-    for d in (64, 128):
-        print(f"bf16 mma kernels, blocks an SM at D {d}: forward "
-              f"{fa.blocks_per_sm(d, 2)}, dq {fa.blocks_per_sm(d, 0)}, "
-              f"dk/dv {fa.blocks_per_sm(d, 1)}", flush=True)
+    for d, dv in MMA_SHAPES:
+        print(f"bf16 mma kernels, blocks an SM at D {d} / Dv {dv}: forward "
+              f"{fa.blocks_per_sm(d, 2, dv)}, dq {fa.blocks_per_sm(d, 0, dv)}"
+              f", dk/dv {fa.blocks_per_sm(d, 1, dv)}", flush=True)
     tests = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-x", "-m", "gpu",
          "tests/test_torch_gpu.py", "-k", "flash", "-p", "no:cacheprovider"],
@@ -132,7 +221,7 @@ def main() -> int:
         return F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
                                               enable_gqa=True)
 
-    times = {
+    times_ = {
         "forward": lambda: fa.flash_attention_fwd_gqa(q, k, v, **kw),
         "backward": lambda: fa.flash_attention_bwd_gqa(q, k, v, o, m, n, do,
                                                        **kw),
@@ -143,7 +232,7 @@ def main() -> int:
         "scaled_dot_product_attention forward": sdpa,
         "scaled_dot_product_attention forward + backward":
             lambda: torch.autograd.grad(sdpa(), (qr, kr, vr), do)}
-    for name, fn in times.items():
+    for name, fn in times_.items():
         print(f"{name} ms: {ms(torch, fn):.3f}")
     return 0
 

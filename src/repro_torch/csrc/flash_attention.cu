@@ -45,35 +45,44 @@
 // where it needs 5.
 //
 // Which kernel runs, by dtype, D and Dv alone (never on a failure):
-//   * forward, bf16 with Dv == D, D a multiple of 8 and rounded up to 16
-//     at most 128 (every config the port trains): flash_fwd_mma.  64-row
-//     Q tile, each warp 16 of its rows; s = q k^T in mma.sync accumulator
-//     registers, scaled, masked and folded there (each row's (m, n) in
-//     registers, the row's max and sum over the quad of lanes that holds
-//     it), w's parts packed in place into
-//     the A operand of o += w v, V read by ldmatrix.trans, o accumulated in
-//     registers and written once; the K / V tiles double-buffered with
-//     cp.async.  ~87 KB of shared memory: two blocks an SM;
-//   * forward, float32, D in (128, 256], Dv != D or D not a multiple of 8:
-//     flash_fwd, nvcuda::wmma 16x16x16 through shared memory, one cp.async
-//     stage, with V, o and the P.V product in Dvp columns;
-//   * backward, bf16 under the forward's mma condition: flash_dq_mma and
-//     flash_dkv_mma.  64-row tiles on both axes, each warp 16 rows of the
-//     block's own tile;
-//     mma.sync.m16n8k16 with ldmatrix (.trans for the operands read along
-//     their rows), so s^T = k q^T and dp^T = v do^T (dk/dv; s and dp for dq)
-//     land in accumulator registers, p and ds are formed there, and their
-//     parts are packed in place into the A operand of dv += p^T do,
-//     dk += ds^T q (dq += ds k): two adjacent n8 accumulator tiles are one
-//     k16 A fragment.  dk, dv and dq accumulate in registers and are written
-//     once.  The block's own K / V (Q / dO) tiles are loaded once; the other
-//     axis's tiles (with the Q tile's row stats) are double-buffered with
-//     cp.async, the (q-head, Q tile) pairs of dk/dv as one sequence, so the
-//     next tile's loads overlap this tile's math.  ~104 KB of shared memory
-//     and at most 255 registers a thread (no spills): two blocks an SM;
-//   * backward otherwise (float32 with FFMA, the kernel check's path):
-//     flash_dq and flash_dkv, wmma through shared memory as the forward,
-//     dO / V in Dvp columns, dv written in Dv.
+//   * bf16 with D and Dv multiples of 8 (every config the port serves or
+//     trains: D 64, 120, 128, 160, 192 / Dv 128): the mma.sync kernels
+//     flash_fwd_mma, flash_dq_mma and flash_dkv_mma, templated by the
+//     tiles' widths (DP, DVP) and instantiated at (64, 64), (128, 128),
+//     (160, 160), (192, 128), (192, 192) and (256, 256); a call takes the
+//     first that holds round16(D) and round16(Dv), the columns past them
+//     zero-filled in shared memory;
+//   * float32 (FFMA, the kernel checks' path), or a D or Dv that is no
+//     multiple of 8: flash_fwd, flash_dq and flash_dkv, nvcuda::wmma
+//     16x16x16 through shared memory, one cp.async stage, V, o, dO and
+//     the products with them in Dvp columns.
+//
+// The mma kernels.  64-row tiles on both axes, each warp a 16-row strip of
+// the block's own tile (Q for the forward and dq, K / V for dk/dv);
+// mma.sync.m16n8k16 with ldmatrix (.trans for the operands read along
+// their rows), so s = q k^T (forward), s, dp (dq) and s^T = k q^T, dp^T =
+// v do^T (dk/dv) land in accumulator registers, where they are scaled,
+// masked and turned into w (each row's (m, n) in registers, the row's max
+// and sum over the quad of lanes that holds it), p and ds.  Their parts
+// are packed in place into the A operand of o += w v, dv += p^T do,
+// dk += ds^T q and dq += ds k (two adjacent n8 accumulator tiles are one
+// k16 A fragment); o, dq, dk and dv accumulate in registers and are
+// written once.  The block's own tiles are loaded once; the other axis's
+// tiles (with the Q tile's row stats for dk/dv) are double-buffered with
+// cp.async, the (q-head, Q tile) pairs of dk/dv as one sequence, so the
+// next tile's loads overlap this tile's math.  V, dO, o and dv take tiles
+// and registers of DVP columns.  At DP <= 128 (4 warps) 87 / 104 KB of
+// shared memory and 154-250 registers a thread: 2-3 blocks an SM.  A
+// whole row of dq, or of dk and dv, at DP > 128 would not fit a thread's
+// registers beside the scores, so the backward splits there (8 warps, two
+// a strip): each warp forms s, dp, p and ds for half of the other axis's
+// 64 rows, stores their three bf16 parts in shared memory, and after a
+// barrier sums its half of dq's (dk's, dv's) columns over all 64, reading
+// the parts with ldmatrix; the products and their order are those of the
+// unsplit kernels.  The forward splits at DVP > 160 (o of 192 or 256
+// columns): both warps of a strip form the same w, each sums half of o.
+// One block an SM where shared memory allows no more (the forward at
+// (192, 128) and (160, 160) keeps two).
 //
 // Bound on this card (B 1, H 40, Hkv 8, S 4096, D 128, bf16, causal):
 // operations.  The forward's 2 products over the causal half are 1.7e11
@@ -109,7 +118,7 @@ struct Attn {
   int H, Hkv, Sq, Skv, D, Dp;
   float scale;
   int causal, window;  // window <= 0: none
-  int Dv, Dvp;         // v's head dim; the mma kernels take Dv == D only
+  int Dv, Dvp;         // v's head dim (multi-head latent attention)
 };
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -187,15 +196,15 @@ struct Carve {
 // dimension ld), columns zero-filled to Dp and rows past `rows` zero.
 // Aligned 16-byte groups go by cp.async (waited for by the caller): `vec`
 // says the matrix starts 16-byte aligned, and rows of a D that is no
-// multiple of 16 bytes go element by element.
-template <typename T>
+// multiple of 16 bytes go element by element.  NTH threads share the copy.
+template <typename T, int NTH = kThreads>
 __device__ __forceinline__ void load_tile(const T* __restrict__ src, int r0,
                                           int nrows, int rows, int D, int Dp,
                                           T* dst, int ld, bool vec) {
   constexpr int kVec = 16 / sizeof(T);
   const int groups = Dp / kVec;
   vec = vec && D % kVec == 0;
-  for (int i = threadIdx.x; i < nrows * groups; i += kThreads) {
+  for (int i = threadIdx.x; i < nrows * groups; i += NTH) {
     const int r = i / groups, c = (i % groups) * kVec;
     const int gr = r0 + r;
     T* d = dst + r * ld + c;
@@ -746,8 +755,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Forward and backward for bf16 inputs with Dp <= 128 (the header's
-// design): mma.sync.m16n8k16 from registers, cp.async double buffering.
+// Forward and backward for bf16 inputs with D and Dv multiples of 8 (the
+// header's design): mma.sync.m16n8k16 from registers, cp.async double
+// buffering.
 // ---------------------------------------------------------------------------
 constexpr int kTile = 64;  // rows of every tile of the mma kernels
 
@@ -798,19 +808,32 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
 }
 
 // The hi, mid and lo bf16 parts of (x0, x1), each part a packed pair (x0 in
-// the low half), into slot i of p[part][.]: hi + mid + lo == x exactly, as
-// put_parts.
-__device__ __forceinline__ void split_pair(float x0, float x1,
-                                           uint32_t (&p)[3][4], int i) {
+// the low half): hi + mid + lo == x exactly, as put_parts.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi_,
+                                       uint32_t& mid_, uint32_t& lo_) {
   const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
   const float2 fh = __bfloat1622float2(hi);
   const float r0 = __fsub_rn(x0, fh.x), r1 = __fsub_rn(x1, fh.y);
   const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
   const float2 fm = __bfloat1622float2(mid);
-  p[0][i] = as_u32(hi);
-  p[1][i] = as_u32(mid);
-  p[2][i] = as_u32(__floats2bfloat162_rn(__fsub_rn(r0, fm.x),
-                                         __fsub_rn(r1, fm.y)));
+  hi_ = as_u32(hi);
+  mid_ = as_u32(mid);
+  lo_ = as_u32(__floats2bfloat162_rn(__fsub_rn(r0, fm.x),
+                                     __fsub_rn(r1, fm.y)));
+}
+// ... into slot i of p[part][.] (an A fragment of each part)
+__device__ __forceinline__ void split_pair(float x0, float x1,
+                                           uint32_t (&p)[3][4], int i) {
+  split3(x0, x1, p[0][i], p[1][i], p[2][i]);
+}
+// ... into shared memory at p, the parts `plane` elements apart
+__device__ __forceinline__ void store_parts(bf16* p, int plane, float x0,
+                                            float x1) {
+  uint32_t hi, mid, lo;
+  split3(x0, x1, hi, mid, lo);
+  *reinterpret_cast<uint32_t*>(p) = hi;
+  *reinterpret_cast<uint32_t*>(p + plane) = mid;
+  *reinterpret_cast<uint32_t*>(p + 2 * plane) = lo;
 }
 
 // c[NT] += A B^T for one warp: A the 16 rows at `a` (KS k16 steps), B the
@@ -866,20 +889,66 @@ __device__ __forceinline__ void mma_parts(float (&acc)[ND][4],
   }
 }
 
-// The rows of one warp's output in accumulator layout into dst [rows, D]
-// (rows from r0, this warp's 16 at r0 + 16 warp), bf16 pairs.
+// As mma_parts, X's parts read from shared memory: the 16 rows at `a`
+// (row-major bf16, leading dimension LDA), part p at a + p plane, as
+// store_parts wrote them.  The same products in the same order, so the
+// same bits as mma_parts on the same X.
+template <int KS, int ND, int LDA, int LD>
+__device__ __forceinline__ void mma_parts_smem(float (&acc)[ND][4],
+                                               const bf16* a, int plane,
+                                               const bf16* b, int lane) {
+  const unsigned pa = smem_u32(a + (lane & 15) * LDA + (lane >> 4) * 8);
+  const unsigned pb = smem_u32(b + (lane & 15) * LD + (lane >> 4) * 8);
+  // rolled, as mma_nt: unrolled, the parts of later steps were loaded
+  // ahead and flash_dkv_mma<256, 256> spilled
+#pragma unroll 1
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t af[3][4];
+#pragma unroll
+    for (int part = 0; part < 3; ++part)
+      ldsm_x4(af[part], pa + (part * plane + kk * 16) * 2);
+#pragma unroll
+    for (int j = 0; j < ND; j += 2) {
+      uint32_t bf[4];
+      ldsm_x4_t(bf, pb + (kk * 16 * LD + j * 8) * 2);
+#pragma unroll
+      for (int part = 0; part < 3; ++part) {
+        mma16816(acc[j], af[part], bf[0], bf[1]);
+        mma16816(acc[j + 1], af[part], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// The parts of one warp's 16 x (8 NT) accumulator-layout x into shared
+// memory: rows from p, columns from c0 (leading dimension LDA).
+template <int NT, int LDA>
+__device__ __forceinline__ void put_strip(const float (&x)[NT][4], bf16* p,
+                                          int plane, int c0, int lane) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      store_parts(p + ((lane >> 2) + half * 8) * LDA + c0 + j * 8 +
+                      (lane & 3) * 2,
+                  plane, x[j][2 * half], x[j][2 * half + 1]);
+  }
+}
+
+// One warp's 16 output rows from r0 (accumulator layout, columns from c0)
+// into dst [rows, D], bf16 pairs.
 template <int ND>
 __device__ __forceinline__ void store_acc(const float (&acc)[ND][4],
                                           bf16* dst, int r0, int rows,
-                                          int D) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+                                          int D, int c0) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = r0 + warp * 16 + (lane >> 2) + half * 8;
+    const int r = r0 + (lane >> 2) + half * 8;
     if (r >= rows) continue;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
-      const int c = j * 8 + (lane & 3) * 2;
+      const int c = c0 + j * 8 + (lane & 3) * 2;
       if (c < D)
         *reinterpret_cast<__nv_bfloat162*>(dst + static_cast<size_t>(r) * D +
                                            c) =
@@ -891,46 +960,77 @@ __device__ __forceinline__ void store_acc(const float (&acc)[ND][4],
 // The mma kernels, as the C interface's `which` names them.
 enum MmaKernel { kDq = 0, kDkv = 1, kFwd = 2 };
 
-// Shared memory of the mma kernels: 64-row bf16 tiles (the block's own --
-// Q and dO for dq, K and V for dk/dv, Q for the forward -- then two stages
-// of the other axis's two) and, for dk/dv, two stages of the Q tile's row
-// stats.
-template <int DP>
+// The mma kernels at (DP, DVP), the tiles' widths: 64-row bf16 tiles in
+// shared memory (the block's own -- Q and dO for dq, K and V for dk/dv, Q
+// for the forward -- then two stages of the other axis's two) and, for
+// dk/dv, two stages of the Q tile's row stats.  Each warp owns a 16-row
+// strip of the block's own tile.  Split (8 warps, two a strip, each half of
+// the output's columns): the backward where DP > 128, the forward where
+// DVP > 160; the registers of a whole row of dq, dk and dv (or o) would not
+// fit beside the scores.  The split backward passes p / ds through shared
+// memory as three bf16 planes [64][64 + 8], each warp forming a 16 x 32
+// quarter of them; dk/dv keeps p's and ds's planes apart where both fit
+// the block's 227 KB, else one set that p and then ds pass through.  The
+// split forward's two warps each form the strip's whole w.
+template <int DP, int DVP>
 struct MmaLayout {
-  static constexpr int ld = DP + 8;  // 16-byte pad: ldmatrix conflict-free
-  static constexpr int tile = kTile * ld;  // elements
+  static constexpr int ld = DP + 8, ldv = DVP + 8;  // ldmatrix conflict-free
+  static constexpr int tile = kTile * ld, vtile = kTile * ldv;  // elements
+  static constexpr bool split_fwd = DVP > 160, split_bwd = DP > 128;
+  static constexpr int threads_fwd = split_fwd ? 256 : 128;
+  static constexpr int threads_bwd = split_bwd ? 256 : 128;
+  static constexpr int ldp = kTile + 8, plane = kTile * ldp;  // p / ds
+  static constexpr size_t parts = 3 * plane * sizeof(bf16);
+  static constexpr size_t tiles = 3 * sizeof(bf16) * (tile + vtile);
+  static constexpr size_t stats = 2 * 3 * kTile * sizeof(float);
+  static constexpr bool two_sets = tiles + stats + 2 * parts <= 232448;
+  static constexpr int threads(int which) {
+    return which == kFwd ? threads_fwd : threads_bwd;
+  }
   static constexpr size_t bytes(int which) {
-    return (which == kFwd ? 5 : 6) * sizeof(bf16) * tile +
-           (which == kDkv ? 2 * 3 * kTile * sizeof(float) : 0);
+    return which == kFwd   ? sizeof(bf16) * (tile + 2 * (tile + vtile))
+           : which == kDq  ? tiles + (split_bwd ? parts : 0)
+                           : tiles + stats +
+                                (split_bwd ? (two_sets ? 2 : 1) * parts : 0);
   }
 };
 
 // dk, dv.  grid (Hkv, B, ceil(Skv / 64)), KV tile 0 first (under causal
-// masking the busiest).  Warp w owns KV rows k0 + 16 w ..: s^T = k q^T and
-// dp^T = v do^T in registers, then dv += p^T do and dk += ds^T q.  The
+// masking the busiest).  Strip w owns KV rows k0 + 16 w ..: s^T = k q^T
+// and dp^T = v do^T in registers, then dv += p^T do and dk += ds^T q.  The
 // (q-head g, Q tile) pairs of the group run as one sequence, double-
-// buffered across head boundaries too.
-template <int DP>
-__global__ void __launch_bounds__(kThreads, 2)
+// buffered across head boundaries too.  Split: each warp forms s^T, p^T,
+// dp^T and ds^T for its strip and half of the Q tile's rows, stores their
+// parts, and sums dv and dk for its strip and half of Dv and D over all
+// the rows.
+template <int DP, int DVP>
+__global__ void __launch_bounds__(MmaLayout<DP, DVP>::threads_bwd,
+                                  MmaLayout<DP, DVP>::split_bwd ? 1 : 2)
     flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   const float* __restrict__ m_sum,
                   const float* __restrict__ n_sum,
                   const float* __restrict__ delta, bf16* __restrict__ dk,
                   bf16* __restrict__ dv, Attn a) {
-  using L = MmaLayout<DP>;
-  constexpr int BQ = kTile, BK = kTile, LD = L::ld, TILE = L::tile;
-  constexpr int NT = BQ / 8, ND = DP / 8;
+  using L = MmaLayout<DP, DVP>;
+  constexpr int BQ = kTile, BK = kTile, LD = L::ld, LDV = L::ldv;
+  constexpr int TILE = L::tile, STAGE = L::tile + L::vtile;
+  constexpr int NTH = L::threads_bwd, CS = NTH / kThreads;  // warps a strip
+  constexpr int NT = BQ / 8 / CS, NK = DP / 8 / CS, NV = DVP / 8 / CS;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + TILE;
-  bf16* stages = Vs + TILE;  // stage s: Q at 2 s TILE, dO after it
+  bf16* stages = Vs + L::vtile;  // stage s: Q at s STAGE, dO after it
   // stage s: n_sum, m_sum (then 1 / max(m_sum, 1e-37)), delta
-  float* rows = reinterpret_cast<float*>(stages + 4 * TILE);
+  float* rows = reinterpret_cast<float*>(stages + 2 * STAGE);
+  bf16* Pp = reinterpret_cast<bf16*>(rows + 2 * 3 * BQ);   // split: p^T
+  bf16* Pds = L::two_sets ? Pp + 3 * L::plane : Pp;        // split: ds^T
 
   const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BK;
   const int G = a.H / a.Hkv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int strip = warp % kWarps, half = warp / kWarps;
+  const int qc = half * (BQ / CS);  // this warp's Q-tile rows (split)
   const size_t krow = (static_cast<size_t>(b) * a.Hkv + hk) * a.Skv;
   int ilo, ihi;
   q_tiles<BQ, BK>(a, k0, ilo, ihi);
@@ -942,11 +1042,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int q0 = (ilo + i % nq) * BQ;
     const size_t qrow = (static_cast<size_t>(b) * a.H + hk * G + i / nq) *
                         a.Sq;
-    bf16* Qs = stages + (i & 1) * 2 * TILE;
+    bf16* Qs = stages + (i & 1) * STAGE;
     const bf16* qp = q + qrow * a.D;
-    const bf16* dop = dout + qrow * a.D;
-    load_tile(qp, q0, BQ, a.Sq, a.D, DP, Qs, LD, aligned16(qp));
-    load_tile(dop, q0, BQ, a.Sq, a.D, DP, Qs + TILE, LD, aligned16(dop));
+    const bf16* dop = dout + qrow * a.Dv;
+    load_tile<bf16, NTH>(qp, q0, BQ, a.Sq, a.D, DP, Qs, LD, aligned16(qp));
+    load_tile<bf16, NTH>(dop, q0, BQ, a.Sq, a.Dv, DVP, Qs + TILE, LDV,
+                         aligned16(dop));
     float* st = rows + (i & 1) * 3 * BQ;
     const int r = threadIdx.x;
     if (r < BQ) {
@@ -960,16 +1061,17 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   };
 
-  float dK[ND][4] = {}, dV[ND][4] = {};
+  float dK[NK][4] = {}, dV[NV][4] = {};
   if (n > 0) {
     const bf16* kp = k + krow * a.D;
-    const bf16* vp = v + krow * a.D;
-    load_tile(kp, k0, BK, a.Skv, a.D, DP, Ks, LD, aligned16(kp));
-    load_tile(vp, k0, BK, a.Skv, a.D, DP, Vs, LD, aligned16(vp));
+    const bf16* vp = v + krow * a.Dv;
+    load_tile<bf16, NTH>(kp, k0, BK, a.Skv, a.D, DP, Ks, LD, aligned16(kp));
+    load_tile<bf16, NTH>(vp, k0, BK, a.Skv, a.Dv, DVP, Vs, LDV,
+                         aligned16(vp));
     prefetch(0);
   }
   cp_async_commit();
-  const int kr = k0 + warp * 16 + (lane >> 2);  // this thread's KV rows
+  const int kr = k0 + strip * 16 + (lane >> 2);  // this thread's KV rows
   for (int i = 0; i < n; ++i) {
     if (i + 1 < n) prefetch(i + 1);
     cp_async_commit();
@@ -982,78 +1084,108 @@ __global__ void __launch_bounds__(kThreads, 2)
           q0 + r < a.Sq ? __frcp_rn(fmaxf(st[BQ + r], 1e-37f)) : 0.0f;
     }
     __syncthreads();
-    const bf16* Qs = stages + (i & 1) * 2 * TILE;
+    const bf16* Qs = stages + (i & 1) * STAGE;
     const bf16* dOs = Qs + TILE;
-    // p^T in place of s^T (0 where masked), then dv += p^T do; dp^T only
-    // after that, so that s^T, dp^T and the parts are never live together
+    // p^T in place of s^T (0 where masked); unsplit, dv += p^T do before
+    // dp^T, so that s^T, dp^T and the parts are never live together
     float s[NT][4] = {};
-    mma_nt<DP / 16, NT, LD>(s, Ks + warp * 16 * LD, Qs, lane);
+    mma_nt<DP / 16, NT, LD>(s, Ks + strip * 16 * LD, Qs + qc * LD, lane);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + (lane & 3) * 2 + (e & 1);
+        const int c = qc + j * 8 + (lane & 3) * 2 + (e & 1);
         const int qi = q0 + c;
         s[j][e] = qi < a.Sq && visible(a, qi, kr + (e >> 1) * 8)
                       ? p_of(s[j][e], st[c], st[BQ + c], a.scale)
                       : 0.0f;
       }
     }
-    mma_parts<BQ / 16, ND, LD>(dV, s, dOs, lane);
+    if constexpr (CS == 1) mma_parts<BQ / 16, NV, LDV>(dV, s, dOs, lane);
     // ds^T = p^T (dp^T - delta) scale in place of dp^T: zero where p^T
     // is masked
     float dp[NT][4] = {};
-    mma_nt<DP / 16, NT, LD>(dp, Vs + warp * 16 * LD, dOs, lane);
+    mma_nt<DVP / 16, NT, LDV>(dp, Vs + strip * 16 * LDV, dOs + qc * LDV,
+                              lane);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + (lane & 3) * 2 + (e & 1);
+        const int c = qc + j * 8 + (lane & 3) * 2 + (e & 1);
         dp[j][e] = ds_of(s[j][e], dp[j][e], st[2 * BQ + c], a.scale);
       }
     }
-    mma_parts<BQ / 16, ND, LD>(dK, dp, Qs, lane);
+    if constexpr (CS == 1) {
+      mma_parts<BQ / 16, NK, LD>(dK, dp, Qs, lane);
+    } else {
+      constexpr int LDP = L::ldp, PL = L::plane;
+      const int srow = strip * 16 * LDP;
+      put_strip<NT, LDP>(s, Pp + srow, PL, qc, lane);
+      if constexpr (!L::two_sets) {
+        __syncthreads();
+        mma_parts_smem<BQ / 16, NV, LDP, LDV>(dV, Pp + srow, PL,
+                                              dOs + half * (DVP / 2), lane);
+        __syncthreads();
+      }
+      put_strip<NT, LDP>(dp, Pds + srow, PL, qc, lane);
+      __syncthreads();
+      if constexpr (L::two_sets)
+        mma_parts_smem<BQ / 16, NV, LDP, LDV>(dV, Pp + srow, PL,
+                                              dOs + half * (DVP / 2), lane);
+      mma_parts_smem<BQ / 16, NK, LDP, LD>(dK, Pds + srow, PL,
+                                           Qs + half * (DP / 2), lane);
+    }
     __syncthreads();
   }
   cp_async_wait<0>();
-  store_acc(dK, dk + krow * a.D, k0, a.Skv, a.D);
-  store_acc(dV, dv + krow * a.D, k0, a.Skv, a.D);
+  store_acc(dK, dk + krow * a.D, k0 + strip * 16, a.Skv, a.D,
+            half * (DP / CS));
+  store_acc(dV, dv + krow * a.Dv, k0 + strip * 16, a.Skv, a.Dv,
+            half * (DVP / CS));
 }
 
-// dq.  grid (H, B, ceil(Sq / 64)), Q tiles from the last.  Warp w owns Q
+// dq.  grid (H, B, ceil(Sq / 64)), Q tiles from the last.  Strip w owns Q
 // rows q0 + 16 w ..: s = q k^T and dp = do v^T in registers, then
-// dq += ds k; the K / V tiles are double-buffered.
-template <int DP>
-__global__ void __launch_bounds__(kThreads, 2)
+// dq += ds k; the K / V tiles are double-buffered.  Split: each warp forms
+// s, dp and ds for its strip and half of the KV tile's keys, stores ds's
+// parts, and sums dq for its strip and half of D over all the keys.
+template <int DP, int DVP>
+__global__ void __launch_bounds__(MmaLayout<DP, DVP>::threads_bwd,
+                                  MmaLayout<DP, DVP>::split_bwd ? 1 : 2)
     flash_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ m_sum,
                  const float* __restrict__ n_sum,
                  const float* __restrict__ delta, bf16* __restrict__ dq,
                  Attn a) {
-  using L = MmaLayout<DP>;
-  constexpr int BQ = kTile, BK = kTile, LD = L::ld, TILE = L::tile;
-  constexpr int NT = BK / 8, ND = DP / 8;
+  using L = MmaLayout<DP, DVP>;
+  constexpr int BQ = kTile, BK = kTile, LD = L::ld, LDV = L::ldv;
+  constexpr int TILE = L::tile, STAGE = L::tile + L::vtile;
+  constexpr int NTH = L::threads_bwd, CS = NTH / kThreads;
+  constexpr int NT = BK / 8 / CS, ND = DP / 8 / CS;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* dOs = Qs + TILE;
-  bf16* stages = dOs + TILE;  // stage s: K at 2 s TILE, V after it
+  bf16* stages = dOs + L::vtile;  // stage s: K at s STAGE, V after it
+  bf16* Pds = stages + 2 * STAGE;  // split: ds
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int strip = warp % kWarps, half = warp / kWarps;
+  const int kc = half * (BK / CS);  // this warp's keys of the tile (split)
   const int hk = h / (a.H / a.Hkv);
   const size_t qrow = (static_cast<size_t>(b) * a.H + h) * a.Sq;
   const size_t krow = (static_cast<size_t>(b) * a.Hkv + hk) * a.Skv;
   const bf16* kp = k + krow * a.D;
-  const bf16* vp = v + krow * a.D;
+  const bf16* vp = v + krow * a.Dv;
   const bool vk = aligned16(kp), vv = aligned16(vp);
   int jlo, jhi;
   kv_tiles<BQ, BK>(a, q0, jlo, jhi);
   const int n = jhi - jlo;
 
   // this thread's two rows: n_sum, 1 / max(m_sum, 1e-37), delta
-  const int qr = q0 + warp * 16 + (lane >> 2);
+  const int qr = q0 + strip * 16 + (lane >> 2);
   float ns[2], inv[2], dl[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
@@ -1066,17 +1198,18 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   auto prefetch = [&](int i) {
     const int k0 = (jlo + i) * BK;
-    bf16* Ks = stages + (i & 1) * 2 * TILE;
-    load_tile(kp, k0, BK, a.Skv, a.D, DP, Ks, LD, vk);
-    load_tile(vp, k0, BK, a.Skv, a.D, DP, Ks + TILE, LD, vv);
+    bf16* Ks = stages + (i & 1) * STAGE;
+    load_tile<bf16, NTH>(kp, k0, BK, a.Skv, a.D, DP, Ks, LD, vk);
+    load_tile<bf16, NTH>(vp, k0, BK, a.Skv, a.Dv, DVP, Ks + TILE, LDV, vv);
   };
 
   float dQ[ND][4] = {};
   if (n > 0) {
     const bf16* qp = q + qrow * a.D;
-    const bf16* dop = dout + qrow * a.D;
-    load_tile(qp, q0, BQ, a.Sq, a.D, DP, Qs, LD, aligned16(qp));
-    load_tile(dop, q0, BQ, a.Sq, a.D, DP, dOs, LD, aligned16(dop));
+    const bf16* dop = dout + qrow * a.Dv;
+    load_tile<bf16, NTH>(qp, q0, BQ, a.Sq, a.D, DP, Qs, LD, aligned16(qp));
+    load_tile<bf16, NTH>(dop, q0, BQ, a.Sq, a.Dv, DVP, dOs, LDV,
+                         aligned16(dop));
     prefetch(0);
   }
   cp_async_commit();
@@ -1086,11 +1219,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_wait<1>();
     __syncthreads();
     const int k0 = (jlo + i) * BK;
-    const bf16* Ks = stages + (i & 1) * 2 * TILE;
+    const bf16* Ks = stages + (i & 1) * STAGE;
     const bf16* Vs = Ks + TILE;
     float s[NT][4] = {}, dp[NT][4] = {};
-    mma_nt<DP / 16, NT, LD>(s, Qs + warp * 16 * LD, Ks, lane);
-    mma_nt<DP / 16, NT, LD>(dp, dOs + warp * 16 * LD, Vs, lane);
+    mma_nt<DP / 16, NT, LD>(s, Qs + strip * 16 * LD, Ks + kc * LD, lane);
+    mma_nt<DVP / 16, NT, LDV>(dp, dOs + strip * 16 * LDV, Vs + kc * LDV,
+                              lane);
     // ds in place of s; 0 where masked
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -1098,52 +1232,66 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         const int qi = qr + r * 8;
-        s[j][e] = qi < a.Sq && visible(a, qi, k0 + j * 8 + (lane & 3) * 2 +
-                                                  (e & 1))
+        s[j][e] = qi < a.Sq && visible(a, qi, k0 + kc + j * 8 +
+                                                  (lane & 3) * 2 + (e & 1))
                       ? ds_of(p_of(s[j][e], ns[r], inv[r], a.scale),
                               dp[j][e], dl[r], a.scale)
                       : 0.0f;
       }
     }
-    mma_parts<BK / 16, ND, LD>(dQ, s, Ks, lane);
+    if constexpr (CS == 1) {
+      mma_parts<BK / 16, ND, LD>(dQ, s, Ks, lane);
+    } else {
+      constexpr int LDP = L::ldp, PL = L::plane;
+      put_strip<NT, LDP>(s, Pds + strip * 16 * LDP, PL, kc, lane);
+      __syncthreads();
+      mma_parts_smem<BK / 16, ND, LDP, LD>(dQ, Pds + strip * 16 * LDP, PL,
+                                           Ks + half * (DP / 2), lane);
+    }
     __syncthreads();
   }
   cp_async_wait<0>();
-  store_acc(dQ, dq + qrow * a.D, q0, a.Sq, a.D);
+  store_acc(dQ, dq + qrow * a.D, q0 + strip * 16, a.Sq, a.D,
+            half * (DP / CS));
 }
 
-// Forward.  grid (H, B, ceil(Sq / 64)), Q tiles from the last.  Warp w owns
-// Q rows q0 + 16 w ..; each thread holds two of them (the quad of lanes
-// 4 r .. 4 r + 3 shares rows r and r + 8) with their (m_acc, n_acc).  Per
-// KV tile: s = q k^T in registers, scaled and masked; n_new = max(n_acc,
-// n of the row's largest score); w = m 2^(n - n_new) in place of s; o =
-// o 2^(n_acc - n_new) + w v.  flash_fwd weighs w against the tile's own
-// n_loc and rescales w v by 2^(n_loc - n_new) afterwards: a power-of-two
-// rescale is exact in the normal range, so the two differ only where a
-// term lies more than 2^126 below its row's largest (subnormal or flushed
-// here), far inside the kernel checks' limits.  The K / V tiles are
-// double-buffered.
-template <int DP>
-__global__ void __launch_bounds__(kThreads, 2)
+// Forward.  grid (H, B, ceil(Sq / 64)), Q tiles from the last.  Strip w
+// owns Q rows q0 + 16 w ..; each thread holds two of them (the quad of
+// lanes 4 r .. 4 r + 3 shares rows r and r + 8) with their (m_acc, n_acc).
+// Per KV tile: s = q k^T in registers, scaled and masked; n_new =
+// max(n_acc, n of the row's largest score); w = m 2^(n - n_new) in place
+// of s; o = o 2^(n_acc - n_new) + w v.  flash_fwd weighs w against the
+// tile's own n_loc and rescales w v by 2^(n_loc - n_new) afterwards: a
+// power-of-two rescale is exact in the normal range, so the two differ
+// only where a term lies more than 2^126 below its row's largest
+// (subnormal or flushed here), far inside the kernel checks' limits.  The
+// K / V tiles are double-buffered.  Split: both warps of a strip form the
+// same w, each sums o for half of Dv.
+template <int DP, int DVP>
+__global__ void __launch_bounds__(MmaLayout<DP, DVP>::threads_fwd,
+                                  MmaLayout<DP, DVP>::split_fwd ? 1 : 2)
     flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o,
                   float* __restrict__ m_out, float* __restrict__ n_out,
                   Attn a) {
-  using L = MmaLayout<DP>;
-  constexpr int BQ = kTile, BK = kTile, LD = L::ld, TILE = L::tile;
-  constexpr int NT = BK / 8, ND = DP / 8;
+  using L = MmaLayout<DP, DVP>;
+  constexpr int BQ = kTile, BK = kTile, LD = L::ld, LDV = L::ldv;
+  constexpr int TILE = L::tile, STAGE = L::tile + L::vtile;
+  constexpr int NTH = L::threads_fwd, CS = NTH / kThreads;
+  constexpr int NT = BK / 8, ND = DVP / 8 / CS;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* stages = Qs + TILE;  // stage s: K at 2 s TILE, V after it
+  bf16* stages = Qs + TILE;  // stage s: K at s STAGE, V after it
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int strip = warp % kWarps, oc = warp / kWarps * (DVP / CS);
   const int hk = h / (a.H / a.Hkv);
   const size_t qrow = (static_cast<size_t>(b) * a.H + h) * a.Sq;
   const size_t krow = (static_cast<size_t>(b) * a.Hkv + hk) * a.Skv;
   const bf16* kp = k + krow * a.D;
-  const bf16* vp = v + krow * a.D;
+  const bf16* vp = v + krow * a.Dv;
   const bool vk = aligned16(kp), vv = aligned16(vp);
   int jlo, jhi;
   kv_tiles<BQ, BK>(a, q0, jlo, jhi);
@@ -1151,9 +1299,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   auto prefetch = [&](int i) {
     const int k0 = (jlo + i) * BK;
-    bf16* Ks = stages + (i & 1) * 2 * TILE;
-    load_tile(kp, k0, BK, a.Skv, a.D, DP, Ks, LD, vk);
-    load_tile(vp, k0, BK, a.Skv, a.D, DP, Ks + TILE, LD, vv);
+    bf16* Ks = stages + (i & 1) * STAGE;
+    load_tile<bf16, NTH>(kp, k0, BK, a.Skv, a.D, DP, Ks, LD, vk);
+    load_tile<bf16, NTH>(vp, k0, BK, a.Skv, a.Dv, DVP, Ks + TILE, LDV, vv);
   };
 
   float oacc[ND][4] = {};
@@ -1161,21 +1309,21 @@ __global__ void __launch_bounds__(kThreads, 2)
   float n_acc[2] = {repro::kMinusInfN, repro::kMinusInfN};
   if (n > 0) {
     const bf16* qp = q + qrow * a.D;
-    load_tile(qp, q0, BQ, a.Sq, a.D, DP, Qs, LD, aligned16(qp));
+    load_tile<bf16, NTH>(qp, q0, BQ, a.Sq, a.D, DP, Qs, LD, aligned16(qp));
     prefetch(0);
   }
   cp_async_commit();
-  const int qr = q0 + warp * 16 + (lane >> 2);  // this thread's rows qr, +8
+  const int qr = q0 + strip * 16 + (lane >> 2);  // this thread's rows qr, +8
   for (int i = 0; i < n; ++i) {
     if (i + 1 < n) prefetch(i + 1);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     const int k0 = (jlo + i) * BK;
-    const bf16* Ks = stages + (i & 1) * 2 * TILE;
+    const bf16* Ks = stages + (i & 1) * STAGE;
     const bf16* Vs = Ks + TILE;
     float s[NT][4] = {};
-    mma_nt<DP / 16, NT, LD>(s, Qs + warp * 16 * LD, Ks, lane);
+    mma_nt<DP / 16, NT, LD>(s, Qs + strip * 16 * LD, Ks, lane);
     // scaled, -inf where masked; each row's largest over its quad
     float xmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -1227,7 +1375,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int e = 0; e < 4; ++e)
         oacc[j][e] = __fmul_rn(oacc[j][e], a_old[e >> 1]);
     }
-    mma_parts<BK / 16, ND, LD>(oacc, s, Vs, lane);
+    mma_parts<BK / 16, ND, LDV>(oacc, s, Vs + oc, lane);
     __syncthreads();
   }
   cp_async_wait<0>();  // also when no KV tile was visible
@@ -1237,8 +1385,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int e = 0; e < 4; ++e)
       oacc[j][e] = __fdiv_rn(oacc[j][e], fmaxf(m_acc[e >> 1], 1e-37f));
   }
-  store_acc(oacc, o + qrow * a.D, q0, a.Sq, a.D);
-  if ((lane & 3) == 0) {
+  store_acc(oacc, o + qrow * a.Dv, q0 + strip * 16, a.Sq, a.Dv, oc);
+  if ((lane & 3) == 0 && oc == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qi = qr + r * 8;
@@ -1251,11 +1399,13 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ---------------------------------------------------------------------------
-// Host side: bf16 with Dp <= 128 takes the mma kernels, forward and
-// backward (64-row tiles).  Else the tile shape of flash_fwd, flash_dq and
-// flash_dkv is the first of (64, 64), (64, 32), (32, 32) whose shared
-// memory fits the card at this D and dtype.  Either choice depends on
-// nothing else, so the sum order (and the bits) depend on D only.
+// Host side: bf16 with D and Dv multiples of 8 takes the mma kernels,
+// forward and backward (64-row tiles), at the first instantiation that
+// holds round16(D) and round16(Dv) (on_mma_shape).  Else the tile shape
+// of flash_fwd, flash_dq and flash_dkv is the first of (64, 64), (64, 32),
+// (32, 32) whose shared memory fits the card at this D, Dv and dtype.
+// Either choice reads the dtype, D and Dv only, so the sum order (and the
+// bits) depend on them alone.
 // ---------------------------------------------------------------------------
 int max_smem() {
   int dev = 0, bytes = 0;
@@ -1272,20 +1422,47 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
       static_cast<int>(bytes));
 }
 
-// The mma kernel `which` at DP, its shared memory set (and the carveout at
-// its largest, so that two blocks fit an SM).
-template <int DP>
-cudaError_t mma_prepare(int which, const void*& f, size_t& bytes) {
-  f = which == kFwd   ? reinterpret_cast<const void*>(&flash_fwd_mma<DP>)
-      : which == kDkv ? reinterpret_cast<const void*>(&flash_dkv_mma<DP>)
-                      : reinterpret_cast<const void*>(&flash_dq_mma<DP>);
-  bytes = MmaLayout<DP>::bytes(which);
+// The mma kernel `which` at (DP, DVP): its function, threads and shared
+// memory, set (and the carveout at its largest, so that two blocks fit an
+// SM where their shared memory allows).
+template <int DP, int DVP>
+cudaError_t mma_prepare(int which, const void*& f, int& threads,
+                        size_t& bytes) {
+  using L = MmaLayout<DP, DVP>;
+  f = which == kFwd ? reinterpret_cast<const void*>(&flash_fwd_mma<DP, DVP>)
+      : which == kDkv
+          ? reinterpret_cast<const void*>(&flash_dkv_mma<DP, DVP>)
+          : reinterpret_cast<const void*>(&flash_dq_mma<DP, DVP>);
+  threads = L::threads(which);
+  bytes = L::bytes(which);
   cudaError_t e = cudaFuncSetAttribute(
       f, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(f, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   return e;
+}
+
+// The mma kernels take bf16 with D and Dv multiples of 8 (each at most
+// 256, as every call).
+bool mma_ok(int D, int Dv) { return D % 8 == 0 && Dv % 8 == 0; }
+
+template <int DP_, int DVP_>
+struct MmaShape {
+  static constexpr int DP = DP_, DVP = DVP_;
+};
+
+// f(MmaShape) at the first instantiation that holds Dp and Dvp, smallest
+// first: D 160 (stablelm-12b) has its own, deepseek's 192 / 128 its own.
+// Columns past D and Dv are zero-filled in shared memory and never stored.
+template <typename F>
+cudaError_t on_mma_shape(int Dp, int Dvp, F&& f) {
+  if (Dp <= 64 && Dvp <= 64) return f(MmaShape<64, 64>{});
+  if (Dp <= 128 && Dvp <= 128) return f(MmaShape<128, 128>{});
+  if (Dp <= 160 && Dvp <= 160) return f(MmaShape<160, 160>{});
+  if (Dp <= 192 && Dvp <= 128) return f(MmaShape<192, 128>{});
+  if (Dp <= 192 && Dvp <= 192) return f(MmaShape<192, 192>{});
+  return f(MmaShape<256, 256>{});
 }
 
 template <typename T, int BQ, int BK>
@@ -1301,23 +1478,20 @@ cudaError_t fwd_launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, int DVP>
 cudaError_t fwd_mma_launch(const void* q, const void* k, const void* v,
                            void* o, float* m, float* n, int B, const Attn& a,
                            cudaStream_t s) {
   const void* f;
+  int threads;
   size_t bytes;
-  cudaError_t e = mma_prepare<DP>(kFwd, f, bytes);
+  cudaError_t e = mma_prepare<DP, DVP>(kFwd, f, threads, bytes);
   if (e != cudaSuccess) return e;
-  flash_fwd_mma<DP><<<dim3(a.H, B, cdiv(a.Sq, kTile)), kThreads, bytes, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), m, n, a);
+  flash_fwd_mma<DP, DVP>
+      <<<dim3(a.H, B, cdiv(a.Sq, kTile)), threads, bytes, s>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<bf16*>(o), m, n, a);
   return cudaGetLastError();
-}
-
-// The mma kernels take bf16 with Dv == D, D a multiple of 8 and Dp <= 128.
-bool mma_ok(const Attn& a) {
-  return a.Dv == a.D && a.D % 8 == 0 && a.Dp <= 128;
 }
 
 // bf16 under mma_ok takes the mma forward; everything else flash_fwd, its
@@ -1327,9 +1501,11 @@ template <typename T>
 cudaError_t fwd_any(const void* q, const void* k, const void* v, void* o,
                     float* m, float* n, int B, const Attn& a, cudaStream_t s) {
   if constexpr (std::is_same_v<T, bf16>) {
-    if (mma_ok(a) && a.Dp <= 64)
-      return fwd_mma_launch<64>(q, k, v, o, m, n, B, a, s);
-    if (mma_ok(a)) return fwd_mma_launch<128>(q, k, v, o, m, n, B, a, s);
+    if (mma_ok(a.D, a.Dv))
+      return on_mma_shape(a.Dp, a.Dvp, [&](auto sh) {
+        using S = decltype(sh);
+        return fwd_mma_launch<S::DP, S::DVP>(q, k, v, o, m, n, B, a, s);
+      });
   }
   const size_t cap = static_cast<size_t>(max_smem());
   if (FwdLayout<T, 64, 64>(a.Dp, a.Dvp).total <= cap)
@@ -1370,25 +1546,27 @@ cudaError_t bwd_launch(const BwdArgs& g, int B, const Attn& a, bool dkv,
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, int DVP>
 cudaError_t mma_launch(const BwdArgs& g, int B, const Attn& a, bool dkv,
                        cudaStream_t s) {
   const void* f;
+  int threads;
   size_t bytes;
-  cudaError_t e = mma_prepare<DP>(dkv ? kDkv : kDq, f, bytes);
+  cudaError_t e = mma_prepare<DP, DVP>(dkv ? kDkv : kDq, f, threads, bytes);
   if (e != cudaSuccess) return e;
   const bf16* q = static_cast<const bf16*>(g.q);
   const bf16* k = static_cast<const bf16*>(g.k);
   const bf16* v = static_cast<const bf16*>(g.v);
   const bf16* d = static_cast<const bf16*>(g.dout);
   if (dkv)
-    flash_dkv_mma<DP><<<dim3(a.Hkv, B, cdiv(a.Skv, kTile)), kThreads, bytes,
-                        s>>>(q, k, v, d, g.m, g.n, g.delta,
-                             static_cast<bf16*>(g.dk),
-                             static_cast<bf16*>(g.dv), a);
+    flash_dkv_mma<DP, DVP>
+        <<<dim3(a.Hkv, B, cdiv(a.Skv, kTile)), threads, bytes, s>>>(
+            q, k, v, d, g.m, g.n, g.delta, static_cast<bf16*>(g.dk),
+            static_cast<bf16*>(g.dv), a);
   else
-    flash_dq_mma<DP><<<dim3(a.H, B, cdiv(a.Sq, kTile)), kThreads, bytes, s>>>(
-        q, k, v, d, g.m, g.n, g.delta, static_cast<bf16*>(g.dq), a);
+    flash_dq_mma<DP, DVP>
+        <<<dim3(a.H, B, cdiv(a.Sq, kTile)), threads, bytes, s>>>(
+            q, k, v, d, g.m, g.n, g.delta, static_cast<bf16*>(g.dq), a);
   return cudaGetLastError();
 }
 
@@ -1398,8 +1576,11 @@ template <typename T>
 cudaError_t bwd_any(const BwdArgs& g, int B, const Attn& a, bool dkv,
                     cudaStream_t s) {
   if constexpr (std::is_same_v<T, bf16>) {
-    if (mma_ok(a) && a.Dp <= 64) return mma_launch<64>(g, B, a, dkv, s);
-    if (mma_ok(a)) return mma_launch<128>(g, B, a, dkv, s);
+    if (mma_ok(a.D, a.Dv))
+      return on_mma_shape(a.Dp, a.Dvp, [&](auto sh) {
+        using S = decltype(sh);
+        return mma_launch<S::DP, S::DVP>(g, B, a, dkv, s);
+      });
   }
   const size_t cap = static_cast<size_t>(max_smem());
   if (BwdLayout<T, 64, 64>(a.Dp, a.Dvp, dkv).total <= cap)
@@ -1473,20 +1654,31 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   return static_cast<int>(e);
 }
 
-// Blocks an SM of the mma kernel for bf16 at head dim D (which: 0 = dq,
-// 1 = dk/dv, 2 = forward), or -1 where that dtype and D take the other
-// kernels or the query fails.
-int flash_attention_blocks_per_sm(int D, int which) {
-  const void* f;
-  size_t bytes;
-  cudaError_t e;
-  if (D < 8 || D % 8 || round16(D) > 128 || which < kDq || which > kFwd)
+// 1 where bf16 (dtype 1) at head dims D, Dv takes the mma kernels, 0
+// where it takes the wmma / FFMA ones (float32 always), -1 for a D or Dv
+// that no kernel takes.
+int flash_attention_uses_mma(int D, int Dv, int dtype) {
+  if (D < 1 || D > kMaxD || Dv < 1 || Dv > kMaxD) return -1;
+  return dtype == 1 && mma_ok(D, Dv) ? 1 : 0;
+}
+
+// Blocks an SM of the mma kernel for bf16 at head dims D, Dv (which: 0 =
+// dq, 1 = dk/dv, 2 = forward), or -1 where bf16 at those head dims takes
+// the other kernels or the query fails.
+int flash_attention_blocks_per_sm(int D, int Dv, int which) {
+  if (flash_attention_uses_mma(D, Dv, 1) != 1 || which < kDq ||
+      which > kFwd)
     return -1;
-  e = round16(D) <= 64 ? mma_prepare<64>(which, f, bytes)
-                       : mma_prepare<128>(which, f, bytes);
+  const void* f;
+  int threads;
+  size_t bytes;
+  cudaError_t e = on_mma_shape(round16(D), round16(Dv), [&](auto sh) {
+    using S = decltype(sh);
+    return mma_prepare<S::DP, S::DVP>(which, f, threads, bytes);
+  });
   int blocks = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, kThreads,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, threads,
                                                       bytes);
   return e == cudaSuccess ? blocks : -1;
 }

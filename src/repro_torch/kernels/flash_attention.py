@@ -199,16 +199,34 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 7 + [_F] + [_I] * 4 \
         + [_P]
     lib.flash_attention_bwd.restype = _I
-    lib.flash_attention_blocks_per_sm.argtypes = [_I, _I]
+    lib.flash_attention_blocks_per_sm.argtypes = [_I, _I, _I]
     lib.flash_attention_blocks_per_sm.restype = _I
+    lib.flash_attention_uses_mma.argtypes = [_I, _I, _I]
+    lib.flash_attention_uses_mma.restype = _I
     return lib
 
 
-def blocks_per_sm(d: int, which: int) -> int:
-    """Blocks an SM of the bf16 ``mma.sync`` kernel at head dim ``d``
-    (``which`` 0 = dq, 1 = dk/dv, 2 = forward), or -1 where bf16 at that
-    ``d`` takes the float32 / large-D kernels."""
-    return _lib().flash_attention_blocks_per_sm(d, which)
+def blocks_per_sm(d: int, which: int, dv: int | None = None) -> int:
+    """Blocks an SM of the bf16 ``mma.sync`` kernel at head dims ``d``,
+    ``dv`` (v's, ``d`` by default; ``which`` 0 = dq, 1 = dk/dv, 2 =
+    forward), or -1 where bf16 at those head dims takes the wmma / FFMA
+    kernels."""
+    return _lib().flash_attention_blocks_per_sm(d, d if dv is None else dv,
+                                                which)
+
+
+def design(dtype: torch.dtype, d: int, dv: int | None = None) -> str:
+    """The kernels a call on the card takes at ``dtype`` and head dims
+    ``d``, ``dv``, as the CUDA side routes it: ``"mma"`` (``flash_fwd_mma``,
+    ``flash_dq_mma``, ``flash_dkv_mma``: bf16 with both head dims
+    multiples of 8) or ``"wmma"`` (``flash_fwd``, ``flash_dq``,
+    ``flash_dkv``)."""
+    dv = d if dv is None else dv
+    rc = _lib().flash_attention_uses_mma(d, dv, _DTYPES[dtype])
+    if rc < 0:
+        raise ValueError(f"flash attention: head dims {d} / {dv}; the "
+                         f"kernels take 1 to {MAX_D}")
+    return "mma" if rc else "wmma"
 
 
 def _check_qkv(what: str, q, k, v, window) -> None:

@@ -46,11 +46,13 @@ class Model:
         return transformer.train_loss(params, batch, cfg=self.cfg,
                                       moe_impl=moe_impl, policy=policy)
 
-    def forward(self, params, tokens, patches=None):
+    def forward(self, params, tokens, patches=None,
+                moe_impl: str = "dispatch"):
         """Hidden states [B, S, d]; a vlm prompt's ``patches`` ([B,
-        n_patches, d]) come first and count in S."""
+        n_patches, d]) come first and count in S; a moe model's experts
+        run by ``moe_impl``."""
         return transformer.forward(params, tokens, cfg=self.cfg,
-                                   patches=patches)
+                                   patches=patches, moe_impl=moe_impl)
 
     def prefill(self, params, tokens, **kw):
         """``kw`` as :func:`engine.prefill`'s (``max_len``, ``last_pos``,

@@ -62,8 +62,10 @@ def make_train_step(model: Model, *, lr_schedule: Callable | None = None,
     policy = softmax_policy or model.cfg.softmax_policy()
     if grad_compression not in ("none", "bf16"):
         raise NotImplementedError(
-            f"grad_compression={grad_compression!r} is not ported yet "
-            "(ROADMAP queue A item 23)")
+            f"grad_compression={grad_compression!r}: the reference's step "
+            "applies no compression but 'bf16' (it passes every other "
+            "value through uncompressed); the port refuses the setting "
+            "rather than ignore it")
 
     def train_step(state: TrainState, batch: dict):
         batch = _to_device(batch, model.device)

@@ -430,9 +430,10 @@ def test_lmhead_forward_kernel_by_dtype(cuda, dtype, v, kernel):
 # (B, H, Hkv, Sq, Skv, D, causal, window): GQA groups, MQA, ragged Sq / Skv
 # (tile edges inside both), empty causal rows (Sq > Skv), a window, and the
 # dense family's other head dims (120: no multiple of 16; 160: over 128).
-# bf16 with D <= 128 takes the mma forward and backward kernels, D > 128
-# the others: qwen2.5-14b's group of 5 at D 128, a window across several
-# 64-row tiles, and D 144, just past the mma kernels' limit.
+# bf16 with D a multiple of 8 takes the mma forward and backward kernels
+# (split over two warps a strip past D 128): qwen2.5-14b's group of 5 at
+# D 128, a window across several 64-row tiles, and D 144 (the (160, 160)
+# instantiation, its columns past 144 zero-filled).
 FLASH_CASES = [(2, 4, 2, 200, 200, 64, True, None),
                (1, 3, 1, 40, 100, 32, False, None),
                (1, 4, 4, 129, 257, 64, True, None),
@@ -503,7 +504,10 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype, d, mma", [(torch.bfloat16, 128, True),
                                            (torch.bfloat16, 120, True),
-                                           (torch.bfloat16, 144, False),
+                                           (torch.bfloat16, 144, True),
+                                           (torch.bfloat16, 160, True),
+                                           (torch.bfloat16, 256, True),
+                                           (torch.bfloat16, 100, False),
                                            (torch.float32, 128, False)])
 def test_flash_forward_and_backward_kernels_chosen_by_dtype_and_head_dim(
         cuda, dtype, d, mma):
@@ -520,6 +524,7 @@ def test_flash_forward_and_backward_kernels_chosen_by_dtype_and_head_dim(
     # flash_fwd (the wmma kernel) exactly where the mma kernels do not run
     assert any("flash_fwd" in x and "flash_fwd_mma" not in x
                for x in names) != mma, names
+    assert tfa.design(dtype, d) == ("mma" if mma else "wmma")
     if dtype == torch.bfloat16:
         assert (min(tfa.blocks_per_sm(d, w) for w in (0, 1, 2)) >= 1) == mma
 
@@ -529,6 +534,20 @@ def test_flash_forward_and_backward_kernels_chosen_by_dtype_and_head_dim(
 def test_flash_mma_kernels_fit_two_blocks_an_sm(cuda, d):
     # which: 0 = dq, 1 = dk/dv, 2 = forward
     assert [tfa.blocks_per_sm(d, w) >= 2 for w in (0, 1, 2)] == [True] * 3
+
+
+# (D, Dv, blocks an SM of dq, dk/dv, forward) past D 128: the split
+# backward (8 warps) holds one block an SM by its shared memory (157-232
+# KB); the forward keeps two at (160, 160) and (192, 128) (4 warps, 108 /
+# 112 KB) and splits at Dv 192 and 256 (8 warps, one block)
+@pytest.mark.gpu
+@pytest.mark.parametrize("d, dv, blocks", [(160, 160, [1, 1, 2]),
+                                           (192, 128, [1, 1, 2]),
+                                           (192, 192, [1, 1, 1]),
+                                           (256, 256, [1, 1, 1])],
+                         ids=["d160", "d192-dv128", "d192-dv192", "d256"])
+def test_flash_mma_kernels_blocks_an_sm_at_wide_heads(cuda, d, dv, blocks):
+    assert [tfa.blocks_per_sm(d, w, dv) for w in (0, 1, 2)] == blocks
 
 
 @pytest.mark.gpu
@@ -1289,15 +1308,22 @@ def test_moe_graph_step_equals_eager_with_the_cache_bit_equal(cuda, paged,
 # head dims that are no multiple of 8; the decode kernel at G 1, D 192 /
 # Dv 128; reduced deepseek's graph step.
 # ---------------------------------------------------------------------------
-# (b, h, hkv, sq, skv, d, dv, causal)
+# (b, h, hkv, sq, skv, d, dv, causal): deepseek's 192 / 128, reduced
+# deepseek's 24 / 16, stablelm-12b's 160 (GQA), 192 / 192 and 256 (ragged
+# edges; the split forward) and 20 / 12 (no multiple of 8: the wmma
+# kernels in bf16 too)
 FLASH_V_DIMS = [(1, 16, 16, 300, 300, 192, 128, True),
                 (2, 4, 4, 37, 37, 24, 16, True),
-                (1, 2, 1, 45, 60, 20, 12, False)]
+                (1, 2, 1, 45, 60, 20, 12, False),
+                (1, 4, 2, 200, 200, 160, 160, True),
+                (1, 2, 2, 150, 170, 192, 192, False),
+                (1, 4, 2, 130, 130, 256, 256, True)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", FLASH_V_DIMS,
-                         ids=["d192-dv128", "d24-dv16", "d20-dv12"])
+                         ids=["d192-dv128", "d24-dv16", "d20-dv12", "d160",
+                              "d192-dv192", "d256"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_at_v_head_dims(cuda, dtype, case):
     b, h, hkv, sq, skv, d, dv, causal = case
@@ -1328,12 +1354,15 @@ def test_flash_kernels_at_v_head_dims(cuda, dtype, case):
         o_, m_, n_ = tfa.flash_attention_fwd_gqa(q, k, v, **kw)
         tfa.flash_attention_bwd_gqa(q, k, v, o_, m_, n_, do, **kw)
 
-    # Dv != D takes the wmma / FFMA kernels, never the mma ones
-    names = [x for x, _ in _launched_kernels(
-        fwd_bwd, ("flash_fwd", "flash_dq", "flash_dkv"))]
-    assert not any("_mma" in x for x in names), names
-    assert all(any(k_ in x for x in names)
-               for k_ in ("flash_fwd", "flash_dq", "flash_dkv")), names
+    # bf16 with D and Dv multiples of 8 takes the mma kernels, forward and
+    # backward; float32 and 20 / 12 the wmma / FFMA ones
+    mma = dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0
+    assert tfa.design(dtype, d, dv) == ("mma" if mma else "wmma")
+    kinds = ("flash_fwd", "flash_dq", "flash_dkv")
+    names = [x for x, _ in _launched_kernels(fwd_bwd, kinds)
+             if any(k_ in x for k_ in kinds)]
+    assert all(any(k_ in x for x in names) for k_ in kinds), names
+    assert all(("_mma" in x) == mma for x in names), names
 
 
 @pytest.mark.gpu

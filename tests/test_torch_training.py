@@ -410,7 +410,7 @@ def test_step_leaves_no_graph_or_grad(jax_runs):
 
 def test_unported_grad_compression_is_refused():
     tm = build_model("qwen2.5-14b", reduced=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 23"):
+    with pytest.raises(NotImplementedError, match="applies no compression but 'bf16'"):
         step_fn.make_train_step(tm, grad_compression="int8")
 
 
