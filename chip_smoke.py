@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--layers N]
                           [--only {train,swa,engine,mqa,ssm,encdec,moe,mla,
                                    vlm,hybrid,prefix,quant,tune,
-                                   family_train}]
+                                   family_train,tp}]
 
 Phases (any failure exits non-zero; nothing is caught):
 
@@ -319,7 +319,29 @@ Phases (any failure exits non-zero; nothing is caught):
    bytes), a traced fourth step (``train_trace``: device time by group,
    a moe model's router, experts, shared experts and dispatch / combine
    apart, idle share), and ``python -m repro_torch.launch.train
-   --reduced --kernels`` for each family.
+   --reduced --kernels`` for each family;
+21. tp: tensor-parallel serving (ROADMAP item 22, its serving half) over
+   a ``('data', 'model')`` mesh of rank processes that the script spawns
+   on the one card, backend ``gloo`` (NCCL takes one rank a card), eager
+   (gloo's collectives cannot be captured in a CUDA graph): full-width
+   qwen2.5-14b with seeded bf16 weights at tp 2 (mesh 1x2, 20 / 4 heads
+   and 76,032 vocabulary columns a rank, the grouped layout; 16 of 48
+   layers, 8 slots, 12 requests of 200-1,500 + 32 tokens) and tp 3 (mesh
+   1x3, 40 heads padded to 42, KV replicated, each rank's 14 q-heads
+   regrouped over a view of its run of KV heads in decode; 4 layers, 4
+   requests).  Greedy tokens held against the single-process
+   engine on the same weights: ``==`` wherever the single process's top-2
+   margin exceeds twice the largest logit difference between the two
+   (each token's logits recorded as it is drawn, the recorder's own
+   time left out of the step's; the row-parallel ``all_reduce`` sums in
+   another order), the logit difference itself within LOGIT_TOL of the
+   largest logit and the rule deciding at least a quarter of the
+   contexts; kernels 1, 2 (the
+   sampler's local pass 1, at temperature 0.8) and 3 at the ranks' local
+   shapes against their plain versions, and the ranks' launches of them
+   in the main path's runs; the backend, ms a decode step and the ms the
+   collectives take a step (a card shared by the ranks and gloo's host
+   copies: no statement about a link between cards).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -1021,8 +1043,17 @@ FLASH_CASES = {"train_bf16": FLASH_TRAIN,
                "d256_bf16": (1, 4, 2, 333, 333, 256, True, None,
                              "bfloat16"),
                "stablelm_train_d160": (1, 32, 8, 4096, 4096, 160, True,
-                                       None, "bfloat16")}
-FLASH_TIMED = ("train_bf16", "stablelm_train_d160")   # with dq, dk/dv apart
+                                       None, "bfloat16"),
+               # past 256 the wmma kernels walk the head dim in chunks
+               "d320_bf16": (1, 4, 2, 333, 333, 320, True, None,
+                             "bfloat16"),
+               "d320_f32": (1, 4, 2, 333, 333, 320, True, None, "float32"),
+               "d384_dv272_bf16": (1, 4, 2, 333, 333, 384, True, None,
+                                   "bfloat16", 272),
+               "d384_dv272_f32": (1, 4, 2, 333, 333, 384, True, None,
+                                  "float32", 272)}
+FLASH_TIMED = ("train_bf16", "stablelm_train_d160", "d320_bf16", "d320_f32",
+               "d384_dv272_bf16", "d384_dv272_f32")  # with dq, dk/dv apart
 FLASH = ("flash_attention_fwd_gqa", "flash_attention_bwd_gqa")
 FLASH_EXTEXP_OPS = 25      # ExtExp, the max, rescale and sum per score
 FLASH_BWD_EW_OPS = 33      # ExtExp, p and ds per score
@@ -2063,10 +2094,13 @@ def softmax_rows_check(torch, rows, key, x, case, **info) -> None:
 
 
 def decode_case(torch, rows, gen, case, *, lengths, tab, hkv, g, d,
-                window=None, ps=128, dtype=None) -> None:
+                window=None, ps=128, dtype=None, kv_view=None) -> None:
     """Kernels 3 and 4 on q [S, hkv, g, d] (bf16 unless ``dtype``) and a
     seeded arena read through ``tab`` (the strip pool is the same pages
-    laid end to end) at ``lengths``, against their plain versions (the
+    laid end to end) at ``lengths``; with ``kv_view`` (first, count of
+    the arena's KV heads) the arena holds ``count`` heads and the kernels
+    read the ``hkv`` from ``first`` on through a view, as the ungrouped
+    layout's decode does.  Each against its plain version (the
     kernel phase's tolerance for the dtype), strip bit-equal to paged;
     timed by graph replay into ``rows[kernel][case]`` beside
     ``scaled_dot_product_attention`` over the strip, with the bound of the
@@ -2085,8 +2119,10 @@ def decode_case(torch, rows, gen, case, *, lengths, tab, hkv, g, d,
            else dict(atol=1e-5, rtol=0.0))
     size = torch.finfo(bf).bits // 8
     q = torch.randn((s, hkv, g, d), device=dev, generator=gen).to(bf)
-    kp, vp = (torch.randn((n_pages, ps, hkv, d), device=dev,
-                          generator=gen).to(bf) for _ in "kv")
+    kv0, heads = kv_view or (0, hkv)
+    kp, vp = (torch.randn((n_pages, ps, heads, d), device=dev,
+                          generator=gen).to(bf).narrow(2, kv0, hkv)
+              for _ in "kv")
     ks, vs = (x[tab.long()].reshape(s, pmax * ps, hkv, d).transpose(1, 2)
               for x in (kp, vp))
     sc = d ** -0.5
@@ -6893,6 +6929,374 @@ def _paths(tree, prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: tensor-parallel serving over a mesh of ranks on the one card.
+# ---------------------------------------------------------------------------
+TP_RUNS = {2: dict(layers=16, requests=12), 3: dict(layers=4, requests=4)}
+TP_SEED = 37
+TP_KERNELS = ("twopass_softmax_2d", "twopass_stats_2d",
+              "decode_attention_paged")
+TP_SAMPLED = 4                  # requests of the temperature-0.8 run
+TP_DECIDED_SHARE = 4            # the margin rule decides >= 1/4 of contexts
+
+
+def tp_requests(cfg, n: int, seed: int):
+    """``n`` seeded prompts of 200-1,500 tokens, 32 new tokens each."""
+    from repro_torch.serving.scheduler import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=tuple(rng.integers(
+        0, cfg.vocab, int(rng.integers(200, 1501))).tolist()),
+        max_new_tokens=NEW_TOKENS) for i in range(n)]
+
+
+class TpRecorder:
+    """Records the logits each served token was drawn from, keyed (rid,
+    token index), over the whole vocabulary (gathered across the model
+    axis under a mesh), on the host in float32.  It wraps the engine's
+    ``_admit``, ``step`` and ``_sample``.  Its own time inside the decode
+    steps (a synchronisation, the gather, a host copy) is ``decode_s``,
+    so that a step's time can be given without it; ``recording`` is set
+    while it gathers, so that its collective is not counted as the
+    model's.  It launches no kernel of the port."""
+
+    def __init__(self, eng):
+        import torch
+
+        from repro_torch.distributed import collectives
+
+        self.rows, self._rid, self._burst = {}, None, 0
+        self.decode_s, self.recording = 0.0, False
+        admit, step, sample = eng._admit, eng.step, eng._sample
+        vocab = eng.cfg.vocab
+
+        def rec_admit(req, slot, now):
+            self._rid = req.rid
+            try:
+                return admit(req, slot, now)
+            finally:
+                self._rid = None
+
+        def rec_step(now=None):
+            self._burst = 0
+            return step(now)
+
+        def rec_sample(logits):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.recording = True
+            full = collectives.all_gather_columns(
+                logits, eng.cfg.padded_vocab())[:, :vocab].float().cpu()
+            self.recording = False
+            if self._rid is not None:          # a prefill's first token
+                self.rows[(self._rid, 0)] = full[0]
+            else:
+                active = eng._active.cpu()
+                for slot in range(eng.n_slots):
+                    if active[slot]:
+                        c = eng.slot_owner[slot]
+                        self.rows[(c.rid, len(c.tokens) + self._burst)] = \
+                            full[slot]
+                self._burst += 1
+                self.decode_s += time.perf_counter() - t0
+            return sample(logits)
+
+        eng._admit, eng.step, eng._sample = rec_admit, rec_step, rec_sample
+
+
+def tp_model(tp: int, **kw):
+    from repro_torch.models import build_model
+
+    return build_model(ARCH, use_kernels=True, tp=tp,
+                       n_layers=TP_RUNS[tp]["layers"], **kw)
+
+
+def tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of the tp phase: the mesh engine's main-path runs (greedy
+    over the phase's requests, each token's logits recorded for the
+    parity check, then TP_SAMPLED requests at temperature 0.8), counted
+    and timed.  Each rank writes its results to ``out_dir``, rank 0 the
+    recorded logits too."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    mesh = make_serving_mesh((1, world), backend="gloo")
+    m = tp_model(world)
+    full = m.init(seed=TP_SEED, dtype=torch.bfloat16)
+    kw = dict(mesh=mesh, fused=False, slots=N_SLOTS, max_len=MAX_LEN,
+              seed=2)
+    eng = m.serving_engine(full, temperature=0.0, **kw)
+    eng_s = m.serving_engine(full, temperature=0.8, **kw)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = TpRecorder(eng)
+
+    # the collectives' time: each all_reduce between two synchronisations,
+    # the decode steps' apart (the step is eager, so the host waits on
+    # every collective anyway); the recorder's gather is not counted
+    real = dist.all_reduce
+    spent = {"decode": 0.0, "other": 0.0, "calls": 0}
+    where = {"in": "other"}
+
+    def timed_all_reduce(*a, **k):
+        if rec.recording:
+            return real(*a, **k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        spent[where["in"]] += time.perf_counter() - t0
+        spent["calls"] += 1
+        return out
+
+    dist.all_reduce = timed_all_reduce
+    decode = eng._decode
+
+    def decode_timed():
+        where["in"] = "decode"
+        try:
+            decode()
+        finally:
+            where["in"] = "other"
+
+    eng._decode = decode_timed
+    reqs = tp_requests(m.cfg, TP_RUNS[world]["requests"], TP_SEED)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    greedy = [tuple(c.tokens) for c in eng.run(reqs)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    th = eng.throughput()
+    steps = max(1, th["steps"])
+    sampled = [tuple(c.tokens) for c in eng_s.run(
+        [dataclasses.replace(r) for r in reqs[:TP_SAMPLED]])]
+    launches = K.launch_counts()
+    dist.all_reduce = real
+    out = dict(greedy=greedy, sampled=sampled, launches=launches,
+               wall_s=wall, throughput=th,
+               ms_per_step=(eng.stats["decode_s"] - rec.decode_s) / steps
+               * 1e3,
+               recorder_ms_per_step=rec.decode_s / steps * 1e3,
+               collective_ms_per_step=spent["decode"] / steps * 1e3,
+               collective_s_prefill=spent["other"],
+               collective_calls=spent["calls"],
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               arena=list(eng.pool["kv"]["k"].shape),
+               wq=list(eng.params["blocks"]["attn"]["wq"]["w"].shape),
+               embed=list(eng.params["embed"]["table"].shape))
+    if rank == 0:
+        out["rows"] = rec.rows
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_single(torch, tp: int) -> dict:
+    """The single-process engine on the tp-padded weights (the mesh ranks
+    make the same ones from the same seed): greedy tokens and each one's
+    logits."""
+    m = tp_model(tp, device="cuda")
+    params = m.init(seed=TP_SEED, dtype=torch.bfloat16)
+    eng = m.serving_engine(params, fused=False, slots=N_SLOTS,
+                           max_len=MAX_LEN, temperature=0.0, seed=2)
+    rec = TpRecorder(eng)
+    toks = [tuple(c.tokens) for c in eng.run(
+        tp_requests(m.cfg, TP_RUNS[tp]["requests"], TP_SEED))]
+    steps = max(1, eng.stats["steps"])
+    ms_per_step = (eng.stats["decode_s"] - rec.decode_s) / steps * 1e3
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(tokens=toks, rows=rec.rows, ms_per_step=ms_per_step)
+
+
+def tp_margin(torch, tp: int, single: dict, mesh: dict) -> None:
+    """The mesh's greedy tokens against the single process's, by the
+    margin rule of the encdec and moe phases: at every token whose context
+    the two share (up to a request's first difference), ``==`` wherever
+    the single process's top-2 margin exceeds twice the largest logit
+    difference measured between the two at those contexts.  That
+    difference is bounded itself (LOGIT_TOL of the largest logit, as the
+    engine phase), and the rule must decide at least one context a
+    request and a TP_DECIDED_SHARE-th of them: a mesh whose logits went
+    wrong fails the bound, or leaves nothing decided, and fails."""
+    keys, firsts = [], []
+    for rid, (a, b) in enumerate(zip(single["tokens"], mesh["greedy"])):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 len(a))
+        firsts.append(j)
+        keys += [(rid, i) for i in range(min(j + 1, len(a)))]
+    sp = torch.stack([single["rows"][k] for k in keys])
+    ms = torch.stack([mesh["rows"][k] for k in keys])
+    abs_err = float((sp - ms).abs().max())
+    top2 = sp.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    decided = margin > 2 * abs_err
+    same = sp.argmax(-1) == ms.argmax(-1)
+    tok_same = torch.tensor([single["tokens"][r][i] == mesh["greedy"][r][i]
+                             for r, i in keys])
+    n_tok = sum(len(t) for t in single["tokens"])
+    say("tp_tokens", tp=tp, requests=len(firsts),
+        tokens=n_tok, tokens_equal=sum(
+            x == y for a, b in zip(single["tokens"], mesh["greedy"])
+            for x, y in zip(a, b)),
+        requests_equal=sum(j == len(t) for j, t in
+                           zip(firsts, single["tokens"])),
+        first_difference=firsts, contexts_compared=len(keys),
+        logits_max_abs_err=abs_err,
+        logits_max_err_over_max_logit=abs_err / float(sp.abs().max()),
+        logits_tol=f"{LOGIT_TOL} of the largest logit, as the engine phase",
+        decided=int(decided.sum()),
+        decided_floor=max(len(firsts), len(keys) // TP_DECIDED_SHARE),
+        margins_left_out=margin[~decided].tolist()[:64],
+        margins_of_unequal=margin[~tok_same].tolist(),
+        rule="== where the single process's top-2 margin exceeds 2 x the "
+             "largest logit difference between it and the mesh at the "
+             "contexts they share")
+    worst = abs_err / float(sp.abs().max())
+    floor = max(len(firsts), len(keys) // TP_DECIDED_SHARE)
+    check(worst <= LOGIT_TOL,
+          f"tp {tp}: mesh logits vs the single process's: {worst} of the "
+          f"largest logit, over {LOGIT_TOL}")
+    check(int(decided.sum()) >= floor,
+          f"tp {tp}: {int(decided.sum())} of {len(keys)} contexts decided "
+          f"by the margin rule, under {floor}")
+    check(bool(same[decided].all()) and bool(tok_same[decided].all()),
+          f"tp {tp}: mesh tokens != the single process's at a top-2 "
+          f"margin above 2 x {abs_err}")
+
+
+def tp_kernel_checks(torch, rows, tp: int) -> None:
+    """Kernels 1, 2 and 3 at a rank's shapes, against their plain
+    versions: kernel 1 on one prefill bucket's score rows (the rank's
+    q-heads x 1,024), kernel 2 on the sampler's local columns at 0.8,
+    kernel 3 on each rank's decode operands (tp 2: 4 KV heads of G 5;
+    tp 3: each rank's run of the 8 replicated KV heads, read through a
+    view of the arena, with its 14 q-heads regrouped into G rows a KV
+    head, ``attention.local_layout``), 8 slots of 200-1,532 positions."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import twopass_softmax as tp_k
+    from repro_torch.models import attention
+
+    rng = np.random.default_rng(TP_SEED + tp)
+    hq = -(-40 // tp) * tp // tp
+    x = score_rows(torch, rng, "prefill_tp", hq * 1024, 1024)
+    softmax_rows_check(torch, rows, f"tp{tp}_prefill_1024", x,
+                       f"tp{tp}_prefill_bucket_1024", heads=hq)
+    del x
+    v = 152064 // tp
+    x = torch.from_numpy(rng.standard_normal((N_SLOTS, v),
+                                             dtype="float32") * 8 / 0.8)
+    x = x.to("cuda")
+    m, n = tp_k.twopass_stats_2d(x)
+    mp, np_ = tp_k.twopass_stats_2d_plain(x)
+    sa, _ = err(m, mp)
+    check(torch.equal(n, np_) and torch.allclose(m, mp, rtol=1e-5, atol=0),
+          f"twopass_stats_2d tp{tp} sampler: m err {sa}")
+    say("kernel_check", kernel="twopass_stats_2d", shape=[N_SLOTS, v],
+        case=f"tp{tp}_sampler_local", m_max_abs_err=sa, n_equal=True,
+        tol="n_sum exact (a max); m_sum rtol 1e-5 (sum order)")
+    nb = N_SLOTS * v * 4
+    b_ms, b_by = bound(nb + 8 * N_SLOTS, STATS_OPS * N_SLOTS * v)
+    rows.setdefault("twopass_stats_2d", {})[f"tp{tp}_sampler_local"] = dict(
+        **timed(torch, lambda: tp_k.twopass_stats_2d(x),
+                lambda: tp_k.twopass_stats_2d_plain(x),
+                lambda: torch.logsumexp(x, -1)),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=sa, shape=[N_SLOTS, v])
+    say("kernel_time", kernel="twopass_stats_2d",
+        case=f"tp{tp}_sampler_local", **rows["twopass_stats_2d"][
+            f"tp{tp}_sampler_local"])
+    del x, m, n, mp, np_
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED + tp)
+    pmax = MAX_LEN // 128
+    lengths = rng.integers(200, 1533, N_SLOTS).astype(np.int32)
+    tab = torch.from_numpy(rng.permutation(np.arange(
+        1, 1 + N_SLOTS * pmax)).reshape(N_SLOTS, pmax).astype(
+            np.int32)).to("cuda")
+    shapes = []
+    for r in range(tp):
+        lay = attention._local_layout(get_config(ARCH), tp, tp, r,
+                                      torch.device("cuda"))
+        shape = (lay.kv0, lay.nkv, lay.g, lay.hkv)
+        if shape not in shapes:
+            shapes.append(shape)
+    for kv0, nkv, g, heads in shapes:
+        case = (f"tp{tp}_local" if len(shapes) == 1
+                else f"tp{tp}_local_kv{kv0}_{nkv}x{g}")
+        decode_case(torch, rows, gen, case, lengths=lengths, tab=tab,
+                    hkv=nkv, g=g, d=128, kv_view=(kv0, heads))
+
+
+def tp_phase(torch, rows) -> dict:
+    """Phase 21 (see the module's docstring).  Returns the ranks' launches
+    of kernels 1, 2 and 3 in the main path's runs, summed over ranks."""
+    import pickle
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    launches = dict.fromkeys(TP_KERNELS, 0)
+    for tp in sorted(TP_RUNS):
+        t0 = time.perf_counter()
+        tp_kernel_checks(torch, rows, tp)
+        single = tp_single(torch, tp)
+        out = ROOT / "build" / f"chip_smoke_tp{tp}"
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mp.start_processes(tp_rank, args=(tp, str(out / "store"), str(out)),
+                           nprocs=tp, join=True, start_method="spawn")
+        ranks = []
+        for r in range(tp):
+            with open(out / f"rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+        for r, res in enumerate(ranks):
+            check(res["greedy"] == ranks[0]["greedy"]
+                  and res["sampled"] == ranks[0]["sampled"],
+                  f"tp {tp}: rank {r}'s tokens differ from rank 0's")
+            for name in TP_KERNELS:
+                launches[name] += res["launches"][name]
+        mesh = ranks[0]
+        tp_margin(torch, tp, single, mesh)
+        for name in TP_KERNELS:
+            check(all(r["launches"][name] > 0 for r in ranks),
+                  f"tp {tp}: {name} not launched by every rank")
+        th = mesh["throughput"]
+        say("tp_serving", tp=tp, mesh=th["mesh_axes"], backend=th["backend"],
+            fused=th["fused"], kv_shards=th["kv_shards"],
+            n_layers=TP_RUNS[tp]["layers"], requests=len(mesh["greedy"]),
+            steps=th["steps"], ms_per_step=mesh["ms_per_step"],
+            recorder_ms_per_step_left_out=mesh["recorder_ms_per_step"],
+            single_process_ms_per_step=single["ms_per_step"],
+            collective_ms_per_step=mesh["collective_ms_per_step"],
+            collective_s_outside_decode=mesh["collective_s_prefill"],
+            collective_calls=mesh["collective_calls"],
+            prefill_tok_s=th["prefill_tok_s"],
+            decode_tok_s=th["decode_tok_s"], wall_s=mesh["wall_s"],
+            rank_arena=mesh["arena"], rank_wq=mesh["wq"],
+            rank_embed=mesh["embed"], rank_peak_bytes=[
+                r["peak_bytes"] for r in ranks],
+            launches={n: [r["launches"][n] for r in ranks]
+                      for n in TP_KERNELS},
+            sampled_tokens=sum(len(t) for t in mesh["sampled"]),
+            seconds=time.perf_counter() - t0,
+            note="ranks share one card and gloo passes through host "
+                 "memory: no statement about a link between cards")
+        shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
 REPLACES = {
     "twopass_softmax_2d": "src/repro/kernels/twopass_softmax.py:76",
     "twopass_stats_2d": "src/repro/kernels/twopass_softmax.py:115",
@@ -6945,7 +7349,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("train", "swa", "engine", "mqa",
                                        "ssm", "encdec", "moe", "mla", "vlm",
                                        "hybrid", "prefix", "quant",
-                                       "tune", "family_train"),
+                                       "tune", "family_train", "tp"),
                     help="run one phase alone (train: to compare the train "
                     "step of two trees on one card); no kernels or ok line")
     args = ap.parse_args()
@@ -6993,6 +7397,11 @@ def main() -> int:
             t0 = time.perf_counter()
             say("family_train_done",
                 launches=family_train_phase(torch, {}),
+                seconds=time.perf_counter() - t0)
+        elif args.only == "tp":
+            t0 = time.perf_counter()
+            say("tp_done", launches=tp_phase(
+                torch, {"twopass_softmax_2d": {}}),
                 seconds=time.perf_counter() - t0)
         elif args.only == "tune":
             t0 = time.perf_counter()
@@ -7085,6 +7494,10 @@ def main() -> int:
     for name, n in family_train_phase(torch, rows).items():
         launches[name] += n
     say("family_train_done", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for name, n in tp_phase(torch, rows).items():
+        launches[name] += n
+    say("tp_done", seconds=time.perf_counter() - t0)
     kernels = []
     for name in REPLACES:
         r = rows[name][MAIN_CASE[name]]

@@ -10,7 +10,7 @@ forward and backward.
 
     python3 scripts/flash_probe.py
     python3 scripts/flash_probe.py --digest
-    python3 scripts/flash_probe.py --times [--label NAME]
+    python3 scripts/flash_probe.py --times [--wmma] [--ptxas] [--label NAME]
 
 A quick check of a kernel edit before the full ``chip_smoke.py``; exits
 non-zero when there is no card, the build fails or a test fails.
@@ -24,6 +24,11 @@ the forward, the backward, its dq and dk/dv kernels alone, and SDPA's
 forward and backward, each the median of 20 CUDA-event timings after a
 128 MiB L2 flush; copied into an older tree it times that tree's kernels
 on the same inputs, so two trees run in one call compare on one card.
+``--wmma`` times :data:`WMMA_SHAPES` instead: the shapes that take the
+wmma / FFMA kernels (float32, and a bf16 head dim that is no multiple
+of 8), whisper-base's and deepseek-v2-lite-16b's float32 train shapes
+and ``chip_smoke.py``'s float32 flash cases among them.  ``--ptxas``
+prints the compiler's flash lines after the build.
 """
 
 from __future__ import annotations
@@ -84,11 +89,23 @@ DIGEST_CASES = [(1, 40, 8, 4096, 4096, 128, True, None, "bfloat16"),
                 (1, 4, 2, 333, 333, 160, True, None, "bfloat16"),
                 (1, 8, 8, 1500, 1500, 64, False, None, "bfloat16"),
                 (1, 24, 8, 4095, 4095, 64, True, None, "bfloat16")]
-# (name, B, H, Hkv, S, D, Dv), bf16, causal
-TIME_SHAPES = [("deepseek_train", 1, 16, 16, 4095, 192, 128),
-               ("deepseek_nocache_2048", 1, 16, 16, 2048, 192, 128),
-               ("stablelm_train", 1, 32, 8, 4096, 160, 160),
-               ("qwen_train", 1, 40, 8, 4096, 128, 128)]
+# (name, B, H, Hkv, Sq, Skv, D, Dv, causal, dtype)
+TIME_SHAPES = [
+    ("deepseek_train", 1, 16, 16, 4095, 4095, 192, 128, True, "bfloat16"),
+    ("deepseek_nocache_2048", 1, 16, 16, 2048, 2048, 192, 128, True,
+     "bfloat16"),
+    ("stablelm_train", 1, 32, 8, 4096, 4096, 160, 160, True, "bfloat16"),
+    ("qwen_train", 1, 40, 8, 4096, 4096, 128, 128, True, "bfloat16")]
+WMMA_SHAPES = [
+    ("whisper_encoder_f32", 1, 8, 8, 1500, 1500, 64, 64, False, "float32"),
+    ("whisper_cross_f32", 1, 8, 8, 447, 1500, 64, 64, False, "float32"),
+    ("deepseek_train_f32", 1, 16, 16, 4095, 4095, 192, 128, True,
+     "float32"),
+    ("ragged_empty_rows_f32", 1, 8, 2, 700, 300, 128, 128, True,
+     "float32"),
+    ("d160_f32", 1, 4, 2, 333, 333, 160, 160, False, "float32"),
+    ("d100_bf16", 1, 8, 2, 2048, 2048, 100, 100, True, "bfloat16"),
+    ("d60_bf16", 1, 16, 4, 4096, 4096, 60, 60, True, "bfloat16")]
 # every mma instantiation's (DP, DVP)
 MMA_SHAPES = [(64, 64), (128, 128), (160, 160), (192, 128), (192, 192),
               (256, 256)]
@@ -123,17 +140,18 @@ def digest(torch, fa) -> None:
     print(f"flash digest, all cases: {whole.hexdigest()}", flush=True)
 
 
-def times(torch, fa, label: str) -> None:
-    """One JSON line a shape of :data:`TIME_SHAPES`."""
+def times(torch, fa, label: str, shapes) -> None:
+    """One JSON line a shape of ``shapes``."""
     import torch.nn.functional as F
 
-    for name, b, h, hkv, s, d, dv in TIME_SHAPES:
+    for name, b, h, hkv, sq, s, d, dv, causal, dts in shapes:
+        dt = getattr(torch, dts)
         g = torch.Generator(device="cuda").manual_seed(s + d)
-        q = torch.randn(b, h, s, d, device="cuda", generator=g).bfloat16()
-        do = torch.randn(b, h, s, dv, device="cuda", generator=g).bfloat16()
-        k = torch.randn(b, hkv, s, d, device="cuda", generator=g).bfloat16()
-        v = torch.randn(b, hkv, s, dv, device="cuda", generator=g).bfloat16()
-        kw = dict(causal=True, scale=d ** -0.5)
+        q = torch.randn(b, h, sq, d, device="cuda", generator=g).to(dt)
+        do = torch.randn(b, h, sq, dv, device="cuda", generator=g).to(dt)
+        k = torch.randn(b, hkv, s, d, device="cuda", generator=g).to(dt)
+        v = torch.randn(b, hkv, s, dv, device="cuda", generator=g).to(dt)
+        kw = dict(causal=causal, scale=d ** -0.5)
         o, m, n = fa.flash_attention_fwd_gqa(q, k, v, **kw)
         delta = fa.attention_delta(o, do).contiguous()
         outs = [torch.empty_like(t) for t in (q, k, v)]
@@ -142,10 +160,11 @@ def times(torch, fa, label: str) -> None:
 
         def sdpa():
             return F.scaled_dot_product_attention(
-                qr, kr, vr, is_causal=True, enable_gqa=True)
+                qr, kr, vr, is_causal=causal, enable_gqa=True)
 
         row = dict(
-            label=label, shape=name, b=b, h=h, hkv=hkv, s=s, d=d, dv=dv,
+            label=label, shape=name, b=b, h=h, hkv=hkv, sq=sq, s=s, d=d,
+            dv=dv, causal=causal, dtype=dts,
             fwd_ms=median_ms(torch, lambda: fa.flash_attention_fwd_gqa(
                 q, k, v, **kw)),
             bwd_ms=median_ms(torch, lambda: fa.flash_attention_bwd_gqa(
@@ -181,8 +200,12 @@ def main() -> int:
         return 0
     if "--times" in args:
         _build.build_all()
+        if "--ptxas" in args:
+            print("\n".join(ln for ln in _build.ptxas_report().splitlines()
+                            if ln.startswith("flash_attention")), flush=True)
         label = args[args.index("--label") + 1] if "--label" in args else ""
-        times(torch, fa, label)
+        times(torch, fa, label,
+              WMMA_SHAPES if "--wmma" in args else TIME_SHAPES)
         return 0
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

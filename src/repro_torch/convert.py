@@ -97,3 +97,15 @@ def params_from_jax(tree_of_numpy: dict, cfg: ModelConfig,
             raise ValueError(f"{name} stack {lead} layers, config has "
                              f"{depth}")
     return _to_torch(tree_of_numpy, torch.device(device))
+
+
+def params_for_rank(tree_of_numpy: dict, cfg: ModelConfig, mesh,
+                    device="cuda") -> dict:
+    """This rank's serving shard of the reference's parameters: the
+    reference's ``init_lm(key, cfg, tp)`` tree (q-heads padded for the
+    mesh's model axis) carried across by :func:`params_from_jax`, then
+    cut along ``model`` by ``sharding.param_specs(..., fsdp=False)``."""
+    from repro_torch.distributed import sharding
+
+    return sharding.shard_params(
+        params_from_jax(tree_of_numpy, cfg, device), cfg, mesh)

@@ -102,6 +102,19 @@ def exp2_int(n: torch.Tensor) -> torch.Tensor:
     return ((n + 127.0).to(torch.int32) << 23).view(torch.float32)
 
 
+def ext_exp_reconstruct(e: ExtFloat) -> torch.Tensor:
+    """The reconstruction ``m * 2^n`` that the Two-Pass algorithm leaves out
+    of its intermediates (it overflows and underflows as plain exp does);
+    for tests and the three-pass baselines.  ``2^n`` by ``torch.exp2``, as
+    the reference's ``jnp.exp2``."""
+    return e.mantissa * torch.exp2(e.exponent)
+
+
+def exp_via_extexp(x: torch.Tensor) -> torch.Tensor:
+    """exp built from ExtExp and the reconstruction (paper Alg 4)."""
+    return ext_exp_reconstruct(ext_exp(x))
+
+
 def ext_zero(shape=(), device=None) -> ExtFloat:
     """Identity element of the (m, n) addition monoid."""
     return ExtFloat(torch.zeros(shape, dtype=torch.float32, device=device),
@@ -115,6 +128,11 @@ def ext_add(a: ExtFloat, b: ExtFloat) -> ExtFloat:
     m = (a.mantissa * exp2_int(a.exponent - n_max)
          + b.mantissa * exp2_int(b.exponent - n_max))
     return ExtFloat(m, n_max)
+
+
+def ext_scale_add(acc: ExtFloat, elt: ExtFloat) -> ExtFloat:
+    """:func:`ext_add` with (accumulator, element) argument order."""
+    return ext_add(acc, elt)
 
 
 def ext_sum(e: ExtFloat, axis: int = -1, keepdims: bool = False) -> ExtFloat:

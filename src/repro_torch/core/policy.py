@@ -18,6 +18,7 @@ tensor on the card and runs its plain version for a tensor on the CPU;
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -43,6 +44,10 @@ class SoftmaxPolicy:
     def __post_init__(self):
         object.__setattr__(self, "algorithm",
                            SoftmaxAlgorithm(self.algorithm))
+
+    def replace(self, **changes) -> "SoftmaxPolicy":
+        """A copy with ``changes`` applied (``dataclasses.replace``)."""
+        return dataclasses.replace(self, **changes)
 
     @classmethod
     def from_config(cls, cfg) -> "SoftmaxPolicy":
@@ -100,6 +105,21 @@ class SoftmaxPolicy:
 
             return ops.softmax(x, algorithm=self.algorithm)
         return _ALGOS[self.algorithm](x, axis=axis)
+
+    def softmax_stats(self, x: torch.Tensor):
+        """Pass 1 of the two-pass softmax over the last axis: the rows'
+        ``(m_sum, n_sum)`` (an ``ExtFloat``, the axis kept).  With kernels
+        it is the stats kernel (``ops.logsumexp_stats``: the CUDA kernel on
+        the card, its plain version on the CPU); otherwise the plain form.
+        The sharded softmax takes it for each rank's slice."""
+        if self.use_kernels:
+            from repro_torch.core.numerics import ExtFloat
+            from repro_torch.kernels import ops
+
+            lead = x.shape[:-1]
+            m, n = ops.logsumexp_stats(x.reshape(-1, x.shape[-1]))
+            return ExtFloat(m.reshape(*lead, 1), n.reshape(*lead, 1))
+        return twopass.twopass_softmax_stats(x, axis=-1)
 
     def logsumexp(self, x: torch.Tensor, axis: int = -1,
                   keepdims: bool = False) -> torch.Tensor:

@@ -18,10 +18,10 @@
 // D]; v, dv [B, Hkv, Skv, Dv], H a multiple of Hkv (GQA: q-head h reads KV
 // head h / (H / Hkv), K/V are never repeated); stats and delta [B, H, Sq]
 // float32; all contiguous.  D and Dv (v's head dim, which multi-head latent
-// attention sets apart from D: 192 / 128 for deepseek-v2-lite) are each at
-// most 256, any width; tiles are zero-filled to Dp / Dvp (D / Dv rounded
-// up to 16) in shared memory, with scalar loads where a row is not a
-// whole number of 16-byte groups, and ragged Sq / Skv edges are masked
+// attention sets apart from D: 192 / 128 for deepseek-v2-lite) take any
+// width; tiles are zero-filled to Dp / Dvp (D / Dv rounded up to 16) in
+// shared memory, with scalar loads where a row is not a whole number of
+// 16-byte groups, and ragged Sq / Skv edges are masked
 // here, so nothing is padded in device memory.  Query row i sits at
 // position i + Skv - Sq (the ends of the two sequences align), so a causal
 // call with Sq > Skv has rows that see no key: their o, dq and stats are
@@ -52,10 +52,20 @@
 //     (160, 160), (192, 128), (192, 192) and (256, 256); a call takes the
 //     first that holds round16(D) and round16(Dv), the columns past them
 //     zero-filled in shared memory;
-//   * float32 (FFMA, the kernel checks' path), or a D or Dv that is no
-//     multiple of 8: flash_fwd, flash_dq and flash_dkv, nvcuda::wmma
-//     16x16x16 through shared memory, one cp.async stage, V, o, dO and
-//     the products with them in Dvp columns.
+//   * float32 (FFMA, the kernel checks' path), a D or Dv that is no
+//     multiple of 8, or one over 256 (any dtype): flash_fwd, flash_dq and
+//     flash_dkv, nvcuda::wmma 16x16x16 through shared memory, one cp.async
+//     stage, V, o, dO and the products with them in Dvp columns.  A head
+//     dim over 256 goes through shared memory in chunks of 256 columns
+//     (kChunk): the score products q k^T and do v^T continue their sums
+//     over the chunks, and the accumulators o, dq, dk and dv take one
+//     chunk of columns a pass over the other axis's tiles, each pass
+//     forming the same scores and row stats again.  The forward's
+//     chunked walk is an instantiation of its own (CH), so that at D, Dv
+//     <= 256 it compiles to one chunk and one pass; the backward kernels
+//     walk the chunks at run time (one chunk, one pass at D, Dv <= 256):
+//     on the H100 a compile-time walk of theirs ran dq up to 1.9x slower
+//     at D <= 256 (scripts/flash_probe.py --times --wmma).
 //
 // The mma kernels.  64-row tiles on both axes, each warp a 16-row strip of
 // the block's own tile (Q for the forward and dq, K / V for dk/dv);
@@ -111,7 +121,8 @@ using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxD = 256;
+constexpr int kMaxD = 256;    // the mma kernels' largest head dim
+constexpr int kChunk = 256;   // head-dim columns a wmma / FFMA tile holds
 
 // The problem, shared by every kernel.
 struct Attn {
@@ -221,6 +232,55 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, int r0,
   }
 }
 
+// Columns [0, cols) of rows [r0, r0 + nrows) of a row-major matrix of row
+// stride `stride` (a head-dim chunk: src points at the chunk's first
+// column) into dst, as load_tile: columns zero-filled to Dp, rows past
+// `rows` zero, aligned 16-byte groups by cp.async.
+template <typename T>
+__device__ __forceinline__ void load_cols(const T* __restrict__ src, int r0,
+                                          int nrows, int rows, int stride,
+                                          int cols, int Dp, T* dst, int ld,
+                                          bool vec) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int groups = Dp / kVec;
+  vec = vec && stride % kVec == 0;
+  for (int i = threadIdx.x; i < nrows * groups; i += kThreads) {
+    const int r = i / groups, c = (i % groups) * kVec;
+    const int gr = r0 + r;
+    T* d = dst + r * ld + c;
+    const T* s = src + static_cast<size_t>(gr) * stride + c;
+    if (vec && gr < rows && c + kVec <= cols) {
+      const unsigned sd = static_cast<unsigned>(__cvta_generic_to_shared(d));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sd),
+                   "l"(s));
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        d[e] = (gr < rows && c + e < cols) ? s[e] : zero_of<T>();
+    }
+  }
+}
+
+// A head dim's chunk width in shared memory: Dp (a multiple of 16) up to
+// kChunk.  A head dim of at most kChunk is one chunk.
+__host__ __device__ constexpr int chunk_of(int Dp) {
+  return Dp < kChunk ? Dp : kChunk;
+}
+
+// The forward's chunked walk's bounds in an instantiation with CH (a head
+// dim over kChunk).  Without CH every loop over chunks runs once with the
+// whole head dim, known at compile time, so that D, Dv <= kChunk compiles
+// to the single-chunk loops: the end of a loop over chunks, and the
+// columns of the chunk from c0 of a dim of n.
+template <bool CH>
+__device__ __forceinline__ int chunks_end(int Dp) {
+  return CH ? Dp : 1;
+}
+template <bool CH>
+__device__ __forceinline__ int chunk_cols(int n, int c0) {
+  return CH ? min(kChunk, n - c0) : n;
+}
+
 __device__ __forceinline__ void wait_loads() {
   asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();
@@ -323,6 +383,47 @@ __device__ __forceinline__ void prod_nt(const float* A, int lda,
   ffma_prod<false, true>(A, lda, B, ldb, M, N, K,
                          [&](int r, int c, float v) { C[r * ldc + c] = v; });
 }
+// C += A B^T, each sum continued from C's value (a head dim's later chunk:
+// the chunks' products add up as one product over the whole head dim).
+__device__ __forceinline__ void prod_nt_acc(const bf16* A, int lda,
+                                            const bf16* B, int ldb, int M,
+                                            int N, int K, float* C, int ldc) {
+  const int warp = threadIdx.x >> 5, nt = N / 16;
+  for (int it = warp; it < (M / 16) * nt; it += kWarps) {
+    const int m0 = (it / nt) * 16, n0 = (it % nt) * 16;
+    Acc acc;
+    wmma::load_matrix_sync(acc, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+      wmma::load_matrix_sync(fa, A + m0 * lda + k0, lda);
+      wmma::load_matrix_sync(fb, B + n0 * ldb + k0, ldb);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    wmma::store_matrix_sync(C + m0 * ldc + n0, acc, ldc, wmma::mem_row_major);
+  }
+}
+__device__ __forceinline__ void prod_nt_acc(const float* A, int lda,
+                                            const float* B, int ldb, int M,
+                                            int N, int K, float* C, int ldc) {
+  for (int i = threadIdx.x; i < M * N; i += kThreads) {
+    const int r = i / N, c = i % N;
+    float s = C[r * ldc + c];
+    for (int k = 0; k < K; ++k) s = fmaf(A[r * lda + k], B[c * ldb + k], s);
+    C[r * ldc + c] = s;
+  }
+}
+// The scores' product over one head-dim chunk: the first stores, a later
+// one accumulates.
+template <typename T>
+__device__ __forceinline__ void prod_chunk(const T* A, int lda, const T* B,
+                                           int ldb, int M, int N, int K,
+                                           float* C, int ldc, bool first) {
+  if (first)
+    prod_nt(A, lda, B, ldb, M, N, K, C, ldc);
+  else
+    prod_nt_acc(A, lda, B, ldb, M, N, K, C, ldc);
+}
 
 // epi(r, c, sum_p A_p B) for every output, A_p [M][K] (A_COL: stored
 // [K][M]), B [K][N]; bf16 through a 16 x 16 staging buffer per warp.
@@ -385,7 +486,7 @@ struct FwdLayout {
   }
 };
 
-template <typename T, int BQ, int BK>
+template <typename T, int BQ, int BK, bool CH>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o,
@@ -395,9 +496,10 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int TPR = kThreads / BQ;  // threads per row
   constexpr int CPT = BK / TPR;       // columns per thread
   extern __shared__ __align__(128) unsigned char smem[];
-  const FwdLayout<T, BQ, BK> L(a.Dp, a.Dvp);
-  const int ld = ld_in<T>(a.Dp), ldv = ld_in<T>(a.Dvp), lds = BK + 4,
-            ldw = BK + P::pad, ldo = a.Dvp + 4;
+  const int Dc = chunk_of(a.Dp), Dvc = chunk_of(a.Dvp);
+  const FwdLayout<T, BQ, BK> L(Dc, Dvc);
+  const int ld = ld_in<T>(Dc), ldv = ld_in<T>(Dvc), lds = BK + 4,
+            ldw = BK + P::pad, ldo = Dvc + 4;
   T* Qs = reinterpret_cast<T*>(smem + L.qs);
   T* Ks = reinterpret_cast<T*>(smem + L.ks);
   float* stage = reinterpret_cast<float*>(smem + L.ks);
@@ -420,83 +522,100 @@ __global__ void __launch_bounds__(kThreads)
   const T* kp = k + krow * a.D;
   const T* vp = v + krow * a.Dv;
   const bool vq = aligned16(qp), vk = aligned16(kp), vv = aligned16(vp);
-
-  load_tile(qp, q0, BQ, a.Sq, a.D, a.Dp, Qs, ld, vq);
-  for (int i = threadIdx.x; i < BQ * ldo; i += kThreads) Os[i] = 0.0f;
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
-    m_acc[r] = 0.0f;
-    n_acc[r] = repro::kMinusInfN;
-  }
+  // A head dim over kChunk is walked in chunks: the scores sum over D's
+  // chunks (Q's and K's chunks reloaded for each KV tile), and each of
+  // Dv's chunks is a pass over the KV tiles of its own, whose scores and
+  // row stats are the same bits in every pass.  At D, Dv <= kChunk there
+  // is one chunk and Q loads once.
+  const bool one_d = !CH || a.Dp <= kChunk;
+  if (one_d) load_tile(qp, q0, BQ, a.Sq, a.D, a.Dp, Qs, ld, vq);
   int jlo, jhi;
   kv_tiles<BQ, BK>(a, q0, jlo, jhi);
   const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
   const int qi = q0 + r;
-  for (int jt = jlo; jt < jhi; ++jt) {
-    const int k0 = jt * BK;
-    load_tile(kp, k0, BK, a.Skv, a.D, a.Dp, Ks, ld, vk);
-    load_tile(vp, k0, BK, a.Skv, a.Dv, a.Dvp, Vs, ldv, vv);
-    wait_loads();
-    prod_nt(Qs, ld, Ks, ld, BQ, BK, a.Dp, Ss, lds);
-    __syncthreads();
-    // scores of this thread's columns, masked; the row's largest
-    float x[CPT];
-    float xmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = part * CPT + j;
-      x[j] = visible(a, qi, k0 + c) ? __fmul_rn(Ss[r * lds + c], a.scale)
-                                    : -INFINITY;
-      xmax = fmaxf(xmax, x[j]);
+  for (int v0 = 0; v0 < chunks_end<CH>(a.Dvp); v0 += kChunk) {
+    const int vw = chunk_cols<CH>(a.Dvp, v0), vn = chunk_cols<CH>(a.Dv, v0);
+    for (int i = threadIdx.x; i < BQ * ldo; i += kThreads) Os[i] = 0.0f;
+    for (int rr = threadIdx.x; rr < BQ; rr += kThreads) {
+      m_acc[rr] = 0.0f;
+      n_acc[rr] = repro::kMinusInfN;
     }
+    for (int jt = jlo; jt < jhi; ++jt) {
+      const int k0 = jt * BK;
+      for (int d0 = 0; d0 < chunks_end<CH>(a.Dp); d0 += kChunk) {
+        const int dw = chunk_cols<CH>(a.Dp, d0), dn = chunk_cols<CH>(a.D, d0);
+        if (!one_d)
+          load_cols(qp + d0, q0, BQ, a.Sq, a.D, dn, dw, Qs, ld, vq);
+        load_cols(kp + d0, k0, BK, a.Skv, a.D, dn, dw, Ks, ld, vk);
+        if (!CH || d0 + kChunk >= a.Dp)
+          load_cols(vp + v0, k0, BK, a.Skv, a.Dv, vn, vw, Vs, ldv, vv);
+        wait_loads();
+        prod_chunk(Qs, ld, Ks, ld, BQ, BK, dw, Ss, lds, d0 == 0);
+        __syncthreads();
+      }
+      // scores of this thread's columns, masked; the row's largest
+      float x[CPT];
+      float xmax = -INFINITY;
 #pragma unroll
-    for (int off = 1; off < TPR; off <<= 1)
-      xmax = fmaxf(xmax, __shfl_xor_sync(0xffffffffu, xmax, off));
-    const float n_loc = n_of_max(xmax);
-    __syncthreads();  // the parts of w overwrite the scores
-    float msum = 0.0f;
+      for (int j = 0; j < CPT; ++j) {
+        const int c = part * CPT + j;
+        x[j] = visible(a, qi, k0 + c) ? __fmul_rn(Ss[r * lds + c], a.scale)
+                                      : -INFINITY;
+        xmax = fmaxf(xmax, x[j]);
+      }
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      float me, ne;
-      repro::ext_exp(x[j], me, ne);
-      const float w = __fmul_rn(me, repro::exp2_int(__fsub_rn(ne, n_loc)));
-      msum = __fadd_rn(msum, w);
-      put_parts(Wp + r * ldw + part * CPT + j, plane, w);
-    }
+      for (int off = 1; off < TPR; off <<= 1)
+        xmax = fmaxf(xmax, __shfl_xor_sync(0xffffffffu, xmax, off));
+      const float n_loc = n_of_max(xmax);
+      __syncthreads();  // the parts of w overwrite the scores
+      float msum = 0.0f;
 #pragma unroll
-    for (int off = 1; off < TPR; off <<= 1)
-      msum = __fadd_rn(msum, __shfl_xor_sync(0xffffffffu, msum, off));
-    if (part == 0) {
-      const float n_old = n_acc[r];
-      const float n_new = fmaxf(n_old, n_loc);
-      const float ao = repro::exp2_int(__fsub_rn(n_old, n_new));
-      const float al = repro::exp2_int(__fsub_rn(n_loc, n_new));
-      m_acc[r] = __fadd_rn(__fmul_rn(m_acc[r], ao), __fmul_rn(msum, al));
-      n_acc[r] = n_new;
-      a_old[r] = ao;
-      a_loc[r] = al;
+      for (int j = 0; j < CPT; ++j) {
+        float me, ne;
+        repro::ext_exp(x[j], me, ne);
+        const float w = __fmul_rn(me, repro::exp2_int(__fsub_rn(ne, n_loc)));
+        msum = __fadd_rn(msum, w);
+        put_parts(Wp + r * ldw + part * CPT + j, plane, w);
+      }
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1)
+        msum = __fadd_rn(msum, __shfl_xor_sync(0xffffffffu, msum, off));
+      if (part == 0) {
+        const float n_old = n_acc[r];
+        const float n_new = fmaxf(n_old, n_loc);
+        const float ao = repro::exp2_int(__fsub_rn(n_old, n_new));
+        const float al = repro::exp2_int(__fsub_rn(n_loc, n_new));
+        m_acc[r] = __fadd_rn(__fmul_rn(m_acc[r], ao), __fmul_rn(msum, al));
+        n_acc[r] = n_new;
+        a_old[r] = ao;
+        a_loc[r] = al;
+      }
+      __syncthreads();
+      // o = o * a_old + (w v) * a_loc
+      prod_parts<false>(Wp, ldw, plane, Vs, ldv, BQ, vw, BK, stage,
+                        [&](int rr, int c, float val) {
+                          float* p = Os + rr * ldo + c;
+                          *p = __fadd_rn(__fmul_rn(*p, a_old[rr]),
+                                         __fmul_rn(val, a_loc[rr]));
+                        });
+      __syncthreads();
     }
-    __syncthreads();
-    // o = o * a_old + (w v) * a_loc
-    prod_parts<false>(Wp, ldw, plane, Vs, ldv, BQ, a.Dvp, BK, stage,
-                      [&](int rr, int c, float val) {
-                        float* p = Os + rr * ldo + c;
-                        *p = __fadd_rn(__fmul_rn(*p, a_old[rr]),
-                                       __fmul_rn(val, a_loc[rr]));
-                      });
-    __syncthreads();
-  }
-  wait_loads();  // also when no KV tile was visible
-  for (int i = threadIdx.x; i < BQ * a.Dv; i += kThreads) {
-    const int rr = i / a.Dv, c = i % a.Dv;
-    if (q0 + rr < a.Sq)
-      repro::store(o + (qrow + q0 + rr) * a.Dv + c,
-                   __fdiv_rn(Os[rr * ldo + c], fmaxf(m_acc[rr], 1e-37f)));
-  }
-  for (int rr = threadIdx.x; rr < BQ; rr += kThreads) {
-    if (q0 + rr < a.Sq) {
-      m_out[qrow + q0 + rr] = m_acc[rr];
-      n_out[qrow + q0 + rr] = n_acc[rr];
+    wait_loads();  // also when no KV tile was visible
+    for (int i = threadIdx.x; i < BQ * vn; i += kThreads) {
+      const int rr = i / vn, c = i % vn;
+      if (q0 + rr < a.Sq)
+        repro::store(o + (qrow + q0 + rr) * a.Dv + v0 + c,
+                     __fdiv_rn(Os[rr * ldo + c], fmaxf(m_acc[rr], 1e-37f)));
     }
+    if (v0 == 0) {
+      for (int rr = threadIdx.x; rr < BQ; rr += kThreads) {
+        if (q0 + rr < a.Sq) {
+          m_out[qrow + q0 + rr] = m_acc[rr];
+          n_out[qrow + q0 + rr] = n_acc[rr];
+        }
+      }
+    }
+    __syncthreads();  // the next pass resets Os and the row stats
   }
 }
 
@@ -583,7 +702,9 @@ struct BwdLayout {
   }
 };
 
-// dq.  grid (H, B, ceil(Sq / BQ)), Q tiles from the last.
+// dq.  grid (H, B, ceil(Sq / BQ)), Q tiles from the last.  Over kChunk, each
+// of dq's D chunks is a pass over the KV tiles that forms s (over D's
+// chunks), dp (over Dv's chunks), ds and then its columns of ds k.
 template <typename T, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
     flash_dq(const T* __restrict__ q, const T* __restrict__ k,
@@ -593,9 +714,10 @@ __global__ void __launch_bounds__(kThreads)
   using P = Parts<T>;
   using PT = typename P::type;
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdLayout<T, BQ, BK> L(a.Dp, a.Dvp, false);
-  const int ld = ld_in<T>(a.Dp), ldv = ld_in<T>(a.Dvp), lds = BK + 4,
-            ldw = BK + P::pad, ldo = a.Dp + 4;
+  const int Dc = chunk_of(a.Dp), Dvc = chunk_of(a.Dvp);
+  const BwdLayout<T, BQ, BK> L(Dc, Dvc, false);
+  const int ld = ld_in<T>(Dc), ldv = ld_in<T>(Dvc), lds = BK + 4,
+            ldw = BK + P::pad, ldo = Dc + 4;
   T* Qs = reinterpret_cast<T*>(smem + L.a);
   T* dOs = reinterpret_cast<T*>(smem + L.b);
   T* Ks = reinterpret_cast<T*>(smem + L.c);
@@ -619,44 +741,69 @@ __global__ void __launch_bounds__(kThreads)
   const T* dop = dout + qrow * a.Dv;
   const T* kp = k + krow * a.D;
   const T* vp = v + krow * a.Dv;
-  const bool vk = aligned16(kp), vv = aligned16(vp);
+  const bool vq = aligned16(qp), vd = aligned16(dop), vk = aligned16(kp),
+             vv = aligned16(vp);
+  const bool one_d = a.Dp <= kChunk, one_v = a.Dvp <= kChunk;
 
-  load_tile(qp, q0, BQ, a.Sq, a.D, a.Dp, Qs, ld, aligned16(qp));
-  load_tile(dop, q0, BQ, a.Sq, a.Dv, a.Dvp, dOs, ldv, aligned16(dop));
+  if (one_d) load_tile(qp, q0, BQ, a.Sq, a.D, a.Dp, Qs, ld, vq);
+  if (one_v) load_tile(dop, q0, BQ, a.Sq, a.Dv, a.Dvp, dOs, ldv, vd);
   load_rows<BQ>(m_sum, n_sum, delta, qrow, q0, a.Sq, ns, inv, dl);
-  for (int i = threadIdx.x; i < BQ * ldo; i += kThreads) dQs[i] = 0.0f;
   int jlo, jhi;
   kv_tiles<BQ, BK>(a, q0, jlo, jhi);
-  for (int jt = jlo; jt < jhi; ++jt) {
-    const int k0 = jt * BK;
-    load_tile(kp, k0, BK, a.Skv, a.D, a.Dp, Ks, ld, vk);
-    load_tile(vp, k0, BK, a.Skv, a.Dv, a.Dvp, Vs, ldv, vv);
+  for (int d0 = 0; d0 < a.Dp; d0 += kChunk) {
+    const int ow = min(kChunk, a.Dp - d0), on = min(kChunk, a.D - d0);
+    for (int i = threadIdx.x; i < BQ * ldo; i += kThreads) dQs[i] = 0.0f;
+    for (int jt = jlo; jt < jhi; ++jt) {
+      const int k0 = jt * BK;
+      for (int e0 = 0; e0 < a.Dp; e0 += kChunk) {  // s = q k^T
+        const int ew = min(kChunk, a.Dp - e0), en = min(kChunk, a.D - e0);
+        if (!one_d)
+          load_cols(qp + e0, q0, BQ, a.Sq, a.D, en, ew, Qs, ld, vq);
+        load_cols(kp + e0, k0, BK, a.Skv, a.D, en, ew, Ks, ld, vk);
+        if (one_v && e0 + kChunk >= a.Dp)
+          load_tile(vp, k0, BK, a.Skv, a.Dv, a.Dvp, Vs, ldv, vv);
+        wait_loads();
+        prod_chunk(Qs, ld, Ks, ld, BQ, BK, ew, Ss, lds, e0 == 0);
+        __syncthreads();
+      }
+      for (int e0 = 0; e0 < a.Dvp; e0 += kChunk) {  // dp = do v^T
+        const int ew = min(kChunk, a.Dvp - e0), en = min(kChunk, a.Dv - e0);
+        if (!one_v) {
+          load_cols(dop + e0, q0, BQ, a.Sq, a.Dv, en, ew, dOs, ldv, vd);
+          load_cols(vp + e0, k0, BK, a.Skv, a.Dv, en, ew, Vs, ldv, vv);
+          wait_loads();
+        }
+        prod_chunk(dOs, ldv, Vs, ldv, BQ, BK, ew, Ps, lds, e0 == 0);
+        __syncthreads();
+      }
+      p_ds<BQ, BK>(a, q0, k0, Ss, Ps, lds, ns, inv, dl,
+                   [&](int rr, int c, float, float ds) {
+                     put_parts(DSp + rr * ldw + c, plane, ds);
+                   });
+      if (!one_d)  // K's columns of this pass (Ks holds D's last chunk)
+        load_cols(kp + d0, k0, BK, a.Skv, a.D, on, ow, Ks, ld, vk);
+      wait_loads();
+      prod_parts<false>(DSp, ldw, plane, Ks, ld, BQ, ow, BK, stage,
+                        [&](int rr, int c, float val) {
+                          float* p = dQs + rr * ldo + c;
+                          *p = __fadd_rn(*p, val);
+                        });
+      __syncthreads();
+    }
     wait_loads();
-    prod_nt(Qs, ld, Ks, ld, BQ, BK, a.Dp, Ss, lds);
-    prod_nt(dOs, ldv, Vs, ldv, BQ, BK, a.Dvp, Ps, lds);
-    __syncthreads();
-    p_ds<BQ, BK>(a, q0, k0, Ss, Ps, lds, ns, inv, dl,
-                 [&](int rr, int c, float, float ds) {
-                   put_parts(DSp + rr * ldw + c, plane, ds);
-                 });
-    __syncthreads();
-    prod_parts<false>(DSp, ldw, plane, Ks, ld, BQ, a.Dp, BK, stage,
-                      [&](int rr, int c, float val) {
-                        float* p = dQs + rr * ldo + c;
-                        *p = __fadd_rn(*p, val);
-                      });
-    __syncthreads();
-  }
-  wait_loads();
-  for (int i = threadIdx.x; i < BQ * a.D; i += kThreads) {
-    const int rr = i / a.D, c = i % a.D;
-    if (q0 + rr < a.Sq)
-      repro::store(dq + (qrow + q0 + rr) * a.D + c, dQs[rr * ldo + c]);
+    for (int i = threadIdx.x; i < BQ * on; i += kThreads) {
+      const int rr = i / on, c = i % on;
+      if (q0 + rr < a.Sq)
+        repro::store(dq + (qrow + q0 + rr) * a.D + d0 + c, dQs[rr * ldo + c]);
+    }
+    __syncthreads();  // the next pass resets dQs
   }
 }
 
 // dk, dv.  grid (Hkv, B, ceil(Skv / BK)); each block sums over the H / Hkv
-// q-heads of its KV head, then over their Q tiles, in order.
+// q-heads of its KV head, then over their Q tiles, in order.  Over kChunk,
+// pass i forms s, dp, p and ds for every (q-head, Q tile) and takes dk's
+// and dv's i-th chunks of columns.
 template <typename T, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
     flash_dkv(const T* __restrict__ q, const T* __restrict__ k,
@@ -668,9 +815,10 @@ __global__ void __launch_bounds__(kThreads)
   using P = Parts<T>;
   using PT = typename P::type;
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdLayout<T, BQ, BK> L(a.Dp, a.Dvp, true);
-  const int ld = ld_in<T>(a.Dp), ldv = ld_in<T>(a.Dvp), lds = BK + 4,
-            ldw = BK + P::pad, ldo = a.Dp + 4, ldov = a.Dvp + 4;
+  const int Dc = chunk_of(a.Dp), Dvc = chunk_of(a.Dvp);
+  const BwdLayout<T, BQ, BK> L(Dc, Dvc, true);
+  const int ld = ld_in<T>(Dc), ldv = ld_in<T>(Dvc), lds = BK + 4,
+            ldw = BK + P::pad, ldo = Dc + 4, ldov = Dvc + 4;
   T* Ks = reinterpret_cast<T*>(smem + L.a);
   T* Vs = reinterpret_cast<T*>(smem + L.b);
   T* Qs = reinterpret_cast<T*>(smem + L.c);
@@ -692,65 +840,101 @@ __global__ void __launch_bounds__(kThreads)
   const size_t krow = (static_cast<size_t>(b) * a.Hkv + hk) * a.Skv;
   const T* kp = k + krow * a.D;
   const T* vp = v + krow * a.Dv;
-  load_tile(kp, k0, BK, a.Skv, a.D, a.Dp, Ks, ld, aligned16(kp));
-  load_tile(vp, k0, BK, a.Skv, a.Dv, a.Dvp, Vs, ldv, aligned16(vp));
-  for (int i = threadIdx.x; i < BK * ldo; i += kThreads) dKs[i] = 0.0f;
-  for (int i = threadIdx.x; i < BK * ldov; i += kThreads) dVs[i] = 0.0f;
+  const bool vk = aligned16(kp), vv = aligned16(vp);
+  const bool one_d = a.Dp <= kChunk, one_v = a.Dvp <= kChunk;
+  if (one_d) load_tile(kp, k0, BK, a.Skv, a.D, a.Dp, Ks, ld, vk);
+  if (one_v) load_tile(vp, k0, BK, a.Skv, a.Dv, a.Dvp, Vs, ldv, vv);
   int ilo, ihi;
   q_tiles<BQ, BK>(a, k0, ilo, ihi);
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    const size_t qrow = (static_cast<size_t>(b) * a.H + h) * a.Sq;
-    const T* qp = q + qrow * a.D;
-    const T* dop = dout + qrow * a.Dv;
-    const bool vq = aligned16(qp), vd = aligned16(dop);
-    for (int it = ilo; it < ihi; ++it) {
-      const int q0 = it * BQ;
-      load_tile(qp, q0, BQ, a.Sq, a.D, a.Dp, Qs, ld, vq);
-      load_tile(dop, q0, BQ, a.Sq, a.Dv, a.Dvp, dOs, ldv, vd);
-      load_rows<BQ>(m_sum, n_sum, delta, qrow, q0, a.Sq, ns, inv, dl);
-      wait_loads();
-      prod_nt(Qs, ld, Ks, ld, BQ, BK, a.Dp, Ss, lds);
-      prod_nt(dOs, ldv, Vs, ldv, BQ, BK, a.Dvp, Ps, lds);
-      __syncthreads();
-      // p's parts for dv; ds kept in place of dp (one thread per element)
-      p_ds<BQ, BK>(a, q0, k0, Ss, Ps, lds, ns, inv, dl,
-                   [&](int rr, int c, float p, float ds) {
-                     put_parts(Pp + rr * ldw + c, plane, p);
-                     Ps[rr * lds + c] = ds;
-                   });
-      __syncthreads();
-      // dv += p^T do
-      prod_parts<true>(Pp, ldw, plane, dOs, ldv, BK, a.Dvp, BQ, stage,
-                       [&](int rr, int c, float val) {
-                         float* p = dVs + rr * ldov + c;
-                         *p = __fadd_rn(*p, val);
-                       });
-      __syncthreads();
-      for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
-        const int rr = i / BK, c = i % BK;
-        put_parts(Pp + rr * ldw + c, plane, Ps[rr * lds + c]);
+  const int passes = max(cdiv(a.Dp, kChunk), cdiv(a.Dvp, kChunk));
+  for (int pass = 0; pass < passes; ++pass) {
+    const int d0 = pass * kChunk;
+    const int ow = max(0, min(kChunk, a.Dp - d0)),
+              on = max(0, min(kChunk, a.D - d0));
+    const int vw = max(0, min(kChunk, a.Dvp - d0)),
+              vn = max(0, min(kChunk, a.Dv - d0));
+    for (int i = threadIdx.x; i < BK * ldo; i += kThreads) dKs[i] = 0.0f;
+    for (int i = threadIdx.x; i < BK * ldov; i += kThreads) dVs[i] = 0.0f;
+    for (int g = 0; g < G; ++g) {
+      const int h = hk * G + g;
+      const size_t qrow = (static_cast<size_t>(b) * a.H + h) * a.Sq;
+      const T* qp = q + qrow * a.D;
+      const T* dop = dout + qrow * a.Dv;
+      const bool vq = aligned16(qp), vd = aligned16(dop);
+      for (int it = ilo; it < ihi; ++it) {
+        const int q0 = it * BQ;
+        load_rows<BQ>(m_sum, n_sum, delta, qrow, q0, a.Sq, ns, inv, dl);
+        for (int e0 = 0; e0 < a.Dp; e0 += kChunk) {  // s = q k^T
+          const int ew = min(kChunk, a.Dp - e0), en = min(kChunk, a.D - e0);
+          if (!one_d)
+            load_cols(kp + e0, k0, BK, a.Skv, a.D, en, ew, Ks, ld, vk);
+          load_cols(qp + e0, q0, BQ, a.Sq, a.D, en, ew, Qs, ld, vq);
+          if (one_v && e0 + kChunk >= a.Dp)
+            load_tile(dop, q0, BQ, a.Sq, a.Dv, a.Dvp, dOs, ldv, vd);
+          wait_loads();
+          prod_chunk(Qs, ld, Ks, ld, BQ, BK, ew, Ss, lds, e0 == 0);
+          __syncthreads();
+        }
+        for (int e0 = 0; e0 < a.Dvp; e0 += kChunk) {  // dp = do v^T
+          const int ew = min(kChunk, a.Dvp - e0),
+                    en = min(kChunk, a.Dv - e0);
+          if (!one_v) {
+            load_cols(vp + e0, k0, BK, a.Skv, a.Dv, en, ew, Vs, ldv, vv);
+            load_cols(dop + e0, q0, BQ, a.Sq, a.Dv, en, ew, dOs, ldv, vd);
+            wait_loads();
+          }
+          prod_chunk(dOs, ldv, Vs, ldv, BQ, BK, ew, Ps, lds, e0 == 0);
+          __syncthreads();
+        }
+        // p's parts for dv; ds kept in place of dp (one thread per element)
+        p_ds<BQ, BK>(a, q0, k0, Ss, Ps, lds, ns, inv, dl,
+                     [&](int rr, int c, float p, float ds) {
+                       put_parts(Pp + rr * ldw + c, plane, p);
+                       Ps[rr * lds + c] = ds;
+                     });
+        if (vw > 0) {
+          if (!one_v)  // dO's columns of this pass
+            load_cols(dop + d0, q0, BQ, a.Sq, a.Dv, vn, vw, dOs, ldv, vd);
+          wait_loads();
+          // dv += p^T do
+          prod_parts<true>(Pp, ldw, plane, dOs, ldv, BK, vw, BQ, stage,
+                           [&](int rr, int c, float val) {
+                             float* p = dVs + rr * ldov + c;
+                             *p = __fadd_rn(*p, val);
+                           });
+        }
+        __syncthreads();
+        if (ow > 0) {
+          for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
+            const int rr = i / BK, c = i % BK;
+            put_parts(Pp + rr * ldw + c, plane, Ps[rr * lds + c]);
+          }
+          if (!one_d)  // Q's columns of this pass
+            load_cols(qp + d0, q0, BQ, a.Sq, a.D, on, ow, Qs, ld, vq);
+          wait_loads();
+          // dk += ds^T q
+          prod_parts<true>(Pp, ldw, plane, Qs, ld, BK, ow, BQ, stage,
+                           [&](int rr, int c, float val) {
+                             float* p = dKs + rr * ldo + c;
+                             *p = __fadd_rn(*p, val);
+                           });
+        }
+        __syncthreads();
       }
-      __syncthreads();
-      // dk += ds^T q
-      prod_parts<true>(Pp, ldw, plane, Qs, ld, BK, a.Dp, BQ, stage,
-                       [&](int rr, int c, float val) {
-                         float* p = dKs + rr * ldo + c;
-                         *p = __fadd_rn(*p, val);
-                       });
-      __syncthreads();
     }
-  }
-  wait_loads();
-  for (int i = threadIdx.x; i < BK * a.D; i += kThreads) {
-    const int rr = i / a.D, c = i % a.D;
-    if (k0 + rr < a.Skv)
-      repro::store(dk + (krow + k0 + rr) * a.D + c, dKs[rr * ldo + c]);
-  }
-  for (int i = threadIdx.x; i < BK * a.Dv; i += kThreads) {
-    const int rr = i / a.Dv, c = i % a.Dv;
-    if (k0 + rr < a.Skv)
-      repro::store(dv + (krow + k0 + rr) * a.Dv + c, dVs[rr * ldov + c]);
+    wait_loads();
+    for (int i = threadIdx.x; i < BK * on; i += kThreads) {
+      const int rr = i / on, c = i % on;
+      if (k0 + rr < a.Skv)
+        repro::store(dk + (krow + k0 + rr) * a.D + d0 + c, dKs[rr * ldo + c]);
+    }
+    for (int i = threadIdx.x; i < BK * vn; i += kThreads) {
+      const int rr = i / vn, c = i % vn;
+      if (k0 + rr < a.Skv)
+        repro::store(dv + (krow + k0 + rr) * a.Dv + d0 + c,
+                     dVs[rr * ldov + c]);
+    }
+    __syncthreads();  // the next pass resets dKs and dVs
   }
 }
 
@@ -1443,9 +1627,11 @@ cudaError_t mma_prepare(int which, const void*& f, int& threads,
   return e;
 }
 
-// The mma kernels take bf16 with D and Dv multiples of 8 (each at most
-// 256, as every call).
-bool mma_ok(int D, int Dv) { return D % 8 == 0 && Dv % 8 == 0; }
+// The mma kernels take bf16 with D and Dv multiples of 8, each at most
+// kMaxD; a wider head takes the wmma kernels, which walk it in chunks.
+bool mma_ok(int D, int Dv) {
+  return D % 8 == 0 && Dv % 8 == 0 && D <= kMaxD && Dv <= kMaxD;
+}
 
 template <int DP_, int DVP_>
 struct MmaShape {
@@ -1469,10 +1655,13 @@ template <typename T, int BQ, int BK>
 cudaError_t fwd_launch(const void* q, const void* k, const void* v, void* o,
                        float* m, float* n, int B, const Attn& a,
                        cudaStream_t s) {
-  const size_t bytes = FwdLayout<T, BQ, BK>(a.Dp, a.Dvp).total;
-  cudaError_t e = allow_smem(flash_fwd<T, BQ, BK>, bytes);
+  const size_t bytes =
+      FwdLayout<T, BQ, BK>(chunk_of(a.Dp), chunk_of(a.Dvp)).total;
+  const auto f = a.Dp > kChunk || a.Dvp > kChunk ? flash_fwd<T, BQ, BK, true>
+                                                  : flash_fwd<T, BQ, BK, false>;
+  cudaError_t e = allow_smem(f, bytes);
   if (e != cudaSuccess) return e;
-  flash_fwd<T, BQ, BK><<<dim3(a.H, B, cdiv(a.Sq, BQ)), kThreads, bytes, s>>>(
+  f<<<dim3(a.H, B, cdiv(a.Sq, BQ)), kThreads, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), m, n, a);
   return cudaGetLastError();
@@ -1508,9 +1697,10 @@ cudaError_t fwd_any(const void* q, const void* k, const void* v, void* o,
       });
   }
   const size_t cap = static_cast<size_t>(max_smem());
-  if (FwdLayout<T, 64, 64>(a.Dp, a.Dvp).total <= cap)
+  const int Dc = chunk_of(a.Dp), Dvc = chunk_of(a.Dvp);
+  if (FwdLayout<T, 64, 64>(Dc, Dvc).total <= cap)
     return fwd_launch<T, 64, 64>(q, k, v, o, m, n, B, a, s);
-  if (FwdLayout<T, 64, 32>(a.Dp, a.Dvp).total <= cap)
+  if (FwdLayout<T, 64, 32>(Dc, Dvc).total <= cap)
     return fwd_launch<T, 64, 32>(q, k, v, o, m, n, B, a, s);
   return fwd_launch<T, 32, 32>(q, k, v, o, m, n, B, a, s);
 }
@@ -1524,7 +1714,8 @@ struct BwdArgs {
 template <typename T, int BQ, int BK>
 cudaError_t bwd_launch(const BwdArgs& g, int B, const Attn& a, bool dkv,
                        cudaStream_t s) {
-  const size_t bytes = BwdLayout<T, BQ, BK>(a.Dp, a.Dvp, dkv).total;
+  const size_t bytes =
+      BwdLayout<T, BQ, BK>(chunk_of(a.Dp), chunk_of(a.Dvp), dkv).total;
   const T* q = static_cast<const T*>(g.q);
   const T* k = static_cast<const T*>(g.k);
   const T* v = static_cast<const T*>(g.v);
@@ -1583,9 +1774,10 @@ cudaError_t bwd_any(const BwdArgs& g, int B, const Attn& a, bool dkv,
       });
   }
   const size_t cap = static_cast<size_t>(max_smem());
-  if (BwdLayout<T, 64, 64>(a.Dp, a.Dvp, dkv).total <= cap)
+  const int Dc = chunk_of(a.Dp), Dvc = chunk_of(a.Dvp);
+  if (BwdLayout<T, 64, 64>(Dc, Dvc, dkv).total <= cap)
     return bwd_launch<T, 64, 64>(g, B, a, dkv, s);
-  if (BwdLayout<T, 64, 32>(a.Dp, a.Dvp, dkv).total <= cap)
+  if (BwdLayout<T, 64, 32>(Dc, Dvc, dkv).total <= cap)
     return bwd_launch<T, 64, 32>(g, B, a, dkv, s);
   return bwd_launch<T, 32, 32>(g, B, a, dkv, s);
 }
@@ -1593,7 +1785,7 @@ cudaError_t bwd_any(const BwdArgs& g, int B, const Attn& a, bool dkv,
 bool make_attn(int H, int Hkv, int Sq, int Skv, int D, int Dv, float scale,
                int causal, int window, Attn& a) {
   if (H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Skv < 0 || D < 1 ||
-      D > kMaxD || Dv < 1 || Dv > kMaxD)
+      Dv < 1)
     return false;
   a = Attn{H, Hkv, Sq, Skv, D, round16(D), scale, causal, window, Dv,
            round16(Dv)};
@@ -1655,10 +1847,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
 }
 
 // 1 where bf16 (dtype 1) at head dims D, Dv takes the mma kernels, 0
-// where it takes the wmma / FFMA ones (float32 always), -1 for a D or Dv
-// that no kernel takes.
+// where it takes the wmma / FFMA ones (float32 always, and a head dim over
+// kMaxD), -1 for a D or Dv under 1.
 int flash_attention_uses_mma(int D, int Dv, int dtype) {
-  if (D < 1 || D > kMaxD || Dv < 1 || Dv > kMaxD) return -1;
+  if (D < 1 || Dv < 1) return -1;
   return dtype == 1 && mma_ok(D, Dv) ? 1 : 0;
 }
 

@@ -8,8 +8,9 @@
     trainer logs it).
   * ``RestartPolicy``: an exponential-backoff restart budget.
   * ``elastic_plan``: the largest (data, model) mesh on the surviving
-    chips.  The port has no mesh yet (ROADMAP queue A item 22); the plan
-    is arithmetic and is kept for that work.
+    chips.  The port's training has no mesh yet (ROADMAP queue A item
+    22; serving has one, ``launch/mesh.py``); the plan is arithmetic and
+    is kept for that work.
 """
 
 from __future__ import annotations

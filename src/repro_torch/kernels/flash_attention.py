@@ -40,7 +40,8 @@ from repro_torch.kernels.twopass_softmax import _DTYPES, _I, _P
 
 MAX_Q_CHUNKS = 8           # chunk-count guards of the plain versions
 MAX_KV_CHUNKS = 16
-MAX_D = 256                # the kernels' largest head dim
+MMA_MAX_D = 256            # the mma kernels' largest head dim; wider
+                           # heads take the wmma kernels, in chunks
 
 _F = ctypes.c_float
 
@@ -219,13 +220,13 @@ def design(dtype: torch.dtype, d: int, dv: int | None = None) -> str:
     """The kernels a call on the card takes at ``dtype`` and head dims
     ``d``, ``dv``, as the CUDA side routes it: ``"mma"`` (``flash_fwd_mma``,
     ``flash_dq_mma``, ``flash_dkv_mma``: bf16 with both head dims
-    multiples of 8) or ``"wmma"`` (``flash_fwd``, ``flash_dq``,
-    ``flash_dkv``)."""
+    multiples of 8, at most ``MMA_MAX_D``) or ``"wmma"`` (``flash_fwd``,
+    ``flash_dq``, ``flash_dkv``; a head dim over 256 in chunks of 256)."""
     dv = d if dv is None else dv
     rc = _lib().flash_attention_uses_mma(d, dv, _DTYPES[dtype])
     if rc < 0:
         raise ValueError(f"flash attention: head dims {d} / {dv}; the "
-                         f"kernels take 1 to {MAX_D}")
+                         "kernels take 1 or more")
     return "mma" if rc else "wmma"
 
 
@@ -247,9 +248,9 @@ def _check_qkv(what: str, q, k, v, window) -> None:
                          "[B, Hkv, Skv, D], v [B, Hkv, Skv, Dv] with Hkv "
                          "dividing H")
     for name, e in (("D", d), ("Dv", v.shape[3])):
-        if not 1 <= e <= MAX_D:
+        if e < 1:
             raise ValueError(f"{what}: head dim {name} = {e}; the kernels "
-                             f"take 1 to {MAX_D}")
+                             "take 1 or more")
     if window is not None and window <= 0:
         raise ValueError(f"{what}: window {window} must be positive")
 

@@ -35,18 +35,33 @@ MAX_T_CHUNKS = 16
 
 
 def _blocks(op: str, rows: int, cols: int, dtype, device, block_rows,
-            block_cols, policy=None) -> tuple[int, int]:
+            block_cols, policy=None, shards: int = 1) -> tuple[int, int]:
     """Explicit args win, then the policy's overrides and cache setting,
-    then the registry.  The cache key carries the operands' dtype and the
-    backend of the device they are on."""
+    then the registry.  The cache key carries the operands' dtype, the
+    backend of the device they are on and, over 1, the tensor-parallel
+    shard count (``|s{shards}``)."""
     backend = registry.backend_of(device)
     if policy is not None:
         return policy.resolve_blocks(op, rows, cols, dtype,
                                      block_rows=block_rows,
-                                     block_cols=block_cols, backend=backend)
+                                     block_cols=block_cols, shards=shards,
+                                     backend=backend)
     return registry.block_shapes(op, rows, cols, dtype,
                                  block_rows=block_rows,
-                                 block_cols=block_cols, backend=backend)
+                                 block_cols=block_cols, backend=backend,
+                                 shards=shards)
+
+
+def _tp_shards() -> int:
+    """The model axis's size under an active mesh (1 without one).  Under a
+    mesh the decode ops' operands are already a rank's (its KV heads, or
+    its q-heads with KV expanded), so the kernel runs per rank at the
+    local head count, as the reference's ``shard_map`` dispatch; the count
+    keys the autotune cache, since a rank's grid sees ``1/tp`` of the
+    heads."""
+    from repro_torch.distributed import collectives
+
+    return collectives.model_axis()[0]
 
 
 _SOFTMAX_2D = {
@@ -362,7 +377,7 @@ def decode_attention(q, k, v, lengths, *, scale: float | None = None,
     s, _, _, d = q.shape
     t = k.shape[2]
     bs, bt = _blocks("decode_attention", s, t, q.dtype, q.device, block_s,
-                     block_t, policy)
+                     block_t, policy, _tp_shards())
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     if _kernel_path(policy, use_kernel):
@@ -390,7 +405,7 @@ def decode_attention_paged(q, k_pages, v_pages, page_table, lengths, *,
     ps = k_pages.shape[1]
     pmax = page_table.shape[1]
     bs, bt = _blocks("decode_attention_paged", s, pmax * ps, q.dtype,
-                     q.device, block_s, block_t, policy)
+                     q.device, block_s, block_t, policy, _tp_shards())
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     pages_per_chunk = max(1, bt // ps)
@@ -403,3 +418,13 @@ def decode_attention_paged(q, k_pages, v_pages, page_table, lengths, *,
         scale=scale, window=window,
         n_s_chunks=min(MAX_SLOT_CHUNKS, -(-s // bs)),
         n_t_chunks=min(MAX_T_CHUNKS, -(-pmax // pages_per_chunk)))
+
+
+# The kernel entry points on the registry's specs (introspection, as the
+# reference's; the ops above stay the public API).  The untiled ops
+# (softmax, logsumexp, xent) have no spec in the port.
+registry.bind("flash_attention", _fa.flash_attention_fwd_gqa)
+registry.bind("flash_attention_bwd", _fa.flash_attention_bwd_gqa)
+registry.bind("lmhead_xent", _xent.lmhead_xent_fwd_2d)
+registry.bind("decode_attention", _da.decode_attention)
+registry.bind("decode_attention_paged", _da.decode_attention_paged)

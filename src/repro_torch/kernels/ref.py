@@ -31,6 +31,16 @@ def cross_entropy_ref(logits: torch.Tensor,
     return logsumexp_ref(lf) - ll
 
 
+def cross_entropy_grad_ref(logits: torch.Tensor, labels: torch.Tensor,
+                           dloss: torch.Tensor) -> torch.Tensor:
+    """``d(CE)/dlogits = (softmax(logits) - onehot(labels)) * dloss``, in
+    the logits' dtype."""
+    p = softmax_ref(logits.to(torch.float32))
+    onehot = torch.nn.functional.one_hot(
+        labels.to(torch.int64), logits.shape[-1]).to(torch.float32)
+    return ((p - onehot) * dloss.to(torch.float32)[:, None]).to(logits.dtype)
+
+
 def lmhead_ref_loss(h: torch.Tensor, w: torch.Tensor,
                     labels: torch.Tensor) -> torch.Tensor:
     """The fused LM-head CE's oracle: materialised float32 logits

@@ -70,8 +70,9 @@ from __future__ import annotations
 import json
 import os
 import threading
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -107,6 +108,7 @@ class KernelSpec:
     block_v]`` scratch).
     """
     name: str
+    fn: Optional[Callable] = None        # the kernel entry point (bind)
     row_align: int = 8
     row_cap: int = 256
     col_align: int = 128
@@ -146,6 +148,12 @@ def get_spec(op: str) -> KernelSpec:
         raise KeyError(f"unknown kernel op {op!r}; "
                        f"registered: {sorted(_REGISTRY)}")
     return _REGISTRY[op]
+
+
+def bind(op: str, fn: Callable) -> None:
+    """Attach the kernel entry point to a registered spec (``ops`` binds
+    each op's; an introspection surface, the ops stay the public API)."""
+    _REGISTRY[op] = dataclasses.replace(get_spec(op), fn=fn)
 
 
 def registered_ops() -> tuple[str, ...]:
@@ -201,8 +209,9 @@ def _bucket(x: int) -> int:
 def cache_key(op: str, rows: int, cols: int, dtype, backend: str,
               shards: int = 1) -> str:
     """Bucketed tuning key, the reference's format.  ``shards`` is the
-    tensor-parallel shard count the op runs under (ROADMAP item 22 passes
-    more than 1); ``shards=1`` adds nothing to the key."""
+    tensor-parallel shard count the op runs under (the decode ops pass the
+    serving mesh's model axis, ``ops._tp_shards``); ``shards=1`` adds
+    nothing to the key."""
     key = "|".join((op, f"r{_bucket(rows)}", f"c{_bucket(cols)}",
                     dtype_name(dtype), backend))
     return key if shards <= 1 else f"{key}|s{shards}"

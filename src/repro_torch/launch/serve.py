@@ -45,10 +45,21 @@ reference: ``--slots`` prompts of ``--prompt-len`` tokens, each after
 the phase-timed ``engine.generate_timed`` (the engine's flags do not
 apply).
 
+``--mesh DATAxMODEL`` serves the dense family tensor-parallel over a
+``('data', 'model')`` mesh of ``DATA * MODEL`` ranks started by torchrun
+(its ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` environment), with
+``--backend`` said outright: ``gloo`` for ranks that share a card or the
+CPU (the decode step then runs eager: gloo's collectives cannot be
+captured in a CUDA graph), ``nccl`` for a card a rank.  Every rank builds
+the same weights and keeps its shard; rank 0 prints.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch qwen2.5-14b --reduced --device cpu --mesh 1x2 --backend gloo
+
 The model runs on ``--device`` (``cuda`` unless the CPU is asked for), with
 random weights made from seed 0 in the compute dtype.  A flag for what
-this package does not serve yet (a mesh) exits with an error that names
-its ROADMAP item.  A
+this package does not serve yet exits with an error that names its
+ROADMAP item.  A
 moe model (deepseek-v2-lite-16b with its multi-head latent attention too)
 routes through capacity dispatch (``moe_impl="dispatch"``, the
 reference's default; its CLI has no flag for it either).
@@ -57,9 +68,12 @@ reference's default; its CLI has no flag for it either).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
 
-# unported flag -> (its value when unused, ROADMAP queue A item)
-UNPORTED_FLAGS = {"mesh": (None, 22)}
+# flags not served under --mesh -> ROADMAP queue A item
+UNPORTED_UNDER_MESH = {"kv_dtype": 22, "host_swap_bytes": 22}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -121,8 +135,14 @@ def parser() -> argparse.ArgumentParser:
                    help="serve through the streaming generator: each "
                         "request's new tokens after every scheduler step")
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                   help="sharded serving over a device mesh: not ported "
-                        "yet")
+                   help="serve tensor-parallel over a ('data', 'model') "
+                        "mesh of DATA*MODEL torchrun ranks, e.g. 1x2: "
+                        "the weights' heads, the vocabulary and every "
+                        "arena page's KV heads split over 'model'")
+    p.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                   help="the mesh's collectives (with --mesh): gloo for "
+                        "ranks on one card or the CPU, nccl for a card a "
+                        "rank")
     p.add_argument("--kernels", action="store_true",
                    help="run the softmax sites and decode attention "
                         "through the CUDA kernels (ModelConfig.use_kernels)")
@@ -135,32 +155,75 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     p = parser()
     args = p.parse_args(argv)
-    for name, (unused, item) in UNPORTED_FLAGS.items():
-        if getattr(args, name) != unused:
-            p.error(f"--{name.replace('_', '-')} is not ported yet "
-                    f"(ROADMAP queue A item {item})")
     if not 0 <= args.shared_prefix_len <= args.prompt_len:
         p.error("--shared-prefix-len must lie in [0, --prompt-len]")
+    mesh = _mesh(args, p)
+    if mesh is None:
+        _main(args, p, None)
+        return
+    import torch.distributed as dist
 
+    try:
+        quiet = dist.get_rank() != 0
+        with (contextlib.redirect_stdout(io.StringIO()) if quiet
+              else contextlib.nullcontext()):
+            _main(args, p, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh(args, p):
+    """The serving mesh of ``--mesh`` (None without it), after the checks
+    that need no process group."""
+    if args.mesh is None:
+        if args.backend is not None:
+            p.error("--backend applies only with --mesh")
+        return None
+    from repro_torch.launch.mesh import make_serving_mesh, parse_mesh
+
+    try:
+        d, m = parse_mesh(args.mesh)
+    except ValueError as e:
+        p.error(str(e))
+    for name, item in UNPORTED_UNDER_MESH.items():
+        if getattr(args, name) is not None:
+            p.error(f"--{name.replace('_', '-')} under --mesh is not ported "
+                    f"yet (ROADMAP queue A item {item})")
+    if args.backend is None:
+        p.error("--mesh needs --backend: gloo (ranks sharing a card, or "
+                "the CPU) or nccl (a card a rank)")
+    if args.arrival_rate:
+        p.error("--arrival-rate under --mesh: the ranks must admit at the "
+                "same step")
+    if int(os.environ.get("WORLD_SIZE", 1)) != d * m:
+        p.error(f"--mesh {args.mesh} needs {d * m} ranks: run it under "
+                f"torchrun --nproc-per-node {d * m}")
+    return make_serving_mesh((d, m), backend=args.backend)
+
+
+def _main(args, p, mesh) -> None:
     from repro_torch import kernels
+    from repro_torch.launch.mesh import mesh_tp, torch_device_for
     from repro_torch.models import build_model
     from repro_torch.models.transformer import torch_dtype
 
+    device = (torch_device_for(mesh, args.device) if mesh is not None
+              else args.device)
     try:
         model = build_model(args.arch, reduced=args.reduced,
-                            device=args.device,
+                            device=device, tp=mesh_tp(mesh),
                             softmax_algorithm=args.softmax,
                             use_kernels=args.kernels)
-    except (KeyError, RuntimeError) as e:    # unknown arch; no card
-        p.error(str(e))
+    except (KeyError, RuntimeError, NotImplementedError) as e:
+        p.error(str(e))                      # unknown arch; no card
     cfg = model.cfg
     # weights in the compute dtype: every use casts to it, so the results
     # equal float32 weights' at half the memory
     params = model.init(seed=0, dtype=torch_dtype(cfg.dtype))
-    if cfg.family == "vlm":
+    if cfg.family == "vlm" and mesh is None:
         st = _serve_lockstep(args, model, params)
     else:
-        st = _serve_engine(args, p, model, params)
+        st = _serve_engine(args, p, model, params, mesh)
     if args.kernels:
         print("kernel launches:", {k: v for k, v in
                                    kernels.launch_counts().items() if v})
@@ -204,9 +267,10 @@ def _serve_lockstep(args, model, params) -> dict:
     return st
 
 
-def _serve_engine(args, p, model, params) -> dict:
+def _serve_engine(args, p, model, params, mesh=None) -> dict:
     """Every other family: the requests through the continuous-batching
-    engine.  Returns its stats."""
+    engine (over ``mesh`` with ``--mesh``; the step eager under gloo).
+    Returns its stats."""
     import numpy as np
 
     from repro_torch import kernels
@@ -216,6 +280,12 @@ def _serve_engine(args, p, model, params) -> dict:
     cfg = model.cfg
     encdec = cfg.family == "encdec"
     n_frames = args.enc_frames or args.prompt_len
+    mesh_kw = {}
+    if mesh is not None:
+        mesh_kw = dict(mesh=mesh, fused=mesh.backend != "gloo")
+        print(f"mesh: {args.mesh} (axes {dict(mesh.shape)}), backend "
+              f"{mesh.backend}, {'graph' if mesh_kw['fused'] else 'eager'}"
+              " decode step")
     try:
         eng = ContinuousBatchingEngine(
             model, params, slots=args.slots,
@@ -226,11 +296,11 @@ def _serve_engine(args, p, model, params) -> dict:
             prefix_cache=False if args.no_prefix_cache else "auto",
             page_dtype=args.kv_dtype,
             scale_granularity=args.scale_granularity,
-            host_swap_bytes=args.host_swap_bytes,
+            host_swap_bytes=args.host_swap_bytes, **mesh_kw,
             **(dict(max_cross_len=n_frames, enc_chunk=args.enc_chunk)
                if encdec else {}))
-    except ValueError as e:                  # e.g. encdec on the strip pool
-        p.error(str(e))
+    except (ValueError, NotImplementedError) as e:
+        p.error(str(e))                      # e.g. encdec on the strip pool
     rng = np.random.default_rng(0)
     arrivals = (np.cumsum(rng.exponential(1.0 / args.arrival_rate,
                                           args.requests))
@@ -278,6 +348,11 @@ def _serve_engine(args, p, model, params) -> dict:
     if eng.host_swap is not None:
         print(f"host swap: {st['demoted']} demoted, {st['prefetched']} "
               f"prefetched back, {eng.host_swap.bytes_used} bytes resident")
+    if mesh is not None:
+        th = eng.throughput()
+        print(f"sharded: mesh {th['mesh_axes']}, KV heads in "
+              f"{th['kv_shards']} shard(s) (1: replicated), backend "
+              f"{th['backend']}")
     ttfts = sorted(c.ttft_s for c in comps if c.ttft_s is not None)
     if ttfts:
         print(f"ttft: p50 {ttfts[len(ttfts) // 2] * 1e3:.2f}ms  "

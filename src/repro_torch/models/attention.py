@@ -12,6 +12,9 @@ traffic.  ``attention`` returns the same cache dict it was given.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -25,7 +28,12 @@ from repro_torch.models import layers
 
 def head_layout(cfg: ModelConfig, tp: int = 1):
     """Returns (hq_padded, grouped, real_head_mask, head_to_kv), as the
-    reference; only the single-device grouped layout is served here."""
+    reference.  q-heads are padded up to a multiple of ``tp``.
+    ``grouped``: group-major, ``hq / hkv`` q-heads a KV head, the first
+    ``n_heads / hkv`` of each group real (the KV heads divide tp).
+    Otherwise KV is replicated and expanded per q-head through
+    ``head_to_kv`` (the first ``n_heads`` real, padded ones read KV head
+    ``hkv - 1``).  Static numpy."""
     hq = cfg.padded_heads(tp)
     hkv = cfg.n_kv_heads
     if hq % hkv == 0 and hkv % tp == 0:
@@ -35,6 +43,112 @@ def head_layout(cfg: ModelConfig, tp: int = 1):
     g_real = max(1, cfg.n_heads // hkv)
     head_to_kv = np.minimum(np.arange(hq) // g_real, hkv - 1)
     return hq, False, np.arange(hq) < cfg.n_heads, head_to_kv
+
+
+class Layout(NamedTuple):
+    """A rank's heads (:func:`local_layout`).  ``hq`` q-heads and ``hkv``
+    KV heads its weights and cache hold.  Grouped, ``hq / hkv`` q-heads
+    read each KV head.  Ungrouped, q-head ``h`` reads KV head
+    ``h2k[h]`` (an index tensor): a prefill expands its own K/V through
+    it, and a decode step, which reads the arena, regroups the q-heads
+    instead: ``q_rows`` ([nkv * g] of q-head indices, ``hq`` a zero row)
+    lays them out as ``g`` rows for each of the ``nkv`` KV heads from
+    ``kv0`` on (a view of the arena: ``h2k`` rises, so they are one
+    run), and ``o_rows`` ([hq]) picks each q-head's row back out.  The
+    grouped layout is the same with ``kv0`` 0, ``nkv = hkv`` and no
+    index."""
+    hq: int
+    grouped: bool
+    hkv: int
+    h2k: torch.Tensor | None
+    kv0: int
+    nkv: int
+    g: int
+    q_rows: torch.Tensor | None
+    o_rows: torch.Tensor | None
+
+
+def local_layout(cfg: ModelConfig, tp: int, device) -> Layout:
+    """This rank's :class:`Layout`, its index tensors on ``device``.
+    Without an active mesh (or on a model axis of one rank) it is
+    :func:`head_layout`'s at ``tp`` (padding only).  Under a mesh whose
+    model axis has ``tp`` ranks the q-heads split evenly (padding made
+    them a multiple of tp); grouped, so do the KV heads, and each rank
+    keeps whole groups; ungrouped, every rank holds all KV heads and its
+    q-heads' slice of ``head_to_kv``."""
+    from repro_torch.distributed import collectives
+
+    shards, rank = collectives.model_axis()
+    if shards > 1 and shards != tp:
+        raise ValueError(f"a model axis of {shards} ranks over weights "
+                         f"padded for tp {tp}: build the model with "
+                         f"tp={shards}")
+    return _local_layout(cfg, tp, shards, rank, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _local_layout(cfg: ModelConfig, tp: int, shards: int, rank: int,
+                  device: torch.device) -> Layout:
+    """:func:`local_layout`, its indices made once (a captured decode step
+    reads the same tensors at every replay, and copies nothing from the
+    host)."""
+    hq, grouped, _, h2k = head_layout(cfg, tp)
+    hkv = cfg.n_kv_heads
+    if shards > 1:
+        hq //= shards
+        if grouped:
+            hkv //= shards
+        else:
+            h2k = h2k[rank * hq:(rank + 1) * hq]
+    if grouped:
+        return Layout(hq, True, hkv, None, 0, hkv, hq // hkv, None, None)
+    kv0 = int(h2k[0])
+    nkv = int(h2k[-1]) - kv0 + 1
+    counts = np.bincount(h2k - kv0, minlength=nkv)
+    g = int(counts.max())
+    q_rows = np.full(nkv * g, hq)
+    first = np.concatenate([[0], np.cumsum(counts)])[h2k - kv0]
+    o_rows = (h2k - kv0) * g + np.arange(hq) - first
+    q_rows[o_rows] = np.arange(hq)
+
+    def index(a):
+        return torch.as_tensor(a, dtype=torch.int64, device=device)
+
+    return Layout(hq, False, hkv, index(h2k), kv0, nkv, g, index(q_rows),
+                  index(o_rows))
+
+
+def _regroup(q: torch.Tensor, lay: Layout) -> torch.Tensor:
+    """One query a q-head ``[B, hq, hd]`` as the decode ops take it:
+    ``[B, nkv, g, hd]`` (ungrouped: :class:`Layout`'s rows, zero rows
+    where a KV head reads fewer than ``g`` q-heads)."""
+    b, _, hd = q.shape
+    if lay.grouped:
+        return q.reshape(b, lay.hkv, lay.g, hd)
+    q = torch.cat([q, q.new_zeros(b, 1, hd)], 1)
+    return q[:, lay.q_rows].reshape(b, lay.nkv, lay.g, hd)
+
+
+def _ungroup(o: torch.Tensor, lay: Layout) -> torch.Tensor:
+    """The decode ops' ``[B, nkv, g, hd]`` back to ``[B, hq * hd]``."""
+    b = o.shape[0]
+    o = o.reshape(b, lay.nkv * lay.g, -1)
+    if not lay.grouped:
+        o = o[:, lay.o_rows]
+    return o.reshape(b, -1)
+
+
+def _zero_pad_heads(w: torch.Tensor, mask, head_dim: int,
+                    axis: int) -> torch.Tensor:
+    """Zero the slices of ``w`` along ``axis`` that belong to padded heads
+    (``mask``: static numpy, True for a real head), in place.  Zero
+    q-columns and out-projection rows make the padding exact."""
+    if bool(np.asarray(mask).all()):
+        return w
+    full = torch.as_tensor(np.repeat(np.asarray(mask), head_dim))
+    pad = (~full).nonzero()[:, 0].to(w.device)
+    w.index_fill_(axis, pad, 0)
+    return w
 
 
 def _block_mask(qpos, kpos, causal, window, kv_len):
@@ -194,11 +308,15 @@ def attention_core(q, k, v, *, causal, window, scale, q_offset=0,
         q_offset=q_offset, kv_len=kv_len, n_q_chunks=nq, n_kv_chunks=nkv)
 
 
-def init_attention(gen, cfg: ModelConfig, dtype, lead: tuple = ()) -> dict:
+def init_attention(gen, cfg: ModelConfig, dtype, lead: tuple = (),
+                   tp: int = 1) -> dict:
+    """q-heads padded to a multiple of ``tp`` (:func:`head_layout`), the
+    padded heads' q-columns and out-projection rows zero, as the
+    reference's ``init_attention(..., tp)``."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim()
-    hq = cfg.padded_heads(1)
-    return {
+    hq, _, mask, _ = head_layout(cfg, tp)
+    p = {
         "wq": layers.init_dense(gen, d, hq * hd, dtype, bias=cfg.qkv_bias,
                                 lead=lead),
         "wk": layers.init_dense(gen, d, cfg.n_kv_heads * hd, dtype,
@@ -207,10 +325,17 @@ def init_attention(gen, cfg: ModelConfig, dtype, lead: tuple = ()) -> dict:
                                 bias=cfg.qkv_bias, lead=lead),
         "wo": layers.init_dense(gen, hq * hd, d, dtype, lead=lead),
     }
+    if not isinstance(gen, layers.MetaDraws):
+        n = len(lead)
+        _zero_pad_heads(p["wq"]["w"], mask, hd, n + 1)
+        if cfg.qkv_bias:
+            _zero_pad_heads(p["wq"]["b"], mask, hd, n)
+        _zero_pad_heads(p["wo"]["w"], mask, hd, n)
+    return p
 
 
 def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
-              causal: bool = True, cache: dict | None = None,
+              tp: int = 1, causal: bool = True, cache: dict | None = None,
               cache_pos=None, xkv: torch.Tensor | None = None,
               use_rope: bool = True, cache_positions=None, page_table=None,
               ring_valid=None):
@@ -238,16 +363,21 @@ def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
       the cache leaves are page arenas ``[P, ps, Hkv, hd]`` and the op is
       ``decode_attention_paged``.
 
+    ``tp`` pads the q-heads (:func:`head_layout`).  The layout is
+    grouped where the KV heads divide tp; otherwise each q-head reads its
+    KV head through ``head_to_kv``: a prefill expands its K/V to the
+    q-heads (G 1), and a ragged decode regroups the q-heads over a view
+    of the cache's KV heads (:class:`Layout`), so that no step copies the
+    arena.  Under a mesh (an active
+    ``autoshard.hints`` context) the weights and the cache are this
+    rank's (:func:`local_layout`) and the out-projection is row-parallel:
+    its partial products are summed over the model axis.
+
     Returns (out, cache)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim()
-    hq, grouped, _, _ = head_layout(cfg)
-    if not grouped:
-        raise NotImplementedError(
-            "attention: only the grouped GQA layout is ported "
-            "(tensor-parallel head padding is ROADMAP queue A item 22)")
-    hkv = cfg.n_kv_heads
-    gq = hq // hkv
+    lay = local_layout(cfg, tp, x.device)
+    hq, grouped, hkv = lay.hq, lay.grouped, lay.hkv
     window = cfg.swa_window
     policy = cfg.softmax_policy()
 
@@ -267,7 +397,7 @@ def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
     if cache_positions is not None:
         assert cache is not None and s == 1
         assert ring_valid is None, "ring caches are not slot-addressable"
-        qg = q[:, 0].reshape(b, hkv, gq, hd)
+        qg = _regroup(q[:, 0], lay)
         if page_table is not None:
             # Paged ragged decode: scatter this token's K/V through the
             # table (free slots' rows point at the trash page), attend
@@ -282,11 +412,15 @@ def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
             else:
                 cache["k"][pg, off] = k[:, 0].to(cache["k"].dtype)
                 cache["v"][pg, off] = v[:, 0].to(cache["v"].dtype)
+            kk = cache["k"].narrow(2, lay.kv0, lay.nkv)
+            vv = cache["v"].narrow(2, lay.kv0, lay.nkv)
+            ks, vs = cache.get("k_scale"), cache.get("v_scale")
+            if ks is not None and ks.ndim == 3:
+                ks = ks.narrow(2, lay.kv0, lay.nkv)
+                vs = vs.narrow(2, lay.kv0, lay.nkv)
             o = kernel_ops.decode_attention_paged(
-                qg, cache["k"], cache["v"], page_table, wpos + 1,
-                scale=hd ** -0.5, window=window,
-                k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-                policy=policy)
+                qg, kk, vv, page_table, wpos + 1, scale=hd ** -0.5,
+                window=window, k_scale=ks, v_scale=vs, policy=policy)
         else:
             # strip cache [B, T, Hkv, hd]: read in place through a
             # transposed view [B, Hkv, T, hd]
@@ -295,10 +429,13 @@ def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
             rows = torch.arange(b, device=x.device)
             cache["k"][rows, wpos] = k[:, 0].to(cache["k"].dtype)
             cache["v"][rows, wpos] = v[:, 0].to(cache["v"].dtype)
+            kk = cache["k"].transpose(1, 2).narrow(1, lay.kv0, lay.nkv)
+            vv = cache["v"].transpose(1, 2).narrow(1, lay.kv0, lay.nkv)
             o = kernel_ops.decode_attention(
-                qg, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
-                wpos + 1, scale=hd ** -0.5, window=window, policy=policy)
-        return layers.dense(p["wo"], o.reshape(b, 1, hq * hd)), cache
+                qg, kk, vv, wpos + 1, scale=hd ** -0.5, window=window,
+                policy=policy)
+        return (layers.dense_row(p["wo"], _ungroup(o, lay)[:, None]),
+                cache)
 
     kv_len = None
     qpos = None
@@ -313,12 +450,17 @@ def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
     if ring_valid is not None:
         kv_len, qpos, causal, window = ring_valid, None, False, None
 
-    qg = q.reshape(b, s, hkv, gq, hd).permute(0, 2, 3, 1, 4)
-    o = attention_core(qg, k.transpose(1, 2), v.transpose(1, 2),
-                       causal=causal and xkv is None, window=window,
-                       scale=hd ** -0.5, kv_len=kv_len, qpos=qpos, cfg=cfg)
+    kk, vv = k.transpose(1, 2), v.transpose(1, 2)
+    if grouped:
+        qg = q.reshape(b, s, hkv, lay.g, hd).permute(0, 2, 3, 1, 4)
+    else:                                  # KV expanded per q-head
+        kk, vv = kk[:, lay.h2k], vv[:, lay.h2k]
+        qg = q.transpose(1, 2)[:, :, None]  # [B, Hq, 1, S, hd]
+    o = attention_core(qg, kk, vv, causal=causal and xkv is None,
+                       window=window, scale=hd ** -0.5, kv_len=kv_len,
+                       qpos=qpos, cfg=cfg)
     o = o.permute(0, 3, 1, 2, 4).reshape(b, s, hq * hd)
-    return layers.dense(p["wo"], o), cache
+    return layers.dense_row(p["wo"], o), cache
 
 
 def _write_int8_rows(cache: dict, k, v, pg, off) -> None:
@@ -341,7 +483,8 @@ def _write_int8_rows(cache: dict, k, v, pg, off) -> None:
 
 
 def cross_attention_paged(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
-                          kv: dict, cross_table, cross_lengths):
+                          tp: int = 1, kv: dict, cross_table,
+                          cross_lengths):
     """Ragged READ-ONLY cross-attention over paged encoder K/V (the encdec
     continuous-batching decode).  x: [B, 1, d], one decoder query a slot.
     ``kv`` is one layer's page arenas (``{"k", "v"}: [P, ps, Hkv, hd]``),
@@ -355,17 +498,13 @@ def cross_attention_paged(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
     b, s, _ = x.shape
     assert s == 1
     hd = cfg.resolved_head_dim()
-    hq, grouped, _, _ = head_layout(cfg)
-    if not grouped:
-        raise NotImplementedError(
-            "cross_attention_paged: only the grouped GQA layout is ported "
-            "(tensor-parallel head padding is ROADMAP queue A item 22)")
-    hkv = cfg.n_kv_heads
-    q = layers.dense(p["wq"], x).reshape(b, hkv, hq // hkv, hd)
+    lay = local_layout(cfg, tp, x.device)
+    q = _regroup(layers.dense(p["wq"], x).reshape(b, lay.hq, hd), lay)
     o = kernel_ops.decode_attention_paged(
-        q, kv["k"], kv["v"], cross_table, cross_lengths, scale=hd ** -0.5,
-        window=None, policy=cfg.softmax_policy())
-    return layers.dense(p["wo"], o.reshape(b, 1, hq * hd))
+        q, kv["k"].narrow(2, lay.kv0, lay.nkv),
+        kv["v"].narrow(2, lay.kv0, lay.nkv), cross_table, cross_lengths,
+        scale=hd ** -0.5, window=None, policy=cfg.softmax_policy())
+    return layers.dense_row(p["wo"], _ungroup(o, lay)[:, None])
 
 
 # ---------------------------------------------------------------------------

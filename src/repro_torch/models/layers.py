@@ -51,6 +51,21 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def dense_row(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product (an out-projection whose input dim is split
+    over the model axis): each rank's partial ``x @ w`` summed over the
+    ranks (``collectives.all_reduce``; the identity on one rank), then
+    the bias, once.  The partials sum in another order than one product
+    does, so a sharded result differs from the single-rank one by
+    rounding."""
+    from repro_torch.distributed import collectives
+
+    y = collectives.all_reduce(x @ p["w"].to(x.dtype))
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
 def init_rmsnorm(dim, dtype, device, lead: tuple = ()) -> Params:
     return {"scale": torch.ones((*lead, dim), dtype=dtype, device=device)}
 
@@ -79,16 +94,34 @@ def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
         # the tanh form, as the reference's ``jax.nn.gelu`` (its default
         # ``approximate=True``); the erf form differs by up to 4.7e-4
         h = F.gelu(up, approximate="tanh")
-    return dense(p["down"], h)
+    return dense_row(p["down"], h)
 
 
 def init_embedding(gen, vocab, d_model, dtype) -> Params:
     return {"table": _randn(gen, (vocab, d_model), dtype, d_model ** -0.5)}
 
 
-def embed(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    # gather first, then cast: the same values as casting the whole table
+def embed(p: Params, tokens: torch.Tensor, dtype,
+          rows: int | None = None) -> torch.Tensor:
+    """The tokens' rows of the table (gathered, then cast: the same values
+    as casting the whole table).  Under a mesh whose model axis splits the
+    vocabulary, ``rows`` is the full table's length and the lookup is
+    vocab-parallel (``collectives.vocab_embed``)."""
+    if rows is not None:
+        from repro_torch.distributed import collectives
+
+        return collectives.vocab_embed(p["table"], tokens, rows, dtype)
     return p["table"][tokens.long()].to(dtype)
+
+
+def softmax_fn(cfg):
+    """The softmax entry point bound to a model config, resolved once
+    through the config's SoftmaxPolicy: ``f(scores, axis=-1)``."""
+    policy = cfg.softmax_policy()
+
+    def f(scores, axis=-1):
+        return policy.softmax(scores, axis=axis)
+    return f
 
 
 # ---------------------------------------------------------------------------

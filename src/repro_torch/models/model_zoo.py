@@ -19,23 +19,29 @@ from repro_torch.serving import engine, kv_cache
 
 
 class Model:
-    """A config bound to a device; the scheduler and entry points take
-    it with the parameters made by :meth:`init`."""
+    """A config bound to a device and a tensor-parallel factor ``tp`` (the
+    reference's ``Model(cfg, tp)``): the q-heads are padded to a multiple
+    of ``tp``, with zero weights, and every entry point runs the padded
+    layout.  On one rank that gives the unpadded model's function; under a
+    serving mesh of ``tp`` model ranks each rank runs its shard.  The
+    scheduler and entry points take it with the parameters made by
+    :meth:`init`."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", tp: int = 1):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.tp = int(tp)
 
     # -- construction -------------------------------------------------------
     def init(self, seed: int = 0, dtype: torch.dtype | None = None):
         """Random weights from a seeded generator on the device."""
         return transformer.init_lm(self.cfg, seed=seed, device=self.device,
-                                   dtype=dtype)
+                                   dtype=dtype, tp=self.tp)
 
     def init_shape(self):
         """The parameter tree on the ``meta`` device: shapes and dtypes,
         nothing allocated or drawn."""
-        return transformer.init_lm(self.cfg, device="meta")
+        return transformer.init_lm(self.cfg, device="meta", tp=self.tp)
 
     # -- functional entry points -------------------------------------------
     def loss(self, params, batch: dict, moe_impl: str = "dispatch",
@@ -44,7 +50,8 @@ class Model:
         model's experts run by ``moe_impl``; ``policy`` overrides the
         config's SoftmaxPolicy for the loss."""
         return transformer.train_loss(params, batch, cfg=self.cfg,
-                                      moe_impl=moe_impl, policy=policy)
+                                      tp=self.tp, moe_impl=moe_impl,
+                                      policy=policy)
 
     def forward(self, params, tokens, patches=None,
                 moe_impl: str = "dispatch"):
@@ -52,17 +59,19 @@ class Model:
         n_patches, d]) come first and count in S; a moe model's experts
         run by ``moe_impl``."""
         return transformer.forward(params, tokens, cfg=self.cfg,
-                                   patches=patches, moe_impl=moe_impl)
+                                   tp=self.tp, patches=patches,
+                                   moe_impl=moe_impl)
 
     def prefill(self, params, tokens, **kw):
         """``kw`` as :func:`engine.prefill`'s (``max_len``, ``last_pos``,
         an encdec prompt's ``frames``, a vlm prompt's ``patches``)."""
-        return engine.prefill(params, tokens, cfg=self.cfg, **kw)
+        return engine.prefill(params, tokens, cfg=self.cfg, tp=self.tp,
+                              **kw)
 
     def decode_step(self, params, cache, tokens, pos,
                     moe_impl: str = "dispatch"):
         return engine.decode_step(params, cache, tokens, pos, cfg=self.cfg,
-                                  moe_impl=moe_impl)
+                                  tp=self.tp, moe_impl=moe_impl)
 
     def init_cache(self, batch: int, max_len: int, ring: bool = True):
         return kv_cache.init_cache(self.cfg, batch, max_len, ring=ring,
@@ -73,7 +82,7 @@ class Model:
         """Lockstep tokens [B, steps + 1] (:func:`engine.generate`; a vlm
         prompt's ``patches`` go in ``kw``)."""
         return engine.generate(params, prompt, cfg=self.cfg, steps=steps,
-                               generator=generator, **kw)
+                               generator=generator, tp=self.tp, **kw)
 
     # -- continuous batching -------------------------------------------------
     def init_slot_pool(self, slots: int, max_len: int):
@@ -83,7 +92,8 @@ class Model:
     def decode_step_ragged(self, params, pool, tokens, active=None,
                            moe_impl: str = "dispatch"):
         return engine.decode_step_ragged(params, pool, tokens, cfg=self.cfg,
-                                         moe_impl=moe_impl, active=active)
+                                         tp=self.tp, moe_impl=moe_impl,
+                                         active=active)
 
     def serving_engine(self, params, **kw):
         """A :class:`repro_torch.serving.scheduler.ContinuousBatchingEngine`
@@ -94,9 +104,10 @@ class Model:
 
 
 def build_model(arch: str, reduced: bool = False, device="cuda",
-                **overrides) -> Model:
+                tp: int = 1, **overrides) -> Model:
     """``device`` defaults to ``cuda`` and raises where there is no card:
-    the CPU is taken only when asked for."""
+    the CPU is taken only when asked for.  ``tp`` pads the q-heads
+    (:class:`Model`)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -107,7 +118,7 @@ def build_model(arch: str, reduced: bool = False, device="cuda",
         cfg = cfg.reduced()
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    return Model(cfg, device)
+    return Model(cfg, device, tp)
 
 
 # ---------------------------------------------------------------------------

@@ -40,9 +40,9 @@ def layer(tree, i: int):
 
 
 def init_block(gen, cfg: ModelConfig, dtype, lead: tuple = (),
-               cross: bool = False) -> Params:
+               cross: bool = False, tp: int = 1) -> Params:
     """``cross`` adds an encdec decoder block's cross-attention (``ln_x``,
-    ``xattn``)."""
+    ``xattn``); ``tp`` pads the attention's q-heads."""
     if cfg.family == "ssm":
         return rwkv_mod.init_rwkv_block(gen, cfg, dtype, lead)
     if cfg.family == "hybrid":
@@ -50,10 +50,10 @@ def init_block(gen, cfg: ModelConfig, dtype, lead: tuple = (),
     dev = gen.device
     p = {"ln1": layers.init_rmsnorm(cfg.d_model, dtype, dev, lead),
          "attn": (attn_mod.init_mla(gen, cfg, dtype, lead) if cfg.mla
-                  else attn_mod.init_attention(gen, cfg, dtype, lead))}
+                  else attn_mod.init_attention(gen, cfg, dtype, lead, tp))}
     if cross:
         p["ln_x"] = layers.init_rmsnorm(cfg.d_model, dtype, dev, lead)
-        p["xattn"] = attn_mod.init_attention(gen, cfg, dtype, lead)
+        p["xattn"] = attn_mod.init_attention(gen, cfg, dtype, lead, tp)
     p["ln2"] = layers.init_rmsnorm(cfg.d_model, dtype, dev, lead)
     if cfg.family == "moe":
         p["mlp"] = moe_mod.init_moe(gen, cfg, dtype, lead)
@@ -63,8 +63,8 @@ def init_block(gen, cfg: ModelConfig, dtype, lead: tuple = (),
     return p
 
 
-def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
-                cache_pos=None, enc=None, causal: bool = True,
+def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, tp: int = 1,
+                cache=None, cache_pos=None, enc=None, causal: bool = True,
                 cache_positions=None, page_table=None, ring_valid=None,
                 cross_table=None, cross_lengths=None,
                 moe_impl: str = "dispatch"):
@@ -86,7 +86,10 @@ def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
     whole.  ``causal=False`` is the encoder's self-attention.  A moe
     block's MLP is :func:`moe.moe_apply` by ``moe_impl``.  A config with
     ``mla`` attends through :func:`attention.mla_attention`, its cache the
-    latent ``{"c", "kr"}``."""
+    latent ``{"c", "kr"}``.  ``tp`` is the q-head padding of the
+    attention weights (``attention.head_layout``); under an active mesh
+    the weights are this rank's shard and the row-parallel products sum
+    over its model axis."""
     if cfg.family == "ssm":
         if cache is None:
             return rwkv_mod.rwkv_block(p, x, cfg=cfg), None
@@ -111,7 +114,7 @@ def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
             page_table=page_table)
     else:
         a, _ = attn_mod.attention(
-            p["attn"], h, cos, sin, cfg=cfg, causal=causal,
+            p["attn"], h, cos, sin, cfg=cfg, tp=tp, causal=causal,
             cache=cache["self"] if lockstep_encdec else cache,
             cache_pos=cache_pos, cache_positions=cache_positions,
             page_table=page_table, ring_valid=ring_valid)
@@ -120,15 +123,15 @@ def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
         hx = layers.rmsnorm(p["ln_x"], x1, eps=cfg.norm_eps)
         if cross_table is not None:          # ragged paged cross read
             xa = attn_mod.cross_attention_paged(
-                p["xattn"], hx, cfg=cfg, kv=cache, cross_table=cross_table,
-                cross_lengths=cross_lengths)
+                p["xattn"], hx, cfg=cfg, tp=tp, kv=cache,
+                cross_table=cross_table, cross_lengths=cross_lengths)
         elif enc is not None:                # fresh cross K/V (prefill)
             xa, _ = attn_mod.attention(p["xattn"], hx, cos, sin, cfg=cfg,
-                                       causal=False, xkv=enc)
+                                       tp=tp, causal=False, xkv=enc)
         elif lockstep_encdec:                # the lockstep cross half
             xa, _ = attn_mod.attention(p["xattn"], hx, cos, sin, cfg=cfg,
-                                       causal=False, cache=cache["cross"],
-                                       use_rope=False)
+                                       tp=tp, causal=False,
+                                       cache=cache["cross"], use_rope=False)
         else:
             raise ValueError("an encdec decoder block needs enc=, a "
                              "{'self', 'cross'} cache or cross_table=")
@@ -143,12 +146,21 @@ def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, cache=None,
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-            dtype: torch.dtype | None = None) -> Params:
+            dtype: torch.dtype | None = None, tp: int = 1) -> Params:
     """Random weights from a seeded ``torch.Generator`` on ``device``.
     ``dtype`` defaults to ``cfg.param_dtype``; on the card the compute
     dtype (bf16) halves the weights' memory with identical results, since
     every use casts to the activation dtype.  On the ``meta`` device the
-    tree has shapes and dtypes only."""
+    tree has shapes and dtypes only.  ``tp`` pads the GQA attention's
+    q-heads to a multiple of it, the padded heads' weights zero, as the
+    reference's ``init_lm(key, cfg, tp)``; the families whose heads the
+    port does not pad yet (multi-head latent attention, ssm, hybrid)
+    refuse a ``tp`` over 1."""
+    if tp > 1 and (cfg.mla is not None or cfg.family in ("ssm", "hybrid")):
+        raise NotImplementedError(
+            f"init_lm(tp={tp}): head padding for family {cfg.family!r}"
+            f"{' (multi-head latent attention)' if cfg.mla else ''} is not "
+            "ported (ROADMAP queue A item 35)")
     dt = dtype or torch_dtype(cfg.param_dtype)
     if torch.device(device).type == "meta":
         gen = layers.MetaDraws()
@@ -160,12 +172,13 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         "embed": layers.init_embedding(gen, vp, cfg.d_model, dt),
         "norm_f": layers.init_rmsnorm(cfg.d_model, dt, gen.device),
         "blocks": init_block(gen, cfg, dt, lead=(cfg.n_layers,),
-                             cross=cfg.family == "encdec"),
+                             cross=cfg.family == "encdec", tp=tp),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = layers.init_dense(gen, cfg.d_model, vp, dt)
     if cfg.family == "encdec":
-        p["enc_blocks"] = init_block(gen, cfg, dt, lead=(cfg.n_enc_layers,))
+        p["enc_blocks"] = init_block(gen, cfg, dt, lead=(cfg.n_enc_layers,),
+                                     tp=tp)
         p["enc_norm"] = layers.init_rmsnorm(cfg.d_model, dt, gen.device)
     if cfg.family == "vlm":
         # projects the stubbed patch features (the vision tower is not
@@ -227,17 +240,18 @@ def _layer_loop(p_blocks, n_layers: int, x, body, remat: bool):
     return x
 
 
-def _scan_blocks(p_blocks, x, cos, sin, *, cfg: ModelConfig,
+def _scan_blocks(p_blocks, x, cos, sin, *, cfg: ModelConfig, tp: int = 1,
                  moe_impl: str = "dispatch"):
     """Layer loop (train/prefill, no cache), each layer an activation
     checkpoint under ``cfg.remat`` (:func:`_layer_loop`)."""
     def body(h, p):
-        return block_apply(p, h, cos, sin, cfg=cfg, moe_impl=moe_impl)[0]
+        return block_apply(p, h, cos, sin, cfg=cfg, tp=tp,
+                           moe_impl=moe_impl)[0]
 
     return _layer_loop(p_blocks, cfg.n_layers, x, body, cfg.remat)
 
 
-def encode(params: Params, frames, *, cfg: ModelConfig):
+def encode(params: Params, frames, *, cfg: ModelConfig, tp: int = 1):
     """The encoder over stubbed frame embeddings [B, T, d] (the audio
     front end is not modelled, as in the reference): non-causal
     self-attention with RoPE at positions ``0 .. T-1``, then
@@ -247,7 +261,7 @@ def encode(params: Params, frames, *, cfg: ModelConfig):
     cos, sin = _cos_sin(cfg, torch.arange(x.shape[1], device=x.device))
 
     def body(h, p):
-        return block_apply(p, h, cos, sin, cfg=cfg, causal=False)[0]
+        return block_apply(p, h, cos, sin, cfg=cfg, tp=tp, causal=False)[0]
 
     x = _layer_loop(params["enc_blocks"], cfg.n_enc_layers, x, body,
                     cfg.remat)
@@ -255,34 +269,45 @@ def encode(params: Params, frames, *, cfg: ModelConfig):
 
 
 def decode_with_encoder(params: Params, enc, dec_tokens, *,
-                        cfg: ModelConfig):
+                        cfg: ModelConfig, tp: int = 1):
     """The encdec decoder's full-sequence pass (training): causal
     self-attention with RoPE at ``0 .. S-1`` and, in every block,
     cross-attention on fresh K/V projected from ``enc`` ([B, T, d]), then
     ``norm_f``.  Returns hidden states [B, S, d]."""
-    x = layers.embed(params["embed"], dec_tokens, torch_dtype(cfg.dtype))
+    x = embed_tokens(params, dec_tokens, cfg)
     cos, sin = _cos_sin(cfg, torch.arange(x.shape[1], device=x.device))
 
     def body(h, p):
-        return block_apply(p, h, cos, sin, cfg=cfg, enc=enc)[0]
+        return block_apply(p, h, cos, sin, cfg=cfg, tp=tp, enc=enc)[0]
 
     x = _layer_loop(params["blocks"], cfg.n_layers, x, body, cfg.remat)
     return layers.rmsnorm(params["norm_f"], x, eps=cfg.norm_eps)
+
+
+def embed_tokens(params: Params, tokens, cfg: ModelConfig):
+    """The tokens' embeddings in the compute dtype; vocab-parallel under a
+    mesh whose model axis splits the table (``collectives.vocab_embed``).
+    """
+    from repro_torch.distributed import collectives
+
+    tp, _ = collectives.model_axis()
+    return layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype),
+                        rows=cfg.padded_vocab() if tp > 1 else None)
 
 
 def embed_prompt(params: Params, tokens, cfg: ModelConfig, patches=None):
     """The prompt's embeddings [B, S, d]: the tokens', after a vlm
     prompt's projected patches ([B, n_patches, d]) when it has them."""
     dt = torch_dtype(cfg.dtype)
-    x = layers.embed(params["embed"], tokens, dt)
+    x = embed_tokens(params, tokens, cfg)
     if cfg.family == "vlm" and patches is not None:
         pe = layers.dense(params["patch_proj"], patches.to(dt))
         x = torch.cat([pe, x], dim=1)
     return x
 
 
-def forward(params: Params, tokens, *, cfg: ModelConfig, patches=None,
-            moe_impl: str = "dispatch"):
+def forward(params: Params, tokens, *, cfg: ModelConfig, tp: int = 1,
+            patches=None, moe_impl: str = "dispatch"):
     """Token (and a vlm prompt's patch) forward to final hidden states
     [B, S, d] (no cache); S counts the patches."""
     x = embed_prompt(params, tokens, cfg, patches)
@@ -290,7 +315,7 @@ def forward(params: Params, tokens, *, cfg: ModelConfig, patches=None,
     cos = sin = None                      # an ssm block takes no positions
     if cfg.family != "ssm":
         cos, sin = _cos_sin(cfg, _positions_for(cfg, b, s, device=x.device))
-    x = _scan_blocks(params["blocks"], x, cos, sin, cfg=cfg,
+    x = _scan_blocks(params["blocks"], x, cos, sin, cfg=cfg, tp=tp,
                      moe_impl=moe_impl)
     return layers.rmsnorm(params["norm_f"], x, eps=cfg.norm_eps)
 
@@ -302,7 +327,8 @@ def _head_w(params: Params, cfg: ModelConfig):
 
 
 def lm_logits(params: Params, h, *, cfg: ModelConfig):
-    """Full logits for sampling/eval.  h: [..., d] -> [..., V_padded]."""
+    """Full logits for sampling/eval.  h: [..., d] -> [..., V_padded];
+    under a mesh that splits the vocabulary, this rank's columns."""
     return h @ _head_w(params, cfg).to(h.dtype)
 
 
@@ -361,7 +387,7 @@ def lm_loss_from_hidden(params: Params, h, labels, *, cfg: ModelConfig,
 
 
 def train_hidden(params: Params, batch: dict, *, cfg: ModelConfig,
-                 moe_impl: str = "dispatch"):
+                 tp: int = 1, moe_impl: str = "dispatch"):
     """The final hidden states the family's loss reads and their labels:
     ``(h [B, S, d], labels [B, S])``.  Next-token on ``batch["tokens"]``;
     an encdec model's decoder on ``batch["dec_tokens"]`` given the encoder
@@ -369,13 +395,13 @@ def train_hidden(params: Params, batch: dict, *, cfg: ModelConfig,
     ``batch["patches"]``; a moe model's experts by ``moe_impl``, as the
     reference's ``train_loss``."""
     if cfg.family == "encdec":
-        enc = encode(params, batch["frames"], cfg=cfg)
+        enc = encode(params, batch["frames"], cfg=cfg, tp=tp)
         dec = batch["dec_tokens"]
-        return (decode_with_encoder(params, enc, dec[:, :-1], cfg=cfg),
-                dec[:, 1:])
+        return (decode_with_encoder(params, enc, dec[:, :-1], cfg=cfg,
+                                    tp=tp), dec[:, 1:])
     tokens = batch["tokens"]
     patches = batch.get("patches")
-    h = forward(params, tokens[:, :-1], cfg=cfg, patches=patches,
+    h = forward(params, tokens[:, :-1], cfg=cfg, tp=tp, patches=patches,
                 moe_impl=moe_impl)
     if cfg.family == "vlm" and patches is not None:
         h = h[:, patches.shape[1]:]              # the loss on the text tail
@@ -383,12 +409,13 @@ def train_hidden(params: Params, batch: dict, *, cfg: ModelConfig,
 
 
 def train_loss(params: Params, batch: dict, *, cfg: ModelConfig,
-               moe_impl: str = "dispatch", policy=None):
+               tp: int = 1, moe_impl: str = "dispatch", policy=None):
     """Mean next-token CE over :func:`train_hidden`; an optional
     ``batch["mask"]`` weights the label positions.  A moe model's experts
     run by ``moe_impl``, with no load-balance term (the reference's adds
     none).  ``policy`` overrides the config's SoftmaxPolicy for the
     loss."""
-    h, labels = train_hidden(params, batch, cfg=cfg, moe_impl=moe_impl)
+    h, labels = train_hidden(params, batch, cfg=cfg, tp=tp,
+                             moe_impl=moe_impl)
     return lm_loss_from_hidden(params, h, labels, cfg=cfg,
                                mask=batch.get("mask"), policy=policy)

@@ -56,7 +56,7 @@ def _finish(params, h, cfg):
 
 
 def decode_step(params: Params, cache: dict, tokens, pos: int, *,
-                cfg: ModelConfig, moe_impl: str = "dispatch"):
+                cfg: ModelConfig, tp: int = 1, moe_impl: str = "dispatch"):
     """One lockstep decode step.  tokens: [B] int; pos: the cache fill.
     Writes the cache in place.  Returns (logits [B, V_padded], cache).
 
@@ -71,7 +71,7 @@ def decode_step(params: Params, cache: dict, tokens, pos: int, *,
     b = tokens.shape[0]
     dev = _device(params)
     pos = int(pos)
-    x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    x = transformer.embed_tokens(params, tokens, cfg)
     if cfg.family == "ssm":
         return _finish(params, _ssm_layers(params, x, cache, cfg), cfg), cache
     cos, sin = _cos_sin_at(cfg, torch.tensor(pos, device=dev), b)
@@ -83,7 +83,7 @@ def decode_step(params: Params, cache: dict, tokens, pos: int, *,
             cache_pos, ring_valid = pos % alloc, min(pos + 1, alloc)
     for i in range(cfg.n_layers):
         x, _ = transformer.block_apply(
-            layer(params["blocks"], i), x, cos, sin, cfg=cfg,
+            layer(params["blocks"], i), x, cos, sin, cfg=cfg, tp=tp,
             cache=layer(cache, i), cache_pos=cache_pos,
             ring_valid=ring_valid, moe_impl=moe_impl)
     return _finish(params, x, cfg), cache
@@ -99,8 +99,8 @@ def _ssm_layers(params, x, state, cfg):
 
 
 def decode_step_ragged(params: Params, pool: dict, tokens, *,
-                       cfg: ModelConfig, moe_impl: str = "dispatch",
-                       active=None):
+                       cfg: ModelConfig, tp: int = 1,
+                       moe_impl: str = "dispatch", active=None):
     """One continuous-batching decode step over a slot pool
     (``kv_cache.init_slot_pool`` or ``init_paged_pool`` state).
 
@@ -119,7 +119,7 @@ def decode_step_ragged(params: Params, pool: dict, tokens, *,
     s = tokens.shape[0]
     if active is None:
         active = lengths > 0
-    x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    x = transformer.embed_tokens(params, tokens, cfg)
     if cfg.family == "ssm":
         logits = _finish(params, _ssm_layers(params, x, kv, cfg), cfg)
         lengths.add_(active.to(torch.int32))
@@ -127,7 +127,7 @@ def decode_step_ragged(params: Params, pool: dict, tokens, *,
     cos, sin = _cos_sin_at(cfg, lengths, s)
     for i in range(cfg.n_layers):
         x, _ = transformer.block_apply(
-            layer(params["blocks"], i), x, cos, sin, cfg=cfg,
+            layer(params["blocks"], i), x, cos, sin, cfg=cfg, tp=tp,
             cache=layer(kv, i), cache_positions=lengths,
             page_table=page_table, cross_table=cross_table,
             cross_lengths=cross_lengths, moe_impl=moe_impl)
@@ -145,7 +145,7 @@ def _last(h, last_pos, dev):
     return h[torch.arange(b, device=dev), idx]
 
 
-def prefill(params: Params, tokens, *, cfg: ModelConfig,
+def prefill(params: Params, tokens, *, cfg: ModelConfig, tp: int = 1,
             max_len: int | None = None, last_pos=None, frames=None,
             patches=None, moe_impl: str = "dispatch"):
     """Process whole prompts; returns (logits at the last prompt token,
@@ -170,8 +170,8 @@ def prefill(params: Params, tokens, *, cfg: ModelConfig,
         s += cfg.n_patches
     max_len = max(max_len or 0, s)
     if cfg.family == "encdec":
-        enc = transformer.encode(params, frames, cfg=cfg)
-        return prefill_with_encoder(params, enc, tokens, cfg=cfg,
+        enc = transformer.encode(params, frames, cfg=cfg, tp=tp)
+        return prefill_with_encoder(params, enc, tokens, cfg=cfg, tp=tp,
                                     max_len=max_len, last_pos=last_pos)
     cache = kv_cache.init_cache(cfg, b, max_len, ring=False, device=dev)
     x = transformer.embed_prompt(params, tokens, cfg, patches)
@@ -182,7 +182,7 @@ def prefill(params: Params, tokens, *, cfg: ModelConfig,
             cfg, transformer._positions_for(cfg, b, s, device=dev))
         for i in range(cfg.n_layers):
             x, _ = transformer.block_apply(
-                layer(params["blocks"], i), x, cos, sin, cfg=cfg,
+                layer(params["blocks"], i), x, cos, sin, cfg=cfg, tp=tp,
                 cache=layer(cache, i), cache_pos=0, moe_impl=moe_impl)
     return _finish(params, _last(x, last_pos, dev), cfg), cache
 
@@ -216,7 +216,7 @@ def gather_pages(kv: dict, page_row, dtype=None) -> dict:
 
 
 def prefill_extend(params: Params, tokens, kv: dict, page_row,
-                   start_pos: int, *, cfg: ModelConfig,
+                   start_pos: int, *, cfg: ModelConfig, tp: int = 1,
                    moe_impl: str = "dispatch", last_pos=None):
     """Prefill only the TAIL of a prompt whose first ``start_pos``
     positions have K/V in arena pages already (prefix sharing).
@@ -244,17 +244,18 @@ def prefill_extend(params: Params, tokens, kv: dict, page_row,
     idx = torch.arange(t, device=dev) + int(start_pos)
     cos, sin = transformer._cos_sin(
         cfg, transformer._positions_at(cfg, b, idx))
-    x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    x = transformer.embed_tokens(params, tokens, cfg)
     for i in range(cfg.n_layers):
         x, _ = transformer.block_apply(
-            layer(params["blocks"], i), x, cos, sin, cfg=cfg,
+            layer(params["blocks"], i), x, cos, sin, cfg=cfg, tp=tp,
             cache=layer(cache, i), cache_pos=int(start_pos),
             moe_impl=moe_impl)
     return _finish(params, _last(x, last_pos, dev), cfg), cache
 
 
 def prefill_with_encoder(params: Params, enc, tokens, *, cfg: ModelConfig,
-                         max_len: int | None = None, last_pos=None):
+                         tp: int = 1, max_len: int | None = None,
+                         last_pos=None):
     """The decoder's prefill over encoded frames ``enc`` ([B, T_enc, d]),
     apart from :func:`prefill` so that chunked admission can encode a
     request window by window and hand the joined states here.  Projects
@@ -276,12 +277,12 @@ def prefill_with_encoder(params: Params, enc, tokens, *, cfg: ModelConfig,
                  layers.dense(layer(blocks[f"w{n}"], i), enc).reshape(
                      shape).to(dt) for i in range(cfg.n_layers)])
                  for n in ("k", "v")}}
-    x = layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    x = transformer.embed_tokens(params, tokens, cfg)
     cos, sin = transformer._cos_sin(
         cfg, transformer._positions_for(cfg, b, s, device=dev))
     for i in range(cfg.n_layers):
         x, _ = transformer.block_apply(
-            layer(params["blocks"], i), x, cos, sin, cfg=cfg,
+            layer(params["blocks"], i), x, cos, sin, cfg=cfg, tp=tp,
             cache=layer(cache, i), cache_pos=0, enc=enc)
     return _finish(params, _last(x, last_pos, dev), cfg), cache
 
@@ -298,9 +299,17 @@ def sample_token(logits, generator: torch.Generator | None,
     exponential race ``argmax(p / q)``, ``q ~ Exp(1)``, the same numbers
     from the same generator -- without its check that ``probs`` is a
     distribution, which reads the result back to the host and so cannot
-    run inside a CUDA graph (the fused decode step)."""
+    run inside a CUDA graph (the fused decode step).
+
+    Under a mesh whose model axis splits the vocabulary the logits are
+    this rank's columns, and the draw is :func:`_sample_sharded`'s."""
     if policy is None:
         policy = cfg.softmax_policy() if cfg is not None else DEFAULT_POLICY
+    from repro_torch.distributed import collectives
+
+    if collectives.model_axis()[0] > 1:
+        return _sample_sharded(logits, generator, temperature, cfg=cfg,
+                               vocab=vocab, policy=policy)
     v = vocab or logits.shape[-1]
     logits = logits[..., :v].to(torch.float32)
     if temperature == 0.0:
@@ -310,10 +319,48 @@ def sample_token(logits, generator: torch.Generator | None,
     return (probs / race).argmax(dim=-1)
 
 
+def _sample_sharded(logits, generator, temperature: float, *,
+                    cfg: ModelConfig, vocab: int | None,
+                    policy: SoftmaxPolicy):
+    """:func:`sample_token` over vocab-parallel logits: this rank holds
+    columns ``[lo, hi)`` of the padded vocabulary (``collectives.
+    vocab_range``), of which those below ``vocab`` are drawn from.
+
+    Greedy is the sharded argmax (one collective).  At ``temperature >
+    0`` the probabilities are :func:`core.twopass.twopass_softmax_sharded`
+    of the rank's slice (pass 1 through the policy's stats op, kernel 2
+    with kernels on; one collective of the (m, n) pairs; pass 2 on the
+    slice), and the exponential race is the single-rank one: every rank
+    draws the whole vocabulary's ``q`` from the same seeded generator and
+    takes its columns, so the ranks agree and the draw equals the
+    unsharded one up to the rounding of ``p``."""
+    from repro_torch.core import numerics, twopass
+    from repro_torch.distributed import collectives
+
+    v = vocab or cfg.padded_vocab()
+    lo, hi = collectives.vocab_range(cfg.padded_vocab())
+    n = max(0, min(hi, v) - lo)
+    x = logits[..., :n].to(torch.float32)
+    if temperature == 0.0:
+        return collectives.sharded_argmax(x, lo)
+
+    def stats(xs):                  # pass 1 on this rank's slice
+        if n:
+            return policy.softmax_stats(xs)
+        zero = numerics.ext_zero((*xs.shape[:-1], 1), device=xs.device)
+        return zero
+
+    probs = twopass.twopass_softmax_sharded(x / temperature, stats=stats)
+    race = torch.empty((*logits.shape[:-1], v), dtype=torch.float32,
+                       device=logits.device).exponential_(
+                           generator=generator)[..., lo:lo + n]
+    return collectives.sharded_argmax(probs / race, lo)
+
+
 def generate_timed(params, prompt, *, cfg: ModelConfig, steps: int,
                    generator: torch.Generator | None = None,
                    max_len: int | None = None, temperature: float = 1.0,
-                   moe_impl: str = "dispatch", **prefill_kw):
+                   moe_impl: str = "dispatch", tp: int = 1, **prefill_kw):
     """Lockstep generation with per-phase timing: ``steps + 1`` tokens (one
     from the prefill logits, ``steps`` decoded).  ``prefill_kw`` goes to
     :func:`prefill` (an encdec prompt's ``frames``, a vlm prompt's
@@ -329,8 +376,9 @@ def generate_timed(params, prompt, *, cfg: ModelConfig, steps: int,
     dev = _device(params)
     max_len = max_len or (s + steps)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, prompt, cfg=cfg, max_len=max_len,
-                            moe_impl=moe_impl, **prefill_kw)
+    logits, cache = prefill(params, prompt, cfg=cfg, tp=tp,
+                            max_len=max_len, moe_impl=moe_impl,
+                            **prefill_kw)
     tok = sample_token(logits, generator, temperature, cfg=cfg,
                        vocab=cfg.vocab)
     sync(dev)
@@ -339,7 +387,7 @@ def generate_timed(params, prompt, *, cfg: ModelConfig, steps: int,
     for i in range(steps):
         toks.append(tok)
         logits, cache = decode_step(params, cache, tok, s + i, cfg=cfg,
-                                    moe_impl=moe_impl)
+                                    tp=tp, moe_impl=moe_impl)
         tok = sample_token(logits, generator, temperature, cfg=cfg,
                            vocab=cfg.vocab)
     toks.append(tok)
@@ -353,9 +401,9 @@ def generate_timed(params, prompt, *, cfg: ModelConfig, steps: int,
 def generate(params, prompt, *, cfg: ModelConfig, steps: int,
              generator: torch.Generator | None = None,
              max_len: int | None = None, temperature: float = 1.0,
-             moe_impl: str = "dispatch", **prefill_kw):
+             moe_impl: str = "dispatch", tp: int = 1, **prefill_kw):
     """Greedy/temperature lockstep generation: tokens [B, steps + 1]."""
     return generate_timed(params, prompt, cfg=cfg, steps=steps,
                           generator=generator, max_len=max_len,
                           temperature=temperature, moe_impl=moe_impl,
-                          **prefill_kw)[0]
+                          tp=tp, **prefill_kw)[0]

@@ -54,7 +54,7 @@ def cache_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               ring: bool = True, device="cuda") -> dict:
+               ring: bool = True, mesh=None, device="cuda") -> dict:
     """Stacked-layer lockstep cache ``{"k", "v"}: [L, B, T, Hkv, hd]``.
     ``T`` is ``max_len``, or ``min(max_len, swa_window)`` for an SWA config
     with ``ring`` (the ring that ``engine.decode_step`` addresses mod
@@ -62,7 +62,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ssm config's cache is its state, whatever ``max_len``.  An encdec
     config's is ``{"self": {"k", "v"}, "cross": {"k", "v"}}``, an MLA
     config's the latent ``{"c", "kr"}``, a hybrid config's ``{"attn":
-    {"k", "v"}, "ssm"}`` (the ring applies to the attention half)."""
+    {"k", "v"}, "ssm"}`` (the ring applies to the attention half).
+    Under ``mesh`` (default: the active one) the cache holds this rank's
+    KV heads (:func:`local_kv_heads`)."""
     dt = cache_dtype(cfg)
     if cfg.family == "ssm":
         h, hd, d = cfg.n_heads, cfg.ssm.head_dim, cfg.d_model
@@ -78,7 +80,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     alloc = max_len
     if ring and cfg.swa_window is not None:
         alloc = min(max_len, cfg.swa_window)
-    shape = (cfg.n_layers, batch, alloc, cfg.n_kv_heads,
+    shape = (cfg.n_layers, batch, alloc, local_kv_heads(cfg, mesh),
              cfg.resolved_head_dim())
 
     def kv():
@@ -92,6 +94,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     if cfg.family == "hybrid":
         return {"attn": kv(), "ssm": _ssm_state(cfg, batch, device)}
     return kv()
+
+
+def local_kv_heads(cfg: ModelConfig, mesh=None) -> int:
+    """The KV heads a rank's caches and arenas hold under ``mesh`` (default:
+    the active one): ``n_kv_heads / tp`` where the model axis splits them
+    (``sharding.kv_shard_factor``), all of them otherwise.  Every cache and
+    pool is allocated at this count, so a rank never holds the whole
+    arena (the reference's ``shard_pool`` places a whole one)."""
+    from repro_torch.distributed import autoshard, sharding
+
+    mesh = mesh if mesh is not None else autoshard.active_mesh()
+    if mesh is None:
+        return cfg.n_kv_heads
+    return cfg.n_kv_heads // sharding.kv_shard_factor(cfg, mesh)
 
 
 def _ssm_state(cfg: ModelConfig, n: int, device) -> torch.Tensor:
@@ -116,8 +132,11 @@ def _latent(cfg: ModelConfig, n: int, t: int, dt, device) -> dict:
 # Strip pool.
 # ---------------------------------------------------------------------------
 def init_slot_pool(cfg: ModelConfig, slots: int, max_len: int, *,
-                   device="cuda") -> dict:
-    return {"kv": init_cache(cfg, slots, max_len, ring=False,
+                   mesh=None, device="cuda") -> dict:
+    """``{"kv": init_cache(slots, max_len), "lengths": int32[slots]}``,
+    the cache at this rank's KV heads under ``mesh`` (default: the active
+    one)."""
+    return {"kv": init_cache(cfg, slots, max_len, ring=False, mesh=mesh,
                              device=device),
             "lengths": torch.zeros((slots,), dtype=torch.int32,
                                    device=device)}
@@ -231,7 +250,7 @@ def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
                     cross_len: int | None = None,
                     page_dtype: str | None = None,
                     scale_granularity: str | None = None,
-                    device="cuda") -> dict:
+                    mesh=None, device="cuda") -> dict:
     """``{"kv": {"k", "v"}: [L, pages, ps, Hkv, hd], "page_table":
     int32[slots, pages_per_slot], "lengths": int32[slots]}``.  ``pages``
     defaults to full provisioning (``1 + slots * pages_per_slot``, page 0
@@ -255,7 +274,10 @@ def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
     absmax over its positions, and a decode write quantizes its own row
     with its own scale, so no page is ever requantized.  The sidecars
     exist from construction and are written in place (the captured
-    decode step reads them)."""
+    decode step reads them).
+
+    Under ``mesh`` (default: the active one) ``Hkv`` is this rank's
+    (:func:`local_kv_heads`); the tables stay whole on every rank."""
     if not supports_paging(cfg):
         raise ValueError(f"family {cfg.family!r}: the recurrent state has "
                          "no position axis to page; use the strip pool")
@@ -277,7 +299,7 @@ def init_paged_pool(cfg: ModelConfig, slots: int, max_len: int, *,
     n_xtab = pages_per_slot(cross_len or max_len, ps) if encdec else 0
     if pages is None:
         pages = 1 + slots * (n_tab + n_xtab)
-    shape = (cfg.n_layers, pages, ps, cfg.n_kv_heads,
+    shape = (cfg.n_layers, pages, ps, local_kv_heads(cfg, mesh),
              cfg.resolved_head_dim())
     dt = cache_dtype(cfg)
 
@@ -582,6 +604,7 @@ class PageAllocator:
 
 # ---------------------------------------------------------------------------
 # Memory accounting, from shapes on the meta device (nothing allocated).
+# Inside an active mesh each counts a rank's share (:func:`local_kv_heads`).
 # ---------------------------------------------------------------------------
 def _nbytes(tree) -> int:
     if isinstance(tree, dict):

@@ -44,6 +44,14 @@ device state (arenas, page table, lengths) is the pool, changed in place.
 The decode step reads its tokens and active mask from static buffers and
 writes the sampled tokens back in place; on the card it is captured once in
 a CUDA graph and replayed (``serving/fused.py``).
+
+Under a ``('data', 'model')`` mesh (``launch/mesh.py``) every rank runs
+this scheduler on the same requests and takes the same decisions: the
+tokens it reads are the same on every rank (the sampler's collectives end
+in the same values), and so are the allocator's moves.  Along ``model``
+each rank holds its shard of the weights and of every arena page (its KV
+heads), and the model code sums and gathers across the axis; along
+``data`` the ranks replicate the step.
 """
 
 from __future__ import annotations
@@ -54,6 +62,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.distributed import autoshard
+from repro_torch.distributed import sharding as dist_sharding
 from repro_torch.models import transformer
 from repro_torch.serving import engine, kv_cache
 from repro_torch.serving.fused import FusedStep, graph_for
@@ -72,6 +82,32 @@ def _unported(what: str, item: int):
     return NotImplementedError(
         f"ContinuousBatchingEngine({what}) is not ported yet "
         f"(ROADMAP queue A item {item})")
+
+
+def _check_mesh(cfg, mesh, model_tp: int, fused: bool, page_dtype,
+                host_swap_bytes) -> None:
+    """What the port serves under a mesh: the dense family's GQA (item 22's
+    serving half).  Every other case raises, naming its ROADMAP item."""
+    from repro_torch.launch.mesh import mesh_tp
+
+    tp = mesh_tp(mesh)
+    if cfg.family != "dense" or cfg.mla is not None:
+        raise _unported(f"mesh=, family {cfg.family!r}", 35)
+    if tp > 1 and cfg.n_kv_heads == 1:
+        raise _unported("mesh=, multi-query attention (one KV head)", 35)
+    if cfg.decode_seq_parallel:
+        raise _unported("mesh=, sequence-parallel decode", 34)
+    if page_dtype is not None or host_swap_bytes is not None:
+        raise _unported("mesh=, int8 pages or the host swap tier", 22)
+    if tp > 1 and tp != model_tp:
+        raise ValueError(f"a mesh whose model axis has {tp} ranks needs "
+                         f"the model built with tp={tp}, not {model_tp}")
+    world = int(np.prod(mesh.devices.shape))
+    if fused and mesh.backend == "gloo" and world > 1:
+        raise ValueError(
+            "fused=True under a gloo mesh: gloo's collectives pass through "
+            "host memory and cannot be captured in a CUDA graph; pass "
+            "fused=False (the eager step) or run NCCL, a card a rank")
 
 
 @dataclass
@@ -147,6 +183,21 @@ class ContinuousBatchingEngine:
     whose ssm state is slot-major, nor encdec, whose cross pages the
     demotion would strand).
 
+    ``mesh`` (``launch.mesh.make_serving_mesh``; every rank builds the
+    engine with the same arguments): tensor-parallel serving of the dense
+    family.  ``params`` is the whole tree of ``Model(cfg, tp=...)``,
+    whose ``tp`` is the mesh's model axis; each rank keeps its shard
+    (``sharding.shard_params``) and its heads of every arena page (the
+    pool is allocated at ``kv_cache.local_kv_heads``).  A
+    ``memory_budget_bytes`` is a rank's and bounds the pool a rank
+    allocates, so it buys about ``kv_shard_factor`` times the pages.  Greedy sampling is a
+    sharded argmax and ``temperature > 0`` the sharded two-pass softmax
+    (``engine.sample_token``).  Under ``gloo`` ``fused=True`` raises (its
+    collectives cannot be captured); ``throughput()`` reports the mesh's
+    axes, ``kv_shards`` and the backend.  Other families, sequence-
+    parallel decode, int8 pages and the swap tier raise, naming their
+    ROADMAP items.
+
     encdec (paged only): ``max_cross_len`` bounds a request's encoder
     frames (default ``max_len``) and sizes its cross table; ``enc_chunk``
     encodes a request ``enc_chunk`` frames a scheduler step, each window
@@ -167,8 +218,11 @@ class ContinuousBatchingEngine:
                  max_cross_len: int | None = None,
                  enc_chunk: int | None = None, moe_impl: str = "dispatch"):
         cfg = model.cfg
+        self.mesh = mesh
+        self.tp = model.tp
         if mesh is not None:
-            raise _unported("mesh", 22)
+            _check_mesh(cfg, mesh, self.tp, fused, page_dtype,
+                        host_swap_bytes)
         if paged == "auto":
             paged = kv_cache.supports_paging(cfg)
         self.encdec = cfg.family == "encdec"
@@ -205,27 +259,34 @@ class ContinuousBatchingEngine:
         if slots is None:
             if memory_budget_bytes is None:
                 raise ValueError("pass slots= or memory_budget_bytes=")
-            if self.paged:
-                slots, pages = kv_cache.paged_dims_in_budget(
-                    cfg, max_len, memory_budget_bytes,
-                    page_size=self.page_size,
-                    avg_tokens=avg_tokens_hint or max(1, max_len // 2),
-                    page_dtype=page_dtype,
-                    scale_granularity=self.scale_granularity)
-                if slots < 1 or pages < 2:
-                    raise ValueError(
-                        f"memory budget {memory_budget_bytes} fits no usable "
-                        f"paged pool at max_len {max_len}")
-            else:
-                slots = kv_cache.max_slots_in_budget(cfg, max_len,
-                                                     memory_budget_bytes)
-                if slots < 1:
-                    raise ValueError(
-                        f"memory budget {memory_budget_bytes} fits 0 slots "
-                        f"of max_len {max_len}")
+            # the budget is a rank's bytes, counted at its share of the
+            # arenas under the mesh (hints): head-sharded arenas store
+            # 1/tp of every page a rank, so the same bytes buy about tp
+            # times the pages (the tables, whole on every rank, less)
+            with autoshard.hints(mesh):
+                if self.paged:
+                    slots, pages = kv_cache.paged_dims_in_budget(
+                        cfg, max_len, memory_budget_bytes,
+                        page_size=self.page_size,
+                        avg_tokens=avg_tokens_hint or max(1, max_len // 2),
+                        page_dtype=page_dtype,
+                        scale_granularity=self.scale_granularity)
+                else:
+                    slots = kv_cache.max_slots_in_budget(
+                        cfg, max_len, memory_budget_bytes)
+            if self.paged and (slots < 1 or pages < 2):
+                raise ValueError(
+                    f"memory budget {memory_budget_bytes} fits no usable "
+                    f"paged pool at max_len {max_len}")
+            if slots < 1:
+                raise ValueError(
+                    f"memory budget {memory_budget_bytes} fits 0 slots "
+                    f"of max_len {max_len}")
         self.model = model
         self.cfg = cfg
-        self.params = params
+        # under a mesh, the caller's whole tree is cut to this rank's shard
+        self.params = (dist_sharding.shard_params(params, cfg, mesh)
+                       if mesh is not None else params)
         self.device = model.device
         self.n_slots = int(slots)
         self.temperature = temperature
@@ -249,7 +310,7 @@ class ContinuousBatchingEngine:
                 pages=int(pages),
                 cross_len=self.max_cross_len if self.encdec else None,
                 page_dtype=page_dtype,
-                scale_granularity=self.scale_granularity,
+                scale_granularity=self.scale_granularity, mesh=mesh,
                 device=self.device)
             self.allocator = kv_cache.PageAllocator(int(pages))
             self.slot_pages: list[list[int]] = [[] for _ in
@@ -258,7 +319,7 @@ class ContinuousBatchingEngine:
                                                       range(self.n_slots)]
         else:
             self.pool = kv_cache.init_slot_pool(cfg, self.n_slots,
-                                                self.max_len,
+                                                self.max_len, mesh=mesh,
                                                 device=self.device)
 
         # host-RAM swap tier: under page pressure a cold slot's pages move
@@ -335,7 +396,9 @@ class ContinuousBatchingEngine:
         if graph is not None:
             # every slot is free: the warm-up steps write nothing that a
             # slot will read
-            self._fused = FusedStep(self._decode, graph, self.step_buffers())
+            with autoshard.hints(self.mesh):
+                self._fused = FusedStep(self._decode, graph,
+                                        self.step_buffers())
 
     # -- device steps ---------------------------------------------------------
     def _sample(self, logits):
@@ -347,7 +410,7 @@ class ContinuousBatchingEngine:
         ``_active`` slots in, their sampled tokens written back into
         ``_tokens``."""
         logits, _ = engine.decode_step_ragged(
-            self.params, self.pool, self._tokens, cfg=self.cfg,
+            self.params, self.pool, self._tokens, cfg=self.cfg, tp=self.tp,
             moe_impl=self.moe_impl, active=self._active)
         self._tokens.copy_(self._sample(logits))
 
@@ -566,7 +629,8 @@ class ContinuousBatchingEngine:
             # whole pages for the paged one.)
             logits, cache = engine.prefill(
                 self.params, padded.to(self.device), cfg=self.cfg,
-                max_len=bucket, last_pos=plen - 1, moe_impl=self.moe_impl)
+                tp=self.tp, max_len=bucket, last_pos=plen - 1,
+                moe_impl=self.moe_impl)
             tok_dev = self._sample(logits)
             self._prefill_shapes.add(bucket)
             if self.paged:
@@ -603,8 +667,8 @@ class ContinuousBatchingEngine:
         tail[0, :plen - m_tok] = torch.tensor(req.prompt[m_tok:])
         logits, cache = engine.prefill_extend(
             self.params, tail.to(self.device), self.pool["kv"],
-            self._row(gather), m_tok, cfg=self.cfg, moe_impl=self.moe_impl,
-            last_pos=plen - m_tok - 1)
+            self._row(gather), m_tok, cfg=self.cfg, tp=self.tp,
+            moe_impl=self.moe_impl, last_pos=plen - m_tok - 1)
         tok_dev = self._sample(logits)
         self._prefill_shapes.add(("extend", tail_bucket, width))
         self.slot_pages[slot] = list(match.pages) + page_ids
@@ -682,7 +746,7 @@ class ContinuousBatchingEngine:
         t0 = time.perf_counter()
         enc = transformer.encode(
             self.params, torch.from_numpy(np.asarray(frames))[None].to(
-                self.device), cfg=self.cfg)
+                self.device), cfg=self.cfg, tp=self.tp)
         engine.sync(self.device)
         dt = time.perf_counter() - t0
         self.stats["encode_s"] += dt
@@ -719,7 +783,7 @@ class ContinuousBatchingEngine:
         padded[0, :plen] = torch.tensor(req.prompt)
         logits, cache = engine.prefill_with_encoder(
             self.params, enc, padded.to(self.device), cfg=self.cfg,
-            max_len=bucket, last_pos=plen - 1)
+            tp=self.tp, max_len=bucket, last_pos=plen - 1)
         tok_dev = self._sample(logits)
         self._prefill_shapes.add(bucket)
         kv_cache.adopt_slot_encdec(
@@ -930,7 +994,12 @@ class ContinuousBatchingEngine:
 
     def step(self, now: float | None = None) -> bool:
         """Admit arrived requests, then run one ragged decode burst over the
-        occupied slots.  Returns False when idle."""
+        occupied slots.  Returns False when idle.  The model runs inside
+        the mesh's ``autoshard.hints`` context (none without a mesh)."""
+        with autoshard.hints(self.mesh):
+            return self._step(now)
+
+    def _step(self, now: float | None) -> bool:
         if now is None:
             now = 0.0
         self._admit_arrived(now)
@@ -978,6 +1047,11 @@ class ContinuousBatchingEngine:
             self.submit(req)
         if use_wall_clock is None:
             use_wall_clock = any(r.arrival_s > 0 for r in self.pending)
+        if use_wall_clock and self.mesh is not None:
+            raise ValueError(
+                "arrival times under a mesh: every rank must admit at the "
+                "same step, and the ranks' clocks differ; offer the "
+                "requests at t=0")
         if not use_wall_clock:
             for req in self.pending:
                 req.arrival_s = 0.0
@@ -1053,6 +1127,12 @@ class ContinuousBatchingEngine:
             decode_tokens=st["decode_tokens"], wall_s=wall,
             paged=self.paged, prefill_shapes=len(self._prefill_shapes),
             fused=self._fused is not None)
+        if self.mesh is not None:
+            out.update(mesh_axes=dict(zip(self.mesh.axis_names,
+                                          self.mesh.devices.shape)),
+                       kv_shards=dist_sharding.kv_shard_factor(self.cfg,
+                                                               self.mesh),
+                       backend=self.mesh.backend)
         if self._fused is not None:
             out.update(self._fused.info())
         if self.encdec:

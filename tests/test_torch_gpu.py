@@ -553,18 +553,21 @@ def test_flash_mma_kernels_blocks_an_sm_at_wide_heads(cuda, d, dv, blocks):
 @pytest.mark.gpu
 def test_flash_refuses_what_the_kernels_do_not_take(cuda):
     q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, 1, 2, 1, 16, 16, 64)
-    # any head dim up to 256 is taken (D 60, Dv != D too); past it the
-    # tiles would not fit shared memory
+    # every head dim is taken: past 256 the wmma kernels walk it in
+    # chunks, so D 264 and Dv 264 are no refusal
     wide = [t.repeat(1, 1, 1, 5)[..., :264].contiguous() for t in (q, k, v)]
-    with pytest.raises(ValueError, match="head dim D = 264"):
-        tfa.flash_attention_fwd_gqa(*wide)
-    with pytest.raises(ValueError, match="head dim Dv = 264"):
-        tfa.flash_attention_fwd_gqa(q, k, wide[2])
+    assert tfa.design(torch.bfloat16, 264) == "wmma"
+    for args in (wide, (q, k, wide[2])):
+        o = tfa.flash_attention_fwd_gqa(*args)[0]
+        want = tfa.flash_attention_fwd_gqa_plain(
+            *args, causal=False, scale=args[0].shape[-1] ** -0.5)[0]
+        assert (o.float() - want.float()).abs().max() < 2e-2
+    assert tk.launch_counts()["flash_attention_fwd_gqa"] == 2
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention_fwd_gqa(q.transpose(2, 3), k, v)
     with pytest.raises(ValueError, match="window"):
         tfa.flash_attention_fwd_gqa(q, k, v, window=0)
-    assert tk.launch_counts()["flash_attention_fwd_gqa"] == 0
+    assert tk.launch_counts()["flash_attention_fwd_gqa"] == 2
 
 
 @pytest.mark.gpu
@@ -885,6 +888,37 @@ def test_fused_step_tokens_equal_eager(cuda, paged):
     assert eng._fused.launches == {kname: m.cfg.n_layers}
     assert eng._fused.replays == st["steps"]
     assert counts == counts_e and counts[kname] == m.cfg.n_layers * st["steps"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "strip"])
+def test_padded_heads_graph_step_equals_eager(cuda, paged):
+    """Reduced qwen built for tp 3 on one card: 4 q-heads padded to 6 over
+    2 KV heads, the ungrouped layout (the decode's q-heads regrouped over
+    the arena through cached indices, so the captured step copies nothing
+    from the host);
+    graph tokens and launches == eager, and == the unpadded model's."""
+    from repro_torch.models import build_model
+
+    m = build_model("qwen2.5-14b", reduced=True, use_kernels=True, tp=3)
+    params = m.init(seed=0)
+    assert params["blocks"]["attn"]["wq"]["w"].shape[-1] == 6 * 16
+    reqs = _fused_requests(m.cfg.vocab)
+    runs = {f: _serve(m, params, paged, f, reqs, temperature=0.0)
+            for f in (True, False)}
+    (toks, counts, eng), (toks_e, counts_e, _) = runs[True], runs[False]
+    assert eng._fused is not None
+    assert toks == toks_e and counts == counts_e
+    # the padded heads' weights are zero: the tp-1 model on the real
+    # heads' weights gives the same tokens
+    m1 = build_model("qwen2.5-14b", reduced=True, use_kernels=True)
+    real = {**params, "blocks": {**params["blocks"], "attn": {
+        "wq": {"w": params["blocks"]["attn"]["wq"]["w"][..., :64],
+               "b": params["blocks"]["attn"]["wq"]["b"][..., :64]},
+        "wk": params["blocks"]["attn"]["wk"],
+        "wv": params["blocks"]["attn"]["wv"],
+        "wo": {"w": params["blocks"]["attn"]["wo"]["w"][:, :64]}}}}
+    assert _serve(m1, real, paged, False, reqs, temperature=0.0)[0] == toks
 
 
 @pytest.mark.gpu

@@ -38,7 +38,10 @@ def test_cli_serves_on_the_cpu(extra, capsys):
     assert ("kernel launches: {}" in out) == ("--kernels" in extra)
 
 
-@pytest.mark.parametrize("flags,item", [(["--mesh", "2x2"], 22)])
+# --mesh itself is served (tests/test_torch_tp_serving.py); int8 pages
+# under it are not
+@pytest.mark.parametrize("flags,item", [
+    (["--mesh", "2x2", "--backend", "gloo", "--kv-dtype", "int8"], 22)])
 def test_unported_flags_exit_with_their_item(flags, item, capsys):
     with pytest.raises(SystemExit) as e:
         serve.main(BASE + flags)

@@ -15,6 +15,7 @@ from repro.models import build_model as jbuild
 from repro.serving import engine as jeng
 from repro.serving import scheduler as jsched
 from repro_torch.convert import params_from_jax
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import Model
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import transformer as ttr
@@ -156,7 +157,11 @@ def test_budgeted_pools_and_backfill(weights):
                                      pages=p) <= 4 * one
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "22")])
+@pytest.mark.parametrize("kw,item", [
+    # the serving half of item 22 is ported (tests/test_torch_tp_serving.py);
+    # the swap tier under a mesh is not
+    (dict(mesh=make_serving_mesh((1, 1), backend="gloo"),
+          host_swap_bytes=1 << 20), "22")])
 def test_unported_options_raise(weights, kw, item):
     _, _, tm, tp = weights
     with pytest.raises(NotImplementedError, match=f"item {item}"):
