@@ -162,8 +162,8 @@ Phases (any failure exits non-zero; nothing is caught):
    2-layer float32 cut whose served tokens ``==`` the batch-1 lockstep
    ``Model.generate``;
 12. multi-head latent attention: deepseek-v2-lite-16b at full width,
-   depth cut to 14 of its 27 layers so that the whole script stays inside
-   its time limit (16 heads of 128 nope + 64 rope query / key columns and
+   depth cut to 7 of its 27 layers so that the whole script stays
+   inside its time limit (16 heads of 128 nope + 64 rope query / key columns and
    128 value columns, a 512-wide latent cache, 64 experts top 6 plus 2
    shared; bf16 weights, the router float32).  Kernels 12-13
    with v's head dim apart from q's (D 192 / Dv 128 at a 2,048-token
@@ -199,7 +199,7 @@ Phases (any failure exits non-zero; nothing is caught):
    float32 cut (engine ``==`` lockstep; with patches ``generate`` kernels
    ``==`` plain, the forward within 1e-4); and
    ``python -m repro_torch.launch.serve --arch qwen2-vl-7b --kernels``;
-14. hybrid: hymba-1.5b at full width, 16 of its 32 layers (the script's
+14. hybrid: hymba-1.5b at full width, 8 of its 32 layers (the script's
    time limit; the CLI at all 32) (d_model 1600,
    25 query heads over 5 KV heads of 64 under a 1,024 window, 25 mamba
    heads of 64 with state 16 in every block, d_ff 5504, vocab 32001;
@@ -305,9 +305,11 @@ Phases (any failure exits non-zero; nothing is caught):
    cp.async loads), each within the derived limits of the kernel phase
    and timed beside its bound, plain version and library call; then
    whisper-base (8 x (1,500 frames, 448 decoder tokens)), rwkv6-1.6b (1
-   x 4,096), qwen2-vl-7b (1 x (256 patches + 3,840 tokens), 4 of its 28
-   layers), hymba-1.5b (1 x 4,096), granite-moe-3b-a800m (1 x 4,096, 16
-   of its 32 layers) and deepseek-v2-lite-16b (1 x 4,096, 4 of its 27
+   x 4,096, 4 of its 24 layers), qwen2-vl-7b (1 x (256 patches + 3,840
+   tokens), 4 of its 28 layers), hymba-1.5b (1 x 4,096, 16 of its 32),
+   granite-moe-3b-a800m (1 x 4,096, 8 of its 32 layers; the depths cut
+   for the script's time limit) and deepseek-v2-lite-16b (1 x 4,096, 4
+   of its 27
    layers; both moe_impl "dispatch", one group of 4,095 tokens) at full
    width, float32 parameters, bf16 activations, remat: from one state the
    kernel route against the plain route (the loss and four or five
@@ -325,7 +327,7 @@ Phases (any failure exits non-zero; nothing is caught):
    on the one card, backend ``gloo`` (NCCL takes one rank a card), eager
    (gloo's collectives cannot be captured in a CUDA graph): full-width
    qwen2.5-14b with seeded bf16 weights at tp 2 (mesh 1x2, 20 / 4 heads
-   and 76,032 vocabulary columns a rank, the grouped layout; 16 of 48
+   and 76,032 vocabulary columns a rank, the grouped layout; 8 of 48
    layers, 8 slots, 12 requests of 200-1,500 + 32 tokens) and tp 3 (mesh
    1x3, 40 heads padded to 42, KV replicated, each rank's 14 q-heads
    regrouped over a view of its run of KV heads in decode; 4 layers, 4
@@ -342,6 +344,27 @@ Phases (any failure exits non-zero; nothing is caught):
    in the main path's runs; the backend, ms a decode step and the ms the
    collectives take a step (a card shared by the ranks and gloo's host
    copies: no statement about a link between cards).
+22. tp_train: training over a ``('data', 'model')`` mesh (ROADMAP item 22,
+   its training half), ranks spawned on the one card over gloo:
+   qwen2.5-14b at full width (4 of its 48 layers, as the train phase;
+   float32 parameters, bf16 activations, remat, kernels on) through
+   ``Trainer.run`` over mesh 1x2 (tensor parallel: 20 / 4 heads a rank,
+   the vocabulary 76,032 columns a rank; 1 x 4,096 tokens, 3 steps) and
+   mesh 2x1 (FSDP over data; a global batch of 2 x 4,096, 2 steps, at 2
+   layers: gloo's host copies of the FSDP traffic),
+   each held against the single process on the same weights and batches
+   (2x1 against ``microbatches=2``): 1x2's loss at every step within
+   the train-parity bound (2^-8 of the largest logit + 1e-4) and its grad
+   norm within 2^-5, 2x1's loss and grad norm at every step equal; each
+   rank's
+   peak bytes, ms a step, the collectives' share of it and its launches
+   of kernels 9-13.  Kernels 9-11 at a rank's columns (bf16 [512, 5120]
+   x [5120, 76,032]): every label outside the shard (a label logit of
+   exactly 0), the backward fed the fold of both ranks' stats, and the
+   ranks' folded loss against kernel 9 over all 152,064 columns; kernels
+   12-13 at a rank's heads ([1, 20 / 4, 4096, 128] bf16); times beside
+   bounds.  The training CLI under torchrun, reduced: ``--mesh 1x2``
+   saves, ``--mesh 2x1`` and then no mesh resume.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -3807,7 +3830,7 @@ MLA_ARCH = "deepseek-v2-lite-16b"   # 27 layers, d 2048, 16 heads: q / k of
                                     # 128 nope + 64 rope, v 128; latent 512;
                                     # 64 experts top 6 + 2 shared of 1,408
 MLA_SEED = 29
-MLA_LAYERS = 14                     # depth cut from 27, so that the whole
+MLA_LAYERS = 7                      # depth cut from 27, so that the whole
                                     # script keeps inside its time limit
 MLA_SLOTS = 16
 MLA_PROMPTS = (40, 200, 2049)       # requests, prompt lengths [lo, hi)
@@ -4441,13 +4464,13 @@ def vlm_phase(torch, rows) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 14: the hybrid family, hymba-1.5b, at full width and depth.
+# Phase 14: the hybrid family, hymba-1.5b, at full width (HYB_LAYERS).
 # ---------------------------------------------------------------------------
 HYB_ARCH = "hymba-1.5b"      # 32 layers, d 1600, 25 query heads over 5 KV
                              # heads of 64 (G 5), SWA 1024, 25 mamba heads of
                              # 64 (state 16) a block, d_ff 5504, vocab 32001
 HYB_SEED = 31
-HYB_LAYERS = 16                     # depth cut from 32 (PR 34), so that the
+HYB_LAYERS = 8                      # depth cut from 32, so that the
                                     # whole script keeps inside its limit
 HYB_SLOTS = 32
 HYB_PROMPTS = (48, 200, 3001)       # requests, prompt lengths [lo, hi):
@@ -6294,20 +6317,21 @@ FAM_TRAIN = {
     # 8 x (1,500 frames, 448 decoder tokens): 6 + 6 layers
     "whisper-base": (None, 8, 1500),
     # 1 x 4,096: 4,095 positions in 32 WKV6 chunks of 128 (the reference's
-    # plan: at least 4,095 / 32 a chunk), 8 of its 24 layers: at 24 a
+    # plan: at least 4,095 / 32 a chunk), 4 of its 24 layers: at 24 a
     # step takes 4.7 s and the phase 158 s of the script's time limit
-    "rwkv6-1.6b": (8, 1, 4096),
+    "rwkv6-1.6b": (4, 1, 4096),
     # 1 x (256 patches + 3,840 tokens), 4 of its 28 layers: 7.6 G float32
     # parameters at 16 bytes each (parameter, gradient, two moments) are
     # 122 GB, past the card's 80
     "qwen2-vl-7b": (4, 1, 4096),
-    # 1 x 4,096: 4x the window of 1,024, 32 layers
-    "hymba-1.5b": (None, 1, 4096),
+    # 1 x 4,096: 4x the window of 1,024, 16 of its 32 layers (the
+    # script's time limit)
+    "hymba-1.5b": (16, 1, 4096),
     # 1 x 4,096: one dispatch group of 4,095 tokens (no multiple of
-    # 2,048), capacity int(4095 * 8 * 1.25 / 40) = 1,023; 16 of its 32
-    # layers, the moe phase's cut: 1.76 G float32 parameters, 28.2 GB of
-    # state (54.0 GB at all 32, before activations)
-    "granite-moe-3b-a800m": (16, 1, 4096),
+    # 2,048), capacity int(4095 * 8 * 1.25 / 40) = 1,023; 8 of its 32
+    # layers (the script's time limit; 1.76 G float32 parameters and 28.2
+    # GB of state at 16, 54.0 GB at all 32, before activations)
+    "granite-moe-3b-a800m": (8, 1, 4096),
     # 1 x 4,096, capacity int(4095 * 6 * 1.25 / 64) = 479; 4 of its 27
     # layers: 2.76 G parameters, 44.1 GB of state, and the parity step's
     # second gradient set (all 27 would need 259 GB)
@@ -6932,7 +6956,8 @@ def _paths(tree, prefix: str = ""):
 # ---------------------------------------------------------------------------
 # Phase 21: tensor-parallel serving over a mesh of ranks on the one card.
 # ---------------------------------------------------------------------------
-TP_RUNS = {2: dict(layers=16, requests=12), 3: dict(layers=4, requests=4)}
+# tp 2 at 8 of 48 layers: the script's time limit
+TP_RUNS = {2: dict(layers=8, requests=12), 3: dict(layers=4, requests=4)}
 TP_SEED = 37
 TP_KERNELS = ("twopass_softmax_2d", "twopass_stats_2d",
               "decode_attention_paged")
@@ -7297,6 +7322,406 @@ def tp_phase(torch, rows) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: training over a mesh of ranks on the one card.
+# ---------------------------------------------------------------------------
+# 2x1 at 2 layers: gloo takes each step's FSDP traffic (the layers'
+# gathers and float32 gradients, the LM head's) through host memory, 13.7
+# GB and ~20 s a step at 4 layers on an H100's host; 2 layers keep the
+# phase near its 150 s.  2x1 runs each microbatch of the single process
+# on a rank, through the same kernels, and sums the two halves as it does:
+# every step's loss and grad norm are held equal (``exact``); 1x2 splits
+# the products' sums, every step is held within the train-parity bounds
+TPT_RUNS = {"1x2": dict(shape=(1, 2), batch=1, steps=3,
+                        layers=TRAIN_LAYERS, exact=False),
+            "2x1": dict(shape=(2, 1), batch=2, steps=2, layers=2,
+                        exact=True)}
+TPT_SEED = 38
+TPT_LR = dict(peak_lr=3e-4, warmup=100)       # the train phase's rates
+TPT_KERNELS = TRAIN_KERNELS
+TPT_TP2_CHUNK = (512, 5120, 152064 // 2)      # a rank's loss chunk at tp 2
+TPT_TP2_FLASH = (1, 20, 4, 4096, 4096, 128, True, None, "bfloat16")
+
+
+def tpt_model(run: dict, tp: int, device="cuda"):
+    from repro_torch.models import build_model
+
+    return build_model(ARCH, n_layers=run["layers"], use_kernels=True,
+                       tp=tp, device=device)
+
+
+def tpt_trainer(m, run: dict, mesh=None, microbatches: int = 1):
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    return Trainer(m, ShapeCell("tp_train", TRAIN_SEQ, run["batch"],
+                                "train"),
+                   TrainerConfig(steps=run["steps"], seed=TPT_SEED,
+                                 log_every=1, microbatches=microbatches,
+                                 **TPT_LR), mesh=mesh)
+
+
+def tpt_steps(torch, trainer, on_step=None, state=None) -> list[dict]:
+    """``trainer.run(state)`` with each step's loss, grad norm, ms and
+    peak bytes recorded (``on_step`` is called around the step)."""
+    step, out = trainer.step, []
+
+    def recorded(state, batch):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if on_step is not None:
+            on_step("start")
+        state, met = step(state, batch)
+        norm = float(met["grad_norm"])
+        torch.cuda.synchronize()
+        out.append(dict(loss=float(met["loss"]), grad_norm=norm,
+                        ms=(time.perf_counter() - t0) * 1e3,
+                        peak_bytes=torch.cuda.max_memory_allocated()))
+        if on_step is not None:
+            on_step("end")
+        return state, met
+
+    trainer.step = recorded
+    trainer.run(state, None if state is None else 0)
+    return out
+
+
+def tpt_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of the tp_train phase: for each mesh of ``TPT_RUNS`` in
+    turn (both of 2 ranks: one spawn), ``Trainer.run`` over it, each
+    step's numbers, the collectives' time (each ``all_reduce`` between two
+    synchronisations) and the launches of kernels 9-13, written to
+    ``out_dir``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    out = {}
+    for name in TPT_RUNS:
+        out[name] = tpt_rank_run(torch, name)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tpt_rank_run(torch, name: str) -> dict:
+    """:func:`tpt_rank`'s run over the mesh of ``TPT_RUNS[name]``."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.launch.mesh import make_mesh
+
+    run = TPT_RUNS[name]
+    mesh = make_mesh(run["shape"], ("data", "model"), backend="gloo")
+    trainer = tpt_trainer(tpt_model(run, run["shape"][1]), run, mesh)
+    real = dist.all_reduce
+    spent = {"s": 0.0, "calls": 0, "bytes": 0, "step": []}
+
+    def timed_all_reduce(x, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real(x, *a, **k)
+        torch.cuda.synchronize()
+        spent["s"] += time.perf_counter() - t0
+        spent["calls"] += 1
+        spent["bytes"] += x.numel() * x.element_size()
+        return res
+
+    def on_step(when):
+        if when == "start":
+            spent.update(s=0.0, calls=0, bytes=0)
+        else:
+            spent["step"].append((spent["s"] * 1e3, spent["calls"],
+                                  spent["bytes"]))
+
+    dist.all_reduce = timed_all_reduce
+    try:
+        K.reset_launch_counts()
+        steps = tpt_steps(torch, trainer, on_step)
+        launches = K.launch_counts()
+    finally:
+        dist.all_reduce = real
+    return dict(steps=steps, launches={k: launches[k] for k in TPT_KERNELS},
+                collectives=spent["step"],
+                coords=[mesh.local_rank(a) for a in mesh.axis_names])
+
+
+def tpt_single(torch, name: str) -> dict:
+    """The single process on the same weights and global batches (2x1's
+    through ``microbatches=2``), and the largest |logit| of its first
+    batch (the parity bound's scale)."""
+    from repro_torch.models import transformer
+    from repro_torch.training import train_state
+
+    run = TPT_RUNS[name]
+    m = tpt_model(run, 1)
+    trainer = tpt_trainer(m, run, microbatches=run["batch"])
+    params = m.init(seed=TPT_SEED)
+    tokens = torch.from_numpy(trainer.data.batch_at(0)["tokens"]).cuda()
+    xmax = 0.0
+    with torch.no_grad():
+        w = transformer._head_w(params, m.cfg,
+                                transformer.torch_dtype(m.cfg.dtype))
+        for row in tokens:
+            h = transformer.forward(params, row[None, :-1], cfg=m.cfg)
+            xmax = max([xmax] + [float((hc @ w).abs().amax())
+                                 for hc in h[0].split(TRAIN_SEQ // 8)])
+        del h, w
+    steps = tpt_steps(torch, trainer, state=train_state.init_state(params))
+    del trainer, m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=steps, xmax=xmax)
+
+
+def tpt_kernel_checks(torch, rows) -> None:
+    """Kernels 9-13 at a tp-2 rank's shapes: kernels 9-11 on a rank's
+    columns against their plain versions (:func:`lmhead_check`, timed),
+    kernel 9 with every label outside the shard, kernels 10-11 from the
+    fold of both ranks' stats, the folded loss against kernel 9 over all
+    columns; kernels 12-13 at a rank's heads (:func:`flash_check`,
+    timed)."""
+    from repro_torch.core import numerics
+    from repro_torch.kernels import twopass_xent as xe
+
+    case = "tp2_rank_chunk_bf16"
+    c = lmhead_check(torch, case, TPT_TP2_CHUNK, torch.bfloat16)
+    lmhead_times(torch, rows, case, c)
+    del c
+    torch.cuda.empty_cache()
+    t, d, v = LMHEAD_TRAIN
+    half = v // 2
+    h, w, lab, dl = lmhead_inputs(torch, LMHEAD_TRAIN, torch.bfloat16)
+    bv = LMHEAD_BLOCK_V
+    cols = [w[:, :half].contiguous(), w[:, half:].contiguous()]
+    # every label outside rank 1's columns: the label logit is exactly 0,
+    # so the loss is the shard's own lse
+    out_lab = torch.remainder(lab, half)                # all in [0, half)
+    loss1, m1, n1 = xe.lmhead_xent_fwd_2d(h, cols[1], out_lab - half,
+                                          block_v=bv)
+    lse1 = torch.log(torch.clamp(m1[:, 0], min=1e-37)) + n1[:, 0] * xe.LN2
+    pl, pm, pn = xe.lmhead_xent_fwd_2d_plain(
+        h, cols[1], out_lab - half, xe.lmhead_v_chunks(half, bv))
+    lim = lmhead_limits(torch, h, cols[1], out_lab - half, dl, pm, pn, pl)
+    gap = float((lse1 - loss1).abs().max())
+    err_out = float(((loss1 - pl).abs() / lim["loss"]).max())
+    check(gap == 0.0 and err_out <= 1.0,
+          f"kernel 9, labels outside the shard: lse - loss {gap}, "
+          f"{err_out} of the limit")
+    say("kernel_check", kernel="lmhead_xent_fwd_2d",
+        case="tp2_rank_labels_outside", shape=[t, d, half],
+        label_logit_max_abs=gap, loss_worst_err_over_limit=err_out,
+        tol="label logit exactly 0; loss within lmhead_limits")
+    del pl, pm, pn, lim, loss1, m1, n1, lse1
+    # each rank's (m, n) and label logit, folded as the loss folds them
+    parts = []
+    for r, wr in enumerate(cols):
+        lr = lab.long() - r * half
+        loss_r, m_r, n_r = xe.lmhead_xent_fwd_2d(h, wr, lr, block_v=bv)
+        lse_r = torch.log(torch.clamp(m_r[:, 0], min=1e-37)) \
+            + n_r[:, 0] * xe.LN2
+        mine = (lr >= 0) & (lr < half)
+        parts.append((m_r, n_r, torch.where(mine, lse_r - loss_r, 0.0)))
+    s = numerics.ext_sum(numerics.ExtFloat(
+        torch.stack([p[0] for p in parts]),
+        torch.stack([p[1] for p in parts])), axis=0)
+    folded = (torch.log(torch.clamp(s.mantissa[:, 0], min=1e-37))
+              + s.exponent[:, 0] * xe.LN2 - parts[0][2] - parts[1][2])
+    full, fm, fn_ = xe.lmhead_xent_fwd_2d(h, w, lab, block_v=bv)
+    pl, pm, pn = xe.lmhead_xent_fwd_2d_plain(h, w, lab,
+                                             xe.lmhead_v_chunks(v, bv))
+    lim = lmhead_limits(torch, h, w, lab, dl, pm, pn, pl)
+    fold_err = float(((folded - full).abs() / lim["loss"]).max())
+    check(fold_err <= 1.0, f"two ranks' folded loss vs kernel 9 over all "
+          f"columns: {fold_err} of the limit")
+    say("kernel_check", kernel="lmhead_xent_fwd_2d",
+        case="tp2_folded_vs_full_vocab", shape=[t, d, v],
+        max_abs_err=float((folded - full).abs().max()),
+        worst_err_over_limit=fold_err,
+        tol="lmhead_limits over all 152,064 columns")
+    del pl, pm, pn, lim
+    # kernels 10-11 on rank 0's columns from the global (folded) stats
+    lr = lab.long()
+    args = (h, cols[0], lr, s.mantissa, s.exponent, dl)
+    dh, dw = xe.lmhead_xent_bwd_2d(*args, block_v=bv)
+    pdh, pdw = xe.lmhead_xent_bwd_2d_plain(*args, xe.lmhead_v_chunks(
+        half, bv))
+    lim = lmhead_limits(torch, h, cols[0], lr, dl, s.mantissa, s.exponent,
+                        folded)
+    e_dh = float(((dh - pdh).abs() / lim["dh"]).max())
+    e_dw = float(((dw - pdw).abs() / lim["dw"]).max())
+    check(e_dh <= 1.0 and e_dw <= 1.0, f"kernels 10-11 from the folded "
+          f"stats: dh {e_dh}, dw {e_dw} of the limit")
+    for k, e, a in (("lmhead_xent_dh_2d", e_dh, dh - pdh),
+                    ("lmhead_xent_dw_2d", e_dw, dw - pdw)):
+        say("kernel_check", kernel=k, case="tp2_rank_global_stats",
+            shape=[t, d, half], max_abs_err=float(a.abs().max()),
+            worst_err_over_limit=e, tol="lmhead_limits, the global stats")
+    del h, w, lab, dl, cols, dh, dw, pdh, pdw, lim, parts, full, fm, fn_
+    torch.cuda.empty_cache()
+    case = "tp2_rank_train_bf16"
+    c = flash_check(torch, case, TPT_TP2_FLASH)
+    flash_times(torch, rows, case, c)
+    del c
+    torch.cuda.empty_cache()
+
+
+def tpt_cli(torch) -> None:
+    """The training CLI under torchrun, reduced: ``--mesh 1x2`` for 3
+    steps saving, then ``--mesh 2x1`` to 5, resuming, and with no mesh to
+    6 (``launch.train.main`` in this process: the CLI's code without a
+    process of its own to start), resuming again; the checkpoint holds
+    the global arrays."""
+    import io
+    import shutil
+
+    from repro_torch.launch import train
+
+    ck = ROOT / "build" / "chip_smoke_tp_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = ["-m", "repro_torch.launch.train", "--arch", ARCH, "--reduced",
+            "--kernels", "--checkpoint-dir", str(ck)]
+    for mesh, steps in (("1x2", 3), ("2x1", 5), (None, 6)):
+        # --standalone: a rendezvous on a free local port, so that two
+        # checkouts running this phase at once do not meet
+        cmd = ([sys.executable, "-m", "torch.distributed.run",
+                "--standalone", "--nproc-per-node", "2"]
+               if mesh else [sys.executable])
+        cmd += base + ["--steps", str(steps)]
+        if mesh:
+            cmd += ["--mesh", mesh, "--backend", "gloo"]
+        t0 = time.perf_counter()
+        if mesh:
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 env=env, cwd=ROOT, timeout=300)
+            check(res.returncode == 0, f"train CLI --mesh {mesh}: "
+                  f"{res.stderr[-3000:]}")
+            stdout = res.stdout
+        else:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                train.main(cmd[3:])
+            stdout = buf.getvalue()
+        final = [ln for ln in stdout.splitlines()
+                 if ln.startswith("final:")]
+        check(len(final) == 1 and f"'step': {steps - 1}," in final[0],
+              f"train CLI --mesh {mesh}: {stdout[-2000:]}")
+        launched = [ln for ln in stdout.splitlines()
+                    if ln.startswith("kernel launches:")]
+        check(len(launched) == 1 and all(k in launched[0]
+                                         for k in TPT_KERNELS),
+              f"train CLI --mesh {mesh}: kernels not launched: {launched}")
+        say("tp_train_cli", mesh=mesh, steps=steps, final=final[0],
+            launches=launched[0], seconds=time.perf_counter() - t0)
+    shutil.rmtree(ck, ignore_errors=True)
+
+
+def tp_train_phase(torch, rows) -> dict:
+    """Phase 22 (see the module's docstring).  Returns the ranks' launches
+    of kernels 9-13 in the main path's runs, summed over ranks."""
+    import pickle
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    tpt_kernel_checks(torch, rows)
+    say("tp_train_part", part="kernel checks",
+        seconds=time.perf_counter() - t_phase)
+    launches = dict.fromkeys(TPT_KERNELS, 0)
+    t0 = time.perf_counter()
+    singles = {}
+    for name in TPT_RUNS:
+        singles[name] = tpt_single(torch, name)
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("tp_train_part", part="single process",
+        seconds=time.perf_counter() - t0)
+    out = ROOT / "build" / "chip_smoke_tpt"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    world = 2
+    check(all(r["shape"][0] * r["shape"][1] == world
+              for r in TPT_RUNS.values()), "tp_train meshes of 2 ranks")
+    t0 = time.perf_counter()
+    mp.start_processes(tpt_rank, args=(world, str(out / "store"), str(out)),
+                       nprocs=world, join=True, start_method="spawn")
+    say("tp_train_part", part="ranks", seconds=time.perf_counter() - t0)
+    by_rank = []
+    for r in range(world):
+        with open(out / f"rank{r}.pkl", "rb") as f:
+            by_rank.append(pickle.load(f))
+    shutil.rmtree(out, ignore_errors=True)
+    for name, run in TPT_RUNS.items():
+        single, ranks = singles[name], [res[name] for res in by_rank]
+        xmax = single["xmax"]
+        lim = 2.0 ** -8 * xmax + 1e-4
+        s0 = single["steps"]
+        for res in ranks:
+            m0 = res["steps"]
+            check(len(m0) == run["steps"], f"{name}: {len(m0)} steps")
+            check(all(math.isfinite(x["loss"]) for x in m0),
+                  f"{name}: loss {[x['loss'] for x in m0]}")
+            for i, (x, y) in enumerate(zip(m0, s0), 1):
+                rel = abs(x["grad_norm"] / y["grad_norm"] - 1)
+                if run["exact"]:
+                    ok = x["loss"] == y["loss"] and rel == 0
+                else:
+                    ok = abs(x["loss"] - y["loss"]) <= lim and rel <= 2.0**-5
+                check(ok, f"{name}: step {i} loss {x['loss']}, grad norm "
+                      f"{x['grad_norm']} vs the single process's "
+                      f"{y['loss']}, {y['grad_norm']} ("
+                      + ("equal" if run["exact"] else
+                         f"loss within {lim}, norm within 2^-5") + ")")
+            for k in TPT_KERNELS:
+                check(res["launches"][k] > 0,
+                      f"{name}: {k} not launched by rank {res['coords']}")
+                launches[k] += res["launches"][k]
+        for res in ranks:
+            ms = [x["ms"] for x in res["steps"]]
+            coll = [c[0] for c in res["collectives"]]
+            say("tp_train", mesh=name, rank=res["coords"],
+                n_layers=run["layers"], full_depth=48,
+                batch=[run["batch"], TRAIN_SEQ],
+                steps=run["steps"],
+                losses=[x["loss"] for x in res["steps"]],
+                single_process_losses=[x["loss"] for x in s0],
+                loss_diffs=[x["loss"] - y["loss"]
+                            for x, y in zip(res["steps"], s0)],
+                loss_limit=0.0 if run["exact"] else lim,
+                max_abs_logit=xmax,
+                grad_norms=[x["grad_norm"] for x in res["steps"]],
+                single_process_grad_norms=[x["grad_norm"] for x in s0],
+                grad_norm_rel_diffs=[abs(x["grad_norm"] / y["grad_norm"] - 1)
+                                     for x, y in zip(res["steps"], s0)],
+                grad_norm_limit=0.0 if run["exact"] else 2.0 ** -5,
+                ms_per_step=ms, single_process_ms_per_step=[
+                    x["ms"] for x in s0],
+                collective_ms_per_step=coll,
+                collective_share=[c / t for c, t in zip(coll, ms)],
+                collective_calls_per_step=[c[1] for c in res["collectives"]],
+                collective_bytes_per_step=[c[2] for c in res["collectives"]],
+                peak_gb=[x["peak_bytes"] / 1e9 for x in res["steps"]],
+                single_process_peak_gb=[x["peak_bytes"] / 1e9 for x in s0],
+                launches=res["launches"],
+                note="ranks share one card and gloo passes through host "
+                     "memory: no statement about a link between cards")
+    t0 = time.perf_counter()
+    tpt_cli(torch)
+    say("tp_train_part", part="cli", seconds=time.perf_counter() - t0)
+    say("tp_train_done_in", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 REPLACES = {
     "twopass_softmax_2d": "src/repro/kernels/twopass_softmax.py:76",
     "twopass_stats_2d": "src/repro/kernels/twopass_softmax.py:115",
@@ -7344,12 +7769,14 @@ MAIN_CASE = {"twopass_softmax_2d": "prefill_bucket_1024",
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=16,
-                    help="decoder depth of the engine phase (full: 48; "
-                    "16 keeps the whole script inside its time limit)")
+                    help="decoder depth of the engine phase and of the "
+                    "prefix, quant and tune phases (full: 48; 16 keeps "
+                    "the whole script inside its time limit)")
     ap.add_argument("--only", choices=("train", "swa", "engine", "mqa",
                                        "ssm", "encdec", "moe", "mla", "vlm",
                                        "hybrid", "prefix", "quant",
-                                       "tune", "family_train", "tp"),
+                                       "tune", "family_train", "tp",
+                                       "tp_train"),
                     help="run one phase alone (train: to compare the train "
                     "step of two trees on one card); no kernels or ok line")
     args = ap.parse_args()
@@ -7402,6 +7829,10 @@ def main() -> int:
             t0 = time.perf_counter()
             say("tp_done", launches=tp_phase(
                 torch, {"twopass_softmax_2d": {}}),
+                seconds=time.perf_counter() - t0)
+        elif args.only == "tp_train":
+            t0 = time.perf_counter()
+            say("tp_train_done", launches=tp_train_phase(torch, {}),
                 seconds=time.perf_counter() - t0)
         elif args.only == "tune":
             t0 = time.perf_counter()
@@ -7498,6 +7929,10 @@ def main() -> int:
     for name, n in tp_phase(torch, rows).items():
         launches[name] += n
     say("tp_done", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for name, n in tp_train_phase(torch, rows).items():
+        launches[name] += n
+    say("tp_train_done", seconds=time.perf_counter() - t0)
     kernels = []
     for name in REPLACES:
         r = rows[name][MAIN_CASE[name]]

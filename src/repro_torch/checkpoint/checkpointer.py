@@ -14,8 +14,15 @@
     ``.opt__.m__blocks__attn__wk__b.npy``, and a float32 state written by
     the reference's ``Checkpointer`` restores here.
   * ``restore`` loads into the structure, dtypes and devices of a target
-    state.  The reference's mesh / specs arguments (elastic restore onto
-    another mesh) are mesh-only and refused (ROADMAP queue A item 22).
+    state.
+  * a mesh: ``save`` writes the global arrays, as the reference's does:
+    leaf by leaf, the ranks' shards are sent to rank 0
+    (``sharding.gather_to_rank0``), which writes the leaf before the next
+    one comes, so that no rank holds more than one global leaf; on a
+    blocking save the others wait for the publish.  ``restore`` onto a
+    mesh reads each rank's shard of the global arrays (the files mapped,
+    not loaded whole), cut by the target's specs: a checkpoint saved on
+    one mesh resumes on another, or on none (elastic restore).
 
 numpy has no bfloat16: a bfloat16 leaf is written as float32 (exact) and
 restored to the target's dtype.
@@ -74,11 +81,17 @@ def _to_host(x: torch.Tensor) -> np.ndarray:
     return x.to("cpu", copy=True).numpy()
 
 
-def _refuse_mesh(mesh, specs) -> None:
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(
-            "Checkpointer.restore onto a mesh (elastic restore) is not "
-            "ported yet (ROADMAP queue A item 22)")
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
 
 
 class Checkpointer:
@@ -92,35 +105,73 @@ class Checkpointer:
         return self.dir / f"step_{step:010d}"
 
     # -- save ---------------------------------------------------------------
-    def save(self, step: int, tree, blocking: bool = False) -> None:
+    def save(self, step: int, tree, blocking: bool = False, mesh=None,
+             plan=None) -> None:
         """Copy ``tree`` to host memory now; write it on a background
         thread (now, with ``blocking``).  Saving a step that exists
-        replaces it."""
+        replaces it.  Under a ``mesh`` (every rank calls it) ``tree`` holds
+        this rank's shards and ``plan`` each leaf's ``(spec, full
+        shape)`` (a tree like ``tree``): rank 0 receives each global leaf
+        and writes it now, and with ``blocking`` every rank returns once
+        the step is published."""
         self.wait()
+        if mesh is not None:
+            self._save_global(step, tree, mesh, plan)
+            if blocking:
+                _barrier()
+            return
         flat = [(k, _to_host(v)) for k, v in _flatten(tree)]
-        manifest = {"step": int(step), "keys": [k for k, _ in flat]}
 
         def write():
-            tmp = self.dir / f"step_{step:010d}.tmp"
-            final = self._path(step)
-            if tmp.exists():
-                shutil.rmtree(tmp)
-            tmp.mkdir(parents=True)
+            tmp = self._tmp(step)
             for k, v in flat:
                 np.save(tmp / (_encode(k) + ".npy"), v)
-            (tmp / "manifest.json").write_text(json.dumps(manifest))
-            if final.exists():               # os.replace needs it gone
-                old = self.dir / f"step_{step:010d}.old"
-                os.replace(final, old)
-                shutil.rmtree(old)
-            os.replace(tmp, final)           # atomic publish
-            self._gc()
+            self._publish(step, tmp, [k for k, _ in flat])
 
         if blocking:
             write()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
+
+    def _save_global(self, step: int, tree, mesh, plan) -> None:
+        from repro_torch.distributed.sharding import gather_to_rank0
+
+        root = _rank() == 0
+        tmp = self._tmp(step) if root else None
+        plan_of = dict(_flatten(plan))
+        keys = []
+        for k, v in _flatten(tree):
+            # gloo sends host tensors; NCCL device tensors only
+            v = (v.detach() if mesh.backend == "nccl"
+                 else torch.from_numpy(_to_host(v)))
+            full = gather_to_rank0(v, *plan_of[k], mesh)
+            if root:
+                np.save(tmp / (_encode(k) + ".npy"),
+                        full.numpy() if full.dtype != torch.bfloat16
+                        else _to_host(full))
+                keys.append(k)
+            del full
+        if root:
+            self._publish(step, tmp, keys)
+
+    def _tmp(self, step: int) -> pathlib.Path:
+        tmp = self.dir / f"step_{step:010d}.tmp"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        return tmp
+
+    def _publish(self, step: int, tmp: pathlib.Path, keys: list) -> None:
+        (tmp / "manifest.json").write_text(
+            json.dumps({"step": int(step), "keys": keys}))
+        final = self._path(step)
+        if final.exists():                   # os.replace needs it gone
+            old = self.dir / f"step_{step:010d}.old"
+            os.replace(final, old)
+            shutil.rmtree(old)
+        os.replace(tmp, final)               # atomic publish
+        self._gc()
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -147,12 +198,25 @@ class Checkpointer:
 
     def restore(self, step: int, target_tree, mesh=None, specs=None):
         """Load ``step`` into the structure of ``target_tree``: each leaf
-        becomes a tensor of its target's shape, dtype and device."""
-        _refuse_mesh(mesh, specs)
+        becomes a tensor of its target's shape, dtype and device.  Under a
+        ``mesh`` the target holds this rank's shards, cut by ``specs`` (a
+        tree like it, e.g. ``train_state.state_specs``): each global array
+        is cut the same way."""
+        if mesh is not None and specs is None:
+            raise ValueError("restore onto a mesh needs the target's specs")
+        from repro_torch.distributed.sharding import local_shard
+
+        spec_of = dict(_flatten(specs)) if mesh is not None else {}
         src = self._path(step)
         leaves = {}
         for key, tgt in _flatten(target_tree):
-            arr = np.load(src / (_encode(key) + ".npy"))
+            path = src / (_encode(key) + ".npy")
+            if mesh is None:
+                arr = np.load(path)
+            else:                            # read only this rank's shard
+                arr = np.array(local_shard(np.load(path, mmap_mode="r"),
+                                           spec_of[key], mesh,
+                                           tuple(mesh.axis_names)))
             if tuple(arr.shape) != tuple(tgt.shape):
                 raise ValueError(f"checkpoint leaf {key}: shape "
                                  f"{arr.shape} != {tuple(tgt.shape)}")
@@ -162,9 +226,8 @@ class Checkpointer:
 
     def restore_latest(self, target_tree, mesh=None, specs=None):
         """``(step, tree)`` of the latest published step, or ``(None,
-        None)``."""
-        _refuse_mesh(mesh, specs)
+        None)``; ``mesh`` / ``specs`` as :meth:`restore`'s."""
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, self.restore(step, target_tree)
+        return step, self.restore(step, target_tree, mesh, specs)

@@ -8,7 +8,9 @@ bit, as the reference's ``repro.data.pipeline.SyntheticLM``; an encdec
 batch is ``{"frames" [b, s, d_model] float32, "dec_tokens" [b, dec_len]}``
 and a vlm batch ``{"tokens" [b, s - n_patches], "patches" [b, n_patches,
 d_model] float32}``, drawn in the reference's order.  numpy only;
-the train step moves a batch to its device.
+the train step moves a batch to its device.  Under a mesh every rank
+draws the global batch and keeps its rows (:func:`shard_batch`), so a
+mesh run sees the single process's stream.
 """
 
 from __future__ import annotations
@@ -60,3 +62,15 @@ class SyntheticLM:
         while True:
             yield step, self.batch_at(step)
             step += 1
+
+
+def shard_batch(batch: dict, mesh, specs) -> dict:
+    """This rank's rows of a global host batch: each leaf cut along the
+    data axes its spec names (``sharding.batch_specs``: the batch dim over
+    the data axes where it divides, else whole).  The model ranks at one
+    data index read the same rows."""
+    from repro_torch.distributed.sharding import local_shard
+
+    axes = tuple(a for a in mesh.axis_names if a != "model")
+    return {k: local_shard(np.asarray(x), specs[k], mesh, axes)
+            for k, x in batch.items()}

@@ -32,6 +32,7 @@ from __future__ import annotations
 import logging
 import re
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -111,11 +112,21 @@ def _rules(cfg: ModelConfig, mesh):
     return [(re.compile(pat), spec) for pat, spec in table]
 
 
-def _unflat(tree, fn, prefix: str = ""):
+def map_paths(tree, fn, prefix: str = ""):
     """The tree of ``fn(path, leaf)``, paths joined by ``/``."""
     if isinstance(tree, dict):
-        return {k: _unflat(v, fn, f"{prefix}{k}/") for k, v in tree.items()}
+        return {k: map_paths(v, fn, f"{prefix}{k}/")
+                for k, v in tree.items()}
     return fn(prefix[:-1], tree)
+
+
+def flatten(tree, prefix: str = "") -> list:
+    """``(path, leaf)`` pairs of a nested dict in insertion order, paths
+    joined by ``/`` (a spec, a tuple, is a leaf)."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items()
+                for kv in flatten(v, f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
 
 
 def param_specs(params_tree, cfg: ModelConfig, mesh, fsdp: bool = True):
@@ -151,7 +162,7 @@ def param_specs(params_tree, cfg: ModelConfig, mesh, fsdp: bool = True):
                         tuple(leaf.shape))
         return (None,) * nd
 
-    return _unflat(params_tree, spec_for)
+    return map_paths(params_tree, spec_for)
 
 
 def _axes_size(mesh, axes) -> int:
@@ -178,7 +189,7 @@ def batch_specs(batch_tree, mesh):
         lead = dp if leaf.shape[0] % dp_n == 0 else None
         return _spec((lead,) + (None,) * (len(leaf.shape) - 1))
 
-    return _unflat(batch_tree, spec_for)
+    return map_paths(batch_tree, spec_for)
 
 
 def cache_specs(cache_tree, cfg: ModelConfig, mesh,
@@ -203,7 +214,7 @@ def cache_specs(cache_tree, cfg: ModelConfig, mesh,
             parts[2] = "model"
         return _spec(parts)
 
-    return _unflat(cache_tree, spec_for)
+    return map_paths(cache_tree, spec_for)
 
 
 def kv_shard_factor(cfg: ModelConfig, mesh) -> int:
@@ -254,7 +265,7 @@ def pool_specs(pool_tree, cfg: ModelConfig, mesh):
             return _spec(parts)
         return tuple(parts)                          # MLA c / kr
 
-    return _unflat(pool_tree, spec_for)
+    return map_paths(pool_tree, spec_for)
 
 
 def prefill_cache_specs(cache_tree, cfg: ModelConfig, mesh):
@@ -272,7 +283,7 @@ def prefill_cache_specs(cache_tree, cfg: ModelConfig, mesh):
             parts[3] = kv_tp
         return tuple(parts)
 
-    return _unflat(cache_tree, spec_for)
+    return map_paths(cache_tree, spec_for)
 
 
 def named(tree_specs, mesh):
@@ -295,25 +306,105 @@ def shard_bounds(size: int, parts: int, index: int) -> tuple[int, int]:
     return lo, min(size, lo + step)
 
 
-def local_shard(x: torch.Tensor, spec: Spec, mesh,
-                axes: tuple[str, ...] = ("model",)) -> torch.Tensor:
-    """This rank's piece of the full tensor ``x`` under ``spec``: every dim
-    whose entry names an axis of ``axes`` is cut to this rank's shard
-    along it (:func:`shard_bounds`), a contiguous copy.  Entries naming
-    other axes are left whole (serving replicates over the data axes)."""
-    out = x
+def _names(part) -> tuple[str, ...]:
+    return (part,) if isinstance(part, str) else tuple(part or ())
+
+
+def named_axes(spec: Spec) -> set[str]:
+    """The mesh axes that ``spec`` cuts along."""
+    return {a for part in spec for a in _names(part)}
+
+
+def _index(mesh, axis: str, at) -> int:
+    return mesh.local_rank(axis) if at is None else at[axis]
+
+
+def shard_region(shape, spec: Spec, mesh,
+                 axes: tuple[str, ...] = ("model",), at=None) -> list:
+    """``(dim, lo, hi)`` of this rank's shard of a full tensor of
+    ``shape`` for every dim whose spec entry names an axis of ``axes``
+    (:func:`shard_bounds`, row-major over the named axes).  ``at`` maps
+    each axis to another rank's index on it, for that rank's shard."""
+    out = []
     for dim, part in enumerate(spec):
-        names = (part,) if isinstance(part, str) else tuple(part or ())
-        cut = [a for a in names if a in axes]
+        cut = [a for a in _names(part) if a in axes]
         if not cut:
             continue
         n, idx = 1, 0
         for a in cut:                 # row-major over the named axes
-            idx = idx * mesh.size(a) + mesh.local_rank(a)
+            idx = idx * mesh.size(a) + _index(mesh, a, at)
             n *= mesh.size(a)
-        lo, hi = shard_bounds(x.shape[dim], n, idx)
-        out = out.narrow(dim, lo, hi - lo)
-    return out.contiguous() if out is not x else x
+        out.append((dim, *shard_bounds(shape[dim], n, idx)))
+    return out
+
+
+def local_shard(x, spec: Spec, mesh, axes: tuple[str, ...] = ("model",)):
+    """This rank's piece of the full tensor ``x`` (torch or numpy) under
+    ``spec``: every dim whose entry names an axis of ``axes`` is cut to
+    this rank's shard along it (:func:`shard_bounds`), a contiguous copy.
+    Entries naming other axes are left whole (serving replicates over the
+    data axes)."""
+    out = x
+    for dim, lo, hi in shard_region(x.shape, spec, mesh, axes):
+        if isinstance(out, torch.Tensor):
+            out = out.narrow(dim, lo, hi - lo)
+        else:
+            out = out[(slice(None),) * dim + (slice(lo, hi),)]
+    if out is x:
+        return x
+    return (out.contiguous() if isinstance(out, torch.Tensor)
+            else out.copy())
+
+
+def first_holder(spec: Spec, mesh, at=None) -> bool:
+    """Whether this rank (or the rank at ``at``, as in
+    :func:`shard_region`) is the first of those holding the same shard of
+    a leaf: index 0 along every mesh axis that ``spec`` does not name (a
+    replicated leaf is counted, or written, once)."""
+    named = named_axes(spec)
+    return all(_index(mesh, a, at) == 0 for a in mesh.axis_names
+               if a not in named)
+
+
+def gather_to_rank0(x: torch.Tensor, spec: Spec, shape,
+                    mesh) -> torch.Tensor | None:
+    """The whole leaf of ``shape`` on rank 0, in host memory, from each
+    rank's shard ``x`` (cut along ``model`` and the data axes); ``None``
+    on the other ranks.  The first holder of each shard
+    (:func:`first_holder`) sends it to rank 0, which receives the shards
+    one at a time on ``x``'s device and places them: no other rank holds
+    more than its shard, and rank 0 one whole leaf."""
+    import torch.distributed as dist
+
+    if dist.get_rank() != 0:
+        if first_holder(spec, mesh) and x.numel():
+            dist.send(x.contiguous(), dst=0)
+        return None
+    buf = torch.empty(tuple(shape), dtype=x.dtype)
+    for idx, rank in np.ndenumerate(mesh.devices):
+        at = dict(zip(mesh.axis_names, idx))
+        if not first_holder(spec, mesh, at):
+            continue
+        view = buf
+        for dim, lo, hi in shard_region(shape, spec, mesh,
+                                        tuple(mesh.axis_names), at):
+            view = view.narrow(dim, lo, hi - lo)
+        if rank == 0:
+            view.copy_(x)
+        elif view.numel():
+            part = x.new_empty(view.shape)
+            dist.recv(part, src=int(rank))
+            view.copy_(part)
+    return buf
+
+
+def fsdp_plan(shapes, specs):
+    """Each leaf's ``(spec, full shape)``, the tree of ``shapes`` (the
+    parameters on the ``meta`` device) and ``specs`` (their
+    :func:`param_specs`): what ``autoshard.hints`` takes for FSDP."""
+    spec_of = dict(flatten(specs))
+    return map_paths(shapes, lambda path, leaf: (spec_of[path],
+                                               tuple(leaf.shape)))
 
 
 def shard_tree(tree, specs, mesh, axes: tuple[str, ...] = ("model",)):

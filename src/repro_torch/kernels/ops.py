@@ -216,6 +216,118 @@ def lmhead_cross_entropy(h: torch.Tensor, w: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The vocab-parallel CE (training under a mesh whose model axis splits the
+# vocabulary): each rank holds its columns of the logits, or of the LM head
+# ``w``, and the global loss comes from the ranks' (m_sum, n_sum) pairs
+# folded by ONE collective of two floats a row
+# (``twopass.ext_sum_sharded``) plus the sum of the label logits, which one
+# rank holds each.  The logits are never gathered.  The backward runs on
+# the rank's columns with the global stats: its ``dw`` columns are exactly
+# the single rank's, and ``dh`` is this rank's part of the sum (the caller
+# passes ``h`` through ``collectives.copy_to_model``, whose backward sums
+# it over the model axis).
+# ---------------------------------------------------------------------------
+def _fold_over_model(m_sum, n_sum, ll, mine):
+    """``(loss, m_g, n_g)``: the ranks' (m, n) folded by one collective,
+    and the label logits (``ll`` where ``mine``, else 0) summed over the
+    model axis."""
+    from repro_torch.core import numerics, twopass
+    from repro_torch.distributed import collectives
+
+    s = twopass.ext_sum_sharded(
+        None, stats=lambda _: numerics.ExtFloat(m_sum, n_sum))
+    ll = collectives.sum_over(torch.where(mine, ll, 0.0), "model")
+    lse = (torch.log(torch.clamp(s.mantissa, min=1e-37))
+           + s.exponent * _xent.LN2)
+    return lse[:, 0] - ll, s.mantissa, s.exponent
+
+
+class _VocabParallelLmheadCE(torch.autograd.Function):
+    """Kernels 9-11 on this rank's columns ``w [D, V_local]``; labels
+    shifted by the rank's first column (one outside ``[0, V_local)``
+    gathers a label logit of 0 in the kernel)."""
+
+    @staticmethod
+    def forward(ctx, h, w, labels, block_v, impl):
+        h, w = h.contiguous(), w.contiguous()
+        if impl == "cuda":
+            loss, m_l, n_l = _xent.lmhead_xent_fwd_2d(h, w, labels,
+                                                      block_v=block_v)
+        else:
+            loss, m_l, n_l = _xent.lmhead_xent_fwd_2d_plain(
+                h, w, labels, _xent.lmhead_v_chunks(w.shape[1], block_v))
+        # the label logit back out of the rank's loss, lse_local - ll,
+        # with the kernel's own lse (exact but for one rounding of loss)
+        lse = torch.log(torch.clamp(m_l, min=1e-37))[:, 0] \
+            + n_l[:, 0] * _xent.LN2
+        mine = (labels >= 0) & (labels < w.shape[1])
+        loss, m_g, n_g = _fold_over_model(m_l, n_l, lse - loss, mine)
+        ctx.save_for_backward(h, w, labels, m_g, n_g)
+        ctx.block_v, ctx.impl = block_v, impl
+        return loss
+
+    @staticmethod
+    def backward(ctx, dloss):
+        h, w, labels, m_g, n_g = ctx.saved_tensors
+        args = (h, w, labels, m_g, n_g, dloss.contiguous())
+        if ctx.impl == "cuda":
+            dh, dw = _xent.lmhead_xent_bwd_2d(*args, block_v=ctx.block_v)
+        else:
+            dh, dw = _xent.lmhead_xent_bwd_2d_plain(
+                *args, _xent.lmhead_v_chunks(w.shape[1], ctx.block_v))
+        return dh.to(h.dtype), dw.to(w.dtype), None, None, None
+
+
+def lmhead_cross_entropy_sharded(h: torch.Tensor, w: torch.Tensor,
+                                 labels: torch.Tensor, lo: int,
+                                 block_v: int | None = None, policy=None,
+                                 impl: str | None = None) -> torch.Tensor:
+    """The fused LM-head CE under a mesh whose model axis splits the
+    vocabulary: ``w [D, V_local]`` is this rank's columns, the first at
+    global column ``lo``; ``labels`` are global.  Returns the global
+    per-token loss ``[T]`` float32 on every rank.  ``impl`` "cuda" (the
+    kernels; their plain versions on the CPU) or "twopass" (the plain
+    forms); the materialised "ref" has no sharded form."""
+    impl = _train_backend_impl(h.device) if impl in (None, "ref") else impl
+    return _VocabParallelLmheadCE.apply(
+        h, w, labels.to(torch.int64) - lo,
+        _lmhead_blocks(h, w, block_v, policy), impl)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """The plain route's vocab-parallel CE over this rank's materialised
+    float32 logits ``[T, V_local]`` (labels already shifted)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        from repro_torch.core import twopass
+
+        x = logits.to(torch.float32)
+        m_l, n_l = twopass.twopass_softmax_stats(x)
+        mine = (labels >= 0) & (labels < x.shape[1])
+        ll = torch.where(_xent._onehot(labels, x.shape[1]), x,
+                         0.0).sum(dim=-1)
+        loss, m_g, n_g = _fold_over_model(m_l, n_l, ll, mine)
+        ctx.save_for_backward(logits, labels, m_g, n_g)
+        return loss
+
+    @staticmethod
+    def backward(ctx, dloss):
+        logits, labels, m_g, n_g = ctx.saved_tensors
+        return _xent.xent_bwd_2d_plain(logits, labels, m_g, n_g,
+                                       dloss), None
+
+
+def cross_entropy_sharded(logits: torch.Tensor, labels: torch.Tensor,
+                          lo: int) -> torch.Tensor:
+    """Per-token CE of logits split by columns over the model axis
+    (``logits`` this rank's, the first at global column ``lo``; global
+    ``labels``): the plain (m, n) forms, one collective for the fold.
+    Differentiable in ``logits``."""
+    return _VocabParallelCE.apply(logits, labels.to(torch.int64) - lo)
+
+
+# ---------------------------------------------------------------------------
 # Flash attention (kernels/flash_attention.py; the ``flash_attention`` and
 # ``flash_attention_bwd`` registry ops): the forward saves o and the
 # per-row (m_sum, n_sum); the backward recomputes the probabilities from

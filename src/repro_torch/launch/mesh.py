@@ -1,17 +1,17 @@
 """Device meshes over ``torch.distributed``, with the reference's axis names.
 
-A :class:`Mesh` wraps a ``torch.distributed.device_mesh.DeviceMesh`` and
-exposes what the rule tables read (``axis_names`` and ``devices.shape``, as
-a JAX mesh) and what the explicit collectives need (each axis's process
-group, this rank's index along it, the backend).
+A :class:`Mesh` exposes what the rule tables read (``axis_names`` and
+``devices.shape``, as a JAX mesh) and what the explicit collectives need
+(each axis's process group, this rank's index along it, the backend).
+The groups are made by hand (``dist.new_group`` for every line of ranks
+along each axis, every rank making all of them in one order), which is
+what a torch ``DeviceMesh`` would make, without importing DTensor.
 
 The backend is always the caller's word, never guessed: ``"nccl"`` where
 each rank has a card of its own, ``"gloo"`` otherwise (several ranks on
 one card, which NCCL refuses, or the CPU).  ``gloo`` carries CUDA tensors
-through host memory, and a CUDA graph cannot capture it.  The torch
-device mesh follows the backend: ``cuda`` under NCCL (it sets each
-rank's card from ``LOCAL_RANK``), ``cpu`` under gloo, whose collectives
-take tensors of either device and whose ranks may share one card.
+through host memory, and a CUDA graph cannot capture it; its collectives
+take tensors of either device and its ranks may share one card.
 
 The process group comes from ``torchrun``'s environment (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``), or from an
@@ -34,12 +34,14 @@ BACKENDS = ("gloo", "nccl")
 @dataclass(frozen=True)
 class Mesh:
     """A named mesh of ranks.  ``devices`` is the ranks' grid (numpy, the
-    mesh's shape), as a JAX mesh's array of devices; ``device_mesh`` is the
-    torch mesh (None for a mesh of one rank outside any process group)."""
+    mesh's shape), as a JAX mesh's array of devices; ``lines`` maps each
+    axis to ``(process group of this rank's line along it, this rank's
+    index on it)`` (empty for a mesh of one rank outside any process
+    group)."""
     axis_names: tuple[str, ...]
     devices: np.ndarray
     backend: str
-    device_mesh: object = None
+    lines: dict = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -50,13 +52,13 @@ class Mesh:
 
     def group(self, axis: str):
         """The process group of this rank's line along ``axis``."""
-        return self.device_mesh.get_group(axis)
+        return self.lines[axis][0]
 
     def local_rank(self, axis: str) -> int:
         """This rank's index along ``axis`` (0 on a one-rank mesh)."""
-        if self.device_mesh is None or axis not in self.axis_names:
+        if not self.lines or axis not in self.axis_names:
             return 0
-        return self.device_mesh.get_local_rank(axis)
+        return self.lines[axis][1]
 
 
 def _init_group(backend: str, world: int, init_method: str | None,
@@ -91,11 +93,15 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
                              f"{BACKENDS}")
         return Mesh(tuple(axes), np.zeros(shape, np.int64), backend)
     _init_group(backend, world, init_method, rank)
-    from torch.distributed.device_mesh import init_device_mesh
-
-    dm = init_device_mesh("cuda" if backend == "nccl" else "cpu",
-                          tuple(shape), mesh_dim_names=tuple(axes))
-    return Mesh(tuple(axes), np.arange(world).reshape(shape), backend, dm)
+    grid = np.arange(world).reshape(shape)
+    me = dist.get_rank()
+    lines = {}
+    for i, axis in enumerate(axes):
+        for line in np.moveaxis(grid, i, -1).reshape(-1, shape[i]):
+            group = dist.new_group([int(r) for r in line])
+            if me in line:
+                lines[axis] = (group, int(np.flatnonzero(line == me)[0]))
+    return Mesh(tuple(axes), grid, backend, lines)
 
 
 def make_serving_mesh(shape: tuple[int, int] | None = None, *,

@@ -316,21 +316,24 @@ def init_attention(gen, cfg: ModelConfig, dtype, lead: tuple = (),
     d = cfg.d_model
     hd = cfg.resolved_head_dim()
     hq, _, mask, _ = head_layout(cfg, tp)
+    n = len(lead)
+
+    def pad(axis):
+        # zeroed as drawn, before a rank cuts its shard (layers.CutDraws)
+        return functools.partial(_zero_pad_heads, mask=mask, head_dim=hd,
+                                 axis=axis)
+
     p = {
         "wq": layers.init_dense(gen, d, hq * hd, dtype, bias=cfg.qkv_bias,
-                                lead=lead),
+                                lead=lead, zero=pad(n + 1)),
         "wk": layers.init_dense(gen, d, cfg.n_kv_heads * hd, dtype,
                                 bias=cfg.qkv_bias, lead=lead),
         "wv": layers.init_dense(gen, d, cfg.n_kv_heads * hd, dtype,
                                 bias=cfg.qkv_bias, lead=lead),
-        "wo": layers.init_dense(gen, hq * hd, d, dtype, lead=lead),
+        "wo": layers.init_dense(gen, hq * hd, d, dtype, lead=lead,
+                                zero=pad(n)),
     }
-    if not isinstance(gen, layers.MetaDraws):
-        n = len(lead)
-        _zero_pad_heads(p["wq"]["w"], mask, hd, n + 1)
-        if cfg.qkv_bias:
-            _zero_pad_heads(p["wq"]["b"], mask, hd, n)
-        _zero_pad_heads(p["wo"]["w"], mask, hd, n)
+    # (the biases start at zero: nothing to pad)
     return p
 
 
@@ -381,7 +384,16 @@ def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
     window = cfg.swa_window
     policy = cfg.softmax_policy()
 
-    q = layers.dense(p["wq"], x).reshape(b, s, hq, hd)
+    # the column-parallel inputs' gradients sum over the model axis
+    # (collectives.copy_to_model); K / V replicated over it (KV heads that
+    # do not divide tp) are copied after their product instead, so that
+    # their weights' gradients, which each rank sees only for its q-heads,
+    # are summed too
+    from repro_torch.distributed import collectives
+
+    kv_split = cfg.n_kv_heads % collectives.model_axis()[0] == 0
+    xc = collectives.copy_to_model(x)
+    q = layers.dense(p["wq"], xc).reshape(b, s, hq, hd)
     rope = use_rope and xkv is None
     if rope:
         q = layers.apply_rope(q, cos, sin)
@@ -389,8 +401,12 @@ def attention(p: dict, x: torch.Tensor, cos, sin, *, cfg: ModelConfig,
         k = v = None                  # read-only: the cache is the K/V below
     else:
         src = x if xkv is None else xkv
+        if kv_split:
+            src = xc if xkv is None else collectives.copy_to_model(xkv)
         k = layers.dense(p["wk"], src).reshape(b, src.shape[1], hkv, hd)
         v = layers.dense(p["wv"], src).reshape(b, src.shape[1], hkv, hd)
+        if not kv_split:
+            k, v = collectives.copy_to_model(k), collectives.copy_to_model(v)
         if rope:
             k = layers.apply_rope(k, cos, sin)
 

@@ -24,20 +24,42 @@ class MetaDraws:
     device = torch.device("meta")
 
 
-def _randn(gen: torch.Generator | MetaDraws, shape, dtype, scale: float):
-    if isinstance(gen, MetaDraws):
-        return torch.empty(shape, dtype=dtype, device=gen.device)
-    # scaled in place: no second copy of a stacked leaf (granite-20b's
-    # [52, 6144, 24576] is 15.7 GB in bf16); the same bits as ``* scale``
-    return torch.randn(shape, generator=gen, device=gen.device,
-                       dtype=dtype).mul_(scale)
+class CutDraws:
+    """A generator (or :class:`MetaDraws`) whose every draw goes through
+    ``cut`` as soon as it is made: a rank keeps its shard of each drawn
+    leaf (``model_zoo.Model.init_shard``) and never holds the whole tree;
+    the draws, and so the values, are the generator's own."""
+
+    def __init__(self, inner, cut):
+        self.inner, self.cut = inner, cut
+        self.device = inner.device
+
+
+def _randn(gen, shape, dtype, scale: float, zero=None):
+    """``shape`` standard normals times ``scale`` from ``gen`` (a
+    ``torch.Generator``, :class:`MetaDraws` or :class:`CutDraws`);
+    ``zero(t)`` zeroes parts of the draw in place before any cut."""
+    inner = gen.inner if isinstance(gen, CutDraws) else gen
+    if isinstance(inner, MetaDraws):
+        t = torch.empty(shape, dtype=dtype, device=inner.device)
+    else:
+        # scaled in place: no second copy of a stacked leaf (granite-20b's
+        # [52, 6144, 24576] is 15.7 GB in bf16); the same bits as
+        # ``* scale``
+        t = torch.randn(shape, generator=inner, device=inner.device,
+                        dtype=dtype).mul_(scale)
+        if zero is not None:
+            zero(t)
+    return gen.cut(t) if isinstance(gen, CutDraws) else t
 
 
 def init_dense(gen, in_dim, out_dim, dtype, bias: bool = False,
-               scale: float | None = None, lead: tuple = ()) -> Params:
-    """``lead`` prepends stacked axes (the layer axis ``[L]``)."""
+               scale: float | None = None, lead: tuple = (),
+               zero=None) -> Params:
+    """``lead`` prepends stacked axes (the layer axis ``[L]``); ``zero``
+    as :func:`_randn`'s, on ``w``."""
     scale = scale if scale is not None else in_dim ** -0.5
-    p = {"w": _randn(gen, (*lead, in_dim, out_dim), dtype, scale)}
+    p = {"w": _randn(gen, (*lead, in_dim, out_dim), dtype, scale, zero)}
     if bias:
         p["b"] = torch.zeros((*lead, out_dim), dtype=dtype,
                              device=gen.device)
@@ -87,6 +109,11 @@ def init_mlp(gen, d_model, d_ff, dtype, act: str = "silu",
 
 
 def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """Column-parallel gate / up (their input through
+    ``collectives.copy_to_model``), row-parallel down."""
+    from repro_torch.distributed import collectives
+
+    x = collectives.copy_to_model(x)
     up = dense(p["up"], x)
     if act == "silu":
         h = F.silu(dense(p["gate"], x)) * up

@@ -38,6 +38,34 @@ class Model:
         return transformer.init_lm(self.cfg, seed=seed, device=self.device,
                                    dtype=dtype, tp=self.tp)
 
+    def init_shard(self, specs, mesh, seed: int = 0):
+        """This rank's shard of :meth:`init`'s weights: the same draws from
+        the same seed, each leaf cut along ``model`` and ``data`` by its
+        spec in
+        ``specs`` (``sharding.local_shard``) as soon as it is drawn, so
+        that no rank holds the whole tree (at full width a few ranks
+        sharing one card could not)."""
+        from repro_torch.distributed import sharding
+
+        axes = ("model", "data")
+        drawn = []
+        meta = transformer.init_lm(self.cfg, device="meta", tp=self.tp,
+                                   cut=lambda t: drawn.append(t) or t)
+        path_of = {id(t): path for path, t in sharding.flatten(meta)}
+        spec_of = dict(sharding.flatten(specs))
+        order = iter([path_of[id(t)] for t in drawn])
+
+        def cut(t):
+            return sharding.local_shard(t, spec_of[next(order)], mesh, axes)
+
+        params = transformer.init_lm(self.cfg, seed=seed, device=self.device,
+                                     tp=self.tp, cut=cut)
+        full = dict(sharding.flatten(meta))
+        # the leaves made without a draw (norm scales, biases), still whole
+        return sharding.map_paths(params, lambda path, x: (
+            sharding.local_shard(x, spec_of[path], mesh, axes)
+            if x.shape == full[path].shape else x))
+
     def init_shape(self):
         """The parameter tree on the ``meta`` device: shapes and dtypes,
         nothing allocated or drawn."""

@@ -146,7 +146,8 @@ def block_apply(p: Params, x, cos, sin, *, cfg: ModelConfig, tp: int = 1,
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-            dtype: torch.dtype | None = None, tp: int = 1) -> Params:
+            dtype: torch.dtype | None = None, tp: int = 1,
+            cut=None) -> Params:
     """Random weights from a seeded ``torch.Generator`` on ``device``.
     ``dtype`` defaults to ``cfg.param_dtype``; on the card the compute
     dtype (bf16) halves the weights' memory with identical results, since
@@ -155,7 +156,9 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     q-heads to a multiple of it, the padded heads' weights zero, as the
     reference's ``init_lm(key, cfg, tp)``; the families whose heads the
     port does not pad yet (multi-head latent attention, ssm, hybrid)
-    refuse a ``tp`` over 1."""
+    refuse a ``tp`` over 1.  ``cut`` (a function of a tensor) takes each
+    drawn leaf as soon as it is drawn (``layers.CutDraws``); the leaves
+    made without a draw (norm scales, biases) are left whole."""
     if tp > 1 and (cfg.mla is not None or cfg.family in ("ssm", "hybrid")):
         raise NotImplementedError(
             f"init_lm(tp={tp}): head padding for family {cfg.family!r}"
@@ -167,6 +170,8 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     else:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
+    if cut is not None:
+        gen = layers.CutDraws(gen, cut)
     vp = cfg.padded_vocab()
     p: Params = {
         "embed": layers.init_embedding(gen, vp, cfg.d_model, dt),
@@ -226,17 +231,53 @@ def _cos_sin(cfg: ModelConfig, positions):
                                cfg.rope_theta, sections=cfg.mrope_sections)
 
 
-def _layer_loop(p_blocks, n_layers: int, x, body, remat: bool):
+def _plan(*path):
+    """The active FSDP plan's subtree at ``path`` (None without one)."""
+    from repro_torch.distributed import autoshard
+
+    plan = autoshard.fsdp_plan()
+    for k in path:
+        if plan is None:
+            return None
+        plan = plan[k]
+    return plan
+
+
+def _gathered(tree, plan, dtype=None, lead: int = 0):
+    """The leaves of ``tree`` whole along the data axes (FSDP:
+    ``collectives.gather_data`` by each leaf's ``(spec, full shape)`` in
+    ``plan``, its first ``lead`` dims dropped: a stacked leaf's layer),
+    cast to ``dtype`` first.  ``tree`` itself without a plan."""
+    from repro_torch.distributed import collectives
+
+    if plan is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _gathered(v, plan[k], dtype, lead)
+                for k, v in tree.items()}
+    spec, shape = plan
+    return collectives.gather_data(tree, spec[lead:], shape[lead:],
+                                   dtype or tree.dtype)
+
+
+def _layer_loop(p_blocks, n_layers: int, x, body, remat: bool, plan=None):
     """``x = body(x, p)`` over the stacked layers.  Under ``remat`` (the
     config's) and with gradients on, each layer is an activation
     checkpoint: its backward recomputes the layer from its input, so only
     the layer inputs are saved (the reference groups the checkpoints into
-    sqrt(L) segments, which changes memory, not numbers)."""
+    sqrt(L) segments, which changes memory, not numbers).  With an FSDP
+    ``plan`` a layer's leaves are gathered inside the checkpoint, cast to
+    the activations' dtype: whole only while the layer runs, and gathered
+    again when its backward recomputes it."""
     remat = remat and torch.is_grad_enabled()
+    fn = body
+    if plan is not None:
+        def fn(h, p):
+            return body(h, _gathered(p, plan, h.dtype, lead=1))
     for i in range(n_layers):
         p = layer(p_blocks, i)
-        x = (checkpoint(body, x, p, use_reentrant=False) if remat
-             else body(x, p))
+        x = (checkpoint(fn, x, p, use_reentrant=False) if remat
+             else fn(x, p))
     return x
 
 
@@ -248,7 +289,8 @@ def _scan_blocks(p_blocks, x, cos, sin, *, cfg: ModelConfig, tp: int = 1,
         return block_apply(p, h, cos, sin, cfg=cfg, tp=tp,
                            moe_impl=moe_impl)[0]
 
-    return _layer_loop(p_blocks, cfg.n_layers, x, body, cfg.remat)
+    return _layer_loop(p_blocks, cfg.n_layers, x, body, cfg.remat,
+                       _plan("blocks"))
 
 
 def encode(params: Params, frames, *, cfg: ModelConfig, tp: int = 1):
@@ -286,11 +328,19 @@ def decode_with_encoder(params: Params, enc, dec_tokens, *,
 
 def embed_tokens(params: Params, tokens, cfg: ModelConfig):
     """The tokens' embeddings in the compute dtype; vocab-parallel under a
-    mesh whose model axis splits the table (``collectives.vocab_embed``).
-    """
-    from repro_torch.distributed import collectives
+    mesh whose model axis splits the table (``collectives.vocab_embed``),
+    and under FSDP over data by ``collectives.fsdp_embed`` (the table is
+    never gathered)."""
+    from repro_torch.distributed import autoshard, collectives
 
     tp, _ = collectives.model_axis()
+    plan = _plan("embed", "table")
+    if plan is not None and "data" in plan[0]:
+        mesh = autoshard.active_mesh()
+        if mesh.size("data") > 1:     # FSDP: the table's columns over data
+            return collectives.fsdp_embed(
+                params["embed"]["table"], tokens, cfg.padded_vocab(),
+                cfg.d_model, torch_dtype(cfg.dtype))
     return layers.embed(params["embed"], tokens, torch_dtype(cfg.dtype),
                         rows=cfg.padded_vocab() if tp > 1 else None)
 
@@ -320,16 +370,21 @@ def forward(params: Params, tokens, *, cfg: ModelConfig, tp: int = 1,
     return layers.rmsnorm(params["norm_f"], x, eps=cfg.norm_eps)
 
 
-def _head_w(params: Params, cfg: ModelConfig):
+def _head_w(params: Params, cfg: ModelConfig, dtype=None):
+    """The LM head ``[d, V]`` (this rank's columns under a mesh that splits
+    the vocabulary), whole along the data axes under FSDP, in ``dtype``."""
     if cfg.tie_embeddings:
-        return params["embed"]["table"].T
-    return params["lm_head"]["w"]
+        w = _gathered(params["embed"]["table"], _plan("embed", "table"),
+                      dtype).T
+    else:
+        w = _gathered(params["lm_head"]["w"], _plan("lm_head", "w"), dtype)
+    return w if dtype is None else w.to(dtype)
 
 
 def lm_logits(params: Params, h, *, cfg: ModelConfig):
     """Full logits for sampling/eval.  h: [..., d] -> [..., V_padded];
     under a mesh that splits the vocabulary, this rank's columns."""
-    return h @ _head_w(params, cfg).to(h.dtype)
+    return h @ _head_w(params, cfg, h.dtype)
 
 
 def lm_loss_from_hidden(params: Params, h, labels, *, cfg: ModelConfig,
@@ -342,23 +397,46 @@ def lm_loss_from_hidden(params: Params, h, labels, *, cfg: ModelConfig,
     tile in both passes from the saved (m, n) stats, so neither the
     ``[T, V]`` logits nor their gradient is stored (no checkpoint needed).
     Otherwise each chunk materialises float32 logits inside an activation
-    checkpoint, so the backward recomputes them instead of saving them."""
+    checkpoint, so the backward recomputes them instead of saving them.
+
+    Under a mesh whose model axis splits the vocabulary, both routes are
+    vocab-parallel (``ops.lmhead_cross_entropy_sharded`` /
+    ``ops.cross_entropy_sharded``): each rank's columns only, the ranks'
+    (m, n) folded by one collective, ``h`` passed through
+    ``collectives.copy_to_model`` so that its gradient sums the ranks'
+    parts.  Under data axes the loss sum and the label count are summed
+    over the data ranks before the division: every rank returns the
+    global mean, and its gradient is its own tokens' part of it."""
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import ops
+
     policy = policy or cfg.softmax_policy()
     b, s, d = h.shape
-    w = _head_w(params, cfg).to(h.dtype)
+    w = _head_w(params, cfg, h.dtype)
     n_chunks = min(n_chunks, s)
     c = -(-s // n_chunks)
+    tp, _ = collectives.model_axis()
+    v_lo = collectives.vocab_range(cfg.padded_vocab())[0] if tp > 1 else 0
+    if tp > 1:
+        h = collectives.copy_to_model(h)
 
     def chunk_ce_fused(hc, labc, w_):
         tc = hc.shape[0] * hc.shape[1]
-        ce = policy.lmhead_cross_entropy(hc.reshape(tc, d), w_,
-                                         labc.reshape(tc))
+        if tp > 1:
+            ce = ops.lmhead_cross_entropy_sharded(
+                hc.reshape(tc, d), w_, labc.reshape(tc), v_lo, policy=policy)
+        else:
+            ce = policy.lmhead_cross_entropy(hc.reshape(tc, d), w_,
+                                             labc.reshape(tc))
         return ce.reshape(hc.shape[0], hc.shape[1])
 
     def chunk_ce_body(hc, labc, w_):
         tc = hc.shape[0] * hc.shape[1]
         logits = (hc.reshape(tc, d) @ w_).to(torch.float32)
-        ce = policy.cross_entropy(logits, labc.reshape(tc))
+        if tp > 1:
+            ce = ops.cross_entropy_sharded(logits, labc.reshape(tc), v_lo)
+        else:
+            ce = policy.cross_entropy(logits, labc.reshape(tc))
         return ce.reshape(hc.shape[0], hc.shape[1])
 
     def chunk_ce(hc, labc, w_):
@@ -383,6 +461,8 @@ def lm_loss_from_hidden(params: Params, h, labels, *, cfg: ModelConfig,
         else:
             total = total + ce.sum()
             count = count + ce.numel()
+    total = collectives.sum_over(total, "data")
+    count = collectives.sum_over(count, "data")
     return total / torch.clamp(count, min=1.0)
 
 

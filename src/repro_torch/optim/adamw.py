@@ -40,9 +40,28 @@ def init(params) -> AdamWState:
     return AdamWState(step, zeros, tree_map(torch.clone, zeros))
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves(tree)))
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """The norm of all of ``tree``'s values.  Under a ``mesh``, ``tree``
+    holds this rank's shards (cut by ``specs``): each rank sums the
+    squares of the leaves it is the first holder of
+    (``sharding.first_holder``: a leaf replicated along an axis counts
+    once, not once a rank), and one ``all_reduce`` over the world adds
+    them, so every rank takes the same norm."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in leaves(tree)))
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import first_holder, flatten
+
+    # specs read by path: their insertion order may differ from tree's
+    spec_of = dict(flatten(specs))
+    sq = torch.zeros((), dtype=torch.float32, device=leaves(tree)[0].device)
+    for path, x in flatten(tree):
+        if first_holder(spec_of[path], mesh):
+            sq = sq + torch.sum(torch.square(x.to(torch.float32)))
+    dist.all_reduce(sq)
+    return torch.sqrt(sq)
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -59,11 +78,15 @@ def _clip_scale(norm, max_norm):
 
 @torch.no_grad()
 def update(grads, state: AdamWState, params, lr, *, b1=0.9, b2=0.95,
-           eps=1e-8, weight_decay=0.1, max_grad_norm: float | None = 1.0):
+           eps=1e-8, weight_decay=0.1, max_grad_norm: float | None = 1.0,
+           mesh=None, specs=None):
     """One AdamW step: ``params`` and the moments change in place.  Returns
     ``(params, new_state, metrics)``.  ``grads`` is a tree like ``params``;
-    its tensors are clipped in place."""
-    gnorm = global_norm(grads)
+    its tensors are clipped in place.  Under a ``mesh`` the trees hold this
+    rank's shards by ``specs``: the norm is global (:func:`global_norm`),
+    so every rank clips by the same scale, and the update, elementwise,
+    runs on the shards as they are."""
+    gnorm = global_norm(grads, mesh, specs)
     scale = (_clip_scale(gnorm, max_grad_norm)
              if max_grad_norm is not None else None)
     step = state.step + 1

@@ -47,17 +47,47 @@ def loss_and_grads(model: Model, params, batch: dict, policy=None,
     return loss.detach(), adamw.tree_map(lambda _: next(it), params)
 
 
+def sum_replicated_grads(grads, specs, mesh) -> None:
+    """Sum over the data axes, in place, the gradients of the leaves that
+    are whole along them (norm scales, biases): each data rank holds its
+    own tokens' part.  The leaves cut along them had theirs summed by the
+    FSDP gather's backward (a reduce-scatter); along ``model`` every
+    gradient is already whole or this rank's own columns."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+
+    data = tuple(a for a in mesh.axis_names if a != "model")
+    if not data or all(mesh.size(a) == 1 for a in data):
+        return
+    if len(data) > 1:
+        raise NotImplementedError(f"data axes {data}: one is ported")
+    group = mesh.group(data[0])
+    spec_of = dict(sharding.flatten(specs))
+    for path, g in sharding.flatten(grads):
+        if data[0] not in sharding.named_axes(spec_of[path]):
+            dist.all_reduce(g, group=group)
+
+
 def make_train_step(model: Model, *, lr_schedule: Callable | None = None,
                     microbatches: int = 1, grad_compression: str = "none",
                     moe_impl: str = "dispatch",
                     max_grad_norm: float | None = 1.0,
-                    softmax_policy=None):
+                    softmax_policy=None, mesh=None, plan=None):
     """``train_step(state, batch) -> (state, metrics)``; ``metrics`` holds
     ``loss``, ``lr`` and ``grad_norm`` (0-d float32 tensors).  The state's
     parameters and moments are updated in place.  A moe model's experts
     run by ``moe_impl``.  ``softmax_policy`` overrides the model config's
     policy for the loss only: the training-side switch for the fused
-    LM-head CE kernels."""
+    LM-head CE kernels.
+
+    Under a ``mesh`` (``('data', 'model')``) the state holds this rank's
+    shards by ``plan`` (``sharding.fsdp_plan`` of the parameters'
+    ``param_specs``, FSDP on), the step takes the global batch and keeps
+    this rank's rows (``pipeline.shard_batch``), runs the model under
+    ``autoshard.hints(mesh, plan)``, sums the data-replicated leaves'
+    gradients over the data axes, and clips by the global norm.  The loss
+    and the norm in ``metrics`` are global, the same on every rank."""
     lr_fn = lr_schedule or functools.partial(schedules.warmup_cosine)
     policy = softmax_policy or model.cfg.softmax_policy()
     if grad_compression not in ("none", "bf16"):
@@ -67,7 +97,20 @@ def make_train_step(model: Model, *, lr_schedule: Callable | None = None,
             "value through uncompressed); the port refuses the setting "
             "rather than ignore it")
 
+    specs = (adamw.tree_map(lambda e: e[0], plan) if plan is not None
+             else None)
+
     def train_step(state: TrainState, batch: dict):
+        if mesh is None:
+            return _step(state, batch)
+        from repro_torch.data.pipeline import shard_batch
+        from repro_torch.distributed import autoshard, sharding
+
+        batch = shard_batch(batch, mesh, sharding.batch_specs(batch, mesh))
+        with autoshard.hints(mesh, plan):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: dict):
         batch = _to_device(batch, model.device)
         if microbatches > 1:
             def slice_mb(i):
@@ -89,13 +132,16 @@ def make_train_step(model: Model, *, lr_schedule: Callable | None = None,
             loss, grads = loss_and_grads(model, state.params, batch, policy,
                                          moe_impl)
 
+        if mesh is not None:
+            sum_replicated_grads(grads, specs, mesh)
         if grad_compression == "bf16":
             grads = compression.decompress_bf16(
                 compression.compress_bf16(grads))
 
         lr = lr_fn(state.opt.step)
         params, opt, metrics = adamw.update(
-            grads, state.opt, state.params, lr, max_grad_norm=max_grad_norm)
+            grads, state.opt, state.params, lr, max_grad_norm=max_grad_norm,
+            mesh=mesh, specs=specs)
         return TrainState(params, opt), dict(metrics, loss=loss, lr=lr)
 
     return train_step

@@ -322,6 +322,95 @@ def test_lmhead_fused_backward_equals_separate(cuda, dtype, t, d, v):
     assert torch.equal(dw, txe.lmhead_xent_dw_2d(*args, block_v=512))
 
 
+# The vocab-parallel CE (a model axis of 2 splitting the columns in
+# halves), as training under a mesh runs kernels 9-11 on a rank's columns.
+VOCAB_SPLITS = [(77, 1000, 2000), (130, 64, 2048)]
+
+
+def _halves(cuda, dtype, t, d, v):
+    g = torch.Generator(device=cuda).manual_seed(t + d + v + 1)
+    h = torch.randn(t, d, device=cuda, generator=g).to(dtype)
+    w = (torch.randn(d, v, device=cuda, generator=g) * d ** -0.5).to(dtype)
+    lab = torch.randint(0, v, (t,), device=cuda, generator=g)
+    dl = torch.randn(t, device=cuda, generator=g)
+    half = v // 2
+    return h, w, lab, dl, half, (w[:, :half].contiguous(),
+                                 w[:, half:].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,d,v", VOCAB_SPLITS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lmhead_labels_outside_the_shard_gather_zero(cuda, dtype, t, d, v):
+    # every label outside this rank's columns: the label logit is exactly
+    # 0, so the loss is the shard's own lse; the plain version agrees
+    h, _, lab, _, half, (_, w1) = _halves(cuda, dtype, t, d, v)
+    lab1 = torch.remainder(lab, half) - half          # all below 0
+    loss, m_sum, n_sum = txe.lmhead_xent_fwd_2d(h, w1, lab1, block_v=512)
+    lse = torch.log(torch.clamp(m_sum[:, 0], min=1e-37)) \
+        + n_sum[:, 0] * txe.LN2
+    assert torch.equal(loss, lse)
+    pl, _, _ = txe.lmhead_xent_fwd_2d_plain(h, w1, lab1,
+                                            txe.lmhead_v_chunks(half, 512))
+    torch.testing.assert_close(loss, pl, atol=2e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,d,v", VOCAB_SPLITS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lmhead_halves_fold_to_the_full_vocabulary(cuda, dtype, t, d, v):
+    # kernel 9 on each half, the two (m, n) folded and the label logits
+    # summed, against kernel 9 over all columns; kernels 10-11 on one half
+    # from the folded stats against their plain versions, and against the
+    # full backward's columns of that half
+    from repro_torch.core import numerics
+
+    h, w, lab, dl, half, cols = _halves(cuda, dtype, t, d, v)
+    parts = []
+    for r, wr in enumerate(cols):
+        lr = lab - r * half
+        loss_r, m_r, n_r = txe.lmhead_xent_fwd_2d(h, wr, lr, block_v=512)
+        lse_r = torch.log(torch.clamp(m_r[:, 0], min=1e-37)) \
+            + n_r[:, 0] * txe.LN2
+        parts.append((m_r, n_r, torch.where((lr >= 0) & (lr < half),
+                                            lse_r - loss_r, 0.0)))
+    s = numerics.ext_sum(numerics.ExtFloat(
+        torch.stack([p[0] for p in parts]),
+        torch.stack([p[1] for p in parts])), axis=0)
+    folded = (torch.log(torch.clamp(s.mantissa[:, 0], min=1e-37))
+              + s.exponent[:, 0] * txe.LN2 - parts[0][2] - parts[1][2])
+    full, fm, fn = txe.lmhead_xent_fwd_2d(h, w, lab, block_v=512)
+    torch.testing.assert_close(folded, full, atol=2e-4, rtol=1e-5)
+    args = (h, cols[0], lab, s.mantissa, s.exponent, dl)
+    dh, dw = txe.lmhead_xent_bwd_2d(*args, block_v=512)
+    n = txe.lmhead_v_chunks(half, 512)
+    pdh, pdw = txe.lmhead_xent_bwd_2d_plain(*args, n)
+    torch.testing.assert_close(dh, pdh, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(dw, pdw, atol=1e-5, rtol=1e-4)
+    _, dw_full = txe.lmhead_xent_bwd_2d(h, w, lab, fm, fn, dl, block_v=512)
+    torch.testing.assert_close(dw, dw_full[:, :half], atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vocab_parallel_op_on_one_rank_equals_the_fused_op(cuda, dtype):
+    # with no mesh the sharded op's fold is the rank's own stats: its loss,
+    # dh and dw through the kernels equal the unsharded op's (the loss up
+    # to the one rounding of recovering the label logit)
+    h, w, lab, dl, _, _ = _halves(cuda, dtype, 130, 64, 2048)
+    outs = []
+    for fn in (ops.lmhead_cross_entropy, ops.lmhead_cross_entropy_sharded):
+        hh, ww = (x.clone().requires_grad_(True) for x in (h, w))
+        extra = (0,) if fn is ops.lmhead_cross_entropy_sharded else ()
+        loss = fn(hh, ww, lab, *extra, block_v=512, impl="cuda")
+        loss.backward(dl)
+        outs.append((loss.detach(), hh.grad, ww.grad))
+    torch.testing.assert_close(outs[1][0], outs[0][0], atol=2e-4, rtol=1e-5)
+    assert torch.equal(outs[1][1], outs[0][1])
+    assert torch.equal(outs[1][2], outs[0][2])
+    assert tk.launch_counts()["lmhead_xent_fwd_2d"] == 2
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lmhead_op_backward_computes_dlogits_once_a_slab(cuda, dtype):

@@ -1,9 +1,9 @@
 """The port's train loop on the CPU: the checkpointer (roundtrip, async,
-atomic publish, GC, the reference's on-disk layout both ways), the
-fault-tolerance units, crash-resume through ``Trainer`` and the training
-CLI (``python -m repro_torch.launch.train``).  The cases of
-tests/test_checkpoint_ft.py, less the elastic-mesh restore (the port has
-no mesh yet: ROADMAP queue A item 22)."""
+atomic publish, GC, the reference's on-disk layout both ways, restore onto
+a mesh), the fault-tolerance units, crash-resume through ``Trainer`` and
+the training CLI (``python -m repro_torch.launch.train``).  The cases of
+tests/test_checkpoint_ft.py; the elastic restore across meshes of ranks
+is tests/test_torch_fsdp_training.py."""
 
 import os
 import pathlib
@@ -99,11 +99,26 @@ class TestCheckpointer:
         assert ck.steps() == [3, 4]
 
     def test_mesh_restore_is_refused(self, tmp_path):
-        _, state = _tiny_state()
+        # restore onto a mesh is refused without the target's specs; with
+        # them, a mesh of one rank (no process group) restores the global
+        # arrays whole (the cross-mesh cases spawn ranks:
+        # tests/test_torch_fsdp_training.py)
+        from repro_torch.distributed import sharding
+        from repro_torch.launch.mesh import make_mesh
+
+        m, state = _tiny_state()
+        state.opt.step.fill_(5)
         ck = Checkpointer(tmp_path)
         ck.save(5, state, blocking=True)
-        with pytest.raises(NotImplementedError, match="item 22"):
-            ck.restore_latest(state, mesh=object(), specs={})
+        mesh = make_mesh((1, 1), ("data", "model"), backend="gloo")
+        with pytest.raises(ValueError, match="specs"):
+            ck.restore_latest(state, mesh=mesh)
+        specs = train_state.state_specs(sharding.param_specs(
+            m.init_shape(), m.cfg, mesh))
+        step, got = ck.restore_latest(_zeros_like(state), mesh, specs)
+        assert step == 5
+        for a, b in zip(_leaves(state), _leaves(got)):
+            assert torch.equal(a, b)
 
     def test_reference_checkpoints_restore_in_the_port(self, tmp_path):
         # a float32 reduced state written by the reference's Checkpointer
@@ -167,11 +182,14 @@ class TestCrashResume:
             np.testing.assert_allclose(losses1[s], losses2[s], rtol=1e-5)
 
     def test_trainer_refuses_a_mesh(self):
-        m = build_model("granite-20b", reduced=True, n_layers=2,
-                        device="cpu")
-        with pytest.raises(NotImplementedError, match="item 22"):
-            Trainer(m, ShapeCell("t", 8, 2, "train"), TrainerConfig(),
-                    mesh=object())
+        # MQA (granite-20b: one KV head) and the families outside the
+        # dense one stay refused under a mesh (ROADMAP item 35)
+        for arch, kv in (("granite-20b", 1), ("rwkv6-1.6b", 2)):
+            m = build_model(arch, reduced=True, n_layers=2, device="cpu",
+                            n_kv_heads=kv)
+            with pytest.raises(NotImplementedError, match="item 35"):
+                Trainer(m, ShapeCell("t", 8, 2, "train"), TrainerConfig(),
+                        mesh=object())
 
 
 class TestFaultTolerance:
@@ -233,12 +251,20 @@ class TestTrainCli:
         assert "final: {'step': 2," in out
         assert Checkpointer(tmp_path).steps() == [2, 3]
 
-    @pytest.mark.parametrize("flags,item", [(["--mesh", "1x1"], 22)])
-    def test_unported_flags_exit_with_their_item(self, flags, item, capsys):
+    # --mesh trains (tests/test_torch_fsdp_training.py); without
+    # --backend it exits naming the rule, and a family outside the dense
+    # one, or MQA, exits naming its item (35)
+    @pytest.mark.parametrize("flags,says", [
+        (["--mesh", "1x1"], "--mesh needs --backend"),
+        (["--mesh", "1x2", "--backend", "gloo", "--arch", "rwkv6-1.6b"],
+         "item 35"),
+        (["--mesh", "1x2", "--backend", "gloo", "--arch", "granite-20b"],
+         "item 35")], ids=["flags0-22", "ssm", "mqa"])
+    def test_unported_flags_exit_with_their_item(self, flags, says, capsys):
         with pytest.raises(SystemExit) as e:
             train_cli.main(self.BASE + flags)
         assert e.value.code == 2
-        assert f"item {item}" in capsys.readouterr().err
+        assert says in capsys.readouterr().err
 
     @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
                                       "deepseek-v2-lite-16b"])
